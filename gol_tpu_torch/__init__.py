@@ -1,0 +1,24 @@
+"""gol_tpu_torch — the PyTorch/CUDA port of gol_tpu, for one NVIDIA H100.
+
+The same CLI contract, text grid format, B3/S23 toroidal semantics and
+early-exit accounting as the JAX package, which stays beside it as the
+reference. The packed stencil's TPU kernels are hand-written CUDA kernels
+for Hopper (``csrc/``), built with nvcc at first use and bound with ctypes;
+each has a plain torch version that the CPU path runs. The port imports
+neither ``jax`` nor ``gol_tpu``.
+"""
+
+from gol_tpu_torch.config import DEFAULT_CONFIG, GEN_LIMIT, SIMILARITY_FREQUENCY, GameConfig
+from gol_tpu_torch.oracle import Result, evolve as oracle_evolve, run as oracle_run
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "GameConfig",
+    "DEFAULT_CONFIG",
+    "GEN_LIMIT",
+    "SIMILARITY_FREQUENCY",
+    "oracle_evolve",
+    "oracle_run",
+    "Result",
+]

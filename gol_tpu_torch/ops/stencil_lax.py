@@ -1,0 +1,32 @@
+"""Byte-per-cell 3x3 Moore stencil in plain torch — the any-shape path.
+
+The port of ``gol_tpu/ops/stencil_lax.py``'s ``evolve_torus``: the toroidal
+wrap as whole-tensor rolls (the index-remapping wrap of src/game.c:69-86).
+The JAX package has no Pallas kernel behind it, so plain torch is this
+path's implementation on both the CPU and the card. ``auto`` picks it for
+widths that do not pack into 32-bit words.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _apply_rule(neighbors: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
+    # B3/S23 (src/game.c:91-98): born on 3, survive on 2.
+    return ((neighbors == 3) | ((neighbors == 2) & (center == 1))).to(torch.uint8)
+
+
+def neighbor_counts_torus(grid: torch.Tensor) -> torch.Tensor:
+    """Sum of the 8 Moore neighbors with toroidal wrap (uint8 is enough).
+
+    Separable: the vertical triple sum of each column, then its horizontal
+    triple sum, minus the center — the same counts as eight shifted copies
+    with half the rolls."""
+    col = grid + torch.roll(grid, 1, dims=0) + torch.roll(grid, -1, dims=0)
+    return col + torch.roll(col, 1, dims=1) + torch.roll(col, -1, dims=1) - grid
+
+
+def evolve_torus(grid: torch.Tensor) -> torch.Tensor:
+    """One generation of the full torus of uint8 {0,1} cells."""
+    return _apply_rule(neighbor_counts_torus(grid), grid)

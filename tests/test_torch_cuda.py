@@ -1,0 +1,94 @@
+"""The port's CUDA kernels on the card, against their plain torch versions.
+
+Marked ``cuda``: each test skips (inside a fixture, so every worker collects
+the same tests) where torch sees no CUDA card. Run on the card with
+``python -m pytest -m cuda tests/test_torch_cuda.py``. Words, flags and
+generation counts must match exactly.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gol_tpu_torch import engine, oracle
+from gol_tpu_torch.config import Convention, GameConfig
+from gol_tpu_torch.io import text_grid
+from gol_tpu_torch.ops import packed_math as pm
+from gol_tpu_torch.ops import stencil_packed as sp
+
+pytestmark = pytest.mark.cuda
+
+SHAPES = [(1, 1), (7, 1), (16, 2), (17, 5), (200, 33)]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; torch sees none")
+    sp.load_kernels()
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _inputs(height, nwords, seed=0):
+    rng = np.random.default_rng(seed + height * 31 + nwords)
+    soup = rng.integers(0, 2**32, size=(height, nwords), dtype=np.uint64)
+    die = np.zeros((height, nwords * 32), np.uint8)
+    die[height // 2, 5:7] = 1
+    onset = np.zeros((height, nwords * 32), np.uint8)
+    onset[0, 0] = onset[1 % height, 0] = onset[0, nwords * 32 - 1] = 1
+    return {
+        "soup": soup.astype(np.uint32),
+        "die": pm.words_to_numpy(pm.encode(torch.from_numpy(die))),
+        "onset": pm.words_to_numpy(pm.encode(torch.from_numpy(onset))),
+    }
+
+
+@pytest.mark.parametrize("height,nwords", SHAPES)
+@pytest.mark.parametrize("kernel", ["bandt_fast", "bandt", "band"])
+def test_kernel_matches_plain(card, kernel, height, nwords):
+    into, nflags = {
+        "bandt_fast": (sp._step_t_fast_into, sp.SUMMARY_FLAGS),
+        "bandt": (sp._step_t_into, sp.EXACT_FLAGS),
+        "band": (sp._step_into, sp.STEP_FLAGS),
+    }[kernel]
+    for name, words in _inputs(height, nwords).items():
+        x = pm.words_from_numpy(words, card)
+        out = torch.empty_like(x)
+        flags = torch.zeros(nflags, dtype=torch.int32, device=card)
+        before = sp.LAUNCHES[kernel]
+        into(x, out, flags)
+        torch.cuda.synchronize(card)
+        assert sp.LAUNCHES[kernel] == before + 1
+        if kernel == "band":
+            want, want_flags = sp._band_plain(x)
+        else:
+            want, want_flags = sp._bandt_plain(x, exact=kernel == "bandt")
+        assert torch.equal(out, want), name
+        assert flags.tolist() == want_flags.tolist(), name
+
+
+@pytest.mark.parametrize("convention", [Convention.C, Convention.CUDA])
+def test_engine_on_the_card_matches_oracle(card, convention):
+    grids = [text_grid.generate(64, 64, seed=1)]
+    patch = np.zeros((32, 64), np.uint8)
+    patch[12:17, 28:33] = np.random.default_rng(203).integers(0, 2, (5, 5),
+                                                              dtype=np.uint8)
+    grids.append(patch)  # dies at generation 44: K2 and empty-exit replays
+    for grid in grids:
+        for limit in (1000, 37):
+            config = GameConfig(convention=convention, gen_limit=limit)
+            want = oracle.run(grid, config)
+            got = engine.simulate(grid, config, device=card)
+            assert got.generations == want.generations
+            np.testing.assert_array_equal(got.grid, want.grid)
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take(card):
+    x = torch.zeros((8, 2), dtype=torch.int32, device=card)
+    flags = torch.zeros(16, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="alias"):
+        sp._step_t_into(x, x, flags)
+    with pytest.raises(ValueError, match="contiguous"):
+        sp._step_into(x.t(), torch.empty_like(x.t()), flags)
+    with pytest.raises(ValueError, match="is on"):
+        sp._step_into(x, torch.empty_like(x), flags.cpu())
