@@ -4,42 +4,56 @@
     python3 chip_smoke.py        # from the repository root, on a machine with a card
 
 The quickest proof that the port still starts on the GPU. It needs one card,
-``nvcc`` and nothing of JAX, and generates every input from a seed. Phases,
-each of which fails the run (non-zero exit, no result line) on any error:
+``nvcc``, ``cc`` and nothing of JAX, and generates every input from a seed.
+Phases, each of which fails the run (non-zero exit, no result line) on any
+error:
 
 1. Card and build: the card's name and power limit (nvidia-smi), then the
-   kernels built from ``gol_tpu_torch/csrc`` with nvcc's ``-Xptxas -v``
-   report (registers, shared memory, spills).
+   native code built from the checkout — one compiler per source, all
+   started together: ``csrc/stencil_packed.cu`` (K1-K3),
+   ``csrc/stencil_pallas.cu`` (K4) and ``native/codec.c`` (the packed-I/O
+   text codec) — with nvcc's ``-Xptxas -v`` report (registers, shared
+   memory, spills).
 2. Kernels against their plain torch versions on the card: K1 (fast-flag
    8-generation pass), K2 (exact-flag pass) and K3 (one generation) at
-   (height, nwords) (1,1) (7,1) (16,2) (17,5) (1000,7) (16384,512), on
-   random words, a domino that dies inside a pass and an L-tromino that
-   becomes still inside it. Words and flags must be identical.
+   (height, nwords) (1,1) (7,1) (16,2) (17,5) (1000,7) (16384,512), and K4
+   (one byte-cell generation) at (height, width) (1,1) (7,3) (16,128)
+   (17,161) (1000,225) (16384,16384), on random cells, a domino that dies
+   and an L-tromino that becomes still. Outputs and flags must be
+   identical.
 3. Small flows through ``python -m gol_tpu_torch`` on the card, against the
    port's numpy oracle, for both loop conventions: the verify skill's four
-   flows at 48^2 (random for 1000 generations, 2x2 block, lone cell, all
-   dead; the byte ``lax`` path) and a random grid plus the same three
-   patterns at 64^2 (the packed kernels).
+   flows at 48^2 and 64^2 (random for 1000 generations, 2x2 block, lone
+   cell, all dead) with ``--kernel auto`` and ``--kernel pallas``; the 64^2
+   flows with ``--packed-io``; the 48^2 flows with ``--host``; the random
+   48^2 grid under each of ``mpi``/``collective``/``async``/``openmp``
+   (default output name, printed lines, bytes); ``--snapshot-every 100``
+   (every ``gen_NNNNNN.out`` equal to the oracle's state at that
+   generation); and ``--resume-gen 300`` from a snapshot against the whole
+   run.
 4. The main path at full size, 16384^2 (268 MB of text, 32 MiB of packed
    words), through the CLI entry point: ``--variant game`` and ``cuda``,
    each on (a) a random grid for 1000 generations (K1 only), (b) the same
    for 1003 (a K3 tail), (c) an L-tromino that becomes still at generation
    1 (K2 replay) and (d) a three-cell diagonal that dies at generation 2 (K2
    replay, and under ``cuda`` the K3 empty-exit replay), (c) and (d) once in
-   the middle and once across the torus corner. One uncounted run (a)
-   warms the process first. For each variant the launch counters are set
-   to 0 just before its six ``--kernel auto`` runs and read just after;
-   each of K1, K2 and K3 must have launched on each. Every run is repeated
-   with ``--kernel lax`` (byte cells, plain torch): output bytes and generation
-   counts must match, and (c)/(d) must match the oracle on a 64^2 copy.
+   the middle and once across the torus corner. Three lanes run the six
+   inputs: ``--kernel auto`` (K1-K3), ``--kernel pallas`` (K4) and
+   ``--packed-io`` (K1-K3 with no encode/decode). One uncounted run (a) of
+   each lane warms the process first. For each variant and lane the launch
+   counters are set to 0 just before its six runs and read just after; each
+   kernel of the lane must have launched. ``pallas`` and ``--packed-io``
+   must give the same output bytes and generation counts as ``auto``; every
+   run is repeated with ``--kernel lax`` (byte cells, plain torch) with the
+   same check, and (c)/(d) must match the oracle on a 64^2 copy.
 5. Timing at 16384^2: each kernel and its plain version over 100 warm
    launches (CUDA events), beside its bound — the larger of the bytes it
-   must move over 3.35 TB/s and its ~28 logic ops per word per generation
-   over the card's 32-bit integer logic rate: 64 results per clock per SM
-   (CUDA C++ Programming Guide, arithmetic instruction throughput,
-   compute capability 9.0: 32-bit bitwise AND/OR/XOR and shifts) times the
-   SM count times the maximum SM clock (nvidia-smi ``clocks.max.sm``).
-   No single PyTorch call computes a B3/S23 step, so ``library_ms`` is null.
+   must move over 3.35 TB/s and its 32-bit integer logic ops over the
+   card's rate for them: 64 results per clock per SM (CUDA C++ Programming
+   Guide, arithmetic instruction throughput, compute capability 9.0:
+   32-bit bitwise AND/OR/XOR, shifts and adds) times the SM count times the
+   maximum SM clock (nvidia-smi ``clocks.max.sm``). No single PyTorch call
+   computes a B3/S23 step, so ``library_ms`` is null.
 
 The last lines are the kernel table as one JSON object, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``.
@@ -47,6 +61,7 @@ and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import hashlib
 import io
@@ -63,22 +78,33 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from gol_tpu_torch import cli, oracle, platform_env
+from gol_tpu_torch import cli, native, oracle, platform_env
 from gol_tpu_torch.config import Convention, GameConfig
 from gol_tpu_torch.io import text_grid
-from gol_tpu_torch.ops import _build, packed_math as pm, stencil_packed as sp
+from gol_tpu_torch.ops import _build, packed_math as pm
+from gol_tpu_torch.ops import stencil_packed as sp
+from gol_tpu_torch.ops import stencil_pallas as spl
 
 REPO = Path(__file__).resolve().parent
 SIZE = 16384
 SEED = 20261016
 HBM_BYTES_PER_S = 3.35e12
 INT32_LOGIC_PER_CLK_PER_SM = 64
+# Packed kernels: ~28 two-input logic ops per word per generation
+# (packed_math.py's adder network, shifts included).
 OPS_PER_WORD_GEN = 28
-SHAPES = [(1, 1), (7, 1), (16, 2), (17, 5), (1000, 7), (SIZE, SIZE // 32)]
+# K4, per 4-cell word per generation, from the inner loop of
+# csrc/stencil_pallas.cu: the new row's triple sum 8 (two 3-op shifted
+# words, two adds), the 3x3 sums 2, two byte compares 7 each, the rule 2,
+# the flags 5.
+OPS_PER_BYTE_WORD = 31
+PACKED_SHAPES = [(1, 1), (7, 1), (16, 2), (17, 5), (1000, 7), (SIZE, SIZE // 32)]
+BYTE_SHAPES = [(1, 1), (7, 3), (16, 128), (17, 161), (1000, 225), (SIZE, SIZE)]
 KERNELS = [
     {
         "key": "bandt_fast", "id": "K1", "gens": sp.TEMPORAL_GENS,
         "name": "K1 bandt_kernel<SUMMARY>: 8-generation pass, summary flags",
+        "source": "gol_tpu_torch/csrc/stencil_packed.cu",
         "replaces": "gol_tpu/ops/stencil_packed.py:584",
         "into": sp._step_t_fast_into, "nflags": sp.SUMMARY_FLAGS,
         "plain": lambda x: sp._bandt_plain(x, exact=False),
@@ -86,6 +112,7 @@ KERNELS = [
     {
         "key": "bandt", "id": "K2", "gens": sp.TEMPORAL_GENS,
         "name": "K2 bandt_kernel<EXACT>: 8-generation pass, exact flags",
+        "source": "gol_tpu_torch/csrc/stencil_packed.cu",
         "replaces": "gol_tpu/ops/stencil_packed.py:437",
         "into": sp._step_t_into, "nflags": sp.EXACT_FLAGS,
         "plain": lambda x: sp._bandt_plain(x, exact=True),
@@ -93,11 +120,28 @@ KERNELS = [
     {
         "key": "band", "id": "K3", "gens": 1,
         "name": "K3 band_kernel: one generation, fused flags",
+        "source": "gol_tpu_torch/csrc/stencil_packed.cu",
         "replaces": "gol_tpu/ops/stencil_packed.py:164",
         "into": sp._step_into, "nflags": sp.STEP_FLAGS,
         "plain": sp._band_plain,
     },
+    {
+        "key": "byte_band", "id": "K4", "gens": 1,
+        "name": "K4 byte_step_kernel: one byte-cell generation, fused flags",
+        "source": "gol_tpu_torch/csrc/stencil_pallas.cu",
+        "replaces": "gol_tpu/ops/stencil_pallas.py:85",
+        "into": spl._step_into, "nflags": spl.STEP_FLAGS,
+        "plain": spl._band_plain, "cells": True,
+    },
 ]
+PACKED = [k for k in KERNELS if not k.get("cells")]
+BYTE = [k for k in KERNELS if k.get("cells")]
+# The main path's lanes: CLI flags and the kernels each must launch.
+LANES = {
+    "auto": (["--kernel", "auto"], ("bandt_fast", "bandt", "band")),
+    "pallas": (["--kernel", "pallas"], ("byte_band",)),
+    "packed_io": (["--packed-io"], ("bandt_fast", "bandt", "band")),
+}
 
 
 def fail(msg: str) -> None:
@@ -113,6 +157,16 @@ def _u32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int64) & 0xFFFFFFFF
 
 
+def _zero_counters() -> None:
+    for counters in (sp.LAUNCHES, spl.LAUNCHES):
+        for k in counters:
+            counters[k] = 0
+
+
+def _counts() -> dict:
+    return {**sp.LAUNCHES, **spl.LAUNCHES}
+
+
 # ---------------------------------------------------------------------------
 # 1. Card and build
 
@@ -126,10 +180,19 @@ def card_and_build() -> str:
     print(sys.version.split()[0], "torch", torch.__version__, "cuda",
           torch.version.cuda, torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        builds = [pool.submit(_build.build, "stencil_packed"),
+                  pool.submit(_build.build, "stencil_pallas"),
+                  pool.submit(native.load)]
+        for b in builds:
+            b.result()
     sp.load_kernels()
-    print(f"built and loaded {_build.library_path('stencil_packed').name} "
-          f"in {time.perf_counter() - t0:.3f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
-    print(_build.build_log("stencil_packed").rstrip())
+    spl.load_kernels()
+    print(f"built and loaded {_build.library_path('stencil_packed').name}, "
+          f"{_build.library_path('stencil_pallas').name} and the codec in "
+          f"{time.perf_counter() - t0:.3f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
+    for name in ("stencil_packed", "stencil_pallas"):
+        print(_build.build_log(name).rstrip())
     return smi
 
 
@@ -144,51 +207,63 @@ def _pattern(height: int, width: int, cells) -> np.ndarray:
     return g
 
 
-def _kernel_inputs(height: int, nwords: int, rng) -> dict:
-    width = 32 * nwords
+def _cell_inputs(height: int, width: int, rng) -> dict:
     domino = _pattern(height, width, [(height // 2, width // 2),
                                       (height // 2, width // 2 + 1)])
     tromino = _pattern(height, width, [(-1, -1), (0, -1), (-1, 0)])
     return {
-        "random": rng.integers(0, 2**32, size=(height, nwords),
-                               dtype=np.uint64).astype(np.uint32),
-        "dies_in_pass": pm.words_to_numpy(pm.encode(torch.from_numpy(domino))),
-        "still_in_pass": pm.words_to_numpy(pm.encode(torch.from_numpy(tromino))),
+        "random": (rng.random((height, width), dtype=np.float32) < 0.5).astype(np.uint8),
+        "dies": domino,
+        "becomes_still": tromino,
     }
+
+
+def _compare(k: dict, x: torch.Tensor, stats: dict, where: str) -> None:
+    dev = x.device
+    out = torch.empty_like(x)
+    flags = torch.zeros(k["nflags"], dtype=torch.int32, device=dev)
+    k["into"](x, out, flags)
+    want, want_flags = k["plain"](x)
+    torch.cuda.synchronize(dev)
+    err = max(
+        int((_u32(out) - _u32(want)).abs().max()),
+        int((flags - want_flags).abs().max()),
+    )
+    s = stats[k["key"]]
+    s["max_abs_err"] = max(s["max_abs_err"], err)
+    s["checks"] += 1
+    if err:
+        fail(f"{k['id']} differs from its plain version at {where}: "
+             f"{flags.tolist()} vs {want_flags.tolist()}")
 
 
 def check_kernels(dev, stats: dict) -> None:
     rng = np.random.default_rng(SEED)
-    for height, nwords in SHAPES:
-        for name, words in _kernel_inputs(height, nwords, rng).items():
-            x = pm.words_from_numpy(words, dev)
-            for k in KERNELS:
-                out = torch.empty_like(x)
-                flags = torch.zeros(k["nflags"], dtype=torch.int32, device=dev)
-                k["into"](x, out, flags)
-                want, want_flags = k["plain"](x)
-                torch.cuda.synchronize(dev)
-                err = max(
-                    int((_u32(out) - _u32(want)).abs().max()),
-                    int((flags - want_flags).abs().max()),
-                )
-                s = stats[k["key"]]
-                s["max_abs_err"] = max(s["max_abs_err"], err)
-                s["checks"] += 1
-                if err:
-                    fail(f"{k['id']} differs from its plain version at "
-                         f"({height}, {nwords}) on {name}: {flags.tolist()} vs "
-                         f"{want_flags.tolist()}")
-        print(f"({height}, {nwords}): K1 K2 K3 == plain on random, "
-              "dies_in_pass, still_in_pass (tolerance 0: words and flags "
+    for height, nwords in PACKED_SHAPES:
+        for name, cells in _cell_inputs(height, 32 * nwords, rng).items():
+            x = pm.encode(torch.from_numpy(cells).to(dev))
+            for k in PACKED:
+                _compare(k, x, stats, f"({height}, {nwords}) on {name}")
+        print(f"(height, nwords) ({height}, {nwords}): K1 K2 K3 == plain on "
+              "random, dies, becomes_still (tolerance 0: words and flags "
               "identical)", flush=True)
+    for height, width in BYTE_SHAPES:
+        for name, cells in _cell_inputs(height, width, rng).items():
+            x = torch.from_numpy(cells).to(dev)
+            for k in BYTE:
+                _compare(k, x, stats, f"({height}, {width}) on {name}")
+        print(f"(height, width) ({height}, {width}): K4 == plain on random, "
+              "dies, becomes_still (tolerance 0: cells and flags identical)",
+              flush=True)
 
 
 # ---------------------------------------------------------------------------
 # 3. Small flows through `python -m gol_tpu_torch`
 
+_MS = re.compile(r"\d+\.\d+ msecs")
 
-def small_flows(work: Path) -> None:
+
+def _flows() -> dict:
     rng = np.random.default_rng(SEED + 1)
     flows = {}
     for n in (48, 64):
@@ -196,44 +271,129 @@ def small_flows(work: Path) -> None:
         flows[f"block{n}"] = _pattern(n, n, [(3, 3), (3, 4), (4, 3), (4, 4)])
         flows[f"lone{n}"] = _pattern(n, n, [(10, n - 8)])
         flows[f"dead{n}"] = np.zeros((n, n), np.uint8)
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(REPO)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
-    procs = []
-    try:
-        _run_flows(flows, work, env, procs)
-    finally:
-        for *_, proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    return flows
 
 
-def _run_flows(flows: dict, work: Path, env: dict, procs: list) -> None:
+def _expect_oracle(grid, convention, out: Path, limit: int = 1000):
+    want = oracle.run(grid, GameConfig(convention=convention, gen_limit=limit))
+
+    def check(stdout: str) -> str:
+        gens = int(re.search(r"Generations:\t(\d+)", stdout).group(1))
+        if gens != want.generations or out.read_bytes() != text_grid.encode(want.grid):
+            raise AssertionError(f"generations {gens} vs oracle "
+                                 f"{want.generations}, or output bytes differ")
+        return f"Generations {gens} == oracle, output bytes == oracle"
+
+    return check
+
+
+def _flow_jobs(work: Path) -> list:
+    """(label, argv, cwd, check) per process; ``check(stdout)`` returns
+    what it verified or raises AssertionError."""
+    flows = _flows()
+    jobs = []
     for name, grid in flows.items():
         n = grid.shape[0]
         inp = work / f"{name}.txt"
         text_grid.write_grid(str(inp), grid)
+        lanes = [("auto", ["--kernel", "auto"]), ("pallas", ["--kernel", "pallas"])]
+        if n == 64:
+            lanes.append(("packed_io", ["--packed-io"]))
+        else:
+            lanes.append(("host", ["--host"]))
         for variant in ("game", "cuda"):
-            out = work / f"{name}.{variant}.out"
-            cmd = [sys.executable, "-m", "gol_tpu_torch", str(n), str(n),
-                   str(inp), "--variant", variant, "--output", str(out)]
-            procs.append((name, variant, grid, out, subprocess.Popen(
-                cmd, cwd=work, env=env, stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True)))
-    for name, variant, grid, out, proc in procs:
-        stdout, stderr = proc.communicate(timeout=300)
+            convention = Convention.CUDA if variant == "cuda" else Convention.C
+            for lane, flags in lanes:
+                out = work / f"{name}.{variant}.{lane}.out"
+                jobs.append((f"{name:8s} --variant {variant:4s} {lane:9s}",
+                             [str(n), str(n), str(inp), "--variant", variant,
+                              *flags, "--output", str(out)],
+                             work, _expect_oracle(grid, convention, out)))
+    random48 = flows["random48"]
+    for variant in ("mpi", "collective", "async", "openmp"):
+        cwd = work / variant
+        cwd.mkdir()
+        lines = ["Reading file:\tX msecs", "Generations:\t1000",
+                 "Execution time:\tX msecs", "Writing file:\tX msecs"]
+        if variant != "openmp":
+            lines.append("Finished")
+        check_bytes = _expect_oracle(random48, Convention.C,
+                                     cwd / f"{variant}_output.out")
+
+        def check(stdout, lines=lines, check_bytes=check_bytes):
+            if _MS.sub("X msecs", stdout).splitlines() != lines:
+                raise AssertionError(f"printed lines {stdout!r}, want {lines}")
+            return f"{check_bytes(stdout)}, printed lines as expected"
+
+        jobs.append((f"random48 --variant {variant}", ["48", "48",
+                     str(work / "random48.txt"), "--variant", variant], cwd, check))
+    return jobs
+
+
+def _run_jobs(jobs: list, env: dict) -> None:
+    def run(job):
+        label, argv, cwd, check = job
+        proc = subprocess.run([sys.executable, "-m", "gol_tpu_torch", *argv],
+                              cwd=cwd, env=env, capture_output=True, text=True,
+                              timeout=300)
         if proc.returncode != 0:
-            fail(f"python -m gol_tpu_torch on {name} --variant {variant} "
-                 f"exited {proc.returncode}:\n{stderr}")
-        convention = Convention.CUDA if variant == "cuda" else Convention.C
-        want = oracle.run(grid, GameConfig(convention=convention))
-        gens = int(re.search(r"Generations:\t(\d+)", stdout).group(1))
-        if gens != want.generations or out.read_bytes() != text_grid.encode(want.grid):
-            fail(f"{name} --variant {variant}: generations {gens} vs oracle "
-                 f"{want.generations}, or output bytes differ")
-        print(f"{name:9s} --variant {variant:4s}: Generations {gens} == oracle, "
-              "output bytes == oracle", flush=True)
+            return label, f"exited {proc.returncode}:\n{proc.stderr}", False
+        try:
+            return label, check(proc.stdout), True
+        except (AssertionError, AttributeError) as e:
+            return label, str(e), False
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=12) as pool:
+        for label, msg, ok in pool.map(run, jobs):
+            if not ok:
+                fail(f"python -m gol_tpu_torch {label}: {msg}")
+            print(f"{label}: {msg}", flush=True)
+
+
+def _snapshot_and_resume(work: Path, env: dict) -> None:
+    """--snapshot-every 100 on random64 (game), then --resume-gen 300 from
+    its gen_000300.out with --kernel pallas, against the whole run."""
+    grid = _flows()["random64"]
+    inp, snaps = work / "random64.txt", work / "snaps"
+    whole = oracle.run(grid, GameConfig())
+    run = lambda argv: subprocess.run(
+        [sys.executable, "-m", "gol_tpu_torch", *argv], cwd=work, env=env,
+        capture_output=True, text=True, timeout=300)
+    proc = run(["64", "64", str(inp), "--variant", "game", "--snapshot-every",
+                "100", "--snapshot-dir", str(snaps), "--output",
+                str(work / "snap_whole.out")])
+    if proc.returncode != 0:
+        fail(f"--snapshot-every 100 exited {proc.returncode}:\n{proc.stderr}")
+    names = sorted(p.name for p in snaps.iterdir())
+    want_names = [f"gen_{g:06d}.out" for g in range(100, whole.generations + 1, 100)]
+    if names != want_names:
+        fail(f"--snapshot-every 100 wrote {names}, want {want_names}")
+    for name in names:
+        gens = int(name[4:10])
+        state = oracle.run(grid, GameConfig(gen_limit=gens)).grid
+        if (snaps / name).read_bytes() != text_grid.encode(state):
+            fail(f"snapshot {name} differs from the oracle's generation {gens}")
+    if (work / "snap_whole.out").read_bytes() != text_grid.encode(whole.grid):
+        fail("--snapshot-every 100: final output differs from the oracle")
+    print(f"--snapshot-every 100: {len(names)} snapshots {names[0]}..{names[-1]}, "
+          "each == the oracle's state at its generation", flush=True)
+    proc = run(["64", "64", str(snaps / "gen_000300.out"), "--variant", "game",
+                "--kernel", "pallas", "--resume-gen", "300", "--output",
+                str(work / "resumed.out")])
+    gens = re.search(r"Generations:\t(\d+)", proc.stdout)
+    if (proc.returncode != 0 or not gens or int(gens.group(1)) != whole.generations
+            or (work / "resumed.out").read_bytes() != text_grid.encode(whole.grid)):
+        fail(f"--resume-gen 300 differs from the whole run:\n{proc.stdout}{proc.stderr}")
+    print(f"--resume-gen 300 --kernel pallas from gen_000300.out: Generations "
+          f"{gens.group(1)}, bytes == the whole run", flush=True)
+
+
+def small_flows(work: Path) -> None:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    _run_jobs(_flow_jobs(work), env)
+    _snapshot_and_resume(work, env)
 
 
 # ---------------------------------------------------------------------------
@@ -294,70 +454,82 @@ def main_path(work: Path, dev) -> dict:
          ("d", "diagonal_mid"), ("d", "diagonal_corner"))]
     out = work / "out.txt"
 
-    def run(variant, kernel, key, limit):
+    def run(variant, flags, key, limit):
         gens, ms, _ = _cli([str(SIZE), str(SIZE), str(inputs[key]),
-                            "--variant", variant, "--kernel", kernel,
+                            "--variant", variant, *flags,
                             "--gen-limit", str(limit), "--output", str(out)])
         return gens, ms
 
-    # Warm the process at full size (allocator, first launches), uncounted;
-    # run (a) is timed after it, as the CLI's --warmup would time it.
-    gens, ms = run("game", "auto", "random", 1000)
-    print(f"warm-up (uncounted): game random limit 1000: Generations {gens}, "
-          f"Execution {ms:.3f} ms", flush=True)
+    # Warm the process at full size (allocator, first launches) with one
+    # uncounted run (a) per lane; each lane's run (a) is timed after it, as
+    # the CLI's --warmup would time it.
+    for lane, (flags, _) in LANES.items():
+        gens, ms = run("game", flags, "random", 1000)
+        print(f"warm-up (uncounted): game {lane} random limit 1000: "
+              f"Generations {gens}, Execution {ms:.3f} ms", flush=True)
     results, run_a, by_path = {}, {}, {}
     for variant in ("game", "cuda"):
-        for k in sp.LAUNCHES:
-            sp.LAUNCHES[k] = 0
-        for tag, key, limit in runs:
-            before = dict(sp.LAUNCHES)
-            if tag == "a" and variant == "game":
-                torch.cuda.reset_peak_memory_stats(dev)
-            gens, ms = run(variant, "auto", key, limit)
-            launched = {k: sp.LAUNCHES[k] - before[k] for k in sp.LAUNCHES}
-            if tag == "a" and variant == "game":
-                run_a = {
-                    "variant": variant, "generations": gens, "exec_ms": ms,
-                    "cell_updates_per_s": SIZE * SIZE * gens / (ms / 1000),
-                    "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
-                    "launches": launched,
-                }
-            results[(variant, key, limit)] = (gens, _digest(out))
-            print(f"({tag}) {variant:4s} {key:15s} limit {limit}: auto "
-                  f"Generations {gens}, Execution {ms:.3f} ms, launches "
-                  f"{launched}", flush=True)
-            if key in patterns:
-                cells, anchor = patterns[key]
-                convention = Convention.CUDA if variant == "cuda" else Convention.C
-                small_anchor = (32, 32) if key.endswith("mid") else (0, 0)
-                small = _pattern(64, 64, [(small_anchor[0] + r, small_anchor[1] + c)
-                                          for r, c in cells])
-                want = oracle.run(small, GameConfig(convention=convention,
-                                                    gen_limit=limit))
-                got = text_grid.read_grid(str(out), SIZE, SIZE)
-                if (gens != want.generations or _live_offsets(got, anchor)
-                        != _live_offsets(want.grid, small_anchor)):
-                    fail(f"{variant} {key}: Generations {gens} / live cells "
-                         f"differ from the oracle's 64x64 copy "
-                         f"({want.generations})")
-        by_path[variant] = dict(sp.LAUNCHES)
-        print(f"main path, --variant {variant} (its six --kernel auto runs): "
-              f"launches {by_path[variant]}", flush=True)
-        for k in KERNELS:
-            if by_path[variant][k["key"]] == 0:
-                fail(f"{k['id']} ({k['key']}) was never launched on the "
-                     f"--variant {variant} path")
+        for lane, (flags, needed) in LANES.items():
+            _zero_counters()
+            for tag, key, limit in runs:
+                before = _counts()
+                if tag == "a":
+                    torch.cuda.reset_peak_memory_stats(dev)
+                gens, ms = run(variant, flags, key, limit)
+                launched = {k: n - before[k] for k, n in _counts().items()}
+                if tag == "a":
+                    run_a[f"{variant} {lane}"] = {
+                        "generations": gens, "exec_ms": ms,
+                        "cell_updates_per_s": SIZE * SIZE * gens / (ms / 1000),
+                        "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+                        "launches": launched,
+                    }
+                got = (gens, _digest(out))
+                if lane == "auto":
+                    results[(variant, key, limit)] = got
+                elif got != results[(variant, key, limit)]:
+                    fail(f"({tag}) {variant} {key}: {lane} (Generations {gens}) "
+                         f"differs from --kernel auto "
+                         f"({results[(variant, key, limit)][0]})")
+                print(f"({tag}) {variant:4s} {key:15s} limit {limit}: {lane:9s} "
+                      f"Generations {gens}, Execution {ms:.3f} ms, launches "
+                      f"{launched}" + ("" if lane == "auto" else ", bytes == auto"),
+                      flush=True)
+                if lane == "auto" and key in patterns:
+                    cells, anchor = patterns[key]
+                    convention = Convention.CUDA if variant == "cuda" else Convention.C
+                    small_anchor = (32, 32) if key.endswith("mid") else (0, 0)
+                    small = _pattern(64, 64, [(small_anchor[0] + r, small_anchor[1] + c)
+                                              for r, c in cells])
+                    want = oracle.run(small, GameConfig(convention=convention,
+                                                        gen_limit=limit))
+                    got_grid = text_grid.read_grid(str(out), SIZE, SIZE)
+                    if (gens != want.generations or _live_offsets(got_grid, anchor)
+                            != _live_offsets(want.grid, small_anchor)):
+                        fail(f"{variant} {key}: Generations {gens} / live cells "
+                             f"differ from the oracle's 64x64 copy "
+                             f"({want.generations})")
+            by_path[f"{variant} {lane}"] = _counts()
+            print(f"main path, --variant {variant} {lane} (its six runs): "
+                  f"launches {by_path[f'{variant} {lane}']}", flush=True)
+            for k in KERNELS:
+                n = by_path[f"{variant} {lane}"][k["key"]]
+                if (k["key"] in needed) != (n > 0):
+                    fail(f"{k['id']} ({k['key']}) launched {n} times on the "
+                         f"--variant {variant} {lane} path")
 
     for variant in ("game", "cuda"):
         for tag, key, limit in runs:
-            gens, ms = run(variant, "lax", key, limit)
+            gens, ms = run(variant, ["--kernel", "lax"], key, limit)
             if (gens, _digest(out)) != results[(variant, key, limit)]:
                 fail(f"({tag}) {variant} {key}: --kernel lax (Generations "
                      f"{gens}) differs from --kernel auto "
                      f"({results[(variant, key, limit)][0]})")
-            print(f"({tag}) {variant:4s} {key:15s} limit {limit}: lax "
+            print(f"({tag}) {variant:4s} {key:15s} limit {limit}: lax       "
                   f"Generations {gens}, Execution {ms:.3f} ms: bytes == auto",
                   flush=True)
+    print("run (a) Execution time, ms: " + ", ".join(
+        f"{path} {r['exec_ms']:.3f}" for path, r in run_a.items()), flush=True)
     return {"launches": by_path, "run_a": run_a}
 
 
@@ -398,17 +570,21 @@ def logic_ops_per_s() -> float:
 def timing(dev) -> dict:
     ops_per_s = logic_ops_per_s()
     rng = np.random.default_rng(SEED + 2)
-    nwords = SIZE // 32
-    words = rng.integers(0, 2**32, size=(SIZE, nwords), dtype=np.uint64)
-    x = pm.words_from_numpy(words.astype(np.uint32), dev)
-    y = torch.empty_like(x)
+    cells = (rng.random((SIZE, SIZE), dtype=np.float32) < 0.5).astype(np.uint8)
+    x_cells = torch.from_numpy(cells).to(dev)
+    x_words = pm.encode(x_cells)
     out = {}
     for k in KERNELS:
+        x = x_cells if k.get("cells") else x_words
+        y = torch.empty_like(x)
         flags = torch.zeros(k["nflags"], dtype=torch.int32, device=dev)
         ms = _time(lambda a, b: k["into"](a, b, flags), x, y, 50)
         plain_ms = _time(lambda a, b: k["plain"](a), x, y, 50)
-        nbytes = 2 * SIZE * nwords * 4
-        ops = k["gens"] * SIZE * nwords * OPS_PER_WORD_GEN
+        nbytes = 2 * x.numel() * x.element_size()
+        if k.get("cells"):
+            ops = k["gens"] * (x.numel() // 4) * OPS_PER_BYTE_WORD
+        else:
+            ops = k["gens"] * x.numel() * OPS_PER_WORD_GEN
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / ops_per_s * 1e3
         out[k["key"]] = {
@@ -454,12 +630,11 @@ def main() -> int:
     table = []
     for k in KERNELS:
         key = k["key"]
+        by_path = {p: n[key] for p, n in path["launches"].items() if n[key]}
         table.append({
             "name": k["name"], "id": k["id"], "route": "cuda",
-            "source": "gol_tpu_torch/csrc/stencil_packed.cu",
-            "replaces": k["replaces"],
-            "launches": sum(n[key] for n in path["launches"].values()),
-            "launches_by_path": {v: n[key] for v, n in path["launches"].items()},
+            "source": k["source"], "replaces": k["replaces"],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": stats[key]["max_abs_err"],
             "checks": stats[key]["checks"], **times[key], "library_ms": None,
         })

@@ -2,10 +2,12 @@
 
 The same CLI contract, text grid format, B3/S23 toroidal semantics and
 early-exit accounting as the JAX package, which stays beside it as the
-reference. The packed stencil's TPU kernels are hand-written CUDA kernels
-for Hopper (``csrc/``), built with nvcc at first use and bound with ctypes;
-each has a plain torch version that the CPU path runs. The port imports
-neither ``jax`` nor ``gol_tpu``.
+reference. The single-device stencils' TPU kernels (the packed K1-K3 and
+the byte K4) are hand-written CUDA kernels for Hopper (``csrc/``), built
+with nvcc at first use and bound with ctypes; each has a plain torch
+version that the CPU path runs. The packed-I/O text codec
+(``native/codec.c``) builds the same way with cc. The port imports neither
+``jax`` nor ``gol_tpu``.
 """
 
 from gol_tpu_torch.config import DEFAULT_CONFIG, GEN_LIMIT, SIMILARITY_FREQUENCY, GameConfig

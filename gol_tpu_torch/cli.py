@@ -1,15 +1,20 @@
 """CLI entry point of the PyTorch port — ``python -m gol_tpu_torch <width>
 <height> <input_file>``, the reference's ``./a.out`` contract on one CUDA card.
 
-The port of the single-device ``run`` lane of ``gol_tpu/cli.py``:
+The port of the single-device lanes of ``gol_tpu/cli.py``'s ``run``:
 
 - ``width = atoi(argv[1])``, ``height = atoi(argv[2])`` — C atoi semantics,
-  non-numeric parses to 0; non-positive dimensions default to 30x30;
+  non-numeric parses to 0; distributed variants force ``height = width``
+  (src/game_mpi.c:504); non-positive dimensions default to 30x30;
 - with no input file the simulation is skipped and only ``Finished`` prints
   (src/game.c:238-241);
 - ``--variant`` picks the reference program reproduced (output filename,
-  printed lines, loop accounting): ``game``, ``cuda``, or ``tpu`` (the
-  default; on one device a whole-file read and write with I/O timing lines);
+  printed lines, loop accounting, file I/O strategy); the distributed ones
+  run their one-device form, as the JAX CLI does with a 1x1 mesh;
+- lanes: the device run (``--kernel``), ``--packed-io`` (word state straight
+  from and to the file), ``--host`` (the numpy oracle), ``--snapshot-every``
+  and ``--resume-gen`` (segmented runs). Checkpointing, meshes, patterns and
+  the sparse and macro engines are not ported;
 - timings print as ``<Phase>:\\t<ms> msecs``. Execution time excludes set-up
   — the kernels' build and load, and the optional ``--warmup`` run happen
   before the timer starts — and ends in a device sync.
@@ -24,15 +29,16 @@ Subcommand ``generate <width> <height>`` emits a random grid (generate.sh).
 from __future__ import annotations
 
 import argparse
+import os
 import re
 import sys
 import time
 
 import torch
 
-from gol_tpu_torch import engine
+from gol_tpu_torch import engine, oracle
 from gol_tpu_torch.config import DEFAULT_HEIGHT, DEFAULT_WIDTH, GameConfig
-from gol_tpu_torch.io import text_grid
+from gol_tpu_torch.io import packed_io, sharded, text_grid
 from gol_tpu_torch.platform_env import NoDeviceError, resolve_device
 from gol_tpu_torch.variants import VARIANTS, Variant, get_variant
 
@@ -61,12 +67,23 @@ def dense_cells_guard(height: int, width: int) -> None:
         )
 
 
-def _read_phase(path: str, width: int, height: int, device) -> torch.Tensor:
-    return engine.put_grid(text_grid.read_grid(path, width, height), device)
+def _read_phase(variant: Variant, path: str, width: int, height: int, device):
+    if variant.io == "serial":
+        return engine.put_grid(text_grid.read_grid(path, width, height), device)
+    if variant.io == "gathered":
+        return sharded.read_gathered(path, width, height, device)
+    return sharded.read_sharded(
+        path, width, height, device, parallel=(variant.io == "sharded_async")
+    )
 
 
-def _write_phase(path: str, grid: torch.Tensor) -> None:
-    text_grid.write_grid(path, grid.cpu().numpy())
+def _write_phase(variant: Variant, path: str, grid: torch.Tensor) -> None:
+    if variant.io == "serial":
+        text_grid.write_grid(path, grid.cpu().numpy())
+    elif variant.io == "gathered":
+        sharded.write_gathered(path, grid)
+    else:
+        sharded.write_sharded(path, grid, parallel=(variant.io == "sharded_async"))
 
 
 def _sync(device: torch.device) -> None:
@@ -81,6 +98,8 @@ def _run(args) -> int:
         args.gen_limit = args.gens
     variant = get_variant(args.variant)
     width, height = atoi(args.width), atoi(args.height)
+    if variant.force_square:
+        height = width  # src/game_mpi.c:504
     if width <= 0:
         width = DEFAULT_WIDTH
     if height <= 0:
@@ -99,27 +118,88 @@ def _run(args) -> int:
         convention=variant.convention,
     )
     output_path = args.output or f"./{variant.output_file}"
+
+    if args.resume_gen < 0:
+        raise ValueError(f"--resume-gen must be >= 0, got {args.resume_gen}")
+    if args.resume_gen > config.gen_limit:
+        # A typo'd resume count would otherwise produce a no-op run with a
+        # plausible-looking report above the limit.
+        raise ValueError(
+            f"--resume-gen {args.resume_gen} exceeds --gen-limit "
+            f"{config.gen_limit}; nothing to resume"
+        )
+    # TensorStore snapshots are refused before every lane: the port has no
+    # zarr store.
+    if args.snapshot_format == "zarr":
+        if not args.packed_io:
+            raise ValueError(
+                "--snapshot-format zarr stores the bitpacked word state and "
+                "needs the packed lane; add --packed-io"
+            )
+        raise ValueError(
+            "--snapshot-format zarr needs tensorstore, which the PyTorch "
+            "port does not use; use --snapshot-format text"
+        )
+    if args.input_file.endswith(".zarr"):
+        raise ValueError(
+            "a .zarr input (TensorStore snapshot) is not readable by the "
+            "PyTorch port; resume from a gen_NNNNNN.out snapshot instead"
+        )
+
+    if args.host:
+        # lax is what the host oracle effectively is, so it stays accepted;
+        # forcing an accelerator kernel alongside --host is a contradiction.
+        if args.kernel not in ("auto", "lax") or args.packed_io:
+            raise ValueError(
+                "--mesh/--kernel/--packed-io do not apply with --host "
+                "(oracle runs on the host CPU)"
+            )
+        if args.resume_gen:
+            raise ValueError("--resume-gen is not supported with --host "
+                             "(the oracle has no segmented loop)")
+        return _run_host(args, variant, config, width, height, output_path)
+
+    if args.packed_io:
+        if args.kernel not in ("auto", "packed"):
+            raise ValueError(
+                f"--packed-io always runs the packed kernel; --kernel "
+                f"{args.kernel!r} contradicts it"
+            )
+        # Packed state is 32x smaller than bytes, so this lane branches off
+        # before the dense ceiling.
+        return _run_packed_io(args, variant, config, width, height,
+                              output_path, resolve_device())
+
     dense_cells_guard(height, width)
     device = resolve_device()
-
     t0 = time.perf_counter()
-    device_grid = _read_phase(args.input_file, width, height, device)
+    device_grid = _read_phase(variant, args.input_file, width, height, device)
     read_ms = (time.perf_counter() - t0) * 1000
     if variant.io_timings:
         print(f"Reading file:\t{read_ms:.2f} msecs")
 
-    runner = engine.make_runner((height, width), config, args.kernel, device)
-    if args.warmup:
-        runner(device_grid)
-        _sync(device)
+    if args.snapshot_every:
+        run_fn = _prepare_segmented(args, variant, config, device_grid, device)
+    elif args.resume_gen:
+        run_fn = _prepare_resumed(args, config, device_grid, height, width,
+                                  device, packed=False)
+    else:
+        runner = engine.make_runner((height, width), config, args.kernel, device)
+        if args.warmup:
+            runner(device_grid)
+            _sync(device)
+
+        def run_fn():
+            return runner(device_grid)
 
     t0 = time.perf_counter()
-    final, generations = runner(device_grid)
+    final, generations = run_fn()
     _sync(device)
     exec_ms = (time.perf_counter() - t0) * 1000
 
     return _report_and_write(
-        variant, generations, exec_ms, lambda: _write_phase(output_path, final)
+        variant, generations, exec_ms,
+        lambda: _write_phase(variant, output_path, final),
     )
 
 
@@ -138,6 +218,124 @@ def _report_and_write(variant: Variant, generations, exec_ms, write_fn) -> int:
     if variant.final_finished:
         print("Finished")
     return 0
+
+
+def _run_packed_io(args, variant, config, width, height, output_path, device) -> int:
+    """The all-packed lane: file -> word state -> file, no uint8 grid ever.
+
+    The read and write go through the native codec (native/codec.c); the
+    printed lines keep the reference contract."""
+    t0 = time.perf_counter()
+    words = packed_io.read_packed(args.input_file, width, height, device)
+    read_ms = (time.perf_counter() - t0) * 1000
+    if variant.io_timings:
+        print(f"Reading file:\t{read_ms:.2f} msecs")
+
+    if args.snapshot_every:
+        run_fn = _prepare_packed_segmented(args, config, words, height, width,
+                                           device)
+    elif args.resume_gen:
+        run_fn = _prepare_resumed(args, config, words, height, width, device,
+                                  packed=True)
+    else:
+        runner = engine.make_packed_runner((height, width), config, device)
+        if args.warmup:
+            runner(words)
+            _sync(device)
+
+        def run_fn():
+            return runner(words)
+
+    t0 = time.perf_counter()
+    final, generations = run_fn()
+    _sync(device)
+    exec_ms = (time.perf_counter() - t0) * 1000
+
+    return _report_and_write(
+        variant, generations, exec_ms,
+        lambda: packed_io.write_packed(output_path, final, width),
+    )
+
+
+def _snapshot_loop(args, config, runner, state0, write_snapshot):
+    """Shared snapshotting loop over a segment runner, built (and its
+    kernels loaded) before the timer: every segment's state is written as
+    ``gen_NNNNNN.out``, a valid input file (the reference's only resume
+    path, output-is-input, src/game.c:25-40 vs :154-165 — here it exists
+    mid-run). Execution time covers the segmented loop including the
+    snapshot writes."""
+    outdir = args.snapshot_dir or "./snapshots"
+    os.makedirs(outdir, exist_ok=True)
+
+    def run_fn():
+        final, generations = state0, 0
+        for generations, final, _stopped in engine._iter_segments(
+                runner, state0, config, args.snapshot_every, args.resume_gen):
+            write_snapshot(os.path.join(outdir, f"gen_{generations:06d}.out"),
+                           final)
+        return final, generations
+
+    return run_fn
+
+
+def _prepare_segmented(args, variant, config, device_grid, device):
+    runner = engine.make_segment_runner(tuple(device_grid.shape), config,
+                                        args.kernel, device)
+    return _snapshot_loop(args, config, runner, device_grid,
+                          lambda path, state: _write_phase(variant, path, state))
+
+
+def _prepare_packed_segmented(args, config, words, height, width, device):
+    """Snapshotting loop over word state: every snapshot is written through
+    the packed codec, itself a valid input file for any lane."""
+    runner = engine.make_packed_segment_runner((height, width), config, device)
+    return _snapshot_loop(args, config, runner, words,
+                          lambda path, state: packed_io.write_packed(path, state, width))
+
+
+def _prepare_resumed(args, config, state, height, width, device, *, packed):
+    """Continue a run from a snapshot without writing further snapshots.
+
+    The input file is the state after ``--resume-gen`` generations of a run
+    that had not early-exited; the similarity phase is realigned from that
+    count alone (``engine.resume_scalars``), so exits and the reported total
+    match the uninterrupted run."""
+    if packed:
+        runner = engine.make_packed_segment_runner((height, width), config, device)
+    else:
+        runner = engine.make_segment_runner((height, width), config,
+                                            args.kernel, device)
+    gen0, counter0 = engine.resume_scalars(config, args.resume_gen)
+    report = engine._REPORT[config.convention]
+
+    def run_fn():
+        final, gen, _counter, _stopped = runner(state, gen0, counter0,
+                                                config.gen_limit)
+        return final, report(gen)
+
+    return run_fn
+
+
+def _run_host(args, variant, config, width, height, output_path) -> int:
+    """--host: the NumPy oracle path, no device involved.
+
+    Prints exactly the lines the variant would print on the device —
+    including the Reading/Writing lines of io_timings variants
+    (src/game_mpi_collective.c:200-203,447-450) — so host and device output
+    are line-for-line comparable."""
+    dense_cells_guard(height, width)
+    t0 = time.perf_counter()
+    grid = text_grid.read_grid(args.input_file, width, height)
+    read_ms = (time.perf_counter() - t0) * 1000
+    if variant.io_timings:
+        print(f"Reading file:\t{read_ms:.2f} msecs")
+    t0 = time.perf_counter()
+    result = oracle.run(grid, config)
+    exec_ms = (time.perf_counter() - t0) * 1000
+    return _report_and_write(
+        variant, result.generations, exec_ms,
+        lambda: text_grid.write_grid(output_path, result.grid),
+    )
 
 
 def _generate(args) -> int:
@@ -166,13 +364,15 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("input_file", nargs="?", default=None)
     run.add_argument(
         "--variant", default="tpu", choices=sorted(VARIANTS),
-        help="which reference program to reproduce (ported: game, cuda, tpu)",
+        help="which reference program to reproduce (default: tpu; the "
+        "distributed variants run their single-device form)",
     )
     run.add_argument(
-        "--kernel", default="auto", choices=("auto", "packed", "lax"),
-        help="stencil kernel: packed (32 cells per word, CUDA kernels), lax "
-        "(byte cells, any width), or auto (packed where the width divides "
-        "by 32)",
+        "--kernel", default="auto", choices=("auto", "packed", "lax", "pallas"),
+        help="stencil kernel: packed (32 cells per word, CUDA kernels), "
+        "pallas (byte cells, one CUDA kernel per generation), lax (byte "
+        "cells, plain torch), or auto (packed where the width divides by "
+        "32, else lax)",
     )
     run.add_argument("--gen-limit", type=int, default=GameConfig().gen_limit)
     run.add_argument("--gens", type=int, default=None, metavar="N",
@@ -182,9 +382,34 @@ def build_parser() -> argparse.ArgumentParser:
     )
     run.add_argument("--no-check-similarity", action="store_true")
     run.add_argument("--output", default=None, help="override the output file path")
+    run.add_argument("--host", action="store_true", help="run the NumPy oracle on CPU")
+    run.add_argument(
+        "--snapshot-every", type=int, default=None, metavar="N",
+        help="write a resumable grid snapshot every N generations "
+        "(exec time then includes snapshot writes)",
+    )
+    run.add_argument(
+        "--snapshot-dir", default=None, help="snapshot directory (default ./snapshots)"
+    )
+    run.add_argument(
+        "--snapshot-format", choices=("text", "zarr"), default="text",
+        help="snapshot encoding: 'text' writes gen_NNNNNN.out files (valid "
+        "input files); 'zarr' is refused (the port has no TensorStore)",
+    )
+    run.add_argument(
+        "--resume-gen", type=int, default=0, metavar="N",
+        help="treat the input file as the state after N generations (a "
+        "gen_NNNNNN.out snapshot of a run that had not early-exited) and "
+        "continue to --gen-limit with the similarity phase realigned",
+    )
     run.add_argument(
         "--warmup", action="store_true",
         help="run once, untimed, before the measured run",
+    )
+    run.add_argument(
+        "--packed-io", action="store_true",
+        help="read and write the file straight to and from bitpacked device "
+        "state through the native codec (width must divide by 32)",
     )
     run.set_defaults(func=_run)
 

@@ -1,14 +1,16 @@
 """The simulation engine on one device: a host loop over K-generation blocks.
 
-The port of ``gol_tpu/engine.py``'s single-device runner. The JAX engine
+The port of ``gol_tpu/engine.py``'s single-device runners. The JAX engine
 runs the whole simulation as one ``lax.while_loop`` on the device; here the
-loop runs on the host and the device runs the kernels. The fused packed
-kernel takes the blocked loops (``_simulate_c_block``,
-``_simulate_cuda_block``): each block of K=16 generations is two 8-generation
-passes (K1) plus a ``t % 8`` single-generation tail (K3), all enqueued
-without a sync, and then ONE small flag tensor is read back. The host
-replays the exits from those per-generation flags exactly as the JAX
-replays do (gol_tpu/engine.py:244-263, :359-373). A pass whose summary
+loop runs on the host and the device runs the kernels. Kernels with a fused
+form take the blocked loops (``_simulate_c_block``,
+``_simulate_cuda_block``): each block of K=16 generations is enqueued
+without a sync and then ONE small flag tensor is read back. The packed
+kernel runs a block as two 8-generation passes (K1) plus a ``t % 8``
+single-generation tail (K3); the byte ``pallas`` kernel (K4) has no
+multi-generation pass and runs all of a block's generations one by one.
+The host replays the exits from the per-generation flags exactly as the
+JAX replays do (gol_tpu/engine.py:244-263, :359-373). A pass whose summary
 hides a death or a stillness onset is rerun from the block's start with the
 exact-flag pass (K2) — at most twice per run, as in the JAX
 ``_derive_or_replay``.
@@ -20,11 +22,15 @@ as stopping on time would; only the counters need the exit point. The CUDA
 convention's empty exit keeps the last non-empty generation, which is no
 fixed point, so that block is replayed from its start state.
 
-The JAX runner's donated carry becomes three explicit buffers: the block's
-start state stays intact while the passes ping-pong between the other two.
-The non-fused ``lax`` kernel keeps the per-generation loop, reading its
-alive flag every generation and comparing for similarity only on the
-generations where the check fires.
+Every loop takes ``resume=(gen0, counter0, seg_end)`` to run one segment of
+a longer run and returns ``(final, gen, counter, stopped)``, as the JAX
+loops do; the segment runners carry those scalars between calls. The JAX
+runners' donated carry becomes explicit buffers: three scratch buffers that
+never include the caller's state, so a block's start state stays intact
+while the generations ping-pong between the other two, and a runner never
+writes its input. The non-fused ``lax`` kernel keeps the per-generation
+loop, reading its alive flag every generation and comparing for similarity
+only on the generations where the check fires.
 """
 
 from __future__ import annotations
@@ -54,11 +60,15 @@ class EngineResult:
 
 
 class _Buffers:
-    """The carried state's three buffers and the block's flag tensor."""
+    """Three scratch buffers for the carried state and the block's flag
+    tensor. The caller's state is never one of them."""
 
     def __init__(self, state: torch.Tensor, kernel: Kernel, block: int):
-        self.pool = [state, torch.empty_like(state), torch.empty_like(state)]
-        self.tail_base = stencil_packed.SUMMARY_FLAGS * (block // kernel.multi_gens)
+        self.pool = [torch.empty_like(state) for _ in range(3)]
+        if kernel.fused_multi is not None:
+            self.tail_base = stencil_packed.SUMMARY_FLAGS * (block // kernel.multi_gens)
+        else:
+            self.tail_base = 0
         self.flags = torch.zeros(
             self.tail_base + stencil_packed.STEP_FLAGS * block,
             dtype=torch.int32, device=state.device,
@@ -101,14 +111,17 @@ def _block_generations(start, t, config: GameConfig, kernel: Kernel, block,
                        bufs: _Buffers):
     """Run ``t`` generations from ``start``: ``(cur, a_all, s_all)``.
 
-    ``t // T`` fast passes fill flag slots T*j..T*j+T-1 and the tail fills
-    t-rem..t-1, so the callers' replays are oblivious to the grouping.
-    ``a_all``/``s_all`` are ``block``-slot host lists; ``s_all`` is None
-    when the similarity check is off. Every launch of the block is enqueued
-    before the one readback."""
-    T = kernel.multi_gens
+    A kernel with a multi-generation pass runs ``t // T`` passes into flag
+    slots T*j..T*j+T-1 and a single-generation tail into t-rem..t-1; one
+    without runs all ``t`` generations singly. The callers' replays are
+    oblivious to the grouping. ``a_all``/``s_all`` are ``block``-slot host
+    lists; ``s_all`` is None when the similarity check is off. Every launch
+    of the block is enqueued before the one readback."""
     S, P = stencil_packed.SUMMARY_FLAGS, stencil_packed.STEP_FLAGS
-    passes = t // T
+    if kernel.fused_multi is not None:
+        T, passes = kernel.multi_gens, t // kernel.multi_gens
+    else:
+        T, passes = 1, 0
     flags = bufs.flags
     flags.zero_()
     cur = start
@@ -147,15 +160,16 @@ def _replay_similarity(counter, freq, s_all, i, check: bool):
     return fire and s_all[i], (0 if fire else counter + 1)
 
 
-def _simulate_c_block(words, config, kernel, gen0, counter0, bound, block):
+def _simulate_c_block(state, config, kernel, gen0, counter0, bound, block):
     """Blocked C-convention loop: K generations per flag readback, bit-exact
     with the per-generation loop (see the module docstring). The block never
-    crosses ``bound`` — the generation limit is no fixed point."""
+    crosses ``bound`` — the generation limit is no fixed point. Returns
+    ``(final, gen, counter, alive, similar)``."""
     freq = config.similarity_frequency
-    bufs = _Buffers(words, kernel, block)
+    bufs = _Buffers(state, kernel, block)
     gen, counter = gen0, counter0
-    alive, similar = bool((words != 0).any()), False
-    cur = words
+    alive, similar = bool(state.any()), False
+    cur = state
     while alive and not similar and gen <= bound:
         t = min(block, bound - gen + 1)
         cur, a_all, s_all = _block_generations(cur, t, config, kernel, block, bufs)
@@ -168,20 +182,26 @@ def _simulate_c_block(words, config, kernel, gen0, counter0, bound, block):
                 gen += 1
             if not (alive and not similar and gen <= bound):
                 break
-    return cur, gen, counter
+    return cur, gen, counter, alive, similar
 
 
-def _simulate_c(grid, config: GameConfig, kernel: Kernel):
+def _simulate_c(state, config: GameConfig, kernel: Kernel, resume=None):
     """C-variant loop (src/game.c:177-196): emptiness checked at the top of
     every generation; the similarity break does not increment the counter;
-    the reported count is ``generation - 1``. Returns ``(final, gen)``."""
-    gen, bound = _GEN_START[Convention.C], config.gen_limit
+    the reported count is ``generation - 1``.
+
+    ``resume`` is None for a whole run, or ``(gen0, counter0, seg_end)`` to
+    run one segment of a longer one. Returns ``(final, gen, counter,
+    stopped)``."""
+    limit = config.gen_limit
+    gen0, counter0, seg_end = resume if resume is not None else (1, 0, limit)
+    bound = min(limit, seg_end)
     if kernel.fused is not None:
-        final, gen, _ = _simulate_c_block(grid, config, kernel, gen, 0, bound,
-                                          _TERMINATION_BLOCK)
-        return final, gen
-    freq, counter = config.similarity_frequency, 0
-    cur = grid
+        final, gen, counter, alive, similar = _simulate_c_block(
+            state, config, kernel, gen0, counter0, bound, _TERMINATION_BLOCK)
+        return final, gen, counter, not alive or similar or gen > limit
+    freq, gen, counter = config.similarity_frequency, gen0, counter0
+    cur = state
     alive, similar = bool(cur.any()), False
     while alive and not similar and gen <= bound:
         new = kernel.step(cur)
@@ -193,21 +213,21 @@ def _simulate_c(grid, config: GameConfig, kernel: Kernel):
         if not similar:
             gen += 1
         cur = new
-    return cur, gen
+    return cur, gen, counter, not alive or similar or gen > limit
 
 
-def _simulate_cuda_block(words, config, kernel, gen0, counter0, bound, block):
+def _simulate_cuda_block(state, config, kernel, gen0, counter0, bound, block):
     """Blocked CUDA-convention loop: K generations per flag readback.
 
     A similarity exit is a still life, so the block-end state IS the exit
     state. An empty exit at in-block iteration i keeps state_i, the last
     non-empty generation: replay i single generations from the block's start
-    state, which the three-buffer pool keeps intact. Returns
-    ``(final, gen, counter, stopped)``."""
+    state, which the buffer pool keeps intact. Returns ``(final, gen,
+    counter, stopped)``."""
     freq = config.similarity_frequency
-    bufs = _Buffers(words, kernel, block)
+    bufs = _Buffers(state, kernel, block)
     gen, counter = gen0, counter0
-    start = cur = words
+    start = cur = state
     stopped, exit_i, exit_empty = False, 0, False
     while not stopped and gen < bound:
         t = min(block, bound - gen)
@@ -233,19 +253,22 @@ def _simulate_cuda_block(words, config, kernel, gen0, counter0, bound, block):
     return final, gen, counter, stopped
 
 
-def _simulate_cuda(grid, config: GameConfig, kernel: Kernel):
+def _simulate_cuda(state, config: GameConfig, kernel: Kernel, resume=None):
     """CUDA-variant loop (src/game_cuda.cu:222-276): 0-based exclusive
     bound; no emptiness test before the first evolve; the emptiness test
     runs on the new grid and breaks before the swap, so an empty exit keeps
     the last non-empty generation; the reported count is the raw counter.
-    Returns ``(final, gen)``."""
-    gen, bound = _GEN_START[Convention.CUDA], config.gen_limit
+    ``resume`` as for ``_simulate_c``. Returns ``(final, gen, counter,
+    stopped)``."""
+    limit = config.gen_limit
+    gen0, counter0, seg_end = resume if resume is not None else (0, 0, limit)
+    bound = min(limit, seg_end)
     if kernel.fused is not None:
-        final, gen, _, _ = _simulate_cuda_block(grid, config, kernel, gen, 0,
-                                                bound, _TERMINATION_BLOCK)
-        return final, gen
-    freq, counter = config.similarity_frequency, 0
-    cur = grid
+        final, gen, counter, stop = _simulate_cuda_block(
+            state, config, kernel, gen0, counter0, bound, _TERMINATION_BLOCK)
+        return final, gen, counter, stop or gen >= limit
+    freq, gen, counter = config.similarity_frequency, gen0, counter0
+    cur, stop = state, False
     while gen < bound:
         new = kernel.step(cur)
         similar = False
@@ -254,10 +277,11 @@ def _simulate_cuda(grid, config: GameConfig, kernel: Kernel):
             similar = fire and torch.equal(cur, new)
             counter = 0 if fire else counter + 1
         if similar or not bool(new.any()):
+            stop = True
             break  # the break precedes the swap (src/game_cuda.cu:250,266)
         cur = new
         gen += 1
-    return cur, gen
+    return cur, gen, counter, stop or gen >= limit
 
 
 _SIMULATORS = {Convention.C: _simulate_c, Convention.CUDA: _simulate_cuda}
@@ -270,6 +294,66 @@ def put_grid(grid, device=None) -> torch.Tensor:
     return torch.from_numpy(arr).to(dev)
 
 
+def _build_runner(shape, config: GameConfig, kernel: str, device, *,
+                  segmented: bool, packed_state: bool):
+    """Shared scaffold of the four runner factories: shape and kernel
+    validation, the kernels' build and load, and the simulate wrapper.
+
+    ``packed_state`` runners take and return the (height, width/32) int32
+    word tensor and never touch a uint8 grid; otherwise a kernel with its
+    own carried state (packed words) converts once at the loop boundary.
+    ``segmented`` runners take and return the resume scalars."""
+    dev = platform_env.resolve_device(device)
+    height, width = shape
+    if height <= 0 or width <= 0:
+        raise ValueError(f"grid shape must be positive, got {height}x{width}")
+    kobj = resolve_kernel("packed" if packed_state else kernel, height, width)
+    if not kobj.supports(height, width):
+        hint = ("packed state has no fallback — use the unpacked lane"
+                if packed_state else "use kernel='auto' to pick one that does")
+        raise ValueError(
+            f"kernel {kobj.name!r} does not support a {height}x{width} grid; "
+            f"{hint}"
+        )
+    if dev.type == "cuda" and kobj.load is not None:
+        kobj.load()
+    simulate = _SIMULATORS[config.convention]
+    report = _REPORT[config.convention]
+    if packed_state:
+        want, what = (torch.int32, (height, width // stencil_packed.BITS)), "an int32"
+        encode = decode = None
+    else:
+        want, what = (torch.uint8, (height, width)), "a uint8"
+        encode, decode = kobj.encode, kobj.decode
+
+    def check(state: torch.Tensor) -> None:
+        dtype, state_shape = want
+        if tuple(state.shape) != state_shape or state.dtype != dtype:
+            raise ValueError(
+                f"runner takes {what} {state_shape[0]}x{state_shape[1]} "
+                f"state, got {state.dtype} {tuple(state.shape)}"
+            )
+        if state.device != dev:
+            raise ValueError(f"state is on {state.device}, runner on {dev}")
+
+    def run_loop(state, resume):
+        check(state)
+        carried = encode(state) if encode is not None else state
+        final, gen, counter, stopped = simulate(carried, config, kobj, resume)
+        if decode is not None:
+            final = decode(final)
+        return final, gen, counter, stopped
+
+    if segmented:
+        def run(state, gen0: int, counter0: int, seg_end: int):
+            return run_loop(state, (gen0, counter0, seg_end))
+    else:
+        def run(state):
+            final, gen, _, _ = run_loop(state, None)
+            return final, report(gen)
+    return run
+
+
 def make_runner(shape: tuple[int, int], config: GameConfig = DEFAULT_CONFIG,
                 kernel: str = "auto", device=None):
     """A ``grid -> (final_grid, generations)`` runner for one grid shape.
@@ -278,36 +362,102 @@ def make_runner(shape: tuple[int, int], config: GameConfig = DEFAULT_CONFIG,
     default — the card — when None); the final grid stays on the device.
     Building the runner builds and loads the card's kernels, so a run's
     timing excludes them. The runner never writes its input."""
-    dev = platform_env.resolve_device(device)
-    height, width = shape
-    if height <= 0 or width <= 0:
-        raise ValueError(f"grid shape must be positive, got {height}x{width}")
-    kobj = resolve_kernel(kernel, height, width)
-    if not kobj.supports(height, width):
-        raise ValueError(
-            f"kernel {kobj.name!r} does not support a {height}x{width} grid; "
-            "use kernel='auto' to pick one that does"
-        )
-    if dev.type == "cuda" and kobj.load is not None:
-        kobj.load()
-    simulate = _SIMULATORS[config.convention]
+    return _build_runner(shape, config, kernel, device,
+                         segmented=False, packed_state=False)
+
+
+def make_segment_runner(shape: tuple[int, int],
+                        config: GameConfig = DEFAULT_CONFIG,
+                        kernel: str = "auto", device=None):
+    """A resumable segment: ``(grid, gen0, counter0, seg_end) -> (grid, gen,
+    counter, stopped)``.
+
+    Running segments back to back with the carried (gen, counter) scalars
+    is bit-exact with one whole run — the basis for snapshots and resume.
+    The runner never writes its input: where the JAX runner donates (and
+    so consumes) the state passed in, here that state stays valid."""
+    return _build_runner(shape, config, kernel, device,
+                         segmented=True, packed_state=False)
+
+
+def make_packed_runner(shape: tuple[int, int],
+                       config: GameConfig = DEFAULT_CONFIG, device=None):
+    """A runner over packed state: ``words -> (words, generations)``.
+
+    ``shape`` is the logical (height, width) grid shape; the operand is its
+    (height, width/32) int32 word tensor (``io/packed_io`` reads and writes
+    those directly, so no uint8 grid exists anywhere). The state passed in
+    stays valid."""
+    return _build_runner(shape, config, "packed", device,
+                         segmented=False, packed_state=True)
+
+
+def make_packed_segment_runner(shape: tuple[int, int],
+                               config: GameConfig = DEFAULT_CONFIG,
+                               device=None):
+    """The packed analog of ``make_segment_runner``: ``(words, gen0,
+    counter0, seg_end) -> (words, gen, counter, stopped)``. The state passed
+    in stays valid."""
+    return _build_runner(shape, config, "packed", device,
+                         segmented=True, packed_state=True)
+
+
+def resume_scalars(config: GameConfig, completed: int) -> tuple[int, int]:
+    """Loop scalars ``(gen0, counter0)`` for resuming after ``completed``
+    generations of a run that had not early-exited.
+
+    Both conventions increment the similarity counter once per executed
+    generation and reset it on every ``similarity_frequency``-th, so mid-run
+    state needs no sidecar metadata: ``counter = completed mod frequency``.
+    """
+    if completed < 0:
+        raise ValueError(f"completed generations must be >= 0, got {completed}")
+    counter = completed % config.similarity_frequency if config.check_similarity else 0
+    return _GEN_START[config.convention] + completed, counter
+
+
+def _iter_segments(runner, state, config: GameConfig, segment: int,
+                   completed: int = 0):
+    """Drive a segment runner to completion, yielding after every segment."""
+    if segment <= 0:
+        raise ValueError(f"segment must be positive, got {segment}")
     report = _REPORT[config.convention]
+    gen, counter = resume_scalars(config, completed)
+    while True:
+        seg_end = gen + segment - (1 if config.convention == Convention.C else 0)
+        state, gen, counter, stopped = runner(state, gen, counter, seg_end)
+        yield report(gen), state, stopped
+        if stopped:
+            return
 
-    def run(grid: torch.Tensor):
-        if tuple(grid.shape) != (height, width) or grid.dtype != torch.uint8:
-            raise ValueError(
-                f"runner takes a uint8 {height}x{width} grid, got "
-                f"{grid.dtype} {tuple(grid.shape)}"
-            )
-        if grid.device != dev:
-            raise ValueError(f"grid is on {grid.device}, runner on {dev}")
-        state = kobj.encode(grid) if kobj.encode is not None else grid
-        final, gen = simulate(state, config, kobj)
-        if kobj.decode is not None:
-            final = kobj.decode(final)
-        return final, report(gen)
 
-    return run
+def simulate_segments(grid, config: GameConfig = DEFAULT_CONFIG,
+                      kernel: str = "auto", segment: int = 100,
+                      completed: int = 0, device=None):
+    """Generator of ``(generations_so_far, device_grid, stopped)`` per segment.
+
+    The same final grid and reported count as one ``simulate`` call, but
+    control returns to the caller every ``segment`` generations so it can
+    snapshot, log or stop. ``completed`` resumes: the grid is taken to be
+    the state after that many generations of a longer run, and the loop
+    continues to ``config.gen_limit`` with the similarity phase realigned
+    (``resume_scalars``). Every yielded state stays valid."""
+    dev = platform_env.resolve_device(device)
+    runner = make_segment_runner(tuple(grid.shape), config, kernel, dev)
+    state = grid if isinstance(grid, torch.Tensor) else put_grid(grid, dev)
+    yield from _iter_segments(runner, state, config, segment, completed)
+
+
+def simulate_packed_segments(words: torch.Tensor, shape: tuple[int, int],
+                             config: GameConfig = DEFAULT_CONFIG,
+                             segment: int = 100, completed: int = 0,
+                             device=None):
+    """Packed-state counterpart of ``simulate_segments``: ``shape`` is the
+    logical (height, width), ``words`` its (height, width/32) int32 tensor.
+    Yields word state, which every consumer writes back through
+    ``io/packed_io``."""
+    runner = make_packed_segment_runner(shape, config, device)
+    yield from _iter_segments(runner, words, config, segment, completed)
 
 
 def simulate(grid, config: GameConfig = DEFAULT_CONFIG, kernel: str = "auto",

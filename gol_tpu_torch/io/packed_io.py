@@ -1,0 +1,105 @@
+"""Grid files straight to and from packed word state, on one device.
+
+The port of ``gol_tpu/io/packed_io.py``'s single-device path: text bytes ->
+uint32 cell words on the host (the native codec, ``native/codec.c``) ->
+one copy to the device, and back — the uint8 cell grid never exists, on the
+host or on the device. The state is the engine's packed form: an int32
+(height, width/32) tensor holding the uint32 bit patterns (bit j of word w
+= column 32w+j). Same file-layout contract as the sharded reader:
+``height x (width+1)`` bytes, the newline column written with every row.
+"""
+
+from __future__ import annotations
+
+import collections
+import concurrent.futures
+import os
+
+import numpy as np
+import torch
+
+from gol_tpu_torch import native, platform_env
+from gol_tpu_torch.io.text_grid import create_sized, row_stride
+
+BITS = 32
+# Sibling a file is written as before it atomically replaces its target
+# (the port's copy of gol_tpu.resilience.STAGING_SUFFIX).
+STAGING_SUFFIX = ".inprogress"
+# Host-side pack granularity (text bytes per codec call) and device->host
+# transfer granularity (packed bytes per fetch). Module-level so tests can
+# shrink them to exercise the chunked paths on small grids.
+_READ_CHUNK_BYTES = 128 << 20
+_WRITE_CHUNK_BYTES = 64 << 20
+# Codec threads, and the most fetched blocks waiting for them.
+_WORKERS = os.cpu_count() or 4
+
+
+def _check_shape(width: int) -> None:
+    if width % BITS != 0:
+        raise ValueError(
+            f"packed I/O needs width ({width}) divisible by 32 x mesh cols (1)"
+        )
+
+
+def _chunk_rows(height: int, cap_rows: int) -> int:
+    """Rows per codec call: at most the byte cap, and few enough that every
+    worker of the pool gets a chunk."""
+    return max(1, min(cap_rows, -(-height // _WORKERS)))
+
+
+def read_packed(path: str, width: int, height: int, device=None) -> torch.Tensor:
+    """Text grid file -> packed int32 (height, width/32) tensor on ``device``.
+
+    Row chunks pack on a thread pool (the codec releases the GIL) into one
+    host array, which goes to the device in one copy. (The JAX package's
+    pipelined chunk-by-chunk upload is not ported.)"""
+    _check_shape(width)
+    size, expected = os.path.getsize(path), height * row_stride(width)
+    if size != expected:
+        raise ValueError(
+            f"{path}: size {size} != {expected} for a {height}x{width} text grid"
+        )
+    dev = platform_env.resolve_device(device)
+    native.load()
+    mm = np.memmap(path, dtype=np.uint8, mode="r", shape=(height, row_stride(width)))
+    out = np.empty((height, width // BITS), dtype=np.uint32)
+    chunk = _chunk_rows(height, _READ_CHUNK_BYTES // row_stride(width))
+
+    def pack_rows(r0: int) -> None:
+        r1 = min(height, r0 + chunk)
+        out[r0:r1] = native.pack_text(mm[r0:r1], width)
+
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        list(pool.map(pack_rows, range(0, height, chunk)))
+    return torch.from_numpy(out.view(np.int32)).to(dev)
+
+
+def write_packed(path: str, words: torch.Tensor, width: int) -> None:
+    """Packed word tensor -> text grid file, with no cell grid in between.
+
+    Crash-consistent: the bytes land in a ``<path>.inprogress`` sibling
+    that atomically replaces ``path`` only once complete, so overwriting a
+    prior snapshot can never leave a torn file as the only copy. Row chunks
+    come to the host one at a time and unpack on a thread pool while the
+    next chunk is fetched."""
+    height, nwords = words.shape
+    if nwords * BITS != width:
+        raise ValueError(f"width {width} != {nwords} words x {BITS}")
+    native.load()
+    dest = path + STAGING_SUFFIX
+    create_sized(dest, height * row_stride(width))
+    mm = np.memmap(dest, dtype=np.uint8, mode="r+", shape=(height, row_stride(width)))
+    chunk = _chunk_rows(height, _WRITE_CHUNK_BYTES // max(nwords * 4, 1))
+    with concurrent.futures.ThreadPoolExecutor(max_workers=_WORKERS) as pool:
+        jobs = collections.deque()
+        for r0 in range(0, height, chunk):
+            block = words[r0:r0 + chunk].cpu().numpy().view(np.uint32)
+            if len(jobs) >= _WORKERS:
+                jobs.popleft().result()
+            jobs.append(pool.submit(native.unpack_text, block,
+                                    mm[r0:r0 + block.shape[0]], width, True))
+        for job in jobs:
+            job.result()
+    mm.flush()
+    del mm
+    os.replace(dest, path)

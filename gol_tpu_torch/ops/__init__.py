@@ -1,10 +1,12 @@
-"""Compute kernels of the port: the byte ``lax`` stencil and the ``packed``
-word kernels.
+"""Compute kernels of the port: the byte ``lax`` stencil, the byte
+``pallas`` kernel and the ``packed`` word kernels.
 
 The port of ``gol_tpu/ops/__init__.py`` for one device. ``auto`` resolves to
 ``packed`` wherever the width packs into 32-bit words and to ``lax``
-otherwise. There is no fallback ladder: a kernel that fails to build or to
-launch raises, and the run stops.
+otherwise; ``pallas`` (K4) runs only when named, as JAX's ``auto`` never
+reaches it off a TPU and prefers the packed kernel on one. There is no
+fallback ladder: a kernel that fails to build or to launch raises, and the
+run stops.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-from gol_tpu_torch.ops import stencil_lax, stencil_packed
+from gol_tpu_torch.ops import stencil_lax, stencil_packed, stencil_pallas
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +45,12 @@ class Kernel:
 
 _KERNELS = {
     "lax": Kernel(name="lax", step=stencil_lax.evolve_torus),
+    "pallas": Kernel(
+        name="pallas",
+        fused=stencil_pallas._step_into,
+        supports=stencil_pallas.supports,
+        load=stencil_pallas.load_kernels,
+    ),
     "packed": Kernel(
         name="packed",
         fused=stencil_packed._step_into,

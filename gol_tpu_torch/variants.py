@@ -5,12 +5,11 @@ accounting, and which lines they print (SURVEY.md §2 C1-C6). Here each is a
 ``Variant`` record; the engine and kernels are shared. Output filenames match
 the reference byte-for-byte so existing comparison scripts keep working.
 
-A copy of ``gol_tpu/variants.py``. The port runs on one device, so only the
-variants whose single-device form it has are accepted (``PORTED``): ``game``,
-``cuda`` and ``tpu`` — on one device ``tpu`` is a whole-file read and write
-with its own printed lines and file name, exactly as the JAX CLI drops a
-1x1 mesh. The multi-process I/O variants need the mesh, which is not ported
-yet.
+A copy of ``gol_tpu/variants.py``. The port runs on one device, so the
+distributed variants (``mpi``, ``collective``, ``async``, ``openmp``,
+``tpu``) run in the 1x1 form the JAX CLI falls back to on one device: one
+shard, read and written through the variant's own I/O strategy
+(``io/sharded.py``), with the variant's printed lines and file name.
 """
 
 from __future__ import annotations
@@ -106,19 +105,10 @@ VARIANTS = {
 }
 
 
-PORTED = frozenset({"game", "cuda", "tpu"})
-
-
 def get_variant(name: str) -> Variant:
     try:
-        variant = VARIANTS[name]
+        return VARIANTS[name]
     except KeyError:
         raise ValueError(
             f"unknown variant {name!r}; available: {', '.join(sorted(VARIANTS))}"
         ) from None
-    if name not in PORTED:
-        raise ValueError(
-            f"variant {name!r} is not ported yet; ported: "
-            f"{', '.join(sorted(PORTED))}"
-        )
-    return variant

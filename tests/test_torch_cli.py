@@ -2,9 +2,12 @@
 (gol_tpu.cli): output file bytes, exit codes and printed lines, with the
 millisecond values masked.
 
-Under this suite's 8 virtual CPU devices the JAX ``tpu`` variant runs over
-a device mesh while the port runs it on one device, so its grids are square
-and divide over the mesh; the bytes must match all the same.
+Under this suite's 8 virtual CPU devices the JAX CLI runs the distributed
+variants over a device mesh unless it is given ``--mesh 1x1``, the
+single-device form the port runs. The first test keeps the mesh for the
+``tpu`` variant (its grids are square and divide over the mesh; the bytes
+must match all the same); the others pass ``--mesh 1x1`` to JAX for every
+distributed variant (``_jax_args``).
 """
 
 import re
@@ -15,6 +18,7 @@ import pytest
 from gol_tpu import cli as jax_cli
 from gol_tpu_torch import cli
 from gol_tpu_torch.io import text_grid
+from gol_tpu_torch.variants import VARIANTS
 
 _MS = re.compile(r"\d+\.\d+ msecs")
 
@@ -30,14 +34,23 @@ def _write(tmp_path, name, grid):
     return str(path)
 
 
-def _both(capsys, args, tmp_path=None):
-    """Run both CLIs: ``[(rc, stdout masked, output bytes)]`` for JAX, port."""
+def _jax_args(args):
+    """JAX's CLI in the port's single-device form: a 1x1 mesh for the
+    distributed variants."""
+    variant = args[args.index("--variant") + 1] if "--variant" in args else "tpu"
+    return [*args, "--mesh", "1x1"] if VARIANTS[variant].distributed else list(args)
+
+
+def _both(capsys, args, tmp_path=None, single_device=False):
+    """Run both CLIs: ``[(rc, stdout masked, output bytes)]`` for JAX, port.
+    ``single_device`` runs JAX's distributed variants on a 1x1 mesh."""
     results = []
     for tag, main in (("jax", jax_cli.main), ("port", cli.main)):
         extra = []
         if tmp_path is not None:
             extra = ["--output", str(tmp_path / f"{tag}.out")]
-        rc = main([*args, *extra])
+        run_args = _jax_args(args) if single_device and tag == "jax" else args
+        rc = main([*run_args, *extra])
         out = _MS.sub("X msecs", capsys.readouterr().out)
         data = None
         if tmp_path is not None and (tmp_path / f"{tag}.out").exists():
@@ -119,13 +132,12 @@ def test_errors_keep_the_gol_contract(capsys, tmp_path):
     for main in (jax_cli.main, cli.main):
         assert main(["32", "32", missing, "--variant", "game"]) == 1
         assert capsys.readouterr().err.startswith("gol: ")
-    # Variants that need the mesh are not ported yet.
-    path = _write(tmp_path, "in.txt", text_grid.generate(32, 32, seed=1))
-    assert cli.main(["32", "32", path, "--variant", "mpi"]) == 1
-    err = capsys.readouterr().err
-    assert err.startswith("gol: ") and "not ported yet" in err
-    # The packed kernel refuses a width that does not pack.
+    # Packed I/O refuses a width that does not pack.
     path48 = _write(tmp_path, "in48.txt", text_grid.generate(48, 48, seed=1))
+    assert cli.main(["48", "48", path48, "--packed-io"]) == 1
+    err = capsys.readouterr().err
+    assert err.startswith("gol: ") and "divisible by 32" in err
+    # The packed kernel refuses a width that does not pack.
     assert cli.main(["48", "48", path48, "--kernel", "packed"]) == 1
     assert "does not support" in capsys.readouterr().err
     # A grid above the dense ceiling is refused before anything allocates.
@@ -153,3 +165,197 @@ def test_generate_matches_jax(capsys, tmp_path):
         assert main(["generate", "40", "6", "--seed", "3", "-o", str(out)]) == 0
         files.append(out.read_bytes())
     assert files[0] == files[1] == outs[0].encode()
+
+
+# ---------------------------------------------------------------------------
+# The single-device lanes: every variant, --kernel pallas, --packed-io,
+# --host, --snapshot-every, --resume-gen.
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_every_variant_matches_jax(variant, capsys, tmp_path):
+    # 48 x 30 on a 48 x 48 file: mpi/collective/async/openmp force the
+    # height to the width and read the whole file; game and cuda read 30
+    # rows. tpu keeps rectangles, and its read takes only an exact file.
+    path = _write(tmp_path, "in.txt", text_grid.generate(48, 48, seed=8))
+    height = "48" if variant == "tpu" else "30"
+    jax_res, port_res = _both(capsys, ["48", height, path, "--variant", variant],
+                              tmp_path, single_device=True)
+    assert port_res == jax_res
+    assert port_res[0] == 0 and port_res[2]
+    lines = port_res[1].splitlines()
+    assert ("Reading file:\tX msecs" in lines) == VARIANTS[variant].io_timings
+    assert (lines[-1] == "Finished") == VARIANTS[variant].final_finished
+
+
+def _shifted_newline_file(tmp_path, n):
+    """A file of exactly n x (n+1) bytes whose first row is one cell short
+    and whose second row is one cell long."""
+    data = bytearray(text_grid.encode(text_grid.generate(n, n, seed=12)))
+    del data[n - 1]
+    data.insert(2 * (n + 1) - 1, ord("1"))
+    path = tmp_path / "shifted.txt"
+    path.write_bytes(bytes(data))
+    return str(path)
+
+
+@pytest.mark.parametrize("variant", ["tpu", "collective", "async", "openmp"])
+def test_sharded_variants_read_the_file_by_position(variant, capsys, tmp_path):
+    # A 48^2 file run as 30 30: the sharded read refuses its size, as JAX's
+    # does, where a serial scan would take its first 900 cells.
+    path48 = _write(tmp_path, "in48.txt", text_grid.generate(48, 48, seed=1))
+    errs = []
+    for main, args in ((jax_cli.main, ["--mesh", "1x1"]), (cli.main, [])):
+        assert main(["30", "30", path48, "--variant", variant, *args]) == 1
+        errs.append(capsys.readouterr().err)
+    assert errs[0] == errs[1]
+    assert "size 2352 != 930 for a 30x30 text grid (sharded I/O requires" in errs[1]
+    # A right-sized file with a misplaced newline reads by position.
+    path = _shifted_newline_file(tmp_path, 32)
+    jax_res, port_res = _both(capsys, ["32", "32", path, "--variant", variant,
+                                       "--gen-limit", "5"], tmp_path,
+                              single_device=True)
+    assert port_res == jax_res and port_res[0] == 0
+    serial = _both(capsys, ["32", "32", path, "--variant", "game",
+                            "--gen-limit", "5"], tmp_path)[1]
+    assert serial[2] != port_res[2]
+
+
+def test_default_variant_refuses_a_wrong_size_file(capsys, tmp_path, monkeypatch):
+    # The port's default variant is tpu, whose read is the sharded one.
+    monkeypatch.chdir(tmp_path)
+    path48 = _write(tmp_path, "in48.txt", text_grid.generate(48, 48, seed=1))
+    assert cli.main(["30", "30", path48]) == 1
+    err = capsys.readouterr().err
+    assert err == (f"gol: {path48}: size 2352 != 930 for a 30x30 text grid "
+                   "(sharded I/O requires the exact height x (width+1) layout)\n")
+    assert not (tmp_path / "tpu_output.out").exists()
+
+
+@pytest.mark.parametrize("variant", ["game", "cuda"])
+@pytest.mark.parametrize("flow", ["random", "block", "lone", "dead"])
+def test_kernel_pallas_matches_jax(flow, variant, capsys, tmp_path):
+    # Shapes JAX's Pallas kernel takes: height % 8 == 0, width % 128 == 0.
+    g = text_grid.generate(128, 16, seed=6) if flow == "random" else \
+        np.zeros((16, 128), np.uint8)
+    if flow == "block":
+        g[3:5, 60:62] = 1
+    elif flow == "lone":
+        g[10, 100] = 1
+    path = _write(tmp_path, "in.txt", g)
+    jax_res, port_res = _both(
+        capsys, ["128", "16", path, "--variant", variant, "--kernel", "pallas",
+                 "--gen-limit", "200"], tmp_path)
+    assert port_res == jax_res and port_res[0] == 0
+
+
+@pytest.mark.parametrize("variant", ["game", "cuda"])
+def test_kernel_pallas_runs_shapes_jax_refuses(variant, capsys, tmp_path):
+    # JAX's Pallas gate refuses 48^2; the port's kernel takes it, and its
+    # output equals JAX's --kernel lax run.
+    path = _write(tmp_path, "in.txt", text_grid.generate(48, 48, seed=3))
+    assert jax_cli.main(["48", "48", path, "--variant", variant,
+                         "--kernel", "pallas"]) == 1
+    capsys.readouterr()
+    jax_res, _ = _both(capsys, ["48", "48", path, "--variant", variant,
+                                "--kernel", "lax"], tmp_path)
+    _, port_res = _both(capsys, ["48", "48", path, "--variant", variant,
+                                 "--kernel", "pallas"], tmp_path)
+    assert port_res == jax_res and port_res[0] == 0
+
+
+@pytest.mark.parametrize("variant", ["game", "cuda", "tpu", "async"])
+def test_packed_io_matches_jax(variant, capsys, tmp_path):
+    path = _write(tmp_path, "in.txt", text_grid.generate(64, 64, seed=4))
+    for extra in ([], ["--gen-limit", "37", "--warmup"]):
+        jax_res, port_res = _both(
+            capsys, ["64", "64", path, "--variant", variant, "--packed-io", *extra],
+            tmp_path, single_device=True)
+        assert port_res == jax_res and port_res[0] == 0
+    assert not list(tmp_path.glob("*.inprogress"))
+
+
+@pytest.mark.parametrize("variant", ["game", "cuda", "collective", "openmp"])
+def test_host_matches_jax(variant, capsys, tmp_path):
+    path = _write(tmp_path, "in.txt", text_grid.generate(48, 48, seed=5))
+    jax_res, port_res = _both(
+        capsys, ["48", "48", path, "--variant", variant, "--host"], tmp_path)
+    assert port_res == jax_res and port_res[0] == 0
+
+
+@pytest.mark.parametrize(
+    "variant,flags",
+    [("game", ["--kernel", "pallas"]), ("cuda", []), ("tpu", ["--kernel", "lax"]),
+     ("collective", ["--packed-io"]), ("cuda", ["--packed-io"])],
+    ids=["game_pallas", "cuda_auto", "tpu_lax", "collective_packed_io",
+         "cuda_packed_io"],
+)
+def test_snapshots_match_jax(variant, flags, capsys, tmp_path):
+    # 128 wide: JAX's Pallas kernel takes only widths that divide by 128.
+    path = _write(tmp_path, "in.txt", text_grid.generate(128, 128, seed=10))
+    results, snaps = [], []
+    for tag, main, extra in (("jax", jax_cli.main, _jax_args(["--variant", variant])[2:]),
+                             ("port", cli.main, [])):
+        snapdir = tmp_path / f"snaps_{tag}"
+        rc = main(["128", "128", path, "--variant", variant, *flags, *extra,
+                   "--gen-limit", "40", "--snapshot-every", "16",
+                   "--snapshot-dir", str(snapdir),
+                   "--output", str(tmp_path / f"{tag}.out")])
+        results.append((rc, _MS.sub("X msecs", capsys.readouterr().out),
+                        (tmp_path / f"{tag}.out").read_bytes()))
+        snaps.append({p.name: p.read_bytes() for p in sorted(snapdir.iterdir())})
+    assert results[1] == results[0] and results[1][0] == 0
+    assert snaps[1] == snaps[0]
+    assert sorted(snaps[1]) == ["gen_000016.out", "gen_000032.out", "gen_000040.out"]
+
+
+@pytest.mark.parametrize("flags", [[], ["--kernel", "pallas"], ["--packed-io"]],
+                         ids=["auto", "pallas", "packed_io"])
+def test_resume_gen_matches_jax_and_the_whole_run(flags, capsys, tmp_path):
+    path = _write(tmp_path, "in.txt", text_grid.generate(128, 32, seed=19))
+    snap = tmp_path / "snaps" / "gen_000013.out"
+    base = ["128", "32", "--variant", "game", "--gen-limit", "60", *flags]
+    assert cli.main([*base[:2], path, *base[2:], "--snapshot-every", "13",
+                     "--snapshot-dir", str(tmp_path / "snaps"),
+                     "--output", str(tmp_path / "whole.out")]) == 0
+    capsys.readouterr()
+    jax_res, port_res = _both(
+        capsys, [*base[:2], str(snap), *base[2:], "--resume-gen", "13"], tmp_path)
+    assert port_res == jax_res and port_res[0] == 0
+    assert port_res[2] == (tmp_path / "whole.out").read_bytes()
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [["--resume-gen", "-1"], ["--gen-limit", "10", "--resume-gen", "25"],
+     ["--host", "--resume-gen", "3"], ["--host", "--kernel", "packed"],
+     ["--host", "--packed-io"], ["--packed-io", "--kernel", "lax"],
+     ["--packed-io", "--kernel", "pallas"], ["--snapshot-format", "zarr"],
+     ["--packed-io", "--variant", "game", "WIDTH48"]],
+    ids=["resume_negative", "resume_above_limit", "host_resume", "host_kernel",
+         "host_packed_io", "packed_io_lax", "packed_io_pallas",
+         "zarr_without_packed_io", "packed_io_width"],
+)
+def test_refusals_match_jax(flags, capsys, tmp_path):
+    width = "48" if "WIDTH48" in flags else "64"
+    flags = [f for f in flags if f != "WIDTH48"]
+    path = _write(tmp_path, "in.txt", text_grid.generate(int(width), 64, seed=2))
+    errs = []
+    for main in (jax_cli.main, cli.main):
+        assert main([width, "64", path, "--variant", "game", *flags]) == 1
+        errs.append(capsys.readouterr().err)
+    assert errs[0] == errs[1] and errs[1].startswith("gol: ")
+
+
+def test_zarr_is_refused(capsys, tmp_path):
+    # The port has no TensorStore: zarr snapshots and inputs exit 1.
+    path = _write(tmp_path, "in.txt", text_grid.generate(64, 64, seed=2))
+    zarr_dir = tmp_path / "gen_000010.zarr"
+    zarr_dir.mkdir()
+    for args in ([path, "--packed-io", "--snapshot-format", "zarr",
+                  "--snapshot-every", "5"],
+                 [str(zarr_dir), "--packed-io", "--resume-gen", "10"],
+                 [str(zarr_dir)]):
+        assert cli.main(["64", "64", *args]) == 1
+        err = capsys.readouterr().err
+        assert err.startswith("gol: ") and ("zarr" in err or "TensorStore" in err)

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain torch versions.
+"""The port's CUDA kernels on the card, against their plain torch versions,
+and the CLI lanes that launch them against the oracle.
 
 Marked ``cuda``: each test skips (inside a fixture, so every worker collects
 the same tests) where torch sees no CUDA card. Run on the card with
@@ -10,11 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from gol_tpu_torch import engine, oracle
+from gol_tpu_torch import cli, engine, oracle
 from gol_tpu_torch.config import Convention, GameConfig
 from gol_tpu_torch.io import text_grid
 from gol_tpu_torch.ops import packed_math as pm
 from gol_tpu_torch.ops import stencil_packed as sp
+from gol_tpu_torch.ops import stencil_pallas as spl
 
 pytestmark = pytest.mark.cuda
 
@@ -26,6 +28,7 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; torch sees none")
     sp.load_kernels()
+    spl.load_kernels()
     return torch.device("cuda", torch.cuda.current_device())
 
 
@@ -92,3 +95,64 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
         sp._step_into(x.t(), torch.empty_like(x.t()), flags)
     with pytest.raises(ValueError, match="is on"):
         sp._step_into(x, torch.empty_like(x), flags.cpu())
+
+
+BYTE_SHAPES = [(1, 1), (7, 3), (16, 128), (17, 161), (1000, 225), (64, 4096)]
+
+
+@pytest.mark.parametrize("height,width", BYTE_SHAPES)
+def test_byte_kernel_matches_plain(card, height, width):
+    rng = np.random.default_rng(height * 7 + width)
+    die = np.zeros((height, width), np.uint8)
+    die[height // 2, width // 2] = die[height // 2, (width // 2 + 1) % width] = 1
+    onset = np.zeros((height, width), np.uint8)
+    onset[0, 0] = onset[1 % height, 0] = onset[0, width - 1] = 1
+    grids = {"soup": (rng.random((height, width)) < 0.5).astype(np.uint8),
+             "die": die, "onset": onset}
+    for name, g in grids.items():
+        x = torch.from_numpy(g).to(card)
+        # An offset view: the kernel's byte path for unaligned pointers.
+        for src in (x, torch.cat([torch.zeros(1, dtype=torch.uint8, device=card),
+                                  x.reshape(-1)])[1:].reshape(height, width)):
+            out = torch.full_like(src, 7)
+            flags = torch.zeros(2, dtype=torch.int32, device=card)
+            before = spl.LAUNCHES["byte_band"]
+            spl._step_into(src, out, flags)
+            torch.cuda.synchronize(card)
+            assert spl.LAUNCHES["byte_band"] == before + 1
+            want, want_flags = spl._band_plain(src)
+            assert torch.equal(out, want), name
+            assert flags.tolist() == want_flags.tolist(), name
+
+
+def _cli_on_card(monkeypatch, tmp_path, capsys, grid, args):
+    monkeypatch.setenv("GOL_TORCH_DEVICE", "cuda")
+    height, width = grid.shape
+    path = tmp_path / "in.txt"
+    text_grid.write_grid(str(path), grid)
+    out = tmp_path / "out.txt"
+    rc = cli.main([str(width), str(height), str(path), *args, "--output", str(out)])
+    stdout = capsys.readouterr().out
+    assert rc == 0, stdout
+    gens = int(stdout.split("Generations:\t")[1].split()[0])
+    return gens, text_grid.read_grid(str(out), width, height)
+
+
+@pytest.mark.parametrize("variant", ["game", "cuda"])
+@pytest.mark.parametrize("lane", ["pallas", "packed_io"])
+def test_cli_lanes_on_the_card_match_oracle(card, lane, variant, monkeypatch,
+                                            tmp_path, capsys):
+    args = ["--variant", variant] + (
+        ["--kernel", "pallas"] if lane == "pallas" else ["--packed-io"])
+    patch = np.zeros((32, 64), np.uint8)
+    patch[12:17, 28:33] = np.random.default_rng(203).integers(0, 2, (5, 5),
+                                                              dtype=np.uint8)
+    grids = [text_grid.generate(64, 64, seed=1), patch]
+    if lane == "pallas":
+        grids.append(text_grid.generate(30, 30, seed=2))
+    convention = Convention.CUDA if variant == "cuda" else Convention.C
+    for grid in grids:
+        want = oracle.run(grid, GameConfig(convention=convention))
+        gens, got = _cli_on_card(monkeypatch, tmp_path, capsys, grid, args)
+        assert gens == want.generations
+        np.testing.assert_array_equal(got, want.grid)

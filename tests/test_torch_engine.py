@@ -116,7 +116,7 @@ def test_runner_rejects_what_it_cannot_run():
     with pytest.raises(ValueError, match="does not support"):
         engine.make_runner((48, 48), kernel="packed", device="cpu")
     with pytest.raises(ValueError, match="unknown kernel"):
-        engine.make_runner((64, 64), kernel="pallas", device="cpu")
+        engine.make_runner((64, 64), kernel="bogus", device="cpu")
     run = engine.make_runner((64, 64), device="cpu")
     with pytest.raises(ValueError, match="uint8 64x64"):
         run(engine.put_grid(np.zeros((32, 64), np.uint8), "cpu"))
