@@ -10,16 +10,22 @@ error:
 
 1. Card and build: the card's name and power limit (nvidia-smi), then the
    native code built from the checkout — one compiler per source, all
-   started together: ``csrc/stencil_packed.cu`` (K1-K3),
-   ``csrc/stencil_pallas.cu`` (K4) and ``native/codec.c`` (the packed-I/O
-   text codec) — with nvcc's ``-Xptxas -v`` report (registers, shared
-   memory, spills).
+   started together: ``csrc/stencil_packed.cu`` (K1-K3, K5, K7, K8),
+   ``csrc/stencil_pallas.cu`` (K4, K6) and ``native/codec.c`` (the
+   packed-I/O text codec) — with nvcc's ``-Xptxas -v`` report (registers,
+   shared memory, spills).
 2. Kernels against their plain torch versions on the card: K1 (fast-flag
    8-generation pass), K2 (exact-flag pass) and K3 (one generation) at
    (height, nwords) (1,1) (7,1) (16,2) (17,5) (1000,7) (16384,512), and K4
    (one byte-cell generation) at (height, width) (1,1) (7,3) (16,128)
    (17,161) (1000,225) (16384,16384), on random cells, a domino that dies
-   and an L-tromino that becomes still. Outputs and flags must be
+   and an L-tromino that becomes still. The mesh-shard kernels K5 (one
+   generation from ghost rows and carry words), K7/K8 (K1/K2 of a
+   full-width shard from 8-row ghost blocks) at shard (height, nwords)
+   (1,1) (8,1) (17,5) (1000,7) (4096,512) (K7/K8 from 8 rows), and K6 (K4
+   of a shard) at (1,1) (7,3) (17,161) (8192,8192): on random cells with
+   random ghosts (every bit random), and on the domino and the L-tromino
+   with the ghosts a one-shard torus exchanges. Outputs and flags must be
    identical.
 3. Small flows through ``python -m gol_tpu_torch`` on the card, against the
    port's numpy oracle, for both loop conventions: the verify skill's four
@@ -30,7 +36,11 @@ error:
    (default output name, printed lines, bytes); ``--snapshot-every 100``
    (every ``gen_NNNNNN.out`` equal to the oracle's state at that
    generation); and ``--resume-gen 300`` from a snapshot against the whole
-   run.
+   run. Then, with ``GOL_TORCH_MESH_DEVICES=4`` (four shards on the one
+   card), the eight flows through ``cli.main`` under ``--variant tpu``,
+   ``collective``, ``async``, ``openmp`` and ``mpi``, each with ``--mesh
+   4x1`` and ``--mesh 2x2`` and ``--kernel auto``, ``pallas`` and ``lax``
+   (bytes, generation counts and printed lines against the oracle).
 4. The main path at full size, 16384^2 (268 MB of text, 32 MiB of packed
    words), through the CLI entry point: ``--variant game`` and ``cuda``,
    each on (a) a random grid for 1000 generations (K1 only), (b) the same
@@ -46,14 +56,24 @@ error:
    must give the same output bytes and generation counts as ``auto``; every
    run is repeated with ``--kernel lax`` (byte cells, plain torch) with the
    same check, and (c)/(d) must match the oracle on a 64^2 copy.
-5. Timing at 16384^2: each kernel and its plain version over 100 warm
-   launches (CUDA events), beside its bound — the larger of the bytes it
-   must move over 3.35 TB/s and its 32-bit integer logic ops over the
-   card's rate for them: 64 results per clock per SM (CUDA C++ Programming
-   Guide, arithmetic instruction throughput, compute capability 9.0:
-   32-bit bitwise AND/OR/XOR, shifts and adds) times the SM count times the
-   maximum SM clock (nvidia-smi ``clocks.max.sm``). No single PyTorch call
-   computes a B3/S23 step, so ``library_ms`` is null.
+   The mesh path at the same size: ``--variant tpu`` (C convention) on the
+   six inputs under ``--mesh 4x1`` (four 4096x16384 shards) and ``--mesh
+   2x2`` (8192x8192), each with ``--kernel auto`` and ``--kernel pallas``:
+   every output's bytes and generation count must equal the single-device
+   ``--kernel auto`` run's. Counters are zeroed per lane: ``4x1 auto`` must
+   launch K7, K8 and K5, ``2x2 auto`` K5, both ``pallas`` lanes K6, and no
+   lane a single-device kernel. Engine-level runs of (d) under the CUDA
+   convention on 4x1 must launch K5 for the empty-exit replay.
+5. Timing: each kernel and its plain version over 100 warm launches (CUDA
+   events), K1-K4 at 16384^2, K5/K7/K8 at the 4x1 shard (4096 x 512 words)
+   and K6 at the 4x1 and 2x2 shards, beside its bound — the larger of the
+   bytes it must move (its inputs, ghosts included, read once and its
+   output written once) over 3.35 TB/s and its 32-bit integer logic ops
+   over the card's rate for them: 64 results per clock per SM (CUDA C++
+   Programming Guide, arithmetic instruction throughput, compute capability
+   9.0: 32-bit bitwise AND/OR/XOR, shifts and adds) times the SM count
+   times the maximum SM clock (nvidia-smi ``clocks.max.sm``). No single
+   PyTorch call computes a B3/S23 step, so ``library_ms`` is null.
 
 The last lines are the kernel table as one JSON object, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``.
@@ -78,12 +98,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from gol_tpu_torch import cli, native, oracle, platform_env
+from gol_tpu_torch import cli, engine, native, oracle, platform_env
 from gol_tpu_torch.config import Convention, GameConfig
 from gol_tpu_torch.io import text_grid
 from gol_tpu_torch.ops import _build, packed_math as pm
 from gol_tpu_torch.ops import stencil_packed as sp
 from gol_tpu_torch.ops import stencil_pallas as spl
+from gol_tpu_torch.parallel import halo
+from gol_tpu_torch.parallel.mesh import make_mesh
 
 REPO = Path(__file__).resolve().parent
 SIZE = 16384
@@ -100,6 +122,15 @@ OPS_PER_WORD_GEN = 28
 OPS_PER_BYTE_WORD = 31
 PACKED_SHAPES = [(1, 1), (7, 1), (16, 2), (17, 5), (1000, 7), (SIZE, SIZE // 32)]
 BYTE_SHAPES = [(1, 1), (7, 3), (16, 128), (17, 161), (1000, 225), (SIZE, SIZE)]
+# Mesh shards: packed (height, nwords) up to the 4x1 shard of 16384^2, and
+# byte (height, width) up to its 2x2 shard.
+SHARD_SHAPES = [(1, 1), (8, 1), (17, 5), (1000, 7), (SIZE // 4, SIZE // 32)]
+SHARD_BYTE_SHAPES = [(1, 1), (7, 3), (17, 161), (SIZE // 2, SIZE // 2)]
+# Phase 5's shapes per kernel: the main path's shards.
+SHARD_TIMING = {"dist_band": [(SIZE // 4, SIZE // 32)],
+                "bandtrow_fast": [(SIZE // 4, SIZE // 32)],
+                "bandtrow": [(SIZE // 4, SIZE // 32)],
+                "dist_byte_band": [(SIZE // 4, SIZE), (SIZE // 2, SIZE // 2)]}
 KERNELS = [
     {
         "key": "bandt_fast", "id": "K1", "gens": sp.TEMPORAL_GENS,
@@ -133,15 +164,64 @@ KERNELS = [
         "into": spl._step_into, "nflags": spl.STEP_FLAGS,
         "plain": spl._band_plain, "cells": True,
     },
+    {
+        "key": "dist_band", "id": "K5", "gens": 1, "ghosts": "rows",
+        "name": "K5 dist_band_kernel: one shard generation from ghost rows "
+                "and carry words, fused flags",
+        "source": "gol_tpu_torch/csrc/stencil_packed.cu",
+        "replaces": "gol_tpu/ops/stencil_packed.py:1540",
+        "into": sp._distributed_step_into, "nflags": sp.STEP_FLAGS,
+        "plain": sp._dist_band_plain,
+    },
+    {
+        "key": "dist_byte_band", "id": "K6", "gens": 1, "ghosts": "rows",
+        "name": "K6 byte_step_kernel<ShardCells>: one byte-cell shard "
+                "generation from ghost rows and columns, fused flags",
+        "source": "gol_tpu_torch/csrc/stencil_pallas.cu",
+        "replaces": "gol_tpu/ops/stencil_pallas.py:180",
+        "into": spl._distributed_step_into, "nflags": spl.STEP_FLAGS,
+        "plain": spl._dist_band_plain, "cells": True,
+    },
+    {
+        "key": "bandtrow_fast", "id": "K7", "gens": sp.TEMPORAL_GENS,
+        "ghosts": "deep",
+        "name": "K7 bandt_kernel<SUMMARY, ghost rows>: 8-generation pass of "
+                "a full-width shard, summary flags",
+        "source": "gol_tpu_torch/csrc/stencil_packed.cu",
+        "replaces": "gol_tpu/ops/stencil_packed.py:592",
+        "into": sp._step_trow_fast_into, "nflags": sp.SUMMARY_FLAGS,
+        "plain": lambda x, gt, gb: sp._bandtrow_plain(x, gt, gb, exact=False),
+    },
+    {
+        "key": "bandtrow", "id": "K8", "gens": sp.TEMPORAL_GENS,
+        "ghosts": "deep",
+        "name": "K8 bandt_kernel<EXACT, ghost rows>: 8-generation pass of a "
+                "full-width shard, exact flags",
+        "source": "gol_tpu_torch/csrc/stencil_packed.cu",
+        "replaces": "gol_tpu/ops/stencil_packed.py:675",
+        "into": sp._step_trow_into, "nflags": sp.EXACT_FLAGS,
+        "plain": lambda x, gt, gb: sp._bandtrow_plain(x, gt, gb, exact=True),
+    },
 ]
-PACKED = [k for k in KERNELS if not k.get("cells")]
-BYTE = [k for k in KERNELS if k.get("cells")]
+PACKED = [k for k in KERNELS if not k.get("cells") and not k.get("ghosts")]
+BYTE = [k for k in KERNELS if k.get("cells") and not k.get("ghosts")]
+SHARD = [k for k in KERNELS if k.get("ghosts") and not k.get("cells")]
+SHARD_BYTE = [k for k in KERNELS if k.get("ghosts") and k.get("cells")]
 # The main path's lanes: CLI flags and the kernels each must launch.
 LANES = {
     "auto": (["--kernel", "auto"], ("bandt_fast", "bandt", "band")),
     "pallas": (["--kernel", "pallas"], ("byte_band",)),
     "packed_io": (["--packed-io"], ("bandt_fast", "bandt", "band")),
 }
+# The mesh path's lanes, all under --variant tpu.
+MESH_LANES = {
+    "4x1 auto": (["--mesh", "4x1", "--kernel", "auto"],
+                 ("bandtrow_fast", "bandtrow", "dist_band")),
+    "4x1 pallas": (["--mesh", "4x1", "--kernel", "pallas"], ("dist_byte_band",)),
+    "2x2 auto": (["--mesh", "2x2", "--kernel", "auto"], ("dist_band",)),
+    "2x2 pallas": (["--mesh", "2x2", "--kernel", "pallas"], ("dist_byte_band",)),
+}
+MESH_DEVICES = "4"
 
 
 def fail(msg: str) -> None:
@@ -165,6 +245,10 @@ def _zero_counters() -> None:
 
 def _counts() -> dict:
     return {**sp.LAUNCHES, **spl.LAUNCHES}
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: n for k, n in counts.items() if n}
 
 
 # ---------------------------------------------------------------------------
@@ -218,12 +302,34 @@ def _cell_inputs(height: int, width: int, rng) -> dict:
     }
 
 
-def _compare(k: dict, x: torch.Tensor, stats: dict, where: str) -> None:
+def _ghosts(k: dict, x: torch.Tensor, rng) -> list:
+    """Random ghosts of the shapes a shard kernel takes, every bit random."""
+    height, n = x.shape
+    shapes = ([(1, n), (1, n), (height + 2,), (height + 2,)] if k["ghosts"] == "rows"
+              else [(sp.TEMPORAL_GENS, n)] * 2)
+    if k.get("cells"):
+        return [torch.from_numpy(rng.integers(0, 2, s, dtype=np.uint8)).to(x.device)
+                for s in shapes]
+    return [pm.words_from_numpy(rng.integers(0, 2**32, s, dtype=np.uint64)
+                                .astype(np.uint32), x.device) for s in shapes]
+
+
+def _torus_ghosts(k: dict, x: torch.Tensor) -> list:
+    """The ghosts a one-shard torus exchanges: the shard's own far edges."""
+    if k["ghosts"] == "deep":
+        return list(sp.exchange_packed_deep([x], (1, 1))[0])
+    if k.get("cells"):
+        return list(halo.exchange_parts([x], (1, 1))[0])
+    return list(sp.exchange_packed([x], (1, 1))[0])
+
+
+def _compare(k: dict, x: torch.Tensor, stats: dict, where: str,
+             ghosts=()) -> None:
     dev = x.device
     out = torch.empty_like(x)
     flags = torch.zeros(k["nflags"], dtype=torch.int32, device=dev)
-    k["into"](x, out, flags)
-    want, want_flags = k["plain"](x)
+    k["into"](x, *ghosts, out, flags)
+    want, want_flags = k["plain"](x, *ghosts)
     torch.cuda.synchronize(dev)
     err = max(
         int((_u32(out) - _u32(want)).abs().max()),
@@ -255,6 +361,22 @@ def check_kernels(dev, stats: dict) -> None:
         print(f"(height, width) ({height}, {width}): K4 == plain on random, "
               "dies, becomes_still (tolerance 0: cells and flags identical)",
               flush=True)
+    for kernels, shapes, to_state in ((SHARD, SHARD_SHAPES, pm.encode),
+                                      (SHARD_BYTE, SHARD_BYTE_SHAPES, lambda t: t)):
+        for height, n in shapes:
+            width = n if kernels is SHARD_BYTE else 32 * n
+            checked = [k for k in kernels if k["ghosts"] != "deep"
+                       or height >= sp.TEMPORAL_GENS]
+            for name, cells in _cell_inputs(height, width, rng).items():
+                x = to_state(torch.from_numpy(cells).to(dev))
+                for k in checked:
+                    ghosts = (_ghosts(k, x, rng) if name == "random"
+                              else _torus_ghosts(k, x))
+                    _compare(k, x, stats, f"({height}, {n}) on {name}", ghosts)
+            print(f"shard ({height}, {n}): "
+                  f"{' '.join(k['id'] for k in checked)} == plain on random "
+                  "(random ghosts), dies, becomes_still (torus ghosts) "
+                  "(tolerance 0: state and flags identical)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -396,15 +518,51 @@ def small_flows(work: Path) -> None:
     _snapshot_and_resume(work, env)
 
 
+def _cli_capture(args: list[str]) -> tuple[int, str]:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args)
+    return rc, buf.getvalue()
+
+
+def mesh_flows(work: Path) -> None:
+    """The eight flows over four shards on the card, in this process: every
+    distributed variant, --mesh 4x1 and 2x2, --kernel auto, pallas, lax."""
+    out = work / "mesh.out"
+    for name, grid in _flows().items():
+        n = grid.shape[0]
+        want = oracle.run(grid, GameConfig())
+        want_bytes = text_grid.encode(want.grid)
+        for variant in ("tpu", "collective", "async", "openmp", "mpi"):
+            lines = ["Reading file:\tX msecs", f"Generations:\t{want.generations}",
+                     "Execution time:\tX msecs", "Writing file:\tX msecs"]
+            if variant != "openmp":
+                lines.append("Finished")
+            runs = 0
+            for mesh in ("4x1", "2x2"):
+                for kernel in ("auto", "pallas", "lax"):
+                    rc, text = _cli_capture([str(n), str(n), str(work / f"{name}.txt"),
+                                             "--variant", variant, "--mesh", mesh,
+                                             "--kernel", kernel, "--output", str(out)])
+                    label = f"{name} --variant {variant} --mesh {mesh} --kernel {kernel}"
+                    if rc != 0:
+                        fail(f"{label} exited {rc}")
+                    if _MS.sub("X msecs", text).splitlines() != lines:
+                        fail(f"{label}: printed {text!r}, want {lines}")
+                    if out.read_bytes() != want_bytes:
+                        fail(f"{label}: output bytes differ from the oracle")
+                    runs += 1
+            print(f"{name:8s} --variant {variant:10s}: {runs} mesh runs (4x1, 2x2 x "
+                  f"auto, pallas, lax): Generations {want.generations}, bytes and "
+                  "printed lines == oracle", flush=True)
+
+
 # ---------------------------------------------------------------------------
 # 4. The main path at 16384^2
 
 
 def _cli(args: list[str]) -> tuple[int, float, str]:
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(args)
-    text = buf.getvalue()
+    rc, text = _cli_capture(args)
     if rc != 0:
         fail(f"gol_tpu_torch {' '.join(args)} exited {rc}:\n{text}")
     gens = int(re.search(r"Generations:\t(\d+)", text).group(1))
@@ -493,8 +651,8 @@ def main_path(work: Path, dev) -> dict:
                          f"({results[(variant, key, limit)][0]})")
                 print(f"({tag}) {variant:4s} {key:15s} limit {limit}: {lane:9s} "
                       f"Generations {gens}, Execution {ms:.3f} ms, launches "
-                      f"{launched}" + ("" if lane == "auto" else ", bytes == auto"),
-                      flush=True)
+                      f"{_nonzero(launched)}"
+                      + ("" if lane == "auto" else ", bytes == auto"), flush=True)
                 if lane == "auto" and key in patterns:
                     cells, anchor = patterns[key]
                     convention = Convention.CUDA if variant == "cuda" else Convention.C
@@ -511,12 +669,9 @@ def main_path(work: Path, dev) -> dict:
                              f"({want.generations})")
             by_path[f"{variant} {lane}"] = _counts()
             print(f"main path, --variant {variant} {lane} (its six runs): "
-                  f"launches {by_path[f'{variant} {lane}']}", flush=True)
-            for k in KERNELS:
-                n = by_path[f"{variant} {lane}"][k["key"]]
-                if (k["key"] in needed) != (n > 0):
-                    fail(f"{k['id']} ({k['key']}) launched {n} times on the "
-                         f"--variant {variant} {lane} path")
+                  f"launches {_nonzero(by_path[f'{variant} {lane}'])}", flush=True)
+            _check_launches(by_path[f"{variant} {lane}"], needed,
+                            f"--variant {variant} {lane}")
 
     for variant in ("game", "cuda"):
         for tag, key, limit in runs:
@@ -530,6 +685,89 @@ def main_path(work: Path, dev) -> dict:
                   flush=True)
     print("run (a) Execution time, ms: " + ", ".join(
         f"{path} {r['exec_ms']:.3f}" for path, r in run_a.items()), flush=True)
+    return {"launches": by_path, "run_a": run_a, "inputs": inputs,
+            "results": results, "patterns": patterns, "runs": runs}
+
+
+def _check_launches(counts: dict, needed, where: str) -> None:
+    for k in KERNELS:
+        n = counts[k["key"]]
+        if (k["key"] in needed) != (n > 0):
+            fail(f"{k['id']} ({k['key']}) launched {n} times on the {where} path")
+
+
+def mesh_path(work: Path, dev, path: dict) -> dict:
+    """--variant tpu over four shards at 16384^2, against the single-device
+    --kernel auto runs of main_path; then the CUDA convention's empty exit
+    on a 4x1 mesh through the engine."""
+    inputs, results, runs = path["inputs"], path["results"], path["runs"]
+    out = work / "out.txt"
+
+    def run(flags, key, limit):
+        gens, ms, _ = _cli([str(SIZE), str(SIZE), str(inputs[key]), "--variant",
+                            "tpu", *flags, "--gen-limit", str(limit),
+                            "--output", str(out)])
+        return gens, ms
+
+    for lane, (flags, _) in MESH_LANES.items():
+        gens, ms = run(flags, "random", 1000)
+        print(f"warm-up (uncounted): tpu {lane} random limit 1000: "
+              f"Generations {gens}, Execution {ms:.3f} ms", flush=True)
+    by_path, run_a = {}, {}
+    for lane, (flags, needed) in MESH_LANES.items():
+        _zero_counters()
+        for tag, key, limit in runs:
+            before = _counts()
+            if tag == "a":
+                torch.cuda.reset_peak_memory_stats(dev)
+            gens, ms = run(flags, key, limit)
+            launched = {k: n - before[k] for k, n in _counts().items()}
+            if tag == "a":
+                run_a[f"tpu {lane}"] = {
+                    "generations": gens, "exec_ms": ms,
+                    "cell_updates_per_s": SIZE * SIZE * gens / (ms / 1000),
+                    "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+                    "launches": launched,
+                }
+            if (gens, _digest(out)) != results[("game", key, limit)]:
+                fail(f"({tag}) tpu {lane} {key}: Generations {gens} or bytes differ "
+                     f"from single-device --kernel auto "
+                     f"({results[('game', key, limit)][0]})")
+            print(f"({tag}) tpu  {key:15s} limit {limit}: {lane:10s} Generations "
+                  f"{gens}, Execution {ms:.3f} ms, launches {_nonzero(launched)}, "
+                  "bytes == single-device auto", flush=True)
+        by_path[f"tpu {lane}"] = _counts()
+        print(f"mesh path, --variant tpu {lane} (its six runs): launches "
+              f"{_nonzero(by_path[f'tpu {lane}'])}", flush=True)
+        _check_launches(by_path[f"tpu {lane}"], needed, f"--variant tpu {lane}")
+
+    # The CUDA convention's empty exit (d) replays K5 from the block's start
+    # on every shard; only the engine reaches it on a mesh (the cuda variant
+    # is single-device).
+    mesh = make_mesh(4, 1)
+    config = GameConfig(convention=Convention.CUDA)
+    _zero_counters()
+    for key in ("diagonal_mid", "diagonal_corner"):
+        cells, anchor = path["patterns"][key]
+        grid = _pattern(SIZE, SIZE, [(anchor[0] + r, anchor[1] + c) for r, c in cells])
+        got = engine.simulate(grid, config, mesh=mesh)
+        small_anchor = (32, 32) if key.endswith("mid") else (0, 0)
+        want = oracle.run(_pattern(64, 64, [(small_anchor[0] + r, small_anchor[1] + c)
+                                            for r, c in cells]), config)
+        if (got.generations != results[("cuda", key, 1000)][0]
+                or got.generations != want.generations
+                or _live_offsets(got.grid, anchor) != _live_offsets(want.grid, small_anchor)):
+            fail(f"engine 4x1 cuda {key}: Generations {got.generations} or live "
+                 f"cells differ from the oracle's 64x64 copy ({want.generations})")
+        print(f"(d) engine, cuda convention, 4x1 auto {key}: Generations "
+              f"{got.generations}, live cells == the oracle's 64x64 copy", flush=True)
+    by_path["cuda 4x1 auto engine (d)"] = _counts()
+    print(f"mesh path, engine cuda 4x1 auto (d): launches "
+          f"{_nonzero(by_path['cuda 4x1 auto engine (d)'])}", flush=True)
+    if by_path["cuda 4x1 auto engine (d)"]["dist_band"] == 0:
+        fail("the empty-exit replay on the 4x1 mesh launched no K5")
+    print("mesh run (a) Execution time, ms: " + ", ".join(
+        f"{p} {r['exec_ms']:.3f}" for p, r in run_a.items()), flush=True)
     return {"launches": by_path, "run_a": run_a}
 
 
@@ -567,6 +805,33 @@ def logic_ops_per_s() -> float:
     return rate
 
 
+def _timed(k: dict, x: torch.Tensor, ghosts: list, ops_per_s: float) -> dict:
+    """``k``'s ms per launch and its plain version's on ``x`` (and its
+    ghosts), beside the bound for the same work."""
+    y = torch.empty_like(x)
+    flags = torch.zeros(k["nflags"], dtype=torch.int32, device=x.device)
+    ms = _time(lambda a, b: k["into"](a, *ghosts, b, flags), x, y, 50)
+    plain_ms = _time(lambda a, b: k["plain"](a, *ghosts), x, y, 50)
+    nbytes = 2 * x.numel() * x.element_size() + sum(
+        g.numel() * g.element_size() for g in ghosts)
+    if k.get("cells"):
+        ops = k["gens"] * (x.numel() // 4) * OPS_PER_BYTE_WORD
+    else:
+        ops = k["gens"] * x.numel() * OPS_PER_WORD_GEN
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
+    print(f"{k['id']} at {tuple(x.shape)}: {ms:.6f} ms/launch (plain "
+          f"{plain_ms:.6f} ms); bytes {nbytes} -> {bytes_ms:.6f} ms, logic ops "
+          f"{ops} -> {ops_ms:.6f} ms", flush=True)
+    return {
+        "shape": list(x.shape), "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": nbytes, "bytes_ms": bytes_ms, "logic_ops": ops,
+        "ops_ms": ops_ms, "logic_ops_per_s": ops_per_s,
+    }
+
+
 def timing(dev) -> dict:
     ops_per_s = logic_ops_per_s()
     rng = np.random.default_rng(SEED + 2)
@@ -575,28 +840,17 @@ def timing(dev) -> dict:
     x_words = pm.encode(x_cells)
     out = {}
     for k in KERNELS:
-        x = x_cells if k.get("cells") else x_words
-        y = torch.empty_like(x)
-        flags = torch.zeros(k["nflags"], dtype=torch.int32, device=dev)
-        ms = _time(lambda a, b: k["into"](a, b, flags), x, y, 50)
-        plain_ms = _time(lambda a, b: k["plain"](a), x, y, 50)
-        nbytes = 2 * x.numel() * x.element_size()
-        if k.get("cells"):
-            ops = k["gens"] * (x.numel() // 4) * OPS_PER_BYTE_WORD
-        else:
-            ops = k["gens"] * x.numel() * OPS_PER_WORD_GEN
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / ops_per_s * 1e3
-        out[k["key"]] = {
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes, "bytes_ms": bytes_ms, "logic_ops": ops,
-            "ops_ms": ops_ms, "logic_ops_per_s": ops_per_s,
-        }
-        print(f"{k['id']}: {ms:.6f} ms/launch (plain {plain_ms:.6f} ms); "
-              f"bytes {nbytes} -> {bytes_ms:.6f} ms, logic ops {ops} -> "
-              f"{ops_ms:.6f} ms", flush=True)
+        if not k.get("ghosts"):
+            out[k["key"]] = _timed(k, x_cells if k.get("cells") else x_words, [],
+                                   ops_per_s)
+            continue
+        # Shard kernels at the mesh path's shard shapes: the first is the 4x1
+        # shard, whose numbers head the kernel's entry.
+        shapes = []
+        for height, n in SHARD_TIMING[k["key"]]:
+            x = (x_cells if k.get("cells") else x_words)[:height, :n].contiguous()
+            shapes.append(_timed(k, x, _ghosts(k, x, rng), ops_per_s))
+        out[k["key"]] = {**shapes[0], "by_shape": shapes}
     return out
 
 
@@ -619,18 +873,25 @@ def main() -> int:
         check_kernels(dev, stats)
         phase("3. small flows through python -m gol_tpu_torch")
         small_flows(work)
+        # From here on a mesh may put four shards on the one card.
+        os.environ[platform_env.MESH_DEVICES_ENV] = MESH_DEVICES
+        phase("3b. small flows over a mesh of four shards")
+        mesh_flows(work)
         phase(f"4. main path at {SIZE}x{SIZE} through the CLI")
         path = main_path(work, dev)
-        phase(f"5. timing at {SIZE}x{SIZE}")
+        phase(f"4b. mesh path at {SIZE}x{SIZE} through the CLI")
+        mesh = mesh_path(work, dev, path)
+        phase("5. timing")
         times = timing(dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    print("main path run (a): " + json.dumps(path["run_a"]))
+    print("main path run (a): " + json.dumps({**path["run_a"], **mesh["run_a"]}))
+    launches = {**path["launches"], **mesh["launches"]}
     table = []
     for k in KERNELS:
         key = k["key"]
-        by_path = {p: n[key] for p, n in path["launches"].items() if n[key]}
+        by_path = {p: n[key] for p, n in launches.items() if n[key]}
         table.append({
             "name": k["name"], "id": k["id"], "route": "cuda",
             "source": k["source"], "replaces": k["replaces"],

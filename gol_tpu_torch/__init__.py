@@ -1,9 +1,10 @@
-"""gol_tpu_torch — the PyTorch/CUDA port of gol_tpu, for one NVIDIA H100.
+"""gol_tpu_torch — the PyTorch/CUDA port of gol_tpu, for NVIDIA H100 cards.
 
 The same CLI contract, text grid format, B3/S23 toroidal semantics and
 early-exit accounting as the JAX package, which stays beside it as the
-reference. The single-device stencils' TPU kernels (the packed K1-K3 and
-the byte K4) are hand-written CUDA kernels for Hopper (``csrc/``), built
+reference, on one card or over a mesh of shards (``parallel/``). The TPU
+kernels of those paths (the packed K1-K3, the byte K4, and the mesh-shard
+K5-K8) are hand-written CUDA kernels for Hopper (``csrc/``), built
 with nvcc at first use and bound with ctypes; each has a plain torch
 version that the CPU path runs. The packed-I/O text codec
 (``native/codec.c``) builds the same way with cc. The port imports neither

@@ -1,7 +1,7 @@
 """CLI entry point of the PyTorch port — ``python -m gol_tpu_torch <width>
-<height> <input_file>``, the reference's ``./a.out`` contract on one CUDA card.
+<height> <input_file>``, the reference's ``./a.out`` contract on CUDA cards.
 
-The port of the single-device lanes of ``gol_tpu/cli.py``'s ``run``:
+The port of ``gol_tpu/cli.py``'s ``run``:
 
 - ``width = atoi(argv[1])``, ``height = atoi(argv[2])`` — C atoi semantics,
   non-numeric parses to 0; distributed variants force ``height = width``
@@ -10,10 +10,15 @@ The port of the single-device lanes of ``gol_tpu/cli.py``'s ``run``:
   (src/game.c:238-241);
 - ``--variant`` picks the reference program reproduced (output filename,
   printed lines, loop accounting, file I/O strategy); the distributed ones
-  run their one-device form, as the JAX CLI does with a 1x1 mesh;
+  (``mpi``, ``collective``, ``async``, ``openmp``, ``tpu``) run over a mesh
+  of shards: ``--mesh RxC``, or by default the row-heaviest factorization
+  of ``platform_env.mesh_devices()`` that divides the grid (one shard, the
+  single-device form, where that is one device). ``GOL_TORCH_MESH_DEVICES``
+  sets how many shards the devices hold;
 - lanes: the device run (``--kernel``), ``--packed-io`` (word state straight
   from and to the file), ``--host`` (the numpy oracle), ``--snapshot-every``
-  and ``--resume-gen`` (segmented runs). Checkpointing, meshes, patterns and
+  and ``--resume-gen`` (segmented runs). The last three do not run on a mesh
+  of more than one shard yet and exit 1 there. Checkpointing, patterns and
   the sparse and macro engines are not ported;
 - timings print as ``<Phase>:\\t<ms> msecs``. Execution time excludes set-up
   — the kernels' build and load, and the optional ``--warmup`` run happen
@@ -39,6 +44,7 @@ import torch
 from gol_tpu_torch import engine, oracle
 from gol_tpu_torch.config import DEFAULT_HEIGHT, DEFAULT_WIDTH, GameConfig
 from gol_tpu_torch.io import packed_io, sharded, text_grid
+from gol_tpu_torch.parallel.mesh import make_mesh, topology_for, validate_grid
 from gol_tpu_torch.platform_env import NoDeviceError, resolve_device
 from gol_tpu_torch.variants import VARIANTS, Variant, get_variant
 
@@ -67,28 +73,51 @@ def dense_cells_guard(height: int, width: int) -> None:
         )
 
 
-def _read_phase(variant: Variant, path: str, width: int, height: int, device):
+def _parse_mesh_arg(spec: str | None, distributed: bool,
+                    width: int | None = None, height: int | None = None):
+    if not distributed:
+        if spec:
+            raise ValueError(
+                "--mesh only applies to distributed variants "
+                "(mpi/collective/async/openmp/tpu); this variant is single-device"
+            )
+        return None
+    if spec:
+        m = re.fullmatch(r"(\d+)x(\d+)", spec)
+        if not m:
+            raise ValueError(f"--mesh must look like RxC, got {spec!r}")
+        return make_mesh(int(m.group(1)), int(m.group(2)))
+    # Default factorization over mesh_devices(): row-heaviest that divides
+    # the grid.
+    return make_mesh(width=width, height=height)
+
+
+def _read_phase(variant: Variant, path: str, width: int, height: int, device,
+                mesh=None):
     if variant.io == "serial":
-        return engine.put_grid(text_grid.read_grid(path, width, height), device)
+        return engine.put_grid(text_grid.read_grid(path, width, height), device, mesh)
     if variant.io == "gathered":
-        return sharded.read_gathered(path, width, height, device)
+        return sharded.read_gathered(path, width, height, device, mesh)
     return sharded.read_sharded(
-        path, width, height, device, parallel=(variant.io == "sharded_async")
+        path, width, height, device, parallel=(variant.io == "sharded_async"),
+        mesh=mesh,
     )
 
 
-def _write_phase(variant: Variant, path: str, grid: torch.Tensor) -> None:
+def _write_phase(variant: Variant, path: str, grid, mesh=None) -> None:
     if variant.io == "serial":
         text_grid.write_grid(path, grid.cpu().numpy())
     elif variant.io == "gathered":
-        sharded.write_gathered(path, grid)
+        sharded.write_gathered(path, grid, mesh)
     else:
-        sharded.write_sharded(path, grid, parallel=(variant.io == "sharded_async"))
+        sharded.write_sharded(path, grid, parallel=(variant.io == "sharded_async"),
+                              mesh=mesh)
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(*devices: torch.device) -> None:
+    for device in set(devices):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 def _run(args) -> int:
@@ -149,7 +178,7 @@ def _run(args) -> int:
     if args.host:
         # lax is what the host oracle effectively is, so it stays accepted;
         # forcing an accelerator kernel alongside --host is a contradiction.
-        if args.kernel not in ("auto", "lax") or args.packed_io:
+        if args.mesh or args.kernel not in ("auto", "lax") or args.packed_io:
             raise ValueError(
                 "--mesh/--kernel/--packed-io do not apply with --host "
                 "(oracle runs on the host CPU)"
@@ -158,6 +187,22 @@ def _run(args) -> int:
             raise ValueError("--resume-gen is not supported with --host "
                              "(the oracle has no segmented loop)")
         return _run_host(args, variant, config, width, height, output_path)
+
+    mesh = _parse_mesh_arg(args.mesh, variant.distributed, width, height)
+    if mesh is not None and not topology_for(mesh).distributed:
+        mesh = None  # a 1x1 mesh is the single-device engine
+    validate_grid(height, width, topology_for(mesh))
+    if mesh is not None:
+        for flag, given in (("--packed-io", args.packed_io),
+                            ("--snapshot-every", args.snapshot_every),
+                            ("--resume-gen", args.resume_gen)):
+            if given:
+                rows, cols = mesh.shape
+                raise ValueError(
+                    f"{flag} does not run on a mesh of more than one shard yet "
+                    f"(here {rows}x{cols}; ROADMAP.md Queue 1 item 11c); use "
+                    "--mesh 1x1"
+                )
 
     if args.packed_io:
         if args.kernel not in ("auto", "packed"):
@@ -170,10 +215,15 @@ def _run(args) -> int:
         return _run_packed_io(args, variant, config, width, height,
                               output_path, resolve_device())
 
-    dense_cells_guard(height, width)
-    device = resolve_device()
+    if mesh is None:
+        # Mesh reads materialize per shard, as in the JAX CLI.
+        dense_cells_guard(height, width)
+        devices = [resolve_device()]
+    else:
+        devices = list(mesh.devices)
+    device = devices[0]
     t0 = time.perf_counter()
-    device_grid = _read_phase(variant, args.input_file, width, height, device)
+    device_grid = _read_phase(variant, args.input_file, width, height, device, mesh)
     read_ms = (time.perf_counter() - t0) * 1000
     if variant.io_timings:
         print(f"Reading file:\t{read_ms:.2f} msecs")
@@ -184,22 +234,23 @@ def _run(args) -> int:
         run_fn = _prepare_resumed(args, config, device_grid, height, width,
                                   device, packed=False)
     else:
-        runner = engine.make_runner((height, width), config, args.kernel, device)
+        runner = engine.make_runner((height, width), config, args.kernel, device,
+                                    mesh=mesh)
         if args.warmup:
             runner(device_grid)
-            _sync(device)
+            _sync(*devices)
 
         def run_fn():
             return runner(device_grid)
 
     t0 = time.perf_counter()
     final, generations = run_fn()
-    _sync(device)
+    _sync(*devices)
     exec_ms = (time.perf_counter() - t0) * 1000
 
     return _report_and_write(
         variant, generations, exec_ms,
-        lambda: _write_phase(variant, output_path, final),
+        lambda: _write_phase(variant, output_path, final, mesh),
     )
 
 
@@ -354,7 +405,7 @@ def _generate(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="gol",
-        description="Game of Life on one CUDA card (PyTorch port of gol_tpu)",
+        description="Game of Life on CUDA cards (PyTorch port of gol_tpu)",
     )
     sub = parser.add_subparsers(dest="command")
 
@@ -365,7 +416,13 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument(
         "--variant", default="tpu", choices=sorted(VARIANTS),
         help="which reference program to reproduce (default: tpu; the "
-        "distributed variants run their single-device form)",
+        "distributed variants run over a mesh)",
+    )
+    run.add_argument(
+        "--mesh", default=None,
+        help="mesh RxC of shards for a distributed variant (default: the "
+        "row-heaviest factorization of the mesh devices that divides the "
+        "grid; GOL_TORCH_MESH_DEVICES=N lays N shards over the cards)",
     )
     run.add_argument(
         "--kernel", default="auto", choices=("auto", "packed", "lax", "pallas"),

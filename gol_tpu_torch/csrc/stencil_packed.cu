@@ -17,6 +17,18 @@
 //   band_kernel            K3  _band_kernel (via _step): one generation
 //       with fused (alive, !similar).
 //
+// and, for one shard of a device mesh, fed ghosts by the halo exchange
+// (gol_tpu_torch/parallel/halo.py) instead of wrapping within itself:
+//
+//   bandt_kernel<SUMMARY, ghost rows>  K7  _bandtrow_fast_kernel (via
+//       _step_trow_fast): K1 on a full-width shard of an R x 1 mesh; the 8
+//       rows above and below come from the ghost blocks gtop/gbot.
+//   bandt_kernel<EXACT, ghost rows>    K8  _bandtrow_kernel (via
+//       _step_trow): K2 on the same shard, the replay target of K7.
+//   dist_band_kernel       K5  _dist_band_kernel (via _dist_step_pallas):
+//       K3 on any shard, from one ghost row above and below and the
+//       (h+2) east/west carry words.
+//
 // Flags. The Pallas kernels accumulate their flags over a sequential band
 // grid; CUDA blocks run concurrently and in no order. So every flag is an
 // OR into an int32 word that the caller zeroes before the launch, and the
@@ -49,6 +61,16 @@
 //     left: the tile is a window on the torus's universal cover, so heights
 //     below 16 and nwords of 1 or 2 come out right. Flags read only the
 //     cells a block owns, never a halo copy or a cell past the grid's edge.
+//   * Shards (K7/K8). A tile row outside the shard's [0, h) is read from
+//     gtop (rows -8..-1) or gbot (rows h..h+7), never modulo the shard, and
+//     rows past h+8 are zero: they feed only rows no block owns. So the
+//     universal-cover trick above is for the torus alone, and a shard
+//     needs h >= 8 (its neighbours' ghost blocks are 8 of its rows). The
+//     shard is full-width, so columns keep the torus wrap.
+//
+// The shard kernels move the same bytes and do the same logic per word as
+// their torus forms (the ghosts are 16 rows and 2(h+2) words per shard),
+// so the same bounds hold: operations for K7/K8, bytes for K5.
 
 #include <cstddef>
 #include <cstdint>
@@ -138,16 +160,58 @@ band_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   block_or(differs, flags + 1);
 }
 
-// K1 (EXACT = false) / K2 (EXACT = true): kGens generations of one
+// K5: K3 for one mesh shard. Row -1 is `top` and row h is `bot`; in
+// extended row e (e = r + 1 for rows r = -1..h) the word west of column 0
+// is gwest[e], of which only bit 31 is read, and the word east of the last
+// column is geast[e], of which only bit 0 is read (row_sums shifts the rest
+// out). Any height >= 1 and nwords >= 1.
+__global__ void __launch_bounds__(kThreads)
+dist_band_kernel(const uint32_t* __restrict__ in,
+                 const uint32_t* __restrict__ top,
+                 const uint32_t* __restrict__ bot,
+                 const uint32_t* __restrict__ gwest,
+                 const uint32_t* __restrict__ geast,
+                 uint32_t* __restrict__ out, int* __restrict__ flags,
+                 int height, int nwords) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  int alive = 0, differs = 0;
+  if (i < static_cast<long long>(height) * nwords) {
+    const int r = static_cast<int>(i / nwords);
+    const int w = static_cast<int>(i % nwords);
+    const uint32_t* rows[3] = {
+        r == 0 ? top : in + static_cast<size_t>(r - 1) * nwords,
+        in + static_cast<size_t>(r) * nwords,
+        r == height - 1 ? bot : in + static_cast<size_t>(r + 1) * nwords};
+    uint32_t l[3], c[3], e[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      c[k] = rows[k][w];
+      l[k] = w == 0 ? gwest[r + k] : rows[k][w - 1];
+      e[k] = w == nwords - 1 ? geast[r + k] : rows[k][w + 1];
+    }
+    const uint32_t nv =
+        evolve_word(l[0], c[0], e[0], l[1], c[1], e[1], l[2], c[2], e[2]);
+    out[i] = nv;
+    alive = nv != 0;
+    differs = nv != c[1];
+  }
+  block_or(alive, flags);
+  block_or(differs, flags + 1);
+}
+
+// K1 (EXACT = false) / K2 (EXACT = true) on the torus (GHOST = false), K7 /
+// K8 on a full-width mesh shard (GHOST = true): kGens generations of one
 // kTileRows x kTileWords tile in shared memory.
 //
 // The shared tile is padded by one always-zero word on every side, so the
 // stencil reads its 3x3 neighbourhood without bounds checks: padded row p
 // holds grid row r0 - kGens + p - 1 and padded column q holds grid word
-// w0 + q - 2 (both modulo the grid).
-template <bool EXACT>
+// w0 + q - 2 (both modulo the grid; a shard's rows as set out above).
+template <bool EXACT, bool GHOST>
 __global__ void __launch_bounds__(kThreads)
-bandt_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+bandt_kernel(const uint32_t* __restrict__ in, const uint32_t* __restrict__ gtop,
+             const uint32_t* __restrict__ gbot, uint32_t* __restrict__ out,
              int* __restrict__ flags, int height, int nwords, int tiles_x) {
   constexpr int R = kTileRows + 2 * kGens;  // tile rows incl. ghost rows
   constexpr int C = kTileWords + 2;         // tile words incl. ghost words
@@ -170,11 +234,21 @@ bandt_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     const int p = idx / Q, q = idx % Q;
     uint32_t v = 0;
     if (p >= 1 && p <= R && q >= 1 && q <= C) {
-      int gr = (r0 - kGens + p - 1) % height;
-      if (gr < 0) gr += height;
+      int gr = r0 - kGens + p - 1;  // >= -kGens
       int gw = (w0 + q - 2) % nwords;
       if (gw < 0) gw += nwords;
-      v = in[static_cast<size_t>(gr) * nwords + gw];
+      const uint32_t* row;
+      if (GHOST) {
+        row = gr < 0               ? gtop + static_cast<size_t>(gr + kGens) * nwords
+              : gr < height        ? in + static_cast<size_t>(gr) * nwords
+              : gr < height + kGens ? gbot + static_cast<size_t>(gr - height) * nwords
+                                   : nullptr;
+      } else {
+        gr %= height;
+        if (gr < 0) gr += height;
+        row = in + static_cast<size_t>(gr) * nwords;
+      }
+      v = row != nullptr ? row[gw] : 0;
       in_alive |= (v != 0) && p >= p_lo && p < p_hi && q >= q_lo && q < q_hi;
     }
     tile[0][p][q] = v;
@@ -223,6 +297,28 @@ bandt_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   }
 }
 
+unsigned word_blocks(int height, int nwords) {
+  const long long words = static_cast<long long>(height) * nwords;
+  return static_cast<unsigned>((words + kThreads - 1) / kThreads);
+}
+
+template <bool GHOST>
+int launch_bandt(const void* in, const void* gtop, const void* gbot,
+                 void* out, void* flags, int height, int nwords, int exact,
+                 int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles_x = (nwords + kTileWords - 1) / kTileWords;
+  const int tiles_y = (height + kTileRows - 1) / kTileRows;
+  const unsigned blocks = static_cast<unsigned>(tiles_x) * tiles_y;
+  auto kernel = exact ? bandt_kernel<true, GHOST> : bandt_kernel<false, GHOST>;
+  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(in), static_cast<const uint32_t*>(gtop),
+      static_cast<const uint32_t*>(gbot), static_cast<uint32_t*>(out),
+      static_cast<int*>(flags), height, nwords, tiles_x);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -235,10 +331,8 @@ int gol_band_step(const void* in, void* out, void* flags, int height,
                   int nwords, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long words = static_cast<long long>(height) * nwords;
-  const unsigned blocks =
-      static_cast<unsigned>((words + kThreads - 1) / kThreads);
-  band_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  band_kernel<<<word_blocks(height, nwords), kThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out),
       static_cast<int*>(flags), height, nwords);
   return static_cast<int>(cudaGetLastError());
@@ -246,22 +340,33 @@ int gol_band_step(const void* in, void* out, void* flags, int height,
 
 int gol_bandt_pass(const void* in, void* out, void* flags, int height,
                    int nwords, int exact, int device, void* stream) {
+  return launch_bandt<false>(in, nullptr, nullptr, out, flags, height, nwords,
+                             exact, device, stream);
+}
+
+// K5. top/bot: (1, nwords) ghost rows; gwest/geast: (height + 2) carry words.
+int gol_dist_band_step(const void* in, const void* top, const void* bot,
+                       const void* gwest, const void* geast, void* out,
+                       void* flags, int height, int nwords, int device,
+                       void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles_x = (nwords + kTileWords - 1) / kTileWords;
-  const int tiles_y = (height + kTileRows - 1) / kTileRows;
-  const unsigned blocks = static_cast<unsigned>(tiles_x) * tiles_y;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (exact) {
-    bandt_kernel<true><<<blocks, kThreads, 0, s>>>(
-        static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out),
-        static_cast<int*>(flags), height, nwords, tiles_x);
-  } else {
-    bandt_kernel<false><<<blocks, kThreads, 0, s>>>(
-        static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out),
-        static_cast<int*>(flags), height, nwords, tiles_x);
-  }
+  dist_band_kernel<<<word_blocks(height, nwords), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(in), static_cast<const uint32_t*>(top),
+      static_cast<const uint32_t*>(bot), static_cast<const uint32_t*>(gwest),
+      static_cast<const uint32_t*>(geast), static_cast<uint32_t*>(out),
+      static_cast<int*>(flags), height, nwords);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K7 (exact = 0) / K8 (exact = 1). gtop/gbot: (8, nwords) ghost row blocks;
+// height >= 8.
+int gol_bandtrow_pass(const void* in, const void* gtop, const void* gbot,
+                      void* out, void* flags, int height, int nwords,
+                      int exact, int device, void* stream) {
+  return launch_bandt<true>(in, gtop, gbot, out, flags, height, nwords, exact,
+                            device, stream);
 }
 
 const char* gol_error_string(int code) {

@@ -1,4 +1,4 @@
-// Byte-per-cell Game-of-Life generation for Hopper (sm_90a): K4.
+// Byte-per-cell Game-of-Life generation for Hopper (sm_90a): K4 and K6.
 //
 // Replaces gol_tpu/ops/stencil_pallas.py _band_kernel (via _step): one
 // B3/S23 generation of a (height, width) uint8 torus with two flags fused
@@ -34,6 +34,15 @@
 // ~31 32-bit integer ops per 4 cells (OPS_PER_BYTE_WORD in chip_smoke.py),
 // so bytes bound it. Not done yet: wider tiles, TMA loads, a second
 // generation per pass.
+//
+// K6 replaces gol_tpu/ops/stencil_pallas.py _dist_band_kernel (via
+// _dist_step): the same generation for one shard of a device mesh, fed by
+// the halo exchange (gol_tpu_torch/parallel/halo.py). It is the same
+// kernel reading its cells through ShardCells instead of TorusCells: row -1
+// is the ghost row `top` and row h the ghost row `bot`, column -1 is
+// gwest[r + 1] and columns from w on are geast[r + 1] for rows r = -1..h
+// (the (h+2) ghost columns carry the corners), and rows past h are zero,
+// since they feed no owned cell. Any shard shape, as K4.
 
 #include <cstddef>
 #include <cstdint>
@@ -63,6 +72,42 @@ __device__ __forceinline__ int grid_row(int r, int height) {
   return r >= 0 && r < height ? r : wrap(r, height);
 }
 
+// Where K4 reads its cells: the torus, rows and columns modulo the grid.
+struct TorusCells {
+  const uint8_t* in;
+  int height, width;
+  // The cells of padded row r; never null.
+  __device__ const uint8_t* row(int r) const {
+    return in + static_cast<size_t>(grid_row(r, height)) * width;
+  }
+  // Cell c (any column) of row r, whose cells are `row`.
+  __device__ uint32_t cell(const uint8_t* row, int, int c) const {
+    return __ldg(row + wrap(c, width));
+  }
+};
+
+// Where K6 reads a shard's cells (see the top of the file).
+struct ShardCells {
+  const uint8_t* in;
+  const uint8_t* top;
+  const uint8_t* bot;
+  const uint8_t* gwest;
+  const uint8_t* geast;
+  int height, width;
+  // The cells of padded row r >= -1; null for rows past h, which are zero.
+  __device__ const uint8_t* row(int r) const {
+    return r < 0 ? top
+           : r < height ? in + static_cast<size_t>(r) * width
+           : r == height ? bot
+                         : nullptr;
+  }
+  __device__ uint32_t cell(const uint8_t* row, int r, int c) const {
+    return c < 0 ? __ldg(gwest + r + 1)
+           : c >= width ? __ldg(geast + r + 1)
+                        : __ldg(row + c);
+  }
+};
+
 // Per byte: 1 where the byte of `sums` equals the byte of `k` (bytes < 16).
 __device__ __forceinline__ uint32_t bytes_equal(uint32_t sums, uint32_t k) {
   uint32_t x = sums ^ k;  // a byte is 0 exactly where the sum is k
@@ -88,11 +133,12 @@ __device__ __forceinline__ void block_or(int pred, int* flag) {
   }
 }
 
+template <class Cells>
 __global__ void __launch_bounds__(kThreads)
-byte_step_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
-                 int* __restrict__ flags, int height, int width, int tiles_x,
-                 int vec) {
+byte_step_kernel(const Cells src, uint8_t* __restrict__ out,
+                 int* __restrict__ flags, int tiles_x, int vec) {
   __shared__ uint32_t tile[kPadRows][kPadWords];
+  const int height = src.height, width = src.width;
 
   const int r0 = (blockIdx.x / tiles_x) * kTileRows;
   const int c0 = (blockIdx.x % tiles_x) * kTileCols;
@@ -110,13 +156,13 @@ byte_step_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
   for (int j = 0; j < kLoadRows; ++j) {
     const int p = threadIdx.x / kTileWords + kRowGroups * j;
     v[j] = 0;
-    if (p < kPadRows) {
-      const uint8_t* row = in + static_cast<size_t>(grid_row(r0 - 1 + p, height)) * width;
+    const uint8_t* row = p < kPadRows ? src.row(r0 - 1 + p) : nullptr;
+    if (row != nullptr) {
       if (word_load) {
-        v[j] = *reinterpret_cast<const uint32_t*>(row + c);
+        v[j] = __ldg(reinterpret_cast<const unsigned int*>(row + c));
       } else {
         for (int b = 0; b < 4; ++b) {
-          v[j] |= static_cast<uint32_t>(row[wrap(c + b, width)]) << (8 * b);
+          v[j] |= src.cell(row, r0 - 1 + p, c + b) << (8 * b);
         }
       }
     }
@@ -124,10 +170,12 @@ byte_step_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
   // The halo columns: threads 2p and 2p + 1 load row p's west and east byte.
   uint32_t halo = 0;
   if (threadIdx.x < 2 * kPadRows) {
-    const uint8_t* row =
-        in + static_cast<size_t>(grid_row(r0 - 1 + (threadIdx.x >> 1), height)) * width;
-    halo = (threadIdx.x & 1) ? row[wrap(c0 + kTileCols, width)]
-                             : static_cast<uint32_t>(row[wrap(c0 - 1, width)]) << 24;
+    const int r = r0 - 1 + (threadIdx.x >> 1);
+    const uint8_t* row = src.row(r);
+    if (row != nullptr) {
+      halo = (threadIdx.x & 1) ? src.cell(row, r, c0 + kTileCols)
+                               : src.cell(row, r, c0 - 1) << 24;
+    }
   }
 #pragma unroll
   for (int j = 0; j < kLoadRows; ++j) {
@@ -170,26 +218,50 @@ byte_step_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
   block_or(differs != 0, flags + 1);
 }
 
+bool aligned4(const void* p) { return reinterpret_cast<uintptr_t>(p) % 4 == 0; }
+
+template <class Cells>
+int launch(const Cells& src, void* out, void* flags, int vec, int device,
+           void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles_x = (src.width + kTileCols - 1) / kTileCols;
+  const int tiles_y = (src.height + kTileRows - 1) / kTileRows;
+  vec = vec && src.width % 4 == 0 && aligned4(src.in) && aligned4(out);
+  byte_step_kernel<Cells><<<static_cast<unsigned>(tiles_x) * tiles_y, kThreads,
+                            0, static_cast<cudaStream_t>(stream)>>>(
+      src, static_cast<uint8_t*>(out), static_cast<int*>(flags), tiles_x, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream` (a cudaStream_t of `device`), does not synchronise
-// and allocates nothing; returns cudaGetLastError() after the launch
-// (0 = cudaSuccess). `out` must not alias `in`.
+// Each entry launches on `stream` (a cudaStream_t of `device`), does not
+// synchronise and allocates nothing; it returns cudaGetLastError() after
+// the launch (0 = cudaSuccess). `out` must not alias any input.
+
+// K4.
 int gol_byte_step(const void* in, void* out, void* flags, int height,
                   int width, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles_x = (width + kTileCols - 1) / kTileCols;
-  const int tiles_y = (height + kTileRows - 1) / kTileRows;
-  const int vec = width % 4 == 0 && reinterpret_cast<uintptr_t>(in) % 4 == 0 &&
-                  reinterpret_cast<uintptr_t>(out) % 4 == 0;
-  byte_step_kernel<<<static_cast<unsigned>(tiles_x) * tiles_y, kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out),
-      static_cast<int*>(flags), height, width, tiles_x, vec);
-  return static_cast<int>(cudaGetLastError());
+  const TorusCells src{static_cast<const uint8_t*>(in), height, width};
+  return launch(src, out, flags, 1, device, stream);
+}
+
+// K6. top/bot: (1, width) ghost rows; gwest/geast: (height + 2) ghost
+// columns.
+int gol_dist_byte_step(const void* in, const void* top, const void* bot,
+                       const void* gwest, const void* geast, void* out,
+                       void* flags, int height, int width, int device,
+                       void* stream) {
+  const ShardCells src{static_cast<const uint8_t*>(in),
+                       static_cast<const uint8_t*>(top),
+                       static_cast<const uint8_t*>(bot),
+                       static_cast<const uint8_t*>(gwest),
+                       static_cast<const uint8_t*>(geast), height, width};
+  return launch(src, out, flags, aligned4(top) && aligned4(bot), device,
+                stream);
 }
 
 const char* gol_error_string(int code) {

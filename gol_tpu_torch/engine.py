@@ -1,18 +1,21 @@
-"""The simulation engine on one device: a host loop over K-generation blocks.
+"""The simulation engine: a host loop over K-generation blocks.
 
-The port of ``gol_tpu/engine.py``'s single-device runners. The JAX engine
-runs the whole simulation as one ``lax.while_loop`` on the device; here the
-loop runs on the host and the device runs the kernels. Kernels with a fused
-form take the blocked loops (``_simulate_c_block``,
+The port of ``gol_tpu/engine.py``'s runners, on one device or over a mesh
+of shards (``parallel/mesh.py``). The JAX engine runs the whole simulation
+as one ``lax.while_loop`` on the device, under ``shard_map`` on a mesh;
+here the loop runs on the host and the devices run the kernels. Kernels
+with a fused form take the blocked loops (``_simulate_c_block``,
 ``_simulate_cuda_block``): each block of K=16 generations is enqueued
 without a sync and then ONE small flag tensor is read back. The packed
-kernel runs a block as two 8-generation passes (K1) plus a ``t % 8``
-single-generation tail (K3); the byte ``pallas`` kernel (K4) has no
-multi-generation pass and runs all of a block's generations one by one.
+kernel runs a block as two 8-generation passes (K1; K7 on an R x 1 mesh)
+plus a ``t % 8`` single-generation tail (K3; K5 on a mesh), or, where the
+pass does not take the shard, every generation singly; the byte ``pallas``
+kernel (K4; K6 on a mesh) has no multi-generation pass and runs all of a
+block's generations one by one.
 The host replays the exits from the per-generation flags exactly as the
 JAX replays do (gol_tpu/engine.py:244-263, :359-373). A pass whose summary
 hides a death or a stillness onset is rerun from the block's start with the
-exact-flag pass (K2) — at most twice per run, as in the JAX
+exact-flag pass (K2; K8 on a mesh) — at most twice per run, as in the JAX
 ``_derive_or_replay``.
 
 Exactness of the blocked loop is the JAX argument unchanged: both early
@@ -31,6 +34,17 @@ while the generations ping-pong between the other two, and a runner never
 writes its input. The non-fused ``lax`` kernel keeps the per-generation
 loop, reading its alive flag every generation and comparing for similarity
 only on the generations where the check fires.
+
+The loops carry a state as the row-major list of its shards, one on a
+single device. On a mesh every launch of a block is the halo exchange from
+the pass's inputs, then one kernel per shard; the shards OR their flags
+into one buffer per device, the buffers are voted (ORed) at the block's
+end, and the block still reads back once. The voted summary of an R x 1
+mesh's 8-generation pass (K7) decides the replay, so a transient that
+crosses a shard border cannot make one shard's summary lie; a replay (K8)
+and the CUDA convention's empty-exit replay (K5) run on every shard from
+its kept start state. ``make_runner`` and ``simulate`` take the mesh; the
+segment and packed-state runners do not yet.
 """
 
 from __future__ import annotations
@@ -43,6 +57,8 @@ import torch
 from gol_tpu_torch import platform_env
 from gol_tpu_torch.config import Convention, DEFAULT_CONFIG, GameConfig
 from gol_tpu_torch.ops import Kernel, resolve_kernel, stencil_packed
+from gol_tpu_torch.parallel import collectives
+from gol_tpu_torch.parallel.mesh import Mesh, Topology, gather, split, topology_for, validate_grid
 
 _TERMINATION_BLOCK = 16
 
@@ -59,36 +75,58 @@ class EngineResult:
     generations: int  # the count the matching reference variant would print
 
 
-class _Buffers:
-    """Three scratch buffers for the carried state and the block's flag
-    tensor. The caller's state is never one of them."""
+class _Flags:
+    """An int32 flag buffer per device the shards live on. Each shard ORs
+    into its device's buffer; ``read`` votes (ORs) the buffers and reads
+    them back with one sync."""
 
-    def __init__(self, state: torch.Tensor, kernel: Kernel, block: int):
-        self.pool = [torch.empty_like(state) for _ in range(3)]
+    def __init__(self, n: int, state):
+        self.devices = [s.device for s in state]
+        self.bufs = {d: torch.zeros(n, dtype=torch.int32, device=d)
+                     for d in self.devices}
+
+    def zero_(self) -> None:
+        for b in self.bufs.values():
+            b.zero_()
+
+    def slots(self, lo: int, hi: int) -> list:
+        """Each shard's view of slots ``lo:hi``."""
+        return [self.bufs[d][lo:hi] for d in self.devices]
+
+    def read(self) -> list:
+        return collectives.any_flag(list(self.bufs.values())).tolist()
+
+
+def _empty_like(state) -> list:
+    return [torch.empty_like(s) for s in state]
+
+
+class _Buffers:
+    """Three scratch buffers for the carried state and the block's flags.
+    The caller's state is never one of them."""
+
+    def __init__(self, state, kernel: Kernel, block: int):
+        self.pool = [_empty_like(state) for _ in range(3)]
         if kernel.fused_multi is not None:
             self.tail_base = stencil_packed.SUMMARY_FLAGS * (block // kernel.multi_gens)
         else:
             self.tail_base = 0
-        self.flags = torch.zeros(
-            self.tail_base + stencil_packed.STEP_FLAGS * block,
-            dtype=torch.int32, device=state.device,
-        )
+        self.flags = _Flags(self.tail_base + stencil_packed.STEP_FLAGS * block, state)
 
-    def scratch(self, start: torch.Tensor, cur: torch.Tensor) -> torch.Tensor:
+    def scratch(self, start, cur):
         """A buffer holding neither the block's start state nor ``cur``."""
         return next(b for b in self.pool if b is not start and b is not cur)
 
 
-def _generation(cur: torch.Tensor, kernel: Kernel) -> torch.Tensor:
+def _generation(cur, kernel: Kernel, topology: Topology):
     """One generation through the kernel's fused form, into a fresh buffer."""
-    out = torch.empty_like(cur)
-    flags = torch.zeros(stencil_packed.STEP_FLAGS, dtype=torch.int32,
-                        device=cur.device)
-    kernel.fused(cur, out, flags)
+    out = _empty_like(cur)
+    flags = _Flags(stencil_packed.STEP_FLAGS, cur)
+    kernel.fused(cur, out, flags.slots(0, stencil_packed.STEP_FLAGS), topology)
     return out
 
 
-def _exact_passes(start: torch.Tensor, kernel: Kernel):
+def _exact_passes(start, kernel: Kernel, topology: Topology):
     """Lazily rerun a block's passes from its start state with the exact-flag
     pass; ``get(j)`` is pass j's ``(alive, similar)`` lists."""
     T = kernel.multi_gens
@@ -97,18 +135,28 @@ def _exact_passes(start: torch.Tensor, kernel: Kernel):
     def get(j: int):
         while len(done) <= j:
             src = done[-1][0] if done else start
-            out = torch.empty_like(src)
-            flags = torch.zeros(2 * T, dtype=torch.int32, device=src.device)
-            kernel.exact_multi(src, out, flags)
-            f = flags.tolist()
+            out = _empty_like(src)
+            flags = _Flags(2 * T, src)
+            kernel.exact_multi(src, out, flags.slots(0, 2 * T), topology)
+            f = flags.read()
             done.append((out, f[:T], [1 - d for d in f[T:]]))
         return done[j][1:]
 
     return get
 
 
-def _block_generations(start, t, config: GameConfig, kernel: Kernel, block,
-                       bufs: _Buffers):
+def _any_alive(state) -> bool:
+    """The alive vote: any shard holds a live cell."""
+    return bool(collectives.any_flag([s.any() for s in state]))
+
+
+def _all_equal(cur, new) -> bool:
+    """The similarity vote: no shard differs."""
+    return bool(collectives.all_agree([(a != b).any() for a, b in zip(cur, new)]))
+
+
+def _block_generations(start, t, config: GameConfig, kernel: Kernel,
+                       topology: Topology, block, bufs: _Buffers):
     """Run ``t`` generations from ``start``: ``(cur, a_all, s_all)``.
 
     A kernel with a multi-generation pass runs ``t // T`` passes into flag
@@ -127,16 +175,17 @@ def _block_generations(start, t, config: GameConfig, kernel: Kernel, block,
     cur = start
     for j in range(passes):
         out = bufs.scratch(start, cur)
-        kernel.fused_multi(cur, out, flags[S * j: S * (j + 1)])
+        kernel.fused_multi(cur, out, flags.slots(S * j, S * (j + 1)), topology)
         cur = out
     base = bufs.tail_base
     for i in range(passes * T, t):
         out = bufs.scratch(start, cur)
-        kernel.fused(cur, out, flags[base + P * i: base + P * (i + 1)])
+        kernel.fused(cur, out, flags.slots(base + P * i, base + P * (i + 1)),
+                     topology)
         cur = out
-    f = flags.tolist()  # the block's one device->host sync
+    f = flags.read()  # the block's one device->host sync, voted over shards
     a_all, s_all = [0] * block, [0] * block
-    exact = _exact_passes(start, kernel)
+    exact = _exact_passes(start, kernel, topology)
     for j in range(passes):
         alive, similar = stencil_packed._derive_or_replay(
             f[S * j: S * (j + 1)], lambda j=j: exact(j)
@@ -160,7 +209,8 @@ def _replay_similarity(counter, freq, s_all, i, check: bool):
     return fire and s_all[i], (0 if fire else counter + 1)
 
 
-def _simulate_c_block(state, config, kernel, gen0, counter0, bound, block):
+def _simulate_c_block(state, config, kernel, topology, gen0, counter0, bound,
+                      block):
     """Blocked C-convention loop: K generations per flag readback, bit-exact
     with the per-generation loop (see the module docstring). The block never
     crosses ``bound`` — the generation limit is no fixed point. Returns
@@ -168,11 +218,12 @@ def _simulate_c_block(state, config, kernel, gen0, counter0, bound, block):
     freq = config.similarity_frequency
     bufs = _Buffers(state, kernel, block)
     gen, counter = gen0, counter0
-    alive, similar = bool(state.any()), False
+    alive, similar = _any_alive(state), False
     cur = state
     while alive and not similar and gen <= bound:
         t = min(block, bound - gen + 1)
-        cur, a_all, s_all = _block_generations(cur, t, config, kernel, block, bufs)
+        cur, a_all, s_all = _block_generations(cur, t, config, kernel, topology,
+                                               block, bufs)
         for i in range(t):
             sim_i, counter = _replay_similarity(
                 counter, freq, s_all, i, config.check_similarity
@@ -185,7 +236,8 @@ def _simulate_c_block(state, config, kernel, gen0, counter0, bound, block):
     return cur, gen, counter, alive, similar
 
 
-def _simulate_c(state, config: GameConfig, kernel: Kernel, resume=None):
+def _simulate_c(state, config: GameConfig, kernel: Kernel, topology: Topology,
+                resume=None):
     """C-variant loop (src/game.c:177-196): emptiness checked at the top of
     every generation; the similarity break does not increment the counter;
     the reported count is ``generation - 1``.
@@ -198,32 +250,34 @@ def _simulate_c(state, config: GameConfig, kernel: Kernel, resume=None):
     bound = min(limit, seg_end)
     if kernel.fused is not None:
         final, gen, counter, alive, similar = _simulate_c_block(
-            state, config, kernel, gen0, counter0, bound, _TERMINATION_BLOCK)
+            state, config, kernel, topology, gen0, counter0, bound,
+            _TERMINATION_BLOCK)
         return final, gen, counter, not alive or similar or gen > limit
     freq, gen, counter = config.similarity_frequency, gen0, counter0
     cur = state
-    alive, similar = bool(cur.any()), False
+    alive, similar = _any_alive(cur), False
     while alive and not similar and gen <= bound:
-        new = kernel.step(cur)
+        new = kernel.step(cur, topology)
         if config.check_similarity:
             fire = (counter + 1) == freq
-            similar = fire and torch.equal(cur, new)
+            similar = fire and _all_equal(cur, new)
             counter = 0 if fire else counter + 1
-        alive = bool(new.any())
+        alive = _any_alive(new)
         if not similar:
             gen += 1
         cur = new
     return cur, gen, counter, not alive or similar or gen > limit
 
 
-def _simulate_cuda_block(state, config, kernel, gen0, counter0, bound, block):
+def _simulate_cuda_block(state, config, kernel, topology, gen0, counter0, bound,
+                         block):
     """Blocked CUDA-convention loop: K generations per flag readback.
 
     A similarity exit is a still life, so the block-end state IS the exit
     state. An empty exit at in-block iteration i keeps state_i, the last
     non-empty generation: replay i single generations from the block's start
-    state, which the buffer pool keeps intact. Returns ``(final, gen,
-    counter, stopped)``."""
+    state, which the buffer pool keeps intact (on every shard). Returns
+    ``(final, gen, counter, stopped)``."""
     freq = config.similarity_frequency
     bufs = _Buffers(state, kernel, block)
     gen, counter = gen0, counter0
@@ -232,8 +286,8 @@ def _simulate_cuda_block(state, config, kernel, gen0, counter0, bound, block):
     while not stopped and gen < bound:
         t = min(block, bound - gen)
         start = cur
-        cur, a_all, s_all = _block_generations(start, t, config, kernel, block,
-                                               bufs)
+        cur, a_all, s_all = _block_generations(start, t, config, kernel, topology,
+                                               block, bufs)
         # Flag entry i is (alive, similar) of the *new* grid of CUDA
         # iteration i; on the stop iteration gen does not advance.
         for i in range(t):
@@ -249,11 +303,12 @@ def _simulate_cuda_block(state, config, kernel, gen0, counter0, bound, block):
     if stopped and exit_empty:
         final = start
         for _ in range(exit_i):
-            final = _generation(final, kernel)
+            final = _generation(final, kernel, topology)
     return final, gen, counter, stopped
 
 
-def _simulate_cuda(state, config: GameConfig, kernel: Kernel, resume=None):
+def _simulate_cuda(state, config: GameConfig, kernel: Kernel,
+                   topology: Topology, resume=None):
     """CUDA-variant loop (src/game_cuda.cu:222-276): 0-based exclusive
     bound; no emptiness test before the first evolve; the emptiness test
     runs on the new grid and breaks before the swap, so an empty exit keeps
@@ -265,18 +320,19 @@ def _simulate_cuda(state, config: GameConfig, kernel: Kernel, resume=None):
     bound = min(limit, seg_end)
     if kernel.fused is not None:
         final, gen, counter, stop = _simulate_cuda_block(
-            state, config, kernel, gen0, counter0, bound, _TERMINATION_BLOCK)
+            state, config, kernel, topology, gen0, counter0, bound,
+            _TERMINATION_BLOCK)
         return final, gen, counter, stop or gen >= limit
     freq, gen, counter = config.similarity_frequency, gen0, counter0
     cur, stop = state, False
     while gen < bound:
-        new = kernel.step(cur)
+        new = kernel.step(cur, topology)
         similar = False
         if config.check_similarity:
             fire = (counter + 1) == freq
-            similar = fire and torch.equal(cur, new)
+            similar = fire and _all_equal(cur, new)
             counter = 0 if fire else counter + 1
-        if similar or not bool(new.any()):
+        if similar or not _any_alive(new):
             stop = True
             break  # the break precedes the swap (src/game_cuda.cu:250,266)
         cur = new
@@ -287,35 +343,54 @@ def _simulate_cuda(state, config: GameConfig, kernel: Kernel, resume=None):
 _SIMULATORS = {Convention.C: _simulate_c, Convention.CUDA: _simulate_cuda}
 
 
-def put_grid(grid, device=None) -> torch.Tensor:
-    """Place a host uint8 grid on the device."""
-    dev = platform_env.resolve_device(device)
+def put_grid(grid, device=None, mesh: Mesh | None = None):
+    """Place a host uint8 grid on the device, or, with a mesh, split it into
+    the mesh's shards (a list) on their devices."""
     arr = np.ascontiguousarray(np.asarray(grid, dtype=np.uint8))
-    return torch.from_numpy(arr).to(dev)
+    if mesh is not None:
+        return split(arr, mesh)
+    return torch.from_numpy(arr).to(platform_env.resolve_device(device))
+
+
+_MESH_REFUSAL = ("the segment and packed-state runners do not run on a mesh "
+                 "yet (ROADMAP.md Queue 1 item 11c); drop the mesh or use a "
+                 "1x1 one")
 
 
 def _build_runner(shape, config: GameConfig, kernel: str, device, *,
-                  segmented: bool, packed_state: bool):
-    """Shared scaffold of the four runner factories: shape and kernel
+                  segmented: bool, packed_state: bool, mesh: Mesh | None = None):
+    """Shared scaffold of the four runner factories: shape, mesh and kernel
     validation, the kernels' build and load, and the simulate wrapper.
 
     ``packed_state`` runners take and return the (height, width/32) int32
     word tensor and never touch a uint8 grid; otherwise a kernel with its
     own carried state (packed words) converts once at the loop boundary.
-    ``segmented`` runners take and return the resume scalars."""
-    dev = platform_env.resolve_device(device)
+    ``segmented`` runners take and return the resume scalars. With a
+    ``mesh`` the runner takes and returns the list of shards."""
     height, width = shape
     if height <= 0 or width <= 0:
         raise ValueError(f"grid shape must be positive, got {height}x{width}")
-    kobj = resolve_kernel("packed" if packed_state else kernel, height, width)
-    if not kobj.supports(height, width):
+    topology = topology_for(mesh)
+    if topology.distributed and (segmented or packed_state):
+        raise ValueError(_MESH_REFUSAL)
+    devices = list(mesh.devices) if mesh is not None else [
+        platform_env.resolve_device(device)]
+    local_h, local_w = validate_grid(height, width, topology)
+    kobj = resolve_kernel("packed" if packed_state else kernel, local_h, local_w,
+                          topology)
+    if not kobj.supports(local_h, local_w, topology):
         hint = ("packed state has no fallback — use the unpacked lane"
                 if packed_state else "use kernel='auto' to pick one that does")
         raise ValueError(
-            f"kernel {kobj.name!r} does not support a {height}x{width} grid; "
-            f"{hint}"
+            f"kernel {kobj.name!r} does not support a {local_h}x{local_w} "
+            f"local shard on a {topology.shape[0]}x{topology.shape[1]} "
+            f"topology; {hint}"
         )
-    if dev.type == "cuda" and kobj.load is not None:
+    if not kobj.supports_multi(local_h, local_w, topology):
+        # The 8-generation pass only where the kernel takes the shard: a
+        # block then runs every generation through ``fused``.
+        kobj = dataclasses.replace(kobj, fused_multi=None)
+    if kobj.load is not None and any(d.type == "cuda" for d in devices):
         kobj.load()
     simulate = _SIMULATORS[config.convention]
     report = _REPORT[config.convention]
@@ -323,26 +398,32 @@ def _build_runner(shape, config: GameConfig, kernel: str, device, *,
         want, what = (torch.int32, (height, width // stencil_packed.BITS)), "an int32"
         encode = decode = None
     else:
-        want, what = (torch.uint8, (height, width)), "a uint8"
+        want, what = (torch.uint8, (local_h, local_w)), "a uint8"
         encode, decode = kobj.encode, kobj.decode
 
-    def check(state: torch.Tensor) -> None:
+    def check(shards) -> None:
         dtype, state_shape = want
-        if tuple(state.shape) != state_shape or state.dtype != dtype:
-            raise ValueError(
-                f"runner takes {what} {state_shape[0]}x{state_shape[1]} "
-                f"state, got {state.dtype} {tuple(state.shape)}"
-            )
-        if state.device != dev:
-            raise ValueError(f"state is on {state.device}, runner on {dev}")
+        if len(shards) != len(devices):
+            raise ValueError(f"runner takes {len(devices)} shards, got {len(shards)}")
+        for s, dev in zip(shards, devices):
+            if tuple(s.shape) != state_shape or s.dtype != dtype:
+                raise ValueError(
+                    f"runner takes {what} {state_shape[0]}x{state_shape[1]} "
+                    f"{'shard' if mesh is not None else 'state'}, got "
+                    f"{s.dtype} {tuple(s.shape)}"
+                )
+            if s.device != dev:
+                raise ValueError(f"state is on {s.device}, runner on {dev}")
 
     def run_loop(state, resume):
-        check(state)
-        carried = encode(state) if encode is not None else state
-        final, gen, counter, stopped = simulate(carried, config, kobj, resume)
+        shards = list(state) if mesh is not None else [state]
+        check(shards)
+        carried = [encode(s) for s in shards] if encode is not None else shards
+        final, gen, counter, stopped = simulate(carried, config, kobj, topology,
+                                                resume)
         if decode is not None:
-            final = decode(final)
-        return final, gen, counter, stopped
+            final = [decode(s) for s in final]
+        return (final if mesh is not None else final[0]), gen, counter, stopped
 
     if segmented:
         def run(state, gen0: int, counter0: int, seg_end: int):
@@ -355,50 +436,57 @@ def _build_runner(shape, config: GameConfig, kernel: str, device, *,
 
 
 def make_runner(shape: tuple[int, int], config: GameConfig = DEFAULT_CONFIG,
-                kernel: str = "auto", device=None):
+                kernel: str = "auto", device=None, mesh: Mesh | None = None):
     """A ``grid -> (final_grid, generations)`` runner for one grid shape.
 
     ``grid`` is a uint8 (height, width) tensor on ``device`` (the platform
     default — the card — when None); the final grid stays on the device.
+    With a ``mesh`` the runner takes and returns the mesh's shards (a
+    row-major list, ``put_grid(grid, mesh=mesh)``) and ``device`` is unused.
     Building the runner builds and loads the card's kernels, so a run's
     timing excludes them. The runner never writes its input."""
-    return _build_runner(shape, config, kernel, device,
+    return _build_runner(shape, config, kernel, device, mesh=mesh,
                          segmented=False, packed_state=False)
 
 
 def make_segment_runner(shape: tuple[int, int],
                         config: GameConfig = DEFAULT_CONFIG,
-                        kernel: str = "auto", device=None):
+                        kernel: str = "auto", device=None,
+                        mesh: Mesh | None = None):
     """A resumable segment: ``(grid, gen0, counter0, seg_end) -> (grid, gen,
     counter, stopped)``.
 
     Running segments back to back with the carried (gen, counter) scalars
     is bit-exact with one whole run — the basis for snapshots and resume.
     The runner never writes its input: where the JAX runner donates (and
-    so consumes) the state passed in, here that state stays valid."""
-    return _build_runner(shape, config, kernel, device,
+    so consumes) the state passed in, here that state stays valid. A mesh
+    of more than one shard is refused (not ported yet)."""
+    return _build_runner(shape, config, kernel, device, mesh=mesh,
                          segmented=True, packed_state=False)
 
 
 def make_packed_runner(shape: tuple[int, int],
-                       config: GameConfig = DEFAULT_CONFIG, device=None):
+                       config: GameConfig = DEFAULT_CONFIG, device=None,
+                       mesh: Mesh | None = None):
     """A runner over packed state: ``words -> (words, generations)``.
 
     ``shape`` is the logical (height, width) grid shape; the operand is its
     (height, width/32) int32 word tensor (``io/packed_io`` reads and writes
     those directly, so no uint8 grid exists anywhere). The state passed in
-    stays valid."""
-    return _build_runner(shape, config, "packed", device,
+    stays valid. A mesh of more than one shard is refused (not ported
+    yet)."""
+    return _build_runner(shape, config, "packed", device, mesh=mesh,
                          segmented=False, packed_state=True)
 
 
 def make_packed_segment_runner(shape: tuple[int, int],
                                config: GameConfig = DEFAULT_CONFIG,
-                               device=None):
+                               device=None, mesh: Mesh | None = None):
     """The packed analog of ``make_segment_runner``: ``(words, gen0,
     counter0, seg_end) -> (words, gen, counter, stopped)``. The state passed
-    in stays valid."""
-    return _build_runner(shape, config, "packed", device,
+    in stays valid. A mesh of more than one shard is refused (not ported
+    yet)."""
+    return _build_runner(shape, config, "packed", device, mesh=mesh,
                          segmented=True, packed_state=True)
 
 
@@ -461,10 +549,15 @@ def simulate_packed_segments(words: torch.Tensor, shape: tuple[int, int],
 
 
 def simulate(grid, config: GameConfig = DEFAULT_CONFIG, kernel: str = "auto",
-             device=None) -> EngineResult:
-    """Run a full simulation and fetch the result to the host."""
-    dev = platform_env.resolve_device(device)
+             device=None, mesh: Mesh | None = None) -> EngineResult:
+    """Run a full simulation (over the mesh's shards, given one) and fetch
+    the result to the host."""
     shape = tuple(np.shape(grid))
+    if mesh is not None:
+        runner = make_runner(shape, config, kernel, mesh=mesh)
+        final, generations = runner(put_grid(grid, mesh=mesh))
+        return EngineResult(gather(final, mesh.shape).cpu().numpy(), generations)
+    dev = platform_env.resolve_device(device)
     runner = make_runner(shape, config, kernel, dev)
     final, generations = runner(put_grid(grid, dev))
     return EngineResult(final.cpu().numpy(), generations)

@@ -1,12 +1,25 @@
 """Compute kernels of the port: the byte ``lax`` stencil, the byte
-``pallas`` kernel and the ``packed`` word kernels.
+``pallas`` kernels and the ``packed`` word kernels.
 
-The port of ``gol_tpu/ops/__init__.py`` for one device. ``auto`` resolves to
-``packed`` wherever the width packs into 32-bit words and to ``lax``
-otherwise; ``pallas`` (K4) runs only when named, as JAX's ``auto`` never
-reaches it off a TPU and prefers the packed kernel on one. There is no
-fallback ladder: a kernel that fails to build or to launch raises, and the
-run stops.
+The port of ``gol_tpu/ops/__init__.py``. Every callable takes the state as
+a row-major list of shards (one for a single device) and the
+``Topology``; on a mesh each exchanges its ghosts and runs one kernel per
+shard. ``auto`` resolves on the local shard's shape: ``packed`` wherever
+its width packs into 32-bit words, ``lax`` otherwise; ``pallas`` (K4, K6
+on a mesh) runs only when named, as JAX's ``auto`` never reaches it off a
+TPU and prefers the packed kernel on one.
+
+The packed kernel's 8-generation pass runs where ``supports_multi`` admits
+it: on one device (K1, K2 replayed) and on R x 1 meshes with shards of at
+least 8 rows (K7, K8 replayed); the engine drops it elsewhere, and a block
+then runs K5 once per generation. So meshes with more than one column run
+K5 every generation, where the JAX package runs its split-edge kernels
+K9-K12, or K13 for one-word shards (stencil_packed.py:1441-1452): the
+output bytes are the same, only the route differs. ``pallas`` and ``lax``
+take every R x C mesh with their own per-generation forms.
+
+There is no fallback ladder: a kernel that fails to build or to launch
+raises, and the run stops.
 """
 
 from __future__ import annotations
@@ -15,20 +28,24 @@ import dataclasses
 from typing import Callable
 
 from gol_tpu_torch.ops import stencil_lax, stencil_packed, stencil_pallas
+from gol_tpu_torch.parallel import halo
+from gol_tpu_torch.parallel.mesh import SINGLE_DEVICE, Topology
 
 
 @dataclasses.dataclass(frozen=True)
 class Kernel:
-    """A named evolve implementation.
+    """A named evolve implementation over a (sharded) state.
 
-    ``step`` (cells -> cells) is the per-generation form of a kernel without
-    fused flags. The fused forms write into caller-owned buffers and OR
-    their flags into a caller-zeroed int32 buffer (see ``stencil_packed``):
-    ``fused`` one generation with ``(alive, differs)``, ``fused_multi``
-    ``multi_gens`` generations with the pass summary, ``exact_multi`` the
-    same pass with per-generation flags. ``encode``/``decode`` carry the
-    uint8 grid to the kernel's own state (packed words) and back, once per
-    run.
+    ``step(shards, topology) -> shards`` is the per-generation form of a
+    kernel without fused flags. The fused forms ``(src, dst, flags,
+    topology)`` write into caller-owned shard buffers and OR their flags
+    into caller-zeroed int32 buffers, one per shard (shards on one device
+    may share one; see ``stencil_packed``): ``fused`` one generation with
+    ``(alive, differs)``, ``fused_multi`` ``multi_gens`` generations with
+    the pass summary, ``exact_multi`` the same pass with per-generation
+    flags. ``supports``/``supports_multi`` gate a local shard shape on a
+    topology. ``encode``/``decode`` carry a uint8 shard to the kernel's own
+    state (packed words) and back, once per run.
     """
 
     name: str
@@ -37,27 +54,37 @@ class Kernel:
     fused_multi: Callable | None = None
     exact_multi: Callable | None = None
     multi_gens: int = 1
-    supports: Callable = lambda height, width: True
+    supports: Callable = lambda height, width, topology: True
+    supports_multi: Callable = lambda height, width, topology: False
     encode: Callable | None = None
     decode: Callable | None = None
     load: Callable | None = None  # builds/loads the card's kernels
 
 
+def lax_evolve(shards, topology: Topology):
+    """One byte generation: the torus rolls on one device, the halo
+    exchange and the padded stencil per shard on a mesh."""
+    if not topology.distributed:
+        return [stencil_lax.evolve_torus(shards[0])]
+    return [stencil_lax.evolve_padded(p) for p in halo.exchange(shards, topology.shape)]
+
+
 _KERNELS = {
-    "lax": Kernel(name="lax", step=stencil_lax.evolve_torus),
+    "lax": Kernel(name="lax", step=lax_evolve),
     "pallas": Kernel(
         name="pallas",
-        fused=stencil_pallas._step_into,
+        fused=stencil_pallas.pallas_step_into,
         supports=stencil_pallas.supports,
         load=stencil_pallas.load_kernels,
     ),
     "packed": Kernel(
         name="packed",
-        fused=stencil_packed._step_into,
-        fused_multi=stencil_packed._step_t_fast_into,
-        exact_multi=stencil_packed._step_t_into,
+        fused=stencil_packed.packed_step_into,
+        fused_multi=stencil_packed.packed_step_multi_into,
+        exact_multi=stencil_packed.packed_step_exact_into,
         multi_gens=stencil_packed.TEMPORAL_GENS,
         supports=stencil_packed.supports,
+        supports_multi=stencil_packed.supports_multi,
         encode=stencil_packed.encode,
         decode=stencil_packed.decode,
         load=stencil_packed.load_kernels,
@@ -72,9 +99,11 @@ def get_kernel(name: str) -> Kernel:
     return _KERNELS[name]
 
 
-def resolve_kernel(name: str, height: int, width: int) -> Kernel:
-    """``auto`` -> ``packed`` where the shape packs, else ``lax``."""
+def resolve_kernel(name: str, height: int, width: int,
+                   topology: Topology = SINGLE_DEVICE) -> Kernel:
+    """``auto`` -> ``packed`` where the local shard shape packs, else
+    ``lax``."""
     if name != "auto":
         return get_kernel(name)
     packed = _KERNELS["packed"]
-    return packed if packed.supports(height, width) else _KERNELS["lax"]
+    return packed if packed.supports(height, width, topology) else _KERNELS["lax"]

@@ -76,6 +76,22 @@ def evolve_torus_words(x: torch.Tensor) -> torch.Tensor:
     return combine(u0, u1, d0, d1, m0, m1, x)
 
 
+def evolve_ghost(words, top, bot, gwest, geast) -> torch.Tensor:
+    """One generation of an (h, nwords) shard from its ghosts: ``top`` and
+    ``bot`` are the (1, nwords) ghost word rows, ``gwest``/``geast`` the
+    (h+2,) carry words over rows -1..h, so the corner bits ride along. Only
+    bit 31 of ``gwest`` and bit 0 of ``geast`` are read."""
+    h = words.shape[0]
+    xr = torch.cat([top, words, bot])  # (h+2, nwords)
+    left = torch.roll(xr, 1, dims=1)
+    left[:, 0] = gwest
+    right = torch.roll(xr, -1, dims=1)
+    right[:, -1] = geast
+    m0, m1, s0, s1 = row_sums(xr, left, right)
+    return combine(s0[0:h], s1[0:h], s0[2:h + 2], s1[2:h + 2],
+                   m0[1:h + 1], m1[1:h + 1], words)
+
+
 def encode(grid: torch.Tensor) -> torch.Tensor:
     """uint8 (H, W) cells -> int32 (H, W/32) words (bit j = column w*32+j).
 

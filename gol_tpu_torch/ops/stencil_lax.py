@@ -1,10 +1,11 @@
 """Byte-per-cell 3x3 Moore stencil in plain torch — the any-shape path.
 
-The port of ``gol_tpu/ops/stencil_lax.py``'s ``evolve_torus``: the toroidal
-wrap as whole-tensor rolls (the index-remapping wrap of src/game.c:69-86).
-The JAX package has no Pallas kernel behind it, so plain torch is this
-path's implementation on both the CPU and the card. ``auto`` picks it for
-widths that do not pack into 32-bit words.
+The port of ``gol_tpu/ops/stencil_lax.py``'s ``evolve_torus`` (the toroidal
+wrap as whole-tensor rolls, the index-remapping wrap of src/game.c:69-86)
+and ``evolve_padded`` (a mesh shard from its halo-extended block). The JAX
+package has no Pallas kernel behind them, so plain torch is this path's
+implementation on both the CPU and the card. ``auto`` picks it for widths
+that do not pack into 32-bit words.
 """
 
 from __future__ import annotations
@@ -30,3 +31,12 @@ def neighbor_counts_torus(grid: torch.Tensor) -> torch.Tensor:
 def evolve_torus(grid: torch.Tensor) -> torch.Tensor:
     """One generation of the full torus of uint8 {0,1} cells."""
     return _apply_rule(neighbor_counts_torus(grid), grid)
+
+
+def evolve_padded(padded: torch.Tensor) -> torch.Tensor:
+    """One generation for the interior of a halo-extended (h+2, w+2) shard
+    block (the src/game_mpi.c:73-84 shape); the mesh form of ``lax``."""
+    col = padded[:-2] + padded[1:-1] + padded[2:]
+    center = padded[1:-1, 1:-1]
+    neighbors = col[:, :-2] + col[:, 1:-1] + col[:, 2:] - center
+    return _apply_rule(neighbors, center)

@@ -1,16 +1,36 @@
-"""Packed single-device stencil: the three kernels of the main path.
+"""Packed stencil: the word kernels of the single-device and mesh paths.
 
-The port of the single-device half of ``gol_tpu/ops/stencil_packed.py``.
-Words are int32 tensors of shape (height, nwords) holding the uint32 bit
-patterns (bit j of word w = column 32*w + j; see ``packed_math``). Each
-kernel is a CUDA kernel in ``csrc/stencil_packed.cu``:
+The port of ``gol_tpu/ops/stencil_packed.py`` for one device and for the
+R x C mesh's per-generation and rows-only forms. Words are int32 tensors of
+shape (height, nwords) holding the uint32 bit patterns (bit j of word w =
+column 32*w + j; see ``packed_math``). Each kernel is a CUDA kernel in
+``csrc/stencil_packed.cu``:
 
 - ``_step_t_fast_into`` (K1, replaces ``_bandt_fast_kernel``): 8 torus
   generations in one pass, with the pass summary flags;
 - ``_step_t_into`` (K2, replaces ``_bandt_kernel``): the same pass with
   exact per-generation flags — the replay target of K1;
 - ``_step_into`` (K3, replaces ``_band_kernel``): one generation with fused
-  alive/similar flags.
+  alive/similar flags;
+- ``_distributed_step_into`` (K5, replaces ``_dist_band_kernel``): K3 for
+  one mesh shard, from the depth-1 ghost rows and the (h+2) east/west carry
+  words of ``exchange_packed``;
+- ``_step_trow_fast_into`` (K7, replaces ``_bandtrow_fast_kernel``) and
+  ``_step_trow_into`` (K8, replaces ``_bandtrow_kernel``): K1 and K2 for a
+  full-width shard of an R x 1 mesh, from its neighbours' 8-row ghost
+  blocks (``exchange_packed_deep``).
+
+``packed_step_into``, ``packed_step_multi_into`` and
+``packed_step_exact_into`` are the engine's forms over a (sharded) state: a
+row-major list of shards (one for a single device), their output buffers
+and their flag buffers, and the ``Topology``. On a mesh they exchange the
+ghosts from the pass's inputs, then launch each shard's kernel; every
+shard ORs into its flag buffer, and the buffers OR into the vote
+(``parallel/collectives.py``). The 8-generation pass runs on a single
+device and on R x 1 meshes with shards at least 8 rows high
+(``supports_multi``); elsewhere a mesh runs K5 once per generation. (The
+JAX package's 2D temporal kernels K9-K13 are not ported yet; the bytes are
+the same, only the route differs.)
 
 Each of them takes its output and flag buffers from the caller, launches its
 kernel on a CUDA tensor and runs its plain torch version (``_band_plain``,
@@ -33,8 +53,11 @@ import functools
 import torch
 
 from gol_tpu_torch.ops import _build, packed_math
+from gol_tpu_torch.parallel import collectives, halo
+from gol_tpu_torch.parallel.mesh import SINGLE_DEVICE, Topology
 
 BITS = packed_math.BITS
+_BIT31 = -(1 << 31)  # the int32 pattern of bit 31
 TEMPORAL_GENS = 8
 # Flag words per call: a fast pass's summary (in_alive, out_alive, diffT,
 # diff1), an exact pass's alive[0:T] + differs[T:2T], a step's
@@ -43,17 +66,32 @@ SUMMARY_FLAGS = 4
 EXACT_FLAGS = 2 * TEMPORAL_GENS
 STEP_FLAGS = 2
 
-LAUNCHES = {"bandt_fast": 0, "bandt": 0, "band": 0}
+LAUNCHES = {"bandt_fast": 0, "bandt": 0, "band": 0,
+            "dist_band": 0, "bandtrow_fast": 0, "bandtrow": 0}
 
 encode = packed_math.encode
 decode = packed_math.decode
 
 
-def supports(height: int, width: int) -> bool:
-    """Shape gate of the port's packed kernels: the width must pack into
-    32-bit words. Any height runs (the kernels wrap rows modulo it), so the
-    JAX gate's ``height % 8`` — a TPU tiling rule — does not apply."""
+def supports(height: int, width: int, topology: Topology = SINGLE_DEVICE) -> bool:
+    """Shape gate of the port's packed kernels (``height``/``width`` are the
+    local shard's): the width must pack into 32-bit words. Any height runs
+    (the kernels wrap rows modulo it, or take them from ghosts), so the JAX
+    gate's ``height % 8`` — a TPU tiling rule — does not apply."""
     return height >= 1 and width >= BITS and width % BITS == 0
+
+
+def supports_multi(height: int, width: int,
+                   topology: Topology = SINGLE_DEVICE) -> bool:
+    """The 8-generation pass: on one device wherever ``supports``; on a
+    mesh only for full-width shards (one mesh column) at least
+    TEMPORAL_GENS rows high, the ghost depth. (JAX's gate, ``h % 8 == 0 and
+    h >= 16``, is its Pallas tiling's.)"""
+    if not supports(height, width, topology):
+        return False
+    if not topology.distributed:
+        return True
+    return topology.shape[1] == 1 and height >= TEMPORAL_GENS
 
 
 # ---------------------------------------------------------------------------
@@ -67,24 +105,50 @@ def _band_plain(words: torch.Tensor):
     return new, flags
 
 
-def _bandt_plain(words: torch.Tensor, exact: bool):
-    """TEMPORAL_GENS generations: ``(new, flags)`` with the exact flags
-    ``alive[0:T] + differs[T:2T]``, or the summary ``[in_alive, out_alive,
-    differs(g_T, g_T-1), differs(g_1, g_0)]``."""
-    alive, differs = [], []
-    prev = words
-    for _ in range(TEMPORAL_GENS):
-        new = packed_math.evolve_torus_words(prev)
-        alive.append((new != 0).any())
-        differs.append((new != prev).any())
-        prev = new
+def _pass_flags(words: torch.Tensor, gens, exact: bool):
+    """``(gens[-1], flags)`` of a pass from ``words`` through the
+    TEMPORAL_GENS generations ``gens``: the exact flags ``alive[0:T] +
+    differs[T:2T]``, or the summary ``[in_alive, out_alive, differs(g_T,
+    g_T-1), differs(g_1, g_0)]``."""
+    alive = [(g != 0).any() for g in gens]
+    differs = [(g != p).any() for p, g in zip([words, *gens], gens)]
     if exact:
         flags = torch.stack(alive + differs)
     else:
         flags = torch.stack(
             [(words != 0).any(), alive[-1], differs[-1], differs[0]]
         )
-    return prev, flags.to(torch.int32)
+    return gens[-1], flags.to(torch.int32)
+
+
+def _bandt_plain(words: torch.Tensor, exact: bool):
+    """TEMPORAL_GENS torus generations: ``(new, flags)`` (``_pass_flags``)."""
+    gens, x = [], words
+    for _ in range(TEMPORAL_GENS):
+        x = packed_math.evolve_torus_words(x)
+        gens.append(x)
+    return _pass_flags(words, gens, exact)
+
+
+def _dist_band_plain(words, top, bot, gwest, geast):
+    """One shard generation from its ghosts: ``(new, flags)`` with flags
+    ``[alive, differs]``."""
+    new = packed_math.evolve_ghost(words, top, bot, gwest, geast)
+    flags = torch.stack([(new != 0).any(), (new != words).any()]).to(torch.int32)
+    return new, flags
+
+
+def _bandtrow_plain(words, gtop, gbot, exact: bool):
+    """TEMPORAL_GENS generations of a full-width shard from its 8-row ghost
+    blocks: ``(new, flags)`` as ``_bandt_plain``. The (h+16)-row extended
+    block evolves as a torus; its wrapped rows spoil only the frontier,
+    one row per generation from each end, never the shard's own rows."""
+    T, h = TEMPORAL_GENS, words.shape[0]
+    gens, x = [], torch.cat([gtop, words, gbot])
+    for _ in range(T):
+        x = packed_math.evolve_torus_words(x)
+        gens.append(x[T:T + h])
+    return _pass_flags(words, gens, exact)
 
 
 # ---------------------------------------------------------------------------
@@ -99,6 +163,10 @@ def _lib() -> ctypes.CDLL:
     lib.gol_band_step.restype = i32
     lib.gol_bandt_pass.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     lib.gol_bandt_pass.restype = i32
+    lib.gol_dist_band_step.argtypes = [ptr] * 7 + [i32, i32, i32, ptr]
+    lib.gol_dist_band_step.restype = i32
+    lib.gol_bandtrow_pass.argtypes = [ptr] * 5 + [i32, i32, i32, i32, ptr]
+    lib.gol_bandtrow_pass.restype = i32
     lib.gol_error_string.argtypes = [i32]
     lib.gol_error_string.restype = ctypes.c_char_p
     return lib
@@ -133,6 +201,27 @@ def _check(words: torch.Tensor, out: torch.Tensor, flags: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
     if out.data_ptr() == words.data_ptr():
         raise ValueError("out must not alias words (blocks read their halos)")
+
+
+def _check_ghosts(words: torch.Tensor, ghosts) -> None:
+    """``ghosts``: ``(name, tensor, shape)`` triples a shard kernel reads."""
+    for name, t, shape in ghosts:
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be int32 {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if t.device != words.device:
+            raise ValueError(f"{name} is on {t.device}, words on {words.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_deep(words, gtop, gbot) -> None:
+    height, nwords = words.shape
+    if height < TEMPORAL_GENS:
+        raise ValueError(f"a shard of the {TEMPORAL_GENS}-generation pass needs "
+                         f"at least {TEMPORAL_GENS} rows, got {height}")
+    _check_ghosts(words, (("gtop", gtop, (TEMPORAL_GENS, nwords)),
+                          ("gbot", gbot, (TEMPORAL_GENS, nwords))))
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -172,6 +261,30 @@ def _launch_band(words, out, flags) -> None:
     LAUNCHES["band"] += 1
 
 
+def _launch_dist_band(words, top, bot, gwest, geast, out, flags) -> None:
+    height, nwords = words.shape
+    stream = torch.cuda.current_stream(words.device).cuda_stream
+    err = _lib().gol_dist_band_step(
+        words.data_ptr(), top.data_ptr(), bot.data_ptr(), gwest.data_ptr(),
+        geast.data_ptr(), out.data_ptr(), flags.data_ptr(), height, nwords,
+        words.device.index, stream,
+    )
+    _raise_on(err, "dist_band")
+    LAUNCHES["dist_band"] += 1
+
+
+def _launch_bandtrow(words, gtop, gbot, out, flags, exact: bool) -> None:
+    height, nwords = words.shape
+    stream = torch.cuda.current_stream(words.device).cuda_stream
+    err = _lib().gol_bandtrow_pass(
+        words.data_ptr(), gtop.data_ptr(), gbot.data_ptr(), out.data_ptr(),
+        flags.data_ptr(), height, nwords, int(exact), words.device.index, stream,
+    )
+    key = "bandtrow" if exact else "bandtrow_fast"
+    _raise_on(err, key)
+    LAUNCHES[key] += 1
+
+
 def _step_t_fast_into(words, out, flags) -> None:
     """K1: TEMPORAL_GENS generations of ``words`` into ``out``; ORs the pass
     summary ``(in_alive, out_alive, diffT, diff1)`` into ``flags[0:4]``."""
@@ -206,6 +319,101 @@ def _step_into(words, out, flags) -> None:
     new, step_flags = _band_plain(words)
     out.copy_(new)
     flags[:STEP_FLAGS] |= step_flags
+
+
+def _distributed_step_into(words, top, bot, gwest, geast, out, flags) -> None:
+    """K5: one generation of the shard ``words`` into ``out`` from its
+    ghosts (``exchange_packed``); ORs ``(alive, differs)`` into
+    ``flags[0:2]``."""
+    _check(words, out, flags, STEP_FLAGS)
+    height, nwords = words.shape
+    _check_ghosts(words, (("top", top, (1, nwords)), ("bot", bot, (1, nwords)),
+                          ("gwest", gwest, (height + 2,)),
+                          ("geast", geast, (height + 2,))))
+    if _route(words):
+        _launch_dist_band(words, top, bot, gwest, geast, out, flags)
+        return
+    new, step_flags = _dist_band_plain(words, top, bot, gwest, geast)
+    out.copy_(new)
+    flags[:STEP_FLAGS] |= step_flags
+
+
+def _step_trow_fast_into(words, gtop, gbot, out, flags) -> None:
+    """K7: TEMPORAL_GENS generations of a full-width shard into ``out``
+    from its 8-row ghost blocks; ORs the pass summary into ``flags[0:4]``."""
+    _check(words, out, flags, SUMMARY_FLAGS)
+    _check_deep(words, gtop, gbot)
+    if _route(words):
+        _launch_bandtrow(words, gtop, gbot, out, flags, exact=False)
+        return
+    new, summary = _bandtrow_plain(words, gtop, gbot, exact=False)
+    out.copy_(new)
+    flags[:SUMMARY_FLAGS] |= summary
+
+
+def _step_trow_into(words, gtop, gbot, out, flags) -> None:
+    """K8: K7 with the exact per-generation flags ``alive[0:T]`` and
+    ``differs[T:2T]``."""
+    _check(words, out, flags, EXACT_FLAGS)
+    _check_deep(words, gtop, gbot)
+    if _route(words):
+        _launch_bandtrow(words, gtop, gbot, out, flags, exact=True)
+        return
+    new, exact = _bandtrow_plain(words, gtop, gbot, exact=True)
+    out.copy_(new)
+    flags[:EXACT_FLAGS] |= exact
+
+
+# ---------------------------------------------------------------------------
+# Over a (sharded) state: the engine's forms.
+
+
+def exchange_packed(shards, shape):
+    """Two-phase packed halo: per shard ``(top, bot, gwest, geast)``, the
+    (1, nwords) ghost word rows, then the (h+2,) carry words over rows
+    -1..h with the neighbour's bit at bit 31 (west) and bit 0 (east)."""
+    return [(top, bot, gw & _BIT31, ge & 1)
+            for top, bot, gw, ge in halo.exchange_parts(shards, shape)]
+
+
+def exchange_packed_deep(shards, shape):
+    """The deep halo of an R x 1 mesh: per shard its TEMPORAL_GENS-row
+    ghost blocks ``(gtop, gbot)``. Full-width shards wrap east/west within
+    themselves, so no column phase exists."""
+    return halo.ghost_slices(shards, shape, depth=TEMPORAL_GENS)
+
+
+def packed_step_into(src, dst, flags, topology: Topology) -> None:
+    """One generation of every shard of ``src`` into ``dst``: K3 on a
+    single device, else the exchange then K5 per shard."""
+    if not topology.distributed:
+        _step_into(src[0], dst[0], flags[0])
+        return
+    for x, y, f, ghosts in zip(src, dst, flags, exchange_packed(src, topology.shape)):
+        _distributed_step_into(x, *ghosts, y, f)
+
+
+def _multi_into(src, dst, flags, topology: Topology, exact: bool) -> None:
+    if not topology.distributed:
+        (_step_t_into if exact else _step_t_fast_into)(src[0], dst[0], flags[0])
+        return
+    if topology.shape[1] != 1:
+        raise ValueError("the 8-generation pass on a mesh needs one mesh column")
+    step = _step_trow_into if exact else _step_trow_fast_into
+    for x, y, f, (gtop, gbot) in zip(src, dst, flags,
+                                     exchange_packed_deep(src, topology.shape)):
+        step(x, gtop, gbot, y, f)
+
+
+def packed_step_multi_into(src, dst, flags, topology: Topology) -> None:
+    """TEMPORAL_GENS generations with the pass summary: K1, or the deep
+    exchange then K7 per shard."""
+    _multi_into(src, dst, flags, topology, exact=False)
+
+
+def packed_step_exact_into(src, dst, flags, topology: Topology) -> None:
+    """The same pass with exact per-generation flags: K2, or K8 per shard."""
+    _multi_into(src, dst, flags, topology, exact=True)
 
 
 # ---------------------------------------------------------------------------
@@ -272,24 +480,58 @@ def _step_t_fast(words: torch.Tensor):
     return out, vec(alive), vec(similar)
 
 
-def _gate(words: torch.Tensor) -> None:
+def _gate(words: torch.Tensor, topology: Topology = SINGLE_DEVICE,
+          gate=supports) -> None:
     height, nwords = words.shape
-    if not supports(height, nwords * BITS):
+    if not gate(height, nwords * BITS, topology):
+        rows, cols = topology.shape
         raise ValueError(
-            f"the packed kernel needs a width that is a multiple of {BITS}; "
-            f"got {height}x{nwords * BITS}"
+            f"the packed kernel{' pass' if gate is supports_multi else ''} "
+            f"does not take a {height}x{nwords * BITS} shard on a "
+            f"{rows}x{cols} mesh (the width must be a multiple of {BITS})"
         )
 
 
-def packed_step(words: torch.Tensor):
+def _mesh_call(into, shards, topology: Topology, nflags: int):
+    """Run a ``*_into`` form over fresh buffers: ``(out, voted flags)``."""
+    out = [torch.empty_like(s) for s in shards]
+    flags = [_flags(nflags, s.device) for s in shards]
+    into(shards, out, flags, topology)
+    return out, collectives.any_flag(flags)
+
+
+def packed_step(cur, topology: Topology = SINGLE_DEVICE):
     """Fused generation step on packed state: ``words -> (words, alive,
-    similar)`` — K3 on the card, its plain version on the CPU."""
-    _gate(words)
-    return _step(words)
+    similar)`` — K3 on the card, its plain version on the CPU. On a mesh
+    ``cur`` is the list of shards and so is the new state (K5), and the
+    flags are the votes."""
+    if not topology.distributed:
+        _gate(cur)
+        return _step(cur)
+    for s in cur:
+        _gate(s, topology)
+    out, flags = _mesh_call(packed_step_into, cur, topology, STEP_FLAGS)
+    return out, flags[0] != 0, flags[1] == 0
 
 
-def packed_step_multi(words: torch.Tensor):
+def packed_step_multi(cur, topology: Topology = SINGLE_DEVICE):
     """TEMPORAL_GENS fused generations: ``words -> (words_T, alive_vec,
-    similar_vec)`` — K1, with K2 replayed on a mid-pass exit."""
-    _gate(words)
-    return _step_t_fast(words)
+    similar_vec)`` — K1, with K2 replayed on a mid-pass exit. On an R x 1
+    mesh ``cur`` is the list of shards (K7, K8 replayed): the summaries are
+    voted across shards before the derivation, since one shard's summary
+    can hide a transient that crossed its border."""
+    if not topology.distributed:
+        _gate(cur, gate=supports_multi)
+        return _step_t_fast(cur)
+    for s in cur:
+        _gate(s, topology, supports_multi)
+    out, summary = _mesh_call(packed_step_multi_into, cur, topology, SUMMARY_FLAGS)
+
+    def exact():
+        f = _mesh_call(packed_step_exact_into, cur, topology, EXACT_FLAGS)[1].tolist()
+        T = TEMPORAL_GENS
+        return f[:T], [1 - d for d in f[T:]]
+
+    alive, similar = _derive_or_replay(summary.tolist(), exact)
+    vec = functools.partial(torch.tensor, dtype=torch.int32, device=cur[0].device)
+    return out, vec(alive), vec(similar)

@@ -5,6 +5,11 @@ the CUDA card unless the caller asks for the CPU, either with an explicit
 ``device=`` argument or, for the entry points, ``GOL_TORCH_DEVICE=cpu``.
 A CUDA request on a host without a card raises ``NoDeviceError``; nothing
 ever carries on on the CPU in its place.
+
+``mesh_devices`` is the counterpart of XLA's host device count: the devices
+a mesh may place its shards on. ``GOL_TORCH_MESH_DEVICES=N`` lays N entries
+round-robin over the platform's devices, so N shards can share one card
+(or the CPU), as the JAX test suite's 8 virtual CPU devices do.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ import os
 import torch
 
 DEVICE_ENV = "GOL_TORCH_DEVICE"
+MESH_DEVICES_ENV = "GOL_TORCH_MESH_DEVICES"
 DEFAULT_DEVICE = "cuda"
 
 
@@ -40,3 +46,20 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type == "cpu":
         return dev
     raise NoDeviceError(f"unsupported device {str(dev)!r}; use 'cuda' or 'cpu'")
+
+
+def mesh_devices() -> list[torch.device]:
+    """The devices a mesh may use, one entry per shard slot: one per card
+    torch sees (one ``cpu`` entry on the CPU lane), or, with
+    ``$GOL_TORCH_MESH_DEVICES`` = N, N entries laid round-robin over them."""
+    dev = resolve_device()
+    if dev.type == "cuda":
+        base = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        base = [dev]
+    spec = os.environ.get(MESH_DEVICES_ENV)
+    if not spec:
+        return base
+    if not spec.isdigit() or int(spec) < 1:
+        raise ValueError(f"{MESH_DEVICES_ENV} must be a positive integer, got {spec!r}")
+    return [base[i % len(base)] for i in range(int(spec))]

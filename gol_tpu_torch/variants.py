@@ -5,10 +5,10 @@ accounting, and which lines they print (SURVEY.md §2 C1-C6). Here each is a
 ``Variant`` record; the engine and kernels are shared. Output filenames match
 the reference byte-for-byte so existing comparison scripts keep working.
 
-A copy of ``gol_tpu/variants.py``. The port runs on one device, so the
-distributed variants (``mpi``, ``collective``, ``async``, ``openmp``,
-``tpu``) run in the 1x1 form the JAX CLI falls back to on one device: one
-shard, read and written through the variant's own I/O strategy
+A copy of ``gol_tpu/variants.py``. ``distributed`` means the variant runs
+over a mesh of shards (``parallel/mesh.py``; ``--mesh``, or the default
+mesh over ``platform_env.mesh_devices()``, which is one shard where there is
+one device), read and written through the variant's own I/O strategy
 (``io/sharded.py``), with the variant's printed lines and file name.
 """
 

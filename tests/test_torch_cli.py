@@ -359,3 +359,85 @@ def test_zarr_is_refused(capsys, tmp_path):
         assert cli.main(["64", "64", *args]) == 1
         err = capsys.readouterr().err
         assert err.startswith("gol: ") and ("zarr" in err or "TensorStore" in err)
+
+
+# ---------------------------------------------------------------------------
+# The mesh lanes: --mesh RxC over GOL_TORCH_MESH_DEVICES=8 CPU shards, with
+# the same --mesh passed to the JAX CLI (8 virtual CPU devices).
+
+
+@pytest.fixture
+def eight_shards(monkeypatch):
+    monkeypatch.setenv("GOL_TORCH_MESH_DEVICES", "8")
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "4x1", None], ids=["2x2", "4x1", "default"])
+@pytest.mark.parametrize("variant", ["mpi", "collective", "async", "openmp", "tpu"])
+def test_mesh_variants_match_jax(variant, mesh, eight_shards, capsys, tmp_path):
+    # JAX's Pallas kernel takes no shard narrower than 128 cells, so the
+    # port's --kernel pallas (K6) is held against JAX's --kernel lax.
+    path = _write(tmp_path, "in.txt", text_grid.generate(64, 64, seed=14))
+    base = ["64", "64", path, "--variant", variant,
+            *(["--mesh", mesh] if mesh else [])]
+    jax_res, port_res = _both(capsys, [*base, "--gen-limit", "300"], tmp_path)
+    assert port_res == jax_res and port_res[0] == 0
+    jax_res, _ = _both(capsys, [*base, "--kernel", "lax", "--gen-limit", "40"], tmp_path)
+    _, port_res = _both(capsys, [*base, "--kernel", "pallas", "--gen-limit", "40"],
+                        tmp_path)
+    assert port_res == jax_res and port_res[0] == 0
+
+
+@pytest.mark.parametrize("variant", ["tpu", "collective"])
+def test_mesh_lax_and_rectangles_match_jax(variant, eight_shards, capsys, tmp_path):
+    # tpu keeps rectangles: 32 rows over 2x4 shards of 16x16 (lax) and 4x1
+    # shards of 8x64 (auto: the 8-generation pass with 8-row shards).
+    path = _write(tmp_path, "in.txt", text_grid.generate(64, 32 if variant == "tpu" else 64,
+                                                         seed=15))
+    height = "32" if variant == "tpu" else "64"
+    for flags in (["--mesh", "2x4", "--kernel", "lax"], ["--mesh", "4x1"],
+                  ["--mesh", "2x4", "--gen-limit", "21", "--no-check-similarity"]):
+        jax_res, port_res = _both(
+            capsys, ["64", height, path, "--variant", variant, *flags], tmp_path)
+        assert port_res == jax_res and port_res[0] == 0
+
+
+@pytest.mark.parametrize(
+    "args",
+    [["16", "16", "IN16", "--variant", "tpu", "--mesh", "3x1"],
+     ["64", "64", "IN64", "--variant", "game", "--mesh", "2x2"],
+     ["64", "64", "IN64", "--variant", "tpu", "--mesh", "2by2"],
+     ["64", "64", "IN64", "--variant", "collective", "--mesh", "3x3"],
+     ["64", "64", "IN64", "--variant", "tpu", "--mesh", "0x2"],
+     ["64", "64", "IN64", "--variant", "mpi", "--host", "--mesh", "2x2"]],
+    ids=["does_not_divide", "single_device_variant", "malformed", "too_many",
+         "zero_axis", "host"],
+)
+def test_mesh_refusals_match_jax(args, eight_shards, capsys, tmp_path):
+    paths = {"IN16": _write(tmp_path, "in16.txt", text_grid.generate(16, 16, seed=1)),
+             "IN64": _write(tmp_path, "in64.txt", text_grid.generate(64, 64, seed=1))}
+    args = [paths.get(a, a) for a in args]
+    errs = []
+    for main in (jax_cli.main, cli.main):
+        assert main(args) == 1
+        errs.append(capsys.readouterr().err)
+    assert errs[0] == errs[1] and errs[1].startswith("gol: ")
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [["--packed-io"], ["--snapshot-every", "10"], ["--resume-gen", "5"]],
+    ids=["packed_io", "snapshot_every", "resume_gen"],
+)
+def test_lanes_not_ported_to_a_mesh_exit_1(flags, eight_shards, capsys, tmp_path,
+                                            monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    path = _write(tmp_path, "in.txt", text_grid.generate(64, 64, seed=3))
+    for mesh in (["--mesh", "2x2"], []):  # the default mesh is 8x1 here
+        assert cli.main(["64", "64", path, "--variant", "tpu", *mesh, *flags]) == 1
+        err = capsys.readouterr().err
+        assert err.startswith("gol: ") and "does not run on a mesh" in err
+        assert flags[0] in err and "Queue 1 item 11c" in err
+    assert not (tmp_path / "tpu_output.out").exists()
+    # ... and on a 1x1 mesh they run.
+    assert cli.main(["64", "64", path, "--variant", "tpu", "--mesh", "1x1", *flags]) == 0
+    capsys.readouterr()

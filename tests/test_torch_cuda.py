@@ -156,3 +156,101 @@ def test_cli_lanes_on_the_card_match_oracle(card, lane, variant, monkeypatch,
         gens, got = _cli_on_card(monkeypatch, tmp_path, capsys, grid, args)
         assert gens == want.generations
         np.testing.assert_array_equal(got, want.grid)
+
+
+# ---------------------------------------------------------------------------
+# The mesh-shard kernels K5-K8 on the card, and a mesh run against 1x1.
+
+SHARD_SHAPES = [(1, 1), (8, 1), (17, 5), (200, 33)]
+
+
+def _shard_ghosts(height, nwords, seed):
+    """Random words of a shard and random ghosts of the shapes K5, K7 and
+    K8 take (every bit random: the kernels must read only what they own)."""
+    rng = np.random.default_rng(seed)
+
+    def words(*shape):
+        return rng.integers(0, 2**32, size=shape, dtype=np.uint64).astype(np.uint32)
+
+    return {"x": words(height, nwords), "top": words(1, nwords),
+            "bot": words(1, nwords), "gwest": words(height + 2),
+            "geast": words(height + 2), "gtop": words(8, nwords),
+            "gbot": words(8, nwords)}
+
+
+@pytest.mark.parametrize(
+    "kernel,height,nwords",
+    [(k, h, nw) for k in ("dist_band", "bandtrow_fast", "bandtrow")
+     for h, nw in SHARD_SHAPES if k == "dist_band" or h >= 8],  # K7/K8: h >= 8
+)
+def test_shard_kernel_matches_plain(card, kernel, height, nwords):
+    for seed in range(3):
+        g = {k: pm.words_from_numpy(v, card)
+             for k, v in _shard_ghosts(height, nwords, seed).items()}
+        if seed == 2:  # a dead shard in dead surroundings
+            g = {k: torch.zeros_like(v) for k, v in g.items()}
+        x, out = g["x"], torch.empty_like(g["x"])
+        before = sp.LAUNCHES[kernel]
+        if kernel == "dist_band":
+            flags = torch.zeros(sp.STEP_FLAGS, dtype=torch.int32, device=card)
+            ghosts = [g[k] for k in ("top", "bot", "gwest", "geast")]
+            sp._distributed_step_into(x, *ghosts, out, flags)
+            want, want_flags = sp._dist_band_plain(x, *ghosts)
+        else:
+            exact = kernel == "bandtrow"
+            flags = torch.zeros(sp.EXACT_FLAGS if exact else sp.SUMMARY_FLAGS,
+                                dtype=torch.int32, device=card)
+            into = sp._step_trow_into if exact else sp._step_trow_fast_into
+            into(x, g["gtop"], g["gbot"], out, flags)
+            want, want_flags = sp._bandtrow_plain(x, g["gtop"], g["gbot"], exact)
+        torch.cuda.synchronize(card)
+        assert sp.LAUNCHES[kernel] == before + 1
+        assert torch.equal(out, want), seed
+        assert flags.tolist() == want_flags.tolist(), seed
+
+
+@pytest.mark.parametrize("height,width", [(1, 1), (7, 3), (17, 161), (64, 4096)])
+def test_shard_byte_kernel_matches_plain(card, height, width):
+    rng = np.random.default_rng(height + width)
+    for seed in range(2):
+        def cells(*shape):
+            return torch.from_numpy(rng.integers(0, 2, shape, dtype=np.uint8)).to(card)
+
+        x, ghosts = cells(height, width), [cells(1, width), cells(1, width),
+                                           cells(height + 2), cells(height + 2)]
+        if seed == 1:
+            x, ghosts = torch.zeros_like(x), [torch.zeros_like(t) for t in ghosts]
+        out = torch.full_like(x, 7)
+        flags = torch.zeros(2, dtype=torch.int32, device=card)
+        before = spl.LAUNCHES["dist_byte_band"]
+        spl._distributed_step_into(x, *ghosts, out, flags)
+        torch.cuda.synchronize(card)
+        assert spl.LAUNCHES["dist_byte_band"] == before + 1
+        want, want_flags = spl._dist_band_plain(x, *ghosts)
+        assert torch.equal(out, want)
+        assert flags.tolist() == want_flags.tolist()
+
+
+@pytest.mark.parametrize("convention", [Convention.C, Convention.CUDA])
+def test_mesh_on_the_card_matches_single_device(card, convention, monkeypatch):
+    from gol_tpu_torch.parallel.mesh import make_mesh
+
+    monkeypatch.setenv("GOL_TORCH_MESH_DEVICES", "4")
+    patch = np.zeros((64, 256), np.uint8)
+    patch[14:19, 120:125] = np.random.default_rng(203).integers(0, 2, (5, 5),
+                                                                dtype=np.uint8)
+    for grid in (text_grid.generate(256, 64, seed=4), patch):
+        config = GameConfig(convention=convention)
+        want = engine.simulate(grid, config, device=card)
+        for shape in ((4, 1), (2, 2)):
+            for kernel in ("auto", "pallas"):
+                before = {**sp.LAUNCHES, **spl.LAUNCHES}
+                got = engine.simulate(grid, config, kernel=kernel,
+                                      mesh=make_mesh(*shape))
+                launched = {k: n - before[k]
+                            for k, n in {**sp.LAUNCHES, **spl.LAUNCHES}.items()}
+                assert got.generations == want.generations, (shape, kernel)
+                np.testing.assert_array_equal(got.grid, want.grid)
+                key = ("dist_byte_band" if kernel == "pallas" else
+                       "bandtrow_fast" if shape == (4, 1) else "dist_band")
+                assert launched[key] > 0, (shape, kernel, launched)

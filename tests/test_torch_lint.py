@@ -51,3 +51,9 @@ def test_port_files_exist():
 def test_no_jax_or_gol_tpu_import(path):
     bad = [(line, mod) for line, mod in _imports(path) if _forbidden(mod)]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_the_mesh_modules_are_scanned():
+    scanned = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for name in ("mesh", "halo", "collectives"):
+        assert f"gol_tpu_torch/parallel/{name}.py" in scanned
