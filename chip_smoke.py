@@ -10,8 +10,9 @@ error:
 
 1. Card and build: the card's name and power limit (nvidia-smi), then the
    native code built from the checkout — one compiler per source, all
-   started together: ``csrc/stencil_packed.cu`` (K1-K3, K5, K7, K8),
-   ``csrc/stencil_pallas.cu`` (K4, K6) and ``native/codec.c`` (the
+   started together: ``csrc/stencil_packed.cu`` (K1-K3, K5, K7, K8 and the
+   ghost-plane form that replaces K9-K13), ``csrc/stencil_pallas.cu`` (K4,
+   K6) and ``native/codec.c`` (the
    packed-I/O text codec) — with nvcc's ``-Xptxas -v`` report (registers,
    shared memory, spills).
 2. Kernels against their plain torch versions on the card: K1 (fast-flag
@@ -23,10 +24,13 @@ error:
    generation from ghost rows and carry words), K7/K8 (K1/K2 of a
    full-width shard from 8-row ghost blocks) at shard (height, nwords)
    (1,1) (8,1) (17,5) (1000,7) (4096,512) (K7/K8 from 8 rows), and K6 (K4
-   of a shard) at (1,1) (7,3) (17,161) (8192,8192): on random cells with
-   random ghosts (every bit random), and on the domino and the L-tromino
-   with the ghosts a one-shard torus exchanges. Outputs and flags must be
-   identical.
+   of a shard) at (1,1) (7,3) (17,161) (8192,8192), and the ghost-plane
+   forms of the 8-generation pass (summary flags: replaces K9+K10; exact
+   flags: replaces K11+K12 and K13; a shard of a mesh with columns, from
+   8-row ghost blocks and the (h+16) ghost word columns) at (8,1) (17,1)
+   (16,2) (17,5) (1000,7) (8192,256): on random cells with random ghosts
+   (every bit random), and on the domino and the L-tromino with the ghosts
+   a one-shard torus exchanges. Outputs and flags must be identical.
 3. Small flows through ``python -m gol_tpu_torch`` on the card, against the
    port's numpy oracle, for both loop conventions: the verify skill's four
    flows at 48^2 and 64^2 (random for 1000 generations, 2x2 block, lone
@@ -39,8 +43,14 @@ error:
    run. Then, with ``GOL_TORCH_MESH_DEVICES=4`` (four shards on the one
    card), the eight flows through ``cli.main`` under ``--variant tpu``,
    ``collective``, ``async``, ``openmp`` and ``mpi``, each with ``--mesh
-   4x1`` and ``--mesh 2x2`` and ``--kernel auto``, ``pallas`` and ``lax``
-   (bytes, generation counts and printed lines against the oracle).
+   4x1`` and ``--mesh 2x2`` and ``--kernel auto``, ``pallas`` and ``lax``,
+   with ``--mesh 1x4`` and ``--kernel auto``, and the 64^2 flows with
+   ``--packed-io`` on 4x1 and 2x2 (bytes, generation counts and printed
+   lines against the oracle). 64^2 under ``--mesh 2x2`` has one-word shards:
+   there an L-tromino that becomes still and a lone cell that dies must
+   launch both ghost-plane forms. ``--snapshot-every 100`` and
+   ``--resume-gen 300`` run again under ``--variant tpu --mesh 2x2``, with
+   and without ``--packed-io``.
 4. The main path at full size, 16384^2 (268 MB of text, 32 MiB of packed
    words), through the CLI entry point: ``--variant game`` and ``cuda``,
    each on (a) a random grid for 1000 generations (K1 only), (b) the same
@@ -58,15 +68,23 @@ error:
    same check, and (c)/(d) must match the oracle on a 64^2 copy.
    The mesh path at the same size: ``--variant tpu`` (C convention) on the
    six inputs under ``--mesh 4x1`` (four 4096x16384 shards) and ``--mesh
-   2x2`` (8192x8192), each with ``--kernel auto`` and ``--kernel pallas``:
-   every output's bytes and generation count must equal the single-device
-   ``--kernel auto`` run's. Counters are zeroed per lane: ``4x1 auto`` must
-   launch K7, K8 and K5, ``2x2 auto`` K5, both ``pallas`` lanes K6, and no
-   lane a single-device kernel. Engine-level runs of (d) under the CUDA
-   convention on 4x1 must launch K5 for the empty-exit replay.
-5. Timing: each kernel and its plain version over 100 warm launches (CUDA
-   events), K1-K4 at 16384^2, K5/K7/K8 at the 4x1 shard (4096 x 512 words)
-   and K6 at the 4x1 and 2x2 shards, beside its bound — the larger of the
+   2x2`` (8192x8192), each with ``--kernel auto`` and ``--kernel pallas``,
+   and ``--mesh 2x2 --packed-io``: every output's bytes and generation
+   count must equal the single-device ``--kernel auto`` run's. Counters are
+   zeroed per lane: ``4x1 auto`` must launch K7, K8 and K5, ``2x2 auto`` and
+   ``2x2 packed_io`` both ghost-plane forms and K5 (the block tail), both
+   ``pallas`` lanes K6, and no lane a single-device kernel. Engine-level
+   runs of (d) under the CUDA convention on 4x1 and 2x2 must launch K5 for
+   the empty-exit replay.
+5. Timing: each kernel over 100 warm launches captured in one CUDA graph
+   and replayed (CUDA events around the replay), so that the card and not
+   the host's launch rate sets ``ms``; beside it ``eager_ms`` (the same
+   launches issued one by one, what a host loop pays), ``wrapper_ms`` (the
+   host's time per wrapper call while capturing, when nothing runs) and the
+   plain version's ``plain_ms`` (eager). K1-K4 at 16384^2, K5/K7/K8 at the
+   4x1 shard (4096 x 512 words), K5 and the ghost-plane forms at the 2x2
+   shard (8192 x 256 words) and K6 at the 4x1 and 2x2 shards, beside its
+   bound — the larger of the
    bytes it must move (its inputs, ghosts included, read once and its
    output written once) over 3.35 TB/s and its 32-bit integer logic ops
    over the card's rate for them: 64 results per clock per SM (CUDA C++
@@ -126,8 +144,12 @@ BYTE_SHAPES = [(1, 1), (7, 3), (16, 128), (17, 161), (1000, 225), (SIZE, SIZE)]
 # byte (height, width) up to its 2x2 shard.
 SHARD_SHAPES = [(1, 1), (8, 1), (17, 5), (1000, 7), (SIZE // 4, SIZE // 32)]
 SHARD_BYTE_SHAPES = [(1, 1), (7, 3), (17, 161), (SIZE // 2, SIZE // 2)]
+# Shards of a mesh with columns, up to the 2x2 shard of 16384^2.
+PLANE_SHAPES = [(8, 1), (17, 1), (16, 2), (17, 5), (1000, 7), (SIZE // 2, SIZE // 64)]
 # Phase 5's shapes per kernel: the main path's shards.
-SHARD_TIMING = {"dist_band": [(SIZE // 4, SIZE // 32)],
+SHARD_TIMING = {"dist_band": [(SIZE // 4, SIZE // 32), (SIZE // 2, SIZE // 64)],
+                "bandtg_fast": [(SIZE // 2, SIZE // 64)],
+                "bandtg": [(SIZE // 2, SIZE // 64)],
                 "bandtrow_fast": [(SIZE // 4, SIZE // 32)],
                 "bandtrow": [(SIZE // 4, SIZE // 32)],
                 "dist_byte_band": [(SIZE // 4, SIZE), (SIZE // 2, SIZE // 2)]}
@@ -202,10 +224,33 @@ KERNELS = [
         "into": sp._step_trow_into, "nflags": sp.EXACT_FLAGS,
         "plain": lambda x, gt, gb: sp._bandtrow_plain(x, gt, gb, exact=True),
     },
+    {
+        "key": "bandtg_fast", "id": "K9+K10", "gens": sp.TEMPORAL_GENS,
+        "ghosts": "plane",
+        "name": "K9+K10 bandt_kernel<SUMMARY, ghost plane>: 8-generation pass "
+                "of a shard of a mesh with columns, summary flags",
+        "source": "gol_tpu_torch/csrc/stencil_packed.cu",
+        "replaces": "gol_tpu/ops/stencil_packed.py:1038 (K9), :1086 (K10)",
+        "into": sp._step_tg_fast_into, "nflags": sp.SUMMARY_FLAGS,
+        "plain": lambda x, *g: sp._bandtg_plain(x, *g, exact=False),
+    },
+    {
+        "key": "bandtg", "id": "K11+K12+K13", "gens": sp.TEMPORAL_GENS,
+        "ghosts": "plane",
+        "name": "K11+K12+K13 bandt_kernel<EXACT, ghost plane>: 8-generation "
+                "pass of a shard of a mesh with columns, exact flags",
+        "source": "gol_tpu_torch/csrc/stencil_packed.cu",
+        "replaces": "gol_tpu/ops/stencil_packed.py:955 (K11), :868 (K12), "
+                    ":490 (K13)",
+        "into": sp._step_tg_into, "nflags": sp.EXACT_FLAGS,
+        "plain": lambda x, *g: sp._bandtg_plain(x, *g, exact=True),
+    },
 ]
 PACKED = [k for k in KERNELS if not k.get("cells") and not k.get("ghosts")]
 BYTE = [k for k in KERNELS if k.get("cells") and not k.get("ghosts")]
-SHARD = [k for k in KERNELS if k.get("ghosts") and not k.get("cells")]
+SHARD = [k for k in KERNELS if k.get("ghosts") in ("rows", "deep")
+         and not k.get("cells")]
+PLANE = [k for k in KERNELS if k.get("ghosts") == "plane"]
 SHARD_BYTE = [k for k in KERNELS if k.get("ghosts") and k.get("cells")]
 # The main path's lanes: CLI flags and the kernels each must launch.
 LANES = {
@@ -218,7 +263,10 @@ MESH_LANES = {
     "4x1 auto": (["--mesh", "4x1", "--kernel", "auto"],
                  ("bandtrow_fast", "bandtrow", "dist_band")),
     "4x1 pallas": (["--mesh", "4x1", "--kernel", "pallas"], ("dist_byte_band",)),
-    "2x2 auto": (["--mesh", "2x2", "--kernel", "auto"], ("dist_band",)),
+    "2x2 auto": (["--mesh", "2x2", "--kernel", "auto"],
+                 ("bandtg_fast", "bandtg", "dist_band")),
+    "2x2 packed_io": (["--mesh", "2x2", "--packed-io"],
+                      ("bandtg_fast", "bandtg", "dist_band")),
     "2x2 pallas": (["--mesh", "2x2", "--kernel", "pallas"], ("dist_byte_band",)),
 }
 MESH_DEVICES = "4"
@@ -305,8 +353,10 @@ def _cell_inputs(height: int, width: int, rng) -> dict:
 def _ghosts(k: dict, x: torch.Tensor, rng) -> list:
     """Random ghosts of the shapes a shard kernel takes, every bit random."""
     height, n = x.shape
-    shapes = ([(1, n), (1, n), (height + 2,), (height + 2,)] if k["ghosts"] == "rows"
-              else [(sp.TEMPORAL_GENS, n)] * 2)
+    T = sp.TEMPORAL_GENS
+    shapes = {"rows": [(1, n), (1, n), (height + 2,), (height + 2,)],
+              "deep": [(T, n)] * 2,
+              "plane": [(T, n)] * 2 + [(height + 2 * T,)] * 2}[k["ghosts"]]
     if k.get("cells"):
         return [torch.from_numpy(rng.integers(0, 2, s, dtype=np.uint8)).to(x.device)
                 for s in shapes]
@@ -318,6 +368,8 @@ def _torus_ghosts(k: dict, x: torch.Tensor) -> list:
     """The ghosts a one-shard torus exchanges: the shard's own far edges."""
     if k["ghosts"] == "deep":
         return list(sp.exchange_packed_deep([x], (1, 1))[0])
+    if k["ghosts"] == "plane":
+        return list(sp.deep_ghost_operands([x], (1, 1))[0])
     if k.get("cells"):
         return list(halo.exchange_parts([x], (1, 1))[0])
     return list(sp.exchange_packed([x], (1, 1))[0])
@@ -362,7 +414,8 @@ def check_kernels(dev, stats: dict) -> None:
               "dies, becomes_still (tolerance 0: cells and flags identical)",
               flush=True)
     for kernels, shapes, to_state in ((SHARD, SHARD_SHAPES, pm.encode),
-                                      (SHARD_BYTE, SHARD_BYTE_SHAPES, lambda t: t)):
+                                      (SHARD_BYTE, SHARD_BYTE_SHAPES, lambda t: t),
+                                      (PLANE, PLANE_SHAPES, pm.encode)):
         for height, n in shapes:
             width = n if kernels is SHARD_BYTE else 32 * n
             checked = [k for k in kernels if k["ghosts"] != "deep"
@@ -472,20 +525,23 @@ def _run_jobs(jobs: list, env: dict) -> None:
             print(f"{label}: {msg}", flush=True)
 
 
-def _snapshot_and_resume(work: Path, env: dict) -> None:
-    """--snapshot-every 100 on random64 (game), then --resume-gen 300 from
-    its gen_000300.out with --kernel pallas, against the whole run."""
+def _snapshot_and_resume(work: Path, env: dict, lane=("--variant", "game"),
+                         resume_lane=("--kernel", "pallas")) -> None:
+    """--snapshot-every 100 on random64 under ``lane``, then --resume-gen
+    300 from its gen_000300.out under ``lane`` and ``resume_lane``, against
+    the whole run."""
     grid = _flows()["random64"]
-    inp, snaps = work / "random64.txt", work / "snaps"
+    inp, snaps = work / "random64.txt", work / ("snaps" + "".join(lane))
     whole = oracle.run(grid, GameConfig())
     run = lambda argv: subprocess.run(
         [sys.executable, "-m", "gol_tpu_torch", *argv], cwd=work, env=env,
         capture_output=True, text=True, timeout=300)
-    proc = run(["64", "64", str(inp), "--variant", "game", "--snapshot-every",
+    proc = run(["64", "64", str(inp), *lane, "--snapshot-every",
                 "100", "--snapshot-dir", str(snaps), "--output",
                 str(work / "snap_whole.out")])
     if proc.returncode != 0:
-        fail(f"--snapshot-every 100 exited {proc.returncode}:\n{proc.stderr}")
+        fail(f"{' '.join(lane)} --snapshot-every 100 exited "
+             f"{proc.returncode}:\n{proc.stderr}")
     names = sorted(p.name for p in snaps.iterdir())
     want_names = [f"gen_{g:06d}.out" for g in range(100, whole.generations + 1, 100)]
     if names != want_names:
@@ -497,23 +553,30 @@ def _snapshot_and_resume(work: Path, env: dict) -> None:
             fail(f"snapshot {name} differs from the oracle's generation {gens}")
     if (work / "snap_whole.out").read_bytes() != text_grid.encode(whole.grid):
         fail("--snapshot-every 100: final output differs from the oracle")
-    print(f"--snapshot-every 100: {len(names)} snapshots {names[0]}..{names[-1]}, "
-          "each == the oracle's state at its generation", flush=True)
-    proc = run(["64", "64", str(snaps / "gen_000300.out"), "--variant", "game",
-                "--kernel", "pallas", "--resume-gen", "300", "--output",
+    print(f"{' '.join(lane)} --snapshot-every 100: {len(names)} snapshots "
+          f"{names[0]}..{names[-1]}, each == the oracle's state at its "
+          "generation", flush=True)
+    proc = run(["64", "64", str(snaps / "gen_000300.out"), *lane,
+                *resume_lane, "--resume-gen", "300", "--output",
                 str(work / "resumed.out")])
     gens = re.search(r"Generations:\t(\d+)", proc.stdout)
     if (proc.returncode != 0 or not gens or int(gens.group(1)) != whole.generations
             or (work / "resumed.out").read_bytes() != text_grid.encode(whole.grid)):
         fail(f"--resume-gen 300 differs from the whole run:\n{proc.stdout}{proc.stderr}")
-    print(f"--resume-gen 300 --kernel pallas from gen_000300.out: Generations "
-          f"{gens.group(1)}, bytes == the whole run", flush=True)
+    print(f"{' '.join(lane + resume_lane)} --resume-gen 300 from "
+          f"gen_000300.out: Generations {gens.group(1)}, bytes == the whole run",
+          flush=True)
 
 
-def small_flows(work: Path) -> None:
+def _subprocess_env() -> dict:
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    return env
+
+
+def small_flows(work: Path) -> None:
+    env = _subprocess_env()
     _run_jobs(_flow_jobs(work), env)
     _snapshot_and_resume(work, env)
 
@@ -525,10 +588,17 @@ def _cli_capture(args: list[str]) -> tuple[int, str]:
     return rc, buf.getvalue()
 
 
-def mesh_flows(work: Path) -> None:
+def mesh_flows(work: Path) -> dict:
     """The eight flows over four shards on the card, in this process: every
-    distributed variant, --mesh 4x1 and 2x2, --kernel auto, pallas, lax."""
+    distributed variant, --mesh 4x1 and 2x2 with --kernel auto, pallas and
+    lax, --mesh 1x4 with auto, and the 64^2 flows with --packed-io on 4x1
+    and 2x2. Then the one-word shards of 64^2 under --mesh 2x2, and
+    snapshots and resume under --mesh 2x2 (subprocesses). Returns the
+    launch counts of the one-word-shard runs."""
     out = work / "mesh.out"
+    lanes = [(mesh, ["--kernel", kernel]) for mesh in ("4x1", "2x2")
+             for kernel in ("auto", "pallas", "lax")] + [("1x4", ["--kernel", "auto"])]
+    packed_lanes = [("4x1", ["--packed-io"]), ("2x2", ["--packed-io"])]
     for name, grid in _flows().items():
         n = grid.shape[0]
         want = oracle.run(grid, GameConfig())
@@ -539,22 +609,48 @@ def mesh_flows(work: Path) -> None:
             if variant != "openmp":
                 lines.append("Finished")
             runs = 0
-            for mesh in ("4x1", "2x2"):
-                for kernel in ("auto", "pallas", "lax"):
-                    rc, text = _cli_capture([str(n), str(n), str(work / f"{name}.txt"),
-                                             "--variant", variant, "--mesh", mesh,
-                                             "--kernel", kernel, "--output", str(out)])
-                    label = f"{name} --variant {variant} --mesh {mesh} --kernel {kernel}"
-                    if rc != 0:
-                        fail(f"{label} exited {rc}")
-                    if _MS.sub("X msecs", text).splitlines() != lines:
-                        fail(f"{label}: printed {text!r}, want {lines}")
-                    if out.read_bytes() != want_bytes:
-                        fail(f"{label}: output bytes differ from the oracle")
-                    runs += 1
+            for mesh, flags in lanes + (packed_lanes if n == 64 else []):
+                rc, text = _cli_capture([str(n), str(n), str(work / f"{name}.txt"),
+                                         "--variant", variant, "--mesh", mesh,
+                                         *flags, "--output", str(out)])
+                label = f"{name} --variant {variant} --mesh {mesh} {' '.join(flags)}"
+                if rc != 0:
+                    fail(f"{label} exited {rc}")
+                if _MS.sub("X msecs", text).splitlines() != lines:
+                    fail(f"{label}: printed {text!r}, want {lines}")
+                if out.read_bytes() != want_bytes:
+                    fail(f"{label}: output bytes differ from the oracle")
+                runs += 1
             print(f"{name:8s} --variant {variant:10s}: {runs} mesh runs (4x1, 2x2 x "
-                  f"auto, pallas, lax): Generations {want.generations}, bytes and "
-                  "printed lines == oracle", flush=True)
+                  f"auto, pallas, lax; 1x4 auto"
+                  f"{'; 4x1, 2x2 packed-io' if n == 64 else ''}): Generations "
+                  f"{want.generations}, bytes and printed lines == oracle",
+                  flush=True)
+
+    # 64^2 under --mesh 2x2: 32x32 shards, one word wide. The pass summary of
+    # a grid that becomes still or dies inside a pass must replay the exact
+    # ghost-plane form there too.
+    _zero_counters()
+    for name, cells in (("tromino64", TROMINO), ("lone64", [(10, 56)])):
+        grid = _pattern(64, 64, cells)
+        text_grid.write_grid(str(work / f"{name}.txt"), grid)
+        want = oracle.run(grid, GameConfig())
+        gens, _, _ = _cli(["64", "64", str(work / f"{name}.txt"), "--variant", "tpu",
+                           "--mesh", "2x2", "--output", str(out)])
+        if gens != want.generations or out.read_bytes() != text_grid.encode(want.grid):
+            fail(f"{name} --variant tpu --mesh 2x2: Generations {gens} or bytes "
+                 f"differ from the oracle ({want.generations})")
+    counts = _counts()
+    print(f"one-word shards (64x64, --mesh 2x2, becomes still and dies): "
+          f"Generations and bytes == oracle, launches {_nonzero(counts)}", flush=True)
+    _check_launches(counts, ("bandtg_fast", "bandtg"),
+                    "64x64 --mesh 2x2 (one-word shards)")
+
+    env = _subprocess_env()
+    for lane in (("--variant", "tpu", "--mesh", "2x2"),
+                 ("--variant", "tpu", "--mesh", "2x2", "--packed-io")):
+        _snapshot_and_resume(work, env, lane, resume_lane=())
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -699,7 +795,7 @@ def _check_launches(counts: dict, needed, where: str) -> None:
 def mesh_path(work: Path, dev, path: dict) -> dict:
     """--variant tpu over four shards at 16384^2, against the single-device
     --kernel auto runs of main_path; then the CUDA convention's empty exit
-    on a 4x1 mesh through the engine."""
+    on a 4x1 and a 2x2 mesh through the engine."""
     inputs, results, runs = path["inputs"], path["results"], path["runs"]
     out = work / "out.txt"
 
@@ -733,7 +829,7 @@ def mesh_path(work: Path, dev, path: dict) -> dict:
                 fail(f"({tag}) tpu {lane} {key}: Generations {gens} or bytes differ "
                      f"from single-device --kernel auto "
                      f"({results[('game', key, limit)][0]})")
-            print(f"({tag}) tpu  {key:15s} limit {limit}: {lane:10s} Generations "
+            print(f"({tag}) tpu  {key:15s} limit {limit}: {lane:13s} Generations "
                   f"{gens}, Execution {ms:.3f} ms, launches {_nonzero(launched)}, "
                   "bytes == single-device auto", flush=True)
         by_path[f"tpu {lane}"] = _counts()
@@ -744,28 +840,33 @@ def mesh_path(work: Path, dev, path: dict) -> dict:
     # The CUDA convention's empty exit (d) replays K5 from the block's start
     # on every shard; only the engine reaches it on a mesh (the cuda variant
     # is single-device).
-    mesh = make_mesh(4, 1)
     config = GameConfig(convention=Convention.CUDA)
-    _zero_counters()
-    for key in ("diagonal_mid", "diagonal_corner"):
-        cells, anchor = path["patterns"][key]
-        grid = _pattern(SIZE, SIZE, [(anchor[0] + r, anchor[1] + c) for r, c in cells])
-        got = engine.simulate(grid, config, mesh=mesh)
-        small_anchor = (32, 32) if key.endswith("mid") else (0, 0)
-        want = oracle.run(_pattern(64, 64, [(small_anchor[0] + r, small_anchor[1] + c)
-                                            for r, c in cells]), config)
-        if (got.generations != results[("cuda", key, 1000)][0]
-                or got.generations != want.generations
-                or _live_offsets(got.grid, anchor) != _live_offsets(want.grid, small_anchor)):
-            fail(f"engine 4x1 cuda {key}: Generations {got.generations} or live "
-                 f"cells differ from the oracle's 64x64 copy ({want.generations})")
-        print(f"(d) engine, cuda convention, 4x1 auto {key}: Generations "
-              f"{got.generations}, live cells == the oracle's 64x64 copy", flush=True)
-    by_path["cuda 4x1 auto engine (d)"] = _counts()
-    print(f"mesh path, engine cuda 4x1 auto (d): launches "
-          f"{_nonzero(by_path['cuda 4x1 auto engine (d)'])}", flush=True)
-    if by_path["cuda 4x1 auto engine (d)"]["dist_band"] == 0:
-        fail("the empty-exit replay on the 4x1 mesh launched no K5")
+    for rows, cols in ((4, 1), (2, 2)):
+        mesh, where = make_mesh(rows, cols), f"cuda {rows}x{cols} auto engine (d)"
+        _zero_counters()
+        for key in ("diagonal_mid", "diagonal_corner"):
+            cells, anchor = path["patterns"][key]
+            grid = _pattern(SIZE, SIZE, [(anchor[0] + r, anchor[1] + c)
+                                         for r, c in cells])
+            got = engine.simulate(grid, config, mesh=mesh)
+            small_anchor = (32, 32) if key.endswith("mid") else (0, 0)
+            want = oracle.run(_pattern(64, 64, [(small_anchor[0] + r, small_anchor[1] + c)
+                                                for r, c in cells]), config)
+            if (got.generations != results[("cuda", key, 1000)][0]
+                    or got.generations != want.generations
+                    or _live_offsets(got.grid, anchor)
+                    != _live_offsets(want.grid, small_anchor)):
+                fail(f"engine {where} {key}: Generations {got.generations} or live "
+                     f"cells differ from the oracle's 64x64 copy "
+                     f"({want.generations})")
+            print(f"(d) engine, cuda convention, {rows}x{cols} auto {key}: "
+                  f"Generations {got.generations}, live cells == the oracle's "
+                  "64x64 copy", flush=True)
+        by_path[where] = _counts()
+        print(f"mesh path, engine {where}: launches {_nonzero(by_path[where])}",
+              flush=True)
+        if by_path[where]["dist_band"] == 0:
+            fail(f"the empty-exit replay on the {rows}x{cols} mesh launched no K5")
     print("mesh run (a) Execution time, ms: " + ", ".join(
         f"{p} {r['exec_ms']:.3f}" for p, r in run_a.items()), flush=True)
     return {"launches": by_path, "run_a": run_a}
@@ -791,6 +892,31 @@ def _time(fn, x, y, pairs: int) -> float:
     return start.elapsed_time(end) / (2 * pairs)
 
 
+def _time_graph(fn, x, y, pairs: int) -> tuple[float, float]:
+    """``(ms, wrapper_ms)`` per call of ``fn(src, dst)``: ``2 * pairs``
+    ping-pong calls captured in one CUDA graph on the stream the wrappers
+    launch on, then replayed between two events, so the host issues one
+    launch for all of them and the card sets the time. While capturing
+    nothing runs, so the host's time per call there is the wrapper's own
+    (its checks and the ctypes call)."""
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        t0 = time.perf_counter()
+        for _ in range(pairs):
+            fn(x, y)
+            fn(y, x)
+        wrapper_ms = (time.perf_counter() - t0) * 1e3 / (2 * pairs)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (2 * pairs), wrapper_ms
+
+
 def logic_ops_per_s() -> float:
     """The card's peak rate of 32-bit integer logic results per second."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -806,11 +932,14 @@ def logic_ops_per_s() -> float:
 
 
 def _timed(k: dict, x: torch.Tensor, ghosts: list, ops_per_s: float) -> dict:
-    """``k``'s ms per launch and its plain version's on ``x`` (and its
-    ghosts), beside the bound for the same work."""
+    """``k``'s ms per launch (graph replay; eager beside it) and its plain
+    version's on ``x`` (and its ghosts), beside the bound for the same
+    work."""
     y = torch.empty_like(x)
     flags = torch.zeros(k["nflags"], dtype=torch.int32, device=x.device)
-    ms = _time(lambda a, b: k["into"](a, *ghosts, b, flags), x, y, 50)
+    launch = lambda a, b: k["into"](a, *ghosts, b, flags)
+    eager_ms = _time(launch, x, y, 50)
+    ms, wrapper_ms = _time_graph(launch, x, y, 50)
     plain_ms = _time(lambda a, b: k["plain"](a, *ghosts), x, y, 50)
     nbytes = 2 * x.numel() * x.element_size() + sum(
         g.numel() * g.element_size() for g in ghosts)
@@ -820,11 +949,13 @@ def _timed(k: dict, x: torch.Tensor, ghosts: list, ops_per_s: float) -> dict:
         ops = k["gens"] * x.numel() * OPS_PER_WORD_GEN
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / ops_per_s * 1e3
-    print(f"{k['id']} at {tuple(x.shape)}: {ms:.6f} ms/launch (plain "
-          f"{plain_ms:.6f} ms); bytes {nbytes} -> {bytes_ms:.6f} ms, logic ops "
+    print(f"{k['id']} at {tuple(x.shape)}: {ms:.6f} ms/launch in a CUDA graph "
+          f"(eager {eager_ms:.6f} ms, wrapper {wrapper_ms:.6f} ms on the host, "
+          f"plain {plain_ms:.6f} ms); bytes {nbytes} -> {bytes_ms:.6f} ms, logic ops "
           f"{ops} -> {ops_ms:.6f} ms", flush=True)
     return {
-        "shape": list(x.shape), "ms": ms, "plain_ms": plain_ms,
+        "shape": list(x.shape), "ms": ms, "eager_ms": eager_ms,
+        "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "bytes": nbytes, "bytes_ms": bytes_ms, "logic_ops": ops,
@@ -844,8 +975,8 @@ def timing(dev) -> dict:
             out[k["key"]] = _timed(k, x_cells if k.get("cells") else x_words, [],
                                    ops_per_s)
             continue
-        # Shard kernels at the mesh path's shard shapes: the first is the 4x1
-        # shard, whose numbers head the kernel's entry.
+        # Shard kernels at the mesh path's shard shapes: the first heads the
+        # kernel's entry.
         shapes = []
         for height, n in SHARD_TIMING[k["key"]]:
             x = (x_cells if k.get("cells") else x_words)[:height, :n].contiguous()
@@ -876,7 +1007,7 @@ def main() -> int:
         # From here on a mesh may put four shards on the one card.
         os.environ[platform_env.MESH_DEVICES_ENV] = MESH_DEVICES
         phase("3b. small flows over a mesh of four shards")
-        mesh_flows(work)
+        one_word = mesh_flows(work)
         phase(f"4. main path at {SIZE}x{SIZE} through the CLI")
         path = main_path(work, dev)
         phase(f"4b. mesh path at {SIZE}x{SIZE} through the CLI")
@@ -887,7 +1018,8 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
 
     print("main path run (a): " + json.dumps({**path["run_a"], **mesh["run_a"]}))
-    launches = {**path["launches"], **mesh["launches"]}
+    launches = {**path["launches"], **mesh["launches"],
+                "tpu 2x2 auto 64x64 (one-word shards)": one_word}
     table = []
     for k in KERNELS:
         key = k["key"]

@@ -17,9 +17,9 @@ The port of ``gol_tpu/cli.py``'s ``run``:
   sets how many shards the devices hold;
 - lanes: the device run (``--kernel``), ``--packed-io`` (word state straight
   from and to the file), ``--host`` (the numpy oracle), ``--snapshot-every``
-  and ``--resume-gen`` (segmented runs). The last three do not run on a mesh
-  of more than one shard yet and exit 1 there. Checkpointing, patterns and
-  the sparse and macro engines are not ported;
+  and ``--resume-gen`` (segmented runs); all but ``--host`` run on a mesh
+  too. Checkpointing, patterns and the sparse and macro engines are not
+  ported;
 - timings print as ``<Phase>:\\t<ms> msecs``. Execution time excludes set-up
   — the kernels' build and load, and the optional ``--warmup`` run happen
   before the timer starts — and ends in a device sync.
@@ -192,17 +192,7 @@ def _run(args) -> int:
     if mesh is not None and not topology_for(mesh).distributed:
         mesh = None  # a 1x1 mesh is the single-device engine
     validate_grid(height, width, topology_for(mesh))
-    if mesh is not None:
-        for flag, given in (("--packed-io", args.packed_io),
-                            ("--snapshot-every", args.snapshot_every),
-                            ("--resume-gen", args.resume_gen)):
-            if given:
-                rows, cols = mesh.shape
-                raise ValueError(
-                    f"{flag} does not run on a mesh of more than one shard yet "
-                    f"(here {rows}x{cols}; ROADMAP.md Queue 1 item 11c); use "
-                    "--mesh 1x1"
-                )
+    devices = list(mesh.devices) if mesh is not None else [resolve_device()]
 
     if args.packed_io:
         if args.kernel not in ("auto", "packed"):
@@ -213,14 +203,11 @@ def _run(args) -> int:
         # Packed state is 32x smaller than bytes, so this lane branches off
         # before the dense ceiling.
         return _run_packed_io(args, variant, config, width, height,
-                              output_path, resolve_device())
+                              output_path, devices, mesh)
 
     if mesh is None:
         # Mesh reads materialize per shard, as in the JAX CLI.
         dense_cells_guard(height, width)
-        devices = [resolve_device()]
-    else:
-        devices = list(mesh.devices)
     device = devices[0]
     t0 = time.perf_counter()
     device_grid = _read_phase(variant, args.input_file, width, height, device, mesh)
@@ -229,10 +216,11 @@ def _run(args) -> int:
         print(f"Reading file:\t{read_ms:.2f} msecs")
 
     if args.snapshot_every:
-        run_fn = _prepare_segmented(args, variant, config, device_grid, device)
+        run_fn = _prepare_segmented(args, variant, config, device_grid, height,
+                                    width, device, mesh)
     elif args.resume_gen:
         run_fn = _prepare_resumed(args, config, device_grid, height, width,
-                                  device, packed=False)
+                                  device, mesh, packed=False)
     else:
         runner = engine.make_runner((height, width), config, args.kernel, device,
                                     mesh=mesh)
@@ -271,40 +259,44 @@ def _report_and_write(variant: Variant, generations, exec_ms, write_fn) -> int:
     return 0
 
 
-def _run_packed_io(args, variant, config, width, height, output_path, device) -> int:
-    """The all-packed lane: file -> word state -> file, no uint8 grid ever.
+def _run_packed_io(args, variant, config, width, height, output_path, devices,
+                   mesh) -> int:
+    """The all-packed lane: file -> word state -> file, no uint8 grid ever;
+    over a mesh, every shard from and to its own window of the file.
 
     The read and write go through the native codec (native/codec.c); the
     printed lines keep the reference contract."""
+    device = devices[0]
     t0 = time.perf_counter()
-    words = packed_io.read_packed(args.input_file, width, height, device)
+    words = packed_io.read_packed(args.input_file, width, height, device, mesh)
     read_ms = (time.perf_counter() - t0) * 1000
     if variant.io_timings:
         print(f"Reading file:\t{read_ms:.2f} msecs")
 
     if args.snapshot_every:
         run_fn = _prepare_packed_segmented(args, config, words, height, width,
-                                           device)
+                                           device, mesh)
     elif args.resume_gen:
         run_fn = _prepare_resumed(args, config, words, height, width, device,
-                                  packed=True)
+                                  mesh, packed=True)
     else:
-        runner = engine.make_packed_runner((height, width), config, device)
+        runner = engine.make_packed_runner((height, width), config, device,
+                                           mesh=mesh)
         if args.warmup:
             runner(words)
-            _sync(device)
+            _sync(*devices)
 
         def run_fn():
             return runner(words)
 
     t0 = time.perf_counter()
     final, generations = run_fn()
-    _sync(device)
+    _sync(*devices)
     exec_ms = (time.perf_counter() - t0) * 1000
 
     return _report_and_write(
         variant, generations, exec_ms,
-        lambda: packed_io.write_packed(output_path, final, width),
+        lambda: packed_io.write_packed(output_path, final, width, mesh),
     )
 
 
@@ -329,22 +321,27 @@ def _snapshot_loop(args, config, runner, state0, write_snapshot):
     return run_fn
 
 
-def _prepare_segmented(args, variant, config, device_grid, device):
-    runner = engine.make_segment_runner(tuple(device_grid.shape), config,
-                                        args.kernel, device)
-    return _snapshot_loop(args, config, runner, device_grid,
-                          lambda path, state: _write_phase(variant, path, state))
+def _prepare_segmented(args, variant, config, device_grid, height, width,
+                       device, mesh):
+    runner = engine.make_segment_runner((height, width), config, args.kernel,
+                                        device, mesh=mesh)
+    return _snapshot_loop(
+        args, config, runner, device_grid,
+        lambda path, state: _write_phase(variant, path, state, mesh))
 
 
-def _prepare_packed_segmented(args, config, words, height, width, device):
+def _prepare_packed_segmented(args, config, words, height, width, device, mesh):
     """Snapshotting loop over word state: every snapshot is written through
     the packed codec, itself a valid input file for any lane."""
-    runner = engine.make_packed_segment_runner((height, width), config, device)
-    return _snapshot_loop(args, config, runner, words,
-                          lambda path, state: packed_io.write_packed(path, state, width))
+    runner = engine.make_packed_segment_runner((height, width), config, device,
+                                               mesh=mesh)
+    return _snapshot_loop(
+        args, config, runner, words,
+        lambda path, state: packed_io.write_packed(path, state, width, mesh))
 
 
-def _prepare_resumed(args, config, state, height, width, device, *, packed):
+def _prepare_resumed(args, config, state, height, width, device, mesh, *,
+                     packed):
     """Continue a run from a snapshot without writing further snapshots.
 
     The input file is the state after ``--resume-gen`` generations of a run
@@ -352,10 +349,11 @@ def _prepare_resumed(args, config, state, height, width, device, *, packed):
     count alone (``engine.resume_scalars``), so exits and the reported total
     match the uninterrupted run."""
     if packed:
-        runner = engine.make_packed_segment_runner((height, width), config, device)
+        runner = engine.make_packed_segment_runner((height, width), config,
+                                                   device, mesh=mesh)
     else:
         runner = engine.make_segment_runner((height, width), config,
-                                            args.kernel, device)
+                                            args.kernel, device, mesh=mesh)
     gen0, counter0 = engine.resume_scalars(config, args.resume_gen)
     report = engine._REPORT[config.convention]
 

@@ -28,6 +28,26 @@
 //   dist_band_kernel       K5  _dist_band_kernel (via _dist_step_pallas):
 //       K3 on any shard, from one ghost row above and below and the
 //       (h+2) east/west carry words.
+//   bandt_kernel<SUMMARY, ghost plane>  K9 + K10  _stript_fast_kernel (via
+//       _step_strip_fast) and _bandtrow_stitch_fast_kernel (via
+//       _step_trow_stitch_fast), composed by _step_tsplit_fast: K1 on a
+//       shard of a mesh with columns; besides gtop/gbot the neighbours'
+//       whole edge word columns gwest/geast over rows -8..h+7 feed it, and
+//       its summary covers all of the shard's cells.
+//   bandt_kernel<EXACT, ghost plane>    K11 + K12  _stript_kernel (via
+//       _step_strip) and _bandtrow_stitch_kernel (via _step_trow_stitch),
+//       composed by _step_tsplit; and K13 _bandtg_kernel (via _step_tgb):
+//       K2 on the same shard, the replay target of the summary form.
+//
+// Why one kernel replaces five. As functions K9-K13 are one: (words, gtop,
+// gbot, gwest, geast) -> (words after 8 generations, flags). The TPU splits
+// it because a vector op there covers a 128-lane tile, so a 2-lane ghost
+// plane costs a full tile per row (K13), and the split form evolves the
+// six seam-relevant word columns in a separate lane-folded strip (K9/K11)
+// and stitches them into a rows-only main pass (K10/K12). This kernel's
+// tile already carries one ghost word per side in shared memory, so the
+// ghost plane is only another source for those two tile columns: no strip,
+// no fold, no stitch, no edge masks, and any nwords >= 1.
 //
 // Flags. The Pallas kernels accumulate their flags over a sequential band
 // grid; CUDA blocks run concurrently and in no order. So every flag is an
@@ -67,10 +87,18 @@
 //     universal-cover trick above is for the torus alone, and a shard
 //     needs h >= 8 (its neighbours' ghost blocks are 8 of its rows). The
 //     shard is full-width, so columns keep the torus wrap.
+//   * Shards with mesh columns (K9-K13). Rows as for K7/K8. Columns never
+//     wrap: the tile word at shard column -1 is gwest[e] and at column
+//     nwords is geast[e], with e = row + 8 over rows -8..h+7, so the ghost
+//     rows' corner words ride in the plane (they are the diagonal
+//     neighbours' cells: the column exchange runs over the row-extended
+//     range). Words further out are zero, which is the "wrong neighbour"
+//     of the ghost word above: it cannot reach the shard in 8 generations.
+//     nwords may be 1 (columns -1, 0, 1 are gwest, the word, geast).
 //
 // The shard kernels move the same bytes and do the same logic per word as
-// their torus forms (the ghosts are 16 rows and 2(h+2) words per shard),
-// so the same bounds hold: operations for K7/K8, bytes for K5.
+// their torus forms (the ghosts are 16 rows and 2(h+2) or 2(h+16) words
+// per shard), so the same bounds hold: operations for K7-K13, bytes for K5.
 
 #include <cstddef>
 #include <cstdint>
@@ -200,18 +228,30 @@ dist_band_kernel(const uint32_t* __restrict__ in,
   block_or(differs, flags + 1);
 }
 
-// K1 (EXACT = false) / K2 (EXACT = true) on the torus (GHOST = false), K7 /
-// K8 on a full-width mesh shard (GHOST = true): kGens generations of one
+// Where a tile's cells come from.
+enum Source {
+  kTorus = 0,      // the grid itself, rows and columns modulo its shape
+  kGhostRows = 1,  // a full-width shard: rows from gtop/gbot, columns wrap
+  kGhostPlane = 2  // a shard with mesh columns: rows from gtop/gbot,
+                   // columns -1 and nwords from gwest/geast
+};
+
+// K1 (EXACT = false) / K2 (EXACT = true) on the torus (SRC = kTorus), K7 /
+// K8 on a full-width mesh shard (kGhostRows), K9+K10 / K11+K12+K13 on a
+// shard with mesh columns (kGhostPlane): kGens generations of one
 // kTileRows x kTileWords tile in shared memory.
 //
 // The shared tile is padded by one always-zero word on every side, so the
 // stencil reads its 3x3 neighbourhood without bounds checks: padded row p
 // holds grid row r0 - kGens + p - 1 and padded column q holds grid word
-// w0 + q - 2 (both modulo the grid; a shard's rows as set out above).
-template <bool EXACT, bool GHOST>
+// w0 + q - 2 (both modulo the grid; a shard's rows and columns as set out
+// above).
+template <bool EXACT, Source SRC>
 __global__ void __launch_bounds__(kThreads)
 bandt_kernel(const uint32_t* __restrict__ in, const uint32_t* __restrict__ gtop,
-             const uint32_t* __restrict__ gbot, uint32_t* __restrict__ out,
+             const uint32_t* __restrict__ gbot,
+             const uint32_t* __restrict__ gwest,
+             const uint32_t* __restrict__ geast, uint32_t* __restrict__ out,
              int* __restrict__ flags, int height, int nwords, int tiles_x) {
   constexpr int R = kTileRows + 2 * kGens;  // tile rows incl. ghost rows
   constexpr int C = kTileWords + 2;         // tile words incl. ghost words
@@ -235,10 +275,13 @@ bandt_kernel(const uint32_t* __restrict__ in, const uint32_t* __restrict__ gtop,
     uint32_t v = 0;
     if (p >= 1 && p <= R && q >= 1 && q <= C) {
       int gr = r0 - kGens + p - 1;  // >= -kGens
-      int gw = (w0 + q - 2) % nwords;
-      if (gw < 0) gw += nwords;
+      int gw = w0 + q - 2;          // >= -1
+      if (SRC != kGhostPlane) {
+        gw %= nwords;
+        if (gw < 0) gw += nwords;
+      }
       const uint32_t* row;
-      if (GHOST) {
+      if (SRC != kTorus) {
         row = gr < 0               ? gtop + static_cast<size_t>(gr + kGens) * nwords
               : gr < height        ? in + static_cast<size_t>(gr) * nwords
               : gr < height + kGens ? gbot + static_cast<size_t>(gr - height) * nwords
@@ -248,7 +291,13 @@ bandt_kernel(const uint32_t* __restrict__ in, const uint32_t* __restrict__ gtop,
         if (gr < 0) gr += height;
         row = in + static_cast<size_t>(gr) * nwords;
       }
-      v = row != nullptr ? row[gw] : 0;
+      if (row == nullptr) {
+        v = 0;
+      } else if (SRC == kGhostPlane && (gw < 0 || gw >= nwords)) {
+        v = gw == -1 ? gwest[gr + kGens] : gw == nwords ? geast[gr + kGens] : 0;
+      } else {
+        v = row[gw];
+      }
       in_alive |= (v != 0) && p >= p_lo && p < p_hi && q >= q_lo && q < q_hi;
     }
     tile[0][p][q] = v;
@@ -302,19 +351,20 @@ unsigned word_blocks(int height, int nwords) {
   return static_cast<unsigned>((words + kThreads - 1) / kThreads);
 }
 
-template <bool GHOST>
+template <Source SRC>
 int launch_bandt(const void* in, const void* gtop, const void* gbot,
-                 void* out, void* flags, int height, int nwords, int exact,
-                 int device, void* stream) {
+                 const void* gwest, const void* geast, void* out, void* flags,
+                 int height, int nwords, int exact, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles_x = (nwords + kTileWords - 1) / kTileWords;
   const int tiles_y = (height + kTileRows - 1) / kTileRows;
   const unsigned blocks = static_cast<unsigned>(tiles_x) * tiles_y;
-  auto kernel = exact ? bandt_kernel<true, GHOST> : bandt_kernel<false, GHOST>;
+  auto kernel = exact ? bandt_kernel<true, SRC> : bandt_kernel<false, SRC>;
   kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(in), static_cast<const uint32_t*>(gtop),
-      static_cast<const uint32_t*>(gbot), static_cast<uint32_t*>(out),
+      static_cast<const uint32_t*>(gbot), static_cast<const uint32_t*>(gwest),
+      static_cast<const uint32_t*>(geast), static_cast<uint32_t*>(out),
       static_cast<int*>(flags), height, nwords, tiles_x);
   return static_cast<int>(cudaGetLastError());
 }
@@ -340,8 +390,8 @@ int gol_band_step(const void* in, void* out, void* flags, int height,
 
 int gol_bandt_pass(const void* in, void* out, void* flags, int height,
                    int nwords, int exact, int device, void* stream) {
-  return launch_bandt<false>(in, nullptr, nullptr, out, flags, height, nwords,
-                             exact, device, stream);
+  return launch_bandt<kTorus>(in, nullptr, nullptr, nullptr, nullptr, out,
+                              flags, height, nwords, exact, device, stream);
 }
 
 // K5. top/bot: (1, nwords) ghost rows; gwest/geast: (height + 2) carry words.
@@ -365,8 +415,19 @@ int gol_dist_band_step(const void* in, const void* top, const void* bot,
 int gol_bandtrow_pass(const void* in, const void* gtop, const void* gbot,
                       void* out, void* flags, int height, int nwords,
                       int exact, int device, void* stream) {
-  return launch_bandt<true>(in, gtop, gbot, out, flags, height, nwords, exact,
-                            device, stream);
+  return launch_bandt<kGhostRows>(in, gtop, gbot, nullptr, nullptr, out, flags,
+                                  height, nwords, exact, device, stream);
+}
+
+// K9+K10 (exact = 0) / K11+K12+K13 (exact = 1). gtop/gbot as for K7/K8;
+// gwest/geast: the (height + 16) ghost word columns over rows -8..h+7;
+// height >= 8, nwords >= 1.
+int gol_bandtg_pass(const void* in, const void* gtop, const void* gbot,
+                    const void* gwest, const void* geast, void* out,
+                    void* flags, int height, int nwords, int exact, int device,
+                    void* stream) {
+  return launch_bandt<kGhostPlane>(in, gtop, gbot, gwest, geast, out, flags,
+                                   height, nwords, exact, device, stream);
 }
 
 const char* gol_error_string(int code) {

@@ -7,16 +7,17 @@ here the loop runs on the host and the devices run the kernels. Kernels
 with a fused form take the blocked loops (``_simulate_c_block``,
 ``_simulate_cuda_block``): each block of K=16 generations is enqueued
 without a sync and then ONE small flag tensor is read back. The packed
-kernel runs a block as two 8-generation passes (K1; K7 on an R x 1 mesh)
-plus a ``t % 8`` single-generation tail (K3; K5 on a mesh), or, where the
-pass does not take the shard, every generation singly; the byte ``pallas``
-kernel (K4; K6 on a mesh) has no multi-generation pass and runs all of a
-block's generations one by one.
+kernel runs a block as two 8-generation passes (K1; K7 on an R x 1 mesh;
+the ghost-plane form that replaces K9-K13 on a mesh with columns) plus a
+``t % 8`` single-generation tail (K3; K5 on a mesh), or, where the pass
+does not take the shard (under 8 rows on a mesh), every generation singly;
+the byte ``pallas`` kernel (K4; K6 on a mesh) has no multi-generation pass
+and runs all of a block's generations one by one.
 The host replays the exits from the per-generation flags exactly as the
 JAX replays do (gol_tpu/engine.py:244-263, :359-373). A pass whose summary
 hides a death or a stillness onset is rerun from the block's start with the
-exact-flag pass (K2; K8 on a mesh) — at most twice per run, as in the JAX
-``_derive_or_replay``.
+exact-flag pass (K2; K8 or the exact ghost-plane form on a mesh) — at most
+twice per run, as in the JAX ``_derive_or_replay``.
 
 Exactness of the blocked loop is the JAX argument unchanged: both early
 exits are fixed points (an empty grid stays empty, a still life stays
@@ -39,12 +40,12 @@ The loops carry a state as the row-major list of its shards, one on a
 single device. On a mesh every launch of a block is the halo exchange from
 the pass's inputs, then one kernel per shard; the shards OR their flags
 into one buffer per device, the buffers are voted (ORed) at the block's
-end, and the block still reads back once. The voted summary of an R x 1
-mesh's 8-generation pass (K7) decides the replay, so a transient that
-crosses a shard border cannot make one shard's summary lie; a replay (K8)
-and the CUDA convention's empty-exit replay (K5) run on every shard from
-its kept start state. ``make_runner`` and ``simulate`` take the mesh; the
-segment and packed-state runners do not yet.
+end, and the block still reads back once. The voted summary of a mesh's
+8-generation pass decides the replay, so a transient that crosses a shard
+border cannot make one shard's summary lie; a replay and the CUDA
+convention's empty-exit replay (K5) run on every shard from its kept start
+state. Every runner takes the mesh: with one, its state is the row-major
+list of shards, uint8 cells or, for the packed-state runners, int32 words.
 """
 
 from __future__ import annotations
@@ -352,11 +353,6 @@ def put_grid(grid, device=None, mesh: Mesh | None = None):
     return torch.from_numpy(arr).to(platform_env.resolve_device(device))
 
 
-_MESH_REFUSAL = ("the segment and packed-state runners do not run on a mesh "
-                 "yet (ROADMAP.md Queue 1 item 11c); drop the mesh or use a "
-                 "1x1 one")
-
-
 def _build_runner(shape, config: GameConfig, kernel: str, device, *,
                   segmented: bool, packed_state: bool, mesh: Mesh | None = None):
     """Shared scaffold of the four runner factories: shape, mesh and kernel
@@ -366,13 +362,12 @@ def _build_runner(shape, config: GameConfig, kernel: str, device, *,
     word tensor and never touch a uint8 grid; otherwise a kernel with its
     own carried state (packed words) converts once at the loop boundary.
     ``segmented`` runners take and return the resume scalars. With a
-    ``mesh`` the runner takes and returns the list of shards."""
+    ``mesh`` the runner takes and returns the row-major list of shards:
+    (local_h, local_w) cells or (local_h, local_w/32) words."""
     height, width = shape
     if height <= 0 or width <= 0:
         raise ValueError(f"grid shape must be positive, got {height}x{width}")
     topology = topology_for(mesh)
-    if topology.distributed and (segmented or packed_state):
-        raise ValueError(_MESH_REFUSAL)
     devices = list(mesh.devices) if mesh is not None else [
         platform_env.resolve_device(device)]
     local_h, local_w = validate_grid(height, width, topology)
@@ -395,7 +390,7 @@ def _build_runner(shape, config: GameConfig, kernel: str, device, *,
     simulate = _SIMULATORS[config.convention]
     report = _REPORT[config.convention]
     if packed_state:
-        want, what = (torch.int32, (height, width // stencil_packed.BITS)), "an int32"
+        want, what = (torch.int32, (local_h, local_w // stencil_packed.BITS)), "an int32"
         encode = decode = None
     else:
         want, what = (torch.uint8, (local_h, local_w)), "a uint8"
@@ -459,8 +454,8 @@ def make_segment_runner(shape: tuple[int, int],
     Running segments back to back with the carried (gen, counter) scalars
     is bit-exact with one whole run — the basis for snapshots and resume.
     The runner never writes its input: where the JAX runner donates (and
-    so consumes) the state passed in, here that state stays valid. A mesh
-    of more than one shard is refused (not ported yet)."""
+    so consumes) the state passed in, here that state stays valid. With a
+    ``mesh`` the state is the list of shards, as for ``make_runner``."""
     return _build_runner(shape, config, kernel, device, mesh=mesh,
                          segmented=True, packed_state=False)
 
@@ -473,8 +468,8 @@ def make_packed_runner(shape: tuple[int, int],
     ``shape`` is the logical (height, width) grid shape; the operand is its
     (height, width/32) int32 word tensor (``io/packed_io`` reads and writes
     those directly, so no uint8 grid exists anywhere). The state passed in
-    stays valid. A mesh of more than one shard is refused (not ported
-    yet)."""
+    stays valid. With a ``mesh`` the operand and the result are the
+    row-major list of (local_h, local_w/32) word shards."""
     return _build_runner(shape, config, "packed", device, mesh=mesh,
                          segmented=False, packed_state=True)
 
@@ -484,8 +479,7 @@ def make_packed_segment_runner(shape: tuple[int, int],
                                device=None, mesh: Mesh | None = None):
     """The packed analog of ``make_segment_runner``: ``(words, gen0,
     counter0, seg_end) -> (words, gen, counter, stopped)``. The state passed
-    in stays valid. A mesh of more than one shard is refused (not ported
-    yet)."""
+    in stays valid; with a ``mesh`` it is the list of word shards."""
     return _build_runner(shape, config, "packed", device, mesh=mesh,
                          segmented=True, packed_state=True)
 
@@ -521,7 +515,8 @@ def _iter_segments(runner, state, config: GameConfig, segment: int,
 
 def simulate_segments(grid, config: GameConfig = DEFAULT_CONFIG,
                       kernel: str = "auto", segment: int = 100,
-                      completed: int = 0, device=None):
+                      completed: int = 0, device=None,
+                      mesh: Mesh | None = None):
     """Generator of ``(generations_so_far, device_grid, stopped)`` per segment.
 
     The same final grid and reported count as one ``simulate`` call, but
@@ -529,22 +524,28 @@ def simulate_segments(grid, config: GameConfig = DEFAULT_CONFIG,
     snapshot, log or stop. ``completed`` resumes: the grid is taken to be
     the state after that many generations of a longer run, and the loop
     continues to ``config.gen_limit`` with the similarity phase realigned
-    (``resume_scalars``). Every yielded state stays valid."""
-    dev = platform_env.resolve_device(device)
-    runner = make_segment_runner(tuple(grid.shape), config, kernel, dev)
-    state = grid if isinstance(grid, torch.Tensor) else put_grid(grid, dev)
+    (``resume_scalars``). Every yielded state stays valid. With a ``mesh``
+    ``grid`` is a host grid and the yielded states are lists of shards."""
+    if mesh is not None:
+        runner = make_segment_runner(tuple(np.shape(grid)), config, kernel,
+                                     mesh=mesh)
+        state = put_grid(grid, mesh=mesh)
+    else:
+        dev = platform_env.resolve_device(device)
+        runner = make_segment_runner(tuple(grid.shape), config, kernel, dev)
+        state = grid if isinstance(grid, torch.Tensor) else put_grid(grid, dev)
     yield from _iter_segments(runner, state, config, segment, completed)
 
 
-def simulate_packed_segments(words: torch.Tensor, shape: tuple[int, int],
+def simulate_packed_segments(words, shape: tuple[int, int],
                              config: GameConfig = DEFAULT_CONFIG,
                              segment: int = 100, completed: int = 0,
-                             device=None):
+                             device=None, mesh: Mesh | None = None):
     """Packed-state counterpart of ``simulate_segments``: ``shape`` is the
-    logical (height, width), ``words`` its (height, width/32) int32 tensor.
-    Yields word state, which every consumer writes back through
-    ``io/packed_io``."""
-    runner = make_packed_segment_runner(shape, config, device)
+    logical (height, width), ``words`` its (height, width/32) int32 tensor
+    or, with a ``mesh``, the list of its word shards. Yields word state,
+    which every consumer writes back through ``io/packed_io``."""
+    runner = make_packed_segment_runner(shape, config, device, mesh=mesh)
     yield from _iter_segments(runner, words, config, segment, completed)
 
 

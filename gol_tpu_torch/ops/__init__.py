@@ -10,13 +10,13 @@ on a mesh) runs only when named, as JAX's ``auto`` never reaches it off a
 TPU and prefers the packed kernel on one.
 
 The packed kernel's 8-generation pass runs where ``supports_multi`` admits
-it: on one device (K1, K2 replayed) and on R x 1 meshes with shards of at
-least 8 rows (K7, K8 replayed); the engine drops it elsewhere, and a block
-then runs K5 once per generation. So meshes with more than one column run
-K5 every generation, where the JAX package runs its split-edge kernels
-K9-K12, or K13 for one-word shards (stencil_packed.py:1441-1452): the
-output bytes are the same, only the route differs. ``pallas`` and ``lax``
-take every R x C mesh with their own per-generation forms.
+it: on one device (K1, K2 replayed) and on every mesh with shards of at
+least 8 rows — K7 with K8 replayed on R x 1 meshes, and on meshes with
+columns the ghost-plane form of the same tile kernel, which replaces the
+JAX package's split-edge kernels K9-K12 and its one-word-shard kernel K13
+(stencil_packed.py:1441-1452). The engine drops the pass for shorter
+shards, and a block then runs K5 once per generation. ``pallas`` and
+``lax`` take every R x C mesh with their own per-generation forms.
 
 There is no fallback ladder: a kernel that fails to build or to launch
 raises, and the run stops.

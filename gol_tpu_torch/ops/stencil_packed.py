@@ -1,7 +1,7 @@
 """Packed stencil: the word kernels of the single-device and mesh paths.
 
 The port of ``gol_tpu/ops/stencil_packed.py`` for one device and for the
-R x C mesh's per-generation and rows-only forms. Words are int32 tensors of
+shards of an R x C mesh. Words are int32 tensors of
 shape (height, nwords) holding the uint32 bit patterns (bit j of word w =
 column 32*w + j; see ``packed_math``). Each kernel is a CUDA kernel in
 ``csrc/stencil_packed.cu``:
@@ -18,7 +18,15 @@ column 32*w + j; see ``packed_math``). Each kernel is a CUDA kernel in
 - ``_step_trow_fast_into`` (K7, replaces ``_bandtrow_fast_kernel``) and
   ``_step_trow_into`` (K8, replaces ``_bandtrow_kernel``): K1 and K2 for a
   full-width shard of an R x 1 mesh, from its neighbours' 8-row ghost
-  blocks (``exchange_packed_deep``).
+  blocks (``exchange_packed_deep``);
+- ``_step_tg_fast_into`` (replaces K9 + K10, ``_stript_fast_kernel`` and
+  ``_bandtrow_stitch_fast_kernel``) and ``_step_tg_into`` (replaces K11 +
+  K12, ``_stript_kernel`` and ``_bandtrow_stitch_kernel``, and K13,
+  ``_bandtg_kernel``): K1 and K2 for a shard of a mesh with columns, from
+  the ghost blocks and the neighbours' whole edge word columns over rows
+  -8..h+7 (``deep_ghost_operands``). The JAX package's edge strip, lane
+  fold and stitch are its TPU tiling's; here the tile kernel reads the
+  ghost columns as one more source, so one kernel is the whole pass.
 
 ``packed_step_into``, ``packed_step_multi_into`` and
 ``packed_step_exact_into`` are the engine's forms over a (sharded) state: a
@@ -27,18 +35,19 @@ and their flag buffers, and the ``Topology``. On a mesh they exchange the
 ghosts from the pass's inputs, then launch each shard's kernel; every
 shard ORs into its flag buffer, and the buffers OR into the vote
 (``parallel/collectives.py``). The 8-generation pass runs on a single
-device and on R x 1 meshes with shards at least 8 rows high
-(``supports_multi``); elsewhere a mesh runs K5 once per generation. (The
-JAX package's 2D temporal kernels K9-K13 are not ported yet; the bytes are
-the same, only the route differs.)
+device and on every mesh whose shards are at least 8 rows high
+(``supports_multi``), with one exchange per pass; shorter shards run K5
+once per generation.
 
 Each of them takes its output and flag buffers from the caller, launches its
 kernel on a CUDA tensor and runs its plain torch version (``_band_plain``,
-``_bandt_plain``) on a CPU tensor; any other device raises. Flags are ORed
+``_bandt_plain``, ``_bandtg_plain``, ...) on a CPU tensor; any other device
+raises. Flags are ORed
 into an int32 buffer the caller zeroes, and "similar" is stored negated, as
 ``differs`` — the form concurrent CUDA blocks can accumulate. ``_step``,
-``_step_t`` and ``_step_t_fast`` wrap them in the JAX package's signatures
-(fresh buffers, flags as similar/alive values).
+``_step_t``, ``_step_t_fast``, ``_step_tgb``, ``_step_tsplit`` and
+``_step_tsplit_fast`` wrap them in the JAX package's signatures (fresh
+buffers, flags as similar/alive values).
 
 ``LAUNCHES`` counts the kernel launches, one per launch on the card and
 nothing for the CPU path, so a run can show that it went through the
@@ -67,7 +76,8 @@ EXACT_FLAGS = 2 * TEMPORAL_GENS
 STEP_FLAGS = 2
 
 LAUNCHES = {"bandt_fast": 0, "bandt": 0, "band": 0,
-            "dist_band": 0, "bandtrow_fast": 0, "bandtrow": 0}
+            "dist_band": 0, "bandtrow_fast": 0, "bandtrow": 0,
+            "bandtg_fast": 0, "bandtg": 0}
 
 encode = packed_math.encode
 decode = packed_math.decode
@@ -84,14 +94,12 @@ def supports(height: int, width: int, topology: Topology = SINGLE_DEVICE) -> boo
 def supports_multi(height: int, width: int,
                    topology: Topology = SINGLE_DEVICE) -> bool:
     """The 8-generation pass: on one device wherever ``supports``; on a
-    mesh only for full-width shards (one mesh column) at least
-    TEMPORAL_GENS rows high, the ghost depth. (JAX's gate, ``h % 8 == 0 and
-    h >= 16``, is its Pallas tiling's.)"""
+    mesh, of any number of columns, for shards at least TEMPORAL_GENS rows
+    high, the ghost depth. (JAX's gates, ``h % 8 == 0 and h >= 16`` and
+    ``nwords >= 2`` for the split form, are its Pallas tiling's.)"""
     if not supports(height, width, topology):
         return False
-    if not topology.distributed:
-        return True
-    return topology.shape[1] == 1 and height >= TEMPORAL_GENS
+    return not topology.distributed or height >= TEMPORAL_GENS
 
 
 # ---------------------------------------------------------------------------
@@ -151,6 +159,24 @@ def _bandtrow_plain(words, gtop, gbot, exact: bool):
     return _pass_flags(words, gens, exact)
 
 
+def _bandtg_plain(words, gtop, gbot, gwest, geast, exact: bool):
+    """TEMPORAL_GENS generations of a shard of a mesh with columns, from
+    its 8-row ghost blocks and the (h+16,) ghost word columns over rows
+    -8..h+7: ``(new, flags)`` as ``_bandt_plain``. The (h+16, nwords+2)
+    extended block ``[gwest | gtop; words; gbot | geast]`` evolves as a
+    torus; what wraps spoils one row per generation from each end and one
+    bit per generation from each ghost word's far side, never the shard's
+    own cells."""
+    T, (h, nwords) = TEMPORAL_GENS, words.shape
+    gens = []
+    x = torch.cat([gwest[:, None], torch.cat([gtop, words, gbot]),
+                   geast[:, None]], dim=1)
+    for _ in range(T):
+        x = packed_math.evolve_torus_words(x)
+        gens.append(x[T:T + h, 1:nwords + 1])
+    return _pass_flags(words, gens, exact)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers.
 
@@ -167,6 +193,8 @@ def _lib() -> ctypes.CDLL:
     lib.gol_dist_band_step.restype = i32
     lib.gol_bandtrow_pass.argtypes = [ptr] * 5 + [i32, i32, i32, i32, ptr]
     lib.gol_bandtrow_pass.restype = i32
+    lib.gol_bandtg_pass.argtypes = [ptr] * 7 + [i32, i32, i32, i32, ptr]
+    lib.gol_bandtg_pass.restype = i32
     lib.gol_error_string.argtypes = [i32]
     lib.gol_error_string.restype = ctypes.c_char_p
     return lib
@@ -215,13 +243,17 @@ def _check_ghosts(words: torch.Tensor, ghosts) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _check_deep(words, gtop, gbot) -> None:
+def _check_deep(words, gtop, gbot, gwest=None, geast=None) -> None:
     height, nwords = words.shape
     if height < TEMPORAL_GENS:
         raise ValueError(f"a shard of the {TEMPORAL_GENS}-generation pass needs "
                          f"at least {TEMPORAL_GENS} rows, got {height}")
-    _check_ghosts(words, (("gtop", gtop, (TEMPORAL_GENS, nwords)),
-                          ("gbot", gbot, (TEMPORAL_GENS, nwords))))
+    ghosts = [("gtop", gtop, (TEMPORAL_GENS, nwords)),
+              ("gbot", gbot, (TEMPORAL_GENS, nwords))]
+    if gwest is not None:
+        ghosts += [("gwest", gwest, (height + 2 * TEMPORAL_GENS,)),
+                   ("geast", geast, (height + 2 * TEMPORAL_GENS,))]
+    _check_ghosts(words, ghosts)
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -281,6 +313,20 @@ def _launch_bandtrow(words, gtop, gbot, out, flags, exact: bool) -> None:
         flags.data_ptr(), height, nwords, int(exact), words.device.index, stream,
     )
     key = "bandtrow" if exact else "bandtrow_fast"
+    _raise_on(err, key)
+    LAUNCHES[key] += 1
+
+
+def _launch_bandtg(words, gtop, gbot, gwest, geast, out, flags,
+                   exact: bool) -> None:
+    height, nwords = words.shape
+    stream = torch.cuda.current_stream(words.device).cuda_stream
+    err = _lib().gol_bandtg_pass(
+        words.data_ptr(), gtop.data_ptr(), gbot.data_ptr(), gwest.data_ptr(),
+        geast.data_ptr(), out.data_ptr(), flags.data_ptr(), height, nwords,
+        int(exact), words.device.index, stream,
+    )
+    key = "bandtg" if exact else "bandtg_fast"
     _raise_on(err, key)
     LAUNCHES[key] += 1
 
@@ -364,6 +410,34 @@ def _step_trow_into(words, gtop, gbot, out, flags) -> None:
     flags[:EXACT_FLAGS] |= exact
 
 
+def _step_tg_fast_into(words, gtop, gbot, gwest, geast, out, flags) -> None:
+    """K9 + K10: TEMPORAL_GENS generations of a shard of a mesh with columns
+    into ``out``, from its 8-row ghost blocks and its (h+16,) ghost word
+    columns; ORs the pass summary over all of the shard's cells into
+    ``flags[0:4]``."""
+    _check(words, out, flags, SUMMARY_FLAGS)
+    _check_deep(words, gtop, gbot, gwest, geast)
+    if _route(words):
+        _launch_bandtg(words, gtop, gbot, gwest, geast, out, flags, exact=False)
+        return
+    new, summary = _bandtg_plain(words, gtop, gbot, gwest, geast, exact=False)
+    out.copy_(new)
+    flags[:SUMMARY_FLAGS] |= summary
+
+
+def _step_tg_into(words, gtop, gbot, gwest, geast, out, flags) -> None:
+    """K11 + K12, and K13: the same pass with the exact per-generation
+    flags ``alive[0:T]`` and ``differs[T:2T]``."""
+    _check(words, out, flags, EXACT_FLAGS)
+    _check_deep(words, gtop, gbot, gwest, geast)
+    if _route(words):
+        _launch_bandtg(words, gtop, gbot, gwest, geast, out, flags, exact=True)
+        return
+    new, exact = _bandtg_plain(words, gtop, gbot, gwest, geast, exact=True)
+    out.copy_(new)
+    flags[:EXACT_FLAGS] |= exact
+
+
 # ---------------------------------------------------------------------------
 # Over a (sharded) state: the engine's forms.
 
@@ -383,6 +457,16 @@ def exchange_packed_deep(shards, shape):
     return halo.ghost_slices(shards, shape, depth=TEMPORAL_GENS)
 
 
+def deep_ghost_operands(shards, shape):
+    """The deep halo of a mesh with columns: per shard ``(gtop, gbot, gwest,
+    geast)``, its TEMPORAL_GENS-row ghost blocks and the neighbours' whole
+    edge word columns over rows -8..h+7. The column phase runs over the
+    row-extended range, so the ghost rows' corner words are the diagonal
+    neighbours'. (JAX stacks the two columns as the plane ``G_ext``; the
+    kernel here takes them apart.)"""
+    return halo.exchange_parts(shards, shape, depth=TEMPORAL_GENS)
+
+
 def packed_step_into(src, dst, flags, topology: Topology) -> None:
     """One generation of every shard of ``src`` into ``dst``: K3 on a
     single device, else the exchange then K5 per shard."""
@@ -397,22 +481,26 @@ def _multi_into(src, dst, flags, topology: Topology, exact: bool) -> None:
     if not topology.distributed:
         (_step_t_into if exact else _step_t_fast_into)(src[0], dst[0], flags[0])
         return
-    if topology.shape[1] != 1:
-        raise ValueError("the 8-generation pass on a mesh needs one mesh column")
-    step = _step_trow_into if exact else _step_trow_fast_into
-    for x, y, f, (gtop, gbot) in zip(src, dst, flags,
-                                     exchange_packed_deep(src, topology.shape)):
-        step(x, gtop, gbot, y, f)
+    if topology.shape[1] == 1:
+        step = _step_trow_into if exact else _step_trow_fast_into
+        ghosts = exchange_packed_deep(src, topology.shape)
+    else:
+        step = _step_tg_into if exact else _step_tg_fast_into
+        ghosts = deep_ghost_operands(src, topology.shape)
+    for x, y, f, g in zip(src, dst, flags, ghosts):
+        step(x, *g, y, f)
 
 
 def packed_step_multi_into(src, dst, flags, topology: Topology) -> None:
     """TEMPORAL_GENS generations with the pass summary: K1, or the deep
-    exchange then K7 per shard."""
+    exchange then one kernel per shard: K7 on one mesh column, else the
+    ghost-plane form (K9 + K10)."""
     _multi_into(src, dst, flags, topology, exact=False)
 
 
 def packed_step_exact_into(src, dst, flags, topology: Topology) -> None:
-    """The same pass with exact per-generation flags: K2, or K8 per shard."""
+    """The same pass with exact per-generation flags: K2, or per shard K8
+    or the ghost-plane form (K11 + K12, K13)."""
     _multi_into(src, dst, flags, topology, exact=True)
 
 
@@ -431,13 +519,18 @@ def _step(words: torch.Tensor):
     return out, flags[0] != 0, flags[1] == 0
 
 
+def _vectors(exact_flags: torch.Tensor):
+    """An exact pass's flags as JAX's ``(alive_vec, similar_vec)``."""
+    T = TEMPORAL_GENS
+    return exact_flags[:T].clone(), 1 - exact_flags[T:]
+
+
 def _step_t(words: torch.Tensor):
     """TEMPORAL_GENS generations: ``(new, alive_vec, similar_vec)``, int32
     (TEMPORAL_GENS,) vectors, one entry per generation."""
     out, flags = torch.empty_like(words), _flags(EXACT_FLAGS, words.device)
     _step_t_into(words, out, flags)
-    T = TEMPORAL_GENS
-    return out, flags[:T].clone(), 1 - flags[T:]
+    return (out, *_vectors(flags))
 
 
 def summary_needs_replay(summary) -> bool:
@@ -466,6 +559,14 @@ def _derive_or_replay(summary, exact_thunk):
     return [out_alive] * T, [1 - diff_t] * T
 
 
+def _derived_vectors(summary: torch.Tensor, exact_thunk):
+    """``_derive_or_replay`` on a summary tensor (read back here, one sync),
+    as JAX's int32 ``(alive_vec, similar_vec)`` on the summary's device."""
+    alive, similar = _derive_or_replay(summary.tolist(), exact_thunk)
+    vec = functools.partial(torch.tensor, dtype=torch.int32, device=summary.device)
+    return vec(alive), vec(similar)
+
+
 def _step_t_fast(words: torch.Tensor):
     """TEMPORAL_GENS generations with the fast-flag kernel:
     ``(new, alive_vec, similar_vec)`` as ``_step_t`` gives them. The summary
@@ -473,11 +574,51 @@ def _step_t_fast(words: torch.Tensor):
     ``summary_needs_replay``."""
     out, flags = torch.empty_like(words), _flags(SUMMARY_FLAGS, words.device)
     _step_t_fast_into(words, out, flags)
-    alive, similar = _derive_or_replay(
-        flags.tolist(), lambda: [v.tolist() for v in _step_t(words)[1:]]
-    )
-    vec = functools.partial(torch.tensor, dtype=torch.int32, device=words.device)
-    return out, vec(alive), vec(similar)
+    return (out, *_derived_vectors(
+        flags, lambda: [v.tolist() for v in _step_t(words)[1:]]))
+
+
+def _plane_columns(G_ext):
+    """The (h+16, 2) ghost-column plane of the JAX signatures as the two
+    contiguous columns the kernel takes."""
+    if G_ext.dim() != 2 or G_ext.shape[1] != 2:
+        raise ValueError(f"G_ext must be (h+16, 2), got {tuple(G_ext.shape)}")
+    return G_ext[:, 0].contiguous(), G_ext[:, 1].contiguous()
+
+
+def _step_tgb(words, gtop, gbot, G_ext):
+    """K13's signature: TEMPORAL_GENS generations of a shard from its ghost
+    blocks and the ghost-column plane ``G_ext`` (west in column 0, east in
+    column 1): ``(new, alive_vec, similar_vec)``, exact per generation."""
+    out, flags = torch.empty_like(words), _flags(EXACT_FLAGS, words.device)
+    _step_tg_into(words, gtop, gbot, *_plane_columns(G_ext), out, flags)
+    return (out, *_vectors(flags))
+
+
+def _check_cols4(words, cols4) -> None:
+    """``cols4`` is the shard's own edge columns ``[w0, w1, w_{n-2},
+    w_{n-1}]``, pre-extracted for JAX's edge strip. The kernel here reads
+    them from ``words``, so the operand is only held to that."""
+    if not torch.equal(cols4, torch.cat([words[:, :2], words[:, -2:]], dim=1)):
+        raise ValueError("cols4 is not the shard's edge columns")
+
+
+def _step_tsplit(words, gtop, gbot, cols4, G_ext):
+    """K11 + K12's signature (the exact split-edge composition):
+    ``(new, alive_vec, similar_vec)``."""
+    _check_cols4(words, cols4)
+    return _step_tgb(words, gtop, gbot, G_ext)
+
+
+def _step_tsplit_fast(words, gtop, gbot, cols4, G_ext):
+    """K9 + K10's signature (the fast-flag split-edge composition) for one
+    shard: the summary is read back here, and the exact form reruns only
+    when ``summary_needs_replay``."""
+    _check_cols4(words, cols4)
+    out, flags = torch.empty_like(words), _flags(SUMMARY_FLAGS, words.device)
+    _step_tg_fast_into(words, gtop, gbot, *_plane_columns(G_ext), out, flags)
+    return (out, *_derived_vectors(
+        flags, lambda: [v.tolist() for v in _step_tgb(words, gtop, gbot, G_ext)[1:]]))
 
 
 def _gate(words: torch.Tensor, topology: Topology = SINGLE_DEVICE,
@@ -516,10 +657,11 @@ def packed_step(cur, topology: Topology = SINGLE_DEVICE):
 
 def packed_step_multi(cur, topology: Topology = SINGLE_DEVICE):
     """TEMPORAL_GENS fused generations: ``words -> (words_T, alive_vec,
-    similar_vec)`` — K1, with K2 replayed on a mid-pass exit. On an R x 1
-    mesh ``cur`` is the list of shards (K7, K8 replayed): the summaries are
-    voted across shards before the derivation, since one shard's summary
-    can hide a transient that crossed its border."""
+    similar_vec)`` — K1, with K2 replayed on a mid-pass exit. On a mesh
+    ``cur`` is the list of shards (K7 with K8 replayed on one mesh column,
+    else the ghost-plane pair): the summaries are voted across shards
+    before the derivation, since one shard's summary can hide a transient
+    that crossed its border."""
     if not topology.distributed:
         _gate(cur, gate=supports_multi)
         return _step_t_fast(cur)
@@ -532,6 +674,4 @@ def packed_step_multi(cur, topology: Topology = SINGLE_DEVICE):
         T = TEMPORAL_GENS
         return f[:T], [1 - d for d in f[T:]]
 
-    alive, similar = _derive_or_replay(summary.tolist(), exact)
-    vec = functools.partial(torch.tensor, dtype=torch.int32, device=cur[0].device)
-    return out, vec(alive), vec(similar)
+    return (out, *_derived_vectors(summary, exact))

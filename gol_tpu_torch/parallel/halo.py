@@ -12,6 +12,10 @@ shard's device (a view where the two shards share one):
                     diagonal neighbours' corner cells (the reference's CUDA
                     trick, src/game_cuda.cu:64-74).
 
+Both phases take a depth: 1 for the per-generation kernels, 8 for the
+8-generation pass, whose column phase then runs over rows -8..h+7 and hands
+over the neighbours' whole edge columns.
+
 On a mesh axis of size 1 the wrap is the shard's own far edge
 (src/game_cuda.cu:52-74). Every function reads the shards it is given and
 returns new tensors or views of them, never writing a shard, so a pass can
@@ -60,10 +64,11 @@ def exchange_columns(wests, easts, shape: tuple[int, int]):
     ]
 
 
-def exchange_parts(shards, shape: tuple[int, int]):
-    """Both phases at depth 1: per shard ``(top, bot, gwest, geast)``, the
-    (1, w) ghost rows and the (h+2,) ghost columns over rows -1..h."""
-    rows = ghost_slices(shards, shape)
+def exchange_parts(shards, shape: tuple[int, int], depth: int = 1):
+    """Both phases: per shard ``(top, bot, gwest, geast)``, the (depth, w)
+    ghost rows and the (h + 2*depth,) ghost columns over rows
+    -depth..h+depth-1."""
+    rows = ghost_slices(shards, shape, depth)
     cols = [boundary_columns(x, top, bot) for x, (top, bot) in zip(shards, rows)]
     ghosts = exchange_columns([w for w, _ in cols], [e for _, e in cols], shape)
     return [(top, bot, gw, ge) for (top, bot), (gw, ge) in zip(rows, ghosts)]

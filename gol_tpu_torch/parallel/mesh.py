@@ -58,9 +58,10 @@ def choose_mesh_shape(
 ) -> tuple[int, int]:
     """The default R x C factorization of ``n_devices``: row-heaviest.
 
-    Full-width R x 1 shards wrap east/west within themselves and run the
-    8-generation pass (K7); a shard with mesh columns runs one generation
-    per launch. Where ``width``/``height`` are known, a factorization whose
+    Full-width R x 1 shards wrap east/west within themselves, so their
+    8-generation pass (K7) needs no column phase in its exchange; a shard
+    with mesh columns runs the ghost-plane form of the pass, whose exchange
+    also gathers the (h+16) edge columns. Where ``width``/``height`` are known, a factorization whose
     rows divide the height and whose columns divide the width is preferred
     over one ``validate_grid`` would refuse (100 rows on 8 devices: (4, 2)).
     The JAX package also adds columns past its temporal kernel's VMEM width

@@ -408,13 +408,15 @@ def test_mesh_lax_and_rectangles_match_jax(variant, eight_shards, capsys, tmp_pa
      ["64", "64", "IN64", "--variant", "tpu", "--mesh", "2by2"],
      ["64", "64", "IN64", "--variant", "collective", "--mesh", "3x3"],
      ["64", "64", "IN64", "--variant", "tpu", "--mesh", "0x2"],
-     ["64", "64", "IN64", "--variant", "mpi", "--host", "--mesh", "2x2"]],
+     ["64", "64", "IN64", "--variant", "mpi", "--host", "--mesh", "2x2"],
+     ["96", "96", "IN96", "--variant", "tpu", "--mesh", "2x2", "--packed-io"]],
     ids=["does_not_divide", "single_device_variant", "malformed", "too_many",
-         "zero_axis", "host"],
+         "zero_axis", "host", "packed_io_width"],
 )
 def test_mesh_refusals_match_jax(args, eight_shards, capsys, tmp_path):
     paths = {"IN16": _write(tmp_path, "in16.txt", text_grid.generate(16, 16, seed=1)),
-             "IN64": _write(tmp_path, "in64.txt", text_grid.generate(64, 64, seed=1))}
+             "IN64": _write(tmp_path, "in64.txt", text_grid.generate(64, 64, seed=1)),
+             "IN96": _write(tmp_path, "in96.txt", text_grid.generate(96, 96, seed=1))}
     args = [paths.get(a, a) for a in args]
     errs = []
     for main in (jax_cli.main, cli.main):
@@ -430,14 +432,26 @@ def test_mesh_refusals_match_jax(args, eight_shards, capsys, tmp_path):
 )
 def test_lanes_not_ported_to_a_mesh_exit_1(flags, eight_shards, capsys, tmp_path,
                                             monkeypatch):
+    """These three lanes exited 1 on a mesh until the segment and
+    packed-state runners took one. Now each runs there as in the JAX CLI:
+    output file, snapshot files and printed lines identical, alone and with
+    ``--packed-io``."""
     monkeypatch.chdir(tmp_path)
     path = _write(tmp_path, "in.txt", text_grid.generate(64, 64, seed=3))
+    combos = [flags] if flags == ["--packed-io"] else [flags, [*flags, "--packed-io"]]
     for mesh in (["--mesh", "2x2"], []):  # the default mesh is 8x1 here
-        assert cli.main(["64", "64", path, "--variant", "tpu", *mesh, *flags]) == 1
-        err = capsys.readouterr().err
-        assert err.startswith("gol: ") and "does not run on a mesh" in err
-        assert flags[0] in err and "Queue 1 item 11c" in err
-    assert not (tmp_path / "tpu_output.out").exists()
-    # ... and on a 1x1 mesh they run.
-    assert cli.main(["64", "64", path, "--variant", "tpu", "--mesh", "1x1", *flags]) == 0
-    capsys.readouterr()
+        for combo in combos:
+            results, snaps = [], []
+            for tag, main in (("jax", jax_cli.main), ("port", cli.main)):
+                snapdir = tmp_path / f"snaps_{tag}_{len(mesh)}_{len(combo)}"
+                rc = main(["64", "64", path, "--variant", "tpu", *mesh, *combo,
+                           "--gen-limit", "40", "--snapshot-dir", str(snapdir),
+                           "--output", str(tmp_path / f"{tag}.out")])
+                results.append((rc, _MS.sub("X msecs", capsys.readouterr().out),
+                                (tmp_path / f"{tag}.out").read_bytes()))
+                snaps.append({p.name: p.read_bytes() for p in snapdir.glob("*")})
+            assert results[1] == results[0] and results[1][0] == 0, (mesh, combo)
+            assert snaps[1] == snaps[0], (mesh, combo)
+            if "--snapshot-every" in combo:
+                assert sorted(snaps[1]) == [f"gen_{g:06d}.out" for g in (10, 20, 30, 40)]
+    assert not list(tmp_path.glob("*.inprogress"))

@@ -165,8 +165,9 @@ SHARD_SHAPES = [(1, 1), (8, 1), (17, 5), (200, 33)]
 
 
 def _shard_ghosts(height, nwords, seed):
-    """Random words of a shard and random ghosts of the shapes K5, K7 and
-    K8 take (every bit random: the kernels must read only what they own)."""
+    """Random words of a shard and random ghosts of the shapes K5, K7, K8
+    and the ghost-plane forms take (every bit random: the kernels must read
+    only what they own)."""
     rng = np.random.default_rng(seed)
 
     def words(*shape):
@@ -175,7 +176,8 @@ def _shard_ghosts(height, nwords, seed):
     return {"x": words(height, nwords), "top": words(1, nwords),
             "bot": words(1, nwords), "gwest": words(height + 2),
             "geast": words(height + 2), "gtop": words(8, nwords),
-            "gbot": words(8, nwords)}
+            "gbot": words(8, nwords), "gwest8": words(height + 16),
+            "geast8": words(height + 16)}
 
 
 @pytest.mark.parametrize(
@@ -207,6 +209,33 @@ def test_shard_kernel_matches_plain(card, kernel, height, nwords):
         assert sp.LAUNCHES[kernel] == before + 1
         assert torch.equal(out, want), seed
         assert flags.tolist() == want_flags.tolist(), seed
+
+
+@pytest.mark.parametrize("height,nwords",
+                         [(8, 1), (17, 1), (16, 2), (17, 5), (200, 33), (130, 70)])
+@pytest.mark.parametrize("kernel", ["bandtg_fast", "bandtg"])
+def test_plane_kernel_matches_plain(card, kernel, height, nwords):
+    # The ghost-plane forms of the 8-generation pass (K9+K10; K11+K12+K13).
+    exact = kernel == "bandtg"
+    into = sp._step_tg_into if exact else sp._step_tg_fast_into
+    for seed in range(3):
+        g = {k: pm.words_from_numpy(v, card)
+             for k, v in _shard_ghosts(height, nwords, seed).items()}
+        if seed == 2:  # a dead shard in dead surroundings
+            g = {k: torch.zeros_like(v) for k, v in g.items()}
+        ghosts = [g[k] for k in ("gtop", "gbot", "gwest8", "geast8")]
+        x, out = g["x"], torch.empty_like(g["x"])
+        flags = torch.zeros(sp.EXACT_FLAGS if exact else sp.SUMMARY_FLAGS,
+                            dtype=torch.int32, device=card)
+        before = sp.LAUNCHES[kernel]
+        into(x, *ghosts, out, flags)
+        torch.cuda.synchronize(card)
+        assert sp.LAUNCHES[kernel] == before + 1
+        want, want_flags = sp._bandtg_plain(x, *ghosts, exact)
+        assert torch.equal(out, want), seed
+        assert flags.tolist() == want_flags.tolist(), seed
+    with pytest.raises(ValueError, match="geast"):
+        into(x, *ghosts[:3], ghosts[3][:-1], out, flags)
 
 
 @pytest.mark.parametrize("height,width", [(1, 1), (7, 3), (17, 161), (64, 4096)])
@@ -242,7 +271,7 @@ def test_mesh_on_the_card_matches_single_device(card, convention, monkeypatch):
     for grid in (text_grid.generate(256, 64, seed=4), patch):
         config = GameConfig(convention=convention)
         want = engine.simulate(grid, config, device=card)
-        for shape in ((4, 1), (2, 2)):
+        for shape in ((4, 1), (2, 2), (1, 4)):
             for kernel in ("auto", "pallas"):
                 before = {**sp.LAUNCHES, **spl.LAUNCHES}
                 got = engine.simulate(grid, config, kernel=kernel,
@@ -252,5 +281,31 @@ def test_mesh_on_the_card_matches_single_device(card, convention, monkeypatch):
                 assert got.generations == want.generations, (shape, kernel)
                 np.testing.assert_array_equal(got.grid, want.grid)
                 key = ("dist_byte_band" if kernel == "pallas" else
-                       "bandtrow_fast" if shape == (4, 1) else "dist_band")
+                       "bandtrow_fast" if shape == (4, 1) else "bandtg_fast")
                 assert launched[key] > 0, (shape, kernel, launched)
+                assert not any(launched[k] for k in ("bandt_fast", "bandt", "band"))
+
+
+@pytest.mark.parametrize("lane", [[], ["--packed-io"]], ids=["cells", "packed_io"])
+def test_mesh_lanes_on_the_card_match_oracle(card, lane, monkeypatch, tmp_path,
+                                             capsys):
+    # --packed-io, --snapshot-every and --resume-gen over --mesh 2x2; 64^2
+    # has one-word shards, 128^2 two-word shards.
+    monkeypatch.setenv("GOL_TORCH_MESH_DEVICES", "4")
+    for n in (64, 128):
+        grid = text_grid.generate(n, n, seed=n)
+        want = oracle.run(grid, GameConfig())
+        snaps = tmp_path / f"snaps{n}"
+        args = ["--variant", "tpu", "--mesh", "2x2", *lane]
+        gens, got = _cli_on_card(monkeypatch, tmp_path, capsys, grid,
+                                 args + ["--snapshot-every", "100",
+                                         "--snapshot-dir", str(snaps)])
+        assert gens == want.generations
+        np.testing.assert_array_equal(got, want.grid)
+        at300 = oracle.run(grid, GameConfig(gen_limit=300)).grid
+        np.testing.assert_array_equal(
+            text_grid.read_grid(str(snaps / "gen_000300.out"), n, n), at300)
+        gens, got = _cli_on_card(monkeypatch, tmp_path, capsys, at300,
+                                 args + ["--resume-gen", "300"])
+        assert gens == want.generations
+        np.testing.assert_array_equal(got, want.grid)

@@ -6,7 +6,8 @@ JAX package's: words, bytes and file names must be identical.
   the strict-'1' rule and a strided window over the newline column;
 - ``io/packed_io.read_packed`` words against JAX's (as numpy uint32), and
   ``write_packed`` bytes against JAX's, with the ``.inprogress`` staging
-  file gone after the write;
+  file gone after the write; over a mesh, each shard's words against the
+  shards of JAX's sharded array, and the file written from the shards;
 - ``io/sharded`` (the distributed variants' one-device I/O) against JAX's
   with no mesh: the exact-size refusal and the read by position.
 """
@@ -20,9 +21,11 @@ import torch
 from gol_tpu import native as jax_native
 from gol_tpu.io import packed_io as jax_packed_io
 from gol_tpu.io import sharded as jax_sharded
+from gol_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from gol_tpu_torch import native
 from gol_tpu_torch.io import packed_io, sharded, text_grid
 from gol_tpu_torch.ops import packed_math as pm
+from gol_tpu_torch.parallel.mesh import make_mesh
 
 
 def _text(rows: int, width: int, seed: int, odd: bool = False) -> np.ndarray:
@@ -132,6 +135,35 @@ def test_packed_io_chunked_paths(tmp_path, monkeypatch):
     assert open(out, "rb").read() == open(path, "rb").read()
 
 
+@pytest.mark.parametrize("rows,cols", [(2, 2), (1, 4), (4, 2)])
+def test_packed_io_over_a_mesh_matches_jax(tmp_path, monkeypatch, rows, cols):
+    monkeypatch.setenv("GOL_TORCH_DEVICE", "cpu")
+    monkeypatch.setenv("GOL_TORCH_MESH_DEVICES", "8")
+    monkeypatch.setattr(packed_io, "_WRITE_CHUNK_BYTES", 3 * 8)  # several chunks
+    height, width = 24, 256
+    g, path = _grid_file(tmp_path, height, width, seed=rows + cols)
+    mesh, jmesh = make_mesh(rows, cols), jax_make_mesh(rows, cols)
+    shards = packed_io.read_packed(path, width, height, mesh=mesh)
+    jwords = jax_packed_io.read_packed(path, width, height, jmesh)
+    whole = np.asarray(jwords)
+    h, n = height // rows, width // 32 // cols
+    assert len(shards) == rows * cols
+    for i, shard in enumerate(shards):
+        r, c = divmod(i, cols)
+        assert shard.dtype == torch.int32 and tuple(shard.shape) == (h, n)
+        np.testing.assert_array_equal(
+            pm.words_to_numpy(shard), whole[r * h:(r + 1) * h, c * n:(c + 1) * n])
+    port_out, jax_out = str(tmp_path / "port.out"), str(tmp_path / "jax.out")
+    open(port_out, "wb").write(b"an older, longer file" * 1000)
+    packed_io.write_packed(port_out, shards, width, mesh)
+    jax_packed_io.write_packed(jax_out, jwords, width)
+    data = open(port_out, "rb").read()
+    assert data == open(jax_out, "rb").read() == open(path, "rb").read()
+    assert not os.path.exists(port_out + packed_io.STAGING_SUFFIX)
+    with pytest.raises(ValueError, match="shards"):
+        packed_io.write_packed(port_out, shards[:-1], width, mesh)
+
+
 def test_packed_io_refusals_match_jax(tmp_path):
     _, path = _grid_file(tmp_path, 16, 64, seed=4)
     for width, height in ((48, 16), (64, 17)):
@@ -144,6 +176,21 @@ def test_packed_io_refusals_match_jax(tmp_path):
         assert errors[0] == errors[1]
     with pytest.raises(ValueError, match="words x 32"):
         packed_io.write_packed(str(tmp_path / "x"), torch.zeros((2, 2), dtype=torch.int32), 96)
+
+
+def test_packed_io_mesh_width_refusal_matches_jax(tmp_path, monkeypatch):
+    # 96 cells divide over 2 mesh columns, but not into whole words.
+    monkeypatch.setenv("GOL_TORCH_DEVICE", "cpu")
+    monkeypatch.setenv("GOL_TORCH_MESH_DEVICES", "8")
+    _, path = _grid_file(tmp_path, 16, 96, seed=4)
+    errors = []
+    for read in (lambda: packed_io.read_packed(path, 96, 16, mesh=make_mesh(2, 2)),
+                 lambda: jax_packed_io.read_packed(path, 96, 16, jax_make_mesh(2, 2))):
+        with pytest.raises(ValueError) as info:
+            read()
+        errors.append(str(info.value))
+    assert errors[0] == errors[1]
+    assert errors[0] == "packed I/O needs width (96) divisible by 32 x mesh cols (2)"
 
 
 def _misplaced_newline(tmp_path, height, width):

@@ -7,7 +7,8 @@ including exits that land inside a segment, on its boundary, inside a
 K=16 flag block, and the CUDA convention's empty exit, which keeps the last
 non-empty generation. Byte state (``lax``, ``pallas``, ``packed`` through
 encode/decode) and packed word state (``simulate_packed_segments``), both
-conventions, zero tolerance.
+conventions, zero tolerance; then the same over meshes of shards, against
+the JAX package's segment loop on the same mesh.
 """
 
 import numpy as np
@@ -16,10 +17,12 @@ import torch
 
 from gol_tpu import engine as jax_engine
 from gol_tpu.config import GameConfig as JaxConfig
+from gol_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from gol_tpu_torch import engine, oracle
 from gol_tpu_torch.config import Convention, GameConfig
 from gol_tpu_torch.io import text_grid
 from gol_tpu_torch.ops import packed_math as pm
+from gol_tpu_torch.parallel.mesh import gather, make_mesh, split
 
 CONVENTIONS = (Convention.C, Convention.CUDA)
 SEGMENTS = (1, 7, 16, 17)
@@ -173,3 +176,77 @@ def test_packed_runner_rejects_byte_state():
     with pytest.raises(ValueError, match="segment must be positive"):
         _last(engine.simulate_segments(GRIDS["lone"], GameConfig(), "lax", 0,
                                        device="cpu"))
+
+
+# ---------------------------------------------------------------------------
+# Segments over a mesh.
+
+MESHES = [(2, 2), (4, 1), (1, 2)]
+
+
+@pytest.fixture
+def eight_shards(monkeypatch):
+    monkeypatch.setenv("GOL_TORCH_DEVICE", "cpu")
+    monkeypatch.setenv("GOL_TORCH_MESH_DEVICES", "8")
+
+
+@pytest.mark.parametrize("convention", CONVENTIONS)
+@pytest.mark.parametrize("mesh_shape", MESHES)
+@pytest.mark.parametrize("segment", [7, 16, 17])
+def test_segmented_mesh_state_matches_whole_run(segment, mesh_shape, convention,
+                                                eight_shards):
+    # 32 x 64 over 2x2 (16-row, one-word shards), 4x1 (8-row shards) and
+    # 1x2: cell shards through every kernel, then word shards.
+    mesh = make_mesh(*mesh_shape)
+    for name, grid in GRIDS.items():
+        config = _port_config(convention, gen_limit=120)
+        want = oracle.run(grid, config)
+        for kernel in ("packed", "pallas", "lax"):
+            gens, final, stopped = _last(engine.simulate_segments(
+                grid, config, kernel, segment, mesh=mesh))
+            assert (gens, stopped) == (want.generations, True), (name, kernel)
+            np.testing.assert_array_equal(gather(final, mesh_shape).numpy(),
+                                          want.grid, err_msg=name)
+        words = split(pm.encode(torch.from_numpy(grid)), mesh)
+        gens, final, stopped = _last(engine.simulate_packed_segments(
+            words, grid.shape, config, segment, mesh=mesh))
+        assert (gens, stopped) == (want.generations, True), name
+        np.testing.assert_array_equal(
+            gather([pm.decode(w) for w in final], mesh_shape).numpy(), want.grid,
+            err_msg=name)
+
+
+@pytest.mark.parametrize("convention", CONVENTIONS)
+def test_mesh_segment_yields_match_jax(convention, eight_shards):
+    grid = GRIDS["dies_in_block"]
+    jconfig = JaxConfig(convention=convention, gen_limit=100)
+    config = _port_config(convention, gen_limit=100)
+    want = [(g, np.asarray(s), bool(st)) for g, s, st in
+            jax_engine.simulate_segments(grid, jconfig, jax_make_mesh(2, 2),
+                                         "packed", 7)]
+    got = [(g, gather(s, (2, 2)).numpy(), st) for g, s, st in
+           engine.simulate_segments(grid, config, "packed", 7,
+                                    mesh=make_mesh(2, 2))]
+    assert [(g, st) for g, _, st in got] == [(g, st) for g, _, st in want]
+    for (_, a, _), (_, b, _) in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("convention", CONVENTIONS)
+@pytest.mark.parametrize("split_at", [12, 13, 16, 17])
+def test_resumed_mesh_run_matches_uninterrupted(convention, split_at, eight_shards):
+    grid = GRIDS["random"]
+    mesh = make_mesh(2, 2)
+    config = _port_config(convention, gen_limit=40)
+    want = oracle.run(grid, config)
+    snap = oracle.run(grid, _port_config(convention, gen_limit=split_at))
+    gens, final, _ = _last(engine.simulate_segments(
+        snap.grid, config, "auto", 5, completed=split_at, mesh=mesh))
+    assert gens == want.generations
+    np.testing.assert_array_equal(gather(final, (2, 2)).numpy(), want.grid)
+    words = split(pm.encode(torch.from_numpy(snap.grid)), mesh)
+    gens, final, _ = _last(engine.simulate_packed_segments(
+        words, grid.shape, config, 6, completed=split_at, mesh=mesh))
+    assert gens == want.generations
+    np.testing.assert_array_equal(
+        gather([pm.decode(w) for w in final], (2, 2)).numpy(), want.grid)
