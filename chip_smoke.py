@@ -10,13 +10,15 @@ error:
 
 1. Card and build: the card's name and power limit (nvidia-smi), then the
    native code built from the checkout — one compiler per source, all
-   started together: ``csrc/stencil_packed.cu`` (K1-K3, K5, K7, K8 and the
-   ghost-plane form that replaces K9-K13), ``csrc/stencil_pallas.cu`` (K4,
+   started together: ``csrc/stencil_packed.cu`` (K1-K3, K5, K7, K8, the
+   ghost-plane form that replaces K9-K13, and K14, the flag-free pass of
+   the roofline), ``csrc/stencil_pallas.cu`` (K4,
    K6) and ``native/codec.c`` (the
    packed-I/O text codec) — with nvcc's ``-Xptxas -v`` report (registers,
    shared memory, spills).
 2. Kernels against their plain torch versions on the card: K1 (fast-flag
-   8-generation pass), K2 (exact-flag pass) and K3 (one generation) at
+   8-generation pass), K2 (exact-flag pass), K3 (one generation) and K14
+   (the 8-generation pass without flags) at
    (height, nwords) (1,1) (7,1) (16,2) (17,5) (1000,7) (16384,512), and K4
    (one byte-cell generation) at (height, width) (1,1) (7,3) (16,128)
    (17,161) (1000,225) (16384,16384), on random cells, a domino that dies
@@ -51,6 +53,14 @@ error:
    launch both ghost-plane forms. ``--snapshot-every 100`` and
    ``--resume-gen 300`` run again under ``--variant tpu --mesh 2x2``, with
    and without ``--packed-io``.
+3c. The checkpoint lane at 64^2 on the card, against the oracle: ``--variant
+   game`` and ``cuda`` with ``--kernel auto``, ``--kernel pallas`` and
+   ``--packed-io``, and ``--variant tpu --mesh 2x2``, each with the async
+   writer and with ``--sync-checkpoints``: a run with ``--checkpoint-every
+   100``, a run killed by ``GOL_FAULTS=kill_at_gen=300,kill_mode=sigkill``
+   (a real SIGKILL, one subprocess per lane, all in parallel; its newest
+   manifest must be generation 200's), then ``--auto-resume`` from it:
+   outputs and Generations equal the oracle's.
 4. The main path at full size, 16384^2 (268 MB of text, 32 MiB of packed
    words), through the CLI entry point: ``--variant game`` and ``cuda``,
    each on (a) a random grid for 1000 generations (K1 only), (b) the same
@@ -76,6 +86,12 @@ error:
    ``pallas`` lanes K6, and no lane a single-device kernel. Engine-level
    runs of (d) under the CUDA convention on 4x1 and 2x2 must launch K5 for
    the empty-exit replay.
+4c. The checkpoint lane at the same size: run (a) under ``--variant game
+   --checkpoint-every 250`` with the async writer and with
+   ``--sync-checkpoints`` (text-grid payloads of 268 MB), each equal to
+   phase 4's run (a) byte for byte; then a run SIGKILLed at generation 500
+   and its ``--auto-resume``, equal too. The Execution times print beside
+   phase 4's, with the writer's stall counters.
 5. Timing: each kernel over 100 warm launches captured in one CUDA graph
    and replayed (CUDA events around the replay), so that the card and not
    the host's launch rate sets ``ms``; beside it ``eager_ms`` (the same
@@ -92,6 +108,13 @@ error:
    9.0: 32-bit bitwise AND/OR/XOR, shifts and adds) times the SM count
    times the maximum SM clock (nvidia-smi ``clocks.max.sm``). No single
    PyTorch call computes a B3/S23 step, so ``library_ms`` is null.
+6. The flag-cost roofline, ``gol_tpu_torch.tools.roofline``, at 16384^2 and
+   65536^2: K1, K2 and K14 by CUDA-graph replay and by ``torch.profiler``
+   device time, with the counters zeroed before it (K14's launches in the
+   kernels line are this path's). At each size the tool holds each
+   kernel's last timed output and flags against the plain version at
+   tolerance 0 and raises on a difference. Its JSON prints on a line of
+   its own.
 
 The last lines are the kernel table as one JSON object, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``.
@@ -107,6 +130,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -119,20 +143,22 @@ import torch
 from gol_tpu_torch import cli, engine, native, oracle, platform_env
 from gol_tpu_torch.config import Convention, GameConfig
 from gol_tpu_torch.io import text_grid
+from gol_tpu_torch.obs import profiler
+from gol_tpu_torch.obs import registry as obs_registry
 from gol_tpu_torch.ops import _build, packed_math as pm
 from gol_tpu_torch.ops import stencil_packed as sp
 from gol_tpu_torch.ops import stencil_pallas as spl
 from gol_tpu_torch.parallel import halo
 from gol_tpu_torch.parallel.mesh import make_mesh
+from gol_tpu_torch.tools import roofline
 
 REPO = Path(__file__).resolve().parent
 SIZE = 16384
 SEED = 20261016
-HBM_BYTES_PER_S = 3.35e12
-INT32_LOGIC_PER_CLK_PER_SM = 64
-# Packed kernels: ~28 two-input logic ops per word per generation
-# (packed_math.py's adder network, shifts included).
-OPS_PER_WORD_GEN = 28
+# The card's rates and the packed kernels' ops per word and generation:
+# one copy, the roofline tool's.
+HBM_BYTES_PER_S = roofline.HBM_BYTES_PER_S
+OPS_PER_WORD_GEN = roofline.OPS_PER_WORD_GEN
 # K4, per 4-cell word per generation, from the inner loop of
 # csrc/stencil_pallas.cu: the new row's triple sum 8 (two 3-op shifted
 # words, two adds), the 3x3 sums 2, two byte compares 7 each, the rule 2,
@@ -169,6 +195,17 @@ KERNELS = [
         "replaces": "gol_tpu/ops/stencil_packed.py:437",
         "into": sp._step_t_into, "nflags": sp.EXACT_FLAGS,
         "plain": lambda x: sp._bandt_plain(x, exact=True),
+    },
+    {
+        "key": "bandt_noflags", "id": "K14", "gens": sp.TEMPORAL_GENS,
+        "name": "K14 bandt_kernel<NONE>: 8-generation pass, no flags "
+                "(the flag-cost roofline's)",
+        "source": "gol_tpu_torch/csrc/stencil_packed.cu",
+        "replaces": "tools/roofline_r4.py:47",
+        "into": lambda x, out, flags: sp._step_t_noflags_into(x, out),
+        "nflags": 0,
+        "plain": lambda x: (sp._bandt_noflags_plain(x),
+                            torch.zeros(0, dtype=torch.int32, device=x.device)),
     },
     {
         "key": "band", "id": "K3", "gens": 1,
@@ -277,8 +314,11 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_T0 = time.perf_counter()
+
+
 def phase(title: str) -> None:
-    print(f"\n== {title}", flush=True)
+    print(f"\n== {title} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def _u32(t: torch.Tensor) -> torch.Tensor:
@@ -383,10 +423,9 @@ def _compare(k: dict, x: torch.Tensor, stats: dict, where: str,
     k["into"](x, *ghosts, out, flags)
     want, want_flags = k["plain"](x, *ghosts)
     torch.cuda.synchronize(dev)
-    err = max(
-        int((_u32(out) - _u32(want)).abs().max()),
-        int((flags - want_flags).abs().max()),
-    )
+    err = int((_u32(out) - _u32(want)).abs().max())
+    if flags.numel():
+        err = max(err, int((flags - want_flags).abs().max()))
     s = stats[k["key"]]
     s["max_abs_err"] = max(s["max_abs_err"], err)
     s["checks"] += 1
@@ -402,9 +441,9 @@ def check_kernels(dev, stats: dict) -> None:
             x = pm.encode(torch.from_numpy(cells).to(dev))
             for k in PACKED:
                 _compare(k, x, stats, f"({height}, {nwords}) on {name}")
-        print(f"(height, nwords) ({height}, {nwords}): K1 K2 K3 == plain on "
-              "random, dies, becomes_still (tolerance 0: words and flags "
-              "identical)", flush=True)
+        print(f"(height, nwords) ({height}, {nwords}): "
+              f"{' '.join(k['id'] for k in PACKED)} == plain on random, dies, "
+              "becomes_still (tolerance 0: words and flags identical)", flush=True)
     for height, width in BYTE_SHAPES:
         for name, cells in _cell_inputs(height, width, rng).items():
             x = torch.from_numpy(cells).to(dev)
@@ -654,6 +693,96 @@ def mesh_flows(work: Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 3c. The checkpoint lane at 64^2
+
+_RESTORED = re.compile(r"restored checkpoint at generation (\d+)")
+CKPT_LANES = [("game", ["--kernel", "auto"]), ("game", ["--kernel", "pallas"]),
+              ("game", ["--packed-io"]), ("cuda", ["--kernel", "auto"]),
+              ("cuda", ["--kernel", "pallas"]), ("cuda", ["--packed-io"]),
+              ("tpu", ["--mesh", "2x2"])]
+CKPT_EVERY, CKPT_KILL_AT = 100, 300
+
+
+def _manifests(ckdir: Path) -> list[str]:
+    return sorted(p.name for p in ckdir.glob("*.manifest.json"))
+
+
+def checkpoint_flows(work: Path) -> None:
+    """Phase 3c: every lane of CKPT_LANES with the async and the sync
+    writer, against the oracle: a run checkpointed every CKPT_EVERY
+    generations and, from a directory of its own, a run SIGKILLed at
+    CKPT_KILL_AT and its --auto-resume. The kills are subprocesses, all in
+    parallel (a real SIGKILL needs a process of its own); the other runs go
+    through ``cli.main`` in this process."""
+    grid = _flows()["random64"]
+    inp, n = work / "random64.txt", grid.shape[0]
+    every, kill_at = CKPT_EVERY, CKPT_KILL_AT
+    chains = []
+    for variant, flags in CKPT_LANES:
+        convention = Convention.CUDA if variant == "cuda" else Convention.C
+        want = oracle.run(grid, GameConfig(convention=convention))
+        for writer in ([], ["--sync-checkpoints"]):
+            tag = "_".join([variant, *flags, *writer]).replace("-", "")
+            chains.append({
+                "label": " ".join(["--variant", variant, *flags, *writer]),
+                "argv": [str(n), str(n), str(inp), "--variant", variant, *flags,
+                         *writer, "--checkpoint-every", str(every),
+                         "--output", str(work / f"ck_{tag}.out")],
+                "out": work / f"ck_{tag}.out", "ckdir": work / f"ck_{tag}",
+                "want": want, "last": (want.generations - 1) // every * every,
+            })
+
+    def in_process(chain, ckdir, extra=()) -> str:
+        """One checkpointed run in this process, against the oracle: its
+        stderr (the restore notice)."""
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc, text = _cli_capture([*chain["argv"], "--checkpoint-dir",
+                                     str(ckdir), *extra])
+        want = chain["want"]
+        gens = re.search(r"Generations:\t(\d+)", text)
+        if (rc != 0 or not gens or int(gens.group(1)) != want.generations
+                or chain["out"].read_bytes() != text_grid.encode(want.grid)):
+            fail(f"random64 {chain['label']} {' '.join(extra)}: rc {rc}, "
+                 f"{text!r} {err.getvalue()[-2000:]}")
+        chain["out"].unlink()
+        return err.getvalue()
+
+    for chain in chains:
+        full = work / f"full_{chain['ckdir'].name}"
+        in_process(chain, full)
+        kept = _manifests(full)
+        if kept != [f"ckpt-{g:08d}.manifest.json"
+                    for g in (chain["last"] - every, chain["last"])]:
+            fail(f"random64 {chain['label']}: --checkpoint-every {every} kept {kept}")
+
+    def kill(chain):
+        return subprocess.run(
+            [sys.executable, "-m", "gol_tpu_torch", *chain["argv"],
+             "--checkpoint-dir", str(chain["ckdir"])], cwd=work,
+            env={**_subprocess_env(),
+                 "GOL_FAULTS": f"kill_at_gen={kill_at},kill_mode=sigkill"},
+            capture_output=True, text=True, timeout=300)
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(chains)) as pool:
+        killed = list(pool.map(kill, chains))
+    for chain, proc in zip(chains, killed):
+        newest = _manifests(chain["ckdir"])
+        if (proc.returncode != -signal.SIGKILL or chain["out"].exists()
+                or newest[-1:] != [f"ckpt-{kill_at - every:08d}.manifest.json"]):
+            fail(f"random64 {chain['label']}: the SIGKILL run exited "
+                 f"{proc.returncode} with manifests {newest}: {proc.stderr[-2000:]}")
+        restored = _RESTORED.search(in_process(chain, chain["ckdir"], ["--auto-resume"]))
+        if not restored or int(restored.group(1)) != kill_at - every:
+            fail(f"random64 {chain['label']}: --auto-resume did not restore "
+                 f"generation {kill_at - every}")
+        print(f"random64 {chain['label']}: checkpointed run (kept {chain['last'] - every} "
+              f"and {chain['last']}), SIGKILL at {kill_at} (newest manifest "
+              f"{newest[-1]}), --auto-resume from {restored.group(1)}: "
+              f"Generations {chain['want'].generations}, bytes == oracle", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # 4. The main path at 16384^2
 
 
@@ -872,6 +1001,66 @@ def mesh_path(work: Path, dev, path: dict) -> dict:
     return {"launches": by_path, "run_a": run_a}
 
 
+def checkpoint_path(work: Path, path: dict) -> dict:
+    """Phase 4c: run (a) under --variant game --checkpoint-every 250, async
+    and sync, then a SIGKILL at 500 and --auto-resume: every output equal
+    to phase 4's run (a)."""
+    inp, out = path["inputs"]["random"], work / "out.txt"
+    want = path["results"][("game", "random", 1000)]
+    base = [str(SIZE), str(SIZE), str(inp), "--variant", "game",
+            "--gen-limit", "1000", "--checkpoint-every", "250", "--output", str(out)]
+    runs, by_path = {}, {}
+    reg = obs_registry.default()
+    for name, extra in (("async", []), ("sync", ["--sync-checkpoints"])):
+        ckdir = work / f"ck4c_{name}"
+        before = {k: reg.counter(k) for k in (
+            "checkpoint_saves_total", "pipeline_stalls_total",
+            "checkpoint_write_hidden_seconds")}
+        _zero_counters()
+        gens, ms, _ = _cli([*base, *extra, "--checkpoint-dir", str(ckdir)])
+        by_path[f"game auto checkpoint {name}"] = _counts()
+        if by_path[f"game auto checkpoint {name}"]["bandt_fast"] == 0:
+            fail(f"--checkpoint-every 250 ({name}) launched no K1")
+        if (gens, _digest(out)) != want:
+            fail(f"--checkpoint-every 250 ({name}): Generations {gens} or bytes "
+                 f"differ from phase 4's run (a)")
+        kept = _manifests(ckdir)
+        if kept != ["ckpt-00000500.manifest.json", "ckpt-00000750.manifest.json"]:
+            fail(f"--checkpoint-every 250 ({name}) kept {kept}")
+        runs[name] = {"exec_ms": ms, **{k: reg.counter(k) - v
+                                        for k, v in before.items()}}
+        print(f"(a) game --checkpoint-every 250, {name} writer: Generations {gens}, "
+              f"Execution {ms:.3f} ms, {runs[name]}, bytes == run (a)", flush=True)
+        shutil.rmtree(ckdir)
+    ckdir = work / "ck4c_kill"
+    out.unlink()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gol_tpu_torch", *base, "--checkpoint-dir",
+         str(ckdir)], cwd=work, capture_output=True, text=True, timeout=600,
+        env={**_subprocess_env(), "GOL_FAULTS": "kill_at_gen=500,kill_mode=sigkill"})
+    kept = _manifests(ckdir)
+    if proc.returncode != -signal.SIGKILL or out.exists() or kept != [
+            "ckpt-00000250.manifest.json"]:
+        fail(f"the 16384^2 SIGKILL run exited {proc.returncode} with manifests "
+             f"{kept}: {proc.stderr[-2000:]}")
+    print(f"(a) game --checkpoint-every 250 SIGKILLed at 500 after "
+          f"{time.perf_counter() - t0:.1f} s: manifests {kept}", flush=True)
+    _zero_counters()
+    gens, ms, _ = _cli([*base, "--checkpoint-dir", str(ckdir), "--auto-resume"])
+    by_path["game auto checkpoint resumed"] = _counts()
+    if (gens, _digest(out)) != want:
+        fail(f"--auto-resume at {SIZE}^2: Generations {gens} or bytes differ from "
+             "phase 4's run (a)")
+    runs["resumed from 250"] = {"exec_ms": ms}
+    print(f"(a) game --auto-resume from generation 250: Generations {gens}, "
+          f"Execution {ms:.3f} ms, bytes == run (a)", flush=True)
+    runs["phase 4 run (a)"] = {"exec_ms": path["run_a"]["game auto"]["exec_ms"]}
+    print("checkpoint lane Execution time, ms: " + ", ".join(
+        f"{k} {v['exec_ms']:.3f}" for k, v in runs.items()), flush=True)
+    return {"launches": by_path, "runs": runs}
+
+
 # ---------------------------------------------------------------------------
 # 5. Timing at 16384^2
 
@@ -892,42 +1081,11 @@ def _time(fn, x, y, pairs: int) -> float:
     return start.elapsed_time(end) / (2 * pairs)
 
 
-def _time_graph(fn, x, y, pairs: int) -> tuple[float, float]:
-    """``(ms, wrapper_ms)`` per call of ``fn(src, dst)``: ``2 * pairs``
-    ping-pong calls captured in one CUDA graph on the stream the wrappers
-    launch on, then replayed between two events, so the host issues one
-    launch for all of them and the card sets the time. While capturing
-    nothing runs, so the host's time per call there is the wrapper's own
-    (its checks and the ctypes call)."""
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        t0 = time.perf_counter()
-        for _ in range(pairs):
-            fn(x, y)
-            fn(y, x)
-        wrapper_ms = (time.perf_counter() - t0) * 1e3 / (2 * pairs)
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (2 * pairs), wrapper_ms
-
-
 def logic_ops_per_s() -> float:
     """The card's peak rate of 32-bit integer logic results per second."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True,
-    ).stdout.split()[0])
-    rate = INT32_LOGIC_PER_CLK_PER_SM * sms * mhz * 1e6
-    print(f"32-bit logic rate: {INT32_LOGIC_PER_CLK_PER_SM}/clk/SM x {sms} SMs "
-          f"x {mhz} MHz = {rate} ops/s", flush=True)
+    rate = roofline.logic_ops_per_s()
+    print(f"32-bit logic rate: {roofline.INT32_LOGIC_PER_CLK_PER_SM}/clk/SM x "
+          f"SMs x max SM clock = {rate} ops/s", flush=True)
     return rate
 
 
@@ -939,7 +1097,7 @@ def _timed(k: dict, x: torch.Tensor, ghosts: list, ops_per_s: float) -> dict:
     flags = torch.zeros(k["nflags"], dtype=torch.int32, device=x.device)
     launch = lambda a, b: k["into"](a, *ghosts, b, flags)
     eager_ms = _time(launch, x, y, 50)
-    ms, wrapper_ms = _time_graph(launch, x, y, 50)
+    ms, wrapper_ms = profiler.graph_ms(launch, x, y, 50)
     plain_ms = _time(lambda a, b: k["plain"](a, *ghosts), x, y, 50)
     nbytes = 2 * x.numel() * x.element_size() + sum(
         g.numel() * g.element_size() for g in ghosts)
@@ -985,6 +1143,31 @@ def timing(dev) -> dict:
     return out
 
 
+def roofline_phase() -> tuple[dict, dict]:
+    """Phase 6: the roofline tool at 16384^2 and 65536^2, with the counters
+    zeroed before it. Returns its report and the launch counts."""
+    _zero_counters()
+    report = roofline.report(roofline.SIZES)
+    counts = _counts()
+    if counts["bandt_noflags"] == 0:
+        fail("the roofline launched no K14")
+    for size in report["sizes"]:
+        for name, c in size["checks"].items():
+            if c["words_differing"] or c["flags_differing"]:
+                fail(f"roofline {name} at {size['size']}^2 disagrees with "
+                     f"its plain version: {c}")
+        print(f"{size['size']}^2: K1, K2, K14 outputs and flags identical "
+              "to their plain versions (tolerance 0)", flush=True)
+        k = size["kernels"]
+        print(f"{size['size']}^2: " + ", ".join(
+            f"{name} {k[name]['graph']['ms']:.6f} ms (profiler "
+            f"{k[name]['profiler']['ms']:.6f})" for name in k)
+            + f"; bound {size['bound_ms']:.6f} ms ({size['bound_by']}); flag "
+            f"overhead {size['flag_overhead_fraction']}, against K1 "
+            f"{size['flag_overhead_fraction_k1']}", flush=True)
+    return report, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card; this smoke test needs one",
@@ -1008,18 +1191,27 @@ def main() -> int:
         os.environ[platform_env.MESH_DEVICES_ENV] = MESH_DEVICES
         phase("3b. small flows over a mesh of four shards")
         one_word = mesh_flows(work)
+        phase("3c. the checkpoint lane at 64x64")
+        checkpoint_flows(work)
         phase(f"4. main path at {SIZE}x{SIZE} through the CLI")
         path = main_path(work, dev)
         phase(f"4b. mesh path at {SIZE}x{SIZE} through the CLI")
         mesh = mesh_path(work, dev, path)
+        phase(f"4c. the checkpoint lane at {SIZE}x{SIZE}")
+        ckpt = checkpoint_path(work, path)
         phase("5. timing")
         times = timing(dev)
+        phase("6. the flag-cost roofline")
+        roof, roof_counts = roofline_phase()
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     print("main path run (a): " + json.dumps({**path["run_a"], **mesh["run_a"]}))
-    launches = {**path["launches"], **mesh["launches"],
-                "tpu 2x2 auto 64x64 (one-word shards)": one_word}
+    print("checkpoint lane: " + json.dumps(ckpt["runs"]))
+    print(json.dumps({"roofline": roof}))
+    launches = {**path["launches"], **mesh["launches"], **ckpt["launches"],
+                "tpu 2x2 auto 64x64 (one-word shards)": one_word,
+                "roofline": roof_counts}
     table = []
     for k in KERNELS:
         key = k["key"]
@@ -1031,6 +1223,8 @@ def main() -> int:
             "max_abs_err": stats[key]["max_abs_err"],
             "checks": stats[key]["checks"], **times[key], "library_ms": None,
         })
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - _T0:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,11 +2,12 @@
 
 The same CLI contract, text grid format, B3/S23 toroidal semantics and
 early-exit accounting as the JAX package, which stays beside it as the
-reference, on one card or over a mesh of shards (``parallel/``). The TPU
-kernels of those paths (the packed K1-K3, the byte K4, and the mesh-shard
-K5-K8) are hand-written CUDA kernels for Hopper (``csrc/``), built
-with nvcc at first use and bound with ctypes; each has a plain torch
-version that the CPU path runs. The packed-I/O text codec
+reference, on one card or over a mesh of shards (``parallel/``), with the
+crash-safe checkpoint lane (``resilience/``, ``pipeline/``, ``obs/``). Every
+TPU kernel of the repo (K1-K14) is a hand-written CUDA kernel for Hopper
+(``csrc/``), built with nvcc at first use and bound with ctypes; each has a
+plain torch version that the CPU path runs. K14 serves the flag-cost
+roofline (``tools/roofline.py``). The packed-I/O text codec
 (``native/codec.c``) builds the same way with cc. The port imports neither
 ``jax`` nor ``gol_tpu``.
 """

@@ -17,9 +17,10 @@ The port of ``gol_tpu/cli.py``'s ``run``:
   sets how many shards the devices hold;
 - lanes: the device run (``--kernel``), ``--packed-io`` (word state straight
   from and to the file), ``--host`` (the numpy oracle), ``--snapshot-every``
-  and ``--resume-gen`` (segmented runs); all but ``--host`` run on a mesh
-  too. Checkpointing, patterns and the sparse and macro engines are not
-  ported;
+  and ``--resume-gen`` (segmented runs), and the crash-safe checkpoint lane
+  (``--checkpoint-every``, ``--auto-resume``, the async writer,
+  ``GOL_FAULTS`` / ``--fault-plan``); all but ``--host`` run on a mesh too.
+  Patterns and the sparse and macro engines are not ported;
 - timings print as ``<Phase>:\\t<ms> msecs``. Execution time excludes set-up
   — the kernels' build and load, and the optional ``--warmup`` run happen
   before the timer starts — and ends in a device sync.
@@ -34,18 +35,20 @@ Subcommand ``generate <width> <height>`` emits a random grid (generate.sh).
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import re
 import sys
 import time
 
-import torch
-
 from gol_tpu_torch import engine, oracle
 from gol_tpu_torch.config import DEFAULT_HEIGHT, DEFAULT_WIDTH, GameConfig
 from gol_tpu_torch.io import packed_io, sharded, text_grid
+from gol_tpu_torch.obs.profiler import fence
 from gol_tpu_torch.parallel.mesh import make_mesh, topology_for, validate_grid
-from gol_tpu_torch.platform_env import NoDeviceError, resolve_device
+from gol_tpu_torch.platform_env import (NoDeviceError, configure_cli_logging,
+                                        resolve_device)
+from gol_tpu_torch.resilience import faults
 from gol_tpu_torch.variants import VARIANTS, Variant, get_variant
 
 # Dense-materialization ceiling (cells): 2^30 cells is a 1 GB uint8 canvas
@@ -114,10 +117,51 @@ def _write_phase(variant: Variant, path: str, grid, mesh=None) -> None:
                               mesh=mesh)
 
 
-def _sync(*devices: torch.device) -> None:
-    for device in set(devices):
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+def _checkpointing(args) -> bool:
+    # `is not None`, not truthiness: --checkpoint-every 0 must reach the
+    # validator and be rejected loudly, not silently disable the lane.
+    return (
+        args.checkpoint_every is not None
+        or args.auto_resume
+        or args.checkpoint_dir is not None
+    )
+
+
+def _validate_checkpoint_args(args) -> None:
+    """Normalize and cross-check the crash-safety flags before any lane runs
+    (so a contradictory combination never half-starts a checkpoint dir)."""
+    if not _checkpointing(args):
+        return
+    if args.checkpoint_dir is None:
+        args.checkpoint_dir = "./checkpoints"
+    if args.checkpoint_every is None and not args.auto_resume:
+        raise ValueError(
+            "--checkpoint-dir needs --checkpoint-every N (write checkpoints) "
+            "and/or --auto-resume (restart from the newest one)"
+        )
+    if args.checkpoint_every is not None and args.checkpoint_every <= 0:
+        raise ValueError(
+            f"--checkpoint-every must be positive, got {args.checkpoint_every}"
+        )
+    if args.checkpoint_keep < 1:
+        raise ValueError(
+            f"--checkpoint-keep must be >= 1, got {args.checkpoint_keep}"
+        )
+    if args.snapshot_every:
+        raise ValueError(
+            "checkpointing does not compose with --snapshot-every: a "
+            "checkpoint IS a resumable snapshot plus a crash-consistent "
+            "manifest — use one or the other"
+        )
+    if args.auto_resume and args.resume_gen:
+        raise ValueError(
+            "--auto-resume discovers the resume generation from the "
+            "checkpoint manifests; --resume-gen contradicts it"
+        )
+    if args.host:
+        raise ValueError(
+            "checkpointing rides the segmented device loop; --host has none"
+        )
 
 
 def _run(args) -> int:
@@ -125,6 +169,13 @@ def _run(args) -> int:
         if args.gens < 0:
             raise ValueError(f"--gens must be >= 0, got {args.gens}")
         args.gen_limit = args.gens
+    if args.fault_plan:
+        faults.install(faults.FaultPlan.parse(args.fault_plan))
+    else:
+        # from_env() is None when GOL_FAULTS is unset, so a plan armed by a
+        # previous in-process run is cleared: each run gets exactly the
+        # faults it asked for.
+        faults.install(faults.FaultPlan.from_env())
     variant = get_variant(args.variant)
     width, height = atoi(args.width), atoi(args.height)
     if variant.force_square:
@@ -148,6 +199,7 @@ def _run(args) -> int:
     )
     output_path = args.output or f"./{variant.output_file}"
 
+    _validate_checkpoint_args(args)
     if args.resume_gen < 0:
         raise ValueError(f"--resume-gen must be >= 0, got {args.resume_gen}")
     if args.resume_gen > config.gen_limit:
@@ -215,7 +267,10 @@ def _run(args) -> int:
     if variant.io_timings:
         print(f"Reading file:\t{read_ms:.2f} msecs")
 
-    if args.snapshot_every:
+    if _checkpointing(args):
+        run_fn = _prepare_checkpointed(args, variant, config, device_grid,
+                                       height, width, device, mesh, packed=False)
+    elif args.snapshot_every:
         run_fn = _prepare_segmented(args, variant, config, device_grid, height,
                                     width, device, mesh)
     elif args.resume_gen:
@@ -225,15 +280,14 @@ def _run(args) -> int:
         runner = engine.make_runner((height, width), config, args.kernel, device,
                                     mesh=mesh)
         if args.warmup:
-            runner(device_grid)
-            _sync(*devices)
+            fence(runner(device_grid))
 
         def run_fn():
             return runner(device_grid)
 
     t0 = time.perf_counter()
     final, generations = run_fn()
-    _sync(*devices)
+    fence(final)
     exec_ms = (time.perf_counter() - t0) * 1000
 
     return _report_and_write(
@@ -273,7 +327,10 @@ def _run_packed_io(args, variant, config, width, height, output_path, devices,
     if variant.io_timings:
         print(f"Reading file:\t{read_ms:.2f} msecs")
 
-    if args.snapshot_every:
+    if _checkpointing(args):
+        run_fn = _prepare_checkpointed(args, variant, config, words, height,
+                                       width, device, mesh, packed=True)
+    elif args.snapshot_every:
         run_fn = _prepare_packed_segmented(args, config, words, height, width,
                                            device, mesh)
     elif args.resume_gen:
@@ -283,15 +340,14 @@ def _run_packed_io(args, variant, config, width, height, output_path, devices,
         runner = engine.make_packed_runner((height, width), config, device,
                                            mesh=mesh)
         if args.warmup:
-            runner(words)
-            _sync(*devices)
+            fence(runner(words))
 
         def run_fn():
             return runner(words)
 
     t0 = time.perf_counter()
     final, generations = run_fn()
-    _sync(*devices)
+    fence(final)
     exec_ms = (time.perf_counter() - t0) * 1000
 
     return _report_and_write(
@@ -361,6 +417,150 @@ def _prepare_resumed(args, config, state, height, width, device, mesh, *,
         final, gen, _counter, _stopped = runner(state, gen0, counter0,
                                                 config.gen_limit)
         return final, report(gen)
+
+    return run_fn
+
+
+def _checkpoint_codec(args, variant, width, height, device, mesh):
+    """Payload encoding of the checkpoint lane: the packed lane stores the
+    bitpacked words through the packed text codec (what the JAX package
+    writes without tensorstore: the port has no zarr store), the byte lane a
+    text grid through the variant's own I/O. Both are topology-independent,
+    so checkpoints restore across mesh changes and across the two
+    packages."""
+    from gol_tpu_torch.resilience.checkpoint import PayloadCodec
+
+    if args.packed_io:
+        return PayloadCodec(
+            format="packed-text",
+            suffix=".out",
+            write=lambda path, state: packed_io.write_packed(path, state, width, mesh),
+            read=lambda path: packed_io.read_packed(path, width, height, device, mesh),
+        )
+    return PayloadCodec(
+        format="text-grid",
+        suffix=".out",
+        write=lambda path, state: _write_phase(variant, path, state, mesh),
+        read=lambda path: _read_phase(variant, path, width, height, device, mesh),
+    )
+
+
+def _refuse_zarr_checkpoints(directory: str) -> None:
+    """A directory holding the JAX package's ``zarr-words`` checkpoints
+    (TensorStore payloads) is refused: the port cannot read them, and
+    resuming past them, or pruning them, would misreport what ran."""
+    if not os.path.isdir(directory):
+        return
+    for name in sorted(os.listdir(directory)):
+        if not name.endswith(".manifest.json"):
+            continue
+        try:
+            with open(os.path.join(directory, name)) as f:
+                fmt = json.load(f).get("payload_format")
+        except (OSError, ValueError):
+            continue  # an unreadable manifest is restore()'s to skip
+        if fmt == "zarr-words":
+            raise ValueError(
+                f"{os.path.join(directory, name)}: a zarr-words checkpoint "
+                "(TensorStore payload) is not readable by the PyTorch port; "
+                "resume it with python -m gol_tpu, or use another "
+                "--checkpoint-dir"
+            )
+
+
+def _prepare_checkpointed(args, variant, config, state, height, width, device,
+                          mesh, *, packed):
+    """The crash-safe lane: --checkpoint-every writes an atomic checkpoint
+    (fresh payload + manifest committed last; resilience/checkpoint.py) at
+    every segment boundary, and --auto-resume restarts from the newest valid
+    manifest, with no --resume-gen arithmetic. Resumed runs are bit-exact
+    with uninterrupted ones: the segment loop carries the exact resume
+    scalars (``engine.resume_scalars``), so the output file and the
+    reported Generations are byte-identical either way.
+
+    Everything before ``run_fn`` is set-up outside the timer: the
+    fingerprint of the initial state, the restore, the runner's build (the
+    kernels' build and load) and one zero-step call of it, the port's
+    counterpart of the JAX lane's zero-step compile call."""
+    from gol_tpu_torch.resilience.checkpoint import CheckpointManager, run_fingerprint
+
+    _refuse_zarr_checkpoints(args.checkpoint_dir)
+    mesh_shape = mesh.shape if mesh is not None else (1, 1)
+    guard = None
+    if args.disk_reserve:
+        # The shed-checkpoints tier of the disk-pressure watchdog, ticked at
+        # every save boundary.
+        from gol_tpu_torch.resilience.diskguard import DiskGuard
+
+        guard = DiskGuard(args.checkpoint_dir, admission_bytes=args.disk_reserve)
+    mgr = CheckpointManager(
+        args.checkpoint_dir,
+        height=height,
+        width=width,
+        codec=_checkpoint_codec(args, variant, width, height, device, mesh),
+        keep=args.checkpoint_keep,
+        guard=guard,
+        # Fingerprinted on the initial state (before any restore): a reused
+        # checkpoint dir holding another input's checkpoints must never hand
+        # that run's state to this one.
+        run_fingerprint=run_fingerprint(state, tag=config.convention,
+                                        mesh_shape=mesh_shape),
+        mesh_shape=mesh_shape,
+    )
+    completed = args.resume_gen
+    if args.auto_resume:
+        # Checkpoints past --gen-limit are skipped, mirroring the
+        # --resume-gen validator.
+        restored = mgr.restore(max_generation=config.gen_limit)
+        if restored is not None:
+            state, info = restored
+            completed = info.generation
+
+    if packed:
+        runner = engine.make_packed_segment_runner((height, width), config,
+                                                   device, mesh=mesh)
+    else:
+        runner = engine.make_segment_runner((height, width), config,
+                                            args.kernel, device, mesh=mesh)
+    gen0, counter0 = engine.resume_scalars(config, completed)
+    fence(runner(state, gen0, counter0, 0))  # zero-step call: first launches warm
+    segment = args.checkpoint_every or max(1, config.gen_limit)
+
+    # The async writer (default): a boundary costs the card only the
+    # device->host snapshot; payload write and fsync run on a background
+    # thread while the next segment computes, and the manifest commits at
+    # the next boundary after draining that write (pipeline/writer.py).
+    # --sync-checkpoints keeps the fully synchronous path; both give
+    # identical outputs and checkpoint payloads.
+    use_async = bool(args.checkpoint_every) and not args.sync_checkpoints
+
+    def run_fn():
+        writer = None
+        if use_async:
+            from gol_tpu_torch.pipeline.writer import AsyncCheckpointWriter
+
+            writer = AsyncCheckpointWriter(mgr)
+        try:
+            final, generations = state, completed
+            for generations, final, stopped in engine._iter_segments(
+                    runner, state, config, segment, completed):
+                if args.checkpoint_every and not stopped:
+                    # An early-exited state is the final output, not mid-run
+                    # state: a checkpoint of it would replay as mid-run on
+                    # resume and change the reported count.
+                    _, counter = engine.resume_scalars(config, generations)
+                    if writer is not None:
+                        writer.save(final, generations, counter)
+                    else:
+                        mgr.save(final, generations, counter)
+            if writer is not None:
+                # The final boundary's deferred wait: commit the last
+                # pending checkpoint before the run reports success.
+                writer.drain()
+            return final, generations
+        finally:
+            if writer is not None:
+                writer.close()  # join on exit, also on the error path
 
     return run_fn
 
@@ -466,6 +666,64 @@ def build_parser() -> argparse.ArgumentParser:
         help="read and write the file straight to and from bitpacked device "
         "state through the native codec (width must divide by 32)",
     )
+    run.add_argument(
+        "--checkpoint-every",
+        type=int,
+        default=None,
+        metavar="N",
+        help="write a crash-consistent checkpoint (fresh payload + atomically "
+        "committed manifest) every N generations; a crash at any point "
+        "leaves the newest prior checkpoint readable",
+    )
+    run.add_argument(
+        "--checkpoint-dir",
+        default=None,
+        metavar="D",
+        help="checkpoint directory (default ./checkpoints)",
+    )
+    run.add_argument(
+        "--checkpoint-keep",
+        type=int,
+        default=2,
+        metavar="K",
+        help="retain the K newest checkpoints (default 2; >= 1)",
+    )
+    run.add_argument(
+        "--auto-resume",
+        action="store_true",
+        help="restart from the newest valid checkpoint manifest in "
+        "--checkpoint-dir — no --resume-gen arithmetic; resumed runs are "
+        "bit-exact with uninterrupted ones",
+    )
+    run.add_argument(
+        "--disk-reserve",
+        type=int,
+        default=0,
+        metavar="N",
+        help="disk-pressure watchdog on the checkpoint directory "
+        "(resilience/diskguard.py): below 2N free bytes checkpoint saves "
+        "shed loudly (the run continues; auto-resume falls back to the "
+        "previous committed checkpoint) and recover automatically. "
+        "0 (default) disables the guard",
+    )
+    run.add_argument(
+        "--sync-checkpoints",
+        action="store_true",
+        help="write checkpoints synchronously (device idle during payload "
+        "write + fsync). Default is the async writer (gol_tpu_torch/pipeline): "
+        "a boundary costs only a device->host snapshot, the payload writes on "
+        "a background thread under the next segment's compute, and the "
+        "manifest commits at the next boundary — bit-identical outputs and "
+        "payloads either way; this flag is the A/B lever",
+    )
+    run.add_argument(
+        "--fault-plan",
+        default=None,
+        metavar="SPEC",
+        help="fault injection for the crash-recovery harness, k=v comma "
+        "list (see gol_tpu_torch/resilience/faults.py; also honored from the "
+        "GOL_FAULTS env var). Testing only.",
+    )
     run.set_defaults(func=_run)
 
     gen = sub.add_parser("generate", help="emit a random grid (replaces generate.sh)")
@@ -479,6 +737,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: list[str] | None = None) -> int:
+    configure_cli_logging()
     argv = list(sys.argv[1:]) if argv is None else list(argv)
     # Default command is `run`, preserving the bare `<w> <h> <file>` contract.
     if not argv or argv[0] not in ("run", "generate", "-h", "--help"):

@@ -16,6 +16,10 @@
 //       with exact per-generation flags, alive[0..7] and !similar[8..15].
 //   band_kernel            K3  _band_kernel (via _step): one generation
 //       with fused (alive, !similar).
+//   bandt_kernel<NONE>     K14 _bandt_noflags_kernel (tools/roofline_r4.py,
+//       via _step_t_noflags): K2 with every flag operation compiled out,
+//       words out only. A measurement kernel for the flag-cost roofline
+//       (gol_tpu_torch/tools/roofline.py); no engine path launches it.
 //
 // and, for one shard of a device mesh, fed ghosts by the halo exchange
 // (gol_tpu_torch/parallel/halo.py) instead of wrapping within itself:
@@ -228,6 +232,13 @@ dist_band_kernel(const uint32_t* __restrict__ in,
   block_or(differs, flags + 1);
 }
 
+// Which flags a bandt_kernel pass computes.
+enum FlagMode {
+  kSummary = 0,  // K1/K7/K9+K10: (in_alive, out_alive, !simT, !sim1)
+  kExact = 1,    // K2/K8/K11-K13: alive[0..7], !similar[8..15]
+  kNone = 2      // K14: none; the pass writes its words and nothing else
+};
+
 // Where a tile's cells come from.
 enum Source {
   kTorus = 0,      // the grid itself, rows and columns modulo its shape
@@ -236,17 +247,24 @@ enum Source {
                    // columns -1 and nwords from gwest/geast
 };
 
-// K1 (EXACT = false) / K2 (EXACT = true) on the torus (SRC = kTorus), K7 /
-// K8 on a full-width mesh shard (kGhostRows), K9+K10 / K11+K12+K13 on a
-// shard with mesh columns (kGhostPlane): kGens generations of one
-// kTileRows x kTileWords tile in shared memory.
+// K1 (FLAGS = kSummary) / K2 (kExact) / K14 (kNone) on the torus (SRC =
+// kTorus), K7 / K8 on a full-width mesh shard (kGhostRows), K9+K10 /
+// K11+K12+K13 on a shard with mesh columns (kGhostPlane): kGens
+// generations of one kTileRows x kTileWords tile in shared memory.
+//
+// Barriers: the generation loop's __syncthreads at the top of each step
+// orders the previous step's writes of one buffer before this step's reads
+// of it, and this step's writes of the other buffer after the previous
+// step's reads of it; the one after the loop orders the last step before
+// the write-out. block_or is a barrier too, but no step relies on it, so
+// kNone, which makes no block_or call, needs no other barrier.
 //
 // The shared tile is padded by one always-zero word on every side, so the
 // stencil reads its 3x3 neighbourhood without bounds checks: padded row p
 // holds grid row r0 - kGens + p - 1 and padded column q holds grid word
 // w0 + q - 2 (both modulo the grid; a shard's rows and columns as set out
 // above).
-template <bool EXACT, Source SRC>
+template <FlagMode FLAGS, Source SRC>
 __global__ void __launch_bounds__(kThreads)
 bandt_kernel(const uint32_t* __restrict__ in, const uint32_t* __restrict__ gtop,
              const uint32_t* __restrict__ gbot,
@@ -298,12 +316,14 @@ bandt_kernel(const uint32_t* __restrict__ in, const uint32_t* __restrict__ gtop,
       } else {
         v = row[gw];
       }
-      in_alive |= (v != 0) && p >= p_lo && p < p_hi && q >= q_lo && q < q_hi;
+      if (FLAGS != kNone) {
+        in_alive |= (v != 0) && p >= p_lo && p < p_hi && q >= q_lo && q < q_hi;
+      }
     }
     tile[0][p][q] = v;
     tile[1][p][q] = 0;
   }
-  if (!EXACT) block_or(in_alive, flags + 0);
+  if (FLAGS == kSummary) block_or(in_alive, flags + 0);
 
   int cur = 0;
   for (int t = 0; t < kGens; ++t) {
@@ -318,16 +338,16 @@ bandt_kernel(const uint32_t* __restrict__ in, const uint32_t* __restrict__ gtop,
                       s[p][q - 1], x, s[p][q + 1], s[p + 1][q - 1],
                       s[p + 1][q], s[p + 1][q + 1]);
       tile[cur ^ 1][p][q] = nv;
-      if (p >= p_lo && p < p_hi && q >= q_lo && q < q_hi) {
+      if (FLAGS != kNone && p >= p_lo && p < p_hi && q >= q_lo && q < q_hi) {
         alive |= nv != 0;
         differs |= nv != x;
       }
     }
     cur ^= 1;
-    if (EXACT) {
+    if (FLAGS == kExact) {
       block_or(alive, flags + t);
       block_or(differs, flags + kGens + t);
-    } else {
+    } else if (FLAGS == kSummary) {
       if (t == 0) block_or(differs, flags + 3);
       if (t == kGens - 1) {
         block_or(alive, flags + 1);
@@ -351,17 +371,17 @@ unsigned word_blocks(int height, int nwords) {
   return static_cast<unsigned>((words + kThreads - 1) / kThreads);
 }
 
-template <Source SRC>
+template <FlagMode FLAGS, Source SRC>
 int launch_bandt(const void* in, const void* gtop, const void* gbot,
                  const void* gwest, const void* geast, void* out, void* flags,
-                 int height, int nwords, int exact, int device, void* stream) {
+                 int height, int nwords, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles_x = (nwords + kTileWords - 1) / kTileWords;
   const int tiles_y = (height + kTileRows - 1) / kTileRows;
   const unsigned blocks = static_cast<unsigned>(tiles_x) * tiles_y;
-  auto kernel = exact ? bandt_kernel<true, SRC> : bandt_kernel<false, SRC>;
-  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  bandt_kernel<FLAGS, SRC><<<blocks, kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(in), static_cast<const uint32_t*>(gtop),
       static_cast<const uint32_t*>(gbot), static_cast<const uint32_t*>(gwest),
       static_cast<const uint32_t*>(geast), static_cast<uint32_t*>(out),
@@ -390,8 +410,18 @@ int gol_band_step(const void* in, void* out, void* flags, int height,
 
 int gol_bandt_pass(const void* in, void* out, void* flags, int height,
                    int nwords, int exact, int device, void* stream) {
-  return launch_bandt<kTorus>(in, nullptr, nullptr, nullptr, nullptr, out,
-                              flags, height, nwords, exact, device, stream);
+  auto launch = exact ? launch_bandt<kExact, kTorus>
+                      : launch_bandt<kSummary, kTorus>;
+  return launch(in, nullptr, nullptr, nullptr, nullptr, out, flags, height,
+                nwords, device, stream);
+}
+
+// K14: the torus pass with no flags (no flag buffer).
+int gol_bandt_noflags_pass(const void* in, void* out, int height, int nwords,
+                           int device, void* stream) {
+  return launch_bandt<kNone, kTorus>(in, nullptr, nullptr, nullptr, nullptr,
+                                     out, nullptr, height, nwords, device,
+                                     stream);
 }
 
 // K5. top/bot: (1, nwords) ghost rows; gwest/geast: (height + 2) carry words.
@@ -415,8 +445,10 @@ int gol_dist_band_step(const void* in, const void* top, const void* bot,
 int gol_bandtrow_pass(const void* in, const void* gtop, const void* gbot,
                       void* out, void* flags, int height, int nwords,
                       int exact, int device, void* stream) {
-  return launch_bandt<kGhostRows>(in, gtop, gbot, nullptr, nullptr, out, flags,
-                                  height, nwords, exact, device, stream);
+  auto launch = exact ? launch_bandt<kExact, kGhostRows>
+                      : launch_bandt<kSummary, kGhostRows>;
+  return launch(in, gtop, gbot, nullptr, nullptr, out, flags, height, nwords,
+                device, stream);
 }
 
 // K9+K10 (exact = 0) / K11+K12+K13 (exact = 1). gtop/gbot as for K7/K8;
@@ -426,8 +458,18 @@ int gol_bandtg_pass(const void* in, const void* gtop, const void* gbot,
                     const void* gwest, const void* geast, void* out,
                     void* flags, int height, int nwords, int exact, int device,
                     void* stream) {
-  return launch_bandt<kGhostPlane>(in, gtop, gbot, gwest, geast, out, flags,
-                                   height, nwords, exact, device, stream);
+  auto launch = exact ? launch_bandt<kExact, kGhostPlane>
+                      : launch_bandt<kSummary, kGhostPlane>;
+  return launch(in, gtop, gbot, gwest, geast, out, flags, height, nwords,
+                device, stream);
+}
+
+// The tile of bandt_kernel: interior rows and words per block, and the
+// ghost rows it loads above and below (one ghost word per side besides).
+void gol_bandt_tile(int* rows, int* words, int* ghost_rows) {
+  *rows = kTileRows;
+  *words = kTileWords;
+  *ghost_rows = kGens;
 }
 
 const char* gol_error_string(int code) {

@@ -24,11 +24,9 @@ import torch
 from gol_tpu_torch import native, platform_env
 from gol_tpu_torch.io.text_grid import create_sized, row_stride
 from gol_tpu_torch.parallel.mesh import Mesh, windows
+from gol_tpu_torch.resilience import STAGING_SUFFIX
 
 BITS = 32
-# Sibling a file is written as before it atomically replaces its target
-# (the port's copy of gol_tpu.resilience.STAGING_SUFFIX).
-STAGING_SUFFIX = ".inprogress"
 # Host-side pack granularity (text bytes per codec call) and device->host
 # transfer granularity (packed bytes per fetch). Module-level so tests can
 # shrink them to exercise the chunked paths on small grids.

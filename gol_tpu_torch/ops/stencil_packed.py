@@ -26,7 +26,11 @@ column 32*w + j; see ``packed_math``). Each kernel is a CUDA kernel in
   the ghost blocks and the neighbours' whole edge word columns over rows
   -8..h+7 (``deep_ghost_operands``). The JAX package's edge strip, lane
   fold and stitch are its TPU tiling's; here the tile kernel reads the
-  ghost columns as one more source, so one kernel is the whole pass.
+  ghost columns as one more source, so one kernel is the whole pass;
+- ``_step_t_noflags_into`` (K14, replaces ``_bandt_noflags_kernel`` of
+  ``tools/roofline_r4.py``): K2's pass with every flag operation compiled
+  out, words only. A measurement kernel for the flag-cost roofline
+  (``gol_tpu_torch/tools/roofline.py``); no engine path launches it.
 
 ``packed_step_into``, ``packed_step_multi_into`` and
 ``packed_step_exact_into`` are the engine's forms over a (sharded) state: a
@@ -77,7 +81,7 @@ STEP_FLAGS = 2
 
 LAUNCHES = {"bandt_fast": 0, "bandt": 0, "band": 0,
             "dist_band": 0, "bandtrow_fast": 0, "bandtrow": 0,
-            "bandtg_fast": 0, "bandtg": 0}
+            "bandtg_fast": 0, "bandtg": 0, "bandt_noflags": 0}
 
 encode = packed_math.encode
 decode = packed_math.decode
@@ -138,6 +142,15 @@ def _bandt_plain(words: torch.Tensor, exact: bool):
     return _pass_flags(words, gens, exact)
 
 
+def _bandt_noflags_plain(words: torch.Tensor) -> torch.Tensor:
+    """TEMPORAL_GENS torus generations, words only: K14's plain version
+    (the words of ``_bandt_plain(words, exact=True)``)."""
+    x = words
+    for _ in range(TEMPORAL_GENS):
+        x = packed_math.evolve_torus_words(x)
+    return x
+
+
 def _dist_band_plain(words, top, bot, gwest, geast):
     """One shard generation from its ghosts: ``(new, flags)`` with flags
     ``[alive, differs]``."""
@@ -189,12 +202,16 @@ def _lib() -> ctypes.CDLL:
     lib.gol_band_step.restype = i32
     lib.gol_bandt_pass.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     lib.gol_bandt_pass.restype = i32
+    lib.gol_bandt_noflags_pass.argtypes = [ptr, ptr, i32, i32, i32, ptr]
+    lib.gol_bandt_noflags_pass.restype = i32
     lib.gol_dist_band_step.argtypes = [ptr] * 7 + [i32, i32, i32, ptr]
     lib.gol_dist_band_step.restype = i32
     lib.gol_bandtrow_pass.argtypes = [ptr] * 5 + [i32, i32, i32, i32, ptr]
     lib.gol_bandtrow_pass.restype = i32
     lib.gol_bandtg_pass.argtypes = [ptr] * 7 + [i32, i32, i32, i32, ptr]
     lib.gol_bandtg_pass.restype = i32
+    lib.gol_bandt_tile.argtypes = [ctypes.POINTER(i32)] * 3
+    lib.gol_bandt_tile.restype = None
     lib.gol_error_string.argtypes = [i32]
     lib.gol_error_string.restype = ctypes.c_char_p
     return lib
@@ -205,8 +222,21 @@ def load_kernels() -> None:
     _lib()
 
 
-def _check(words: torch.Tensor, out: torch.Tensor, flags: torch.Tensor,
+def bandt_tile() -> tuple[int, int, int]:
+    """``(rows, words, ghost_rows)`` of ``bandt_kernel``'s tile, read from
+    the built library: the interior rows and words one block owns and the
+    ghost rows it loads above and below (it loads one ghost word per side
+    besides). Builds the kernels at first use, so it needs ``nvcc``."""
+    rows, words, ghost = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    _lib().gol_bandt_tile(ctypes.byref(rows), ctypes.byref(words),
+                          ctypes.byref(ghost))
+    return rows.value, words.value, ghost.value
+
+
+def _check(words: torch.Tensor, out: torch.Tensor, flags: torch.Tensor | None,
            nflags: int) -> None:
+    """The checks every wrapper makes; ``flags`` None for K14, which has
+    no flag buffer."""
     if words.dtype != torch.int32 or words.dim() != 2:
         raise ValueError(
             f"packed words must be a 2D int32 tensor, got {words.dim()}D "
@@ -220,9 +250,12 @@ def _check(words: torch.Tensor, out: torch.Tensor, flags: torch.Tensor,
             f"out must be int32 {tuple(words.shape)}, got {out.dtype} "
             f"{tuple(out.shape)}"
         )
-    if flags.dtype != torch.int32 or flags.numel() < nflags:
-        raise ValueError(f"flags must hold {nflags} int32 words")
-    for name, t in (("words", words), ("out", out), ("flags", flags)):
+    tensors = [("words", words), ("out", out)]
+    if flags is not None:
+        if flags.dtype != torch.int32 or flags.numel() < nflags:
+            raise ValueError(f"flags must hold {nflags} int32 words")
+        tensors.append(("flags", flags))
+    for name, t in tensors:
         if t.device != words.device:
             raise ValueError(f"{name} is on {t.device}, words on {words.device}")
         if not t.is_contiguous():
@@ -280,6 +313,17 @@ def _launch_bandt(words, out, flags, exact: bool) -> None:
     )
     _raise_on(err, "bandt" if exact else "bandt_fast")
     LAUNCHES["bandt" if exact else "bandt_fast"] += 1
+
+
+def _launch_bandt_noflags(words, out) -> None:
+    height, nwords = words.shape
+    stream = torch.cuda.current_stream(words.device).cuda_stream
+    err = _lib().gol_bandt_noflags_pass(
+        words.data_ptr(), out.data_ptr(), height, nwords, words.device.index,
+        stream,
+    )
+    _raise_on(err, "bandt_noflags")
+    LAUNCHES["bandt_noflags"] += 1
 
 
 def _launch_band(words, out, flags) -> None:
@@ -353,6 +397,15 @@ def _step_t_into(words, out, flags) -> None:
     new, exact = _bandt_plain(words, exact=True)
     out.copy_(new)
     flags[:EXACT_FLAGS] |= exact
+
+
+def _step_t_noflags_into(words, out) -> None:
+    """K14: TEMPORAL_GENS generations of ``words`` into ``out``, no flags."""
+    _check(words, out, None, 0)
+    if _route(words):
+        _launch_bandt_noflags(words, out)
+        return
+    out.copy_(_bandt_noflags_plain(words))
 
 
 def _step_into(words, out, flags) -> None:
@@ -531,6 +584,14 @@ def _step_t(words: torch.Tensor):
     out, flags = torch.empty_like(words), _flags(EXACT_FLAGS, words.device)
     _step_t_into(words, out, flags)
     return (out, *_vectors(flags))
+
+
+def _step_t_noflags(words: torch.Tensor) -> torch.Tensor:
+    """K14 in ``tools/roofline_r4.py``'s signature: the words
+    TEMPORAL_GENS generations later, in a fresh buffer."""
+    out = torch.empty_like(words)
+    _step_t_noflags_into(words, out)
+    return out
 
 
 def summary_needs_replay(summary) -> bool:

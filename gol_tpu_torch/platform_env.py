@@ -14,7 +14,9 @@ round-robin over the platform's devices, so N shards can share one card
 
 from __future__ import annotations
 
+import logging
 import os
+import sys
 
 import torch
 
@@ -63,3 +65,36 @@ def mesh_devices() -> list[torch.device]:
     if not spec.isdigit() or int(spec) < 1:
         raise ValueError(f"{MESH_DEVICES_ENV} must be a positive integer, got {spec!r}")
     return [base[i % len(base)] for i in range(int(spec))]
+
+
+class _DynamicStderrHandler(logging.StreamHandler):
+    """A StreamHandler that resolves ``sys.stderr`` at emit time: test
+    harnesses swap the stream per run, and a handler pinned to a dead
+    buffer would swallow every record."""
+
+    def __init__(self, level=logging.NOTSET):
+        logging.Handler.__init__(self, level)
+
+    @property
+    def stream(self):
+        return sys.stderr
+
+    @stream.setter
+    def stream(self, value):
+        del value  # dynamic by design: redirect sys.stderr instead
+
+
+def configure_cli_logging(level: int = logging.INFO) -> None:
+    """Route the ``gol_tpu_torch`` logger tree to stderr for the entry
+    points, as the JAX package's CLI routes ``gol_tpu``'s: checkpoint,
+    retry and writer notices (``auto-resume: restored checkpoint ...``)
+    reach stderr. Idempotent; a host application's own configuration
+    wins."""
+    lg = logging.getLogger("gol_tpu_torch")
+    if any(isinstance(h, _DynamicStderrHandler) for h in lg.handlers):
+        return
+    handler = _DynamicStderrHandler()
+    handler.setFormatter(logging.Formatter("gol_tpu_torch: %(message)s"))
+    lg.addHandler(handler)
+    if lg.level == logging.NOTSET or lg.level > level:
+        lg.setLevel(level)

@@ -309,3 +309,72 @@ def test_mesh_lanes_on_the_card_match_oracle(card, lane, monkeypatch, tmp_path,
                                  args + ["--resume-gen", "300"])
         assert gens == want.generations
         np.testing.assert_array_equal(got, want.grid)
+
+
+@pytest.mark.parametrize("height,nwords", SHAPES + [(16384, 512)])
+def test_noflags_kernel_matches_plain(card, height, nwords):
+    """K14 at the one-tile and ragged shapes, and at the main path's
+    16384^2: its words equal its plain version's and K2's."""
+    for name, words in _inputs(height, nwords).items():
+        x = pm.words_from_numpy(words, card)
+        out = torch.empty_like(x)
+        before = sp.LAUNCHES["bandt_noflags"]
+        sp._step_t_noflags_into(x, out)
+        torch.cuda.synchronize(card)
+        assert sp.LAUNCHES["bandt_noflags"] == before + 1
+        assert torch.equal(out, sp._bandt_noflags_plain(x)), name
+        assert torch.equal(out, sp._step_t(x)[0]), name
+
+
+def test_profiler_reads_the_kernel_device_time(card):
+    from gol_tpu_torch.obs import profiler
+
+    x = pm.words_from_numpy(_inputs(1024, 64)["soup"], card)
+    out = torch.empty_like(x)
+    ms = profiler.kernel_device_ms(lambda: sp._step_t_noflags_into(x, out), 10,
+                                   ("bandt_kernel",))
+    assert 0 < ms < 100
+    with pytest.raises(RuntimeError, match="no CUDA kernel"):
+        profiler.kernel_device_ms(lambda: sp._step_t_noflags_into(x, out), 2,
+                                  ("no_such_kernel",))
+
+
+def test_roofline_reads_the_tile_and_checks_what_it_timed(card):
+    from gol_tpu_torch.tools import roofline
+
+    rows, words, ghost_rows = sp.bandt_tile()
+    assert ghost_rows == sp.TEMPORAL_GENS and rows > 0 and words > 0
+    report = roofline.report([1024])
+    assert report["tile"] == {"rows": rows, "words": words,
+                              "ghost_rows": ghost_rows}
+    (size,) = report["sizes"]
+    assert size["tile_overfetch"] == roofline.tile_overfetch(rows, words,
+                                                             ghost_rows)
+    for name in ("K1", "K2", "K14"):
+        assert size["checks"][name] == {"words": 1024 * 32,
+                                        "words_differing": 0,
+                                        "flags_differing": 0}
+
+
+def test_host_snapshot_waits_for_the_boundary_and_lands_on_the_host(card):
+    """The async writer's snapshot: the boundary state is still being
+    computed on the compute stream (behind a delay) when the snapshot is
+    taken, and the next segment overwrites it in place right after the
+    snapshot returns. The side-stream copy must wait for the boundary
+    (its event) and be on the host when the constructor returns."""
+    from gol_tpu_torch.pipeline.snapshot import HostSnapshot, SnapshotBuffers
+
+    x = pm.words_from_numpy(_inputs(4096, 512)["soup"], card)
+    want = sp._bandt_noflags_plain(x).cpu()
+    shards = [torch.empty_like(x), torch.empty_like(x)]
+    torch.cuda.synchronize(card)
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of clock cycles on the stream
+    sp._step_t_noflags_into(x, shards[0])  # the boundary state, queued
+    shards[1].copy_(shards[0])
+    snap = HostSnapshot(shards, SnapshotBuffers())
+    for s in shards:  # the next segment, writing the state's buffers
+        s.bitwise_not_()
+    assert all(h.device.type == "cpu" and h.is_pinned() for h in snap.state)
+    assert torch.equal(snap.state[0], want) and torch.equal(snap.state[1], want)
+    torch.cuda.synchronize(card)
+    assert torch.equal(shards[0].cpu(), ~want)
