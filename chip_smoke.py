@@ -32,7 +32,11 @@ error:
    8-row ghost blocks and the (h+16) ghost word columns) at (8,1) (17,1)
    (16,2) (17,5) (1000,7) (8192,256): on random cells with random ghosts
    (every bit random), and on the domino and the L-tromino with the ghosts
-   a one-shard torus exchanges. Outputs and flags must be identical.
+   a one-shard torus exchanges. Every 8-generation form (K1, K2, K14, K7,
+   K8 and the ghost-plane forms) also runs at the shapes around
+   ``bandt_kernel``'s tile (``tile_shapes``: one band around its least
+   height and two ragged ones, and nwords 1, 2, 31, 37 and 61 against its
+   30-word strips). Outputs and flags must be identical.
 3. Small flows through ``python -m gol_tpu_torch`` on the card, against the
    port's numpy oracle, for both loop conventions: the verify skill's four
    flows at 48^2 and 64^2 (random for 1000 generations, 2x2 block, lone
@@ -106,12 +110,17 @@ error:
    over the card's rate for them: 64 results per clock per SM (CUDA C++
    Programming Guide, arithmetic instruction throughput, compute capability
    9.0: 32-bit bitwise AND/OR/XOR, shifts and adds) times the SM count
-   times the maximum SM clock (nvidia-smi ``clocks.max.sm``). No single
-   PyTorch call computes a B3/S23 step, so ``library_ms`` is null.
+   times the maximum SM clock (nvidia-smi ``clocks.max.sm``). The packed
+   kernels' logic ops per word and generation are the adder network's 12
+   (2 funnel shifts and 10 3-input LOP3s, ``roofline.OPS_PER_WORD_GEN``);
+   the time at 28 two-input ops stays beside it (``ops_ms_two_input``).
+   No single PyTorch call computes a B3/S23 step, so ``library_ms`` is
+   null.
 6. The flag-cost roofline, ``gol_tpu_torch.tools.roofline``, at 16384^2 and
    65536^2: K1, K2 and K14 by CUDA-graph replay and by ``torch.profiler``
    device time, with the counters zeroed before it (K14's launches in the
-   kernels line are this path's). At each size the tool holds each
+   kernels line are this path's), and the SM clock nvidia-smi reads right
+   after its timings. At each size the tool holds each
    kernel's last timed output and flags against the plain version at
    tolerance 0 and raises on a difference. Its JSON prints on a line of
    its own.
@@ -155,8 +164,8 @@ from gol_tpu_torch.tools import roofline
 REPO = Path(__file__).resolve().parent
 SIZE = 16384
 SEED = 20261016
-# The card's rates and the packed kernels' ops per word and generation:
-# one copy, the roofline tool's.
+# The card's memory rate and the packed kernels' logic ops per word and
+# generation: one copy, the roofline tool's.
 HBM_BYTES_PER_S = roofline.HBM_BYTES_PER_S
 OPS_PER_WORD_GEN = roofline.OPS_PER_WORD_GEN
 # K4, per 4-cell word per generation, from the inner loop of
@@ -172,6 +181,8 @@ SHARD_SHAPES = [(1, 1), (8, 1), (17, 5), (1000, 7), (SIZE // 4, SIZE // 32)]
 SHARD_BYTE_SHAPES = [(1, 1), (7, 3), (17, 161), (SIZE // 2, SIZE // 2)]
 # Shards of a mesh with columns, up to the 2x2 shard of 16384^2.
 PLANE_SHAPES = [(8, 1), (17, 1), (16, 2), (17, 5), (1000, 7), (SIZE // 2, SIZE // 64)]
+# Phase 2 adds the shapes around bandt_kernel's strip (tile_shapes) to
+# PACKED_SHAPES, SHARD_SHAPES and PLANE_SHAPES.
 # Phase 5's shapes per kernel: the main path's shards.
 SHARD_TIMING = {"dist_band": [(SIZE // 4, SIZE // 32), (SIZE // 2, SIZE // 64)],
                 "bandtg_fast": [(SIZE // 2, SIZE // 64)],
@@ -434,9 +445,20 @@ def _compare(k: dict, x: torch.Tensor, stats: dict, where: str,
              f"{flags.tolist()} vs {want_flags.tolist()}")
 
 
+def tile_shapes() -> list:
+    """(height, nwords) around bandt_kernel's tile, read from the built
+    library: a strip of TW = 30 interior words per warp, split into bands
+    of at least TH rows: heights TH - 1, TH and TH + 1 (one band) and 2 TH
+    + 17 (two, ragged); nwords 1, 2, 31, 61 and TW + 7 (none a multiple
+    of TW)."""
+    th, tw, _ = sp.bandt_tile()
+    return [(th - 1, 1), (th + 1, 2), (2 * th + 17, 31), (th, 61),
+            (th + 1, tw + 7)]
+
+
 def check_kernels(dev, stats: dict) -> None:
     rng = np.random.default_rng(SEED)
-    for height, nwords in PACKED_SHAPES:
+    for height, nwords in PACKED_SHAPES + tile_shapes():
         for name, cells in _cell_inputs(height, 32 * nwords, rng).items():
             x = pm.encode(torch.from_numpy(cells).to(dev))
             for k in PACKED:
@@ -452,9 +474,9 @@ def check_kernels(dev, stats: dict) -> None:
         print(f"(height, width) ({height}, {width}): K4 == plain on random, "
               "dies, becomes_still (tolerance 0: cells and flags identical)",
               flush=True)
-    for kernels, shapes, to_state in ((SHARD, SHARD_SHAPES, pm.encode),
+    for kernels, shapes, to_state in ((SHARD, SHARD_SHAPES + tile_shapes(), pm.encode),
                                       (SHARD_BYTE, SHARD_BYTE_SHAPES, lambda t: t),
-                                      (PLANE, PLANE_SHAPES, pm.encode)):
+                                      (PLANE, PLANE_SHAPES + tile_shapes(), pm.encode)):
         for height, n in shapes:
             width = n if kernels is SHARD_BYTE else 32 * n
             checked = [k for k in kernels if k["ghosts"] != "deep"
@@ -1107,6 +1129,9 @@ def _timed(k: dict, x: torch.Tensor, ghosts: list, ops_per_s: float) -> dict:
         ops = k["gens"] * x.numel() * OPS_PER_WORD_GEN
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / ops_per_s * 1e3
+    two_input = {} if k.get("cells") else {"ops_ms_two_input": k["gens"] * x.numel()
+                                           * roofline.TWO_INPUT_OPS_PER_WORD_GEN
+                                           / ops_per_s * 1e3}
     print(f"{k['id']} at {tuple(x.shape)}: {ms:.6f} ms/launch in a CUDA graph "
           f"(eager {eager_ms:.6f} ms, wrapper {wrapper_ms:.6f} ms on the host, "
           f"plain {plain_ms:.6f} ms); bytes {nbytes} -> {bytes_ms:.6f} ms, logic ops "
@@ -1117,7 +1142,7 @@ def _timed(k: dict, x: torch.Tensor, ghosts: list, ops_per_s: float) -> dict:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "bytes": nbytes, "bytes_ms": bytes_ms, "logic_ops": ops,
-        "ops_ms": ops_ms, "logic_ops_per_s": ops_per_s,
+        "ops_ms": ops_ms, "logic_ops_per_s": ops_per_s, **two_input,
     }
 
 
@@ -1165,6 +1190,8 @@ def roofline_phase() -> tuple[dict, dict]:
             + f"; bound {size['bound_ms']:.6f} ms ({size['bound_by']}); flag "
             f"overhead {size['flag_overhead_fraction']}, against K1 "
             f"{size['flag_overhead_fraction_k1']}", flush=True)
+    print(f"SM clock right after the roofline's timings: "
+          f"{report['sm_clock_mhz_after_timing']} MHz", flush=True)
     return report, counts
 
 

@@ -30,6 +30,7 @@ kernels' plain torch versions. Errors print as ``gol: <error>`` with exit
 code 1.
 
 Subcommand ``generate <width> <height>`` emits a random grid (generate.sh).
+The JAX CLI's other subcommands (``NOT_PORTED``) exit 1 with a ``gol:`` line.
 """
 
 from __future__ import annotations
@@ -73,6 +74,29 @@ def dense_cells_guard(height: int, width: int) -> None:
             f"a {height}x{width} board is {cells} cells "
             f"({cells / (1 << 30):.1f} GB as bytes), above the dense "
             f"engine's {MAX_DENSE_CELLS}-cell ceiling"
+        )
+
+
+def _warn_if_huge_byte_lane(width: int, height: int, mesh=None) -> None:
+    """Steer 2GB+-per-shard byte-lane runs toward --packed-io.
+
+    The byte lane carries two uint8 buffers through the loop, and at 2GB+
+    of cells per shard the card's out-of-memory error names no remedy. The
+    packed lane is 32x smaller: say so up front, but only where --packed-io
+    would accept the shape (width divisible by 32 x mesh columns). The text
+    and conditions are the JAX CLI's, a shard standing for its device."""
+    shards = cols = 1
+    if mesh is not None:
+        shards = len(mesh.devices)
+        cols = mesh.shape[1]
+    per_shard = width * height // shards
+    if per_shard >= (2 << 30) and width % (32 * cols) == 0:
+        print(
+            f"warning: {width}x{height} as bytes is "
+            f"{per_shard / (1 << 30):.1f} GB per buffer per device; "
+            "if this runs out of device memory, use --packed-io "
+            "(bit-packed state, 32x smaller)",
+            file=sys.stderr,
         )
 
 
@@ -260,6 +284,7 @@ def _run(args) -> int:
     if mesh is None:
         # Mesh reads materialize per shard, as in the JAX CLI.
         dense_cells_guard(height, width)
+    _warn_if_huge_byte_lane(width, height, mesh)
     device = devices[0]
     t0 = time.perf_counter()
     device_grid = _read_phase(variant, args.input_file, width, height, device, mesh)
@@ -623,7 +648,7 @@ def build_parser() -> argparse.ArgumentParser:
         "grid; GOL_TORCH_MESH_DEVICES=N lays N shards over the cards)",
     )
     run.add_argument(
-        "--kernel", default="auto", choices=("auto", "packed", "lax", "pallas"),
+        "--kernel", default="auto",
         help="stencil kernel: packed (32 cells per word, CUDA kernels), "
         "pallas (byte cells, one CUDA kernel per generation), lax (byte "
         "cells, plain torch), or auto (packed where the width divides by "
@@ -736,9 +761,20 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+# The JAX CLI's other subcommands. Until one is ported its name is refused,
+# not read as a width by `run`.
+NOT_PORTED = ("show", "serve", "fleet", "router", "submit", "batch", "tune",
+              "trace-report", "fleet-trace", "history-report", "top",
+              "slo-report", "compact", "gc")
+
+
 def main(argv: list[str] | None = None) -> int:
     configure_cli_logging()
     argv = list(sys.argv[1:]) if argv is None else list(argv)
+    if argv and argv[0] in NOT_PORTED:
+        print(f"gol: subcommand {argv[0]!r} is not ported yet; run it with "
+              "python -m gol_tpu", file=sys.stderr)
+        return 1
     # Default command is `run`, preserving the bare `<w> <h> <file>` contract.
     if not argv or argv[0] not in ("run", "generate", "-h", "--help"):
         argv = ["run", *argv]

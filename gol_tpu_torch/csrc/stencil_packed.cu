@@ -5,7 +5,9 @@
 // Torch carries the words as int32; these kernels read the same storage as
 // uint32_t. Every kernel evolves B3/S23 on the torus through the carry-save
 // adder network of gol_tpu_torch/ops/packed_math.py (row_sums once per row,
-// combine re-ranks the planes; ~28 bitwise ops per word per generation).
+// combine re-ranks the planes; ~28 two-input bitwise ops per word per
+// generation, ~12 instructions once ptxas fuses them into 3-input LOP3s
+// and funnel shifts).
 //
 // Which TPU kernel each replaces (all in gol_tpu/ops/stencil_packed.py):
 //
@@ -49,60 +51,101 @@
 // plane costs a full tile per row (K13), and the split form evolves the
 // six seam-relevant word columns in a separate lane-folded strip (K9/K11)
 // and stitches them into a rows-only main pass (K10/K12). This kernel's
-// tile already carries one ghost word per side in shared memory, so the
-// ghost plane is only another source for those two tile columns: no strip,
-// no fold, no stitch, no edge masks, and any nwords >= 1.
+// strip already carries one ghost word per side, so the ghost plane is only
+// another source for those two lanes: no strip, no fold, no stitch, no
+// edge masks, and any nwords >= 1.
 //
 // Flags. The Pallas kernels accumulate their flags over a sequential band
 // grid; CUDA blocks run concurrently and in no order. So every flag is an
 // OR into an int32 word that the caller zeroes before the launch, and the
 // AND-type flags (similar) are stored negated ("differs"): one zero_()
-// resets a whole flag buffer. Each block reduces its predicate with
-// __syncthreads_or and one thread ORs it in, reading the word first so that
-// blocks after the first rarely issue the atomic at all.
+// resets a whole flag buffer. K3/K5 reduce a block's predicate with
+// __syncthreads_or; bandt_kernel ORs the owned words of each flag into a
+// register as it goes and reduces them once per warp at the end
+// (__reduce_or_sync). One lane then ORs the flag in, reading the word
+// first so that later warps and blocks rarely issue the atomic at all.
 //
-// What bounds them. K3 moves one word in and one out per word of the grid
-// and does ~28 logic ops on it: bytes bound it (2 x 4 bytes per word over
-// 3.35 TB/s). K1/K2 move the same bytes per pass but do 8 generations of
-// the network on them, so the logic ops set their bound. Their design keeps
-// all 8 generations in shared memory: each block loads a (TH+16) x (TW+2)
-// word tile once, evolves it 8 times, ping-ponging between two shared
-// buffers, and writes its TH x TW interior once, so device memory sees one
-// read and one write per pass instead of eight of each. The price is the
-// halo: (TH+16)(TW+2)/(TH*TW) = 1.33 of the interior's work at 64 x 32.
+// What bounds them. K3 and K5 move one word in and one out per word of the
+// grid and do ~28 logic ops on it: bytes bound them (2 x 4 bytes per word
+// over 3.35 TB/s). bandt_kernel moves the same bytes per pass but does 8
+// generations of the network on them, so its logic ops set its bound: the
+// 32-bit integer pipe's 64 results per clock per SM.
 //
-// Why the tile is exact for 8 generations:
-//   * Rows. Eight ghost rows per side: the rows beyond the tile are taken as
-//     zero, so the outermost tile row is wrong after one generation and the
-//     wrong band grows one row per generation; after 8 it has reached the
-//     ghost rows' inner edge and no further (stencil_packed.py:441-449).
-//   * Columns. One ghost word per side: a wrong neighbour enters a ghost
-//     word at its far bit and moves one bit per generation, so the ghost
-//     bit next to the interior stays exact for 31 generations
+// bandt_kernel's design. One warp evolves a band of rows of a strip of 30
+// words: lane i holds word w0 - 1 + i of each row, so lanes 0 and 31 are
+// the strip's ghost words and a lane's west and east words are a shuffle
+// away. The warp walks down the band's window (8 ghost rows, its rows, 8
+// ghost rows), loading one row of generation 0 per step with one 128-byte
+// coalesced load, and pushes it through 8 generation levels held in
+// registers. Level t keeps the row sums of the two rows above the row it
+// will push next (its window of generation t - 1), so one push computes
+// the new row's sums once (2 shuffles, 2 funnel shifts, 4 LOP3) and the
+// rule once (6 LOP3, next_gen), and emits the next generation of the row
+// above it. Each level consumes what the level below emitted at the
+// previous step (level t emits window row k - 2t + 1 at step k), so the 8
+// pushes of a step are independent of each other. Per word and generation
+// that is ~12 logic instructions and 2 shuffles, against ~50 two-input ops
+// and 9 shared loads for the former shared-memory tile (which recomputed
+// every row's sums for each of its three neighbours). The first 21 steps
+// (the pipeline's fill: level t starts at step 3t - 3) and the last 7 (its
+// drain) run only the levels with rows to push, so a band of `own` rows
+// costs 8 own + 72 pushes. No index math runs per word: a lane's column,
+// load pointer and store pointer are set once; the torus wraps its load
+// pointer with a compare per row; the ownership tests run only in the
+// steps where some level emits a row outside the band. No shared memory,
+// no barrier: warps share nothing.
+//
+// The launch sizes the bands: each strip's rows are split into equal bands,
+// as many as the card's resident warps hold at once (one wave, read from
+// the occupancy API once per device), of at least kMinBandRows rows. At
+// 16384^2 on an H100 that is 18 strips x 88 bands of 187 rows, a
+// row overfetch of (187 + 9) / 187 and a column overfetch of 540 / 512.
+//
+// Why the window is exact for 8 generations:
+//   * Rows. Eight ghost rows per side: the rows beyond the window are never
+//     loaded (a level's first and last rows have no neighbour there), so
+//     the outermost rows are wrong after one generation and the wrong band
+//     grows one row per generation; after 8 it has reached the ghost rows'
+//     inner edge and no further (stencil_packed.py:441-449). The pipeline
+//     emits only the rows it can: generation t covers window rows t..R-1-t.
+//   * Columns. One ghost word per side: lanes 0 and 31 see their own word as
+//     their outer neighbour (the shuffle's edge), a wrong neighbour that
+//     enters a ghost word at its far bit and moves one bit per generation,
+//     so the ghost bit next to the interior stays exact for 31 generations
 //     (_evolve_with_ghost_plane, stencil_packed.py:316-348).
-//   * Small grids. Tile rows and words map to the grid modulo its height
-//     and nwords, and a tile word's west neighbour is the tile column to its
-//     left: the tile is a window on the torus's universal cover, so heights
-//     below 16 and nwords of 1 or 2 come out right. Flags read only the
-//     cells a block owns, never a halo copy or a cell past the grid's edge.
-//   * Shards (K7/K8). A tile row outside the shard's [0, h) is read from
+//   * Small grids. Window rows and lane words map to the grid modulo its
+//     height and nwords, and a lane's west neighbour is the lane to its left:
+//     the window lies on the torus's universal cover, so heights below 16
+//     and nwords of 1 or 2 come out right. Flags and stores read only the
+//     words a warp owns (lanes 1..30 of words below nwords, rows of its
+//     band), never a halo copy or a word past the grid's edge.
+//   * Shards (K7/K8). A window row outside the shard's [0, h) is read from
 //     gtop (rows -8..-1) or gbot (rows h..h+7), never modulo the shard, and
-//     rows past h+8 are zero: they feed only rows no block owns. So the
+//     rows past h+8 are zero: they feed only rows no warp owns. So the
 //     universal-cover trick above is for the torus alone, and a shard
 //     needs h >= 8 (its neighbours' ghost blocks are 8 of its rows). The
 //     shard is full-width, so columns keep the torus wrap.
 //   * Shards with mesh columns (K9-K13). Rows as for K7/K8. Columns never
-//     wrap: the tile word at shard column -1 is gwest[e] and at column
-//     nwords is geast[e], with e = row + 8 over rows -8..h+7, so the ghost
-//     rows' corner words ride in the plane (they are the diagonal
-//     neighbours' cells: the column exchange runs over the row-extended
-//     range). Words further out are zero, which is the "wrong neighbour"
-//     of the ghost word above: it cannot reach the shard in 8 generations.
-//     nwords may be 1 (columns -1, 0, 1 are gwest, the word, geast).
+//     wrap: the lane at shard column -1 reads gwest[e] and at column nwords
+//     geast[e], with e = row + 8 over rows -8..h+7, so the ghost rows'
+//     corner words ride in the plane (they are the diagonal neighbours'
+//     cells: the column exchange runs over the row-extended range). Lanes
+//     further out read zero, which is the "wrong neighbour" of the ghost
+//     word above: it cannot reach the shard in 8 generations. nwords may be
+//     1 (columns -1, 0, 1 are gwest, the word, geast).
 //
-// The shard kernels move the same bytes and do the same logic per word as
-// their torus forms (the ghosts are 16 rows and 2(h+2) or 2(h+16) words
-// per shard), so the same bounds hold: operations for K7-K13, bytes for K5.
+// As built (nvcc -Xptxas -v, sm_90a, CUDA 12.8; the steady loop's SASS
+// counted by gol_tpu_torch/tools/sass_ops.py), per word and generation:
+// 2 shuffles, 0 shared loads, and logic instructions (LOP3, SHF, PLOP3)
+// K14 13.1, K1 13.6, K7 and K9+K10 13.6, K2 15.1, K8 and K11-K13 15.4-15.5
+// (the exact forms' two ORs per generation); 19.9-29.1 instructions in all.
+// Of the logic, 12 are the network's (push's 2 SHF and 4 LOP3, next_gen's
+// 6 LOP3): the operations bound counts those (roofline.OPS_PER_WORD_GEN),
+// and the rest is the loop's overhead.
+// Registers: K1 140, K14 133, K7 144, K9+K10 150, no spills; K2, K8 and
+// K11-K13 128 (capped, see bandt_kernel) with 48-64 bytes of stack and
+// 204-316 bytes of spill stores. No shared memory. K3 and K5 use 30 and 32
+// registers, no spills.
 
 #include <cstddef>
 #include <cstdint>
@@ -111,10 +154,8 @@
 
 namespace {
 
-constexpr int kGens = 8;       // TEMPORAL_GENS
-constexpr int kTileRows = 64;  // TH: interior rows per block
-constexpr int kTileWords = 32; // TW: interior words per block
-constexpr int kThreads = 256;
+constexpr int kGens = 8;  // TEMPORAL_GENS
+constexpr int kThreads = 256;  // K3, K5
 
 __device__ __forceinline__ void row_sums(uint32_t x, uint32_t left,
                                          uint32_t right, uint32_t& m0,
@@ -239,7 +280,7 @@ enum FlagMode {
   kNone = 2      // K14: none; the pass writes its words and nothing else
 };
 
-// Where a tile's cells come from.
+// Where a strip's cells come from.
 enum Source {
   kTorus = 0,      // the grid itself, rows and columns modulo its shape
   kGhostRows = 1,  // a full-width shard: rows from gtop/gbot, columns wrap
@@ -247,123 +288,255 @@ enum Source {
                    // columns -1 and nwords from gwest/geast
 };
 
+constexpr int kWarp = 32;
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kStripWords = kWarp - 2;  // interior words of a warp's strip
+constexpr int kMinBandRows = 32;        // the least rows of a warp's band
+constexpr int kBandtWarps = 4;          // warps per block
+constexpr int kMaxDevices = 64;         // resident_warps' cache
+// The pipeline's fill: level t takes its first valid row at step 3t - 3,
+// so from step kFill on every level runs. Its drain: after the strip's
+// last row (step R - 1) level t has rows to emit until step R + t - 2.
+constexpr int kFill = 3 * kGens - 3;
+constexpr int kDrain = kGens - 1;
+// Level t emits, at step k, row k - 2t + 1 of the strip's window (rows
+// r0 - 8 .. r0 + own + 7): the steps at which every level emits an owned
+// row start here.
+constexpr int kSteady = 3 * kGens - 1;
+
+// One generation of the pipeline: the window of its input generation
+// around the row it emits next, as row sums.
+struct Level {
+  uint32_t u0, u1;  // the row above the centre: bits 0, 1 of its 3-cell sums
+  uint32_t s0, s1;  // the centre row's 3-cell sums (the next row above)
+  uint32_t m0, m1;  // the centre row's 2-cell sums (west + east)
+  uint32_t x;       // the centre row
+  uint32_t out;     // what this level emitted at the last step
+};
+
+// combine() with its last two steps folded into what ptxas issues as two
+// 3-input LOP3s: where v0 ^ tc is set, v0 & tc is not, so b1 & ~over =
+// (v0 ^ tc) & ~v1. (combine() compiles to two more.)
+__device__ __forceinline__ uint32_t next_gen(uint32_t u0, uint32_t u1,
+                                             uint32_t d0, uint32_t d1,
+                                             uint32_t m0, uint32_t m1,
+                                             uint32_t mid) {
+  const uint32_t t0 = u0 ^ d0 ^ m0;
+  const uint32_t tc = (u0 & d0) | (m0 & (u0 ^ d0));
+  const uint32_t v0 = u1 ^ d1 ^ m1;
+  const uint32_t v1 = (u1 & d1) | (m1 & (u1 ^ d1));
+  return (v0 ^ tc) & ~v1 & (t0 | mid);
+}
+
+// Push the row d below the centre row: returns the centre row's next
+// generation and moves the window down one row. The lane's west and east
+// words come from the neighbouring lanes; lanes 0 and 31 get their own
+// word back, which is the ghost words' "wrong neighbour".
+__device__ __forceinline__ uint32_t push(Level& v, uint32_t d) {
+  const uint32_t west = __shfl_up_sync(kFullMask, d, 1);
+  const uint32_t east = __shfl_down_sync(kFullMask, d, 1);
+  const uint32_t w = __funnelshift_l(west, d, 1);  // (d << 1) | (west >> 31)
+  const uint32_t e = __funnelshift_r(d, east, 1);  // (d >> 1) | (east << 31)
+  const uint32_t dm0 = w ^ e, dm1 = w & e;
+  const uint32_t d0 = dm0 ^ d, d1 = dm1 | (d & dm0);
+  const uint32_t nv = next_gen(v.u0, v.u1, d0, d1, v.m0, v.m1, v.x);
+  v.u0 = v.s0;
+  v.u1 = v.s1;
+  v.s0 = d0;
+  v.s1 = d1;
+  v.m0 = dm0;
+  v.m1 = dm1;
+  v.x = d;
+  return nv;
+}
+
+// One warp's band of a strip: own x kStripWords owned words, lane i holding
+// word w0 - 1 + i of every row. Each step loads one row of generation 0
+// and pushes it through the kGens levels, deepest first, so that the
+// levels of a step depend only on the previous step and run side by side.
+template <FlagMode FLAGS, Source SRC>
+struct Strip {
+  const uint32_t* __restrict__ in;
+  const uint32_t* __restrict__ gtop;
+  const uint32_t* __restrict__ gbot;
+  const uint32_t* __restrict__ gwest;
+  const uint32_t* __restrict__ geast;
+  int height, nwords;
+  int r0;        // the strip's first owned row
+  int own;       // its owned rows
+  int col;       // this lane's word (modulo nwords, except kGhostPlane)
+  bool store;    // this lane owns its word
+  int row;       // the next row to load (kTorus: modulo height)
+  const uint32_t* src;  // kTorus: this lane's word of that row
+  size_t wrap;          // kTorus: height * nwords
+  uint32_t* dst;        // this lane's word of the next row to store
+  Level lv[kGens];
+  uint32_t alive[kGens], differs[kGens];  // flag words of owned rows
+
+  // The lane's word of the next row of generation 0.
+  __device__ __forceinline__ uint32_t fetch() {
+    uint32_t v = 0;
+    if (SRC == kTorus) {
+      v = __ldg(src);
+      src += nwords;
+      if (++row == height) {
+        row = 0;
+        src -= wrap;
+      }
+      return v;
+    }
+    const int g = row++;
+    const uint32_t* line = g < 0 ? gtop + static_cast<size_t>(g + kGens) * nwords
+                           : g < height ? in + static_cast<size_t>(g) * nwords
+                           : g < height + kGens
+                               ? gbot + static_cast<size_t>(g - height) * nwords
+                               : nullptr;
+    if (line != nullptr) {
+      if (SRC == kGhostRows || (col >= 0 && col < nwords)) {
+        v = __ldg(line + col);
+      } else if (col == -1) {
+        v = __ldg(gwest + g + kGens);
+      } else if (col == nwords) {
+        v = __ldg(geast + g + kGens);
+      }  // columns past geast are zero
+    }
+    return v;
+  }
+
+  // Step k with levels FIRST..LAST; CHECK tests per level whether the row
+  // it emits is owned (without it, every level's is).
+  template <int FIRST, int LAST, bool CHECK>
+  __device__ __forceinline__ void step(int k, uint32_t x0) {
+#pragma unroll
+    for (int t = LAST; t >= FIRST; --t) {
+      Level& v = lv[t - 1];
+      const uint32_t x = v.x;
+      const uint32_t nv = push(v, t == 1 ? x0 : lv[t >= 2 ? t - 2 : 0].out);
+      v.out = nv;
+      const int j = k - 2 * t + 1 - kGens;  // the emitted row, from r0
+      const bool owned = !CHECK || (j >= 0 && j < own);
+      if (FLAGS == kExact || (FLAGS == kSummary && (t == 1 || t == kGens))) {
+        if (owned) {
+          alive[t - 1] |= t == 1 && FLAGS == kSummary ? x : nv;
+          differs[t - 1] |= nv ^ x;
+        }
+      }
+      if (t == kGens && owned) {  // row r0 + j
+        if (store) *dst = nv;
+        dst += nwords;
+      }
+    }
+  }
+
+  template <int K>
+  __device__ __forceinline__ void fill(uint32_t& cur) {
+    if constexpr (K < kFill) {
+      const uint32_t next = fetch();
+      step<1, ((K + 3) / 3 < kGens ? (K + 3) / 3 : kGens), true>(K, cur);
+      cur = next;
+      fill<K + 1>(cur);
+    }
+  }
+
+  template <int E>
+  __device__ __forceinline__ void drain(int rows) {
+    if constexpr (E < kDrain) {
+      step<E + 2, kGens, true>(rows + E, 0);
+      drain<E + 1>(rows);
+    }
+  }
+
+  // OR a flag word of the warp's owned words into *flag.
+  __device__ __forceinline__ void or_flag(uint32_t acc, int* flag) const {
+    if (__reduce_or_sync(kFullMask, store ? acc : 0u) &&
+        threadIdx.x % kWarp == 0) {
+      if (*reinterpret_cast<volatile int*>(flag) == 0) atomicOr(flag, 1);
+    }
+  }
+
+  __device__ __forceinline__ void run(int* flags) {
+    for (int t = 0; t < kGens; ++t) {
+      lv[t] = Level{0, 0, 0, 0, 0, 0, 0, 0};
+      alive[t] = differs[t] = 0;
+    }
+    // Window rows 0 .. rows - 1 (rows >= kFill, so the fill never runs
+    // past them; rows past own + 16 are loaded but never owned).
+    const int rows = max(own + 2 * kGens, kFill);
+    uint32_t cur = fetch();
+    fill<0>(cur);
+    // Steps lo .. hi - 1 emit owned rows at every level (own + 9 < rows).
+    const int lo = min(kSteady, rows);
+    const int hi = max(lo, own + kGens + 1);
+    int k = kFill;
+    for (; k < lo; ++k) {
+      const uint32_t next = fetch();
+      step<1, kGens, true>(k, cur);
+      cur = next;
+    }
+#pragma unroll 2
+    for (; k < hi; ++k) {
+      const uint32_t next = fetch();
+      step<1, kGens, false>(k, cur);
+      cur = next;
+    }
+    for (; k < rows; ++k) {
+      const uint32_t next = fetch();
+      step<1, kGens, true>(k, cur);
+      cur = next;
+    }
+    drain<0>(rows);
+    if (FLAGS == kExact) {
+#pragma unroll
+      for (int t = 0; t < kGens; ++t) {
+        or_flag(alive[t], flags + t);
+        or_flag(differs[t], flags + kGens + t);
+      }
+    } else if (FLAGS == kSummary) {
+      or_flag(alive[0], flags + 0);
+      or_flag(alive[kGens - 1], flags + 1);
+      or_flag(differs[kGens - 1], flags + 2);
+      or_flag(differs[0], flags + 3);
+    }
+  }
+};
+
 // K1 (FLAGS = kSummary) / K2 (kExact) / K14 (kNone) on the torus (SRC =
 // kTorus), K7 / K8 on a full-width mesh shard (kGhostRows), K9+K10 /
 // K11+K12+K13 on a shard with mesh columns (kGhostPlane): kGens
-// generations of one kTileRows x kTileWords tile in shared memory.
-//
-// Barriers: the generation loop's __syncthreads at the top of each step
-// orders the previous step's writes of one buffer before this step's reads
-// of it, and this step's writes of the other buffer after the previous
-// step's reads of it; the one after the loop orders the last step before
-// the write-out. block_or is a barrier too, but no step relies on it, so
-// kNone, which makes no block_or call, needs no other barrier.
-//
-// The shared tile is padded by one always-zero word on every side, so the
-// stencil reads its 3x3 neighbourhood without bounds checks: padded row p
-// holds grid row r0 - kGens + p - 1 and padded column q holds grid word
-// w0 + q - 2 (both modulo the grid; a shard's rows and columns as set out
-// above).
+// generations of one band (`band` rows of a kStripWords strip) per warp,
+// from its (band + 16) x 32-word window, in registers. The exact forms ask
+// ptxas for 4 blocks per SM: their 16 flag words would otherwise push them
+// past 128 registers.
 template <FlagMode FLAGS, Source SRC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBandtWarps* kWarp, FLAGS == kExact ? 4 : 1)
 bandt_kernel(const uint32_t* __restrict__ in, const uint32_t* __restrict__ gtop,
              const uint32_t* __restrict__ gbot,
              const uint32_t* __restrict__ gwest,
              const uint32_t* __restrict__ geast, uint32_t* __restrict__ out,
-             int* __restrict__ flags, int height, int nwords, int tiles_x) {
-  constexpr int R = kTileRows + 2 * kGens;  // tile rows incl. ghost rows
-  constexpr int C = kTileWords + 2;         // tile words incl. ghost words
-  constexpr int P = R + 2;                  // padded
-  constexpr int Q = C + 2;
-  __shared__ uint32_t tile[2][P][Q];
-
-  const int tx = blockIdx.x % tiles_x;
-  const int ty = blockIdx.x / tiles_x;
-  const int r0 = ty * kTileRows;
-  const int w0 = tx * kTileWords;
-  const int own_rows = min(kTileRows, height - r0);
-  const int own_words = min(kTileWords, nwords - w0);
-  // Padded coordinates of the owned cells: [p_lo, p_hi) x [q_lo, q_hi).
-  const int p_lo = kGens + 1, p_hi = kGens + 1 + own_rows;
-  const int q_lo = 2, q_hi = 2 + own_words;
-
-  int in_alive = 0;
-  for (int idx = threadIdx.x; idx < P * Q; idx += blockDim.x) {
-    const int p = idx / Q, q = idx % Q;
-    uint32_t v = 0;
-    if (p >= 1 && p <= R && q >= 1 && q <= C) {
-      int gr = r0 - kGens + p - 1;  // >= -kGens
-      int gw = w0 + q - 2;          // >= -1
-      if (SRC != kGhostPlane) {
-        gw %= nwords;
-        if (gw < 0) gw += nwords;
-      }
-      const uint32_t* row;
-      if (SRC != kTorus) {
-        row = gr < 0               ? gtop + static_cast<size_t>(gr + kGens) * nwords
-              : gr < height        ? in + static_cast<size_t>(gr) * nwords
-              : gr < height + kGens ? gbot + static_cast<size_t>(gr - height) * nwords
-                                   : nullptr;
-      } else {
-        gr %= height;
-        if (gr < 0) gr += height;
-        row = in + static_cast<size_t>(gr) * nwords;
-      }
-      if (row == nullptr) {
-        v = 0;
-      } else if (SRC == kGhostPlane && (gw < 0 || gw >= nwords)) {
-        v = gw == -1 ? gwest[gr + kGens] : gw == nwords ? geast[gr + kGens] : 0;
-      } else {
-        v = row[gw];
-      }
-      if (FLAGS != kNone) {
-        in_alive |= (v != 0) && p >= p_lo && p < p_hi && q >= q_lo && q < q_hi;
-      }
-    }
-    tile[0][p][q] = v;
-    tile[1][p][q] = 0;
-  }
-  if (FLAGS == kSummary) block_or(in_alive, flags + 0);
-
-  int cur = 0;
-  for (int t = 0; t < kGens; ++t) {
-    __syncthreads();
-    int alive = 0, differs = 0;
-    for (int idx = threadIdx.x; idx < R * C; idx += blockDim.x) {
-      const int p = idx / C + 1, q = idx % C + 1;
-      const uint32_t(*s)[Q] = tile[cur];
-      const uint32_t x = s[p][q];
-      const uint32_t nv =
-          evolve_word(s[p - 1][q - 1], s[p - 1][q], s[p - 1][q + 1],
-                      s[p][q - 1], x, s[p][q + 1], s[p + 1][q - 1],
-                      s[p + 1][q], s[p + 1][q + 1]);
-      tile[cur ^ 1][p][q] = nv;
-      if (FLAGS != kNone && p >= p_lo && p < p_hi && q >= q_lo && q < q_hi) {
-        alive |= nv != 0;
-        differs |= nv != x;
-      }
-    }
-    cur ^= 1;
-    if (FLAGS == kExact) {
-      block_or(alive, flags + t);
-      block_or(differs, flags + kGens + t);
-    } else if (FLAGS == kSummary) {
-      if (t == 0) block_or(differs, flags + 3);
-      if (t == kGens - 1) {
-        block_or(alive, flags + 1);
-        block_or(differs, flags + 2);
-      }
-    }
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < kTileRows * kTileWords;
-       idx += blockDim.x) {
-    const int i = idx / kTileWords, j = idx % kTileWords;
-    if (i < own_rows && j < own_words) {
-      out[static_cast<size_t>(r0 + i) * nwords + (w0 + j)] =
-          tile[cur][p_lo + i][q_lo + j];
-    }
-  }
+             int* __restrict__ flags, int height, int nwords, int band,
+             int nstrips, int ntasks) {
+  const int task = blockIdx.x * kBandtWarps + threadIdx.x / kWarp;
+  if (task >= ntasks) return;  // the whole warp
+  const int lane = threadIdx.x % kWarp;
+  Strip<FLAGS, SRC> s;
+  s.in = in;
+  s.gtop = gtop;
+  s.gbot = gbot;
+  s.gwest = gwest;
+  s.geast = geast;
+  s.height = height;
+  s.nwords = nwords;
+  s.r0 = task / nstrips * band;
+  s.own = min(band, height - s.r0);
+  const int w = task % nstrips * kStripWords - 1 + lane;  // >= -1
+  s.store = lane >= 1 && lane <= kStripWords && w < nwords;
+  s.col = SRC == kGhostPlane ? w : (w + nwords) % nwords;
+  s.row = SRC == kTorus ? ((s.r0 - kGens) % height + height) % height
+                        : s.r0 - kGens;
+  s.src = SRC == kTorus ? in + static_cast<size_t>(s.row) * nwords + s.col : in;
+  s.wrap = static_cast<size_t>(height) * nwords;
+  s.dst = out + static_cast<size_t>(s.r0) * nwords + (s.store ? s.col : 0);
+  s.run(flags);
 }
 
 unsigned word_blocks(int height, int nwords) {
@@ -371,21 +544,56 @@ unsigned word_blocks(int height, int nwords) {
   return static_cast<unsigned>((words + kThreads - 1) / kThreads);
 }
 
+// The warps of bandt_kernel<FLAGS, SRC> that `device` holds at once: its
+// SMs x blocks per SM x warps per block, read once per device.
+template <FlagMode FLAGS, Source SRC>
+cudaError_t resident_warps(int device, int* warps) {
+  static int cache[kMaxDevices];
+  if (device >= 0 && device < kMaxDevices && cache[device] > 0) {
+    *warps = cache[device];
+    return cudaSuccess;
+  }
+  int sms = 0, blocks = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, bandt_kernel<FLAGS, SRC>, kBandtWarps * kWarp, 0);
+  }
+  if (err != cudaSuccess) return err;
+  *warps = max(1, sms * blocks * kBandtWarps);
+  if (device >= 0 && device < kMaxDevices) cache[device] = *warps;
+  return cudaSuccess;
+}
+
+// The rows of a band: each strip's rows split into equal bands, as many as
+// the card's resident warps hold in one wave (every warp runs one band, so
+// one wave of bands is the fewest steps), but none under kMinBandRows rows
+// unless the grid is shorter.
+int band_rows(int height, int nstrips, int warps) {
+  const int most = max(1, height / kMinBandRows);
+  const int bands = max(1, min(most, warps / nstrips));
+  return (height + bands - 1) / bands;
+}
+
 template <FlagMode FLAGS, Source SRC>
 int launch_bandt(const void* in, const void* gtop, const void* gbot,
                  const void* gwest, const void* geast, void* out, void* flags,
                  int height, int nwords, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
+  int warps = 0;
+  if (err == cudaSuccess) err = resident_warps<FLAGS, SRC>(device, &warps);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles_x = (nwords + kTileWords - 1) / kTileWords;
-  const int tiles_y = (height + kTileRows - 1) / kTileRows;
-  const unsigned blocks = static_cast<unsigned>(tiles_x) * tiles_y;
-  bandt_kernel<FLAGS, SRC><<<blocks, kThreads, 0,
+  const int nstrips = (nwords + kStripWords - 1) / kStripWords;
+  const int band = band_rows(height, nstrips, warps);
+  const int ntasks = nstrips * ((height + band - 1) / band);
+  const unsigned blocks = (ntasks + kBandtWarps - 1) / kBandtWarps;
+  bandt_kernel<FLAGS, SRC><<<blocks, kBandtWarps * kWarp, 0,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(in), static_cast<const uint32_t*>(gtop),
       static_cast<const uint32_t*>(gbot), static_cast<const uint32_t*>(gwest),
       static_cast<const uint32_t*>(geast), static_cast<uint32_t*>(out),
-      static_cast<int*>(flags), height, nwords, tiles_x);
+      static_cast<int*>(flags), height, nwords, band, nstrips, ntasks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -464,12 +672,27 @@ int gol_bandtg_pass(const void* in, const void* gtop, const void* gbot,
                 device, stream);
 }
 
-// The tile of bandt_kernel: interior rows and words per block, and the
-// ghost rows it loads above and below (one ghost word per side besides).
+// The tile of bandt_kernel: the least rows of a warp's band (unless the
+// grid has fewer), the interior words of its strip, and the ghost rows it
+// loads above and below (one ghost word per side besides, in lanes 0 and
+// 31). gol_bandt_bands gives a launch's band rows and bands per strip.
 void gol_bandt_tile(int* rows, int* words, int* ghost_rows) {
-  *rows = kTileRows;
-  *words = kTileWords;
+  *rows = kMinBandRows;
+  *words = kStripWords;
   *ghost_rows = kGens;
+}
+
+// The bands of a K1 launch over (height, nwords) words on `device`: the
+// rows of each band and the bands per strip.
+int gol_bandt_bands(int height, int nwords, int device, int* rows,
+                    int* bands) {
+  int warps = 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = resident_warps<kSummary, kTorus>(device, &warps);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *rows = band_rows(height, (nwords + kStripWords - 1) / kStripWords, warps);
+  *bands = (height + *rows - 1) / *rows;
+  return 0;
 }
 
 const char* gol_error_string(int code) {

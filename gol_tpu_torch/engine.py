@@ -375,7 +375,8 @@ def _build_runner(shape, config: GameConfig, kernel: str, device, *,
                           topology)
     if not kobj.supports(local_h, local_w, topology):
         hint = ("packed state has no fallback — use the unpacked lane"
-                if packed_state else "use kernel='auto' to pick one that does")
+                if packed_state
+                else "use kernel='auto' to fall back automatically")
         raise ValueError(
             f"kernel {kobj.name!r} does not support a {local_h}x{local_w} "
             f"local shard on a {topology.shape[0]}x{topology.shape[1]} "

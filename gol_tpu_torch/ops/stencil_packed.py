@@ -212,6 +212,8 @@ def _lib() -> ctypes.CDLL:
     lib.gol_bandtg_pass.restype = i32
     lib.gol_bandt_tile.argtypes = [ctypes.POINTER(i32)] * 3
     lib.gol_bandt_tile.restype = None
+    lib.gol_bandt_bands.argtypes = [i32, i32, i32] + [ctypes.POINTER(i32)] * 2
+    lib.gol_bandt_bands.restype = i32
     lib.gol_error_string.argtypes = [i32]
     lib.gol_error_string.restype = ctypes.c_char_p
     return lib
@@ -224,13 +226,25 @@ def load_kernels() -> None:
 
 def bandt_tile() -> tuple[int, int, int]:
     """``(rows, words, ghost_rows)`` of ``bandt_kernel``'s tile, read from
-    the built library: the interior rows and words one block owns and the
-    ghost rows it loads above and below (it loads one ghost word per side
-    besides). Builds the kernels at first use, so it needs ``nvcc``."""
+    the built library: the least rows of a warp's band (unless the grid has
+    fewer), the interior words of its strip, and the ghost rows it loads
+    above and below (it loads one ghost word per side besides). Builds the
+    kernels at first use, so it needs ``nvcc``."""
     rows, words, ghost = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     _lib().gol_bandt_tile(ctypes.byref(rows), ctypes.byref(words),
                           ctypes.byref(ghost))
     return rows.value, words.value, ghost.value
+
+
+def bandt_bands(height: int, nwords: int, device: int = 0) -> tuple[int, int]:
+    """``(rows, bands)``: how a K1 launch over (height, nwords) words on the
+    card ``device`` splits each strip's rows — the rows of a band and the
+    bands per strip, as many as the card's resident warps hold in one wave.
+    Needs the card."""
+    rows, bands = ctypes.c_int(), ctypes.c_int()
+    _raise_on(_lib().gol_bandt_bands(height, nwords, device, ctypes.byref(rows),
+                                     ctypes.byref(bands)), "bandt_bands")
+    return rows.value, bands.value
 
 
 def _check(words: torch.Tensor, out: torch.Tensor, flags: torch.Tensor | None,

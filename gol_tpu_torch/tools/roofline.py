@@ -24,14 +24,19 @@ pass (median of three) by both timings, cell-updates/s, the bytes and
 operations bounds and the share of the bound reached; per size the JAX
 package's ``flag_overhead_fraction`` = median(K14 rate) / median(K2 rate)
 - 1, the same ratio against K1, and the tile's overfetch, ((rows + 16) /
-rows) x ((words + 2) / words) with the tile read from the built library
-(``sp.bandt_tile()``, 64 x 32 words), the counterpart of the JAX
-package's two-band experiment (the port's tile is fixed). After timing a
-kernel at a size it holds the output and flags of its last timed launch
-against the plain version at tolerance 0, and raises on any difference.
-It prints one JSON object and, with ``--out``, writes it there too.
-``--trace DIR`` keeps the Chrome trace of the first size's K1 capture. It
-needs a card.
+rows) x ((words + 2) / words), with the strip's interior words read from
+the built library (``sp.bandt_tile()``) and the rows of K1's bands at that
+size (``sp.bandt_bands``), the counterpart of the JAX package's two-band
+experiment. The operations bound counts the adder network's work:
+``OPS_PER_WORD_GEN`` logic instructions per word and generation, with the
+bound at ``packed_math``'s 28 two-input ops kept beside it
+(``ops_ms_two_input``). After timing a kernel at a size it holds the
+output and flags of its last timed launch against the plain version at
+tolerance 0, and raises on any difference. The report ends with the SM
+clock nvidia-smi reads once, right after the last size (the bound assumes
+the maximum). It prints one JSON object and, with ``--out``, writes it
+there too. ``--trace DIR`` keeps the Chrome trace of the first size's K1
+capture. It needs a card.
 """
 
 from __future__ import annotations
@@ -58,9 +63,17 @@ HBM_BYTES_PER_S = 3.35e12
 # Guide, arithmetic instruction throughput, compute capability 9.0:
 # bitwise AND/OR/XOR, shifts and adds).
 INT32_LOGIC_PER_CLK_PER_SM = 64
-# ~28 two-input logic ops per word per generation (packed_math.py's adder
-# network, shifts included).
-OPS_PER_WORD_GEN = 28
+# The adder network's logic instructions per word and generation, as the
+# card can issue them (csrc/stencil_packed.cu): push() takes the new row's
+# west and east neighbours with 2 funnel shifts (SHF) and its sums with 4
+# LOP3s (dm0 = w ^ e, dm1 = w & e, d0 = dm0 ^ d, d1 = dm1 | (d & dm0));
+# next_gen() applies the rule with 6 (t0, tc, v0, v1, (v0 ^ tc) & ~v1,
+# and that & (t0 | mid), each of at most 3 inputs). Loop overhead (moves,
+# addresses, the branch) is not the function's work and is not counted;
+# tools/sass_ops.py reports the steady loop's own count beside this one.
+OPS_PER_WORD_GEN = 12
+# packed_math.py's adder network in two-input ops, shifts included.
+TWO_INPUT_OPS_PER_WORD_GEN = 28
 KERNEL_NAME = "bandt_kernel"
 # Written over the output before the last timed launches, so that a tile
 # the kernel skipped cannot match the plain version by chance.
@@ -68,7 +81,8 @@ POISON = -1
 
 
 def tile_overfetch(rows: int, words: int, ghost_rows: int) -> float:
-    """Words a block loads per word it owns: its tile (``sp.bandt_tile()``)
+    """Words a warp loads per word it owns: its band of ``rows`` rows
+    (``sp.bandt_bands``) of ``words`` interior words (``sp.bandt_tile()``)
     with ``ghost_rows`` rows above and below and one ghost word per side."""
     return ((rows + 2 * ghost_rows) / rows) * ((words + 2) / words)
 
@@ -88,14 +102,19 @@ def logic_ops_per_s() -> float:
 def pass_bounds(height: int, nwords: int, ops_per_s: float) -> dict:
     """The least time one 8-generation pass over (height, nwords) words
     could take: its words read once and written once over the memory
-    rate, and its logic ops over the logic rate; the larger binds."""
+    rate, and its logic ops (``OPS_PER_WORD_GEN`` per word and generation)
+    over the logic rate; the larger binds. ``ops_ms_two_input`` is the ops
+    time at 28 two-input ops per word and generation."""
     nbytes = 2 * height * nwords * 4
-    ops = sp.TEMPORAL_GENS * height * nwords * OPS_PER_WORD_GEN
+    word_gens = sp.TEMPORAL_GENS * height * nwords
+    ops = word_gens * OPS_PER_WORD_GEN
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / ops_per_s * 1e3
     return {"bytes": nbytes, "bytes_ms": bytes_ms, "logic_ops": ops,
             "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "ops_ms_two_input": word_gens * TWO_INPUT_OPS_PER_WORD_GEN
+            / ops_per_s * 1e3}
 
 
 def cell_updates_per_s(size: int, ms: float) -> float:
@@ -106,7 +125,8 @@ def cell_updates_per_s(size: int, ms: float) -> float:
 def summarize(size: int, times: dict, bounds: dict, tile: tuple) -> dict:
     """The report of one size from its raw timings: ``times[kernel][way]``
     is the list of ms per pass of the repetitions, ``way`` "graph" or
-    "profiler"; ``tile`` is ``sp.bandt_tile()``."""
+    "profiler"; ``tile`` is the (rows, words, ghost rows) of K1's strip
+    at this size."""
     kernels = {}
     for kernel, ways in times.items():
         row = {}
@@ -193,7 +213,22 @@ def measure(size: int, ops_per_s: float, tile: tuple,
               f"output identical to the plain version", file=sys.stderr,
               flush=True)
     bounds = pass_bounds(size, size // pm.BITS, ops_per_s)
-    return {**summarize(size, times, bounds, tile), "checks": checks}
+    rows, bands = sp.bandt_bands(size, size // pm.BITS)
+    return {**summarize(size, times, bounds, (rows, *tile[1:])),
+            "bands": {"rows": rows, "per_strip": bands}, "checks": checks}
+
+
+def sm_clock_mhz() -> float | None:
+    """The SM clock nvidia-smi reads now (MHz), None where it reads no
+    number (``[N/A]``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()
+    try:
+        return float(out[0])
+    except (IndexError, ValueError):
+        return None
 
 
 def smi_line() -> str:
@@ -209,13 +244,18 @@ def report(sizes=SIZES, trace_dir: str | None = None) -> dict:
         raise RuntimeError("the roofline needs a CUDA card; torch sees none")
     tile = sp.bandt_tile()
     ops_per_s = logic_ops_per_s()
+    measured = [measure(s, ops_per_s, tile, trace_dir if i == 0 else None)
+                for i, s in enumerate(sizes)]
     return {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi_line(),
         "logic_ops_per_s": ops_per_s, "hbm_bytes_per_s": HBM_BYTES_PER_S,
+        "ops_per_word_gen": OPS_PER_WORD_GEN,
         "launches_per_timing": LAUNCHES, "reps": REPS, "seed": SEED,
         "tile": dict(zip(("rows", "words", "ghost_rows"), tile)),
-        "sizes": [measure(s, ops_per_s, tile, trace_dir if i == 0 else None)
-                  for i, s in enumerate(sizes)],
+        "sizes": measured,
+        # Read once, right after the last size: the bound assumes the
+        # card's maximum SM clock.
+        "sm_clock_mhz_after_timing": sm_clock_mhz(),
     }
 
 

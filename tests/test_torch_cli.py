@@ -331,20 +331,86 @@ def test_resume_gen_matches_jax_and_the_whole_run(flags, capsys, tmp_path):
      ["--host", "--resume-gen", "3"], ["--host", "--kernel", "packed"],
      ["--host", "--packed-io"], ["--packed-io", "--kernel", "lax"],
      ["--packed-io", "--kernel", "pallas"], ["--snapshot-format", "zarr"],
-     ["--packed-io", "--variant", "game", "WIDTH48"]],
+     ["--packed-io", "--variant", "game", "WIDTH48"],
+     ["--kernel", "packed", "SQUARE40"],
+     ["--kernel", "packed", "--variant", "cuda", "SQUARE40"]],
     ids=["resume_negative", "resume_above_limit", "host_resume", "host_kernel",
          "host_packed_io", "packed_io_lax", "packed_io_pallas",
-         "zarr_without_packed_io", "packed_io_width"],
+         "zarr_without_packed_io", "packed_io_width", "packed_shape",
+         "packed_shape_cuda"],
 )
 def test_refusals_match_jax(flags, capsys, tmp_path):
-    width = "48" if "WIDTH48" in flags else "64"
-    flags = [f for f in flags if f != "WIDTH48"]
-    path = _write(tmp_path, "in.txt", text_grid.generate(int(width), 64, seed=2))
+    width = "48" if "WIDTH48" in flags else "40" if "SQUARE40" in flags else "64"
+    height = "40" if "SQUARE40" in flags else "64"
+    flags = [f for f in flags if f not in ("WIDTH48", "SQUARE40")]
+    path = _write(tmp_path, "in.txt",
+                  text_grid.generate(int(width), int(height), seed=2))
     errs = []
     for main in (jax_cli.main, cli.main):
-        assert main([width, "64", path, "--variant", "game", *flags]) == 1
+        assert main([width, height, path, "--variant", "game", *flags]) == 1
         errs.append(capsys.readouterr().err)
     assert errs[0] == errs[1] and errs[1].startswith("gol: ")
+
+
+def test_jax_subcommands_not_ported_are_named():
+    # Every subcommand of the JAX CLI but run and generate is refused by name.
+    jax_names = set(next(a for a in jax_cli.build_parser()._actions
+                         if a.dest == "command").choices)
+    assert set(cli.NOT_PORTED) == jax_names - {"run", "generate"}
+
+
+@pytest.mark.parametrize("name", cli.NOT_PORTED)
+def test_jax_subcommands_are_refused(name, capsys, tmp_path, monkeypatch):
+    """A JAX subcommand's name exits 1 with one ``gol:`` line, where it used
+    to run as a ``run`` with the name read as the width; nothing is read or
+    written."""
+    monkeypatch.chdir(tmp_path)
+    for args in ([name], [name, "64", "64", "in.txt"], [name, "--help"]):
+        assert cli.main(args) == 1
+        out, err = capsys.readouterr()
+        assert out == ""
+        assert err == (f"gol: subcommand {name!r} is not ported yet; run it "
+                       "with python -m gol_tpu\n")
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_show_without_sizes_differs_from_jax(capsys, tmp_path):
+    # JAX's `show FILE` (no W H) exits 2 with show's usage; the port has no
+    # `show` yet and refuses the name, with exit 1.
+    path = _write(tmp_path, "in.txt", text_grid.generate(8, 8, seed=1))
+    with pytest.raises(SystemExit) as exc:
+        jax_cli.main(["show", path])
+    assert exc.value.code == 2
+    assert capsys.readouterr().err.startswith("usage: gol show ")
+    assert cli.main(["show", path]) == 1
+    assert capsys.readouterr().err.startswith("gol: subcommand 'show' is not ported")
+
+
+def test_unknown_kernel_matches_jax(capsys, tmp_path):
+    """An unknown --kernel exits 1 with JAX's message. The lists differ by
+    JAX's two Pallas debugging routes, which the port does not have."""
+    path = _write(tmp_path, "in.txt", text_grid.generate(64, 64, seed=2))
+    errs = []
+    for main in (jax_cli.main, cli.main):
+        assert main(["64", "64", path, "--variant", "game", "--kernel", "bogus"]) == 1
+        errs.append(capsys.readouterr().err)
+    assert errs[0] == ("gol: unknown kernel 'bogus'; available: ['lax', 'packed', "
+                       "'packed-interp', 'packed-jnp', 'pallas']\n")
+    assert errs[1] == errs[0].replace("'packed-interp', 'packed-jnp', ", "")
+
+
+@pytest.mark.parametrize("kernel", ["packed-interp", "packed-jnp"])
+def test_jax_debug_kernels_are_unknown_to_the_port(kernel, capsys, tmp_path):
+    # A known difference: JAX runs its Pallas debugging routes, the port
+    # refuses them as unknown kernels.
+    path = _write(tmp_path, "in.txt", text_grid.generate(64, 64, seed=2))
+    args = ["64", "64", path, "--variant", "game", "--kernel", kernel,
+            "--gen-limit", "8", "--output", str(tmp_path / "jax.out")]
+    assert jax_cli.main(args) == 0
+    capsys.readouterr()
+    assert cli.main(args) == 1
+    assert capsys.readouterr().err == (
+        f"gol: unknown kernel {kernel!r}; available: ['lax', 'packed', 'pallas']\n")
 
 
 def test_zarr_is_refused(capsys, tmp_path):
@@ -409,12 +475,14 @@ def test_mesh_lax_and_rectangles_match_jax(variant, eight_shards, capsys, tmp_pa
      ["64", "64", "IN64", "--variant", "collective", "--mesh", "3x3"],
      ["64", "64", "IN64", "--variant", "tpu", "--mesh", "0x2"],
      ["64", "64", "IN64", "--variant", "mpi", "--host", "--mesh", "2x2"],
-     ["96", "96", "IN96", "--variant", "tpu", "--mesh", "2x2", "--packed-io"]],
+     ["96", "96", "IN96", "--variant", "tpu", "--mesh", "2x2", "--packed-io"],
+     ["40", "40", "IN40", "--variant", "tpu", "--mesh", "2x2", "--kernel", "packed"]],
     ids=["does_not_divide", "single_device_variant", "malformed", "too_many",
-         "zero_axis", "host", "packed_io_width"],
+         "zero_axis", "host", "packed_io_width", "packed_shard_shape"],
 )
 def test_mesh_refusals_match_jax(args, eight_shards, capsys, tmp_path):
     paths = {"IN16": _write(tmp_path, "in16.txt", text_grid.generate(16, 16, seed=1)),
+             "IN40": _write(tmp_path, "in40.txt", text_grid.generate(40, 40, seed=1)),
              "IN64": _write(tmp_path, "in64.txt", text_grid.generate(64, 64, seed=1)),
              "IN96": _write(tmp_path, "in96.txt", text_grid.generate(96, 96, seed=1))}
     args = [paths.get(a, a) for a in args]
@@ -423,6 +491,23 @@ def test_mesh_refusals_match_jax(args, eight_shards, capsys, tmp_path):
         assert main(args) == 1
         errs.append(capsys.readouterr().err)
     assert errs[0] == errs[1] and errs[1].startswith("gol: ")
+
+
+def test_huge_byte_lane_warning_matches_jax(eight_shards, capsys, tmp_path):
+    """65536^2 over two shards is 2 GB of bytes per shard: both CLIs warn and
+    name --packed-io before the read, then fail on the missing file."""
+    missing = str(tmp_path / "missing.txt")
+    results = []
+    for main in (jax_cli.main, cli.main):
+        rc = main(["65536", "65536", missing, "--variant", "tpu", "--mesh", "2x1"])
+        results.append((rc, *capsys.readouterr()))
+    assert results[1] == results[0]
+    rc, out, err = results[1]
+    assert rc == 1 and out == ""
+    assert err.splitlines()[0] == (
+        "warning: 65536x65536 as bytes is 2.0 GB per buffer per device; if this "
+        "runs out of device memory, use --packed-io (bit-packed state, 32x smaller)")
+    assert err.splitlines()[1].startswith("gol: ")
 
 
 @pytest.mark.parametrize(

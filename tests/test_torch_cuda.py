@@ -20,7 +20,15 @@ from gol_tpu_torch.ops import stencil_pallas as spl
 
 pytestmark = pytest.mark.cuda
 
-SHAPES = [(1, 1), (7, 1), (16, 2), (17, 5), (200, 33)]
+# bandt_kernel's tile: a strip of TILE_WORDS interior words per warp, split
+# into bands of at least TILE_ROWS rows (test_tile_shapes_surround_the_strip
+# holds them to the built library). TILE_SHAPES surround it: heights TH - 1,
+# TH and TH + 1 (one band) and 2 TH + 17 (two, split 41 + 40); nwords 1, 2,
+# 31, 61 and 37, none a multiple of TILE_WORDS.
+TILE_ROWS, TILE_WORDS = 32, 30
+TILE_SHAPES = [(TILE_ROWS - 1, 1), (TILE_ROWS + 1, 2), (2 * TILE_ROWS + 17, 31),
+               (TILE_ROWS, 61), (TILE_ROWS + 1, TILE_WORDS + 7)]
+SHAPES = [(1, 1), (7, 1), (16, 2), (17, 5), (200, 33)] + TILE_SHAPES
 
 
 @pytest.fixture
@@ -161,7 +169,7 @@ def test_cli_lanes_on_the_card_match_oracle(card, lane, variant, monkeypatch,
 # ---------------------------------------------------------------------------
 # The mesh-shard kernels K5-K8 on the card, and a mesh run against 1x1.
 
-SHARD_SHAPES = [(1, 1), (8, 1), (17, 5), (200, 33)]
+SHARD_SHAPES = [(1, 1), (8, 1), (17, 5), (200, 33)] + TILE_SHAPES
 
 
 def _shard_ghosts(height, nwords, seed):
@@ -212,7 +220,8 @@ def test_shard_kernel_matches_plain(card, kernel, height, nwords):
 
 
 @pytest.mark.parametrize("height,nwords",
-                         [(8, 1), (17, 1), (16, 2), (17, 5), (200, 33), (130, 70)])
+                         [(8, 1), (17, 1), (16, 2), (17, 5), (200, 33), (130, 70)]
+                         + TILE_SHAPES)
 @pytest.mark.parametrize("kernel", ["bandtg_fast", "bandtg"])
 def test_plane_kernel_matches_plain(card, kernel, height, nwords):
     # The ghost-plane forms of the 8-generation pass (K9+K10; K11+K12+K13).
@@ -339,6 +348,27 @@ def test_profiler_reads_the_kernel_device_time(card):
                                   ("no_such_kernel",))
 
 
+def test_tile_shapes_surround_the_strip(card):
+    rows, words, ghost_rows = sp.bandt_tile()
+    assert (rows, words, ghost_rows) == (TILE_ROWS, TILE_WORDS, sp.TEMPORAL_GENS)
+    assert sp.bandt_bands(TILE_ROWS - 1, 1) == (TILE_ROWS - 1, 1)
+    assert sp.bandt_bands(TILE_ROWS + 1, 2) == (TILE_ROWS + 1, 1)
+    assert sp.bandt_bands(2 * TILE_ROWS + 17, 31) == (TILE_ROWS + 9, 2)
+
+
+@pytest.mark.parametrize("height,nwords", [(16384, 512), (4096, 512), (8192, 256),
+                                           (65536, 2048), (16384, 1)])
+def test_bands_fill_one_wave(card, height, nwords):
+    """K1's bands: every strip's rows in equal bands of at least TILE_ROWS
+    rows, no more bands than the card's resident warps hold at once."""
+    rows, bands = sp.bandt_bands(height, nwords)
+    assert (bands - 1) * rows < height <= bands * rows
+    assert rows >= TILE_ROWS
+    strips = -(-nwords // TILE_WORDS)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert strips * bands <= max(strips, sms * 64)  # at most 64 warps per SM
+
+
 def test_roofline_reads_the_tile_and_checks_what_it_timed(card):
     from gol_tpu_torch.tools import roofline
 
@@ -348,7 +378,9 @@ def test_roofline_reads_the_tile_and_checks_what_it_timed(card):
     assert report["tile"] == {"rows": rows, "words": words,
                               "ghost_rows": ghost_rows}
     (size,) = report["sizes"]
-    assert size["tile_overfetch"] == roofline.tile_overfetch(rows, words,
+    band_rows, bands = sp.bandt_bands(1024, 32)
+    assert size["bands"] == {"rows": band_rows, "per_strip": bands}
+    assert size["tile_overfetch"] == roofline.tile_overfetch(band_rows, words,
                                                              ghost_rows)
     for name in ("K1", "K2", "K14"):
         assert size["checks"][name] == {"words": 1024 * 32,

@@ -91,14 +91,27 @@ def test_noflags_wrapper_refuses_what_the_kernel_does_not_take():
 
 
 def test_pass_bounds_from_shapes():
+    # The ops bound at the network's 12 logic instructions (2 SHF, 10 LOP3),
+    # and at packed_math's 28 two-input ops beside it.
     b = roofline.pass_bounds(16384, 512, 1.6727e13)
     assert b["bytes"] == 2 * 16384 * 512 * 4
-    assert b["logic_ops"] == 8 * 16384 * 512 * 28
+    assert b["logic_ops"] == 8 * 16384 * 512 * 12
     assert b["bytes_ms"] == pytest.approx(b["bytes"] / 3.35e12 * 1e3)
     assert b["ops_ms"] == pytest.approx(b["logic_ops"] / 1.6727e13 * 1e3)
+    assert b["ops_ms_two_input"] == pytest.approx(8 * 16384 * 512 * 28 / 1.6727e13 * 1e3)
     assert b["bound_by"] == "operations" and b["bound_ms"] == b["ops_ms"]
     slow_logic = roofline.pass_bounds(64, 2, 1e15)
     assert slow_logic["bound_by"] == "bytes"
+
+
+@pytest.mark.parametrize("stdout, mhz", [("1980\n", 1980.0), ("[N/A]\n", None),
+                                         ("", None)])
+def test_sm_clock_reads_what_nvidia_smi_prints(monkeypatch, stdout, mhz):
+    import subprocess
+
+    monkeypatch.setattr(roofline.subprocess, "run", lambda *a, **k:
+                        subprocess.CompletedProcess(a, 0, stdout, ""))
+    assert roofline.sm_clock_mhz() == mhz
 
 
 def test_summarize_from_fixed_times():
