@@ -19,13 +19,16 @@ error:
 2. Kernels against their plain torch versions on the card: K1 (fast-flag
    8-generation pass), K2 (exact-flag pass), K3 (one generation) and K14
    (the 8-generation pass without flags) at
-   (height, nwords) (1,1) (7,1) (16,2) (17,5) (1000,7) (16384,512), and K4
+   (height, nwords) (1,1) (7,1) (16,2) (17,5) (1000,7) (16384,512) and
+   ``BAND_SHAPES`` (2,1) (33,4) (40,132) (K3's height 2 and its 16-byte
+   form), and K4
    (one byte-cell generation) at (height, width) (1,1) (7,3) (16,128)
    (17,161) (1000,225) (16384,16384), on random cells, a domino that dies
    and an L-tromino that becomes still. The mesh-shard kernels K5 (one
    generation from ghost rows and carry words), K7/K8 (K1/K2 of a
    full-width shard from 8-row ghost blocks) at shard (height, nwords)
-   (1,1) (8,1) (17,5) (1000,7) (4096,512) (K7/K8 from 8 rows), and K6 (K4
+   (1,1) (8,1) (17,5) (1000,7) (4096,512) and ``BAND_SHAPES`` (K7/K8 from
+   8 rows), and K6 (K4
    of a shard) at (1,1) (7,3) (17,161) (8192,8192), and the ghost-plane
    forms of the 8-generation pass (summary flags: replaces K9+K10; exact
    flags: replaces K11+K12 and K13; a shard of a mesh with columns, from
@@ -103,8 +106,13 @@ error:
    host's time per wrapper call while capturing, when nothing runs) and the
    plain version's ``plain_ms`` (eager). K1-K4 at 16384^2, K5/K7/K8 at the
    4x1 shard (4096 x 512 words), K5 and the ghost-plane forms at the 2x2
-   shard (8192 x 256 words) and K6 at the 4x1 and 2x2 shards, beside its
-   bound — the larger of the
+   shard (8192 x 256 words) and K6 at the 4x1 and 2x2 shards. K5 runs over
+   the ring of the mesh's four shards, each with its own input, output and
+   ghosts, launched in turn as the mesh launches them: together they
+   exceed the 50 MB L2, so no launch finds its input there from its own
+   last launch; the others ping-pong one pair. Each line prints the
+   working set beside the bound, so that an L2-resident reading shows.
+   Each time stands beside its bound — the larger of the
    bytes it must move (its inputs, ghosts included, read once and its
    output written once) over 3.35 TB/s and its 32-bit integer logic ops
    over the card's rate for them: 64 results per clock per SM (CUDA C++
@@ -173,11 +181,16 @@ OPS_PER_WORD_GEN = roofline.OPS_PER_WORD_GEN
 # words, two adds), the 3x3 sums 2, two byte compares 7 each, the rule 2,
 # the flags 5.
 OPS_PER_BYTE_WORD = 31
-PACKED_SHAPES = [(1, 1), (7, 1), (16, 2), (17, 5), (1000, 7), (SIZE, SIZE // 32)]
+# (2, 1), (33, 4) and (40, 132): band_kernel's (K3, K5) height 2 and its
+# 16-byte form (nwords % 4 == 0) in one lane, a full strip and one lane more.
+BAND_SHAPES = [(2, 1), (33, 4), (40, 132)]
+PACKED_SHAPES = [(1, 1), (7, 1), (16, 2), (17, 5), (1000, 7), (SIZE, SIZE // 32),
+                 *BAND_SHAPES]
 BYTE_SHAPES = [(1, 1), (7, 3), (16, 128), (17, 161), (1000, 225), (SIZE, SIZE)]
 # Mesh shards: packed (height, nwords) up to the 4x1 shard of 16384^2, and
 # byte (height, width) up to its 2x2 shard.
-SHARD_SHAPES = [(1, 1), (8, 1), (17, 5), (1000, 7), (SIZE // 4, SIZE // 32)]
+SHARD_SHAPES = [(1, 1), (8, 1), (17, 5), (1000, 7), (SIZE // 4, SIZE // 32),
+                *BAND_SHAPES]
 SHARD_BYTE_SHAPES = [(1, 1), (7, 3), (17, 161), (SIZE // 2, SIZE // 2)]
 # Shards of a mesh with columns, up to the 2x2 shard of 16384^2.
 PLANE_SHAPES = [(8, 1), (17, 1), (16, 2), (17, 5), (1000, 7), (SIZE // 2, SIZE // 64)]
@@ -190,6 +203,10 @@ SHARD_TIMING = {"dist_band": [(SIZE // 4, SIZE // 32), (SIZE // 2, SIZE // 64)],
                 "bandtrow_fast": [(SIZE // 4, SIZE // 32)],
                 "bandtrow": [(SIZE // 4, SIZE // 32)],
                 "dist_byte_band": [(SIZE // 4, SIZE), (SIZE // 2, SIZE // 2)]}
+# Kernels timed over a ring of the mesh's shards: their shards together
+# exceed the L2 cache, as on the mesh path, where one alone would stay in it.
+RING_TIMED = ("dist_band",)
+L2_BYTES = 50 << 20  # the H100's L2 cache
 KERNELS = [
     {
         "key": "bandt_fast", "id": "K1", "gens": sp.TEMPORAL_GENS,
@@ -1087,20 +1104,18 @@ def checkpoint_path(work: Path, path: dict) -> dict:
 # 5. Timing at 16384^2
 
 
-def _time(fn, x, y, pairs: int) -> float:
-    """ms per call of ``fn(src, dst)`` over ``2 * pairs`` ping-pong calls."""
-    for _ in range(3):
-        fn(x, y)
-        fn(y, x)
+def _time(fn, srcs, dsts, rounds: int) -> float:
+    """ms per call of ``fn(i, src, dst)``, issued one by one, over
+    ``rounds`` rounds of a ring of shards (``profiler.run_ring``; one shard
+    is a ping-pong)."""
+    profiler.run_ring(fn, srcs, dsts, 6)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(pairs):
-        fn(x, y)
-        fn(y, x)
+    profiler.run_ring(fn, srcs, dsts, rounds)
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / (2 * pairs)
+    return start.elapsed_time(end) / (rounds * len(srcs))
 
 
 def logic_ops_per_s() -> float:
@@ -1111,18 +1126,23 @@ def logic_ops_per_s() -> float:
     return rate
 
 
-def _timed(k: dict, x: torch.Tensor, ghosts: list, ops_per_s: float) -> dict:
+def _timed(k: dict, xs: list, ghosts: list, ops_per_s: float) -> dict:
     """``k``'s ms per launch (graph replay; eager beside it) and its plain
-    version's on ``x`` (and its ghosts), beside the bound for the same
-    work."""
-    y = torch.empty_like(x)
-    flags = torch.zeros(k["nflags"], dtype=torch.int32, device=x.device)
-    launch = lambda a, b: k["into"](a, *ghosts, b, flags)
-    eager_ms = _time(launch, x, y, 50)
-    ms, wrapper_ms = profiler.graph_ms(launch, x, y, 50)
-    plain_ms = _time(lambda a, b: k["plain"](a, *ghosts), x, y, 50)
-    nbytes = 2 * x.numel() * x.element_size() + sum(
-        g.numel() * g.element_size() for g in ghosts)
+    version's over the shards ``xs`` (one for a single device) with their
+    ghosts ``ghosts[i]``, launched in turn, beside the bound for one
+    launch's work and the working set of the ring (every shard's input,
+    output and ghosts)."""
+    ys = [torch.empty_like(x) for x in xs]
+    flags = torch.zeros(k["nflags"], dtype=torch.int32, device=xs[0].device)
+    launch = lambda i, a, b: k["into"](a, *ghosts[i], b, flags)
+    rounds = 100 // len(xs)
+    eager_ms = _time(launch, xs, ys, rounds)
+    ms, wrapper_ms = profiler.ring_graph_ms(launch, xs, ys, rounds)
+    plain_ms = _time(lambda i, a, b: k["plain"](a, *ghosts[i]), xs, ys, rounds)
+    x = xs[0]
+    ghost_bytes = [sum(g.numel() * g.element_size() for g in gs) for gs in ghosts]
+    nbytes = 2 * x.numel() * x.element_size() + ghost_bytes[0]
+    working_set = sum(2 * t.numel() * t.element_size() for t in xs) + sum(ghost_bytes)
     if k.get("cells"):
         ops = k["gens"] * (x.numel() // 4) * OPS_PER_BYTE_WORD
     else:
@@ -1132,10 +1152,12 @@ def _timed(k: dict, x: torch.Tensor, ghosts: list, ops_per_s: float) -> dict:
     two_input = {} if k.get("cells") else {"ops_ms_two_input": k["gens"] * x.numel()
                                            * roofline.TWO_INPUT_OPS_PER_WORD_GEN
                                            / ops_per_s * 1e3}
+    resident = "fits in" if working_set <= L2_BYTES else "exceeds"
     print(f"{k['id']} at {tuple(x.shape)}: {ms:.6f} ms/launch in a CUDA graph "
           f"(eager {eager_ms:.6f} ms, wrapper {wrapper_ms:.6f} ms on the host, "
           f"plain {plain_ms:.6f} ms); bytes {nbytes} -> {bytes_ms:.6f} ms, logic ops "
-          f"{ops} -> {ops_ms:.6f} ms", flush=True)
+          f"{ops} -> {ops_ms:.6f} ms; working set {working_set} bytes over "
+          f"{len(xs)} shard(s), {resident} the {L2_BYTES}-byte L2", flush=True)
     return {
         "shape": list(x.shape), "ms": ms, "eager_ms": eager_ms,
         "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
@@ -1143,6 +1165,7 @@ def _timed(k: dict, x: torch.Tensor, ghosts: list, ops_per_s: float) -> dict:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "bytes": nbytes, "bytes_ms": bytes_ms, "logic_ops": ops,
         "ops_ms": ops_ms, "logic_ops_per_s": ops_per_s, **two_input,
+        "ring_shards": len(xs), "working_set_bytes": working_set,
     }
 
 
@@ -1155,15 +1178,21 @@ def timing(dev) -> dict:
     out = {}
     for k in KERNELS:
         if not k.get("ghosts"):
-            out[k["key"]] = _timed(k, x_cells if k.get("cells") else x_words, [],
-                                   ops_per_s)
+            out[k["key"]] = _timed(k, [x_cells if k.get("cells") else x_words],
+                                   [[]], ops_per_s)
             continue
-        # Shard kernels at the mesh path's shard shapes: the first heads the
-        # kernel's entry.
+        # Shard kernels at the mesh path's shard shapes, the first heading
+        # the kernel's entry; K5 over the ring of the mesh's four shards.
         shapes = []
         for height, n in SHARD_TIMING[k["key"]]:
-            x = (x_cells if k.get("cells") else x_words)[:height, :n].contiguous()
-            shapes.append(_timed(k, x, _ghosts(k, x, rng), ops_per_s))
+            state = x_cells if k.get("cells") else x_words
+            if k["key"] in RING_TIMED:
+                rows, cols = SIZE // height, state.shape[1] // n
+                xs = [state[r * height:(r + 1) * height, c * n:(c + 1) * n].contiguous()
+                      for r in range(rows) for c in range(cols)]
+            else:
+                xs = [state[:height, :n].contiguous()]
+            shapes.append(_timed(k, xs, [_ghosts(k, x, rng) for x in xs], ops_per_s))
         out[k["key"]] = {**shapes[0], "by_shape": shapes}
     return out
 

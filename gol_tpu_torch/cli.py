@@ -67,13 +67,16 @@ def atoi(s: str | None) -> int:
 
 def dense_cells_guard(height: int, width: int) -> None:
     """Raise the CLI-contract error for a dense grid that cannot fit, before
-    anything allocates it."""
+    anything allocates it. The message is the JAX CLI's word for word; the
+    sparse lane it names runs under ``python -m gol_tpu`` (not ported)."""
     cells = height * width
     if cells > MAX_DENSE_CELLS:
         raise ValueError(
             f"a {height}x{width} board is {cells} cells "
             f"({cells / (1 << 30):.1f} GB as bytes), above the dense "
-            f"engine's {MAX_DENSE_CELLS}-cell ceiling"
+            f"engine's {MAX_DENSE_CELLS}-cell ceiling; use the sparse lane "
+            "(--pattern FILE --universe WxH [--engine sparse]) so the "
+            "canvas is never materialized"
         )
 
 

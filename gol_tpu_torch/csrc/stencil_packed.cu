@@ -16,7 +16,7 @@
 //       sim1), stored here as (in_alive, out_alive, !simT, !sim1).
 //   bandt_kernel<EXACT>    K2  _bandt_kernel (via _step_t): the same pass
 //       with exact per-generation flags, alive[0..7] and !similar[8..15].
-//   band_kernel            K3  _band_kernel (via _step): one generation
+//   band_kernel<V, torus>  K3  _band_kernel (via _step): one generation
 //       with fused (alive, !similar).
 //   bandt_kernel<NONE>     K14 _bandt_noflags_kernel (tools/roofline_r4.py,
 //       via _step_t_noflags): K2 with every flag operation compiled out,
@@ -31,9 +31,10 @@
 //       rows above and below come from the ghost blocks gtop/gbot.
 //   bandt_kernel<EXACT, ghost rows>    K8  _bandtrow_kernel (via
 //       _step_trow): K2 on the same shard, the replay target of K7.
-//   dist_band_kernel       K5  _dist_band_kernel (via _dist_step_pallas):
-//       K3 on any shard, from one ghost row above and below and the
-//       (h+2) east/west carry words.
+//   band_kernel<V, ghost plane>  K5  _dist_band_kernel (via
+//       _dist_step_pallas): K3 on any shard, from one ghost row above and
+//       below and the (h+2) east/west carry words (a ghost plane of depth
+//       1).
 //   bandt_kernel<SUMMARY, ghost plane>  K9 + K10  _stript_fast_kernel (via
 //       _step_strip_fast) and _bandtrow_stitch_fast_kernel (via
 //       _step_trow_stitch_fast), composed by _step_tsplit_fast: K1 on a
@@ -59,17 +60,34 @@
 // grid; CUDA blocks run concurrently and in no order. So every flag is an
 // OR into an int32 word that the caller zeroes before the launch, and the
 // AND-type flags (similar) are stored negated ("differs"): one zero_()
-// resets a whole flag buffer. K3/K5 reduce a block's predicate with
-// __syncthreads_or; bandt_kernel ORs the owned words of each flag into a
-// register as it goes and reduces them once per warp at the end
-// (__reduce_or_sync). One lane then ORs the flag in, reading the word
-// first so that later warps and blocks rarely issue the atomic at all.
+// resets a whole flag buffer. Both kernels OR the owned words of each flag
+// into a register as they go and reduce them once per warp at the end
+// (__reduce_or_sync), with no block barrier. One lane then ORs the flag
+// in, reading the word first so that later warps and blocks rarely issue
+// the atomic at all.
 //
 // What bounds them. K3 and K5 move one word in and one out per word of the
-// grid and do ~28 logic ops on it: bytes bound them (2 x 4 bytes per word
-// over 3.35 TB/s). bandt_kernel moves the same bytes per pass but does 8
-// generations of the network on them, so its logic ops set its bound: the
-// 32-bit integer pipe's 64 results per clock per SM.
+// grid and do 12 logic instructions on it: bytes bound them (2 x 4 bytes
+// per word over 3.35 TB/s). bandt_kernel moves the same bytes per pass but
+// does 8 generations of the network on them, so its logic ops set its
+// bound: the 32-bit integer pipe's 64 results per clock per SM.
+//
+// band_kernel's design (K3, K5). A stream, so what counts is that each
+// word comes from DRAM once, that enough bytes are in flight to cover the
+// memory's latency, and that no instruction per word goes to index math.
+// One warp walks down a band of rows of a strip of 32 V words: lane i holds
+// V adjacent words of each row, V = 4 (one 16-byte load and store per lane
+// and row) where nwords % 4 == 0 and the rows are 16-byte aligned, V = 1
+// for any other shape or slice. Per row a lane computes its words' row sums
+// once (bandt_kernel's level 0 alone: the sums of the two rows above stay
+// in registers) and emits the row above. The words west and east of its
+// own come by shuffle; the lanes at the strip's edges load the word beyond
+// it instead (the torus's wrap, or the shard's gwest/geast), so every lane
+// owns and stores its words. Each lane keeps kAhead rows in flight, loaded
+// before it pushes the row it has. A band is at least kBandMinRows rows,
+// and as many bands run as one wave of warps holds; its two extra rows are
+// its neighbours' and come from L2. Lane and band offsets are set once per
+// warp: no division per word.
 //
 // bandt_kernel's design. One warp evolves a band of rows of a strip of 30
 // words: lane i holds word w0 - 1 + i of each row, so lanes 0 and 31 are
@@ -144,134 +162,25 @@
 // and the rest is the loop's overhead.
 // Registers: K1 140, K14 133, K7 144, K9+K10 150, no spills; K2, K8 and
 // K11-K13 128 (capped, see bandt_kernel) with 48-64 bytes of stack and
-// 204-316 bytes of spill stores. No shared memory. K3 and K5 use 30 and 32
-// registers, no spills.
+// 204-316 bytes of spill stores. No shared memory. band_kernel: 72
+// registers with V = 4 (K3 and K5), 42 (K3) and 40 (K5) with V = 1, no
+// spills, no stack. On an H100 (700 W) K3 takes 0.0285 ms at 16384 x 512
+// words, 0.70 of its bytes bound, and K5 0.0101 ms per shard over the ring
+// of a 4x1 mesh's four 4096 x 512 shards, 0.50 of it; torch's copy_ of the
+// same words, which computes nothing, reaches 0.86 and 0.66 of the bound
+// (PERF.md §6). The two extra rows of a band and the strip edges' loads
+// come from L2; kAhead > 1 (rows loaded further ahead) raises registers to
+// 84-101 and wins back no more than it loses in resident warps.
 
 #include <cstddef>
 #include <cstdint>
+#include <initializer_list>
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kGens = 8;  // TEMPORAL_GENS
-constexpr int kThreads = 256;  // K3, K5
-
-__device__ __forceinline__ void row_sums(uint32_t x, uint32_t left,
-                                         uint32_t right, uint32_t& m0,
-                                         uint32_t& m1, uint32_t& s0,
-                                         uint32_t& s1) {
-  const uint32_t w = (x << 1) | (left >> 31);
-  const uint32_t e = (x >> 1) | (right << 31);
-  m0 = w ^ e;
-  m1 = w & e;
-  s0 = m0 ^ x;
-  s1 = m1 | (x & m0);
-}
-
-__device__ __forceinline__ uint32_t combine(uint32_t u0, uint32_t u1,
-                                            uint32_t d0, uint32_t d1,
-                                            uint32_t m0, uint32_t m1,
-                                            uint32_t mid) {
-  const uint32_t ud0 = u0 ^ d0;
-  const uint32_t t0 = ud0 ^ m0;
-  const uint32_t tc = (u0 & d0) | (m0 & ud0);
-  const uint32_t ud1 = u1 ^ d1;
-  const uint32_t v0 = ud1 ^ m1;
-  const uint32_t v1 = (u1 & d1) | (m1 & ud1);
-  const uint32_t b1 = v0 ^ tc;
-  const uint32_t over = v1 | (v0 & tc);
-  return b1 & ~over & (t0 | mid);
-}
-
-// One generation of the word x from its 3x3 word neighbourhood (rows up,
-// mid, down; columns left, centre, right).
-__device__ __forceinline__ uint32_t evolve_word(
-    uint32_t ul, uint32_t uc, uint32_t ur, uint32_t ml, uint32_t x,
-    uint32_t mr, uint32_t dl, uint32_t dc, uint32_t dr) {
-  uint32_t um0, um1, u0, u1, m0, m1, s0, s1, dm0, dm1, d0, d1;
-  row_sums(uc, ul, ur, um0, um1, u0, u1);
-  row_sums(x, ml, mr, m0, m1, s0, s1);
-  row_sums(dc, dl, dr, dm0, dm1, d0, d1);
-  return combine(u0, u1, d0, d1, m0, m1, x);
-}
-
-// OR a block-wide predicate into *flag. Every thread of the block calls it
-// (it is a barrier).
-__device__ __forceinline__ void block_or(int pred, int* flag) {
-  if (__syncthreads_or(pred) && threadIdx.x == 0) {
-    if (*reinterpret_cast<volatile int*>(flag) == 0) atomicOr(flag, 1);
-  }
-}
-
-// K3: one generation, one thread per word, modular 3x3 neighbourhood read
-// straight from device memory. flags[0] |= alive, flags[1] |= differs.
-__global__ void __launch_bounds__(kThreads)
-band_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-            int* __restrict__ flags, int height, int nwords) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  int alive = 0, differs = 0;
-  if (i < static_cast<long long>(height) * nwords) {
-    const int r = static_cast<int>(i / nwords);
-    const int w = static_cast<int>(i % nwords);
-    const int wl = (w == 0) ? nwords - 1 : w - 1;
-    const int wr = (w == nwords - 1) ? 0 : w + 1;
-    const int ru = (r == 0) ? height - 1 : r - 1;
-    const int rd = (r == height - 1) ? 0 : r + 1;
-    const uint32_t* up = in + static_cast<size_t>(ru) * nwords;
-    const uint32_t* mid = in + static_cast<size_t>(r) * nwords;
-    const uint32_t* dn = in + static_cast<size_t>(rd) * nwords;
-    const uint32_t x = mid[w];
-    const uint32_t nv = evolve_word(up[wl], up[w], up[wr], mid[wl], x,
-                                    mid[wr], dn[wl], dn[w], dn[wr]);
-    out[i] = nv;
-    alive = nv != 0;
-    differs = nv != x;
-  }
-  block_or(alive, flags);
-  block_or(differs, flags + 1);
-}
-
-// K5: K3 for one mesh shard. Row -1 is `top` and row h is `bot`; in
-// extended row e (e = r + 1 for rows r = -1..h) the word west of column 0
-// is gwest[e], of which only bit 31 is read, and the word east of the last
-// column is geast[e], of which only bit 0 is read (row_sums shifts the rest
-// out). Any height >= 1 and nwords >= 1.
-__global__ void __launch_bounds__(kThreads)
-dist_band_kernel(const uint32_t* __restrict__ in,
-                 const uint32_t* __restrict__ top,
-                 const uint32_t* __restrict__ bot,
-                 const uint32_t* __restrict__ gwest,
-                 const uint32_t* __restrict__ geast,
-                 uint32_t* __restrict__ out, int* __restrict__ flags,
-                 int height, int nwords) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  int alive = 0, differs = 0;
-  if (i < static_cast<long long>(height) * nwords) {
-    const int r = static_cast<int>(i / nwords);
-    const int w = static_cast<int>(i % nwords);
-    const uint32_t* rows[3] = {
-        r == 0 ? top : in + static_cast<size_t>(r - 1) * nwords,
-        in + static_cast<size_t>(r) * nwords,
-        r == height - 1 ? bot : in + static_cast<size_t>(r + 1) * nwords};
-    uint32_t l[3], c[3], e[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      c[k] = rows[k][w];
-      l[k] = w == 0 ? gwest[r + k] : rows[k][w - 1];
-      e[k] = w == nwords - 1 ? geast[r + k] : rows[k][w + 1];
-    }
-    const uint32_t nv =
-        evolve_word(l[0], c[0], e[0], l[1], c[1], e[1], l[2], c[2], e[2]);
-    out[i] = nv;
-    alive = nv != 0;
-    differs = nv != c[1];
-  }
-  block_or(alive, flags);
-  block_or(differs, flags + 1);
-}
 
 // Which flags a bandt_kernel pass computes.
 enum FlagMode {
@@ -314,9 +223,11 @@ struct Level {
   uint32_t out;     // what this level emitted at the last step
 };
 
-// combine() with its last two steps folded into what ptxas issues as two
-// 3-input LOP3s: where v0 ^ tc is set, v0 & tc is not, so b1 & ~over =
-// (v0 ^ tc) & ~v1. (combine() compiles to two more.)
+// The rule from the 3-cell sums of the rows above (u) and below (d), the
+// centre row's 2-cell sums (m) and the centre row: packed_math's combine
+// with its last two steps folded into what ptxas issues as two 3-input
+// LOP3s (where v0 ^ tc is set, v0 & tc is not, so b1 & ~over =
+// (v0 ^ tc) & ~v1).
 __device__ __forceinline__ uint32_t next_gen(uint32_t u0, uint32_t u1,
                                              uint32_t d0, uint32_t d1,
                                              uint32_t m0, uint32_t m1,
@@ -328,13 +239,11 @@ __device__ __forceinline__ uint32_t next_gen(uint32_t u0, uint32_t u1,
   return (v0 ^ tc) & ~v1 & (t0 | mid);
 }
 
-// Push the row d below the centre row: returns the centre row's next
-// generation and moves the window down one row. The lane's west and east
-// words come from the neighbouring lanes; lanes 0 and 31 get their own
-// word back, which is the ghost words' "wrong neighbour".
-__device__ __forceinline__ uint32_t push(Level& v, uint32_t d) {
-  const uint32_t west = __shfl_up_sync(kFullMask, d, 1);
-  const uint32_t east = __shfl_down_sync(kFullMask, d, 1);
+// Push the row d below the centre row, given the words west and east of
+// d: computes d's row sums once, returns the centre row's next generation
+// and moves the window down one row.
+__device__ __forceinline__ uint32_t push_row(Level& v, uint32_t d,
+                                             uint32_t west, uint32_t east) {
   const uint32_t w = __funnelshift_l(west, d, 1);  // (d << 1) | (west >> 31)
   const uint32_t e = __funnelshift_r(d, east, 1);  // (d >> 1) | (east << 31)
   const uint32_t dm0 = w ^ e, dm1 = w & e;
@@ -348,6 +257,24 @@ __device__ __forceinline__ uint32_t push(Level& v, uint32_t d) {
   v.m1 = dm1;
   v.x = d;
   return nv;
+}
+
+// push_row with the west and east words from the neighbouring lanes; lanes
+// 0 and 31 get their own word back, which is the ghost words' "wrong
+// neighbour".
+__device__ __forceinline__ uint32_t push(Level& v, uint32_t d) {
+  return push_row(v, d, __shfl_up_sync(kFullMask, d, 1),
+                  __shfl_down_sync(kFullMask, d, 1));
+}
+
+// OR a flag word into *flag: one warp-wide reduction of the words the lane
+// owns, then lane 0 reads the flag and issues the atomic only if it is
+// still clear. Every lane of the warp calls it.
+__device__ __forceinline__ void or_flag(bool owned, uint32_t acc, int* flag) {
+  if (__reduce_or_sync(kFullMask, owned ? acc : 0u) &&
+      threadIdx.x % kWarp == 0) {
+    if (*reinterpret_cast<volatile int*>(flag) == 0) atomicOr(flag, 1);
+  }
 }
 
 // One warp's band of a strip: own x kStripWords owned words, lane i holding
@@ -446,14 +373,6 @@ struct Strip {
     }
   }
 
-  // OR a flag word of the warp's owned words into *flag.
-  __device__ __forceinline__ void or_flag(uint32_t acc, int* flag) const {
-    if (__reduce_or_sync(kFullMask, store ? acc : 0u) &&
-        threadIdx.x % kWarp == 0) {
-      if (*reinterpret_cast<volatile int*>(flag) == 0) atomicOr(flag, 1);
-    }
-  }
-
   __device__ __forceinline__ void run(int* flags) {
     for (int t = 0; t < kGens; ++t) {
       lv[t] = Level{0, 0, 0, 0, 0, 0, 0, 0};
@@ -488,14 +407,14 @@ struct Strip {
     if (FLAGS == kExact) {
 #pragma unroll
       for (int t = 0; t < kGens; ++t) {
-        or_flag(alive[t], flags + t);
-        or_flag(differs[t], flags + kGens + t);
+        or_flag(store, alive[t], flags + t);
+        or_flag(store, differs[t], flags + kGens + t);
       }
     } else if (FLAGS == kSummary) {
-      or_flag(alive[0], flags + 0);
-      or_flag(alive[kGens - 1], flags + 1);
-      or_flag(differs[kGens - 1], flags + 2);
-      or_flag(differs[0], flags + 3);
+      or_flag(store, alive[0], flags + 0);
+      or_flag(store, alive[kGens - 1], flags + 1);
+      or_flag(store, differs[kGens - 1], flags + 2);
+      or_flag(store, differs[0], flags + 3);
     }
   }
 };
@@ -539,16 +458,192 @@ bandt_kernel(const uint32_t* __restrict__ in, const uint32_t* __restrict__ gtop,
   s.run(flags);
 }
 
-unsigned word_blocks(int height, int nwords) {
-  const long long words = static_cast<long long>(height) * nwords;
-  return static_cast<unsigned>((words + kThreads - 1) / kThreads);
+// One generation, K3 (SRC = kTorus) and K5 (kGhostPlane, depth 1): a
+// warp walks down a band of rows of a strip of kWarp * V words, lane i
+// holding words w0 + V i .. w0 + V i + V - 1 of each row (V = 4: one
+// 16-byte load per row; V = 1 for any nwords or alignment). Each row's
+// sums are computed once, from its west and east words: the lanes' own
+// neighbours by shuffle, and the words beyond the strip (or the torus's
+// wrap, or the shard's ghost column) loaded by the edge lanes.
+// The last three as tools/band_sweep.py found them on an H100 (PERF.md §6).
+constexpr int kBandWarps = 4;      // warps per block
+constexpr int kBandMinRows = 4;    // the least rows of a band
+constexpr int kAhead = 1;          // rows a lane has in flight
+constexpr int kBandMinBlocks = 1;  // blocks per SM ptxas must fit
+
+// A lane's V words of one row, and the words west and east of them that
+// the edge lanes load (0 elsewhere).
+template <int V>
+struct Row {
+  uint32_t x[V];
+  uint32_t west, east;
+};
+
+template <int V, Source SRC>
+struct Band {
+  const uint32_t* __restrict__ in;
+  const uint32_t* __restrict__ top;    // kGhostPlane: row -1
+  const uint32_t* __restrict__ bot;    // kGhostPlane: row height
+  const uint32_t* __restrict__ gwest;  // kGhostPlane: column -1, rows -1..h
+  const uint32_t* __restrict__ geast;  // kGhostPlane: column nwords
+  int height, nwords;
+  int col;                    // the lane's first word (0 past nwords)
+  int wcol, ecol;             // the columns of its west and east words
+  bool west_edge, east_edge;  // the lane loads them (else: shuffles)
+  int row;                    // the next row to load (kTorus: modulo height)
+  const uint32_t* line;       // kTorus: that row
+  int pending;                // rows still to load
+  Row<V> ahead[kAhead];       // rows loaded, not yet pushed: a ring
+
+  __device__ __forceinline__ void fetch(Row<V>& d) {
+    const uint32_t *p, *pw, *pe;
+    if (SRC == kTorus) {
+      p = line;
+      line += nwords;
+      if (++row == height) {
+        row = 0;
+        line = in;
+      }
+      pw = p + wcol;
+      pe = p + ecol;
+    } else {
+      const int g = row++;  // -1 .. height
+      p = g < 0 ? top : g < height ? in + static_cast<size_t>(g) * nwords : bot;
+      pw = wcol < 0 ? gwest + g + 1 : p + wcol;
+      pe = ecol == nwords ? geast + g + 1 : p + ecol;
+    }
+    if constexpr (V == 4) {
+      const uint4 q = __ldg(reinterpret_cast<const uint4*>(p + col));
+      d.x[0] = q.x;
+      d.x[1] = q.y;
+      d.x[2] = q.z;
+      d.x[3] = q.w;
+    } else {
+      d.x[0] = __ldg(p + col);
+    }
+    d.west = west_edge ? __ldg(pw) : 0u;
+    d.east = east_edge ? __ldg(pe) : 0u;
+  }
+
+  // The row in ring slot s, which is then refilled with the row kAhead
+  // further on. Every caller's s is a constant once its loop is unrolled,
+  // so the ring stays in registers and the rows in flight are never moved
+  // between them (a move would wait for its load).
+  __device__ __forceinline__ Row<V> take(int s) {
+    const Row<V> d = ahead[s];
+    if (pending > 0) {
+      --pending;
+      fetch(ahead[s]);
+    }
+    return d;
+  }
+};
+
+// Push the lane's words of row d into its V windows: nv gets the centre
+// row's next generation.
+template <int V>
+__device__ __forceinline__ void push_words(Level (&lv)[V], const Row<V>& d,
+                                           bool west_edge, bool east_edge,
+                                           uint32_t (&nv)[V]) {
+  const uint32_t up = __shfl_up_sync(kFullMask, d.x[V - 1], 1);
+  const uint32_t down = __shfl_down_sync(kFullMask, d.x[0], 1);
+  const uint32_t west = west_edge ? d.west : up;
+  const uint32_t east = east_edge ? d.east : down;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    nv[j] = push_row(lv[j], d.x[j], j == 0 ? west : d.x[j - 1],
+                     j == V - 1 ? east : d.x[j + 1]);
+  }
 }
 
-// The warps of bandt_kernel<FLAGS, SRC> that `device` holds at once: its
-// SMs x blocks per SM x warps per block, read once per device.
-template <FlagMode FLAGS, Source SRC>
-cudaError_t resident_warps(int device, int* warps) {
-  static int cache[kMaxDevices];
+// K3 / K5: one generation of `band` rows of a kWarp * V-word strip per
+// warp. flags[0] |= alive, flags[1] |= differs. Any height >= 1; any
+// nwords >= 1 for V = 1, a multiple of 4 with 16-byte aligned rows (in,
+// out, top, bot) for V = 4.
+template <int V, Source SRC>
+__global__ void __launch_bounds__(kBandWarps* kWarp, kBandMinBlocks)
+band_kernel(const uint32_t* __restrict__ in, const uint32_t* __restrict__ top,
+            const uint32_t* __restrict__ bot,
+            const uint32_t* __restrict__ gwest,
+            const uint32_t* __restrict__ geast, uint32_t* __restrict__ out,
+            int* __restrict__ flags, int height, int nwords, int band,
+            int nstrips, int ntasks) {
+  const int task = blockIdx.x * kBandWarps + threadIdx.x / kWarp;
+  if (task >= ntasks) return;  // the whole warp
+  const int lane = threadIdx.x % kWarp;
+  const int r0 = task / nstrips * band;
+  const int own = min(band, height - r0);
+  const int w = (task % nstrips * kWarp + lane) * V;  // the lane's first word
+  const bool live = w < nwords;  // then all V words are
+  Band<V, SRC> b;
+  b.in = in;
+  b.top = top;
+  b.bot = bot;
+  b.gwest = gwest;
+  b.geast = geast;
+  b.height = height;
+  b.nwords = nwords;
+  b.col = live ? w : 0;
+  b.west_edge = lane == 0;  // always live
+  b.east_edge = live && (lane == kWarp - 1 || w + V == nwords);
+  b.wcol = SRC == kTorus && w == 0 ? nwords - 1 : w - 1;
+  b.ecol = SRC == kTorus && w + V == nwords ? 0 : w + V;
+  b.row = SRC == kTorus ? ((r0 - 1) % height + height) % height : r0 - 1;
+  b.line = SRC == kTorus ? in + static_cast<size_t>(b.row) * nwords : in;
+  // Rows r0 - 1 .. r0 + own: row r0 - 1 + t goes through slot t % kAhead,
+  // the first kAhead of them loaded now.
+  b.pending = own + 2;
+#pragma unroll
+  for (int i = 0; i < kAhead; ++i) {
+    if (b.pending > 0) {
+      --b.pending;
+      b.fetch(b.ahead[i]);
+    }
+  }
+  Level lv[V] = {};
+  uint32_t nv[V];
+  push_words(lv, b.take(0), b.west_edge, b.east_edge, nv);
+  push_words(lv, b.take(1 % kAhead), b.west_edge, b.east_edge, nv);
+  uint32_t* dst = out + static_cast<size_t>(r0) * nwords + b.col;
+  uint32_t alive = 0, differs = 0;
+  // Row r0 + j comes out when row r0 + j + 1 (slot (j + 2) % kAhead) goes
+  // in; kAhead rows per trip, so that each one's slot is a constant.
+  for (int j = 0; j < own; j += kAhead) {
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) {
+      if (j + i < own) {
+        uint32_t x[V];
+#pragma unroll
+        for (int k = 0; k < V; ++k) x[k] = lv[k].x;
+        push_words(lv, b.take((i + 2) % kAhead), b.west_edge,
+                   b.east_edge, nv);
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          alive |= nv[k];
+          differs |= nv[k] ^ x[k];
+        }
+        if (live) {
+          if constexpr (V == 4) {
+            *reinterpret_cast<uint4*>(dst) =
+                make_uint4(nv[0], nv[1], nv[2], nv[3]);
+          } else {
+            *dst = nv[0];
+          }
+        }
+        dst += nwords;
+      }
+    }
+  }
+  or_flag(live, alive, flags);
+  or_flag(live, differs, flags + 1);
+}
+
+// The warps of `kernel` (blocks of `block_warps` warps) that `device`
+// holds at once: its SMs x blocks per SM x warps per block, read once per
+// device into `cache`.
+template <class Kernel>
+cudaError_t resident_warps(Kernel kernel, int block_warps, int device,
+                           int* cache, int* warps) {
   if (device >= 0 && device < kMaxDevices && cache[device] > 0) {
     *warps = cache[device];
     return cudaSuccess;
@@ -558,20 +653,27 @@ cudaError_t resident_warps(int device, int* warps) {
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, bandt_kernel<FLAGS, SRC>, kBandtWarps * kWarp, 0);
+        &blocks, kernel, block_warps * kWarp, 0);
   }
   if (err != cudaSuccess) return err;
-  *warps = max(1, sms * blocks * kBandtWarps);
+  *warps = max(1, sms * blocks * block_warps);
   if (device >= 0 && device < kMaxDevices) cache[device] = *warps;
   return cudaSuccess;
 }
 
+template <FlagMode FLAGS, Source SRC>
+cudaError_t bandt_warps(int device, int* warps) {
+  static int cache[kMaxDevices];
+  return resident_warps(bandt_kernel<FLAGS, SRC>, kBandtWarps, device, cache,
+                        warps);
+}
+
 // The rows of a band: each strip's rows split into equal bands, as many as
 // the card's resident warps hold in one wave (every warp runs one band, so
-// one wave of bands is the fewest steps), but none under kMinBandRows rows
+// one wave of bands is the fewest steps), but none under min_rows rows
 // unless the grid is shorter.
-int band_rows(int height, int nstrips, int warps) {
-  const int most = max(1, height / kMinBandRows);
+int band_rows(int height, int nstrips, int warps, int min_rows) {
+  const int most = max(1, height / min_rows);
   const int bands = max(1, min(most, warps / nstrips));
   return (height + bands - 1) / bands;
 }
@@ -582,10 +684,10 @@ int launch_bandt(const void* in, const void* gtop, const void* gbot,
                  int height, int nwords, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   int warps = 0;
-  if (err == cudaSuccess) err = resident_warps<FLAGS, SRC>(device, &warps);
+  if (err == cudaSuccess) err = bandt_warps<FLAGS, SRC>(device, &warps);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nstrips = (nwords + kStripWords - 1) / kStripWords;
-  const int band = band_rows(height, nstrips, warps);
+  const int band = band_rows(height, nstrips, warps, kMinBandRows);
   const int ntasks = nstrips * ((height + band - 1) / band);
   const unsigned blocks = (ntasks + kBandtWarps - 1) / kBandtWarps;
   bandt_kernel<FLAGS, SRC><<<blocks, kBandtWarps * kWarp, 0,
@@ -597,6 +699,40 @@ int launch_bandt(const void* in, const void* gtop, const void* gbot,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int V, Source SRC>
+int launch_band(const void* in, const void* top, const void* bot,
+                const void* gwest, const void* geast, void* out, void* flags,
+                int height, int nwords, int device, void* stream) {
+  static int cache[kMaxDevices];
+  cudaError_t err = cudaSetDevice(device);
+  int warps = 0;
+  if (err == cudaSuccess) {
+    err = resident_warps(band_kernel<V, SRC>, kBandWarps, device, cache, &warps);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nstrips = (nwords + kWarp * V - 1) / (kWarp * V);
+  const int band = band_rows(height, nstrips, warps, kBandMinRows);
+  const int ntasks = nstrips * ((height + band - 1) / band);
+  const unsigned blocks = (ntasks + kBandWarps - 1) / kBandWarps;
+  band_kernel<V, SRC><<<blocks, kBandWarps * kWarp, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(in), static_cast<const uint32_t*>(top),
+      static_cast<const uint32_t*>(bot), static_cast<const uint32_t*>(gwest),
+      static_cast<const uint32_t*>(geast), static_cast<uint32_t*>(out),
+      static_cast<int*>(flags), height, nwords, band, nstrips, ntasks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The 16-byte form takes rows of whole uint4s: nwords % 4 == 0 and every
+// row pointer 16-byte aligned.
+bool whole_uint4s(int nwords, std::initializer_list<const void*> rows) {
+  if (nwords % 4 != 0) return false;
+  for (const void* p : rows) {
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  }
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -605,15 +741,13 @@ extern "C" {
 // synchronise and allocates nothing; it returns cudaGetLastError() after
 // the launch (0 = cudaSuccess).
 
+// K3. Rows of whole uint4s take the 16-byte form.
 int gol_band_step(const void* in, void* out, void* flags, int height,
                   int nwords, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  band_kernel<<<word_blocks(height, nwords), kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out),
-      static_cast<int*>(flags), height, nwords);
-  return static_cast<int>(cudaGetLastError());
+  auto launch = whole_uint4s(nwords, {in, out}) ? launch_band<4, kTorus>
+                                                : launch_band<1, kTorus>;
+  return launch(in, nullptr, nullptr, nullptr, nullptr, out, flags, height,
+                nwords, device, stream);
 }
 
 int gol_bandt_pass(const void* in, void* out, void* flags, int height,
@@ -637,15 +771,11 @@ int gol_dist_band_step(const void* in, const void* top, const void* bot,
                        const void* gwest, const void* geast, void* out,
                        void* flags, int height, int nwords, int device,
                        void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dist_band_kernel<<<word_blocks(height, nwords), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(in), static_cast<const uint32_t*>(top),
-      static_cast<const uint32_t*>(bot), static_cast<const uint32_t*>(gwest),
-      static_cast<const uint32_t*>(geast), static_cast<uint32_t*>(out),
-      static_cast<int*>(flags), height, nwords);
-  return static_cast<int>(cudaGetLastError());
+  auto launch = whole_uint4s(nwords, {in, out, top, bot})
+                    ? launch_band<4, kGhostPlane>
+                    : launch_band<1, kGhostPlane>;
+  return launch(in, top, bot, gwest, geast, out, flags, height, nwords,
+                device, stream);
 }
 
 // K7 (exact = 0) / K8 (exact = 1). gtop/gbot: (8, nwords) ghost row blocks;
@@ -688,9 +818,10 @@ int gol_bandt_bands(int height, int nwords, int device, int* rows,
                     int* bands) {
   int warps = 0;
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) err = resident_warps<kSummary, kTorus>(device, &warps);
+  if (err == cudaSuccess) err = bandt_warps<kSummary, kTorus>(device, &warps);
   if (err != cudaSuccess) return static_cast<int>(err);
-  *rows = band_rows(height, (nwords + kStripWords - 1) / kStripWords, warps);
+  *rows = band_rows(height, (nwords + kStripWords - 1) / kStripWords, warps,
+                    kMinBandRows);
   *bands = (height + *rows - 1) / *rows;
   return 0;
 }

@@ -17,7 +17,11 @@ The port's counterpart of ``gol_tpu/obs/profiler.py`` and of
 - ``graph_ms(fn, x, y, pairs)``: ``2 * pairs`` ping-pong calls of a kernel
   wrapper captured in one CUDA graph and replayed between two CUDA events,
   so the card and not the host's launch rate sets the time
-  (``chip_smoke.py`` phase 5 and ``tools/roofline.py`` share it).
+  (``chip_smoke.py`` phase 5 and ``tools/roofline.py`` share it);
+  ``ring_graph_ms`` the same over a ring of shards, each with its own
+  buffers, launched in turn as a mesh launches them — so that where the
+  shards together exceed the L2 cache, no launch finds its input there
+  from its own previous launch.
 
 Every timing here needs a card and raises without one.
 """
@@ -98,15 +102,31 @@ def graph_ms(fn, x: torch.Tensor, y: torch.Tensor, pairs: int) -> tuple[float, f
     launch for all of them and the card sets the time. While capturing
     nothing runs, so the host's time per call there is the wrapper's own
     (its checks and the ctypes call)."""
+    return ring_graph_ms(lambda i, a, b: fn(a, b), [x], [y], 2 * pairs)
+
+
+def run_ring(fn, srcs, dsts, rounds: int) -> None:
+    """``rounds`` rounds of ``fn(i, src, dst)`` over a ring of shards: each
+    round calls it once per shard ``i`` in order, from ``srcs[i]`` into
+    ``dsts[i]``, and the next round runs back (the two swap), as a mesh's
+    generations do."""
+    a, b = srcs, dsts
+    for _ in range(rounds):
+        for i in range(len(a)):
+            fn(i, a[i], b[i])
+        a, b = b, a
+
+
+def ring_graph_ms(fn, srcs, dsts, rounds: int) -> tuple[float, float]:
+    """``(ms, wrapper_ms)`` per call of ``fn(i, src, dst)`` over
+    ``run_ring``'s calls, timed as ``graph_ms``."""
     _require_card()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         t0 = time.perf_counter()
-        for _ in range(pairs):
-            fn(x, y)
-            fn(y, x)
-        wrapper_ms = (time.perf_counter() - t0) * 1e3 / (2 * pairs)
+        run_ring(fn, srcs, dsts, rounds)
+        wrapper_ms = (time.perf_counter() - t0) * 1e3 / (rounds * len(srcs))
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -115,4 +135,4 @@ def graph_ms(fn, x: torch.Tensor, y: torch.Tensor, pairs: int) -> tuple[float, f
     graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / (2 * pairs), wrapper_ms
+    return start.elapsed_time(end) / (rounds * len(srcs)), wrapper_ms

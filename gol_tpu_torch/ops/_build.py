@@ -93,12 +93,24 @@ def library_path(name: str) -> Path:
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` with nvcc unless its current build exists."""
-    return _compile(CSRC / f"{name}.cu", NVCC_FLAGS, _nvcc)
+    return build_source(CSRC / f"{name}.cu")
+
+
+def build_source(source: Path) -> Path:
+    """Compile any CUDA source with the package's nvcc flags into
+    ``_build/`` unless its current build exists (``tools/band_sweep.py``
+    builds rewritten copies of a kernel source)."""
+    return _compile(source, NVCC_FLAGS, _nvcc)
 
 
 def build_log(name: str) -> str:
     """nvcc's report (``-Xptxas -v``) from the build of the current source."""
-    log = library_path(name).with_suffix(".log")
+    return source_log(CSRC / f"{name}.cu")
+
+
+def source_log(source: Path) -> str:
+    """nvcc's report from the build of ``source`` as it is now."""
+    log = _library(source, NVCC_FLAGS).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 

@@ -196,7 +196,12 @@ def _bandtg_plain(words, gtop, gbot, gwest, geast, exact: bool):
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("stencil_packed")
+    return bind(_build.load("stencil_packed"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entries of a built ``csrc/stencil_packed.cu`` (the
+    package's, or a copy ``tools/band_sweep.py`` built) to ctypes."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.gol_band_step.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.gol_band_step.restype = i32

@@ -1,5 +1,5 @@
-// A host emulation of the CUDA runtime features that bandt_kernel
-// (gol_tpu_torch/csrc/stencil_packed.cu) uses, for
+// A host emulation of the CUDA runtime features that the kernels of
+// gol_tpu_torch/csrc/stencil_packed.cu use, for
 // tests/test_torch_bandt_emulated.py: the kernel source compiles with the
 // host C++ compiler (x86-64) against this header, and a launch runs the
 // blocks' warps one after another, each as 32 lanes on one host thread.
@@ -15,6 +15,7 @@
 #include <cstdint>
 #include <cstdlib>
 #include <tuple>
+#include <utility>
 #include <vector>
 
 #define __global__
@@ -30,6 +31,12 @@ using std::min;
 struct dim3 {
   unsigned x = 0, y = 0, z = 0;
 };
+struct uint4 {
+  uint32_t x, y, z, w;
+};
+inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z, uint32_t w) {
+  return {x, y, z, w};
+}
 inline dim3 threadIdx, blockIdx, blockDim;
 
 typedef int cudaError_t;
@@ -174,12 +181,19 @@ template <class T>
 T __ldg(const T* p) {
   return *p;
 }
+// The card faults on a 16-byte load that is not 16-byte aligned; the host
+// does not, so the emulation counts them (emu_misaligned reads the count
+// since its last call).
+inline int emu_misaligned_loads = 0;
+inline uint4 __ldg(const uint4* p) {
+  emu_misaligned_loads += reinterpret_cast<uintptr_t>(p) % 16 != 0;
+  return *p;
+}
 inline int atomicOr(int* p, int v) {
   const int old = *p;
   *p |= v;
   return old;
 }
-inline int __syncthreads_or(int) { std::abort(); }  // no block barriers
 
 // kernel<<<blocks, threads, shared, stream>>>(args...) becomes
 // emu_launch(blocks, threads, kernel, args...).
@@ -197,6 +211,10 @@ void emu_launch(unsigned blocks, unsigned threads, K kernel, A... args) {
   for (unsigned b = 0; b < blocks; ++b) {
     for (unsigned w = 0; w < threads / 32; ++w) emu_warp(b, w, body, &call);
   }
+}
+
+extern "C" int emu_misaligned() {
+  return std::exchange(emu_misaligned_loads, 0);
 }
 
 extern "C" void emu_occupancy(int device, int sms, int blocks_per_sm) {

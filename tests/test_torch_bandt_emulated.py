@@ -1,17 +1,19 @@
-"""bandt_kernel's CUDA source on the CPU, against the plain torch versions.
+"""The kernels' CUDA source on the CPU, against the plain torch versions.
 
 ``gol_tpu_torch/csrc/stencil_packed.cu`` is compiled with the host C++
 compiler against ``tests/cuda_emulation/cuda_runtime.h``, a host emulation
-of the CUDA features the kernel uses (a launch runs each warp as 32 lanes
+of the CUDA features the kernels use (a launch runs each warp as 32 lanes
 on one host thread, each on its own stack, taking turns at every shuffle
 and warp reduction), and driven through the source's own C entries and
-launch plan.
-So the kernel's indexing, its pipeline's fill and drain, its band plan and
-its three tile sources are held to the plain versions at tolerance 0 where
-no nvcc runs; the card runs the same source in ``tests/test_torch_cuda.py``
-and ``chip_smoke.py``. Device ``d`` of the emulation has the SMs and
-resident blocks per SM that ``OCCUPANCY[d]`` gives, so the plan cuts short
-bands (one wave of the card's warps) and tall ones (a card of one SM).
+launch plans.
+So ``bandt_kernel``'s indexing, its pipeline's fill and drain, its band
+plan and its three tile sources, and ``band_kernel``'s (K3, K5) two word
+widths and two sources, are held to the plain versions at tolerance 0
+where no nvcc runs; the card runs the same source in
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``. Device ``d`` of the
+emulation has the SMs and resident blocks per SM that ``OCCUPANCY[d]``
+gives, so the plans cut short bands (one wave of the card's warps) and
+tall ones (a card of one SM).
 """
 
 import ctypes
@@ -80,6 +82,9 @@ def lib(tmp_path_factory):
     lib.gol_bandtg_pass.argtypes = [p] * 7 + [i, i, i, i, p]
     lib.gol_bandt_bands.argtypes = [i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
     lib.gol_bandt_tile.argtypes = [ctypes.POINTER(i)] * 3
+    lib.gol_band_step.argtypes = [p, p, p, i, i, i, p]
+    lib.gol_dist_band_step.argtypes = [p] * 7 + [i, i, i, p]
+    lib.emu_misaligned.argtypes, lib.emu_misaligned.restype = [], i
     for device, (sms, blocks) in OCCUPANCY.items():
         lib.emu_occupancy(device, sms, blocks)
     return lib
@@ -182,3 +187,92 @@ def test_shard_forms_match_plain(lib, device, height, nwords):
             out, flags = _launch(lib, mode, x, device, ghosts)
             want, want_flags = sp._bandtg_plain(x, *ghosts, exact)
             assert torch.equal(out, want) and torch.equal(flags, want_flags)
+
+
+# band_kernel (K3, K5): heights 1 and 2 (the rows above and below are the
+# row itself, or one row), one-word rows (a word is its own west and east
+# neighbour; both edge words land on lane 0), strips of 32 words with a
+# ragged end, and the 16-byte form (nwords % 4 == 0): one lane, one strip
+# of 32 lanes and a second strip of one lane.
+BAND_SHAPES = [(1, 1), (2, 1), (7, 1), (16, 2), (17, 5), (33, 4), (200, 37),
+               (40, 132)]
+
+
+def _one_generation(lib, x, device, ghosts=None, out=None):
+    """K3 (``ghosts`` None) or K5 through the C entries: ``(out, flags)``."""
+    h, n = x.shape
+    out = torch.full_like(x, -1) if out is None else out.fill_(-1)
+    flags = torch.zeros(sp.STEP_FLAGS, dtype=torch.int32)
+    if ghosts is None:
+        err = lib.gol_band_step(_ptr(x), _ptr(out), _ptr(flags), h, n, device,
+                                None)
+    else:
+        err = lib.gol_dist_band_step(_ptr(x), *map(_ptr, ghosts), _ptr(out),
+                                     _ptr(flags), h, n, device, None)
+    assert err == 0
+    assert lib.emu_misaligned() == 0, "a 16-byte load off a 16-byte boundary"
+    return out, flags
+
+
+def _band_inputs(rng, height, nwords):
+    """Random words, a domino that dies and a block that stays still."""
+    dies = torch.zeros((height, nwords), dtype=torch.int32)
+    dies[height // 2, nwords // 2] = 0b11
+    still = torch.zeros((height, nwords), dtype=torch.int32)
+    still[height // 2, nwords // 2] = still[(height // 2 + 1) % height,
+                                            nwords // 2] = 0b110
+    return {"random": _words(rng, height, nwords), "dies": dies, "still": still}
+
+
+@pytest.mark.parametrize("device", sorted(OCCUPANCY))
+@pytest.mark.parametrize("height,nwords", BAND_SHAPES)
+def test_one_generation_matches_plain(lib, device, height, nwords):
+    # K3 on the torus; K5 from random ghosts (every bit random) and from
+    # dead ones. Words and flags identical, "differs" 0 where nothing moves.
+    rng = np.random.default_rng(height * 977 + nwords)
+    for name, x in _band_inputs(rng, height, nwords).items():
+        out, flags = _one_generation(lib, x, device)
+        want, want_flags = sp._band_plain(x)
+        assert torch.equal(out, want) and torch.equal(flags, want_flags), name
+        if name == "still" and height >= 4:
+            assert flags.tolist() == [1, 0]
+        shapes = [(1, nwords), (1, nwords), (height + 2,), (height + 2,)]
+        ghosts = ([_words(rng, *s) for s in shapes] if name == "random" else
+                  [torch.zeros(s, dtype=torch.int32) for s in shapes])
+        out, flags = _one_generation(lib, x, device, ghosts)
+        want, want_flags = sp._dist_band_plain(x, *ghosts)
+        assert torch.equal(out, want) and torch.equal(flags, want_flags), name
+
+
+def _offset(t):
+    """A copy of ``t`` whose storage starts one word past a 16-byte
+    boundary."""
+    base = torch.empty(t.numel() + 4, dtype=t.dtype)
+    assert base.data_ptr() % 16 == 0
+    view = base[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("which", ["in", "out", "top", "bot"])
+def test_one_generation_takes_any_alignment(lib, which):
+    # nwords % 4 == 0, but one row pointer is not 16-byte aligned: the
+    # entries take the one-word form, with the same words and flags.
+    rng = np.random.default_rng(7)
+    height, nwords = 19, 36
+    x = _words(rng, height, nwords)
+    ghosts = [_words(rng, 1, nwords), _words(rng, 1, nwords),
+              _words(rng, height + 2), _words(rng, height + 2)]
+    out = _offset(torch.empty_like(x)) if which == "out" else None
+    if which == "in":
+        x = _offset(x)
+    if which in ("top", "bot"):
+        k = 0 if which == "top" else 1
+        ghosts[k] = _offset(ghosts[k])
+    if which in ("in", "out"):
+        got, flags = _one_generation(lib, x, 0, out=out)
+        want, want_flags = sp._band_plain(x)
+        assert torch.equal(got, want) and torch.equal(flags, want_flags)
+    got, flags = _one_generation(lib, x, 0, ghosts, out=out)
+    want, want_flags = sp._dist_band_plain(x, *ghosts)
+    assert torch.equal(got, want) and torch.equal(flags, want_flags)

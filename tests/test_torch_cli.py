@@ -352,6 +352,26 @@ def test_refusals_match_jax(flags, capsys, tmp_path):
     assert errs[0] == errs[1] and errs[1].startswith("gol: ")
 
 
+@pytest.mark.parametrize(
+    "args",
+    [["40000", "40000", "MISSING", "--variant", "game"],
+     ["65536", "65536", "MISSING", "--variant", "tpu", "--mesh", "1x1"]],
+    ids=["game", "tpu_1x1"],
+)
+def test_dense_ceiling_refusal_matches_jax(args, capsys, tmp_path):
+    # Above the dense ceiling both CLIs refuse before reading the file (it
+    # need not exist), with the same line naming the sparse lane.
+    args = [str(tmp_path / "missing.txt") if a == "MISSING" else a for a in args]
+    results = []
+    for main in (jax_cli.main, cli.main):
+        rc = main(args)
+        results.append((rc, *capsys.readouterr()))
+    assert results[0] == results[1]
+    rc, out, err = results[1]
+    assert rc == 1 and out == ""
+    assert err.startswith("gol: ") and "use the sparse lane" in err
+
+
 def test_jax_subcommands_not_ported_are_named():
     # Every subcommand of the JAX CLI but run and generate is refused by name.
     jax_names = set(next(a for a in jax_cli.build_parser()._actions

@@ -28,7 +28,11 @@ pytestmark = pytest.mark.cuda
 TILE_ROWS, TILE_WORDS = 32, 30
 TILE_SHAPES = [(TILE_ROWS - 1, 1), (TILE_ROWS + 1, 2), (2 * TILE_ROWS + 17, 31),
                (TILE_ROWS, 61), (TILE_ROWS + 1, TILE_WORDS + 7)]
-SHAPES = [(1, 1), (7, 1), (16, 2), (17, 5), (200, 33)] + TILE_SHAPES
+# band_kernel (K3, K5) takes rows of whole uint4s (nwords % 4 == 0, 16-byte
+# aligned) four words to a lane, others one: BAND_SHAPES are of the first
+# kind (one lane; a strip of 32 lanes and one of one) and height 2.
+BAND_SHAPES = [(2, 1), (33, 4), (40, 132)]
+SHAPES = [(1, 1), (7, 1), (16, 2), (17, 5), (200, 33)] + TILE_SHAPES + BAND_SHAPES
 
 
 @pytest.fixture
@@ -76,6 +80,41 @@ def test_kernel_matches_plain(card, kernel, height, nwords):
             want, want_flags = sp._bandt_plain(x, exact=kernel == "bandt")
         assert torch.equal(out, want), name
         assert flags.tolist() == want_flags.tolist(), name
+
+
+def _one_word_off(t):
+    """A copy of ``t`` starting one word past a 16-byte boundary."""
+    base = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    view = base[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("which", ["words", "out", "top", "bot"])
+def test_one_generation_kernels_take_any_alignment(card, which):
+    # nwords % 4 == 0 but one row pointer off a 16-byte boundary (a shard
+    # that is a slice): K3 and K5 take the one-word form, same words, flags.
+    g = {k: pm.words_from_numpy(v, card)
+         for k, v in _shard_ghosts(19, 36, seed=5).items()}
+    x = _one_word_off(g["x"]) if which == "words" else g["x"]
+    ghosts = [_one_word_off(g[k]) if k == which else g[k]
+              for k in ("top", "bot", "gwest", "geast")]
+    for kernel in ("band", "dist_band"):
+        if kernel == "band" and which in ("top", "bot"):
+            continue
+        out = torch.empty_like(x)
+        if which == "out":
+            out = _one_word_off(out)
+        flags = torch.zeros(sp.STEP_FLAGS, dtype=torch.int32, device=card)
+        if kernel == "band":
+            sp._step_into(x, out, flags)
+            want, want_flags = sp._band_plain(x)
+        else:
+            sp._distributed_step_into(x, *ghosts, out, flags)
+            want, want_flags = sp._dist_band_plain(x, *ghosts)
+        torch.cuda.synchronize(card)
+        assert torch.equal(out, want), kernel
+        assert flags.tolist() == want_flags.tolist(), kernel
 
 
 @pytest.mark.parametrize("convention", [Convention.C, Convention.CUDA])
@@ -169,7 +208,7 @@ def test_cli_lanes_on_the_card_match_oracle(card, lane, variant, monkeypatch,
 # ---------------------------------------------------------------------------
 # The mesh-shard kernels K5-K8 on the card, and a mesh run against 1x1.
 
-SHARD_SHAPES = [(1, 1), (8, 1), (17, 5), (200, 33)] + TILE_SHAPES
+SHARD_SHAPES = [(1, 1), (8, 1), (17, 5), (200, 33)] + TILE_SHAPES + BAND_SHAPES
 
 
 def _shard_ghosts(height, nwords, seed):
