@@ -99,6 +99,27 @@ error:
    phase 4's run (a) byte for byte; then a run SIGKILLed at generation 500
    and its ``--auto-resume``, equal too. The Execution times print beside
    phase 4's, with the writer's stall counters.
+4d. Observability on the card, through ``cli.main``: run (a) under
+   ``--variant game --kernel auto`` with ``--trace T`` alone (its
+   Execution time beside phase 4's), then with ``--trace T --profile P``:
+   bytes equal to phase 4's run (a), Generations 1000, the ``trace ->
+   T/trace-<pid>.json`` line on stderr, ``trace-report`` of that file
+   naming ``cli.read_phase``, ``engine.compile``, ``cli.execution`` and
+   ``cli.write_phase``, and ``P/trace.json`` holding exactly 125 CUDA
+   kernel events named ``bandt_kernel`` (K1). The capture covers the
+   ``cli.execution`` span and nothing else, so every event in it is in
+   that window. The same ``--profile`` check on ``--packed-io`` (125 K1),
+   ``--variant tpu --mesh 4x1`` (500 K7) and ``--mesh 2x2`` (500 K9+K10),
+   each with its bytes equal to run (a)'s. Each profiled lane prints its
+   device-busy share (the union of the CUDA kernel intervals over the
+   profiled window) beside its Execution time, the kernel time over the
+   lane's unprofiled Execution time of phase 4 or 4b (the capture costs
+   host time), and the host ops that take most of the window. Then ``--packed-io --compile-cache D`` twice, each
+   in a subprocess of its own with a fresh ``D``: the first builds
+   ``stencil_packed-*.so`` and ``codec-*.so`` into ``D`` (its
+   ``engine.compile`` and ``cli.read_phase`` spans hold the two builds),
+   the second builds nothing (the same files, the same mtimes); both
+   outputs equal run (a)'s.
 5. Timing: each kernel over 100 warm launches captured in one CUDA graph
    and replayed (CUDA events around the replay), so that the card and not
    the host's launch rate sets ``ms``; beside it ``eager_ms`` (the same
@@ -1101,6 +1122,184 @@ def checkpoint_path(work: Path, path: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 4d. Observability on the card
+
+# The spans a run (a) adds under --trace, and the profiled lanes: CLI flags
+# (beside --gen-limit 1000 on the random input) and the kernel events the
+# capture must hold, as (a name's part, count).
+TRACED_SPANS = ("cli.read_phase", "engine.compile", "cli.execution",
+                "cli.write_phase")
+PROFILED_LANES = {
+    "game auto": (["--variant", "game", "--kernel", "auto"], ("bandt_kernel", 125)),
+    "game packed_io": (["--variant", "game", "--packed-io"], ("bandt_kernel", 125)),
+    "tpu 4x1 auto": (["--variant", "tpu", "--mesh", "4x1", "--kernel", "auto"],
+                     ("bandt_kernel", 500)),
+    "tpu 2x2 auto": (["--variant", "tpu", "--mesh", "2x2", "--kernel", "auto"],
+                     ("bandt_kernel", 500)),
+}
+
+
+def _cli_io(args: list[str]) -> tuple[int, str, str]:
+    """``cli.main`` in this process: ``(rc, stdout, stderr)``."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(args)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _union_us(intervals) -> float:
+    """The length of the union of ``(start, end)`` intervals."""
+    total, start, end = 0.0, None, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            if end is not None:
+                total += end - start
+            start, end = s, e
+        else:
+            end = max(end, e)
+    return total + (end - start if end is not None else 0.0)
+
+
+def profile_summary(trace_json: Path, needle: str) -> dict:
+    """A ``--profile`` capture's CUDA kernels: the events whose name holds
+    ``needle``, the profiled window (first to last event), the union of
+    the kernel intervals over it, and the host ops that take the most of
+    it (top-level CPU ops by summed duration)."""
+    if not trace_json.exists():
+        fail(f"--profile wrote no {trace_json}")
+    events = [e for e in json.loads(trace_json.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e and e.get("cat") != "Trace"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        fail(f"{trace_json}: the capture recorded no CUDA kernel")
+    lo = min(e["ts"] for e in events)
+    hi = max(e["ts"] + e["dur"] for e in events)
+    busy = _union_us((e["ts"], e["ts"] + e["dur"]) for e in kernels)
+    host = {}
+    for e in events:
+        if e.get("cat") == "cpu_op":
+            n, t = host.get(e["name"], (0, 0.0))
+            host[e["name"]] = (n + 1, t + e["dur"])
+    top = sorted(host.items(), key=lambda kv: -kv[1][1])[:6]
+    return {
+        "events": sum(needle in e["name"] for e in kernels),
+        "kernel_events": len(kernels),
+        "window_ms": (hi - lo) / 1e3,
+        "kernel_busy_ms": busy / 1e3,
+        "device_busy_share": busy / (hi - lo),
+        "host_ops_ms": {name: [n, round(t / 1e3, 3)] for name, (n, t) in top},
+    }
+
+
+def _compile_cache_run(args: list[str], trace_dir: Path) -> dict:
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gol_tpu_torch", *args, "--trace", str(trace_dir)],
+        capture_output=True, text=True, timeout=600, env=_subprocess_env())
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"--compile-cache run exited {proc.returncode}:\n{proc.stderr[-2000:]}")
+    spans = {}
+    for e in json.loads(next(trace_dir.glob("trace-*.json")).read_text())["traceEvents"]:
+        if e.get("ph") == "X":
+            spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e3
+    return {"wall_s": wall_s, "engine.compile_ms": spans.get("engine.compile"),
+            "cli.read_phase_ms": spans.get("cli.read_phase"),
+            "generations": int(re.search(r"Generations:\t(\d+)", proc.stdout).group(1))}
+
+
+def observability(work: Path, path: dict, mesh: dict) -> dict:
+    """Phase 4d: --trace, --profile and --compile-cache at 16384^2. Each
+    profiled lane's kernel time also stands over its unprofiled Execution
+    time from phase 4 or 4b, since the capture itself costs host time."""
+    from gol_tpu_torch.obs import recorder
+    from gol_tpu_torch.obs import trace as obs_trace
+
+    inp, out = path["inputs"]["random"], work / "out.txt"
+    want = path["results"][("game", "random", 1000)]
+    base = [str(SIZE), str(SIZE), str(inp), "--gen-limit", "1000", "--output", str(out)]
+    tdir = work / "obs_trace"
+    runs, by_path, lanes = {}, {}, {}
+
+    def traced(flags):
+        rc, stdout, stderr = _cli_io([*base, *flags])
+        if rc != 0:
+            fail(f"gol_tpu_torch {' '.join(flags)} exited {rc}:\n{stderr}")
+        gens = int(re.search(r"Generations:\t(\d+)", stdout).group(1))
+        exec_ms = float(re.search(r"Execution time:\t([0-9.]+) msecs", stdout).group(1))
+        if (gens, _digest(out)) != want or gens != 1000:
+            fail(f"{' '.join(flags)}: Generations {gens} or bytes differ from "
+                 "phase 4's run (a)")
+        return exec_ms, stderr
+
+    game_auto = PROFILED_LANES["game auto"][0]
+    runs["phase 4 run (a)"] = path["run_a"]["game auto"]["exec_ms"]
+    runs["--trace"], _ = traced([*game_auto, "--trace", str(tdir)])
+    shutil.rmtree(tdir)
+    obs_trace.clear()
+    for lane, (flags, (needle, count)) in PROFILED_LANES.items():
+        pdir = work / f"obs_profile_{lane.replace(' ', '_')}"
+        extra = ["--profile", str(pdir)]
+        if lane == "game auto":
+            extra += ["--trace", str(tdir)]
+        _zero_counters()
+        exec_ms, stderr = traced([*flags, *extra])
+        by_path[f"{lane} --profile (4d)"] = _counts()
+        if lane == "game auto":
+            runs["--trace --profile"] = exec_ms
+            exported = tdir / f"trace-{os.getpid()}.json"
+            if f"trace -> {exported}" not in stderr.splitlines():
+                fail(f"--trace: no 'trace -> {exported}' line on stderr:\n{stderr}")
+            obs_trace.disable()
+            obs_trace.clear()
+            recorder.uninstall()
+            rc, report, _ = _cli_io(["trace-report", str(exported)])
+            missing = [n for n in TRACED_SPANS if n not in report]
+            if rc != 0 or missing:
+                fail(f"trace-report of {exported} exited {rc}, missing {missing}")
+            print(f"(a) game auto --trace --profile: trace-report names "
+                  f"{', '.join(TRACED_SPANS)}", flush=True)
+        summary = profile_summary(pdir / "trace.json", needle)
+        if summary["events"] != count:
+            fail(f"{lane} --profile: {summary['events']} CUDA kernel events named "
+                 f"{needle}, expected {count}")
+        unprofiled = {**path["run_a"], **mesh["run_a"]}[lane]["exec_ms"]
+        lanes[lane] = {"exec_ms": exec_ms, **summary,
+                       "unprofiled_exec_ms": unprofiled,
+                       "kernel_busy_over_unprofiled": summary["kernel_busy_ms"] / unprofiled,
+                       "launches": _nonzero(by_path[f"{lane} --profile (4d)"])}
+        print("observability: " + json.dumps({"lane": lane, **lanes[lane]}),
+              flush=True)
+        shutil.rmtree(pdir)
+    print("run (a) game auto Execution time, ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in runs.items()), flush=True)
+
+    cache = work / "obs_compile_cache"
+    cc_args = [*base[:3], "--variant", "game", "--packed-io", "--gen-limit", "1000",
+               "--compile-cache", str(cache), "--output", str(out)]
+    builds = []
+    for i in range(2):
+        out.unlink()
+        run = _compile_cache_run(cc_args, work / f"obs_cc_trace{i}")
+        files = {p.name: p.stat().st_mtime_ns for p in cache.iterdir()}
+        if (run["generations"], _digest(out)) != want:
+            fail(f"--compile-cache run {i + 1}: Generations or bytes differ from "
+                 "phase 4's run (a)")
+        builds.append({**run, "files": sorted(files)})
+        print(f"--compile-cache run {i + 1}: " + json.dumps(builds[-1]), flush=True)
+        if i == 0:
+            first = files
+            for stem in ("stencil_packed", "codec"):
+                if not any(n.startswith(f"{stem}-") and n.endswith(".so") for n in files):
+                    fail(f"--compile-cache built no {stem}-*.so into {cache}: {files}")
+        elif files != first:
+            fail(f"the second --compile-cache run built again: {first} -> {files}")
+    print("--compile-cache: the second run built nothing (same files, same mtimes)",
+          flush=True)
+    return {"launches": by_path, "lanes": lanes, "runs": runs, "compile_cache": builds}
+
+
+# ---------------------------------------------------------------------------
 # 5. Timing at 16384^2
 
 
@@ -1255,6 +1454,8 @@ def main() -> int:
         mesh = mesh_path(work, dev, path)
         phase(f"4c. the checkpoint lane at {SIZE}x{SIZE}")
         ckpt = checkpoint_path(work, path)
+        phase(f"4d. observability on the card at {SIZE}x{SIZE}")
+        obs = observability(work, path, mesh)
         phase("5. timing")
         times = timing(dev)
         phase("6. the flag-cost roofline")
@@ -1264,8 +1465,14 @@ def main() -> int:
 
     print("main path run (a): " + json.dumps({**path["run_a"], **mesh["run_a"]}))
     print("checkpoint lane: " + json.dumps(ckpt["runs"]))
+    print("observability: " + json.dumps({"runs": obs["runs"], "lanes": {
+        lane: {k: v[k] for k in ("exec_ms", "window_ms", "kernel_busy_ms",
+                                 "device_busy_share", "unprofiled_exec_ms",
+                                 "kernel_busy_over_unprofiled")}
+        for lane, v in obs["lanes"].items()}}))
     print(json.dumps({"roofline": roof}))
     launches = {**path["launches"], **mesh["launches"], **ckpt["launches"],
+                **obs["launches"],
                 "tpu 2x2 auto 64x64 (one-word shards)": one_word,
                 "roofline": roof_counts}
     table = []

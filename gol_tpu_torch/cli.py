@@ -23,14 +23,23 @@ The port of ``gol_tpu/cli.py``'s ``run``:
   Patterns and the sparse and macro engines are not ported;
 - timings print as ``<Phase>:\\t<ms> msecs``. Execution time excludes set-up
   — the kernels' build and load, and the optional ``--warmup`` run happen
-  before the timer starts — and ends in a device sync.
+  before the timer starts — and ends in a device sync;
+- observability: ``--trace DIR`` (the JAX CLI's spans, ``cli.read_phase``,
+  ``engine.compile``, ``cli.execution``, ``cli.write_phase``,
+  ``engine.segment`` and the checkpoint lane's, exported as Chrome trace
+  JSON, with the flight recorder armed), ``--profile DIR`` (a guarded
+  ``torch.profiler`` capture of the timed region) and ``--compile-cache
+  DIR`` (the build directory of the kernels and the codec).
 
 It runs on the card; ``GOL_TORCH_DEVICE=cpu`` runs it on the CPU through the
 kernels' plain torch versions. Errors print as ``gol: <error>`` with exit
 code 1.
 
-Subcommand ``generate <width> <height>`` emits a random grid (generate.sh).
-The JAX CLI's other subcommands (``NOT_PORTED``) exit 1 with a ``gol:`` line.
+Subcommands: ``generate <width> <height>`` emits a random grid
+(generate.sh); ``show`` renders a grid with the reference's VT100 codes;
+``trace-report``, ``history-report`` and ``slo-report`` render the obs
+artifacts. The JAX CLI's other subcommands (``NOT_PORTED``) exit 1 with a
+``gol:`` line.
 """
 
 from __future__ import annotations
@@ -45,7 +54,10 @@ import time
 from gol_tpu_torch import engine, oracle
 from gol_tpu_torch.config import DEFAULT_HEIGHT, DEFAULT_WIDTH, GameConfig
 from gol_tpu_torch.io import packed_io, sharded, text_grid
+from gol_tpu_torch.obs import profiler
+from gol_tpu_torch.obs import trace as obs_trace
 from gol_tpu_torch.obs.profiler import fence
+from gol_tpu_torch.ops import _build
 from gol_tpu_torch.parallel.mesh import make_mesh, topology_for, validate_grid
 from gol_tpu_torch.platform_env import (NoDeviceError, configure_cli_logging,
                                         resolve_device)
@@ -196,6 +208,8 @@ def _run(args) -> int:
         if args.gens < 0:
             raise ValueError(f"--gens must be >= 0, got {args.gens}")
         args.gen_limit = args.gens
+    _build.enable_compile_cache(args.compile_cache)
+
     if args.fault_plan:
         faults.install(faults.FaultPlan.parse(args.fault_plan))
     else:
@@ -290,7 +304,9 @@ def _run(args) -> int:
     _warn_if_huge_byte_lane(width, height, mesh)
     device = devices[0]
     t0 = time.perf_counter()
-    device_grid = _read_phase(variant, args.input_file, width, height, device, mesh)
+    with obs_trace.span("cli.read_phase", file=args.input_file):
+        device_grid = _read_phase(variant, args.input_file, width, height,
+                                  device, mesh)
     read_ms = (time.perf_counter() - t0) * 1000
     if variant.io_timings:
         print(f"Reading file:\t{read_ms:.2f} msecs")
@@ -313,15 +329,24 @@ def _run(args) -> int:
         def run_fn():
             return runner(device_grid)
 
-    t0 = time.perf_counter()
-    final, generations = run_fn()
-    fence(final)
-    exec_ms = (time.perf_counter() - t0) * 1000
-
+    final, generations, exec_ms = _execute(args, run_fn, device)
     return _report_and_write(
         variant, generations, exec_ms,
         lambda: _write_phase(variant, output_path, final, mesh),
     )
+
+
+def _execute(args, run_fn, device):
+    """The timed region, ``(final, generations, exec_ms)``: ``run_fn`` and
+    the fence on its result, under ``--profile``'s capture and the
+    ``cli.execution`` span."""
+    with profiler.capture(args.profile, device):
+        with obs_trace.span("cli.execution"):
+            t0 = time.perf_counter()
+            final, generations = run_fn()
+            fence(final)
+            exec_ms = (time.perf_counter() - t0) * 1000
+    return final, generations, exec_ms
 
 
 def _report_and_write(variant: Variant, generations, exec_ms, write_fn) -> int:
@@ -332,7 +357,8 @@ def _report_and_write(variant: Variant, generations, exec_ms, write_fn) -> int:
     print(f"Generations:\t{generations}")
     print(f"Execution time:\t{exec_ms:.2f} msecs")
     t0 = time.perf_counter()
-    write_fn()
+    with obs_trace.span("cli.write_phase"):
+        write_fn()
     write_ms = (time.perf_counter() - t0) * 1000
     if variant.io_timings:
         print(f"Writing file:\t{write_ms:.2f} msecs")
@@ -350,7 +376,8 @@ def _run_packed_io(args, variant, config, width, height, output_path, devices,
     printed lines keep the reference contract."""
     device = devices[0]
     t0 = time.perf_counter()
-    words = packed_io.read_packed(args.input_file, width, height, device, mesh)
+    with obs_trace.span("cli.read_phase", file=args.input_file):
+        words = packed_io.read_packed(args.input_file, width, height, device, mesh)
     read_ms = (time.perf_counter() - t0) * 1000
     if variant.io_timings:
         print(f"Reading file:\t{read_ms:.2f} msecs")
@@ -373,11 +400,7 @@ def _run_packed_io(args, variant, config, width, height, output_path, devices,
         def run_fn():
             return runner(words)
 
-    t0 = time.perf_counter()
-    final, generations = run_fn()
-    fence(final)
-    exec_ms = (time.perf_counter() - t0) * 1000
-
+    final, generations, exec_ms = _execute(args, run_fn, device)
     return _report_and_write(
         variant, generations, exec_ms,
         lambda: packed_io.write_packed(output_path, final, width, mesh),
@@ -615,6 +638,120 @@ def _run_host(args, variant, config, width, height, output_path) -> int:
     )
 
 
+def _show(args) -> int:
+    """Render a grid file with the reference's VT100 codes (src/game.c:42-58);
+    --animate evolves it live on the host oracle."""
+    from gol_tpu_torch import render
+
+    width, height = atoi(args.width), atoi(args.height)
+    if width <= 0:
+        width = DEFAULT_WIDTH
+    if height <= 0:
+        height = DEFAULT_HEIGHT
+    grid = text_grid.read_grid(args.input_file, width, height)
+    if args.animate:
+        render.animate(grid, args.animate, fps=args.fps)
+    else:
+        render.show(grid)
+    return 0
+
+
+def _arm_observability(trace_dir: str | None):
+    """``--trace DIR``: enable span tracing and the flight recorder.
+
+    Returns an export thunk ``main`` calls when the lane ends (clean, error
+    return or crash unwind): the Chrome trace JSON lands in DIR. A crash
+    also gets the flight recorder's JSONL dump in DIR, written at the
+    injection or excepthook moment; ``gol trace-report`` renders both."""
+    if not trace_dir:
+        return lambda: None
+    from gol_tpu_torch.obs import recorder
+
+    os.makedirs(trace_dir, exist_ok=True)
+    obs_trace.enable()
+    recorder.install(trace_dir)
+
+    def export():
+        path = os.path.join(trace_dir, f"trace-{os.getpid()}.json")
+        obs_trace.export_chrome(path)
+        print(f"trace -> {path}", file=sys.stderr)
+        return path
+
+    return export
+
+
+def _fetch_json(url: str, timeout: float = 5.0) -> dict:
+    """GET ``url`` -> its JSON object, or {} on any connection or HTTP
+    trouble, as the JAX CLI's: a 200 whose body is not JSON reads as
+    ``{"error": <its first 200 bytes>}``."""
+    import http.client
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, headers={"Accept": "application/json"},
+                                 method="GET")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            status, raw = resp.status, resp.read()
+    except (urllib.error.URLError, http.client.HTTPException, OSError,
+            ValueError):
+        return {}
+    try:
+        payload = json.loads(raw.decode("utf-8"))
+    except (ValueError, UnicodeDecodeError):
+        payload = {"error": raw[:200].decode("utf-8", "replace")}
+    return payload if status == 200 and isinstance(payload, dict) else {}
+
+
+def _slo_report(args) -> int:
+    """``gol slo-report``: summarize SLO state from a live server's ``/slo``
+    or from a flight-recorder dump (the ``slo`` state record a crash leaves
+    behind)."""
+    from gol_tpu_torch.obs import recorder, slo as obs_slo
+
+    target = args.target
+    if target.startswith(("http://", "https://")):
+        status = _fetch_json(f"{target.rstrip('/')}/slo", timeout=10)
+        if not status:
+            raise ValueError(f"no SLO status from {target} (is the server "
+                             "up, and does it have /slo?)")
+        sys.stdout.write(obs_slo.render_status(status))
+        return 0
+    state = None
+    for rec in recorder.read_dump(target):
+        if rec.get("record") == "state" and rec.get("name") == obs_slo.STATE_PROVIDER:
+            state = {k: v for k, v in rec.items()
+                     if k not in ("record", "name")}
+    if state is None:
+        raise ValueError(
+            f"{target} holds no SLO state record (was the dumping process "
+            "a server? pre-SLO dumps have none)"
+        )
+    sys.stdout.write(obs_slo.render_status(state))
+    return 0
+
+
+def _trace_report(args) -> int:
+    """``gol trace-report``: render the summary of a Chrome trace JSON
+    (a ``--trace DIR`` export) or a flight-recorder JSONL dump."""
+    from gol_tpu_torch.obs import report
+
+    sys.stdout.write(report.render(args.trace_file))
+    return 0
+
+
+def _history_report(args) -> int:
+    """``gol history-report``: render a metrics-history ring as
+    rate/value/percentile timelines (obs/history.py)."""
+    from gol_tpu_torch.obs import history
+
+    if not os.path.isdir(args.history_dir):
+        raise ValueError(f"{args.history_dir} is not a directory (pass the "
+                         "ring a --metrics-history run wrote)")
+    sys.stdout.write(history.render_report(args.history_dir))
+    return 0
+
+
 def _generate(args) -> int:
     if args.output:
         text_grid.generate_to_file(
@@ -666,6 +803,22 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--no-check-similarity", action="store_true")
     run.add_argument("--output", default=None, help="override the output file path")
     run.add_argument("--host", action="store_true", help="run the NumPy oracle on CPU")
+    run.add_argument(
+        "--profile",
+        default=None,
+        metavar="DIR",
+        help="capture a torch.profiler trace of the run into DIR/trace.json "
+        "(start/stop guarded: a run with nothing to capture proceeds "
+        "unprofiled, a crashed run never leaves a torn trace directory)",
+    )
+    run.add_argument(
+        "--trace", default=None, metavar="DIR",
+        help="span tracing + flight recorder (gol_tpu_torch/obs): phase/engine "
+        "spans export to DIR as Chrome trace JSON when the run ends; a "
+        "crash additionally dumps the last spans as flight-*.jsonl at the "
+        "moment of death; SIGUSR1 dumps live. Summarize either file with "
+        "`gol trace-report`",
+    )
     run.add_argument(
         "--snapshot-every", type=int, default=None, metavar="N",
         help="write a resumable grid snapshot every N generations "
@@ -752,7 +905,20 @@ def build_parser() -> argparse.ArgumentParser:
         "list (see gol_tpu_torch/resilience/faults.py; also honored from the "
         "GOL_FAULTS env var). Testing only.",
     )
+    run.add_argument(
+        "--compile-cache", default=None, metavar="DIR",
+        help="build the CUDA kernels and the codec into DIR and reuse them "
+        "from there: re-running with the same DIR skips the builds",
+    )
     run.set_defaults(func=_run)
+
+    shw = sub.add_parser("show", help="render a grid in the terminal (VT100, src/game.c:42-58)")
+    shw.add_argument("width")
+    shw.add_argument("height")
+    shw.add_argument("input_file")
+    shw.add_argument("--animate", type=int, default=0, metavar="N", help="evolve N generations live")
+    shw.add_argument("--fps", type=float, default=10.0)
+    shw.set_defaults(func=_show)
 
     gen = sub.add_parser("generate", help="emit a random grid (replaces generate.sh)")
     gen.add_argument("width", type=int)
@@ -761,14 +927,44 @@ def build_parser() -> argparse.ArgumentParser:
     gen.add_argument("--seed", type=int, default=None)
     gen.add_argument("--density", type=float, default=0.5)
     gen.set_defaults(func=_generate)
+
+    hrp = sub.add_parser(
+        "history-report",
+        help="render a durable metrics-history ring (--metrics-history) as "
+        "rate/value/percentile timelines with respawn boundaries marked",
+    )
+    hrp.add_argument("history_dir", help="a history directory "
+                     "(e.g. <journal>/history or <fleet>/router-history)")
+    hrp.set_defaults(func=_history_report)
+
+    rpt = sub.add_parser(
+        "trace-report",
+        help="summarize a trace file (Chrome trace JSON from --trace, or a "
+        "flight-recorder JSONL dump): per-phase p50/p95, span tree, gap "
+        "analysis",
+    )
+    rpt.add_argument("trace_file", help="trace-*.json or flight-*.jsonl")
+    rpt.set_defaults(func=_trace_report)
+
+    slr = sub.add_parser(
+        "slo-report",
+        help="summarize SLO state from a running server's /slo endpoint or "
+        "from a flight-recorder dump's slo state record",
+    )
+    slr.add_argument(
+        "target",
+        help="server URL (http://...) or a flight-*.jsonl dump path",
+    )
+    slr.set_defaults(func=_slo_report)
     return parser
 
 
 # The JAX CLI's other subcommands. Until one is ported its name is refused,
 # not read as a width by `run`.
-NOT_PORTED = ("show", "serve", "fleet", "router", "submit", "batch", "tune",
-              "trace-report", "fleet-trace", "history-report", "top",
-              "slo-report", "compact", "gc")
+NOT_PORTED = ("serve", "fleet", "router", "submit", "batch", "tune",
+              "fleet-trace", "top", "compact", "gc")
+SUBCOMMANDS = ("run", "generate", "show", "trace-report", "history-report",
+               "slo-report")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -779,14 +975,27 @@ def main(argv: list[str] | None = None) -> int:
               "python -m gol_tpu", file=sys.stderr)
         return 1
     # Default command is `run`, preserving the bare `<w> <h> <file>` contract.
-    if not argv or argv[0] not in ("run", "generate", "-h", "--help"):
+    if not argv or argv[0] not in (*SUBCOMMANDS, "-h", "--help"):
         argv = ["run", *argv]
     args = build_parser().parse_args(argv)
+    # --trace DIR: span tracing and the flight recorder armed before the
+    # lane starts, inside the try so that a bad path (a file, an unwritable
+    # parent) gets the `gol: <error>` contract; the Chrome trace exports
+    # when the lane ends, error returns and crash unwinds included.
+    export_trace = lambda: None  # noqa: E731 - replaced once arming succeeds
     try:
+        export_trace = _arm_observability(getattr(args, "trace", None))
         return args.func(args)
     except (ValueError, OSError, NoDeviceError) as e:
         print(f"gol: {e}", file=sys.stderr)
         return 1
+    finally:
+        try:
+            export_trace()
+        except OSError as e:
+            # A failed export (directory deleted mid-run, disk full) must
+            # not mask the lane's result.
+            print(f"gol: trace export failed: {e}", file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -46,6 +46,14 @@ border cannot make one shard's summary lie; a replay and the CUDA
 convention's empty-exit replay (K5) run on every shard from its kept start
 state. Every runner takes the mesh: with one, its state is the row-major
 list of shards, uint8 cells or, for the packed-state runners, int32 words.
+
+Spans and counters are the JAX engine's, on the same sites (``obs/trace``,
+``obs/registry``): ``engine.compile`` around building a whole-run runner
+(``make_runner``, ``make_packed_runner``: the kernels' build and load, the
+counterpart of JAX's ``compile_runner``), ``engine.segment`` around each
+segment of ``_iter_segments`` (``engine_segments_total``,
+``engine_generations_total``) and ``engine.simulate`` around a
+``simulate`` run (``engine_runs_total``, ``engine_generations_total``).
 """
 
 from __future__ import annotations
@@ -57,6 +65,9 @@ import torch
 
 from gol_tpu_torch import platform_env
 from gol_tpu_torch.config import Convention, DEFAULT_CONFIG, GameConfig
+from gol_tpu_torch.obs import registry as obs_registry
+from gol_tpu_torch.obs import trace as obs_trace
+from gol_tpu_torch.obs.profiler import fence
 from gol_tpu_torch.ops import Kernel, resolve_kernel, stencil_packed
 from gol_tpu_torch.parallel import collectives
 from gol_tpu_torch.parallel.mesh import Mesh, Topology, gather, split, topology_for, validate_grid
@@ -441,8 +452,9 @@ def make_runner(shape: tuple[int, int], config: GameConfig = DEFAULT_CONFIG,
     row-major list, ``put_grid(grid, mesh=mesh)``) and ``device`` is unused.
     Building the runner builds and loads the card's kernels, so a run's
     timing excludes them. The runner never writes its input."""
-    return _build_runner(shape, config, kernel, device, mesh=mesh,
-                         segmented=False, packed_state=False)
+    with obs_trace.span("engine.compile"):
+        return _build_runner(shape, config, kernel, device, mesh=mesh,
+                             segmented=False, packed_state=False)
 
 
 def make_segment_runner(shape: tuple[int, int],
@@ -471,8 +483,9 @@ def make_packed_runner(shape: tuple[int, int],
     those directly, so no uint8 grid exists anywhere). The state passed in
     stays valid. With a ``mesh`` the operand and the result are the
     row-major list of (local_h, local_w/32) word shards."""
-    return _build_runner(shape, config, "packed", device, mesh=mesh,
-                         segmented=False, packed_state=True)
+    with obs_trace.span("engine.compile"):
+        return _build_runner(shape, config, "packed", device, mesh=mesh,
+                             segmented=False, packed_state=True)
 
 
 def make_packed_segment_runner(shape: tuple[int, int],
@@ -508,7 +521,14 @@ def _iter_segments(runner, state, config: GameConfig, segment: int,
     gen, counter = resume_scalars(config, completed)
     while True:
         seg_end = gen + segment - (1 if config.convention == Convention.C else 0)
-        state, gen, counter, stopped = runner(state, gen, counter, seg_end)
+        with obs_trace.span("engine.segment", gen0=gen, seg_end=seg_end):
+            prev = gen
+            state, gen, counter, stopped = runner(state, gen, counter, seg_end)
+            # The span measures the segment's device work, not its enqueue.
+            fence(state)
+        reg = obs_registry.default()
+        reg.inc("engine_segments_total")
+        reg.inc("engine_generations_total", max(0, gen - prev))
         yield report(gen), state, stopped
         if stopped:
             return
@@ -553,13 +573,21 @@ def simulate_packed_segments(words, shape: tuple[int, int],
 def simulate(grid, config: GameConfig = DEFAULT_CONFIG, kernel: str = "auto",
              device=None, mesh: Mesh | None = None) -> EngineResult:
     """Run a full simulation (over the mesh's shards, given one) and fetch
-    the result to the host."""
+    the result to the host. As in JAX, the run is one ``engine.simulate``
+    span and the runner's build no ``engine.compile`` span."""
     shape = tuple(np.shape(grid))
+    if mesh is None:
+        device = platform_env.resolve_device(device)
+    runner = _build_runner(shape, config, kernel, device, mesh=mesh,
+                           segmented=False, packed_state=False)
+    state = put_grid(grid, device, mesh)
+    with obs_trace.span("engine.simulate", shape=f"{shape[0]}x{shape[1]}",
+                        convention=config.convention):
+        final, generations = runner(state)
+        fence(final)  # the span measures the run, not its enqueue
+    reg = obs_registry.default()
+    reg.inc("engine_runs_total")
+    reg.inc("engine_generations_total", generations)
     if mesh is not None:
-        runner = make_runner(shape, config, kernel, mesh=mesh)
-        final, generations = runner(put_grid(grid, mesh=mesh))
-        return EngineResult(gather(final, mesh.shape).cpu().numpy(), generations)
-    dev = platform_env.resolve_device(device)
-    runner = make_runner(shape, config, kernel, dev)
-    final, generations = runner(put_grid(grid, dev))
+        final = gather(final, mesh.shape)
     return EngineResult(final.cpu().numpy(), generations)

@@ -1,7 +1,7 @@
 """The host text codec: '0'/'1' text rows <-> packed uint32 cell words.
 
 The port's copy of ``gol_tpu/native``: ``codec.c`` builds with ``cc`` at
-first use into ``gol_tpu_torch/_build/`` (``ops/_build.py``) and binds with
+first use into the build directory (``ops/_build.py``) and binds with
 ctypes. There is no quiet fallback: if the build fails, ``pack_text`` and
 ``unpack_text`` raise. ``pack_text_plain``/``unpack_text_plain`` are the
 JAX loader's numpy bodies, kept as the plain versions the tests hold the
@@ -11,7 +11,6 @@ codec against.
 from __future__ import annotations
 
 import ctypes
-import functools
 from pathlib import Path
 
 import numpy as np
@@ -20,11 +19,13 @@ SOURCE = Path(__file__).resolve().parent / "codec.c"
 BITS = 32
 
 
-@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     from gol_tpu_torch.ops import _build
 
-    lib = _build.load_c(SOURCE)
+    return _build.load_c(SOURCE, _bind)
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     i64 = ctypes.c_int64
     ptr = ctypes.c_void_p
     lib.gol_pack_text.argtypes = [ptr, i64, ptr, i64, i64]

@@ -2,11 +2,20 @@
 
 - ``obs.registry``: the process's counters, gauges and histograms (copied);
 - ``obs.trace``: span tracing into a ring buffer, Chrome trace export
-  (copied);
+  (copied); the CLI's ``--trace DIR`` arms it, with JAX's span names on
+  JAX's sites;
 - ``obs.recorder``: the flight recorder's post-mortem dumps (copied);
-- ``obs.profiler``: device fences, ``torch.profiler`` capture and the
-  kernel device-time readings of the roofline tool (ported).
+- ``obs.profiler``: device fences, the CLI's guarded ``--profile``
+  capture (``torch.profiler``), and the kernel device-time readings of
+  the roofline tool (ported);
+- ``obs.report``: ``gol trace-report``'s rendering of a trace export or a
+  flight dump (copied);
+- ``obs.history``: the durable metrics-history ring and ``gol
+  history-report``'s rendering (copied);
+- ``obs.slo``: service-level objectives and ``gol slo-report``'s
+  rendering (copied).
 
-The rest of the JAX package's ``obs/`` (timeline, SLOs, sampler, history,
-reports, the CLI's ``--profile``) is not ported yet.
+Not ported yet, as they only read or feed a live server or fleet: the
+sampler, timeline, propagate, top (``gol top``) and fleettrace (``gol
+fleet-trace``).
 """

@@ -6,8 +6,14 @@ The port's counterpart of ``gol_tpu/obs/profiler.py`` and of
 - ``fence(*tensors)``: block until the work queued on the tensors' devices
   is done. PyTorch returns before the card finishes, so a host clock read
   without a fence times the enqueue.
-- ``capture(dir)``: a ``torch.profiler`` capture with CUDA activity; with a
-  directory, the Chrome trace lands in it (open in Perfetto).
+- ``capture(dir, device)``: the CLI's ``--profile DIR``, a guarded
+  ``torch.profiler`` capture with JAX's contract (``gol_tpu/obs/
+  profiler.py``): a falsy directory is a no-op; a start that fails logs
+  and the run goes on unprofiled; stop runs once, also when the body
+  raises; a body that raises sweeps what the capture created and keeps
+  what was there. It records CPU activity, and CUDA activity where the
+  run's device is a card; the Chrome trace lands in ``<dir>/trace.json``
+  (JAX writes xplane there: each package writes its own format).
 - ``kernel_device_ms(fn, n, names)``: the summed device time of the CUDA
   kernels whose names contain one of ``names``, per call of ``fn``, over
   ``n`` calls in one capture. Where the JAX package's extraction is best
@@ -23,16 +29,21 @@ The port's counterpart of ``gol_tpu/obs/profiler.py`` and of
   shards together exceed the L2 cache, no launch finds its input there
   from its own previous launch.
 
-Every timing here needs a card and raises without one.
+Every timing here needs a card and raises without one; ``capture``
+follows the device it is given.
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
 import os
+import shutil
 import time
 
 import torch
+
+logger = logging.getLogger(__name__)
 
 
 def fence(*tensors) -> None:
@@ -58,19 +69,86 @@ def _require_card() -> None:
 
 
 @contextlib.contextmanager
-def capture(profile_dir: str | None = None):
-    """``with capture(dir) as prof: ...``: a ``torch.profiler`` capture of
-    CPU and CUDA activity. With ``profile_dir`` the Chrome trace is
-    written to ``<profile_dir>/trace.json`` when the block ends cleanly."""
-    _require_card()
+def capture(profile_dir: str | None, device):
+    """Guarded ``torch.profiler`` capture of a run on ``device`` into
+    ``profile_dir``: yields the profiler, or None when the directory is
+    falsy or the capture failed to start. Guarantees, as JAX's:
+
+    - a failing start degrades to an unprofiled run with a logged warning,
+      never a crashed one;
+    - stop runs exactly once, even when the body raises;
+    - a body that raises leaves no torn capture: what the capture created
+      is swept, entries that were there before stay.
+
+    On a card the body's work is fenced before the stop, so every kernel
+    it launched is in the trace."""
+    if not profile_dir:
+        yield None
+        return
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    device = torch.device(device)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    # Entries already present (several runs pointed at one parent
+    # directory) are not ours to sweep on failure.
+    preexisting = set(os.listdir(profile_dir)) if os.path.isdir(profile_dir) else set()
+    try:
+        prof = profile(activities=activities)
+        prof.start()
+    except Exception as err:  # noqa: BLE001 - profiling is best-effort
+        logger.warning(
+            "profiler capture into %s failed to start (%s: %s); "
+            "running unprofiled", profile_dir, type(err).__name__, err,
+        )
+        prof = None
+    try:
         yield prof
-        torch.cuda.synchronize()
-    if profile_dir:
-        os.makedirs(profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+        if prof is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
+    except BaseException:
+        if prof is not None:
+            try:
+                prof.stop()
+            except Exception:  # noqa: BLE001 - already on the error path
+                pass
+            _sweep_partial(profile_dir, preexisting)
+        raise
+    if prof is not None:
+        try:
+            prof.stop()
+            os.makedirs(profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+        except Exception as err:  # noqa: BLE001 - capture is best-effort
+            logger.warning(
+                "profiler capture into %s failed to stop cleanly "
+                "(%s: %s); the trace may be incomplete",
+                profile_dir, type(err).__name__, err,
+            )
+            _sweep_partial(profile_dir, preexisting)
+
+
+def _sweep_partial(profile_dir: str, preexisting: set) -> None:
+    """Remove the entries a failed capture created (and the directory
+    itself when the failed capture was its only content)."""
+    try:
+        for name in os.listdir(profile_dir):
+            if name in preexisting:
+                continue
+            path = os.path.join(profile_dir, name)
+            if os.path.isdir(path):
+                shutil.rmtree(path, ignore_errors=True)
+            else:
+                try:
+                    os.unlink(path)
+                except OSError:
+                    pass
+        if not preexisting and not os.listdir(profile_dir):
+            os.rmdir(profile_dir)
+        logger.warning("profiler: swept torn capture from %s", profile_dir)
+    except OSError:
+        pass
 
 
 def kernel_device_ms(fn, n: int, names, profile_dir: str | None = None) -> float:
@@ -81,10 +159,15 @@ def kernel_device_ms(fn, n: int, names, profile_dir: str | None = None) -> float
     fn()
     torch.cuda.synchronize()
     from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    with capture(profile_dir) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
+        torch.cuda.synchronize()
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
     kernel_us = [e.time_range.elapsed_us() for e in prof.events()
                  if e.device_type == DeviceType.CUDA
                  and any(name in e.name for name in names)]

@@ -4,9 +4,11 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface, which the kernel modules bind with ``ctypes`` — seconds
 to build, where a source that includes PyTorch's headers takes minutes.
 The host text codec (``native/codec.c``) compiles the same way with ``cc``.
-Libraries land in ``gol_tpu_torch/_build/`` named by a hash of the source
-and the flags, so an edited source rebuilds at its first use and an
-unchanged one never does. ``nvcc -Xptxas -v`` reports each kernel's
+Libraries land in ``BUILD_DIR`` (``gol_tpu_torch/_build/``, or the
+directory ``--compile-cache DIR`` names: ``enable_compile_cache``) named by
+a hash of the source and the flags, so an edited source rebuilds at its
+first use and an unchanged one never does. A library is loaded once per
+process and build directory. ``nvcc -Xptxas -v`` reports each kernel's
 registers, shared memory and spills; the report is kept beside the library
 (``build_log``).
 """
@@ -66,6 +68,19 @@ def _library(source: Path, flags: tuple[str, ...]) -> Path:
     return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
+def enable_compile_cache(cache_dir: str | None) -> None:
+    """Make ``cache_dir`` the build directory of this process: the kernels
+    and the codec build there unless their current build exists, so a
+    second run with the same directory builds nothing. A missing directory
+    is created. No-op when ``cache_dir`` is falsy, so the CLI passes its
+    ``--compile-cache`` flag through unconditionally."""
+    global BUILD_DIR
+    if not cache_dir:
+        return
+    os.makedirs(cache_dir, exist_ok=True)
+    BUILD_DIR = Path(cache_dir).resolve()
+
+
 def _compile(source: Path, flags: tuple[str, ...], compiler) -> Path:
     """Compile ``source`` unless its current build exists; raise with the
     compiler's output if the compile fails."""
@@ -114,13 +129,26 @@ def source_log(source: Path) -> str:
     return log.read_text() if log.exists() else ""
 
 
-@functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """The built CUDA library, loaded once per process."""
-    return ctypes.CDLL(str(build(name)))
+def load(name: str, bind=None) -> ctypes.CDLL:
+    """The built CUDA library of ``csrc/<name>.cu``, loaded once per process
+    and build directory; ``bind(lib)`` declares its C entries at the load.
+    The kernel wrappers call it at every launch, so a hit is one lookup."""
+    return _loaded(BUILD_DIR, name, bind)
+
+
+def load_c(source: Path, bind=None) -> ctypes.CDLL:
+    """A host C source built with ``cc``, loaded as ``load`` loads."""
+    return _loaded(BUILD_DIR, source, bind)
 
 
 @functools.lru_cache(maxsize=None)
-def load_c(source: Path) -> ctypes.CDLL:
-    """A host C source built with ``cc`` and loaded once per process."""
-    return ctypes.CDLL(str(_compile(source, CC_FLAGS, _cc)))
+def _loaded(build_dir: Path, what, bind) -> ctypes.CDLL:
+    """``what`` is a CUDA source's name or a C source's path. ``build_dir``
+    (``BUILD_DIR`` at the call) keys the cache: a library built into
+    another directory is another library, loaded on its own."""
+    if isinstance(what, str):
+        lib = build(what)
+    else:
+        lib = _compile(what, CC_FLAGS, _cc)
+    lib = ctypes.CDLL(str(lib))
+    return bind(lib) if bind is not None else lib

@@ -194,9 +194,8 @@ def _bandtg_plain(words, gtop, gbot, gwest, geast, exact: bool):
 # Kernel wrappers.
 
 
-@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    return bind(_build.load("stencil_packed"))
+    return _build.load("stencil_packed", bind)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -25,7 +25,6 @@ nothing for the CPU path.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -60,9 +59,11 @@ def _dist_band_plain(cur, top, bot, gwest, geast):
     return new, flags
 
 
-@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("stencil_pallas")
+    return _build.load("stencil_pallas", _bind)
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.gol_byte_step.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.gol_byte_step.restype = i32

@@ -372,11 +372,17 @@ def test_dense_ceiling_refusal_matches_jax(args, capsys, tmp_path):
     assert err.startswith("gol: ") and "use the sparse lane" in err
 
 
+def _subcommands(parser) -> set:
+    return set(next(a for a in parser._actions if a.dest == "command").choices)
+
+
 def test_jax_subcommands_not_ported_are_named():
-    # Every subcommand of the JAX CLI but run and generate is refused by name.
-    jax_names = set(next(a for a in jax_cli.build_parser()._actions
-                         if a.dest == "command").choices)
-    assert set(cli.NOT_PORTED) == jax_names - {"run", "generate"}
+    # Every subcommand of the JAX CLI that the port's parser lacks is
+    # refused by name, and the port has no subcommand JAX lacks.
+    jax_names = _subcommands(jax_cli.build_parser())
+    port_names = _subcommands(cli.build_parser())
+    assert port_names == set(cli.SUBCOMMANDS) <= jax_names
+    assert set(cli.NOT_PORTED) == jax_names - port_names
 
 
 @pytest.mark.parametrize("name", cli.NOT_PORTED)
@@ -394,16 +400,46 @@ def test_jax_subcommands_are_refused(name, capsys, tmp_path, monkeypatch):
     assert list(tmp_path.iterdir()) == []
 
 
-def test_show_without_sizes_differs_from_jax(capsys, tmp_path):
-    # JAX's `show FILE` (no W H) exits 2 with show's usage; the port has no
-    # `show` yet and refuses the name, with exit 1.
+def test_show_without_sizes_matches_jax(capsys, tmp_path):
+    # `show FILE` (no W H) exits 2 with show's usage under both CLIs.
     path = _write(tmp_path, "in.txt", text_grid.generate(8, 8, seed=1))
-    with pytest.raises(SystemExit) as exc:
-        jax_cli.main(["show", path])
-    assert exc.value.code == 2
-    assert capsys.readouterr().err.startswith("usage: gol show ")
-    assert cli.main(["show", path]) == 1
-    assert capsys.readouterr().err.startswith("gol: subcommand 'show' is not ported")
+    results = []
+    for main in (jax_cli.main, cli.main):
+        with pytest.raises(SystemExit) as exc:
+            main(["show", path])
+        results.append((exc.value.code, *capsys.readouterr()))
+    assert results[1] == results[0]
+    assert results[1][0] == 2 and results[1][2].startswith("usage: gol show ")
+
+
+@pytest.mark.parametrize(
+    "args",
+    [["8", "8", "IN"], ["8", "8", "IN", "--animate", "5", "--fps", "0"],
+     ["12", "6", "IN", "--animate", "40", "--fps", "0"],
+     ["0", "x", "IN30"], ["8", "8", "MISSING"]],
+    ids=["show", "animate", "animate_to_empty", "atoi_defaults", "missing_file"],
+)
+def test_show_matches_jax(args, capsys, tmp_path):
+    """`show` renders the same VT100 stream, and fails alike on a missing
+    file; the 12x6 grid is a pair of cells that dies in one generation, which
+    stops the animation early."""
+    grids = {"IN": text_grid.generate(8, 8, seed=4),
+             "IN30": text_grid.generate(30, 30, seed=6)}
+    if args[0] == "12":
+        grids["IN"] = np.zeros((6, 12), np.uint8)
+        grids["IN"][2, 3:5] = 1
+    paths = {k: _write(tmp_path, f"{k}.txt", g) for k, g in grids.items()}
+    paths["MISSING"] = str(tmp_path / "missing.txt")
+    args = ["show", *(paths.get(a, a) for a in args)]
+    results = []
+    for main in (jax_cli.main, cli.main):
+        results.append((main(args), *capsys.readouterr()))
+    assert results[1] == results[0]
+    rc, out, err = results[1]
+    if args[-1] == paths["MISSING"]:
+        assert rc == 1 and out == "" and err.startswith("gol: ")
+    else:
+        assert rc == 0 and err == "" and out.count("\033[H") >= 1
 
 
 def test_unknown_kernel_matches_jax(capsys, tmp_path):
