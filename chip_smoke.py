@@ -12,10 +12,10 @@ error:
    native code built from the checkout — one compiler per source, all
    started together: ``csrc/stencil_packed.cu`` (K1-K3, K5, K7, K8, the
    ghost-plane form that replaces K9-K13, and K14, the flag-free pass of
-   the roofline), ``csrc/stencil_pallas.cu`` (K4,
-   K6) and ``native/codec.c`` (the
-   packed-I/O text codec) — with nvcc's ``-Xptxas -v`` report (registers,
-   shared memory, spills).
+   the roofline), ``csrc/stencil_pallas.cu`` (K4, K6),
+   ``csrc/stencil_batch.cu`` (B1, B2: the batch lane's batched steps) and
+   ``native/codec.c`` (the packed-I/O text codec) — with nvcc's
+   ``-Xptxas -v`` report (registers, shared memory, spills).
 2. Kernels against their plain torch versions on the card: K1 (fast-flag
    8-generation pass), K2 (exact-flag pass), K3 (one generation) and K14
    (the 8-generation pass without flags) at
@@ -39,7 +39,15 @@ error:
    K8 and the ghost-plane forms) also runs at the shapes around
    ``bandt_kernel``'s tile (``tile_shapes``: one band around its least
    height and two ragged ones, and nwords 1, 2, 31, 37 and 61 against its
-   30-word strips). Outputs and flags must be identical.
+   30-word strips). Outputs and flags must be identical. Then B1 (one
+   generation of B packed tori) at (boards, height, nwords) (3,32,1)
+   (32x32 one-word boards) (2,1,1) (4,17,5) (64,256,8) and B2 (B uint8
+   boards, each wrapping at its own extent) on a 32x32 canvas of extents
+   30x30, 18x24, 10x13 and 1x1, on the exact-fit 33x20 byte mode and on
+   64 250x250 boards in a 256x256 canvas, at a block's generation 0 and 2
+   with per-board step counts 3/1/0 (a spent board copies through, a
+   padding slot never runs): words or cells and per-board flags
+   identical.
 3. Small flows through ``python -m gol_tpu_torch`` on the card, against the
    port's numpy oracle, for both loop conventions: the verify skill's four
    flows at 48^2 and 64^2 (random for 1000 generations, 2x2 block, lone
@@ -120,6 +128,21 @@ error:
    ``engine.compile`` and ``cli.read_phase`` spans hold the two builds),
    the second builds nothing (the same files, the same mtimes); both
    outputs equal run (a)'s.
+4e. The batch lane (bench.py's serving load): 64 random 256^2 boards
+   (bucket ``256x256/c/packed``, B1) and 64 random 250^2 boards
+   (``256x256/c/masked``, B2) through ``serve/batcher.run_batch`` at
+   gen_limit 4 and 1000 under both conventions, and JAX's mixed-fate trio
+   at 32^2 (gen_limit 60), with the launch counters set to 0 just before
+   and read just after: B1 and B2 must launch, no other kernel. Every
+   board's grid and generations equal the port's solo ``engine.simulate``
+   (``--kernel auto`` for the packed boards, ``pallas`` for the masked
+   ones) and the trio's also the oracle and its exit reasons. Then
+   ``python -m gol_tpu_torch batch 256 256 <64 files> --gen-limit 1000
+   --output-dir D`` in a subprocess: every output file equal to the solo
+   ``run``'s bytes (``--variant tpu --mesh 1x1``) and its Generations.
+   Boards/sec at B = 1, 8 and 64 per bucket and limit (bench.py's batch
+   suite: 64/B dispatches of B boards, best of 3), and each bucket's B = 64
+   dispatch under ``torch.profiler`` (device-busy share).
 5. Timing: each kernel over 100 warm launches captured in one CUDA graph
    and replayed (CUDA events around the replay), so that the card and not
    the host's launch rate sets ``ms``; beside it ``eager_ms`` (the same
@@ -144,7 +167,9 @@ error:
    (2 funnel shifts and 10 3-input LOP3s, ``roofline.OPS_PER_WORD_GEN``);
    the time at 28 two-input ops stays beside it (``ops_ms_two_input``).
    No single PyTorch call computes a B3/S23 step, so ``library_ms`` is
-   null.
+   null. B1 and B2 at phase 4e's shapes (64 x 256 x 8 words; 64 250^2
+   boards in a 256^2 canvas), one launch of a block's first generation;
+   B1's ops at the network's 12 per word, B2's at ``OPS_PER_CELL``.
 6. The flag-cost roofline, ``gol_tpu_torch.tools.roofline``, at 16384^2 and
    65536^2: K1, K2 and K14 by CUDA-graph replay and by ``torch.profiler``
    device time, with the counters zeroed before it (K14's launches in the
@@ -180,14 +205,17 @@ import torch
 
 from gol_tpu_torch import cli, engine, native, oracle, platform_env
 from gol_tpu_torch.config import Convention, GameConfig
-from gol_tpu_torch.io import text_grid
+from gol_tpu_torch.io import bitpack, text_grid
 from gol_tpu_torch.obs import profiler
 from gol_tpu_torch.obs import registry as obs_registry
 from gol_tpu_torch.ops import _build, packed_math as pm
 from gol_tpu_torch.ops import stencil_packed as sp
+from gol_tpu_torch.ops import stencil_batch as sb
 from gol_tpu_torch.ops import stencil_pallas as spl
 from gol_tpu_torch.parallel import halo
 from gol_tpu_torch.parallel.mesh import make_mesh
+from gol_tpu_torch.serve import batcher
+from gol_tpu_torch.serve.jobs import new_job
 from gol_tpu_torch.tools import roofline
 
 REPO = Path(__file__).resolve().parent
@@ -332,6 +360,43 @@ KERNELS = [
         "plain": lambda x, *g: sp._bandtg_plain(x, *g, exact=True),
     },
 ]
+# The batch lane's kernels: port-only rows of the kernel table. The JAX
+# package steps a batch with jnp under vmap, no Pallas kernel; the port's
+# host loop needs each board's flags out of the step's own pass.
+BATCH_KERNELS = [
+    {
+        "key": "batch_packed", "id": "B1",
+        "name": "B1 batch_packed_kernel: one generation of B packed tori, "
+                "per-board flags and step counts",
+        "source": "gol_tpu_torch/csrc/stencil_batch.cu",
+        "replaces": "none: jnp under vmap (gol_tpu/engine.py:1286-1290)",
+    },
+    {
+        "key": "batch_masked", "id": "B2",
+        "name": "B2 batch_masked_kernel: one generation of B uint8 boards, "
+                "each wrapping at its own extent, per-board flags and step counts",
+        "source": "gol_tpu_torch/csrc/stencil_batch.cu",
+        "replaces": "none: jnp under vmap (gol_tpu/engine.py:1081-1105)",
+        "cells": True,
+    },
+]
+# Phase 2's batch shapes: (boards, height, nwords) for B1 — a 32x32
+# one-word board, one-row boards, the serving bucket's 64 x 256^2 — and
+# (canvas height, width, extents) for B2: mixed extents in one canvas, the
+# exact-fit byte mode, the serving bucket's 64 x 250^2 in 256^2.
+BATCH_PACKED_SHAPES = [(3, 32, 1), (2, 1, 1), (4, 17, 5), (64, 256, 8)]
+BATCH_MASKED_SHAPES = [(32, 32, [(30, 30), (18, 24), (10, 13), (1, 1)]),
+                       (33, 20, [(33, 20)] * 2), (256, 256, [(250, 250)] * 64)]
+# Phase 4e: the serving load of bench.py (--suite batch / megabatch): 64
+# boards in the exact-fit 256^2 bucket and 64 in the masked 250^2 bucket.
+BATCH_BOARDS = 64
+BATCH_SIDES = {"256x256/packed": 256, "250x250/masked": 250}
+BATCH_LIMITS = (4, 1000)
+BATCH_SIZES = (1, 8, 64)
+# B2's operations per cell: the 3x3 sum in 4 three-input adds, 2 compares
+# and a 3-input logic op for the rule, one for the differs flag and a
+# select. Bytes bound it either way.
+OPS_PER_CELL = 9
 PACKED = [k for k in KERNELS if not k.get("cells") and not k.get("ghosts")]
 BYTE = [k for k in KERNELS if k.get("cells") and not k.get("ghosts")]
 SHARD = [k for k in KERNELS if k.get("ghosts") in ("rows", "deep")
@@ -375,13 +440,13 @@ def _u32(t: torch.Tensor) -> torch.Tensor:
 
 
 def _zero_counters() -> None:
-    for counters in (sp.LAUNCHES, spl.LAUNCHES):
+    for counters in (sp.LAUNCHES, spl.LAUNCHES, sb.LAUNCHES):
         for k in counters:
             counters[k] = 0
 
 
 def _counts() -> dict:
-    return {**sp.LAUNCHES, **spl.LAUNCHES}
+    return {**sp.LAUNCHES, **spl.LAUNCHES, **sb.LAUNCHES}
 
 
 def _nonzero(counts: dict) -> dict:
@@ -404,15 +469,18 @@ def card_and_build() -> str:
     with concurrent.futures.ThreadPoolExecutor() as pool:
         builds = [pool.submit(_build.build, "stencil_packed"),
                   pool.submit(_build.build, "stencil_pallas"),
+                  pool.submit(_build.build, "stencil_batch"),
                   pool.submit(native.load)]
         for b in builds:
             b.result()
     sp.load_kernels()
     spl.load_kernels()
+    sb.load_kernels()
     print(f"built and loaded {_build.library_path('stencil_packed').name}, "
-          f"{_build.library_path('stencil_pallas').name} and the codec in "
+          f"{_build.library_path('stencil_pallas').name}, "
+          f"{_build.library_path('stencil_batch').name} and the codec in "
           f"{time.perf_counter() - t0:.3f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
-    for name in ("stencil_packed", "stencil_pallas"):
+    for name in ("stencil_packed", "stencil_pallas", "stencil_batch"):
         print(_build.build_log(name).rstrip())
     return smi
 
@@ -529,6 +597,79 @@ def check_kernels(dev, stats: dict) -> None:
                   f"{' '.join(k['id'] for k in checked)} == plain on random "
                   "(random ghosts), dies, becomes_still (torus ghosts) "
                   "(tolerance 0: state and flags identical)", flush=True)
+
+
+def _batch_board(height, width, kind, rng) -> np.ndarray:
+    if kind == "random":
+        return (rng.random((height, width), dtype=np.float32) < 0.5).astype(np.uint8)
+    if kind == "dies":
+        return _pattern(height, width, [(height // 2, width // 2)])
+    return _pattern(height, width, [(0, 0), (0, 1), (1, 0), (1, 1)])  # a block
+
+
+def _batch_steps(batch: int, dev) -> torch.Tensor:
+    """Step counts of a block: even boards 3, odd boards 1 (spent at gen 2,
+    so copied through), the last 0 (a padding slot)."""
+    steps = [3 if b % 2 == 0 else 1 for b in range(batch)]
+    steps[-1] = 0
+    return torch.tensor(steps, dtype=torch.int32, device=dev)
+
+
+def _compare_batch(key: str, launch, plain, x, stats: dict, where: str) -> None:
+    """One launch of B1/B2 against its plain version at generation 0 and 2
+    of a block: state and per-board flags identical."""
+    for gen in (0, 2):
+        out = torch.empty_like(x)
+        flags = torch.zeros((x.shape[0], sb.STEP_FLAGS), dtype=torch.int32,
+                            device=x.device)
+        launch(x, out, flags, gen)
+        want, want_flags = plain(x, gen)
+        torch.cuda.synchronize(x.device)
+        err = max(int((_u32(out.to(torch.int32)) - _u32(want.to(torch.int32))).abs().max()),
+                  int((flags - want_flags).abs().max()))
+        stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
+        stats[key]["checks"] += 1
+        if err:
+            fail(f"{key} differs from its plain version at {where}, gen {gen}")
+
+
+def check_batch_kernels(dev, stats: dict) -> None:
+    """B1 and B2 against their plain versions: boards of several fates in
+    one stack, per-board step counts (spent boards copy through, a padding
+    slot never runs), B2's mixed extents in one canvas and its byte mode."""
+    rng = np.random.default_rng(SEED + 4)
+    kinds = ("random", "dies", "still")
+    for batch, height, nwords in BATCH_PACKED_SHAPES:
+        boards = np.stack([_batch_board(height, 32 * nwords, kinds[b % 3], rng)
+                           for b in range(batch)])
+        x = pm.words_from_numpy(bitpack.pack_words(boards), dev)
+        steps = _batch_steps(batch, dev)
+        _compare_batch(
+            "batch_packed",
+            lambda a, out, flags, gen: sb.batch_packed_step_into(a, out, flags, steps, gen),
+            lambda a, gen: sb._batch_packed_plain(a, steps, gen),
+            x, stats, f"({batch}, {height}, {nwords})")
+        print(f"B1 at (boards, height, nwords) ({batch}, {height}, {nwords}) "
+              "== plain at gen 0 and 2 (random, dies, still; steps 3/1/0) "
+              "(tolerance 0: words and flags identical)", flush=True)
+    for height, width, extents in BATCH_MASKED_SHAPES:
+        batch = len(extents)
+        canvas = np.zeros((batch, height, width), np.uint8)
+        for b, (h, w) in enumerate(extents):
+            canvas[b, :h, :w] = _batch_board(h, w, kinds[b % 3], rng)
+        x = torch.from_numpy(canvas).to(dev)
+        hs = torch.tensor([h for h, _ in extents], dtype=torch.int32, device=dev)
+        ws = torch.tensor([w for _, w in extents], dtype=torch.int32, device=dev)
+        steps = _batch_steps(batch, dev)
+        _compare_batch(
+            "batch_masked",
+            lambda a, out, flags, gen: sb.batch_masked_step_into(
+                a, out, flags, steps, hs, ws, gen),
+            lambda a, gen: sb._batch_masked_plain(a, steps, hs, ws, gen),
+            x, stats, f"{height}x{width} canvas, extents {sorted(set(extents))}")
+        print(f"B2 at a {batch} x {height}x{width} canvas, extents "
+              f"{sorted(set(extents))} == plain at gen 0 and 2 (tolerance 0: "
+              "cells and flags identical)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1300,6 +1441,174 @@ def observability(work: Path, path: dict, mesh: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 4e. The batch lane
+
+
+def _batch_jobs(boards, convention, limit) -> list:
+    return [new_job(b.shape[1], b.shape[0], b, convention=convention,
+                    gen_limit=limit) for b in boards]
+
+
+def _solo_check(board, result, config, kernel, where: str) -> None:
+    want = engine.simulate(board, config, kernel=kernel)
+    if (not np.array_equal(result.grid, want.grid)
+            or result.generations != want.generations):
+        fail(f"{where}: a board's batch result (Generations "
+             f"{result.generations}) differs from its solo run "
+             f"({want.generations})")
+
+
+def _boards_per_sec(key, boards, convention, limit, repeats: int = 3) -> dict:
+    """bench.py's batch suite: the boards as 64/B ``run_batch`` dispatches
+    of B boards, best of ``repeats``, after one warm dispatch per B."""
+    jobs = _batch_jobs(boards, convention, limit)
+    rates = {}
+    for b in BATCH_SIZES:
+        batcher.run_batch(key, jobs[:b])
+        best = float("inf")
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            for i in range(0, len(jobs), b):
+                batcher.run_batch(key, jobs[i:i + b])
+            best = min(best, time.perf_counter() - t0)
+        rates[b] = len(jobs) / best
+    return rates
+
+
+def batch_lane(work: Path, dev) -> dict:
+    """Phase 4e: the batch lane on the serving load of bench.py. 64 random
+    256^2 boards (bucket 256x256/c/packed, B1) and 64 random 250^2 boards
+    (256x256/c/masked, B2) through ``batcher.run_batch`` at gen_limit 4 and
+    1000 under both conventions, then JAX's mixed-fate trio at 32^2, with
+    the launch counters zeroed just before and read just after. Every
+    board's grid, generations and exit reason equal the port's solo
+    ``engine.simulate`` (``auto`` for the packed bucket, ``pallas`` for the
+    masked one); the trio's equal the oracle too. Then ``python -m
+    gol_tpu_torch batch 256 256 <64 files> --gen-limit 1000``, every output
+    equal to the solo ``run``'s bytes, and boards/sec at B = 1, 8, 64."""
+    rng = np.random.default_rng(SEED + 5)
+    loads = {name: [rng.integers(0, 2, (side, side), dtype=np.uint8)
+                    for _ in range(BATCH_BOARDS)]
+             for name, side in BATCH_SIDES.items()}
+    dies = np.zeros((32, 32), np.uint8)
+    dies[4, 4] = 1
+    still = np.zeros((32, 32), np.uint8)
+    still[3:5, 3:5] = 1
+    trio = [(dies, "empty"), (still, "similar"),
+            (text_grid.generate(32, 32, seed=7), "gen_limit")]
+    runs, exec_ms = {}, {}
+    _zero_counters()
+    for convention in (Convention.C, Convention.CUDA):
+        for limit in BATCH_LIMITS:
+            for name, boards in loads.items():
+                jobs = _batch_jobs(boards, convention, limit)
+                key = batcher.bucket_for(jobs[0])
+                pad = batcher.pad_dim(BATCH_SIDES[name])
+                want_label = f"{pad}x{pad}/{convention}/{name.split('/')[1]}"
+                if key.label() != want_label:
+                    fail(f"{name} boards went to bucket {key.label()}, not {want_label}")
+                t0 = time.perf_counter()
+                runs[(convention, limit, name)] = batcher.run_batch(key, jobs)
+                exec_ms[f"{name} {convention} limit {limit}"] = (
+                    time.perf_counter() - t0) * 1e3
+        jobs = _batch_jobs([b for b, _ in trio], convention, 60)
+        runs[(convention, 60, "trio")] = batcher.run_batch(
+            batcher.bucket_for(jobs[0]), jobs)
+    counts = _counts()
+    print(f"batch lane: launches {_nonzero(counts)}; one dispatch each, ms: "
+          + json.dumps({k: round(v, 3) for k, v in exec_ms.items()}), flush=True)
+    for k in KERNELS + BATCH_KERNELS:
+        if (k["key"] in ("batch_packed", "batch_masked")) != (counts[k["key"]] > 0):
+            fail(f"{k['id']} ({k['key']}) launched {counts[k['key']]} times on "
+                 "the batch lane")
+
+    t0 = time.perf_counter()
+    for (convention, limit, name), results in runs.items():
+        if name == "trio":
+            boards, kernel = [b for b, _ in trio], "auto"
+        else:
+            boards, kernel = loads[name], "auto" if "packed" in name else "pallas"
+        cfg = GameConfig(convention=convention, gen_limit=limit)
+        reasons = {}
+        for i, (board, result) in enumerate(zip(boards, results)):
+            _solo_check(board, result, cfg, kernel,
+                        f"{name} {convention} limit {limit} board {i}")
+            if name == "trio":
+                oracle_want = oracle.run(board, cfg)
+                if (not np.array_equal(result.grid, oracle_want.grid)
+                        or result.generations != oracle_want.generations
+                        or result.exit_reason != trio[i][1]):
+                    fail(f"trio {convention} board {i}: {result.generations} "
+                         f"{result.exit_reason} differs from the oracle "
+                         f"({oracle_want.generations}, {trio[i][1]})")
+            reasons[result.exit_reason] = reasons.get(result.exit_reason, 0) + 1
+        print(f"{name} {convention} limit {limit}: {len(results)} boards == "
+              f"solo --kernel {kernel} (grid, Generations), exit reasons {reasons}"
+              + (", == the oracle" if name == "trio" else ""), flush=True)
+    print(f"solo checks in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # The CLI entry point on the packed load, against solo `run`s.
+    side = str(BATCH_SIDES["256x256/packed"])
+    files = []
+    for i, board in enumerate(loads["256x256/packed"]):
+        files.append(work / f"board{i:02d}.txt")
+        text_grid.write_grid(str(files[i]), board)
+    outdir = work / "batch_out"
+    proc = subprocess.run(
+        [sys.executable, "-m", "gol_tpu_torch", "batch", side, side,
+         *map(str, files), "--gen-limit", "1000", "--output-dir", str(outdir)],
+        capture_output=True, text=True, timeout=600, env=_subprocess_env())
+    if proc.returncode != 0:
+        fail(f"python -m gol_tpu_torch batch exited {proc.returncode}:\n{proc.stderr}")
+    lines = proc.stdout.splitlines()
+    solo_out = work / "solo.out"
+    for path, line in zip(files, lines):
+        gens, _, _ = _cli([side, side, str(path), "--variant", "tpu", "--mesh",
+                           "1x1", "--gen-limit", "1000", "--output", str(solo_out)])
+        batch_out = outdir / (path.name + ".out")
+        if (batch_out.read_bytes() != solo_out.read_bytes()
+                or f"Generations:\t{gens}\t" not in line):
+            fail(f"batch output {batch_out.name} ({line!r}) differs from the solo "
+                 f"run (Generations {gens})")
+    if len(lines) != len(files):
+        fail(f"batch printed {len(lines)} lines for {len(files)} files")
+    print(f"python -m gol_tpu_torch batch {side} {side} <{len(files)} files> --gen-limit "
+          f"1000: every output == the solo run's bytes and Generations; "
+          f"{proc.stderr.strip()}", flush=True)
+
+    rates = {}
+    for name, boards in loads.items():
+        for limit in BATCH_LIMITS:
+            key = batcher.bucket_for(_batch_jobs(boards[:1], Convention.C, limit)[0])
+            r = _boards_per_sec(key, boards, Convention.C, limit)
+            rates[f"{name} limit {limit}"] = r
+            print(f"boards/sec {name} c limit {limit}: " + ", ".join(
+                f"B={b} {v:.1f}" for b, v in r.items())
+                + f" (B={BATCH_SIZES[-1]} / B=1 = "
+                f"{r[BATCH_SIZES[-1]] / r[BATCH_SIZES[0]]:.2f})", flush=True)
+
+    busy = {}
+    for name, needle in (("256x256/packed", "batch_packed_kernel"),
+                         ("250x250/masked", "batch_masked_kernel")):
+        for limit in BATCH_LIMITS:
+            jobs = _batch_jobs(loads[name], Convention.C, limit)
+            key = batcher.bucket_for(jobs[0])
+            batcher.run_batch(key, jobs)  # warm
+            prof_dir = work / f"prof_{needle}_{limit}"
+            with profiler.capture(str(prof_dir), dev):
+                batcher.run_batch(key, jobs)
+            summary = profile_summary(prof_dir / "trace.json", needle)
+            busy[f"{name} limit {limit}"] = summary
+            print(f"profile {name} c limit {limit}, B={BATCH_BOARDS}: {summary['events']} "
+                  f"{needle} events, busy {summary['kernel_busy_ms']:.3f} ms of a "
+                  f"{summary['window_ms']:.3f} ms window = "
+                  f"{summary['device_busy_share']:.3f}; host ops "
+                  f"{summary['host_ops_ms']}", flush=True)
+    return {"launches": {"batch lane (4e)": counts}, "boards_per_sec": rates,
+            "exec_ms": exec_ms, "busy": busy}
+
+
+# ---------------------------------------------------------------------------
 # 5. Timing at 16384^2
 
 
@@ -1393,6 +1702,95 @@ def timing(dev) -> dict:
                 xs = [state[:height, :n].contiguous()]
             shapes.append(_timed(k, xs, [_ghosts(k, x, rng) for x in xs], ops_per_s))
         out[k["key"]] = {**shapes[0], "by_shape": shapes}
+    out.update(_timed_batch(ops_per_s))
+    return out
+
+
+def _fresh_flags_ms(launch, x: torch.Tensor, rounds: int) -> float:
+    """ms per launch of ``launch(src, dst, flags)`` over ``rounds``
+    ping-pong launches in one CUDA graph, launch k ORing into its own
+    zeroed flag row, as the engine's block does (``ring_graph_ms``'s
+    launches share one flag row, set after the first)."""
+    y = torch.empty_like(x)
+    rows = torch.zeros((rounds, x.shape[0], sb.STEP_FLAGS), dtype=torch.int32,
+                       device=x.device)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        a, b = x, y
+        for k in range(rounds):
+            launch(a, b, rows[k])
+            a, b = b, a
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(2):  # warm, then timed
+        rows.zero_()
+        torch.cuda.synchronize()
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end) / rounds
+
+
+def _timed_batch(ops_per_s: float) -> dict:
+    """B1 and B2 at phase 4e's shapes, one launch of a block's first
+    generation (every board runs): 64 boards of 256 x 8 words, and 64
+    boards of 250^2 in a 256^2 canvas. ``ms`` is graph replay with a fresh
+    flag row per launch, as in the engine's block; ``ms_flags_set`` the
+    replay of ``_timed``, whose launches find their flags set after the
+    first. The bytes are the boards, the step counts and extents read once
+    and the boards and flags written once."""
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED + 6)
+    b = BATCH_BOARDS
+    words = pm.words_from_numpy(rng.integers(0, 2**32, (b, 256, 8), dtype=np.uint64)
+                                .astype(np.uint32), dev)
+    canvas = np.zeros((b, 256, 256), np.uint8)
+    canvas[:, :250, :250] = rng.integers(0, 2, (b, 250, 250), dtype=np.uint8)
+    cells = torch.from_numpy(canvas).to(dev)
+    steps = torch.ones(b, dtype=torch.int32, device=dev)
+    ext = torch.full((b,), 250, dtype=torch.int32, device=dev)
+    cases = {
+        "batch_packed": (
+            words, (steps,),
+            lambda a, o, f: sb.batch_packed_step_into(a, o, f, steps, 0),
+            lambda a: sb._batch_packed_plain(a, steps, 0),
+            words.numel() * OPS_PER_WORD_GEN),
+        "batch_masked": (
+            cells, (steps, ext, ext),
+            lambda a, o, f: sb.batch_masked_step_into(a, o, f, steps, ext, ext, 0),
+            lambda a: sb._batch_masked_plain(a, steps, ext, ext, 0),
+            cells.numel() * OPS_PER_CELL),
+    }
+    out = {}
+    for key, (x, vectors, launch, plain, ops) in cases.items():
+        y = torch.empty_like(x)
+        flags = torch.zeros((b, sb.STEP_FLAGS), dtype=torch.int32, device=dev)
+        ring = lambda i, a, o: launch(a, o, flags)
+        eager_ms = _time(ring, [x], [y], 100)
+        set_ms, wrapper_ms = profiler.ring_graph_ms(ring, [x], [y], 100)
+        ms = _fresh_flags_ms(launch, x, 100)
+        plain_ms = _time(lambda i, a, o: plain(a), [x], [y], 10)
+        nbytes = (2 * x.numel() * x.element_size() + flags.numel() * 4
+                  + sum(v.numel() * 4 for v in vectors))
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / ops_per_s * 1e3
+        print(f"{key} at {tuple(x.shape)}: {ms:.6f} ms/launch in a CUDA graph, "
+              f"fresh flags per launch ({set_ms:.6f} with its flags set; eager "
+              f"{eager_ms:.6f} ms, wrapper {wrapper_ms:.6f} ms on the host, plain "
+              f"{plain_ms:.6f} ms); bytes {nbytes} -> {bytes_ms:.6f} ms, logic ops "
+              f"{ops} -> {ops_ms:.6f} ms; working set "
+              f"{2 * x.numel() * x.element_size()} bytes, fits in the "
+              f"{L2_BYTES}-byte L2", flush=True)
+        out[key] = {
+            "shape": list(x.shape), "ms": ms, "ms_flags_set": set_ms,
+            "eager_ms": eager_ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "bytes_ms": bytes_ms, "logic_ops": ops,
+            "ops_ms": ops_ms, "logic_ops_per_s": ops_per_s,
+            "working_set_bytes": 2 * x.numel() * x.element_size(),
+        }
     return out
 
 
@@ -1432,7 +1830,8 @@ def main() -> int:
     # The CLI runs below, in this process and in the subprocesses, pick
     # their device from the environment: make it the card.
     os.environ[platform_env.DEVICE_ENV] = "cuda"
-    stats = {k["key"]: {"max_abs_err": 0, "checks": 0} for k in KERNELS}
+    stats = {k["key"]: {"max_abs_err": 0, "checks": 0}
+             for k in KERNELS + BATCH_KERNELS}
     _build.BUILD_DIR.mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="smoke-", dir=_build.BUILD_DIR))
     try:
@@ -1440,6 +1839,7 @@ def main() -> int:
         smi = card_and_build()
         phase("2. kernels against their plain versions")
         check_kernels(dev, stats)
+        check_batch_kernels(dev, stats)
         phase("3. small flows through python -m gol_tpu_torch")
         small_flows(work)
         # From here on a mesh may put four shards on the one card.
@@ -1456,6 +1856,8 @@ def main() -> int:
         ckpt = checkpoint_path(work, path)
         phase(f"4d. observability on the card at {SIZE}x{SIZE}")
         obs = observability(work, path, mesh)
+        phase("4e. the batch lane")
+        batch = batch_lane(work, dev)
         phase("5. timing")
         times = timing(dev)
         phase("6. the flag-cost roofline")
@@ -1471,12 +1873,17 @@ def main() -> int:
                                  "kernel_busy_over_unprofiled")}
         for lane, v in obs["lanes"].items()}}))
     print(json.dumps({"roofline": roof}))
+    print("batch lane: " + json.dumps({
+        "exec_ms": batch["exec_ms"], "boards_per_sec": batch["boards_per_sec"],
+        "busy": {k: {m: v[m] for m in ("events", "window_ms", "kernel_busy_ms",
+                                       "device_busy_share")}
+                 for k, v in batch["busy"].items()}}))
     launches = {**path["launches"], **mesh["launches"], **ckpt["launches"],
-                **obs["launches"],
+                **obs["launches"], **batch["launches"],
                 "tpu 2x2 auto 64x64 (one-word shards)": one_word,
                 "roofline": roof_counts}
     table = []
-    for k in KERNELS:
+    for k in KERNELS + BATCH_KERNELS:
         key = k["key"]
         by_path = {p: n[key] for p, n in launches.items() if n[key]}
         table.append({

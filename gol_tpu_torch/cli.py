@@ -38,8 +38,11 @@ code 1.
 Subcommands: ``generate <width> <height>`` emits a random grid
 (generate.sh); ``show`` renders a grid with the reference's VT100 codes;
 ``trace-report``, ``history-report`` and ``slo-report`` render the obs
-artifacts. The JAX CLI's other subcommands (``NOT_PORTED``) exit 1 with a
-``gol:`` line.
+artifacts; ``batch W H FILES...`` runs many boards through the padding-
+bucket batcher in one process (``serve/batcher.py``, the batched kernels
+B1 and B2); ``compact DIR`` folds a job journal's sealed segments into its
+snapshot (``serve/compaction.py``). The JAX CLI's other subcommands
+(``NOT_PORTED``) exit 1 with a ``gol:`` line.
 """
 
 from __future__ import annotations
@@ -765,6 +768,129 @@ def _generate(args) -> int:
     return 0
 
 
+def _batch(args) -> int:
+    """``batch``: the offline batched lane — N input files, one process.
+
+    Jobs are bucketed as the JAX package's server would
+    (``serve/batcher.py``), each bucket runs as few batches as the
+    batch-size ladder allows, and per-board results are bit-identical to
+    solo ``run``s."""
+    from gol_tpu_torch.serve import batcher
+    from gol_tpu_torch.serve.jobs import new_job
+
+    variant = get_variant(args.variant)
+    width, height = atoi(args.width), atoi(args.height)
+    if width <= 0:
+        width = DEFAULT_WIDTH
+    if height <= 0:
+        height = DEFAULT_HEIGHT
+    if not 1 <= args.max_batch <= batcher.MAX_BATCH:
+        raise ValueError(
+            f"--max-batch must be in [1, {batcher.MAX_BATCH}], "
+            f"got {args.max_batch}"
+        )
+    outdir = args.output_dir
+    if outdir:
+        os.makedirs(outdir, exist_ok=True)
+
+    jobs = []
+    for path in args.input_files:
+        grid = text_grid.read_grid(path, width, height)
+        job = new_job(
+            width, height, grid,
+            convention=variant.convention,
+            gen_limit=args.gen_limit,
+        )
+        jobs.append((path, job))
+
+    buckets: dict = {}
+    for path, job in jobs:
+        buckets.setdefault(batcher.bucket_for(job), []).append((path, job))
+
+    t0 = time.perf_counter()
+    batches = 0
+    occupancy = []
+    outputs = []
+    for key, members in buckets.items():
+        for i in range(0, len(members), args.max_batch):
+            chunk = members[i : i + args.max_batch]
+            results = batcher.run_batch(key, [job for _, job in chunk])
+            batches += 1
+            occupancy.append(len(chunk) / batcher.pad_batch(len(chunk)))
+            for (path, _job), result in zip(chunk, results):
+                out_path = (
+                    os.path.join(outdir, os.path.basename(path) + ".out")
+                    if outdir
+                    else path + ".out"
+                )
+                text_grid.write_grid(out_path, result.grid)
+                outputs.append(
+                    (path, result.generations, result.exit_reason, out_path)
+                )
+    exec_s = time.perf_counter() - t0
+    for path, gens, reason, out_path in outputs:
+        print(f"{path}\tGenerations:\t{gens}\t{reason}\t-> {out_path}")
+    mean_occ = sum(occupancy) / len(occupancy) if occupancy else 0.0
+    print(
+        f"Batch:\t{len(jobs)} boards, {len(buckets)} bucket(s), "
+        f"{batches} dispatch(es), occupancy {mean_occ:.2f}, "
+        f"{len(jobs) / max(exec_s, 1e-9):.1f} boards/sec, "
+        f"{exec_s * 1000:.2f} msecs",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _journal_partitions(directory: str) -> list[str]:
+    """Journal directories under ``directory``: itself when it IS one, else
+    every immediate subdirectory holding journal state — the fleet-dir
+    shape, where each worker partition compacts independently."""
+    from gol_tpu_torch.serve import compaction
+
+    def is_partition(d):
+        return (
+            os.path.exists(os.path.join(d, compaction.ACTIVE_FILENAME))
+            or os.path.exists(compaction.snapshot_path(d))
+            or bool(compaction.sealed_segments(d))
+        )
+
+    if is_partition(directory):
+        return [directory]
+    try:
+        subdirs = sorted(
+            os.path.join(directory, name) for name in os.listdir(directory)
+        )
+    except OSError as err:
+        raise ValueError(f"cannot read {directory}: {err}") from None
+    return [d for d in subdirs if os.path.isdir(d) and is_partition(d)]
+
+
+def _compact_cmd(args) -> int:
+    """``compact``: offline journal compaction — fold sealed segments into
+    the CRC-stamped snapshot and retire them. Accepts a journal directory
+    OR a fleet directory, whose partitions compact independently."""
+    from gol_tpu_torch.serve import compaction
+
+    partitions = _journal_partitions(args.dir)
+    if not partitions:
+        raise ValueError(f"no journal state under {args.dir}")
+    for directory in partitions:
+        report = compaction.compact(directory, retain_results=args.retain)
+        print(
+            f"{directory}: "
+            + (f"compacted {report.segments_retired} segment(s) -> "
+               f"snapshot ({report.records_kept} records"
+               + (f", {report.terminal_dropped} old result(s) dropped"
+                  if report.terminal_dropped else "")
+               + f"), {report.bytes_before} -> {report.bytes_after} bytes"
+               if report.compacted else
+               f"nothing to compact ({report.bytes_after} bytes"
+               + (f"; swept {report.segments_retired} stale segment(s)"
+                  if report.segments_retired else "") + ")")
+        )
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="gol",
@@ -956,15 +1082,47 @@ def build_parser() -> argparse.ArgumentParser:
         help="server URL (http://...) or a flight-*.jsonl dump path",
     )
     slr.set_defaults(func=_slo_report)
+
+    cpt = sub.add_parser(
+        "compact",
+        help="offline journal compaction: fold sealed segments into the "
+        "CRC-stamped snapshot and retire them (a journal dir, or a fleet "
+        "dir whose partitions compact independently)",
+    )
+    cpt.add_argument("dir", help="journal directory or fleet directory")
+    cpt.add_argument(
+        "--retain", type=int, default=None, metavar="N",
+        help="keep only the newest N terminal records in the snapshot "
+        "(the result-retention window; default: all)",
+    )
+    cpt.set_defaults(func=_compact_cmd)
+
+    bat = sub.add_parser(
+        "batch",
+        help="offline batched lane: run N input files through the padding-"
+        "bucket batcher in one process",
+    )
+    bat.add_argument("width")
+    bat.add_argument("height")
+    bat.add_argument("input_files", nargs="+")
+    bat.add_argument(
+        "--variant", default="tpu", choices=sorted(VARIANTS),
+        help="reference program whose loop accounting the jobs use",
+    )
+    bat.add_argument("--gen-limit", type=int, default=GameConfig().gen_limit)
+    bat.add_argument("--max-batch", type=int, default=64)
+    bat.add_argument("--output-dir", default=None,
+                     help="write results here (default: next to each input)")
+    bat.set_defaults(func=_batch)
     return parser
 
 
 # The JAX CLI's other subcommands. Until one is ported its name is refused,
 # not read as a width by `run`.
-NOT_PORTED = ("serve", "fleet", "router", "submit", "batch", "tune",
-              "fleet-trace", "top", "compact", "gc")
+NOT_PORTED = ("serve", "fleet", "router", "submit", "tune", "fleet-trace",
+              "top", "gc")
 SUBCOMMANDS = ("run", "generate", "show", "trace-report", "history-report",
-               "slo-report")
+               "slo-report", "compact", "batch")
 
 
 def main(argv: list[str] | None = None) -> int:

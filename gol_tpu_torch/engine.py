@@ -47,28 +47,44 @@ convention's empty-exit replay (K5) run on every shard from its kept start
 state. Every runner takes the mesh: with one, its state is the row-major
 list of shards, uint8 cells or, for the packed-state runners, int32 words.
 
+The batched engine (``make_batch_runner``, ``simulate_batch``; the
+serving batcher's compute entry) runs B independent boards in one canvas
+with the same blocked design per board: each block enqueues its launches
+of the batched step (B1 packed, B2 masked and byte; ``ops/stencil_batch``)
+without a sync, reads back one (block x B x 2) flag tensor for the whole
+batch, and replays each board's exits on the host with the solo rules.
+
 Spans and counters are the JAX engine's, on the same sites (``obs/trace``,
 ``obs/registry``): ``engine.compile`` around building a whole-run runner
 (``make_runner``, ``make_packed_runner``: the kernels' build and load, the
 counterpart of JAX's ``compile_runner``), ``engine.segment`` around each
 segment of ``_iter_segments`` (``engine_segments_total``,
-``engine_generations_total``) and ``engine.simulate`` around a
-``simulate`` run (``engine_runs_total``, ``engine_generations_total``).
+``engine_generations_total``), ``engine.simulate`` around a
+``simulate`` run (``engine_runs_total``, ``engine_generations_total``) and
+``engine.simulate_batch`` around a ``simulate_batch`` run
+(``engine_batches_total``, ``engine_boards_total``,
+``engine_generations_total``; ``engine_stage_packs_total`` per staging
+that packs).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import sys
+from typing import Any
 
 import numpy as np
 import torch
 
 from gol_tpu_torch import platform_env
 from gol_tpu_torch.config import Convention, DEFAULT_CONFIG, GameConfig
+from gol_tpu_torch.io import bitpack
 from gol_tpu_torch.obs import registry as obs_registry
 from gol_tpu_torch.obs import trace as obs_trace
 from gol_tpu_torch.obs.profiler import fence
-from gol_tpu_torch.ops import Kernel, resolve_kernel, stencil_packed
+from gol_tpu_torch.ops import (Kernel, packed_math, resolve_kernel, stencil_batch,
+                               stencil_packed)
 from gol_tpu_torch.parallel import collectives
 from gol_tpu_torch.parallel.mesh import Mesh, Topology, gather, split, topology_for, validate_grid
 
@@ -85,6 +101,27 @@ class EngineResult:
 
     grid: np.ndarray  # uint8 {0,1}, (height, width)
     generations: int  # the count the matching reference variant would print
+
+
+# Per-board exit classification of the batched engine (index = wire code):
+# a batch returns many fates per dispatch, so the reason travels with each
+# board.
+EXIT_GEN_LIMIT, EXIT_EMPTY, EXIT_SIMILAR = 0, 1, 2
+EXIT_REASONS = ("gen_limit", "empty", "similar")
+
+
+@dataclasses.dataclass
+class BatchBoardResult:
+    """One board's slice of a finished batch — an ``EngineResult`` plus the
+    exit reason (bit-identical grid/count to a solo run of the same board)."""
+
+    grid: np.ndarray  # uint8 {0,1}, (height, width) — cropped, not padded
+    generations: int
+    exit_reason: str  # one of EXIT_REASONS
+    # The packed lane's board words (io/bitpack.py convention, uint32; the
+    # packed mode is exact-fit, so the words ARE the cropped board), kept
+    # so a packed response never re-packs. None on the byte/masked lanes.
+    words: np.ndarray | None = None
 
 
 class _Flags:
@@ -591,3 +628,538 @@ def simulate(grid, config: GameConfig = DEFAULT_CONFIG, kernel: str = "auto",
     if mesh is not None:
         final = gather(final, mesh.shape)
     return EngineResult(final.cpu().numpy(), generations)
+
+
+# ---------------------------------------------------------------------------
+# Batched engine (the serve/batcher.py compute entry).
+#
+# B independent boards share one canvas and one host loop. The JAX package
+# runs the batch as one lax.while_loop over vmapped steps with per-board
+# freeze masks (gol_tpu/engine.py:1129-1249); here each block of the solo
+# engine's length enqueues the batched step (B1 for "packed", B2 for
+# "masked" and "byte") once per generation without a sync, then reads back
+# ONE (block x B x 2) flag tensor, and the host replays each board's exits
+# with the solo rules. A board whose generation limit falls inside the
+# block is given fewer steps (``steps[b]``) and copied through once they
+# are spent, so no block crosses a board's limit; boards that exit early
+# run on to their steps, which is exact for the same reason the solo block
+# is (both early exits are fixed points), and the CUDA convention's empty
+# exit replays that board alone from the block's start state.
+#
+# Three step flavors, chosen per bucket (``resolve_batch_mode``):
+#   "packed" — boards exactly fill the canvas and the width packs: B1 on
+#              host-packed words (32 cells/word);
+#   "byte"   — boards exactly fill the canvas: B2 with the canvas's extent
+#              (JAX's vmapped byte roll stencil, the same cells);
+#   "masked" — boards smaller than the canvas: B2, each board wrapping at
+#              its own (h, w), so one runner serves mixed shapes.
+# ---------------------------------------------------------------------------
+
+BATCH_MODES = ("packed", "byte", "masked")
+
+
+def _validate_batch_params(padded_shape, batch: int, mode: str,
+                           convention: str, temporal_depth: int) -> None:
+    """The batch runner factory's validation, with the JAX package's
+    messages."""
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    if mode not in BATCH_MODES:
+        raise ValueError(f"unknown batch mode {mode!r}; one of {BATCH_MODES}")
+    if mode == "packed" and padded_shape[1] % 32 != 0:
+        raise ValueError(
+            f"packed batch mode needs width % 32 == 0, got {padded_shape[1]}"
+        )
+    if convention not in _BATCH_SIMULATORS:
+        raise ValueError(f"unknown convention: {convention!r}")
+    if not 1 <= temporal_depth <= 64:
+        raise ValueError(
+            f"temporal_depth must be in [1, 64], got {temporal_depth}"
+        )
+
+
+def resolve_batch_mode(
+    heights, widths, padded_shape: tuple[int, int]
+) -> str:
+    """Pick the step flavor for a set of boards sharing one padded canvas."""
+    ph, pw = padded_shape
+    if any(h > ph or w > pw for h, w in zip(heights, widths)):
+        raise ValueError(
+            f"board exceeds the {ph}x{pw} padded canvas: "
+            f"{list(zip(heights, widths))}"
+        )
+    if all(h == ph and w == pw for h, w in zip(heights, widths)):
+        # The host-side bit packing assumes a little-endian host (bit j of
+        # a word = column 32w+j via np.packbits + a uint32 view); big-endian
+        # hosts take the byte lane instead of scrambling columns.
+        return (
+            "packed" if pw % 32 == 0 and sys.byteorder == "little" else "byte"
+        )
+    return "masked"
+
+
+def _pack_board_words(stacked: np.ndarray) -> np.ndarray:
+    """(B, H, W) uint8 cells -> (B, H, W/32) uint32 words on the host
+    (``io/bitpack.py``: bit j of word w = column 32w+j)."""
+    return bitpack.pack_words(stacked)
+
+
+def _unpack_board_words(words: np.ndarray) -> np.ndarray:
+    """Inverse of ``_pack_board_words``: words -> (B, H, W) uint8 cells."""
+    return bitpack.unpack_words(words)
+
+
+class _BatchBuffers:
+    """Three scratch board stacks and the block's flags, (block, B, 2). The
+    caller's stack is never one of them, so a block's start state survives
+    it (the CUDA convention's empty-exit replay reads it)."""
+
+    def __init__(self, state: torch.Tensor, block: int):
+        self.pool = [torch.empty_like(state) for _ in range(3)]
+        self.flags = torch.zeros((block, state.shape[0], stencil_batch.STEP_FLAGS),
+                                 dtype=torch.int32, device=state.device)
+
+    def scratch(self, start, cur):
+        return next(b for b in self.pool if b is not start and b is not cur)
+
+
+def _batch_block(start, steps: np.ndarray, step, bufs: _BatchBuffers):
+    """Run board b of ``start`` for ``steps[b]`` generations (the others
+    copied through): ``(cur, alive, similar)``, the last two (T, B) bool
+    host arrays of generation i's new board, T = max(steps). Every launch
+    is enqueued before the block's one readback."""
+    t = int(steps.max())
+    flags = bufs.flags[:t]
+    flags.zero_()
+    steps_dev = torch.from_numpy(steps.astype(np.int32)).to(start.device)
+    cur = start
+    for i in range(t):
+        out = bufs.scratch(start, cur)
+        step(cur, out, flags[i], steps_dev, i)
+        cur = out
+    f = flags.cpu().numpy()  # the block's one device->host sync
+    return cur, f[:, :, 0] != 0, f[:, :, 1] == 0
+
+
+def _quiet_boards(alive, similar, steps, counter, freq: int, check: bool):
+    """The boards that meet no exit in their steps of the block: alive at
+    every generation and similar at no generation where their counter
+    fires. Their replay is closed-form (``gen += steps``, the counter
+    advanced mod ``freq``); the others replay generation by generation."""
+    i = np.arange(alive.shape[0])[:, None]
+    exits = ~alive
+    if check:
+        fires = (counter[None, :] + i + 1) % freq == 0
+        exits = exits | (fires & similar)
+    return ~(exits & (i < steps[None, :])).any(axis=0)
+
+
+def _advance_quiet(quiet, steps, gen, counter, freq: int, check: bool) -> None:
+    gen[quiet] += steps[quiet]
+    if check:
+        counter[quiet] = (counter[quiet] + steps[quiet]) % freq
+
+
+def _batch_alive(state: torch.Tensor) -> np.ndarray:
+    return state.reshape(state.shape[0], -1).ne(0).any(dim=1).cpu().numpy()
+
+
+def _batch_simulate_c(state0, limits, step, replay, check: bool, freq: int,
+                      block: int):
+    """Batched C-convention loop: per board the replay of
+    ``_simulate_c_block`` (oracle._run_c is the semantics contract).
+    Returns ``(final, generations, exit_reasons)``."""
+    b = state0.shape[0]
+    gen = np.ones(b, np.int64)
+    counter = np.zeros(b, np.int64)
+    alive = _batch_alive(state0)
+    similar = np.zeros(b, bool)
+    bufs = _BatchBuffers(state0, block)
+    cur = state0
+    while True:
+        run = alive & ~similar & (gen <= limits)
+        if not run.any():
+            break
+        steps = np.where(run, np.minimum(block, limits - gen + 1), 0)
+        cur, a, s = _batch_block(cur, steps, step, bufs)
+        quiet = run & _quiet_boards(a, s, steps, counter, freq, check)
+        _advance_quiet(quiet, steps, gen, counter, freq, check)
+        for j in np.flatnonzero(run & ~quiet):
+            g, c = int(gen[j]), int(counter[j])
+            for i in range(int(steps[j])):
+                sim_i, c = _replay_similarity(c, freq, s[:, j], i, check)
+                alive[j], similar[j] = a[i, j], sim_i
+                if not sim_i:
+                    g += 1
+                if not (alive[j] and not similar[j] and g <= limits[j]):
+                    break
+            gen[j], counter[j] = g, c
+    reason = np.where(similar, EXIT_SIMILAR,
+                      np.where(~alive, EXIT_EMPTY, EXIT_GEN_LIMIT))
+    return cur, gen - 1, reason  # reported count is gen-1 (src/game.c:202)
+
+
+def _batch_simulate_cuda(state0, limits, step, replay, check: bool, freq: int,
+                         block: int):
+    """Batched CUDA-convention loop: per board the replay of
+    ``_simulate_cuda_block``; a board's empty exit at in-block iteration i
+    keeps its state i, replayed from the block's start state for that board
+    alone. Returns ``(final, generations, exit_reasons)``."""
+    b = state0.shape[0]
+    gen = np.zeros(b, np.int64)
+    counter = np.zeros(b, np.int64)
+    stop = np.zeros(b, bool)
+    reason = np.full(b, EXIT_GEN_LIMIT, np.int64)
+    bufs = _BatchBuffers(state0, block)
+    cur = state0
+    while True:
+        run = ~stop & (gen < limits)
+        if not run.any():
+            break
+        steps = np.where(run, np.minimum(block, limits - gen), 0)
+        start = cur
+        cur, a, s = _batch_block(start, steps, step, bufs)
+        quiet = run & _quiet_boards(a, s, steps, counter, freq, check)
+        _advance_quiet(quiet, steps, gen, counter, freq, check)
+        for j in np.flatnonzero(run & ~quiet):
+            c = int(counter[j])
+            for i in range(int(steps[j])):
+                sim_i, c = _replay_similarity(c, freq, s[:, j], i, check)
+                empty_i = not a[i, j]
+                if sim_i or empty_i:
+                    # Similarity is checked before emptiness
+                    # (src/game_cuda.cu:238-259).
+                    stop[j] = True
+                    reason[j] = EXIT_SIMILAR if sim_i else EXIT_EMPTY
+                    if not sim_i:  # the break precedes the swap
+                        cur[j].copy_(replay(start, int(j), i))
+                    break
+                gen[j] += 1
+            counter[j] = c
+    return cur, gen, reason  # reported count is the raw counter
+
+
+_BATCH_SIMULATORS = {
+    Convention.C: _batch_simulate_c,
+    Convention.CUDA: _batch_simulate_cuda,
+}
+
+
+def _batch_step(mode: str, heights: torch.Tensor, widths: torch.Tensor):
+    """The mode's one-generation step over a (B', ...) slice of the stack
+    starting at board ``lo``: ``step(src, dst, flags, steps, gen, lo=0)``."""
+    if mode == "packed":
+        return lambda src, dst, flags, steps, gen, lo=0: (
+            stencil_batch.batch_packed_step_into(src, dst, flags, steps, gen))
+
+    def masked(src, dst, flags, steps, gen, lo=0):
+        hi = lo + src.shape[0]
+        stencil_batch.batch_masked_step_into(src, dst, flags, steps,
+                                             heights[lo:hi], widths[lo:hi], gen)
+    return masked
+
+
+def _board_replay(step):
+    """``replay(start, b, i)``: board b of ``start`` after i generations,
+    run alone (a one-board stack) so the rest of the batch is untouched."""
+    def replay(start, b: int, i: int) -> torch.Tensor:
+        x = start[b:b + 1]
+        if i == 0:
+            return x[0]
+        bufs = [torch.empty_like(x), torch.empty_like(x)]
+        flags = torch.zeros((1, stencil_batch.STEP_FLAGS), dtype=torch.int32,
+                            device=x.device)
+        steps = torch.tensor([i], dtype=torch.int32, device=x.device)
+        for g in range(i):
+            out = bufs[g % 2]
+            step(x, out, flags, steps, g, lo=b)
+            x = out
+        return x[0]
+    return replay
+
+
+@functools.lru_cache(maxsize=256)
+def make_batch_runner(
+    padded_shape: tuple[int, int],
+    batch: int,
+    convention: str = Convention.C,
+    check_similarity: bool = True,
+    similarity_frequency: int = DEFAULT_CONFIG.similarity_frequency,
+    mode: str = "masked",
+    temporal_depth: int = 1,
+):
+    """A B-board runner: ``(boards, heights, widths, limits) -> (finals,
+    generations, exit_reasons)``.
+
+    ``boards`` is a (B, PH, PW) uint8 tensor with dead padding — except in
+    "packed" mode, where it (and the returned state) is the (B, PH, PW/32)
+    int32 word tensor of the host-packed words (``_pack_board_words``), so
+    no encode/decode runs on the device. ``heights``/``widths`` give each
+    board's true extent ((B,) ints, consumed only by the masked mode but
+    always part of the signature); ``limits`` is each board's OWN
+    generation bound, a runtime operand, so jobs with different
+    ``gen_limit`` share one runner. The finals stay on the boards' device;
+    generations and exit reasons are (B,) host arrays. The runner never
+    writes its input.
+
+    ``temporal_depth`` (the JAX package's generations per while iteration)
+    is validated as there and only groups generations here: a block runs a
+    multiple of it, bit-exact at any value. The kernels build at the first
+    launch (``batcher.warm`` pays it ahead of traffic).
+    """
+    ph, pw = padded_shape
+    _validate_batch_params(padded_shape, batch, mode, convention,
+                           temporal_depth)
+    simulate_fn = _BATCH_SIMULATORS[convention]
+    block = -(-_TERMINATION_BLOCK // temporal_depth) * temporal_depth
+    if mode == "packed":
+        dtype, state_shape = torch.int32, (batch, ph, pw // stencil_packed.BITS)
+    else:
+        dtype, state_shape = torch.uint8, (batch, ph, pw)
+
+    def run(boards: torch.Tensor, heights, widths, limits):
+        if tuple(boards.shape) != state_shape or boards.dtype != dtype:
+            raise ValueError(f"batch runner takes {dtype} {state_shape}, got "
+                             f"{boards.dtype} {tuple(boards.shape)}")
+        vectors = [np.asarray(v, dtype=np.int64).reshape(-1)
+                   for v in (heights, widths, limits)]
+        if any(v.shape != (batch,) for v in vectors):
+            raise ValueError(f"heights, widths and limits take {batch} values each")
+        h, w, lim = vectors
+        if mode == "byte":
+            h, w = np.full(batch, ph), np.full(batch, pw)
+        if (h < 1).any() or (h > ph).any() or (w < 1).any() or (w > pw).any():
+            raise ValueError(f"board extents must lie in 1..{ph} x 1..{pw}")
+        dev = boards.device
+        step = _batch_step(mode, torch.from_numpy(h.astype(np.int32)).to(dev),
+                           torch.from_numpy(w.astype(np.int32)).to(dev))
+        return simulate_fn(boards, lim, step, _board_replay(step),
+                           check_similarity, similarity_frequency, block)
+
+    return run
+
+
+@dataclasses.dataclass
+class StagedBatch:
+    """Host-side operands of one batch, ready to dispatch: all CPU work —
+    stacking, zero-padding, ``packbits`` — done, nothing on the device. The
+    host operand is retained so a retry re-dispatches without re-staging."""
+
+    runner: Any
+    operand: np.ndarray  # (total, PH, PW) uint8, or packed (total, PH, PW/32)
+    h_arr: np.ndarray
+    w_arr: np.ndarray
+    limits: np.ndarray
+    heights: list
+    widths: list
+    mode: str
+    padded_shape: tuple[int, int]
+    boards: int  # real board count (<= total)
+    total: int  # padded batch slots the runner runs
+    convention: str = Convention.C
+    check_similarity: bool = True
+    similarity_frequency: int = DEFAULT_CONFIG.similarity_frequency
+    temporal_depth: int = 1
+
+
+@dataclasses.dataclass
+class InflightBatch:
+    """One dispatched batch: the final stack on the device, the per-board
+    counts and reasons, and the staging it came from; ``complete_batch``
+    fetches and crops."""
+
+    staged: StagedBatch
+    finals: Any  # the final board stack, on the device
+    gens: Any
+    reasons: Any
+
+
+def stage_batch(
+    boards,
+    configs,
+    padded_shape: tuple[int, int] | None = None,
+    pad_batch_to: int | None = None,
+    temporal_depth: int = 1,
+    packed_boards=None,
+) -> StagedBatch | None:
+    """Host staging for ``simulate_batch``: validate, stack, pad, pack.
+
+    Returns None for an empty board list. Pure host work. Packing happens
+    exactly once per staging (``engine_stage_packs_total`` counts the
+    ``packbits`` passes). ``packed_boards`` (aligned with ``boards``; each
+    board's pre-packed (H, W/32) uint32 words, or None) is the
+    zero-re-pack lane: when the batch resolves to the packed mode and
+    EVERY board carries words, the operand is assembled from them and no
+    ``packbits`` pass runs; any board without words falls the batch back to
+    stack-and-pack."""
+    boards = [np.ascontiguousarray(np.asarray(b, dtype=np.uint8)) for b in boards]
+    if not boards:
+        return None
+    if isinstance(configs, GameConfig):
+        configs = [configs] * len(boards)
+    configs = list(configs)
+    if len(configs) != len(boards):
+        raise ValueError(
+            f"{len(boards)} boards but {len(configs)} configs"
+        )
+    head = configs[0]
+    for c in configs[1:]:
+        if (
+            c.convention != head.convention
+            or c.check_similarity != head.check_similarity
+            or c.similarity_frequency != head.similarity_frequency
+        ):
+            raise ValueError(
+                "boards in one batch must share convention and similarity "
+                "settings (only gen_limit may vary); split into buckets"
+            )
+    heights = [b.shape[0] for b in boards]
+    widths = [b.shape[1] for b in boards]
+    if padded_shape is None:
+        padded_shape = (max(heights), max(widths))
+    mode = resolve_batch_mode(heights, widths, padded_shape)
+    b = len(boards)
+    total = max(b, pad_batch_to or b)
+    ph, pw = padded_shape
+    h_arr = np.ones((total,), np.int32)
+    w_arr = np.ones((total,), np.int32)
+    h_arr[:b] = heights
+    w_arr[:b] = widths
+    # Padding slots: zero boards with limit 0 never run in either convention.
+    limits = np.zeros((total,), np.int32)
+    limits[:b] = [c.gen_limit for c in configs]
+    runner = make_batch_runner(
+        padded_shape, total, head.convention,
+        head.check_similarity, head.similarity_frequency, mode,
+        temporal_depth,
+    )
+    words = None
+    if (
+        mode == "packed"
+        and packed_boards is not None
+        and len(packed_boards) == b
+        and all(w is not None for w in packed_boards)
+    ):
+        words = np.zeros((total, ph, pw // 32), np.uint32)
+        for i, w in enumerate(packed_boards):
+            w = np.ascontiguousarray(np.asarray(w, dtype=np.uint32))
+            if w.shape != (ph, pw // 32):
+                raise ValueError(
+                    f"packed board {i} has word shape {w.shape}; the "
+                    f"{ph}x{pw} packed canvas needs ({ph}, {pw // 32})"
+                )
+            words[i] = w
+    if mode == "packed" and words is not None:
+        # The zero-re-pack lane: no cell canvas, no np.packbits pass, and
+        # engine_stage_packs_total deliberately not incremented.
+        operand = words
+    else:
+        stacked = np.zeros((total, ph, pw), np.uint8)
+        for i, board in enumerate(boards):
+            stacked[i, : heights[i], : widths[i]] = board
+        if mode == "packed":
+            operand = _pack_board_words(stacked)
+            obs_registry.default().inc("engine_stage_packs_total")
+        else:
+            operand = stacked
+    return StagedBatch(
+        runner=runner, operand=operand, h_arr=h_arr, w_arr=w_arr,
+        limits=limits, heights=heights, widths=widths, mode=mode,
+        padded_shape=padded_shape, boards=b, total=total,
+        convention=head.convention,
+        check_similarity=head.check_similarity,
+        similarity_frequency=head.similarity_frequency,
+        temporal_depth=temporal_depth,
+    )
+
+
+def dispatch_batch(staged: StagedBatch, device=None) -> InflightBatch:
+    """Dispatch a staged batch: upload its operand (a fresh device tensor
+    built from the retained host array, which is never written) and run
+    the loop, which syncs once per block. Dispatching the same staging
+    twice — the retry path — is safe and idempotent."""
+    dev = platform_env.resolve_device(device)
+    if staged.mode == "packed":
+        operand = packed_math.words_from_numpy(staged.operand, dev)
+    else:
+        operand = torch.from_numpy(np.array(staged.operand, np.uint8)).to(dev)
+    finals, gens, reasons = staged.runner(
+        operand, staged.h_arr, staged.w_arr, staged.limits)
+    return InflightBatch(staged=staged, finals=finals, gens=gens,
+                         reasons=reasons)
+
+
+def _collect_board_results(staged: StagedBatch, finals, gens, reasons
+                           ) -> list[BatchBoardResult]:
+    """Crop one batch's fetched results (host arrays; the packed mode's
+    finals as uint32 words) back into per-board slices."""
+    finals = np.asarray(finals)
+    final_words = None
+    if staged.mode == "packed":
+        final_words = finals
+        finals = _unpack_board_words(finals)
+    finals = np.asarray(finals, dtype=np.uint8)
+    gens = np.asarray(gens)
+    reasons = np.asarray(reasons)
+    b = staged.boards
+    reg = obs_registry.default()
+    reg.inc("engine_batches_total")
+    reg.inc("engine_boards_total", b)
+    reg.inc("engine_generations_total", int(gens[:b].sum()))
+    return [
+        BatchBoardResult(
+            grid=finals[i, : staged.heights[i], : staged.widths[i]].copy(),
+            generations=int(gens[i]),
+            exit_reason=EXIT_REASONS[int(reasons[i])],
+            words=(
+                np.asarray(final_words[i], dtype=np.uint32).copy()
+                if final_words is not None else None
+            ),
+        )
+        for i in range(b)
+    ]
+
+
+def complete_batch(inflight: InflightBatch) -> list[BatchBoardResult]:
+    """Fetch an in-flight batch's results and crop per-board slices."""
+    finals = inflight.finals
+    if inflight.staged.mode == "packed":
+        host = packed_math.words_to_numpy(finals)
+    else:
+        host = finals.cpu().numpy()
+    return _collect_board_results(inflight.staged, host, inflight.gens,
+                                  inflight.reasons)
+
+
+def simulate_batch(
+    boards,
+    configs,
+    padded_shape: tuple[int, int] | None = None,
+    pad_batch_to: int | None = None,
+    temporal_depth: int = 1,
+    device=None,
+) -> list[BatchBoardResult]:
+    """Run many independent boards in ONE batched loop.
+
+    ``boards`` is a sequence of (h, w) uint8 arrays; ``configs`` one
+    ``GameConfig`` shared by all boards or a sequence of per-board configs.
+    All configs must agree on convention/similarity settings; ``gen_limit``
+    may differ per board (a runtime operand). Boards are zero-padded into a
+    shared ``padded_shape`` canvas (default: the max extent over the batch)
+    and, when ``pad_batch_to`` exceeds the board count, inert zero boards
+    fill the remaining slots so a handful of request sizes reuse one runner.
+    ``stage_batch`` -> ``dispatch_batch`` -> ``complete_batch`` back to back.
+
+    Each returned (grid, generations, exit_reason) is bit-identical to a solo
+    ``simulate`` run of the same board (test-pinned for both conventions,
+    including boards that exit early inside a still-running batch).
+    """
+    staged = stage_batch(boards, configs, padded_shape, pad_batch_to,
+                         temporal_depth)
+    if staged is None:
+        return []
+    ph, pw = staged.padded_shape
+    with obs_trace.span("engine.simulate_batch", boards=staged.boards,
+                        slots=staged.total, canvas=f"{ph}x{pw}",
+                        mode=staged.mode):
+        return complete_batch(dispatch_batch(staged, device))

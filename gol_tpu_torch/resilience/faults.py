@@ -2,9 +2,9 @@
 
 The port's copy of ``gol_tpu/resilience/faults.py``: the same ``GOL_FAULTS``
 / ``--fault-plan`` keys, errors and probes. The probes whose call sites
-the port does not have yet (TensorStore shard writes and opens, journal
-compaction, the result cache's GC) are left out until those modules are
-ported; their keys still parse, so one spec drives both packages.
+the port does not have yet (TensorStore shard writes and opens, the result
+cache's GC) are left out until those modules are ported; their keys still
+parse, so one spec drives both packages.
 
 The crash-safety claims in ``resilience/checkpoint.py`` (a crash never leaves
 the checkpoint dir without a readable prior state; auto-resume reproduces the
@@ -69,6 +69,7 @@ through the ``resilience/fsio`` shim, whose probes these drive):
 from __future__ import annotations
 
 import dataclasses
+import errno
 import os
 
 
@@ -262,6 +263,29 @@ def _crash(site: str) -> None:
     raise InjectedCrash(f"injected crash at {site}")
 
 
+def on_fs_write(nbytes: int, site: str) -> None:
+    """Probed by ``resilience/fsio`` before every shim write: the
+    exhaustion knobs fire here, with real errno values so the callers'
+    ENOSPC/EIO handling is exercised verbatim."""
+    plan = _active
+    if plan is None:
+        return
+    plan._fs_writes += 1
+    if plan.full_disk:
+        raise OSError(errno.ENOSPC,
+                      f"injected full disk at {site}")
+    if plan.eio_every and plan._fs_writes % plan.eio_every == 0:
+        raise OSError(errno.EIO,
+                      f"injected EIO at {site} (write #{plan._fs_writes})")
+    plan._fs_bytes += nbytes
+    if (plan.enospc_after_bytes is not None
+            and plan._fs_bytes > plan.enospc_after_bytes):
+        raise OSError(
+            errno.ENOSPC,
+            f"injected ENOSPC at {site} ({plan._fs_bytes} bytes past the "
+            f"{plan.enospc_after_bytes}-byte budget)")
+
+
 def fs_free_bytes() -> int | None:
     """The watchdog's injected free-byte reading, or None (read the real
     filesystem). ``full_disk`` reports 0 so the pressure plane and the
@@ -272,6 +296,18 @@ def fs_free_bytes() -> int | None:
     if plan.full_disk:
         return 0
     return plan.disk_free_bytes
+
+
+def on_compaction(stage: str) -> None:
+    """Probed at a journal compaction's two durability boundaries:
+    ``snapshot`` right before the atomic commit (staged, uncommitted) and
+    ``retire`` right after it (committed, folded segments still on disk)."""
+    plan = _active
+    if plan is None or plan._killed:
+        return
+    if plan.kill_during_compaction == stage:
+        plan._killed = True
+        _crash(f"journal compaction ({stage} boundary)")
 
 
 def on_checkpoint_prune(path: str) -> None:

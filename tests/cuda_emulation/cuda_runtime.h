@@ -1,8 +1,10 @@
 // A host emulation of the CUDA runtime features that the kernels of
-// gol_tpu_torch/csrc/stencil_packed.cu use, for
-// tests/test_torch_bandt_emulated.py: the kernel source compiles with the
-// host C++ compiler (x86-64) against this header, and a launch runs the
-// blocks' warps one after another, each as 32 lanes on one host thread.
+// gol_tpu_torch/csrc/stencil_packed.cu and stencil_batch.cu use, for
+// tests/test_torch_bandt_emulated.py and tests/test_torch_batch_emulated.py:
+// the kernel source compiles with the host C++ compiler (x86-64) against
+// this header, and a launch runs the blocks' warps one after another, each
+// as 32 lanes on one host thread (blocks of one dimension, grids of one to
+// three).
 // A lane runs on its own stack until it reaches a warp intrinsic, then
 // hands over to the next lane (emu_switch); the lanes of a warp take turns
 // in a fixed order, so every lane has written its value before any reads
@@ -29,7 +31,7 @@ using std::max;
 using std::min;
 
 struct dim3 {
-  unsigned x = 0, y = 0, z = 0;
+  unsigned x = 1, y = 1, z = 1;
 };
 struct uint4 {
   uint32_t x, y, z, w;
@@ -37,7 +39,7 @@ struct uint4 {
 inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z, uint32_t w) {
   return {x, y, z, w};
 }
-inline dim3 threadIdx, blockIdx, blockDim;
+inline dim3 threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, blockDim;
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -208,8 +210,32 @@ void emu_launch(unsigned blocks, unsigned threads, K kernel, A... args) {
     std::apply(c->kernel, c->args);
   };
   blockDim.x = threads;
+  blockIdx.y = blockIdx.z = 0;
   for (unsigned b = 0; b < blocks; ++b) {
     for (unsigned w = 0; w < threads / 32; ++w) emu_warp(b, w, body, &call);
+  }
+}
+
+// The same over a grid of up to three dimensions, x fastest.
+template <class K, class... A>
+void emu_launch(dim3 grid, unsigned threads, K kernel, A... args) {
+  struct Call {
+    K kernel;
+    std::tuple<A...> args;
+  } call{kernel, {args...}};
+  auto body = [](void* p) {
+    Call* c = static_cast<Call*>(p);
+    std::apply(c->kernel, c->args);
+  };
+  blockDim.x = threads;
+  for (unsigned z = 0; z < grid.z; ++z) {
+    for (unsigned y = 0; y < grid.y; ++y) {
+      blockIdx.y = y;
+      blockIdx.z = z;
+      for (unsigned x = 0; x < grid.x; ++x) {
+        for (unsigned w = 0; w < threads / 32; ++w) emu_warp(x, w, body, &call);
+      }
+    }
   }
 }
 

@@ -1,0 +1,139 @@
+"""The batched step kernels' CUDA source on the CPU, against their plain
+torch versions.
+
+``gol_tpu_torch/csrc/stencil_batch.cu`` (B1, B2) is compiled with the host
+C++ compiler against ``tests/cuda_emulation/cuda_runtime.h`` (a launch runs
+each warp as 32 lanes on one host thread; the kernels' flag reduction is a
+warp intrinsic) and driven through its own C entries. Each launch is held
+to ``stencil_batch``'s plain version at tolerance 0, words or cells and
+per-board flags: mixed extents in one canvas, spent step counts (a board
+copied through), one-word-wide and one-row boards, and boards that die or
+stand still. The card runs the same source in ``tests/test_torch_cuda.py``
+and ``chip_smoke.py``.
+"""
+
+import ctypes
+import platform
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from gol_tpu_torch.ops import packed_math as pm
+from gol_tpu_torch.ops import stencil_batch as sb
+from test_torch_bandt_emulated import emulated_source
+
+ROOT = Path(__file__).resolve().parent.parent
+SOURCE = ROOT / "gol_tpu_torch" / "csrc" / "stencil_batch.cu"
+EMULATION = Path(__file__).resolve().parent / "cuda_emulation"
+
+# (boards, height, nwords): one-word and one-row boards, 32x32 (the trio's
+# bucket), several 256-thread blocks per board, an odd word count.
+PACKED = [(3, 1, 1), (2, 7, 1), (4, 32, 1), (3, 17, 5), (2, 40, 9)]
+# (canvas height, width, extents): the masked bucket of the JAX tests, an
+# exact-fit byte board (the byte mode), a canvas of several warps' columns,
+# and one taller than a block's bands (B2's warps walk 16-row bands, eight
+# to a block).
+MASKED = [(32, 32, [(30, 30), (18, 24), (10, 13), (1, 1)]),
+          (33, 20, [(33, 20), (33, 20)]),
+          (19, 70, [(19, 70), (5, 64), (1, 3)]),
+          (130, 40, [(130, 40), (129, 33)])]
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None or platform.machine() != "x86_64":
+        pytest.skip("needs a host C++ compiler on x86-64 (the lanes' stack switch)")
+    work = tmp_path_factory.mktemp("batch_emulated")
+    src = work / "stencil_batch_emulated.cpp"
+    src.write_text(emulated_source(SOURCE.read_text()))
+    so = work / "libbatch_emulated.so"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC",
+                    "-I", str(EMULATION), "-o", str(so), str(src)],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.gol_batch_packed_step.argtypes = [p] * 4 + [i] * 5 + [p]
+    lib.gol_batch_masked_step.argtypes = [p] * 6 + [i] * 5 + [p]
+    return lib
+
+
+def _cells(height, width, rng, kind):
+    g = np.zeros((height, width), np.uint8)
+    if kind == "soup":
+        g = (rng.random((height, width)) < 0.45).astype(np.uint8)
+    elif kind == "dies":
+        g[height // 2, width // 2] = 1
+    elif kind == "still":  # a block, still where it fits
+        g[:2, :2] = 1
+    return g
+
+
+KINDS = ["soup", "dies", "still"]
+
+
+def _steps(batch):
+    """Every board runs at gen 0 but one; at gen 2 the odd boards' steps
+    are spent (copied through)."""
+    return torch.tensor([3 if b % 2 == 0 else 2 for b in range(batch)],
+                        dtype=torch.int32)
+
+
+@pytest.mark.parametrize("gen", [0, 2])
+@pytest.mark.parametrize("batch,height,nwords", PACKED)
+def test_packed_batch_step_matches_plain(lib, batch, height, nwords, gen):
+    rng = np.random.default_rng(batch * 100 + height * 7 + nwords)
+    boards = [_cells(height, 32 * nwords, rng, KINDS[b % 3]) for b in range(batch)]
+    words = torch.stack([pm.encode(torch.from_numpy(g)) for g in boards])
+    steps = _steps(batch)
+    if gen == 0:
+        steps[-1] = 0  # a padding slot
+    out = torch.full_like(words, -1)
+    flags = torch.zeros((batch, 2), dtype=torch.int32)
+    assert lib.gol_batch_packed_step(
+        words.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),
+        gen, batch, height, nwords, 0, None) == 0
+    want, want_flags = sb._batch_packed_plain(words, steps, gen)
+    assert torch.equal(out, want)
+    assert torch.equal(flags, want_flags)
+
+
+@pytest.mark.parametrize("gen", [0, 2])
+@pytest.mark.parametrize("height,width,extents", MASKED)
+def test_masked_batch_step_matches_plain(lib, height, width, extents, gen):
+    rng = np.random.default_rng(height * 13 + width)
+    batch = len(extents)
+    canvas = np.zeros((batch, height, width), np.uint8)
+    for b, (h, w) in enumerate(extents):
+        canvas[b, :h, :w] = _cells(h, w, rng, KINDS[b % 3])
+    cells = torch.from_numpy(canvas)
+    heights = torch.tensor([h for h, _ in extents], dtype=torch.int32)
+    widths = torch.tensor([w for _, w in extents], dtype=torch.int32)
+    steps = _steps(batch)
+    out = torch.full_like(cells, 7)
+    flags = torch.zeros((batch, 2), dtype=torch.int32)
+    assert lib.gol_batch_masked_step(
+        cells.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),
+        heights.data_ptr(), widths.data_ptr(), gen, batch, height, width, 0,
+        None) == 0
+    want, want_flags = sb._batch_masked_plain(cells, steps, heights, widths, gen)
+    assert torch.equal(out, want)
+    assert torch.equal(flags, want_flags)
+
+
+def test_flags_accumulate_into_the_callers_buffer(lib):
+    """Flags are ORed in, never stored: a set flag stays set, and a spent
+    board writes none."""
+    words = torch.zeros((2, 4, 1), dtype=torch.int32)
+    out = torch.empty_like(words)
+    flags = torch.tensor([[1, 1], [1, 0]], dtype=torch.int32)
+    steps = torch.tensor([1, 0], dtype=torch.int32)
+    assert lib.gol_batch_packed_step(
+        words.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),
+        0, 2, 4, 1, 0, None) == 0
+    assert flags.tolist() == [[1, 1], [1, 0]]
+    assert not out.any()

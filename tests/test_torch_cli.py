@@ -596,3 +596,152 @@ def test_lanes_not_ported_to_a_mesh_exit_1(flags, eight_shards, capsys, tmp_path
             if "--snapshot-every" in combo:
                 assert sorted(snaps[1]) == [f"gen_{g:06d}.out" for g in (10, 20, 30, 40)]
     assert not list(tmp_path.glob("*.inprogress"))
+
+
+# ---------------------------------------------------------------------------
+# `batch` and `compact`, against the JAX CLI.
+
+_RATE = re.compile(r"\d+\.\d+ boards/sec")
+
+
+def _masked_stderr(err: str) -> str:
+    return _MS.sub("X msecs", _RATE.sub("X boards/sec", err))
+
+
+def _batch_inputs(tmp_path, width, height, seeds):
+    """Input files of ``width`` x ``height``: a board that dies, one that
+    stands still and random ones."""
+    paths = []
+    dies = np.zeros((height, width), np.uint8)
+    dies[height // 2, width // 2] = 1
+    still = np.zeros((height, width), np.uint8)
+    still[1:3, 1:3] = 1
+    for i, g in enumerate([dies, still] + [text_grid.generate(width, height, seed=s)
+                                           for s in seeds]):
+        paths.append(_write(tmp_path, f"in{i}.txt", g))
+    return paths
+
+
+def _run_both(capsys, args, outputs):
+    """Each CLI on ``args``: ``(rc, stdout, masked stderr, {output: bytes})``,
+    the outputs read and removed after each run, so both write the same
+    names."""
+    results = []
+    for main in (jax_cli.main, cli.main):
+        rc = main(args)
+        out, err = capsys.readouterr()
+        data = {}
+        for path in outputs():
+            data[path.name] = path.read_bytes()
+            path.unlink()
+        results.append((rc, out, _masked_stderr(err), data))
+    return results
+
+
+@pytest.mark.parametrize("case", [
+    ("packed", 32, 32, []), ("masked", 30, 30, []), ("tall", 20, 33, []),
+    ("cuda", 32, 32, ["--variant", "cuda"]), ("limit", 64, 32, ["--gen-limit", "7"]),
+    ("max_batch_2", 32, 32, ["--max-batch", "2"]),
+    ("max_batch_1_cuda", 30, 30, ["--max-batch", "1", "--variant", "cuda"]),
+], ids=lambda c: c[0])
+def test_batch_matches_jax(case, capsys, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    _, width, height, flags = case
+    paths = _batch_inputs(tmp_path, width, height, (1, 2, 3))
+    outdir = tmp_path / "out"
+    results = _run_both(capsys, ["batch", str(width), str(height), *paths,
+                                 "--output-dir", str(outdir), "--gen-limit", "40",
+                                 *flags],
+                        lambda: sorted(outdir.glob("*.out")))
+    assert results[1] == results[0]
+    rc, out, err, data = results[1]
+    assert rc == 0 and len(data) == 5 and len(out.splitlines()) == 5
+    assert err.startswith("Batch:\t5 boards, 1 bucket(s), ")
+    assert err.endswith("X boards/sec, X msecs\n")
+
+
+def test_batch_writes_next_to_its_inputs_by_default(capsys, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    paths = _batch_inputs(tmp_path, 32, 32, (4,))
+    results = _run_both(capsys, ["batch", "32", "32", *paths, "--gen-limit", "20"],
+                        lambda: sorted(tmp_path.glob("*.txt.out")))
+    assert results[1] == results[0]
+    assert sorted(results[1][3]) == [f"in{i}.txt.out" for i in range(3)]
+
+
+@pytest.mark.parametrize("flags", [["--max-batch", "0"], ["--max-batch", "65"],
+                                   ["--variant", "nope"]],
+                         ids=["max_batch_0", "max_batch_65", "variant"])
+def test_batch_refusals_match_jax(flags, capsys, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    paths = _batch_inputs(tmp_path, 32, 32, ())
+    results = []
+    for main in (jax_cli.main, cli.main):
+        try:
+            rc = main(["batch", "32", "32", *paths, *flags])
+        except SystemExit as e:  # argparse's refusal
+            rc = e.code
+        out, err = capsys.readouterr()
+        results.append((rc, out, err))
+    assert results[1] == results[0]
+    assert results[1][0] != 0
+    assert not list(tmp_path.glob("*.out"))
+
+
+def test_batch_missing_file_matches_jax(capsys, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    results = _run_both(capsys, ["batch", "32", "32", "missing.txt"], lambda: [])
+    assert results[1] == results[0]
+    assert results[1][0] == 1 and results[1][2].startswith("gol: ")
+
+
+def _journal_dir(path, seed):
+    """A segmented journal written by the JAX package: submits, results,
+    a failure and a cancel, sealed into several segments."""
+    from gol_tpu.serve import jobs as jax_jobs
+
+    j = jax_jobs.JobJournal(str(path), segment_bytes=300)
+    for i in range(5):
+        job = jax_jobs.Job(id=f"{seed}-{i}", width=8, height=6,
+                           board=text_grid.generate(8, 6, seed=seed + i))
+        j.record_submit(job)
+        if i < 3:
+            job.result = jax_jobs.JobResult(grid=job.board, generations=i,
+                                            exit_reason="gen_limit")
+            j.record_done(job)
+    j.close()
+
+
+@pytest.mark.parametrize("layout", ["journal", "fleet", "fleet_retain", "empty"])
+def test_compact_matches_jax(layout, capsys, tmp_path, monkeypatch):
+    """``compact`` on a journal directory and on a fleet-shaped one (one
+    journal per worker partition): the same lines and the same files."""
+    import shutil
+
+    monkeypatch.chdir(tmp_path)
+    src = tmp_path / "src"
+    if layout == "journal":
+        _journal_dir(src, 0)
+    elif layout.startswith("fleet"):
+        for k, name in enumerate(("w0", "w1")):
+            _journal_dir(src / name, 10 * k)
+        (src / "manifest.json").write_text("{}")
+    else:
+        src.mkdir()
+    flags = ["--retain", "1"] if layout == "fleet_retain" else []
+    results = []
+    for main in (jax_cli.main, cli.main):
+        shutil.copytree(src, tmp_path / "work")
+        rc = main(["compact", "work", *flags])
+        out, err = capsys.readouterr()
+        files = {str(p.relative_to(tmp_path / "work")): p.read_bytes()
+                 for p in sorted((tmp_path / "work").rglob("*")) if p.is_file()
+                 and p.name != "compaction.lock"}
+        results.append((rc, out, err, files))
+        shutil.rmtree(tmp_path / "work")
+    assert results[1] == results[0]
+    rc, out, err, _ = results[1]
+    if layout == "empty":
+        assert rc == 1 and err == "gol: no journal state under work\n"
+    else:
+        assert rc == 0 and "compacted" in out

@@ -15,6 +15,7 @@ from gol_tpu_torch import cli, engine, oracle
 from gol_tpu_torch.config import Convention, GameConfig
 from gol_tpu_torch.io import text_grid
 from gol_tpu_torch.ops import packed_math as pm
+from gol_tpu_torch.ops import stencil_batch as sb
 from gol_tpu_torch.ops import stencil_packed as sp
 from gol_tpu_torch.ops import stencil_pallas as spl
 
@@ -449,3 +450,88 @@ def test_host_snapshot_waits_for_the_boundary_and_lands_on_the_host(card):
     assert torch.equal(snap.state[0], want) and torch.equal(snap.state[1], want)
     torch.cuda.synchronize(card)
     assert torch.equal(shards[0].cpu(), ~want)
+
+
+# ---------------------------------------------------------------------------
+# The batch lane's kernels (B1, B2) and the batched engine.
+
+
+# (boards, height, nwords) for B1: one-word boards (32x32, the trio's
+# bucket), one-row boards, several blocks a board, the serving bucket.
+BATCH_PACKED = [(3, 32, 1), (2, 1, 1), (4, 17, 5), (3, 200, 33), (64, 256, 8)]
+# (canvas height, width, extents) for B2: mixed extents, the byte mode,
+# the serving bucket of 250^2 boards.
+BATCH_MASKED = [(32, 32, [(30, 30), (18, 24), (10, 13), (1, 1)]),
+                (33, 20, [(33, 20)] * 2),
+                (130, 40, [(130, 40), (129, 33)]),
+                (256, 256, [(250, 250)] * 64)]
+
+
+def _batch_steps(batch, card):
+    return torch.tensor([3 if b % 2 == 0 else 1 for b in range(batch)],
+                        dtype=torch.int32, device=card)
+
+
+@pytest.mark.parametrize("gen", [0, 2])
+@pytest.mark.parametrize("batch,height,nwords", BATCH_PACKED)
+def test_batch_packed_kernel_matches_plain(card, batch, height, nwords, gen):
+    rng = np.random.default_rng(batch + height + nwords)
+    words = pm.words_from_numpy(rng.integers(0, 2**32, (batch, height, nwords),
+                                             dtype=np.uint64).astype(np.uint32), card)
+    steps = _batch_steps(batch, card)
+    out = torch.empty_like(words)
+    flags = torch.zeros((batch, 2), dtype=torch.int32, device=card)
+    before = sb.LAUNCHES["batch_packed"]
+    sb.batch_packed_step_into(words, out, flags, steps, gen)
+    torch.cuda.synchronize(card)
+    assert sb.LAUNCHES["batch_packed"] == before + 1
+    want, want_flags = sb._batch_packed_plain(words, steps, gen)
+    assert torch.equal(out, want)
+    assert torch.equal(flags, want_flags)
+
+
+@pytest.mark.parametrize("gen", [0, 2])
+@pytest.mark.parametrize("height,width,extents", BATCH_MASKED,
+                         ids=["mixed", "byte", "tall", "serving"])
+def test_batch_masked_kernel_matches_plain(card, height, width, extents, gen):
+    rng = np.random.default_rng(height + width)
+    batch = len(extents)
+    canvas = np.zeros((batch, height, width), np.uint8)
+    for b, (h, w) in enumerate(extents):
+        canvas[b, :h, :w] = rng.integers(0, 2, (h, w), dtype=np.uint8)
+    cells = torch.from_numpy(canvas).to(card)
+    heights = torch.tensor([h for h, _ in extents], dtype=torch.int32, device=card)
+    widths = torch.tensor([w for _, w in extents], dtype=torch.int32, device=card)
+    steps = _batch_steps(batch, card)
+    out = torch.empty_like(cells)
+    flags = torch.zeros((batch, 2), dtype=torch.int32, device=card)
+    before = sb.LAUNCHES["batch_masked"]
+    sb.batch_masked_step_into(cells, out, flags, steps, heights, widths, gen)
+    torch.cuda.synchronize(card)
+    assert sb.LAUNCHES["batch_masked"] == before + 1
+    want, want_flags = sb._batch_masked_plain(cells, steps, heights, widths, gen)
+    assert torch.equal(out, want)
+    assert torch.equal(flags, want_flags)
+
+
+@pytest.mark.parametrize("convention", [Convention.C, Convention.CUDA])
+@pytest.mark.parametrize("shape", [(32, 32), (30, 27)], ids=["packed", "masked"])
+def test_simulate_batch_on_the_card_matches_the_cpu(card, convention, shape):
+    height, width = shape
+    boards = [text_grid.generate(width, height, seed=s) for s in (1, 2, 3)]
+    dies = np.zeros((height, width), np.uint8)
+    for k in range(3):
+        dies[2 + k, 3 + k] = 1  # dies at generation 2: the CUDA replay
+    boards.append(dies)
+    configs = [GameConfig(gen_limit=n, convention=convention) for n in (5, 17, 60, 40)]
+    key = "batch_packed" if shape == (32, 32) else "batch_masked"
+    before = sb.LAUNCHES[key]
+    got = engine.simulate_batch(boards, configs, padded_shape=(32, 32),
+                                pad_batch_to=8, device=card)
+    assert sb.LAUNCHES[key] > before
+    want = engine.simulate_batch(boards, configs, padded_shape=(32, 32),
+                                 pad_batch_to=8, device="cpu")
+    for g, w in zip(got, want):
+        assert np.array_equal(g.grid, w.grid)
+        assert (g.generations, g.exit_reason) == (w.generations, w.exit_reason)
+        assert (g.words is None) == (w.words is None)
