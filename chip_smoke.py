@@ -143,6 +143,31 @@ error:
    Boards/sec at B = 1, 8 and 64 per bucket and limit (bench.py's batch
    suite: 64/B dispatches of B boards, best of 3), and each bucket's B = 64
    dispatch under ``torch.profiler`` (device-busy share).
+4f. The server lane, on B1 and B2, with the launch counters set to 0 just
+   before each in-process part and read just after: (i) bench.py's
+   pipeline load (the 128 boards of 4e at gen_limit 1000, C convention,
+   and the trio in both conventions) POSTed by eight client threads to a
+   real ``serve/server.GolServer`` with a journal, half as JSON and half as
+   packed wire frames, then ``POST /drain``, at ``--pipeline-depth`` 1 and
+   2 and ``--max-inflight 2``, and at depth 1 without a journal (a
+   diagnostic: no fsync per submit), each on a fresh server, best of two;
+   every
+   result, fetched as JSON and as a packed frame, equals the solo
+   ``engine.simulate`` (grid, generations, exit reason) and the trio the
+   oracle. Jobs/s, boards/s, the ``job_latency_seconds`` p50 and p99 of
+   ``/metrics?format=json`` and the mean of each timeline segment
+   (``GET /jobs/<id>/timeline``) per lane, and the device-busy share of a
+   depth-2 window under ``torch.profiler``. (ii) bench.py's cache load:
+   128 jobs over 16 unique 256^2 boards (Zipf counts) through the
+   ``Scheduler`` cold, warm (a ``ResultCache`` filled by one run) and
+   coalesced (an empty one); every result equals the engine's; jobs/s and
+   warm over cold. (iii) tools/serve_smoke.py's restart drill against
+   ``python -m gol_tpu_torch serve --journal-dir J --result-cache``: 50
+   jobs across the 32^2 and 30^2 buckets, SIGKILL with the second half
+   accepted, a restart that replays them, every accepted id with exactly
+   one done record equal to the oracle; then ``python -m gol_tpu_torch
+   submit`` of 8 files (``--wire packed``) writes outputs equal to solo
+   ``run``s, and ``python -m gol_tpu_torch gc J/cache`` reads the CAS.
 5. Timing: each kernel over 100 warm launches captured in one CUDA graph
    and replayed (CUDA events around the replay), so that the card and not
    the host's launch rate sets ``ms``; beside it ``eager_ms`` (the same
@@ -198,14 +223,17 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from gol_tpu_torch import cli, engine, native, oracle, platform_env
+from gol_tpu_torch.cache import ResultCache
 from gol_tpu_torch.config import Convention, GameConfig
-from gol_tpu_torch.io import bitpack, text_grid
+from gol_tpu_torch.io import bitpack, text_grid, wire
 from gol_tpu_torch.obs import profiler
 from gol_tpu_torch.obs import registry as obs_registry
 from gol_tpu_torch.ops import _build, packed_math as pm
@@ -214,8 +242,11 @@ from gol_tpu_torch.ops import stencil_batch as sb
 from gol_tpu_torch.ops import stencil_pallas as spl
 from gol_tpu_torch.parallel import halo
 from gol_tpu_torch.parallel.mesh import make_mesh
-from gol_tpu_torch.serve import batcher
+from gol_tpu_torch.serve import batcher, compaction
 from gol_tpu_torch.serve.jobs import new_job
+from gol_tpu_torch.serve.metrics import Metrics
+from gol_tpu_torch.serve.scheduler import Scheduler
+from gol_tpu_torch.serve.server import GolServer
 from gol_tpu_torch.tools import roofline
 
 REPO = Path(__file__).resolve().parent
@@ -397,6 +428,17 @@ BATCH_SIZES = (1, 8, 64)
 # and a 3-input logic op for the rule, one for the differs flag and a
 # select. Bytes bound it either way.
 OPS_PER_CELL = 9
+# Phase 4f: the server lane. The pipeline load (BATCH_BOARDS per bucket at
+# SERVER_LIMIT) through a real server per lane; the cache load; the
+# restart drill of tools/serve_smoke.py.
+SERVER_LIMIT = 1000
+SERVER_LANES = {"depth 1": {}, "depth 2": {"pipeline_depth": 2},
+                "max-inflight 2": {"max_inflight": 2},
+                # A diagnostic beside them: no journal, so no fsync per
+                # submit and per batch.
+                "depth 1, no journal": {"journal_dir": None}}
+CACHE_JOBS, CACHE_UNIQUES = 128, 16
+DRILL_JOBS, DRILL_LIMIT = 50, 400
 PACKED = [k for k in KERNELS if not k.get("cells") and not k.get("ghosts")]
 BYTE = [k for k in KERNELS if k.get("cells") and not k.get("ghosts")]
 SHARD = [k for k in KERNELS if k.get("ghosts") in ("rows", "deep")
@@ -1444,6 +1486,17 @@ def observability(work: Path, path: dict, mesh: dict) -> dict:
 # 4e. The batch lane
 
 
+def _trio() -> list:
+    """JAX's mixed-fate trio at 32^2: a board that dies, a still life and
+    a soup that runs to its limit, each with its exit reason."""
+    dies = np.zeros((32, 32), np.uint8)
+    dies[4, 4] = 1
+    still = np.zeros((32, 32), np.uint8)
+    still[3:5, 3:5] = 1
+    return [(dies, "empty"), (still, "similar"),
+            (text_grid.generate(32, 32, seed=7), "gen_limit")]
+
+
 def _batch_jobs(boards, convention, limit) -> list:
     return [new_job(b.shape[1], b.shape[0], b, convention=convention,
                     gen_limit=limit) for b in boards]
@@ -1490,12 +1543,7 @@ def batch_lane(work: Path, dev) -> dict:
     loads = {name: [rng.integers(0, 2, (side, side), dtype=np.uint8)
                     for _ in range(BATCH_BOARDS)]
              for name, side in BATCH_SIDES.items()}
-    dies = np.zeros((32, 32), np.uint8)
-    dies[4, 4] = 1
-    still = np.zeros((32, 32), np.uint8)
-    still[3:5, 3:5] = 1
-    trio = [(dies, "empty"), (still, "similar"),
-            (text_grid.generate(32, 32, seed=7), "gen_limit")]
+    trio = _trio()
     runs, exec_ms = {}, {}
     _zero_counters()
     for convention in (Convention.C, Convention.CUDA):
@@ -1606,6 +1654,450 @@ def batch_lane(work: Path, dev) -> dict:
                   f"{summary['host_ops_ms']}", flush=True)
     return {"launches": {"batch lane (4e)": counts}, "boards_per_sec": rates,
             "exec_ms": exec_ms, "busy": busy}
+
+
+# ---------------------------------------------------------------------------
+# 4f. The server lane
+
+
+def _http(method: str, url: str, body=None, raw: bytes | None = None,
+          content_type: str = "application/json", accept: str | None = None,
+          timeout: float = 120) -> tuple[int, str, bytes]:
+    """One HTTP exchange: ``(status, response content type, body)``."""
+    data = json.dumps(body).encode() if body is not None else raw
+    headers = {"Content-Type": content_type} if data is not None else {}
+    if accept:
+        headers["Accept"] = accept
+    req = urllib.request.Request(url, data=data, method=method, headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.headers.get("Content-Type", ""), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type", ""), e.read()
+
+
+def _post_job(base: str, i: int, job) -> str:
+    """POST one (board, convention, gen_limit) job: even pairs as JSON,
+    odd pairs as a packed wire frame, so each bucket gets both formats."""
+    board, convention, limit = job
+    meta = {"convention": convention, "gen_limit": limit}
+    if (i // 2) % 2:
+        status, _, raw = _http("POST", f"{base}/jobs",
+                               raw=wire.encode_frame(meta, grid=board),
+                               content_type=wire.CONTENT_TYPE)
+    else:
+        status, _, raw = _http("POST", f"{base}/jobs", {
+            "width": board.shape[1], "height": board.shape[0],
+            "cells": text_grid.encode(board).decode("ascii"), **meta})
+    if status != 202:
+        fail(f"POST /jobs {i} answered {status}: {raw[:200]!r}")
+    return json.loads(raw)["id"]
+
+
+def _fetch_results(base: str, job_id: str):
+    """``GET /result/<id>`` as JSON and as a packed frame: both decoded to
+    ``(grid, generations, exit_reason)``."""
+    status, _, raw = _http("GET", f"{base}/result/{job_id}")
+    if status != 200:
+        fail(f"GET /result/{job_id} answered {status}: {raw[:200]!r}")
+    p = json.loads(raw)
+    as_json = (text_grid.decode(p["grid"].encode("ascii"), p["width"], p["height"]),
+               p["generations"], p["exit_reason"])
+    status, ctype, raw = _http("GET", f"{base}/result/{job_id}",
+                               accept=wire.CONTENT_TYPE)
+    if status != 200 or not wire.is_packed(ctype):
+        fail(f"packed GET /result/{job_id} answered {status} {ctype}")
+    frame = wire.decode_frame(raw)
+    return as_json, (frame.grid(), frame.meta["generations"],
+                     frame.meta["exit_reason"])
+
+
+def _same(got, want, reason: str) -> bool:
+    """``got`` as ``(grid, generations, exit reason)`` equals the solo run
+    ``want`` and the exit reason ``reason``."""
+    return (np.array_equal(got[0], want.grid) and got[1] == want.generations
+            and got[2] == reason)
+
+
+def _solo(board, convention: str, limit: int):
+    """The solo ``engine.simulate`` of one board (``--kernel auto`` where
+    the width packs, ``pallas`` otherwise) and its exit reason, which a
+    solo run does not report: that of the board batched alone."""
+    cfg = GameConfig(convention=convention, gen_limit=limit)
+    want = engine.simulate(board, cfg,
+                           kernel="auto" if board.shape[1] % 32 == 0 else "pallas")
+    return want, engine.simulate_batch([board], cfg)[0].exit_reason
+
+
+def _server_load() -> tuple[list, list]:
+    """bench.py's serving load (--suite pipeline at full size): 64 random
+    256^2 boards and 64 random 250^2 boards at gen_limit 1000, C
+    convention, interleaved, then the mixed-fate trio at 32^2 in both
+    conventions. Returns the jobs and the trio's exit reasons."""
+    rng = np.random.default_rng(SEED + 7)
+    load = []
+    for _ in range(BATCH_BOARDS):
+        for side in BATCH_SIDES.values():
+            load.append((rng.integers(0, 2, (side, side), dtype=np.uint8),
+                         Convention.C, SERVER_LIMIT))
+    reasons = []
+    for convention in (Convention.C, Convention.CUDA):
+        for board, reason in _trio():
+            load.append((board, convention, 60))
+            reasons.append(reason)
+    return load, reasons
+
+
+def _serve_once(work: Path, tag: str, kwargs: dict, load: list,
+                profile_dir: Path | None = None, dev=None) -> dict:
+    """One fresh ``GolServer`` with a journal: every job POSTed by eight
+    client threads, then ``POST /drain``; jobs/s over first POST to the
+    drain's answer. Returns the ids, the rates, the job latency quantiles
+    of ``/metrics?format=json`` and each timeline segment's mean over the
+    jobs (``GET /jobs/<id>/timeline``)."""
+    srv = GolServer(port=0, **{"journal_dir": str(work / f"journal_{tag}"),
+                               **kwargs})
+    srv.start()
+    try:
+        base = srv.url
+        with profiler.capture(str(profile_dir) if profile_dir else None,
+                              dev or "cpu"):
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(8) as pool:
+                ids = list(pool.map(lambda ij: _post_job(base, *ij),
+                                    enumerate(load)))
+            posted = time.perf_counter() - t0
+            status, _, raw = _http("POST", f"{base}/drain", {})
+            elapsed = time.perf_counter() - t0
+        if status != 200 or not json.loads(raw)["drained"]:
+            fail(f"{tag}: POST /drain answered {status}: {raw[:200]!r}")
+        snap = json.loads(_http("GET", f"{base}/metrics?format=json")[2])
+        hist = snap["histograms"]["job_latency_seconds"]
+        counters = snap["counters"]
+        results = {jid: _fetch_results(base, jid) for jid in ids}
+        segments: dict = {}
+        for jid in ids:
+            for name, sec in json.loads(_http(
+                    "GET", f"{base}/jobs/{jid}/timeline")[2])["segments"].items():
+                segments[name] = segments.get(name, 0.0) + sec / len(ids)
+    finally:
+        srv.shutdown()
+    if counters.get("jobs_completed_total") != len(load):
+        fail(f"{tag}: {counters.get('jobs_completed_total')} of {len(load)} "
+             "jobs completed")
+    return {"ids": ids, "results": results, "elapsed_s": elapsed,
+            "posted_s": posted, "mean_segments_s": segments,
+            "jobs_per_sec": len(load) / elapsed,
+            "boards_per_sec": counters["boards_total"] / elapsed,
+            "batches": counters["batches_total"],
+            "latency_p50_s": hist["p50"], "latency_p99_s": hist["p99"]}
+
+
+def _cache_load():
+    """bench.py's cache suite: 128 jobs over 16 unique random 256^2
+    boards, Zipf repeat counts, shuffled."""
+    rng = np.random.default_rng(SEED + 8)
+    side = BATCH_SIDES["256x256/packed"]
+    boards = [rng.integers(0, 2, (side, side), dtype=np.uint8)
+              for _ in range(CACHE_UNIQUES)]
+    weights = [1.0 / r for r in range(1, CACHE_UNIQUES + 1)]
+    counts = [max(1, int(w * CACHE_JOBS / sum(weights))) for w in weights]
+    counts[0] += CACHE_JOBS - sum(counts)
+    order = [i for i, c in enumerate(counts) for _ in range(c)]
+    rng.shuffle(order)
+    return boards, order, counts
+
+
+def _cache_lane(boards, order, cache=None) -> tuple[dict, list]:
+    """One fresh ``Scheduler`` over the cache load; ``cache`` None is the
+    cold lane. Returns the lane's rates and counters, and its jobs."""
+    metrics = Metrics()
+    if cache is not None:
+        cache.metrics = metrics
+    sched = Scheduler(metrics=metrics, cache=cache, flush_age=0.01)
+    sched.start()
+    t0 = time.perf_counter()
+    jobs = [sched.submit(new_job(boards[i].shape[1], boards[i].shape[0],
+                                 boards[i], gen_limit=SERVER_LIMIT))
+            for i in order]
+    if not sched.drain(timeout=300):
+        fail("the cache lane did not drain in 300 s")
+    elapsed = time.perf_counter() - t0
+    sched.stop()
+    c = metrics.snapshot()["counters"]
+    return {"jobs_per_sec": len(jobs) / elapsed, "elapsed_s": elapsed,
+            "hits": c.get("cache_hits_total", 0),
+            "misses": c.get("cache_misses_total", 0),
+            "coalesced": c.get("cache_inflight_coalesced_total", 0),
+            "batches": c.get("batches_total", 0)}, jobs
+
+
+def _start_serve(args: list, log: Path) -> tuple[subprocess.Popen, str]:
+    """``python -m gol_tpu_torch serve --port 0 ...`` on the card, in a
+    session of its own: returns the process and its URL once it serves."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gol_tpu_torch", "serve", "--port", "0", *args],
+        stdout=subprocess.PIPE, stderr=log.open("a"), text=True,
+        env=_subprocess_env(), start_new_session=True)
+    line = proc.stdout.readline()
+    if not line.startswith("serving on "):
+        fail(f"serve exited {proc.wait()} before serving:\n{line}{log.read_text()}")
+    return proc, line.split()[2]
+
+
+def _stop(proc: subprocess.Popen | None) -> None:
+    if proc is not None and proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        proc.stdout.close()
+
+
+def _done_records(journal: Path) -> dict:
+    done: dict = {}
+    for rec in compaction.iter_records(str(journal)):
+        if rec.get("event") == "done":
+            done.setdefault(rec["id"], []).append(rec)
+    return done
+
+
+def restart_drill(work: Path) -> dict:
+    """tools/serve_smoke.py's drill against ``python -m gol_tpu_torch
+    serve`` on the card, with a journal and the result cache: 50 jobs
+    across the 32^2 (packed) and 30^2 (masked) buckets in two waves — the
+    first run to done, the second accepted and queued behind a 0.5 s
+    flush age — SIGKILL, restart on the same journal, replay. Every
+    accepted id has exactly one done record and its result equals the
+    oracle. Then ``submit`` of 8 files against the restarted server writes
+    outputs byte-equal to solo ``run``s, and ``gc`` reads its CAS."""
+    journal = work / "drill_journal"
+    log = work / "drill_serve.log"
+    args = ["--journal-dir", str(journal), "--result-cache",
+            "--flush-age", "0.5"]
+    sides = [32 if i % 2 == 0 else 30 for i in range(DRILL_JOBS)]
+    boards = [text_grid.generate(s, s, seed=1000 + i) for i, s in enumerate(sides)]
+    proc = None
+    try:
+        proc, base = _start_serve(args, log)
+        accepted = {}
+        half = DRILL_JOBS // 2
+        for i, board in enumerate(boards):
+            if i == half:
+                deadline = time.perf_counter() + 60
+                while len(_done_records(journal)) < half:
+                    if time.perf_counter() > deadline:
+                        fail("the drill's first wave did not finish in 60 s")
+                    time.sleep(0.05)
+            status, _, raw = _http("POST", f"{base}/jobs", {
+                "width": board.shape[1], "height": board.shape[0],
+                "cells": text_grid.encode(board).decode("ascii"),
+                "gen_limit": DRILL_LIMIT})
+            if status != 202:
+                fail(f"drill submit {i} answered {status}: {raw[:200]!r}")
+            accepted[json.loads(raw)["id"]] = board
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        proc.stdout.close()
+        proc = None
+        done_before = len(_done_records(journal))
+        t0 = time.perf_counter()
+        proc, base = _start_serve(args, log)
+        pending = set(accepted)
+        deadline = time.perf_counter() + 120
+        while pending and time.perf_counter() < deadline:
+            for job_id in list(pending):
+                status, _, raw = _http("GET", f"{base}/jobs/{job_id}")
+                state = json.loads(raw).get("state") if status == 200 else None
+                if status != 200 or state in ("failed", "cancelled"):
+                    fail(f"drill job {job_id} after the restart: {status} {raw[:200]!r}")
+                if state == "done":
+                    pending.discard(job_id)
+            time.sleep(0.05 if pending else 0)
+        if pending:
+            fail(f"{len(pending)} drill job(s) never completed after the restart")
+        replay_s = time.perf_counter() - t0
+        replay_segments: dict = {}
+        for job_id in accepted:
+            tl = json.loads(_http("GET", f"{base}/jobs/{job_id}/timeline")[2])
+            if not tl.get("restored"):
+                for name, sec in tl["segments"].items():
+                    replay_segments[name] = replay_segments.get(name, 0.0) + sec
+        done = _done_records(journal)
+        lost, extra = set(accepted) - set(done), set(done) - set(accepted)
+        dup = {k: len(v) for k, v in done.items() if len(v) != 1}
+        if lost or extra or dup:
+            fail(f"drill ledger: lost {lost}, unknown {extra}, duplicated {dup}")
+        cfg = GameConfig(gen_limit=DRILL_LIMIT)
+        for job_id, (rec,) in done.items():
+            want = oracle.run(accepted[job_id], cfg)
+            got = text_grid.decode(rec["grid"].encode("ascii"), rec["width"],
+                                   rec["height"])
+            if not np.array_equal(got, want.grid) or rec["generations"] != want.generations:
+                fail(f"drill job {job_id}: its done record differs from the oracle")
+        n_replayed = len(accepted) - done_before
+        print(f"restart drill: {len(accepted)} accepted, {done_before} done "
+              f"before the SIGKILL, the rest done {replay_s:.2f} s after the "
+              "restart's exec, process start included (their mean timeline "
+              "segments, ms: " + json.dumps(
+                  {k: round(v / max(n_replayed, 1) * 1e3, 3)
+                   for k, v in replay_segments.items()})
+              + "); every accepted id has exactly one done record, all == "
+              "the oracle", flush=True)
+
+        # submit of 8 files against the restarted server, against solo runs.
+        files = []
+        for i in range(8):
+            files.append(work / f"submit{i}.txt")
+            text_grid.write_grid(str(files[i]), text_grid.generate(32, 32, seed=2000 + i))
+        outdir = work / "submit_out"
+        sub = subprocess.run(
+            [sys.executable, "-m", "gol_tpu_torch", "submit", "32", "32",
+             *map(str, files), "--server", base, "--gen-limit", str(DRILL_LIMIT),
+             "--output-dir", str(outdir), "--wire", "packed"],
+            capture_output=True, text=True, timeout=300, env=_subprocess_env())
+        if sub.returncode != 0:
+            fail(f"submit exited {sub.returncode}:\n{sub.stderr}")
+        # Result lines print in the order the polls find jobs done.
+        lines = {ln.split("\t")[0]: ln for ln in sub.stdout.splitlines()
+                 if "Generations:" in ln}
+        solo_out = work / "drill_solo.out"
+        for path in files:
+            line = lines.get(str(path), "")
+            gens, _, _ = _cli(["32", "32", str(path), "--variant", "tpu", "--mesh",
+                               "1x1", "--gen-limit", str(DRILL_LIMIT),
+                               "--output", str(solo_out)])
+            got = outdir / (path.name + ".out")
+            if (got.read_bytes() != solo_out.read_bytes()
+                    or f"Generations:\t{gens}\t" not in line):
+                fail(f"submit output {got.name} ({line!r}) differs from the solo "
+                     f"run (Generations {gens})")
+        if len(lines) != len(files):
+            fail(f"submit printed {len(lines)} result lines for {len(files)} files")
+        status, _, raw = _http("POST", f"{base}/drain", {})
+        if status != 200 or not json.loads(raw)["drained"]:
+            fail(f"drill drain answered {status}: {raw[:200]!r}")
+        os.killpg(proc.pid, signal.SIGTERM)
+        if proc.wait(timeout=60) != 0:
+            fail(f"serve exited {proc.returncode} on SIGTERM")
+        replay_line = proc.stdout.read().strip()
+        proc.stdout.close()
+        proc = None
+        if replay_line != f"replayed {DRILL_JOBS - done_before} unfinished job(s) from the journal":
+            fail(f"the restarted serve printed {replay_line!r}")
+        gc = subprocess.run(
+            [sys.executable, "-m", "gol_tpu_torch", "gc", str(journal / "cache")],
+            capture_output=True, text=True, timeout=120, env=_subprocess_env())
+        entries = re.match(r".*: (\d+) entr\(ies\)", gc.stdout)
+        if gc.returncode != 0 or not entries or int(entries.group(1)) < len(files):
+            fail(f"gc exited {gc.returncode}:\n{gc.stdout}{gc.stderr}")
+        print(f"submit of {len(files)} files --wire packed: every output == the solo "
+              f"run's bytes and Generations; gc: {gc.stdout.splitlines()[0]}",
+              flush=True)
+    finally:
+        _stop(proc)
+    return {"accepted": len(accepted), "done_before_kill": done_before,
+            "replay_s": replay_s, "replay_line": replay_line,
+            "replayed_mean_segments_s": {k: v / max(n_replayed, 1)
+                                         for k, v in replay_segments.items()}}
+
+
+def server_lane(work: Path, dev) -> dict:
+    """Phase 4f: the server lane at full width. (i) bench.py's pipeline
+    load through a real ``GolServer`` with a journal, half the jobs as
+    JSON and half as packed frames, at ``--pipeline-depth`` 1 and 2,
+    ``--max-inflight 2`` and depth 1 without a journal, each on a fresh
+    server (best of two), every
+    result through both result formats == the solo ``engine.simulate``
+    and the trio == the oracle; (ii) bench.py's cache load through the
+    ``Scheduler`` with a ``ResultCache``, cold, warm and coalesced, every
+    result == the engine's; (iii) the restart drill. The counters are
+    zeroed just before (i) and (ii) and read just after each."""
+    t_phase = time.perf_counter()
+    load, trio_reasons = _server_load()
+    lanes, launches = {}, {}
+    _zero_counters()
+    for name, kwargs in SERVER_LANES.items():
+        runs = [_serve_once(work, f"{name}-{r}".replace(" ", "_"), kwargs, load)
+                for r in range(2)]
+        lanes[name] = max(runs, key=lambda r: r["jobs_per_sec"])
+        lanes[name]["runs_jobs_per_sec"] = [r["jobs_per_sec"] for r in runs]
+    launches["server lane (4f i)"] = _counts()
+    for k in KERNELS + BATCH_KERNELS:
+        if (k["key"] in ("batch_packed", "batch_masked")) != (
+                launches["server lane (4f i)"][k["key"]] > 0):
+            fail(f"{k['id']} launched {launches['server lane (4f i)'][k['key']]} "
+                 "times on the server lane")
+    prof_dir = work / "prof_server_depth2"
+    busy = _serve_once(work, "profiled", SERVER_LANES["depth 2"], load,
+                       prof_dir, dev)
+    summary = profile_summary(prof_dir / "trace.json", "batch_")
+    t0 = time.perf_counter()
+    solo = [_solo(*job) for job in load]
+    for name, lane in lanes.items():
+        for i, jid in enumerate(lane["ids"]):
+            as_json, as_frame = lane["results"][jid]
+            if not (_same(as_json, *solo[i]) and _same(as_frame, *solo[i])):
+                fail(f"{name}: job {i}'s result ({as_json[1]}, {as_json[2]}) differs "
+                     f"from its solo run ({solo[i][0].generations}, {solo[i][1]})")
+    for i, reason in enumerate(trio_reasons):
+        board, convention, limit = load[2 * BATCH_BOARDS + i]
+        want = oracle.run(board, GameConfig(convention=convention, gen_limit=limit))
+        if not _same((want.grid, want.generations, reason), *solo[2 * BATCH_BOARDS + i]):
+            fail(f"trio board {i} ({convention}) differs from the oracle")
+    print(f"server lane: {len(load)} jobs x {len(lanes)} lanes, JSON and packed "
+          "results == solo engine.simulate (grid, Generations, exit reason), the "
+          f"trio == the oracle; solo checks in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for name, lane in lanes.items():
+        print(f"server {name}: {lane['jobs_per_sec']:.1f} jobs/s, "
+              f"{lane['boards_per_sec']:.1f} boards/s over {lane['batches']} "
+              f"batches, job latency p50 {lane['latency_p50_s'] * 1e3:.1f} ms, "
+              f"p99 {lane['latency_p99_s'] * 1e3:.1f} ms (runs "
+              f"{[round(r, 1) for r in lane['runs_jobs_per_sec']]} jobs/s); every "
+              f"POST answered at {lane['posted_s'] * 1e3:.1f} ms; mean timeline "
+              "segments, ms: " + json.dumps({k: round(v * 1e3, 3) for k, v in
+                                             lane["mean_segments_s"].items()}),
+              flush=True)
+    print(f"profile server depth 2: {summary['events']} batch kernel events, busy "
+          f"{summary['kernel_busy_ms']:.3f} ms of a {summary['window_ms']:.3f} ms "
+          f"window = {summary['device_busy_share']:.3f} ({busy['jobs_per_sec']:.1f} "
+          f"jobs/s under the profiler); host ops {summary['host_ops_ms']}",
+          flush=True)
+
+    boards, order, counts = _cache_load()
+    _cache_lane(boards, order)  # every ladder rung the lanes hit, built
+    _zero_counters()
+    cache_lanes = {}
+    cache_lanes["cold"], cold_jobs = _cache_lane(boards, order)
+    warm = ResultCache(memory_entries=256)
+    _cache_lane(boards, order, warm)
+    cache_lanes["warm"], warm_jobs = _cache_lane(boards, order, warm)
+    cache_lanes["coalesced"], co_jobs = _cache_lane(
+        boards, order, ResultCache(memory_entries=256))
+    launches["cache lane (4f ii)"] = _counts()
+    if cache_lanes["warm"]["hits"] != CACHE_JOBS or not cache_lanes["coalesced"]["coalesced"]:
+        fail(f"cache lanes: {cache_lanes}")
+    want = [_solo(b, Convention.C, SERVER_LIMIT) for b in boards]
+    for name, jobs in (("cold", cold_jobs), ("warm", warm_jobs),
+                       ("coalesced", co_jobs)):
+        for i, job in zip(order, jobs):
+            r = job.result
+            if not _same((r.grid, r.generations, r.exit_reason), *want[i]):
+                fail(f"cache lane {name}: a result differs from the engine's")
+    ratio = cache_lanes["warm"]["jobs_per_sec"] / cache_lanes["cold"]["jobs_per_sec"]
+    print(f"cache lane: {CACHE_JOBS} jobs over {CACHE_UNIQUES} unique 256^2 boards "
+          f"(Zipf {counts}), gen_limit {SERVER_LIMIT}: " + ", ".join(
+              f"{n} {v['jobs_per_sec']:.1f} jobs/s (hits {v['hits']}, coalesced "
+              f"{v['coalesced']}, batches {v['batches']})"
+              for n, v in cache_lanes.items())
+          + f"; warm / cold = {ratio:.1f}; every result == the engine's", flush=True)
+
+    drill = restart_drill(work)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 4f took {seconds:.1f} s", flush=True)
+    return {"launches": launches, "seconds": seconds, "drill": drill,
+            "lanes": {n: {k: v for k, v in lane.items() if k not in ("ids", "results")}
+                      for n, lane in lanes.items()},
+            "busy": summary, "cache": cache_lanes, "warm_over_cold": ratio}
 
 
 # ---------------------------------------------------------------------------
@@ -1858,6 +2350,8 @@ def main() -> int:
         obs = observability(work, path, mesh)
         phase("4e. the batch lane")
         batch = batch_lane(work, dev)
+        phase("4f. the server lane")
+        server = server_lane(work, dev)
         phase("5. timing")
         times = timing(dev)
         phase("6. the flag-cost roofline")
@@ -1878,8 +2372,14 @@ def main() -> int:
         "busy": {k: {m: v[m] for m in ("events", "window_ms", "kernel_busy_ms",
                                        "device_busy_share")}
                  for k, v in batch["busy"].items()}}))
+    print("server lane: " + json.dumps({
+        "seconds": server["seconds"], "lanes": server["lanes"],
+        "busy": {m: server["busy"][m] for m in ("events", "window_ms",
+                                                "kernel_busy_ms", "device_busy_share")},
+        "cache": server["cache"], "warm_over_cold": server["warm_over_cold"],
+        "drill": server["drill"]}))
     launches = {**path["launches"], **mesh["launches"], **ckpt["launches"],
-                **obs["launches"], **batch["launches"],
+                **obs["launches"], **batch["launches"], **server["launches"],
                 "tpu 2x2 auto 64x64 (one-word shards)": one_word,
                 "roofline": roof_counts}
     table = []

@@ -8,8 +8,12 @@ TPU kernel of the repo (K1-K14) is a hand-written CUDA kernel for Hopper
 (``csrc/``), built with nvcc at first use and bound with ctypes; each has a
 plain torch version that the CPU path runs. K14 serves the flag-cost
 roofline (``tools/roofline.py``). The packed-I/O text codec
-(``native/codec.c``) builds the same way with cc. The port imports neither
-``jax`` nor ``gol_tpu``.
+(``native/codec.c``) builds the same way with cc. The serving stack
+(``serve/``: the batcher, journal, scheduler and HTTP server, on the
+port's batched kernels B1 and B2), the result cache (``cache/``) and the
+packed wire format (``io/wire.py``) speak the JAX package's formats, so
+journals, CAS directories and clients move between the packages. The port
+imports neither ``jax`` nor ``gol_tpu``.
 """
 
 from gol_tpu_torch.config import DEFAULT_CONFIG, GEN_LIMIT, SIMILARITY_FREQUENCY, GameConfig

@@ -41,8 +41,14 @@ Subcommands: ``generate <width> <height>`` emits a random grid
 artifacts; ``batch W H FILES...`` runs many boards through the padding-
 bucket batcher in one process (``serve/batcher.py``, the batched kernels
 B1 and B2); ``compact DIR`` folds a job journal's sealed segments into its
-snapshot (``serve/compaction.py``). The JAX CLI's other subcommands
-(``NOT_PORTED``) exit 1 with a ``gol:`` line.
+snapshot (``serve/compaction.py``); ``serve`` runs the HTTP service over
+the journaled scheduler and the result cache (``serve/server.py``, on B1
+and B2), ``submit W H FILES...`` is its HTTP client (of either package's
+server), and ``gc DIR`` garbage-collects a result-cache CAS. The JAX CLI's
+other subcommands (``NOT_PORTED``) exit 1 with a ``gol:`` line, as do the
+options of ``serve`` and ``submit`` whose lanes are not ported
+(``--resident-ring`` >= 2, ``--warm-plans``, ``--cache-payload ts``,
+``--shard-across``).
 """
 
 from __future__ import annotations
@@ -66,6 +72,15 @@ from gol_tpu_torch.platform_env import (NoDeviceError, configure_cli_logging,
                                         resolve_device)
 from gol_tpu_torch.resilience import faults
 from gol_tpu_torch.variants import VARIANTS, Variant, get_variant
+
+# Options of the JAX CLI's serve and submit whose lanes are not ported:
+# each exits 1 with one `gol:` line naming the ROADMAP item.
+WARM_PLANS_REFUSAL = ("--warm-plans needs the tuner, which is not ported yet "
+                      "(ROADMAP.md Queue 1 item 6); serve without it, or "
+                      "with python -m gol_tpu")
+SHARD_ACROSS_REFUSAL = ("--shard-across needs the fleet router, which is not "
+                        "ported yet (ROADMAP.md Queue 1 item 9); submit "
+                        "without it, or with python -m gol_tpu")
 
 # Dense-materialization ceiling (cells): 2^30 cells is a 1 GB uint8 canvas
 # on the host, and the engine carries the grid plus its packed buffers.
@@ -891,6 +906,797 @@ def _compact_cmd(args) -> int:
     return 0
 
 
+def _serve(args) -> int:
+    """``serve``: the batched multi-tenant simulation service.
+
+    Boots the HTTP API (``serve/server.py``) over the journaled scheduler
+    on the card (``GOL_TORCH_DEVICE=cpu``: the CPU). The device is resolved
+    and the batched kernels (B1, B2) are built and loaded before ``serving
+    on <url>`` prints, so a machine without a card exits 1 with a ``gol:``
+    line instead of accepting jobs it cannot run. SIGTERM/SIGINT drain
+    gracefully: admission stops, queued buckets flush, in-flight batches
+    finish, then the process exits — no accepted job is lost (the journal
+    replays any that were cut off).
+
+    ``--compile-cache DIR`` is the build directory of the kernels. Refused
+    with a ``gol:`` line, as not ported: ``--resident-ring`` >= 2,
+    ``--warm-plans`` and ``--cache-payload ts``."""
+    import signal
+
+    from gol_tpu_torch.cache.store import TS_REFUSAL
+    from gol_tpu_torch.ops import stencil_batch
+    from gol_tpu_torch.serve.scheduler import RESIDENT_RING_REFUSAL
+
+    if args.resident_ring > 1:
+        raise ValueError(RESIDENT_RING_REFUSAL)
+    if args.warm_plans:
+        raise ValueError(WARM_PLANS_REFUSAL)
+    if args.cache_payload == "ts":
+        raise ValueError(TS_REFUSAL)
+    _build.enable_compile_cache(args.compile_cache)
+
+    # The subprocess fault harness (GOL_FAULTS crosses the exec boundary,
+    # flags don't). Unset, this clears any plan a previous in-process run
+    # armed — same contract as `run`.
+    faults.install(faults.FaultPlan.from_env())
+
+    from gol_tpu_torch.serve.server import GolServer
+
+    if args.flush_age < 0:
+        raise ValueError(f"--flush-age must be >= 0, got {args.flush_age}")
+    if args.slo_latency_p99 <= 0:
+        raise ValueError(
+            f"--slo-latency-p99 must be > 0, got {args.slo_latency_p99}"
+        )
+    if args.cache_entries < 1:
+        raise ValueError(
+            f"--cache-entries must be >= 1, got {args.cache_entries}"
+        )
+    if args.cache_disk_bytes is not None and args.cache_disk_bytes < 1:
+        raise ValueError(
+            f"--cache-disk-bytes must be >= 1, got {args.cache_disk_bytes}"
+        )
+    if args.journal_segment_bytes is not None \
+            and args.journal_segment_bytes < 0:
+        raise ValueError(
+            f"--journal-segment-bytes must be >= 0, got "
+            f"{args.journal_segment_bytes}"
+        )
+    if args.journal_retain is not None and args.journal_retain < 1:
+        raise ValueError(
+            f"--journal-retain must be >= 1, got {args.journal_retain}"
+        )
+    if args.disk_reserve < 0:
+        raise ValueError(
+            f"--disk-reserve must be >= 0, got {args.disk_reserve}"
+        )
+    if args.disk_reserve and not args.journal_dir:
+        raise ValueError(
+            "--disk-reserve watches the journal partition; pass "
+            "--journal-dir (a journal-less server has no durable state "
+            "to protect)"
+        )
+    # --result-cache with a journal but no explicit --cache-dir puts the
+    # CAS tier beside the journal: restarts keep their durable tier with
+    # zero extra flags. No journal and no --cache-dir = memory-only.
+    cache_dir = args.cache_dir
+    if args.result_cache and cache_dir is None and args.journal_dir:
+        cache_dir = os.path.join(args.journal_dir, "cache")
+    # --metrics-history with no DIR rides the journal partition; bare
+    # --metrics-history without a journal needs an explicit DIR.
+    history_dir = args.metrics_history
+    if history_dir == "auto":
+        if not args.journal_dir:
+            raise ValueError(
+                "--metrics-history needs a DIR (or --journal-dir, whose "
+                "partition hosts the default <journal-dir>/history)"
+            )
+        history_dir = os.path.join(args.journal_dir, "history")
+    if history_dir and args.sample_interval <= 0:
+        # The history ring is fed by the sampler thread; with the sampler
+        # disabled the ring would mount and then silently stay empty.
+        raise ValueError(
+            "--metrics-history is fed by the background sampler; "
+            f"--sample-interval must be > 0 (got {args.sample_interval})"
+        )
+    if args.history_bytes is not None and args.history_bytes < 4096:
+        raise ValueError(
+            f"--history-bytes must be >= 4096, got {args.history_bytes}"
+        )
+    if args.retry_budget < 0:
+        raise ValueError(
+            f"--retry-budget must be >= 0, got {args.retry_budget}"
+        )
+    scheduler_kwargs = {}
+    if args.retry_budget:
+        # The dispatch-retry token bucket: N tokens of capacity, refilled
+        # over a minute. 0 (default) = unlimited.
+        from gol_tpu_torch.resilience.retry import RetryBudget
+
+        scheduler_kwargs["retry_budget"] = RetryBudget(
+            capacity=args.retry_budget,
+            refill_per_s=args.retry_budget / 60.0,
+        )
+    if resolve_device().type == "cuda":
+        stencil_batch.load_kernels()
+    server = GolServer(
+        host=args.host,
+        port=args.port,
+        journal_dir=args.journal_dir,
+        max_queue_depth=args.max_queue_depth,
+        max_batch=args.max_batch,
+        flush_age=args.flush_age,
+        max_inflight=args.max_inflight,
+        pipeline_depth=args.pipeline_depth,
+        resident_ring=args.resident_ring,
+        slo_shed=args.slo_shed,
+        slo_latency_target=args.slo_latency_p99,
+        sample_interval=args.sample_interval,
+        result_cache=args.result_cache,
+        cache_dir=cache_dir,
+        cache_entries=args.cache_entries,
+        cache_payload=args.cache_payload,
+        cache_disk_bytes=args.cache_disk_bytes,
+        journal_segment_bytes=args.journal_segment_bytes,
+        journal_retain=args.journal_retain,
+        disk_reserve=args.disk_reserve,
+        history_dir=history_dir,
+        history_bytes=args.history_bytes,
+        **scheduler_kwargs,
+    )
+    stop = {"signaled": False}
+
+    def _on_signal(signum, frame):
+        # Second signal: exit hard (the journal still replays on restart).
+        if stop["signaled"]:
+            raise SystemExit(1)
+        stop["signaled"] = True
+        import threading
+
+        threading.Thread(
+            target=lambda: (server.shutdown(drain=True)), daemon=True
+        ).start()
+
+    signal.signal(signal.SIGTERM, _on_signal)
+    signal.signal(signal.SIGINT, _on_signal)
+    print(f"serving on {server.url}", flush=True)
+    if server.replayed:
+        print(f"replayed {server.replayed} unfinished job(s) from the journal",
+              flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    # A second signal raises SystemExit(1) in the main thread (the hard-exit
+    # path): it propagates, so supervisors see a non-zero status.
+    return 0
+
+
+def _gc_cmd(args) -> int:
+    """``gc``: CAS garbage collection — sweep orphans and evict
+    least-recently-used entries to a byte budget. DRY-RUN by default
+    (prints what would happen); --apply deletes. Eviction is always safe:
+    the CAS is a cache, the journal stays the source of truth."""
+    from gol_tpu_torch.cache import gc as cas_gc
+
+    if not os.path.isdir(args.dir):
+        raise ValueError(f"no such cache directory: {args.dir}")
+    if args.budget is not None and args.budget < 0:
+        raise ValueError(f"--budget must be >= 0, got {args.budget}")
+    report = cas_gc.collect(args.dir, args.budget, apply=args.apply)
+    verb = "removed" if args.apply else "would remove"
+    print(f"{args.dir}: {report.entries} entr(ies), "
+          f"{report.bytes_total} bytes"
+          + (f" (budget {report.budget})" if report.budget is not None
+             else ""))
+    print(f"  {verb} {len(report.orphans)} orphan(s) "
+          f"({report.orphan_bytes} bytes)")
+    for path in report.orphans:
+        print(f"    {path}")
+    verb = "evicted" if args.apply else "would evict"
+    print(f"  {verb} {len(report.evicted)} entr(ies) "
+          f"({report.evicted_bytes} bytes, LRU first)")
+    for fp in report.evicted:
+        print(f"    {fp}")
+    print(f"  after: {report.bytes_after} bytes"
+          + ("" if args.apply else " (dry run; pass --apply to delete)"))
+    return 0
+
+
+def _http_json(method: str, url: str, body: dict | None = None, timeout=30,
+               raw: bytes | None = None, content_type: str | None = None,
+               headers: dict | None = None):
+    """The ONE stdlib JSON client (``fleet/client.py``): HTTP errors come
+    back as (status, payload), connection trouble raises for the callers'
+    retry/timeout logic. ``raw``/``content_type`` send a pre-encoded
+    body (the packed wire submit); ``headers`` adds request headers (the
+    submit deadline stamp, obs/propagate.py)."""
+    from gol_tpu_torch.fleet import client as fleet_client
+
+    return fleet_client.http_json(method, url, body, timeout=timeout,
+                                  raw=raw, content_type=content_type,
+                                  headers=headers)
+
+
+def _http_exchange(method: str, url: str, timeout=30, accept=None):
+    """Byte-level GET for the packed result fetch: (status, content type,
+    body bytes) — the caller parses by the RESPONSE type, so an old
+    server answering JSON degrades transparently."""
+    from gol_tpu_torch.fleet import client as fleet_client
+
+    headers = {"Accept": accept} if accept else None
+    return fleet_client.http_exchange(method, url, timeout=timeout,
+                                      headers=headers)
+
+
+class _WireDowngrade(Exception):
+    """A packed submit answered 400/415: resend as text (retryable)."""
+
+
+class _WireCRCResend(Exception):
+    """A packed submit answered a CRC-mismatch 400: the frame was
+    corrupted in transit, not rejected — resend PACKED (bounded)."""
+
+
+def _connection_trouble(err: BaseException) -> bool:
+    """Connection-level trouble worth an in-call retry: refused, reset,
+    timed out, torn HTTP — anything the transport raised. HTTP statuses
+    never reach here (they return as values), so semantics stay with the
+    call sites."""
+    import urllib.error
+
+    return isinstance(err, (urllib.error.URLError, ConnectionError, OSError))
+
+
+def _submit_retry():
+    """The ONE retry stance for ``gol submit`` — a jittered exponential
+    policy over a shared token-bucket budget, replacing the three ad-hoc
+    loops that had grown here (the status poll, the result collect, and
+    the packed->text wire downgrade). The shared budget bounds the
+    client's total retry amplification: against a browned-out fleet the
+    bucket drains and every site degrades to one attempt per sweep,
+    surfacing the original errors instead of piling on. The per-target
+    no-contact cutoff in ``_collect_results`` is UNCHANGED — the policy
+    retries inside a sweep; the cutoff still decides when a target is
+    dead."""
+    from gol_tpu_torch.resilience.retry import RetryBudget, RetryPolicy
+
+    policy = RetryPolicy(attempts=3, base_delay=0.1, multiplier=2.0,
+                         max_delay=1.0, jitter=0.25)
+    budget = RetryBudget(capacity=16.0, refill_per_s=1.0)
+    return policy, budget
+
+
+class _ServerRing:
+    """The ``--servers A,B,C`` failover ring: every base is a router
+    REPLICA over one fleet (shared manifest — any replica can place,
+    forward, or look up any job), so idempotent GETs rotate freely on
+    connection trouble, while the job-creating POST rotates ONLY on
+    delivery-impossible failures (refused/DNS/unreachable: no byte
+    reached any queue). An ambiguous failure — reset or timeout AFTER
+    the bytes went out — never rotates: the first router may have
+    accepted and journaled the job, and a blind resubmit to a sibling
+    double-runs the board under two ids (the ambiguous-504 contract,
+    now applied across replicas). A plain ``--server`` invocation gets a
+    one-element ring, so every single-server path is pinned unchanged."""
+
+    def __init__(self, spec):
+        if isinstance(spec, str):
+            bases = [s.strip().rstrip("/") for s in spec.split(",")]
+        else:
+            bases = [s.rstrip("/") for s in spec]
+        self.bases = [b for b in bases if b]
+        if not self.bases:
+            raise ValueError("--servers needs at least one URL")
+        self._i = 0  # the preferred base: last one that answered
+
+    @property
+    def current(self) -> str:
+        return self.bases[self._i]
+
+    def prefer(self, base: str) -> None:
+        if base in self.bases:
+            self._i = self.bases.index(base)
+
+    def rotation(self) -> list:
+        """Every base, preferred first — the probe order for idempotent
+        reads."""
+        return self.bases[self._i:] + self.bases[:self._i]
+
+    def others(self, base: str) -> list:
+        """Failover candidates for a dead ``base``, in ring order after
+        it (empty for a one-element ring)."""
+        if len(self.bases) < 2:
+            return []
+        try:
+            i = self.bases.index(base)
+        except ValueError:
+            return list(self.bases)
+        return self.bases[i + 1:] + self.bases[:i]
+
+
+def _submit(args) -> int:
+    """``submit``: client for a running server (of either package).
+
+    Submits each input file as one job, then (by default) polls until every
+    job is terminal and writes each result next to its input
+    (``<input>.out`` or into --output-dir), printing the per-board
+    ``Generations:`` accounting the solo CLI prints. A pure HTTP client: it
+    needs no device. ``--shard-across`` (fanning boards over a fleet's
+    workers) is refused: the fleet is not ported."""
+    if args.shard_across:
+        raise ValueError(SHARD_ACROSS_REFUSAL)
+    variant = get_variant(args.variant)
+    width, height = atoi(args.width), atoi(args.height)
+    if width <= 0:
+        width = DEFAULT_WIDTH
+    if height <= 0:
+        height = DEFAULT_HEIGHT
+    ring = _ServerRing(getattr(args, "servers", None) or args.server)
+    base = ring.current
+    # --wire packed: boards travel as binary wire frames (io/wire.py, ~8x
+    # fewer bytes). Degradation is PER TARGET: a server that answers 415
+    # (or 400 — an old server's JSON parser rejecting the frame) gets ONE
+    # logged resend as text and every later submit to it goes text too —
+    # bounded per target by construction, so it bypasses the retry budget
+    # (format negotiation is free; brownout amplification is what the
+    # budget caps).
+    wire_default = getattr(args, "wire", "text")
+    wire_mode = {}  # per target; new targets default to the flag's mode
+    from gol_tpu_torch.obs import propagate as obs_propagate
+
+    policy, budget = _submit_retry()
+    ids = {}  # job id -> (input path, server base the job lives on)
+    for path in args.input_files:
+        target = base
+        wire_mode.setdefault(target, wire_default)
+        grid = text_grid.read_grid(path, width, height)
+        meta = {
+            "convention": variant.convention,
+            "gen_limit": args.gen_limit,
+            "priority": args.priority,
+        }
+        if args.deadline is not None:
+            meta["deadline_s"] = args.deadline
+        if args.no_cache:
+            # Per-job result-cache opt-out (Job.no_cache); servers without
+            # a cache ignore the field after type validation.
+            meta["no_cache"] = True
+        job_t0 = time.perf_counter()
+
+        def deadline_headers():
+            # --timeout: stamp the REMAINING X-Gol-Deadline budget at send
+            # time — a resend after backoff carries less than the first
+            # attempt did, exactly like a router hop. Old servers ignore
+            # the header; no --timeout sends no header (pinned).
+            if args.timeout is None:
+                return None
+            remaining = args.timeout - (time.perf_counter() - job_t0)
+            return {obs_propagate.DEADLINE_HEADER:
+                    obs_propagate.encode_deadline(remaining)}
+
+        crc_resends = {"n": 0}  # per board: transit-corrupted frames
+
+        def post_once(target):
+            if wire_mode[target] == "packed":
+                from gol_tpu_torch.io import wire
+
+                status, payload = _http_json(
+                    "POST", f"{target}/jobs",
+                    raw=wire.encode_frame(meta, grid=grid),
+                    content_type=wire.CONTENT_TYPE,
+                    headers=deadline_headers(),
+                )
+                if status not in (400, 415):
+                    return status, payload
+                if status == 400 and wire.is_crc_error(payload):
+                    # The server's CRC gate caught a frame corrupted in
+                    # transit (a 400 created no job: resending is
+                    # unconditionally safe) — that is the wire format
+                    # WORKING, not the server rejecting it. Downgrading
+                    # here would swap detected corruption for the text
+                    # lane's undetectable kind, on exactly the link that
+                    # corrupts. Resend packed, twice at most; a hop
+                    # corrupting every frame surfaces the 400 loudly.
+                    if crc_resends["n"] < 2:
+                        crc_resends["n"] += 1
+                        print(
+                            f"gol submit: {target} reports a frame CRC "
+                            "mismatch (corrupted in transit); resending "
+                            f"packed ({crc_resends['n']}/2)",
+                            file=sys.stderr,
+                        )
+                        raise _WireCRCResend(status)
+                    return status, payload
+                print(
+                    f"gol submit: {target} does not accept the packed "
+                    f"wire format (HTTP {status}); retrying as text",
+                    file=sys.stderr,
+                )
+                wire_mode[target] = "text"
+                raise _WireDowngrade(status)
+            body = {"width": width, "height": height,
+                    "cells": text_grid.encode(grid).decode("ascii"),
+                    **meta}
+            return _http_json("POST", f"{target}/jobs", body,
+                              headers=deadline_headers())
+
+        def submit_to(target):
+            # The job-creating POST is NOT idempotent: only failures that
+            # guarantee nothing reached the server (refused, DNS,
+            # unreachable) are
+            # auto-retried. Anything ambiguous — a reset or timeout after
+            # the bytes went out — surfaces instead of re-POSTing, because
+            # the server may have accepted and journaled the job and a
+            # blind resend would run the board twice under two ids.
+            from gol_tpu_torch.resilience.retry import delivery_impossible
+
+            while True:
+                try:
+                    return policy.call(
+                        lambda: post_once(target),
+                        retryable=delivery_impossible,
+                        budget=budget,
+                    )
+                except _WireDowngrade:
+                    # Format negotiation, not a transient: post_once
+                    # already flipped this target to text, so the resend
+                    # is deterministic and happens AT MOST ONCE per
+                    # target — it spends no retry-budget tokens (a fleet
+                    # of old servers must not eat the brownout budget,
+                    # and an empty bucket must not strand the downgrade).
+                    continue
+                except _WireCRCResend:
+                    # A transit-corrupted frame, bounded at 2 per board
+                    # inside post_once; same budget exemption (nothing
+                    # reached the queue — a 400 created no job).
+                    continue
+
+        def submit_failover(target):
+            # --servers: a dead ROUTER rotates the POST to the next
+            # replica — but only on delivery-impossible failures, where
+            # no byte reached any queue (see _ServerRing). The rotation
+            # applies to ring bases only.
+            from gol_tpu_torch.resilience.retry import delivery_impossible
+
+            tried = {target}
+            while True:
+                try:
+                    return target, submit_to(target)
+                except OSError as err:
+                    if target not in ring.bases \
+                            or not delivery_impossible(err):
+                        raise
+                    nxt = next((b for b in ring.others(target)
+                                if b not in tried), None)
+                    if nxt is None:
+                        raise
+                    print(f"gol submit: router {target} unreachable "
+                          f"({type(err).__name__}); failing over to {nxt}",
+                          file=sys.stderr)
+                    tried.add(nxt)
+                    wire_mode.setdefault(nxt, wire_default)
+                    target = nxt
+                    ring.prefer(nxt)
+
+        try:
+            target, (status, payload) = submit_failover(target)
+            if status == 429:
+                # A shed burst: retry ONCE (against a fleet the JAX
+                # client re-fetches membership first; a single server is
+                # its own membership) before giving up.
+                retry = base
+                wire_mode.setdefault(retry, wire_default)
+                print(f"gol submit: {target} shed the job (HTTP 429); "
+                      f"refreshed membership, retrying on {retry}",
+                      file=sys.stderr)
+                target = retry
+                target, (status, payload) = submit_failover(target)
+        except OSError as err:
+            # Exchange trouble the policy refused to retry: either
+            # no-contact retries ran out, or — the case that matters —
+            # the failure was ambiguous and a resend could double-run
+            # the board. Name which, so the operator knows whether a
+            # resubmit is safe.
+            from gol_tpu_torch.resilience.retry import delivery_impossible
+
+            fate = ("never delivered — safe to resubmit"
+                    if delivery_impossible(err)
+                    else "outcome unknown — the job may have been "
+                         "accepted there; audit before resubmitting")
+            print(f"gol submit: {path}: {target} exchange failed "
+                  f"({type(err).__name__}: {err}); {fate}",
+                  file=sys.stderr)
+            return 1
+        if status != 202:
+            # A router's ambiguous 504 names the worker whose outcome is
+            # unknown (and its breaker state): surface both, so the
+            # operator knows WHICH partition to audit before resubmitting.
+            note = ""
+            if isinstance(payload, dict) and payload.get("worker"):
+                breaker = payload.get("breaker")
+                note = (f" [outcome unknown at worker {payload['worker']}"
+                        + (f", breaker {breaker}" if breaker else "") + "]")
+            detail = (payload.get("error", payload)
+                      if isinstance(payload, dict) else payload)
+            print(f"gol submit: {path}: HTTP {status}: {detail}{note}",
+                  file=sys.stderr)
+            return 1
+        if not isinstance(payload, dict) or "id" not in payload:
+            # A 202 whose ack BODY was corrupted in transit (bit-flipped
+            # hop garbling the JSON): the job WAS accepted — the status
+            # line survived — but there is no id to poll, and a resend
+            # would run the board twice. Same loud-abandon contract as
+            # the ambiguous 504.
+            print(
+                f"gol submit: {path}: {target} accepted the job but the "
+                "ack body arrived corrupted; cannot track it — audit the "
+                "server's journal before resubmitting",
+                file=sys.stderr,
+            )
+            return 1
+        ids[payload["id"]] = (path, target)
+        print(f"{path}\t{payload['id']}")
+    if not args.wait:
+        return 0
+
+    outdir = args.output_dir
+    if outdir:
+        os.makedirs(outdir, exist_ok=True)
+    return _collect_results(dict(ids), args, outdir,
+                            retry=(policy, budget), ring=ring)
+
+
+def _collect_results(pending: dict, args, outdir, retry=None,
+                     ring=None) -> int:
+    """Poll every submitted job to a terminal state and write its result.
+
+    ``pending`` maps job id -> (input path, server base URL) — with
+    ``--servers`` the bases differ per job, so contact tracking is PER
+    TARGET: one dead server abandons only ITS jobs after
+    ``--server-timeout`` of no contact; jobs on healthy targets keep
+    completing. Connection errors and 5xx answers are both
+    transient-with-timeout — the server-restart/worker-respawn windows
+    the journal-replay story is built for.
+
+    ``retry`` is the submit loop's shared (RetryPolicy, RetryBudget) pair
+    (``_submit_retry``): transient connection trouble retries INSIDE a
+    sweep under the budget before it counts against the per-target
+    no-contact cutoff — whose semantics are deliberately unchanged."""
+    import time as _time
+    import urllib.error
+
+    policy, budget = retry if retry is not None else _submit_retry()
+    rc = 0
+    now = time.perf_counter()
+    last_contact = {base: now for _, base in pending.values()}
+    bad_body: dict = {}  # job_id -> sweeps whose 200 body was unusable
+    while pending:
+        _time.sleep(args.poll_interval)
+        stale_this_sweep = set()  # targets already found down this sweep
+        for job_id in list(pending):
+            entry = pending.get(job_id)
+            if entry is None:
+                continue  # removed mid-sweep by target_down on its base
+            path, job_base = entry
+            if job_base in stale_this_sweep:
+                continue
+
+            def target_down(detail):
+                stale_this_sweep.add(job_base)
+                if (time.perf_counter() - last_contact[job_base]
+                        <= args.server_timeout):
+                    return False  # transient so far; retry next sweep
+                victims = [j for j, (_, b) in pending.items()
+                           if b == job_base]
+                print(
+                    f"gol submit: no contact with {job_base} for "
+                    f"{args.server_timeout:.0f}s ({detail}); giving up on "
+                    f"{len(victims)} job(s) there",
+                    file=sys.stderr,
+                )
+                for j in victims:
+                    del pending[j]
+                return True
+
+            def bad_body_strike(detail):
+                """Bounded tolerance for answers whose BODY is unusable —
+                a bit-flipped hop garbling status JSON, a result grid, or
+                a packed frame's CRC. Transit corruption heals on the next
+                sweep's refetch; a hop corrupting EVERY exchange must not
+                poll forever (the answers keep coming, so the no-contact
+                cutoff above never fires for this job). True once the
+                3-strike bound is hit: the job is abandoned loudly."""
+                bad_body[job_id] = bad_body.get(job_id, 0) + 1
+                if bad_body[job_id] < 3:
+                    return False
+                print(
+                    f"gol submit: {path}: unusable response body across "
+                    f"{bad_body[job_id]} sweeps ({detail}); giving up on "
+                    f"job {job_id}", file=sys.stderr,
+                )
+                pending.pop(job_id, None)
+                return True
+
+            try:
+                status, payload = policy.call(
+                    lambda: _http_json("GET", f"{job_base}/jobs/{job_id}"),
+                    retryable=_connection_trouble, budget=budget,
+                )
+            except (urllib.error.URLError, ConnectionError, OSError) as e:
+                # --servers: a status GET is idempotent, and any replica
+                # router can look up any job — re-home this job to the
+                # next ring base that is not itself past the no-contact
+                # cutoff. Only ring bases re-home; with every router
+                # dead, each base ages past the cutoff and
+                # the per-target give-up below fires exactly as before.
+                moved = None
+                if ring is not None and job_base in ring.bases:
+                    now2 = time.perf_counter()
+                    for cand in ring.others(job_base):
+                        last_contact.setdefault(cand, now2)
+                        if now2 - last_contact[cand] <= args.server_timeout:
+                            moved = cand
+                            break
+                if moved is not None:
+                    print(f"gol submit: router {job_base} unreachable "
+                          f"({type(e).__name__}); polling job {job_id} "
+                          f"via {moved}", file=sys.stderr)
+                    pending[job_id] = (path, moved)
+                    continue
+                if target_down(e):
+                    rc = 1
+                continue
+            if status >= 500:
+                # A fleet router whose worker is mid-respawn answers 503
+                # while the partition replays; same treatment as a
+                # connection error. (Contact is only refreshed by real
+                # answers, so a permanently-5xxing target times out.)
+                if target_down(f"HTTP {status}"):
+                    rc = 1
+                continue
+            last_contact[job_base] = time.perf_counter()
+            if status != 200:
+                print(f"gol submit: lost job {job_id}: HTTP {status}",
+                      file=sys.stderr)
+                del pending[job_id]
+                rc = 1
+                continue
+            state = (payload.get("state")
+                     if isinstance(payload, dict) else None)
+            if state is None:
+                # Parsed, but not as a job answer (a flip that left valid
+                # JSON): same bounded-refetch treatment as a parse error.
+                if bad_body_strike("no job state in the answer"):
+                    rc = 1
+                continue
+            if state in ("queued", "scheduled", "running"):
+                # A usable answer clears the strikes: the bound is on
+                # CONSECUTIVE corrupt sweeps, not lifetime total — a long
+                # job under intermittent, self-healing transit flips must
+                # never strike out. (A done job's result-fetch strikes
+                # stay consecutive by construction: any good fetch
+                # completes the job.)
+                bad_body.pop(job_id, None)
+                continue
+            del pending[job_id]
+            if state != "done":
+                print(f"gol submit: {path}: job {state}: "
+                      f"{payload.get('error', '')}", file=sys.stderr)
+                rc = 1
+                continue
+            try:
+                # Body corruption (ValueError: a packed frame's CRC gate
+                # — WireError subclasses it — or garbled JSON/grid text)
+                # is retryable HERE and nowhere else: the result on the
+                # worker is intact, so a refetch is the fix (the gate
+                # turning a flipped bit into a retry instead of a wrong
+                # board).
+                status, result, grid = policy.call(
+                    lambda: _fetch_result(
+                        job_base, job_id, getattr(args, "wire", "text")
+                    ),
+                    retryable=lambda e: (_connection_trouble(e)
+                                         or isinstance(e, ValueError)),
+                    budget=budget,
+                )
+            except (urllib.error.URLError, ConnectionError, OSError,
+                    ValueError, KeyError) as e:
+                if isinstance(e, (ValueError, KeyError)):
+                    if bad_body_strike(repr(e)):
+                        rc = 1
+                        continue
+                pending[job_id] = (path, job_base)  # refetch next sweep
+                continue
+            if status >= 500:
+                pending[job_id] = (path, job_base)  # refetch next sweep
+                continue
+            if status != 200:
+                print(f"gol submit: {path}: result fetch HTTP {status}",
+                      file=sys.stderr)
+                rc = 1
+                continue
+            if (not isinstance(result, dict) or "generations" not in result
+                    or "exit_reason" not in result):
+                # Valid JSON and a decodable grid, but a flip ate a meta
+                # key: don't trust the body enough to write it out — the
+                # same bounded refetch as any other unusable answer
+                # (previously an uncaught KeyError at the print below
+                # abandoned every pending job).
+                if bad_body_strike("result meta incomplete"):
+                    rc = 1
+                    continue
+                pending[job_id] = (path, job_base)
+                continue
+            out_path = (
+                os.path.join(outdir, os.path.basename(path) + ".out")
+                if outdir
+                else path + ".out"
+            )
+            text_grid.write_grid(out_path, grid)
+            # The cache marker: present only when the server answered from
+            # its result cache (or coalesced the run) — old servers' result
+            # payloads lack the key and the line degrades to nothing,
+            # exactly like the timeline columns after it.
+            cached = result.get("cached")
+            marker = f"\tcached:{cached}" if cached else ""
+            print(f"{path}\tGenerations:\t{result['generations']}\t"
+                  f"{result['exit_reason']}\t-> {out_path}{marker}"
+                  f"{_submit_latency_note(job_base, job_id)}")
+    return rc
+
+
+def _fetch_result(base: str, job_id: str, wire_pref: str):
+    """GET /result/<id> -> (status, result meta dict, grid or None).
+
+    With ``wire_pref == "packed"`` the fetch sends ``Accept:
+    application/x-gol-packed`` and parses by the RESPONSE content type —
+    a new server answers a binary frame (~8x fewer bytes on the wire), an
+    old server ignores the header and answers JSON, byte-identical
+    either way (the decoded grid is the same board; test-pinned)."""
+    if wire_pref == "packed":
+        from gol_tpu_torch.io import wire
+
+        status, ctype, body = _http_exchange(
+            "GET", f"{base}/result/{job_id}", accept=wire.CONTENT_TYPE
+        )
+        if status == 200 and wire.is_packed(ctype):
+            frame = wire.decode_frame(body)
+            return status, dict(frame.meta), frame.grid()
+        try:
+            result = json.loads(body.decode("utf-8"))
+        except (ValueError, UnicodeDecodeError):
+            result = {"error": body[:200].decode("utf-8", "replace")}
+    else:
+        status, result = _http_json("GET", f"{base}/result/{job_id}")
+    grid = None
+    if status == 200:
+        grid = text_grid.decode(
+            result["grid"].encode("ascii"), result["width"], result["height"]
+        )
+    return status, result, grid
+
+
+def _submit_latency_note(base: str, job_id: str) -> str:
+    """Where the client's time went, from the job's timeline (the server's
+    per-job milestone decomposition) — appended to the per-board result
+    line so the answer arrives without anyone curling a debug endpoint.
+    Empty when the server predates timelines or the fetch fails: the
+    result line must never fail because the ops surface did."""
+    import urllib.error
+
+    try:
+        status, tl = _http_json("GET", f"{base}/jobs/{job_id}/timeline",
+                                timeout=5)
+    except (urllib.error.URLError, ConnectionError, OSError):
+        return ""
+    if status != 200 or tl.get("total_seconds") is None:
+        return ""
+    queue_ms = (tl.get("segments") or {}).get("queue_wait", 0.0) * 1e3
+    return (f"\tqueue {queue_ms:.1f} ms"
+            f"\ttotal {tl['total_seconds'] * 1e3:.1f} ms")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="gol",
@@ -1114,15 +1920,256 @@ def build_parser() -> argparse.ArgumentParser:
     bat.add_argument("--output-dir", default=None,
                      help="write results here (default: next to each input)")
     bat.set_defaults(func=_batch)
+
+    srv = sub.add_parser(
+        "serve",
+        help="run the batched multi-tenant simulation service (HTTP JSON API)",
+    )
+    srv.add_argument("--host", default="127.0.0.1")
+    srv.add_argument("--port", type=int, default=8000,
+                     help="listen port (0 = pick a free one; printed on boot)")
+    srv.add_argument(
+        "--journal-dir", default=None, metavar="D",
+        help="crash-safe job journal directory; a restarted server replays "
+        "unfinished jobs from it and keeps serving finished results "
+        "(default: no journal — jobs do not survive restarts)",
+    )
+    srv.add_argument("--max-queue-depth", type=int, default=1024,
+                     help="admission cap: past this, POST /jobs returns 429")
+    srv.add_argument("--max-batch", type=int, default=64,
+                     help="boards per dispatched batch (<= 64)")
+    srv.add_argument(
+        "--flush-age", type=float, default=0.05, metavar="S",
+        help="dispatch a partial bucket once its oldest job has waited S "
+        "seconds (the latency/occupancy trade)",
+    )
+    srv.add_argument("--max-inflight", type=int, default=1,
+                     help="concurrently running batches (worker threads)")
+    srv.add_argument(
+        "--pipeline-depth", type=int, default=1,
+        help="pipelined dispatch window: at N >= 2 the single synchronous "
+        "worker becomes a dispatcher/completer pair with N batches in "
+        "flight — the device computes batch k while the host stages k+1 "
+        "and journals k-1 (try 2). Default 1 keeps the classic worker; "
+        "exactly-once journal semantics, admission, drain, and retry are "
+        "identical at every depth",
+    )
+    srv.add_argument(
+        "--resident-ring", type=int, default=0, metavar="R",
+        help="device-resident mega-batch lanes (the JAX package's): not "
+        "ported yet, R >= 2 is refused; 0 (default) keeps the per-batch "
+        "lanes",
+    )
+    srv.add_argument(
+        "--result-cache", action="store_true",
+        help="serve repeat boards from the content-addressed result cache "
+        "(gol_tpu_torch/cache): identical submissions complete at admission in "
+        "O(1), identical in-flight submissions run the engine once. Hits "
+        "are journaled as normal DONE records (exactly-once unchanged); "
+        "per-job no_cache opts out. With --journal-dir the on-disk CAS "
+        "tier defaults to <journal-dir>/cache",
+    )
+    srv.add_argument(
+        "--cache-dir", default=None, metavar="DIR",
+        help="on-disk CAS tier for the result cache (implies "
+        "--result-cache): content-addressed CRC-gated entries that "
+        "survive restarts; corrupt entries evict loudly and re-run",
+    )
+    srv.add_argument(
+        "--cache-entries", type=int, default=1024, metavar="N",
+        help="in-process result-cache LRU bound (default 1024 entries)",
+    )
+    srv.add_argument(
+        "--cache-payload", choices=("packed", "text", "ts"), default="packed",
+        help="CAS payload encoding: 'packed' (default — the binary wire "
+        "frame, io/wire.py, ~8x smaller than text at any width; packed "
+        "hits serve without a decode/re-encode round trip) or 'text' "
+        "(self-contained meta JSON); 'ts' (TensorStore zarr) is not "
+        "ported and is refused",
+    )
+    srv.add_argument(
+        "--cache-disk-bytes", type=int, default=None, metavar="N",
+        help="byte budget for the on-disk CAS tier: past it the cache "
+        "garbage-collects itself, least-recently-used entries first "
+        "(gol_tpu_torch/cache/gc.py — eviction is always safe, the journal "
+        "stays the source of truth). Default: unbounded; `gol gc` runs "
+        "the same pass offline",
+    )
+    srv.add_argument(
+        "--journal-segment-bytes", type=int, default=None, metavar="N",
+        help="rotate the job journal into sealed segments past N bytes "
+        "(default 8 MiB); sealed segments compact into a CRC-stamped "
+        "snapshot on idle sampler ticks, bounding the durable footprint "
+        "(gol_tpu_torch/serve/compaction.py; `gol compact` runs it offline). "
+        "0 disables rotation (the unbounded single-file journal)",
+    )
+    srv.add_argument(
+        "--journal-retain", type=int, default=None, metavar="N",
+        help="result-retention window: compaction keeps only the newest N "
+        "terminal records in the snapshot — results older than the window "
+        "answer 404 after a restart. Default: retain every result "
+        "(replayed state identical to the unbounded log)",
+    )
+    srv.add_argument(
+        "--disk-reserve", type=int, default=0, metavar="N",
+        help="disk-pressure watchdog (resilience/diskguard.py): when free "
+        "bytes on the journal partition fall below 4N the CAS stops "
+        "taking writes, below 2N checkpoints shed, below N POST /jobs "
+        "answers 507 (naming the partition and free bytes) while "
+        "in-flight jobs still complete and journal; recovery is "
+        "automatic with 25%% hysteresis. 0 (default) disables the guard",
+    )
+    srv.add_argument(
+        "--warm-plans", action="store_true",
+        help="pre-build the bucket runners of every serve shape `gol tune` "
+        "recorded: not ported (the port has no tuner), refused",
+    )
+    srv.add_argument(
+        "--compile-cache", default=None, metavar="DIR",
+        help="build the kernels in DIR (and load them from it): restarted "
+        "servers skip the nvcc build",
+    )
+    srv.add_argument(
+        "--trace", default=None, metavar="DIR",
+        help="span tracing + flight recorder: per-batch spans (one per "
+        "dispatched bucket batch) export to DIR as Chrome trace JSON on "
+        "shutdown; GET /debug/trace snapshots them live; crashes dump "
+        "flight-*.jsonl; SIGUSR1 dumps without stopping the server",
+    )
+    srv.add_argument(
+        "--slo-shed", action="store_true",
+        help="shed load when an SLO burn is critical: POST /jobs answers "
+        "429 + Retry-After until the burn clears. Default is observe-only "
+        "(burns log and export at GET /slo; admission is untouched)",
+    )
+    srv.add_argument(
+        "--slo-latency-p99", type=float, default=60.0, metavar="S",
+        help="the per-priority-class p99 end-to-end latency objective in "
+        "seconds (default 60); error-rate (1%%) and queue-saturation (80%%) "
+        "objectives are built in — see gol_tpu_torch/obs/slo.py",
+    )
+    srv.add_argument(
+        "--sample-interval", type=float, default=1.0, metavar="S",
+        help="seconds between SLO/dispatch-gap sampler ticks (the "
+        "gol-serve-sampler thread); <= 0 disables the background sampler "
+        "(GET /slo then evaluates on demand)",
+    )
+    srv.add_argument(
+        "--metrics-history", nargs="?", const="auto", default=None,
+        metavar="DIR",
+        help="durable metrics history (gol_tpu_torch/obs/history.py): every "
+        "sampler tick appends the serving metrics snapshot to a "
+        "size-capped append-only JSONL ring in DIR, surviving restarts "
+        "(render with `gol history-report DIR`). With no DIR the ring lands at "
+        "<journal-dir>/history. Default: off (no per-tick cost)",
+    )
+    srv.add_argument(
+        "--history-bytes", type=int, default=None, metavar="N",
+        help="metrics-history ring cap in bytes (default 16 MiB); oldest "
+        "segments compact away past it",
+    )
+    srv.add_argument(
+        "--retry-budget", type=float, default=0.0, metavar="N",
+        help="token-bucket budget on batch dispatch RETRIES (N tokens, "
+        "refilled over a minute): under a brownout the scheduler degrades "
+        "to first-attempt-only dispatch — surfacing the original error — "
+        "instead of amplifying the overload with retry traffic. 0 "
+        "(default) = unlimited, the pre-budget behavior",
+    )
+    srv.set_defaults(func=_serve)
+
+    gcp = sub.add_parser(
+        "gc",
+        help="CAS garbage collection: sweep orphans + evict LRU entries "
+        "to a byte budget (dry-run by default; --apply deletes)",
+    )
+    gcp.add_argument("dir", help="cache (CAS) directory")
+    gcp.add_argument(
+        "--budget", type=int, default=None, metavar="BYTES",
+        help="target byte budget (default: sweep garbage only)",
+    )
+    gcp.add_argument("--apply", action="store_true",
+                     help="actually delete (default is a dry-run report)")
+    gcp.set_defaults(func=_gc_cmd)
+
+    sbm = sub.add_parser(
+        "submit", help="submit jobs to a running gol serve and fetch results"
+    )
+    sbm.add_argument("width")
+    sbm.add_argument("height")
+    sbm.add_argument("input_files", nargs="+")
+    sbm.add_argument("--server", default="http://127.0.0.1:8000")
+    sbm.add_argument(
+        "--servers", default=None, metavar="A,B,C",
+        help="comma-separated router REPLICA URLs over one fleet "
+        "(overrides --server): job-creating POSTs fail over ONLY on "
+        "delivery-impossible errors (refused/DNS/unreachable — nothing "
+        "reached any queue); ambiguous failures surface for audit, never "
+        "blind-resubmit. Status/result GETs rotate freely",
+    )
+    sbm.add_argument(
+        "--variant", default="tpu", choices=sorted(VARIANTS),
+        help="reference program whose loop accounting the jobs use",
+    )
+    sbm.add_argument("--gen-limit", type=int, default=GameConfig().gen_limit)
+    sbm.add_argument("--priority", type=int, default=0)
+    sbm.add_argument("--deadline", type=float, default=None, metavar="S",
+                     help="dispatch-ordering deadline, seconds from acceptance")
+    sbm.add_argument(
+        "--timeout", type=float, default=None, metavar="S",
+        help="end-to-end latency BUDGET per job, propagated as the "
+        "X-Gol-Deadline header and decremented per hop: the router stops "
+        "forwarding, the worker refuses admission, and the scheduler "
+        "skips dispatch once the budget is spent — each answering 504 "
+        "(with the job's timeline attached at the dispatch gate) instead "
+        "of burning capacity on an answer nobody is waiting for. Old "
+        "servers ignore the header (behavior unchanged). Unlike "
+        "--deadline, which only ORDERS dispatch, --timeout abandons work",
+    )
+    sbm.add_argument("--no-wait", dest="wait", action="store_false",
+                     help="submit and print job ids without polling")
+    sbm.add_argument(
+        "--no-cache", action="store_true",
+        help="opt these submissions out of the server's result cache "
+        "(always a fresh engine run); result lines from cache-served "
+        "repeats carry a 'cached:<tier>' marker otherwise",
+    )
+    sbm.add_argument(
+        "--wire", choices=("text", "packed"), default="text",
+        help="wire format for boards (io/wire.py): 'packed' submits binary "
+        "frames (~8x fewer bytes than text) and fetches results with "
+        "Accept: application/x-gol-packed. Degrades gracefully against "
+        "old servers: a 415/400 submit answer retries as text (once, "
+        "logged, per target), and JSON result answers parse as always",
+    )
+    sbm.add_argument("--poll-interval", type=float, default=0.2)
+    sbm.add_argument(
+        "--server-timeout", type=float, default=60.0, metavar="S",
+        help="give up after S seconds without server contact while polling "
+        "(transient connection errors — e.g. a server restart mid-replay — "
+        "are retried until then)",
+    )
+    sbm.add_argument("--output-dir", default=None,
+                     help="write results here (default: next to each input)")
+    sbm.add_argument(
+        "--shard-across", action="store_true",
+        help="fan the boards over a fleet router's workers (the JAX "
+        "package's `gol fleet`): not ported, refused",
+    )
+    sbm.add_argument(
+        "--shard-refresh", type=float, default=5.0, metavar="S",
+        help="seconds between --shard-across membership re-fetches "
+        "(default 5; --shard-across is refused)",
+    )
+    sbm.set_defaults(func=_submit)
     return parser
 
 
 # The JAX CLI's other subcommands. Until one is ported its name is refused,
 # not read as a width by `run`.
-NOT_PORTED = ("serve", "fleet", "router", "submit", "tune", "fleet-trace",
-              "top", "gc")
+NOT_PORTED = ("fleet", "router", "tune", "fleet-trace", "top")
 SUBCOMMANDS = ("run", "generate", "show", "trace-report", "history-report",
-               "slo-report", "compact", "batch")
+               "slo-report", "compact", "batch", "serve", "submit", "gc")
 
 
 def main(argv: list[str] | None = None) -> int:

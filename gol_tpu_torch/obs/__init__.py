@@ -13,9 +13,11 @@
 - ``obs.history``: the durable metrics-history ring and ``gol
   history-report``'s rendering (copied);
 - ``obs.slo``: service-level objectives and ``gol slo-report``'s
-  rendering (copied).
+  rendering (copied);
+- ``obs.sampler``: the server's background SLO and dispatch-gap ticks,
+  ``obs.timeline``: a job's milestones and segments, ``obs.propagate``:
+  the trace and deadline headers (copied).
 
-Not ported yet, as they only read or feed a live server or fleet: the
-sampler, timeline, propagate, top (``gol top``) and fleettrace (``gol
-fleet-trace``).
+Not ported yet, as they only read a live fleet: top (``gol top``) and
+fleettrace (``gol fleet-trace``).
 """

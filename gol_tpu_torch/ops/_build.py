@@ -16,11 +16,11 @@ registers, shared memory and spills; the report is kept beside the library
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PACKAGE = Path(__file__).resolve().parent.parent
@@ -32,6 +32,11 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 CC_FLAGS = ("-O3", "-shared", "-fPIC")
+# Serialises the first build and load of a library across threads (the
+# server's worker pools launch from several), so two first calls never
+# both compile.
+_LOAD_LOCK = threading.Lock()
+_LOADED: dict = {}
 
 
 def _nvcc() -> str:
@@ -88,7 +93,10 @@ def _compile(source: Path, flags: tuple[str, ...], compiler) -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
+    # pid and thread id: unique to one thread of one process, so processes
+    # sharing a --compile-cache directory never write one staging file.
+    tmp = lib.with_name(
+        f".{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [compiler(), *flags, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -133,15 +141,27 @@ def load(name: str, bind=None) -> ctypes.CDLL:
     """The built CUDA library of ``csrc/<name>.cu``, loaded once per process
     and build directory; ``bind(lib)`` declares its C entries at the load.
     The kernel wrappers call it at every launch, so a hit is one lookup."""
-    return _loaded(BUILD_DIR, name, bind)
+    return _load(BUILD_DIR, name, bind)
 
 
 def load_c(source: Path, bind=None) -> ctypes.CDLL:
     """A host C source built with ``cc``, loaded as ``load`` loads."""
-    return _loaded(BUILD_DIR, source, bind)
+    return _load(BUILD_DIR, source, bind)
 
 
-@functools.lru_cache(maxsize=None)
+def _load(build_dir: Path, what, bind) -> ctypes.CDLL:
+    """A hit is one cache lookup; a miss takes ``_LOAD_LOCK``, so a second
+    thread asking for the same library waits and gets the same ``CDLL``."""
+    key = (build_dir, what, bind)
+    lib = _LOADED.get(key)
+    if lib is None:
+        with _LOAD_LOCK:
+            lib = _LOADED.get(key)
+            if lib is None:
+                lib = _LOADED[key] = _loaded(build_dir, what, bind)
+    return lib
+
+
 def _loaded(build_dir: Path, what, bind) -> ctypes.CDLL:
     """``what`` is a CUDA source's name or a C source's path. ``build_dir``
     (``BUILD_DIR`` at the call) keys the cache: a library built into

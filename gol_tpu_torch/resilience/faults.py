@@ -2,9 +2,8 @@
 
 The port's copy of ``gol_tpu/resilience/faults.py``: the same ``GOL_FAULTS``
 / ``--fault-plan`` keys, errors and probes. The probes whose call sites
-the port does not have yet (TensorStore shard writes and opens, the result
-cache's GC) are left out until those modules are ported; their keys still
-parse, so one spec drives both packages.
+the port does not have (TensorStore shard writes and opens) are left out;
+their keys still parse, so one spec drives both packages.
 
 The crash-safety claims in ``resilience/checkpoint.py`` (a crash never leaves
 the checkpoint dir without a readable prior state; auto-resume reproduces the
@@ -308,6 +307,18 @@ def on_compaction(stage: str) -> None:
     if plan.kill_during_compaction == stage:
         plan._killed = True
         _crash(f"journal compaction ({stage} boundary)")
+
+
+def on_cas_evict(fp: str) -> None:
+    """Probed by the CAS garbage collector between an evicted entry's meta
+    unlink and its payload unlink — the orphan-sidecar window."""
+    plan = _active
+    if plan is None or plan._killed or plan.kill_during_cas_gc is None:
+        return
+    plan._cas_evicts += 1
+    if plan._cas_evicts == plan.kill_during_cas_gc:
+        plan._killed = True
+        _crash(f"CAS GC evict #{plan._cas_evicts} ({fp})")
 
 
 def on_checkpoint_prune(path: str) -> None:

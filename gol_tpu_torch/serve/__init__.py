@@ -1,7 +1,7 @@
-"""The serving stack's offline half: the job model, its journal and the
-padding-bucket batcher.
+"""The serving stack: the job model, its journal, the padding-bucket
+batcher, the scheduler and the HTTP server.
 
-The port of ``gol_tpu/serve/`` so far:
+The port of ``gol_tpu/serve/``:
 
 - ``jobs``       — the ``Job`` record, its QUEUED -> ... -> DONE state
                    machine, and the crash-safe append-only journal (the
@@ -9,10 +9,18 @@ The port of ``gol_tpu/serve/`` so far:
 - ``compaction`` — journal segmentation and snapshot compaction (the
                    ``compact`` subcommand);
 - ``batcher``    — groups compatible jobs into padding buckets and drives
-                   the batched engine (``engine.simulate_batch``; the
-                   ``batch`` subcommand).
+                   the batched engine (``engine.simulate_batch``, on the
+                   batched kernels B1 and B2; the ``batch`` subcommand);
+- ``metrics``    — the serving registry (``gol_serve_*``), byte-stable in
+                   Prometheus text;
+- ``scheduler``  — admission, flush by size/age/deadline/drain, dispatch
+                   order, cancel, the result cache's consult and in-flight
+                   coalescing, per-batch retry, worker pools and the
+                   pipelined dispatcher/completer pair;
+- ``server``     — the stdlib HTTP API over the scheduler (the ``serve``
+                   subcommand; ``submit`` is its client).
 
-The scheduler, the HTTP server, the resident ring and the metrics are not
-ported yet (ROADMAP.md Queue 1 item 4). ``jobs`` and ``compaction`` are
+The resident ring (``gol_tpu/serve/resident.py``) is not ported yet
+(ROADMAP.md Queue 1). ``jobs``, ``compaction`` and ``metrics`` are
 numpy/stdlib-only; torch comes in with ``batcher``.
 """

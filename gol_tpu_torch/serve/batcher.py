@@ -34,7 +34,7 @@ import torch
 from gol_tpu_torch import engine, platform_env
 from gol_tpu_torch.obs import trace as obs_trace
 from gol_tpu_torch.ops import packed_math, stencil_batch
-from gol_tpu_torch.serve.jobs import Job, JobResult
+from gol_tpu_torch.serve.jobs import SPARSE_REFUSAL, Job, JobResult
 
 # Board extents round up to multiples of this (also the packed-word width, so
 # every exact-fit bucket width packs).
@@ -48,9 +48,6 @@ MAX_BATCH = BATCH_SIZES[-1]
 # The sparse-lane bucket kernel tag: jobs submitted as RLE patterns over
 # giant universes. Refused until the sparse lane is ported.
 SPARSE_KERNEL = "sparse"
-_SPARSE_REFUSAL = ("sparse (RLE) jobs are not ported yet (ROADMAP.md Queue 1 "
-                   "item 7: sparse, macro and RLE); run them with python -m "
-                   "gol_tpu")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,7 +170,7 @@ def stage(key: BucketKey, jobs: list[Job]) -> StagedServeBatch:
     """Host half of a dispatch: validate membership, stack, pad, pack.
     Raises on empty/oversized batches and foreign jobs."""
     if key.kernel == SPARSE_KERNEL:
-        raise ValueError(_SPARSE_REFUSAL)
+        raise ValueError(SPARSE_REFUSAL)
     if not jobs:
         raise ValueError("cannot stage an empty batch")
     _check_batch(key, jobs)
@@ -196,7 +193,7 @@ def dispatch(staged: StagedServeBatch) -> InflightServeBatch:
     """Dispatch a staged batch (``engine.dispatch_batch``: the loop runs
     here, one sync per block; results stay on the device)."""
     if staged.key.kernel == SPARSE_KERNEL:
-        raise ValueError(_SPARSE_REFUSAL)
+        raise ValueError(SPARSE_REFUSAL)
     return InflightServeBatch(
         key=staged.key, jobs=staged.jobs,
         inflight=engine.dispatch_batch(staged.staged),
@@ -206,7 +203,7 @@ def dispatch(staged: StagedServeBatch) -> InflightServeBatch:
 def complete(inflight: InflightServeBatch) -> list[JobResult]:
     """Fetch an in-flight batch and crop per-job results (job order)."""
     if inflight.key.kernel == SPARSE_KERNEL:
-        raise ValueError(_SPARSE_REFUSAL)
+        raise ValueError(SPARSE_REFUSAL)
     return _results(engine.complete_batch(inflight.inflight))
 
 
@@ -218,7 +215,7 @@ def run_batch(key: BucketKey, jobs: list[Job]) -> list[JobResult]:
     board's slice back out. Per-board results are bit-identical to solo runs
     (the engine contract); ordering matches ``jobs``."""
     if key.kernel == SPARSE_KERNEL:
-        raise ValueError(_SPARSE_REFUSAL)
+        raise ValueError(SPARSE_REFUSAL)
     if not jobs:
         return []
     _check_batch(key, jobs)

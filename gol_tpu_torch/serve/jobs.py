@@ -54,6 +54,11 @@ from gol_tpu_torch.serve import compaction
 logger = logging.getLogger(__name__)
 
 # Lifecycle states (the serving state machine).
+# The sparse (RLE) input form needs the sparse tiled engine.
+SPARSE_REFUSAL = ("sparse (RLE) jobs are not ported yet (ROADMAP.md Queue 1 "
+                  "item 7: sparse, macro and RLE); run them with python -m "
+                  "gol_tpu")
+
 QUEUED = "queued"
 SCHEDULED = "scheduled"  # claimed by a forming batch, not yet on device
 RUNNING = "running"  # batch dispatched to the compiled program
@@ -287,10 +292,7 @@ class Job:
         """The sparse (RLE) input form runs on the sparse tiled engine,
         which the port does not have yet: refused at admission, where the
         CLI and the server map a ValueError to their error contract."""
-        raise ValueError(
-            "sparse (RLE) jobs are not ported yet (ROADMAP.md Queue 1 item "
-            "7: sparse, macro and RLE); run them with python -m gol_tpu"
-        )
+        raise ValueError(SPARSE_REFUSAL)
 
     @property
     def config(self) -> GameConfig:

@@ -300,9 +300,16 @@ def test_span_and_counters_match_jax():
                                            pad_batch_to=4))):
         tracer.enable()
         tracer.clear()
-        before = {k: reg.counter(k) for k in names}
-        run()
-        spans = [(s["name"], s["attrs"]) for s in tracer.snapshot()]
+        try:
+            before = {k: reg.counter(k) for k in names}
+            run()
+            spans = [(s["name"], s["attrs"]) for s in tracer.snapshot()]
+        finally:
+            # The tracers are process-wide: left on, they would change what
+            # later tests in this worker send (the JAX fleet router adds
+            # trace headers while tracing is on).
+            tracer.disable()
+            tracer.clear()
         seen[tag] = (spans, {k: reg.counter(k) - v for k, v in before.items()})
     assert seen["port"] == seen["jax"]
     assert [n for n, _ in seen["port"][0]] == ["engine.simulate_batch"]

@@ -745,3 +745,224 @@ def test_compact_matches_jax(layout, capsys, tmp_path, monkeypatch):
         assert rc == 1 and err == "gol: no journal state under work\n"
     else:
         assert rc == 0 and "compacted" in out
+
+
+# ---------------------------------------------------------------------------
+# `serve`, `submit` and `gc`, against the JAX CLI.
+
+
+def _parser_of(module, name):
+    sub = next(a for a in module.build_parser()._actions if a.dest == "command")
+    return sub.choices[name]
+
+
+def _options(parser) -> list:
+    """Each argument's strings, dest, default, choices, nargs, const and
+    type: everything but the help text."""
+    return sorted(
+        (tuple(a.option_strings), a.dest, repr(a.default),
+         repr(sorted(a.choices)) if a.choices else None, repr(a.nargs),
+         repr(a.const), getattr(a.type, "__name__", None))
+        for a in parser._actions)
+
+
+@pytest.mark.parametrize("name", ["serve", "submit", "gc"])
+def test_server_lane_parsers_match_jax(name):
+    """The same option strings and defaults as JAX's parsers; the options
+    whose lanes are not ported are there too, and refused when used."""
+    assert _options(_parser_of(cli, name)) == _options(_parser_of(jax_cli, name))
+
+
+def _serve_rc(main, args, capsys):
+    try:
+        rc = main(["serve", "--port", "0", "--sample-interval", "0", *args])
+    except SystemExit as e:
+        rc = e.code
+    out, err = capsys.readouterr()
+    return rc, out, err
+
+
+@pytest.mark.parametrize("flags, refusal", [
+    (["--resident-ring", "2"], "resident ring"),
+    (["--resident-ring", "8", "--pipeline-depth", "16"], "resident ring"),
+    (["--warm-plans"], "--warm-plans needs the tuner"),
+    (["--cache-payload", "ts", "--result-cache"], "'ts' cache payload"),
+], ids=["ring_2", "ring_8", "warm_plans", "ts"])
+def test_serve_refusals_exit_1_naming_the_roadmap(flags, refusal, capsys,
+                                                  tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    rc, out, err = _serve_rc(cli.main, flags, capsys)
+    assert (rc, out) == (1, "")
+    assert err.startswith("gol: ") and refusal in err and err.count("\n") == 1
+    assert "ROADMAP.md" in err or "not ported" in err
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_submit_shard_across_is_refused(capsys, tmp_path):
+    path = _write(tmp_path, "in.txt", text_grid.generate(8, 8, seed=1))
+    assert cli.main(["submit", "8", "8", path, "--shard-across",
+                     "--server", "http://127.0.0.1:9"]) == 1
+    out, err = capsys.readouterr()
+    assert out == "" and err == f"gol: {cli.SHARD_ACROSS_REFUSAL}\n"
+    assert "Queue 1 item 9" in err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--flush-age", "-1"], ["--slo-latency-p99", "0"], ["--cache-entries", "0"],
+    ["--cache-disk-bytes", "0"], ["--journal-segment-bytes", "-1"],
+    ["--journal-retain", "0"], ["--disk-reserve", "-1"], ["--disk-reserve", "5"],
+    ["--metrics-history"], ["--metrics-history", "H", "--sample-interval", "0"],
+    ["--history-bytes", "100"], ["--retry-budget", "-1"],
+    ["--resident-ring", "1"], ["--resident-ring", "-1"],
+    ["--max-batch", "65"], ["--pipeline-depth", "2", "--max-inflight", "2"],
+    ["--cache-payload", "zarr"],
+], ids=lambda f: "_".join(f).strip("-").replace("--", ""))
+def test_serve_flag_refusals_match_jax(flags, capsys, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    results = [_serve_rc(main, flags, capsys) for main in (jax_cli.main, cli.main)]
+    assert results[1] == results[0]
+    assert results[1][0] != 0
+
+
+def test_serve_without_a_card_exits_1_before_serving(capsys, tmp_path,
+                                                     monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("GOL_TORCH_DEVICE")
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    rc, out, err = _serve_rc(cli.main, ["--journal-dir", "j"], capsys)
+    assert (rc, out) == (1, "")
+    assert err.startswith("gol: ") and "no CUDA card" in err
+
+
+def _running_servers(tmp_path, tag=""):
+    from gol_tpu.serve.server import GolServer as JaxServer
+    from gol_tpu_torch.serve.server import GolServer
+
+    servers = {}
+    for name, cls in (("jax", JaxServer), ("port", GolServer)):
+        servers[name] = cls(port=0, journal_dir=str(tmp_path / f"j_{tag}{name}"),
+                            flush_age=0.01, sample_interval=0, result_cache=True)
+        servers[name].start()
+    return servers
+
+
+_NOTE = re.compile(r"\tqueue \d+\.\d+ ms\ttotal \d+\.\d+ ms")
+_ID = re.compile(r"\b[0-9a-f]{32}\b")
+
+
+def _submit_lines(text: str) -> list:
+    """The printed lines with ids and timings masked, sorted: a result line
+    prints when a poll finds its job done, in an order the timing sets."""
+    return sorted(_ID.sub("ID", _NOTE.sub("\tqueue X ms\ttotal X ms", text))
+                  .splitlines())
+
+
+@pytest.mark.parametrize("flags", [[], ["--wire", "packed"], ["--variant", "cuda"],
+                                   ["--no-wait"], ["--no-cache", "--gen-limit", "9"]],
+                         ids=["text", "packed", "cuda", "no_wait", "no_cache"])
+def test_submit_crosses_the_packages(flags, capsys, tmp_path, monkeypatch):
+    """JAX's submit against the port's server and the port's submit against
+    JAX's server, beside each package against its own: the same printed
+    lines (ids and timings masked) and byte-identical outputs. Each pair
+    submits the inputs twice, so the second answers from the cache."""
+    monkeypatch.chdir(tmp_path)
+    paths = _batch_inputs(tmp_path, 30, 30, (5,)) + [
+        _write(tmp_path, "wide.txt", text_grid.generate(32, 32, seed=6))]
+    results = {}
+    for client, main in (("jax", jax_cli.main), ("port", cli.main)):
+        servers = _running_servers(tmp_path, client)
+        capsys.readouterr()  # the servers' boot lines
+        try:
+            for target, srv in servers.items():
+                outdir = tmp_path / f"out_{client}_{target}"
+                runs = []
+                for _ in range(2):
+                    rc = main(["submit", "30", "30", *paths, "--server", srv.url,
+                               "--poll-interval", "0.02", "--gen-limit", "40",
+                               "--output-dir", str(outdir), *flags])
+                    out, err = capsys.readouterr()
+                    runs.append((rc, _submit_lines(out.replace(str(outdir), "OUT")),
+                                 err))
+                files = {p.name: p.read_bytes() for p in sorted(outdir.glob("*"))}
+                results[(client, target)] = (runs, files)
+        finally:
+            for srv in servers.values():
+                srv.shutdown()
+    want = results[("jax", "jax")]
+    for key, got in results.items():
+        assert got == want, key
+    runs, files = want
+    assert runs[0][0] == 0 and runs[0][2] == ""
+    if "--no-wait" in flags:
+        assert files == {}
+    else:
+        assert len(files) == len(paths)
+        assert (any("cached:" in line for line in runs[1][1])
+                == ("--no-cache" not in flags))
+
+
+def test_submit_against_a_draining_server_matches_jax(capsys, tmp_path):
+    path = _write(tmp_path, "in.txt", text_grid.generate(8, 8, seed=2))
+    servers = _running_servers(tmp_path)
+    results = []
+    try:
+        for srv in servers.values():
+            srv.drain()
+        capsys.readouterr()  # the servers' boot lines
+        for main in (jax_cli.main, cli.main):
+            for srv in servers.values():
+                rc = main(["submit", "8", "8", path, "--server", srv.url])
+                out, err = capsys.readouterr()
+                results.append((rc, out, err.replace(srv.url, "URL")))
+    finally:
+        for srv in servers.values():
+            srv.shutdown()
+    assert all(r == results[0] for r in results)
+    assert results[0][0] == 1 and "HTTP 429: server is draining" in results[0][2]
+
+
+def test_serve_submit_and_sigterm_as_processes(tmp_path):
+    """``python -m gol_tpu_torch serve`` on the CPU: it prints its URL,
+    answers ``submit``, drains on SIGTERM and exits 0; a restart replays
+    nothing and still serves the result."""
+    import os
+    import signal
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = str(Path(__file__).resolve().parent.parent)
+    env = {**os.environ, "GOL_TORCH_DEVICE": "cpu",
+           "PYTHONPATH": os.pathsep.join(
+               [repo] + ([os.environ["PYTHONPATH"]]
+                         if os.environ.get("PYTHONPATH") else []))}
+    path = _write(tmp_path, "in.txt", text_grid.generate(30, 30, seed=3))
+    journal = str(tmp_path / "journal")
+    serve = subprocess.Popen(
+        [sys.executable, "-m", "gol_tpu_torch", "serve", "--port", "0",
+         "--journal-dir", journal, "--result-cache", "--flush-age", "0.01"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True, env=env,
+        cwd=tmp_path)
+    try:
+        line = serve.stdout.readline()
+        assert line.startswith("serving on http://127.0.0.1:")
+        url = line.split()[2]
+        sub = subprocess.run(
+            [sys.executable, "-m", "gol_tpu_torch", "submit", "30", "30", path,
+             "--server", url, "--gen-limit", "25", "--poll-interval", "0.02"],
+            capture_output=True, text=True, env=env, timeout=120)
+        assert sub.returncode == 0, sub.stderr
+        assert "Generations:\t25\tgen_limit\t-> " in sub.stdout
+        serve.send_signal(signal.SIGTERM)
+        assert serve.wait(timeout=60) == 0
+    finally:
+        if serve.poll() is None:
+            serve.kill()
+        serve.stdout.close()
+    want = text_grid.read_grid(path, 30, 30)
+    from gol_tpu_torch import oracle
+    from gol_tpu_torch.config import GameConfig
+
+    got = text_grid.read_grid(path + ".out", 30, 30)
+    np.testing.assert_array_equal(got, oracle.run(want, GameConfig(gen_limit=25)).grid)
+    assert os.listdir(os.path.join(journal, "cache"))

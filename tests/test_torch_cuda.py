@@ -535,3 +535,62 @@ def test_simulate_batch_on_the_card_matches_the_cpu(card, convention, shape):
         assert np.array_equal(g.grid, w.grid)
         assert (g.generations, g.exit_reason) == (w.generations, w.exit_reason)
         assert (g.words is None) == (w.words is None)
+
+
+@pytest.mark.parametrize("pipeline_depth", [1, 2])
+def test_server_serves_the_trio_on_the_card(card, pipeline_depth, monkeypatch,
+                                            tmp_path):
+    """The trio (dies, still life, a soup at its limit) through an
+    in-process ``GolServer`` on the card, both conventions, as JSON and as
+    a packed frame: each result equals the oracle and B1 launched."""
+    import json
+    import time
+    import urllib.request
+
+    from gol_tpu_torch.io import wire
+    from gol_tpu_torch.serve.server import GolServer
+
+    monkeypatch.setenv("GOL_TORCH_DEVICE", "cuda")
+    dies = np.zeros((32, 32), np.uint8)
+    dies[4, 4] = 1
+    still = np.zeros((32, 32), np.uint8)
+    still[3:5, 3:5] = 1
+    trio = [(dies, "empty"), (still, "similar"),
+            (text_grid.generate(32, 32, seed=7), "gen_limit")]
+    before = sb.LAUNCHES["batch_packed"]
+    srv = GolServer(port=0, journal_dir=str(tmp_path / "journal"),
+                    flush_age=0.01, pipeline_depth=pipeline_depth)
+    srv.start()
+    try:
+        jobs = []
+        for convention in (Convention.C, Convention.CUDA):
+            for board, reason in trio:
+                body = json.dumps({
+                    "width": 32, "height": 32, "gen_limit": 60,
+                    "convention": convention,
+                    "cells": text_grid.encode(board).decode("ascii")}).encode()
+                req = urllib.request.Request(
+                    f"{srv.url}/jobs", data=body, method="POST",
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=30) as resp:
+                    jobs.append((json.loads(resp.read())["id"], board,
+                                 convention, reason))
+        deadline = time.perf_counter() + 60
+        while any(srv.scheduler.job(j).state != "done" for j, *_ in jobs):
+            assert time.perf_counter() < deadline
+            time.sleep(0.01)
+        for job_id, board, convention, reason in jobs:
+            want = oracle.run(board, GameConfig(convention=convention, gen_limit=60))
+            with urllib.request.urlopen(f"{srv.url}/result/{job_id}") as resp:
+                got = json.loads(resp.read())
+            grid = text_grid.decode(got["grid"].encode("ascii"), 32, 32)
+            assert np.array_equal(grid, want.grid)
+            assert (got["generations"], got["exit_reason"]) == (want.generations, reason)
+            req = urllib.request.Request(f"{srv.url}/result/{job_id}",
+                                         headers={"Accept": wire.CONTENT_TYPE})
+            with urllib.request.urlopen(req) as resp:
+                frame = wire.decode_frame(resp.read())
+            assert np.array_equal(frame.grid(), want.grid)
+    finally:
+        srv.shutdown()
+    assert sb.LAUNCHES["batch_packed"] > before

@@ -448,6 +448,37 @@ def test_two_compile_caches_in_one_process_each_get_their_own_build(tmp_path,
     assert (tmp_path / "a.out").read_bytes() == (tmp_path / "b.out").read_bytes()
 
 
+@pytest.mark.parametrize("attempt", range(3))
+def test_concurrent_first_loads_build_one_library(tmp_path, attempt):
+    """8 threads load the codec into a fresh build directory at once: each
+    gets the same working library and no staging file is left behind."""
+    from gol_tpu_torch import native
+
+    _build.enable_compile_cache(str(tmp_path / "cache"))
+    start = threading.Barrier(8)
+    libs, errors = [], []
+
+    def load():
+        try:
+            start.wait()
+            libs.append(native._lib())
+        except BaseException as exc:  # noqa: BLE001 - reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=load) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert errors == [] and len(libs) == 8
+    assert all(lib is libs[0] for lib in libs)
+    cache = tmp_path / "cache"
+    assert len(_codec_libs(cache)) == 1 and list(cache.glob(".*.tmp")) == []
+    text = np.frombuffer(b"01" * 32, np.uint8).reshape(1, 64)
+    np.testing.assert_array_equal(native.pack_text(text, 64),
+                                  native.pack_text_plain(text, 64))
+
+
 def test_compile_cache_run_matches_jax(tmp_path):
     """Both CLIs with --compile-cache, each in a process of its own (JAX's
     cache setting is global to its process): the same rc, lines and bytes."""
