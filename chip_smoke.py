@@ -168,6 +168,38 @@ error:
    one done record equal to the oracle; then ``python -m gol_tpu_torch
    submit`` of 8 files (``--wire packed``) writes outputs equal to solo
    ``run``s, and ``python -m gol_tpu_torch gc J/cache`` reads the CAS.
+4g. The resident ring (``serve --resident-ring``), on B1 and B2: bench.py's
+   megabatch load uncut (64 boards, 32 random 256^2 and 32 random 250^2,
+   gen_limit 4, max_batch 8, ring 4) through the port's ``Scheduler`` with
+   a journal, lanes pipeline depth 1, 2 and 4, the resident ring (ring 4 at
+   depth 8) and the ring at batched temporal depth 4; each bucket's
+   marginal rate (its batch runner at G and 3G generations, the rate from
+   the difference) at depth 1 and 4. Every job must end DONE and equal a
+   solo ``simulate_batch`` of its board. Printed, not checked: each lane's
+   cell-updates/s and gap ratio (over the combined marginal rate), resident
+   over depth 1 beside the JAX package's own 1.5x gate for this suite, the
+   ring lanes' drains, mean slot occupancy (batches per drain over the
+   ring) and ``dispatch_gap_seconds`` p50, the B1/B2 launches of each lane
+   (counters zeroed just before its measured run), and the device-busy
+   share of one resident run under ``torch.profiler``. Then the drill:
+   ``python -m gol_tpu_torch serve --resident-ring 4 --pipeline-depth 8
+   --journal-dir J --trace T``, 64 jobs of 256^2 at gen_limit 1000,
+   SIGKILLed once the journal holds its first done record, restarted and
+   replayed: every id done exactly once, equal to the oracle. Against the
+   restarted server ``top --iterations 2 --no-ansi`` (the ring row present)
+   and ``fleet-trace -o F`` (F holds the server's lane and
+   ``serve.resident_loop`` spans).
+4h. The tuner at full width: ``python -m gol_tpu_torch tune --shape
+   16384x16384 --convention c --quick --gen-limit 64 --serve-board 256x256
+   --plan-cache P --report R`` (through ``cli.main``; its engine search runs
+   K1, K3 and K4 at 16384^2, counted), printing the winner, every trial's
+   median and the winner's speedup; no candidate may be excluded. Then run
+   (a) (``--variant game``) under ``GOL_PLAN_CACHE=P``: bytes and
+   Generations equal to phase 4's run (a), its Execution time printed
+   beside phase 4's; then ``serve --warm-plans`` under P starts (its warm
+   lines on stderr) and answers one 256^2 job equal to its solo run.
+   Before phase 1 ``GOL_PLAN_CACHE`` is set to a fresh file, so every
+   other phase runs and times the built-in plan.
 5. Timing: each kernel over 100 warm launches captured in one CUDA graph
    and replayed (CUDA events around the replay), so that the card and not
    the host's launch rate sets ``ms``; beside it ``eager_ms`` (the same
@@ -243,11 +275,14 @@ from gol_tpu_torch.ops import stencil_pallas as spl
 from gol_tpu_torch.parallel import halo
 from gol_tpu_torch.parallel.mesh import make_mesh
 from gol_tpu_torch.serve import batcher, compaction
-from gol_tpu_torch.serve.jobs import new_job
+from gol_tpu_torch.serve.jobs import JobJournal, new_job
 from gol_tpu_torch.serve.metrics import Metrics
 from gol_tpu_torch.serve.scheduler import Scheduler
 from gol_tpu_torch.serve.server import GolServer
 from gol_tpu_torch.tools import roofline
+from gol_tpu_torch.tune import plans as tune_plans
+from gol_tpu_torch.tune import select as tune_select
+from gol_tpu_torch.tune.space import ServePlan
 
 REPO = Path(__file__).resolve().parent
 SIZE = 16384
@@ -439,6 +474,22 @@ SERVER_LANES = {"depth 1": {}, "depth 2": {"pipeline_depth": 2},
                 "depth 1, no journal": {"journal_dir": None}}
 CACHE_JOBS, CACHE_UNIQUES = 128, 16
 DRILL_JOBS, DRILL_LIMIT = 50, 400
+# Phase 4g: bench.py's megabatch suite (bench.py:696-910), uncut.
+RING_SIDES, RING_BOARDS, RING_LIMIT = (256, 250), 64, 4
+RING_MAX_BATCH, RING, RING_T = 8, 4, 4
+RING_LANES = {
+    "depth1": {"depth": 1},
+    "depth2": {"depth": 2},
+    "depth4": {"depth": 4},
+    "resident_depth8": {"depth": 2 * RING, "resident": RING},
+    f"resident_depth8_T{RING_T}": {"depth": 2 * RING, "resident": RING,
+                                   "temporal_depth": RING_T},
+}
+RING_REPEATS = 3
+RING_DRILL_JOBS, RING_DRILL_LIMIT = 64, 1000
+# Phase 4h: the tuner's full-width search.
+TUNE_ARGS = ["--shape", f"{SIZE}x{SIZE}", "--convention", "c", "--quick",
+             "--gen-limit", "64", "--serve-board", "256x256"]
 PACKED = [k for k in KERNELS if not k.get("cells") and not k.get("ghosts")]
 BYTE = [k for k in KERNELS if k.get("cells") and not k.get("ghosts")]
 SHARD = [k for k in KERNELS if k.get("ghosts") in ("rows", "deep")
@@ -2101,6 +2152,344 @@ def server_lane(work: Path, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 4g. The resident ring
+
+
+def _ring_load() -> dict:
+    """bench.py's megabatch boards: 32 per side, from its seeds."""
+    return {side: [text_grid.generate(side, side, seed=3000 + side + i)
+                   for i in range(RING_BOARDS // 2)] for side in RING_SIDES}
+
+
+def _ring_marginal(boards: list, side: int, depth: int) -> float:
+    """A bucket's marginal rate (bench.py's): its batch runner timed at G
+    and 3G generations, best of RING_REPEATS, the rate from the
+    difference, so every fixed cost cancels."""
+    chunk = boards[:RING_MAX_BATCH]
+    pad = batcher.pad_dim(side)
+    times = {}
+    for g in (RING_LIMIT, 3 * RING_LIMIT):
+        def staged():
+            return engine.stage_batch(chunk, GameConfig(gen_limit=g),
+                                      padded_shape=(pad, pad),
+                                      pad_batch_to=RING_MAX_BATCH,
+                                      temporal_depth=depth)
+        engine.complete_batch(engine.dispatch_batch(staged()))
+        best = float("inf")
+        for _ in range(RING_REPEATS):
+            s = staged()
+            t0 = time.perf_counter()
+            engine.complete_batch(engine.dispatch_batch(s))
+            best = min(best, time.perf_counter() - t0)
+        times[g] = best
+    per_gen = max(times[3 * RING_LIMIT] - times[RING_LIMIT], 1e-9) / (2 * RING_LIMIT)
+    return side * side * RING_MAX_BATCH / per_gen
+
+
+def _ring_run(work: Path, tag: str, boards: dict, depth: int, resident: int = 0,
+              temporal_depth: int = 1, profile_dir: Path | None = None,
+              dev=None) -> dict:
+    """One fresh ``Scheduler`` with a journal over the megabatch load (the
+    sides interleaved, as bench.py submits them): its rate, jobs and ring
+    counters."""
+    batcher._PLAN = ServePlan(temporal_depth=temporal_depth)
+    obs_registry.reset_default()
+    try:
+        journal = JobJournal(str(work / f"ring_journal_{tag}"))
+        sched = Scheduler(journal=journal, flush_age=0.001,
+                          max_batch=RING_MAX_BATCH, pipeline_depth=depth,
+                          resident_ring=resident, max_queue_depth=4096)
+        jobs = [new_job(side, side, boards[side][i // 2], gen_limit=RING_LIMIT)
+                for i, side in zip(range(RING_BOARDS), RING_SIDES * RING_BOARDS)]
+        for job in jobs:
+            sched.submit(job)
+        with profiler.capture(str(profile_dir) if profile_dir else None,
+                              dev or "cpu"):
+            sched.start()
+            t0 = time.perf_counter()
+            ok = sched.drain(timeout=600)
+            elapsed = time.perf_counter() - t0
+        rings = sched.stats().get("resident_rings", {})
+        batches = sched.metrics.counter("batches_total")
+        sched.stop(drain=False)
+        journal.close()
+    finally:
+        batcher._reset_plan()
+    if not ok or any(j.state != "done" for j in jobs):
+        fail(f"ring lane {tag}: not every job ended DONE")
+    drains = sum(v for k, v in rings.items() if k.endswith(".drains_total"))
+    gap = obs_registry.default().snapshot()["histograms"].get(
+        "dispatch_gap_seconds", {})
+    work_cells = sum(side * side * len(b) for side, b in boards.items()) * RING_LIMIT
+    return {"rate": work_cells / elapsed, "elapsed_s": elapsed, "jobs": jobs,
+            "batches": batches, "drains": drains,
+            "mean_occupancy": batches / drains / RING if drains else None,
+            "gap_p50_s": gap.get("p50")}
+
+
+def _ring_drill(work: Path) -> dict:
+    """SIGKILL a resident-ring server mid-ring, restart it on the journal,
+    replay: every id done exactly once, equal to the oracle; then ``top``
+    and ``fleet-trace`` against the restarted server."""
+    journal = work / "ring_drill_journal"
+    trace_dir = work / "ring_drill_trace"
+    log = work / "ring_drill.log"
+    args = ["--resident-ring", str(RING), "--pipeline-depth", str(2 * RING),
+            "--journal-dir", str(journal), "--trace", str(trace_dir),
+            "--flush-age", "0.001", "--max-batch", str(RING_MAX_BATCH)]
+    rng = np.random.default_rng(SEED + 9)
+    boards = [rng.integers(0, 2, (256, 256), dtype=np.uint8)
+              for _ in range(RING_DRILL_JOBS)]
+    proc = None
+    try:
+        proc, base = _start_serve(args, log)
+        accepted = {}
+        for board in boards:
+            status, _, raw = _http("POST", f"{base}/jobs", {
+                "width": 256, "height": 256, "gen_limit": RING_DRILL_LIMIT,
+                "cells": text_grid.encode(board).decode("ascii")})
+            if status != 202:
+                fail(f"ring drill submit answered {status}: {raw[:200]!r}")
+            accepted[json.loads(raw)["id"]] = board
+        deadline = time.perf_counter() + 120
+        while not _done_records(journal):
+            if time.perf_counter() > deadline:
+                fail("the ring drill journaled no done record in 120 s")
+            time.sleep(0.002)
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        proc.stdout.close()
+        proc = None
+        done_before = len(_done_records(journal))
+        t0 = time.perf_counter()
+        proc, base = _start_serve(args, log)
+        deadline = time.perf_counter() + 120
+        while len(_done_records(journal)) < len(accepted):
+            if time.perf_counter() > deadline:
+                fail("the ring drill's replay did not finish in 120 s")
+            time.sleep(0.05)
+        replay_s = time.perf_counter() - t0
+        done = _done_records(journal)
+        lost, extra = set(accepted) - set(done), set(done) - set(accepted)
+        dup = {k: len(v) for k, v in done.items() if len(v) != 1}
+        if lost or extra or dup:
+            fail(f"ring drill ledger: lost {lost}, unknown {extra}, duplicated {dup}")
+        cfg = GameConfig(gen_limit=RING_DRILL_LIMIT)
+        for job_id, (rec,) in done.items():
+            want = oracle.run(accepted[job_id], cfg)
+            got = text_grid.decode(rec["grid"].encode("ascii"), 256, 256)
+            if not np.array_equal(got, want.grid) or rec["generations"] != want.generations:
+                fail(f"ring drill job {job_id}: its done record differs from the oracle")
+        print(f"ring drill: {len(accepted)} accepted, {done_before} done before the "
+              f"SIGKILL mid-ring, the rest replayed and done {replay_s:.2f} s after "
+              "the restart's exec; every id done exactly once, == the oracle",
+              flush=True)
+        top = subprocess.run(
+            [sys.executable, "-m", "gol_tpu_torch", "top", "--server", base,
+             "--iterations", "2", "--interval", "0.2", "--no-ansi"],
+            capture_output=True, text=True, timeout=120, env=_subprocess_env())
+        if top.returncode != 0 or "ring occupancy" not in top.stdout:
+            fail(f"top exited {top.returncode} without the ring row:\n"
+                 f"{top.stdout}{top.stderr}")
+        print("top --iterations 2 --no-ansi, its last frame:\n"
+              + top.stdout.split("gol top")[-1].rstrip(), flush=True)
+        trace_out = work / "ring_fleet_trace.json"
+        ftr = subprocess.run(
+            [sys.executable, "-m", "gol_tpu_torch", "fleet-trace", "--server",
+             base, "-o", str(trace_out)],
+            capture_output=True, text=True, timeout=120, env=_subprocess_env())
+        doc = json.loads(trace_out.read_text()) if trace_out.exists() else {}
+        names = {e.get("name") for e in doc.get("traceEvents", [])}
+        if (ftr.returncode != 0 or "serve.resident_loop" not in names
+                or list(doc["otherData"]["processes"]) != ["router"]):
+            fail(f"fleet-trace exited {ftr.returncode}, spans {sorted(names)}:\n"
+                 f"{ftr.stderr}")
+        loops = sum(e.get("name") == "serve.resident_loop"
+                    for e in doc["traceEvents"])
+        print(f"{ftr.stderr.strip()}; {loops} serve.resident_loop spans", flush=True)
+    finally:
+        _stop(proc)
+    return {"accepted": len(accepted), "done_before_kill": done_before,
+            "replay_s": replay_s, "resident_loop_spans": loops}
+
+
+def ring_lane(work: Path, dev) -> dict:
+    """Phase 4g (see the module docstring)."""
+    t_phase = time.perf_counter()
+    boards = _ring_load()
+    marginal = {f"{side}xT{t}": _ring_marginal(boards[side], side, t)
+                for side in RING_SIDES for t in (1, RING_T)}
+    total = sum(side * side * len(b) for side, b in boards.items()) * RING_LIMIT
+    combined = total / sum(
+        side * side * len(boards[side]) * RING_LIMIT
+        / max(v for k, v in marginal.items() if k.startswith(f"{side}x"))
+        for side in RING_SIDES)
+    solo = {}
+    for side in RING_SIDES:
+        for i, board in enumerate(boards[side]):
+            solo[(side, i)] = engine.simulate_batch(
+                [board], GameConfig(gen_limit=RING_LIMIT))[0]
+    lanes, launches = {}, {}
+    for name, kwargs in RING_LANES.items():
+        _ring_run(work, f"{name}_warm", boards, **kwargs)
+        runs = []
+        for r in range(RING_REPEATS):
+            _zero_counters()
+            runs.append(_ring_run(work, f"{name}_{r}", boards, **kwargs))
+            if r == 0:
+                launches[f"ring lane {name} (4g)"] = _counts()
+        for run in runs:
+            for i, job in enumerate(run["jobs"]):
+                want = solo[(RING_SIDES[i % 2], i // 2)]
+                r = job.result
+                if (not np.array_equal(r.grid, want.grid)
+                        or (r.generations, r.exit_reason)
+                        != (want.generations, want.exit_reason)):
+                    fail(f"ring lane {name}: job {i} ({r.generations}, "
+                         f"{r.exit_reason}) differs from its solo simulate_batch "
+                         f"({want.generations}, {want.exit_reason})")
+        best = max(runs, key=lambda r: r["rate"])
+        lanes[name] = {k: v for k, v in best.items() if k != "jobs"}
+        lanes[name]["rates"] = [r["rate"] for r in runs]
+        lanes[name]["gap_ratio"] = best["rate"] / combined
+    for k in KERNELS + BATCH_KERNELS:
+        for lane in RING_LANES:
+            n = launches[f"ring lane {lane} (4g)"][k["key"]]
+            if (k["key"] in ("batch_packed", "batch_masked")) != (n > 0):
+                fail(f"{k['id']} launched {n} times on ring lane {lane}")
+    best_resident = max(v["rate"] for k, v in lanes.items()
+                        if k.startswith("resident"))
+    over = best_resident / lanes["depth1"]["rate"]
+    print("ring lane marginal rates, cell-updates/s: "
+          + json.dumps({k: round(v, 1) for k, v in marginal.items()})
+          + f"; combined {combined:.4e}", flush=True)
+    for name, lane in lanes.items():
+        ring_part = ""
+        if lane["drains"]:
+            ring_part = (f", {lane['drains']} drains for {lane['batches']} batches "
+                         f"(mean slot occupancy {lane['mean_occupancy']:.3f}), "
+                         f"dispatch_gap_seconds p50 {lane['gap_p50_s']}")
+        print(f"ring lane {name}: {lane['rate']:.4e} cell-updates/s (runs "
+              f"{[f'{r:.4e}' for r in lane['rates']]}), gap ratio "
+              f"{lane['gap_ratio']:.4f}, {lane['batches']} batches{ring_part}; "
+              f"launches {_nonzero(launches[f'ring lane {name} (4g)'])}",
+              flush=True)
+    print(f"ring lane: every job DONE and == its solo simulate_batch in every run; "
+          f"resident over depth 1 = {over:.3f} (the JAX package's gate for this "
+          "suite: 1.5; not checked here)", flush=True)
+    prof_dir = work / "prof_ring"
+    _ring_run(work, "profiled", boards, profile_dir=prof_dir, dev=dev,
+              **RING_LANES["resident_depth8"])
+    busy = profile_summary(prof_dir / "trace.json", "batch_")
+    print(f"profile ring lane resident_depth8: {busy['events']} batch kernel "
+          f"events, busy {busy['kernel_busy_ms']:.3f} ms of a "
+          f"{busy['window_ms']:.3f} ms window = {busy['device_busy_share']:.3f}",
+          flush=True)
+    drill = _ring_drill(work)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 4g took {seconds:.1f} s", flush=True)
+    return {"launches": launches, "marginal": marginal, "combined": combined,
+            "lanes": lanes, "resident_over_depth1": over, "seconds": seconds,
+            "busy": {m: busy[m] for m in ("events", "window_ms", "kernel_busy_ms",
+                                          "device_busy_share")},
+            "drill": drill}
+
+
+# ---------------------------------------------------------------------------
+# 4h. The tuner at full width
+
+
+_TRIAL = re.compile(r"^\| (\S+)[^|]*\| ([0-9.]+) ms \| ([0-9.]+)x \| (\S+) \|$")
+
+
+def tuner_lane(work: Path, path: dict) -> dict:
+    """Phase 4h (see the module docstring)."""
+    t_phase = time.perf_counter()
+    plans_file, report = work / "tuned_plans.json", work / "tune_report.md"
+    _zero_counters()
+    rc, text = _cli_capture(["tune", *TUNE_ARGS, "--plan-cache", str(plans_file),
+                             "--report", str(report)])
+    counts = _counts()
+    if rc != 0:
+        fail(f"tune exited {rc}:\n{text}")
+    body = report.read_text()
+    if "excluded:" in body or "| error" in body or "mismatch" in body:
+        fail(f"the tuner excluded a candidate:\n{body}")
+    trials = {}
+    for section in body.split("## ")[1:]:
+        kind = section.split(":", 1)[0]
+        rows = [m.groups() for m in map(_TRIAL.match, section.splitlines()) if m]
+        trials[kind] = {label: float(ms) for label, ms, _, _ in rows}
+        winner = re.search(r"winner: `([^`]+)` at ([0-9.]+)x", section)
+        print(f"tune {kind}: winner {winner.group(1)} at {winner.group(2)}x the "
+              "default; medians, ms: " + json.dumps(trials[kind]), flush=True)
+        trials[f"{kind} winner"] = {winner.group(1): float(winner.group(2))}
+    for key in ("bandt_fast", "band", "byte_band"):
+        if not counts[key]:
+            fail(f"the tuner's engine search launched no {key} kernel")
+    print(f"tune launches: {_nonzero(counts)}", flush=True)
+
+    # Run (a) under the tuned plan: the same bytes and Generations.
+    out = work / "tuned_out.txt"
+    env_key = tune_plans.ENV_CACHE_PATH
+    saved, os.environ[env_key] = os.environ[env_key], str(plans_file)
+    tune_select.reset()
+    try:
+        gens, ms, _ = _cli([str(SIZE), str(SIZE), str(path["inputs"]["random"]),
+                            "--variant", "game", "--gen-limit", "1000",
+                            "--output", str(out)])
+    finally:
+        os.environ[env_key] = saved
+        tune_select.reset()
+    if (gens, _digest(out)) != path["results"][("game", "random", 1000)]:
+        fail(f"run (a) under the tuned plan (Generations {gens}) differs from "
+             "phase 4's run (a)")
+    base_ms = path["run_a"]["game auto"]["exec_ms"]
+    print(f"run (a) under the tuned plan: Generations {gens}, bytes == phase 4's; "
+          f"Execution {ms:.3f} ms (phase 4: {base_ms:.3f} ms)", flush=True)
+
+    # serve --warm-plans under the plan: it boots and answers a job.
+    env = {**_subprocess_env(), tune_plans.ENV_CACHE_PATH: str(plans_file)}
+    log = work / "warm_serve.log"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gol_tpu_torch", "serve", "--port", "0",
+         "--warm-plans"], stdout=subprocess.PIPE, stderr=log.open("w"),
+        text=True, env=env, start_new_session=True)
+    try:
+        line = proc.stdout.readline()
+        if not line.startswith("serving on "):
+            fail(f"serve --warm-plans exited before serving:\n{log.read_text()}")
+        base = line.split()[2]
+        board = text_grid.generate(256, 256, seed=SEED + 10)
+        status, _, raw = _http("POST", f"{base}/jobs", {
+            "width": 256, "height": 256, "gen_limit": 1000,
+            "cells": text_grid.encode(board).decode("ascii")})
+        if status != 202:
+            fail(f"serve --warm-plans: POST answered {status}")
+        job_id = json.loads(raw)["id"]
+        deadline = time.perf_counter() + 60
+        while (status := _http("GET", f"{base}/result/{job_id}")[0]) != 200:
+            if time.perf_counter() > deadline:
+                fail(f"serve --warm-plans: no result in 60 s ({status})")
+            time.sleep(0.05)
+        got, _ = _fetch_results(base, job_id)
+        want = engine.simulate(board, GameConfig(gen_limit=1000))
+        if not np.array_equal(got[0], want.grid) or got[1] != want.generations:
+            fail("serve --warm-plans: the job differs from its solo run")
+    finally:
+        _stop(proc)
+    warmed = [ln for ln in log.read_text().splitlines() if ln.startswith("warmed")]
+    if not warmed:
+        fail(f"serve --warm-plans warmed nothing:\n{log.read_text()}")
+    print(f"serve --warm-plans: {'; '.join(warmed)}; one 256^2 job == its solo run "
+          f"(Generations {want.generations})", flush=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 4h took {seconds:.1f} s", flush=True)
+    return {"launches": {"tuner search (4h)": counts}, "trials": trials,
+            "tuned_run_a_ms": ms, "phase4_run_a_ms": base_ms, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
 # 5. Timing at 16384^2
 
 
@@ -2322,9 +2711,13 @@ def main() -> int:
     # The CLI runs below, in this process and in the subprocesses, pick
     # their device from the environment: make it the card.
     os.environ[platform_env.DEVICE_ENV] = "cuda"
+    # No plan cached on the machine may reroute a runner: every phase but
+    # 4h's own runs the built-in plan.
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    os.environ[tune_plans.ENV_CACHE_PATH] = str(Path(tempfile.mkdtemp(
+        prefix="plans-", dir=_build.BUILD_DIR)) / "plans.json")
     stats = {k["key"]: {"max_abs_err": 0, "checks": 0}
              for k in KERNELS + BATCH_KERNELS}
-    _build.BUILD_DIR.mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="smoke-", dir=_build.BUILD_DIR))
     try:
         phase("1. card and build")
@@ -2352,6 +2745,10 @@ def main() -> int:
         batch = batch_lane(work, dev)
         phase("4f. the server lane")
         server = server_lane(work, dev)
+        phase("4g. the resident ring")
+        ring = ring_lane(work, dev)
+        phase(f"4h. the tuner at {SIZE}x{SIZE}")
+        tuner = tuner_lane(work, path)
         phase("5. timing")
         times = timing(dev)
         phase("6. the flag-cost roofline")
@@ -2378,8 +2775,13 @@ def main() -> int:
                                                 "kernel_busy_ms", "device_busy_share")},
         "cache": server["cache"], "warm_over_cold": server["warm_over_cold"],
         "drill": server["drill"]}))
+    print("ring lane: " + json.dumps({k: v for k, v in ring.items()
+                                      if k != "launches"}))
+    print("tuner: " + json.dumps({k: v for k, v in tuner.items()
+                                  if k != "launches"}))
     launches = {**path["launches"], **mesh["launches"], **ckpt["launches"],
                 **obs["launches"], **batch["launches"], **server["launches"],
+                **ring["launches"], **tuner["launches"],
                 "tpu 2x2 auto 64x64 (one-word shards)": one_word,
                 "roofline": roof_counts}
     table = []

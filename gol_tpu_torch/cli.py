@@ -43,12 +43,15 @@ bucket batcher in one process (``serve/batcher.py``, the batched kernels
 B1 and B2); ``compact DIR`` folds a job journal's sealed segments into its
 snapshot (``serve/compaction.py``); ``serve`` runs the HTTP service over
 the journaled scheduler and the result cache (``serve/server.py``, on B1
-and B2), ``submit W H FILES...`` is its HTTP client (of either package's
-server), and ``gc DIR`` garbage-collects a result-cache CAS. The JAX CLI's
-other subcommands (``NOT_PORTED``) exit 1 with a ``gol:`` line, as do the
-options of ``serve`` and ``submit`` whose lanes are not ported
-(``--resident-ring`` >= 2, ``--warm-plans``, ``--cache-payload ts``,
-``--shard-across``).
+and B2; ``--resident-ring R`` its resident ring lanes, ``--warm-plans``
+the tuned bucket runners built at boot), ``submit W H FILES...`` is its
+HTTP client (of either package's server), and ``gc DIR`` garbage-collects
+a result-cache CAS; ``tune`` measures and caches engine and serve plans
+(``tune/``); ``top`` and ``fleet-trace`` read a live server (``obs/top``,
+``obs/fleettrace``). The JAX CLI's other subcommands (``NOT_PORTED``) exit
+1 with a ``gol:`` line, as do the options whose lanes are not ported
+(``serve --cache-payload ts``, ``submit --shard-across``, ``tune
+--sparse-crossover``).
 """
 
 from __future__ import annotations
@@ -73,11 +76,12 @@ from gol_tpu_torch.platform_env import (NoDeviceError, configure_cli_logging,
 from gol_tpu_torch.resilience import faults
 from gol_tpu_torch.variants import VARIANTS, Variant, get_variant
 
-# Options of the JAX CLI's serve and submit whose lanes are not ported:
-# each exits 1 with one `gol:` line naming the ROADMAP item.
-WARM_PLANS_REFUSAL = ("--warm-plans needs the tuner, which is not ported yet "
-                      "(ROADMAP.md Queue 1 item 6); serve without it, or "
-                      "with python -m gol_tpu")
+# Options of the JAX CLI whose lanes are not ported: each exits 1 with one
+# `gol:` line naming the ROADMAP item.
+SPARSE_CROSSOVER_REFUSAL = ("--sparse-crossover measures the sparse engine, "
+                            "which is not ported yet (ROADMAP.md Queue 1 "
+                            "item 7); tune without it, or with python -m "
+                            "gol_tpu")
 SHARD_ACROSS_REFUSAL = ("--shard-across needs the fleet router, which is not "
                         "ported yet (ROADMAP.md Queue 1 item 9); submit "
                         "without it, or with python -m gol_tpu")
@@ -918,19 +922,17 @@ def _serve(args) -> int:
     finish, then the process exits — no accepted job is lost (the journal
     replays any that were cut off).
 
-    ``--compile-cache DIR`` is the build directory of the kernels. Refused
-    with a ``gol:`` line, as not ported: ``--resident-ring`` >= 2,
-    ``--warm-plans`` and ``--cache-payload ts``."""
+    ``--compile-cache DIR`` is the build directory of the kernels;
+    ``--resident-ring R`` mounts the resident ring lanes
+    (``serve/resident.py``); ``--warm-plans`` builds and runs once the
+    bucket runners of every shape ``tune`` recorded, before ``serving on``
+    prints. Refused with a ``gol:`` line, as not ported: ``--cache-payload
+    ts``."""
     import signal
 
     from gol_tpu_torch.cache.store import TS_REFUSAL
     from gol_tpu_torch.ops import stencil_batch
-    from gol_tpu_torch.serve.scheduler import RESIDENT_RING_REFUSAL
 
-    if args.resident_ring > 1:
-        raise ValueError(RESIDENT_RING_REFUSAL)
-    if args.warm_plans:
-        raise ValueError(WARM_PLANS_REFUSAL)
     if args.cache_payload == "ts":
         raise ValueError(TS_REFUSAL)
     _build.enable_compile_cache(args.compile_cache)
@@ -944,6 +946,8 @@ def _serve(args) -> int:
 
     if args.flush_age < 0:
         raise ValueError(f"--flush-age must be >= 0, got {args.flush_age}")
+    if args.warm_plans:
+        _warm_plans()
     if args.slo_latency_p99 <= 0:
         raise ValueError(
             f"--slo-latency-p99 must be > 0, got {args.slo_latency_p99}"
@@ -1069,6 +1073,266 @@ def _serve(args) -> int:
         pass
     # A second signal raises SystemExit(1) in the main thread (the hard-exit
     # path): it propagates, so supervisors see a non-zero status.
+    return 0
+
+
+def _warm_plans() -> None:
+    """Build the bucket runners of every tuner-recorded serve shape (plus
+    the tuned quantum/ladder geometry, consulted by ``bucket_for``) and run
+    each once on inert operands, which on the card builds and loads the
+    kernels. EVERY ladder rung is warmed, not just the full batch: real
+    flushes dispatch at whatever rung the flushed count rounds to. Warm
+    failures are loud but non-fatal: a server that builds on first
+    dispatch still serves."""
+    import numpy as np
+
+    from gol_tpu_torch.serve import batcher
+    from gol_tpu_torch.serve.jobs import new_job
+    from gol_tpu_torch.tune import select
+
+    entries = select.warm_entries()
+    if not entries:
+        print("no tuned serve shapes to warm (run `gol tune --serve-board` "
+              "first)", file=sys.stderr)
+        return
+    rungs = batcher._plan().batch_ladder
+    for entry in entries:
+        t0 = time.perf_counter()
+        # Warm entries are cache-file content: a stale or hand-edited one
+        # (bad convention, non-numeric extent) degrades loudly to building
+        # on first dispatch, never aborts server boot.
+        try:
+            height, width = int(entry["height"]), int(entry["width"])
+            convention = str(entry.get("convention", "c"))
+            board = np.zeros((height, width), dtype=np.uint8)
+            key = batcher.bucket_for(
+                new_job(width, height, board, convention=convention)
+            )
+            for rung in rungs:
+                batcher.warm(key, batch=rung)
+        except Exception as err:  # noqa: BLE001 - warmup must not kill boot
+            print(f"warm entry {entry} failed ({type(err).__name__}: {err})",
+                  file=sys.stderr)
+            continue
+        print(f"warmed bucket {key.label()} ({len(rungs)} batch rungs) in "
+              f"{time.perf_counter() - t0:.1f}s", file=sys.stderr)
+
+
+def _tune(args) -> int:
+    """``tune``: the offline measured search.
+
+    Searches the declarative space (``tune/space.py``) for each requested
+    shape x convention, byte-gating every candidate against the default
+    engine (oracle-checked where affordable), and commits the winners to
+    the persistent plan cache — after which ``run`` and ``serve`` on the
+    same machine pick them up. A human-readable report goes to --report
+    (or stderr). ``--compile-cache DIR`` is the kernels' build directory;
+    ``--sparse-crossover`` is refused (the sparse lane is not ported)."""
+    if args.sparse_crossover:
+        raise ValueError(SPARSE_CROSSOVER_REFUSAL)
+    _build.enable_compile_cache(args.compile_cache)
+
+    from gol_tpu_torch.tune import measure, plans, select
+
+    shapes = []
+    for spec in args.shape or ["256x256"]:
+        m = re.fullmatch(r"(\d+)x(\d+)", spec)
+        if not m:
+            raise ValueError(f"--shape must look like HxW, got {spec!r}")
+        shapes.append((int(m.group(1)), int(m.group(2))))
+    conventions = (
+        ["c", "cuda"] if args.convention == "both" else [args.convention]
+    )
+    mesh = _parse_mesh_arg(args.mesh, bool(args.mesh))
+    store = plans.PlanStore(args.plan_cache)
+    results = []
+    families = [False]
+    if args.packed:
+        # The packed-state lane (--packed-io runs) consults its own
+        # family's fingerprints — tune it explicitly or it stays on the
+        # built-in ladder.
+        bad = [f"{h}x{w}" for h, w in shapes if w % 32 != 0]
+        if bad:
+            raise ValueError(
+                f"--packed needs widths divisible by 32 (the packed word), "
+                f"got {bad}"
+            )
+        families.append(True)
+    for height, width in shapes:
+        for convention in conventions:
+            for packed_state in families:
+                config = GameConfig(gen_limit=args.gen_limit,
+                                    convention=convention)
+                family = "packed" if packed_state else "byte"
+                print(f"tune engine: {height}x{width}/{convention}/{family} "
+                      f"(gen_limit={args.gen_limit}, iters={args.iters})",
+                      file=sys.stderr)
+                result = measure.run_engine_search(
+                    height, width, config, mesh, packed_state=packed_state,
+                    iters=args.iters, quick=args.quick,
+                )
+                results.append(result)
+                store.put(
+                    select.engine_fingerprint((height, width), config, mesh,
+                                              packed_state=packed_state),
+                    result.winner.to_dict(),
+                    measured=result.to_dict() if args.provenance else {
+                        "tuned_vs_default": round(result.speedup, 4),
+                        "default": result.default_label,
+                    },
+                )
+                print(f"  winner {result.winner.label()} at "
+                      f"{result.speedup:.3f}x the default ladder",
+                      file=sys.stderr)
+
+    if args.serve_board:
+        m = re.fullmatch(r"(\d+)x(\d+)", args.serve_board)
+        if not m:
+            raise ValueError(
+                f"--serve-board must look like HxW, got {args.serve_board!r}"
+            )
+        height, width = int(m.group(1)), int(m.group(2))
+        if mesh is not None and topology_for(mesh).distributed:
+            raise ValueError("--serve-board tunes the single-device serving "
+                             "lane; drop --mesh")
+        print(f"tune serve: {height}x{width} boards", file=sys.stderr)
+        result = measure.run_serve_search(
+            height, width, conventions[0],
+            gen_limit=min(args.gen_limit, 8), iters=args.iters,
+        )
+        results.append(result)
+        plan_dict = result.winner.to_dict()
+        plan_dict["warm"] = [
+            {"height": height, "width": width, "convention": convention}
+            for convention in conventions
+        ]
+        if result.marginal:
+            # The winner's marginal kernel rate rides with the plan: the
+            # serving dispatch-gap monitor reads it back as its roofline
+            # (select.marginal_rates).
+            plan_dict["marginal"] = result.marginal
+        store.put(
+            select.serve_fingerprint(), plan_dict,
+            measured={"tuned_vs_default": round(result.speedup, 4)},
+        )
+        print(f"  winner {result.winner.label()} at "
+              f"{result.speedup:.3f}x the default geometry", file=sys.stderr)
+
+    report = measure.render_report(results)
+    if args.report:
+        with open(args.report, "w", encoding="utf-8") as f:
+            f.write(report)
+        print(f"report -> {args.report}", file=sys.stderr)
+    else:
+        print(report, file=sys.stderr)
+    print(f"plans -> {store.path}", file=sys.stderr)
+    # A same-process serve (tests, tune-then-serve scripts) must see the
+    # fresh plans: drop the consult caches.
+    select.reset()
+    from gol_tpu_torch.serve import batcher
+
+    batcher._reset_plan()
+    return 0
+
+
+def _top(args) -> int:
+    """``top``: live terminal dashboard over /metrics + /slo.
+
+    Polls the two JSON endpoints every --interval seconds and redraws one
+    ANSI frame in place (``obs/top.py`` renders; this loop only owns HTTP
+    and the terminal). --iterations N exits after N frames (0 = run until
+    interrupted) — the scriptable/test lane."""
+    from gol_tpu_torch.obs import top as obs_top
+
+    ring = _ServerRing(getattr(args, "servers", None) or args.server)
+    if args.interval <= 0:
+        raise ValueError(f"--interval must be > 0, got {args.interval}")
+    ansi = sys.stdout.isatty() and not args.no_ansi
+    frames = 0
+    try:
+        while True:
+            # --servers: probe the ring preferred-first; the dashboard
+            # follows whichever replica answers (the title names it). One
+            # base — the plain --server invocation — is pinned.
+            metrics, answered = {}, None
+            for cand in ring.rotation():
+                metrics = _fetch_json(f"{cand}/metrics?format=json")
+                if metrics:
+                    answered = cand
+                    ring.prefer(cand)
+                    break
+            base = answered or ring.current
+            slo = _fetch_json(f"{base}/slo")
+            title = f"gol top — {base}"
+            if len(ring.bases) > 1:
+                title += (f" [answered by {base}]" if answered
+                          else f" [all {len(ring.bases)} routers "
+                               "unreachable]")
+            frame = obs_top.render_frame(
+                metrics, slo or None, ansi=ansi,
+                title=title,
+            )
+            if ansi:
+                sys.stdout.write(obs_top.CLEAR)
+            sys.stdout.write(frame)
+            sys.stdout.flush()
+            frames += 1
+            if args.iterations and frames >= args.iterations:
+                return 0
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        return 0
+
+
+def _fleet_trace(args) -> int:
+    """``fleet-trace``: one stitched Perfetto timeline for the fleet.
+
+    Collects ``GET /debug/trace`` from the server and every worker its
+    ``GET /fleet`` lists (a single ``serve`` — no /fleet — is traced
+    alone), normalizes each process's monotonic clock against its wall
+    anchor, and writes ONE Chrome trace JSON: a pid lane per process,
+    cross-process flow arrows per job. Unreachable workers are skipped
+    with a note."""
+    import urllib.error
+
+    from gol_tpu_torch.obs import fleettrace
+
+    ring = _ServerRing(getattr(args, "servers", None) or args.server)
+    doc = None
+    last_err = None
+    for cand in ring.rotation():
+        # --servers: the stitched export reads idempotent debug
+        # endpoints, so trying the next replica router is always safe.
+        try:
+            doc = fleettrace.export(cand, args.output)
+            if len(ring.bases) > 1:
+                print(f"fleet-trace: exported via router {cand}",
+                      file=sys.stderr)
+            break
+        except (urllib.error.URLError, ConnectionError, OSError) as err:
+            last_err = err
+            if len(ring.bases) > 1:
+                print(f"fleet-trace: router {cand} unreachable "
+                      f"({type(err).__name__}); trying the next replica",
+                      file=sys.stderr)
+    if doc is None:
+        raise ValueError(
+            f"no router in {', '.join(ring.bases)} answered: {last_err}")
+    other = doc.get("otherData", {})
+    processes = other.get("processes", {})
+    events = doc.get("traceEvents", [])
+    flows = sum(1 for e in events if e.get("ph") in ("s", "t", "f"))
+    spans = sum(1 for e in events if e.get("ph") == "X")
+    print(f"fleet-trace -> {args.output}: {len(processes)} process(es) "
+          f"[{', '.join(sorted(processes))}], {spans} span(s), "
+          f"{flows} flow point(s)", file=sys.stderr)
+    for entry in other.get("skipped", []):
+        print(f"  skipped {entry.get('name')}: {entry.get('reason')}",
+              file=sys.stderr)
+    if not processes:
+        print("fleet-trace: no process had tracing enabled — start the "
+              "fleet with --trace DIR", file=sys.stderr)
+        return 1
     return 0
 
 
@@ -1956,9 +2220,15 @@ def build_parser() -> argparse.ArgumentParser:
     )
     srv.add_argument(
         "--resident-ring", type=int, default=0, metavar="R",
-        help="device-resident mega-batch lanes (the JAX package's): not "
-        "ported yet, R >= 2 is refused; 0 (default) keeps the per-batch "
-        "lanes",
+        help="device-resident mega-batch lanes: each padding bucket gets a "
+        "ring of R slots bound to ONE compiled drain program — the "
+        "dispatcher refills slots (async device_put) while a drain "
+        "computes, up to R batches dispatch as one program with every "
+        "slot's output aliased over its input, and the per-batch Python "
+        "dispatch tax disappears from the hot path. Needs "
+        "--pipeline-depth >= 2 (>= 2R keeps the device stream fed); "
+        "0 (default) keeps the per-batch lanes. Results are byte-identical "
+        "either way",
     )
     srv.add_argument(
         "--result-cache", action="store_true",
@@ -2021,8 +2291,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     srv.add_argument(
         "--warm-plans", action="store_true",
-        help="pre-build the bucket runners of every serve shape `gol tune` "
-        "recorded: not ported (the port has no tuner), refused",
+        help="pre-compile the bucket programs of every serve shape recorded "
+        "by `gol tune` before accepting traffic",
     )
     srv.add_argument(
         "--compile-cache", default=None, metavar="DIR",
@@ -2162,14 +2432,122 @@ def build_parser() -> argparse.ArgumentParser:
         "(default 5; --shard-across is refused)",
     )
     sbm.set_defaults(func=_submit)
+
+    tun = sub.add_parser(
+        "tune",
+        help="offline measured search: pick kernel/depth/block/bucket plans "
+        "and persist them to the plan cache (gol_tpu_torch/tune/)",
+    )
+    tun.add_argument(
+        "--shape", action="append", metavar="HxW",
+        help="engine grid shape(s) to tune (repeatable; default 256x256)",
+    )
+    tun.add_argument(
+        "--convention", choices=("c", "cuda", "both"), default="both",
+        help="loop-accounting convention(s) to tune (default: both)",
+    )
+    tun.add_argument("--mesh", default=None,
+                     help="tune the RxC-mesh context instead of single-device")
+    tun.add_argument(
+        "--gen-limit", type=int, default=64,
+        help="generations per timed trial (default 64: long enough that the "
+        "loop dominates dispatch, short enough to search exhaustively)",
+    )
+    tun.add_argument("--iters", type=int, default=5,
+                     help="timed trials per candidate (trimmed median)")
+    tun.add_argument(
+        "--quick", action="store_true",
+        help="prune the depth/block axes to their extremes (smoke/CI)",
+    )
+    tun.add_argument(
+        "--packed", action="store_true",
+        help="also tune the packed-state family (the --packed-io lane "
+        "consults its own plans; widths must divide by 32)",
+    )
+    tun.add_argument(
+        "--sparse-crossover", action="store_true",
+        help="measure the dense/sparse engine crossover (the JAX "
+        "package's): not ported (the sparse lane), refused",
+    )
+    tun.add_argument(
+        "--serve-board", default=None, metavar="HxW",
+        help="also tune the serve batcher's bucket geometry on this request "
+        "shape (recorded for `gol serve --warm-plans`)",
+    )
+    tun.add_argument(
+        "--plan-cache", default=None, metavar="FILE",
+        help="plan cache file (default: $GOL_PLAN_CACHE or "
+        "~/.cache/gol_tpu_torch/plans.json)",
+    )
+    tun.add_argument("--report", default=None, metavar="FILE",
+                     help="write the human-readable report here")
+    tun.add_argument(
+        "--provenance", action="store_true",
+        help="store the full per-candidate measurement series in the plan "
+        "cache, not just the winner",
+    )
+    tun.add_argument(
+        "--compile-cache", default=None, metavar="DIR",
+        help="build the kernels in DIR (and load them from it) while "
+        "searching",
+    )
+    tun.add_argument(
+        "--trace", default=None, metavar="DIR",
+        help="span tracing + flight recorder: per-trial events export to "
+        "DIR as Chrome trace JSON when the search ends (SIGUSR1 dumps a "
+        "long search's progress live)",
+    )
+    tun.set_defaults(func=_tune)
+
+    ftr = sub.add_parser(
+        "fleet-trace",
+        help="stitch the live span rings of a whole fleet (router + every "
+        "worker) into ONE clock-normalized Perfetto trace file with "
+        "cross-process flow arrows per job",
+    )
+    ftr.add_argument("--server", default="http://127.0.0.1:8000",
+                     help="the fleet router (or a single gol serve) URL")
+    ftr.add_argument("--servers", default=None, metavar="A,B,C",
+                     help="comma-separated router REPLICA URLs over one "
+                     "fleet (overrides --server): the export tries each "
+                     "in turn until one answers")
+    ftr.add_argument("-o", "--output", default="fleet-trace.json",
+                     help="stitched Chrome trace JSON path "
+                     "(default fleet-trace.json)")
+    ftr.set_defaults(func=_fleet_trace)
+
+    topp = sub.add_parser(
+        "top",
+        help="live terminal dashboard over a running gol serve: queue "
+        "depths, ring occupancy, latency percentiles, SLO burn rates, and "
+        "the live dispatch-gap ratio",
+    )
+    topp.add_argument("--server", default="http://127.0.0.1:8000")
+    topp.add_argument("--servers", default=None, metavar="A,B,C",
+                      help="comma-separated router REPLICA URLs over one "
+                      "fleet (overrides --server): each frame follows "
+                      "whichever replica answers, and the title names it")
+    topp.add_argument("--interval", type=float, default=2.0, metavar="S",
+                      help="seconds between refreshes (default 2)")
+    topp.add_argument(
+        "--iterations", type=int, default=0, metavar="N",
+        help="exit after N frames (default 0 = run until interrupted)",
+    )
+    topp.add_argument(
+        "--no-ansi", action="store_true",
+        help="plain frames, no screen clearing/colors (also automatic when "
+        "stdout is not a terminal)",
+    )
+    topp.set_defaults(func=_top)
     return parser
 
 
 # The JAX CLI's other subcommands. Until one is ported its name is refused,
 # not read as a width by `run`.
-NOT_PORTED = ("fleet", "router", "tune", "fleet-trace", "top")
+NOT_PORTED = ("fleet", "router")
 SUBCOMMANDS = ("run", "generate", "show", "trace-report", "history-report",
-               "slo-report", "compact", "batch", "serve", "submit", "gc")
+               "slo-report", "compact", "batch", "serve", "submit", "gc",
+               "tune", "fleet-trace", "top")
 
 
 def main(argv: list[str] | None = None) -> int:

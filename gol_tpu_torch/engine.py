@@ -69,9 +69,13 @@ that packs).
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import functools
+import logging
 import sys
+import threading
 from typing import Any
 
 import numpy as np
@@ -83,10 +87,12 @@ from gol_tpu_torch.io import bitpack
 from gol_tpu_torch.obs import registry as obs_registry
 from gol_tpu_torch.obs import trace as obs_trace
 from gol_tpu_torch.obs.profiler import fence
-from gol_tpu_torch.ops import (Kernel, packed_math, resolve_kernel, stencil_batch,
-                               stencil_packed)
+from gol_tpu_torch.ops import (Kernel, get_kernel, packed_math, resolve_kernel,
+                               stencil_batch, stencil_packed, with_temporal_depth)
 from gol_tpu_torch.parallel import collectives
 from gol_tpu_torch.parallel.mesh import Mesh, Topology, gather, split, topology_for, validate_grid
+
+logger = logging.getLogger(__name__)
 
 _TERMINATION_BLOCK = 16
 
@@ -237,7 +243,7 @@ def _block_generations(start, t, config: GameConfig, kernel: Kernel,
     exact = _exact_passes(start, kernel, topology)
     for j in range(passes):
         alive, similar = stencil_packed._derive_or_replay(
-            f[S * j: S * (j + 1)], lambda j=j: exact(j)
+            f[S * j: S * (j + 1)], lambda j=j: exact(j), T
         )
         a_all[T * j: T * j + T] = alive
         s_all[T * j: T * j + T] = similar
@@ -286,21 +292,22 @@ def _simulate_c_block(state, config, kernel, topology, gen0, counter0, bound,
 
 
 def _simulate_c(state, config: GameConfig, kernel: Kernel, topology: Topology,
-                resume=None):
+                resume=None, block: int | None = None):
     """C-variant loop (src/game.c:177-196): emptiness checked at the top of
     every generation; the similarity break does not increment the counter;
     the reported count is ``generation - 1``.
 
     ``resume`` is None for a whole run, or ``(gen0, counter0, seg_end)`` to
-    run one segment of a longer one. Returns ``(final, gen, counter,
-    stopped)``."""
+    run one segment of a longer one; ``block`` is a tuned plan's
+    generations per flag readback (``_TERMINATION_BLOCK`` when None).
+    Returns ``(final, gen, counter, stopped)``."""
     limit = config.gen_limit
     gen0, counter0, seg_end = resume if resume is not None else (1, 0, limit)
     bound = min(limit, seg_end)
     if kernel.fused is not None:
         final, gen, counter, alive, similar = _simulate_c_block(
             state, config, kernel, topology, gen0, counter0, bound,
-            _TERMINATION_BLOCK)
+            block or _TERMINATION_BLOCK)
         return final, gen, counter, not alive or similar or gen > limit
     freq, gen, counter = config.similarity_frequency, gen0, counter0
     cur = state
@@ -357,20 +364,20 @@ def _simulate_cuda_block(state, config, kernel, topology, gen0, counter0, bound,
 
 
 def _simulate_cuda(state, config: GameConfig, kernel: Kernel,
-                   topology: Topology, resume=None):
+                   topology: Topology, resume=None, block: int | None = None):
     """CUDA-variant loop (src/game_cuda.cu:222-276): 0-based exclusive
     bound; no emptiness test before the first evolve; the emptiness test
     runs on the new grid and breaks before the swap, so an empty exit keeps
     the last non-empty generation; the reported count is the raw counter.
-    ``resume`` as for ``_simulate_c``. Returns ``(final, gen, counter,
-    stopped)``."""
+    ``resume`` and ``block`` as for ``_simulate_c``. Returns ``(final, gen,
+    counter, stopped)``."""
     limit = config.gen_limit
     gen0, counter0, seg_end = resume if resume is not None else (0, 0, limit)
     bound = min(limit, seg_end)
     if kernel.fused is not None:
         final, gen, counter, stop = _simulate_cuda_block(
             state, config, kernel, topology, gen0, counter0, bound,
-            _TERMINATION_BLOCK)
+            block or _TERMINATION_BLOCK)
         return final, gen, counter, stop or gen >= limit
     freq, gen, counter = config.similarity_frequency, gen0, counter0
     cur, stop = state, False
@@ -401,8 +408,38 @@ def put_grid(grid, device=None, mesh: Mesh | None = None):
     return torch.from_numpy(arr).to(platform_env.resolve_device(device))
 
 
+def _apply_plan(tuned, kernel_obj: Kernel, local_h: int, local_w: int,
+                topology: Topology, packed_state: bool):
+    """Resolve a measured plan (``tune/``) against this build's shape.
+
+    Returns ``(tuned, kernel_obj)`` — the plan dropped (with a loud warning)
+    when its kernel cannot serve the shape or lane, the kernel swapped to
+    the planned one otherwise. Depth and block apply at the call site."""
+    if tuned is None or not tuned.kernel or tuned.kernel == kernel_obj.name:
+        return tuned, kernel_obj
+    if packed_state and tuned.kernel != "packed":
+        logger.warning(
+            "tuned plan names kernel %r, which cannot carry packed word "
+            "state; ignoring the plan", tuned.kernel,
+        )
+        return None, kernel_obj
+    try:
+        planned = get_kernel(tuned.kernel)
+    except ValueError:
+        planned = None
+    if planned is None or not planned.supports(local_h, local_w, topology):
+        logger.warning(
+            "tuned plan names kernel %r, which does not support a %dx%d "
+            "shard on a %dx%d topology; ignoring the plan",
+            tuned.kernel, local_h, local_w, *topology.shape,
+        )
+        return None, kernel_obj
+    return tuned, planned
+
+
 def _build_runner(shape, config: GameConfig, kernel: str, device, *,
-                  segmented: bool, packed_state: bool, mesh: Mesh | None = None):
+                  segmented: bool, packed_state: bool, mesh: Mesh | None = None,
+                  plan=None):
     """Shared scaffold of the four runner factories: shape, mesh and kernel
     validation, the kernels' build and load, and the simulate wrapper.
 
@@ -411,7 +448,14 @@ def _build_runner(shape, config: GameConfig, kernel: str, device, *,
     own carried state (packed words) converts once at the loop boundary.
     ``segmented`` runners take and return the resume scalars. With a
     ``mesh`` the runner takes and returns the row-major list of shards:
-    (local_h, local_w) cells or (local_h, local_w/32) words."""
+    (local_h, local_w) cells or (local_h, local_w/32) words.
+
+    ``plan`` is a measured execution plan (``tune.space.EnginePlan``:
+    kernel, temporal depth, termination block). The auto-selected lanes
+    (``kernel='auto'`` and the packed-state lane) consult the plan cache
+    (``tune/select.py``) when no plan is passed; an explicitly named kernel
+    never does. With no plan cached this builds exactly the plan-less
+    runner."""
     height, width = shape
     if height <= 0 or width <= 0:
         raise ValueError(f"grid shape must be positive, got {height}x{width}")
@@ -419,8 +463,16 @@ def _build_runner(shape, config: GameConfig, kernel: str, device, *,
     devices = list(mesh.devices) if mesh is not None else [
         platform_env.resolve_device(device)]
     local_h, local_w = validate_grid(height, width, topology)
+    tuned = plan
+    if tuned is None and (kernel == "auto" or packed_state):
+        from gol_tpu_torch.tune import select
+
+        tuned = select.engine_plan(shape, config, mesh,
+                                   packed_state=packed_state, device=devices[0])
     kobj = resolve_kernel("packed" if packed_state else kernel, local_h, local_w,
                           topology)
+    tuned, kobj = _apply_plan(tuned, kobj, local_h, local_w, topology,
+                              packed_state)
     if not kobj.supports(local_h, local_w, topology):
         hint = ("packed state has no fallback — use the unpacked lane"
                 if packed_state
@@ -430,6 +482,14 @@ def _build_runner(shape, config: GameConfig, kernel: str, device, *,
             f"local shard on a {topology.shape[0]}x{topology.shape[1]} "
             f"topology; {hint}"
         )
+    block = None
+    if tuned is not None:
+        block = tuned.termination_block or None
+        if tuned.temporal_depth:
+            try:
+                kobj = with_temporal_depth(kobj, tuned.temporal_depth)
+            except ValueError as err:
+                logger.warning("tuned plan temporal depth dropped: %s", err)
     if not kobj.supports_multi(local_h, local_w, topology):
         # The 8-generation pass only where the kernel takes the shard: a
         # block then runs every generation through ``fused``.
@@ -464,7 +524,7 @@ def _build_runner(shape, config: GameConfig, kernel: str, device, *,
         check(shards)
         carried = [encode(s) for s in shards] if encode is not None else shards
         final, gen, counter, stopped = simulate(carried, config, kobj, topology,
-                                                resume)
+                                                resume, block)
         if decode is not None:
             final = [decode(s) for s in final]
         return (final if mesh is not None else final[0]), gen, counter, stopped
@@ -719,6 +779,14 @@ class _BatchBuffers:
         self.flags = torch.zeros((block, state.shape[0], stencil_batch.STEP_FLAGS),
                                  dtype=torch.int32, device=state.device)
 
+    def first(self, n: int) -> "_BatchBuffers":
+        """The same storage over its first ``n`` boards (a ring drain of
+        fewer boards than the buffers hold); nothing is allocated."""
+        view = object.__new__(_BatchBuffers)
+        view.pool = [b[:n] for b in self.pool]
+        view.flags = self.flags[:, :n]
+        return view
+
     def scratch(self, start, cur):
         return next(b for b in self.pool if b is not start and b is not cur)
 
@@ -765,16 +833,17 @@ def _batch_alive(state: torch.Tensor) -> np.ndarray:
 
 
 def _batch_simulate_c(state0, limits, step, replay, check: bool, freq: int,
-                      block: int):
+                      block: int, bufs: _BatchBuffers | None = None):
     """Batched C-convention loop: per board the replay of
     ``_simulate_c_block`` (oracle._run_c is the semantics contract).
+    ``bufs`` are a ring's preallocated buffers (fresh ones when None).
     Returns ``(final, generations, exit_reasons)``."""
     b = state0.shape[0]
     gen = np.ones(b, np.int64)
     counter = np.zeros(b, np.int64)
     alive = _batch_alive(state0)
     similar = np.zeros(b, bool)
-    bufs = _BatchBuffers(state0, block)
+    bufs = bufs or _BatchBuffers(state0, block)
     cur = state0
     while True:
         run = alive & ~similar & (gen <= limits)
@@ -800,17 +869,18 @@ def _batch_simulate_c(state0, limits, step, replay, check: bool, freq: int,
 
 
 def _batch_simulate_cuda(state0, limits, step, replay, check: bool, freq: int,
-                         block: int):
+                         block: int, bufs: _BatchBuffers | None = None):
     """Batched CUDA-convention loop: per board the replay of
     ``_simulate_cuda_block``; a board's empty exit at in-block iteration i
     keeps its state i, replayed from the block's start state for that board
-    alone. Returns ``(final, generations, exit_reasons)``."""
+    alone. ``bufs`` as for ``_batch_simulate_c``. Returns ``(final,
+    generations, exit_reasons)``."""
     b = state0.shape[0]
     gen = np.zeros(b, np.int64)
     counter = np.zeros(b, np.int64)
     stop = np.zeros(b, bool)
     reason = np.full(b, EXIT_GEN_LIMIT, np.int64)
-    bufs = _BatchBuffers(state0, block)
+    bufs = bufs or _BatchBuffers(state0, block)
     cur = state0
     while True:
         run = ~stop & (gen < limits)
@@ -857,6 +927,12 @@ def _batch_step(mode: str, heights: torch.Tensor, widths: torch.Tensor):
         stencil_batch.batch_masked_step_into(src, dst, flags, steps,
                                              heights[lo:hi], widths[lo:hi], gen)
     return masked
+
+
+def _batch_block_length(temporal_depth: int) -> int:
+    """Generations per flag readback of the batched loop: the solo block,
+    rounded up to a multiple of ``temporal_depth``."""
+    return -(-_TERMINATION_BLOCK // temporal_depth) * temporal_depth
 
 
 def _board_replay(step):
@@ -907,36 +983,50 @@ def make_batch_runner(
     multiple of it, bit-exact at any value. The kernels build at the first
     launch (``batcher.warm`` pays it ahead of traffic).
     """
-    ph, pw = padded_shape
     _validate_batch_params(padded_shape, batch, mode, convention,
                            temporal_depth)
-    simulate_fn = _BATCH_SIMULATORS[convention]
-    block = -(-_TERMINATION_BLOCK // temporal_depth) * temporal_depth
-    if mode == "packed":
-        dtype, state_shape = torch.int32, (batch, ph, pw // stencil_packed.BITS)
-    else:
-        dtype, state_shape = torch.uint8, (batch, ph, pw)
+    block = _batch_block_length(temporal_depth)
+    dtype, board = _board_state(padded_shape, mode)
+    state_shape = (batch, *board)
 
     def run(boards: torch.Tensor, heights, widths, limits):
         if tuple(boards.shape) != state_shape or boards.dtype != dtype:
             raise ValueError(f"batch runner takes {dtype} {state_shape}, got "
                              f"{boards.dtype} {tuple(boards.shape)}")
-        vectors = [np.asarray(v, dtype=np.int64).reshape(-1)
-                   for v in (heights, widths, limits)]
-        if any(v.shape != (batch,) for v in vectors):
-            raise ValueError(f"heights, widths and limits take {batch} values each")
-        h, w, lim = vectors
-        if mode == "byte":
-            h, w = np.full(batch, ph), np.full(batch, pw)
-        if (h < 1).any() or (h > ph).any() or (w < 1).any() or (w > pw).any():
-            raise ValueError(f"board extents must lie in 1..{ph} x 1..{pw}")
-        dev = boards.device
-        step = _batch_step(mode, torch.from_numpy(h.astype(np.int32)).to(dev),
-                           torch.from_numpy(w.astype(np.int32)).to(dev))
-        return simulate_fn(boards, lim, step, _board_replay(step),
-                           check_similarity, similarity_frequency, block)
+        return _run_batch_loop(boards, (heights, widths, limits), mode,
+                               padded_shape, convention, check_similarity,
+                               similarity_frequency, block)
 
     return run
+
+
+def _board_state(padded_shape, mode: str):
+    """``(dtype, board shape)`` of one board of a batch stack."""
+    ph, pw = padded_shape
+    if mode == "packed":
+        return torch.int32, (ph, pw // stencil_packed.BITS)
+    return torch.uint8, (ph, pw)
+
+
+def _run_batch_loop(boards, vectors, mode, padded_shape, convention, check,
+                    freq, block, bufs=None):
+    """The batched loop over ``boards`` (B, ...) with per-board
+    ``(heights, widths, limits)``: ``(final, generations, exit_reasons)``."""
+    ph, pw = padded_shape
+    batch = boards.shape[0]
+    vectors = [np.asarray(v, dtype=np.int64).reshape(-1) for v in vectors]
+    if any(v.shape != (batch,) for v in vectors):
+        raise ValueError(f"heights, widths and limits take {batch} values each")
+    h, w, lim = vectors
+    if mode == "byte":
+        h, w = np.full(batch, ph), np.full(batch, pw)
+    if (h < 1).any() or (h > ph).any() or (w < 1).any() or (w > pw).any():
+        raise ValueError(f"board extents must lie in 1..{ph} x 1..{pw}")
+    dev = boards.device
+    step = _batch_step(mode, torch.from_numpy(h.astype(np.int32)).to(dev),
+                       torch.from_numpy(w.astype(np.int32)).to(dev))
+    return _BATCH_SIMULATORS[convention](boards, lim, step, _board_replay(step),
+                                         check, freq, block, bufs)
 
 
 @dataclasses.dataclass
@@ -1163,3 +1253,301 @@ def simulate_batch(
                         slots=staged.total, canvas=f"{ph}x{pw}",
                         mode=staged.mode):
         return complete_batch(dispatch_batch(staged, device))
+
+
+# ---------------------------------------------------------------------------
+# Resident ring engine (the serve/resident.py compute entry).
+#
+# ``dispatch_batch`` runs a batch's whole loop before it returns, so a
+# pipelined scheduler overlaps only staging and journaling with the card.
+# A ring runner owns, for one bucket geometry and batch rung, the device
+# storage of R slots of B boards and everything a drain needs, allocated
+# once and reused by every drain:
+#
+# - two slot storages of R*B boards (uint8 cells or packed int32 words) that
+#   take turns per drain. A refill (``fill``) copies a staged host operand
+#   through a pinned buffer into slot i of the open storage on the runner's
+#   copy stream and records an event, so slots refill while the previous
+#   drain computes. A storage is refilled only after the last drain that
+#   read it has finished its loop (a host-side event the drain thread sets
+#   after its final sync), so no refill writes a board an unfinished drain
+#   still reads;
+# - the batched loop's three scratch stacks and its flag buffer, sized for
+#   R*B boards (``_BatchBuffers``);
+# - a compute stream and a drain thread. A drain of k filled slots runs the
+#   batched loop ONCE over the first k*B boards of its storage: one B1 or B2
+#   launch per generation and one flag readback per block for the whole
+#   drain, never over R*B boards (JAX's compile-for-filled). It waits on the
+#   slots' copy events first. Each board keeps its own limit and extent, so
+#   per-slot results equal ``complete_batch`` of the same staging bit for
+#   bit. ``dispatch_ring`` returns at once; the drain thread runs the host
+#   loop (it must read flags back once per block), copies the finals to the
+#   host and resolves the drain, and ``complete_ring`` waits for that.
+#
+# On the CPU the same code runs with the kernels' plain versions, host
+# copies and no streams. The drain thread is started when a drain is posted
+# and exits when none is pending, so no thread outlives the work;
+# ``RingRunner.close`` joins it.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SlotFill:
+    """One refilled slot: the storage it went into, the copy's event on the
+    card (None on the CPU) and the pinned host buffer the copy reads, kept
+    alive until the event has passed."""
+
+    storage: int
+    slot: int
+    event: Any = None
+    pinned: Any = None
+
+
+class RingRunner:
+    """The device side of one resident ring (see the section comment)."""
+
+    def __init__(self, padded_shape: tuple[int, int], batch: int, ring: int,
+                 convention: str = Convention.C, check_similarity: bool = True,
+                 similarity_frequency: int = DEFAULT_CONFIG.similarity_frequency,
+                 mode: str = "masked", temporal_depth: int = 1, device=None,
+                 thread_name: str = "gol-ring-drain"):
+        if ring < 1:
+            raise ValueError(f"ring must be >= 1, got {ring}")
+        _validate_batch_params(padded_shape, batch, mode, convention,
+                               temporal_depth)
+        self.geometry = (tuple(padded_shape), batch, convention,
+                         check_similarity, similarity_frequency, mode,
+                         temporal_depth)
+        self.batch, self.ring = batch, ring
+        self.device = platform_env.resolve_device(device)
+        self._block = _batch_block_length(temporal_depth)
+        dtype, board = _board_state(padded_shape, mode)
+        self._storage = [torch.zeros((ring * batch, *board), dtype=dtype,
+                                     device=self.device) for _ in range(2)]
+        self._free = [threading.Event(), threading.Event()]
+        for ev in self._free:
+            ev.set()
+        self._open = 0  # the storage the next drain binds
+        self._bufs = _BatchBuffers(self._storage[0], self._block)
+        cuda = self.device.type == "cuda"
+        self._copy_stream = torch.cuda.Stream(self.device) if cuda else None
+        self._compute_stream = torch.cuda.Stream(self.device) if cuda else None
+        self._thread_name = thread_name
+        self._lock = threading.Lock()  # the pending drains and the thread
+        self._pending: collections.deque = collections.deque()
+        self._thread: threading.Thread | None = None
+        # Serialises fill-then-dispatch for callers without a lane of their
+        # own (``dispatch_ring`` without device slots).
+        self.host_lock = threading.RLock()
+
+    def fill(self, slot: int, operand: np.ndarray) -> SlotFill:
+        """Copy one staged host operand ((B, ...) cells or uint32 words)
+        into slot ``slot`` of the open storage; waits while the last drain
+        that read that storage is unfinished."""
+        if not 0 <= slot < self.ring:
+            raise ValueError(f"slot {slot} outside the ring of {self.ring}")
+        idx = self._open
+        view = self._storage[idx][slot * self.batch:(slot + 1) * self.batch]
+        arr = np.ascontiguousarray(operand)
+        if view.dtype == torch.int32:
+            arr = arr.astype(np.uint32, copy=False).view(np.int32)
+        host = torch.from_numpy(arr)
+        if tuple(host.shape) != tuple(view.shape):
+            raise ValueError(f"slot operand is {tuple(host.shape)}, the ring's "
+                             f"slots hold {tuple(view.shape)}")
+        self._free[idx].wait()
+        if self._copy_stream is None:
+            view.copy_(host)
+            return SlotFill(idx, slot)
+        pinned = host.pin_memory()
+        with torch.cuda.stream(self._copy_stream):
+            view.copy_(pinned, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._copy_stream)
+        return SlotFill(idx, slot, event, pinned)
+
+    def dispatch(self, sr: "StagedRing", fills: list[SlotFill]) -> "InflightRing":
+        """Bind the open storage's first ``len(sr.staged)`` slots to a drain
+        and post it to the drain thread; returns without blocking."""
+        idx = self._open
+        if [(f.storage, f.slot) for f in fills] != [
+                (idx, i) for i in range(len(sr.staged))]:
+            raise ValueError("a drain takes the open storage's slots 0..k-1, "
+                             "refilled in slot order")
+        self._free[idx].clear()
+        self._open = 1 - idx
+        inflight = InflightRing(staged_ring=sr, storage=idx, fills=fills)
+        with self._lock:
+            self._pending.append(inflight)
+            if self._thread is None:
+                self._thread = threading.Thread(
+                    target=self._drain_loop, name=self._thread_name,
+                    daemon=True)
+                self._thread.start()
+        return inflight
+
+    def _drain_loop(self) -> None:
+        while True:
+            with self._lock:
+                if not self._pending:
+                    self._thread = None
+                    return
+                inflight = self._pending.popleft()
+            self._run(inflight)
+
+    def _run(self, inflight: "InflightRing") -> None:
+        padded_shape, batch, convention, check, freq, mode, _ = self.geometry
+        staged = inflight.staged_ring.staged
+        n = len(staged) * batch
+        stream = self._compute_stream
+        try:
+            with (torch.cuda.stream(stream) if stream is not None
+                  else contextlib.nullcontext()):
+                for f in inflight.fills:
+                    if f.event is not None:
+                        stream.wait_event(f.event)
+                vectors = [np.concatenate([getattr(s, name) for s in staged])
+                           for name in ("h_arr", "w_arr", "limits")]
+                finals, gens, reasons = _run_batch_loop(
+                    self._storage[inflight.storage][:n], vectors, mode,
+                    padded_shape, convention, check, freq, self._block,
+                    self._bufs.first(n))
+                if mode == "packed":
+                    host = packed_math.words_to_numpy(finals)
+                else:
+                    host = finals.cpu().numpy()
+            inflight.finals, inflight.gens, inflight.reasons = host, gens, reasons
+        except BaseException as err:  # noqa: BLE001 - carried to the waiters
+            inflight.error = err
+            if stream is not None:
+                try:
+                    stream.synchronize()  # nothing may still read the slots
+                except RuntimeError:
+                    pass
+        finally:
+            self._free[inflight.storage].set()
+            inflight.done.set()
+
+    def close(self) -> None:
+        """Join the drain thread (it finishes the pending drains first)."""
+        with self._lock:
+            thread = self._thread
+        if thread is not None:
+            thread.join()
+
+
+@functools.lru_cache(maxsize=32)
+def make_ring_runner(
+    padded_shape: tuple[int, int],
+    batch: int,
+    ring: int,
+    convention: str = Convention.C,
+    check_similarity: bool = True,
+    similarity_frequency: int = DEFAULT_CONFIG.similarity_frequency,
+    mode: str = "masked",
+    temporal_depth: int = 1,
+    device=None,
+) -> RingRunner:
+    """The shared R-slot ring runner of one geometry on ``device`` (cached,
+    as JAX caches its compiled drain). A resident lane builds its own
+    ``RingRunner`` instead, so that its storage and drain thread are its
+    own."""
+    return RingRunner(padded_shape, batch, ring, convention, check_similarity,
+                      similarity_frequency, mode, temporal_depth, device)
+
+
+@dataclasses.dataclass
+class StagedRing:
+    """Up to ``ring`` staged batches bound to one ring runner."""
+
+    runner: Any
+    staged: list  # StagedBatch per FILLED slot, in slot order
+    ring: int
+
+
+@dataclasses.dataclass
+class InflightRing:
+    """One dispatched drain. The drain thread sets ``finals`` (the host
+    copy of its k*B final boards; uint32 words in the packed mode),
+    ``gens`` and ``reasons``, or ``error``, then ``done``."""
+
+    staged_ring: StagedRing
+    storage: int = 0
+    fills: list = dataclasses.field(default_factory=list)
+    finals: Any = None
+    gens: Any = None
+    reasons: Any = None
+    error: BaseException | None = None
+    done: threading.Event = dataclasses.field(default_factory=threading.Event)
+
+
+def stage_ring(staged_batches: list, ring: int, runner: RingRunner | None = None
+               ) -> StagedRing:
+    """Bind staged batches (same bucket geometry) to an R-slot ring runner:
+    ``runner``, or the shared one of their geometry."""
+    if not staged_batches:
+        raise ValueError("cannot stage an empty ring")
+    if len(staged_batches) > ring:
+        raise ValueError(
+            f"{len(staged_batches)} staged batches exceed the ring of {ring}"
+        )
+    head = staged_batches[0]
+    for s in staged_batches[1:]:
+        if (
+            s.padded_shape != head.padded_shape
+            or s.total != head.total
+            or s.mode != head.mode
+            or s.convention != head.convention
+            or s.check_similarity != head.check_similarity
+            or s.similarity_frequency != head.similarity_frequency
+            or s.temporal_depth != head.temporal_depth
+        ):
+            raise ValueError(
+                "staged batches in one ring must share the bucket geometry "
+                "(canvas, batch rung, mode, convention, similarity, depth)"
+            )
+    geometry = (tuple(head.padded_shape), head.total, head.convention,
+                head.check_similarity, head.similarity_frequency, head.mode,
+                head.temporal_depth)
+    if runner is None:
+        runner = make_ring_runner(*geometry[:2], ring, *geometry[2:])
+    elif runner.geometry != geometry or runner.ring < ring:
+        raise ValueError("the ring runner was built for another bucket "
+                         "geometry or a smaller ring")
+    return StagedRing(runner=runner, staged=list(staged_batches), ring=ring)
+
+
+def dispatch_ring(sr: StagedRing, device_slots: list | None = None
+                  ) -> InflightRing:
+    """Dispatch a staged ring; returns WITHOUT blocking on any result.
+
+    ``device_slots`` are the ``SlotFill``s a caller already made (the
+    resident lane's refill-while-the-drain-runs path: ``RingRunner.fill``
+    at submit time); absent, or None for a slot, the retained host operands
+    are copied in here — which is also the idempotent retry path, since the
+    host staging is never written."""
+    runner = sr.runner
+    with runner.host_lock:
+        fills = [
+            device_slots[i] if device_slots is not None
+            and device_slots[i] is not None
+            else runner.fill(i, s.operand)
+            for i, s in enumerate(sr.staged)
+        ]
+        return runner.dispatch(sr, fills)
+
+
+def complete_ring(inflight: InflightRing) -> list[list[BatchBoardResult]]:
+    """Wait for a drain's results; one ``BatchBoardResult`` list per filled
+    slot, in slot order (each list bit-identical to ``complete_batch`` of
+    the same staged batch)."""
+    inflight.done.wait()
+    if inflight.error is not None:
+        raise inflight.error
+    out = []
+    for i, staged in enumerate(inflight.staged_ring.staged):
+        lo, hi = i * staged.total, (i + 1) * staged.total
+        out.append(_collect_board_results(
+            staged, inflight.finals[lo:hi], inflight.gens[lo:hi],
+            inflight.reasons[lo:hi]))
+    return out

@@ -12,9 +12,8 @@ one thread (``gol-serve-sampler``) ticks every ``interval`` seconds and
    ``serve_cell_updates_total_<bucket>`` counters (actual board cells times
    generations really run); the sampler differentiates them per tick into
    achieved cell-updates/s and — when a marginal kernel rate is known for
-   the bucket (the JAX package's ``gol tune`` records one; the port has no
-   tuner, so its server passes none) — exports the live gap ratio as
-   gauges:
+   the bucket (``tune`` records one with the serve plan) — exports the
+   live gap ratio as gauges:
 
    - ``bucket_cell_updates_per_sec_<bucket>``   achieved, per bucket
    - ``dispatch_gap_ratio_<bucket>``            achieved / marginal

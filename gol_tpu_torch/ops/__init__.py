@@ -18,6 +18,11 @@ JAX package's split-edge kernels K9-K12 and its one-word-shard kernel K13
 shards, and a block then runs K5 once per generation. ``pallas`` and
 ``lax`` take every R x C mesh with their own per-generation forms.
 
+``with_temporal_depth`` regroups a kernel's generations per pass (the
+tuner's depth axis): depth 1 runs the packed kernel's one-generation step
+(K3) every generation, 2 and 4 compose that many of its launches into one
+pass, 8 is the built-in pass (K1).
+
 There is no fallback ladder: a kernel that fails to build or to launch
 raises, and the run stops.
 """
@@ -26,6 +31,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Callable
+
+import torch
 
 from gol_tpu_torch.ops import stencil_lax, stencil_packed, stencil_pallas
 from gol_tpu_torch.parallel import halo
@@ -90,6 +97,82 @@ _KERNELS = {
         load=stencil_packed.load_kernels,
     ),
 }
+
+
+def _composed_pass(fused: Callable, depth: int, exact: bool) -> Callable:
+    """``depth`` one-generation ``fused`` launches as one multi-generation
+    pass ``(src, dst, flags, topology)``: the intermediate generations go
+    into fresh buffers and their ``(alive, differs)`` flags into a
+    per-device buffer, from which the pass ORs into each shard's ``flags``
+    either the summary ``[in_alive, out_alive, diffT, diff1]`` or, with
+    ``exact``, ``alive[0:T] + differs[T:2T]`` (``stencil_packed``'s
+    layouts)."""
+    step = stencil_packed.STEP_FLAGS
+
+    def run(src, dst, flags, topology: Topology) -> None:
+        gens = {x.device: torch.zeros(step * depth, dtype=torch.int32,
+                                      device=x.device) for x in src}
+        cur = src
+        for i in range(depth):
+            out = dst if i == depth - 1 else [torch.empty_like(x) for x in cur]
+            fused(cur, out, [gens[x.device][step * i:step * (i + 1)]
+                             for x in cur], topology)
+            cur = out
+        for x, f in zip(src, flags):
+            g = gens[x.device]
+            if exact:
+                f[:depth] |= g[0::step]
+                f[depth:2 * depth] |= g[1::step]
+            else:
+                f[:stencil_packed.SUMMARY_FLAGS] |= torch.stack([
+                    x.ne(0).any().to(torch.int32), g[-step], g[-step + 1], g[1]])
+
+    return run
+
+
+def with_temporal_depth(kernel: Kernel, depth: int) -> Kernel:
+    """A depth-``T`` temporally-grouped variant of ``kernel`` (the JAX
+    package's ``ops.with_temporal_depth``).
+
+    The blocked loops consume ``fused_multi`` at whatever ``multi_gens`` the
+    kernel declares, and the replay is oblivious to the grouping
+    (``engine._block_generations``), so any depth is bit-exact with the
+    per-generation loop — depth is a performance knob, a tunable axis
+    (``tune/space.py``):
+
+    - ``depth == kernel.multi_gens`` with a native ``fused_multi`` returns
+      the kernel unchanged (the packed kernel's 8-generation pass, K1);
+    - ``depth == 1`` strips ``fused_multi``: one fused launch per generation
+      (K3 for the packed kernel), flags recorded per step;
+    - other depths compose ``depth`` one-generation launches into one
+      ``fused_multi`` call (and the matching ``exact_multi``), valid
+      wherever the per-step kernel runs (``supports_multi`` becomes the
+      per-step ``supports``).
+
+    Kernels without a fused pass (byte ``lax``) admit depth 1 only.
+    """
+    if depth < 1:
+        raise ValueError(f"temporal depth must be >= 1, got {depth}")
+    if depth == kernel.multi_gens and kernel.fused_multi is not None:
+        return kernel
+    if depth == 1:
+        if kernel.fused_multi is None:
+            return kernel
+        return dataclasses.replace(
+            kernel, fused_multi=None, exact_multi=None, multi_gens=1,
+            supports_multi=lambda height, width, topology: False,
+        )
+    if kernel.fused is None:
+        raise ValueError(
+            f"kernel {kernel.name!r} has no fused pass; temporal depth "
+            f"{depth} needs one (only depth 1 is valid)"
+        )
+    return dataclasses.replace(
+        kernel,
+        fused_multi=_composed_pass(kernel.fused, depth, exact=False),
+        exact_multi=_composed_pass(kernel.fused, depth, exact=True),
+        multi_gens=depth, supports_multi=kernel.supports,
+    )
 
 
 def get_kernel(name: str) -> Kernel:

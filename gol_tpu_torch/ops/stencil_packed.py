@@ -626,16 +626,16 @@ def summary_needs_replay(summary) -> bool:
     return (in_alive and not out_alive) or (not diff_t and diff_1)
 
 
-def _derive_or_replay(summary, exact_thunk):
-    """Per-generation ``(alive, similar)`` lists from a fast pass's summary,
-    exact always: derived from the summary, or ``exact_thunk()`` (the exact
-    pass over the same input) where ``summary_needs_replay``. Each transition
-    happens at most once per run, so the replay runs at most twice."""
+def _derive_or_replay(summary, exact_thunk, gens: int = TEMPORAL_GENS):
+    """Per-generation ``(alive, similar)`` lists from the summary of a fast
+    pass of ``gens`` generations, exact always: derived from the summary, or
+    ``exact_thunk()`` (the exact pass over the same input) where
+    ``summary_needs_replay``. Each transition happens at most once per run,
+    so the replay runs at most twice."""
     if summary_needs_replay(summary):
         return exact_thunk()
-    T = TEMPORAL_GENS
     out_alive, diff_t = int(summary[1]), int(summary[2])
-    return [out_alive] * T, [1 - diff_t] * T
+    return [out_alive] * gens, [1 - diff_t] * gens
 
 
 def _derived_vectors(summary: torch.Tensor, exact_thunk):

@@ -17,10 +17,13 @@ The port of ``gol_tpu/serve/``:
                    order, cancel, the result cache's consult and in-flight
                    coalescing, per-batch retry, worker pools and the
                    pipelined dispatcher/completer pair;
+- ``resident``   — the resident ring lanes (``serve --resident-ring R``):
+                   per-bucket rings of preallocated slots over
+                   ``engine.RingRunner``, refilled on a copy stream while a
+                   drain runs on the lane's thread;
 - ``server``     — the stdlib HTTP API over the scheduler (the ``serve``
                    subcommand; ``submit`` is its client).
 
-The resident ring (``gol_tpu/serve/resident.py``) is not ported yet
-(ROADMAP.md Queue 1). ``jobs``, ``compaction`` and ``metrics`` are
-numpy/stdlib-only; torch comes in with ``batcher``.
+``jobs``, ``compaction`` and ``metrics`` are numpy/stdlib-only; torch
+comes in with ``batcher``.
 """

@@ -15,12 +15,9 @@ their canvas take the packed kernel (B1) where the width packs, padded
 boards the masked kernel (B2). Batch sizes round up the ``BATCH_SIZES``
 ladder, with inert zero boards in the padding slots.
 
-The geometry comes from ``_plan()``. The JAX package consults a plan that
-``gol tune`` measured and cached (``gol_tpu/tune``); the port has no tuner
-yet (ROADMAP.md Queue 1 item 6), so its plan is always the built-in
-``DEFAULT_SERVE_PLAN`` — quantum 32, the full ladder, depth 1 — and a
-tuned plan moves the JAX package's buckets, not the port's (a known
-difference, test-pinned).
+The geometry comes from ``_plan()``: the serve plan ``tune`` measured and
+cached (``tune/select.serve_plan``), or the built-in one — quantum 32, the
+full ladder, depth 1 — when none was, byte-identically.
 """
 
 from __future__ import annotations
@@ -50,37 +47,41 @@ MAX_BATCH = BATCH_SIZES[-1]
 SPARSE_KERNEL = "sparse"
 
 
-@dataclasses.dataclass(frozen=True)
-class ServePlan:
-    """Serve-batcher geometry (``gol_tpu/tune/space.py``'s ``ServePlan``):
-    the quantum, the batch ladder and the batched temporal depth."""
-
-    pad_quantum: int = PAD_QUANTUM
-    batch_ladder: tuple[int, ...] = BATCH_SIZES
-    temporal_depth: int = 1
+_PLAN = None  # resolved once per process; tests reset via _reset_plan()
 
 
-# The JAX package's built-in plan: what "no plan" means there.
-DEFAULT_SERVE_PLAN = ServePlan()
+def _plan():
+    global _PLAN
+    if _PLAN is None:
+        from gol_tpu_torch.tune import select
+
+        _PLAN = select.serve_plan(MAX_BATCH)
+    return _PLAN
 
 
-def _plan() -> ServePlan:
-    return DEFAULT_SERVE_PLAN
+def _reset_plan() -> None:
+    """Forget the consulted plan (tests, and an in-process tune-then-serve)."""
+    global _PLAN
+    _PLAN = None
 
 
-def pad_dim(n: int) -> int:
-    """Round a board extent up to the bucket quantum."""
-    quantum = _plan().pad_quantum
+def pad_dim(n: int, plan=None) -> int:
+    """Round a board extent up to the bucket quantum.
+
+    ``plan`` (a tune ``ServePlan``) overrides the consulted geometry — the
+    tuner's search measures THROUGH these helpers, so the geometry it times
+    is by construction the geometry the server later runs."""
+    quantum = (plan or _plan()).pad_quantum
     return max(quantum, -(-n // quantum) * quantum)
 
 
-def pad_batch(n: int) -> int:
+def pad_batch(n: int, plan=None) -> int:
     """Round a job count (1..MAX_BATCH) up the plan's batch-size ladder:
     the padded size the runner actually runs, also the denominator of the
     occupancy metric (occupancy never exceeds 1)."""
     if not 1 <= n <= MAX_BATCH:
         raise ValueError(f"batch count must be in [1, {MAX_BATCH}], got {n}")
-    ladder = _plan().batch_ladder
+    ladder = (plan or _plan()).batch_ladder
     return ladder[bisect.bisect_left(ladder, n)]
 
 

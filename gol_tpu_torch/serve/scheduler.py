@@ -4,8 +4,9 @@ The port's copy of ``gol_tpu/serve/scheduler.py``: the same admission
 errors, flush rules, dispatch order, cancel, result cache consult and
 in-flight coalescing, per-batch retry, worker pools, pipelined
 dispatcher/completer pair and journal ordering, with the JAX package's
-messages, metric names and journal records. The resident ring is not
-ported (``resident_ring >= 2`` raises; ROADMAP.md Queue 1).
+messages, metric names and journal records, and the resident ring
+(``resident_ring >= 2``: ``serve/resident.py``'s per-bucket ring lanes
+under the pipelined pair, with its ``gol-serve-journal`` writer thread).
 
 The queueing half of the serving story. Jobs arrive one at a time; the
 scheduler pools them per padding bucket and flushes a bucket to the device
@@ -58,7 +59,10 @@ dispatches; a *completer* fetches the results, journals, and finalizes
 ``engine.dispatch_batch`` runs the whole blocked loop before it returns
 (one flag readback per 16-generation block), so the dispatcher holds each
 batch for its run and what overlaps is staging and journaling, not device
-work. Everything observable is preserved: exactly-once journal semantics, admission caps, drain, and
+work — unless the resident ring is on (``resident_ring >= 2``), whose
+dispatch refills a ring slot and returns, with the drain's loop on the
+lane's own thread. Everything observable is preserved: exactly-once
+journal semantics, admission caps, drain, and
 per-batch retry (the retry wraps dispatch+complete of one batch — a
 failed completion re-dispatches from the retained host staging), and
 COMPLETION order, not submission order, drives ``inflight_batches``. At
@@ -120,13 +124,6 @@ class DeadlineExceeded(Exception):
     every-accepted-job-terminates contract holds) and ``GET /result``
     answers 504 with the job's timeline attached instead of 410."""
 
-
-# The resident ring (gol_tpu/serve/resident.py) needs its own CUDA design.
-RESIDENT_RING_REFUSAL = (
-    "the resident ring (--resident-ring >= 2) is not ported yet (ROADMAP.md "
-    "Queue 1: the resident ring slice); serve without it, or with "
-    "python -m gol_tpu"
-)
 
 # Dispatch retry: a transient device/runtime hiccup retries the batch twice
 # more with short backoff; anything else fails the jobs immediately.
@@ -194,8 +191,19 @@ class Scheduler:
             raise ValueError(
                 f"resident_ring must be 0 (off) or >= 2, got {resident_ring}"
             )
-        if resident_ring > 1:
-            raise ValueError(RESIDENT_RING_REFUSAL)
+        if resident_ring > 1 and pipeline_depth < 2:
+            raise ValueError(
+                "the resident ring rides the dispatcher/completer pipeline; "
+                "set pipeline_depth >= 2 (>= 2x the ring keeps the device "
+                "stream fed)"
+            )
+        if resident_ring > 1 and (
+            run_batch is not batcher.run_batch or split_batch is not None
+        ):
+            raise ValueError(
+                "resident_ring requires the default batcher engine; an "
+                "injected run_batch/split_batch has no ring lane"
+            )
         self.journal = journal
         self.metrics = metrics or Metrics()
         self.max_queue_depth = max_queue_depth
@@ -219,11 +227,29 @@ class Scheduler:
         # Auto-wired to the batcher's split only when run_batch is the
         # default batcher entry: an injected run_batch (tests, alternative
         # engines) has no split, so the completer runs it whole — pipeline
-        # semantics hold, only the stage/compute overlap is lost.
-        if split_batch is None and run_batch is batcher.run_batch:
+        # semantics hold, only the stage/compute overlap is lost. With
+        # resident_ring on, the split's dispatch/complete ride the
+        # per-bucket ring lanes (serve/resident.py) instead of running one
+        # batch per dispatch.
+        self.resident_ring = resident_ring
+        self._resident = None
+        if resident_ring > 1:
+            from gol_tpu_torch.serve.resident import ResidentEngine
+
+            self._resident = ResidentEngine(resident_ring, clock=clock)
+            split_batch = self._resident.split()
+        elif split_batch is None and run_batch is batcher.run_batch:
             split_batch = (batcher.stage, batcher.dispatch, batcher.complete)
         self._split = split_batch
         self._window = None  # dispatcher->completer handoff (pipelined mode)
+        # Resident mode detaches terminal journaling from the completer's
+        # critical path: record appends ride a dedicated writer thread. The
+        # durability contract is unchanged — a done record was always
+        # allowed to be lost to a crash (the re-run is idempotent); stop()
+        # drains the queue before returning, so a clean shutdown loses
+        # nothing.
+        self._journal_window = None
+        self._journal_thread = None
         self._clock = clock
         # The tiered result cache (cache.ResultCache) or None.
         # _inflight_fp maps a fingerprint to its LEADER job (queued or
@@ -248,12 +274,21 @@ class Scheduler:
             if self._threads:
                 return
             self._stopped = False
+            if self._resident is not None:
+                self._resident.reopen()  # state provider (no-op first time)
             if self.pipeline_depth > 1:
                 # Pipelined dispatch: one dispatcher (claim + stage +
                 # dispatch) and one completer (readback + journal), with at
                 # most pipeline_depth batches between claim and completion.
                 from gol_tpu_torch.pipeline.inflight import Handoff
 
+                if self._resident is not None and self.journal is not None:
+                    self._journal_window = Handoff()
+                    self._journal_thread = threading.Thread(
+                        target=self._journal_loop, name="gol-serve-journal",
+                        daemon=True,
+                    )
+                    self._journal_thread.start()
                 self._window = Handoff()
                 for name, target in (
                     ("gol-serve-dispatch", self._dispatch_loop),
@@ -280,6 +315,27 @@ class Scheduler:
             threads, self._threads = self._threads, []
         for t in threads:
             t.join(timeout=5)
+        if self._journal_window is not None:
+            # After the completer is gone nothing enqueues: close the
+            # window and let the writer drain every pending record — even
+            # a drain=False stop flushes the journal before returning.
+            # (If a completer join above timed out, its late enqueue races
+            # the close — _journal_terminal falls back to an inline append
+            # in that case, so the record still lands.)
+            self._journal_window.close()
+            self._journal_thread.join(timeout=30)
+            if self._journal_thread.is_alive():
+                logger.warning(
+                    "gol-serve-journal did not drain within 30s; pending "
+                    "done records may be lost (restart re-runs those jobs)"
+                )
+            self._journal_window = None
+            self._journal_thread = None
+        if self._resident is not None:
+            # After the threads are gone: drop the recorder state provider,
+            # join the lanes' drain threads and forget the lanes (ring
+            # hygiene; start() re-registers).
+            self._resident.close()
         return drained
 
     def drain(self, timeout: float | None = None) -> bool:
@@ -891,8 +947,9 @@ class Scheduler:
         )
 
     def _dispatch_loop(self) -> None:
-        """Claim -> stage -> dispatch (the port's dispatch runs the batch's
-        loop; the completer fetches and crops).
+        """Claim -> stage -> dispatch (the per-batch dispatch runs the
+        batch's loop, a resident lane's refills a slot and returns; the
+        completer fetches and crops).
 
         Claims only while fewer than ``pipeline_depth`` batches are between
         claim and completion (the bounded in-flight window); a wait forced
@@ -1031,11 +1088,26 @@ class Scheduler:
         restart (idempotent), logged loudly and counted so operators see the
         journal degrading before that.
 
-        The append runs inline on the completing thread (the JAX
-        package's resident lanes move it to a writer thread; the port has
-        no resident lanes)."""
+        In resident mode the append rides the ``gol-serve-journal`` writer
+        thread so the completer's readbacks overlap the fsyncs; everywhere
+        else (the classic worker and the plain pipeline) it runs inline."""
         if self.journal is None:
             return
+        window = self._journal_window  # snapshot: stop() may null the field
+        if window is not None:
+            try:
+                window.put((record_fn, job_or_batch))
+            except RuntimeError:
+                # stop() closed the window after a join timeout while this
+                # completion was still in flight — append inline rather
+                # than drop the record (or kill the completer).
+                self._journal_append(record_fn, job_or_batch)
+                return
+            self.metrics.set_gauge("journal_queue_depth", len(window))
+            return
+        self._journal_append(record_fn, job_or_batch)
+
+    def _journal_append(self, record_fn, job_or_batch) -> None:
         jobs = job_or_batch if isinstance(job_or_batch, list) else [job_or_batch]
         try:
             record_fn(self.journal, job_or_batch)
@@ -1049,10 +1121,25 @@ class Scheduler:
             )
             return
         # The timeline's final milestone: the terminal record is durable
-        # (fsynced).
+        # (fsynced) — on both journal lanes, inline and the resident writer
+        # thread, where it visibly trails `done`.
         t = self._clock()
         for j in jobs:
             j.timeline["journaled"] = t
+
+    def _journal_loop(self) -> None:
+        """The resident lanes' journal writer: drains (record_fn, jobs)
+        items until the window closes, then exits — stop() joins it, so a
+        clean shutdown (drained or not) flushes every pending record. The
+        window is captured once: a stop() that times out waiting and nulls
+        the field cannot make a still-draining writer drop queued items."""
+        window = self._journal_window
+        while True:
+            item = window.get()
+            if item is None:
+                return
+            self._journal_append(*item)
+            self.metrics.set_gauge("journal_queue_depth", len(window))
 
     # -- introspection -----------------------------------------------------
 
@@ -1070,6 +1157,8 @@ class Scheduler:
                 "draining": self._draining,
                 "jobs": len(self._jobs),
             }
+        if self._resident is not None:
+            out["resident_rings"] = self._resident.state()
         return out
 
 
@@ -1080,6 +1169,5 @@ __all__ = [
     "Draining",
     "JournalUnavailable",
     "QueueFull",
-    "RESIDENT_RING_REFUSAL",
     "Scheduler",
 ]

@@ -2,12 +2,12 @@
 
 The port's copy of ``gol_tpu/serve/server.py``: the same endpoints, status
 codes, error JSON and ``/metrics`` text as the JAX package's server
-(test-pinned), so a client of either package talks to it. Three
+(test-pinned), so a client of either package talks to it. Two
 differences: a body with ``rle`` (a sparse job) answers 400 with the
-batcher's sparse refusal; ``POST /shard/<leg>`` answers 400 (the sharded
-single-job lane is not ported, ROADMAP.md Queue 1 item 9); and the
-dispatch-gap monitor has no tuned marginal rates (the port has no tuner),
-which is the JAX server's own answer when no plan was measured.
+batcher's sparse refusal, and ``POST /shard/<leg>`` answers 400 (the
+sharded single-job lane is not ported, ROADMAP.md Queue 1 item 9). The
+dispatch-gap monitor reads the marginal rates of the port's own plan
+cache (``tune/select.py``).
 
 Endpoints (all JSON unless noted):
 
@@ -140,11 +140,18 @@ def _decode_cells(cells, width: int, height: int):
 
 def _tuned_marginal_rates() -> dict[str, float]:
     """The tuned plan's recorded marginal kernel rates for the dispatch-gap
-    monitor: {} — the port has no tuner (ROADMAP.md Queue 1 item 6), and {}
-    is the JAX server's own answer when no plan was measured (a server with
+    monitor, degrading to {} like every other cache problem (a server with
     no tuned marginals still serves; it just has no roofline to compare
     against)."""
-    return {}
+    try:
+        from gol_tpu_torch.tune import select
+
+        return select.marginal_rates()
+    except Exception:  # noqa: BLE001 - cache trouble must not block boot
+        logger.warning("could not load tuned marginal rates; the "
+                       "dispatch-gap monitor will report rates only",
+                       exc_info=True)
+        return {}
 
 
 # POST /shard/<leg>: the sharded single-job lane's worker RPCs.
@@ -272,6 +279,13 @@ class GolServer:
         # sampler (one thread, one cadence — the gol-serve-sampler).
         self.sampler.add_hook(self.storage_tick)
         self._sample_interval = sample_interval
+        # The capacity weight this worker advertises on /healthz: the tuned
+        # per-bucket marginal rates folded to one number — the mean. None
+        # when untuned (key omitted).
+        rates = self.sampler.marginal_rates
+        self.advertised_weight = (
+            sum(rates.values()) / len(rates) if rates else None
+        )
         self.replayed = 0
         self._replay_results = {}
         self._replay_failed = {}
@@ -889,10 +903,12 @@ def _make_handler(server: GolServer):
                     "registry": obs_registry.default().snapshot(),
                 })
             elif path == "/healthz":
-                # JAX adds the tuned plan's capacity weight here; the port
-                # has no tuner, so the key is omitted, as on an untuned
-                # JAX worker.
                 payload = {"ok": True, "stats": server.scheduler.stats()}
+                # The tuned marginal rate of this host's plan cache, when
+                # one was measured; absent (the untuned default), the key
+                # is omitted.
+                if server.advertised_weight is not None:
+                    payload["weight"] = server.advertised_weight
                 self._reply(200, payload)
             else:
                 self._reply(404, {"error": f"no such endpoint {path}"})

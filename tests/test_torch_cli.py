@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 
 from gol_tpu import cli as jax_cli
-from gol_tpu_torch import cli
+from gol_tpu_torch import cli, oracle
+from gol_tpu_torch.config import GameConfig
 from gol_tpu_torch.io import text_grid
 from gol_tpu_torch.variants import VARIANTS
 
@@ -766,7 +767,8 @@ def _options(parser) -> list:
         for a in parser._actions)
 
 
-@pytest.mark.parametrize("name", ["serve", "submit", "gc"])
+@pytest.mark.parametrize("name", ["serve", "submit", "gc", "tune", "top",
+                                  "fleet-trace"])
 def test_server_lane_parsers_match_jax(name):
     """The same option strings and defaults as JAX's parsers; the options
     whose lanes are not ported are there too, and refused when used."""
@@ -783,11 +785,8 @@ def _serve_rc(main, args, capsys):
 
 
 @pytest.mark.parametrize("flags, refusal", [
-    (["--resident-ring", "2"], "resident ring"),
-    (["--resident-ring", "8", "--pipeline-depth", "16"], "resident ring"),
-    (["--warm-plans"], "--warm-plans needs the tuner"),
     (["--cache-payload", "ts", "--result-cache"], "'ts' cache payload"),
-], ids=["ring_2", "ring_8", "warm_plans", "ts"])
+], ids=["ts"])
 def test_serve_refusals_exit_1_naming_the_roadmap(flags, refusal, capsys,
                                                   tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
@@ -796,6 +795,46 @@ def test_serve_refusals_exit_1_naming_the_roadmap(flags, refusal, capsys,
     assert err.startswith("gol: ") and refusal in err and err.count("\n") == 1
     assert "ROADMAP.md" in err or "not ported" in err
     assert list(tmp_path.iterdir()) == []
+
+
+@pytest.mark.parametrize("flags", [
+    ["--resident-ring", "8", "--pipeline-depth", "16"],
+    ["--resident-ring", "2", "--pipeline-depth", "2", "--journal-dir", "j"],
+    ["--warm-plans"],
+], ids=["ring_8", "ring_2", "warm_plans"])
+def test_serve_lanes_run(flags, capsys, tmp_path, monkeypatch):
+    """The lanes the port once refused run: the server boots with them (its
+    ``serve_forever`` stands in for traffic: one job through the scheduler,
+    then a drained shutdown) and exits 0."""
+    from gol_tpu_torch.serve.jobs import new_job
+    from gol_tpu_torch.serve.server import GolServer
+    from gol_tpu_torch.tune import select
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("GOL_PLAN_CACHE", str(tmp_path / "plans.json"))
+    select.reset()
+    seen = {}
+
+    def serve_forever(self):
+        self.start()
+        board = text_grid.generate(32, 32, seed=3)
+        job = self.scheduler.submit(new_job(32, 32, board, gen_limit=20))
+        assert self.scheduler.drain(timeout=60)
+        seen["ring"] = self.scheduler.resident_ring
+        seen["result"] = job.result
+        self.shutdown(drain=True)
+
+    monkeypatch.setattr(GolServer, "serve_forever", serve_forever)
+    rc, out, err = _serve_rc(cli.main, flags, capsys)
+    select.reset()
+    assert rc == 0 and out.startswith("serving on http://127.0.0.1:")
+    ring = int(flags[1]) if flags[0] == "--resident-ring" else 0
+    assert seen["ring"] == ring
+    solo = oracle.run(text_grid.generate(32, 32, seed=3), GameConfig(gen_limit=20))
+    assert np.array_equal(seen["result"].grid, solo.grid)
+    assert seen["result"].generations == solo.generations
+    if flags == ["--warm-plans"]:
+        assert err.startswith("no tuned serve shapes to warm")
 
 
 def test_submit_shard_across_is_refused(capsys, tmp_path):
@@ -813,7 +852,7 @@ def test_submit_shard_across_is_refused(capsys, tmp_path):
     ["--journal-retain", "0"], ["--disk-reserve", "-1"], ["--disk-reserve", "5"],
     ["--metrics-history"], ["--metrics-history", "H", "--sample-interval", "0"],
     ["--history-bytes", "100"], ["--retry-budget", "-1"],
-    ["--resident-ring", "1"], ["--resident-ring", "-1"],
+    ["--resident-ring", "1"], ["--resident-ring", "-1"], ["--resident-ring", "2"],
     ["--max-batch", "65"], ["--pipeline-depth", "2", "--max-inflight", "2"],
     ["--cache-payload", "zarr"],
 ], ids=lambda f: "_".join(f).strip("-").replace("--", ""))

@@ -7,6 +7,9 @@ the same tests) where torch sees no CUDA card. Run on the card with
 generation counts must match exactly.
 """
 
+import os
+import tempfile
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +23,11 @@ from gol_tpu_torch.ops import stencil_packed as sp
 from gol_tpu_torch.ops import stencil_pallas as spl
 
 pytestmark = pytest.mark.cuda
+
+# The card runs these with --noconftest, so the suite's private plan cache
+# is set here: no plan cached on the machine may reroute the runners.
+os.environ["GOL_PLAN_CACHE"] = os.path.join(
+    tempfile.mkdtemp(prefix="gol_cuda_plans_"), "plans.json")
 
 # bandt_kernel's tile: a strip of TILE_WORDS interior words per warp, split
 # into bands of at least TILE_ROWS rows (test_tile_shapes_surround_the_strip
@@ -594,3 +602,80 @@ def test_server_serves_the_trio_on_the_card(card, pipeline_depth, monkeypatch,
     finally:
         srv.shutdown()
     assert sb.LAUNCHES["batch_packed"] > before
+
+
+# ---------------------------------------------------------------------------
+# The resident ring and the tuner's temporal depth on the card.
+
+
+def _ring_stagings(card, n, batch, side, gen_limit, seed):
+    boards = [[text_grid.generate(side, side, seed=seed + batch * i + k)
+               for k in range(batch)] for i in range(n)]
+    config = GameConfig(gen_limit=gen_limit)
+    return [engine.stage_batch(b, config, padded_shape=(256, 256),
+                               pad_batch_to=batch) for b in boards]
+
+
+def _same_results(got, want):
+    for g, w in zip(got, want):
+        assert np.array_equal(g.grid, w.grid)
+        assert (g.generations, g.exit_reason) == (w.generations, w.exit_reason)
+
+
+@pytest.mark.parametrize("side", [256, 250], ids=["packed", "masked"])
+def test_ring_drain_equals_dispatch_batch_per_slot(card, side):
+    """A drain of 3 filled slots of a 4-ring: one batched loop over 3 x 8
+    boards (B1 or B2 once per generation), each slot equal to its own
+    ``dispatch_batch`` on the card."""
+    key = "batch_packed" if side == 256 else "batch_masked"
+    stagings = _ring_stagings(card, 3, 8, side, 40, seed=11)
+    runner = engine.RingRunner((256, 256), 8, 4, mode=stagings[0].mode,
+                               device=card)
+    before = sb.LAUNCHES[key]
+    slots = engine.complete_ring(engine.dispatch_ring(
+        engine.stage_ring(stagings, 4, runner=runner)))
+    assert sb.LAUNCHES[key] - before == 40  # once per generation, all slots
+    runner.close()
+    for slot, s in zip(slots, stagings):
+        _same_results(slot, engine.complete_batch(engine.dispatch_batch(s, card)))
+
+
+def test_refill_overlapping_a_running_drain_leaves_its_results(card):
+    """Drain A runs (64 boards, 1000 generations) while B is refilled into
+    the other storage and dispatched, and C's refill of A's storage waits
+    for A: every drain equals its batch's own run."""
+    stagings = _ring_stagings(card, 3, 64, 256, 1000, seed=21)
+    runner = engine.RingRunner((256, 256), 64, 1, mode="packed", device=card)
+    rings = [engine.stage_ring([s], 1, runner=runner) for s in stagings]
+    inflight = [engine.dispatch_ring(rings[0])]
+    assert not inflight[0].done.is_set()  # dispatch returned mid-drain
+    inflight += [engine.dispatch_ring(r) for r in rings[1:]]
+    results = [engine.complete_ring(i)[0] for i in inflight]
+    runner.close()
+    for got, s in zip(results, stagings):
+        _same_results(got, engine.complete_batch(engine.dispatch_batch(s, card)))
+
+
+@pytest.mark.parametrize("convention", [Convention.C, Convention.CUDA])
+def test_temporal_depth_2_equals_depth_8_at_512(card, convention):
+    from gol_tpu_torch.tune.space import EnginePlan
+
+    config = GameConfig(gen_limit=100, convention=convention)
+    grid = text_grid.generate(512, 512, seed=5)
+    outs = {}
+    for depth in (2, 8):
+        runner = engine._build_runner(
+            (512, 512), config, "packed", card, segmented=False,
+            packed_state=False, plan=EnginePlan("packed", depth, 16))
+        before = dict(sp.LAUNCHES)
+        final, gens = runner(engine.put_grid(grid, card))
+        launched = {k: sp.LAUNCHES[k] - before[k] for k in before}
+        outs[depth] = (final.cpu().numpy(), gens)
+        if depth == 2:
+            assert launched["band"] >= 96 and launched["bandt_fast"] == 0
+        else:
+            assert launched["bandt_fast"] > 0
+    assert np.array_equal(outs[2][0], outs[8][0]) and outs[2][1] == outs[8][1]
+    want = oracle.run(grid, config)
+    assert np.array_equal(outs[2][0], want.grid)
+    assert outs[2][1] == want.generations

@@ -20,6 +20,7 @@ from gol_tpu_torch import engine
 from gol_tpu_torch.io import bitpack, text_grid
 from gol_tpu_torch.resilience import faults
 from gol_tpu_torch.serve import batcher, compaction, jobs
+from gol_tpu_torch.tune import space
 
 CONVENTIONS = ["c", "cuda"]
 
@@ -66,7 +67,7 @@ def test_constants_match_jax():
     assert batcher.BATCH_SIZES == jax_batcher.BATCH_SIZES
     assert batcher.MAX_BATCH == jax_batcher.MAX_BATCH
     assert batcher.SPARSE_KERNEL == jax_batcher.SPARSE_KERNEL
-    d, jd = batcher.DEFAULT_SERVE_PLAN, jax_space.DEFAULT_SERVE_PLAN
+    d, jd = space.DEFAULT_SERVE_PLAN, jax_space.DEFAULT_SERVE_PLAN
     assert (d.pad_quantum, d.batch_ladder, d.temporal_depth) == (
         jd.pad_quantum, jd.batch_ladder, jd.temporal_depth)
 
@@ -87,18 +88,6 @@ def test_bucket_for_and_label_match_jax(shape, convention, sim):
                                          jk.kernel, jk.check_similarity,
                                          jk.similarity_frequency)
     assert pk.label() == jk.label()
-
-
-def test_tuned_plan_moves_jax_buckets_not_the_ports(monkeypatch):
-    """A known difference: the port has no tuner, so a plan that ``gol
-    tune`` cached moves the JAX package's buckets and never the port's."""
-    monkeypatch.setattr(jax_batcher, "_PLAN", jax_space.ServePlan(
-        pad_quantum=64, batch_ladder=(1, 8, 64), temporal_depth=2))
-    jax_job, port_job = _job_pair(30, 30)
-    assert jax_batcher.bucket_for(jax_job).label() == "64x64/c/masked"
-    assert batcher.bucket_for(port_job).label() == "32x32/c/masked"
-    assert (jax_batcher.pad_batch(3), batcher.pad_batch(3)) == (8, 4)
-    assert batcher._plan() is batcher.DEFAULT_SERVE_PLAN
 
 
 # ---------------------------------------------------------------------------
