@@ -13,7 +13,8 @@ error:
    started together: ``csrc/stencil_packed.cu`` (K1-K3, K5, K7, K8, the
    ghost-plane form that replaces K9-K13, and K14, the flag-free pass of
    the roofline), ``csrc/stencil_pallas.cu`` (K4, K6),
-   ``csrc/stencil_batch.cu`` (B1, B2: the batch lane's batched steps) and
+   ``csrc/stencil_batch.cu`` (B1, B2: the batch lane's batched steps),
+   ``csrc/stencil_tile.cu`` (T1: the sparse and macro lanes' tile step) and
    ``native/codec.c`` (the packed-I/O text codec) — with nvcc's
    ``-Xptxas -v`` report (registers, shared memory, spills).
 2. Kernels against their plain torch versions on the card: K1 (fast-flag
@@ -47,6 +48,10 @@ error:
    64 250x250 boards in a 256x256 canvas, at a block's generation 0 and 2
    with per-board step counts 3/1/0 (a spent board copies through, a
    padding slot never runs): words or cells and per-board flags
+   identical. Then T1 (one generation of B halo-extended tiles) at (tiles,
+   edge) (3,4) (5,9) (64,256) (64,512) on random, still and all-zero
+   blocks, into compact interiors and into the interior of a padded stack
+   (whose ring must be left as it was): interiors and per-tile flags
    identical.
 3. Small flows through ``python -m gol_tpu_torch`` on the card, against the
    port's numpy oracle, for both loop conventions: the verify skill's four
@@ -200,6 +205,29 @@ error:
    lines on stderr) and answers one 256^2 job equal to its solo run.
    Before phase 1 ``GOL_PLAN_CACHE`` is set to a fresh file, so every
    other phase runs and times the built-in plan.
+4i. The sparse and macro lanes, on T1, with the launch counters set to 0
+   just before each part and read just after (T1 must launch in each): (i)
+   bench.py's sparse suite uncut: five gliders, tile 256, universes 4096^2
+   to 65536^2, 24 sparse generations (each equal to the same run on the
+   CPU, T1's plain version), and the dense lane (``--kernel auto``) for 4
+   generations up to 16384^2, equal to a 4-generation sparse run; ms per
+   generation, tiles per generation and the dense/sparse ratio. (ii)
+   bench.py's macro suite: the Gosper gun, tile 256; sparse at 8192^2 for
+   3000 generations; macro to 3000 generations at 8192^2, RLE equal to the
+   sparse run's; macro at 2^20 squared for 10^6 generations cold into a
+   fresh ``--macro-cas`` directory, then warm from it: boards equal, no
+   leaf step and no T1 launch on the warm side. (iii) ``run --pattern
+   patterns/gosper_gun.rle --universe 65536x65536 --place 32768,32768``
+   under ``--engine sparse``, ``macro`` and ``auto`` (through
+   ``cli.main``): equal RLE bytes. (iv) One sparse job and one macro job of
+   (iii) through a real ``GolServer``: each answered ``rle`` equals the
+   CLI's. (v) ``tune --sparse-crossover --quick`` into the smoke's plan
+   cache: a crossover inside the tuner's band persisted (and printed), or
+   JAX's loud refusal when the dense probes show no slope (the card's
+   quick probes sit at its per-run host floor) with nothing persisted.
+   Beside them, the device-busy share of a
+   sparse run (65536^2, 24 generations) and a macro run (the gun at
+   8192^2 to 1000 generations) under ``torch.profiler``.
 5. Timing: each kernel over 100 warm launches captured in one CUDA graph
    and replayed (CUDA events around the replay), so that the card and not
    the host's launch rate sets ``ms``; beside it ``eager_ms`` (the same
@@ -226,7 +254,11 @@ error:
    No single PyTorch call computes a B3/S23 step, so ``library_ms`` is
    null. B1 and B2 at phase 4e's shapes (64 x 256 x 8 words; 64 250^2
    boards in a 256^2 canvas), one launch of a block's first generation;
-   B1's ops at the network's 12 per word, B2's at ``OPS_PER_CELL``.
+   B1's ops at the network's 12 per word, B2's at ``OPS_PER_CELL``. T1 at
+   64 tiles of 256^2 (compact output, the sparse lane's form) and 64 leaf
+   windows of 512^2 (padded ping-pong, the macro lane's form), 100
+   launches in one CUDA graph with a fresh flag row each; its ops at
+   ``OPS_PER_CELL``.
 6. The flag-cost roofline, ``gol_tpu_torch.tools.roofline``, at 16384^2 and
    65536^2: K1, K2 and K14 by CUDA-graph replay and by ``torch.profiler``
    device time, with the counters zeroed before it (K14's launches in the
@@ -266,12 +298,15 @@ from gol_tpu_torch import cli, engine, native, oracle, platform_env
 from gol_tpu_torch.cache import ResultCache
 from gol_tpu_torch.config import Convention, GameConfig
 from gol_tpu_torch.io import bitpack, text_grid, wire
+from gol_tpu_torch.io import rle as rle_codec
+from gol_tpu_torch.macro import MacroMemo, NodeStore, simulate_macro
 from gol_tpu_torch.obs import profiler
 from gol_tpu_torch.obs import registry as obs_registry
 from gol_tpu_torch.ops import _build, packed_math as pm
 from gol_tpu_torch.ops import stencil_packed as sp
 from gol_tpu_torch.ops import stencil_batch as sb
 from gol_tpu_torch.ops import stencil_pallas as spl
+from gol_tpu_torch.ops import stencil_tile as stl
 from gol_tpu_torch.parallel import halo
 from gol_tpu_torch.parallel.mesh import make_mesh
 from gol_tpu_torch.serve import batcher, compaction
@@ -279,6 +314,7 @@ from gol_tpu_torch.serve.jobs import JobJournal, new_job
 from gol_tpu_torch.serve.metrics import Metrics
 from gol_tpu_torch.serve.scheduler import Scheduler
 from gol_tpu_torch.serve.server import GolServer
+from gol_tpu_torch.sparse import SparseBoard, TileMemo, simulate_sparse
 from gol_tpu_torch.tools import roofline
 from gol_tpu_torch.tune import plans as tune_plans
 from gol_tpu_torch.tune import select as tune_select
@@ -446,6 +482,31 @@ BATCH_KERNELS = [
         "cells": True,
     },
 ]
+# The sparse and macro lanes' kernel: a port-only row of the kernel table.
+# The JAX package steps the tiles with jnp under vmap, no Pallas kernel; the
+# port's host loop needs each tile's flags out of the step's own pass.
+TILE_KERNELS = [
+    {
+        "key": "tile_step", "id": "T1",
+        "name": "T1 tile_step_kernel: one generation of B halo-extended uint8 "
+                "tiles, per-tile alive and changed flags",
+        "source": "gol_tpu_torch/csrc/stencil_tile.cu",
+        "replaces": "none: jnp under vmap, stencil_lax.evolve_padded_batch "
+                    "(gol_tpu/ops/stencil_lax.py:61) via make_tile_step_runner "
+                    "(gol_tpu/engine.py:1834)",
+    },
+]
+# Phase 2's T1 shapes, (tiles, edge): the least tiles, an odd edge, the
+# sparse lane's top rung at the default tile, the macro lane's leaf windows.
+TILE_CHECK_SHAPES = [(3, 4), (5, 9), (64, 256), (64, 512)]
+# Phase 4i: bench.py's sparse suite (bench.py:2291-2416) and macro suite
+# (bench.py:2418-2530), uncut.
+SPARSE_TILE = 256
+SPARSE_SIZES = (1 << 12, 1 << 13, 1 << 14, 1 << 15, 1 << 16)
+SPARSE_GENS, DENSE_GENS, DENSE_MAX = 24, 4, 1 << 14
+MACRO_UNIVERSE, MACRO_GENS = 1 << 20, 1_000_000
+GUN_UNIVERSE, GUN_GENS = 1 << 13, 3000
+CLI_UNIVERSE = 1 << 16  # (iii) and (iv): the gun at its middle
 # Phase 2's batch shapes: (boards, height, nwords) for B1 — a 32x32
 # one-word board, one-row boards, the serving bucket's 64 x 256^2 — and
 # (canvas height, width, extents) for B2: mixed extents in one canvas, the
@@ -533,13 +594,13 @@ def _u32(t: torch.Tensor) -> torch.Tensor:
 
 
 def _zero_counters() -> None:
-    for counters in (sp.LAUNCHES, spl.LAUNCHES, sb.LAUNCHES):
+    for counters in (sp.LAUNCHES, spl.LAUNCHES, sb.LAUNCHES, stl.LAUNCHES):
         for k in counters:
             counters[k] = 0
 
 
 def _counts() -> dict:
-    return {**sp.LAUNCHES, **spl.LAUNCHES, **sb.LAUNCHES}
+    return {**sp.LAUNCHES, **spl.LAUNCHES, **sb.LAUNCHES, **stl.LAUNCHES}
 
 
 def _nonzero(counts: dict) -> dict:
@@ -563,17 +624,21 @@ def card_and_build() -> str:
         builds = [pool.submit(_build.build, "stencil_packed"),
                   pool.submit(_build.build, "stencil_pallas"),
                   pool.submit(_build.build, "stencil_batch"),
+                  pool.submit(_build.build, "stencil_tile"),
                   pool.submit(native.load)]
         for b in builds:
             b.result()
     sp.load_kernels()
     spl.load_kernels()
     sb.load_kernels()
+    stl.load_kernels()
     print(f"built and loaded {_build.library_path('stencil_packed').name}, "
           f"{_build.library_path('stencil_pallas').name}, "
-          f"{_build.library_path('stencil_batch').name} and the codec in "
+          f"{_build.library_path('stencil_batch').name}, "
+          f"{_build.library_path('stencil_tile').name} and the codec in "
           f"{time.perf_counter() - t0:.3f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
-    for name in ("stencil_packed", "stencil_pallas", "stencil_batch"):
+    for name in ("stencil_packed", "stencil_pallas", "stencil_batch",
+                 "stencil_tile"):
         print(_build.build_log(name).rstrip())
     return smi
 
@@ -763,6 +828,51 @@ def check_batch_kernels(dev, stats: dict) -> None:
         print(f"B2 at a {batch} x {height}x{width} canvas, extents "
               f"{sorted(set(extents))} == plain at gen 0 and 2 (tolerance 0: "
               "cells and flags identical)", flush=True)
+
+
+def _tile_stack(batch: int, tile: int, kind: str, rng) -> np.ndarray:
+    """(batch, tile + 2, tile + 2) blocks: random cells (ring included), a
+    still block in every tile, or all zero (the ladder's padding rows)."""
+    p = tile + 2
+    blocks = np.zeros((batch, p, p), np.uint8)
+    if kind == "random":
+        blocks[:] = rng.random((batch, p, p), dtype=np.float32) < 0.5
+    elif kind == "still":
+        blocks[:, 2:4, 2:4] = 1
+    return blocks
+
+
+def check_tile_kernel(dev, stats: dict) -> None:
+    """T1 against its plain version in both output forms: compact (B, t, t),
+    and the interior of a padded stack whose ring must be left as it was."""
+    rng = np.random.default_rng(SEED + 11)
+    for batch, tile in TILE_CHECK_SHAPES:
+        for kind in ("random", "still", "zero"):
+            x = torch.from_numpy(_tile_stack(batch, tile, kind, rng)).to(dev)
+            want, want_flags = stl._tile_step_plain(x)
+            for form in ("compact", "padded"):
+                out = (torch.full((batch, tile, tile), 7, dtype=torch.uint8, device=dev)
+                       if form == "compact" else torch.full_like(x, 7))
+                flags = torch.zeros((batch, stl.TILE_FLAGS), dtype=torch.int32,
+                                    device=dev)
+                stl.tile_step_into(x, out, flags)
+                torch.cuda.synchronize(dev)
+                got = out if form == "compact" else out[:, 1:-1, 1:-1]
+                err = max(int((got.to(torch.int32) - want.to(torch.int32)).abs().max()),
+                          int((flags - want_flags).abs().max()))
+                if form == "padded":
+                    ring = out.clone()
+                    ring[:, 1:-1, 1:-1] = 7
+                    err = max(err, int((ring != 7).sum()))
+                stats["tile_step"]["max_abs_err"] = max(
+                    stats["tile_step"]["max_abs_err"], err)
+                stats["tile_step"]["checks"] += 1
+                if err:
+                    fail(f"T1 differs from its plain version at ({batch}, {tile}) "
+                         f"on {kind} blocks, {form} output")
+        print(f"T1 at (tiles, edge) ({batch}, {tile}) == plain on random, still "
+              "and all-zero blocks, compact and padded output (tolerance 0: "
+              "interiors, flags and the untouched ring)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2490,6 +2600,317 @@ def tuner_lane(work: Path, path: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 4i. The sparse and macro lanes
+
+
+def _five_gliders(u: int, glider: np.ndarray) -> SparseBoard:
+    """bench.py's sparse load: five gliders far apart in a u^2 universe."""
+    board = SparseBoard(u, u, SPARSE_TILE)
+    step = u // 5
+    for k in range(5):
+        board.place(glider, (k * step + step // 3) % (u - 8),
+                    ((4 - k) * step + step // 2) % (u - 8))
+    return board
+
+
+def _gun_board(gun: str, u: int) -> SparseBoard:
+    return SparseBoard.from_rle(gun, u, u, SPARSE_TILE, x=u // 2, y=u // 2)
+
+
+@contextlib.contextmanager
+def _port_device(name: str):
+    """The port's entry points on ``name`` (``cpu``: T1's plain version)."""
+    saved = os.environ[platform_env.DEVICE_ENV]
+    os.environ[platform_env.DEVICE_ENV] = name
+    try:
+        yield
+    finally:
+        os.environ[platform_env.DEVICE_ENV] = saved
+
+
+def _t1_counted(label: str, launches: dict, fn):
+    """``fn()`` with the counters set to 0 just before and read just after;
+    T1 must have launched."""
+    _zero_counters()
+    t0 = time.perf_counter()
+    out = fn()
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    if not counts["tile_step"]:
+        fail(f"{label} launched no T1")
+    launches[label] = counts
+    return out, seconds
+
+
+def _same_result(a, b) -> bool:
+    return (a.board.to_rle(), a.generations, a.exit_reason) == \
+        (b.board.to_rle(), b.generations, b.exit_reason)
+
+
+def _sparse_suite(dev, launches: dict) -> dict:
+    """(i) bench.py's sparse suite: the five-glider load, tile 256, at
+    4096^2 to 65536^2, 24 sparse generations (each the same run on the CPU
+    too), and the dense lane for 4 generations up to 16384^2 (against a
+    4-generation sparse run)."""
+    glider = rle_codec.read_file(str(REPO / "patterns" / "glider.rle"))
+    sizes = {}
+    for u in SPARSE_SIZES:
+        # Warm: each ladder rung's runner is built at its first call.
+        simulate_sparse(_five_gliders(u, glider), GameConfig(gen_limit=1), TileMemo())
+        board = _five_gliders(u, glider)
+        occupancy = board.occupancy()
+        result, sparse_s = _t1_counted(
+            f"sparse {u}^2, {SPARSE_GENS} generations (4i)", launches,
+            lambda: simulate_sparse(board, GameConfig(gen_limit=SPARSE_GENS),
+                                    TileMemo()))
+        with _port_device("cpu"):
+            plain = simulate_sparse(_five_gliders(u, glider),
+                                    GameConfig(gen_limit=SPARSE_GENS), TileMemo())
+        if result.generations != SPARSE_GENS or not _same_result(result, plain):
+            fail(f"sparse {u}^2 on the card differs from the same run on the CPU")
+        entry = {"universe": f"{u}x{u}", "occupancy": occupancy,
+                 "sparse_ms_per_gen": sparse_s * 1e3 / SPARSE_GENS,
+                 "tiles_simulated": result.stats.tiles_active,
+                 "tiles_per_generation": result.stats.tiles_per_generation(),
+                 "tiles_computed": result.stats.tiles_computed}
+        if u <= DENSE_MAX:
+            cfg = GameConfig(gen_limit=DENSE_GENS)
+            runner = engine.make_runner((u, u), cfg, "auto", dev)
+            x = torch.from_numpy(_five_gliders(u, glider).to_dense()).to(dev)
+            profiler.fence(runner(x)[0])  # warm
+            t0 = time.perf_counter()
+            final, gens = runner(x)
+            profiler.fence(final)
+            dense_s = time.perf_counter() - t0
+            short = simulate_sparse(_five_gliders(u, glider), cfg, TileMemo())
+            if int(gens) != short.generations or SparseBoard.from_dense(
+                    final.cpu().numpy(), SPARSE_TILE) != short.board:
+                fail(f"the dense lane at {u}^2 differs from the sparse lane")
+            entry["dense_ms_per_gen"] = dense_s * 1e3 / DENSE_GENS
+            entry["ratio_dense_over_sparse"] = (entry["dense_ms_per_gen"]
+                                                / entry["sparse_ms_per_gen"])
+        print(f"sparse {u}^2: {entry['sparse_ms_per_gen']:.3f} ms/gen "
+              f"({entry['tiles_per_generation']:.3f} tiles/gen, occupancy "
+              f"{occupancy:.6f}), == the CPU's run"
+              + (f"; dense {entry['dense_ms_per_gen']:.3f} ms/gen, dense/sparse "
+                 f"{entry['ratio_dense_over_sparse']:.3f}, == the sparse lane"
+                 if "dense_ms_per_gen" in entry else "; dense: skipped (area)"),
+              flush=True)
+        sizes[f"u{u}"] = entry
+    return sizes
+
+
+def _macro_suite(work: Path, launches: dict) -> dict:
+    """(ii) bench.py's macro suite: the Gosper gun, tile 256; sparse at
+    8192^2 for 3000 generations; macro at 2^20 squared for 10^6 generations
+    cold into a fresh CAS, then warm from it; macro to 3000 generations at
+    8192^2 against the sparse run's RLE."""
+    gun = (REPO / "patterns" / "gosper_gun.rle").read_text()
+    simulate_sparse(_gun_board(gun, GUN_UNIVERSE), GameConfig(gen_limit=1), TileMemo())
+    sparse, sparse_s = _t1_counted(
+        f"sparse gun {GUN_UNIVERSE}^2, {GUN_GENS} generations (4i)", launches,
+        lambda: simulate_sparse(_gun_board(gun, GUN_UNIVERSE),
+                                GameConfig(gen_limit=GUN_GENS), TileMemo()))
+    print(f"sparse gun {GUN_UNIVERSE}^2: {GUN_GENS} generations in "
+          f"{sparse_s:.3f} s ({sparse_s * 1e3 / GUN_GENS:.3f} ms/gen, "
+          f"{sparse.stats.tiles_per_generation():.3f} tiles/gen)", flush=True)
+    shallow, shallow_s = _t1_counted(
+        f"macro gun {GUN_UNIVERSE}^2, {GUN_GENS} generations (4i)", launches,
+        lambda: simulate_macro(_gun_board(gun, GUN_UNIVERSE),
+                               GameConfig(gen_limit=GUN_GENS),
+                               MacroMemo(NodeStore(SPARSE_TILE))))
+    if not _same_result(shallow, sparse):
+        fail(f"macro to {GUN_GENS} generations differs from the sparse lane")
+    print(f"macro gun {GUN_UNIVERSE}^2: {GUN_GENS} generations in "
+          f"{shallow_s:.3f} s, RLE == the sparse lane's", flush=True)
+    cas = str(work / "macro_cas")
+    config = GameConfig(gen_limit=MACRO_GENS)
+    cold, cold_s = _t1_counted(
+        f"macro gun 2^20 squared, {MACRO_GENS} generations, cold (4i)", launches,
+        lambda: simulate_macro(_gun_board(gun, MACRO_UNIVERSE), config,
+                               MacroMemo(NodeStore(SPARSE_TILE), cas_dir=cas)))
+    if (cold.generations, cold.exit_reason) != (MACRO_GENS, "gen_limit"):
+        fail(f"macro cold: {cold.generations} generations, {cold.exit_reason}")
+    _zero_counters()
+    t0 = time.perf_counter()
+    warm = simulate_macro(_gun_board(gun, MACRO_UNIVERSE), config,
+                          MacroMemo(NodeStore(SPARSE_TILE), cas_dir=cas))
+    warm_s = time.perf_counter() - t0
+    warm_counts = _counts()
+    if warm.board != cold.board or warm.stats.leaf_gen_steps != 0 \
+            or warm_counts["tile_step"] != 0:
+        fail("macro warm from the CAS differs from the cold run or stepped leaves")
+    stats = {k: getattr(cold.stats, k) for k in (
+        "supersteps", "node_hits", "node_misses", "cas_hits", "leaf_cases",
+        "leaf_gen_steps")}
+    print(f"macro gun 2^20 squared, {MACRO_GENS} generations: cold {cold_s:.3f} s "
+          f"({json.dumps(stats)}, population {cold.board.population()}); warm "
+          f"from the CAS {warm_s:.3f} s ({warm.stats.cas_hits} content hits, "
+          f"{warm.stats.leaf_gen_steps} leaf steps, T1 launches "
+          f"{warm_counts['tile_step']}), boards equal", flush=True)
+    return {"sparse_gun_s": sparse_s, "sparse_gun_ms_per_gen": sparse_s * 1e3 / GUN_GENS,
+            "sparse_gun_tiles_per_gen": sparse.stats.tiles_per_generation(),
+            "macro_gun_3000_s": shallow_s, "macro_cold_s": cold_s,
+            "macro_warm_s": warm_s, "macro_cold_stats": stats,
+            "macro_warm_cas_hits": warm.stats.cas_hits,
+            "population": cold.board.population()}
+
+
+def _pattern_cli(work: Path, launches: dict) -> tuple[dict, bytes]:
+    """(iii) the Gosper gun at 65536^2 through ``cli.main`` under --engine
+    sparse, macro and auto: equal RLE bytes."""
+    outs = {}
+    u, at = CLI_UNIVERSE, CLI_UNIVERSE // 2
+    for eng in ("sparse", "macro", "auto"):
+        out = work / f"gun_{eng}.rle"
+        (gens, ms, _), _ = _t1_counted(
+            f"run --pattern --engine {eng} (4i)", launches,
+            lambda: _cli(["--pattern", str(REPO / "patterns" / "gosper_gun.rle"),
+                          "--universe", f"{u}x{u}", "--place", f"{at},{at}",
+                          "--engine", eng, "--output", str(out)]))
+        outs[eng] = {"generations": gens, "exec_ms": ms}
+        outs[eng]["bytes"] = out.read_bytes()
+    if len({o["bytes"] for o in outs.values()}) != 1 or \
+            len({o["generations"] for o in outs.values()}) != 1:
+        fail("run --pattern: --engine sparse, macro and auto differ")
+    print(f"run --pattern gosper_gun.rle --universe {u}x{u} --place "
+          f"{at},{at}: Generations " + str(outs["auto"]["generations"])
+          + ", RLE bytes equal under sparse, macro and auto; Execution ms "
+          + json.dumps({e: o["exec_ms"] for e, o in outs.items()}), flush=True)
+    data = outs["auto"].pop("bytes")
+    for o in outs.values():
+        o.pop("bytes", None)
+    return outs, data
+
+
+def _sparse_server(work: Path, launches: dict, cli_rle: bytes) -> dict:
+    """(iv) one sparse job and one macro job of (iii) through a real
+    server: each answered ``rle`` equals the CLI's (its comment line aside)."""
+    gun = (REPO / "patterns" / "gosper_gun.rle").read_text()
+    body = {"width": CLI_UNIVERSE, "height": CLI_UNIVERSE, "rle": gun,
+            "x": CLI_UNIVERSE // 2, "y": CLI_UNIVERSE // 2, "tile": SPARSE_TILE}
+    want = cli_rle.decode().split("\n", 1)[1]
+
+    def serve():
+        srv = GolServer(port=0, journal_dir=str(work / "journal_sparse"),
+                        flush_age=0.0, sample_interval=0)
+        srv.start()
+        try:
+            answers = {}
+            for name, extra in (("sparse", {}), ("macro", {"macro": True})):
+                status, _, raw = _http("POST", f"{srv.url}/jobs", {**body, **extra})
+                if status != 202:
+                    fail(f"POST a {name} job answered {status}: {raw[:200]!r}")
+                answers[name] = json.loads(raw)["id"]
+            for name, job_id in answers.items():
+                deadline = time.perf_counter() + 300
+                while (status := _http("GET", f"{srv.url}/result/{job_id}")[0]) != 200:
+                    if time.perf_counter() > deadline:
+                        fail(f"the {name} job: no result in 300 s ({status})")
+                    time.sleep(0.05)
+                answers[name] = json.loads(_http("GET", f"{srv.url}/result/{job_id}")[2])
+            return answers
+        finally:
+            srv.shutdown()
+
+    answers, seconds = _t1_counted("serve: a sparse and a macro job (4i)",
+                                   launches, serve)
+    for name, payload in answers.items():
+        if payload.get("rle") != want:
+            fail(f"the server's {name} job differs from the CLI's RLE")
+    print(f"serve: one sparse and one macro job ({CLI_UNIVERSE}^2, gun, 1000 "
+          "generations) "
+          f"answered the CLI's RLE in {seconds:.3f} s", flush=True)
+    return {"seconds": seconds}
+
+
+# The tuner's loud refusal when its dense probes show no slope (JAX's
+# fit_crossover): on the card the quick probes (1024^2, 2048^2) sit at the
+# dense lane's per-run host floor, so a run may measure one or not.
+NO_SLOPE = "gol: dense cost did not grow with area over the probe"
+
+
+def _crossover(work: Path, launches: dict) -> dict:
+    """(v) ``tune --sparse-crossover --quick`` into the smoke's plan cache:
+    either a crossover inside the tuner's admissible band is persisted, or
+    the tuner refuses with JAX's no-slope error and persists none."""
+    plans_file = os.environ[tune_plans.ENV_CACHE_PATH]
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        (rc, text), _ = _t1_counted(
+            "tune --sparse-crossover (4i)", launches,
+            lambda: _cli_capture(["tune", "--sparse-crossover", "--quick",
+                                  "--plan-cache", plans_file, "--report",
+                                  str(work / "crossover_report.md")]))
+    sys.stderr.write(err.getvalue())
+    tune_select.reset()
+    entry = tune_plans.PlanStore(plans_file).entries().get(
+        tune_select.sparse_fingerprint())
+    lines = [ln for ln in err.getvalue().splitlines() if "sparse-crossover" in ln]
+    if rc == 1 and err.getvalue().rstrip().splitlines()[-1].startswith(NO_SLOPE) \
+            and entry is None:
+        print("tune --sparse-crossover: the dense probes showed no slope and "
+              "the tuner refused, persisting nothing: " + json.dumps(lines),
+              flush=True)
+        return {"refused": NO_SLOPE, "probes": lines}
+    if rc != 0 or entry is None:
+        fail(f"tune --sparse-crossover exited {rc}:\n{text}\n{err.getvalue()}")
+    measured = entry["measured"]
+    if not tune_select.SPARSE_AREA_FLOOR <= measured["auto_area"] \
+            <= tune_select.SPARSE_AREA_CEIL:
+        fail(f"tune --sparse-crossover persisted {measured['auto_area']} cells")
+    print(f"tune --sparse-crossover: dense overtakes sparse at "
+          f"{measured['auto_area']} cells (~{int(measured['auto_area'] ** 0.5)}^2; "
+          f"bundled default {1 << 25}); " + json.dumps(measured), flush=True)
+    return measured
+
+
+def _lanes_busy(work: Path, dev) -> dict:
+    """The device-busy share of a sparse run (65536^2, five gliders, 24
+    generations) and a macro run (the gun at 8192^2 to 1000 generations,
+    fresh memo) under ``torch.profiler``: T1's events, the union of the
+    kernel intervals over the window, the top host ops."""
+    glider = rle_codec.read_file(str(REPO / "patterns" / "glider.rle"))
+    gun = (REPO / "patterns" / "gosper_gun.rle").read_text()
+    runs = {
+        "sparse 65536^2, 24 generations": lambda: simulate_sparse(
+            _five_gliders(SPARSE_SIZES[-1], glider),
+            GameConfig(gen_limit=SPARSE_GENS), TileMemo()),
+        f"macro gun {GUN_UNIVERSE}^2, 1000 generations": lambda: simulate_macro(
+            _gun_board(gun, GUN_UNIVERSE), GameConfig(gen_limit=1000),
+            MacroMemo(NodeStore(SPARSE_TILE))),
+    }
+    out = {}
+    for i, (label, run) in enumerate(runs.items()):
+        prof_dir = work / f"profile_4i_{i}"
+        with profiler.capture(str(prof_dir), dev):
+            run()
+        out[label] = summary = profile_summary(prof_dir / "trace.json", "tile_step")
+        print(f"profile {label}: {summary['events']} T1 events, busy "
+              f"{summary['kernel_busy_ms']:.3f} ms of a {summary['window_ms']:.3f} ms "
+              f"window = {summary['device_busy_share']:.4f}; host ops "
+              + json.dumps(summary["host_ops_ms"]), flush=True)
+    return out
+
+
+def sparse_macro_lanes(work: Path, dev) -> dict:
+    """Phase 4i (see the module docstring)."""
+    t_phase = time.perf_counter()
+    launches = {}
+    sizes = _sparse_suite(dev, launches)
+    macro = _macro_suite(work, launches)
+    busy = _lanes_busy(work, dev)
+    cli_runs, cli_rle = _pattern_cli(work, launches)
+    server = _sparse_server(work, launches, cli_rle)
+    crossover = _crossover(work, launches)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 4i took {seconds:.1f} s", flush=True)
+    return {"launches": launches, "sparse": sizes, "macro": macro,
+            "busy": busy, "cli": cli_runs, "server": server,
+            "crossover": crossover, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
 # 5. Timing at 16384^2
 
 
@@ -2584,6 +3005,7 @@ def timing(dev) -> dict:
             shapes.append(_timed(k, xs, [_ghosts(k, x, rng) for x in xs], ops_per_s))
         out[k["key"]] = {**shapes[0], "by_shape": shapes}
     out.update(_timed_batch(ops_per_s))
+    out.update(_timed_tile(ops_per_s))
     return out
 
 
@@ -2675,6 +3097,72 @@ def _timed_batch(ops_per_s: float) -> dict:
     return out
 
 
+def _graph_rows_ms(launch, rows: torch.Tensor) -> float:
+    """ms per launch of ``launch(k, flags)`` over ``len(rows)`` launches in
+    one CUDA graph, launch k ORing into its own zeroed flag row."""
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for k in range(rows.shape[0]):
+            launch(k, rows[k])
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(2):  # warm, then timed
+        rows.zero_()
+        torch.cuda.synchronize()
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end) / rows.shape[0]
+
+
+def _timed_tile(ops_per_s: float) -> dict:
+    """T1 at the sparse lane's top rung, 64 tiles of 256^2 into the compact
+    interiors (each launch from the same uploaded blocks, as a generation
+    of the lane launches), and at the macro lane's 64 leaf windows of 512^2
+    ping-ponging two padded stacks with dead rings. 100 launches in one
+    CUDA graph, each ORing into its own zeroed flag row; eager launches and
+    the plain version beside them. The bytes are the blocks read once and
+    the interiors and flags written once."""
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED + 12)
+    shapes = []
+    for batch, tile, form in ((64, 256, "compact"), (64, 512, "padded")):
+        cells = rng.integers(0, 2, (batch, tile + 2, tile + 2), dtype=np.uint8)
+        if form == "padded":
+            cells[:, 0], cells[:, -1], cells[:, :, 0], cells[:, :, -1] = 0, 0, 0, 0
+        x = torch.from_numpy(cells).to(dev)
+        if form == "compact":
+            y = torch.empty((batch, tile, tile), dtype=torch.uint8, device=dev)
+            launch = lambda k, f, x=x, y=y: stl.tile_step_into(x, y, f)  # noqa: E731
+        else:
+            y = torch.zeros_like(x)
+            bufs = (x, y)
+            launch = lambda k, f, b=bufs: stl.tile_step_into(b[k % 2], b[(k + 1) % 2], f)  # noqa: E731
+        rows = torch.zeros((100, batch, stl.TILE_FLAGS), dtype=torch.int32, device=dev)
+        ms = _graph_rows_ms(launch, rows)
+        eager_ms = _time(lambda i, a, b: launch(0, rows[0]), [x], [y], 100)
+        plain_ms = _time(lambda i, a, b: stl._tile_step_plain(x), [x], [y], 10)
+        nbytes = batch * ((tile + 2) ** 2 + tile * tile + stl.TILE_FLAGS * 4)
+        ops = batch * tile * tile * OPS_PER_CELL
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / ops_per_s * 1e3
+        print(f"tile_step ({form}) at {batch} x {tile}^2: {ms:.6f} ms/launch in a "
+              f"CUDA graph, fresh flags per launch (eager {eager_ms:.6f} ms, plain "
+              f"{plain_ms:.6f} ms); bytes {nbytes} -> {bytes_ms:.6f} ms, ops "
+              f"{ops} -> {ops_ms:.6f} ms; bound share "
+              f"{max(bytes_ms, ops_ms) / ms:.3f}", flush=True)
+        shapes.append({
+            "shape": [batch, tile + 2, tile + 2], "form": form, "ms": ms,
+            "eager_ms": eager_ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "bytes_ms": bytes_ms, "logic_ops": ops,
+            "ops_ms": ops_ms, "logic_ops_per_s": ops_per_s,
+        })
+    return {"tile_step": {**shapes[0], "by_shape": shapes}}
+
+
 def roofline_phase() -> tuple[dict, dict]:
     """Phase 6: the roofline tool at 16384^2 and 65536^2, with the counters
     zeroed before it. Returns its report and the launch counts."""
@@ -2717,7 +3205,7 @@ def main() -> int:
     os.environ[tune_plans.ENV_CACHE_PATH] = str(Path(tempfile.mkdtemp(
         prefix="plans-", dir=_build.BUILD_DIR)) / "plans.json")
     stats = {k["key"]: {"max_abs_err": 0, "checks": 0}
-             for k in KERNELS + BATCH_KERNELS}
+             for k in KERNELS + BATCH_KERNELS + TILE_KERNELS}
     work = Path(tempfile.mkdtemp(prefix="smoke-", dir=_build.BUILD_DIR))
     try:
         phase("1. card and build")
@@ -2725,6 +3213,7 @@ def main() -> int:
         phase("2. kernels against their plain versions")
         check_kernels(dev, stats)
         check_batch_kernels(dev, stats)
+        check_tile_kernel(dev, stats)
         phase("3. small flows through python -m gol_tpu_torch")
         small_flows(work)
         # From here on a mesh may put four shards on the one card.
@@ -2749,6 +3238,8 @@ def main() -> int:
         ring = ring_lane(work, dev)
         phase(f"4h. the tuner at {SIZE}x{SIZE}")
         tuner = tuner_lane(work, path)
+        phase("4i. the sparse and macro lanes")
+        lanes = sparse_macro_lanes(work, dev)
         phase("5. timing")
         times = timing(dev)
         phase("6. the flag-cost roofline")
@@ -2779,15 +3270,17 @@ def main() -> int:
                                       if k != "launches"}))
     print("tuner: " + json.dumps({k: v for k, v in tuner.items()
                                   if k != "launches"}))
+    print("sparse and macro lanes: " + json.dumps({k: v for k, v in lanes.items()
+                                                   if k != "launches"}))
     launches = {**path["launches"], **mesh["launches"], **ckpt["launches"],
                 **obs["launches"], **batch["launches"], **server["launches"],
-                **ring["launches"], **tuner["launches"],
+                **ring["launches"], **tuner["launches"], **lanes["launches"],
                 "tpu 2x2 auto 64x64 (one-word shards)": one_word,
                 "roofline": roof_counts}
     table = []
-    for k in KERNELS + BATCH_KERNELS:
+    for k in KERNELS + BATCH_KERNELS + TILE_KERNELS:
         key = k["key"]
-        by_path = {p: n[key] for p, n in launches.items() if n[key]}
+        by_path = {p: n[key] for p, n in launches.items() if n.get(key)}
         table.append({
             "name": k["name"], "id": k["id"], "route": "cuda",
             "source": k["source"], "replaces": k["replaces"],

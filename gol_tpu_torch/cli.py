@@ -19,8 +19,15 @@ The port of ``gol_tpu/cli.py``'s ``run``:
   from and to the file), ``--host`` (the numpy oracle), ``--snapshot-every``
   and ``--resume-gen`` (segmented runs), and the crash-safe checkpoint lane
   (``--checkpoint-every``, ``--auto-resume``, the async writer,
-  ``GOL_FAULTS`` / ``--fault-plan``); all but ``--host`` run on a mesh too.
-  Patterns and the sparse and macro engines are not ported;
+  ``GOL_FAULTS`` / ``--fault-plan``); all but ``--host`` run on a mesh too;
+- the pattern lane: ``--pattern FILE [--place X,Y] [--universe WxH]``
+  places an RLE pattern into an otherwise-empty universe, and ``--engine``
+  picks the engine (``dense``, ``sparse`` — the tiled O(live-area) engine
+  of ``sparse/`` — ``macro`` — the hash-consed macrocell engine of
+  ``macro/`` — or ``auto``: sparse above the tuned area threshold,
+  upgraded to macro above the generation threshold); ``--engine
+  sparse|macro`` also runs over a dense input file. Their tile steps run
+  on T1 (``ops/stencil_tile``), and both write ``sparse_output.rle``;
 - timings print as ``<Phase>:\\t<ms> msecs``. Execution time excludes set-up
   — the kernels' build and load, and the optional ``--warmup`` run happen
   before the timer starts — and ends in a device sync;
@@ -50,8 +57,9 @@ a result-cache CAS; ``tune`` measures and caches engine and serve plans
 (``tune/``); ``top`` and ``fleet-trace`` read a live server (``obs/top``,
 ``obs/fleettrace``). The JAX CLI's other subcommands (``NOT_PORTED``) exit
 1 with a ``gol:`` line, as do the options whose lanes are not ported
-(``serve --cache-payload ts``, ``submit --shard-across``, ``tune
---sparse-crossover``).
+(``serve --cache-payload ts``, ``submit --shard-across``, ``run --engine
+shard``); ``tune --sparse-crossover`` measures and caches the
+dense/sparse crossover of ``--engine auto``.
 """
 
 from __future__ import annotations
@@ -62,6 +70,9 @@ import os
 import re
 import sys
 import time
+
+import numpy as np
+import torch
 
 from gol_tpu_torch import engine, oracle
 from gol_tpu_torch.config import DEFAULT_HEIGHT, DEFAULT_WIDTH, GameConfig
@@ -74,21 +85,18 @@ from gol_tpu_torch.parallel.mesh import make_mesh, topology_for, validate_grid
 from gol_tpu_torch.platform_env import (NoDeviceError, configure_cli_logging,
                                         resolve_device)
 from gol_tpu_torch.resilience import faults
+from gol_tpu_torch.sparse.board import DEFAULT_TILE, SparseBoard, dense_cells_guard
 from gol_tpu_torch.variants import VARIANTS, Variant, get_variant
 
 # Options of the JAX CLI whose lanes are not ported: each exits 1 with one
 # `gol:` line naming the ROADMAP item.
-SPARSE_CROSSOVER_REFUSAL = ("--sparse-crossover measures the sparse engine, "
-                            "which is not ported yet (ROADMAP.md Queue 1 "
-                            "item 7); tune without it, or with python -m "
-                            "gol_tpu")
+SHARD_ENGINE_REFUSAL = ("--engine shard runs one universe across a fleet's "
+                        "workers, which is not ported yet (ROADMAP.md Queue 1 "
+                        "item 9); run it with --engine sparse, or with python "
+                        "-m gol_tpu")
 SHARD_ACROSS_REFUSAL = ("--shard-across needs the fleet router, which is not "
                         "ported yet (ROADMAP.md Queue 1 item 9); submit "
                         "without it, or with python -m gol_tpu")
-
-# Dense-materialization ceiling (cells): 2^30 cells is a 1 GB uint8 canvas
-# on the host, and the engine carries the grid plus its packed buffers.
-MAX_DENSE_CELLS = 1 << 30
 
 
 def atoi(s: str | None) -> int:
@@ -97,21 +105,6 @@ def atoi(s: str | None) -> int:
         return 0
     m = re.match(r"\s*([+-]?\d+)", s)
     return int(m.group(1)) if m else 0
-
-
-def dense_cells_guard(height: int, width: int) -> None:
-    """Raise the CLI-contract error for a dense grid that cannot fit, before
-    anything allocates it. The message is the JAX CLI's word for word; the
-    sparse lane it names runs under ``python -m gol_tpu`` (not ported)."""
-    cells = height * width
-    if cells > MAX_DENSE_CELLS:
-        raise ValueError(
-            f"a {height}x{width} board is {cells} cells "
-            f"({cells / (1 << 30):.1f} GB as bytes), above the dense "
-            f"engine's {MAX_DENSE_CELLS}-cell ceiling; use the sparse lane "
-            "(--pattern FILE --universe WxH [--engine sparse]) so the "
-            "canvas is never materialized"
-        )
 
 
 def _warn_if_huge_byte_lane(width: int, height: int, mesh=None) -> None:
@@ -227,9 +220,31 @@ def _validate_checkpoint_args(args) -> None:
 
 def _run(args) -> int:
     if args.gens is not None:
+        # --gens is the deep-time spelling of --gen-limit (the macro lane's
+        # natural vocabulary); one value drives every lane either way.
         if args.gens < 0:
             raise ValueError(f"--gens must be >= 0, got {args.gens}")
         args.gen_limit = args.gens
+    if args.macro_cas and args.engine not in ("macro", "auto"):
+        # A silently-ignored persistence flag would misreport what ran.
+        raise ValueError(
+            "--macro-cas applies to the macro engine lane; add "
+            "--engine macro (or auto)"
+        )
+    if args.engine == "shard" and not args.shard_across:
+        raise ValueError(
+            "--engine shard needs --shard-across ROUTER_URL (the job "
+            "runs across a fleet, not in this process)"
+        )
+    if args.shard_across and args.engine != "shard":
+        raise ValueError("--shard-across applies to --engine shard")
+    if args.engine == "shard" and args.pattern is None:
+        raise ValueError(
+            "--engine shard takes the --pattern lane (the universe "
+            "travels as RLE; dense input files do not)"
+        )
+    if args.engine == "shard":
+        raise ValueError(SHARD_ENGINE_REFUSAL)
     _build.enable_compile_cache(args.compile_cache)
 
     if args.fault_plan:
@@ -247,6 +262,13 @@ def _run(args) -> int:
         width = DEFAULT_WIDTH
     if height <= 0:
         height = DEFAULT_HEIGHT
+
+    if args.pattern is not None:
+        # The geometry-first lane: the board is a pattern placed into a
+        # declared universe — construction never materializes the canvas,
+        # so the engine choice (sparse above the area threshold) happens
+        # BEFORE any allocation the choice is supposed to avoid.
+        return _run_pattern(args, variant)
 
     if args.input_file is None:
         # Simulation skipped entirely (src/game.c:238-241).
@@ -289,6 +311,19 @@ def _run(args) -> int:
             "a .zarr input (TensorStore snapshot) is not readable by the "
             "PyTorch port; resume from a gen_NNNNNN.out snapshot instead"
         )
+
+    if args.engine == "sparse":
+        # Sparse engine over a dense input FILE (the A/B lane): reading the
+        # file materializes the grid, so this only serves sizes the dense
+        # guard admits — giant universes come in as --pattern instead.
+        _validate_sparse_flags(args)
+        return _run_sparse_file(args, variant, config, width, height)
+
+    if args.engine == "macro":
+        # Same A/B lane, macrocell engine: holds the tree against the
+        # dense/sparse answers from the CLI.
+        _validate_macro_flags(args)
+        return _run_macro_file(args, variant, config, width, height)
 
     if args.host:
         # lax is what the host oracle effectively is, so it stays accepted;
@@ -636,6 +671,220 @@ def _prepare_checkpointed(args, variant, config, state, height, width, device,
                 writer.close()  # join on exit, also on the error path
 
     return run_fn
+
+
+def _validate_lane_flags(args, lane: str) -> None:
+    """Flags the pattern/sparse lanes cannot honor: both are single-device
+    and snapshot-free, and a silently-ignored flag would misreport what
+    ran. ``--kernel`` is deliberately NOT here — the dense pattern branch
+    honors it; only the sparse engine rejects it (below)."""
+    for flag, name in (
+        (args.mesh, "--mesh"),
+        (args.packed_io, "--packed-io"),
+        (args.host, "--host"),
+        (args.snapshot_every, "--snapshot-every"),
+        (args.resume_gen, "--resume-gen"),
+    ):
+        if flag:
+            raise ValueError(f"{name} does not apply to {lane}")
+    if _checkpointing(args):
+        raise ValueError(
+            f"checkpointing is not supported on {lane}; the serve path "
+            "replays sparse jobs from their journaled spec"
+        )
+
+
+def _validate_sparse_flags(args) -> None:
+    _validate_lane_flags(args, "the sparse engine lane")
+    if args.kernel != "auto":
+        raise ValueError(
+            "--kernel does not apply to the sparse engine lane (the tile "
+            "step is its own kernel family)"
+        )
+
+
+def _validate_macro_flags(args) -> None:
+    _validate_lane_flags(args, "the macro engine lane")
+    if args.kernel != "auto":
+        raise ValueError(
+            "--kernel does not apply to the macro engine lane (leaf steps "
+            "ride the sparse tile kernel family)"
+        )
+
+
+def _parse_universe(spec: str) -> tuple[int, int]:
+    m = re.fullmatch(r"(\d+)x(\d+)", spec)
+    if not m:
+        raise ValueError(f"--universe must look like WxH, got {spec!r}")
+    return int(m.group(1)), int(m.group(2))  # (width, height)
+
+
+def _parse_place(spec: str) -> tuple[int, int]:
+    m = re.fullmatch(r"(-?\d+),(-?\d+)", spec)
+    if not m:
+        raise ValueError(f"--place must look like X,Y, got {spec!r}")
+    return int(m.group(1)), int(m.group(2))  # (x=column, y=row)
+
+
+def _run_sparse(variant, config, board, read_ms, output_path) -> int:
+    """Drive a sparse simulation and write the result as RLE (a giant
+    universe's dense text grid must never be written), keeping the
+    reference's printed contract."""
+    from gol_tpu_torch.sparse import TileMemo, simulate_sparse
+
+    if variant.io_timings:
+        print(f"Reading file:\t{read_ms:.2f} msecs")
+    t0 = time.perf_counter()
+    result = simulate_sparse(board, config, TileMemo())
+    exec_ms = (time.perf_counter() - t0) * 1000
+    comments = (
+        f"generations {result.generations} exit {result.exit_reason}",
+    )
+    return _report_and_write(
+        variant,
+        result.generations,
+        exec_ms,
+        lambda: _write_text(output_path, result.board.to_rle(comments)),
+    )
+
+
+def _run_macro(args, variant, config, board, read_ms, output_path) -> int:
+    """Drive a macrocell simulation (``macro/``) and write the result as
+    RLE — same output contract as the sparse lane, because the result is
+    byte-identical by construction; only the generation count scales
+    differently (O(log gens) guarded jumps)."""
+    from gol_tpu_torch.macro import MacroMemo, NodeStore, simulate_macro
+
+    if variant.io_timings:
+        print(f"Reading file:\t{read_ms:.2f} msecs")
+    memo = MacroMemo(NodeStore(board.tile), cas_dir=args.macro_cas)
+    t0 = time.perf_counter()
+    result = simulate_macro(board, config, memo)
+    exec_ms = (time.perf_counter() - t0) * 1000
+    comments = (
+        f"generations {result.generations} exit {result.exit_reason}",
+    )
+    return _report_and_write(
+        variant,
+        result.generations,
+        exec_ms,
+        lambda: _write_text(output_path, result.board.to_rle(comments)),
+    )
+
+
+def _write_text(path: str, text: str) -> None:
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(text)
+
+
+def _run_pattern(args, variant) -> int:
+    """``--pattern FILE [--place X,Y] [--universe WxH]``: the RLE input
+    lane. Board construction is geometry-first — only the tiles the
+    pattern touches are allocated — so the engine choice (``--engine``,
+    default auto: sparse above the area threshold) happens before any
+    canvas could exist."""
+    from gol_tpu_torch.io import rle as rle_codec
+
+    if args.input_file is not None:
+        raise ValueError("--pattern replaces the input file argument")
+    _validate_lane_flags(args, "the --pattern lane")
+    config = GameConfig(
+        gen_limit=args.gen_limit,
+        check_similarity=not args.no_check_similarity,
+        similarity_frequency=args.similarity_frequency,
+        convention=variant.convention,
+    )
+    t0 = time.perf_counter()
+    with open(args.pattern, "r", encoding="utf-8") as f:
+        pattern = rle_codec.parse(f.read())
+    read_ms = (time.perf_counter() - t0) * 1000
+    ph, pw = pattern.shape
+    if args.universe:
+        width, height = _parse_universe(args.universe)
+    else:
+        width, height = pw, ph
+    x, y = _parse_place(args.place)
+    tile = args.tile or DEFAULT_TILE
+    engine_pick = args.engine
+    if engine_pick == "auto":
+        from gol_tpu_torch.sparse.engine import auto_engine
+
+        engine_pick = auto_engine(height, width, tile)
+        if engine_pick == "sparse":
+            # A sparse-routed auto run upgrades to the macrocell lane when
+            # the generation count clears the crossover AND the placement
+            # provably keeps the whole run off the torus seam (auto must
+            # never pick an engine that can raise mid-run). Byte-identical
+            # either way — this only changes how fast the answer arrives.
+            from gol_tpu_torch.macro import auto_macro
+
+            if auto_macro(height, width, tile, config.gen_limit,
+                          (y, x, y + ph - 1, x + pw - 1)):
+                engine_pick = "macro"
+    if engine_pick in ("sparse", "macro"):
+        if args.kernel != "auto":
+            raise ValueError(
+                "--kernel does not apply to the sparse engine (the tile "
+                "step is its own kernel family); add --engine dense to "
+                "force the dense lane"
+            )
+        board = SparseBoard.from_pattern(pattern, x, y, height, width, tile)
+        output_path = args.output or "./sparse_output.rle"
+        if engine_pick == "macro":
+            return _run_macro(args, variant, config, board, read_ms,
+                              output_path)
+        return _run_sparse(variant, config, board, read_ms, output_path)
+    # Dense engine on a pattern input: materialize (guarded), place, run
+    # the classic device lane.
+    dense_cells_guard(height, width, what="universe")
+    if x < 0 or y < 0 or y + ph > height or x + pw > width:
+        raise ValueError(
+            f"pattern {ph}x{pw} at ({x},{y}) does not fit the "
+            f"{height}x{width} universe"
+        )
+    grid = np.zeros((height, width), np.uint8)
+    grid[y:y + ph, x:x + pw] = pattern
+    if variant.io_timings:
+        print(f"Reading file:\t{read_ms:.2f} msecs")
+    device = resolve_device()
+    device_grid = torch.from_numpy(grid).to(device)
+    runner = engine.make_runner((height, width), config, args.kernel, device)
+    t0 = time.perf_counter()
+    final, generations = runner(device_grid)
+    fence(final)
+    exec_ms = (time.perf_counter() - t0) * 1000
+    output_path = args.output or f"./{variant.output_file}"
+    return _report_and_write(
+        variant,
+        int(generations),
+        exec_ms,
+        lambda: text_grid.write_grid(output_path, final.cpu().numpy()),
+    )
+
+
+def _run_sparse_file(args, variant, config, width, height) -> int:
+    """``--engine sparse`` over a dense input file (the A/B lane: the same
+    file the dense engine reads, simulated tile-wise — holding the sparse
+    lane against the dense one from the CLI)."""
+    dense_cells_guard(height, width, what="input file")
+    t0 = time.perf_counter()
+    grid = text_grid.read_grid(args.input_file, width, height)
+    read_ms = (time.perf_counter() - t0) * 1000
+    board = SparseBoard.from_dense(grid, args.tile or DEFAULT_TILE)
+    output_path = args.output or "./sparse_output.rle"
+    return _run_sparse(variant, config, board, read_ms, output_path)
+
+
+def _run_macro_file(args, variant, config, width, height) -> int:
+    """``--engine macro`` over a dense input file: the same A/B lane as
+    ``_run_sparse_file``, driven through the macrocell tree."""
+    dense_cells_guard(height, width, what="input file")
+    t0 = time.perf_counter()
+    grid = text_grid.read_grid(args.input_file, width, height)
+    read_ms = (time.perf_counter() - t0) * 1000
+    board = SparseBoard.from_dense(grid, args.tile or DEFAULT_TILE)
+    output_path = args.output or "./sparse_output.rle"
+    return _run_macro(args, variant, config, board, read_ms, output_path)
 
 
 def _run_host(args, variant, config, width, height, output_path) -> int:
@@ -1127,9 +1376,8 @@ def _tune(args) -> int:
     the persistent plan cache — after which ``run`` and ``serve`` on the
     same machine pick them up. A human-readable report goes to --report
     (or stderr). ``--compile-cache DIR`` is the kernels' build directory;
-    ``--sparse-crossover`` is refused (the sparse lane is not ported)."""
-    if args.sparse_crossover:
-        raise ValueError(SPARSE_CROSSOVER_REFUSAL)
+    ``--sparse-crossover`` measures the dense/sparse crossover of
+    ``--engine auto`` and caches it."""
     _build.enable_compile_cache(args.compile_cache)
 
     from gol_tpu_torch.tune import measure, plans, select
@@ -1217,6 +1465,25 @@ def _tune(args) -> int:
         )
         print(f"  winner {result.winner.label()} at "
               f"{result.speedup:.3f}x the default geometry", file=sys.stderr)
+
+    if args.sparse_crossover:
+        # The `--engine auto` dense/sparse threshold, measured on THIS
+        # host instead of hard-coded: fit dense cost (linear in area)
+        # against the sparse engine's flat cost and persist the solved
+        # crossover (tune.select.sparse_auto_area consults it).
+        print("tune sparse-crossover: dense-vs-sparse per-generation cost",
+              file=sys.stderr)
+        crossover = measure.run_sparse_crossover_search(
+            iters=args.iters, quick=args.quick,
+        )
+        store.put(
+            select.sparse_fingerprint(),
+            {"auto_area": crossover.auto_area},
+            measured=crossover.to_dict(),
+        )
+        print(f"  dense overtakes sparse at ~{crossover.auto_area} cells "
+              f"(~{int(crossover.auto_area ** 0.5)}^2); persisted as the "
+              "--engine auto threshold", file=sys.stderr)
 
     report = measure.render_report(results)
     if args.report:
@@ -1991,10 +2258,58 @@ def build_parser() -> argparse.ArgumentParser:
         "32, else lax)",
     )
     run.add_argument("--gen-limit", type=int, default=GameConfig().gen_limit)
-    run.add_argument("--gens", type=int, default=None, metavar="N",
-                     help="alias for --gen-limit")
+    run.add_argument(
+        "--gens", type=int, default=None, metavar="N",
+        help="alias for --gen-limit (the deep-time spelling: the macro "
+        "engine reaches e.g. --gens 1000000000 in O(log N) jumps)",
+    )
     run.add_argument(
         "--similarity-frequency", type=int, default=GameConfig().similarity_frequency
+    )
+    run.add_argument(
+        "--pattern", default=None, metavar="FILE",
+        help="run an RLE pattern file (Gosper gun, r-pentomino, ...) placed "
+        "into an otherwise-empty --universe instead of reading a dense "
+        "input file — the giant-universe input path: the byte canvas is "
+        "never materialized on the sparse lane",
+    )
+    run.add_argument(
+        "--place", default="0,0", metavar="X,Y",
+        help="top-left cell of the --pattern placement (column X, row Y; "
+        "default 0,0)",
+    )
+    run.add_argument(
+        "--universe", default=None, metavar="WxH",
+        help="universe extents for --pattern (e.g. 65536x65536); defaults "
+        "to the pattern's own RLE extents",
+    )
+    run.add_argument(
+        "--engine", default="auto", choices=("auto", "dense", "sparse",
+                                             "macro", "shard"),
+        help="engine family: dense (the classic O(area) lanes), sparse "
+        "(tiled O(live-area) — sparse/, tile steps on T1), macro "
+        "(hash-consed macrocell, O(log gens) deep time — macro/), shard "
+        "(one universe across a fleet's workers: not ported, refused), or "
+        "auto (sparse above the area threshold when the extents tile "
+        "evenly, upgraded to macro above the generation threshold when the "
+        "placement keeps the run off the torus seam)",
+    )
+    run.add_argument(
+        "--shard-across", default=None, metavar="URL",
+        help="fleet router URL for --engine shard (not ported, refused)",
+    )
+    run.add_argument(
+        "--tile", type=int, default=0, metavar="N",
+        help="sparse/macro engine tile edge (default 256); universe "
+        "extents must be multiples of it (and it must be even for macro "
+        "— the macrocell leaf splits in half)",
+    )
+    run.add_argument(
+        "--macro-cas", default=None, metavar="DIR",
+        help="mount a disk CAS tier under the macro engine's advance memo "
+        "(cache/): memoized superstep results persist across runs and "
+        "restarts (a directory either package wrote), and `gc` budgets "
+        "the directory",
     )
     run.add_argument("--no-check-similarity", action="store_true")
     run.add_argument("--output", default=None, help="override the output file path")
@@ -2466,8 +2781,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     tun.add_argument(
         "--sparse-crossover", action="store_true",
-        help="measure the dense/sparse engine crossover (the JAX "
-        "package's): not ported (the sparse lane), refused",
+        help="also measure the dense/sparse engine crossover on this host "
+        "and persist it as the `--engine auto` area threshold (default: "
+        "the bundled crossover, 2^25 cells)",
     )
     tun.add_argument(
         "--serve-board", default=None, metavar="HxW",

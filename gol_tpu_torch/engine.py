@@ -88,7 +88,8 @@ from gol_tpu_torch.obs import registry as obs_registry
 from gol_tpu_torch.obs import trace as obs_trace
 from gol_tpu_torch.obs.profiler import fence
 from gol_tpu_torch.ops import (Kernel, get_kernel, packed_math, resolve_kernel,
-                               stencil_batch, stencil_packed, with_temporal_depth)
+                               stencil_batch, stencil_packed, stencil_tile,
+                               with_temporal_depth)
 from gol_tpu_torch.parallel import collectives
 from gol_tpu_torch.parallel.mesh import Mesh, Topology, gather, split, topology_for, validate_grid
 
@@ -1551,3 +1552,105 @@ def complete_ring(inflight: InflightRing) -> list[list[BatchBoardResult]]:
             staged, inflight.finals[lo:hi], inflight.gens[lo:hi],
             inflight.reasons[lo:hi]))
     return out
+
+
+# ---------------------------------------------------------------------------
+# The sparse lane's tile step. The dense engines cost O(width x height) per
+# generation however dead the board is; the sparse engine (``sparse/``)
+# steps only a universe's active tiles, and the macro engine (``macro/``)
+# its leaf windows. What the device runs is this runner: one generation of
+# B halo-extended tiles through T1 (``ops/stencil_tile``), batched up the
+# serve batcher's padding ladder, so a tile size builds at most one runner
+# per rung. The JAX package donates its operand; here the runner owns its
+# buffers — pinned host staging, two device block stacks, the compact
+# interiors and the flag pair per tile — and reuses them on every call.
+# ---------------------------------------------------------------------------
+
+
+class TileStepRunner:
+    """``runner(blocks) -> (interiors, alive, changed)`` over (B, t+2, t+2)
+    uint8 host blocks: the (B, t, t) next interiors and (B,) bool flags, all
+    host numpy arrays the caller owns. ``runner.advance(blocks, n)`` runs n
+    generations of blocks whose rings are dead and stay dead (the macro
+    leaf windows): one upload, n launches ping-ponging two padded stacks on
+    the device, one readback of the (B, t, t) interiors.
+
+    One call at a time per runner (a lock): the sparse and macro memos
+    serve a server's worker threads, which share the cached runners."""
+
+    def __init__(self, tile: int, batch: int, device: torch.device):
+        self.tile, self.batch, self.device = tile, batch, device
+        pin = device.type == "cuda"
+        shape = (batch, tile + 2, tile + 2)
+        self._host_in = torch.empty(shape, dtype=torch.uint8, pin_memory=pin)
+        self._blocks = [torch.zeros(shape, dtype=torch.uint8, device=device)
+                        for _ in range(2)]
+        self._out = torch.empty((batch, tile, tile), dtype=torch.uint8,
+                                device=device)
+        self._flags = torch.zeros((batch, stencil_tile.TILE_FLAGS),
+                                  dtype=torch.int32, device=device)
+        self._host_out = torch.empty((batch, tile, tile), dtype=torch.uint8,
+                                     pin_memory=pin)
+        self._host_flags = torch.empty((batch, stencil_tile.TILE_FLAGS),
+                                       dtype=torch.int32, pin_memory=pin)
+        self._lock = threading.Lock()
+
+    def _upload(self, blocks) -> None:
+        blocks = np.asarray(blocks, dtype=np.uint8)
+        if blocks.shape != tuple(self._host_in.shape):
+            raise ValueError(f"tile step runner takes uint8 "
+                             f"{tuple(self._host_in.shape)}, got {blocks.shape}")
+        self._host_in.numpy()[...] = blocks
+        self._blocks[0].copy_(self._host_in, non_blocking=True)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def __call__(self, blocks):
+        with self._lock:
+            self._upload(blocks)
+            self._flags.zero_()
+            stencil_tile.tile_step_into(self._blocks[0], self._out, self._flags)
+            self._host_out.copy_(self._out, non_blocking=True)
+            self._host_flags.copy_(self._flags, non_blocking=True)
+            self._sync()  # the chunk's one device->host wait
+            flags = self._host_flags.numpy()
+            return (self._host_out.numpy().copy(), flags[:, 0] != 0,
+                    flags[:, 1] != 0)
+
+    def advance(self, blocks, generations: int) -> np.ndarray:
+        """The (B, t, t) interiors after ``generations`` steps of
+        ``blocks``, each step reading a dead ring."""
+        with self._lock:
+            self._upload(blocks)
+            cur, nxt = self._blocks
+            for _ in range(generations):
+                # Only the interior is written, so each stack's ring stays
+                # the dead ring it was uploaded or allocated with.
+                stencil_tile.tile_step_into(cur, nxt, self._flags)
+                cur, nxt = nxt, cur
+            self._host_out.copy_(cur[:, 1:-1, 1:-1], non_blocking=True)
+            self._sync()
+            return self._host_out.numpy().copy()
+
+
+def make_tile_step_runner(tile: int, batch: int, device=None) -> TileStepRunner:
+    """The B-tile halo step runner for ``(tile, batch)`` on ``device`` (the
+    run's device when None), cached like the JAX package's compiled
+    runners. One generation per call by design — the halo ring is
+    re-exchanged on the host, from the occupancy index, between
+    generations. Convention-independent: the loop accounting lives in the
+    sparse host loop, so a tile step is a pure function of its block (what
+    makes it memoizable, ``sparse/memo.py``)."""
+    if tile < 4:
+        raise ValueError(f"tile must be >= 4, got {tile}")
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    return _tile_step_runner(tile, batch, platform_env.resolve_device(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _tile_step_runner(tile: int, batch: int, device: torch.device
+                      ) -> TileStepRunner:
+    return TileStepRunner(tile, batch, device)

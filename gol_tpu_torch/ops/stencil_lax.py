@@ -1,11 +1,13 @@
 """Byte-per-cell 3x3 Moore stencil in plain torch — the any-shape path.
 
 The port of ``gol_tpu/ops/stencil_lax.py``'s ``evolve_torus`` (the toroidal
-wrap as whole-tensor rolls, the index-remapping wrap of src/game.c:69-86)
-and ``evolve_padded`` (a mesh shard from its halo-extended block). The JAX
-package has no Pallas kernel behind them, so plain torch is this path's
-implementation on both the CPU and the card. ``auto`` picks it for widths
-that do not pack into 32-bit words.
+wrap as whole-tensor rolls, the index-remapping wrap of src/game.c:69-86),
+``evolve_padded`` (a mesh shard from its halo-extended block) and
+``evolve_padded_batch`` (B halo-extended tiles with per-tile flags). The
+JAX package has no Pallas kernel behind the first two, so plain torch is
+their implementation on both the CPU and the card; ``auto`` picks them for
+widths that do not pack into 32-bit words. ``evolve_padded_batch`` is the
+plain version of T1 (``stencil_tile``), the sparse and macro lanes' kernel.
 """
 
 from __future__ import annotations
@@ -35,8 +37,20 @@ def evolve_torus(grid: torch.Tensor) -> torch.Tensor:
 
 def evolve_padded(padded: torch.Tensor) -> torch.Tensor:
     """One generation for the interior of a halo-extended (h+2, w+2) shard
-    block (the src/game_mpi.c:73-84 shape); the mesh form of ``lax``."""
-    col = padded[:-2] + padded[1:-1] + padded[2:]
-    center = padded[1:-1, 1:-1]
-    neighbors = col[:, :-2] + col[:, 1:-1] + col[:, 2:] - center
+    block (the src/game_mpi.c:73-84 shape); the mesh form of ``lax``. Any
+    leading dimensions are a batch of blocks."""
+    col = padded[..., :-2, :] + padded[..., 1:-1, :] + padded[..., 2:, :]
+    center = padded[..., 1:-1, 1:-1]
+    neighbors = col[..., :-2] + col[..., 1:-1] + col[..., 2:] - center
     return _apply_rule(neighbors, center)
+
+
+def evolve_padded_batch(blocks: torch.Tensor):
+    """One generation over B independent halo-extended (h+2, w+2) blocks,
+    with the per-block flags the sparse tile engine consumes: ``(interiors
+    (B, h, w), alive (B,), changed (B,))`` — any live interior cell, and any
+    interior cell that differs from the block's own. Interior cells read
+    only in-block neighbours (no wrap)."""
+    new = evolve_padded(blocks)
+    old = blocks[:, 1:-1, 1:-1]
+    return new, new.flatten(1).any(1), (new != old).flatten(1).any(1)

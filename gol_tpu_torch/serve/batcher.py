@@ -31,7 +31,7 @@ import torch
 from gol_tpu_torch import engine, platform_env
 from gol_tpu_torch.obs import trace as obs_trace
 from gol_tpu_torch.ops import packed_math, stencil_batch
-from gol_tpu_torch.serve.jobs import SPARSE_REFUSAL, Job, JobResult
+from gol_tpu_torch.serve.jobs import Job, JobResult
 
 # Board extents round up to multiples of this (also the packed-word width, so
 # every exact-fit bucket width packs).
@@ -42,8 +42,11 @@ PAD_QUANTUM = 32
 BATCH_SIZES = (1, 2, 4, 8, 16, 32, 64)
 MAX_BATCH = BATCH_SIZES[-1]
 
-# The sparse-lane bucket kernel tag: jobs submitted as RLE patterns over
-# giant universes. Refused until the sparse lane is ported.
+# The sparse-lane bucket kernel tag (``sparse/``): jobs submitted as RLE
+# patterns over giant universes. A sparse bucket's jobs are not stacked
+# into one canvas — each job batches its own active TILES through this
+# module's ladder inside the sparse engine — so the stage/dispatch/complete
+# split below routes sparse keys to ``sparse/serve``.
 SPARSE_KERNEL = "sparse"
 
 
@@ -171,7 +174,9 @@ def stage(key: BucketKey, jobs: list[Job]) -> StagedServeBatch:
     """Host half of a dispatch: validate membership, stack, pad, pack.
     Raises on empty/oversized batches and foreign jobs."""
     if key.kernel == SPARSE_KERNEL:
-        raise ValueError(SPARSE_REFUSAL)
+        from gol_tpu_torch.sparse import serve as sparse_serve
+
+        return sparse_serve.stage(key, jobs)
     if not jobs:
         raise ValueError("cannot stage an empty batch")
     _check_batch(key, jobs)
@@ -194,7 +199,9 @@ def dispatch(staged: StagedServeBatch) -> InflightServeBatch:
     """Dispatch a staged batch (``engine.dispatch_batch``: the loop runs
     here, one sync per block; results stay on the device)."""
     if staged.key.kernel == SPARSE_KERNEL:
-        raise ValueError(SPARSE_REFUSAL)
+        from gol_tpu_torch.sparse import serve as sparse_serve
+
+        return sparse_serve.dispatch(staged)
     return InflightServeBatch(
         key=staged.key, jobs=staged.jobs,
         inflight=engine.dispatch_batch(staged.staged),
@@ -204,7 +211,9 @@ def dispatch(staged: StagedServeBatch) -> InflightServeBatch:
 def complete(inflight: InflightServeBatch) -> list[JobResult]:
     """Fetch an in-flight batch and crop per-job results (job order)."""
     if inflight.key.kernel == SPARSE_KERNEL:
-        raise ValueError(SPARSE_REFUSAL)
+        from gol_tpu_torch.sparse import serve as sparse_serve
+
+        return sparse_serve.complete(inflight)
     return _results(engine.complete_batch(inflight.inflight))
 
 
@@ -216,7 +225,9 @@ def run_batch(key: BucketKey, jobs: list[Job]) -> list[JobResult]:
     board's slice back out. Per-board results are bit-identical to solo runs
     (the engine contract); ordering matches ``jobs``."""
     if key.kernel == SPARSE_KERNEL:
-        raise ValueError(SPARSE_REFUSAL)
+        from gol_tpu_torch.sparse import serve as sparse_serve
+
+        return sparse_serve.run_batch(key, jobs)
     if not jobs:
         return []
     _check_batch(key, jobs)
@@ -239,7 +250,7 @@ def warm(key: BucketKey, batch: int = MAX_BATCH) -> None:
     the loop in either convention; on the card that builds and loads the
     kernel library the bucket launches)."""
     if key.kernel == SPARSE_KERNEL:
-        return
+        return  # sparse buckets build runners per tile size, not per canvas
     total = pad_batch(min(batch, MAX_BATCH))
     runner = engine.make_batch_runner(
         (key.height, key.width),

@@ -1,11 +1,9 @@
 """The ``Job`` record and the crash-safe append-only job journal.
 
-The port's copy of ``gol_tpu/serve/jobs.py`` (JAX-free; the port imports
-nothing of the JAX package). The journal's on-disk format is the JAX
-package's, record for record, so a journal written by either package
-replays under the other. The sparse input form (an RLE pattern) is
-refused with a ``gol:`` error until the sparse lane is ported (ROADMAP.md
-Queue 1 item 7).
+The port's copy of ``gol_tpu/serve/jobs.py`` (the port imports nothing of
+the JAX package). The journal's on-disk format is the JAX package's,
+record for record, so a journal written by either package replays under
+the other, sparse and macro jobs included.
 
 A job is one board's simulation request plus its lifecycle state machine:
 
@@ -54,11 +52,6 @@ from gol_tpu_torch.serve import compaction
 logger = logging.getLogger(__name__)
 
 # Lifecycle states (the serving state machine).
-# The sparse (RLE) input form needs the sparse tiled engine.
-SPARSE_REFUSAL = ("sparse (RLE) jobs are not ported yet (ROADMAP.md Queue 1 "
-                  "item 7: sparse, macro and RLE); run them with python -m "
-                  "gol_tpu")
-
 QUEUED = "queued"
 SCHEDULED = "scheduled"  # claimed by a forming batch, not yet on device
 RUNNING = "running"  # batch dispatched to the compiled program
@@ -289,10 +282,40 @@ class Job:
             self.words = None
 
     def _init_sparse(self) -> None:
-        """The sparse (RLE) input form runs on the sparse tiled engine,
-        which the port does not have yet: refused at admission, where the
-        CLI and the server map a ValueError to their error contract."""
-        raise ValueError(SPARSE_REFUSAL)
+        """Validate + pre-parse a sparse (RLE) job at admission: every
+        malformed shape raises here, inside the server's 400 mapping,
+        never on a worker thread. The full byte canvas is NEVER built —
+        only the small pattern array (process-local; replay re-parses)."""
+        from gol_tpu_torch.io import rle as rle_codec
+        from gol_tpu_torch.sparse.board import DEFAULT_TILE, MIN_TILE
+
+        if not isinstance(self.rle, str):
+            raise TypeError(
+                f"rle must be a string, got {type(self.rle).__name__}"
+            )
+        if self.board is not None:
+            raise ValueError("a job carries either cells or rle, not both")
+        self.place_x = int(self.place_x)
+        self.place_y = int(self.place_y)
+        self.tile = int(self.tile)
+        if self.tile == 0:
+            self.tile = DEFAULT_TILE
+        if self.tile < MIN_TILE:
+            raise ValueError(f"tile must be >= {MIN_TILE}, got {self.tile}")
+        if self.height % self.tile or self.width % self.tile:
+            raise ValueError(
+                f"universe {self.height}x{self.width} does not divide into "
+                f"{self.tile}^2 tiles"
+            )
+        self.pattern = rle_codec.parse(self.rle)
+        ph, pw = self.pattern.shape
+        if (self.place_x < 0 or self.place_y < 0
+                or self.place_y + ph > self.height
+                or self.place_x + pw > self.width):
+            raise ValueError(
+                f"pattern {ph}x{pw} at ({self.place_x},{self.place_y}) does "
+                f"not fit the {self.height}x{self.width} universe"
+            )
 
     @property
     def config(self) -> GameConfig:

@@ -246,8 +246,9 @@ class ResidentEngine:
         return batcher.stage(key, jobs)
 
     def dispatch(self, sstaged: StagedServeBatch):
-        # Sparse buckets have no ring lane: they take the plain batcher
-        # split (which refuses them until the sparse lane is ported).
+        # Sparse buckets have no ring lane (their tile batching lives in
+        # the sparse engine): they take the plain batcher split, so a
+        # resident server serves sparse jobs through the same scheduler.
         if sstaged.key.kernel == batcher.SPARSE_KERNEL:
             return batcher.dispatch(sstaged)
         return self._lane(sstaged.key).submit(sstaged)

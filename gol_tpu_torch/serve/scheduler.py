@@ -383,7 +383,11 @@ class Scheduler:
         # submission that will be 429'd must not amplify overload with a
         # CAS disk read, nor count a consult in the hit/miss series.
         fp = hit = None
-        if self.cache is not None and not job.no_cache and not (
+        # Sparse jobs (job.board is None) never enter the job-level result
+        # cache: their answer IS memoized tile work (sparse/memo), and a
+        # dense CacheEntry cannot carry an RLE universe.
+        if self.cache is not None and not job.no_cache \
+                and job.board is not None and not (
             record and (self._draining
                         or self._queued >= self.max_queue_depth)
         ):
@@ -764,6 +768,8 @@ class Scheduler:
         self.metrics.observe("run_latency_seconds", elapsed)
         self.metrics.set_gauge("boards_per_sec", len(batch) / elapsed)
         cells = 0
+        sparse_tiles = 0
+        sparse_occupancy = None
         for job, result in zip(batch, results):
             job.finished_at = finished
             job.timeline["done"] = finished
@@ -779,13 +785,30 @@ class Scheduler:
             )
             # Achieved useful work: actual board cells times the generations
             # the board really ran (padding slots and canvas don't count).
-            cells += job.height * job.width * result.generations
+            # Sparse results report their own achieved work — active tiles
+            # times tile area — because universe x generations is exactly
+            # the cost the sparse lane exists to NOT pay.
+            if result.cell_updates is not None:
+                cells += result.cell_updates
+            else:
+                cells += job.height * job.width * result.generations
+            if result.tiles_simulated is not None:
+                sparse_tiles += result.tiles_simulated
+            if result.occupancy is not None:
+                sparse_occupancy = result.occupancy
         # Fed to the dispatch-gap sampler (obs/sampler.py): achieved
         # cell-updates per bucket.
         self.metrics.inc("serve_cell_updates_total", cells)
         self.metrics.inc(
             "serve_cell_updates_total_" + metric_label(key.label()), cells
         )
+        # Sparse-lane work series on the serving registry (they reach
+        # `top` like any serving series): tile-steps executed and the last
+        # finished universe's live-tile occupancy.
+        if sparse_tiles:
+            self.metrics.inc("sparse_tiles_simulated_total", sparse_tiles)
+        if sparse_occupancy is not None:
+            self.metrics.set_gauge("sparse_occupancy", sparse_occupancy)
         # Write-through BEFORE retiring the in-flight registrations: a
         # submit racing the handoff either still coalesces behind the
         # leader or hits the tier the result just landed in — there is no

@@ -2,10 +2,10 @@
 
 The port's copy of ``gol_tpu/serve/server.py``: the same endpoints, status
 codes, error JSON and ``/metrics`` text as the JAX package's server
-(test-pinned), so a client of either package talks to it. Two
-differences: a body with ``rle`` (a sparse job) answers 400 with the
-batcher's sparse refusal, and ``POST /shard/<leg>`` answers 400 (the
-sharded single-job lane is not ported, ROADMAP.md Queue 1 item 9). The
+(test-pinned), so a client of either package talks to it, sparse and
+macro jobs (a body with ``rle``) included. One difference: ``POST
+/shard/<leg>`` answers 400 (the sharded single-job lane is not ported,
+ROADMAP.md Queue 1 item 9). The
 dispatch-gap monitor reads the marginal rates of the port's own plan
 cache (``tune/select.py``).
 
@@ -95,7 +95,7 @@ from gol_tpu_torch.obs import (
     trace as obs_trace,
 )
 from gol_tpu_torch.serve.jobs import (
-    CANCELLED, DONE, FAILED, SPARSE_REFUSAL, JobJournal, new_job,
+    CANCELLED, DONE, FAILED, JobJournal, new_job,
 )
 from gol_tpu_torch.serve.metrics import Metrics
 from gol_tpu_torch.serve.scheduler import (
@@ -365,7 +365,7 @@ class GolServer:
     def submit_json(self, body: dict, trace_header: str | None = None,
                     deadline_header: str | None = None) -> dict:
         if "rle" in body:
-            raise ValueError(SPARSE_REFUSAL)
+            return self._submit_sparse(body, trace_header, deadline_header)
         if body.get("shard"):
             raise ValueError("shard jobs take the sparse input form (rle)")
         required = ("width", "height", "cells")
@@ -378,6 +378,45 @@ class GolServer:
         board = _decode_cells(body["cells"], width, height)
         return self._submit_board(board, None, width, height, body,
                                   trace_header, deadline_header)
+
+    def _submit_sparse(self, body: dict,
+                       trace_header: str | None = None,
+                       deadline_header: str | None = None) -> dict:
+        """``POST /jobs`` with an ``rle`` field: a sparse job — a pattern
+        placed at (``x``, ``y``) of an otherwise-empty ``width x height``
+        universe, run on the sparse tiled engine. Same contract shape as a
+        dense submit (202 + id); the full canvas never exists anywhere."""
+        required = ("width", "height", "rle")
+        missing = [k for k in required if k not in body]
+        if missing:
+            raise ValueError(f"missing required field(s): {missing}")
+        if "cells" in body:
+            raise ValueError("a job carries either cells or rle, not both")
+        width, height = int(body["width"]), int(body["height"])
+        if width <= 0 or height <= 0:
+            raise ValueError(f"dimensions must be positive, got {height}x{width}")
+        kwargs = {}
+        for field in (
+            "convention", "gen_limit", "check_similarity",
+            "similarity_frequency", "priority", "no_cache", "macro",
+            "shard",
+        ):
+            if field in body:
+                kwargs[field] = body[field]
+        if body.get("deadline_s") is not None:
+            kwargs["deadline_s"] = float(body["deadline_s"])
+        job = new_job(
+            width, height, None,
+            rle=body["rle"],
+            place_x=body.get("x", 0),
+            place_y=body.get("y", 0),
+            tile=body.get("tile", 0),
+            **kwargs,
+        )
+        self.metrics.inc("sparse_submits_total")
+        if job.macro:
+            self.metrics.inc("macro_submits_total")
+        return self._admit(job, trace_header, deadline_header)
 
     def submit_packed(self, raw: bytes,
                       trace_header: str | None = None,
@@ -424,7 +463,7 @@ class GolServer:
     def _admit(self, job, trace_header: str | None,
                deadline_header: str | None = None) -> dict:
         """Trace adoption + deadline adoption + scheduler admission (shared
-        by the dense text and packed wire submit lanes).
+        by the dense text, packed wire, and sparse RLE submit lanes).
 
         Trace-context adoption (obs/propagate.py): a router forwarding
         under `--trace` stamps X-Gol-Trace; when tracing is enabled HERE

@@ -1,7 +1,7 @@
 """Timed trials behind a byte-exact correctness gate.
 
-The port of ``gol_tpu/tune/measure.py`` (its sparse crossover comes with
-the sparse lane). Measurement discipline:
+The port of ``gol_tpu/tune/measure.py``, the dense/sparse crossover
+included. Measurement discipline:
 
 - ``time.perf_counter`` ONLY;
 - every candidate is warmed (its kernels built and launched once) before
@@ -474,6 +474,147 @@ def run_serve_search(
         default_label=default_label,
         winner=winner.plan,
         marginal=marginal,
+    )
+
+
+@dataclasses.dataclass
+class CrossoverResult:
+    """One ``tune --sparse-crossover`` measurement: the per-host area
+    where dense per-generation cost overtakes the sparse engine's."""
+
+    auto_area: int
+    dense_points: list  # [(area_cells, s_per_gen), ...]
+    sparse_s_per_gen: float
+    tile: int
+
+    def to_dict(self) -> dict:
+        return {
+            "kind": "sparse_crossover",
+            "auto_area": self.auto_area,
+            "dense_points": [
+                [int(a), round(s, 6)] for a, s in self.dense_points
+            ],
+            "sparse_s_per_gen": round(self.sparse_s_per_gen, 6),
+            "tile": self.tile,
+        }
+
+
+def fit_crossover(dense_points, sparse_s_per_gen: float,
+                  floor: int = 1 << 16, ceil: int = 1 << 36) -> int:
+    """Solve the dense/sparse crossover area from measurements.
+
+    Dense per-generation cost is linear in the canvas area (every cell is
+    touched a fixed number of times: BENCH_r14's column grows ~4x per 4x
+    area); the sparse engine's cost is flat in the UNIVERSE area (it
+    tracks live tiles, which a fixed pattern load pins). Least-squares
+    fit ``dense(area) = a * area + b`` through the measured points and
+    solve ``dense(area) == sparse`` for area, clamped to the admissible
+    band (a machine where dense wins everywhere measured still gets a
+    finite threshold instead of infinity)."""
+    if len(dense_points) < 2:
+        raise ValueError("need >= 2 dense measurements to fit a slope")
+    if sparse_s_per_gen <= 0:
+        raise ValueError(f"sparse_s_per_gen must be > 0, "
+                         f"got {sparse_s_per_gen}")
+    xs = np.array([float(a) for a, _ in dense_points])
+    ys = np.array([float(s) for _, s in dense_points])
+    a, b = np.polyfit(xs, ys, 1)
+    # Dense cost must GROW measurably across the probed band (>= 5% of
+    # the mean sample over the span): a flat or negative fit — a fast
+    # device, probe sizes all under its dispatch floor, or pure noise —
+    # measures nothing, and extrapolating it would put the crossover at
+    # an arbitrary clamp. Fail loudly instead.
+    if a <= 0 or a * (xs.max() - xs.min()) < 0.05 * float(ys.mean()):
+        raise ValueError(
+            f"dense cost did not grow with area over the probe "
+            f"(slope {a:.3e}); measure larger sizes"
+        )
+    crossover = (sparse_s_per_gen - b) / a
+    return int(min(max(crossover, floor), ceil))
+
+
+def run_sparse_crossover_search(
+    tile: int = 256,
+    gens: int = 12,
+    iters: int = 3,
+    quick: bool = False,
+    device=None,
+) -> CrossoverResult:
+    """Measure THIS host's dense/sparse crossover (`--engine auto`'s
+    threshold): dense per-generation wall time at a ladder of square
+    universes (linear in area) vs the sparse engine on the same
+    glider load (flat), fit and solved by ``fit_crossover``.
+
+    The load mirrors BENCH_r14's: a handful of gliders — sparse cost
+    pinned to a few tiles regardless of universe size. Dense probes stay
+    small (the fit extrapolates the linear cost; probing 2^26 cells to
+    learn the slope would burn minutes measuring what 2^22 already
+    says). Sparse is measured at the LARGEST probe size: its flatness is
+    the model, its value the only free parameter. ``device`` is the run's
+    device (the platform default when None): the dense probes run there,
+    and the sparse engine follows the platform default."""
+    from gol_tpu_torch import engine, platform_env
+    from gol_tpu_torch.io import rle as rle_codec
+    from gol_tpu_torch.sparse.board import SparseBoard
+    from gol_tpu_torch.sparse.engine import simulate_sparse
+
+    sides = (1024, 2048) if quick else (1024, 2048, 4096)
+    config = GameConfig(gen_limit=gens, check_similarity=False)
+    glider = rle_codec.parse("x = 3, y = 3\nbob$2bo$3o!")
+
+    def place_gliders(side: int) -> np.ndarray:
+        grid = np.zeros((side, side), np.uint8)
+        gh, gw = glider.shape
+        # 5 gliders spread across the universe (tile-boundary crossers
+        # included), the BENCH_r14 load shape; positions wrap into the
+        # in-bounds band so every glider lands whole.
+        for k in range(5):
+            y = (k * side // 5) % (side - gh)
+            x = (k * 2 * side // 7) % (side - gw)
+            grid[y:y + gh, x:x + gw] = glider
+        return grid
+
+    dev = platform_env.resolve_device(device)
+    dense_points = []
+    for side in sides:
+        grid = torch.from_numpy(place_gliders(side)).to(dev)
+        runner = engine.make_runner((side, side), config, "auto", dev)
+
+        def run_dense(runner=runner, grid=grid):
+            final, _ = runner(grid)
+            fence(final)  # the completion barrier
+
+        s = trimmed_median(timed_samples(run_dense, warmup=1, iters=iters))
+        dense_points.append((side * side, s / gens))
+        logger.info("sparse-crossover: dense %dx%d = %.3f ms/gen",
+                    side, side, 1000 * s / gens)
+
+    side = sides[-1]
+    # Built ONCE outside the timer: from_dense scans the whole canvas —
+    # exactly the O(area) work the sparse engine elides — and timing it
+    # would inflate sparse_s_per_gen and bias the crossover toward
+    # dense. Each timed run simulates a fresh O(live-tiles) deep copy
+    # (simulate_sparse mutates the board in place).
+    import copy as _copy
+
+    sparse_board = SparseBoard.from_dense(place_gliders(side), tile)
+
+    def run_sparse():
+        simulate_sparse(_copy.deepcopy(sparse_board), config)
+
+    s = trimmed_median(timed_samples(run_sparse, warmup=1, iters=iters))
+    sparse_s_per_gen = s / gens
+    logger.info("sparse-crossover: sparse %dx%d (tile %d) = %.3f ms/gen "
+                "(%d live tiles)", side, side, tile,
+                1000 * sparse_s_per_gen, sparse_board.live_tiles)
+    area = fit_crossover(dense_points, sparse_s_per_gen)
+    logger.info("sparse-crossover: dense overtakes sparse at ~%d cells "
+                "(%.0f^2)", area, area ** 0.5)
+    return CrossoverResult(
+        auto_area=area,
+        dense_points=dense_points,
+        sparse_s_per_gen=sparse_s_per_gen,
+        tile=tile,
     )
 
 

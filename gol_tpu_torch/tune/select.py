@@ -1,7 +1,7 @@
 """Runtime plan selection: the engine and the serve batcher ask here.
 
-The port of ``gol_tpu/tune/select.py`` (its sparse and macro crossovers
-come with those lanes). The consult contract, pinned by
+The port of ``gol_tpu/tune/select.py``, the sparse and macro crossovers
+of ``--engine auto`` included. The consult contract, pinned by
 tests/test_torch_tune.py against the JAX package's:
 
 - **no plan cached → None/defaults**, and the callers' hard-coded ladders
@@ -140,6 +140,87 @@ def marginal_rates() -> dict[str, float]:
         if rate > 0:
             out[str(label)] = rate
     return out
+
+
+def sparse_fingerprint() -> str:
+    """The sparse-engine crossover covers the whole universe space on one
+    device — grid/convention/family wildcarded like the serve geometry."""
+    return plans.fingerprint("sparse", 0, 0, "any", "any", (1, 1),
+                             plans.device_kind())
+
+
+# The admissible crossover band: below 2^16 cells even a lone glider's
+# dense canvas is trivial; above 2^36 the dense lane is ruled out by the
+# cells guard long before the threshold matters. A cached value outside
+# the band is a corrupt/hand-edited entry and degrades loudly.
+SPARSE_AREA_FLOOR = 1 << 16
+SPARSE_AREA_CEIL = 1 << 36
+
+
+def sparse_auto_area(default: int) -> int:
+    """The measured dense/sparse crossover area for `--engine auto`
+    (``run --pattern``): the plan-cached value this host measured
+    (``tune --sparse-crossover``), else the bundled default, else
+    ``default`` (the engine's shipped constant). Invalid entries are
+    rejected loudly — a corrupt cache must not flip giant universes onto
+    the dense lane."""
+    entry = _store().get(sparse_fingerprint())
+    if entry is None:
+        entry = _store().get_default("sparse")
+    if not entry:
+        return default
+    try:
+        area = int(entry["auto_area"])
+        if not SPARSE_AREA_FLOOR <= area <= SPARSE_AREA_CEIL:
+            raise ValueError(f"auto_area {area} outside "
+                             f"[{SPARSE_AREA_FLOOR}, {SPARSE_AREA_CEIL}]")
+    except (KeyError, TypeError, ValueError) as err:
+        logger.warning("unusable sparse crossover plan (%s: %s); using the "
+                       "built-in threshold", type(err).__name__, err)
+        return default
+    if area != default:
+        logger.info("tuned sparse auto threshold: %d cells", area)
+    return area
+
+
+def macro_fingerprint() -> str:
+    """The macro-engine crossover is one number per host, like the sparse
+    one — grid/convention/family wildcarded."""
+    return plans.fingerprint("macro", 0, 0, "any", "any", (1, 1),
+                             plans.device_kind())
+
+
+# The admissible sparse/macro crossover band: below 2^6 generations the
+# tree build alone dwarfs any per-generation loop; above 2^40 the macro
+# lane would effectively never engage, which defeats recording a plan at
+# all. Outside the band = corrupt/hand-edited entry, degrade loudly.
+MACRO_GENS_FLOOR = 1 << 6
+MACRO_GENS_CEIL = 1 << 40
+
+
+def macro_auto_gens(default: int) -> int:
+    """The measured sparse/macro generation-count crossover for
+    ``--engine auto``: the plan-cached value this host measured, else the
+    bundled default, else ``default`` (the macro engine's shipped
+    constant). Invalid entries are rejected loudly — a corrupt cache must
+    not route shallow runs onto the tree engine."""
+    entry = _store().get(macro_fingerprint())
+    if entry is None:
+        entry = _store().get_default("macro")
+    if not entry:
+        return default
+    try:
+        gens = int(entry["auto_gens"])
+        if not MACRO_GENS_FLOOR <= gens <= MACRO_GENS_CEIL:
+            raise ValueError(f"auto_gens {gens} outside "
+                             f"[{MACRO_GENS_FLOOR}, {MACRO_GENS_CEIL}]")
+    except (KeyError, TypeError, ValueError) as err:
+        logger.warning("unusable macro crossover plan (%s: %s); using the "
+                       "built-in threshold", type(err).__name__, err)
+        return default
+    if gens != default:
+        logger.info("tuned macro auto threshold: %d generations", gens)
+    return gens
 
 
 def warm_entries() -> list[dict]:

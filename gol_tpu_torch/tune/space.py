@@ -50,6 +50,22 @@ BATCH_LADDERS = (
 # round — the full 3-way cross would triple search time for candidates
 # that cannot differ.
 SERVE_TEMPORAL_DEPTHS = (1, 2, 4, 8)
+# Sparse-engine tile edges (``sparse/``): bit-exact at any admissible
+# value — the tile size trades per-tile dispatch amortization against
+# elision granularity (smaller tiles skip more dead area; larger tiles
+# batch better), so it is a measured axis like the serve geometry. The
+# sparse lane's tile-batch counts already round up the serve plan's
+# BATCH_LADDERS via batcher.pad_batch, so a tuned ladder applies to tile
+# batching with no extra plumbing.
+SPARSE_TILES = (128, 256, 512)
+
+
+def valid_sparse_tile(tile: int, height: int, width: int) -> bool:
+    """A tile edge is admissible for a universe iff the extents tile
+    evenly (the sparse board's own constructor invariant)."""
+    return tile >= 4 and height % tile == 0 and width % tile == 0
+
+
 @dataclasses.dataclass(frozen=True)
 class EnginePlan:
     """A point in the solo-engine space; ``None`` fields mean "built-in".

@@ -11,6 +11,7 @@ distributed variant (``_jax_args``).
 """
 
 import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -1005,3 +1006,228 @@ def test_serve_submit_and_sigterm_as_processes(tmp_path):
     got = text_grid.read_grid(path + ".out", 30, 30)
     np.testing.assert_array_equal(got, oracle.run(want, GameConfig(gen_limit=25)).grid)
     assert os.listdir(os.path.join(journal, "cache"))
+
+
+# ---------------------------------------------------------------------------
+# The pattern lane: --pattern, --universe, --place, --engine, --tile, --gens,
+# --macro-cas, and --engine sparse|macro over a dense input file
+
+
+PATTERNS = Path(__file__).resolve().parent.parent / "patterns"
+
+
+def _both_io(capsys, args, tmp_path, name="out.rle"):
+    """Both CLIs: ``[(rc, stdout masked, stderr, output bytes)]`` for JAX,
+    port, each writing ``--output`` into its own directory. The port's log
+    lines name its own logger (``gol_tpu_torch: ...``)."""
+    results = []
+    for tag, main in (("jax", jax_cli.main), ("port", cli.main)):
+        out = tmp_path / tag / name
+        out.parent.mkdir(exist_ok=True)
+        rc = main([*args, "--output", str(out)])
+        stdout, stderr = capsys.readouterr()
+        stderr = stderr.replace("gol_tpu_torch: ", "gol_tpu: ")
+        results.append((rc, _MS.sub("X msecs", stdout), stderr,
+                        out.read_bytes() if out.exists() else None))
+    return results
+
+
+@pytest.fixture
+def pinned_plans(tmp_path, monkeypatch):
+    """A private, empty plan cache: both packages' --engine auto read the
+    bundled crossover (2^25 cells) and the built-in macro threshold."""
+    from gol_tpu.tune import select as jax_select
+    from gol_tpu_torch.tune import select
+
+    monkeypatch.setenv("GOL_PLAN_CACHE", str(tmp_path / "plans.json"))
+    select.reset()
+    jax_select.reset()
+    yield
+    select.reset()
+    jax_select.reset()
+
+
+@pytest.mark.parametrize("variant", ["game", "cuda", "tpu"])
+@pytest.mark.parametrize("engine", ["auto", "dense", "sparse", "macro"])
+@pytest.mark.parametrize("case", [
+    ("glider", "64x64", "10,10", "8", "50"),
+    ("gosper_gun", "128x96", "40,30", "8", "120"),
+    ("diehard", "128x128", "50,60", "16", "140"),
+    ("block", None, "0,0", "4", "9"),
+], ids=lambda c: c[0])
+def test_pattern_lane_matches_jax(case, engine, variant, pinned_plans, capsys,
+                                  tmp_path):
+    name, universe, place, tile, gens = case
+    if name == "block":  # the RLE's own extents are the universe
+        pattern = tmp_path / "block.rle"
+        pattern.write_text("x = 16, y = 16\n6$6b2o$6b2o!")
+    else:
+        pattern = PATTERNS / f"{name}.rle"
+    args = ["--pattern", str(pattern), "--place", place, "--tile", tile,
+            "--gens", gens, "--variant", variant, "--engine", engine]
+    if universe:
+        args += ["--universe", universe]
+    jax_res, port_res = _both_io(capsys, args, tmp_path)
+    assert port_res == jax_res
+    assert port_res[0] == 0 and port_res[3]
+
+
+@pytest.mark.parametrize("engine", ["auto", "sparse", "macro"])
+def test_pattern_lane_default_output_and_large_universe(engine, pinned_plans,
+                                                        capsys, tmp_path,
+                                                        monkeypatch):
+    """Above the bundled crossover auto takes the sparse lane (8192^2 >=
+    2^25); the default output is sparse_output.rle, never a dense grid."""
+    monkeypatch.chdir(tmp_path)
+    outputs = []
+    for main in (jax_cli.main, cli.main):
+        rc = main(["--pattern", str(PATTERNS / "glider.rle"), "--universe",
+                   "8192x8192", "--place", "4000,4000", "--gens", "30",
+                   "--engine", engine, "--variant", "game"])
+        out, err = capsys.readouterr()
+        outputs.append((rc, _MS.sub("X msecs", out), err,
+                        (tmp_path / "sparse_output.rle").read_bytes()))
+        (tmp_path / "sparse_output.rle").unlink()
+        assert not (tmp_path / "game_output.out").exists()
+    assert outputs[0] == outputs[1] and outputs[1][0] == 0
+
+
+@pytest.mark.parametrize("gens,engine", [(300, "auto"), (300, "macro"),
+                                         (40, "auto")])
+def test_auto_follows_measured_thresholds_as_jax(gens, engine, pinned_plans,
+                                                 capsys, tmp_path):
+    """Under measured thresholds in the plan cache (each package's own
+    entry: 2^16 cells, 64 generations) auto takes the sparse lane at 1024^2
+    and upgrades a deep run kept off the torus seam to the macro lane; both
+    lanes write the same bytes either way."""
+    from gol_tpu.tune import plans as jax_plans
+    from gol_tpu.tune import select as jax_select
+    from gol_tpu_torch.tune import plans, select
+
+    for store, sel in ((plans.PlanStore(), select),
+                       (jax_plans.PlanStore(), jax_select)):
+        store.put(sel.sparse_fingerprint(), {"auto_area": 1 << 16})
+        store.put(sel.macro_fingerprint(), {"auto_gens": 64})
+    args = ["--pattern", str(PATTERNS / "glider.rle"), "--universe",
+            "1024x1024", "--place", "512,512", "--gens", str(gens),
+            "--tile", "8", "--engine", engine, "--variant", "game"]
+    jax_res, port_res = _both_io(capsys, args, tmp_path)
+    assert port_res == jax_res and port_res[0] == 0
+    assert port_res[3].startswith(f"#C generations {gens} exit gen_limit\n".encode())
+
+
+@pytest.mark.parametrize("engine", ["sparse", "macro"])
+@pytest.mark.parametrize("variant", ["game", "cuda"])
+@pytest.mark.parametrize("flow", ["random", "block", "lone", "dead"])
+def test_engine_over_an_input_file_matches_jax(flow, variant, engine, capsys,
+                                               tmp_path):
+    if flow == "random":
+        g = text_grid.generate(64, 64, seed=13)
+    else:
+        g = np.zeros((64, 64), np.uint8)
+        if flow == "block":
+            g[30:32, 30:32] = 1
+        elif flow == "lone":
+            g[20, 40] = 1
+    path = _write(tmp_path, "in.txt", g)
+    args = ["64", "64", path, "--variant", variant, "--engine", engine,
+            "--tile", "16", "--gen-limit", "40"]
+    if engine == "macro" and flow == "random":
+        # A soup touches the universe edge: the plane refusal, as in JAX.
+        args[-1] = "3"
+    jax_res, port_res = _both_io(capsys, args, tmp_path)
+    assert port_res == jax_res
+
+
+def test_macro_cas_directory_moves_between_the_packages(capsys, tmp_path):
+    """--macro-cas written by one CLI, read by the other: the same bytes,
+    and the warm run finds every advance in the directory."""
+    cas = tmp_path / "cas"
+    args = ["--pattern", str(PATTERNS / "gosper_gun.rle"), "--universe",
+            "512x512", "--place", "200,200", "--tile", "8", "--gens", "300",
+            "--engine", "macro", "--macro-cas", str(cas), "--variant", "game"]
+    jax_res, port_res = _both_io(capsys, args, tmp_path)
+    assert port_res == jax_res and port_res[0] == 0
+    entries = sorted(p.name for p in cas.rglob("*") if p.is_file())
+    assert entries
+    # Fresh directories: each package cold, then the other warm from it.
+    for first, second in ((jax_cli.main, cli.main), (cli.main, jax_cli.main)):
+        d = tmp_path / f"cas_{first.__module__}"
+        outs = []
+        for main in (first, second):
+            out = tmp_path / "o.rle"
+            assert main([*args[:-4], "--macro-cas", str(d), "--variant", "game",
+                         "--output", str(out)]) == 0
+            outs.append(out.read_bytes())
+        capsys.readouterr()
+        assert outs[0] == outs[1] == port_res[3]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--engine", "sparse", "--macro-cas", "CAS"],
+    ["--engine", "dense", "--macro-cas", "CAS"],
+    ["--engine", "shard"],
+    ["--shard-across", "http://127.0.0.1:1"],
+    ["--engine", "shard", "--shard-across", "http://127.0.0.1:1", "NOPATTERN"],
+    ["--gens", "-1"],
+    ["--universe", "64"],
+    ["--universe", "64x64", "--place", "3"],
+    ["--universe", "64x64", "--place", "62,0"],
+    ["--universe", "64x64", "--place", "62,0", "--engine", "dense"],
+    ["--universe", "60x64", "--engine", "sparse", "--tile", "8"],
+    ["--universe", "64x64", "--engine", "macro", "--tile", "7"],
+    ["--universe", "64x64", "--engine", "sparse", "--tile", "2"],
+    ["--universe", "64x64", "--engine", "sparse", "--kernel", "lax"],
+    ["--universe", "64x64", "--engine", "macro", "--kernel", "pallas"],
+    ["--universe", "65536x65536", "--engine", "dense"],
+    ["--universe", "64x64", "--mesh", "1x1"],
+    ["--universe", "64x64", "--packed-io"],
+    ["--universe", "64x64", "--host"],
+    ["--universe", "64x64", "--snapshot-every", "10"],
+    ["--universe", "64x64", "--resume-gen", "5"],
+    ["--universe", "64x64", "--checkpoint-every", "10"],
+    ["--universe", "32x32", "--place", "1,1", "--tile", "4", "--engine",
+     "macro", "--gens", "200"],
+    ["INPUT"],
+], ids=["cas_sparse", "cas_dense", "shard_no_router", "router_no_shard",
+        "shard_no_pattern", "gens_negative", "universe_form", "place_form",
+        "place_outside", "place_outside_dense", "universe_tile", "macro_odd_tile",
+        "tile_small", "sparse_kernel", "macro_kernel", "dense_ceiling", "mesh",
+        "packed_io", "host", "snapshots", "resume", "checkpoints", "plane",
+        "input_and_pattern"])
+def test_pattern_lane_refusals_match_jax(flags, capsys, tmp_path):
+    path = _write(tmp_path, "in.txt", text_grid.generate(64, 64, seed=3))
+    args = ["--pattern", str(PATTERNS / "glider.rle")]
+    if "NOPATTERN" in flags:
+        args = ["64", "64", path]
+    elif "INPUT" in flags:
+        args = ["64", "64", path, *args]
+    flags = [str(tmp_path / "cas") if f == "CAS" else f for f in flags
+             if f not in ("NOPATTERN", "INPUT")]
+    results = []
+    for main in (jax_cli.main, cli.main):
+        rc = main([*args, *flags, "--output", str(tmp_path / "o.rle")])
+        out, err = capsys.readouterr()
+        results.append((rc, _MS.sub("X msecs", out), err))
+    assert results[1] == results[0]
+    assert results[1][0] == 1 and results[1][2].startswith("gol: ")
+    assert not (tmp_path / "o.rle").exists()
+
+
+def test_engine_shard_is_refused_naming_the_roadmap(capsys, tmp_path):
+    """A well-formed --engine shard run (JAX's checks passed) exits 1 with
+    one gol: line naming ROADMAP.md Queue 1 item 9; nothing is written."""
+    rc = cli.main(["--pattern", str(PATTERNS / "glider.rle"), "--engine",
+                   "shard", "--shard-across", "http://127.0.0.1:1",
+                   "--output", str(tmp_path / "o.rle")])
+    out, err = capsys.readouterr()
+    assert (rc, out) == (1, "")
+    assert err == f"gol: {cli.SHARD_ENGINE_REFUSAL}\n"
+    assert "Queue 1 item 9" in err
+    assert not (tmp_path / "o.rle").exists()
+
+
+def test_run_parser_matches_jax():
+    """The run parser's options, defaults and choices are JAX's, the
+    pattern lane's included."""
+    assert _options(_parser_of(cli, "run")) == _options(_parser_of(jax_cli, "run"))

@@ -679,3 +679,82 @@ def test_temporal_depth_2_equals_depth_8_at_512(card, convention):
     want = oracle.run(grid, config)
     assert np.array_equal(outs[2][0], want.grid)
     assert outs[2][1] == want.generations
+
+
+# ---------------------------------------------------------------------------
+# T1 (the sparse and macro lanes' tile step) and the lanes over it
+
+
+@pytest.fixture
+def tile_card(card):
+    from gol_tpu_torch.ops import stencil_tile
+
+    stencil_tile.load_kernels()
+    return card
+
+
+def _tile_blocks(batch, tile, seed):
+    """Soup, a still block, a dead interior born from its ring, and an
+    all-zero padding row last."""
+    rng = np.random.default_rng(seed)
+    p = tile + 2
+    out = np.zeros((batch, p, p), np.uint8)
+    for b in range(batch - 1):
+        if b % 3 == 0:
+            out[b] = rng.random((p, p)) < 0.45
+        elif b % 3 == 1:
+            out[b, 2:4, 2:4] = 1
+        else:
+            out[b, 0, 1:4] = 1
+    return out
+
+
+@pytest.mark.parametrize("form", ["compact", "padded"])
+@pytest.mark.parametrize("batch,tile", [(3, 4), (5, 9), (4, 33), (64, 256), (8, 512)])
+def test_tile_step_kernel_matches_plain(tile_card, batch, tile, form):
+    from gol_tpu_torch.ops import stencil_tile as st
+
+    blocks = torch.from_numpy(_tile_blocks(batch, tile, batch + tile))
+    want, want_flags = st._tile_step_plain(blocks)
+    x = blocks.to(tile_card)
+    out = (torch.full((batch, tile, tile), 5, dtype=torch.uint8, device=tile_card)
+           if form == "compact" else torch.full_like(x, 5))
+    flags = torch.zeros((batch, 2), dtype=torch.int32, device=tile_card)
+    before = st.LAUNCHES["tile_step"]
+    st.tile_step_into(x, out, flags)
+    torch.cuda.synchronize()
+    assert st.LAUNCHES["tile_step"] == before + 1
+    got = out if form == "compact" else out[:, 1:-1, 1:-1]
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(flags.cpu(), want_flags)
+    if form == "padded":
+        ring = out.cpu().clone()
+        ring[:, 1:-1, 1:-1] = 5
+        assert bool((ring == 5).all())
+
+
+@pytest.mark.parametrize("convention", [Convention.C, Convention.CUDA])
+def test_sparse_and_macro_lanes_on_the_card_match_the_cpu(tile_card, convention,
+                                                          monkeypatch):
+    """The sparse and macro engines on the card (T1) against the same runs
+    on the CPU (T1's plain version): the same RLE, generations and exit."""
+    from gol_tpu_torch.macro import simulate_macro
+    from gol_tpu_torch.ops import stencil_tile as st
+    from gol_tpu_torch.sparse import SparseBoard, TileMemo, simulate_sparse
+
+    gun = open(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "patterns", "gosper_gun.rle")).read()
+    config = GameConfig(gen_limit=300, convention=convention)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        monkeypatch.setenv("GOL_TORCH_DEVICE", device)
+        before = st.LAUNCHES["tile_step"]
+        board = lambda: SparseBoard.from_rle(gun, 1024, 1024, 16, x=400, y=400)  # noqa: E731
+        sparse = simulate_sparse(board(), config, TileMemo())
+        macro = simulate_macro(board(), config)
+        runs[device] = [(r.board.to_rle(), r.generations, r.exit_reason)
+                        for r in (sparse, macro)]
+        launched = st.LAUNCHES["tile_step"] - before
+        assert (launched > 0) == (device == "cuda")
+    assert runs["cuda"] == runs["cpu"]
+    assert runs["cuda"][0] == runs["cuda"][1]

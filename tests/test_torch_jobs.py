@@ -186,13 +186,101 @@ def test_warm_builds_the_runner(label):
 
 
 def test_sparse_jobs_are_refused_with_a_gol_error():
-    with pytest.raises(ValueError, match="Queue 1 item 7"):
-        jobs.Job(id="s", width=64, height=64, board=None, rle="bo$2bo$3o!")
+    """A malformed sparse job (an RLE body without its header) is refused
+    at admission with JAX's error; a sparse bucket runs, stages and warms
+    an empty batch as JAX's does."""
+    errors = []
+    for mod in (jax_jobs, jobs):
+        with pytest.raises(ValueError) as err:
+            mod.Job(id="s", width=64, height=64, board=None, rle="bo$2bo$3o!")
+        errors.append(str(err.value))
+    assert errors[1] == errors[0]
     key = batcher.BucketKey(64, 64, "c", batcher.SPARSE_KERNEL)
-    for call in (lambda: batcher.run_batch(key, []), lambda: batcher.stage(key, [])):
-        with pytest.raises(ValueError, match="Queue 1 item 7"):
-            call()
+    jax_key = jax_batcher.BucketKey(64, 64, "c", jax_batcher.SPARSE_KERNEL)
+    assert batcher.run_batch(key, []) == jax_batcher.run_batch(jax_key, []) == []
+    errors = []
+    for mod, k in ((jax_batcher, jax_key), (batcher, key)):
+        with pytest.raises(ValueError) as err:
+            mod.stage(k, [])
+        errors.append(str(err.value))
+    assert errors[1] == errors[0]
     batcher.warm(key)  # nothing to build, as in JAX
+
+
+GLIDER_RLE = "x = 3, y = 3, rule = B3/S23\nbo$2bo$3o!"
+
+
+def _sparse_pair(job_id="sp", width=256, height=256, **kw):
+    kw.setdefault("rle", GLIDER_RLE)
+    return (jax_jobs.Job(id=job_id, width=width, height=height, board=None, **kw),
+            jobs.Job(id=job_id, width=width, height=height, board=None, **kw))
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"place_x": 30, "place_y": 5, "tile": 8, "gen_limit": 40},
+    {"tile": 16, "macro": True, "convention": "cuda", "gen_limit": 25},
+    {"tile": 0, "check_similarity": False, "priority": 2},
+])
+def test_sparse_job_records_and_buckets_match_jax(kw):
+    jax_job, port_job = _sparse_pair(**kw)
+    assert port_job.to_record() == jax_job.to_record()
+    assert (port_job.tile, port_job.place_x, port_job.place_y, port_job.macro) == (
+        jax_job.tile, jax_job.place_x, jax_job.place_y, jax_job.macro)
+    np.testing.assert_array_equal(port_job.pattern, jax_job.pattern)
+    for rec in (jax_job.to_record(), port_job.to_record()):
+        back = jobs.Job.from_record(rec)
+        assert back.to_record() == jax_job.to_record()
+        assert jax_jobs.Job.from_record(port_job.to_record()).to_record() == rec
+    assert batcher.bucket_for(port_job).label() == \
+        jax_batcher.bucket_for(jax_job).label()
+
+
+@pytest.mark.parametrize("kw", [
+    {"tile": 3}, {"tile": 24}, {"tile": 8, "place_x": 62},
+    {"tile": 8, "place_y": -1}, {"tile": 8, "rle": 5}, {"tile": 8, "macro": "yes"},
+    {"tile": 8, "board": np.zeros((64, 64), np.uint8)}, {"tile": 8, "shard": True},
+    {"rle": "bo$2bo$3o!"},
+])
+def test_sparse_job_refusals_match_jax(kw):
+    kw = dict(kw)
+    board = kw.pop("board", None)
+    kw.setdefault("rle", GLIDER_RLE)
+    errors = []
+    for mod in (jax_jobs, jobs):
+        with pytest.raises((ValueError, TypeError)) as err:
+            mod.Job(id="s", width=64, height=64, board=board, **kw)
+        errors.append((type(err.value), str(err.value)))
+    assert errors[1] == errors[0]
+    with pytest.raises(ValueError) as want:
+        jax_jobs.Job(id="m", width=8, height=8, board=np.zeros((8, 8), np.uint8),
+                     macro=True)
+    with pytest.raises(ValueError) as got:
+        jobs.Job(id="m", width=8, height=8, board=np.zeros((8, 8), np.uint8),
+                 macro=True)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("convention", CONVENTIONS)
+def test_sparse_bucket_run_batch_matches_jax(convention):
+    """A sparse bucket's jobs run in order through the sparse and macro
+    engines: every JobResult field equal to JAX's, stage/dispatch/complete
+    equal to run_batch."""
+    specs = [dict(place_x=10, place_y=10, tile=8, gen_limit=60),
+             dict(rle="x = 2, y = 2\n2o$ob!", place_x=20, place_y=30, tile=8,
+                  gen_limit=30),
+             dict(place_x=30, place_y=30, tile=8, gen_limit=80, macro=True)]
+    pairs = [_sparse_pair(f"j{i}", convention=convention, **kw)
+             for i, kw in enumerate(specs)]
+    key = batcher.bucket_for(pairs[0][1])
+    got = batcher.run_batch(key, [p for _, p in pairs])
+    want = jax_batcher.run_batch(jax_batcher.bucket_for(pairs[0][0]),
+                                 [j for j, _ in pairs])
+    fields = ("grid", "generations", "exit_reason", "rle", "population",
+              "universe", "tiles_simulated", "cell_updates", "occupancy")
+    for g, w in zip(got, want, strict=True):
+        assert [getattr(g, f) for f in fields] == [getattr(w, f) for f in fields]
+    staged = batcher.complete(batcher.dispatch(batcher.stage(key, [p for _, p in pairs])))
+    assert [r.rle for r in staged] == [r.rle for r in got]
 
 
 # ---------------------------------------------------------------------------

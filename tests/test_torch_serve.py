@@ -24,6 +24,7 @@ import re
 import time
 import urllib.error
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -38,7 +39,7 @@ from gol_tpu_torch.io import text_grid, wire
 from gol_tpu_torch.resilience.retry import RetryPolicy
 from gol_tpu_torch.serve import batcher, compaction, jobs, server
 from gol_tpu_torch.serve.jobs import (
-    CANCELLED, DONE, FAILED, QUEUED, SPARSE_REFUSAL, JobJournal, new_job,
+    CANCELLED, DONE, FAILED, QUEUED, JobJournal, new_job,
 )
 from gol_tpu_torch.serve.scheduler import Draining, QueueFull, Scheduler
 from gol_tpu_torch.serve.server import SHARD_REFUSAL, GolServer
@@ -421,11 +422,18 @@ class TestServer:
         srv2.httpd.server_close()
         srv2.scheduler.journal.close()
 
-    def test_port_only_refusals(self, srv):
+    def test_port_only_refusals(self, srv, tmp_path):
+        """``POST /shard/<leg>`` is the port's one refusal; a sparse body
+        answers as JAX's server does (here 400 with JAX's error for an RLE
+        without its header)."""
         base = srv.url
-        status, payload = _json("POST", f"{base}/jobs",
-                                {"width": 64, "height": 64, "rle": "bo$2bo$3o!"})
-        assert (status, payload) == (400, {"error": SPARSE_REFUSAL})
+        body = {"width": 64, "height": 64, "rle": "bo$2bo$3o!"}
+        status, payload = _json("POST", f"{base}/jobs", body)
+        jax_srv = jax_server.GolServer(port=0, sample_interval=0)
+        jax_srv.httpd.server_close()
+        with pytest.raises(ValueError) as want:
+            jax_srv.submit_json(dict(body))
+        assert (status, payload) == (400, {"error": str(want.value)})
         status, payload = _json("POST", f"{base}/shard/init", {"job": "x"})
         assert (status, payload) == (400, {"error": SHARD_REFUSAL})
         assert server._tuned_marginal_rates() == {}
@@ -780,3 +788,141 @@ def test_a_repeat_submit_with_the_cache_comes_back_cached(tmp_path):
     assert answers["port"] == answers["jax"]
     assert "cached" not in answers["port"][0]
     assert answers["port"][1]["cached"] == "memory"
+
+
+# ---------------------------------------------------------------------------
+# Sparse and macro jobs (the body's ``rle`` form) through both servers
+
+
+PATTERNS_DIR = Path(__file__).resolve().parent.parent / "patterns"
+GUN_RLE = (PATTERNS_DIR / "gosper_gun.rle").read_text()
+SPARSE_BODIES = [
+    {"width": 256, "height": 256, "rle": GUN_RLE, "x": 100, "y": 100,
+     "tile": 16, "gen_limit": 90},
+    {"width": 256, "height": 256, "rle": GUN_RLE, "x": 100, "y": 100,
+     "tile": 16, "gen_limit": 90, "macro": True},
+    {"width": 64, "height": 64, "rle": "x = 2, y = 2\n2o$ob!", "x": 20,
+     "y": 20, "tile": 8, "gen_limit": 40, "convention": "cuda"},
+    {"width": 64, "height": 64, "rle": "x = 3, y = 1\n3o!", "x": 60,
+     "y": 10, "tile": 8, "macro": True},
+    {"width": 64, "height": 64, "rle": "x = 3, y = 1\n3o!", "tile": 9},
+    {"width": 64, "height": 64, "rle": "x = 3, y = 1\n3o!", "tile": 8,
+     "cells": "0"},
+    {"width": 64, "height": 64, "tile": 8, "rle": "x = 3, y = 1\n3o!",
+     "macro": 1},
+]
+
+
+def _result_fields(payload):
+    return {k: payload.get(k) for k in ("generations", "exit_reason", "rle",
+                                        "population", "universe", "grid")}
+
+
+def test_sparse_and_macro_jobs_answer_as_jax_across_servers(tmp_path):
+    """The same sparse and macro bodies to both servers: the same statuses
+    and errors, the same results (RLE, generations, exit reason,
+    population), and the serving registry's sparse series by JAX's names."""
+    servers = _servers(tmp_path, flush_age=0.0)
+    answers, names = {}, {}
+    try:
+        for tag, s in servers.items():
+            answers[tag] = []
+            ids = []
+            for body in SPARSE_BODIES:
+                status, payload = _json("POST", f"{s.url}/jobs", body)
+                answers[tag].append((status, payload.get("error")))
+                if status == 202:
+                    ids.append(payload["id"])
+            for jid in ids:
+                assert _wait(lambda: _json("GET", f"{s.url}/jobs/{jid}")[1]
+                             ["state"] in (DONE, FAILED))
+                status, payload = _json("GET", f"{s.url}/result/{jid}")
+                answers[tag].append((status, _result_fields(payload)))
+            snap = _json("GET", f"{s.url}/metrics?format=json")[1]
+            names[tag] = {k: sorted(snap[k]) for k in ("counters", "gauges")}
+            counters = snap["counters"]
+            assert counters["sparse_submits_total"] == 4
+            assert counters["macro_submits_total"] == 2
+            assert counters["sparse_tiles_simulated_total"] > 0
+    finally:
+        _shutdown(servers)
+    assert answers["port"] == answers["jax"]
+    assert [a[0] for a in answers["port"][:len(SPARSE_BODIES)]] == \
+        [202, 202, 202, 202, 400, 400, 400]
+    assert names["port"] == names["jax"]
+    assert "sparse_occupancy" in names["port"]["gauges"]
+
+
+@pytest.mark.parametrize("writer, reader", [("jax", "port"), ("port", "jax")])
+def test_sparse_and_macro_journal_records_replay_in_the_other_package(
+        tmp_path, writer, reader):
+    """Accepted-never-run sparse and macro jobs journaled by one package
+    replay as jobs in the other, and run to the writer's answer."""
+    journal_dir = str(tmp_path / "journal")
+    w_mod = PACKAGES[writer][2]
+    r_srv = PACKAGES[reader][0]
+    journal = w_mod.JobJournal(journal_dir)
+    specs = [dict(rle=GUN_RLE, place_x=100, place_y=100, tile=16, gen_limit=70),
+             dict(rle=GUN_RLE, place_x=100, place_y=100, tile=16, gen_limit=70,
+                  macro=True)]
+    pending = [w_mod.new_job(256, 256, None, **kw) for kw in specs]
+    for job in pending:
+        journal.record_submit(job)
+    journal.close()
+    second = r_srv(port=0, journal_dir=journal_dir, flush_age=0.0,
+                   sample_interval=0)
+    assert second.replayed == 2
+    second.start()
+    try:
+        got = []
+        for job in pending:
+            assert _wait(lambda: (j := second.scheduler.job(job.id)) is not None
+                         and j.state == DONE)
+            replayed = second.scheduler.job(job.id)
+            assert replayed.macro == job.macro and replayed.tile == 16
+            got.append(replayed.result.rle)
+    finally:
+        second.shutdown()
+    assert got[0] == got[1]
+    from gol_tpu.sparse import SparseBoard as JaxBoard
+    from gol_tpu.sparse import simulate_sparse as jax_simulate_sparse
+    from gol_tpu.config import GameConfig as JaxGameConfig
+
+    want = jax_simulate_sparse(JaxBoard.from_rle(GUN_RLE, 256, 256, 16, x=100,
+                                                 y=100), JaxGameConfig(gen_limit=70))
+    assert got[0] == want.board.to_rle()
+    for job in pending:
+        assert _ledger(journal_dir, job.id) == (1, 1)
+
+
+@pytest.mark.parametrize("kwargs", [{}, {"pipeline_depth": 2},
+                                    {"pipeline_depth": 8, "resident_ring": 4}],
+                         ids=["depth1", "depth2", "resident"])
+def test_sparse_and_macro_jobs_ride_every_scheduler_lane_as_jax(tmp_path, kwargs):
+    """A sparse job, a macro job and a dense job through each scheduler
+    lane, the resident ring's included (sparse buckets take the plain
+    batcher split there): the same results in both packages, and the
+    sparse series by JAX's names on the serving registry."""
+    results = {}
+    for tag, (_, sched_cls, mod) in PACKAGES.items():
+        sched = sched_cls(journal=mod.JobJournal(str(tmp_path / tag)),
+                          flush_age=0.0, **kwargs)
+        js = [sched.submit(mod.new_job(256, 256, None, rle=GUN_RLE, place_x=100,
+                                       place_y=100, tile=16, gen_limit=60,
+                                       **extra))
+              for extra in ({}, {"macro": True})]
+        js.append(sched.submit(mod.new_job(32, 32, text_grid.generate(32, 32, seed=7),
+                                           gen_limit=20)))
+        sched.start()
+        try:
+            assert _wait(lambda: all(j.state == DONE for j in js))
+        finally:
+            sched.stop()
+        counters = sched.metrics.snapshot()["counters"]
+        assert counters["sparse_tiles_simulated_total"] > 0
+        results[tag] = [(j.result.rle, None if j.result.grid is None
+                         else j.result.grid.tobytes(), j.result.generations,
+                         j.result.exit_reason, j.result.population)
+                        for j in js]
+    assert results["port"] == results["jax"]
+    assert results["port"][0][0] == results["port"][1][0]

@@ -16,8 +16,10 @@ Mirrors ``tests/test_tune.py``:
 - ``with_temporal_depth`` is bit-exact at depths 1, 2, 4 and 8, and any
   termination block is;
 - ``tune --quick`` at 64x64 writes a plan that ``serve --warm-plans`` then
-  uses; ``--sparse-crossover`` is refused with exit 1; a candidate that
-  fails to run is excluded, logged and listed in the report.
+  uses; ``--sparse-crossover`` measures and caches the dense/sparse
+  crossover as JAX's does (``fit_crossover``, ``sparse_auto_area`` and
+  ``macro_auto_gens`` equal JAX's); a candidate that fails to run is
+  excluded, logged and listed in the report.
 
 Every test that writes a plan points ``GOL_PLAN_CACHE`` at its own
 ``tmp_path``. Grids are small and made from a numpy seed; bytes and
@@ -435,7 +437,15 @@ def test_tune_quick_writes_a_plan_that_serve_warm_plans_uses(plan_cache,
     finally:
         proc.send_signal(signal.SIGTERM)
         out, err = proc.communicate(timeout=60)
-    assert "warmed bucket 64x64/c/packed (7 batch rungs)" in err
+    # The bucket and ladder the tuned serve plan gives a 64x64 board (the
+    # search's winner varies with the host's timing noise).
+    batcher._reset_plan()
+    try:
+        key = batcher.bucket_for(new_job(64, 64, np.zeros((64, 64), np.uint8)))
+        rungs = len(batcher._plan().batch_ladder)
+    finally:
+        batcher._reset_plan()
+    assert f"warmed bucket {key.label()} ({rungs} batch rungs)" in err
 
 
 def test_warm_plans_survives_corrupt_entries(plan_cache, capsys):
@@ -451,9 +461,98 @@ def test_warm_plans_survives_corrupt_entries(plan_cache, capsys):
 
 
 def test_sparse_crossover_is_refused(plan_cache, capsys, tmp_path, monkeypatch):
+    """``tune --sparse-crossover`` in both packages, each into its own plan
+    file: exit 0 and the same crossover lines and sparse entry. The
+    crossover's own samples are pinned (1, 2 and 3 s for the dense probes
+    and the sparse run, in call order), so the fit is the same in both; the
+    probes themselves run."""
+    import gol_tpu.tune.measure as jax_measure
+    from gol_tpu import cli as jax_cli
+
+    def pinned(module):
+        search = module.run_sparse_crossover_search
+        calls = []
+
+        def run(**kw):
+            def samples(fn, warmup=1, iters=5):
+                fn()
+                calls.append(len(calls) + 1.0)
+                return [calls[-1]]
+            with pytest.MonkeyPatch.context() as m:
+                m.setattr(module, "timed_samples", samples)
+                return search(**kw)
+        return run
+
     monkeypatch.chdir(tmp_path)
-    assert cli.main(["tune", "--sparse-crossover"]) == 1
-    out, err = capsys.readouterr()
-    assert out == "" and err == f"gol: {cli.SPARSE_CROSSOVER_REFUSAL}\n"
-    assert "Queue 1 item 7" in err
-    assert not os.path.exists(plan_cache) and list(tmp_path.iterdir()) == []
+    results = []
+    for mod, main, meas, store_of, sel in (
+            ("jax", jax_cli.main, jax_measure, jax_plans.PlanStore, jax_select),
+            ("port", cli.main, measure, plans.PlanStore, select)):
+        monkeypatch.setattr(meas, "run_sparse_crossover_search", pinned(meas))
+        path = str(tmp_path / f"{mod}.json")
+        rc = main(["tune", "--shape", "32x32", "--convention", "c", "--quick",
+                   "--iters", "1", "--sparse-crossover", "--plan-cache", path,
+                   "--report", str(tmp_path / f"{mod}.md")])
+        out, err = capsys.readouterr()
+        lines = [ln.replace("gol_tpu_torch: ", "gol_tpu: ")
+                 for ln in err.splitlines()
+                 if ("crossover" in ln or "dense overtakes" in ln)
+                 and " -> " not in ln]
+        entry = store_of(path).get(sel.sparse_fingerprint())
+        monkeypatch.setenv("GOL_PLAN_CACHE", path)
+        sel.reset()
+        results.append((rc, out, lines, entry, sel.sparse_auto_area(1)))
+        sel.reset()
+    assert results[1] == results[0]
+    rc, _, lines, entry, area = results[1]
+    assert rc == 0 and entry["auto_area"] == area
+    assert abs(area - (7 << 20)) <= 1  # the line through (2^20, 1/12), (2^22, 2/12) meets 3/12
+    assert lines[0] == "tune sparse-crossover: dense-vs-sparse per-generation cost"
+
+
+@pytest.mark.parametrize("points,sparse", [
+    ([(1 << 20, 0.001), (1 << 22, 0.004)], 0.003),
+    ([(1 << 20, 0.001), (1 << 22, 0.004), (1 << 24, 0.016)], 0.0005),
+    ([(1 << 20, 0.001), (1 << 22, 0.004)], 100.0),
+    ([(1 << 20, 0.004), (1 << 22, 0.001)], 0.003),
+    ([(1 << 20, 0.001), (1 << 22, 0.00101)], 0.003),
+    ([(1 << 20, 0.001)], 0.003),
+    ([(1 << 20, 0.001), (1 << 22, 0.004)], 0.0),
+])
+def test_fit_crossover_matches_jax(points, sparse):
+    import gol_tpu.tune.measure as jax_measure
+
+    try:
+        want = jax_measure.fit_crossover(points, sparse)
+    except ValueError as err:
+        with pytest.raises(ValueError) as got:
+            measure.fit_crossover(points, sparse)
+        assert str(got.value) == str(err)
+        return
+    assert measure.fit_crossover(points, sparse) == want
+    result = measure.CrossoverResult(want, points, sparse, 256)
+    assert result.to_dict() == jax_measure.CrossoverResult(
+        want, points, sparse, 256).to_dict()
+
+
+@pytest.mark.parametrize("entry", [None, {"auto_area": 1 << 20},
+                                   {"auto_area": 1 << 10}, {"auto_area": "x"},
+                                   {"nope": 1}])
+def test_sparse_and_macro_thresholds_match_jax(plan_cache, entry):
+    """Each package's own entry (the fingerprints carry the framework's
+    versions) read back by its select: the same value, the same fallback
+    on an unusable entry; the tile axis and its validity as JAX's."""
+    if entry is not None:
+        gens = {k.replace("area", "gens"): (v >> 10 if isinstance(v, int) else v)
+                for k, v in entry.items()}
+        for store, sel in ((plans.PlanStore(), select),
+                           (jax_plans.PlanStore(), jax_select)):
+            store.put(sel.sparse_fingerprint(), entry)
+            store.put(sel.macro_fingerprint(), gens)
+        select.reset()
+        jax_select.reset()
+    assert select.sparse_auto_area(12345) == jax_select.sparse_auto_area(12345)
+    assert select.macro_auto_gens(678) == jax_select.macro_auto_gens(678)
+    assert space.SPARSE_TILES == jax_space.SPARSE_TILES
+    for args in ((256, 512, 512), (256, 500, 512), (3, 6, 6), (4, 8, 12)):
+        assert space.valid_sparse_tile(*args) == jax_space.valid_sparse_tile(*args)
