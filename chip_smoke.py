@@ -228,6 +228,44 @@ error:
    Beside them, the device-busy share of a
    sparse run (65536^2, 24 generations) and a macro run (the gun at
    8192^2 to 1000 generations) under ``torch.profiler``.
+4j. The fleet, its router and chaos, and the sharded single-job lane, on
+   B1, B2 and T1 in worker processes (``serve`` subprocesses sharing the
+   one card, each reporting its launch counts and peak allocated bytes
+   at its drained exit through ``GOL_TORCH_EXIT_STATS``; every count
+   starts at 0 in a fresh process). Per N in 1, 2, 4, ``python -m gol_tpu_torch fleet --workers N
+   --cores-per-worker W`` (taskset slices, W = (cores - 2) // 4 clamped to
+   1..6, as bench.py) with ``--compile-cache`` the build of phase 1: (i)
+   bench.py's fleet load uncut (16 equal-work 160^2 buckets x 8 jobs,
+   gen_limit 6000; a warm round, then a timed one), every job DONE and
+   equal to the port's numpy oracle; (iii) the shard suite's universe
+   uncut through the router (16x16 gliders in 65536^2, tile 256, a warm
+   job of 4 generations, then 48 timed, checkpoint every 16), its RLE
+   sha1 equal at every N and to ``simulate_sparse`` (the ``--engine
+   sparse`` engine; the universe's RLE is beyond the CLI's dense pattern
+   parse), the makespan as bench.py reads it (the most CPU seconds any
+   worker spent); and ``run --pattern gosper_gun.rle --universe
+   65536x65536 --gens 100 --engine shard --shard-across URL``, whose
+   printed lines and RLE bytes equal ``--engine sparse``'s. At N = 2 the
+   router drill (tests/test_fleet.py's TestRouterRestart): 12 jobs,
+   SIGKILL the ``fleet`` process, restart it on the same --fleet-dir,
+   every job answered through the new router, equal to the oracle, one
+   done record each across the partitions; at N = 4 one shard worker is
+   SIGKILLed mid-job past the durable floor: recoveries >= 1, the same
+   RLE. B1 and T1 must launch at every N, B2 at N = 2 (the drill's 30^2
+   boards). (ii) The chaos suite's two lanes, one timed round each after
+   the warm ones, over in-process routers and two ``serve`` workers each:
+   baseline, defended (breakers and their ring, ``--retry-budget 50``,
+   ``X-Gol-Deadline``), and the defended workers behind a router whose
+   hop to one of them runs ``refuse=0.2,reset=0.1``; the degraded round's
+   jobs equal the oracle. Last, one cold and one warm boot of ``serve``
+   (an empty ``--compile-cache``, then the same directory). The oracle
+   runs in a process pool beside the first fleet's boot and warm round,
+   never beside a timed round. Printed, not checked: jobs/s per N and N4 over
+   N1 (the JAX package gates 2.5x), the shard cell-updates/s and N4 over
+   N1 (gates 2x), T1 launches and peak allocated device bytes per
+   worker (a worker SIGKILLed in a drill reports nothing), the boot times,
+   defended over baseline and degraded over defended (the JAX package
+   gates 0.97 and 0.70), and 4j's own seconds.
 5. Timing: each kernel over 100 warm launches captured in one CUDA graph
    and replayed (CUDA events around the replay), so that the card and not
    the host's launch rate sets ``ms``; beside it ``eager_ms`` (the same
@@ -276,6 +314,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import ctypes
 import hashlib
 import io
 import json
@@ -297,6 +336,7 @@ import torch
 from gol_tpu_torch import cli, engine, native, oracle, platform_env
 from gol_tpu_torch.cache import ResultCache
 from gol_tpu_torch.config import Convention, GameConfig
+from gol_tpu_torch.fleet import client as fleet_client
 from gol_tpu_torch.io import bitpack, text_grid, wire
 from gol_tpu_torch.io import rle as rle_codec
 from gol_tpu_torch.macro import MacroMemo, NodeStore, simulate_macro
@@ -507,6 +547,23 @@ SPARSE_GENS, DENSE_GENS, DENSE_MAX = 24, 4, 1 << 14
 MACRO_UNIVERSE, MACRO_GENS = 1 << 20, 1_000_000
 GUN_UNIVERSE, GUN_GENS = 1 << 13, 3000
 CLI_UNIVERSE = 1 << 16  # (iii) and (iv): the gun at its middle
+# Phase 4j: bench.py's fleet suite (bench.py:1076-1296), uncut: 16
+# equal-work 160^2 buckets (one similarity frequency each), 8 jobs a
+# bucket, at N = 1, 2, 4 workers; its chaos suite (bench.py:2764-3054): 4
+# buckets at 10000 generations, 2 workers; its shard suite
+# (bench.py:2564-2762): 16x16 gliders in 65536^2, tile 256.
+FLEET_FREQS = (2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 14, 17, 18, 21, 24, 27)
+FLEET_SIDE, FLEET_PER_BUCKET, FLEET_LIMIT, FLEET_NS = 160, 8, 6000, (1, 2, 4)
+FLEET_SERVE = ["--flush-age", "0.2", "--max-batch", "8", "--pipeline-depth",
+               "2", "--max-queue-depth", "4096"]
+CHAOS_FREQS, CHAOS_LIMIT = (2, 3, 5, 9), 10000
+CHAOS_PLAN = "seed=777,refuse=0.2,reset=0.1"
+SHARD_UNIVERSE, SHARD_GRID, SHARD_LIMIT, SHARD_CKPT = 1 << 16, 16, 48, 16
+# The CLI's shard lane: the gun of (iii) in 4i, 100 generations.
+SHARD_CLI = ["--pattern", str(REPO / "patterns" / "gosper_gun.rle"),
+             "--universe", f"{CLI_UNIVERSE}x{CLI_UNIVERSE}", "--place",
+             f"{CLI_UNIVERSE // 2},{CLI_UNIVERSE // 2}", "--gens", "100"]
+_MSECS = re.compile(r"\d+\.\d+ msecs")
 # Phase 2's batch shapes: (boards, height, nwords) for B1 — a 32x32
 # one-word board, one-row boards, the serving bucket's 64 x 256^2 — and
 # (canvas height, width, extents) for B2: mixed extents in one canvas, the
@@ -2911,6 +2968,582 @@ def sparse_macro_lanes(work: Path, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 4j. The fleet, its router and chaos, and the sharded single-job lane
+
+
+def _oracle_job(args):
+    """One board's oracle run ``(grid, generations)``: a process pool's
+    task, so it takes and returns plain numpy."""
+    board, freq, limit = args
+    want = oracle.run(board, GameConfig(gen_limit=limit, similarity_frequency=freq))
+    return want.grid, int(want.generations)
+
+
+def _oracle_pool():
+    """A spawned process pool for the port's numpy oracle (the loads'
+    boards run 6000-10000 generations each)."""
+    import multiprocessing
+
+    return concurrent.futures.ProcessPoolExecutor(
+        max_workers=min(8, os.cpu_count() or 4),
+        mp_context=multiprocessing.get_context("spawn"))
+
+
+def _load_boards(freqs, seed0: int) -> list:
+    """bench.py's fleet- and chaos-suite boards: FLEET_PER_BUCKET random
+    160^2 boards per similarity frequency (one bucket each)."""
+    return [(f, text_grid.generate(FLEET_SIDE, FLEET_SIDE, seed=seed0 + 100 * f + i))
+            for f in freqs for i in range(FLEET_PER_BUCKET)]
+
+
+def _submit_load(base: str, boards: list, limit: int, headers=None) -> list:
+    """POST every (frequency, board) through the router, eight at a time,
+    riding the fault contracts of bench.py's chaos suite (a 502/503/504/429
+    or a dropped connection is sent again); returns the job ids."""
+    body = lambda f, b: {  # noqa: E731
+        "width": FLEET_SIDE, "height": FLEET_SIDE,
+        "cells": text_grid.encode(b).decode("ascii"),
+        "gen_limit": limit, "similarity_frequency": f}
+
+    def one(fb):
+        for _ in range(60):
+            try:
+                status, payload = fleet_client.http_json(
+                    "POST", f"{base}/jobs", body(*fb), headers=headers,
+                    timeout=60)
+            except (OSError, ConnectionError):
+                time.sleep(0.05)
+                continue
+            if status == 202:
+                return payload["id"]
+            if status not in (502, 503, 504, 429):
+                fail(f"fleet submit answered {status}: {payload}")
+            time.sleep(0.05)
+        fail("a fleet submit never landed after 60 tries")
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
+        return list(pool.map(one, boards))
+
+
+def _await_done(base: str, ids: list, timeout: float = 600) -> None:
+    pending, deadline = set(ids), time.perf_counter() + timeout
+    while pending:
+        if time.perf_counter() > deadline:
+            fail(f"{len(pending)} fleet job(s) not done within {timeout:.0f} s")
+        for job_id in list(pending):
+            try:
+                status, job = fleet_client.http_json(
+                    "GET", f"{base}/jobs/{job_id}", timeout=30)
+            except (OSError, ConnectionError):
+                continue
+            if status == 200 and job.get("state") == "done":
+                pending.discard(job_id)
+            elif status == 200 and job.get("state") in ("failed", "cancelled"):
+                fail(f"fleet job {job_id} ended {job['state']}: {job}")
+        if pending:
+            time.sleep(0.05)
+
+
+def _completed(base: str) -> tuple[int, int]:
+    """The fleet-merged jobs_completed_total and jobs_failed_total."""
+    _, snap = fleet_client.http_json("GET", f"{base}/metrics?format=json",
+                                     timeout=30)
+    return (int(snap["counters"].get("jobs_completed_total", 0)),
+            int(snap["counters"].get("jobs_failed_total", 0)))
+
+
+def _timed_round(base: str, boards: list, limit: int, headers=None,
+                 per_job: bool = False):
+    """One round of the load: submit, wait until it is done -> (seconds,
+    ids). As bench.py waits: on the fleet-merged completed count, or,
+    where a resubmitted ambiguous 504 may leave an orphan that completes
+    too (the chaos lanes), on every accepted id."""
+    done0, _ = _completed(base)
+    t0 = time.perf_counter()
+    ids = _submit_load(base, boards, limit, headers)
+    if per_job:
+        _await_done(base, ids)
+    else:
+        deadline = time.perf_counter() + 600
+        while True:
+            done, failed = _completed(base)
+            if failed:
+                fail(f"{failed} fleet job(s) FAILED")
+            if done - done0 >= len(ids):
+                break
+            if time.perf_counter() > deadline:
+                fail("the fleet load did not finish within 600 s")
+            time.sleep(0.05)
+    return time.perf_counter() - t0, ids
+
+
+def _check_results(base: str, ids: list, wants: list, where: str) -> None:
+    """Every job's answered grid and generations equal its oracle run. A
+    503 or a dropped connection (a faulted hop) is asked again."""
+    for job_id, (grid, gens) in zip(ids, wants):
+        for _ in range(60):
+            try:
+                status, res = fleet_client.http_json(
+                    "GET", f"{base}/result/{job_id}", timeout=60)
+            except (OSError, ConnectionError):
+                status, res = None, "connection dropped"
+            if status not in (None, 502, 503, 504):
+                break
+            time.sleep(0.05)
+        if status != 200:
+            fail(f"{where}: GET /result/{job_id} answered {status}: {res}")
+        got = text_grid.decode(res["grid"].encode("ascii"), res["width"],
+                               res["height"])
+        if not np.array_equal(got, grid) or res["generations"] != gens:
+            fail(f"{where}: job {job_id} differs from the oracle")
+
+
+def _start_fleet(args: list, log: Path, env: dict):
+    """``python -m gol_tpu_torch fleet --port 0 ...`` in a session of its
+    own -> (process, router URL, seconds to its ``fleet router on``)."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gol_tpu_torch", "fleet", "--port", "0", *args],
+        stdout=subprocess.PIPE, stderr=log.open("a"), text=True, env=env,
+        start_new_session=True)
+    for line in proc.stdout:
+        if line.startswith("fleet router on "):
+            return proc, line.split()[3], time.perf_counter() - t0
+    fail(f"fleet exited {proc.wait()} before serving:\n{log.read_text()[-3000:]}")
+
+
+def _stop_fleet(proc: subprocess.Popen, orphans: tuple = ((), ())) -> None:
+    """SIGTERM: the router drains every worker and terminates them; then
+    nothing of its session may be left. ``orphans``: (pids, session) of
+    workers whose fleet process was killed; this process, their
+    subreaper, reaps them as they exit, or the router would wait on their
+    zombies."""
+    pids, session = orphans
+    proc.send_signal(signal.SIGTERM)
+    deadline = time.perf_counter() + 120
+    while proc.poll() is None and time.perf_counter() < deadline:
+        for pid in pids:
+            with contextlib.suppress(ChildProcessError):
+                os.waitpid(pid, os.WNOHANG)
+        time.sleep(0.05)
+    for group in (proc.pid, *session):
+        with contextlib.suppress(ProcessLookupError, PermissionError):
+            os.killpg(group, signal.SIGKILL)
+    proc.wait()
+    proc.stdout.close()
+    for pid in pids:
+        with contextlib.suppress(ChildProcessError):
+            os.waitpid(pid, 0)
+
+
+def _manifest_pids(fleet_dir: Path) -> dict:
+    doc = json.loads((fleet_dir / "manifest.json").read_text())
+    return {p["id"]: p["pid"] for p in doc["partitions"]}
+
+
+def _cpu_seconds(pid: int) -> float:
+    """utime + stime of ``pid`` (/proc/<pid>/stat fields 14 and 15)."""
+    with open(f"/proc/{pid}/stat", "rb") as f:
+        fields = f.read().rsplit(b")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def _exit_stats(directory: Path) -> list:
+    """The ``serve-<pid>.json`` reports of the drained workers."""
+    return [json.loads(p.read_text())
+            for p in sorted(directory.glob("serve-*.json"))]
+
+
+def _summed(reports: list) -> dict:
+    total: dict = {}
+    for rep in reports:
+        for k, n in rep["launches"].items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def _shard_universe() -> SparseBoard:
+    """bench.py's shard load: 16x16 gliders over the 256x256 tiles of a
+    65536^2 universe, a few on a tile edge so halo frames carry live
+    rings."""
+    glider = np.zeros((3, 3), dtype=np.uint8)
+    glider[0, 1] = glider[1, 2] = glider[2, 0] = glider[2, 1] = glider[2, 2] = 1
+    board = SparseBoard(SHARD_UNIVERSE, SHARD_UNIVERSE, SPARSE_TILE)
+    for i in range(SHARD_GRID):
+        for j in range(SHARD_GRID):
+            arr = np.zeros((SPARSE_TILE, SPARSE_TILE), dtype=np.uint8)
+            if (i + j) % 8 == 0:
+                arr[1:4, 126:129] = glider
+            else:
+                arr[126:129, 126:129] = glider
+            board.set_tile((8 + 15 * i, 8 + 15 * j), arr)
+    return board
+
+
+def _shard_job(base: str, rle: str, gens: int) -> str:
+    status, payload = fleet_client.http_json("POST", f"{base}/jobs", {
+        "shard": True, "rle": rle, "x": 0, "y": 0,
+        "width": SHARD_UNIVERSE, "height": SHARD_UNIVERSE, "tile": SPARSE_TILE,
+        "convention": "c", "gen_limit": gens, "check_similarity": False,
+        "checkpoint_every": SHARD_CKPT}, timeout=120)
+    if status != 202:
+        fail(f"shard submit answered {status}: {payload}")
+    return payload["id"]
+
+
+def _shard_result(base: str, job_id: str, on_step=None) -> dict:
+    """Poll a shard job to done (``on_step(job)`` sees every running
+    poll) and fetch its result."""
+    while True:
+        status, job = fleet_client.http_json("GET", f"{base}/jobs/{job_id}",
+                                             timeout=30)
+        if status != 200 or job.get("state") == "failed":
+            fail(f"shard job {job_id}: {status} {job}")
+        if job["state"] == "done":
+            break
+        if on_step is not None:
+            on_step(job)
+        time.sleep(0.005)
+    status, res = fleet_client.http_json("GET", f"{base}/result/{job_id}",
+                                         timeout=300)
+    if status != 200:
+        fail(f"shard result {job_id}: {status} {res}")
+    return res
+
+
+def _sha1(text: str) -> str:
+    return hashlib.sha1(text.encode("ascii")).hexdigest()
+
+
+def _shard_lane(base: str, fleet_dir: Path, rle: str, want_sha1: str) -> dict:
+    """The uncut shard suite through the router: a warm job of 4
+    generations, then SHARD_LIMIT generations timed; the makespan is the
+    most CPU seconds any worker spent, as bench.py reads it."""
+    _shard_result(base, _shard_job(base, rle, 4))
+    pids = _manifest_pids(fleet_dir)
+    cpu0 = {w: _cpu_seconds(p) for w, p in pids.items()}
+    t0 = time.perf_counter()
+    res = _shard_result(base, _shard_job(base, rle, SHARD_LIMIT))
+    wall = time.perf_counter() - t0
+    cpu = {w: _cpu_seconds(p) - cpu0[w] for w, p in pids.items()}
+    if (res["generations"], res["exit_reason"]) != (SHARD_LIMIT, "gen_limit"):
+        fail(f"shard lane: {res['generations']} generations, {res['exit_reason']}")
+    if _sha1(res["rle"]) != want_sha1:
+        fail(f"shard lane over {sorted(pids)}: RLE differs from --engine sparse's")
+    makespan = max(cpu.values())
+    return {"cell_updates": res["cell_updates"], "wall_s": wall,
+            "makespan_cpu_s": makespan, "worker_cpu_s": cpu,
+            "cell_updates_per_s_makespan": res["cell_updates"] / makespan,
+            "cell_updates_per_s_wall": res["cell_updates"] / wall,
+            "supersteps": res["supersteps"], "ownership": res["ownership"],
+            "recoveries": res["recoveries"], "sha1": _sha1(res["rle"])}
+
+
+def _shard_cli(work: Path, base: str, tag: str, want: tuple) -> None:
+    """``run --pattern gosper_gun.rle --universe 65536x65536 --engine shard
+    --shard-across URL``: printed lines (msecs masked) and RLE bytes equal
+    to the ``--engine sparse`` run's."""
+    out = work / f"gun_shard_{tag}.rle"
+    _, _, text = _cli([*SHARD_CLI, "--engine", "shard", "--shard-across", base,
+                       "--output", str(out)])
+    if (_MSECS.sub("X msecs", text), out.read_bytes()) != want:
+        fail(f"run --engine shard over {tag} differs from --engine sparse")
+
+
+def _router_drill(work: Path, proc, base: str, fleet_args: list, log: Path,
+                  env: dict, fleet_dir: Path):
+    """TestRouterRestart on the card: 12 jobs (32^2 and 30^2, a third of
+    them long), SIGKILL the ``fleet`` process (its workers live on),
+    restart it on the same --fleet-dir, and every job answers through the
+    new router, equal to the oracle, with one done record fleet-wide."""
+    jobs = {}
+    for i in range(12):
+        side = 32 if i % 2 == 0 else 30
+        board = text_grid.generate(side, side, seed=700 + i)
+        limit = 12 if i % 3 else 400
+        status, payload = fleet_client.http_json("POST", f"{base}/jobs", {
+            "width": side, "height": side, "gen_limit": limit,
+            "cells": text_grid.encode(board).decode("ascii")})
+        if status != 202:
+            fail(f"router drill submit answered {status}: {payload}")
+        jobs[payload["id"]] = (board, limit)
+    os.kill(proc.pid, signal.SIGKILL)
+    proc.wait()
+    proc.stdout.close()
+    proc2, base2, _ = _start_fleet(fleet_args, log, env)
+    _await_done(base2, list(jobs))
+    for job_id, (board, limit) in jobs.items():
+        want = oracle.run(board, GameConfig(gen_limit=limit))
+        _check_results(base2, [job_id], [(want.grid, want.generations)],
+                       "router drill")
+    done: dict = {}
+    for part in sorted(p for p in fleet_dir.iterdir() if p.is_dir()):
+        for job_id in _done_records(part):
+            done.setdefault(job_id, []).append(part.name)
+    twice = {j: ws for j, ws in done.items() if j in jobs and len(ws) != 1}
+    if not set(jobs) <= set(done) or twice:
+        fail(f"router drill: lost {set(jobs) - set(done)}, twice {twice}")
+    orphans = (tuple(_manifest_pids(fleet_dir).values()), (proc.pid,))
+    return proc2, base2, {"jobs": len(jobs), "answered_once": len(jobs)}, orphans
+
+
+def _shard_kill_drill(base: str, fleet_dir: Path, rle: str, want_sha1: str) -> dict:
+    """SIGKILL one shard worker mid-job (past the durable floor): the
+    fleet respawns it, the coordinator recovers, the bytes stay equal."""
+    victim = sorted(_manifest_pids(fleet_dir).items())[1]
+    killed = {}
+
+    def on_step(job):
+        if not killed and job["superstep"] >= SHARD_CKPT + 2:
+            os.kill(victim[1], signal.SIGKILL)
+            killed["at"] = job["superstep"]
+
+    res = _shard_result(base, _shard_job(base, rle, SHARD_LIMIT), on_step)
+    if not killed:
+        fail("shard kill drill: the job finished before the kill")
+    if res["recoveries"] < 1 or _sha1(res["rle"]) != want_sha1:
+        fail(f"shard kill drill: recoveries {res['recoveries']}, RLE sha1 "
+             f"{_sha1(res['rle'])} against {want_sha1}")
+    return {"worker": victim[0], "killed_at_superstep": killed["at"],
+            "recoveries": res["recoveries"], "supersteps": res["supersteps"]}
+
+
+def _boot_times(work: Path) -> dict:
+    """One cold boot of ``serve`` (an empty --compile-cache: B1/B2 built
+    by nvcc) and one warm (the same directory again), to ``serving on``."""
+    cache = work / "cold-cache"
+    out = {}
+    for tag in ("cold", "warm"):
+        t0 = time.perf_counter()
+        proc, _ = _start_serve(["--compile-cache", str(cache)],
+                               work / f"boot-{tag}.log")
+        out[f"{tag}_boot_s"] = time.perf_counter() - t0
+        _stop(proc)
+    return out
+
+
+def _fleet_lanes(work: Path, launches: dict, boards: list, oracles) -> dict:
+    """(i) and (iii): per N, ``python -m gol_tpu_torch fleet --workers N``
+    with taskset slices; bench.py's fleet load (warm round, timed round,
+    every job equal to the oracle), the shard suite's universe through
+    the router (warm, timed) and the gun through ``run --engine shard``.
+    At N = 2 the router drill, at N = 4 the shard worker kill."""
+    if shutil.which("taskset") is None:
+        fail("taskset is missing: fleet --cores-per-worker needs it")
+    cores = os.cpu_count() or 4
+    width = max(1, min(6, (cores - 2) // 4))
+    t1 = time.perf_counter()
+    universe = _shard_universe()
+    rle = universe.to_rle()
+    ref = simulate_sparse(universe, GameConfig(
+        gen_limit=SHARD_LIMIT, check_similarity=False), TileMemo())
+    want_sha1 = _sha1(ref.board.to_rle())
+    sparse_out = work / "gun_sparse.rle"
+    _, _, text = _cli([*SHARD_CLI, "--engine", "sparse", "--output", str(sparse_out)])
+    cli_want = (_MSECS.sub("X msecs", text), sparse_out.read_bytes())
+    print(f"the sparse references: {time.perf_counter() - t1:.1f} s", flush=True)
+    lanes = {}
+    for n in FLEET_NS:
+        fleet_dir = work / f"fleet-n{n}"
+        stats = work / f"stats-n{n}"
+        log = work / f"fleet-n{n}.log"
+        env = {**_subprocess_env(), cli.EXIT_STATS_ENV: str(stats)}
+        args = ["--workers", str(n), "--fleet-dir", str(fleet_dir),
+                "--cores-per-worker", str(width),
+                "--compile-cache", str(_build.BUILD_DIR), *FLEET_SERVE]
+        t_lane = time.perf_counter()
+        proc, base, _ = _start_fleet(args, log, env)
+        lane, orphans = {"workers": n}, ((), ())
+        try:
+            _timed_round(base, boards, FLEET_LIMIT)
+            # The oracle pool ran beside the first boot and warm round;
+            # no timed round runs beside it.
+            wants = oracles()["fleet"]
+            seconds, ids = _timed_round(base, boards, FLEET_LIMIT)
+            _check_results(base, ids, wants, f"fleet n={n}")
+            lane.update(seconds=seconds, jobs_per_s=len(ids) / seconds,
+                        cell_updates_per_s=FLEET_SIDE ** 2 * FLEET_LIMIT
+                        * len(ids) / seconds)
+            lane["shard"] = _shard_lane(base, fleet_dir, rle, want_sha1)
+            _shard_cli(work, base, f"n{n}", cli_want)
+            if n == 2:
+                proc, base, lane["router_drill"], orphans = _router_drill(
+                    work, proc, base, args, log, env, fleet_dir)
+            if n == 4:
+                lane["shard_kill"] = _shard_kill_drill(base, fleet_dir, rle,
+                                                        want_sha1)
+        finally:
+            _stop_fleet(proc, orphans)
+        reports = _exit_stats(stats)
+        lane["peak_device_bytes"] = {r["pid"]: r["peak_device_bytes"] for r in reports}
+        lane["t1_launches_by_worker"] = {r["pid"]: r["launches"]["tile_step"]
+                                         for r in reports}
+        launches[f"fleet and shard lanes, N={n} (4j, workers)"] = counts = _summed(reports)
+        needed = ("batch_packed", "tile_step") + (("batch_masked",) if n == 2 else ())
+        for key in needed:
+            if not counts.get(key):
+                fail(f"the N={n} workers launched no {key}")
+        lane["lane_s"] = time.perf_counter() - t_lane
+        lanes[f"n{n}"] = lane
+        print(f"fleet N={n} ({lane['lane_s']:.1f} s): {lane['jobs_per_s']:.2f} jobs/s ({seconds:.3f} s "
+              f"for {len(ids)} jobs); shard "
+              f"{lane['shard']['cell_updates_per_s_makespan']:.4e} cell-updates/s "
+              f"(makespan {lane['shard']['makespan_cpu_s']:.3f} s CPU, wall "
+              f"{lane['shard']['wall_s']:.3f} s, {lane['shard']['supersteps']} "
+              f"supersteps); T1 by worker {lane['t1_launches_by_worker']}; peak "
+              f"device bytes {lane['peak_device_bytes']}", flush=True)
+    return lanes
+
+
+def _chaos_lanes(work: Path, launches: dict, boards: list, wants) -> dict:
+    """(ii) the chaos suite's two lanes, one timed round each after the
+    warm ones: baseline (no defense) and defended (breakers and their
+    ring, --retry-budget 50, X-Gol-Deadline) fleets of two workers, then
+    the defended workers behind a router whose hop to one of them runs
+    CHAOS_PLAN. The faulted round's jobs equal the oracle."""
+    from gol_tpu_torch.chaos import ChaosPlan, ProxyPool
+    from gol_tpu_torch.fleet.breaker import BreakerConfig
+    from gol_tpu_torch.fleet.router import RouterServer
+    from gol_tpu_torch.fleet.workers import Fleet
+    from gol_tpu_torch.obs import propagate
+    from gol_tpu_torch.obs.history import HistoryWriter
+
+    class OneWorkerChaos(ProxyPool):
+        def __init__(self, plan, victim_url):
+            super().__init__(plan)
+            self._victim = victim_url.rstrip("/")
+
+        def url_for(self, upstream_url):
+            if upstream_url.rstrip("/") != self._victim:
+                return upstream_url
+            return super().url_for(upstream_url)
+
+    t_chaos = time.perf_counter()
+    stats = work / "stats-chaos"
+    fleets = {}
+    saved = os.environ.get(cli.EXIT_STATS_ENV)
+    os.environ[cli.EXIT_STATS_ENV] = str(stats)
+    try:
+        def boot(name, defended):
+            serve = FLEET_SERVE + (["--retry-budget", "50"] if defended else [])
+            fleet = Fleet(str(work / f"chaos-{name}"), serve_args=serve)
+            fleet.spawn_fleet(2)
+            fleets[name] = fleet
+
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            list(pool.map(lambda a: boot(*a), [("baseline", False),
+                                               ("defended", True)]))
+    finally:
+        if saved is None:
+            os.environ.pop(cli.EXIT_STATS_ENV)
+        else:
+            os.environ[cli.EXIT_STATS_ENV] = saved
+
+    def breakers(fleet):
+        return {"breakers": True,
+                "breaker_config": BreakerConfig(cooldown_s=1.0),
+                "breaker_history": HistoryWriter(
+                    str(Path(fleet.fleet_dir) / "breaker-history"),
+                    source="breaker")}
+
+    headers = {propagate.DEADLINE_HEADER: propagate.encode_deadline(600.0)}
+    routers = []
+    out = {}
+    try:
+        base = RouterServer(fleets["baseline"], port=0)
+        defended = RouterServer(fleets["defended"], port=0,
+                                **breakers(fleets["defended"]))
+        routers += [base, defended]
+        for r in routers:
+            r.start()
+        _timed_round(base.url, boards, CHAOS_LIMIT, per_job=True)
+        _timed_round(defended.url, boards, CHAOS_LIMIT, headers, True)
+        out["baseline_s"], _ = _timed_round(base.url, boards, CHAOS_LIMIT,
+                                            per_job=True)
+        out["defended_s"], _ = _timed_round(defended.url, boards, CHAOS_LIMIT,
+                                            headers, True)
+        routers.remove(defended)
+        defended.shutdown(cascade=False)
+        victim = sorted(fleets["defended"].workers(), key=lambda w: w.id)[0]
+        degraded = RouterServer(
+            fleets["defended"], port=0, **breakers(fleets["defended"]),
+            chaos=OneWorkerChaos(ChaosPlan.parse(CHAOS_PLAN), victim.url))
+        routers.append(degraded)
+        degraded.start()
+        _timed_round(degraded.url, boards, CHAOS_LIMIT, headers, True)
+        out["degraded_s"], ids = _timed_round(degraded.url, boards, CHAOS_LIMIT,
+                                              headers, True)
+        _check_results(degraded.url, ids, wants, "chaos degraded lane")
+        out["injected"] = degraded.chaos.stats()
+        out["breakers"] = degraded.breaker_states()
+    finally:
+        for r in routers:  # each takes its workers down with it
+            r.shutdown(cascade=True)
+        for fleet in fleets.values():  # whatever no router took down
+            fleet.terminate()
+    n = len(boards)
+    for k in ("baseline", "defended", "degraded"):
+        out[f"{k}_jobs_per_s"] = n / out[f"{k}_s"]
+    out["defended_over_baseline"] = out["defended_jobs_per_s"] / out["baseline_jobs_per_s"]
+    out["degraded_over_defended"] = out["degraded_jobs_per_s"] / out["defended_jobs_per_s"]
+    reports = _exit_stats(stats)
+    launches["chaos lanes (4j, workers)"] = counts = _summed(reports)
+    if not counts.get("batch_packed"):
+        fail("the chaos lanes' workers launched no B1")
+    out["peak_device_bytes"] = {r["pid"]: r["peak_device_bytes"] for r in reports}
+    print(f"chaos ({time.perf_counter() - t_chaos:.1f} s): baseline "
+          f"{out['baseline_jobs_per_s']:.2f}, defended "
+          f"{out['defended_jobs_per_s']:.2f}, degraded "
+          f"{out['degraded_jobs_per_s']:.2f} jobs/s; defended/baseline "
+          f"{out['defended_over_baseline']:.4f} (the JAX package gates 0.97), "
+          f"degraded/defended {out['degraded_over_defended']:.4f} (gates 0.70) "
+          f"under {CHAOS_PLAN} on one hop; injected {out['injected']}",
+          flush=True)
+    return out
+
+
+def fleet_lanes(work: Path) -> dict:
+    """Phase 4j (see the module docstring)."""
+    t_phase = time.perf_counter()
+    # The router drill kills a fleet process: its workers, orphans, are
+    # reparented to this process, which reaps them (PR_SET_CHILD_SUBREAPER).
+    ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+    launches = {}
+    fleet_boards = _load_boards(FLEET_FREQS, 4000)
+    chaos_boards = _load_boards(CHAOS_FREQS, 7000)
+    with _oracle_pool() as pool:
+        # Submitted now, beside the sparse references and the first fleet's
+        # boot and warm round, and read, all of them, before its timed
+        # round; the boots are timed at the end, with the pool idle.
+        wants = {"fleet": pool.map(_oracle_job, [(b, f, FLEET_LIMIT)
+                                                 for f, b in fleet_boards]),
+                 "chaos": pool.map(_oracle_job, [(b, f, CHAOS_LIMIT)
+                                                 for f, b in chaos_boards])}
+
+        def oracles():
+            for k, v in wants.items():
+                wants[k] = list(v)
+            return wants
+
+        lanes = _fleet_lanes(work, launches, fleet_boards, oracles)
+        chaos = _chaos_lanes(work, launches, chaos_boards, oracles()["chaos"])
+    boots = _boot_times(work)
+    print(f"serve boot: cold {boots['cold_boot_s']:.2f} s, warm "
+          f"{boots['warm_boot_s']:.2f} s", flush=True)
+    n1, n4 = lanes["n1"], lanes["n4"]
+    ratios = {"jobs_n4_over_n1": n4["jobs_per_s"] / n1["jobs_per_s"],
+              "shard_n4_over_n1": (n4["shard"]["cell_updates_per_s_makespan"]
+                                   / n1["shard"]["cell_updates_per_s_makespan"])}
+    print(f"fleet N4 over N1 {ratios['jobs_n4_over_n1']:.3f} (the JAX package "
+          f"gates 2.5); shard N4 over N1 {ratios['shard_n4_over_n1']:.3f} "
+          "(gates 2)", flush=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 4j took {seconds:.1f} s", flush=True)
+    return {"launches": launches, "boots": boots, "lanes": lanes,
+            "chaos": chaos, "ratios": ratios, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
 # 5. Timing at 16384^2
 
 
@@ -3240,6 +3873,8 @@ def main() -> int:
         tuner = tuner_lane(work, path)
         phase("4i. the sparse and macro lanes")
         lanes = sparse_macro_lanes(work, dev)
+        phase("4j. the fleet, its router and chaos, and the shard lane")
+        fleet = fleet_lanes(work)
         phase("5. timing")
         times = timing(dev)
         phase("6. the flag-cost roofline")
@@ -3272,9 +3907,12 @@ def main() -> int:
                                   if k != "launches"}))
     print("sparse and macro lanes: " + json.dumps({k: v for k, v in lanes.items()
                                                    if k != "launches"}))
+    print("fleet lanes: " + json.dumps({k: v for k, v in fleet.items()
+                                        if k != "launches"}))
     launches = {**path["launches"], **mesh["launches"], **ckpt["launches"],
                 **obs["launches"], **batch["launches"], **server["launches"],
                 **ring["launches"], **tuner["launches"], **lanes["launches"],
+                **fleet["launches"],
                 "tpu 2x2 auto 64x64 (one-word shards)": one_word,
                 "roofline": roof_counts}
     table = []

@@ -51,20 +51,24 @@ B1 and B2); ``compact DIR`` folds a job journal's sealed segments into its
 snapshot (``serve/compaction.py``); ``serve`` runs the HTTP service over
 the journaled scheduler and the result cache (``serve/server.py``, on B1
 and B2; ``--resident-ring R`` its resident ring lanes, ``--warm-plans``
-the tuned bucket runners built at boot), ``submit W H FILES...`` is its
-HTTP client (of either package's server), and ``gc DIR`` garbage-collects
-a result-cache CAS; ``tune`` measures and caches engine and serve plans
-(``tune/``); ``top`` and ``fleet-trace`` read a live server (``obs/top``,
-``obs/fleettrace``). The JAX CLI's other subcommands (``NOT_PORTED``) exit
-1 with a ``gol:`` line, as do the options whose lanes are not ported
-(``serve --cache-payload ts``, ``submit --shard-across``, ``run --engine
-shard``); ``tune --sparse-crossover`` measures and caches the
-dense/sparse crossover of ``--engine auto``.
+the tuned bucket runners built at boot); ``fleet`` runs a router over N
+``serve`` worker processes (``fleet/``, ``chaos/``) and ``router`` one
+more router replica over a running fleet; ``submit W H FILES...`` is the
+HTTP client of a server or a fleet (of either package; ``--shard-across``
+fans boards over a fleet's workers), and ``gc DIR`` garbage-collects a
+result-cache CAS; ``run --pattern F --engine shard --shard-across URL``
+runs one universe across a fleet's workers (``shard/``, T1 on each
+worker); ``tune`` measures and caches engine and serve plans (``tune/``);
+``top`` and ``fleet-trace`` read a live server (``obs/top``,
+``obs/fleettrace``). ``serve --cache-payload ts`` exits 1 with a ``gol:``
+line (the port has no zarr store); ``tune --sparse-crossover`` measures
+and caches the dense/sparse crossover of ``--engine auto``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -88,15 +92,8 @@ from gol_tpu_torch.resilience import faults
 from gol_tpu_torch.sparse.board import DEFAULT_TILE, SparseBoard, dense_cells_guard
 from gol_tpu_torch.variants import VARIANTS, Variant, get_variant
 
-# Options of the JAX CLI whose lanes are not ported: each exits 1 with one
-# `gol:` line naming the ROADMAP item.
-SHARD_ENGINE_REFUSAL = ("--engine shard runs one universe across a fleet's "
-                        "workers, which is not ported yet (ROADMAP.md Queue 1 "
-                        "item 9); run it with --engine sparse, or with python "
-                        "-m gol_tpu")
-SHARD_ACROSS_REFUSAL = ("--shard-across needs the fleet router, which is not "
-                        "ported yet (ROADMAP.md Queue 1 item 9); submit "
-                        "without it, or with python -m gol_tpu")
+# `serve`'s exit report of its kernel launches (see _write_exit_stats).
+EXIT_STATS_ENV = "GOL_TORCH_EXIT_STATS"
 
 
 def atoi(s: str | None) -> int:
@@ -243,8 +240,6 @@ def _run(args) -> int:
             "--engine shard takes the --pattern lane (the universe "
             "travels as RLE; dense input files do not)"
         )
-    if args.engine == "shard":
-        raise ValueError(SHARD_ENGINE_REFUSAL)
     _build.enable_compile_cache(args.compile_cache)
 
     if args.fault_plan:
@@ -772,6 +767,75 @@ def _run_macro(args, variant, config, board, read_ms, output_path) -> int:
     )
 
 
+def _run_shard(args, variant, config, pattern, x, y, height, width, tile,
+               read_ms) -> int:
+    """``--engine shard``: submit the pattern as ONE sharded job to a
+    fleet router (``shard/``) and poll it home. The printed contract
+    and the written RLE are byte-identical to the sparse lane's — the
+    sharded engine's core promise — only the execution spans N workers."""
+    from gol_tpu_torch.fleet import client as fleet_client
+    from gol_tpu_torch.io import rle as rle_codec
+    from gol_tpu_torch.sparse.board import SparseBoard
+
+    router = args.shard_across.rstrip("/")
+    if variant.io_timings:
+        print(f"Reading file:\t{read_ms:.2f} msecs")
+    body = {
+        "shard": True,
+        "rle": rle_codec.encode(pattern),
+        "x": x, "y": y, "width": width, "height": height, "tile": tile,
+        "convention": config.convention,
+        "gen_limit": config.gen_limit,
+        "check_similarity": config.check_similarity,
+        "similarity_frequency": config.similarity_frequency,
+    }
+    t0 = time.perf_counter()
+    status, payload = fleet_client.http_json(
+        "POST", f"{router}/jobs", body, timeout=120)
+    if status != 202:
+        raise ValueError(
+            f"shard submit rejected: HTTP {status} {payload}"
+        )
+    job_id = payload["id"]
+    while True:
+        status, job = fleet_client.http_json(
+            "GET", f"{router}/jobs/{job_id}", timeout=30)
+        if status != 200:
+            raise ValueError(
+                f"shard job poll failed: HTTP {status} {job}"
+            )
+        if job.get("state") in ("done", "failed"):
+            break
+        time.sleep(0.1)
+    if job["state"] == "failed":
+        raise ValueError(
+            f"shard job failed: {job.get('error', 'unknown error')}"
+        )
+    status, result = fleet_client.http_json(
+        "GET", f"{router}/result/{job_id}", timeout=300)
+    if status != 200:
+        raise ValueError(f"shard result fetch failed: HTTP {status}")
+    exec_ms = (time.perf_counter() - t0) * 1000
+    generations = int(result["generations"])
+    comments = (
+        f"generations {generations} exit {result['exit_reason']}",
+    )
+    # Round-trip through SparseBoard: validates the merged document and
+    # re-emits it through the same encoder as the sparse lane, so the
+    # written file is byte-identical to a single-worker run's.
+    board = SparseBoard.from_rle(result["rle"], height=height,
+                                 width=width, tile=tile)
+    output_path = args.output or "./sparse_output.rle"
+    return _report_and_write(
+        variant,
+        generations,
+        exec_ms,
+        lambda: _write_text(output_path, board.to_rle(comments)),
+    )
+
+
+
+
 def _write_text(path: str, text: str) -> None:
     with open(path, "w", encoding="utf-8") as f:
         f.write(text)
@@ -821,6 +885,14 @@ def _run_pattern(args, variant) -> int:
             if auto_macro(height, width, tile, config.gen_limit,
                           (y, x, y + ph - 1, x + pw - 1)):
                 engine_pick = "macro"
+    if engine_pick == "shard":
+        if args.kernel != "auto":
+            raise ValueError(
+                "--kernel does not apply to the shard engine (the "
+                "workers' tile step is its own kernel family)"
+            )
+        return _run_shard(args, variant, config, pattern, x, y,
+                          height, width, tile, read_ms)
     if engine_pick in ("sparse", "macro"):
         if args.kernel != "auto":
             raise ValueError(
@@ -1322,6 +1394,527 @@ def _serve(args) -> int:
         pass
     # A second signal raises SystemExit(1) in the main thread (the hard-exit
     # path): it propagates, so supervisors see a non-zero status.
+    stats_dir = os.environ.get(EXIT_STATS_ENV)
+    if stats_dir:
+        _write_exit_stats(stats_dir)
+    return 0
+
+
+def _write_exit_stats(directory: str) -> None:
+    """``$GOL_TORCH_EXIT_STATS``: a drained ``serve`` leaves
+    ``DIR/serve-<pid>.json`` — its kernel wrappers' launch counts and the
+    card's peak allocated bytes (null on the CPU). How a smoke run reads
+    the worker processes a fleet spawned, whose counters it cannot see."""
+    from gol_tpu_torch.ops import (stencil_batch, stencil_packed,
+                                   stencil_pallas, stencil_tile)
+
+    device = resolve_device()
+    doc = {
+        "pid": os.getpid(),
+        "launches": {**stencil_packed.LAUNCHES, **stencil_pallas.LAUNCHES,
+                     **stencil_batch.LAUNCHES, **stencil_tile.LAUNCHES},
+        "peak_device_bytes": (torch.cuda.max_memory_allocated(device)
+                              if device.type == "cuda" else None),
+    }
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, f"serve-{os.getpid()}.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(doc, f)
+
+
+def _fleet(args) -> int:
+    """``gol fleet``: the sharded serving fleet — router + N workers.
+
+    Spawns ``--workers`` local ``gol serve`` subprocesses (each on its own
+    journal partition under ``--fleet-dir``) and/or attaches externally
+    managed workers by ``--attach URL`` (the multi-host lane: boot workers
+    wherever ``parallel/bootstrap.py`` put the devices, hand the router
+    their URLs), then serves the single-server HTTP job API unchanged
+    behind bucket-consistent routing (``fleet/``).
+
+    Restart story: started on a ``--fleet-dir`` holding a manifest, the
+    router reattaches workers that are still alive and respawns dead local
+    partitions, whose journals replay to exactly-once — killing the router
+    loses nothing. SIGTERM/SIGINT cascade a fleet-wide graceful drain:
+    admission stops at the router, every worker drains, local workers get
+    SIGTERM, then the router exits."""
+    import signal
+    import subprocess
+
+    from gol_tpu_torch.fleet.router import RouterServer
+    from gol_tpu_torch.fleet.workers import (
+        WORKER_MODULE, Fleet, core_slice_prefix,
+    )
+
+    if args.workers < 0:
+        raise ValueError(f"--workers must be >= 0, got {args.workers}")
+    if args.flush_age < 0:
+        raise ValueError(f"--flush-age must be >= 0, got {args.flush_age}")
+    if args.health_interval <= 0:
+        raise ValueError(
+            f"--health-interval must be > 0, got {args.health_interval}"
+        )
+    # The worker-side --metrics-history/--history-bytes rules, enforced
+    # BEFORE any worker spawns: forwarding a value every worker will
+    # reject at its own argv parse would boot-crash the whole fleet and
+    # surface as a raw _await_ready RuntimeError instead of the CLI's
+    # `gol: <error>` contract.
+    if args.metrics_history and args.sample_interval <= 0:
+        raise ValueError(
+            "--metrics-history is fed by each worker's background "
+            f"sampler; --sample-interval must be > 0 "
+            f"(got {args.sample_interval})"
+        )
+    if args.history_bytes is not None and args.history_bytes < 4096:
+        raise ValueError(
+            f"--history-bytes must be >= 4096, got {args.history_bytes}"
+        )
+    if args.cores_per_worker < 0:
+        raise ValueError(
+            f"--cores-per-worker must be >= 0, got {args.cores_per_worker}"
+        )
+    if args.cores_per_worker > (os.cpu_count() or args.cores_per_worker):
+        # Validated BEFORE any worker spawns (the history-flags contract):
+        # taskset fails outright on a range naming CPUs the host lacks,
+        # and every worker would boot-crash with a raw log tail instead
+        # of a `gol:` error.
+        raise ValueError(
+            f"--cores-per-worker {args.cores_per_worker} exceeds the "
+            f"host's {os.cpu_count()} cores"
+        )
+    if args.breaker_cooldown < 0:
+        raise ValueError(
+            f"--breaker-cooldown must be >= 0, got {args.breaker_cooldown}"
+        )
+    if args.routers < 1:
+        raise ValueError(f"--routers must be >= 1, got {args.routers}")
+    if args.retry_budget < 0:
+        # Validated BEFORE any worker spawns (the history-flags contract):
+        # forwarded verbatim, a negative budget boot-crashes every worker
+        # long after launch instead of erroring here.
+        raise ValueError(
+            f"--retry-budget must be >= 0, got {args.retry_budget}"
+        )
+    # Storage-lifecycle flags: same validated-before-spawn contract.
+    if args.cache_disk_bytes is not None and args.cache_disk_bytes < 1:
+        raise ValueError(
+            f"--cache-disk-bytes must be >= 1, got {args.cache_disk_bytes}"
+        )
+    if args.journal_segment_bytes is not None \
+            and args.journal_segment_bytes < 0:
+        raise ValueError(
+            f"--journal-segment-bytes must be >= 0, got "
+            f"{args.journal_segment_bytes}"
+        )
+    if args.journal_retain is not None and args.journal_retain < 1:
+        raise ValueError(
+            f"--journal-retain must be >= 1, got {args.journal_retain}"
+        )
+    if args.disk_reserve < 0:
+        raise ValueError(
+            f"--disk-reserve must be >= 0, got {args.disk_reserve}"
+        )
+    if args.chaos:
+        # Parsed up front so a typo'd plan is a `gol: <error>` before any
+        # worker spawns — and so the boot banner can echo the armed plan.
+        from gol_tpu_torch.chaos import ChaosPlan
+
+        ChaosPlan.parse(args.chaos)
+    # Autoscaler bounds resolve against --workers; AutoscaleConfig's own
+    # validation (min >= 1, max >= min, threshold ordering) runs HERE,
+    # before any worker spawns — same contract as the history flags.
+    autoscale_cfg = None
+    if args.autoscale:
+        from gol_tpu_torch.fleet.autoscale import AutoscaleConfig
+
+        min_workers = (args.min_workers if args.min_workers is not None
+                       else max(1, args.workers))
+        max_workers = (args.max_workers if args.max_workers is not None
+                       else max(4, args.workers))
+        autoscale_cfg = AutoscaleConfig(
+            min_workers=min_workers,
+            max_workers=max_workers,
+            up_saturation=args.scale_up_saturation,
+            up_sustain=args.scale_up_sustain,
+            down_occupancy=args.scale_down_occupancy,
+            down_sustain=args.scale_down_sustain,
+            cooldown_s=args.scale_cooldown,
+        )
+    elif args.min_workers is not None or args.max_workers is not None:
+        raise ValueError("--min-workers/--max-workers need --autoscale")
+    # Worker flags forwarded verbatim to every spawned `gol serve` —
+    # including --warm-plans, so a tuned fleet pre-compiles each worker's
+    # bucket programs (and the plan cache is shared via GOL_PLAN_CACHE /
+    # the default cache path, exactly as for a single server).
+    serve_args = [
+        "--max-queue-depth", str(args.max_queue_depth),
+        "--max-batch", str(args.max_batch),
+        "--flush-age", str(args.flush_age),
+        "--pipeline-depth", str(args.pipeline_depth),
+        "--slo-latency-p99", str(args.slo_latency_p99),
+        "--sample-interval", str(args.sample_interval),
+    ]
+    if args.retry_budget:
+        serve_args += ["--retry-budget", str(args.retry_budget)]
+    if args.resident_ring:
+        serve_args += ["--resident-ring", str(args.resident_ring)]
+    if args.warm_plans:
+        serve_args += ["--warm-plans"]
+    if args.compile_cache:
+        serve_args += ["--compile-cache", args.compile_cache]
+    if args.slo_shed:
+        serve_args += ["--slo-shed"]
+    if args.result_cache:
+        # Each worker's CAS tier lands on its own journal partition
+        # (--result-cache + --journal-dir defaults --cache-dir to
+        # <partition>/cache): with --cache-route, a fingerprint's HRW owner
+        # IS the worker whose partition holds its cache shard.
+        serve_args += ["--result-cache"]
+    if args.trace:
+        # Every worker arms its own tracer on the SHARED directory
+        # (exports/flight dumps are pid-qualified, so processes never
+        # collide); the router's own arming rides main()'s --trace hook.
+        serve_args += ["--trace", args.trace]
+    if args.metrics_history:
+        # Bare --metrics-history on a worker resolves to its journal
+        # partition (<partition>/history) — per-process rings, exactly
+        # like the journal and the CAS tier.
+        serve_args += ["--metrics-history"]
+        if args.history_bytes is not None:
+            serve_args += ["--history-bytes", str(args.history_bytes)]
+    # Storage-lifecycle flags, forwarded verbatim: every partition rotates,
+    # compacts, budgets its CAS, and watches its own free bytes
+    # INDEPENDENTLY — one full-disk partition 507s alone while the rest of
+    # the fleet serves.
+    if args.cache_disk_bytes is not None:
+        serve_args += ["--cache-disk-bytes", str(args.cache_disk_bytes)]
+    if args.journal_segment_bytes is not None:
+        serve_args += ["--journal-segment-bytes",
+                       str(args.journal_segment_bytes)]
+    if args.journal_retain is not None:
+        serve_args += ["--journal-retain", str(args.journal_retain)]
+    if args.disk_reserve:
+        serve_args += ["--disk-reserve", str(args.disk_reserve)]
+
+    # --cores-per-worker: pin worker k to its own equal `taskset` slice
+    # (the fixed per-worker budget of a one-worker-per-device deployment,
+    # on a shared host) and weight it for --affinity placement. Autoscaled
+    # spawns ride the same hook, so new workers land on distinct slices.
+    spawn_prefix = None
+    spawn_weight = None
+    if args.cores_per_worker:
+        spawn_prefix = core_slice_prefix(args.cores_per_worker)
+        spawn_weight = float(args.cores_per_worker)
+
+    from gol_tpu_torch.fleet import replicate
+
+    fleet = Fleet(args.fleet_dir, serve_args=serve_args,
+                  spawn_prefix=spawn_prefix, spawn_weight=spawn_weight)
+    recovered = fleet.load()
+    if recovered:
+        print(f"reattached {recovered} worker partition(s) from "
+              f"{fleet.manifest_path}", flush=True)
+    # This invocation's flags become the manifest's `config` block — the
+    # single source of truth a `gol router` replica boots from (set AFTER
+    # load(), so the operator's current flags supersede a stale block).
+    fleet.manifest_config = {
+        "serve_args": serve_args,
+        "health_interval": args.health_interval,
+        "big_edge": args.big_edge,
+        "cache_route": bool(args.cache_route),
+        "affinity": bool(args.affinity),
+        "breakers": not args.no_breakers,
+        "breaker_cooldown": args.breaker_cooldown,
+        "breaker_slow": args.breaker_slow,
+        "max_queue_depth": args.max_queue_depth,
+        "cores_per_worker": args.cores_per_worker,
+        "autoscale": (dataclasses.asdict(autoscale_cfg)
+                      if autoscale_cfg is not None else None),
+    }
+    # Arm the leader lease BEFORE spawning: normally this primary wins
+    # immediately, but if a surviving replica of a previous incarnation
+    # still holds the lock, the restarted primary joins as a follower for
+    # the single-writer ticks (it still performs this boot's operator-
+    # initiated spawns — the flock serializes the manifest writes).
+    fleet.enable_leader_election(label="r0")
+    for url in args.attach or []:
+        fleet.attach(url)
+    fleet.spawn_fleet(args.workers, big_lane=args.big_lane)
+    if not fleet.workers():
+        raise ValueError(
+            "fleet has no workers: pass --workers N and/or --attach URL"
+        )
+    fleet.write_manifest()  # persist the config block even when nothing spawned
+    fleet.start_health(args.health_interval)
+    # The chaos-hardened data path: breakers default ON for the
+    # CLI fleet (the library RouterServer default stays off/byte-identical
+    # for embedders and old tests); --chaos mounts the fault-injecting
+    # proxy pool on the router->worker data path. Breaker transitions land
+    # in a durable ring beside the autoscaler's decisions.
+    chaos_pool = None
+    if args.chaos:
+        from gol_tpu_torch.chaos import ChaosPlan, ProxyPool
+
+        chaos_pool = ProxyPool(ChaosPlan.parse(args.chaos))
+        # Respawns move workers to fresh ports; every health tick drops
+        # the proxies (listener socket + accept thread each) still
+        # fronting the dead ones.
+        fleet.add_tick_hook(
+            lambda: chaos_pool.prune(w.url for w in fleet.workers())
+        )
+        print(f"chaos: fault injection ARMED on the router->worker data "
+              f"path ({args.chaos})", flush=True)
+    breaker_kwargs = {}
+    if not args.no_breakers:
+        from gol_tpu_torch.fleet.breaker import BreakerConfig
+        from gol_tpu_torch.obs.history import HistoryWriter as _BreakerRing
+
+        breaker_kwargs = {
+            "breakers": True,
+            "breaker_config": BreakerConfig(
+                cooldown_s=args.breaker_cooldown,
+                slow_s=args.breaker_slow if args.breaker_slow > 0 else None,
+            ),
+            # Per-ROUTER ring: each replica is the single writer
+            # of its own `<fleet-dir>/routers/<id>/breaker-history`, and
+            # warm-start merges across all of them.
+            "breaker_history": _BreakerRing(
+                os.path.join(replicate.state_dir(args.fleet_dir, "r0"),
+                             replicate.BREAKER_RING),
+                source="breaker",
+            ),
+        }
+    router = RouterServer(fleet, host=args.host, port=args.port,
+                          big_edge=args.big_edge,
+                          cache_route=args.cache_route,
+                          affinity_route=args.affinity,
+                          chaos=chaos_pool,
+                          router_id="r0",
+                          state_dir=replicate.state_dir(args.fleet_dir, "r0"),
+                          **breaker_kwargs)
+    if not args.no_breakers:
+        # Same cadence as the chaos-proxy prune: a retired worker's
+        # breaker (and its state gauge) leaves with its membership row.
+        fleet.add_tick_hook(router.prune_breakers)
+    if autoscale_cfg is not None:
+        from gol_tpu_torch.fleet.autoscale import Autoscaler
+        from gol_tpu_torch.obs.history import HistoryWriter
+
+        # Every decision lands in a durable history ring beside the router's
+        # — `gol history-report` and the bench suite replay why the fleet
+        # grew. The tick rides the health loop: one cadence, and the /slo
+        # payloads the loop fetched this tick ARE the burn signal.
+        autoscaler = Autoscaler(
+            fleet, router, autoscale_cfg,
+            queue_capacity=args.max_queue_depth,
+            history=HistoryWriter(
+                os.path.join(args.fleet_dir, "autoscaler-history"),
+                source="autoscaler",
+            ),
+        )
+        router.autoscaler = autoscaler
+        fleet.add_tick_hook(autoscaler.tick)
+        print(f"autoscaler: {autoscale_cfg.min_workers}"
+              f"..{autoscale_cfg.max_workers} workers "
+              f"(up at {autoscale_cfg.up_saturation:.2f} saturation or "
+              f"SLO-critical burn, down below "
+              f"{autoscale_cfg.down_occupancy:.2f} occupancy, "
+              f"{autoscale_cfg.cooldown_s:.0f}s cooldown)", flush=True)
+    if args.metrics_history:
+        # The router's durable record is the fleet-MERGED snapshot, floored
+        # by MonotonicCounters — the series an incident review replays stay
+        # monotonic through every worker respawn in the window.
+        router.start_history(
+            os.path.join(args.fleet_dir, "router-history"),
+            interval=args.sample_interval,  # validated > 0 above
+            total_bytes=args.history_bytes,
+        )
+    # --routers N: N-1 extra `gol router` replica subprocesses over the
+    # same --fleet-dir. Replicas are the horizontal CONTROL plane: each
+    # serves the full job API from the shared manifest, contests the
+    # leader lease, and inherits the durable floors/breaker state — so no
+    # single router process is a SPOF. They are deliberately NOT
+    # supervised (no respawn-the-router loop: the operator's init system
+    # owns router lifetimes; the fleet only guarantees any survivor can
+    # carry the whole control plane).
+    replicas: list = []
+    for k in range(1, args.routers):
+        rid = f"r{k}"
+        rdir = replicate.state_dir(args.fleet_dir, rid)
+        os.makedirs(rdir, exist_ok=True)
+        log_path = os.path.join(rdir, "log")
+        log_f = open(log_path, "ab")
+        try:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", WORKER_MODULE, "router",
+                 "--fleet-dir", args.fleet_dir,
+                 "--router-id", rid, "--port", "0"],
+                stdout=log_f, stderr=subprocess.STDOUT,
+                env={**os.environ, "PYTHONUNBUFFERED": "1"},
+            )
+        finally:
+            log_f.close()
+        replicas.append(proc)
+        print(f"router replica {rid} pid={proc.pid} (log: {log_path})",
+              flush=True)
+
+    stop = {"signaled": False}
+
+    def _on_signal(signum, frame):
+        # Second signal: exit hard (workers' journals replay on restart).
+        if stop["signaled"]:
+            raise SystemExit(1)
+        stop["signaled"] = True
+        import threading
+
+        def _cascade():
+            # Replicas go FIRST: they hold no worker processes, and
+            # stopping them before the workers drain means no replica
+            # wins the lease mid-cascade and starts "supervising" the
+            # teardown it cannot see.
+            for proc in replicas:
+                if proc.poll() is None:
+                    proc.terminate()
+            router.shutdown(cascade=True)
+            for proc in replicas:
+                try:
+                    proc.wait(timeout=10)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+
+        threading.Thread(target=_cascade, daemon=True).start()
+
+    signal.signal(signal.SIGTERM, _on_signal)
+    signal.signal(signal.SIGINT, _on_signal)
+    roster = ", ".join(f"{w.id}={w.url}" for w in fleet.workers())
+    print(f"fleet router on {router.url} "
+          f"({len(fleet.workers())} workers: {roster})", flush=True)
+    try:
+        router.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def _router(args) -> int:
+    """``gol router``: one attachable router replica over a running fleet.
+
+    Boots from the shared manifest alone (`--fleet-dir` is the only
+    coordination channel): adopts the membership and the `config` block
+    the primary recorded, inherits the durable counter floors and breaker
+    evidence under ``<fleet-dir>/routers/``, and contests the leader
+    lease. While following it routes, forwards, and serves lookups like
+    any replica (active-active data plane); if the leader dies, the
+    kernel drops the flock and the next health tick here picks up the
+    single-writer ticks (respawn supervision, scale decisions).
+
+    SIGTERM/SIGINT stop THIS replica only (``cascade=False``): workers
+    belong to the fleet, not to any one router."""
+    import signal
+
+    from gol_tpu_torch.fleet import replicate
+    from gol_tpu_torch.fleet.router import RouterServer
+    from gol_tpu_torch.fleet.workers import Fleet, core_slice_prefix
+
+    if not re.match(r"^[A-Za-z0-9][A-Za-z0-9._-]*$", args.router_id):
+        raise ValueError(
+            f"--router-id must be alphanumeric/._- (got {args.router_id!r})"
+        )
+    manifest = os.path.join(args.fleet_dir, "manifest.json")
+    if not os.path.exists(manifest):
+        raise ValueError(
+            f"no fleet manifest at {manifest}: start "
+            f"`gol fleet --fleet-dir {args.fleet_dir}` first"
+        )
+    fleet = Fleet(args.fleet_dir, replica=True)
+    recovered = fleet.load()
+    cfg = fleet.manifest_config or {}
+    # A replica spawns nothing at boot, but a replica-turned-leader
+    # respawns dead partitions and scales — with the primary's recorded
+    # spawn recipe, not a divergent one.
+    fleet.serve_args = list(cfg.get("serve_args") or [])
+    cores = int(cfg.get("cores_per_worker") or 0)
+    if cores:
+        fleet._spawn_prefix = core_slice_prefix(cores)
+        fleet._spawn_weight = float(cores)
+    leading = fleet.enable_leader_election(label=args.router_id)
+    breaker_kwargs = {}
+    if cfg.get("breakers", True):
+        from gol_tpu_torch.fleet.breaker import BreakerConfig
+        from gol_tpu_torch.obs.history import HistoryWriter as _BreakerRing
+
+        cooldown = float(cfg.get("breaker_cooldown", 5.0))
+        slow = float(cfg.get("breaker_slow", 1.0))
+        breaker_kwargs = {
+            "breakers": True,
+            "breaker_config": BreakerConfig(
+                cooldown_s=cooldown, slow_s=slow if slow > 0 else None,
+            ),
+            "breaker_history": _BreakerRing(
+                os.path.join(
+                    replicate.state_dir(args.fleet_dir, args.router_id),
+                    replicate.BREAKER_RING),
+                source="breaker",
+            ),
+        }
+    router = RouterServer(
+        fleet, host=args.host, port=args.port,
+        big_edge=int(cfg.get("big_edge", 1024)),
+        cache_route=bool(cfg.get("cache_route")),
+        affinity_route=bool(cfg.get("affinity")),
+        router_id=args.router_id,
+        state_dir=replicate.state_dir(args.fleet_dir, args.router_id),
+        **breaker_kwargs)
+    if breaker_kwargs:
+        fleet.add_tick_hook(router.prune_breakers)
+    if isinstance(cfg.get("autoscale"), dict):
+        # Armed but leader-gated: the tick no-ops until THIS replica holds
+        # the lease, then scale decisions continue where the dead leader's
+        # stopped. Its decision ring lives in this replica's own state dir
+        # (single writer per directory), not the primary's legacy path.
+        from gol_tpu_torch.fleet.autoscale import AutoscaleConfig, Autoscaler
+        from gol_tpu_torch.obs.history import HistoryWriter
+
+        try:
+            autoscale_cfg = AutoscaleConfig(**cfg["autoscale"])
+        except (TypeError, ValueError) as err:
+            raise ValueError(
+                f"manifest autoscale config is invalid: {err}") from err
+        autoscaler = Autoscaler(
+            fleet, router, autoscale_cfg,
+            queue_capacity=int(cfg.get("max_queue_depth", 1024)),
+            history=HistoryWriter(
+                os.path.join(
+                    replicate.state_dir(args.fleet_dir, args.router_id),
+                    "autoscaler-history"),
+                source="autoscaler",
+            ),
+        )
+        router.autoscaler = autoscaler
+        fleet.add_tick_hook(autoscaler.tick)
+    fleet.start_health(float(cfg.get("health_interval", 1.0)))
+    stop = {"signaled": False}
+
+    def _on_signal(signum, frame):
+        if stop["signaled"]:
+            raise SystemExit(1)
+        stop["signaled"] = True
+        import threading
+
+        threading.Thread(
+            target=lambda: router.shutdown(cascade=False), daemon=True
+        ).start()
+
+    signal.signal(signal.SIGTERM, _on_signal)
+    signal.signal(signal.SIGINT, _on_signal)
+    print(f"fleet router on {router.url} "
+          f"(replica {args.router_id} over {args.fleet_dir}, "
+          f"{recovered} partition(s) adopted, "
+          f"{'leading' if leading else 'following'})", flush=True)
+    try:
+        router.serve_forever()
+    except KeyboardInterrupt:
+        pass
     return 0
 
 
@@ -1753,10 +2346,7 @@ def _submit(args) -> int:
     job is terminal and writes each result next to its input
     (``<input>.out`` or into --output-dir), printing the per-board
     ``Generations:`` accounting the solo CLI prints. A pure HTTP client: it
-    needs no device. ``--shard-across`` (fanning boards over a fleet's
-    workers) is refused: the fleet is not ported."""
-    if args.shard_across:
-        raise ValueError(SHARD_ACROSS_REFUSAL)
+    needs no device."""
     variant = get_variant(args.variant)
     width, height = atoi(args.width), atoi(args.height)
     if width <= 0:
@@ -1765,6 +2355,24 @@ def _submit(args) -> int:
         height = DEFAULT_HEIGHT
     ring = _ServerRing(getattr(args, "servers", None) or args.server)
     base = ring.current
+    # --shard-across: against a fleet router, fan the multi-board submit
+    # round-robin over the fleet's workers directly (GET /fleet lists
+    # them); against a single `gol serve` — no /fleet endpoint — the flag
+    # is a no-op and every job goes to --server as always. Membership is
+    # re-fetched on an interval (and on a 429) rather than snapshotted
+    # once: against an autoscaled fleet, workers appear mid-submission —
+    # exactly because of the load this loop is applying — and a one-shot
+    # snapshot would never send them a job.
+    targets = _ShardTargets(
+        base, args.shard_across,
+        refresh_s=getattr(args, "shard_refresh", 5.0),
+        fetch=_fetch_json,
+    )
+    targets.refresh(force=True)
+    if args.shard_across and len(targets.targets) > 1:
+        print(f"gol submit: sharding {len(args.input_files)} board(s) "
+              f"across {len(targets.targets)} fleet worker(s)",
+              file=sys.stderr)
     # --wire packed: boards travel as binary wire frames (io/wire.py, ~8x
     # fewer bytes). Degradation is PER TARGET: a server that answers 415
     # (or 400 — an old server's JSON parser rejecting the frame) gets ONE
@@ -1779,7 +2387,7 @@ def _submit(args) -> int:
     policy, budget = _submit_retry()
     ids = {}  # job id -> (input path, server base the job lives on)
     for path in args.input_files:
-        target = base
+        target = targets.next()
         wire_mode.setdefault(target, wire_default)
         grid = text_grid.read_grid(path, width, height)
         meta = {
@@ -1855,7 +2463,7 @@ def _submit(args) -> int:
         def submit_to(target):
             # The job-creating POST is NOT idempotent: only failures that
             # guarantee nothing reached the server (refused, DNS,
-            # unreachable) are
+            # unreachable — the router's spill-safety classification) are
             # auto-retried. Anything ambiguous — a reset or timeout after
             # the bytes went out — surfaces instead of re-POSTing, because
             # the server may have accepted and journaled the job and a
@@ -1887,7 +2495,9 @@ def _submit(args) -> int:
             # --servers: a dead ROUTER rotates the POST to the next
             # replica — but only on delivery-impossible failures, where
             # no byte reached any queue (see _ServerRing). The rotation
-            # applies to ring bases only.
+            # applies to ring bases only: a --shard-across WORKER target
+            # failing surfaces as before (the job's placement is the
+            # router's business, not a reason to re-pick routers).
             from gol_tpu_torch.resilience.retry import delivery_impossible
 
             tried = {target}
@@ -1913,10 +2523,13 @@ def _submit(args) -> int:
         try:
             target, (status, payload) = submit_failover(target)
             if status == 429:
-                # A shed burst: retry ONCE (against a fleet the JAX
-                # client re-fetches membership first; a single server is
-                # its own membership) before giving up.
-                retry = base
+                # A shed burst: the membership that 429'd may already be
+                # stale — an autoscaled fleet is likely scaling up RIGHT
+                # NOW because of this very load. Re-fetch and retry ONCE
+                # against the next (possibly brand-new) target before
+                # giving up.
+                targets.on_429()
+                retry = targets.next()
                 wire_mode.setdefault(retry, wire_default)
                 print(f"gol submit: {target} shed the job (HTTP 429); "
                       f"refreshed membership, retrying on {retry}",
@@ -1976,6 +2589,67 @@ def _submit(args) -> int:
         os.makedirs(outdir, exist_ok=True)
     return _collect_results(dict(ids), args, outdir,
                             retry=(policy, budget), ring=ring)
+
+
+class _ShardTargets:
+    """The --shard-across target set, kept fresh through the submission.
+
+    ``gol submit`` used to snapshot GET /fleet once at startup, so a long
+    submission never saw workers an autoscaler added mid-run — the fleet
+    would scale up under the load and the client would keep hammering the
+    original N workers. This object re-fetches membership every
+    ``refresh_s`` seconds of submission (and immediately on a 429 burst,
+    via ``on_429``) and rotates round-robin over the CURRENT healthy
+    non-big workers. Disabled (``--shard-across`` absent) or against a
+    single ``gol serve`` (no /fleet endpoint, fetch returns {}), the
+    target list stays ``[base]`` — the pinned no-op behavior.
+
+    Clock: ``time.perf_counter`` (interval arithmetic only)."""
+
+    def __init__(self, base: str, enabled: bool, refresh_s: float = 5.0,
+                 fetch=None, clock=time.perf_counter):
+        self.base = base
+        self.enabled = enabled
+        self.refresh_s = refresh_s
+        self._fetch = fetch if fetch is not None else _fetch_json
+        self._clock = clock
+        self.targets = [base]
+        self._i = 0
+        self._fetched_at: float | None = None
+
+    def refresh(self, force: bool = False) -> None:
+        if not self.enabled:
+            return
+        now = self._clock()
+        if (not force and self._fetched_at is not None
+                and now - self._fetched_at < self.refresh_s):
+            return
+        self._fetched_at = now
+        membership = self._fetch(f"{self.base}/fleet")
+        urls = [
+            str(w["url"]).rstrip("/")
+            for w in (membership.get("workers") or [])
+            if w.get("url") and w.get("healthy", True) and not w.get("big")
+            and not w.get("retiring")
+        ]
+        if not urls:
+            return  # single server / unreachable: keep what we have
+        if urls != self.targets:
+            print(f"gol submit: fleet membership now {len(urls)} "
+                  f"worker(s)", file=sys.stderr)
+        self.targets = urls
+
+    def next(self) -> str:
+        """The next round-robin target, after an interval-gated refresh."""
+        self.refresh()
+        target = self.targets[self._i % len(self.targets)]
+        self._i += 1
+        return target
+
+    def on_429(self) -> None:
+        """A shed answer: whatever membership produced it is suspect —
+        re-fetch NOW regardless of the interval."""
+        self.refresh(force=True)
 
 
 def _collect_results(pending: dict, args, outdir, retry=None,
@@ -2289,14 +2963,18 @@ def build_parser() -> argparse.ArgumentParser:
         help="engine family: dense (the classic O(area) lanes), sparse "
         "(tiled O(live-area) — sparse/, tile steps on T1), macro "
         "(hash-consed macrocell, O(log gens) deep time — macro/), shard "
-        "(one universe across a fleet's workers: not ported, refused), or "
-        "auto (sparse above the area threshold when the extents tile "
-        "evenly, upgraded to macro above the generation threshold when the "
-        "placement keeps the run off the torus seam)",
+        "(one giant universe spanning a fleet's workers with per-super-step "
+        "halo exchange — shard/; needs --shard-across), or auto (sparse "
+        "above the area threshold when the extents tile evenly, upgraded "
+        "to macro above the generation threshold when the placement keeps "
+        "the run off the torus seam)",
     )
     run.add_argument(
         "--shard-across", default=None, metavar="URL",
-        help="fleet router URL for --engine shard (not ported, refused)",
+        help="fleet router URL for --engine shard: the universe is "
+        "partitioned across the router's workers by rendezvous hashing "
+        "over tile coordinates and run as coordinated super-steps; the "
+        "result is byte-identical to the sparse engine's",
     )
     run.add_argument(
         "--tile", type=int, default=0, metavar="N",
@@ -2663,6 +3341,242 @@ def build_parser() -> argparse.ArgumentParser:
     )
     srv.set_defaults(func=_serve)
 
+    flt = sub.add_parser(
+        "fleet",
+        help="run the sharded serving fleet: a router front-end over N "
+        "`gol serve` workers (same HTTP job API, bucket-consistent "
+        "routing, partitioned journals, health-aware placement, "
+        "fleet-wide drain)",
+    )
+    flt.add_argument("--host", default="127.0.0.1")
+    flt.add_argument("--port", type=int, default=8000,
+                     help="router listen port (0 = pick a free one)")
+    flt.add_argument(
+        "--workers", type=int, default=2, metavar="N",
+        help="local worker subprocesses to run (default 2; partitions "
+        "recovered from an existing --fleet-dir manifest count toward N)",
+    )
+    flt.add_argument(
+        "--attach", action="append", default=[], metavar="URL",
+        help="adopt an externally managed `gol serve` by URL (repeatable; "
+        "the multi-host lane — boot workers where parallel/bootstrap.py "
+        "put the devices, hand the router their URLs). Attached workers "
+        "are health-checked and routed around, never respawned",
+    )
+    flt.add_argument(
+        "--fleet-dir", default="./fleet", metavar="D",
+        help="fleet state directory: the membership manifest plus one "
+        "journal partition per local worker (default ./fleet). Restarting "
+        "on the same directory reattaches live workers and respawns dead "
+        "partitions, whose journals replay to exactly-once",
+    )
+    flt.add_argument(
+        "--big-lane", action="store_true",
+        help="spawn one dedicated worker for oversized boards (padded "
+        "edge > --big-edge): giant compiles and batches never block the "
+        "bucket workers",
+    )
+    flt.add_argument(
+        "--big-edge", type=int, default=1024, metavar="N",
+        help="padded board edge above which jobs route to the big-lane "
+        "worker when one exists (default 1024)",
+    )
+    flt.add_argument(
+        "--health-interval", type=float, default=1.0, metavar="S",
+        help="seconds between worker health/burn probes (default 1)",
+    )
+    # Worker passthrough flags (forwarded to every spawned `gol serve`).
+    flt.add_argument("--max-queue-depth", type=int, default=1024)
+    flt.add_argument("--max-batch", type=int, default=64)
+    flt.add_argument("--flush-age", type=float, default=0.05, metavar="S")
+    flt.add_argument("--pipeline-depth", type=int, default=1)
+    flt.add_argument("--resident-ring", type=int, default=0, metavar="R")
+    flt.add_argument(
+        "--warm-plans", action="store_true",
+        help="each worker pre-compiles its tuner-recorded bucket programs "
+        "at boot (per-worker plan warm-up from the shared plan cache)",
+    )
+    flt.add_argument("--compile-cache", default=None, metavar="DIR")
+    flt.add_argument(
+        "--result-cache", action="store_true",
+        help="each worker mounts the tiered result cache (LRU + a CAS tier "
+        "on its own journal partition) — repeat boards complete at "
+        "admission; see `gol serve --result-cache`",
+    )
+    flt.add_argument(
+        "--cache-route", action="store_true",
+        help="route submissions by result FINGERPRINT instead of padding "
+        "bucket (the fleet cache tier): every repeat of a board lands on "
+        "the one worker whose cache holds its answer, and hot patterns "
+        "spread across workers by fingerprint. Trade: a bucket's programs "
+        "may compile on several workers (one-time, bought back by every "
+        "repeat). Pair with --result-cache",
+    )
+    flt.add_argument(
+        "--cache-disk-bytes", type=int, default=None, metavar="N",
+        help="forwarded to every worker: per-partition CAS byte budget "
+        "with LRU garbage collection (see `gol serve --cache-disk-bytes`)",
+    )
+    flt.add_argument(
+        "--journal-segment-bytes", type=int, default=None, metavar="N",
+        help="forwarded to every worker: journal segment rotation "
+        "threshold (see `gol serve --journal-segment-bytes`)",
+    )
+    flt.add_argument(
+        "--journal-retain", type=int, default=None, metavar="N",
+        help="forwarded to every worker: result-retention window at "
+        "compaction (see `gol serve --journal-retain`)",
+    )
+    flt.add_argument(
+        "--disk-reserve", type=int, default=0, metavar="N",
+        help="forwarded to every worker: per-partition disk-pressure "
+        "watchdog — a full-disk partition sheds CAS writes, then "
+        "checkpoints, then 507s new admission, alone, while the rest of "
+        "the fleet serves (see `gol serve --disk-reserve`)",
+    )
+    flt.add_argument("--slo-shed", action="store_true")
+    flt.add_argument("--slo-latency-p99", type=float, default=60.0,
+                     metavar="S")
+    flt.add_argument("--sample-interval", type=float, default=1.0,
+                     metavar="S")
+    flt.add_argument(
+        "--trace", default=None, metavar="DIR",
+        help="fleet-wide span tracing: arms the router AND every spawned "
+        "worker (one pid-qualified export per process in DIR), and stamps "
+        "X-Gol-Trace onto forwarded submits so worker spans join the "
+        "router's trace. Stitch every live process's ring into ONE "
+        "Perfetto timeline with `gol fleet-trace`",
+    )
+    flt.add_argument(
+        "--metrics-history", action="store_true",
+        help="durable metrics history for the whole fleet: every worker "
+        "appends its snapshot ring beside its journal partition "
+        "(<partition>/history) and the router appends the fleet-MERGED, "
+        "respawn-floored view to <fleet-dir>/router-history — the "
+        "cumulative series stay monotonic through worker respawns. "
+        "Render with `gol history-report <dir>`",
+    )
+    flt.add_argument("--history-bytes", type=int, default=None, metavar="N",
+                     help="per-process history ring cap in bytes "
+                     "(default 16 MiB)")
+    # The elastic fleet (fleet/autoscale.py + affinity.py).
+    flt.add_argument(
+        "--autoscale", action="store_true",
+        help="close the loop: spawn workers when SLO burn rates or queue "
+        "saturation climb (up to --max-workers), drain+retire the "
+        "emptiest when occupancy stays below the floor (down to "
+        "--min-workers). Every decision is journaled to "
+        "<fleet-dir>/autoscaler-history and visible in `gol top`",
+    )
+    flt.add_argument(
+        "--min-workers", type=int, default=None, metavar="N",
+        help="autoscaler floor (default: the --workers count)",
+    )
+    flt.add_argument(
+        "--max-workers", type=int, default=None, metavar="N",
+        help="autoscaler ceiling (default: max(4, --workers))",
+    )
+    flt.add_argument(
+        "--scale-up-saturation", type=float, default=0.8, metavar="F",
+        help="scale up when merged queue depth exceeds this fraction of "
+        "the fleet-wide admission cap, sustained --scale-up-sustain ticks "
+        "(default 0.8); SLO-critical burn on every window also triggers",
+    )
+    flt.add_argument(
+        "--scale-down-occupancy", type=float, default=0.05, metavar="F",
+        help="retire a worker when queued+inflight stays below this "
+        "fraction of the cap for --scale-down-sustain ticks (default "
+        "0.05; the wide gap to --scale-up-saturation is the hysteresis "
+        "dead band)",
+    )
+    flt.add_argument("--scale-up-sustain", type=int, default=2, metavar="T",
+                     help="consecutive health ticks the up condition must "
+                     "hold (default 2)")
+    flt.add_argument("--scale-down-sustain", type=int, default=10,
+                     metavar="T",
+                     help="consecutive health ticks the down condition "
+                     "must hold (default 10)")
+    flt.add_argument(
+        "--scale-cooldown", type=float, default=30.0, metavar="S",
+        help="seconds after any scale event before the next decision can "
+        "fire (default 30; flap protection on top of the sustain windows)",
+    )
+    flt.add_argument(
+        "--cores-per-worker", type=int, default=0, metavar="N",
+        help="pin worker k to its own N-core `taskset` slice (local "
+        "spawns only; autoscaled workers land on distinct slices) and "
+        "weight it N for --affinity placement. 0 = no pinning (default)",
+    )
+    flt.add_argument(
+        "--affinity", action="store_true",
+        help="affinity-aware placement: rank workers by weighted HRW over "
+        "per-worker capacity weights (--cores-per-worker pins, or each "
+        "worker's tuned marginal rate advertised on /healthz) instead of "
+        "hash rank alone. Off (the default) — and on with no weights "
+        "configured — is byte-identical to plain HRW placement",
+    )
+    # The chaos-hardened data path (chaos/ + fleet/breaker.py).
+    flt.add_argument(
+        "--no-breakers", action="store_true",
+        help="disable the per-worker circuit breakers (on by default: "
+        "consecutive failures or a degraded fraction of recent calls "
+        "rank a worker LAST — never removed, so HRW bucket affinity "
+        "survives recovery — until a half-open probe succeeds)",
+    )
+    flt.add_argument(
+        "--breaker-cooldown", type=float, default=5.0, metavar="S",
+        help="seconds an OPEN breaker holds before its single half-open "
+        "probe (default 5)",
+    )
+    flt.add_argument(
+        "--breaker-slow", type=float, default=1.0, metavar="S",
+        help="forward latency above S seconds counts as degraded toward "
+        "the breaker's windowed trip (default 1.0; <= 0 disables the "
+        "latency signal)",
+    )
+    flt.add_argument(
+        "--retry-budget", type=float, default=0.0, metavar="N",
+        help="forwarded to every worker: token-bucket budget on batch "
+        "dispatch retries (see `gol serve --retry-budget`)",
+    )
+    flt.add_argument(
+        "--chaos", default=None, metavar="PLAN",
+        help="mount a seeded fault-injecting proxy (chaos/) on the "
+        "router->worker data path: PLAN is a k=v list, e.g. "
+        "'seed=7,reset=0.05,latency=0.2,latency_ms=50,bitflip=0.05' "
+        "(classes: refuse, reset, truncate, slowloris, bitflip, latency). "
+        "Health probes stay direct — chaos exercises the data plane's "
+        "defenses, not the supervisor. NEVER set this in production",
+    )
+    flt.add_argument(
+        "--routers", type=int, default=1, metavar="N",
+        help="total router replicas over this fleet (default 1). N-1 "
+        "extra `gol router` subprocesses boot from the shared manifest, "
+        "serve the full job API active-active, and contest the leader "
+        "lease for the single-writer ticks — kill any one (the leader "
+        "included) and the survivors carry the control plane",
+    )
+    flt.set_defaults(func=_fleet)
+
+    rtr = sub.add_parser(
+        "router",
+        help="one attachable router replica over a running fleet: boots "
+        "from the shared manifest (membership + config), inherits the "
+        "durable floors/breaker state, contests the leader lease. "
+        "SIGTERM stops this replica only — never the workers",
+    )
+    rtr.add_argument("--fleet-dir", required=True, metavar="DIR",
+                     help="the running fleet's --fleet-dir (the manifest "
+                     "is the only coordination channel)")
+    rtr.add_argument("--router-id", required=True, metavar="ID",
+                     help="this replica's identity (its durable state "
+                     "lives under <fleet-dir>/routers/<ID>/)")
+    rtr.add_argument("--host", default="127.0.0.1")
+    rtr.add_argument("--port", type=int, default=0,
+                     help="0 = any free port (default; the URL is "
+                     "advertised in <fleet-dir>/routers/<ID>/advert.json)")
+    rtr.set_defaults(func=_router)
+
     gcp = sub.add_parser(
         "gc",
         help="CAS garbage collection: sweep orphans + evict LRU entries "
@@ -2738,13 +3652,17 @@ def build_parser() -> argparse.ArgumentParser:
                      help="write results here (default: next to each input)")
     sbm.add_argument(
         "--shard-across", action="store_true",
-        help="fan the boards over a fleet router's workers (the JAX "
-        "package's `gol fleet`): not ported, refused",
+        help="against a fleet router (`gol fleet`), fan the boards "
+        "round-robin over the fleet's workers directly (GET /fleet lists "
+        "them) instead of routing every submit through the front-end; "
+        "membership is re-fetched every --shard-refresh seconds (and on "
+        "a 429) so autoscaled workers absorb the load mid-submission; "
+        "a no-op against a single `gol serve`",
     )
     sbm.add_argument(
         "--shard-refresh", type=float, default=5.0, metavar="S",
         help="seconds between --shard-across membership re-fetches "
-        "(default 5; --shard-across is refused)",
+        "(default 5)",
     )
     sbm.set_defaults(func=_submit)
 
@@ -2858,21 +3776,14 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-# The JAX CLI's other subcommands. Until one is ported its name is refused,
-# not read as a width by `run`.
-NOT_PORTED = ("fleet", "router")
 SUBCOMMANDS = ("run", "generate", "show", "trace-report", "history-report",
-               "slo-report", "compact", "batch", "serve", "submit", "gc",
-               "tune", "fleet-trace", "top")
+               "slo-report", "compact", "batch", "serve", "fleet", "router",
+               "submit", "gc", "tune", "fleet-trace", "top")
 
 
 def main(argv: list[str] | None = None) -> int:
     configure_cli_logging()
     argv = list(sys.argv[1:]) if argv is None else list(argv)
-    if argv and argv[0] in NOT_PORTED:
-        print(f"gol: subcommand {argv[0]!r} is not ported yet; run it with "
-              "python -m gol_tpu", file=sys.stderr)
-        return 1
     # Default command is `run`, preserving the bare `<w> <h> <file>` contract.
     if not argv or argv[0] not in (*SUBCOMMANDS, "-h", "--help"):
         argv = ["run", *argv]

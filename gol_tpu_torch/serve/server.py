@@ -3,9 +3,8 @@
 The port's copy of ``gol_tpu/serve/server.py``: the same endpoints, status
 codes, error JSON and ``/metrics`` text as the JAX package's server
 (test-pinned), so a client of either package talks to it, sparse and
-macro jobs (a body with ``rle``) included. One difference: ``POST
-/shard/<leg>`` answers 400 (the sharded single-job lane is not ported,
-ROADMAP.md Queue 1 item 9). The
+macro jobs (a body with ``rle``) and the sharded single-job lane's
+``POST /shard/<leg>`` RPCs (``shard/worker.py``) included. The
 dispatch-gap monitor reads the marginal rates of the port's own plan
 cache (``tune/select.py``).
 
@@ -154,12 +153,6 @@ def _tuned_marginal_rates() -> dict[str, float]:
         return {}
 
 
-# POST /shard/<leg>: the sharded single-job lane's worker RPCs.
-SHARD_REFUSAL = ("the sharded single-job lane (/shard/<leg>) is not ported "
-                 "yet (ROADMAP.md Queue 1 item 9); serve it with python -m "
-                 "gol_tpu")
-
-
 class GolServer:
     """The serving process: scheduler + journal + HTTP front end."""
 
@@ -196,6 +189,11 @@ class GolServer:
         )
         self.journal_dir = journal_dir
         self.journal_retain = journal_retain
+        # The sharded single-job lane (shard/): mounted lazily on
+        # the first /shard/* RPC — a worker that never joins a sharded
+        # job pays nothing for the subsystem.
+        self._shard = None
+        self._shard_lock = threading.Lock()
         # Durable metrics history (obs/history.py): OFF by default — no
         # writer object, no per-tick work. With --metrics-history, every
         # sampler tick appends the serving registry snapshot to the
@@ -359,6 +357,60 @@ class GolServer:
             self._thread = None
         if self.scheduler.journal is not None:
             self.scheduler.journal.close()
+
+    @property
+    def shard(self):
+        """The lazily-mounted shard host (``shard/worker.py``): its
+        checkpoint logs live in this worker's journal partition, so a
+        respawn on the same partition finds them."""
+        if self._shard is None:
+            with self._shard_lock:
+                if self._shard is None:
+                    from gol_tpu_torch.shard.worker import ShardHost
+
+                    self._shard = ShardHost(journal_dir=self.journal_dir)
+        return self._shard
+
+    def shard_request(self, leg: str, raw: bytes):
+        """One ``POST /shard/<leg>`` RPC -> (status, payload). The packed
+        legs (halo, adopt) take GOLP frames; the rest JSON bodies.
+        ValueError (ShardError, WireError, malformed JSON) propagates to
+        the handler's 400 mapping; an exhausted halo-send budget answers
+        503 naming the peer — the coordinator's recovery cue."""
+        from gol_tpu_torch.shard.worker import PeerUnreachable
+
+        host = self.shard
+        try:
+            if leg == "halo":
+                return 200, host.halo_in(raw)
+            if leg == "adopt":
+                return 200, host.adopt(raw)
+            body = json.loads(raw.decode("utf-8"))
+            if not isinstance(body, dict):
+                raise ValueError("shard request body must be a JSON object")
+            if leg == "init":
+                return 200, host.init_job(body)
+            if leg == "step":
+                return 200, host.step_job(body["job"], body["step"])
+            if leg == "checkpoint":
+                return 200, host.checkpoint(body["job"], body["step"])
+            if leg == "rewind":
+                return 200, host.rewind(body["job"], body["step"],
+                                        body.get("peers"))
+            if leg == "restore":
+                return 200, host.restore_job(body)
+            if leg == "status":
+                return 200, host.status(body["job"])
+            if leg == "rebalance":
+                return 200, host.rebalance(body)
+            if leg == "collect":
+                return 200, host.collect(body["job"],
+                                         body.get("which", "current"))
+            if leg == "done":
+                return 200, host.finish(body["job"])
+            return 404, {"error": f"unknown shard leg {leg!r}"}
+        except PeerUnreachable as e:
+            return 503, {"error": str(e)}
 
     # -- request-level operations (handler methods stay thin) -------------
 
@@ -850,10 +902,14 @@ def _make_handler(server: GolServer):
                         "stats": server.scheduler.stats(),
                     })
                 elif path.startswith("/shard/"):
-                    # The sharded single-job lane's worker RPCs: not
-                    # ported, refused as a client error.
-                    self._discard_body()
-                    self._reply(400, {"error": SHARD_REFUSAL})
+                    # The sharded single-job lane's worker RPCs
+                    # (shard/): halo frames, super-steps, checkpoints,
+                    # recovery. Driven by the router's coordinator,
+                    # worker-to-worker for halo/adopt.
+                    code, payload = server.shard_request(
+                        path[len("/shard/"):], self._read_raw()
+                    )
+                    self._reply(code, payload)
                 else:
                     self._discard_body()
                     self._reply(404, {"error": f"no such endpoint {path}"})

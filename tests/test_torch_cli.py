@@ -379,27 +379,11 @@ def _subcommands(parser) -> set:
 
 
 def test_jax_subcommands_not_ported_are_named():
-    # Every subcommand of the JAX CLI that the port's parser lacks is
-    # refused by name, and the port has no subcommand JAX lacks.
+    # Every subcommand of the JAX CLI is the port's, and the port has no
+    # subcommand JAX lacks: none is left to refuse.
     jax_names = _subcommands(jax_cli.build_parser())
     port_names = _subcommands(cli.build_parser())
-    assert port_names == set(cli.SUBCOMMANDS) <= jax_names
-    assert set(cli.NOT_PORTED) == jax_names - port_names
-
-
-@pytest.mark.parametrize("name", cli.NOT_PORTED)
-def test_jax_subcommands_are_refused(name, capsys, tmp_path, monkeypatch):
-    """A JAX subcommand's name exits 1 with one ``gol:`` line, where it used
-    to run as a ``run`` with the name read as the width; nothing is read or
-    written."""
-    monkeypatch.chdir(tmp_path)
-    for args in ([name], [name, "64", "64", "in.txt"], [name, "--help"]):
-        assert cli.main(args) == 1
-        out, err = capsys.readouterr()
-        assert out == ""
-        assert err == (f"gol: subcommand {name!r} is not ported yet; run it "
-                       "with python -m gol_tpu\n")
-    assert list(tmp_path.iterdir()) == []
+    assert port_names == set(cli.SUBCOMMANDS) == jax_names
 
 
 def test_show_without_sizes_matches_jax(capsys, tmp_path):
@@ -769,7 +753,7 @@ def _options(parser) -> list:
 
 
 @pytest.mark.parametrize("name", ["serve", "submit", "gc", "tune", "top",
-                                  "fleet-trace"])
+                                  "fleet-trace", "fleet", "router"])
 def test_server_lane_parsers_match_jax(name):
     """The same option strings and defaults as JAX's parsers; the options
     whose lanes are not ported are there too, and refused when used."""
@@ -836,15 +820,6 @@ def test_serve_lanes_run(flags, capsys, tmp_path, monkeypatch):
     assert seen["result"].generations == solo.generations
     if flags == ["--warm-plans"]:
         assert err.startswith("no tuned serve shapes to warm")
-
-
-def test_submit_shard_across_is_refused(capsys, tmp_path):
-    path = _write(tmp_path, "in.txt", text_grid.generate(8, 8, seed=1))
-    assert cli.main(["submit", "8", "8", path, "--shard-across",
-                     "--server", "http://127.0.0.1:9"]) == 1
-    out, err = capsys.readouterr()
-    assert out == "" and err == f"gol: {cli.SHARD_ACROSS_REFUSAL}\n"
-    assert "Queue 1 item 9" in err
 
 
 @pytest.mark.parametrize("flags", [
@@ -1214,20 +1189,149 @@ def test_pattern_lane_refusals_match_jax(flags, capsys, tmp_path):
     assert not (tmp_path / "o.rle").exists()
 
 
-def test_engine_shard_is_refused_naming_the_roadmap(capsys, tmp_path):
-    """A well-formed --engine shard run (JAX's checks passed) exits 1 with
-    one gol: line naming ROADMAP.md Queue 1 item 9; nothing is written."""
-    rc = cli.main(["--pattern", str(PATTERNS / "glider.rle"), "--engine",
-                   "shard", "--shard-across", "http://127.0.0.1:1",
-                   "--output", str(tmp_path / "o.rle")])
-    out, err = capsys.readouterr()
-    assert (rc, out) == (1, "")
-    assert err == f"gol: {cli.SHARD_ENGINE_REFUSAL}\n"
-    assert "Queue 1 item 9" in err
-    assert not (tmp_path / "o.rle").exists()
-
-
 def test_run_parser_matches_jax():
     """The run parser's options, defaults and choices are JAX's, the
     pattern lane's included."""
     assert _options(_parser_of(cli, "run")) == _options(_parser_of(jax_cli, "run"))
+
+
+# ---------------------------------------------------------------------------
+# fleet, router, submit --shard-across and run --engine shard
+
+
+def _cli_rc(main, args, capsys, fleet_dir=None):
+    """(rc, stdout, stderr) of one CLI call, the logger prefix, the fleet
+    directory and pids normalized."""
+    try:
+        rc = main(args)
+    except SystemExit as e:
+        rc = e.code
+    out, err = capsys.readouterr()
+    err = err.replace("gol_tpu_torch: ", "gol_tpu: ")
+    if fleet_dir is not None:
+        err = err.replace(str(fleet_dir), "FLEET")
+    return rc, out, re.sub(r"pid \d+", "pid N", err)
+
+
+FLEET_REFUSALS = {
+    "workers_negative": ["--workers", "-1"],
+    "flush_age": ["--flush-age", "-1"],
+    "health_interval": ["--health-interval", "0"],
+    "history_without_sampler": ["--metrics-history", "--sample-interval", "0"],
+    "history_bytes": ["--history-bytes", "100"],
+    "cores_negative": ["--cores-per-worker", "-1"],
+    "cores_beyond_host": ["--cores-per-worker", "100000"],
+    "breaker_cooldown": ["--breaker-cooldown", "-1"],
+    "routers": ["--routers", "0"],
+    "retry_budget": ["--retry-budget", "-1"],
+    "cache_disk_bytes": ["--cache-disk-bytes", "0"],
+    "segment_bytes": ["--journal-segment-bytes", "-1"],
+    "journal_retain": ["--journal-retain", "0"],
+    "disk_reserve": ["--disk-reserve", "-1"],
+    "chaos_unknown": ["--chaos", "bogus=1"],
+    "chaos_probability": ["--chaos", "reset=2"],
+    "bounds_without_autoscale": ["--min-workers", "2"],
+    "autoscale_floor": ["--autoscale", "--min-workers", "0"],
+    "autoscale_order": ["--autoscale", "--min-workers", "3", "--max-workers", "2"],
+    "no_workers": ["--workers", "0"],
+    "workers_text": ["--workers", "x"],
+}
+
+
+@pytest.mark.parametrize("flags", list(FLEET_REFUSALS.values()),
+                         ids=list(FLEET_REFUSALS))
+def test_fleet_refusals_match_jax(flags, capsys, tmp_path, monkeypatch):
+    """Refused before any worker spawns, in both packages: the same exit
+    code, stdout and stderr."""
+    monkeypatch.chdir(tmp_path)
+    results = []
+    for tag, main in (("jax", jax_cli.main), ("port", cli.main)):
+        fleet_dir = tmp_path / f"fleet_{tag}"
+        results.append(_cli_rc(main, ["fleet", "--port", "0", "--fleet-dir",
+                                      str(fleet_dir), *flags], capsys, fleet_dir))
+    assert results[1] == results[0]
+    assert results[1][0] != 0
+    assert not any((tmp_path / f"fleet_{t}" / "w0").exists() for t in ("jax", "port"))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--fleet-dir", "F", "--router-id", "bad id"],
+    ["--fleet-dir", "F", "--router-id", "r1"],
+    ["--router-id", "r1"],
+    ["--fleet-dir", "F"],
+], ids=["bad_id", "no_manifest", "no_fleet_dir", "no_router_id"])
+def test_router_refusals_match_jax(flags, capsys, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    results = [_cli_rc(main, ["router", *flags], capsys)
+               for main in (jax_cli.main, cli.main)]
+    assert results[1] == results[0]
+    assert results[1][0] != 0
+
+
+@pytest.fixture
+def port_fleet(tmp_path):
+    """Two port workers attached by URL behind a port router, in process."""
+    from gol_tpu_torch.fleet.router import RouterServer
+    from gol_tpu_torch.fleet.workers import Fleet
+    from gol_tpu_torch.serve.server import GolServer
+
+    servers = [GolServer(port=0, journal_dir=str(tmp_path / f"w{i}"),
+                         flush_age=0.01, sample_interval=0) for i in range(2)]
+    fleet = Fleet(str(tmp_path / "fleet"))
+    for i, srv in enumerate(servers):
+        srv.start()
+        fleet.attach(srv.url, f"w{i}")
+    router = RouterServer(fleet, port=0)
+    router.start()
+    yield router.url
+    router.shutdown(cascade=False)
+    for srv in servers:
+        srv.shutdown()
+
+
+@pytest.mark.parametrize("variant", ["game", "cuda"])
+def test_run_engine_shard_prints_the_sparse_lines(variant, port_fleet, capsys,
+                                                  tmp_path):
+    """``run --engine shard --shard-across URL`` of either package against
+    the port's router prints the lines ``run --engine sparse`` prints and
+    writes the same RLE bytes."""
+    args = ["--pattern", str(PATTERNS / "gosper_gun.rle"), "--universe",
+            "512x512", "--place", "230,230", "--gens", "30", "--variant",
+            variant]
+    results = []
+    for tag, main, extra in (
+            ("sparse", cli.main, ["--engine", "sparse"]),
+            ("shard", cli.main, ["--engine", "shard", "--shard-across", port_fleet]),
+            ("jax_shard", jax_cli.main,
+             ["--engine", "shard", "--shard-across", port_fleet])):
+        out = tmp_path / f"{tag}.rle"
+        rc = main([*args, *extra, "--output", str(out)])
+        stdout, stderr = capsys.readouterr()
+        results.append((rc, _MS.sub("X msecs", stdout), out.read_bytes()))
+    assert results[0][0] == 0 and "Generations:\t30" in results[0][1]
+    assert results[1] == results[0] == results[2]
+
+
+def test_submit_shard_across_matches_jax(port_fleet, capsys, tmp_path,
+                                         monkeypatch):
+    """``submit --shard-across`` against the port's router: both packages'
+    clients fan the boards over the fleet's two workers (one stderr line
+    says so) and print the same result lines and bytes."""
+    monkeypatch.chdir(tmp_path)
+    paths = _batch_inputs(tmp_path, 30, 30, (5, 6))
+    results = []
+    for tag, main in (("jax", jax_cli.main), ("port", cli.main)):
+        outdir = tmp_path / f"out_{tag}"
+        rc = main(["submit", "30", "30", *paths, "--server", port_fleet,
+                   "--shard-across", "--poll-interval", "0.02", "--gen-limit",
+                   "40", "--output-dir", str(outdir)])
+        out, err = capsys.readouterr()
+        files = {p.name: p.read_bytes() for p in sorted(outdir.glob("*"))}
+        results.append((rc, _submit_lines(out.replace(str(outdir), "OUT")),
+                        err, files))
+    assert results[1] == results[0]
+    rc, _, err, files = results[1]
+    assert rc == 0 and len(files) == len(paths)
+    assert err == ("gol submit: fleet membership now 2 worker(s)\n"
+                   f"gol submit: sharding {len(paths)} board(s) across 2 fleet "
+                   "worker(s)\n")

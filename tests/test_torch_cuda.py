@@ -758,3 +758,76 @@ def test_sparse_and_macro_lanes_on_the_card_match_the_cpu(tile_card, convention,
         assert (launched > 0) == (device == "cuda")
     assert runs["cuda"] == runs["cpu"]
     assert runs["cuda"][0] == runs["cuda"][1]
+
+
+# ---------------------------------------------------------------------------
+# The fleet and the sharded lane: worker processes sharing the card.
+
+
+def test_fleet_and_shard_job_on_the_card_match_the_cpu(card, monkeypatch,
+                                                       tmp_path):
+    """Two ``serve`` workers spawned on the card behind the router: jobs of
+    both buckets (B1 and B2) and both conventions equal the oracle, and a
+    sharded job over the two (T1 in each) equals the CPU's LocalCluster."""
+    import json
+    import time
+    import urllib.request
+
+    from gol_tpu_torch.fleet.router import RouterServer
+    from gol_tpu_torch.fleet.workers import Fleet
+    from gol_tpu_torch.shard.coordinator import LocalCluster, ShardCoordinator
+
+    gun = open(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "patterns", "gosper_gun.rle")).read()
+    spec = {"rle": gun, "x": 400, "y": 400, "width": 1024, "height": 1024,
+            "tile": 256, "convention": Convention.C, "gen_limit": 60,
+            "check_similarity": True, "similarity_frequency": 1}
+    monkeypatch.setenv("GOL_TORCH_DEVICE", "cpu")
+    want_shard = ShardCoordinator("job", spec, LocalCluster(
+        ["w0", "w1"], journal_root=str(tmp_path / "local")).participants()).run()
+
+    def http(method, url, body=None):
+        req = urllib.request.Request(
+            url, method=method, data=json.dumps(body).encode() if body else None,
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return json.loads(resp.read())
+
+    def wait_done(base, job_id):
+        deadline = time.perf_counter() + 300
+        while http("GET", f"{base}/jobs/{job_id}")["state"] != "done":
+            assert time.perf_counter() < deadline
+            time.sleep(0.05)
+
+    monkeypatch.setenv("GOL_TORCH_DEVICE", "cuda")
+    fleet = Fleet(str(tmp_path / "fleet"), serve_args=["--flush-age", "0.01"])
+    fleet.spawn_fleet(2)
+    router = RouterServer(fleet, port=0)
+    router.start()
+    try:
+        jobs = []
+        for side in (32, 30):
+            for convention in (Convention.C, Convention.CUDA):
+                board = text_grid.generate(side, side, seed=side + len(jobs))
+                job = http("POST", f"{router.url}/jobs", {
+                    "width": side, "height": side, "gen_limit": 60,
+                    "convention": convention,
+                    "cells": text_grid.encode(board).decode("ascii")})
+                jobs.append((job["id"], board, convention))
+        for job_id, board, convention in jobs:
+            wait_done(router.url, job_id)
+            got = http("GET", f"{router.url}/result/{job_id}")
+            want = oracle.run(board, GameConfig(convention=convention, gen_limit=60))
+            grid = text_grid.decode(got["grid"].encode("ascii"), got["width"],
+                                    got["height"])
+            assert np.array_equal(grid, want.grid)
+            assert got["generations"] == want.generations
+        job = http("POST", f"{router.url}/jobs", {"shard": True, **spec})
+        wait_done(router.url, job["id"])
+        got = http("GET", f"{router.url}/result/{job['id']}")
+        assert (got["rle"], got["generations"], got["exit_reason"],
+                got["ownership"]) == (want_shard["rle"], want_shard["generations"],
+                                      want_shard["exit_reason"],
+                                      want_shard["ownership"])
+    finally:
+        router.shutdown(cascade=True)

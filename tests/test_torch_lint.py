@@ -57,3 +57,12 @@ def test_the_mesh_modules_are_scanned():
     scanned = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
     for name in ("mesh", "halo", "collectives"):
         assert f"gol_tpu_torch/parallel/{name}.py" in scanned
+
+
+def test_the_fleet_chaos_and_shard_modules_are_scanned():
+    scanned = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for path in ("fleet/router.py", "fleet/workers.py", "fleet/placement.py",
+                 "fleet/autoscale.py", "chaos/plan.py", "chaos/proxy.py",
+                 "shard/coordinator.py", "shard/worker.py", "shard/halo.py",
+                 "shard/partition.py"):
+        assert f"gol_tpu_torch/{path}" in scanned

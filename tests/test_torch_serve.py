@@ -42,7 +42,7 @@ from gol_tpu_torch.serve.jobs import (
     CANCELLED, DONE, FAILED, QUEUED, JobJournal, new_job,
 )
 from gol_tpu_torch.serve.scheduler import Draining, QueueFull, Scheduler
-from gol_tpu_torch.serve.server import SHARD_REFUSAL, GolServer
+from gol_tpu_torch.serve.server import GolServer
 
 PACKAGES = {
     "jax": (jax_server.GolServer, jax_scheduler.Scheduler, jax_jobs),
@@ -423,9 +423,11 @@ class TestServer:
         srv2.scheduler.journal.close()
 
     def test_port_only_refusals(self, srv, tmp_path):
-        """``POST /shard/<leg>`` is the port's one refusal; a sparse body
-        answers as JAX's server does (here 400 with JAX's error for an RLE
-        without its header)."""
+        """The port refuses nothing JAX's server takes: a sparse body and
+        the sharded lane's ``POST /shard/<leg>`` RPCs answer as JAX's
+        server does (here 400s with JAX's errors for an RLE without its
+        header, malformed shard legs and an unknown job; 404 for an
+        unknown leg)."""
         base = srv.url
         body = {"width": 64, "height": 64, "rle": "bo$2bo$3o!"}
         status, payload = _json("POST", f"{base}/jobs", body)
@@ -434,8 +436,20 @@ class TestServer:
         with pytest.raises(ValueError) as want:
             jax_srv.submit_json(dict(body))
         assert (status, payload) == (400, {"error": str(want.value)})
-        status, payload = _json("POST", f"{base}/shard/init", {"job": "x"})
-        assert (status, payload) == (400, {"error": SHARD_REFUSAL})
+        jax_srv = jax_server.GolServer(port=0, sample_interval=0)
+        jax_srv.start()
+        try:
+            for leg, shard_body in (("init", {"job": "x"}),
+                                    ("step", {"job": "x", "step": 0}),
+                                    ("status", {"job": "x"}),
+                                    ("nope", {"job": "x"}),
+                                    ("halo", None)):
+                got, want = (_http("POST", f"{url}/shard/{leg}", shard_body,
+                                   raw=b"not a frame")
+                             for url in (base, jax_srv.url))
+                assert got == want and got[0] in (200, 400, 404), leg
+        finally:
+            jax_srv.shutdown()
         assert server._tuned_marginal_rates() == {}
         assert "weight" not in _json("GET", f"{base}/healthz")[1]
 
