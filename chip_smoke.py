@@ -68,7 +68,8 @@ error:
    4x1`` and ``--mesh 2x2`` and ``--kernel auto``, ``pallas`` and ``lax``,
    with ``--mesh 1x4`` and ``--kernel auto``, and the 64^2 flows with
    ``--packed-io`` on 4x1 and 2x2 (bytes, generation counts and printed
-   lines against the oracle). 64^2 under ``--mesh 2x2`` has one-word shards:
+   lines against the oracle), one worker process per variant, all five
+   at once. 64^2 under ``--mesh 2x2`` has one-word shards:
    there an L-tromino that becomes still and a lone cell that dies must
    launch both ghost-plane forms. ``--snapshot-every 100`` and
    ``--resume-gen 300`` run again under ``--variant tpu --mesh 2x2``, with
@@ -266,6 +267,29 @@ error:
    worker (a worker SIGKILLed in a drill reports nothing), the boot times,
    defended over baseline and degraded over defended (the JAX package
    gates 0.97 and 0.70), and 4j's own seconds.
+4k. Multi-process runs at 16384^2 on the one card: the distributed
+   variants as N ranks of ``python -m gol_tpu_torch``, launched as torchrun
+   launches them (``GOL_MULTIHOST=1``, ``RANK``, ``WORLD_SIZE``,
+   ``MASTER_ADDR``, ``MASTER_PORT``), over gloo (the bootstrap's choice
+   when ranks share a card), each rank writing ``GOL_TORCH_EXIT_STATS``
+   (its launches, Execution ms, backend, and the host time of its
+   cross-process halo phases and votes). ``--variant tpu --mesh 4x1`` in 4
+   ranks on (b) and (d) (K7, K5, K8 in every rank), ``--mesh 2x2`` in 4
+   ranks on (b) and (c) (both ghost-plane forms and K5), ``--mesh 2x2`` in
+   2 ranks of 2 shard slots each (local and remote neighbours mixed) and
+   ``--variant mpi --mesh 2x1`` in 2 ranks (the gathered lane) on (a), and
+   ``--mesh 4x1`` with ``--packed-io`` and with ``--kernel pallas`` (K6)
+   in 4 ranks on (a): every output's bytes and every rank's Generations
+   equal phase 4's single-device ``--kernel auto`` run. Then the
+   checkpoint lane in 2 ranks (``--mesh 2x1 --checkpoint-every 250``, rank
+   1 SIGKILLed at the generation-500 boundary by ``GOL_FAULTS``): its peer
+   must exit non-zero within 60 s, and ``--auto-resume`` in 2 ranks must
+   restore generation 250 and write run (a)'s bytes. Last, the NCCL probe:
+   two ranks of NCCL on the one card, whose error is printed. Per lane each
+   rank's Execution ms and cell-updates/s, backend, halo and vote host time
+   per pass and launches print; the ranks time-slice the one card, so the
+   numbers measure the multi-process host tier and its transport, not
+   scale-out over cards.
 5. Timing: each kernel over 100 warm launches captured in one CUDA graph
    and replayed (CUDA events around the replay), so that the card and not
    the host's launch rate sets ``ms``; beside it ``eager_ms`` (the same
@@ -1088,44 +1112,69 @@ def _cli_capture(args: list[str]) -> tuple[int, str]:
     return rc, buf.getvalue()
 
 
-def mesh_flows(work: Path) -> dict:
-    """The eight flows over four shards on the card, in this process: every
-    distributed variant, --mesh 4x1 and 2x2 with --kernel auto, pallas and
-    lax, --mesh 1x4 with auto, and the 64^2 flows with --packed-io on 4x1
-    and 2x2. Then the one-word shards of 64^2 under --mesh 2x2, and
-    snapshots and resume under --mesh 2x2 (subprocesses). Returns the
-    launch counts of the one-word-shard runs."""
-    out = work / "mesh.out"
-    lanes = [(mesh, ["--kernel", kernel]) for mesh in ("4x1", "2x2")
-             for kernel in ("auto", "pallas", "lax")] + [("1x4", ["--kernel", "auto"])]
-    packed_lanes = [("4x1", ["--packed-io"]), ("2x2", ["--packed-io"])]
+MESH_FLOW_LANES = [(mesh, ["--kernel", kernel]) for mesh in ("4x1", "2x2")
+                   for kernel in ("auto", "pallas", "lax")] + [("1x4", ["--kernel", "auto"])]
+PACKED_FLOW_LANES = [("4x1", ["--packed-io"]), ("2x2", ["--packed-io"])]
+
+
+def variant_mesh_flows(variant: str, work: str) -> list[str]:
+    """One variant's mesh runs on the eight flows, in this process: --mesh
+    4x1 and 2x2 with --kernel auto, pallas and lax, --mesh 1x4 with auto,
+    and at 64^2 --packed-io on 4x1 and 2x2. Returns a line per flow;
+    raises RuntimeError at the first run that differs from the oracle."""
+    work = Path(work)
+    out = work / f"mesh.{variant}.out"
+    report = []
     for name, grid in _flows().items():
         n = grid.shape[0]
         want = oracle.run(grid, GameConfig())
         want_bytes = text_grid.encode(want.grid)
-        for variant in ("tpu", "collective", "async", "openmp", "mpi"):
-            lines = ["Reading file:\tX msecs", f"Generations:\t{want.generations}",
-                     "Execution time:\tX msecs", "Writing file:\tX msecs"]
-            if variant != "openmp":
-                lines.append("Finished")
-            runs = 0
-            for mesh, flags in lanes + (packed_lanes if n == 64 else []):
-                rc, text = _cli_capture([str(n), str(n), str(work / f"{name}.txt"),
-                                         "--variant", variant, "--mesh", mesh,
-                                         *flags, "--output", str(out)])
-                label = f"{name} --variant {variant} --mesh {mesh} {' '.join(flags)}"
-                if rc != 0:
-                    fail(f"{label} exited {rc}")
-                if _MS.sub("X msecs", text).splitlines() != lines:
-                    fail(f"{label}: printed {text!r}, want {lines}")
-                if out.read_bytes() != want_bytes:
-                    fail(f"{label}: output bytes differ from the oracle")
-                runs += 1
-            print(f"{name:8s} --variant {variant:10s}: {runs} mesh runs (4x1, 2x2 x "
-                  f"auto, pallas, lax; 1x4 auto"
-                  f"{'; 4x1, 2x2 packed-io' if n == 64 else ''}): Generations "
-                  f"{want.generations}, bytes and printed lines == oracle",
-                  flush=True)
+        lines = ["Reading file:\tX msecs", f"Generations:\t{want.generations}",
+                 "Execution time:\tX msecs", "Writing file:\tX msecs"]
+        if variant != "openmp":
+            lines.append("Finished")
+        runs = 0
+        for mesh, flags in MESH_FLOW_LANES + (PACKED_FLOW_LANES if n == 64 else []):
+            rc, text = _cli_capture([str(n), str(n), str(work / f"{name}.txt"),
+                                     "--variant", variant, "--mesh", mesh,
+                                     *flags, "--output", str(out)])
+            label = f"{name} --variant {variant} --mesh {mesh} {' '.join(flags)}"
+            if rc != 0:
+                raise RuntimeError(f"{label} exited {rc}")
+            if _MS.sub("X msecs", text).splitlines() != lines:
+                raise RuntimeError(f"{label}: printed {text!r}, want {lines}")
+            if out.read_bytes() != want_bytes:
+                raise RuntimeError(f"{label}: output bytes differ from the oracle")
+            runs += 1
+        report.append(f"{name:8s} --variant {variant:10s}: {runs} mesh runs (4x1, 2x2 "
+                      f"x auto, pallas, lax; 1x4 auto"
+                      f"{'; 4x1, 2x2 packed-io' if n == 64 else ''}): Generations "
+                      f"{want.generations}, bytes and printed lines == oracle")
+    return report
+
+
+def mesh_flows(work: Path) -> dict:
+    """The eight flows over four shards on the card: every distributed
+    variant through ``variant_mesh_flows``, one worker process each, the
+    five at once (each drives the card from its own process, as phase 3's
+    subprocesses do). Then, in this process, the one-word shards of 64^2
+    under --mesh 2x2, and snapshots and resume under --mesh 2x2
+    (subprocesses). Returns the launch counts of the one-word-shard
+    runs."""
+    import multiprocessing
+
+    out = work / "mesh.out"
+    variants = ("tpu", "collective", "async", "openmp", "mpi")
+    with concurrent.futures.ProcessPoolExecutor(
+            len(variants), mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {v: pool.submit(variant_mesh_flows, v, str(work)) for v in variants}
+        for variant, future in futures.items():
+            try:
+                report = future.result()
+            except RuntimeError as err:
+                fail(f"--variant {variant} over a mesh: {err}")
+            for line in report:
+                print(line, flush=True)
 
     # 64^2 under --mesh 2x2: 32x32 shards, one word wide. The pass summary of
     # a grid that becomes still or dies inside a pass must replay the exact
@@ -3544,6 +3593,261 @@ def fleet_lanes(work: Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 4k. Multi-process runs on the one card
+
+# name: (ranks, shard slots per rank, flags, runs, kernels every rank must
+# launch). The runs are phase 4's inputs, each held to phase 4's single-device
+# --kernel auto bytes and Generations (the tpu and mpi variants take the C
+# convention, as game does).
+MP_LANES = {
+    "tpu 4x1 auto, 4 ranks": (
+        4, 1, ["--variant", "tpu", "--mesh", "4x1"],
+        [("b", "random", 1003), ("d", "diagonal_corner", 1000)],
+        ("bandtrow_fast", "bandtrow", "dist_band")),
+    "tpu 2x2 auto, 4 ranks": (
+        4, 1, ["--variant", "tpu", "--mesh", "2x2"],
+        [("b", "random", 1003), ("c", "tromino_corner", 1000)],
+        ("bandtg_fast", "bandtg", "dist_band")),
+    "tpu 2x2 auto, 2 ranks x 2 slots": (
+        2, 2, ["--variant", "tpu", "--mesh", "2x2"], [("a", "random", 1000)],
+        ("bandtg_fast",)),
+    "mpi 2x1, 2 ranks": (
+        2, 1, ["--variant", "mpi", "--mesh", "2x1"], [("a", "random", 1000)],
+        ("bandtrow_fast",)),
+    "tpu 4x1 packed-io, 4 ranks": (
+        4, 1, ["--variant", "tpu", "--mesh", "4x1", "--packed-io"],
+        [("a", "random", 1000)], ("bandtrow_fast",)),
+    "tpu 4x1 pallas, 4 ranks": (
+        4, 1, ["--variant", "tpu", "--mesh", "4x1", "--kernel", "pallas"],
+        [("a", "random", 1000)], ("dist_byte_band",)),
+}
+MP_CKPT_EVERY, MP_KILL_AT, MP_LOST_BOUND_S = 250, 500, 60
+# Two ranks of NCCL on the one card: NCCL takes one card per rank, so this
+# is expected to fail; its error text is printed.
+NCCL_PROBE = r"""
+import datetime, sys, torch, torch.distributed as dist
+rank = int(sys.argv[1])
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method="tcp://127.0.0.1:" + sys.argv[2],
+                        rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=40))
+x = torch.ones(4, device="cuda:0")
+try:
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    print("all_reduce ok", x.tolist())
+except Exception as e:  # the probe reports what NCCL said
+    print("NCCL error:", type(e).__name__, " ".join(str(e).split())[:400])
+    sys.exit(3)
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_run(argv: list, ranks: int, slots: int, run_dir: Path, per_rank=None,
+              timeout: float = 300) -> list:
+    """``python -m gol_tpu_torch argv`` in ``ranks`` processes launched as
+    torchrun launches them (``GOL_MULTIHOST=1`` and env:// variables), each
+    with ``slots`` shard slots on the card and ``GOL_TORCH_EXIT_STATS``.
+    Per rank ``{"rc", "stdout", "stderr", "exit_s", "stats"}``; every rank
+    is killed at the timeout, so none outlives the phase."""
+    run_dir.mkdir(parents=True, exist_ok=True)
+    stats = run_dir / "stats"
+    port, base = _free_port(), _subprocess_env()
+    base.pop("GOL_FAULTS", None)
+    procs, t0 = [], time.monotonic()
+    for r in range(ranks):
+        env = {**base, "GOL_MULTIHOST": "1", "RANK": str(r), "WORLD_SIZE": str(ranks),
+               "LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": str(ranks),
+               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+               platform_env.MESH_DEVICES_ENV: str(slots),
+               cli.EXIT_STATS_ENV: str(stats), **(per_rank or {}).get(r, {})}
+        with open(run_dir / f"out{r}", "w") as out, open(run_dir / f"err{r}", "w") as err:
+            procs.append(subprocess.Popen([sys.executable, "-m", "gol_tpu_torch", *argv],
+                                          cwd=run_dir, env=env, stdout=out, stderr=err))
+    exits = {}
+    try:
+        while len(exits) < ranks and time.monotonic() - t0 < timeout:
+            for r, p in enumerate(procs):
+                if r not in exits and p.poll() is not None:
+                    exits[r] = time.monotonic() - t0
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    reports = {}
+    for f in stats.glob("run-*.json") if stats.exists() else ():
+        doc = json.loads(f.read_text())
+        reports[doc["rank"]] = doc
+    return [{"rc": p.returncode if r in exits else None,
+             "stdout": (run_dir / f"out{r}").read_text(),
+             "stderr": (run_dir / f"err{r}").read_text(),
+             "exit_s": exits.get(r), "stats": reports.get(r)}
+            for r, p in enumerate(procs)]
+
+
+def _nccl_probe(work: Path) -> str:
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, "-c", NCCL_PROBE, str(r), str(port)],
+                              cwd=work, env=_subprocess_env(), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=90)[0])
+    except subprocess.TimeoutExpired:
+        outs.append("timed out after 90 s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    lines = [ln for out in outs for ln in out.splitlines()
+             if "NCCL error" in ln or "all_reduce ok" in ln or "timed out" in ln]
+    text = " | ".join(lines) or "no line from the probe: " + " ".join(
+        " ".join(outs).split())[-400:]
+    print(f"NCCL probe, 2 ranks on the one card: rcs "
+          f"{[p.returncode for p in procs]}: {text}", flush=True)
+    return text
+
+
+def _lane_report(tag: str, key: str, results: list, slots: int) -> dict:
+    """Per rank: Execution ms, cell-updates/s, the backend, the halo and
+    vote host time per pass (an 8-generation pass, or a generation where
+    the lane has none: ``--kernel pallas``), and the launches."""
+    ranks = []
+    for r, res in enumerate(results):
+        st = res["stats"]
+        launches = st["launches"]
+        passes = sum(launches.get(k, 0) for k in
+                     ("bandtrow_fast", "bandtrow", "bandtg_fast", "bandtg")) \
+            or launches.get("dist_byte_band", 0) or launches.get("dist_band", 0)
+        ranks.append({
+            "rank": r, "exec_ms": st["exec_ms"], "generations": st["generations"],
+            "cell_updates_per_s": SIZE * SIZE * st["generations"]
+            / max(st["exec_ms"] / 1000, 1e-9),
+            "backend": st["backend"],
+            "halo_phases": st["halo"]["phases"], "halo_ms": st["halo"]["seconds"] * 1e3,
+            "votes": st["votes"]["votes"], "vote_ms": st["votes"]["seconds"] * 1e3,
+            "kernel_launches": {k: n for k, n in launches.items() if n},
+            "passes": max(1, passes // slots),
+        })
+    for x in ranks:
+        x["halo_ms_per_pass"] = x["halo_ms"] / x["passes"]
+        x["vote_ms_per_pass"] = x["vote_ms"] / x["passes"]
+        print(f"  ({tag}) {key}: rank {x['rank']} over {x['backend']}: Execution "
+              f"{x['exec_ms']:.3f} ms, {x['cell_updates_per_s']:.4e} cell-updates/s; "
+              f"halo {x['halo_phases']} phases {x['halo_ms']:.3f} ms, votes "
+              f"{x['votes']} {x['vote_ms']:.3f} ms; per pass "
+              f"halo {x['halo_ms_per_pass']:.4f} ms, votes "
+              f"{x['vote_ms_per_pass']:.4f} ms; launches {x['kernel_launches']}",
+              flush=True)
+    return {"ranks": ranks}
+
+
+def multiprocess_lanes(work: Path, path: dict) -> dict:
+    """Phase 4k: the distributed variants as N ranks of ``python -m
+    gol_tpu_torch`` on the one card (over gloo: NCCL takes a card per
+    rank), each lane's bytes and Generations against phase 4's single-device
+    run, each rank's launches from its exit stats; then the checkpoint lane
+    in 2 ranks with one rank SIGKILLed and ``--auto-resume``; and the NCCL
+    probe."""
+    t_phase = time.perf_counter()
+    inputs, results = path["inputs"], path["results"]
+    root = work / "mp"
+    print("The ranks time-slice the one card: these numbers measure the "
+          "multi-process host tier and its transport, not scale-out over "
+          "cards.", flush=True)
+    by_path, lanes = {}, {}
+    for lane, (ranks, slots, flags, runs, needed) in MP_LANES.items():
+        summed: dict = {}
+        per_rank = [dict() for _ in range(ranks)]
+        lanes[lane] = {}
+        for tag, key, limit in runs:
+            run_dir = root / f"{lane.replace(' ', '_').replace(',', '')}_{tag}_{key}"
+            out = run_dir / "out.txt"
+            t0 = time.perf_counter()
+            res = _rank_run([str(SIZE), str(SIZE), str(inputs[key]), *flags,
+                             "--gen-limit", str(limit), "--output", str(out)],
+                            ranks, slots, run_dir)
+            wall = time.perf_counter() - t0
+            for r, x in enumerate(res):
+                if x["rc"] != 0 or x["stats"] is None:
+                    fail(f"4k {lane} ({tag}) {key}: rank {r} exited {x['rc']}:\n"
+                         f"{x['stderr'][-3000:]}")
+                gens = int(re.search(r"Generations:\t(\d+)", x["stdout"]).group(1))
+                if gens != results[("game", key, limit)][0]:
+                    fail(f"4k {lane} ({tag}) {key}: rank {r} printed Generations "
+                         f"{gens}, phase 4: {results[('game', key, limit)][0]}")
+                for k, n in x["stats"]["launches"].items():
+                    summed[k] = summed.get(k, 0) + n
+                    per_rank[r][k] = per_rank[r].get(k, 0) + n
+            if (gens, _digest(out)) != results[("game", key, limit)]:
+                fail(f"4k {lane} ({tag}) {key}: bytes differ from phase 4's "
+                     "single-device --kernel auto run")
+            print(f"({tag}) {key:15s} limit {limit}: {lane}: Generations {gens}, "
+                  f"bytes == phase 4, {wall:.1f} s from launch to the last exit",
+                  flush=True)
+            lanes[lane][f"({tag}) {key}"] = {**_lane_report(tag, key, res, slots),
+                                            "wall_s": wall}
+        for r, counts in enumerate(per_rank):
+            for k in needed:
+                if not counts.get(k):
+                    fail(f"4k {lane}: rank {r} launched no {k} in the lane's runs")
+        by_path[f"multi-process {lane}"] = {k: summed.get(k, 0) for k in _counts()}
+        print(f"multi-process {lane}: launches over its ranks {_nonzero(summed)}",
+              flush=True)
+
+    # The checkpoint lane in 2 ranks: rank 1 SIGKILLed at the generation-500
+    # boundary; its peer must exit non-zero within the bound; --auto-resume
+    # from generation 250 must write run (a)'s bytes.
+    ck = root / "ckpt"
+    argv = [str(SIZE), str(SIZE), str(inputs["random"]), "--variant", "tpu",
+            "--mesh", "2x1", "--checkpoint-every", str(MP_CKPT_EVERY),
+            "--checkpoint-dir", str(ck / "dir"), "--output", str(ck / "out.txt")]
+    killed = _rank_run(argv, 2, 1, ck / "killed", per_rank={
+        1: {"GOL_FAULTS": f"kill_at_gen={MP_KILL_AT},kill_mode=sigkill"}})
+    if killed[1]["rc"] != -signal.SIGKILL:
+        fail(f"4k drill: rank 1 exited {killed[1]['rc']}, not by its SIGKILL")
+    lost_s = (killed[0]["exit_s"] or 1e9) - killed[1]["exit_s"]
+    if killed[0]["rc"] in (0, None) or lost_s > MP_LOST_BOUND_S:
+        fail(f"4k drill: the peer of the killed rank exited {killed[0]['rc']} "
+             f"{lost_s:.1f} s after it (bound {MP_LOST_BOUND_S} s)")
+    print(f"checkpoint drill: rank 1 SIGKILLed at generation {MP_KILL_AT}; rank 0 "
+          f"exited {killed[0]['rc']} {lost_s:.2f} s later; manifests "
+          f"{_manifests(ck / 'dir')}", flush=True)
+    resumed = _rank_run(argv + ["--auto-resume"], 2, 1, ck / "resumed")
+    for r, x in enumerate(resumed):
+        if x["rc"] != 0 or f"restored checkpoint at generation {MP_CKPT_EVERY}" \
+                not in x["stderr"]:
+            fail(f"4k drill: resumed rank {r} exited {x['rc']} or restored no "
+                 f"generation {MP_CKPT_EVERY}:\n{x['stderr'][-3000:]}")
+    want = results[("game", "random", 1000)]
+    gens = int(re.search(r"Generations:\t(\d+)", resumed[0]["stdout"]).group(1))
+    if (gens, _digest(ck / "out.txt")) != want:
+        fail("4k drill: the resumed run's Generations or bytes differ from "
+             "phase 4's run (a)")
+    drill = {"peer_rc": killed[0]["rc"], "peer_exit_after_kill_s": lost_s,
+             "resumed_exec_ms": [x["stats"]["exec_ms"] for x in resumed]}
+    print(f"checkpoint drill: --auto-resume in 2 ranks from generation "
+          f"{MP_CKPT_EVERY}: Generations {gens}, bytes == phase 4 run (a); "
+          f"Execution ms per rank {drill['resumed_exec_ms']}", flush=True)
+    nccl = _nccl_probe(work)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 4k took {seconds:.1f} s", flush=True)
+    return {"launches": by_path, "lanes": lanes, "drill": drill, "nccl": nccl,
+            "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
 # 5. Timing at 16384^2
 
 
@@ -3875,6 +4179,8 @@ def main() -> int:
         lanes = sparse_macro_lanes(work, dev)
         phase("4j. the fleet, its router and chaos, and the shard lane")
         fleet = fleet_lanes(work)
+        phase(f"4k. multi-process runs at {SIZE}x{SIZE} on the one card")
+        multi = multiprocess_lanes(work, path)
         phase("5. timing")
         times = timing(dev)
         phase("6. the flag-cost roofline")
@@ -3909,10 +4215,12 @@ def main() -> int:
                                                    if k != "launches"}))
     print("fleet lanes: " + json.dumps({k: v for k, v in fleet.items()
                                         if k != "launches"}))
+    print("multi-process lanes: " + json.dumps({k: v for k, v in multi.items()
+                                                if k != "launches"}))
     launches = {**path["launches"], **mesh["launches"], **ckpt["launches"],
                 **obs["launches"], **batch["launches"], **server["launches"],
                 **ring["launches"], **tuner["launches"], **lanes["launches"],
-                **fleet["launches"],
+                **fleet["launches"], **multi["launches"],
                 "tpu 2x2 auto 64x64 (one-word shards)": one_word,
                 "roofline": roof_counts}
     table = []

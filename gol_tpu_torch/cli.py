@@ -14,7 +14,12 @@ The port of ``gol_tpu/cli.py``'s ``run``:
   of shards: ``--mesh RxC``, or by default the row-heaviest factorization
   of ``platform_env.mesh_devices()`` that divides the grid (one shard, the
   single-device form, where that is one device). ``GOL_TORCH_MESH_DEVICES``
-  sets how many shards the devices hold;
+  sets how many shards the devices hold. With ``GOL_MULTIHOST=1`` and
+  torch's env:// variables (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+  ``MASTER_PORT``; ``torchrun`` sets them) a distributed variant runs as
+  one rank of a multi-process run (``parallel/bootstrap.py``): the mesh
+  spans every rank's slots, each rank reads and writes its own windows,
+  and every rank prints the lines;
 - lanes: the device run (``--kernel``), ``--packed-io`` (word state straight
   from and to the file), ``--host`` (the numpy oracle), ``--snapshot-every``
   and ``--resume-gen`` (segmented runs), and the crash-safe checkpoint lane
@@ -85,6 +90,7 @@ from gol_tpu_torch.obs import profiler
 from gol_tpu_torch.obs import trace as obs_trace
 from gol_tpu_torch.obs.profiler import fence
 from gol_tpu_torch.ops import _build
+from gol_tpu_torch.parallel import bootstrap
 from gol_tpu_torch.parallel.mesh import make_mesh, topology_for, validate_grid
 from gol_tpu_torch.platform_env import (NoDeviceError, configure_cli_logging,
                                         resolve_device)
@@ -114,7 +120,7 @@ def _warn_if_huge_byte_lane(width: int, height: int, mesh=None) -> None:
     and conditions are the JAX CLI's, a shard standing for its device."""
     shards = cols = 1
     if mesh is not None:
-        shards = len(mesh.devices)
+        shards = mesh.shape[0] * mesh.shape[1]
         cols = mesh.shape[1]
     per_shard = width * height // shards
     if per_shard >= (2 << 30) and width % (32 * cols) == 0:
@@ -333,6 +339,12 @@ def _run(args) -> int:
                              "(the oracle has no segmented loop)")
         return _run_host(args, variant, config, width, height, output_path)
 
+    if variant.distributed:
+        # MPI_Init analog: joins the multi-process run when GOL_MULTIHOST is
+        # set, a no-op otherwise (parallel/bootstrap.py). Serial variants,
+        # --host and the subcommands never form one, like the reference's
+        # non-MPI programs. Every rank prints the lines below.
+        bootstrap.initialize()
     mesh = _parse_mesh_arg(args.mesh, variant.distributed, width, height)
     if mesh is not None and not topology_for(mesh).distributed:
         mesh = None  # a 1x1 mesh is the single-device engine
@@ -416,7 +428,34 @@ def _report_and_write(variant: Variant, generations, exec_ms, write_fn) -> int:
         print(f"Writing file:\t{write_ms:.2f} msecs")
     if variant.final_finished:
         print("Finished")
+    stats_dir = os.environ.get(EXIT_STATS_ENV)
+    if stats_dir:
+        _write_run_stats(stats_dir, generations, exec_ms)
     return 0
+
+
+def _write_run_stats(directory: str, generations: int, exec_ms: float) -> None:
+    """``$GOL_TORCH_EXIT_STATS``: a finished ``run`` leaves
+    ``DIR/run-<rank>-<pid>.json`` — its kernel wrappers' launch counts, its
+    Generations and Execution ms, and in a multi-process run the backend
+    and the host time of the cross-process halo phases and votes. How a
+    smoke run reads the ranks it launched."""
+    from gol_tpu_torch.ops import stencil_packed, stencil_pallas
+    from gol_tpu_torch.parallel import collectives, halo
+
+    world = bootstrap.world()
+    doc = {
+        "pid": os.getpid(), "rank": bootstrap.process_index(),
+        "processes": bootstrap.process_count(),
+        "backend": None if world is None else world.backend,
+        "generations": generations, "exec_ms": exec_ms,
+        "launches": {**stencil_packed.LAUNCHES, **stencil_pallas.LAUNCHES},
+        "halo": dict(halo.STATS), "votes": dict(collectives.STATS),
+    }
+    os.makedirs(directory, exist_ok=True)
+    name = f"run-{bootstrap.process_index()}-{os.getpid()}.json"
+    with open(os.path.join(directory, name), "w", encoding="utf-8") as f:
+        json.dump(doc, f)
 
 
 def _run_packed_io(args, variant, config, width, height, output_path, devices,
@@ -589,6 +628,7 @@ def _prepare_checkpointed(args, variant, config, state, height, width, device,
 
     _refuse_zarr_checkpoints(args.checkpoint_dir)
     mesh_shape = mesh.shape if mesh is not None else (1, 1)
+    local = mesh.local if mesh is not None and mesh.owners is not None else None
     guard = None
     if args.disk_reserve:
         # The shed-checkpoints tier of the disk-pressure watchdog, ticked at
@@ -607,8 +647,9 @@ def _prepare_checkpointed(args, variant, config, state, height, width, device,
         # checkpoint dir holding another input's checkpoints must never hand
         # that run's state to this one.
         run_fingerprint=run_fingerprint(state, tag=config.convention,
-                                        mesh_shape=mesh_shape),
+                                        mesh_shape=mesh_shape, local=local),
         mesh_shape=mesh_shape,
+        local=local,
     )
     completed = args.resume_gen
     if args.auto_resume:
@@ -1428,8 +1469,8 @@ def _fleet(args) -> int:
     Spawns ``--workers`` local ``gol serve`` subprocesses (each on its own
     journal partition under ``--fleet-dir``) and/or attaches externally
     managed workers by ``--attach URL`` (the multi-host lane: boot workers
-    wherever ``parallel/bootstrap.py`` put the devices, hand the router
-    their URLs), then serves the single-server HTTP job API unchanged
+    on the hosts whose cards ``gol_tpu_torch/parallel/bootstrap.py`` places
+    ranks on, hand the router their URLs), then serves the single-server HTTP job API unchanged
     behind bucket-consistent routing (``fleet/``).
 
     Restart story: started on a ``--fleet-dir`` holding a manifest, the
@@ -3062,8 +3103,9 @@ def build_parser() -> argparse.ArgumentParser:
         "--auto-resume",
         action="store_true",
         help="restart from the newest valid checkpoint manifest in "
-        "--checkpoint-dir — no --resume-gen arithmetic; resumed runs are "
-        "bit-exact with uninterrupted ones",
+        "--checkpoint-dir (every rank must be able to read it on "
+        "multi-process runs, parallel/bootstrap.py) — no --resume-gen "
+        "arithmetic; resumed runs are bit-exact with uninterrupted ones",
     )
     run.add_argument(
         "--disk-reserve",
@@ -3359,8 +3401,9 @@ def build_parser() -> argparse.ArgumentParser:
     flt.add_argument(
         "--attach", action="append", default=[], metavar="URL",
         help="adopt an externally managed `gol serve` by URL (repeatable; "
-        "the multi-host lane — boot workers where parallel/bootstrap.py "
-        "put the devices, hand the router their URLs). Attached workers "
+        "the multi-host lane — boot workers on the hosts whose cards "
+        "gol_tpu_torch/parallel/bootstrap.py places ranks on, hand the "
+        "router their URLs). Attached workers "
         "are health-checked and routed around, never respawned",
     )
     flt.add_argument(

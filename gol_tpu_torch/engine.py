@@ -46,6 +46,13 @@ border cannot make one shard's summary lie; a replay and the CUDA
 convention's empty-exit replay (K5) run on every shard from its kept start
 state. Every runner takes the mesh: with one, its state is the row-major
 list of shards, uint8 cells or, for the packed-state runners, int32 words.
+In a multi-process run (``parallel/bootstrap.py``) the list is the
+process's own shards, the exchanges reach the other ranks' shards, and
+every vote (a block's flags, a replay's, the byte loop's alive and
+similarity checks) is reduced across the ranks at the same point of the
+loop: every rank replays the same exits from the same voted flags, leaves
+the loop at the same block and issues the same collectives in the same
+order.
 
 The batched engine (``make_batch_runner``, ``simulate_batch``; the
 serving batcher's compute entry) runs B independent boards in one canvas
@@ -133,11 +140,12 @@ class BatchBoardResult:
 
 class _Flags:
     """An int32 flag buffer per device the shards live on. Each shard ORs
-    into its device's buffer; ``read`` votes (ORs) the buffers and reads
-    them back with one sync."""
+    into its device's buffer; ``read`` votes (ORs) the buffers, and across
+    the ranks of a multi-process run, and reads them back with one sync."""
 
-    def __init__(self, n: int, state):
+    def __init__(self, n: int, state, topology: Topology):
         self.devices = [s.device for s in state]
+        self.topology = topology
         self.bufs = {d: torch.zeros(n, dtype=torch.int32, device=d)
                      for d in self.devices}
 
@@ -150,7 +158,7 @@ class _Flags:
         return [self.bufs[d][lo:hi] for d in self.devices]
 
     def read(self) -> list:
-        return collectives.any_flag(list(self.bufs.values())).tolist()
+        return collectives.any_flag(list(self.bufs.values()), self.topology).tolist()
 
 
 def _empty_like(state) -> list:
@@ -161,13 +169,14 @@ class _Buffers:
     """Three scratch buffers for the carried state and the block's flags.
     The caller's state is never one of them."""
 
-    def __init__(self, state, kernel: Kernel, block: int):
+    def __init__(self, state, kernel: Kernel, block: int, topology: Topology):
         self.pool = [_empty_like(state) for _ in range(3)]
         if kernel.fused_multi is not None:
             self.tail_base = stencil_packed.SUMMARY_FLAGS * (block // kernel.multi_gens)
         else:
             self.tail_base = 0
-        self.flags = _Flags(self.tail_base + stencil_packed.STEP_FLAGS * block, state)
+        self.flags = _Flags(self.tail_base + stencil_packed.STEP_FLAGS * block,
+                            state, topology)
 
     def scratch(self, start, cur):
         """A buffer holding neither the block's start state nor ``cur``."""
@@ -177,7 +186,7 @@ class _Buffers:
 def _generation(cur, kernel: Kernel, topology: Topology):
     """One generation through the kernel's fused form, into a fresh buffer."""
     out = _empty_like(cur)
-    flags = _Flags(stencil_packed.STEP_FLAGS, cur)
+    flags = _Flags(stencil_packed.STEP_FLAGS, cur, topology)
     kernel.fused(cur, out, flags.slots(0, stencil_packed.STEP_FLAGS), topology)
     return out
 
@@ -192,7 +201,7 @@ def _exact_passes(start, kernel: Kernel, topology: Topology):
         while len(done) <= j:
             src = done[-1][0] if done else start
             out = _empty_like(src)
-            flags = _Flags(2 * T, src)
+            flags = _Flags(2 * T, src, topology)
             kernel.exact_multi(src, out, flags.slots(0, 2 * T), topology)
             f = flags.read()
             done.append((out, f[:T], [1 - d for d in f[T:]]))
@@ -201,14 +210,15 @@ def _exact_passes(start, kernel: Kernel, topology: Topology):
     return get
 
 
-def _any_alive(state) -> bool:
-    """The alive vote: any shard holds a live cell."""
-    return bool(collectives.any_flag([s.any() for s in state]))
+def _any_alive(state, topology: Topology) -> bool:
+    """The alive vote: any shard (of any rank) holds a live cell."""
+    return bool(collectives.any_flag([s.any() for s in state], topology))
 
 
-def _all_equal(cur, new) -> bool:
-    """The similarity vote: no shard differs."""
-    return bool(collectives.all_agree([(a != b).any() for a, b in zip(cur, new)]))
+def _all_equal(cur, new, topology: Topology) -> bool:
+    """The similarity vote: no shard (of any rank) differs."""
+    return bool(collectives.all_agree([(a != b).any() for a, b in zip(cur, new)],
+                                      topology))
 
 
 def _block_generations(start, t, config: GameConfig, kernel: Kernel,
@@ -272,9 +282,9 @@ def _simulate_c_block(state, config, kernel, topology, gen0, counter0, bound,
     crosses ``bound`` — the generation limit is no fixed point. Returns
     ``(final, gen, counter, alive, similar)``."""
     freq = config.similarity_frequency
-    bufs = _Buffers(state, kernel, block)
+    bufs = _Buffers(state, kernel, block, topology)
     gen, counter = gen0, counter0
-    alive, similar = _any_alive(state), False
+    alive, similar = _any_alive(state, topology), False
     cur = state
     while alive and not similar and gen <= bound:
         t = min(block, bound - gen + 1)
@@ -312,14 +322,14 @@ def _simulate_c(state, config: GameConfig, kernel: Kernel, topology: Topology,
         return final, gen, counter, not alive or similar or gen > limit
     freq, gen, counter = config.similarity_frequency, gen0, counter0
     cur = state
-    alive, similar = _any_alive(cur), False
+    alive, similar = _any_alive(cur, topology), False
     while alive and not similar and gen <= bound:
         new = kernel.step(cur, topology)
         if config.check_similarity:
             fire = (counter + 1) == freq
-            similar = fire and _all_equal(cur, new)
+            similar = fire and _all_equal(cur, new, topology)
             counter = 0 if fire else counter + 1
-        alive = _any_alive(new)
+        alive = _any_alive(new, topology)
         if not similar:
             gen += 1
         cur = new
@@ -336,7 +346,7 @@ def _simulate_cuda_block(state, config, kernel, topology, gen0, counter0, bound,
     state, which the buffer pool keeps intact (on every shard). Returns
     ``(final, gen, counter, stopped)``."""
     freq = config.similarity_frequency
-    bufs = _Buffers(state, kernel, block)
+    bufs = _Buffers(state, kernel, block, topology)
     gen, counter = gen0, counter0
     start = cur = state
     stopped, exit_i, exit_empty = False, 0, False
@@ -387,9 +397,9 @@ def _simulate_cuda(state, config: GameConfig, kernel: Kernel,
         similar = False
         if config.check_similarity:
             fire = (counter + 1) == freq
-            similar = fire and _all_equal(cur, new)
+            similar = fire and _all_equal(cur, new, topology)
             counter = 0 if fire else counter + 1
-        if similar or not _any_alive(new):
+        if similar or not _any_alive(new, topology):
             stop = True
             break  # the break precedes the swap (src/game_cuda.cu:250,266)
         cur = new
@@ -687,6 +697,11 @@ def simulate(grid, config: GameConfig = DEFAULT_CONFIG, kernel: str = "auto",
     reg.inc("engine_runs_total")
     reg.inc("engine_generations_total", generations)
     if mesh is not None:
+        if mesh.owners is not None:
+            raise ValueError(
+                "simulate fetches the whole grid to one host, which a "
+                "multi-process mesh never holds; write it with io/sharded "
+                "instead")
         final = gather(final, mesh.shape)
     return EngineResult(final.cpu().numpy(), generations)
 

@@ -10,6 +10,14 @@ mesh the row-major list of its (local_h, local_w/32) shards, each packed
 from and unpacked into its own window of the file. Same file-layout
 contract as the sharded reader: ``height x (width+1)`` bytes, the newline
 column written by the east-edge shards.
+
+In a multi-process run (``parallel/bootstrap.py``) each process packs and
+unpacks only its own shards' windows, and the write goes to the output
+file in place (JAX: ``atomic = process_count() == 1``): every rank owns
+disjoint windows of one file, so a per-rank staging file and rename would
+commit a partial grid. The lead sizes the file before any rank writes
+(``io.sharded.size_shared``), and a vote closes the write. The
+durability of a multi-process run is the manifested checkpoint lane's.
 """
 
 from __future__ import annotations
@@ -23,7 +31,8 @@ import torch
 
 from gol_tpu_torch import native, platform_env
 from gol_tpu_torch.io.text_grid import create_sized, row_stride
-from gol_tpu_torch.parallel.mesh import Mesh, windows
+from gol_tpu_torch.io import sharded
+from gol_tpu_torch.parallel.mesh import Mesh, local_windows, windows
 from gol_tpu_torch.resilience import STAGING_SUFFIX
 
 BITS = 32
@@ -53,7 +62,7 @@ def _chunk_rows(height: int, cap_rows: int) -> int:
 def read_packed(path: str, width: int, height: int, device=None,
                 mesh: Mesh | None = None):
     """Text grid file -> packed int32 (height, width/32) tensor on ``device``,
-    or with a ``mesh`` the list of its word shards on the mesh's devices.
+    or with a ``mesh`` this process's list of word shards on their devices.
 
     Row chunks pack on a thread pool (the codec releases the GIL) into one
     host array, which goes to the device in one copy; on a mesh every shard
@@ -76,7 +85,7 @@ def read_packed(path: str, width: int, height: int, device=None,
 
         with concurrent.futures.ThreadPoolExecutor() as pool:
             return list(pool.map(load_window, zip(
-                windows(height, width // BITS, mesh.shape), mesh.devices)))
+                local_windows(height, width // BITS, mesh), mesh.devices)))
     dev = platform_env.resolve_device(device)
     out = np.empty((height, width // BITS), dtype=np.uint32)
     chunk = _chunk_rows(height, _READ_CHUNK_BYTES // row_stride(width))
@@ -91,29 +100,46 @@ def read_packed(path: str, width: int, height: int, device=None,
 
 
 def write_packed(path: str, words, width: int, mesh: Mesh | None = None) -> None:
-    """Packed word tensor (with a ``mesh``: the list of its shards) -> text
-    grid file, with no gather and no cell grid in between.
+    """Packed word tensor (with a ``mesh``: this process's list of shards)
+    -> text grid file, with no gather and no cell grid in between.
 
-    Crash-consistent: the bytes land in a ``<path>.inprogress`` sibling
-    that atomically replaces ``path`` only once complete, so overwriting a
-    prior snapshot can never leave a torn file as the only copy. Each shard
+    Crash-consistent on one process: the bytes land in a
+    ``<path>.inprogress`` sibling that atomically replaces ``path`` only
+    once complete, so overwriting a prior snapshot can never leave a torn
+    file as the only copy. Across processes the windows go to ``path`` in
+    place (see the module docstring). Each shard
     writes its own window of the file, the newline column with the
     east-edge shards; its row chunks come to the host one at a time and
     unpack on a thread pool while the next chunk is fetched."""
     shards, shape = ([words], (1, 1)) if mesh is None else (list(words), mesh.shape)
     height, nwords = shards[0].shape[0] * shape[0], shards[0].shape[1] * shape[1]
-    if len(shards) != shape[0] * shape[1]:
-        raise ValueError(f"a {shape[0]}x{shape[1]} mesh has {shape[0] * shape[1]} "
-                         f"shards, got {len(shards)}")
+    wins = windows(height, nwords, shape) if mesh is None else \
+        local_windows(height, nwords, mesh)
+    if len(shards) != len(wins):
+        raise ValueError(f"this process holds {len(wins)} shards of the "
+                         f"{shape[0]}x{shape[1]} mesh, got {len(shards)}")
     if nwords * BITS != width:
         raise ValueError(f"width {width} != {nwords} words x {BITS}")
     native.load()
-    dest = path + STAGING_SUFFIX
+    shared = mesh is not None and mesh.owners is not None
+    dest = path if shared else path + STAGING_SUFFIX
+    if shared:
+        sharded.size_shared(dest, height * row_stride(width), mesh)
+        sharded.voted(lambda: _unpack_into(dest, shards, wins, height, width),
+                      f"writing {path}")
+        return
     create_sized(dest, height * row_stride(width))
+    _unpack_into(dest, shards, wins, height, width)
+    os.replace(dest, path)
+
+
+def _unpack_into(dest: str, shards, wins, height: int, width: int) -> None:
+    """Unpack every shard into its window of the sized file ``dest``."""
+    nwords = width // BITS
     mm = np.memmap(dest, dtype=np.uint8, mode="r+", shape=(height, row_stride(width)))
     with concurrent.futures.ThreadPoolExecutor(max_workers=_WORKERS) as pool:
         jobs = collections.deque()
-        for shard, (rows, wcols) in zip(shards, windows(height, nwords, shape)):
+        for shard, (rows, wcols) in zip(shards, wins):
             local_h, local_n = shard.shape
             east_edge = wcols.stop == nwords
             window = mm[rows, wcols.start * BITS:
@@ -130,4 +156,3 @@ def write_packed(path: str, words, width: int, mesh: Mesh | None = None) -> None
             job.result()
     mm.flush()
     del mm
-    os.replace(dest, path)

@@ -73,7 +73,7 @@ def lax_evolve(shards, topology: Topology):
     exchange and the padded stencil per shard on a mesh."""
     if not topology.distributed:
         return [stencil_lax.evolve_torus(shards[0])]
-    return [stencil_lax.evolve_padded(p) for p in halo.exchange(shards, topology.shape)]
+    return [stencil_lax.evolve_padded(p) for p in halo.exchange(shards, topology)]
 
 
 _KERNELS = {

@@ -513,29 +513,30 @@ def _step_tg_into(words, gtop, gbot, gwest, geast, out, flags) -> None:
 # Over a (sharded) state: the engine's forms.
 
 
-def exchange_packed(shards, shape):
+def exchange_packed(shards, layout):
     """Two-phase packed halo: per shard ``(top, bot, gwest, geast)``, the
     (1, nwords) ghost word rows, then the (h+2,) carry words over rows
-    -1..h with the neighbour's bit at bit 31 (west) and bit 0 (east)."""
+    -1..h with the neighbour's bit at bit 31 (west) and bit 0 (east).
+    ``layout``: the mesh's (R, C) or its ``Topology`` (``parallel/halo``)."""
     return [(top, bot, gw & _BIT31, ge & 1)
-            for top, bot, gw, ge in halo.exchange_parts(shards, shape)]
+            for top, bot, gw, ge in halo.exchange_parts(shards, layout)]
 
 
-def exchange_packed_deep(shards, shape):
+def exchange_packed_deep(shards, layout):
     """The deep halo of an R x 1 mesh: per shard its TEMPORAL_GENS-row
     ghost blocks ``(gtop, gbot)``. Full-width shards wrap east/west within
     themselves, so no column phase exists."""
-    return halo.ghost_slices(shards, shape, depth=TEMPORAL_GENS)
+    return halo.ghost_slices(shards, layout, depth=TEMPORAL_GENS)
 
 
-def deep_ghost_operands(shards, shape):
+def deep_ghost_operands(shards, layout):
     """The deep halo of a mesh with columns: per shard ``(gtop, gbot, gwest,
     geast)``, its TEMPORAL_GENS-row ghost blocks and the neighbours' whole
     edge word columns over rows -8..h+7. The column phase runs over the
     row-extended range, so the ghost rows' corner words are the diagonal
     neighbours'. (JAX stacks the two columns as the plane ``G_ext``; the
     kernel here takes them apart.)"""
-    return halo.exchange_parts(shards, shape, depth=TEMPORAL_GENS)
+    return halo.exchange_parts(shards, layout, depth=TEMPORAL_GENS)
 
 
 def packed_step_into(src, dst, flags, topology: Topology) -> None:
@@ -544,7 +545,7 @@ def packed_step_into(src, dst, flags, topology: Topology) -> None:
     if not topology.distributed:
         _step_into(src[0], dst[0], flags[0])
         return
-    for x, y, f, ghosts in zip(src, dst, flags, exchange_packed(src, topology.shape)):
+    for x, y, f, ghosts in zip(src, dst, flags, exchange_packed(src, topology)):
         _distributed_step_into(x, *ghosts, y, f)
 
 
@@ -554,10 +555,10 @@ def _multi_into(src, dst, flags, topology: Topology, exact: bool) -> None:
         return
     if topology.shape[1] == 1:
         step = _step_trow_into if exact else _step_trow_fast_into
-        ghosts = exchange_packed_deep(src, topology.shape)
+        ghosts = exchange_packed_deep(src, topology)
     else:
         step = _step_tg_into if exact else _step_tg_fast_into
-        ghosts = deep_ghost_operands(src, topology.shape)
+        ghosts = deep_ghost_operands(src, topology)
     for x, y, f, g in zip(src, dst, flags, ghosts):
         step(x, *g, y, f)
 
@@ -717,7 +718,7 @@ def _mesh_call(into, shards, topology: Topology, nflags: int):
     out = [torch.empty_like(s) for s in shards]
     flags = [_flags(nflags, s.device) for s in shards]
     into(shards, out, flags, topology)
-    return out, collectives.any_flag(flags)
+    return out, collectives.any_flag(flags, topology)
 
 
 def packed_step(cur, topology: Topology = SINGLE_DEVICE):

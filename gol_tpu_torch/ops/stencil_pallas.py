@@ -162,7 +162,7 @@ def pallas_step_into(src, dst, flags, topology: Topology) -> None:
         _step_into(src[0], dst[0], flags[0])
         return
     for x, y, f, ghosts in zip(src, dst, flags,
-                               halo.exchange_parts(src, topology.shape)):
+                               halo.exchange_parts(src, topology)):
         _distributed_step_into(x, *ghosts, y, f)
 
 
@@ -179,5 +179,5 @@ def pallas_step(cur, topology: Topology = SINGLE_DEVICE):
     out = [torch.empty_like(s) for s in cur]
     flags = [torch.zeros(STEP_FLAGS, dtype=torch.int32, device=s.device) for s in cur]
     pallas_step_into(cur, out, flags, topology)
-    voted = collectives.any_flag(flags)
+    voted = collectives.any_flag(flags, topology)
     return out, voted[0] != 0, voted[1] == 0

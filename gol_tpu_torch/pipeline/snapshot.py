@@ -28,7 +28,8 @@ the shape a snapshot that overlaps the next segment needs (queue the
 segment, then wait for the copy on the writer's thread); that change
 belongs with the pipelined I/O of ROADMAP Queue 1 item 3b.
 
-``state`` is one tensor or a mesh's row-major list of shards; ``.state``
+``state`` is one tensor or a mesh's row-major list of shards (in a
+multi-process run, this process's own shards only); ``.state``
 is the host copy in the same structure, so every payload writer produces
 from it the bytes it would produce from the live state, and the CRC
 blocks come out the same. CPU shards (the CPU lane) are copied on the

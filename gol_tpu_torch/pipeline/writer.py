@@ -19,6 +19,11 @@ it into the reference's async-variant shape (src/game_mpi_async.c posts
   its deferred wait lands, so a kill mid-write leaves the previous
   committed checkpoint as the newest durable state.
 
+On more than one process the writer is synchronous (JAX's rule): the
+checkpoint protocol's votes, all-gathers and barriers must run on the main
+thread in program order on every rank, so ``save`` is
+``CheckpointManager.save`` and ``drain`` has nothing to wait for.
+
 Observability: ``pipeline.stage`` / ``pipeline.write`` / ``pipeline.drain``
 spans; ``checkpoint_write_hidden_seconds`` and ``pipeline_stalls_total``
 counters and the ``ckpt_writer_queue_depth`` gauge in the global registry;
@@ -32,6 +37,7 @@ import threading
 import time
 
 from gol_tpu_torch.obs import recorder, registry as obs_registry, trace as obs_trace
+from gol_tpu_torch.parallel import bootstrap
 from gol_tpu_torch.pipeline.snapshot import HostSnapshot, SnapshotBuffers
 from gol_tpu_torch.resilience import faults
 from gol_tpu_torch.resilience.checkpoint import state_shape
@@ -80,6 +86,14 @@ class AsyncCheckpointWriter:
         self._stop = False
         self._closed = False
         self._buffers = SnapshotBuffers()
+        self._sync = bootstrap.process_count() > 1
+        if self._sync:
+            logger.info(
+                "async checkpoint writer: %d-process run — payload writes "
+                "carry collective barriers that must stay on the main "
+                "thread; saves run synchronously",
+                bootstrap.process_count(),
+            )
         recorder.add_state_provider(_STATE_PROVIDER, self._state)
 
     # -- the foreground half -------------------------------------------------
@@ -88,6 +102,9 @@ class AsyncCheckpointWriter:
         """The boundary call: drain the previous write, snapshot, hand off.
         Returns once the snapshot is on the host; the caller may run the
         next segment at once."""
+        if self._sync:
+            self._mgr.save(state, generation, counter)
+            return
         self.drain()  # the Wait-at-next-boundary: commit the previous write
         if self._mgr.sheds_save():
             return
@@ -120,6 +137,8 @@ class AsyncCheckpointWriter:
         """Wait for the in-flight payload write and commit its manifest.
         Raises the background write's error, if any, one boundary late,
         like the ``MPI_Wait`` status of the reference's async writes."""
+        if self._sync:
+            return
         with self._cv:
             task = self._task
         if task is None:
@@ -144,7 +163,7 @@ class AsyncCheckpointWriter:
                 if task.error is not None:
                     raise task.error
                 self._mgr._commit_manifest(task.shape, task.generation,
-                                           task.counter, task.checksums)
+                                           task.counter, task.checksums, None)
                 # --checkpoint-keep pruning, behind the deferred commit and
                 # under the manager's lock the payload write also holds.
                 self._mgr.prune()
@@ -205,7 +224,7 @@ class AsyncCheckpointWriter:
             try:
                 with obs_trace.span("pipeline.write",
                                     generation=task.generation):
-                    task.checksums = self._mgr._write_payload(
+                    task.checksums, _ = self._mgr._write_payload(
                         task.snapshot.state, task.generation)
             except BaseException as err:  # noqa: BLE001 - InjectedCrash too
                 task.error = err

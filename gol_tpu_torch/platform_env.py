@@ -6,14 +6,19 @@ the CUDA card unless the caller asks for the CPU, either with an explicit
 A CUDA request on a host without a card raises ``NoDeviceError``; nothing
 ever carries on on the CPU in its place.
 
-``mesh_devices`` is the counterpart of XLA's host device count: the devices
+``mesh_devices`` is the counterpart of XLA's device list: the shard slots
 a mesh may place its shards on. ``GOL_TORCH_MESH_DEVICES=N`` lays N entries
-round-robin over the platform's devices, so N shards can share one card
-(or the CPU), as the JAX test suite's 8 virtual CPU devices do.
+round-robin over the process's devices, so N shards can share one card
+(or the CPU), as the JAX test suite's 8 virtual CPU devices do. In a
+multi-process run (``parallel/bootstrap.py``) each rank drives its own
+card, ``cuda:{LOCAL_RANK % device_count}``, and the list is the world's, in
+rank order: each rank's own slots, and a ``PeerSlot`` for each slot of
+another rank, as ``jax.devices()`` lists every process's devices.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import sys
@@ -27,6 +32,38 @@ DEFAULT_DEVICE = "cuda"
 
 class NoDeviceError(RuntimeError):
     """The requested device is not present (or not a device the port runs on)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class PeerSlot:
+    """A shard slot of another rank of a multi-process run: its device
+    belongs to that process."""
+
+    rank: int
+    index: int
+
+
+# Set by ``parallel.bootstrap.initialize``: this process's rank and every
+# rank's count of shard slots. None on a single process.
+_WORLD: tuple[int, tuple[int, ...]] | None = None
+
+
+def set_world(rank: int, slot_counts=()) -> None:
+    """Record this process's rank and the world's slot counts, rank by
+    rank (``parallel/bootstrap.py`` all-gathers them once, after recording
+    the rank alone, from which on the process's slots are its own card's)."""
+    global _WORLD
+    _WORLD = (int(rank), tuple(int(n) for n in slot_counts))
+
+
+def rank_device(local_rank: int) -> torch.device:
+    """The device of the rank with this local rank: the CPU under
+    ``$GOL_TORCH_DEVICE=cpu``, else ``cuda:{local_rank % device_count}``
+    (ranks beyond the host's cards share them round-robin)."""
+    dev = resolve_device()
+    if dev.type == "cuda":
+        return torch.device("cuda", local_rank % torch.cuda.device_count())
+    return dev
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -50,12 +87,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     raise NoDeviceError(f"unsupported device {str(dev)!r}; use 'cuda' or 'cpu'")
 
 
-def mesh_devices() -> list[torch.device]:
-    """The devices a mesh may use, one entry per shard slot: one per card
-    torch sees (one ``cpu`` entry on the CPU lane), or, with
-    ``$GOL_TORCH_MESH_DEVICES`` = N, N entries laid round-robin over them."""
+def local_mesh_devices() -> list[torch.device]:
+    """This process's shard slots: one per card torch sees (one ``cpu``
+    entry on the CPU lane; in a multi-process run, the rank's own card),
+    or, with ``$GOL_TORCH_MESH_DEVICES`` = N, N entries laid round-robin
+    over them."""
     dev = resolve_device()
-    if dev.type == "cuda":
+    if dev.type == "cuda" and _WORLD is None:
         base = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     else:
         base = [dev]
@@ -65,6 +103,37 @@ def mesh_devices() -> list[torch.device]:
     if not spec.isdigit() or int(spec) < 1:
         raise ValueError(f"{MESH_DEVICES_ENV} must be a positive integer, got {spec!r}")
     return [base[i % len(base)] for i in range(int(spec))]
+
+
+def mesh_devices() -> list:
+    """The shard slots a mesh may use, in rank order: this process's
+    (``local_mesh_devices``) on a single process; in a multi-process run
+    every rank's, a ``PeerSlot`` standing for each slot of another rank."""
+    local = local_mesh_devices()
+    if _WORLD is None:
+        return local
+    rank, counts = _WORLD
+    if len(local) != counts[rank]:
+        raise ValueError(
+            f"rank {rank} has {len(local)} shard slots now but declared "
+            f"{counts[rank]} at bootstrap ({MESH_DEVICES_ENV} changed?)")
+    out = []
+    for r, n in enumerate(counts):
+        out.extend(local if r == rank else [PeerSlot(r, i) for i in range(n)])
+    return out
+
+
+def slot_owners() -> list[int]:
+    """The rank owning each entry of ``mesh_devices()``: all 0 on a single
+    process."""
+    if _WORLD is None:
+        return [0] * len(local_mesh_devices())
+    return [r for r, n in enumerate(_WORLD[1]) for _ in range(n)]
+
+
+def process_rank() -> int:
+    """This process's rank (0 on a single process)."""
+    return 0 if _WORLD is None else _WORLD[0]
 
 
 class _DynamicStderrHandler(logging.StreamHandler):

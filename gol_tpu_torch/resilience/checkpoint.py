@@ -27,9 +27,17 @@ variant's own I/O, the packed lane the packed text codec; both are
 topology-independent, so a checkpoint taken on one mesh restores on
 another.
 
-The process is single: the JAX package's multi-process votes, allgathers
-and barriers (its ``jax.process_count() > 1`` branches) come with
-multi-process runs of the port, which are not ported yet.
+In a multi-process run (``parallel/bootstrap.py``) each process holds its
+own shards (``local``: their global indices), and the JAX package's
+protocol runs over the ranks (``parallel/collectives.py``):
+``run_fingerprint`` all-gathers its 16-bit limbs; a save votes on whether
+the generation is already committed, lets the lead sweep stale leftovers
+behind a barrier, writes every rank's payload windows (an error is
+returned, then voted), merges every rank's CRCs, and commits the manifest
+on the lead alone between two barriers; ``--checkpoint-keep`` pruning runs
+on the lead; a restore walks the union of every rank's candidates, each
+checked locally (collective-free) and decided by one collective per
+candidate, so no two ranks resume from different generations.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ import numpy as np
 import torch
 
 from gol_tpu_torch.obs import registry as obs_registry, trace as obs_trace
+from gol_tpu_torch.parallel import bootstrap, collectives
 from gol_tpu_torch.parallel.mesh import windows
 from gol_tpu_torch.resilience import REPLACED_SUFFIX, STAGING_SUFFIX, faults
 from gol_tpu_torch.resilience.retry import DEFAULT_IO_RETRY, RetryPolicy
@@ -56,6 +65,8 @@ logger = logging.getLogger(__name__)
 FORMAT_VERSION = 1
 _MANIFEST_SUFFIX = ".manifest.json"
 _PREFIX = "ckpt-"
+_LIMB_BITS, _LIMB_COUNT = 16, 4
+_MASK64 = (1 << 64) - 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +85,18 @@ class CheckpointInfo:
     generation: int  # completed generations (the reported count convention)
     counter: int  # similarity counter at that point
     path: str  # manifest path
+
+
+@dataclasses.dataclass(frozen=True)
+class _LoadedCheckpoint:
+    """One process's local view of a candidate checkpoint: its state, and
+    which recorded blocks this process could check."""
+
+    state: Any
+    info: CheckpointInfo
+    local_ok: bool  # every block this process checked matched
+    verified: frozenset  # keys of the blocks this process checked
+    recorded: frozenset  # every key the manifest records
 
 
 def _block_key(r0: int, r1: int, c0: int, c1: int) -> str:
@@ -104,17 +127,24 @@ def state_shape(state, mesh_shape=(1, 1)) -> tuple[int, int]:
     return h * mesh_shape[0], w * mesh_shape[1]
 
 
-def state_blocks(state, mesh_shape=(1, 1)):
+def state_blocks(state, mesh_shape=(1, 1), local=None):
     """``((r0, r1, c0, c1), ndarray)`` per shard of ``state``: its window of
     the global array (``parallel.mesh.windows``, row-major) and its host
-    copy. The decomposition ``positional_digest`` and the CRC pass consume."""
+    copy. ``local`` is the shards' global indices in a multi-process run
+    (None: every shard). The decomposition ``positional_digest`` and the
+    CRC pass consume."""
     h, w = state_shape(state, mesh_shape)
     shards = _shards(state)
-    if len(shards) != mesh_shape[0] * mesh_shape[1]:
-        raise ValueError(f"a {mesh_shape[0]}x{mesh_shape[1]} mesh has "
-                         f"{mesh_shape[0] * mesh_shape[1]} shards, got {len(shards)}")
-    return [((rows.start, rows.stop, cols.start, cols.stop), _host(shard))
-            for shard, (rows, cols) in zip(shards, windows(h, w, mesh_shape))]
+    every = windows(h, w, mesh_shape)
+    if local is None:
+        if len(shards) != len(every):
+            raise ValueError(f"a {mesh_shape[0]}x{mesh_shape[1]} mesh has "
+                             f"{len(every)} shards, got {len(shards)}")
+        local = range(len(every))
+    elif len(shards) != len(local):
+        raise ValueError(f"this process holds {len(local)} shards, got {len(shards)}")
+    return [((every[i][0].start, every[i][0].stop, every[i][1].start,
+              every[i][1].stop), _host(shard)) for shard, i in zip(shards, local)]
 
 
 def positional_digest(blocks) -> int:
@@ -138,37 +168,108 @@ def positional_digest(blocks) -> int:
     return int(local)
 
 
-def run_fingerprint(state, tag: str = "", mesh_shape=(1, 1)) -> str:
+def _fingerprint_limbs(partial: int) -> np.ndarray:
+    """A 64-bit digest partial as four 16-bit limbs: summed over the ranks
+    without overflow, then carried (JAX ``_fingerprint_limbs``)."""
+    return np.asarray([(partial >> (_LIMB_BITS * i)) & 0xFFFF
+                       for i in range(_LIMB_COUNT)], np.int32)
+
+
+def _merge_fingerprint_limbs(everyone) -> int:
+    """``sum(partials) mod 2**64`` from every rank's limbs."""
+    sums = np.asarray(everyone, np.int64).reshape(-1, _LIMB_COUNT).sum(axis=0)
+    return sum(int(v) << (_LIMB_BITS * i) for i, v in enumerate(sums)) & _MASK64
+
+
+def run_fingerprint(state, tag: str = "", mesh_shape=(1, 1), local=None) -> str:
     """Fingerprint of a run's identity from its initial state: the
     positional digest over the mesh's windows, so the same grid gives the
-    same fingerprint under any mesh (and equals the JAX package's).
-    Recorded in each manifest and checked on restore, so a checkpoint
-    directory reused with another input never hands an old run's state to
-    a new run. ``tag`` folds in the convention."""
-    total = positional_digest(state_blocks(state, mesh_shape))
+    same fingerprint under any mesh (and equals the JAX package's); in a
+    multi-process run the sum over every rank's shards. Recorded in each
+    manifest and checked on restore, so a checkpoint directory reused with
+    another input never hands an old run's state to a new run. ``tag``
+    folds in the convention."""
+    total = positional_digest(state_blocks(state, mesh_shape, local))
+    if bootstrap.process_count() > 1:
+        everyone = collectives.process_allgather(_fingerprint_limbs(total))
+        total = _merge_fingerprint_limbs(everyone)
     return f"{total:016x}" + (f":{tag}" if tag else "")
 
 
-def _shard_checksums(state, mesh_shape=(1, 1)) -> dict[str, int]:
+def _shard_checksums(state, mesh_shape=(1, 1), local=None) -> dict[str, int]:
     """CRC32 per shard, keyed by the shard's window of the global array:
     geometry-keyed, so restore can re-verify under any mesh."""
     return {_block_key(*bounds): zlib.crc32(block)
-            for bounds, block in state_blocks(state, mesh_shape)}
+            for bounds, block in state_blocks(state, mesh_shape, local)}
 
 
-def _verify_checksums(state, checksums: dict[str, int], mesh_shape=(1, 1)) -> bool:
-    """Re-slice every recorded block from the state's host copy and CRC it:
-    any writer decomposition verifies against any reader mesh."""
+def _allgather_json(obj) -> list:
+    """One JSON value per process, in rank order: a length-prefixed byte
+    blob through ``process_allgather`` (JAX ``_allgather_json``)."""
+    blob = np.frombuffer(json.dumps(obj, sort_keys=True).encode(), np.uint8)
+    lens = collectives.process_allgather(np.asarray([len(blob)], np.int64)).ravel()
+    padded = np.zeros((max(int(lens.max()), 1),), np.uint8)
+    padded[: len(blob)] = blob
+    everyone = collectives.process_allgather(padded)
+    return [json.loads(bytes(everyone[i, : int(n)]).decode())
+            for i, n in enumerate(lens)]
+
+
+def _allgather_checksums(sums: dict[str, int]) -> dict[str, int]:
+    """Union of every process's shard checksums: the manifest the lead
+    commits covers every rank's shards."""
+    if bootstrap.process_count() == 1:
+        return sums
+    merged: dict[str, int] = {}
+    for peer in _allgather_json(sums):
+        merged.update(peer)
+    return merged
+
+
+def _verify_checksums(state, checksums: dict[str, int], mesh_shape=(1, 1),
+                      local=None) -> tuple[bool, set]:
+    """Local re-verification: ``(every checked block matched, keys
+    checked)``. Collective-free, so a process that fails anywhere in
+    ``_load`` can skip it without desynchronizing its peers.
+
+    On one process every recorded block is re-sliced from the host copy,
+    so any writer decomposition verifies against any reader mesh. Across
+    processes a block is checked where this process's shards tile it
+    (assembled across them if it straddles several) and skipped where part
+    of it lives on a peer; ``_collective_is_valid`` pools the keys."""
     h, w = state_shape(state, mesh_shape)
-    blocks = state_blocks(state, mesh_shape)
-    host = np.empty((h, w), blocks[0][1].dtype)
-    for (r0, r1, c0, c1), block in blocks:
-        host[r0:r1, c0:c1] = block
+    blocks = state_blocks(state, mesh_shape, local)
+    ok, verified = True, set()
+    if local is None:
+        host = np.empty((h, w), blocks[0][1].dtype)
+        for (r0, r1, c0, c1), block in blocks:
+            host[r0:r1, c0:c1] = block
+        for key, want in checksums.items():
+            r0, r1, c0, c1 = _parse_key(key)
+            if zlib.crc32(np.ascontiguousarray(host[r0:r1, c0:c1])) != int(want):
+                ok = False
+            else:
+                verified.add(key)
+        return ok, verified
     for key, want in checksums.items():
         r0, r1, c0, c1 = _parse_key(key)
-        if zlib.crc32(np.ascontiguousarray(host[r0:r1, c0:c1])) != int(want):
-            return False
-    return True
+        pieces, covered = [], 0
+        for (sr0, sr1, sc0, sc1), block in blocks:
+            ir0, ir1, ic0, ic1 = max(r0, sr0), min(r1, sr1), max(c0, sc0), min(c1, sc1)
+            if ir0 < ir1 and ic0 < ic1:
+                pieces.append(((ir0, ir1, ic0, ic1), (sr0, sc0), block))
+                covered += (ir1 - ir0) * (ic1 - ic0)
+        if covered != (r1 - r0) * (c1 - c0):
+            continue  # part of the block lives on a peer; the vote pools this
+        region = np.empty((r1 - r0, c1 - c0), blocks[0][1].dtype)
+        for (ir0, ir1, ic0, ic1), (sr0, sc0), block in pieces:
+            region[ir0 - r0:ir1 - r0, ic0 - c0:ic1 - c0] = \
+                block[ir0 - sr0:ir1 - sr0, ic0 - sc0:ic1 - sc0]
+        if zlib.crc32(np.ascontiguousarray(region)) != int(want):
+            ok = False
+        else:
+            verified.add(key)
+    return ok, verified
 
 
 def _fsync_dir(path: str) -> None:
@@ -206,7 +307,9 @@ class CheckpointManager:
     """Atomic checkpoints for one run's geometry in one directory.
 
     ``keep`` retains that many newest checkpoints (>= 1); ``mesh_shape`` is
-    the run's mesh, which lays the state's shards onto the global array.
+    the run's mesh, which lays the state's shards onto the global array;
+    ``local`` the global indices of this process's shards in a
+    multi-process run (None: every shard is here).
     """
 
     def __init__(
@@ -221,6 +324,7 @@ class CheckpointManager:
         run_fingerprint: str | None = None,
         guard=None,
         mesh_shape=(1, 1),
+        local=None,
     ):
         if keep < 1:
             raise ValueError(f"checkpoint keep must be >= 1, got {keep}")
@@ -232,6 +336,9 @@ class CheckpointManager:
         self.retry = retry
         self.run_fingerprint = run_fingerprint
         self.mesh_shape = tuple(mesh_shape)
+        self.local = None if local is None else tuple(local)
+        self.multihost = bootstrap.process_count() > 1
+        self.lead = bootstrap.process_index() == 0
         # The disk-pressure watchdog (resilience/diskguard.DiskGuard) or
         # None: under its shed-checkpoints tier, saves are skipped loudly.
         self.guard = guard
@@ -317,40 +424,83 @@ class CheckpointManager:
             # state.
             return self._manifest_path(generation)
         self._sweep_stale(generation)
-        sums = self._write_payload(state, generation)
+        sums, write_err = self._write_payload(state, generation)
         path = self._commit_manifest(state_shape(state, self.mesh_shape),
-                                     generation, counter, sums)
+                                     generation, counter, sums, write_err)
         self.prune()
         return path
 
     def _already_committed(self, generation: int) -> bool:
-        """Whether a valid checkpoint for ``generation`` already exists."""
-        return (os.path.exists(self._manifest_path(generation))
-                and self._load(generation) is not None)
+        """Whether a valid checkpoint for ``generation`` already exists.
+        Across processes a collective decision: a lone rank skipping while
+        its peers rewrite would desynchronize the barriers of the save; the
+        exists check only decides whether to attempt the local load, and
+        every rank reaches the one vote."""
+        exists = os.path.exists(self._manifest_path(generation))
+        if self.multihost:
+            return self._collective_is_valid(
+                self._load(generation) if exists else None)
+        return exists and self._load(generation) is not None
 
     def _sweep_stale(self, generation: int) -> None:
-        """Clear invalid leftovers at this generation's paths before writing."""
-        _rmtree_or_file(self._manifest_path(generation))
-        _rmtree_or_file(os.path.join(self.directory,
-                                     self._payload_name(generation)))
+        """Clear invalid leftovers at this generation's paths before writing:
+        on the lead, and across processes behind a barrier, so no peer
+        writes its windows into a payload path the lead is removing."""
+        if not self.multihost or self.lead:
+            _rmtree_or_file(self._manifest_path(generation))
+            _rmtree_or_file(os.path.join(self.directory,
+                                         self._payload_name(generation)))
+        if self.multihost:
+            collectives.barrier(f"gol_tpu_torch.ckpt.clean:{self.directory}:{generation}")
 
-    def _write_payload(self, state, generation: int) -> dict[str, int]:
-        """Write the payload and checksum it. ``state`` may be the live
-        state or a ``pipeline.HostSnapshot``'s host copy of it: both give
-        the same payload bytes and CRC blocks."""
+    def _write_payload(self, state, generation: int):
+        """Write the payload and checksum it: ``(local_sums, write_err)``.
+        On one process a failure raises; across processes it is returned,
+        so the commit phase votes on it before any other collective.
+        ``state`` may be the live state or a ``pipeline.HostSnapshot``'s
+        host copy of it: both give the same payload bytes and CRC blocks."""
         payload_path = os.path.join(self.directory, self._payload_name(generation))
-        # Serialized against prune(): the async writer runs this on its
-        # thread, and the codecs stage files in the checkpoint directory.
-        with self._io_lock:
-            self.retry.call(lambda: self.codec.write(payload_path, state))
-            faults.on_payload_write(payload_path)
-        return _shard_checksums(state, self.mesh_shape)
+        write_err: Exception | None = None
+        sums: dict[str, int] = {}
+        try:
+            # Serialized against prune(): the async writer runs this on its
+            # thread, and the codecs stage files in the checkpoint directory.
+            with self._io_lock:
+                if self.multihost:
+                    # No retry: the codec's write votes across the ranks,
+                    # and one rank re-entering it would pair with a peer's
+                    # next collective.
+                    self.codec.write(payload_path, state)
+                else:
+                    self.retry.call(lambda: self.codec.write(payload_path, state))
+                faults.on_payload_write(payload_path)
+            sums = _shard_checksums(state, self.mesh_shape, self.local)
+        except Exception as e:  # noqa: BLE001 - returned, then voted
+            if not self.multihost:
+                raise
+            write_err = e
+        return sums, write_err
 
     def _commit_manifest(self, state_shape, generation: int, counter: int,
-                         checksums: dict[str, int]) -> str:
-        """Commit the manifest atomically: the only phase that makes a
-        checkpoint exist. The async writer defers exactly this call to the
-        next boundary."""
+                         local_sums: dict[str, int],
+                         write_err: Exception | None = None) -> str:
+        """Vote, merge the CRCs, commit the manifest atomically: the only
+        phase that makes a checkpoint exist. The async writer defers
+        exactly this call to the next boundary.
+
+        Across processes every rank first votes on its payload write (the
+        one that failed re-raises its error, the others abandon the
+        checkpoint with it), the CRCs of every rank are merged, and the
+        lead commits between two barriers: the peers' payload windows are
+        written before any manifest claims them, and no rank goes on
+        before the manifest exists."""
+        if self.multihost and not collectives.host_all_agree(write_err is None):
+            if write_err is not None:
+                raise write_err
+            raise RuntimeError(
+                "checkpoint abandoned: a peer process failed to write its "
+                f"payload shards for generation {generation}")
+        checksums = _allgather_checksums(local_sums)
         manifest = {
             "format_version": FORMAT_VERSION,
             "generation": int(generation),
@@ -365,7 +515,14 @@ class CheckpointManager:
             "created_unix": time.time(),
         }
         path = self._manifest_path(generation)
-        _commit_file(path, json.dumps(manifest, indent=1).encode())
+        data = json.dumps(manifest, indent=1).encode()
+        if self.multihost:
+            collectives.barrier(f"gol_tpu_torch.ckpt.commit:{self.directory}:{generation}")
+            if self.lead:
+                _commit_file(path, data)
+            collectives.barrier(f"gol_tpu_torch.ckpt.committed:{self.directory}:{generation}")
+        else:
+            _commit_file(path, data)
         return path
 
     def prune(self) -> None:
@@ -392,7 +549,9 @@ class CheckpointManager:
         """Drop all but the ``keep`` newest of this run's checkpoints,
         manifest first; foreign-run leftovers are garbage outright. Then
         sweep tmp/staging files and manifest-less payloads older than the
-        newest."""
+        newest. Across processes only the lead collects."""
+        if self.multihost and not self.lead:
+            return
         gens, doomed = [], []
         for gen in self._list_generations():
             (doomed if self._manifest_is_foreign(gen) else gens).append(gen)
@@ -433,10 +592,15 @@ class CheckpointManager:
 
     # -- restore -------------------------------------------------------------
 
-    def _load(self, generation: int):
-        """``(state, CheckpointInfo)`` of one checkpoint, or None if
-        anything about it (manifest JSON, geometry, codec, fingerprint,
-        payload read, checksums) fails to verify."""
+    def _load(self, generation: int) -> _LoadedCheckpoint | None:
+        """One checkpoint's local view, or None if anything about it
+        (manifest JSON, geometry, codec, fingerprint, payload read, and on
+        one process the checksums) fails to verify.
+
+        Collective-free: ranks fail here at different points, so a
+        collective inside would pair with a different one on a peer. Across
+        processes a local CRC mismatch is carried in ``local_ok`` for the
+        one vote of ``_collective_is_valid``."""
         try:
             with open(self._manifest_path(generation)) as f:
                 manifest = json.load(f)
@@ -466,36 +630,85 @@ class CheckpointManager:
                 raise ValueError(
                     f"payload shape {shape} != manifest "
                     f"{tuple(manifest['state_shape'])}")
-            if not _verify_checksums(state, manifest["checksums"], self.mesh_shape):
+            ok, verified = _verify_checksums(state, manifest["checksums"],
+                                             self.mesh_shape, self.local)
+            if not self.multihost and not ok:
                 raise ValueError("shard checksum mismatch")
-            return state, CheckpointInfo(
+            info = CheckpointInfo(
                 generation=int(manifest["generation"]),
                 counter=int(manifest["counter"]),
                 path=self._manifest_path(generation),
             )
+            return _LoadedCheckpoint(state, info, ok, frozenset(verified),
+                                     frozenset(manifest["checksums"]))
         except Exception as e:  # noqa: BLE001 - any defect means "not valid"
             logger.warning(
                 "checkpoint %s/%s%08d invalid, trying older: %s: %s",
                 self.directory, _PREFIX, generation, type(e).__name__, e)
             return None
 
+    def _collective_is_valid(self, loaded: _LoadedCheckpoint | None) -> bool:
+        """The run's verdict on one candidate, by one collective that every
+        process reaches once (a rank whose ``_load`` failed votes False
+        instead of skipping it). Valid when every process loaded the
+        checkpoint and its own checks matched; a recorded block no process
+        could tile from its shards (written on another mesh, straddling a
+        rank boundary here) is logged as unverified, not refused."""
+        if not self.multihost:
+            return loaded is not None
+        ok = loaded is not None and loaded.local_ok
+        votes = _allgather_json([bool(ok), sorted(loaded.verified) if loaded else []])
+        if not all(v[0] for v in votes):
+            return False
+        covered = set()
+        for _, keys in votes:
+            covered.update(keys)
+        unverified = loaded.recorded - covered
+        if unverified:
+            logger.warning(
+                "restoring with %d/%d recorded block(s) CRC-UNVERIFIED: "
+                "they straddle process boundaries on this topology (written "
+                "on a different mesh); every process read its payload "
+                "shards successfully", len(unverified), len(loaded.recorded))
+        return True
+
+    def _global_candidates(self) -> list[int]:
+        """Every process's manifest generations, newest first: a manifest
+        only one rank can list still gets voted on (and down)."""
+        local = self._list_generations()
+        if not self.multihost:
+            return local
+        width = max(2 * self.keep, 4)
+        mine = np.full((width,), -1, np.int64)
+        mine[: min(len(local), width)] = local[:width]
+        everyone = collectives.process_allgather(mine)
+        return sorted({int(g) for g in everyone.ravel() if g >= 0}, reverse=True)
+
     def restore(self, max_generation: int | None = None):
-        """``(state, info)`` of the newest valid checkpoint, or None.
+        """``(state, info)`` of the newest checkpoint every process can
+        read and verify, or None. Each candidate is checked locally and
+        decided by one collective, so no two ranks resume from different
+        generations.
 
         ``max_generation`` skips checkpoints past it: a rerun with a reduced
         --gen-limit resumes from the newest checkpoint at or below the
         limit (an exact prefix of the shorter run) or starts fresh."""
         reg = obs_registry.default()
         with obs_trace.span("checkpoint.restore"):
-            for gen in self._list_generations():
+            for gen in self._global_candidates():
                 if max_generation is not None and gen > max_generation:
                     continue
                 loaded = self._load(gen)
-                if loaded is not None:
+                if self._collective_is_valid(loaded):
                     logger.info("auto-resume: restored checkpoint at "
                                 "generation %d from %s",
-                                loaded[1].generation, loaded[1].path)
+                                loaded.info.generation, loaded.info.path)
                     reg.inc("checkpoint_restores_total")
-                    return loaded
+                    return loaded.state, loaded.info
                 reg.inc("checkpoint_restore_rejected_total")
+                if loaded is not None:
+                    logger.warning(
+                        "checkpoint generation %d readable here but not "
+                        "verified on every process; falling back to an "
+                        "older one", gen)
         return None

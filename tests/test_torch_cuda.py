@@ -831,3 +831,60 @@ def test_fleet_and_shard_job_on_the_card_match_the_cpu(card, monkeypatch,
                                       want_shard["ownership"])
     finally:
         router.shutdown(cascade=True)
+
+
+@pytest.mark.parametrize("flags", [["--mesh", "2x1"], ["--mesh", "2x2", "--packed-io"],
+                                   ["--mesh", "2x1", "--kernel", "pallas"]],
+                         ids=["2x1", "2x2 packed-io", "2x1 pallas"])
+def test_multihost_ranks_on_the_card_match_the_oracle(card, tmp_path, flags):
+    """Two ranks of ``python -m gol_tpu_torch`` on the one card over gloo
+    (NCCL takes a card per rank): every rank prints the oracle's
+    Generations, the shared output file holds its bytes, and every rank
+    launched its kernels on the card (its exit stats)."""
+    import glob
+    import json
+    import socket
+    import subprocess
+    import sys
+
+    grid = text_grid.generate(256, 256, seed=5)
+    text_grid.write_grid(str(tmp_path / "in.txt"), grid)
+    want = oracle.run(grid, GameConfig(gen_limit=300))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    slots = "2" if "2x2" in flags else "1"
+    procs = []
+    for rank in range(2):
+        env = {**os.environ, "GOL_TORCH_DEVICE": "cuda", "GOL_MULTIHOST": "1",
+               "RANK": str(rank), "WORLD_SIZE": "2", "LOCAL_RANK": str(rank),
+               "LOCAL_WORLD_SIZE": "2", "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(port), "GOL_TORCH_MESH_DEVICES": slots,
+               "GOL_TORCH_EXIT_STATS": str(tmp_path / "stats"),
+               "PYTHONPATH": os.pathsep.join(filter(None, [repo, os.environ.get(
+                   "PYTHONPATH")]))}
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "gol_tpu_torch", "256", "256",
+             str(tmp_path / "in.txt"), "--variant", "tpu", *flags, "--gen-limit",
+             "300", "--output", str(tmp_path / "out.txt")],
+            env=env, cwd=tmp_path, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    try:
+        outs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        assert f"Generations:\t{want.generations}\n" in out
+        assert "over gloo" in err
+    assert (tmp_path / "out.txt").read_bytes() == text_grid.encode(want.grid)
+    docs = [json.load(open(f)) for f in glob.glob(str(tmp_path / "stats" / "run-*.json"))]
+    assert sorted(d["rank"] for d in docs) == [0, 1]
+    kernel = "dist_byte_band" if "pallas" in flags else (
+        "bandtg_fast" if "2x2" in flags else "bandtrow_fast")
+    for d in docs:
+        assert d["backend"] == "gloo" and d["launches"][kernel] > 0
