@@ -45,8 +45,11 @@ def _check_width(width: int) -> None:
         raise ValueError(f"width {width} not a multiple of {BITS}")
 
 
-def pack_text(text: np.ndarray, width: int) -> np.ndarray:
-    """(rows, stride>=width) ASCII bytes -> (rows, width/32) uint32 words.
+def pack_text(text: np.ndarray, width: int,
+              out: np.ndarray | None = None) -> np.ndarray:
+    """(rows, stride>=width) ASCII bytes -> (rows, width/32) uint32 words,
+    in a fresh array or into ``out`` (C-contiguous uint32 of that shape;
+    the pipelined read packs straight into pinned memory).
 
     Only the byte '1' is a live cell (the text_grid contract — any other
     byte, including other odd ones, is dead). Any row stride is fine (the
@@ -61,7 +64,12 @@ def pack_text(text: np.ndarray, width: int) -> np.ndarray:
         raise ValueError(f"text has {stride} columns, needs >= width {width}")
     if text.dtype != np.uint8 or text.strides[1] != 1:
         raise ValueError("text rows must be byte-contiguous uint8")
-    out = np.empty((rows, width // BITS), dtype=np.uint32)
+    if out is None:
+        out = np.empty((rows, width // BITS), dtype=np.uint32)
+    elif (out.shape != (rows, width // BITS) or out.dtype != np.uint32
+          or not out.flags.c_contiguous):
+        raise ValueError(f"out must be C-contiguous uint32 "
+                         f"{(rows, width // BITS)}, got {out.dtype} {out.shape}")
     _lib().gol_pack_text(text.ctypes.data, text.strides[0], out.ctypes.data,
                          rows, width)
     return out

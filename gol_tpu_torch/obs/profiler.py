@@ -45,6 +45,12 @@ import torch
 
 logger = logging.getLogger(__name__)
 
+# The range ``capture`` records around its body (a ``user_annotation``
+# event in the Chrome trace): the profiled run's window, without the
+# guard on either side of it.
+CAPTURE_REGION = "gol.profiled_run"
+CAPTURE_GUARD_S = 0.05
+
 
 def fence(*tensors) -> None:
     """Synchronize every CUDA device that holds one of ``tensors`` (nested
@@ -80,8 +86,10 @@ def capture(profile_dir: str | None, device):
     - a body that raises leaves no torn capture: what the capture created
       is swept, entries that were there before stay.
 
-    On a card the body's work is fenced before the stop, so every kernel
-    it launched is in the trace."""
+    The body runs inside the ``CAPTURE_REGION`` range. On a card the
+    capture is fenced and idles ``CAPTURE_GUARD_S`` before the body and
+    after it (``_guard``), and the body's work is fenced before the stop,
+    so every kernel it launched is in the trace."""
     if not profile_dir:
         yield None
         return
@@ -103,10 +111,18 @@ def capture(profile_dir: str | None, device):
             "running unprofiled", profile_dir, type(err).__name__, err,
         )
         prof = None
+    guarded = prof is not None and device.type == "cuda"
     try:
-        yield prof
-        if prof is not None and device.type == "cuda":
-            torch.cuda.synchronize(device)
+        if guarded:
+            _guard(device)
+        region = (torch.profiler.record_function(CAPTURE_REGION)
+                  if prof is not None else contextlib.nullcontext())
+        with region:
+            yield prof
+            if guarded:
+                torch.cuda.synchronize(device)
+        if guarded:
+            _guard(device)
     except BaseException:
         if prof is not None:
             try:
@@ -127,6 +143,17 @@ def capture(profile_dir: str | None, device):
                 profile_dir, type(err).__name__, err,
             )
             _sweep_partial(profile_dir, preexisting)
+
+
+def _guard(device) -> None:
+    """Fence the card and let ``CAPTURE_GUARD_S`` pass, between the
+    capture's start and the body's first launch and between the body's
+    last kernel and the stop, so that every kernel of the body runs well
+    inside the capture. Without it a capture of a mesh run was seen to
+    hold all but its first dozen kernels, whose first kernel runs 1-3 ms
+    after the start. The guard lies outside ``CAPTURE_REGION``."""
+    torch.cuda.synchronize(device)
+    time.sleep(CAPTURE_GUARD_S)
 
 
 def _sweep_partial(profile_dir: str, preexisting: set) -> None:

@@ -53,6 +53,12 @@ into an int32 buffer the caller zeroes, and "similar" is stored negated, as
 ``_step_tsplit_fast`` wrap them in the JAX package's signatures (fresh
 buffers, flags as similar/alive values).
 
+``encode`` and ``decode`` are the byte-state lanes' crossing between uint8
+cells and words, each one kernel in ``csrc/packed_codec.cu``: E1
+(``pack_cells_kernel``) and D1 (``unpack_words_kernel``), where the JAX
+package has ``jnp`` fused by XLA (``gol_tpu/ops/packed_math.py:145``,
+``:153``); their plain versions are ``packed_math.encode``/``decode``.
+
 ``LAUNCHES`` counts the kernel launches, one per launch on the card and
 nothing for the CPU path, so a run can show that it went through the
 kernels.
@@ -81,10 +87,8 @@ STEP_FLAGS = 2
 
 LAUNCHES = {"bandt_fast": 0, "bandt": 0, "band": 0,
             "dist_band": 0, "bandtrow_fast": 0, "bandtrow": 0,
-            "bandtg_fast": 0, "bandtg": 0, "bandt_noflags": 0}
-
-encode = packed_math.encode
-decode = packed_math.decode
+            "bandtg_fast": 0, "bandtg": 0, "bandt_noflags": 0,
+            "encode": 0, "decode": 0}
 
 
 def supports(height: int, width: int, topology: Topology = SINGLE_DEVICE) -> bool:
@@ -198,6 +202,10 @@ def _lib() -> ctypes.CDLL:
     return _build.load("stencil_packed", bind)
 
 
+def _codec_lib() -> ctypes.CDLL:
+    return _build.load("packed_codec", _bind_codec)
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entries of a built ``csrc/stencil_packed.cu`` (the
     package's, or a copy ``tools/band_sweep.py`` built) to ctypes."""
@@ -223,9 +231,20 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def _bind_codec(lib: ctypes.CDLL) -> ctypes.CDLL:
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for entry in (lib.gol_pack_cells, lib.gol_unpack_words):
+        entry.argtypes = [ptr, ptr, i64, i32, ptr]
+        entry.restype = i32
+    lib.gol_error_string.argtypes = [i32]
+    lib.gol_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load_kernels() -> None:
     """Build (at first use) and load the kernels ahead of a run."""
     _lib()
+    _codec_lib()
 
 
 def bandt_tile() -> tuple[int, int, int]:
@@ -307,9 +326,9 @@ def _check_deep(words, gtop, gbot, gwest=None, geast=None) -> None:
     _check_ghosts(words, ghosts)
 
 
-def _raise_on(err: int, what: str) -> None:
+def _raise_on(err: int, what: str, lib=None) -> None:
     if err != 0:
-        msg = _lib().gol_error_string(err).decode()
+        msg = (lib or _lib()).gol_error_string(err).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
@@ -507,6 +526,98 @@ def _step_tg_into(words, gtop, gbot, gwest, geast, out, flags) -> None:
     new, exact = _bandtg_plain(words, gtop, gbot, gwest, geast, exact=True)
     out.copy_(new)
     flags[:EXACT_FLAGS] |= exact
+
+
+# ---------------------------------------------------------------------------
+# The cell <-> word codec: E1 and D1.
+
+
+def _check_cells(cells: torch.Tensor) -> None:
+    """uint8 (H, W) cells, W a positive multiple of BITS, contiguous, and on
+    the card on a 16-byte boundary (the kernels move them as 16-byte
+    vectors)."""
+    if cells.dtype != torch.uint8 or cells.dim() != 2:
+        raise ValueError(f"cells must be a 2D uint8 tensor, got {cells.dim()}D "
+                         f"{cells.dtype}")
+    height, width = cells.shape
+    if height < 1 or width < BITS or width % BITS:
+        raise ValueError(f"cells of shape {tuple(cells.shape)}: the width must "
+                         f"be a positive multiple of {BITS}")
+    if not cells.is_contiguous():
+        raise ValueError("cells must be contiguous")
+    if cells.device.type == "cuda" and cells.data_ptr() % 16:
+        raise ValueError("cells must start on a 16-byte boundary")
+
+
+def _check_words(words: torch.Tensor) -> None:
+    if words.dtype != torch.int32 or words.dim() != 2:
+        raise ValueError(f"words must be a 2D int32 tensor, got {words.dim()}D "
+                         f"{words.dtype}")
+    if not words.is_contiguous():
+        raise ValueError("words must be contiguous")
+
+
+def _check_codec(cells: torch.Tensor, words: torch.Tensor) -> None:
+    """The checks both codec wrappers make: each tensor's own, then words
+    of shape (H, W/32) for (H, W) cells, both on one device."""
+    _check_cells(cells)
+    _check_words(words)
+    height, width = cells.shape
+    if tuple(words.shape) != (height, width // BITS):
+        raise ValueError(f"words must be {(height, width // BITS)} for cells "
+                         f"{tuple(cells.shape)}, got {tuple(words.shape)}")
+    if words.device != cells.device:
+        raise ValueError(f"words are on {words.device}, cells on {cells.device}")
+
+
+def _launch_codec(entry: str, key: str, src, dst, nwords: int) -> None:
+    lib = _codec_lib()
+    err = getattr(lib, entry)(
+        src.data_ptr(), dst.data_ptr(), nwords, src.device.index,
+        torch.cuda.current_stream(src.device).cuda_stream)
+    _raise_on(err, key, lib)
+    LAUNCHES[key] += 1
+
+
+def _encode_into(cells: torch.Tensor, words: torch.Tensor) -> None:
+    """E1: pack ``cells`` into ``words``, bit j of word w = (cell 32w + j
+    != 0)."""
+    _check_codec(cells, words)
+    if _route(cells):
+        _launch_codec("gol_pack_cells", "encode", cells, words, words.numel())
+        return
+    words.copy_(packed_math.encode(cells))
+
+
+def _decode_into(words: torch.Tensor, cells: torch.Tensor) -> None:
+    """D1: unpack ``words`` into 0/1 ``cells``."""
+    _check_codec(cells, words)
+    if _route(words):
+        _launch_codec("gol_unpack_words", "decode", words, cells, words.numel())
+        return
+    cells.copy_(packed_math.decode(words))
+
+
+def encode(cells: torch.Tensor) -> torch.Tensor:
+    """uint8 (H, W) cells -> int32 (H, W/32) words in a fresh tensor (E1
+    on the card)."""
+    _check_cells(cells)
+    height, width = cells.shape
+    words = torch.empty((height, width // BITS), dtype=torch.int32,
+                        device=cells.device)
+    _encode_into(cells, words)
+    return words
+
+
+def decode(words: torch.Tensor) -> torch.Tensor:
+    """int32 (H, W/32) words -> uint8 (H, W) 0/1 cells in a fresh tensor
+    (D1 on the card)."""
+    _check_words(words)
+    height, nwords = words.shape
+    cells = torch.empty((height, nwords * BITS), dtype=torch.uint8,
+                        device=words.device)
+    _decode_into(words, cells)
+    return cells
 
 
 # ---------------------------------------------------------------------------

@@ -25,8 +25,11 @@ segment loop's thread and returns only after step 3, so the next segment
 is not queued while the copy runs, and a blocking copy on the compute
 stream would order and time the same. The side stream and its event are
 the shape a snapshot that overlaps the next segment needs (queue the
-segment, then wait for the copy on the writer's thread); that change
-belongs with the pipelined I/O of ROADMAP Queue 1 item 3b.
+segment, then wait for the copy on the writer's thread). The pipelined
+packed I/O (ROADMAP Queue 1 item 2) overlaps the copies of a read or a
+write with the host codec (``io/packed_io.py``); it does not overlap a
+save with the next segment, which stays with the checkpoint lane's cost
+(ROADMAP Queue 2b item 5).
 
 ``state`` is one tensor or a mesh's row-major list of shards (in a
 multi-process run, this process's own shards only); ``.state``

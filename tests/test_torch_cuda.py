@@ -886,5 +886,97 @@ def test_multihost_ranks_on_the_card_match_the_oracle(card, tmp_path, flags):
     assert sorted(d["rank"] for d in docs) == [0, 1]
     kernel = "dist_byte_band" if "pallas" in flags else (
         "bandtg_fast" if "2x2" in flags else "bandtrow_fast")
+    codec = 0 if "pallas" in flags or "--packed-io" in flags else 1
     for d in docs:
         assert d["backend"] == "gloo" and d["launches"][kernel] > 0
+        # E1 and D1 once for each rank's one shard on the byte-state lane.
+        assert d["launches"]["encode"] == d["launches"]["decode"] == codec
+
+
+# ---------------------------------------------------------------------------
+# E1 and D1 (the byte-state lanes' cell <-> word codec)
+
+CODEC_SHAPES = [(1, 32), (7, 96), (17, 160), (1000, 224), (64, 4096)]
+
+
+def _codec_bytes(height, width, seed):
+    """Random bytes (not only 0/1), a third of them 0."""
+    rng = np.random.default_rng(seed)
+    cells = rng.integers(0, 256, (height, width), dtype=np.uint8)
+    cells[rng.random((height, width)) < 0.33] = 0
+    return torch.from_numpy(cells)
+
+
+@pytest.mark.parametrize("height,width", CODEC_SHAPES)
+def test_codec_kernels_match_plain(card, height, width):
+    cells = _codec_bytes(height, width, seed=height + width).to(card)
+    before = dict(sp.LAUNCHES)
+    words = sp.encode(cells)
+    assert sp.LAUNCHES["encode"] == before["encode"] + 1
+    assert torch.equal(words, pm.encode(cells))
+    back = sp.decode(words)
+    assert sp.LAUNCHES["decode"] == before["decode"] + 1
+    assert torch.equal(back, pm.decode(words))
+    assert torch.equal(back, (cells != 0).to(torch.uint8))
+
+
+def test_codec_wrappers_refuse_on_the_card(card):
+    flat = torch.zeros(1 + 2 * 64, dtype=torch.uint8, device=card)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        sp.encode(flat[1:].view(2, 64))
+    cells = torch.zeros((4, 64), dtype=torch.uint8, device=card)
+    with pytest.raises(ValueError, match="are on"):
+        sp._encode_into(cells, torch.empty((4, 2), dtype=torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        sp.encode(torch.zeros((4, 128), dtype=torch.uint8, device=card)[:, 32:96])
+
+
+@pytest.mark.parametrize("mesh_shape", [None, (4, 1), (2, 2)])
+def test_auto_runner_launches_the_codec_once_per_shard(card, mesh_shape,
+                                                       monkeypatch):
+    from gol_tpu_torch.parallel.mesh import make_mesh
+
+    monkeypatch.setenv("GOL_TORCH_MESH_DEVICES", "4")
+    mesh = None if mesh_shape is None else make_mesh(*mesh_shape)
+    grid = text_grid.generate(256, 64, seed=9)
+    config = GameConfig(gen_limit=300)
+    run = engine.make_runner((64, 256), config, kernel="auto", device=card,
+                             mesh=mesh)
+    before = dict(sp.LAUNCHES)
+    final, gens = run(engine.put_grid(grid, card, mesh))
+    shards = 1 if mesh is None else 4
+    assert sp.LAUNCHES["encode"] - before["encode"] == shards
+    assert sp.LAUNCHES["decode"] - before["decode"] == shards
+    if mesh is not None:
+        from gol_tpu_torch.parallel.mesh import gather
+
+        final = gather(final, mesh_shape)
+    want = oracle.run(grid, config)
+    assert int(gens) == want.generations
+    np.testing.assert_array_equal(final.cpu().numpy(), want.grid)
+
+
+def test_profile_capture_holds_every_kernel_from_the_first(card, tmp_path):
+    # A body that launches at once, E1 then D1 fifty times on a 4x1 shard
+    # of 16384^2: every capture must hold all of them, the first included.
+    import json
+
+    from gol_tpu_torch.obs import profiler
+
+    cells = _codec_bytes(4096, 16384, seed=3).to(card)
+    words, back = sp.encode(cells), torch.empty_like(cells)
+    torch.cuda.synchronize()
+    for i in range(10):
+        pdir = tmp_path / f"capture{i}"
+        with profiler.capture(str(pdir), card):
+            for _ in range(50):
+                sp._encode_into(cells, words)
+                sp._decode_into(words, back)
+        events = json.loads((pdir / "trace.json").read_text())["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        regions = [e for e in events if e.get("cat") == "user_annotation"
+                   and e.get("name") == profiler.CAPTURE_REGION]
+        got = (sum("pack_cells_kernel" in k for k in kernels),
+               sum("unpack_words_kernel" in k for k in kernels))
+        assert got == (50, 50) and len(kernels) == 100, (i, got, len(kernels))
+        assert len(regions) == 1

@@ -8,6 +8,10 @@ JAX package's: words, bytes and file names must be identical.
   ``write_packed`` bytes against JAX's, with the ``.inprogress`` staging
   file gone after the write; over a mesh, each shard's words against the
   shards of JAX's sharded array, and the file written from the shards;
+- the pipelined read (forced on the CPU, chunks of a few rows) against
+  JAX's ``read_packed``, and the fetch-ahead write at ``GOL_D2H_DEPTH`` 1,
+  2, 4 and a malformed value, on one device and a 2x2 mesh, against JAX's
+  ``write_packed``;
 - ``io/sharded`` (the distributed variants' one-device I/O) against JAX's
   with no mesh: the exact-size refusal and the read by position.
 """
@@ -133,6 +137,65 @@ def test_packed_io_chunked_paths(tmp_path, monkeypatch):
     open(out, "wb").write(b"an older, longer file" * 1000)
     packed_io.write_packed(out, words, 128)
     assert open(out, "rb").read() == open(path, "rb").read()
+
+
+@pytest.mark.parametrize("height,width", [(37, 128), (64, 64), (2, 32), (1, 64)])
+def test_pipelined_read_matches_jax(tmp_path, monkeypatch, height, width):
+    # Chunks of three rows, each packed into its rows of the one tensor.
+    monkeypatch.setattr(packed_io, "_READ_CHUNK_BYTES", 3 * (width + 1))
+    monkeypatch.setattr(packed_io, "_WORKERS", 3)
+    packed = []
+    pack_text = native.pack_text
+
+    def spy(text, width, out=None):
+        assert out is not None  # straight into the tensor, no host array
+        packed.append(text.shape[0])
+        return pack_text(text, width, out=out)
+
+    monkeypatch.setattr(native, "pack_text", spy)
+    g, path = _grid_file(tmp_path, height, width, seed=height * 3 + width)
+    words = packed_io.read_packed(path, width, height, "cpu")
+    chunk = min(3, -(-height // 3))
+    assert sorted(packed) == sorted(min(chunk, height - r0)
+                                    for r0 in range(0, height, chunk))
+    assert words.dtype == torch.int32 and words.shape == (height, width // 32)
+    want = np.asarray(jax_packed_io.read_packed(path, width, height))
+    np.testing.assert_array_equal(pm.words_to_numpy(words), want)
+    np.testing.assert_array_equal(pm.decode(words).numpy(), g)
+
+
+@pytest.mark.parametrize("value,depth", [(None, 2), ("1", 1), ("2", 2), ("4", 4),
+                                         ("x", 2), ("0", 1), ("-3", 1)])
+def test_d2h_depth(monkeypatch, value, depth):
+    if value is None:
+        monkeypatch.delenv("GOL_D2H_DEPTH", raising=False)
+    else:
+        monkeypatch.setenv("GOL_D2H_DEPTH", value)
+    assert packed_io.d2h_depth() == depth
+
+
+@pytest.mark.parametrize("mesh_shape", [None, (2, 2)], ids=["one_device", "2x2"])
+@pytest.mark.parametrize("depth", ["1", "2", "4", "x"])
+def test_fetch_ahead_write_matches_jax(tmp_path, monkeypatch, depth, mesh_shape):
+    monkeypatch.setenv("GOL_TORCH_DEVICE", "cpu")
+    monkeypatch.setenv("GOL_TORCH_MESH_DEVICES", "8")
+    monkeypatch.setenv("GOL_D2H_DEPTH", depth)
+    monkeypatch.setattr(packed_io, "_WRITE_CHUNK_BYTES", 2 * 32)  # 2-4 rows a chunk
+    monkeypatch.setattr(packed_io, "_WORKERS", 3)
+    height, width = 26, 256
+    g, path = _grid_file(tmp_path, height, width, seed=len(depth) + 40)
+    mesh = jmesh = None
+    if mesh_shape is not None:
+        mesh, jmesh = make_mesh(*mesh_shape), jax_make_mesh(*mesh_shape)
+    words = packed_io.read_packed(path, width, height, "cpu", mesh=mesh)
+    port_out, jax_out = str(tmp_path / "port.out"), str(tmp_path / "jax.out")
+    open(port_out, "wb").write(b"an older, longer file" * 1000)
+    packed_io.write_packed(port_out, words, width, mesh)
+    jax_packed_io.write_packed(
+        jax_out, jax_packed_io.read_packed(path, width, height, jmesh), width)
+    data = open(port_out, "rb").read()
+    assert data == open(jax_out, "rb").read() == open(path, "rb").read()
+    assert sorted(os.listdir(tmp_path)) == ["grid.txt", "jax.out", "port.out"]
 
 
 @pytest.mark.parametrize("rows,cols", [(2, 2), (1, 4), (4, 2)])
