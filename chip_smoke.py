@@ -19,8 +19,9 @@ error:
    ``csrc/stencil_batch.cu`` (B1, B2: the batch lane's batched steps),
    ``csrc/stencil_tile.cu`` (T1: the sparse and macro lanes' tile step),
    ``csrc/packed_codec.cu`` (E1, D1: the byte-state lanes' cell <-> word
-   codec) and ``native/codec.c`` (the packed-I/O text codec) — with nvcc's
-   ``-Xptxas -v`` report (registers, shared memory, spills).
+   codec), ``native/codec.c`` (the packed-I/O text codec) and
+   ``native/zarr_codec.c`` (the zarr store's blosc/LZ4 chunk codec) — with
+   nvcc's ``-Xptxas -v`` report (registers, shared memory, spills).
 2. Kernels against their plain torch versions on the card: K1 (fast-flag
    8-generation pass), K2 (exact-flag pass), K3 (one generation) and K14
    (the 8-generation pass without flags) at
@@ -318,6 +319,25 @@ error:
    per pass and launches print; the ranks time-slice the one card, so the
    numbers measure the multi-process host tier and its transport, not
    scale-out over cards.
+4l. The zarr word store (``io/ts_store.py`` over ``native/zarr_codec.c``)
+   at 16384^2 on input (a): ``--packed-io --snapshot-every 500
+   --snapshot-format zarr`` under ``game``, ``tpu --mesh 1x1`` and ``tpu
+   --mesh 2x2``, each with bytes and Generations equal to phase 4's run
+   (a), snapshots ``gen_000500.zarr`` and ``gen_001000.zarr`` whose chunk
+   grid is ``_shard_chunks``'s, and a resume from ``gen_000500.zarr
+   --resume-gen 500`` to the same bytes; each snapshot's write and read
+   ms (timed again outside the CLI on the final state) and store bytes.
+   Then ``game --packed-io --checkpoint-every 250`` killed at the
+   generation-500 boundary by ``GOL_FAULTS`` (``kill_mode=exception``, in
+   this process), its manifest ``zarr-words``, and ``--auto-resume`` to
+   run (a)'s bytes. Then BASELINE.md config 5's grid on the card: a
+   random 65536^2 word state (512 MiB, 16 chunks) written and read back
+   exactly, with write ms, read ms and store bytes; a state dead but for
+   one glider, whose store must be under 1% of 512 MiB. Last, the C
+   codec's decode of three chunks, compressed soup, memcpyed random words
+   and the glider's, against its plain Python version. 4l's launches are
+   its CLI runs' (K1-K3 without a mesh, the ghost-plane forms and K5 on
+   2x2); the phase adds no kernel.
 5. Timing: each kernel over 100 warm launches captured in one CUDA graph
    and replayed (CUDA events around the replay), so that the card and not
    the host's launch rate sets ``ms``; beside it ``eager_ms`` (the same
@@ -394,9 +414,10 @@ from gol_tpu_torch import cli, engine, native, oracle, platform_env
 from gol_tpu_torch.cache import ResultCache
 from gol_tpu_torch.config import Convention, GameConfig
 from gol_tpu_torch.fleet import client as fleet_client
-from gol_tpu_torch.io import bitpack, text_grid, wire
+from gol_tpu_torch.io import bitpack, text_grid, ts_store, wire
 from gol_tpu_torch.io import rle as rle_codec
 from gol_tpu_torch.macro import MacroMemo, NodeStore, simulate_macro
+from gol_tpu_torch.native import blosc
 from gol_tpu_torch.obs import profiler
 from gol_tpu_torch.obs import registry as obs_registry
 from gol_tpu_torch.ops import _build, packed_math as pm
@@ -406,6 +427,7 @@ from gol_tpu_torch.ops import stencil_pallas as spl
 from gol_tpu_torch.ops import stencil_tile as stl
 from gol_tpu_torch.parallel import halo
 from gol_tpu_torch.parallel.mesh import make_mesh
+from gol_tpu_torch.resilience import faults
 from gol_tpu_torch.serve import batcher, compaction
 from gol_tpu_torch.serve.jobs import JobJournal, new_job
 from gol_tpu_torch.serve.metrics import Metrics
@@ -780,7 +802,7 @@ def card_and_build() -> str:
                   pool.submit(_build.build, "stencil_batch"),
                   pool.submit(_build.build, "stencil_tile"),
                   pool.submit(_build.build, "packed_codec"),
-                  pool.submit(native.load)]
+                  pool.submit(native.load), pool.submit(blosc.load)]
         for b in builds:
             b.result()
     sp.load_kernels()
@@ -791,7 +813,8 @@ def card_and_build() -> str:
           f"{_build.library_path('stencil_pallas').name}, "
           f"{_build.library_path('stencil_batch').name}, "
           f"{_build.library_path('stencil_tile').name}, "
-          f"{_build.library_path('packed_codec').name} and the codec in "
+          f"{_build.library_path('packed_codec').name}, the codec and the "
+          f"zarr codec in "
           f"{time.perf_counter() - t0:.3f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
     for name in ("stencil_packed", "stencil_pallas", "stencil_batch",
                  "stencil_tile", "packed_codec"):
@@ -4161,6 +4184,185 @@ def multiprocess_lanes(work: Path, path: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 4l. The zarr word store
+
+# Each lane's flags, mesh, and the 8-generation pass its run (a) launches
+# (K1 without a mesh, the ghost-plane form K9+K10 on 2x2).
+ZARR_LANES = {
+    "game": (["--variant", "game"], None, "bandt_fast"),
+    "tpu 1x1": (["--variant", "tpu", "--mesh", "1x1"], None, "bandt_fast"),
+    "tpu 2x2": (["--variant", "tpu", "--mesh", "2x2"], (2, 2), "bandtg_fast"),
+}
+BIG = 65536  # BASELINE.md config 5's grid
+GLIDER = [(0, 1), (1, 2), (2, 0), (2, 1), (2, 2)]
+
+
+def _store_bytes(path: Path) -> int:
+    return sum(p.stat().st_size for p in path.iterdir())
+
+
+def _timed_store(path: Path, state, width: int, height: int, mesh, dev) -> dict:
+    """Write ``state`` to a fresh store and read it back onto ``dev``,
+    timed apart (each ends in a card sync); the read must equal it."""
+    shutil.rmtree(path, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts_store.write_words(str(path), state, width, mesh)
+    write_ms = (time.perf_counter() - t0) * 1000
+    t0 = time.perf_counter()
+    back = ts_store.read_words(str(path), width, height, mesh, device=dev)
+    torch.cuda.synchronize()
+    read_ms = (time.perf_counter() - t0) * 1000
+    same = (all(torch.equal(a, b) for a, b in zip(back, state)) if mesh is not None
+            else torch.equal(back, state))
+    if not same:
+        fail(f"4l: {path.name} read back differs from the state written")
+    return {"write_ms": write_ms, "read_ms": read_ms, "store_bytes": _store_bytes(path)}
+
+
+def _plain_check(path: Path, name: str, nbytes: int) -> int:
+    """The C codec's decode of one chunk file against its plain version;
+    the frame's flags."""
+    frame = (path / name).read_bytes()
+    got = np.empty(nbytes, dtype=np.uint8)
+    blosc.decode(frame, got)
+    if not np.array_equal(got, blosc.decode_plain(frame, nbytes)):
+        fail(f"4l: the C codec's decode of {path.name}/{name} differs from "
+             f"its plain version")
+    return frame[2]
+
+
+def zarr_lanes(work: Path, path: dict, dev) -> dict:
+    """Phase 4l: zarr snapshots, resume and zarr-words checkpoints at
+    16384^2 against phase 4's run (a); the 65536^2 round trip; the codec
+    against its plain version."""
+    t_phase = time.perf_counter()
+    inp, out = path["inputs"]["random"], work / "out.txt"
+    want = path["results"][("game", "random", 1000)]
+    nwords = SIZE // 32
+    runs, by_path = {}, {}
+    for lane, (flags, mesh_shape, key) in ZARR_LANES.items():
+        snaps = work / f"zarr4l_{lane.replace(' ', '_')}"
+        base = [str(SIZE), str(SIZE), str(inp), *flags, "--packed-io",
+                "--gen-limit", "1000", "--output", str(out)]
+        _zero_counters()
+        gens, ms, _ = _cli([*base, "--snapshot-every", "500", "--snapshot-format",
+                            "zarr", "--snapshot-dir", str(snaps)])
+        by_path[f"{lane} --packed-io zarr snapshots"] = counts = _counts()
+        if counts[key] == 0 or counts["encode"] or counts["decode"]:
+            fail(f"4l {lane} zarr snapshots launched {_nonzero(counts)}: expected "
+                 f"{key} and no E1/D1 (a packed lane)")
+        if (gens, _digest(out)) != want:
+            fail(f"4l {lane} zarr snapshots: Generations {gens} or bytes differ "
+                 f"from phase 4's run (a)")
+        names = sorted(p.name for p in snaps.iterdir())
+        if names != ["gen_000500.zarr", "gen_001000.zarr"]:
+            fail(f"4l {lane}: snapshots {names}")
+        mesh = make_mesh(*mesh_shape) if mesh_shape else None
+        grid = list(ts_store._shard_chunks((SIZE, nwords), mesh))
+        for name in names:
+            chunks = json.loads((snaps / name / ".zarray").read_text())["chunks"]
+            if chunks != grid:
+                fail(f"4l {lane}: {name} has chunks {chunks}, _shard_chunks {grid}")
+        out.unlink()
+        _zero_counters()
+        rgens, rms, _ = _cli([str(SIZE), str(SIZE), str(snaps / "gen_000500.zarr"),
+                              *flags, "--packed-io", "--gen-limit", "1000",
+                              "--resume-gen", "500", "--output", str(out)])
+        by_path[f"{lane} --packed-io zarr resume"] = _counts()
+        if (rgens, _digest(out)) != want:
+            fail(f"4l {lane} resumed from gen_000500.zarr: Generations {rgens} or "
+                 f"bytes differ from phase 4's run (a)")
+        # The final state, read onto the card, written and read again alone.
+        state = ts_store.read_words(str(snaps / "gen_001000.zarr"), SIZE, SIZE,
+                                    mesh, device=dev)
+        timed = _timed_store(work / "zarr4l_timed.zarr", state, SIZE, SIZE, mesh, dev)
+        runs[lane] = {"exec_ms": ms, "resumed_exec_ms": rms, **timed,
+                      "snapshot_bytes": {n: _store_bytes(snaps / n) for n in names}}
+        print(f"4l {lane} --packed-io zarr snapshots at 500, 1000: Generations "
+              f"{gens}, Execution {ms:.3f} ms (snapshot writes included), bytes "
+              f"== run (a), chunks {grid}; resumed from gen_000500.zarr: "
+              f"Execution {rms:.3f} ms, bytes == run (a); launches "
+              f"{_nonzero(counts)}; final state write "
+              f"{timed['write_ms']:.3f} ms, read {timed['read_ms']:.3f} ms, store "
+              f"{timed['store_bytes']} bytes of {SIZE * nwords * 4}", flush=True)
+        if lane == "game":
+            soup = snaps / "gen_000500.zarr"
+        del state
+
+    ckdir = work / "zarr4l_ck"
+    base = [str(SIZE), str(SIZE), str(inp), "--variant", "game", "--packed-io",
+            "--gen-limit", "1000", "--checkpoint-every", "250", "--checkpoint-dir",
+            str(ckdir), "--output", str(out)]
+    out.unlink()
+    os.environ["GOL_FAULTS"] = "kill_at_gen=500"
+    try:
+        _cli(base)
+        fail("4l: the zarr-words checkpoint run was not killed at 500")
+    except faults.InjectedCrash:
+        pass
+    finally:
+        del os.environ["GOL_FAULTS"]
+    kept = _manifests(ckdir)
+    formats = {json.loads((ckdir / m).read_text())["payload_format"] for m in kept}
+    if kept != ["ckpt-00000250.manifest.json"] or formats != {"zarr-words"} \
+            or out.exists():
+        fail(f"4l: the killed checkpoint run left {kept} ({formats})")
+    _zero_counters()
+    gens, ms, text = _cli([*base, "--auto-resume"])
+    by_path["game --packed-io zarr-words resumed"] = _counts()
+    if (gens, _digest(out)) != want:
+        fail("4l: --auto-resume of the zarr-words checkpoints: Generations "
+             f"{gens} or bytes differ from phase 4's run (a)")
+    runs["game --packed-io --checkpoint-every 250, resumed from 250"] = {"exec_ms": ms}
+    print(f"4l game --packed-io --checkpoint-every 250 killed at 500 (manifests "
+          f"{kept}, zarr-words), --auto-resume: Generations {gens}, Execution "
+          f"{ms:.3f} ms, bytes == run (a)", flush=True)
+    shutil.rmtree(ckdir)
+
+    big_words = BIG // 32
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    words = torch.randint(-2 ** 31, 2 ** 31, (BIG, big_words), dtype=torch.int32,
+                          device=dev, generator=gen)
+    big = work / "zarr4l_big.zarr"
+    runs[f"{BIG} random"] = timed = _timed_store(big, words, BIG, BIG, None, dev)
+    raw = BIG * big_words * 4
+    print(f"4l {BIG}^2 random words ({raw} bytes, {-(-BIG // 4096)} chunks): write "
+          f"{timed['write_ms']:.3f} ms, read {timed['read_ms']:.3f} ms, store "
+          f"{timed['store_bytes']} bytes, read == written", flush=True)
+    random_flags = _plain_check(big, "0.0", min(BIG, 4096) * big_words * 4)
+    words.zero_()
+    for r, c in GLIDER:
+        row, col = BIG // 2 + r, BIG // 3 + c
+        words[row, col // 32] |= 1 << (col % 32)
+    glider = work / "zarr4l_glider.zarr"
+    runs[f"{BIG} glider"] = timed = _timed_store(glider, words, BIG, BIG, None, dev)
+    if timed["store_bytes"] >= raw // 100:
+        fail(f"4l: the glider's store is {timed['store_bytes']} bytes, not under "
+             f"1% of {raw}")
+    print(f"4l {BIG}^2 dead but one glider: write {timed['write_ms']:.3f} ms, read "
+          f"{timed['read_ms']:.3f} ms, store {timed['store_bytes']} bytes "
+          f"({timed['store_bytes'] / raw:.5f} of raw), read == written", flush=True)
+    glider_chunk = f"{(BIG // 2) // 4096}.0"
+    glider_flags = _plain_check(glider, glider_chunk, min(BIG, 4096) * big_words * 4)
+    del words
+    soup_flags = _plain_check(soup, "0.0", min(SIZE, 4096) * nwords * 4)
+    flags = {"soup 0.0": soup_flags, "random 0.0": random_flags,
+             f"glider {glider_chunk}": glider_flags}
+    if random_flags & blosc.MEMCPYED == 0 or glider_flags & blosc.MEMCPYED:
+        fail(f"4l: chunk kinds {flags}: expected memcpyed random words and a "
+             f"compressed glider chunk")
+    print("4l the C codec's decode equals its plain version on chunks "
+          + ", ".join(f"{k} (flags 0x{v:02x})" for k, v in flags.items()), flush=True)
+    shutil.rmtree(big)
+    shutil.rmtree(glider)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 4l took {seconds:.1f} s", flush=True)
+    return {"launches": by_path, "runs": runs, "codec_flags": flags,
+            "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
 # 5. Timing at 16384^2
 
 
@@ -4546,6 +4748,8 @@ def main(argv=None) -> int:
         fleet = fleet_lanes(work)
         phase(f"4k. multi-process runs at {SIZE}x{SIZE} on the one card")
         multi = multiprocess_lanes(work, path)
+        phase(f"4l. the zarr word store at {SIZE}x{SIZE} and {BIG}x{BIG}")
+        zarr = zarr_lanes(work, path, dev)
         phase("5. timing")
         times = timing(dev)
         phase("6. the flag-cost roofline")
@@ -4585,10 +4789,12 @@ def main(argv=None) -> int:
                                         if k != "launches"}))
     print("multi-process lanes: " + json.dumps({k: v for k, v in multi.items()
                                                 if k != "launches"}))
+    print("zarr store: " + json.dumps({k: v for k, v in zarr.items()
+                                       if k != "launches"}))
     launches = {**path["launches"], **mesh["launches"], **ckpt["launches"],
                 **obs["launches"], **batch["launches"], **server["launches"],
                 **ring["launches"], **tuner["launches"], **lanes["launches"],
-                **fleet["launches"], **multi["launches"],
+                **fleet["launches"], **multi["launches"], **zarr["launches"],
                 "tpu 2x2 auto 64x64 (one-word shards)": one_word,
                 "roofline": roof_counts}
     table = []

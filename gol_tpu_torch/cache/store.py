@@ -25,10 +25,10 @@ Payload encodings (the meta JSON is always the commit point):
 - ``text``: the grid rides inside the meta file in the text-grid encoding
   — the same bytes the journal stores. Always readable regardless of the
   configured payload.
-- ``ts``: the JAX package's TensorStore zarr lane. The port has no
-  TensorStore: a store configured for it is refused at construction, and
-  a ``ts`` entry found on disk is handled like any entry this process
-  cannot read — evicted loudly, and the engine re-runs.
+- ``ts``: exact-fit payloads whose width packs (W % 32 == 0) write their
+  bitpacked words to a zarr store beside the meta (``io/ts_store.py``, the
+  JAX package's TensorStore lane without TensorStore). Anything the lane
+  cannot take (an unpackable width) falls back to ``text`` loudly.
 
 On read the payload lane is chosen by the ENTRY's meta, not the store's
 configured payload, and the CRC gate covers every encoding identically
@@ -60,10 +60,6 @@ SCHEMA_VERSION = 1
 _META_SUFFIX = ".json"
 _STORE_SUFFIX = ".zarr"
 _PACKED_SUFFIX = ".golp"
-# The zarr payload lane needs TensorStore, which the port does not use.
-TS_REFUSAL = ("the 'ts' cache payload (TensorStore zarr) is not ported; use "
-              "--cache-payload packed or text, or serve with python -m "
-              "gol_tpu")
 
 
 @dataclasses.dataclass
@@ -168,9 +164,7 @@ class DiskCAS:
     def __init__(self, directory: str, payload: str = "packed", on_evict=None,
                  max_bytes: int | None = None, on_gc_evict=None,
                  clock=time.perf_counter):
-        if payload == "ts":
-            raise ValueError(TS_REFUSAL)
-        if payload not in ("packed", "text"):
+        if payload not in ("packed", "text", "ts"):
             raise ValueError(
                 f"payload must be 'packed', 'text' or 'ts', got {payload!r}"
             )
@@ -232,6 +226,16 @@ class DiskCAS:
             except Exception as err:  # noqa: BLE001 - degrade, never fail
                 logger.warning(
                     "cache CAS: packed payload for %s failed (%s: %s); "
+                    "falling back to text", fp, type(err).__name__, err,
+                )
+        if self.payload == "ts" and width % 32 == 0 \
+                and sys.byteorder == "little":
+            try:
+                self._write_ts(fp, entry, width)
+                meta["payload"] = "ts"
+            except Exception as err:  # noqa: BLE001 - optional lane
+                logger.warning(
+                    "cache CAS: zarr payload for %s failed (%s: %s); "
                     "falling back to text", fp, type(err).__name__, err,
                 )
         if "payload" not in meta:
@@ -303,6 +307,24 @@ class DiskCAS:
             )
         return frame.grid(), frame.words
 
+    def _write_ts(self, fp: str, entry: CacheEntry, width: int) -> None:
+        import torch
+
+        from gol_tpu_torch.io import bitpack, ts_store
+
+        words = bitpack.pack_words(
+            np.ascontiguousarray(entry.grid, dtype=np.uint8)
+        )
+        ts_store.write_words(self.store_path(fp),
+                             torch.from_numpy(words.view(np.int32)), width)
+
+    def _read_ts(self, fp: str, width: int, height: int) -> np.ndarray:
+        from gol_tpu_torch.io import bitpack, ts_store
+
+        words = ts_store.read_words(self.store_path(fp), width, height)
+        return np.ascontiguousarray(
+            bitpack.unpack_words(words.numpy().view(np.uint32), width))
+
     # -- reads --------------------------------------------------------------
 
     def get(self, fp: str) -> CacheEntry | None:
@@ -329,7 +351,7 @@ class DiskCAS:
             if meta["payload"] == "packed":
                 grid, words = self._read_packed(fp, width, height)
             elif meta["payload"] == "ts":
-                raise ValueError(TS_REFUSAL)
+                grid = self._read_ts(fp, width, height)
             else:
                 grid = text_grid.decode(
                     meta["grid"].encode("ascii"), width, height

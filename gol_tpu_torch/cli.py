@@ -65,9 +65,11 @@ result-cache CAS; ``run --pattern F --engine shard --shard-across URL``
 runs one universe across a fleet's workers (``shard/``, T1 on each
 worker); ``tune`` measures and caches engine and serve plans (``tune/``);
 ``top`` and ``fleet-trace`` read a live server (``obs/top``,
-``obs/fleettrace``). ``serve --cache-payload ts`` exits 1 with a ``gol:``
-line (the port has no zarr store); ``tune --sparse-crossover`` measures
-and caches the dense/sparse crossover of ``--engine auto``.
+``obs/fleettrace``); ``tune --sparse-crossover`` measures and caches the
+dense/sparse crossover of ``--engine auto``. The zarr lanes
+(``--snapshot-format zarr``, ``.zarr`` inputs, ``zarr-words`` checkpoints
+on ``--packed-io``, ``serve --cache-payload ts``) run on the port's own
+zarr store (``io/ts_store.py``), which refuses only ``://`` paths.
 """
 
 from __future__ import annotations
@@ -85,7 +87,7 @@ import torch
 
 from gol_tpu_torch import engine, oracle
 from gol_tpu_torch.config import DEFAULT_HEIGHT, DEFAULT_WIDTH, GameConfig
-from gol_tpu_torch.io import packed_io, sharded, text_grid
+from gol_tpu_torch.io import packed_io, sharded, text_grid, ts_store
 from gol_tpu_torch.obs import profiler
 from gol_tpu_torch.obs import trace as obs_trace
 from gol_tpu_torch.obs.profiler import fence
@@ -295,23 +297,27 @@ def _run(args) -> int:
             f"--resume-gen {args.resume_gen} exceeds --gen-limit "
             f"{config.gen_limit}; nothing to resume"
         )
-    # TensorStore snapshots are refused before every lane: the port has no
-    # zarr store.
+    # The zarr guards depend only on argv, so they run before every lane
+    # (including --host, which would otherwise read_grid a .zarr directory).
     if args.snapshot_format == "zarr":
         if not args.packed_io:
             raise ValueError(
                 "--snapshot-format zarr stores the bitpacked word state and "
                 "needs the packed lane; add --packed-io"
             )
-        raise ValueError(
-            "--snapshot-format zarr needs tensorstore, which the PyTorch "
-            "port does not use; use --snapshot-format text"
-        )
-    if args.input_file.endswith(".zarr"):
-        raise ValueError(
-            "a .zarr input (TensorStore snapshot) is not readable by the "
-            "PyTorch port; resume from a gen_NNNNNN.out snapshot instead"
-        )
+        if not ts_store.HAVE_STORE:
+            raise ValueError(
+                "--snapshot-format zarr needs the zarr store, which is "
+                "switched off; use --snapshot-format text"
+            )
+        ts_store.refuse_object_store(args.snapshot_dir or "")
+    if args.input_file and args.input_file.endswith(".zarr"):
+        if not args.packed_io:
+            raise ValueError(
+                "a .zarr input (TensorStore snapshot) holds packed word state; "
+                "add --packed-io to resume from it"
+            )
+        ts_store.refuse_object_store(args.input_file)
 
     if args.engine == "sparse":
         # Sparse engine over a dense input FILE (the A/B lane): reading the
@@ -468,7 +474,14 @@ def _run_packed_io(args, variant, config, width, height, output_path, devices,
     device = devices[0]
     t0 = time.perf_counter()
     with obs_trace.span("cli.read_phase", file=args.input_file):
-        words = packed_io.read_packed(args.input_file, width, height, device, mesh)
+        if args.input_file.endswith(".zarr"):
+            # A zarr snapshot (gen_NNNNNN.zarr) resumes directly on the
+            # packed lane, the object-store counterpart of text resume.
+            words = ts_store.read_words(args.input_file, width, height, mesh,
+                                        device=device)
+        else:
+            words = packed_io.read_packed(args.input_file, width, height,
+                                          device, mesh)
     read_ms = (time.perf_counter() - t0) * 1000
     if variant.io_timings:
         print(f"Reading file:\t{read_ms:.2f} msecs")
@@ -498,10 +511,10 @@ def _run_packed_io(args, variant, config, width, height, output_path, devices,
     )
 
 
-def _snapshot_loop(args, config, runner, state0, write_snapshot):
+def _snapshot_loop(args, config, runner, state0, write_snapshot, suffix=".out"):
     """Shared snapshotting loop over a segment runner, built (and its
     kernels loaded) before the timer: every segment's state is written as
-    ``gen_NNNNNN.out``, a valid input file (the reference's only resume
+    ``gen_NNNNNN<suffix>``, a valid input file (the reference's only resume
     path, output-is-input, src/game.c:25-40 vs :154-165 — here it exists
     mid-run). Execution time covers the segmented loop including the
     snapshot writes."""
@@ -512,8 +525,8 @@ def _snapshot_loop(args, config, runner, state0, write_snapshot):
         final, generations = state0, 0
         for generations, final, _stopped in engine._iter_segments(
                 runner, state0, config, args.snapshot_every, args.resume_gen):
-            write_snapshot(os.path.join(outdir, f"gen_{generations:06d}.out"),
-                           final)
+            write_snapshot(
+                os.path.join(outdir, f"gen_{generations:06d}{suffix}"), final)
         return final, generations
 
     return run_fn
@@ -530,12 +543,18 @@ def _prepare_segmented(args, variant, config, device_grid, height, width,
 
 def _prepare_packed_segmented(args, config, words, height, width, device, mesh):
     """Snapshotting loop over word state: every snapshot is written through
-    the packed codec, itself a valid input file for any lane."""
+    the packed codec (text format, itself a valid input file for any lane)
+    or, with --snapshot-format zarr, through the sharded zarr store
+    (io/ts_store.py), resumed as a .zarr input on the packed lane."""
     runner = engine.make_packed_segment_runner((height, width), config, device,
                                                mesh=mesh)
-    return _snapshot_loop(
-        args, config, runner, words,
-        lambda path, state: packed_io.write_packed(path, state, width, mesh))
+    if args.snapshot_format == "zarr":
+        write = lambda path, state: ts_store.write_words(path, state, width, mesh)
+        suffix = ".zarr"
+    else:
+        write = lambda path, state: packed_io.write_packed(path, state, width, mesh)
+        suffix = ".out"
+    return _snapshot_loop(args, config, runner, words, write, suffix=suffix)
 
 
 def _prepare_resumed(args, config, state, height, width, device, mesh, *,
@@ -564,14 +583,24 @@ def _prepare_resumed(args, config, state, height, width, device, mesh, *,
 
 
 def _checkpoint_codec(args, variant, width, height, device, mesh):
-    """Payload encoding of the checkpoint lane: the packed lane stores the
-    bitpacked words through the packed text codec (what the JAX package
-    writes without tensorstore: the port has no zarr store), the byte lane a
-    text grid through the variant's own I/O. Both are topology-independent,
-    so checkpoints restore across mesh changes and across the two
-    packages."""
+    """Payload encoding of the checkpoint lane, as the JAX package picks
+    it: the packed lane stores the bitpacked words as a zarr store (every
+    process writes only its shards), or through the packed text codec
+    when the store is switched off (``ts_store.HAVE_STORE``, JAX's
+    ``HAVE_TENSORSTORE``); the byte lane a text grid through the variant's
+    own I/O. All three are topology-independent, so checkpoints restore
+    across mesh changes and across the two packages."""
     from gol_tpu_torch.resilience.checkpoint import PayloadCodec
 
+    if args.packed_io and ts_store.HAVE_STORE:
+        return PayloadCodec(
+            format="zarr-words",
+            suffix=".zarr",
+            write=lambda path, state: ts_store.write_words(path, state, width, mesh),
+            read=lambda path: ts_store.read_words(path, width, height, mesh,
+                                                  device=device),
+            self_retrying=True,  # ts_store runs DEFAULT_IO_RETRY itself
+        )
     if args.packed_io:
         return PayloadCodec(
             format="packed-text",
@@ -585,29 +614,6 @@ def _checkpoint_codec(args, variant, width, height, device, mesh):
         write=lambda path, state: _write_phase(variant, path, state, mesh),
         read=lambda path: _read_phase(variant, path, width, height, device, mesh),
     )
-
-
-def _refuse_zarr_checkpoints(directory: str) -> None:
-    """A directory holding the JAX package's ``zarr-words`` checkpoints
-    (TensorStore payloads) is refused: the port cannot read them, and
-    resuming past them, or pruning them, would misreport what ran."""
-    if not os.path.isdir(directory):
-        return
-    for name in sorted(os.listdir(directory)):
-        if not name.endswith(".manifest.json"):
-            continue
-        try:
-            with open(os.path.join(directory, name)) as f:
-                fmt = json.load(f).get("payload_format")
-        except (OSError, ValueError):
-            continue  # an unreadable manifest is restore()'s to skip
-        if fmt == "zarr-words":
-            raise ValueError(
-                f"{os.path.join(directory, name)}: a zarr-words checkpoint "
-                "(TensorStore payload) is not readable by the PyTorch port; "
-                "resume it with python -m gol_tpu, or use another "
-                "--checkpoint-dir"
-            )
 
 
 def _prepare_checkpointed(args, variant, config, state, height, width, device,
@@ -626,7 +632,6 @@ def _prepare_checkpointed(args, variant, config, state, height, width, device,
     counterpart of the JAX lane's zero-step compile call."""
     from gol_tpu_torch.resilience.checkpoint import CheckpointManager, run_fingerprint
 
-    _refuse_zarr_checkpoints(args.checkpoint_dir)
     mesh_shape = mesh.shape if mesh is not None else (1, 1)
     local = mesh.local if mesh is not None and mesh.owners is not None else None
     guard = None
@@ -1288,15 +1293,11 @@ def _serve(args) -> int:
     ``--resident-ring R`` mounts the resident ring lanes
     (``serve/resident.py``); ``--warm-plans`` builds and runs once the
     bucket runners of every shape ``tune`` recorded, before ``serving on``
-    prints. Refused with a ``gol:`` line, as not ported: ``--cache-payload
-    ts``."""
+    prints."""
     import signal
 
-    from gol_tpu_torch.cache.store import TS_REFUSAL
     from gol_tpu_torch.ops import stencil_batch
 
-    if args.cache_payload == "ts":
-        raise ValueError(TS_REFUSAL)
     _build.enable_compile_cache(args.compile_cache)
 
     # The subprocess fault harness (GOL_FAULTS crosses the exec boundary,
@@ -3060,7 +3061,10 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument(
         "--snapshot-format", choices=("text", "zarr"), default="text",
         help="snapshot encoding: 'text' writes gen_NNNNNN.out files (valid "
-        "input files); 'zarr' is refused (the port has no TensorStore)",
+        "input files, the reference's output-is-input resume); 'zarr' "
+        "(packed lane only) writes sharded zarr stores (io/ts_store.py) — "
+        "every process writes only its own shards; resume by passing the "
+        "gen_NNNNNN.zarr path as the input file with --resume-gen N",
     )
     run.add_argument(
         "--resume-gen", type=int, default=0, metavar="N",
@@ -3288,9 +3292,10 @@ def build_parser() -> argparse.ArgumentParser:
         "--cache-payload", choices=("packed", "text", "ts"), default="packed",
         help="CAS payload encoding: 'packed' (default — the binary wire "
         "frame, io/wire.py, ~8x smaller than text at any width; packed "
-        "hits serve without a decode/re-encode round trip) or 'text' "
-        "(self-contained meta JSON); 'ts' (TensorStore zarr) is not "
-        "ported and is refused",
+        "hits serve without a decode/re-encode round trip), 'text' "
+        "(self-contained meta JSON) or 'ts' (zarr via io/ts_store.py). "
+        "Entries of every encoding read back on every setting; unavailable "
+        "lanes fall back to text loudly",
     )
     srv.add_argument(
         "--cache-disk-bytes", type=int, default=None, metavar="N",

@@ -78,6 +78,9 @@ class PayloadCodec:
     suffix: str  # payload file extension, e.g. ".out"
     write: Callable[[str, Any], None]  # (path, state) -> None
     read: Callable[[str], Any]  # path -> state on the run's devices
+    # True when write/read run their own RetryPolicy internally (the zarr
+    # codec): the manager then must not stack its outer retry on top.
+    self_retrying: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -466,10 +469,12 @@ class CheckpointManager:
             # Serialized against prune(): the async writer runs this on its
             # thread, and the codecs stage files in the checkpoint directory.
             with self._io_lock:
-                if self.multihost:
-                    # No retry: the codec's write votes across the ranks,
+                if self.multihost or self.codec.self_retrying:
+                    # No outer retry. Across ranks: the codec's write votes,
                     # and one rank re-entering it would pair with a peer's
-                    # next collective.
+                    # next collective. Self-retrying codecs: stacking this
+                    # policy on the codec's own would cube the time to
+                    # failure of a persistent outage.
                     self.codec.write(payload_path, state)
                 else:
                     self.retry.call(lambda: self.codec.write(payload_path, state))
@@ -624,7 +629,10 @@ class CheckpointManager:
                     f"{manifest.get('run_fingerprint')!r} != this run's "
                     f"{self.run_fingerprint!r}) — stale checkpoint dir?")
             payload = os.path.join(self.directory, manifest["payload"])
-            state = self.retry.call(lambda: self.codec.read(payload))
+            if self.codec.self_retrying:
+                state = self.codec.read(payload)
+            else:
+                state = self.retry.call(lambda: self.codec.read(payload))
             shape = state_shape(state, self.mesh_shape)
             if shape != tuple(manifest["state_shape"]):
                 raise ValueError(

@@ -1,9 +1,9 @@
 """Fault-injection plan: deterministic failures for the recovery harness.
 
 The port's copy of ``gol_tpu/resilience/faults.py``: the same ``GOL_FAULTS``
-/ ``--fault-plan`` keys, errors and probes. The probes whose call sites
-the port does not have (TensorStore shard writes and opens) are left out;
-their keys still parse, so one spec drives both packages.
+/ ``--fault-plan`` keys, errors and probes, so one spec drives both
+packages. The ``ts_*`` probes fire in the port's zarr store
+(``io/ts_store.py``), which keeps JAX's "tensorstore" site names.
 
 The crash-safety claims in ``resilience/checkpoint.py`` (a crash never leaves
 the checkpoint dir without a readable prior state; auto-resume reproduces the
@@ -174,6 +174,28 @@ def clear() -> None:
 # --- injection points -------------------------------------------------------
 # Each probe is called by exactly one library site; the site string rides the
 # raised error so a harness assertion can name where the fault landed.
+
+
+def on_ts_open() -> None:
+    plan = _active
+    if plan is None:
+        return
+    if plan._ts_opens < plan.ts_open_transient:
+        plan._ts_opens += 1
+        raise TransientInjectedError("tensorstore open")
+    plan._ts_opens += 1
+
+
+def on_ts_shard_write(shard_index: int) -> None:
+    plan = _active
+    if plan is None:
+        return
+    plan._ts_writes += 1
+    if plan.ts_write_fail is not None and plan._ts_writes == plan.ts_write_fail:
+        site = f"tensorstore shard write #{plan._ts_writes} (shard {shard_index})"
+        if plan.ts_write_error == "transient":
+            raise TransientInjectedError(site)
+        raise InjectedWriteError(site)
 
 
 def _tear(path: str) -> None:

@@ -7,12 +7,12 @@ The keys and the on-disk CAS are the state the two packages share:
   ``packed_body_fingerprint`` equal JAX's for the same job or body, on
   widths that are and are not multiples of 32 and on packed bodies;
 - a ``DiskCAS`` written by one package is read by the other, for the
-  ``packed`` and ``text`` payloads;
+  ``packed``, ``text`` and ``ts`` (zarr) payloads;
 - ``gc.collect``'s report, and the ``gc`` subcommand's stdout in dry-run
   and ``--apply``, equal JAX's on copies of one directory;
-- the ``ts`` payload (TensorStore) is refused at construction, and a ``ts``
-  entry found on disk is evicted loudly, as JAX evicts an entry it cannot
-  read;
+- an unknown payload is refused at construction with JAX's message, and
+  a ``ts`` entry whose zarr store is torn is evicted loudly, as JAX evicts
+  it;
 - the scheduler's cache consult: hits byte-identical to engine results and
   journaled as DONE records, in-flight coalescing, cancel promotion,
   ``no_cache``, a corrupt entry re-run.
@@ -43,7 +43,6 @@ from gol_tpu.serve.metrics import Metrics as JaxMetrics
 from gol_tpu_torch import cli, engine
 from gol_tpu_torch.cache import CacheEntry, DiskCAS, MemoryLRU, ResultCache
 from gol_tpu_torch.cache import fingerprint, gc
-from gol_tpu_torch.cache.store import TS_REFUSAL
 from gol_tpu_torch.config import Convention, GameConfig
 from gol_tpu_torch.io import wire
 from gol_tpu_torch.serve.jobs import (
@@ -136,11 +135,13 @@ def _pair(package: str, shape, seed: int, with_words: bool):
                words=words)
 
 
-@pytest.mark.parametrize("payload", ["packed", "text"])
+@pytest.mark.parametrize("payload", ["packed", "text", "ts"])
 @pytest.mark.parametrize("writer", ["jax", "port"])
 @pytest.mark.parametrize("shape", [(30, 45), (32, 64)], ids=["30x45", "32x64"])
 def test_cas_written_by_one_package_reads_in_the_other(tmp_path, payload, writer,
                                                        shape):
+    """``ts`` takes widths that pack (W % 32 == 0) and falls back to text
+    for the others, in both packages."""
     entry = _pair(writer, shape, 5, with_words=True)
     fp = fingerprint.result_fingerprint(entry.grid)
     cas_cls, reader_cls = (JaxCAS, DiskCAS) if writer == "jax" else (DiskCAS, JaxCAS)
@@ -149,8 +150,11 @@ def test_cas_written_by_one_package_reads_in_the_other(tmp_path, payload, writer
     assert got is not None
     np.testing.assert_array_equal(got.grid, entry.grid)
     assert (got.generations, got.exit_reason) == (entry.generations, "similar")
+    stored = "text" if payload == "ts" and shape[1] % 32 else payload
     with open(DiskCAS(str(tmp_path / "cas")).meta_path(fp)) as f:
-        assert json.load(f)["payload"] == payload
+        assert json.load(f)["payload"] == stored
+    assert os.path.isdir(DiskCAS(str(tmp_path / "cas")).store_path(fp)) == (
+        stored == "ts")
     if payload == "packed":
         np.testing.assert_array_equal(got.words, wire.pack_grid(entry.grid))
 
@@ -188,32 +192,51 @@ def test_corrupt_sidecar_evicts_loudly(tmp_path):
 
 
 def test_ts_payload_is_refused_at_construction(tmp_path):
-    with pytest.raises(ValueError) as err:
-        DiskCAS(str(tmp_path), payload="ts")
-    assert str(err.value) == TS_REFUSAL
-    with pytest.raises(ValueError):
-        ResultCache(cas_dir=str(tmp_path), payload="ts")
-    with pytest.raises(ValueError) as err:
-        DiskCAS(str(tmp_path), payload="zarr")
-    assert "'packed', 'text' or 'ts'" in str(err.value)
+    """Only an unknown payload is refused at construction, with JAX's
+    message, in ``DiskCAS`` and ``ResultCache``; ``ts`` constructs in both
+    packages and its entries round trip through each other's CAS."""
+    messages = []
+    for cas_cls, cache_cls in ((JaxCAS, JaxCache), (DiskCAS, ResultCache)):
+        with pytest.raises(ValueError) as err:
+            cas_cls(str(tmp_path / "bad"), payload="zarr")
+        messages.append(str(err.value))
+        with pytest.raises(ValueError):
+            cache_cls(cas_dir=str(tmp_path / "bad"), payload="zarr")
+    assert messages[0] == messages[1]
+    assert "'packed', 'text' or 'ts'" in messages[1]
+    for writer, (write_cls, read_cls) in (("jax", (JaxCAS, DiskCAS)),
+                                          ("port", (DiskCAS, JaxCAS))):
+        entry = _pair(writer, (32, 64), 6, with_words=False)
+        fp = fingerprint.result_fingerprint(entry.grid)
+        cas_dir = str(tmp_path / writer)
+        write_cls(cas_dir, payload="ts").put(fp, entry)
+        got = read_cls(cas_dir, payload="ts").get(fp)
+        np.testing.assert_array_equal(got.grid, entry.grid)
+        assert (got.generations, got.exit_reason) == (entry.generations, "similar")
 
 
 def test_a_ts_entry_on_disk_is_evicted_loudly(tmp_path, caplog):
-    """A JAX server with ``--cache-payload ts`` left a TensorStore entry:
-    the port cannot read it, so it is evicted (meta, zarr) and counted, as
-    JAX evicts any entry it cannot read, and the engine re-runs."""
+    """A ``ts`` entry whose zarr chunk is torn (a crash mid-write on a
+    foreign writer, disk corruption): the port evicts it (meta, zarr) and
+    counts it, as JAX evicts it on its copy of the directory, and the
+    engine re-runs."""
     entry = _pair("jax", (32, 64), 4, with_words=False)
     fp = fingerprint.result_fingerprint(entry.grid)
-    JaxCAS(str(tmp_path), payload="ts").put(fp, entry)
-    cas = DiskCAS(str(tmp_path))
+    JaxCAS(str(tmp_path / "cas"), payload="ts").put(fp, entry)
+    cas = DiskCAS(str(tmp_path / "cas"))
     with open(cas.meta_path(fp)) as f:
         assert json.load(f)["payload"] == "ts"
-    assert os.path.isdir(cas.store_path(fp))
+    chunk = os.path.join(cas.store_path(fp), "0.0")
+    with open(chunk, "r+b") as f:
+        f.truncate(os.path.getsize(chunk) // 2)
+    shutil.copytree(tmp_path / "cas", tmp_path / "jax_copy")
+    assert JaxCAS(str(tmp_path / "jax_copy")).get(fp) is None
+    assert not os.path.exists(JaxCAS(str(tmp_path / "jax_copy")).meta_path(fp))
     metrics = Metrics()
-    cache = ResultCache(cas_dir=str(tmp_path), metrics=metrics)
+    cache = ResultCache(cas_dir=str(tmp_path / "cas"), metrics=metrics)
     with caplog.at_level("WARNING"):
         assert cache.get(fp) is None
-    assert "evicting corrupt entry" in caplog.text and "not ported" in caplog.text
+    assert "evicting corrupt entry" in caplog.text and "torn chunk" in caplog.text
     assert metrics.counter("cache_corrupt_evictions_total") == 1
     assert metrics.counter("cache_misses_total") == 1
     assert not os.path.exists(cas.meta_path(fp))

@@ -5,15 +5,16 @@ same argv: ``gol_tpu.cli.main`` and ``gol_tpu_torch.cli.main``, each with
 its own output file and checkpoint directory. They must agree on the exit
 code, the printed lines (milliseconds masked), the ``gol:`` error line, the
 output bytes, and the checkpoint directory: the same file names, the same
-payload bytes, and manifests equal but for ``created_unix``. Kills use
-``kill_mode=exception``: each package raises its own ``InjectedCrash``.
+payload bytes (a zarr payload: the same ``.zarray`` bytes, chunk file names
+and decoded words, since the two codecs' chunk bytes differ), and manifests
+equal but for ``created_unix``. Kills use ``kill_mode=exception``: each
+package raises its own ``InjectedCrash``.
 
-The JAX package writes its packed checkpoints as zarr when tensorstore is
-installed; the port has no zarr store and writes the packed text codec, as
-the JAX package does without tensorstore, so these tests take tensorstore
-away from the JAX package (``HAVE_TENSORSTORE = False``). Then directories
-written by either package resume in the other, and the run fingerprint is
-the JAX package's under any mesh.
+Every case runs twice: with the zarr store present in both packages (JAX's
+``HAVE_TENSORSTORE``, the port's ``HAVE_STORE``), where ``--packed-io``
+checkpoints are ``zarr-words``, and with it absent in both, where they are
+``packed-text``. Directories written by either package resume in the
+other, and the run fingerprint is the JAX package's under any mesh.
 """
 
 import json
@@ -22,15 +23,16 @@ import re
 
 import numpy as np
 import pytest
+import tensorstore
 import torch
 
 from gol_tpu import cli as jax_cli
 from gol_tpu.io import packed_io as jax_packed_io
-from gol_tpu.io import ts_store
+from gol_tpu.io import ts_store as jax_ts_store
 from gol_tpu.resilience import faults as jax_faults
 from gol_tpu.resilience import checkpoint as jax_checkpoint
 from gol_tpu_torch import cli
-from gol_tpu_torch.io import packed_io, text_grid
+from gol_tpu_torch.io import packed_io, text_grid, ts_store
 from gol_tpu_torch.parallel.mesh import make_mesh, split
 from gol_tpu_torch.pipeline.snapshot import HostSnapshot, SnapshotBuffers
 from gol_tpu_torch.resilience import checkpoint, faults
@@ -43,12 +45,24 @@ PACKAGES = {"jax": (jax_cli.main, jax_faults.InjectedCrash),
             "port": (cli.main, faults.InjectedCrash)}
 
 
+@pytest.fixture(autouse=True, params=["present", "absent"])
+def store(request, monkeypatch):
+    """The zarr store present in both packages, or absent in both."""
+    present = request.param == "present"
+    monkeypatch.setattr(jax_ts_store, "HAVE_TENSORSTORE", present)
+    monkeypatch.setattr(ts_store, "HAVE_STORE", present)
+    return request.param
+
+
+def _packed_format(store: str) -> str:
+    return "zarr-words" if store == "present" else "packed-text"
+
+
 @pytest.fixture(autouse=True)
 def _setup(monkeypatch):
     monkeypatch.setenv("GOL_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("GOL_TORCH_MESH_DEVICES", "8")
     monkeypatch.delenv("GOL_FAULTS", raising=False)
-    monkeypatch.setattr(ts_store, "HAVE_TENSORSTORE", False)
     jax_faults.clear()
     faults.clear()
     yield
@@ -81,12 +95,26 @@ def _gol_lines(err: str, tmp_path) -> list[str]:
             for line in err.splitlines() if line.startswith("gol:")]
 
 
+def _zarr(path) -> dict:
+    """A zarr payload as the packages must agree on it: its ``.zarray``
+    bytes, its chunk file names, and the words TensorStore decodes."""
+    names = sorted(os.listdir(path))
+    words = tensorstore.open({"driver": "zarr", "kvstore": {
+        "driver": "file", "path": str(path)}}).result().read().result()
+    return {"zarray": open(os.path.join(path, ".zarray"), "rb").read(),
+            "chunks": names, "words": np.asarray(words).tobytes()}
+
+
 def _directory(path) -> dict:
-    """name -> payload bytes, or the manifest without ``created_unix``."""
+    """name -> payload bytes (a zarr payload: ``_zarr``), or the manifest
+    without ``created_unix``."""
     if not os.path.isdir(path):
         return {}
     out = {}
     for name in sorted(os.listdir(path)):
+        if os.path.isdir(os.path.join(path, name)):
+            out[name] = _zarr(os.path.join(path, name))
+            continue
         data = open(os.path.join(path, name), "rb").read()
         if name.endswith(".manifest.json"):
             manifest = json.loads(data)
@@ -270,7 +298,7 @@ def test_similarity_exit_resumes_to_same_generation(tmp_path, capsys, fault):
 
 
 @pytest.mark.parametrize("mesh", ["4x1", "2x2"])
-def test_packed_io_lane_kill_and_resume(tmp_path, capsys, mesh):
+def test_packed_io_lane_kill_and_resume(tmp_path, capsys, mesh, store):
     infile = tmp_path / "in.txt"
     text_grid.write_grid(str(infile), text_grid.generate(64, 64, seed=21,
                                                          density=0.35))
@@ -284,7 +312,7 @@ def test_packed_io_lane_kill_and_resume(tmp_path, capsys, mesh):
     _assert_prior_state_readable(pair.paths("port")[0])
     manifest = json.loads(open(pair.paths("port")[0] /
                                "ckpt-00000003.manifest.json").read())
-    assert manifest["payload_format"] == "packed-text"
+    assert manifest["payload_format"] == _packed_format(store)
     assert manifest["state_shape"] == [64, 2]
     rc, text, _ = pair.run([*base, "--auto-resume"])
     assert rc == 0 and pair.output() == ref
@@ -308,13 +336,17 @@ def test_kill_during_write_then_auto_resume(tmp_path, grid16, capsys, writer):
 
 
 @pytest.mark.parametrize("fault", ["ts_spec", "flaky_payload_write"])
-def test_transient_faults_heal_without_aborting(tmp_path, capsys, monkeypatch, fault):
+def test_transient_faults_heal_without_aborting(tmp_path, capsys, monkeypatch, fault,
+                                                store):
     """Transient IO failures are retried under the unified policy: the run
     completes with the identical output and checkpoints. ``ts_spec`` is the
-    JAX package's spec (its TensorStore probes have no call site on the
-    packed text codec either package writes here); ``flaky_payload_write``
+    JAX package's spec: a transient failure of the second zarr shard write
+    and of the first store open, healed inside each package's store (with
+    the store absent its probes have no call site). ``flaky_payload_write``
     makes each package's first packed payload write raise a transient
-    error."""
+    error, healed by the checkpoint manager's retry; on the zarr lane,
+    whose codec retries itself, the first store open each package makes
+    (TensorStore's ``open``, the port's ``_create``)."""
     infile = tmp_path / "in.txt"
     text_grid.write_grid(str(infile), text_grid.generate(64, 64, seed=21,
                                                          density=0.35))
@@ -326,6 +358,24 @@ def test_transient_faults_heal_without_aborting(tmp_path, capsys, monkeypatch, f
     if fault == "ts_spec":
         base += ["--fault-plan", "ts_write_fail=2,ts_write_error=transient,"
                  "ts_open_transient=1"]
+    elif store == "present":
+        def flaky(real, errors):
+            calls = []
+
+            def call(*a, **kw):
+                calls.append(1)
+                if len(calls) == 1:
+                    raise errors.TransientInjectedError("zarr store open")
+                return real(*a, **kw)
+            return call
+
+        class FlakyTs:
+            def __getattr__(self, name):
+                return getattr(tensorstore, name)
+
+        FlakyTs.open = staticmethod(flaky(tensorstore.open, jax_faults))
+        monkeypatch.setattr(jax_ts_store, "ts", FlakyTs())
+        monkeypatch.setattr(ts_store, "_create", flaky(ts_store._create, faults))
     else:
         for module, errors in ((jax_packed_io, jax_faults), (packed_io, faults)):
             real, calls = module.write_packed, []
@@ -344,9 +394,12 @@ def test_transient_faults_heal_without_aborting(tmp_path, capsys, monkeypatch, f
 
 @pytest.mark.parametrize("codec", ["text-grid", "packed-text"])
 @pytest.mark.parametrize("writer,reader", [("jax", "port"), ("port", "jax")])
-def test_directories_resume_across_packages(tmp_path, capsys, codec, writer, reader):
+def test_directories_resume_across_packages(tmp_path, capsys, codec, writer, reader,
+                                            store):
     """A directory one package's killed run left behind resumes in the
-    other, to the uninterrupted run's bytes and lines."""
+    other, to the uninterrupted run's bytes and lines. ``packed-text``
+    names the packed lane, whose payloads are ``zarr-words`` with the
+    store present."""
     infile = tmp_path / "in.txt"
     text_grid.write_grid(str(infile), text_grid.generate(64, 64, seed=21,
                                                          density=0.35))
@@ -362,7 +415,7 @@ def test_directories_resume_across_packages(tmp_path, capsys, codec, writer, rea
         main([*args, "--fault-plan", "kill_at_gen=9"])
     assert _manifests(ckdir)[-1] == "ckpt-00000006.manifest.json"
     assert json.loads((ckdir / "ckpt-00000006.manifest.json").read_text())[
-        "payload_format"] == codec
+        "payload_format"] == (codec if codec == "text-grid" else _packed_format(store))
     rc, text, err = _run(capsys, PACKAGES[reader][0], [*args, "--auto-resume"])
     assert rc == 0 and "restored checkpoint at generation 6" in err
     assert out.read_bytes() == ref and text == ref_text
@@ -435,15 +488,35 @@ def test_host_snapshot_copies_every_shard(mesh):
         [t.data_ptr() for t in got]
 
 
-def test_zarr_words_checkpoints_are_refused(tmp_path, grid16, capsys):
-    ckdir = tmp_path / "ck"
-    ckdir.mkdir()
-    (ckdir / "ckpt-00000003.manifest.json").write_text(
-        json.dumps({"format_version": 1, "payload_format": "zarr-words"}))
-    rc, _, err = _run(capsys, cli.main, _ck_args(
-        grid16, "--auto-resume", "--checkpoint-dir", str(ckdir),
-        "--output", str(tmp_path / "o.out")))
-    assert rc == 1 and "zarr-words" in err and "gol:" in err
+def test_zarr_words_checkpoints_are_refused(tmp_path, capsys, monkeypatch):
+    """Restore refuses another payload format, in both packages alike: the
+    ``zarr-words`` directory a killed ``--packed-io`` run left behind (the
+    store present) is not restored by the same run with the store absent,
+    whose lane writes ``packed-text``; that run starts from scratch and
+    ends in the uninterrupted run's bytes and lines."""
+    infile = tmp_path / "in.txt"
+    text_grid.write_grid(str(infile), text_grid.generate(64, 64, seed=21,
+                                                         density=0.35))
+    lane = ["--variant", "tpu", "--mesh", "2x2", "--packed-io"]
+    ref, ref_text = _reference(capsys, str(infile), tmp_path, *lane, size=64)
+    results = {}
+    for tag, (main, crash) in PACKAGES.items():
+        ckdir, out = tmp_path / f"{tag}.ck", tmp_path / f"{tag}.out"
+        args = ["64", "64", str(infile), *lane, "--gen-limit", str(GEN_LIMIT),
+                "--checkpoint-every", str(EVERY), "--checkpoint-dir", str(ckdir),
+                "--output", str(out)]
+        for present in (True, False):
+            monkeypatch.setattr(jax_ts_store, "HAVE_TENSORSTORE", present)
+            monkeypatch.setattr(ts_store, "HAVE_STORE", present)
+            if present:
+                with pytest.raises(crash):
+                    main([*args, "--fault-plan", "kill_at_gen=9"])
+                assert json.loads((ckdir / "ckpt-00000006.manifest.json").read_text())[
+                    "payload_format"] == "zarr-words"
+        rc, text, err = _run(capsys, main, [*args, "--auto-resume"])
+        results[tag] = (rc, text, "restored checkpoint" in err, out.read_bytes())
+    assert results["port"] == results["jax"]
+    assert results["port"] == (0, ref_text, False, ref)
 
 
 @pytest.mark.parametrize("args,needle", [

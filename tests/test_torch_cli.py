@@ -456,17 +456,75 @@ def test_jax_debug_kernels_are_unknown_to_the_port(kernel, capsys, tmp_path):
 
 
 def test_zarr_is_refused(capsys, tmp_path):
-    # The port has no TensorStore: zarr snapshots and inputs exit 1.
+    """Off the packed lane zarr is refused before every lane with JAX's
+    guards (both say "add --packed-io"), and on it an object-store path
+    with one ``gol:`` line: it needs a network (the JAX package is not run
+    on that path)."""
     path = _write(tmp_path, "in.txt", text_grid.generate(64, 64, seed=2))
     zarr_dir = tmp_path / "gen_000010.zarr"
     zarr_dir.mkdir()
-    for args in ([path, "--packed-io", "--snapshot-format", "zarr",
-                  "--snapshot-every", "5"],
-                 [str(zarr_dir), "--packed-io", "--resume-gen", "10"],
-                 [str(zarr_dir)]):
-        assert cli.main(["64", "64", *args]) == 1
+    for args in ([path, "--snapshot-format", "zarr", "--snapshot-every", "5"],
+                 [str(zarr_dir), "--resume-gen", "10"], [str(zarr_dir)],
+                 [str(zarr_dir), "--host"]):
+        errs = []
+        for main in (jax_cli.main, cli.main):
+            assert main(["64", "64", *args, "--variant", "game"]) == 1
+            errs.append(capsys.readouterr().err)
+        assert errs[0] == errs[1] and errs[1].startswith("gol: ")
+        assert "add --packed-io" in errs[1]
+    for args in (["gs://bucket/gen_000010.zarr", "--resume-gen", "10"],
+                 [path, "--snapshot-format", "zarr", "--snapshot-every", "5",
+                  "--snapshot-dir", "s3://bucket/snaps"]):
+        assert cli.main(["64", "64", *args, "--packed-io", "--variant", "game",
+                         "--output", str(tmp_path / "o.out")]) == 1
         err = capsys.readouterr().err
-        assert err.startswith("gol: ") and ("zarr" in err or "TensorStore" in err)
+        assert err.startswith("gol: ") and err.count("\n") == 1
+        assert "needs a network" in err
+    assert not (tmp_path / "o.out").exists()
+
+
+@pytest.mark.parametrize("lane", [["--variant", "game"],
+                                  ["--variant", "tpu", "--mesh", "2x2"],
+                                  ["--variant", "tpu", "--mesh", "4x1"]],
+                         ids=["game", "tpu_2x2", "tpu_4x1"])
+def test_zarr_snapshots_and_resume_equal_jax(capsys, tmp_path, monkeypatch, lane):
+    """``--packed-io --snapshot-format zarr`` in both packages: the same
+    printed lines, output bytes and snapshot names, each store's
+    ``.zarray`` byte for byte and its words; each package resumes from the
+    other's ``gen_NNNNNN.zarr`` to the same lines and bytes."""
+    import tensorstore
+
+    monkeypatch.setenv("GOL_TORCH_MESH_DEVICES", "8")
+    path = _write(tmp_path, "in.txt", text_grid.generate(64, 64, seed=31))
+    base = ["64", "64", *lane, "--packed-io", "--gen-limit", "30"]
+    snaps = {}
+    for tag, main in (("jax", jax_cli.main), ("port", cli.main)):
+        assert main([*base[:2], path, *base[2:], "--snapshot-every", "10",
+                     "--snapshot-format", "zarr", "--snapshot-dir",
+                     str(tmp_path / tag), "--output", str(tmp_path / f"{tag}.out")]) == 0
+        snaps[tag] = _MS.sub("X msecs", capsys.readouterr().out)
+    assert snaps["port"] == snaps["jax"]
+    assert (tmp_path / "port.out").read_bytes() == (tmp_path / "jax.out").read_bytes()
+    names = sorted(p.name for p in (tmp_path / "port").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "jax").iterdir()) == [
+        "gen_000010.zarr", "gen_000020.zarr", "gen_000030.zarr"]
+    for name in names:
+        stores = [tmp_path / tag / name for tag in ("jax", "port")]
+        assert [(s / ".zarray").read_bytes() for s in stores][0] == \
+            (stores[1] / ".zarray").read_bytes()
+        assert sorted(p.name for p in stores[0].iterdir()) == \
+            sorted(p.name for p in stores[1].iterdir())
+        words = [np.asarray(tensorstore.open({"driver": "zarr", "kvstore": {
+            "driver": "file", "path": str(s)}}).result().read().result())
+            for s in stores]
+        assert np.array_equal(*words)
+    whole = (tmp_path / "port.out").read_bytes()
+    for writer in ("jax", "port"):
+        snap = str(tmp_path / writer / "gen_000010.zarr")
+        jax_res, port_res = _both(capsys, [*base[:2], snap, *base[2:],
+                                           "--resume-gen", "10"], tmp_path)
+        assert port_res == jax_res and port_res[0] == 0
+        assert port_res[2] == whole
 
 
 # ---------------------------------------------------------------------------
@@ -769,28 +827,17 @@ def _serve_rc(main, args, capsys):
     return rc, out, err
 
 
-@pytest.mark.parametrize("flags, refusal", [
-    (["--cache-payload", "ts", "--result-cache"], "'ts' cache payload"),
-], ids=["ts"])
-def test_serve_refusals_exit_1_naming_the_roadmap(flags, refusal, capsys,
-                                                  tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
-    rc, out, err = _serve_rc(cli.main, flags, capsys)
-    assert (rc, out) == (1, "")
-    assert err.startswith("gol: ") and refusal in err and err.count("\n") == 1
-    assert "ROADMAP.md" in err or "not ported" in err
-    assert list(tmp_path.iterdir()) == []
-
-
 @pytest.mark.parametrize("flags", [
     ["--resident-ring", "8", "--pipeline-depth", "16"],
     ["--resident-ring", "2", "--pipeline-depth", "2", "--journal-dir", "j"],
     ["--warm-plans"],
-], ids=["ring_8", "ring_2", "warm_plans"])
+    ["--cache-payload", "ts", "--result-cache", "--cache-dir", "cas"],
+], ids=["ring_8", "ring_2", "warm_plans", "cache_payload_ts"])
 def test_serve_lanes_run(flags, capsys, tmp_path, monkeypatch):
     """The lanes the port once refused run: the server boots with them (its
     ``serve_forever`` stands in for traffic: one job through the scheduler,
-    then a drained shutdown) and exits 0."""
+    then a drained shutdown) and exits 0. With ``--cache-payload ts`` the
+    job's answer lands in the CAS as a zarr store."""
     from gol_tpu_torch.serve.jobs import new_job
     from gol_tpu_torch.serve.server import GolServer
     from gol_tpu_torch.tune import select
@@ -820,6 +867,12 @@ def test_serve_lanes_run(flags, capsys, tmp_path, monkeypatch):
     assert seen["result"].generations == solo.generations
     if flags == ["--warm-plans"]:
         assert err.startswith("no tuned serve shapes to warm")
+    if "ts" in flags:
+        import json
+
+        (meta,) = (tmp_path / "cas").rglob("*.json")
+        assert json.loads(meta.read_text())["payload"] == "ts"
+        assert meta.with_suffix(".zarr").is_dir()
 
 
 @pytest.mark.parametrize("flags", [

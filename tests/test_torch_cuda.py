@@ -980,3 +980,35 @@ def test_profile_capture_holds_every_kernel_from_the_first(card, tmp_path):
                sum("unpack_words_kernel" in k for k in kernels))
         assert got == (50, 50) and len(kernels) == 100, (i, got, len(kernels))
         assert len(regions) == 1
+
+
+@pytest.mark.parametrize("mesh_shape,height", [(None, 8200), ((2, 2), 64), ((4, 1), 64)],
+                         ids=["one_edge_chunk", "2x2", "4x1"])
+def test_zarr_store_round_trips_card_state(card, tmp_path, monkeypatch, mesh_shape,
+                                           height):
+    """A state on the card written through the pipelined copies (two
+    depths) holds the same chunk files as its CPU copy's store, and reads
+    back onto the card word for word."""
+    from gol_tpu_torch.io import ts_store
+    from gol_tpu_torch.parallel.mesh import make_mesh, split
+
+    monkeypatch.setenv("GOL_TORCH_MESH_DEVICES", "4")
+    rng = np.random.default_rng(height)
+    words = rng.integers(-2**31, 2**31, (height, 8), dtype=np.int64).astype(np.int32)
+    words[rng.random(words.shape) < 0.9] = 0
+    host = torch.from_numpy(words)
+    mesh = make_mesh(*mesh_shape) if mesh_shape else None
+    cpu_state = host if mesh is None else split(host, make_mesh(*mesh_shape, devices=[
+        torch.device("cpu")] * 4))
+    state = host.to(card) if mesh is None else split(host, mesh)
+    ts_store.write_words(str(tmp_path / "cpu"), cpu_state, 256, mesh)
+    for depth in ("1", "3"):
+        monkeypatch.setenv("GOL_D2H_DEPTH", depth)
+        path = tmp_path / f"card{depth}"
+        ts_store.write_words(str(path), state, 256, mesh)
+        assert sorted(os.listdir(path)) == sorted(os.listdir(tmp_path / "cpu"))
+        for name in os.listdir(path):
+            assert (path / name).read_bytes() == (tmp_path / "cpu" / name).read_bytes()
+        back = ts_store.read_words(str(path), 256, height, mesh, device=card)
+        for got, want in zip(back if mesh else [back], state if mesh else [state]):
+            assert got.device.type == "cuda" and torch.equal(got, want)

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of gol_tpu_torch/, and not
-chip_smoke.py, imports ``jax`` or the JAX package ``gol_tpu`` (whose name
-is a prefix of the port's own)."""
+chip_smoke.py, imports ``jax``, the JAX package ``gol_tpu`` (whose name is
+a prefix of the port's own) or ``tensorstore`` (the port owns its zarr
+store, and the card's machine has no tensorstore)."""
 
 import ast
 from pathlib import Path
@@ -12,7 +13,7 @@ REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(
     p for p in (REPO / "gol_tpu_torch").rglob("*.py") if "_build" not in p.parts
 ) + [REPO / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "gol_tpu")
+FORBIDDEN = ("jax", "jaxlib", "gol_tpu", "tensorstore")
 
 
 def _forbidden(module: str | None) -> bool:
@@ -40,6 +41,7 @@ def test_scanner_tells_the_packages_apart():
     assert _forbidden("jax.numpy") and _forbidden("jax")
     assert not _forbidden("gol_tpu_torch") and not _forbidden("gol_tpu_torch.ops")
     assert not _forbidden("jaxtyping_like") and not _forbidden(None)
+    assert _forbidden("tensorstore")
 
 
 def test_port_files_exist():
@@ -66,3 +68,8 @@ def test_the_fleet_chaos_and_shard_modules_are_scanned():
                  "shard/coordinator.py", "shard/worker.py", "shard/halo.py",
                  "shard/partition.py"):
         assert f"gol_tpu_torch/{path}" in scanned
+
+
+def test_the_zarr_store_modules_are_scanned():
+    scanned = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    assert {"gol_tpu_torch/io/ts_store.py", "gol_tpu_torch/native/blosc.py"} <= scanned

@@ -8,7 +8,10 @@ only its own windows of the shared files. The lanes ``lax``, ``packed``,
 ``mpi`` and ``packedio`` must give the bytes and generation counts of JAX's
 own worker run directly in as many processes (one JAX run per count, shared
 by the module) and of the oracle; the cross-process exchange and votes must
-equal their single-process forms. Tolerance zero.
+equal their single-process forms. The zarr store each run's ranks write
+holds JAX's words (and on JAX's mesh its ``.zarray`` and chunk names), and
+a shard-write failure on one rank ends in a vote on every rank. Tolerance
+zero.
 """
 
 from __future__ import annotations
@@ -42,7 +45,8 @@ UNITS = [f"exchange_parts {what} depth {d}" for what in ("cells", "words")
          for d in (1, 8)] + ["exchange cells", "exchange words", "any_flag",
                              "all_agree false", "all_agree true",
                              "host_all_agree true", "host_all_agree false",
-                             "process_allgather"]
+                             "process_allgather", "zarr overwrite failure voted",
+                             "zarr live store kept"]
 
 
 def _free_port() -> int:
@@ -157,6 +161,27 @@ def test_port_cuda_convention_lanes_equal_oracle(port_run):
         np.testing.assert_array_equal(grid, expect.grid)
         assert int((work / f"torch_gens_{lane}_cuda.txt").read_text()) == \
             expect.generations
+
+
+def test_port_zarr_store_equals_jax(port_run, jax_runs):
+    """The store the ranks wrote holds the words of the store JAX's worker
+    wrote in as many processes (TensorStore reads both), and its read-back
+    unpacks to JAX's bytes; on JAX's own mesh (1x2 on 2 ranks, 2x2 on 4)
+    the ``.zarray`` and the chunk file names are JAX's."""
+    import tensorstore
+
+    config, ranks, work = port_run
+    jax_work = jax_runs(ranks)
+    stores = [work / "torch_out_words.zarr", jax_work / "out_words.zarr"]
+    words = [np.asarray(tensorstore.open({"driver": "zarr", "kvstore": {
+        "driver": "file", "path": str(s)}}).result().read().result()) for s in stores]
+    assert np.array_equal(*words)
+    assert (work / "torch_out_tsstore.txt").read_bytes() == \
+        (jax_work / "out_tsstore.txt").read_bytes()
+    if config in ("1x2", "2x2"):
+        layouts = [((s / ".zarray").read_bytes(), sorted(p.name for p in s.iterdir()))
+                   for s in stores]
+        assert layouts[0] == layouts[1]
 
 
 @pytest.mark.parametrize("unit", UNITS)

@@ -10,7 +10,9 @@ files. Lanes ``lax``, ``packed``, ``mpi`` (the gathered lane) and
 ``packedio`` under the C convention, as JAX's worker runs them, and ``lax``
 and ``packed`` under the CUDA convention; then unit checks of the
 cross-process halo exchange and votes against their single-process forms
-on the same shards, written to ``units-<rank>.json``.
+on the same shards, and the zarr store's lane (each rank writing its own
+shards, a sharded read-back, and a staged overwrite whose shard write fails
+on rank 1 only), written to ``units-<rank>.json``.
 
     python tests/torch_multihost_worker.py <port> <rank> <ranks> <workdir> <rows> <cols>
 """
@@ -22,7 +24,8 @@ import os
 import sys
 
 
-def _lanes(workdir: str, mesh, rank: int) -> None:
+def _lanes(workdir: str, mesh, rank: int):
+    """Run the lanes; the packed lane's final word shards."""
     from gol_tpu_torch import engine
     from gol_tpu_torch.config import Convention, GameConfig
     from gol_tpu_torch.io import packed_io, sharded
@@ -56,6 +59,40 @@ def _lanes(workdir: str, mesh, rank: int) -> None:
     packed_io.write_packed(os.path.join(workdir, "torch_out_packedio.txt"), final,
                            width, mesh)
     record("packedio", gens)
+    return final
+
+
+def _zarr(workdir: str, mesh, rank: int, words) -> dict:
+    """The zarr store's multi-writer discipline under real processes (JAX's
+    worker writes ``out_words.zarr`` and ``out_tsstore.txt`` alike): the
+    lead creates, every rank writes only its shards, then a sharded
+    read-back unpacked through the codec. Then a staged overwrite whose
+    first shard write fails on rank 1 only: every rank must leave through
+    the vote (rank 1 with its own error, the others naming the peer), and
+    the live store must stay as it was."""
+    import torch
+
+    from gol_tpu_torch.io import packed_io, ts_store
+    from gol_tpu_torch.resilience import faults
+
+    height = width = 64
+    store = os.path.join(workdir, "torch_out_words.zarr")
+    ts_store.write_words(store, words, width, mesh)
+    back = ts_store.read_words(store, width, height, mesh)
+    packed_io.write_packed(os.path.join(workdir, "torch_out_tsstore.txt"), back,
+                           width, mesh)
+    if rank == 1:
+        faults.install(faults.FaultPlan(ts_write_fail=1))
+    err = ""
+    try:
+        ts_store.write_words(store, [torch.zeros_like(s) for s in words], width, mesh)
+    except OSError as e:
+        err = str(e)
+    faults.clear()
+    again = ts_store.read_words(store, width, height, mesh)
+    want = "shard indices [0]" if rank == 1 else "a peer process failed"
+    return {"zarr overwrite failure voted": want in err,
+            "zarr live store kept": all(torch.equal(a, b) for a, b in zip(again, back))}
 
 
 def _units(mesh, rank: int) -> dict:
@@ -120,9 +157,10 @@ def main() -> int:
                          num_processes=ranks, process_id=rank)
     assert bootstrap.process_count() == ranks and bootstrap.is_multihost()
     mesh = make_mesh(rows, cols)
-    _lanes(workdir, mesh, rank)
+    words = _lanes(workdir, mesh, rank)
+    units = {**_units(mesh, rank), **_zarr(workdir, mesh, rank, words)}
     with open(os.path.join(workdir, f"units-{rank}.json"), "w") as f:
-        json.dump(_units(mesh, rank), f)
+        json.dump(units, f)
     return 0
 
 
