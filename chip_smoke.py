@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py        # from the repository root, on a machine with a card
     python3 chip_smoke.py --io-compare OTHER_TREE,. [--size N] [--rounds R]
+    python3 chip_smoke.py --batch-compare OTHER_TREE,. [--rounds R]
 
 The quickest proof that the port still starts on the GPU. With
 ``--io-compare`` it only times the packed read and write of several trees
-of the repository against each other (``io_compare``). It needs one card,
+of the repository against each other (``io_compare``); with
+``--batch-compare`` the batch lane's boards/s (``batch_compare``). It needs one card,
 ``nvcc``, ``cc`` and nothing of JAX, and generates every input from a seed.
 Phases, each of which fails the run (non-zero exit, no result line) on any
 error:
@@ -45,19 +47,26 @@ error:
    K8 and the ghost-plane forms) also runs at the shapes around
    ``bandt_kernel``'s tile (``tile_shapes``: one band around its least
    height and two ragged ones, and nwords 1, 2, 31, 37 and 61 against its
-   30-word strips). Outputs and flags must be identical. Then B1 (one
-   generation of B packed tori) at (boards, height, nwords) (3,32,1)
-   (32x32 one-word boards) (2,1,1) (4,17,5) (64,256,8) and B2 (B uint8
+   30-word strips). Outputs and flags must be identical. Then B1's
+   streaming form (one generation of B packed tori) at (boards, height,
+   nwords) (3,32,1) (32x32 one-word boards) (2,1,1) (4,17,5) (64,256,8),
+   B1's block call over blocks of t = 1, 16 and 18 generations with step
+   counts t/1/0/t+2 at the same shapes (the block form, one launch) and at
+   (2,1024,64) (65,536 words a board, past a CTA's shared memory: the
+   streaming form, one launch a generation), and B2 (B uint8
    boards, each wrapping at its own extent) on a 32x32 canvas of extents
    30x30, 18x24, 10x13 and 1x1, on the exact-fit 33x20 byte mode and on
    64 250x250 boards in a 256x256 canvas, at a block's generation 0 and 2
    with per-board step counts 3/1/0 (a spent board copies through, a
    padding slot never runs): words or cells and per-board flags
-   identical. Then T1 (one generation of B halo-extended tiles) at (tiles,
-   edge) (3,4) (5,9) (64,256) (64,512) on random, still and all-zero
-   blocks, into compact interiors and into the interior of a padded stack
-   (whose ring must be left as it was): interiors and per-tile flags
-   identical. Then E1 (pack cells into words) and D1 (unpack) against
+   identical. Then T1 (B halo-extended tiles) at (tiles, edge) (3,4)
+   (5,9) (64,256) (64,512) for one generation (the banded form) on
+   random, still and all-zero blocks, and for n generations at (tiles,
+   edge, n) (3,4,2) (5,9,7) (4,33,16) (64,512,128) (the window form, one
+   launch) and (2,1024,3) (past a CTA's shared memory: n banded launches)
+   on random and still blocks with dead rings, into compact interiors and
+   into the interior of a padded stack (whose ring must be left as it
+   was): interiors and per-tile flags identical. Then E1 (pack cells into words) and D1 (unpack) against
    ``packed_math.encode``/``decode`` on random bytes (not only 0/1) at
    (height, width) (1,32) (7,96) (17,160) (1000,224) (16384,16384), on
    the 4x1 and 2x2 shards of 16384^2 (4096x16384, 8192x8192) and on
@@ -112,7 +121,9 @@ error:
    neither. ``pallas`` and ``--packed-io``
    must give the same output bytes and generation counts as ``auto``; every
    run is repeated with ``--kernel lax`` (byte cells, plain torch) with the
-   same check, and (c)/(d) must match the oracle on a 64^2 copy.
+   same check — (a) and (b) under ``game`` only, since they meet no exit
+   and ``cuda``'s ``auto`` runs must equal ``game``'s there — and (c)/(d)
+   must match the oracle on a 64^2 copy.
    The mesh path at the same size: ``--variant tpu`` (C convention) on the
    six inputs under ``--mesh 4x1`` (four 4096x16384 shards) and ``--mesh
    2x2`` (8192x8192), each with ``--kernel auto`` and ``--kernel pallas``,
@@ -167,8 +178,12 @@ error:
    (bucket ``256x256/c/packed``, B1) and 64 random 250^2 boards
    (``256x256/c/masked``, B2) through ``serve/batcher.run_batch`` at
    gen_limit 4 and 1000 under both conventions, and JAX's mixed-fate trio
-   at 32^2 (gen_limit 60), with the launch counters set to 0 just before
-   and read just after: B1 and B2 must launch, no other kernel. Every
+   at 32^2 (gen_limit 60), and two random 1024^2 boards (gen_limit 40;
+   32,768 words a board, past a CTA's shared memory), with the launch
+   counters set to 0 just before and read just after: B1's block form
+   (once per 16-generation block of a batch's loop), its streaming form
+   (the 1024^2 pair, once a generation) and B2 must launch, no other
+   kernel. Every
    board's grid and generations equal the port's solo ``engine.simulate``
    (``--kernel auto`` for the packed boards, ``pallas`` for the masked
    ones) and the trio's also the oracle and its exit reasons. Then
@@ -176,7 +191,8 @@ error:
    --output-dir D`` in a subprocess: every output file equal to the solo
    ``run``'s bytes (``--variant tpu --mesh 1x1``) and its Generations.
    Boards/sec at B = 1, 8 and 64 per bucket and limit (bench.py's batch
-   suite: 64/B dispatches of B boards, best of 3), and each bucket's B = 64
+   suite: 64/B dispatches of B boards, best of 2 where bench.py takes 3),
+   and each bucket's B = 64
    dispatch under ``torch.profiler`` (device-busy share).
 4f. The server lane, on B1 and B2, with the launch counters set to 0 just
    before each in-process part and read just after: (i) bench.py's
@@ -185,7 +201,7 @@ error:
    real ``serve/server.GolServer`` with a journal, half as JSON and half as
    packed wire frames, then ``POST /drain``, at ``--pipeline-depth`` 1 and
    2 and ``--max-inflight 2``, and at depth 1 without a journal (a
-   diagnostic: no fsync per submit), each on a fresh server, best of two;
+   diagnostic: no fsync per submit), each on a fresh server, once;
    every
    result, fetched as JSON and as a packed frame, equals the solo
    ``engine.simulate`` (grid, generations, exit reason) and the trio the
@@ -236,15 +252,18 @@ error:
    Before phase 1 ``GOL_PLAN_CACHE`` is set to a fresh file, so every
    other phase runs and times the built-in plan.
 4i. The sparse and macro lanes, on T1, with the launch counters set to 0
-   just before each part and read just after (T1 must launch in each): (i)
+   just before each part and read just after (T1 must launch in each, in
+   either form; each macro run launches it once per runner call, a leaf
+   advance of n generations included: the window form): (i)
    bench.py's sparse suite uncut: five gliders, tile 256, universes 4096^2
    to 65536^2, 24 sparse generations (each equal to the same run on the
    CPU, T1's plain version), and the dense lane (``--kernel auto``) for 4
    generations up to 16384^2, equal to a 4-generation sparse run; ms per
    generation, tiles per generation and the dense/sparse ratio. (ii)
-   bench.py's macro suite: the Gosper gun, tile 256; sparse at 8192^2 for
-   3000 generations; macro to 3000 generations at 8192^2, RLE equal to the
-   sparse run's; macro at 2^20 squared for 10^6 generations cold into a
+   bench.py's macro suite, the gun's 8192^2 runs cut: the Gosper gun,
+   tile 256; sparse at 8192^2 for 1500 generations (3000 there); macro to
+   1500 generations at 8192^2, RLE equal to the sparse run's; macro at
+   2^20 squared for 10^6 generations cold into a
    fresh ``--macro-cas`` directory, then warm from it: boards equal, no
    leaf step and no T1 launch on the warm side. (iii) ``run --pattern
    patterns/gosper_gun.rle --universe 65536x65536 --place 32768,32768``
@@ -265,15 +284,16 @@ error:
    starts at 0 in a fresh process). Per N in 1, 2, 4, ``python -m gol_tpu_torch fleet --workers N
    --cores-per-worker W`` (taskset slices, W = (cores - 2) // 4 clamped to
    1..6, as bench.py) with ``--compile-cache`` the build of phase 1: (i)
-   bench.py's fleet load uncut (16 equal-work 160^2 buckets x 8 jobs,
-   gen_limit 6000; a warm round, then a timed one), every job DONE and
-   equal to the port's numpy oracle; (iii) the shard suite's universe
-   uncut through the router (16x16 gliders in 65536^2, tile 256, a warm
-   job of 4 generations, then 48 timed, checkpoint every 16), its RLE
+   bench.py's fleet load (16 equal-work 160^2 buckets x 8 jobs, gen_limit
+   2000 where bench.py takes 6000; a warm round, then a timed one), every
+   job DONE and equal to the port's numpy oracle; (iii) the shard suite's
+   universe through the router (16x16 gliders in 65536^2, tile 256, a warm
+   job of 4 generations, then 24 timed where bench.py times 48, checkpoint
+   every 8), its RLE
    sha1 equal at every N and to ``simulate_sparse`` (the ``--engine
    sparse`` engine; the universe's RLE is beyond the CLI's dense pattern
    parse), the makespan as bench.py reads it (the most CPU seconds any
-   worker spent); and ``run --pattern gosper_gun.rle --universe
+   worker spent); and at N = 4 ``run --pattern gosper_gun.rle --universe
    65536x65536 --gens 100 --engine shard --shard-across URL``, whose
    printed lines and RLE bytes equal ``--engine sparse``'s. At N = 2 the
    router drill (tests/test_fleet.py's TestRouterRestart): 12 jobs,
@@ -281,8 +301,9 @@ error:
    every job answered through the new router, equal to the oracle, one
    done record each across the partitions; at N = 4 one shard worker is
    SIGKILLed mid-job past the durable floor: recoveries >= 1, the same
-   RLE. B1 and T1 must launch at every N, B2 at N = 2 (the drill's 30^2
-   boards). (ii) The chaos suite's two lanes, one timed round each after
+   RLE. B1 (its block form) and T1 must launch at every N, B2 at N = 2
+   (the drill's 30^2 boards). (ii) The chaos suite's two lanes (jobs of
+   4000 generations where bench.py runs 10000), one timed round each after
    the warm ones, over in-process routers and two ``serve`` workers each:
    baseline, defended (breakers and their ring, ``--retry-budget 50``,
    ``X-Gol-Deadline``), and the defended workers behind a router whose
@@ -307,8 +328,9 @@ error:
    ranks on (b) and (c) (both ghost-plane forms and K5), ``--mesh 2x2`` in
    2 ranks of 2 shard slots each (local and remote neighbours mixed) and
    ``--variant mpi --mesh 2x1`` in 2 ranks (the gathered lane) on (a), and
-   ``--mesh 4x1`` with ``--packed-io`` and with ``--kernel pallas`` (K6)
-   in 4 ranks on (a): every output's bytes and every rank's Generations
+   ``--mesh 4x1`` with ``--packed-io`` in 4 ranks on (a) and with
+   ``--kernel pallas`` (K6) on (c) (its 1000 generations of (a), cut to
+   fit the time limit): every output's bytes and every rank's Generations
    equal phase 4's single-device ``--kernel auto`` run. Then the
    checkpoint lane in 2 ranks (``--mesh 2x1 --checkpoint-every 250``, rank
    1 SIGKILLed at the generation-500 boundary by ``GOL_FAULTS``): its peer
@@ -362,13 +384,19 @@ error:
    (2 funnel shifts and 10 3-input LOP3s, ``roofline.OPS_PER_WORD_GEN``);
    the time at 28 two-input ops stays beside it (``ops_ms_two_input``).
    No single PyTorch call computes a B3/S23 step, so ``library_ms`` is
-   null. B1 and B2 at phase 4e's shapes (64 x 256 x 8 words; 64 250^2
-   boards in a 256^2 canvas), one launch of a block's first generation;
-   B1's ops at the network's 12 per word, B2's at ``OPS_PER_CELL``. T1 at
-   64 tiles of 256^2 (compact output, the sparse lane's form) and 64 leaf
-   windows of 512^2 (padded ping-pong, the macro lane's form), 100
-   launches in one CUDA graph with a fresh flag row each; its ops at
-   ``OPS_PER_CELL``. E1 and D1 at 16384^2 (random 0/1 cells), 100
+   null. B1's block form at phase 4e's shape (64 x 256 x 8 words), one
+   launch of a 16-generation block, 100 launches in one CUDA graph with
+   fresh flag rows each (ms per block and per generation); B1's streaming
+   form and B2 at phase 4e's shapes (64 x 256 x 8 words; 64 250^2 boards
+   in a 256^2 canvas), one launch of a block's first generation; B1's ops
+   at the network's 12 per word and generation, B2's at ``OPS_PER_CELL``.
+   T1's banded form (n = 1) at 64 tiles of 256^2 (compact output, the
+   sparse lane's form) and 64 windows of 512^2 (padded ping-pong), 100
+   launches in one CUDA graph with a fresh flag row each, and its window
+   form at the macro lane's 64 leaf windows of 512^2 for n = 128
+   generations a launch, 20 launches in one graph (ms per launch and per
+   generation); their ops at the network's 12 per interior word and
+   generation. E1 and D1 at 16384^2 (random 0/1 cells), 100
    launches in one CUDA graph, each from the same input into the same
    output; the bound is bytes, 268,435,456 of cells and 33,554,432 of
    words, and no single PyTorch call packs bits, so ``library_ms`` is
@@ -586,9 +614,18 @@ KERNELS = [
 # host loop needs each board's flags out of the step's own pass.
 BATCH_KERNELS = [
     {
-        "key": "batch_packed", "id": "B1",
-        "name": "B1 batch_packed_kernel: one generation of B packed tori, "
-                "per-board flags and step counts",
+        "key": "batch_packed_block", "id": "B1",
+        "name": "B1 batch_packed_block_kernel: a block of t generations of B "
+                "packed tori, each board in one CTA's shared memory, "
+                "per-generation flags and per-board step counts",
+        "source": "gol_tpu_torch/csrc/stencil_batch.cu",
+        "replaces": "none: jnp under vmap (gol_tpu/engine.py:1286-1290)",
+    },
+    {
+        "key": "batch_packed", "id": "B1-stream",
+        "name": "B1 batch_packed_kernel (streaming form): one generation of B "
+                "packed tori too large for a CTA's shared memory, per-board "
+                "flags and step counts",
         "source": "gol_tpu_torch/csrc/stencil_batch.cu",
         "replaces": "none: jnp under vmap (gol_tpu/engine.py:1286-1290)",
     },
@@ -601,14 +638,26 @@ BATCH_KERNELS = [
         "cells": True,
     },
 ]
-# The sparse and macro lanes' kernel: a port-only row of the kernel table.
-# The JAX package steps the tiles with jnp under vmap, no Pallas kernel; the
-# port's host loop needs each tile's flags out of the step's own pass.
+# The sparse and macro lanes' kernel: port-only rows of the kernel table,
+# one per launch shape. The JAX package steps the tiles with jnp under
+# vmap, no Pallas kernel; the port's host loop needs each tile's flags out
+# of the step's own pass.
 TILE_KERNELS = [
     {
         "key": "tile_step", "id": "T1",
-        "name": "T1 tile_step_kernel: one generation of B halo-extended uint8 "
-                "tiles, per-tile alive and changed flags",
+        "name": "T1 tile_steps_kernel, n = 1: one generation of B halo-extended "
+                "uint8 tiles in bands of rows, bit-packed in shared memory, "
+                "per-tile alive and changed flags",
+        "source": "gol_tpu_torch/csrc/stencil_tile.cu",
+        "replaces": "none: jnp under vmap, stencil_lax.evolve_padded_batch "
+                    "(gol_tpu/ops/stencil_lax.py:61) via make_tile_step_runner "
+                    "(gol_tpu/engine.py:1834)",
+    },
+    {
+        "key": "tile_window", "id": "T1-window",
+        "name": "T1 tile_steps_kernel, n > 1: n generations of B halo-extended "
+                "uint8 windows, each whole in one CTA's shared memory, the "
+                "last generation's flags",
         "source": "gol_tpu_torch/csrc/stencil_tile.cu",
         "replaces": "none: jnp under vmap, stencil_lax.evolve_padded_batch "
                     "(gol_tpu/ops/stencil_lax.py:61) via make_tile_step_runner "
@@ -647,38 +696,52 @@ CODEC_BIG = 4 * SIZE
 # bound both.
 CODEC_OPS_PER_WORD = {"encode": 70, "decode": 32}
 # Phase 2's T1 shapes, (tiles, edge): the least tiles, an odd edge, the
-# sparse lane's top rung at the default tile, the macro lane's leaf windows.
+# sparse lane's top rung at the default tile, the macro lane's leaf windows;
+# for n > 1, (tiles, edge, n): the window form up to the macro lane's 64
+# leaf windows of 512^2 for 128 generations, and a 1024^2 window past one
+# CTA's shared memory (n launches of the banded form).
 TILE_CHECK_SHAPES = [(3, 4), (5, 9), (64, 256), (64, 512)]
-# Phase 4i: bench.py's sparse suite (bench.py:2291-2416) and macro suite
-# (bench.py:2418-2530), uncut.
+TILE_WINDOW_SHAPES = [(3, 4, 2), (5, 9, 7), (4, 33, 16), (64, 512, 128),
+                      (2, 1024, 3)]
+# Phase 4i: bench.py's sparse suite (bench.py:2291-2416), uncut, and macro
+# suite (bench.py:2418-2530), the gun's sparse and macro runs cut to 1500
+# generations (3000 there) to fit the smoke's time limit.
 SPARSE_TILE = 256
 SPARSE_SIZES = (1 << 12, 1 << 13, 1 << 14, 1 << 15, 1 << 16)
 SPARSE_GENS, DENSE_GENS, DENSE_MAX = 24, 4, 1 << 14
 MACRO_UNIVERSE, MACRO_GENS = 1 << 20, 1_000_000
-GUN_UNIVERSE, GUN_GENS = 1 << 13, 3000
+GUN_UNIVERSE, GUN_GENS = 1 << 13, 1500  # bench.py: 3000
 CLI_UNIVERSE = 1 << 16  # (iii) and (iv): the gun at its middle
-# Phase 4j: bench.py's fleet suite (bench.py:1076-1296), uncut: 16
-# equal-work 160^2 buckets (one similarity frequency each), 8 jobs a
-# bucket, at N = 1, 2, 4 workers; its chaos suite (bench.py:2764-3054): 4
-# buckets at 10000 generations, 2 workers; its shard suite
-# (bench.py:2564-2762): 16x16 gliders in 65536^2, tile 256.
+# Phase 4j: bench.py's fleet suite (bench.py:1076-1296): 16 equal-work
+# 160^2 buckets (one similarity frequency each), 8 jobs a bucket, at N = 1,
+# 2, 4 workers; its chaos suite (bench.py:2764-3054): 4 buckets, 2 workers;
+# its shard suite (bench.py:2564-2762): 16x16 gliders in 65536^2, tile 256.
+# Their generations are cut to fit the smoke's time limit: the fleet's jobs
+# to 2000 (6000 there), the chaos jobs to 4000 (10000), the shard job to 24
+# (48) with a checkpoint every 8 (16).
 FLEET_FREQS = (2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 14, 17, 18, 21, 24, 27)
-FLEET_SIDE, FLEET_PER_BUCKET, FLEET_LIMIT, FLEET_NS = 160, 8, 6000, (1, 2, 4)
+FLEET_SIDE, FLEET_PER_BUCKET, FLEET_LIMIT, FLEET_NS = 160, 8, 2000, (1, 2, 4)
 FLEET_SERVE = ["--flush-age", "0.2", "--max-batch", "8", "--pipeline-depth",
                "2", "--max-queue-depth", "4096"]
-CHAOS_FREQS, CHAOS_LIMIT = (2, 3, 5, 9), 10000
+CHAOS_FREQS, CHAOS_LIMIT = (2, 3, 5, 9), 4000
 CHAOS_PLAN = "seed=777,refuse=0.2,reset=0.1"
-SHARD_UNIVERSE, SHARD_GRID, SHARD_LIMIT, SHARD_CKPT = 1 << 16, 16, 48, 16
+SHARD_UNIVERSE, SHARD_GRID, SHARD_LIMIT, SHARD_CKPT = 1 << 16, 16, 24, 8
 # The CLI's shard lane: the gun of (iii) in 4i, 100 generations.
 SHARD_CLI = ["--pattern", str(REPO / "patterns" / "gosper_gun.rle"),
              "--universe", f"{CLI_UNIVERSE}x{CLI_UNIVERSE}", "--place",
              f"{CLI_UNIVERSE // 2},{CLI_UNIVERSE // 2}", "--gens", "100"]
 _MSECS = re.compile(r"\d+\.\d+ msecs")
 # Phase 2's batch shapes: (boards, height, nwords) for B1 — a 32x32
-# one-word board, one-row boards, the serving bucket's 64 x 256^2 — and
-# (canvas height, width, extents) for B2: mixed extents in one canvas, the
-# exact-fit byte mode, the serving bucket's 64 x 250^2 in 256^2.
+# one-word board, one-row boards, the serving bucket's 64 x 256^2, and for
+# the block call a board too large for a CTA's shared memory (65,536 words:
+# the streaming form) — and (canvas height, width, extents) for B2: mixed
+# extents in one canvas, the exact-fit byte mode, the serving bucket's 64 x
+# 250^2 in 256^2. B1's blocks run t generations of BATCH_BLOCK_TS.
 BATCH_PACKED_SHAPES = [(3, 32, 1), (2, 1, 1), (4, 17, 5), (64, 256, 8)]
+BATCH_BLOCK_SHAPES = BATCH_PACKED_SHAPES + [(2, 1024, 64)]
+BATCH_BLOCK_TS = (1, 16, 18)
+BATCH_BLOCK_T = 16  # the engine's block: phase 5 times B1 over one
+TILE_WINDOW_GENS = 128  # phase 5: T1's window form over a 2L window's L/2
 BATCH_MASKED_SHAPES = [(32, 32, [(30, 30), (18, 24), (10, 13), (1, 1)]),
                        (33, 20, [(33, 20)] * 2), (256, 256, [(250, 250)] * 64)]
 # Phase 4e: the serving load of bench.py (--suite batch / megabatch): 64
@@ -687,6 +750,7 @@ BATCH_BOARDS = 64
 BATCH_SIDES = {"256x256/packed": 256, "250x250/masked": 250}
 BATCH_LIMITS = (4, 1000)
 BATCH_SIZES = (1, 8, 64)
+BATCH_REPEATS = 2  # bench.py's best of 3, cut to fit the smoke's time limit
 # B2's operations per cell: the 3x3 sum in 4 three-input adds, 2 compares
 # and a 3-input logic op for the rule, one for the differs flag and a
 # select. Bytes bound it either way.
@@ -695,6 +759,7 @@ OPS_PER_CELL = 9
 # SERVER_LIMIT) through a real server per lane; the cache load; the
 # restart drill of tools/serve_smoke.py.
 SERVER_LIMIT = 1000
+SERVER_REPEATS = 1  # runs a lane, cut from two to fit the smoke's time limit
 SERVER_LANES = {"depth 1": {}, "depth 2": {"pipeline_depth": 2},
                 "max-inflight 2": {"max_inflight": 2},
                 # A diagnostic beside them: no journal, so no fsync per
@@ -713,7 +778,7 @@ RING_LANES = {
     f"resident_depth8_T{RING_T}": {"depth": 2 * RING, "resident": RING,
                                    "temporal_depth": RING_T},
 }
-RING_REPEATS = 3
+RING_REPEATS = 2  # bench.py: 3; cut to fit the smoke's time limit
 RING_DRILL_JOBS, RING_DRILL_LIMIT = 64, 1000
 # Phase 4h: the tuner's full-width search.
 TUNE_ARGS = ["--shape", f"{SIZE}x{SIZE}", "--convention", "c", "--quick",
@@ -743,6 +808,13 @@ MESH_LANES = {
     "2x2 pallas": (["--mesh", "2x2", "--kernel", "pallas"], ("dist_byte_band",)),
 }
 MESH_DEVICES = "4"
+# The batch lanes' kernels (4e-4g): B1's block form (their 256^2 and 32^2
+# boards fit in a CTA's shared memory, so the streaming form never runs)
+# and B2.
+BATCH_LANE_KEYS = ("batch_packed_block", "batch_masked")
+# Phase 4e's pair of boards past a CTA's shared memory (1024^2: 32,768
+# words a board), which take B1's streaming form.
+BATCH_BIG_SIDE, BATCH_BIG_LIMIT = 1024, 40
 # The single-device --packed-io lane that prints its I/O lines (under
 # --variant tpu; the serial variants print none).
 IO_LANE = ["--mesh", "1x1", "--packed-io"]
@@ -989,6 +1061,34 @@ def check_batch_kernels(dev, stats: dict) -> None:
         print(f"B1 at (boards, height, nwords) ({batch}, {height}, {nwords}) "
               "== plain at gen 0 and 2 (random, dies, still; steps 3/1/0) "
               "(tolerance 0: words and flags identical)", flush=True)
+    for batch, height, nwords in BATCH_BLOCK_SHAPES:
+        boards = np.stack([_batch_board(height, 32 * nwords, kinds[b % 3], rng)
+                           for b in range(batch)])
+        x = pm.words_from_numpy(bitpack.pack_words(boards), dev)
+        block = height * nwords <= sb.block_max_words(dev.index)
+        key = "batch_packed_block" if block else "batch_packed"
+        for t in BATCH_BLOCK_TS:
+            # Board b runs t, 1, 0 or t + 2 (clamped to t) generations.
+            steps = torch.tensor([(t, 1, 0, t + 2)[b % 4] for b in range(batch)],
+                                 dtype=torch.int32, device=dev)
+            out = torch.empty_like(x)
+            flags = torch.zeros((t, batch, sb.STEP_FLAGS), dtype=torch.int32,
+                                device=dev)
+            sb.batch_packed_block_into(x, out, flags, steps, t)
+            want, want_flags = sb._batch_packed_block_plain(x, steps, t)
+            torch.cuda.synchronize(dev)
+            err = max(int((_u32(out) - _u32(want)).abs().max()),
+                      int((flags - want_flags).abs().max()))
+            stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
+            stats[key]["checks"] += 1
+            if err:
+                fail(f"B1's {'block' if block else 'streaming'} form differs from "
+                     f"its plain version at ({batch}, {height}, {nwords}), t {t}")
+        print(f"B1 block call at (boards, height, nwords) ({batch}, {height}, "
+              f"{nwords}), {'the block form, one launch' if block else 'the streaming form, one launch a generation'}"
+              f", == plain at t {BATCH_BLOCK_TS} (random, dies, still; steps "
+              "t/1/0/t+2) (tolerance 0: words and per-generation flags identical)",
+              flush=True)
     for height, width, extents in BATCH_MASKED_SHAPES:
         batch = len(extents)
         canvas = np.zeros((batch, height, width), np.uint8)
@@ -1021,37 +1121,64 @@ def _tile_stack(batch: int, tile: int, kind: str, rng) -> np.ndarray:
     return blocks
 
 
+def _tile_compare(x, n: int, stats: dict, where: str) -> None:
+    """T1 over ``n`` generations of ``x`` against its plain version, into
+    compact interiors and into a padded stack whose ring must be left as it
+    was; counted under the form the shape launches."""
+    batch, p, _ = x.shape
+    tile = p - 2
+    key = "tile_step" if n == 1 or stl.window_words(tile) > \
+        stl.window_max_words(x.device.index) else "tile_window"
+    want, want_flags = stl._tile_steps_plain(x, n)
+    for form in ("compact", "padded"):
+        out = (torch.full((batch, tile, tile), 7, dtype=torch.uint8, device=x.device)
+               if form == "compact" else torch.full_like(x, 7))
+        flags = torch.zeros((batch, stl.TILE_FLAGS), dtype=torch.int32,
+                            device=x.device)
+        stl.tile_step_into(x, out, flags, n)
+        torch.cuda.synchronize(x.device)
+        got = out if form == "compact" else out[:, 1:-1, 1:-1]
+        err = max(int((got.to(torch.int32) - want.to(torch.int32)).abs().max()),
+                  int((flags - want_flags).abs().max()))
+        if form == "padded":
+            ring = out.clone()
+            ring[:, 1:-1, 1:-1] = 7
+            err = max(err, int((ring != 7).sum()))
+        stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
+        stats[key]["checks"] += 1
+        if err:
+            fail(f"T1 ({key}) differs from its plain version at {where}, n {n}, "
+                 f"{form} output")
+
+
 def check_tile_kernel(dev, stats: dict) -> None:
     """T1 against its plain version in both output forms: compact (B, t, t),
-    and the interior of a padded stack whose ring must be left as it was."""
+    and the interior of a padded stack whose ring must be left as it was;
+    one generation (the banded form), then n (the whole-window form, or n
+    banded launches for a window past a CTA's shared memory)."""
     rng = np.random.default_rng(SEED + 11)
     for batch, tile in TILE_CHECK_SHAPES:
         for kind in ("random", "still", "zero"):
             x = torch.from_numpy(_tile_stack(batch, tile, kind, rng)).to(dev)
-            want, want_flags = stl._tile_step_plain(x)
-            for form in ("compact", "padded"):
-                out = (torch.full((batch, tile, tile), 7, dtype=torch.uint8, device=dev)
-                       if form == "compact" else torch.full_like(x, 7))
-                flags = torch.zeros((batch, stl.TILE_FLAGS), dtype=torch.int32,
-                                    device=dev)
-                stl.tile_step_into(x, out, flags)
-                torch.cuda.synchronize(dev)
-                got = out if form == "compact" else out[:, 1:-1, 1:-1]
-                err = max(int((got.to(torch.int32) - want.to(torch.int32)).abs().max()),
-                          int((flags - want_flags).abs().max()))
-                if form == "padded":
-                    ring = out.clone()
-                    ring[:, 1:-1, 1:-1] = 7
-                    err = max(err, int((ring != 7).sum()))
-                stats["tile_step"]["max_abs_err"] = max(
-                    stats["tile_step"]["max_abs_err"], err)
-                stats["tile_step"]["checks"] += 1
-                if err:
-                    fail(f"T1 differs from its plain version at ({batch}, {tile}) "
-                         f"on {kind} blocks, {form} output")
+            _tile_compare(x, 1, stats, f"({batch}, {tile}) on {kind} blocks")
         print(f"T1 at (tiles, edge) ({batch}, {tile}) == plain on random, still "
               "and all-zero blocks, compact and padded output (tolerance 0: "
               "interiors, flags and the untouched ring)", flush=True)
+    for batch, tile, n in TILE_WINDOW_SHAPES:
+        for kind in ("random", "still"):
+            blocks = _tile_stack(batch, tile, kind, rng)
+            blocks[:, 0], blocks[:, -1] = 0, 0  # the macro lane's dead rings
+            blocks[:, :, 0], blocks[:, :, -1] = 0, 0
+            blocks[-1] = 0  # a padding slot
+            x = torch.from_numpy(blocks).to(dev)
+            _tile_compare(x, n, stats, f"({batch}, {tile}) on {kind} blocks")
+        form = ("the window form, one launch" if stl.window_words(tile)
+                <= stl.window_max_words(dev.index) else
+                f"past a CTA's shared memory: {n} banded launches")
+        print(f"T1 at (tiles, edge) ({batch}, {tile}), n = {n}, {form}, == plain "
+              "on random and still blocks with dead rings, compact and padded "
+              "output (tolerance 0: interiors, last flags and the untouched "
+              "ring)", flush=True)
 
 
 def _max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
@@ -1585,6 +1712,13 @@ def main_path(work: Path, dev) -> dict:
 
     for variant in ("game", "cuda"):
         for tag, key, limit in runs:
+            if variant == "cuda" and key == "random":
+                # No exit in (a) and (b): both conventions run the same
+                # generations to the same bytes, so the plain torch lane
+                # checks them once, under game.
+                if results[(variant, key, limit)] != results[("game", key, limit)]:
+                    fail(f"({tag}) cuda {key}: --kernel auto differs from game's")
+                continue
             before = _counts()
             gens, ms = run(variant, ["--kernel", "lax"], key, limit)
             _check_codec({k: n - before[k] for k, n in _counts().items()}, 0,
@@ -1783,6 +1917,65 @@ def io_compare(trees: list[Path], size: int, rounds: int) -> dict:
         shutil.rmtree(work, ignore_errors=True)
     return {"size": size, "rounds": rounds, "timed_per_process": IO_TIMED,
             "seed": SEED, "runs": runs}
+
+
+# --batch-compare: phase 4e's boards/s (bench.py's batch suite: 64/B
+# dispatches of B boards, best of 3 after a warm dispatch per B) for each
+# tree of the repository, each run in a process of its own that imports
+# that tree's package.
+_BATCH_RATES = r"""
+import json, sys, time
+import numpy as np
+from gol_tpu_torch.ops import stencil_batch
+from gol_tpu_torch.serve import batcher
+from gol_tpu_torch.serve.jobs import new_job
+seed, count, sides, limits, sizes = json.loads(sys.argv[1])
+rng = np.random.default_rng(seed)
+out = {}
+for name, side in sides.items():
+    boards = [rng.integers(0, 2, (side, side), dtype=np.uint8) for _ in range(count)]
+    for limit in limits:
+        jobs = [new_job(side, side, b, convention="c", gen_limit=limit) for b in boards]
+        key = batcher.bucket_for(jobs[0])
+        before = dict(stencil_batch.LAUNCHES)
+        rates = {}
+        for b in sizes:
+            batcher.run_batch(key, jobs[:b])
+            best = float("inf")
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for i in range(0, len(jobs), b):
+                    batcher.run_batch(key, jobs[i:i + b])
+                best = min(best, time.perf_counter() - t0)
+            rates[b] = len(jobs) / best
+        out[f"{name} limit {limit}"] = {"boards_per_sec": rates, "launches": {
+            k: n - before.get(k, 0) for k, n in stencil_batch.LAUNCHES.items()}}
+print(json.dumps(out))
+"""
+
+
+def batch_compare(trees: list[Path], rounds: int) -> dict:
+    """``--batch-compare``: boards/s at B = 1, 8 and 64 of phase 4e's two
+    buckets at gen_limit 4 and 1000 (C convention) for each tree, ``rounds``
+    rounds of a process per tree, odd rounds taking the trees in reverse
+    order, so that two versions compare within one call on one card."""
+    args = json.dumps([SEED + 5, BATCH_BOARDS, BATCH_SIDES, list(BATCH_LIMITS),
+                       list(BATCH_SIZES)])
+    runs = {str(t): [] for t in trees}
+    for r in range(rounds):
+        for tree in (trees if r % 2 == 0 else trees[::-1]):
+            env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [
+                str(tree), os.environ.get("PYTHONPATH")]))}
+            proc = subprocess.run([sys.executable, "-c", _BATCH_RATES, args],
+                                  cwd=tree, env=env, capture_output=True,
+                                  text=True, timeout=900)
+            if proc.returncode != 0:
+                fail(f"{tree}: the batch rates exited {proc.returncode}:\n"
+                     f"{proc.stderr[-3000:]}")
+            result = json.loads(proc.stdout.strip().splitlines()[-1])
+            runs[str(tree)].append(result)
+            print(f"round {r} {tree}: " + json.dumps(result), flush=True)
+    return {"rounds": rounds, "seed": SEED + 5, "runs": runs}
 
 
 def checkpoint_path(work: Path, path: dict) -> dict:
@@ -2111,7 +2304,8 @@ def _solo_check(board, result, config, kernel, where: str) -> None:
              f"({want.generations})")
 
 
-def _boards_per_sec(key, boards, convention, limit, repeats: int = 3) -> dict:
+def _boards_per_sec(key, boards, convention, limit,
+                    repeats: int = BATCH_REPEATS) -> dict:
     """bench.py's batch suite: the boards as 64/B ``run_batch`` dispatches
     of B boards, best of ``repeats``, after one warm dispatch per B."""
     jobs = _batch_jobs(boards, convention, limit)
@@ -2132,8 +2326,9 @@ def batch_lane(work: Path, dev) -> dict:
     """Phase 4e: the batch lane on the serving load of bench.py. 64 random
     256^2 boards (bucket 256x256/c/packed, B1) and 64 random 250^2 boards
     (256x256/c/masked, B2) through ``batcher.run_batch`` at gen_limit 4 and
-    1000 under both conventions, then JAX's mixed-fate trio at 32^2, with
-    the launch counters zeroed just before and read just after. Every
+    1000 under both conventions, then JAX's mixed-fate trio at 32^2 and a
+    pair of 1024^2 boards (B1's streaming form), with the launch counters
+    zeroed just before and read just after. Every
     board's grid, generations and exit reason equal the port's solo
     ``engine.simulate`` (``auto`` for the packed bucket, ``pallas`` for the
     masked one); the trio's equal the oracle too. Then ``python -m
@@ -2144,6 +2339,8 @@ def batch_lane(work: Path, dev) -> dict:
                     for _ in range(BATCH_BOARDS)]
              for name, side in BATCH_SIDES.items()}
     trio = _trio()
+    big = [rng.integers(0, 2, (BATCH_BIG_SIDE, BATCH_BIG_SIDE), dtype=np.uint8)
+           for _ in range(2)]
     runs, exec_ms = {}, {}
     _zero_counters()
     for convention in (Convention.C, Convention.CUDA):
@@ -2162,11 +2359,14 @@ def batch_lane(work: Path, dev) -> dict:
         jobs = _batch_jobs([b for b, _ in trio], convention, 60)
         runs[(convention, 60, "trio")] = batcher.run_batch(
             batcher.bucket_for(jobs[0]), jobs)
+        jobs = _batch_jobs(big, convention, BATCH_BIG_LIMIT)
+        runs[(convention, BATCH_BIG_LIMIT, "big")] = batcher.run_batch(
+            batcher.bucket_for(jobs[0]), jobs)
     counts = _counts()
     print(f"batch lane: launches {_nonzero(counts)}; one dispatch each, ms: "
           + json.dumps({k: round(v, 3) for k, v in exec_ms.items()}), flush=True)
     for k in KERNELS + BATCH_KERNELS:
-        if (k["key"] in ("batch_packed", "batch_masked")) != (counts[k["key"]] > 0):
+        if (k["key"] in BATCH_LANE_KEYS + ("batch_packed",)) != (counts[k["key"]] > 0):
             fail(f"{k['id']} ({k['key']}) launched {counts[k['key']]} times on "
                  "the batch lane")
 
@@ -2174,6 +2374,8 @@ def batch_lane(work: Path, dev) -> dict:
     for (convention, limit, name), results in runs.items():
         if name == "trio":
             boards, kernel = [b for b, _ in trio], "auto"
+        elif name == "big":
+            boards, kernel = big, "auto"
         else:
             boards, kernel = loads[name], "auto" if "packed" in name else "pallas"
         cfg = GameConfig(convention=convention, gen_limit=limit)
@@ -2236,7 +2438,7 @@ def batch_lane(work: Path, dev) -> dict:
                 f"{r[BATCH_SIZES[-1]] / r[BATCH_SIZES[0]]:.2f})", flush=True)
 
     busy = {}
-    for name, needle in (("256x256/packed", "batch_packed_kernel"),
+    for name, needle in (("256x256/packed", "batch_packed_block_kernel"),
                          ("250x250/masked", "batch_masked_kernel")):
         for limit in BATCH_LIMITS:
             jobs = _batch_jobs(loads[name], Convention.C, limit)
@@ -2605,7 +2807,7 @@ def server_lane(work: Path, dev) -> dict:
     load through a real ``GolServer`` with a journal, half the jobs as
     JSON and half as packed frames, at ``--pipeline-depth`` 1 and 2,
     ``--max-inflight 2`` and depth 1 without a journal, each on a fresh
-    server (best of two), every
+    server (once), every
     result through both result formats == the solo ``engine.simulate``
     and the trio == the oracle; (ii) bench.py's cache load through the
     ``Scheduler`` with a ``ResultCache``, cold, warm and coalesced, every
@@ -2617,12 +2819,12 @@ def server_lane(work: Path, dev) -> dict:
     _zero_counters()
     for name, kwargs in SERVER_LANES.items():
         runs = [_serve_once(work, f"{name}-{r}".replace(" ", "_"), kwargs, load)
-                for r in range(2)]
+                for r in range(SERVER_REPEATS)]
         lanes[name] = max(runs, key=lambda r: r["jobs_per_sec"])
         lanes[name]["runs_jobs_per_sec"] = [r["jobs_per_sec"] for r in runs]
     launches["server lane (4f i)"] = _counts()
     for k in KERNELS + BATCH_KERNELS:
-        if (k["key"] in ("batch_packed", "batch_masked")) != (
+        if (k["key"] in BATCH_LANE_KEYS) != (
                 launches["server lane (4f i)"][k["key"]] > 0):
             fail(f"{k['id']} launched {launches['server lane (4f i)'][k['key']]} "
                  "times on the server lane")
@@ -2904,7 +3106,7 @@ def ring_lane(work: Path, dev) -> dict:
     for k in KERNELS + BATCH_KERNELS:
         for lane in RING_LANES:
             n = launches[f"ring lane {lane} (4g)"][k["key"]]
-            if (k["key"] in ("batch_packed", "batch_masked")) != (n > 0):
+            if (k["key"] in BATCH_LANE_KEYS) != (n > 0):
                 fail(f"{k['id']} launched {n} times on ring lane {lane}")
     best_resident = max(v["rate"] for k, v in lanes.items()
                         if k.startswith("resident"))
@@ -3075,10 +3277,49 @@ def _t1_counted(label: str, launches: dict, fn):
     out = fn()
     seconds = time.perf_counter() - t0
     counts = _counts()
-    if not counts["tile_step"]:
+    if not counts["tile_step"] + counts["tile_window"]:
         fail(f"{label} launched no T1")
     launches[label] = counts
     return out, seconds
+
+
+@contextlib.contextmanager
+def _runner_calls():
+    """Count the tile step runner's calls while the block runs: ``step``
+    (one generation of a chunk) and ``advance`` (a chunk of macro leaf
+    windows n > 0 generations on)."""
+    calls = {"step": 0, "advance": 0}
+    step, advance = engine.TileStepRunner.__call__, engine.TileStepRunner.advance
+
+    def counted_step(self, blocks):
+        calls["step"] += 1
+        return step(self, blocks)
+
+    def counted_advance(self, blocks, generations):
+        calls["advance"] += generations > 0
+        return advance(self, blocks, generations)
+
+    engine.TileStepRunner.__call__ = counted_step
+    engine.TileStepRunner.advance = counted_advance
+    try:
+        yield calls
+    finally:
+        engine.TileStepRunner.__call__ = step
+        engine.TileStepRunner.advance = advance
+
+
+def _one_launch_a_call(label: str, counts: dict, calls: dict) -> None:
+    """A macro run's T1 launches: one per runner call, a leaf advance of n
+    generations included (the window form; its 512^2 windows fit)."""
+    launched = counts["tile_step"] + counts["tile_window"]
+    if launched != calls["step"] + calls["advance"] or (
+            calls["advance"] and not counts["tile_window"]):
+        fail(f"{label}: {launched} T1 launches ({counts['tile_window']} of the "
+             f"window form) for {calls['advance']} leaf advances and "
+             f"{calls['step']} single steps")
+    print(f"{label}: {launched} T1 launches for {calls['advance']} leaf advances "
+          f"and {calls['step']} single steps ({counts['tile_window']} of the window "
+          "form): one launch a call", flush=True)
 
 
 def _same_result(a, b) -> bool:
@@ -3140,10 +3381,11 @@ def _sparse_suite(dev, launches: dict) -> dict:
 
 
 def _macro_suite(work: Path, launches: dict) -> dict:
-    """(ii) bench.py's macro suite: the Gosper gun, tile 256; sparse at
-    8192^2 for 3000 generations; macro at 2^20 squared for 10^6 generations
-    cold into a fresh CAS, then warm from it; macro to 3000 generations at
-    8192^2 against the sparse run's RLE."""
+    """(ii) bench.py's macro suite, the gun's 8192^2 runs cut to GUN_GENS:
+    the Gosper gun, tile 256; sparse at 8192^2; macro at 2^20 squared for
+    10^6 generations cold into a fresh CAS, then warm from it; macro at
+    8192^2 against the sparse run's RLE. Each macro run launches T1 once per
+    runner call (``_one_launch_a_call``)."""
     gun = (REPO / "patterns" / "gosper_gun.rle").read_text()
     simulate_sparse(_gun_board(gun, GUN_UNIVERSE), GameConfig(gen_limit=1), TileMemo())
     sparse, sparse_s = _t1_counted(
@@ -3153,21 +3395,27 @@ def _macro_suite(work: Path, launches: dict) -> dict:
     print(f"sparse gun {GUN_UNIVERSE}^2: {GUN_GENS} generations in "
           f"{sparse_s:.3f} s ({sparse_s * 1e3 / GUN_GENS:.3f} ms/gen, "
           f"{sparse.stats.tiles_per_generation():.3f} tiles/gen)", flush=True)
-    shallow, shallow_s = _t1_counted(
-        f"macro gun {GUN_UNIVERSE}^2, {GUN_GENS} generations (4i)", launches,
-        lambda: simulate_macro(_gun_board(gun, GUN_UNIVERSE),
-                               GameConfig(gen_limit=GUN_GENS),
-                               MacroMemo(NodeStore(SPARSE_TILE))))
+    label = f"macro gun {GUN_UNIVERSE}^2, {GUN_GENS} generations (4i)"
+    with _runner_calls() as calls:
+        shallow, shallow_s = _t1_counted(
+            label, launches,
+            lambda: simulate_macro(_gun_board(gun, GUN_UNIVERSE),
+                                   GameConfig(gen_limit=GUN_GENS),
+                                   MacroMemo(NodeStore(SPARSE_TILE))))
+    _one_launch_a_call(label, launches[label], calls)
     if not _same_result(shallow, sparse):
         fail(f"macro to {GUN_GENS} generations differs from the sparse lane")
     print(f"macro gun {GUN_UNIVERSE}^2: {GUN_GENS} generations in "
           f"{shallow_s:.3f} s, RLE == the sparse lane's", flush=True)
     cas = str(work / "macro_cas")
     config = GameConfig(gen_limit=MACRO_GENS)
-    cold, cold_s = _t1_counted(
-        f"macro gun 2^20 squared, {MACRO_GENS} generations, cold (4i)", launches,
-        lambda: simulate_macro(_gun_board(gun, MACRO_UNIVERSE), config,
-                               MacroMemo(NodeStore(SPARSE_TILE), cas_dir=cas)))
+    label = f"macro gun 2^20 squared, {MACRO_GENS} generations, cold (4i)"
+    with _runner_calls() as calls:
+        cold, cold_s = _t1_counted(
+            label, launches,
+            lambda: simulate_macro(_gun_board(gun, MACRO_UNIVERSE), config,
+                                   MacroMemo(NodeStore(SPARSE_TILE), cas_dir=cas)))
+    _one_launch_a_call(label, launches[label], calls)
     if (cold.generations, cold.exit_reason) != (MACRO_GENS, "gen_limit"):
         fail(f"macro cold: {cold.generations} generations, {cold.exit_reason}")
     _zero_counters()
@@ -3177,7 +3425,7 @@ def _macro_suite(work: Path, launches: dict) -> dict:
     warm_s = time.perf_counter() - t0
     warm_counts = _counts()
     if warm.board != cold.board or warm.stats.leaf_gen_steps != 0 \
-            or warm_counts["tile_step"] != 0:
+            or warm_counts["tile_step"] + warm_counts["tile_window"] != 0:
         fail("macro warm from the CAS differs from the cold run or stepped leaves")
     stats = {k: getattr(cold.stats, k) for k in (
         "supersteps", "node_hits", "node_misses", "cas_hits", "leaf_cases",
@@ -3186,7 +3434,8 @@ def _macro_suite(work: Path, launches: dict) -> dict:
           f"({json.dumps(stats)}, population {cold.board.population()}); warm "
           f"from the CAS {warm_s:.3f} s ({warm.stats.cas_hits} content hits, "
           f"{warm.stats.leaf_gen_steps} leaf steps, T1 launches "
-          f"{warm_counts['tile_step']}), boards equal", flush=True)
+          f"{warm_counts['tile_step'] + warm_counts['tile_window']}), boards equal",
+          flush=True)
     return {"sparse_gun_s": sparse_s, "sparse_gun_ms_per_gen": sparse_s * 1e3 / GUN_GENS,
             "sparse_gun_tiles_per_gen": sparse.stats.tiles_per_generation(),
             "macro_gun_3000_s": shallow_s, "macro_cold_s": cold_s,
@@ -3363,7 +3612,7 @@ def _oracle_job(args):
 
 def _oracle_pool():
     """A spawned process pool for the port's numpy oracle (the loads'
-    boards run 6000-10000 generations each)."""
+    boards run 2000-4000 generations each)."""
     import multiprocessing
 
     return concurrent.futures.ProcessPoolExecutor(
@@ -3598,7 +3847,7 @@ def _sha1(text: str) -> str:
 
 
 def _shard_lane(base: str, fleet_dir: Path, rle: str, want_sha1: str) -> dict:
-    """The uncut shard suite through the router: a warm job of 4
+    """The shard suite through the router: a warm job of 4
     generations, then SHARD_LIMIT generations timed; the makespan is the
     most CPU seconds any worker spent, as bench.py reads it."""
     _shard_result(base, _shard_job(base, rle, 4))
@@ -3708,8 +3957,8 @@ def _fleet_lanes(work: Path, launches: dict, boards: list, oracles) -> dict:
     """(i) and (iii): per N, ``python -m gol_tpu_torch fleet --workers N``
     with taskset slices; bench.py's fleet load (warm round, timed round,
     every job equal to the oracle), the shard suite's universe through
-    the router (warm, timed) and the gun through ``run --engine shard``.
-    At N = 2 the router drill, at N = 4 the shard worker kill."""
+    the router (warm, timed). At N = 2 the router drill, at N = 4 the gun
+    through ``run --engine shard`` and the shard worker kill."""
     if shutil.which("taskset") is None:
         fail("taskset is missing: fleet --cores-per-worker needs it")
     cores = os.cpu_count() or 4
@@ -3747,7 +3996,8 @@ def _fleet_lanes(work: Path, launches: dict, boards: list, oracles) -> dict:
                         cell_updates_per_s=FLEET_SIDE ** 2 * FLEET_LIMIT
                         * len(ids) / seconds)
             lane["shard"] = _shard_lane(base, fleet_dir, rle, want_sha1)
-            _shard_cli(work, base, f"n{n}", cli_want)
+            if n == FLEET_NS[-1]:  # the CLI's shard lane once, over N workers
+                _shard_cli(work, base, f"n{n}", cli_want)
             if n == 2:
                 proc, base, lane["router_drill"], orphans = _router_drill(
                     work, proc, base, args, log, env, fleet_dir)
@@ -3759,9 +4009,11 @@ def _fleet_lanes(work: Path, launches: dict, boards: list, oracles) -> dict:
         reports = _exit_stats(stats)
         lane["peak_device_bytes"] = {r["pid"]: r["peak_device_bytes"] for r in reports}
         lane["t1_launches_by_worker"] = {r["pid"]: r["launches"]["tile_step"]
+                                         + r["launches"].get("tile_window", 0)
                                          for r in reports}
         launches[f"fleet and shard lanes, N={n} (4j, workers)"] = counts = _summed(reports)
-        needed = ("batch_packed", "tile_step") + (("batch_masked",) if n == 2 else ())
+        needed = ("batch_packed_block", "tile_step") + (
+            ("batch_masked",) if n == 2 else ())
         for key in needed:
             if not counts.get(key):
                 fail(f"the N={n} workers launched no {key}")
@@ -3870,7 +4122,7 @@ def _chaos_lanes(work: Path, launches: dict, boards: list, wants) -> dict:
     out["degraded_over_defended"] = out["degraded_jobs_per_s"] / out["defended_jobs_per_s"]
     reports = _exit_stats(stats)
     launches["chaos lanes (4j, workers)"] = counts = _summed(reports)
-    if not counts.get("batch_packed"):
+    if not counts.get("batch_packed_block"):
         fail("the chaos lanes' workers launched no B1")
     out["peak_device_bytes"] = {r["pid"]: r["peak_device_bytes"] for r in reports}
     print(f"chaos ({time.perf_counter() - t_chaos:.1f} s): baseline "
@@ -3952,7 +4204,7 @@ MP_LANES = {
         [("a", "random", 1000)], ("bandtrow_fast",)),
     "tpu 4x1 pallas, 4 ranks": (
         4, 1, ["--variant", "tpu", "--mesh", "4x1", "--kernel", "pallas"],
-        [("a", "random", 1000)], ("dist_byte_band",)),
+        [("c", "tromino_corner", 1000)], ("dist_byte_band",)),
 }
 MP_CKPT_EVERY, MP_KILL_AT, MP_LOST_BOUND_S = 250, 500, 60
 # Two ranks of NCCL on the one card: NCCL takes one card per rank, so this
@@ -4497,14 +4749,15 @@ def _timed_codec(cells: torch.Tensor, words: torch.Tensor, ops_per_s: float) -> 
     return out
 
 
-def _fresh_flags_ms(launch, x: torch.Tensor, rounds: int) -> float:
+def _fresh_flags_ms(launch, x: torch.Tensor, rounds: int, gens: int = 0) -> float:
     """ms per launch of ``launch(src, dst, flags)`` over ``rounds``
-    ping-pong launches in one CUDA graph, launch k ORing into its own
-    zeroed flag row, as the engine's block does (``ring_graph_ms``'s
-    launches share one flag row, set after the first)."""
+    ping-pong launches in one CUDA graph, launch k writing into its own
+    zeroed flag rows — (B, 2), or (gens, B, 2) for a block of ``gens`` —
+    as the engine's block does (``ring_graph_ms``'s launches share one
+    flag row, set after the first)."""
     y = torch.empty_like(x)
-    rows = torch.zeros((rounds, x.shape[0], sb.STEP_FLAGS), dtype=torch.int32,
-                       device=x.device)
+    rows = torch.zeros((rounds, *((gens,) if gens else ()), x.shape[0],
+                        sb.STEP_FLAGS), dtype=torch.int32, device=x.device)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -4553,7 +4806,7 @@ def _timed_batch(ops_per_s: float) -> dict:
             lambda a: sb._batch_masked_plain(a, steps, ext, ext, 0),
             cells.numel() * OPS_PER_CELL),
     }
-    out = {}
+    out = {"batch_packed_block": _timed_block(words, ops_per_s)}
     for key, (x, vectors, launch, plain, ops) in cases.items():
         y = torch.empty_like(x)
         flags = torch.zeros((b, sb.STEP_FLAGS), dtype=torch.int32, device=dev)
@@ -4583,6 +4836,43 @@ def _timed_batch(ops_per_s: float) -> dict:
             "working_set_bytes": 2 * x.numel() * x.element_size(),
         }
     return out
+
+
+def _timed_block(words: torch.Tensor, ops_per_s: float) -> dict:
+    """B1's block form at phase 4e's shape (64 boards of 256 x 8 words),
+    one launch of a block of BATCH_BLOCK_T generations in which every board
+    runs: graph replay of 100 ping-pong launches, each storing into its own
+    zeroed (t, B, 2) flag rows; eager launches and the wrapper's host time
+    beside it. The bytes are the boards, the step counts and the flags
+    moved once; the operations the network's 12 per word and generation."""
+    t, b = BATCH_BLOCK_T, words.shape[0]
+    steps = torch.full((b,), t, dtype=torch.int32, device=words.device)
+    flags = torch.zeros((t, b, sb.STEP_FLAGS), dtype=torch.int32, device=words.device)
+    launch = lambda a, o, f: sb.batch_packed_block_into(a, o, f, steps, t)  # noqa: E731
+    y = torch.empty_like(words)
+    ring = lambda i, a, o: launch(a, o, flags)  # noqa: E731
+    eager_ms = _time(ring, [words], [y], 100)
+    _, wrapper_ms = profiler.ring_graph_ms(ring, [words], [y], 100)
+    ms = _fresh_flags_ms(launch, words, 100, gens=t)
+    plain_ms = _time(lambda i, a, o: sb._batch_packed_block_plain(a, steps, t),
+                     [words], [y], 2)
+    nbytes = 2 * words.numel() * 4 + flags.numel() * 4 + b * 4
+    ops = words.numel() * OPS_PER_WORD_GEN * t
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
+    print(f"batch_packed_block at {tuple(words.shape)}, t = {t}: {ms:.6f} ms a "
+          f"block ({ms / t:.6f} ms a generation) in a CUDA graph, fresh flag rows "
+          f"per launch (eager {eager_ms:.6f} ms, wrapper {wrapper_ms:.6f} ms on "
+          f"the host, plain {plain_ms:.6f} ms); bytes {nbytes} -> {bytes_ms:.6f} "
+          f"ms, logic ops {ops} -> {ops_ms:.6f} ms; bound share "
+          f"{max(bytes_ms, ops_ms) / ms:.3f}", flush=True)
+    return {"shape": list(words.shape), "generations": t, "ms": ms,
+            "ms_per_generation": ms / t, "eager_ms": eager_ms,
+            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "bytes_ms": bytes_ms, "logic_ops": ops,
+            "ops_ms": ops_ms, "logic_ops_per_s": ops_per_s}
 
 
 def _graph_rows_ms(launch, rows: torch.Tensor) -> float:
@@ -4630,9 +4920,9 @@ def _timed_tile(ops_per_s: float) -> dict:
         rows = torch.zeros((100, batch, stl.TILE_FLAGS), dtype=torch.int32, device=dev)
         ms = _graph_rows_ms(launch, rows)
         eager_ms = _time(lambda i, a, b: launch(0, rows[0]), [x], [y], 100)
-        plain_ms = _time(lambda i, a, b: stl._tile_step_plain(x), [x], [y], 10)
+        plain_ms = _time(lambda i, a, b: stl._tile_steps_plain(x, 1), [x], [y], 10)
         nbytes = batch * ((tile + 2) ** 2 + tile * tile + stl.TILE_FLAGS * 4)
-        ops = batch * tile * tile * OPS_PER_CELL
+        ops = batch * tile * tile // 32 * OPS_PER_WORD_GEN  # on bit words
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / ops_per_s * 1e3
         print(f"tile_step ({form}) at {batch} x {tile}^2: {ms:.6f} ms/launch in a "
@@ -4648,7 +4938,43 @@ def _timed_tile(ops_per_s: float) -> dict:
             "bytes": nbytes, "bytes_ms": bytes_ms, "logic_ops": ops,
             "ops_ms": ops_ms, "logic_ops_per_s": ops_per_s,
         })
-    return {"tile_step": {**shapes[0], "by_shape": shapes}}
+    return {"tile_step": {**shapes[0], "by_shape": shapes},
+            "tile_window": _timed_window(rng, ops_per_s)}
+
+
+def _timed_window(rng, ops_per_s: float) -> dict:
+    """T1's window form at the macro lane's shape: 64 leaf windows of 512^2
+    with dead rings, TILE_WINDOW_GENS generations a launch into the padded
+    form, 20 launches in one CUDA graph, each ORing into its own zeroed
+    flag row. The bytes are the blocks read once and the interiors and
+    flags written once; the operations the network's 12 per interior word
+    and generation."""
+    dev = torch.device("cuda", 0)
+    batch, tile, n = 64, 512, TILE_WINDOW_GENS
+    cells = rng.integers(0, 2, (batch, tile + 2, tile + 2), dtype=np.uint8)
+    cells[:, 0], cells[:, -1], cells[:, :, 0], cells[:, :, -1] = 0, 0, 0, 0
+    x = torch.from_numpy(cells).to(dev)
+    y = torch.zeros_like(x)
+    rows = torch.zeros((20, batch, stl.TILE_FLAGS), dtype=torch.int32, device=dev)
+    ms = _graph_rows_ms(lambda k, f: stl.tile_step_into(x, y, f, n), rows)
+    eager_ms = _time(lambda i, a, b: stl.tile_step_into(x, y, rows[0], n), [x], [y], 20)
+    plain_ms = _time(lambda i, a, b: stl._tile_steps_plain(x, n), [x], [y], 2)
+    nbytes = batch * ((tile + 2) ** 2 + tile * tile + stl.TILE_FLAGS * 4)
+    ops = batch * tile * tile // 32 * OPS_PER_WORD_GEN * n
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
+    print(f"tile_window (padded) at {batch} x {tile}^2, n = {n}: {ms:.6f} ms a "
+          f"launch ({ms / n:.6f} ms a generation) in a CUDA graph, fresh flags per "
+          f"launch (eager {eager_ms:.6f} ms, plain {plain_ms:.6f} ms); bytes "
+          f"{nbytes} -> {bytes_ms:.6f} ms, ops {ops} -> {ops_ms:.6f} ms; bound "
+          f"share {max(bytes_ms, ops_ms) / ms:.3f}", flush=True)
+    return {"shape": [batch, tile + 2, tile + 2], "form": "padded",
+            "generations": n, "ms": ms, "ms_per_generation": ms / n,
+            "eager_ms": eager_ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "bytes_ms": bytes_ms, "logic_ops": ops,
+            "ops_ms": ops_ms, "logic_ops_per_s": ops_per_s}
 
 
 def roofline_phase() -> tuple[dict, dict]:
@@ -4684,17 +5010,28 @@ def main(argv=None) -> int:
         "--io-compare", metavar="DIR,DIR,...",
         help="only time the packed I/O lines of these repository trees "
              "against each other (io_compare), and print them as JSON")
+    parser.add_argument(
+        "--batch-compare", metavar="DIR,DIR,...",
+        help="only time the batch lane's boards/s (phase 4e's buckets) of "
+             "these repository trees against each other (batch_compare), "
+             "and print them as JSON")
     parser.add_argument("--size", type=int, default=SIZE, help="--io-compare's grid edge")
-    parser.add_argument("--rounds", type=int, default=2, help="--io-compare's rounds")
+    parser.add_argument("--rounds", type=int, default=2,
+                        help="--io-compare's and --batch-compare's rounds")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card; this smoke test needs one",
               file=sys.stderr)
         return 2
-    if args.io_compare:
+    if args.io_compare or args.batch_compare:
         _build.BUILD_DIR.mkdir(exist_ok=True)
-        doc = io_compare([Path(t).resolve() for t in args.io_compare.split(",")],
-                         args.size, args.rounds)
+        if args.io_compare:
+            doc = io_compare([Path(t).resolve() for t in args.io_compare.split(",")],
+                             args.size, args.rounds)
+        else:
+            os.environ[platform_env.DEVICE_ENV] = "cuda"
+            doc = batch_compare([Path(t).resolve()
+                                 for t in args.batch_compare.split(",")], args.rounds)
         print(_smi())
         print(json.dumps(doc))
         return 0

@@ -6,53 +6,81 @@
 // (gol_tpu/engine.py _batch_evolve :1279-1290, _evolve_batch_masked
 // :1081-1105). The port's loop runs on the host and reads back one flag
 // tensor per block of generations, so its step must put each board's
-// flags out of the same pass: these two kernels.
+// flags out of the same pass: these kernels.
 //
-//   batch_packed_kernel  B1  one generation of B exact-fit tori stored as
-//       words, (B, height, nwords): bit j of word w is column 32w + j.
+//   batch_packed_block_kernel  B1, block form: a whole block of up to t
+//       generations of B exact-fit tori stored as words, (B, height,
+//       nwords): bit j of word w is column 32w + j. One launch per block
+//       of the engine's loop.
+//   batch_packed_kernel  B1, streaming form: one generation of the same,
+//       for boards whose two copies do not fit in one CTA's shared memory.
 //   batch_masked_kernel  B2  one generation of B uint8 boards in one
 //       (B, height, width) canvas; board b wraps at its own extent
 //       (heights[b], widths[b]) and every cell at or past it is written 0.
 //       The exact-fit byte mode runs through it with the extent of the
 //       canvas.
 //
-// Flags. Each launch ORs board b's pair into flags[2b] (any live cell in
-// the new board) and flags[2b + 1] (any cell that changed: "similar"
-// stored negated, as in stencil_packed.cu), into a buffer the caller
-// zeroes. A warp reduces its predicates (__reduce_or_sync) and one lane
-// issues the atomic, only if the flag is still clear. For B2 the pair
-// covers the board's whole slot of the canvas, padding included, which is
-// the JAX loop's compare of the padded canvas: padding is 0 before and
-// after every generation.
-//
 // Per-board step counts. A block of the engine's loop runs some boards
 // fewer generations than others (each board stops at its own generation
-// limit). `steps[b]` is board b's count for the block and `gen` the
-// launch's generation in it: where gen >= steps[b] the board is copied
-// through unchanged and writes no flag, so the ping-pong buffers stay in
-// step. Padding slots have steps 0.
+// limit): `steps[b]` is board b's count for the block. The block form runs
+// board b for min(steps[b], t) generations and writes the pair of
+// generation i to flags[i, b] (any live cell in the new board, any cell
+// that changed: "similar" stored negated, as in stencil_packed.cu) for
+// every i it runs; the other rows stay as the caller zeroed them, and a
+// board with steps 0 (a padding slot, or a board whose limit was reached)
+// is copied through. The one-generation kernels take the launch's
+// generation `gen` in its block: where gen >= steps[b] the board is copied
+// through unchanged and writes no flag, so ping-pong buffers stay in step.
+// They OR board b's pair into flags[2b] and flags[2b + 1] of a buffer the
+// caller zeroes.
 //
-// Design. B1 is one thread per word: it loads the word and its 8
-// neighbours (rows and words modulo the board, so one-word-wide and
-// one-row boards are right), computes the three rows' sums and the rule
-// through the adder network of stencil_packed.cu (next_gen), and writes
-// the word. B2 gives each lane of a warp one column of a band of
-// kBandRows rows: the lane walks down it, wrapping rows and columns at the
-// board's own extent, and keeps the 3-cell sums of the rows above and at
-// the current one, so each cell costs one row sum (3 byte loads, the
-// warp's 32 adjacent columns in one 32-byte sector). Its first version, one
-// thread per cell with 9 loads and 16x the warps, took 0.050 ms per launch
-// at the serving shape and 0.18 ms in the loop, where every warp of a
-// freshly zeroed flag issued its atomic (PERF.md). The neighbour loads of
-// both come from L1 and L2: each input byte comes from device memory once.
+// What bounds them. Each generation moves each board's words once and
+// does the adder network's 12 logic instructions per word
+// (roofline.OPS_PER_WORD_GEN). At the serving shape (64 boards of 256^2:
+// 512 KiB of words) one generation's bound is 0.0003 ms and a block of 16
+// generations' 0.0015 ms, set by the operations once the board stays on
+// chip: far below the cost of a launch. So the first form of B1, one
+// launch per generation, was launch-bound (0.0088 ms a launch, with all
+// 64 warps of a board ORing into the same two fresh flags).
 //
-// What bounds them. Both move each input byte once and each output byte
-// once (B1 2 x 4 bytes per word, B2 2 bytes per cell); B1 does the
-// network's 12 logic instructions per word (roofline.OPS_PER_WORD_GEN),
-// so bytes bound both. At the serving shapes (64 boards of 256^2: 512 KiB
-// of words, 4 MiB of cells) a launch moves too few bytes to fill the card
-// and the launch itself is most of the time. Not done yet: several
-// generations per launch, which the engine's block would allow.
+// Design of the block form. One CTA per board: it loads the board into
+// dynamic shared memory with 16-byte loads (two copies, ping-ponged), runs
+// its generations out of shared memory with one __syncthreads() between
+// them, and stores the final board with 16-byte stores: device memory sees
+// the board once each way per block, and the host one launch. A thread
+// owns a strip of rows of one word column and walks down it, keeping the
+// row sums of the rows above and at the current one, so each word costs
+// one new row sum (three shared loads). A generation's flags are reduced
+// in the CTA (a warp's __reduce_or_sync, then one word per warp in shared
+// memory, double-buffered by the generation's parity so one barrier a
+// generation suffices) and one thread stores the pair with plain stores:
+// no atomics. The CTA takes two board words per thread, up to 1024
+// threads: one CTA is the only work its SM has for the board's whole
+// block, so it brings as many warps as the SM holds to hide the shared
+// memory latency of the dependent loads (a 256^2 board, 2048 words, gets
+// 1024 threads and strips of 2 rows). The shared memory (two copies)
+// bounds the board: up to the device's opt-in maximum per block
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin, 232,448 bytes on an H100:
+// boards of up to 29,024 words), asked for with cudaFuncSetAttribute past
+// 48 KiB; larger boards take the streaming
+// form, which the wrapper chooses by shape (gol_batch_block_max_words).
+//
+// Design of the one-generation kernels. The B1 streaming form is one
+// thread per word: it loads the word and its 8 neighbours (rows and words
+// modulo the board, so one-word-wide and one-row boards are right) and
+// computes the three rows' sums and the rule through the adder network of
+// stencil_packed.cu (next_gen). Its flags are reduced in the CTA to one
+// atomic per CTA and flag. B2 gives each lane of a warp one column of a
+// band of kBandRows rows: the lane walks down it, wrapping rows and
+// columns at the board's own extent, and keeps the 3-cell sums of the rows
+// above and at the current one, so each cell costs one row sum (3 byte
+// loads, the warp's 32 adjacent columns in one 32-byte sector); a warp
+// reduces its predicates and one lane issues the atomic, only if the flag
+// is still clear. For B2 the pair covers the board's whole slot of the
+// canvas, padding included, which is the JAX loop's compare of the padded
+// canvas: padding is 0 before and after every generation. The neighbour
+// loads of both come from L1 and L2: each input byte comes from device
+// memory once. B2 is still one launch per generation.
 
 #include <cstddef>
 #include <cstdint>
@@ -66,6 +94,11 @@ constexpr int kWarp = 32;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kBandWarps = kThreads / kWarp;  // B2: bands of a block
 constexpr int kBandRows = 16;                   // B2: rows of a warp's band
+constexpr int kBlockMaxThreads = 1024;  // B1 block form: most threads a CTA
+constexpr int kBlockMaxWarps = kBlockMaxThreads / kWarp;
+// B1 block form: the warps' flag words, one set per generation parity.
+constexpr int kBlockStaticShared = 2 * kBlockMaxWarps * 4;
+constexpr int kDefaultDynamicShared = 48 * 1024;  // without the opt-in
 
 // The rule from the 3-cell sums of the rows above (u) and below (d), the
 // centre row's 2-cell sums (m) and the centre row (stencil_packed.cu).
@@ -80,24 +113,76 @@ __device__ __forceinline__ uint32_t next_gen(uint32_t u0, uint32_t u1,
   return (v0 ^ tc) & ~v1 & (t0 | mid);
 }
 
-// Word w of a row's sums: m = west + east (2-cell), s = west + centre +
-// east (3-cell), each as two bitplanes.
-__device__ __forceinline__ void row_sums(const uint32_t* row, int w, int ww,
-                                         int we, uint32_t& m0, uint32_t& m1,
-                                         uint32_t& s0, uint32_t& s1,
-                                         uint32_t& x) {
-  x = __ldg(row + w);
-  const uint32_t west = __funnelshift_l(__ldg(row + ww), x, 1);
-  const uint32_t east = __funnelshift_r(x, __ldg(row + we), 1);
+// A row's sums at word x with its west and east neighbour words: m =
+// west + east (2-cell), s = west + centre + east (3-cell), each as two
+// bitplanes.
+__device__ __forceinline__ void sums(uint32_t x, uint32_t wn, uint32_t en,
+                                     uint32_t& m0, uint32_t& m1, uint32_t& s0,
+                                     uint32_t& s1) {
+  const uint32_t west = __funnelshift_l(wn, x, 1);
+  const uint32_t east = __funnelshift_r(x, en, 1);
   m0 = west ^ east;
   m1 = west & east;
   s0 = m0 ^ x;
   s1 = m1 | (x & m0);
 }
 
-// OR a warp's predicate into *flag: one warp-wide reduction, then lane 0
-// reads the flag and issues the atomic only if it is still clear. Every
-// lane of the warp calls it.
+// Word w of a row's sums in device memory (ww, we: the west and east
+// words, wrapped), and the word itself in `x`.
+__device__ __forceinline__ void row_sums(const uint32_t* row, int w, int ww,
+                                         int we, uint32_t& m0, uint32_t& m1,
+                                         uint32_t& s0, uint32_t& s1,
+                                         uint32_t& x) {
+  x = __ldg(row + w);
+  sums(x, __ldg(row + ww), __ldg(row + we), m0, m1, s0, s1);
+}
+
+// One generation of a (height, nwords) torus from `src` to `dst`, both in
+// shared memory, by the CTA: thread k walks strips of `strip` rows of one
+// word column (units k, k + blockDim.x, ...), keeping the row sums of the
+// rows above and at the current one, so a word costs one new row sum.
+// ORs the new words into `alive` and the changed bits into `differs`.
+__device__ __forceinline__ void torus_generation(const uint32_t* src,
+                                                 uint32_t* dst, int height,
+                                                 int nwords, int strip,
+                                                 uint32_t& alive,
+                                                 uint32_t& differs) {
+  const int units = (height + strip - 1) / strip * nwords;
+  for (int u = threadIdx.x; u < units; u += blockDim.x) {
+    const int w = u % nwords;
+    const int r0 = u / nwords * strip;
+    const int r1 = min(r0 + strip, height);
+    const int ww = w == 0 ? nwords - 1 : w - 1;
+    const int we = w + 1 == nwords ? 0 : w + 1;
+    const uint32_t* up = src + (r0 == 0 ? height - 1 : r0 - 1) * nwords;
+    const uint32_t* at = src + r0 * nwords;
+    uint32_t u0, u1, m0, m1, s0, s1, unused0, unused1;
+    sums(up[w], up[ww], up[we], unused0, unused1, u0, u1);
+    uint32_t x = at[w];
+    sums(x, at[ww], at[we], m0, m1, s0, s1);
+    for (int r = r0; r < r1; ++r) {
+      const uint32_t* down = src + (r + 1 == height ? 0 : r + 1) * nwords;
+      const uint32_t xd = down[w];
+      uint32_t dm0, dm1, d0, d1;
+      sums(xd, down[ww], down[we], dm0, dm1, d0, d1);
+      const uint32_t nv = next_gen(u0, u1, d0, d1, m0, m1, x);
+      dst[r * nwords + w] = nv;
+      alive |= nv;
+      differs |= nv ^ x;
+      u0 = s0;
+      u1 = s1;
+      m0 = dm0;
+      m1 = dm1;
+      s0 = d0;
+      s1 = d1;
+      x = xd;
+    }
+  }
+}
+
+// B2: OR a warp's predicate into *flag: one warp-wide reduction, then
+// lane 0 reads the flag and issues the atomic only if it is still clear.
+// Every lane of the warp calls it.
 __device__ __forceinline__ void or_flag(uint32_t acc, int* flag) {
   if (__reduce_or_sync(kFullMask, acc != 0 ? 1u : 0u) &&
       threadIdx.x % kWarp == 0) {
@@ -105,11 +190,76 @@ __device__ __forceinline__ void or_flag(uint32_t acc, int* flag) {
   }
 }
 
-// B1: grid (ceil(height * nwords / kThreads), batch), one thread per word.
+// B1, block form: grid (batch), block_threads(height * nwords) threads,
+// dynamic shared memory for two copies of a board (block_shared_bytes).
+__global__ void __launch_bounds__(kBlockMaxThreads)
+batch_packed_block_kernel(const uint32_t* __restrict__ in,
+                          uint32_t* __restrict__ out, int* __restrict__ flags,
+                          const int* __restrict__ steps, int t, int batch,
+                          int height, int nwords, int strip) {
+  extern __shared__ __align__(16) uint4 board_shared[];
+  __shared__ uint32_t warp_flags[2][kBlockMaxWarps];
+  const int b = blockIdx.x;
+  const int words = height * nwords;
+  const size_t base = static_cast<size_t>(b) * words;
+  uint32_t* cur = reinterpret_cast<uint32_t*>(board_shared);
+  uint32_t* nxt = cur + ((words + 3) & ~3);  // 16-byte aligned
+  // 16-byte loads and stores where the board's words allow them.
+  const bool wide = words % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (wide) {
+    const uint4* src = reinterpret_cast<const uint4*>(in + base);
+    for (int i = threadIdx.x; i < words / 4; i += blockDim.x) {
+      board_shared[i] = __ldg(src + i);
+    }
+  } else {
+    for (int i = threadIdx.x; i < words; i += blockDim.x) {
+      cur[i] = __ldg(in + base + i);
+    }
+  }
+  const int n = min(__ldg(steps + b), t);
+  const int warp = threadIdx.x / kWarp;
+  __syncthreads();
+  for (int i = 0; i < n; ++i) {
+    uint32_t alive = 0, differs = 0;
+    torus_generation(cur, nxt, height, nwords, strip, alive, differs);
+    const unsigned pair = __reduce_or_sync(
+        kFullMask, (alive != 0 ? 1u : 0u) | (differs != 0 ? 2u : 0u));
+    if (threadIdx.x % kWarp == 0) warp_flags[i & 1][warp] = pair;
+    __syncthreads();  // the generation is written, and its warps' flags
+    if (threadIdx.x == 0) {
+      // Read before any warp writes this parity's words again: that is
+      // after the next generation's barrier, which this thread has not
+      // reached.
+      unsigned any = 0;
+      for (int k = 0; k < static_cast<int>(blockDim.x) / kWarp; ++k) {
+        any |= warp_flags[i & 1][k];
+      }
+      int* pair_out = flags + 2 * (static_cast<size_t>(i) * batch + b);
+      pair_out[0] = static_cast<int>(any & 1u);
+      pair_out[1] = static_cast<int>(any >> 1);
+    }
+    uint32_t* done = nxt;
+    nxt = cur;
+    cur = done;
+  }
+  if (wide) {
+    uint4* dst = reinterpret_cast<uint4*>(out + base);
+    const uint4* src = reinterpret_cast<const uint4*>(cur);
+    for (int i = threadIdx.x; i < words / 4; i += blockDim.x) dst[i] = src[i];
+  } else {
+    for (int i = threadIdx.x; i < words; i += blockDim.x) out[base + i] = cur[i];
+  }
+}
+
+// B1, streaming form: grid (ceil(height * nwords / kThreads), batch), one
+// thread per word.
 __global__ void __launch_bounds__(kThreads)
 batch_packed_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                     int* __restrict__ flags, const int* __restrict__ steps,
                     int gen, int height, int nwords) {
+  __shared__ uint32_t warp_flags[kThreads / kWarp];
   const int b = blockIdx.y;
   const int words = height * nwords;
   const size_t base = static_cast<size_t>(b) * words;
@@ -140,8 +290,18 @@ batch_packed_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     alive = nv;
     differs = nv ^ x;
   }
-  or_flag(alive, flags + 2 * b);
-  or_flag(differs, flags + 2 * b + 1);
+  // The CTA's flags: a warp reduction, one word per warp, then one atomic
+  // per CTA and set flag.
+  const unsigned pair = __reduce_or_sync(
+      kFullMask, (alive != 0 ? 1u : 0u) | (differs != 0 ? 2u : 0u));
+  if (threadIdx.x % kWarp == 0) warp_flags[threadIdx.x / kWarp] = pair;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned any = 0;
+    for (int k = 0; k < kThreads / kWarp; ++k) any |= warp_flags[k];
+    if (any & 1u) atomicOr(flags + 2 * b, 1);
+    if (any & 2u) atomicOr(flags + 2 * b + 1, 1);
+  }
 }
 
 // Board b's 3-cell row sum at column c (west and east wrapped at the
@@ -216,18 +376,34 @@ batch_masked_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
   or_flag(differs, flags + 2 * b + 1);
 }
 
+// The block form's CTA: two board words per thread, in whole warps, up to
+// kBlockMaxThreads; each thread's strip of rows covers its share.
+int block_threads(int words) {
+  const int t = ((words + 1) / 2 + kWarp - 1) / kWarp * kWarp;
+  return max(kWarp, min(t, kBlockMaxThreads));
+}
+
+int block_strip(int height, int nwords, int threads) {
+  const long long per = (static_cast<long long>(height) * nwords + threads - 1) / threads;
+  return static_cast<int>(max(1LL, min(per, static_cast<long long>(height))));
+}
+
+size_t block_shared_bytes(int words) {
+  return 2 * static_cast<size_t>((words + 3) & ~3) * sizeof(uint32_t);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Each entry launches on `stream` (a cudaStream_t of `device`), does not
 // synchronise and allocates nothing; it returns cudaGetLastError() after
-// the launch (0 = cudaSuccess). `out` must not alias `in`; `flags` is the
-// launch's (batch, 2) int32 pair per board, `steps` the (batch,) int32
-// step counts, `heights`/`widths` B2's (batch,) int32 board extents, all
-// on the device. batch <= 65535.
+// the launch (0 = cudaSuccess). `out` must not alias `in`; `flags` is a
+// one-generation launch's (batch, 2) int32 pair per board, `steps` the
+// (batch,) int32 step counts, `heights`/`widths` B2's (batch,) int32 board
+// extents, all on the device. batch <= 65535.
 
-// B1. in/out: (batch, height, nwords) words.
+// B1, streaming form. in/out: (batch, height, nwords) words.
 int gol_batch_packed_step(const void* in, void* out, void* flags,
                           const void* steps, int gen, int batch, int height,
                           int nwords, int device, void* stream) {
@@ -242,6 +418,47 @@ int gol_batch_packed_step(const void* in, void* out, void* flags,
       static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out),
       static_cast<int*>(flags), static_cast<const int*>(steps), gen, height,
       nwords);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The most words a board may have for the block form on `device`: two
+// copies in the opt-in shared memory of one block, beside the flag words.
+// Negative: a CUDA error.
+int gol_batch_block_max_words(int device) {
+  int optin = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return (optin - kBlockStaticShared) / 8 & ~3;
+}
+
+// B1, block form. in/out: (batch, height, nwords) words; flags: (t, batch,
+// 2) int32, generation i's pair of board b at flags + 2 * (i * batch + b).
+// Board b runs min(steps[b], t) generations. Fails with
+// cudaErrorInvalidValue when height * nwords passes
+// gol_batch_block_max_words.
+int gol_batch_packed_block(const void* in, void* out, void* flags,
+                           const void* steps, int t, int batch, int height,
+                           int nwords, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int words = height * nwords;
+  const int most = gol_batch_block_max_words(device);
+  if (most < 0) return -most;
+  if (words > most) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t shared = block_shared_bytes(words);
+  if (shared > static_cast<size_t>(kDefaultDynamicShared)) {
+    err = cudaFuncSetAttribute(batch_packed_block_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(shared));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int threads = block_threads(words);
+  batch_packed_block_kernel<<<static_cast<unsigned>(batch), threads, shared,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out),
+      static_cast<int*>(flags), static_cast<const int*>(steps), t, batch,
+      height, nwords, block_strip(height, nwords, threads));
   return static_cast<int>(cudaGetLastError());
 }
 

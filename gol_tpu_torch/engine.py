@@ -57,9 +57,10 @@ order.
 The batched engine (``make_batch_runner``, ``simulate_batch``; the
 serving batcher's compute entry) runs B independent boards in one canvas
 with the same blocked design per board: each block enqueues its launches
-of the batched step (B1 packed, B2 masked and byte; ``ops/stencil_batch``)
-without a sync, reads back one (block x B x 2) flag tensor for the whole
-batch, and replays each board's exits on the host with the solo rules.
+of the batched step (B1 packed, one launch a block; B2 masked and byte,
+one a generation; ``ops/stencil_batch``) without a sync, reads back one
+(block x B x 2) flag tensor for the whole batch, and replays each board's
+exits on the host with the solo rules.
 
 Spans and counters are the JAX engine's, on the same sites (``obs/trace``,
 ``obs/registry``): ``engine.compile`` around building a whole-run runner
@@ -712,12 +713,12 @@ def simulate(grid, config: GameConfig = DEFAULT_CONFIG, kernel: str = "auto",
 # B independent boards share one canvas and one host loop. The JAX package
 # runs the batch as one lax.while_loop over vmapped steps with per-board
 # freeze masks (gol_tpu/engine.py:1129-1249); here each block of the solo
-# engine's length enqueues the batched step (B1 for "packed", B2 for
-# "masked" and "byte") once per generation without a sync, then reads back
-# ONE (block x B x 2) flag tensor, and the host replays each board's exits
-# with the solo rules. A board whose generation limit falls inside the
-# block is given fewer steps (``steps[b]``) and copied through once they
-# are spent, so no block crosses a board's limit; boards that exit early
+# engine's length enqueues the batched step without a sync (B1 for
+# "packed": one launch for the whole block; B2 for "masked" and "byte":
+# one launch per generation), then reads back ONE (block x B x 2) flag
+# tensor, and the host replays each board's exits with the solo rules. A
+# board whose generation limit falls inside the block is given fewer
+# steps (``steps[b]``) and copied through once they are spent, so no block crosses a board's limit; boards that exit early
 # run on to their steps, which is exact for the same reason the solo block
 # is (both early exits are fixed points), and the CUDA convention's empty
 # exit replays that board alone from the block's start state.
@@ -800,29 +801,30 @@ class _BatchBuffers:
         fewer boards than the buffers hold); nothing is allocated."""
         view = object.__new__(_BatchBuffers)
         view.pool = [b[:n] for b in self.pool]
-        view.flags = self.flags[:, :n]
+        # A contiguous (block, n, 2) over the same storage: B1's block form
+        # stores generation i's pair of board b at row i * n + b.
+        block = self.flags.shape[0]
+        view.flags = self.flags.view(-1)[:block * n * stencil_batch.STEP_FLAGS] \
+            .view(block, n, stencil_batch.STEP_FLAGS)
         return view
 
     def scratch(self, start, cur):
         return next(b for b in self.pool if b is not start and b is not cur)
 
 
-def _batch_block(start, steps: np.ndarray, step, bufs: _BatchBuffers):
+def _batch_block(start, steps: np.ndarray, run_block, bufs: _BatchBuffers):
     """Run board b of ``start`` for ``steps[b]`` generations (the others
     copied through): ``(cur, alive, similar)``, the last two (T, B) bool
-    host arrays of generation i's new board, T = max(steps). Every launch
-    is enqueued before the block's one readback."""
+    host arrays of generation i's new board, T = max(steps). The block's
+    launches are all enqueued before its one readback."""
     t = int(steps.max())
     flags = bufs.flags[:t]
     flags.zero_()
     steps_dev = torch.from_numpy(steps.astype(np.int32)).to(start.device)
-    cur = start
-    for i in range(t):
-        out = bufs.scratch(start, cur)
-        step(cur, out, flags[i], steps_dev, i)
-        cur = out
+    out = bufs.scratch(start, start)
+    run_block(start, out, flags, steps_dev, t, bufs.scratch(start, out))
     f = flags.cpu().numpy()  # the block's one device->host sync
-    return cur, f[:, :, 0] != 0, f[:, :, 1] == 0
+    return out, f[:, :, 0] != 0, f[:, :, 1] == 0
 
 
 def _quiet_boards(alive, similar, steps, counter, freq: int, check: bool):
@@ -848,7 +850,7 @@ def _batch_alive(state: torch.Tensor) -> np.ndarray:
     return state.reshape(state.shape[0], -1).ne(0).any(dim=1).cpu().numpy()
 
 
-def _batch_simulate_c(state0, limits, step, replay, check: bool, freq: int,
+def _batch_simulate_c(state0, limits, run_block, replay, check: bool, freq: int,
                       block: int, bufs: _BatchBuffers | None = None):
     """Batched C-convention loop: per board the replay of
     ``_simulate_c_block`` (oracle._run_c is the semantics contract).
@@ -866,7 +868,7 @@ def _batch_simulate_c(state0, limits, step, replay, check: bool, freq: int,
         if not run.any():
             break
         steps = np.where(run, np.minimum(block, limits - gen + 1), 0)
-        cur, a, s = _batch_block(cur, steps, step, bufs)
+        cur, a, s = _batch_block(cur, steps, run_block, bufs)
         quiet = run & _quiet_boards(a, s, steps, counter, freq, check)
         _advance_quiet(quiet, steps, gen, counter, freq, check)
         for j in np.flatnonzero(run & ~quiet):
@@ -884,7 +886,7 @@ def _batch_simulate_c(state0, limits, step, replay, check: bool, freq: int,
     return cur, gen - 1, reason  # reported count is gen-1 (src/game.c:202)
 
 
-def _batch_simulate_cuda(state0, limits, step, replay, check: bool, freq: int,
+def _batch_simulate_cuda(state0, limits, run_block, replay, check: bool, freq: int,
                          block: int, bufs: _BatchBuffers | None = None):
     """Batched CUDA-convention loop: per board the replay of
     ``_simulate_cuda_block``; a board's empty exit at in-block iteration i
@@ -904,7 +906,7 @@ def _batch_simulate_cuda(state0, limits, step, replay, check: bool, freq: int,
             break
         steps = np.where(run, np.minimum(block, limits - gen), 0)
         start = cur
-        cur, a, s = _batch_block(start, steps, step, bufs)
+        cur, a, s = _batch_block(start, steps, run_block, bufs)
         quiet = run & _quiet_boards(a, s, steps, counter, freq, check)
         _advance_quiet(quiet, steps, gen, counter, freq, check)
         for j in np.flatnonzero(run & ~quiet):
@@ -931,17 +933,25 @@ _BATCH_SIMULATORS = {
 }
 
 
-def _batch_step(mode: str, heights: torch.Tensor, widths: torch.Tensor):
-    """The mode's one-generation step over a (B', ...) slice of the stack
-    starting at board ``lo``: ``step(src, dst, flags, steps, gen, lo=0)``."""
+def _batch_block_step(mode: str, heights: torch.Tensor, widths: torch.Tensor):
+    """The mode's block of generations over a (B', ...) slice of the stack
+    starting at board ``lo``: ``block(src, out, flags, steps, t, scratch,
+    lo=0)`` runs board b for ``min(steps[b], t)`` generations from ``src``
+    into ``out``, generation i's flags in ``flags[i]`` ((t, B', 2), zeroed
+    by the caller); ``scratch`` is a third stack, and ``src`` is never
+    written. Packed: one B1 call for the block. Masked and byte: B2 once
+    per generation, ping-ponging ``scratch`` and ``out``."""
     if mode == "packed":
-        return lambda src, dst, flags, steps, gen, lo=0: (
-            stencil_batch.batch_packed_step_into(src, dst, flags, steps, gen))
+        return lambda src, out, flags, steps, t, scratch, lo=0: (
+            stencil_batch.batch_packed_block_into(src, out, flags, steps, t,
+                                                  scratch))
 
-    def masked(src, dst, flags, steps, gen, lo=0):
-        hi = lo + src.shape[0]
-        stencil_batch.batch_masked_step_into(src, dst, flags, steps,
-                                             heights[lo:hi], widths[lo:hi], gen)
+    def masked(src, out, flags, steps, t, scratch, lo=0):
+        hs, ws = heights[lo:lo + src.shape[0]], widths[lo:lo + src.shape[0]]
+        stencil_batch.streamed_block(
+            src, out, flags, steps, t, scratch,
+            lambda cur, dst, f, st, i: stencil_batch.batch_masked_step_into(
+                cur, dst, f, st, hs, ws, i))
     return masked
 
 
@@ -951,22 +961,20 @@ def _batch_block_length(temporal_depth: int) -> int:
     return -(-_TERMINATION_BLOCK // temporal_depth) * temporal_depth
 
 
-def _board_replay(step):
+def _board_replay(run_block):
     """``replay(start, b, i)``: board b of ``start`` after i generations,
-    run alone (a one-board stack) so the rest of the batch is untouched."""
+    run alone (one block call on a one-board stack, ``steps = [i]``) so
+    the rest of the batch is untouched."""
     def replay(start, b: int, i: int) -> torch.Tensor:
         x = start[b:b + 1]
         if i == 0:
             return x[0]
-        bufs = [torch.empty_like(x), torch.empty_like(x)]
-        flags = torch.zeros((1, stencil_batch.STEP_FLAGS), dtype=torch.int32,
+        out, scratch = torch.empty_like(x), torch.empty_like(x)
+        flags = torch.zeros((i, 1, stencil_batch.STEP_FLAGS), dtype=torch.int32,
                             device=x.device)
         steps = torch.tensor([i], dtype=torch.int32, device=x.device)
-        for g in range(i):
-            out = bufs[g % 2]
-            step(x, out, flags, steps, g, lo=b)
-            x = out
-        return x[0]
+        run_block(x, out, flags, steps, i, scratch, lo=b)
+        return out[0]
     return replay
 
 
@@ -1039,10 +1047,11 @@ def _run_batch_loop(boards, vectors, mode, padded_shape, convention, check,
     if (h < 1).any() or (h > ph).any() or (w < 1).any() or (w > pw).any():
         raise ValueError(f"board extents must lie in 1..{ph} x 1..{pw}")
     dev = boards.device
-    step = _batch_step(mode, torch.from_numpy(h.astype(np.int32)).to(dev),
-                       torch.from_numpy(w.astype(np.int32)).to(dev))
-    return _BATCH_SIMULATORS[convention](boards, lim, step, _board_replay(step),
-                                         check, freq, block, bufs)
+    run_block = _batch_block_step(mode, torch.from_numpy(h.astype(np.int32)).to(dev),
+                                  torch.from_numpy(w.astype(np.int32)).to(dev))
+    return _BATCH_SIMULATORS[convention](boards, lim, run_block,
+                                         _board_replay(run_block), check, freq,
+                                         block, bufs)
 
 
 @dataclasses.dataclass
@@ -1291,10 +1300,10 @@ def simulate_batch(
 # - the batched loop's three scratch stacks and its flag buffer, sized for
 #   R*B boards (``_BatchBuffers``);
 # - a compute stream and a drain thread. A drain of k filled slots runs the
-#   batched loop ONCE over the first k*B boards of its storage: one B1 or B2
-#   launch per generation and one flag readback per block for the whole
-#   drain, never over R*B boards (JAX's compile-for-filled). It waits on the
-#   slots' copy events first. Each board keeps its own limit and extent, so
+#   batched loop ONCE over the first k*B boards of its storage: one B1
+#   launch per block (B2: per generation) and one flag readback per block
+#   for the whole drain, never over R*B boards (JAX's compile-for-filled).
+#   It waits on the slots' copy events first. Each board keeps its own limit and extent, so
 #   per-slot results equal ``complete_batch`` of the same staging bit for
 #   bit. ``dispatch_ring`` returns at once; the drain thread runs the host
 #   loop (it must read flags back once per block), copies the finals to the
@@ -1574,11 +1583,12 @@ def complete_ring(inflight: InflightRing) -> list[list[BatchBoardResult]]:
 # generation however dead the board is; the sparse engine (``sparse/``)
 # steps only a universe's active tiles, and the macro engine (``macro/``)
 # its leaf windows. What the device runs is this runner: one generation of
-# B halo-extended tiles through T1 (``ops/stencil_tile``), batched up the
-# serve batcher's padding ladder, so a tile size builds at most one runner
-# per rung. The JAX package donates its operand; here the runner owns its
-# buffers — pinned host staging, two device block stacks, the compact
-# interiors and the flag pair per tile — and reuses them on every call.
+# B halo-extended tiles (a leaf advance: n) through T1
+# (``ops/stencil_tile``), batched up the serve batcher's padding ladder, so
+# a tile size builds at most one runner per rung. The JAX package donates
+# its operand; here the runner owns its buffers — pinned host staging, a
+# device block stack, the compact interiors and the flag pair per tile —
+# and reuses them on every call.
 # ---------------------------------------------------------------------------
 
 
@@ -1587,8 +1597,9 @@ class TileStepRunner:
     uint8 host blocks: the (B, t, t) next interiors and (B,) bool flags, all
     host numpy arrays the caller owns. ``runner.advance(blocks, n)`` runs n
     generations of blocks whose rings are dead and stay dead (the macro
-    leaf windows): one upload, n launches ping-ponging two padded stacks on
-    the device, one readback of the (B, t, t) interiors.
+    leaf windows): one upload, one T1 call for all n generations (one
+    launch where a window fits in a CTA's shared memory), one readback of
+    the (B, t, t) interiors.
 
     One call at a time per runner (a lock): the sparse and macro memos
     serve a server's worker threads, which share the cached runners."""
@@ -1598,8 +1609,7 @@ class TileStepRunner:
         pin = device.type == "cuda"
         shape = (batch, tile + 2, tile + 2)
         self._host_in = torch.empty(shape, dtype=torch.uint8, pin_memory=pin)
-        self._blocks = [torch.zeros(shape, dtype=torch.uint8, device=device)
-                        for _ in range(2)]
+        self._block = torch.zeros(shape, dtype=torch.uint8, device=device)
         self._out = torch.empty((batch, tile, tile), dtype=torch.uint8,
                                 device=device)
         self._flags = torch.zeros((batch, stencil_tile.TILE_FLAGS),
@@ -1616,7 +1626,7 @@ class TileStepRunner:
             raise ValueError(f"tile step runner takes uint8 "
                              f"{tuple(self._host_in.shape)}, got {blocks.shape}")
         self._host_in.numpy()[...] = blocks
-        self._blocks[0].copy_(self._host_in, non_blocking=True)
+        self._block.copy_(self._host_in, non_blocking=True)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -1626,7 +1636,7 @@ class TileStepRunner:
         with self._lock:
             self._upload(blocks)
             self._flags.zero_()
-            stencil_tile.tile_step_into(self._blocks[0], self._out, self._flags)
+            stencil_tile.tile_step_into(self._block, self._out, self._flags)
             self._host_out.copy_(self._out, non_blocking=True)
             self._host_flags.copy_(self._flags, non_blocking=True)
             self._sync()  # the chunk's one device->host wait
@@ -1639,13 +1649,15 @@ class TileStepRunner:
         ``blocks``, each step reading a dead ring."""
         with self._lock:
             self._upload(blocks)
-            cur, nxt = self._blocks
-            for _ in range(generations):
-                # Only the interior is written, so each stack's ring stays
-                # the dead ring it was uploaded or allocated with.
-                stencil_tile.tile_step_into(cur, nxt, self._flags)
-                cur, nxt = nxt, cur
-            self._host_out.copy_(cur[:, 1:-1, 1:-1], non_blocking=True)
+            if generations > 0:
+                # Every generation reads the uploaded ring: dead, as a
+                # fresh zero-ringed block per step would be.
+                stencil_tile.tile_step_into(self._block, self._out,
+                                            self._flags, generations)
+                self._host_out.copy_(self._out, non_blocking=True)
+            else:
+                self._host_out.copy_(self._block[:, 1:-1, 1:-1],
+                                     non_blocking=True)
             self._sync()
             return self._host_out.numpy().copy()
 

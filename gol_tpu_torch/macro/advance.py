@@ -211,9 +211,10 @@ def _batch_leaf_advance(memo: MacroMemo, nodes: list[MacroNode], t: int,
     a dead ring, so correctness erodes one cell per step from the window
     edge; the center ``leaf``-square stays exact for exactly leaf/2
     steps, which is the level-1 light-cone bound. Distinct uncached
-    windows batch through one padded runner launch per generation
-    (``batcher.pad_batch`` rungs — the same ladder the sparse engine and
-    the serve batcher ride)."""
+    windows batch through one runner call for all ``t`` generations (one
+    T1 launch where a window fits in a CTA's shared memory), padded up
+    ``batcher.pad_batch``'s rungs — the same ladder the sparse engine and
+    the serve batcher ride."""
     store = memo.store
     L = store.leaf_size
     if t > L // 2:

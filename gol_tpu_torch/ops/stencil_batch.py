@@ -5,35 +5,44 @@ one canvas. The JAX package steps the batch with ``jnp`` under ``vmap``
 (``gol_tpu/engine.py`` ``_batch_evolve``, ``_evolve_batch_masked``) inside
 one ``lax.while_loop``, with no Pallas kernel on the path. The port's loop
 runs on the host and reads back one flag tensor per block of generations,
-so each board's flags come out of the step's own pass, from two kernels in
+so each board's flags come out of the step's own pass, from the kernels in
 ``csrc/stencil_batch.cu``:
 
-- ``batch_packed_step_into`` (B1): one generation of B exact-fit tori of
-  words, (B, height, nwords) int32 (bit j of word w = column 32*w + j, as
-  ``packed_math``);
+- ``batch_packed_block_into`` (B1): a whole block of generations of B
+  exact-fit tori of words, (B, height, nwords) int32 (bit j of word w =
+  column 32*w + j, as ``packed_math``), board b for ``min(steps[b], t)``
+  generations, writing generation i's pair of board b to ``flags[i, b]``
+  of a caller-zeroed (t, B, 2) buffer. Two forms, chosen by shape: the
+  block form, one launch with each board in one CTA's shared memory
+  (``LAUNCHES["batch_packed_block"]``), for boards whose two copies fit
+  there (``block_max_words``); the streaming form, one launch of
+  ``batch_packed_step_into`` per generation, for larger ones;
+- ``batch_packed_step_into`` (B1's streaming form): one generation of the
+  same;
 - ``batch_masked_step_into`` (B2): one generation of B uint8 boards in one
   (B, height, width) canvas, board b wrapping at its own extent
   ``(heights[b], widths[b])``, every cell at or past it written 0 (the
   semantics of ``_evolve_batch_masked``). The exact-fit byte mode runs
   through it with the canvas's extent.
 
-Both OR board b's ``(alive, differs)`` into ``flags[b]`` of a caller-zeroed
-(B, 2) int32 buffer ("similar" stored negated, as in ``stencil_packed``),
-and both take ``steps`` (B,) int32 and the launch's generation ``gen`` in
-its block: a board whose steps are spent (``gen >= steps[b]``) is copied
-through and writes no flag.
+The one-generation kernels OR board b's ``(alive, differs)`` into
+``flags[b]`` of a caller-zeroed (B, 2) int32 buffer ("similar" stored
+negated, as in ``stencil_packed``), and take ``steps`` (B,) int32 and the
+launch's generation ``gen`` in its block: a board whose steps are spent
+(``gen >= steps[b]``) is copied through and writes no flag.
 
 On a CUDA tensor each wrapper launches its kernel, or raises; on a CPU
-tensor it runs its plain torch version (``_batch_packed_plain``, a loop of
-``packed_math.evolve_torus_words`` over the boards, and
-``_batch_masked_plain``, the gather form of the masked rule); any other
-device raises. ``LAUNCHES`` counts the kernel launches, one per launch on
-the card and nothing for the CPU path.
+tensor it runs its plain torch version (``_batch_packed_block_plain`` and
+``_batch_packed_plain``, loops of ``packed_math.evolve_torus_words`` over
+the boards, and ``_batch_masked_plain``, the gather form of the masked
+rule); any other device raises. ``LAUNCHES`` counts the kernel launches,
+one per launch on the card and nothing for the CPU path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -41,7 +50,7 @@ from gol_tpu_torch.ops import _build, packed_math
 
 STEP_FLAGS = 2  # (alive, differs) per board
 MAX_BATCH = 65535  # the kernels' board axis is a grid dimension
-LAUNCHES = {"batch_packed": 0, "batch_masked": 0}
+LAUNCHES = {"batch_packed_block": 0, "batch_packed": 0, "batch_masked": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -62,6 +71,22 @@ def _batch_packed_plain(words: torch.Tensor, steps: torch.Tensor, gen: int):
             new[b] = packed_math.evolve_torus_words(words[b])
             flags[b] = _board_flags(new[b], words[b])
     return new, flags
+
+
+def _batch_packed_block_plain(words: torch.Tensor, steps: torch.Tensor, t: int):
+    """B1's block form's plain version: ``(final, flags)`` with flags (t, B,
+    2), row i of board b set for i < min(steps[b], t) and 0 past it."""
+    final = words.clone()
+    flags = torch.zeros((t, words.shape[0], STEP_FLAGS), dtype=torch.int32,
+                        device=words.device)
+    for b, n in enumerate(steps.tolist()):
+        cur = words[b]
+        for i in range(min(n, t)):
+            new = packed_math.evolve_torus_words(cur)
+            flags[i, b] = _board_flags(new, cur)
+            cur = new
+        final[b] = cur
+    return final, flags
 
 
 def _evolve_masked_board(g: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -108,6 +133,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.gol_batch_packed_step.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
     lib.gol_batch_packed_step.restype = i32
+    lib.gol_batch_packed_block.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
+    lib.gol_batch_packed_block.restype = i32
+    lib.gol_batch_block_max_words.argtypes = [i32]
+    lib.gol_batch_block_max_words.restype = i32
     lib.gol_batch_masked_step.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.gol_batch_masked_step.restype = i32
     lib.gol_error_string.argtypes = [i32]
@@ -120,8 +149,20 @@ def load_kernels() -> None:
     _lib()
 
 
+@functools.lru_cache(maxsize=None)
+def block_max_words(device_index: int) -> int:
+    """The most words a board may have for B1's block form on card
+    ``device_index``: two copies in one CTA's opt-in shared memory."""
+    most = _lib().gol_batch_block_max_words(device_index)
+    if most < 0:
+        msg = _lib().gol_error_string(-most).decode()
+        raise RuntimeError(f"shared memory query failed: CUDA error {-most} ({msg})")
+    return most
+
+
 def _check(src: torch.Tensor, out: torch.Tensor, flags: torch.Tensor,
-           steps: torch.Tensor, dtype: torch.dtype, extents=()) -> None:
+           steps: torch.Tensor, dtype: torch.dtype, extents=(),
+           flag_rows: int | None = None) -> None:
     if src.dtype != dtype or src.dim() != 3:
         raise ValueError(f"boards must be a 3D {dtype} tensor, got "
                          f"{src.dim()}D {src.dtype}")
@@ -132,8 +173,10 @@ def _check(src: torch.Tensor, out: torch.Tensor, flags: torch.Tensor,
     if out.shape != src.shape or out.dtype != dtype:
         raise ValueError(f"out must be {dtype} {tuple(src.shape)}, got "
                          f"{out.dtype} {tuple(out.shape)}")
-    if flags.dtype != torch.int32 or tuple(flags.shape) != (batch, STEP_FLAGS):
-        raise ValueError(f"flags must be int32 ({batch}, {STEP_FLAGS}), got "
+    want = (batch, STEP_FLAGS) if flag_rows is None else (flag_rows, batch,
+                                                          STEP_FLAGS)
+    if flags.dtype != torch.int32 or tuple(flags.shape) != want:
+        raise ValueError(f"flags must be int32 {want}, got "
                          f"{flags.dtype} {tuple(flags.shape)}")
     vectors = [("steps", steps), *extents]
     for name, t in vectors:
@@ -165,8 +208,50 @@ def _launched(src: torch.Tensor, key: str, launch) -> bool:
     return True
 
 
+def streamed_block(src, out, flags, steps, t: int, scratch, step) -> None:
+    """A block of ``t`` generations as ``t`` one-generation launches
+    ``step(cur, dst, flags[i], steps, i)``, ping-ponging ``scratch`` and
+    ``out`` so that the last lands in ``out``; ``src`` is never written."""
+    cur = src
+    for i in range(t):
+        dst = out if (t - i) % 2 else scratch
+        step(cur, dst, flags[i], steps, i)
+        cur = dst
+
+
+def batch_packed_block_into(words, out, flags, steps, t: int,
+                            scratch=None) -> None:
+    """B1: board b of ``words`` (B, H, NW) for ``min(steps[b], t)``
+    generations into ``out`` (a board with steps 0 copied), generation i's
+    ``(alive, differs)`` of board b stored to ``flags[i, b]`` of a
+    caller-zeroed (t, B, 2) buffer. One launch of the block form where a
+    board's two copies fit in a CTA's shared memory, else ``t`` launches of
+    the streaming form through ``scratch`` (a third stack, allocated when
+    None) and ``out``; ``words`` is never written."""
+    if t < 1:
+        raise ValueError(f"a block runs t >= 1 generations, got {t}")
+    _check(words, out, flags, steps, torch.int32, flag_rows=t)
+    batch, height, nwords = words.shape
+    if words.device.type == "cuda" and \
+            height * nwords > block_max_words(words.device.index):
+        scratch = torch.empty_like(words) if scratch is None else scratch
+        if scratch.data_ptr() in (words.data_ptr(), out.data_ptr()) or \
+                scratch.shape != words.shape or scratch.dtype != words.dtype:
+            raise ValueError("scratch must be a third stack of the boards' shape")
+        streamed_block(words, out, flags, steps, t, scratch,
+                       batch_packed_step_into)
+        return
+    if _launched(words, "batch_packed_block", lambda stream: _lib().gol_batch_packed_block(
+            words.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),
+            t, batch, height, nwords, words.device.index, stream)):
+        return
+    final, block_flags = _batch_packed_block_plain(words, steps, t)
+    out.copy_(final)
+    flags |= block_flags
+
+
 def batch_packed_step_into(words, out, flags, steps, gen: int) -> None:
-    """B1: one generation of each board of ``words`` (B, H, NW) whose
+    """B1's streaming form: one generation of each board of ``words`` (B, H, NW) whose
     ``steps`` are not spent at ``gen`` into ``out`` (the others copied);
     ORs each running board's ``(alive, differs)`` into ``flags[b]``."""
     _check(words, out, flags, steps, torch.int32)

@@ -51,15 +51,20 @@ def _top_level_split(config: str) -> list[str]:
 
 
 def emulated_source(text: str) -> str:
-    """The source with each ``kernel<<<blocks, threads, ...>>>(args)``
-    launch turned into ``emu_launch(blocks, threads, kernel, args)``."""
+    """The source with each ``kernel<<<blocks, threads, shared, ...>>>(args)``
+    launch turned into ``emu_set_shared(shared), emu_launch(blocks, threads,
+    kernel, args)`` and each ``extern __shared__ T name[];`` into a pointer
+    to the launch's dynamic shared memory."""
     def launch(m):
-        blocks, threads = _top_level_split(m.group(2))[:2]
-        return f"emu_launch({blocks.strip()}, {threads.strip()}, {m.group(1)}, "
+        config = [part.strip() for part in _top_level_split(m.group(2))]
+        shared = config[2] if len(config) > 2 else "0"
+        return (f"emu_set_shared({shared}), "
+                f"emu_launch({config[0]}, {config[1]}, {m.group(1)}, ")
 
     out, n = re.subn(r"(\w+(?:<[^<>()]*>)?)<<<(.*?)>>>\(", launch, text, flags=re.S)
     assert n, "no launch found"
-    return out
+    return re.sub(r"extern\s+__shared__\s+(?:__align__\(\d+\)\s+)?(\w+)\s+(\w+)\[\];",
+                  r"\1* const \2 = static_cast<\1*>(emu_dynamic_shared());", out)
 
 
 @pytest.fixture(scope="module")

@@ -6,6 +6,7 @@ numpy-seeded boards go through both, and the plain versions of the two
 batched kernels are held against JAX's ``_batch_evolve`` per mode.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -15,6 +16,7 @@ from gol_tpu import oracle as jax_oracle
 from gol_tpu.config import GameConfig as JaxGameConfig
 from gol_tpu.obs import registry as jax_registry
 from gol_tpu.obs import trace as jax_trace
+from gol_tpu.ops import packed_math as jax_pm
 from gol_tpu_torch import engine
 from gol_tpu_torch.config import Convention, GameConfig
 from gol_tpu_torch.io import bitpack, text_grid
@@ -378,6 +380,36 @@ def test_b2_plain_matches_jax_step(mode):
         assert f[:, 0].tolist() == [int(x.any()) for x in w]
         assert f[:, 1].tolist() == [int((x != p).any()) for x, p in zip(w, prev)]
         prev = w
+
+
+@pytest.mark.parametrize("t", [1, 2, 16, 18])
+def test_b1_block_plain_matches_jax_vmapped_steps(t):
+    """B1's block form's plain version against JAX's vmapped word step
+    applied generation by generation, each board for its own steps (full,
+    one, none, past the block), with per-generation flags."""
+    boards = np.stack([text_grid.generate(64, 32, seed=s) for s in (71, 72, 73)]
+                      + [_diagonal(32, 64)])
+    words = bitpack.pack_words(boards)
+    steps = [t, 1, 0, t + 2]
+    evolve = jax.vmap(jax_pm.evolve_torus_words)
+    cur = words
+    want_flags = np.zeros((t, 4, 2), np.int32)
+    for i in range(t):
+        new = np.asarray(evolve(cur))
+        running = np.array([i < min(n, t) for n in steps])
+        want_flags[i, :, 0] = running & new.reshape(4, -1).any(axis=1)
+        want_flags[i, :, 1] = running & (new != cur).reshape(4, -1).any(axis=1)
+        cur = np.where(running[:, None, None], new, cur)
+    got, flags = sb._batch_packed_block_plain(
+        pm.words_from_numpy(words, "cpu"), torch.tensor(steps, dtype=torch.int32), t)
+    np.testing.assert_array_equal(pm.words_to_numpy(got), cur)
+    np.testing.assert_array_equal(flags.numpy(), want_flags)
+    out = torch.empty_like(got)
+    block_flags = torch.zeros((t, 4, 2), dtype=torch.int32)
+    sb.batch_packed_block_into(pm.words_from_numpy(words, "cpu"), out, block_flags,
+                               torch.tensor(steps, dtype=torch.int32), t)
+    assert torch.equal(out, got) and torch.equal(block_flags, flags)
+    assert sb.LAUNCHES["batch_packed_block"] == 0  # no kernel on the CPU
 
 
 def test_spent_steps_copy_through_without_flags():

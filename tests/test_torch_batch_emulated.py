@@ -1,15 +1,19 @@
 """The batched step kernels' CUDA source on the CPU, against their plain
 torch versions.
 
-``gol_tpu_torch/csrc/stencil_batch.cu`` (B1, B2) is compiled with the host
-C++ compiler against ``tests/cuda_emulation/cuda_runtime.h`` (a launch runs
-each warp as 32 lanes on one host thread; the kernels' flag reduction is a
-warp intrinsic) and driven through its own C entries. Each launch is held
-to ``stencil_batch``'s plain version at tolerance 0, words or cells and
-per-board flags: mixed extents in one canvas, spent step counts (a board
-copied through), one-word-wide and one-row boards, and boards that die or
-stand still. The card runs the same source in ``tests/test_torch_cuda.py``
-and ``chip_smoke.py``.
+``gol_tpu_torch/csrc/stencil_batch.cu`` (B1's block and streaming forms,
+B2) is compiled with the host C++ compiler against
+``tests/cuda_emulation/cuda_runtime.h`` (a launch runs each block's threads
+as lanes on one host thread, switching at warp intrinsics and block
+barriers, with the block's shared memory) and driven through its own C
+entries. Each launch is held to ``stencil_batch``'s plain version at
+tolerance 0, words or cells and per-board flags: mixed extents in one
+canvas, spent step counts (a board copied through), one-word-wide and
+one-row boards, and boards that die or stand still. B1's block form runs
+whole blocks of t in {1, 2, 16, 18} generations with mixed step counts
+(full, short, 0, past t), and its streaming form the same blocks one
+launch a generation (``stencil_batch.streamed_block``). The card runs the
+same source in ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
 import ctypes
@@ -59,6 +63,10 @@ def lib(tmp_path_factory):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gol_batch_packed_step.argtypes = [p] * 4 + [i] * 5 + [p]
     lib.gol_batch_masked_step.argtypes = [p] * 6 + [i] * 5 + [p]
+    lib.gol_batch_packed_block.argtypes = [p] * 4 + [i] * 5 + [p]
+    lib.gol_batch_block_max_words.argtypes = [i]
+    lib.emu_misaligned.argtypes, lib.emu_misaligned.restype = [], i
+    lib.emu_shared_optin.argtypes = [i, i]
     return lib
 
 
@@ -137,3 +145,93 @@ def test_flags_accumulate_into_the_callers_buffer(lib):
         0, 2, 4, 1, 0, None) == 0
     assert flags.tolist() == [[1, 1], [1, 0]]
     assert not out.any()
+
+
+# B1's block form: t generations per launch. The shapes of PACKED and one
+# board past 48 KiB of shared memory (the kernel asks for the opt-in).
+BLOCK_TS = [1, 2, 16, 18]
+BIG_BOARD = (1, 200, 32)  # 6400 words: two copies take 51,200 bytes
+
+
+def _block_steps(batch, t):
+    """Board b runs t, 1, 0 (spent: copied through) or t + 2 (clamped to
+    t) generations, cycling."""
+    return torch.tensor([(t, 1, 0, t + 2)[b % 4] for b in range(batch)],
+                        dtype=torch.int32)
+
+
+def _packed_boards(batch, height, nwords, seed):
+    rng = np.random.default_rng(seed)
+    boards = [_cells(height, 32 * nwords, rng, KINDS[b % 3]) for b in range(batch)]
+    return torch.stack([pm.encode(torch.from_numpy(g)) for g in boards])
+
+
+def _block_launch(lib, words, steps, t):
+    batch, height, nwords = words.shape
+    out = torch.full_like(words, -1)
+    flags = torch.zeros((t, batch, 2), dtype=torch.int32)
+    assert lib.gol_batch_packed_block(
+        words.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),
+        t, batch, height, nwords, 0, None) == 0
+    return out, flags
+
+
+@pytest.mark.parametrize("t", BLOCK_TS)
+@pytest.mark.parametrize("batch,height,nwords", PACKED)
+def test_packed_block_matches_plain(lib, batch, height, nwords, t):
+    words = _packed_boards(batch, height, nwords, batch * 100 + height * 7 + nwords)
+    steps = _block_steps(batch, t)
+    kept = words.clone()
+    out, flags = _block_launch(lib, words, steps, t)
+    want, want_flags = sb._batch_packed_block_plain(words, steps, t)
+    assert torch.equal(out, want)
+    assert torch.equal(flags, want_flags)
+    assert torch.equal(words, kept)
+    assert lib.emu_misaligned() == 0, "a 16-byte load off a 16-byte boundary"
+
+
+@pytest.mark.parametrize("t", BLOCK_TS)
+@pytest.mark.parametrize("batch,height,nwords", PACKED)
+def test_packed_streaming_block_matches_plain(lib, batch, height, nwords, t):
+    """The streaming form over a whole block: one launch a generation,
+    ping-ponging a scratch stack and the output."""
+    words = _packed_boards(batch, height, nwords, batch * 31 + height + nwords)
+    steps = _block_steps(batch, t)
+
+    def step(src, dst, flags, st, gen):
+        assert lib.gol_batch_packed_step(
+            src.data_ptr(), dst.data_ptr(), flags.data_ptr(), st.data_ptr(),
+            gen, batch, height, nwords, 0, None) == 0
+
+    out, scratch = torch.full_like(words, -1), torch.full_like(words, -1)
+    flags = torch.zeros((t, batch, 2), dtype=torch.int32)
+    sb.streamed_block(words, out, flags, steps, t, scratch, step)
+    want, want_flags = sb._batch_packed_block_plain(words, steps, t)
+    assert torch.equal(out, want)
+    assert torch.equal(flags, want_flags)
+
+
+def test_packed_block_past_48_kib_of_shared_memory(lib):
+    words = _packed_boards(*BIG_BOARD, seed=5)
+    steps = torch.tensor([2], dtype=torch.int32)
+    out, flags = _block_launch(lib, words, steps, 2)
+    want, want_flags = sb._batch_packed_block_plain(words, steps, 2)
+    assert torch.equal(out, want) and torch.equal(flags, want_flags)
+
+
+def test_block_form_refuses_a_board_past_the_opt_in(lib):
+    """The most words the block form takes follow the device's opt-in
+    shared memory (an H100's 232,448 bytes: 29,024 words), and a board
+    past them is refused, not run."""
+    assert lib.gol_batch_block_max_words(0) == 29024
+    lib.emu_shared_optin(1, 4096)
+    most = lib.gol_batch_block_max_words(1)
+    assert most == (4096 - 256) // 8 // 4 * 4
+    words = _packed_boards(1, most // 4 + 1, 4, seed=6)
+    out = torch.full_like(words, -1)
+    flags = torch.zeros((1, 1, 2), dtype=torch.int32)
+    steps = torch.ones(1, dtype=torch.int32)
+    assert lib.gol_batch_packed_block(
+        words.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),
+        1, 1, words.shape[1], 4, 1, None) != 0
+    assert bool((out == -1).all())

@@ -498,6 +498,37 @@ def test_batch_packed_kernel_matches_plain(card, batch, height, nwords, gen):
     assert torch.equal(flags, want_flags)
 
 
+def _block_steps(batch, t, card):
+    """Board b runs t, 1, 0 or t + 2 (clamped to t) generations, cycling."""
+    return torch.tensor([(t, 1, 0, t + 2)[b % 4] for b in range(batch)],
+                        dtype=torch.int32, device=card)
+
+
+@pytest.mark.parametrize("t", [1, 16, 18])
+@pytest.mark.parametrize("batch,height,nwords", BATCH_PACKED + [(2, 1024, 64)])
+def test_batch_packed_block_matches_plain(card, batch, height, nwords, t):
+    """B1 over a whole block: the block form in one launch where a board's
+    two copies fit in a CTA's shared memory, else the streaming form once
+    per generation ((2, 1024, 64): 65,536 words a board)."""
+    rng = np.random.default_rng(batch + height + nwords + t)
+    words = pm.words_from_numpy(rng.integers(0, 2**32, (batch, height, nwords),
+                                             dtype=np.uint64).astype(np.uint32), card)
+    kept = words.clone()
+    steps = _block_steps(batch, t, card)
+    out = torch.empty_like(words)
+    flags = torch.zeros((t, batch, 2), dtype=torch.int32, device=card)
+    before = dict(sb.LAUNCHES)
+    sb.batch_packed_block_into(words, out, flags, steps, t)
+    torch.cuda.synchronize(card)
+    block = height * nwords <= sb.block_max_words(card.index)
+    assert sb.LAUNCHES["batch_packed_block"] - before["batch_packed_block"] == block
+    assert sb.LAUNCHES["batch_packed"] - before["batch_packed"] == (0 if block else t)
+    want, want_flags = sb._batch_packed_block_plain(words, steps, t)
+    assert torch.equal(out, want)
+    assert torch.equal(flags, want_flags)
+    assert torch.equal(words, kept)
+
+
 @pytest.mark.parametrize("gen", [0, 2])
 @pytest.mark.parametrize("height,width,extents", BATCH_MASKED,
                          ids=["mixed", "byte", "tall", "serving"])
@@ -532,7 +563,7 @@ def test_simulate_batch_on_the_card_matches_the_cpu(card, convention, shape):
         dies[2 + k, 3 + k] = 1  # dies at generation 2: the CUDA replay
     boards.append(dies)
     configs = [GameConfig(gen_limit=n, convention=convention) for n in (5, 17, 60, 40)]
-    key = "batch_packed" if shape == (32, 32) else "batch_masked"
+    key = "batch_packed_block" if shape == (32, 32) else "batch_masked"
     before = sb.LAUNCHES[key]
     got = engine.simulate_batch(boards, configs, padded_shape=(32, 32),
                                 pad_batch_to=8, device=card)
@@ -565,7 +596,7 @@ def test_server_serves_the_trio_on_the_card(card, pipeline_depth, monkeypatch,
     still[3:5, 3:5] = 1
     trio = [(dies, "empty"), (still, "similar"),
             (text_grid.generate(32, 32, seed=7), "gen_limit")]
-    before = sb.LAUNCHES["batch_packed"]
+    before = sb.LAUNCHES["batch_packed_block"]
     srv = GolServer(port=0, journal_dir=str(tmp_path / "journal"),
                     flush_age=0.01, pipeline_depth=pipeline_depth)
     srv.start()
@@ -601,7 +632,7 @@ def test_server_serves_the_trio_on_the_card(card, pipeline_depth, monkeypatch,
             assert np.array_equal(frame.grid(), want.grid)
     finally:
         srv.shutdown()
-    assert sb.LAUNCHES["batch_packed"] > before
+    assert sb.LAUNCHES["batch_packed_block"] > before
 
 
 # ---------------------------------------------------------------------------
@@ -625,16 +656,17 @@ def _same_results(got, want):
 @pytest.mark.parametrize("side", [256, 250], ids=["packed", "masked"])
 def test_ring_drain_equals_dispatch_batch_per_slot(card, side):
     """A drain of 3 filled slots of a 4-ring: one batched loop over 3 x 8
-    boards (B1 or B2 once per generation), each slot equal to its own
-    ``dispatch_batch`` on the card."""
-    key = "batch_packed" if side == 256 else "batch_masked"
+    boards (B1 once per 16-generation block, B2 once per generation), each
+    slot equal to its own ``dispatch_batch`` on the card."""
+    key = "batch_packed_block" if side == 256 else "batch_masked"
     stagings = _ring_stagings(card, 3, 8, side, 40, seed=11)
     runner = engine.RingRunner((256, 256), 8, 4, mode=stagings[0].mode,
                                device=card)
     before = sb.LAUNCHES[key]
     slots = engine.complete_ring(engine.dispatch_ring(
         engine.stage_ring(stagings, 4, runner=runner)))
-    assert sb.LAUNCHES[key] - before == 40  # once per generation, all slots
+    # 40 generations, all slots: blocks of 16, 16 and 8.
+    assert sb.LAUNCHES[key] - before == (3 if side == 256 else 40)
     runner.close()
     for slot, s in zip(slots, stagings):
         _same_results(slot, engine.complete_batch(engine.dispatch_batch(s, card)))
@@ -715,7 +747,7 @@ def test_tile_step_kernel_matches_plain(tile_card, batch, tile, form):
     from gol_tpu_torch.ops import stencil_tile as st
 
     blocks = torch.from_numpy(_tile_blocks(batch, tile, batch + tile))
-    want, want_flags = st._tile_step_plain(blocks)
+    want, want_flags = st._tile_steps_plain(blocks, 1)
     x = blocks.to(tile_card)
     out = (torch.full((batch, tile, tile), 5, dtype=torch.uint8, device=tile_card)
            if form == "compact" else torch.full_like(x, 5))
@@ -727,6 +759,39 @@ def test_tile_step_kernel_matches_plain(tile_card, batch, tile, form):
     got = out if form == "compact" else out[:, 1:-1, 1:-1]
     assert torch.equal(got.cpu(), want)
     assert torch.equal(flags.cpu(), want_flags)
+    if form == "padded":
+        ring = out.cpu().clone()
+        ring[:, 1:-1, 1:-1] = 5
+        assert bool((ring == 5).all())
+
+
+@pytest.mark.parametrize("n", [2, 7, 128])
+@pytest.mark.parametrize("form", ["compact", "padded"])
+@pytest.mark.parametrize("batch,tile", [(3, 4), (5, 9), (4, 33), (64, 512), (2, 1024)])
+def test_tile_steps_kernel_matches_plain(tile_card, batch, tile, form, n):
+    """T1 over n generations: one launch of the whole-window form where the
+    window fits in a CTA's shared memory, else n launches of the banded
+    form (1024^2: 33,858 words)."""
+    from gol_tpu_torch.ops import stencil_tile as st
+
+    if tile == 1024 and n == 128:
+        n = 3  # the banded form, once a generation
+    blocks = torch.from_numpy(_tile_blocks(batch, tile, batch + tile + n))
+    x = blocks.to(tile_card)
+    want, want_flags = st._tile_steps_plain(x, n)  # plain torch, on the card
+    out = (torch.full((batch, tile, tile), 5, dtype=torch.uint8, device=tile_card)
+           if form == "compact" else torch.full_like(x, 5))
+    flags = torch.zeros((batch, 2), dtype=torch.int32, device=tile_card)
+    before = dict(st.LAUNCHES)
+    st.tile_step_into(x, out, flags, n)
+    torch.cuda.synchronize()
+    window = st.window_words(tile) <= st.window_max_words(tile_card.index)
+    assert st.LAUNCHES["tile_window"] - before["tile_window"] == window
+    assert st.LAUNCHES["tile_step"] - before["tile_step"] == (0 if window else n)
+    got = out if form == "compact" else out[:, 1:-1, 1:-1]
+    assert torch.equal(got, want)
+    assert torch.equal(flags, want_flags)
+    assert torch.equal(x.cpu(), blocks)
     if form == "padded":
         ring = out.cpu().clone()
         ring[:, 1:-1, 1:-1] = 5
@@ -748,13 +813,13 @@ def test_sparse_and_macro_lanes_on_the_card_match_the_cpu(tile_card, convention,
     runs = {}
     for device in ("cpu", "cuda"):
         monkeypatch.setenv("GOL_TORCH_DEVICE", device)
-        before = st.LAUNCHES["tile_step"]
+        before = sum(st.LAUNCHES.values())
         board = lambda: SparseBoard.from_rle(gun, 1024, 1024, 16, x=400, y=400)  # noqa: E731
         sparse = simulate_sparse(board(), config, TileMemo())
         macro = simulate_macro(board(), config)
         runs[device] = [(r.board.to_rle(), r.generations, r.exit_reason)
                         for r in (sparse, macro)]
-        launched = st.LAUNCHES["tile_step"] - before
+        launched = sum(st.LAUNCHES.values()) - before
         assert (launched > 0) == (device == "cuda")
     assert runs["cuda"] == runs["cpu"]
     assert runs["cuda"][0] == runs["cuda"][1]

@@ -132,6 +132,38 @@ def test_runner_advance_matches_jax_per_generation_loop():
         blocks[:, 1:-1, 1:-1])
 
 
+@pytest.mark.parametrize("n", [1, 2, 7])
+@pytest.mark.parametrize("tile", [4, 9, 16])
+def test_tile_steps_plain_matches_jax_runner_loop(tile, n):
+    """T1's plain version over n generations against n applications of
+    JAX's tile step runner, each step reading a dead ring (the macro
+    lane's windows): interiors, and the last generation's flags, through
+    the wrapper in both output forms."""
+    rng = np.random.default_rng(tile * 13 + n)
+    blocks = _blocks(6, tile, rng)
+    blocks[:, 0], blocks[:, -1], blocks[:, :, 0], blocks[:, :, -1] = 0, 0, 0, 0
+    runner = jax_engine.make_tile_step_runner(tile, 6)
+    cur = blocks
+    for _ in range(n):
+        inner, alive, changed = (np.asarray(a) for a in runner(jnp.asarray(cur)))
+        cur = np.zeros_like(cur)
+        cur[:, 1:-1, 1:-1] = inner
+    want_flags = np.stack([alive, changed], 1).astype(np.int32)
+    x = torch.from_numpy(blocks)
+    got, flags = stencil_tile._tile_steps_plain(x, n)
+    np.testing.assert_array_equal(got.numpy(), inner)
+    np.testing.assert_array_equal(flags.numpy(), want_flags)
+    for out in (torch.full((6, tile, tile), 9, dtype=torch.uint8),
+                torch.full_like(x, 9)):
+        flags = torch.zeros((6, 2), dtype=torch.int32)
+        stencil_tile.tile_step_into(x, out, flags, n)
+        inside = out if out.shape[1] == tile else out[:, 1:-1, 1:-1]
+        np.testing.assert_array_equal(inside.numpy(), inner)
+        np.testing.assert_array_equal(flags.numpy(), want_flags)
+    assert torch.equal(x, torch.from_numpy(blocks))
+    assert stencil_tile.LAUNCHES == {"tile_step": 0, "tile_window": 0}
+
+
 @pytest.mark.parametrize("call", [
     lambda m: m.make_tile_step_runner(3, 4),
     lambda m: m.make_tile_step_runner(8, 0),
