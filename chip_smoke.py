@@ -53,13 +53,19 @@ error:
    B1's block call over blocks of t = 1, 16 and 18 generations with step
    counts t/1/0/t+2 at the same shapes (the block form, one launch) and at
    (2,1024,64) (65,536 words a board, past a CTA's shared memory: the
-   streaming form, one launch a generation), and B2 (B uint8
-   boards, each wrapping at its own extent) on a 32x32 canvas of extents
-   30x30, 18x24, 10x13 and 1x1, on the exact-fit 33x20 byte mode and on
-   64 250x250 boards in a 256x256 canvas, at a block's generation 0 and 2
-   with per-board step counts 3/1/0 (a spent board copies through, a
-   padding slot never runs): words or cells and per-board flags
-   identical. Then T1 (B halo-extended tiles) at (tiles, edge) (3,4)
+   streaming form, one launch a generation), and B2's streaming form
+   (B2-stream: one generation of B uint8 boards, each wrapping at its own
+   extent) on a 32x32 canvas of extents 30x30, 18x24, 10x13 and 1x1, on
+   the exact-fit 33x20 byte mode and on 64 250x250 boards in a 256x256
+   canvas, at a block's generation 0 and 2 with per-board step counts
+   3/1/0 (a spent board copies through, a padding slot never runs), and
+   B2's block call over blocks of t = 1, 16 and 18 with steps t/1/0/t+2
+   at the same canvases (the block form, one launch, each board as bits
+   in one CTA's shared memory) and at two boards of 1000^2 and 1024^2 in
+   a 1024^2 canvas (32,768 words of bits, past a CTA's shared memory:
+   B2-stream, one launch a generation): words or cells and per-board (per
+   generation) flags identical, and each block call's launches counted.
+   Then T1 (B halo-extended tiles) at (tiles, edge) (3,4)
    (5,9) (64,256) (64,512) for one generation (the banded form) on
    random, still and all-zero blocks, and for n generations at (tiles,
    edge, n) (3,4,2) (5,9,7) (4,33,16) (64,512,128) (the window form, one
@@ -80,10 +86,10 @@ error:
    grid under each of ``mpi``/``collective``/``async``/``openmp`` (default
    output name, printed lines, bytes) — through ``cli.main`` in five
    worker processes at once (one per convention and size, one for the
-   four variants), as phase 3b runs its variants; then, each in a fresh
-   ``python -m gol_tpu_torch`` process, random64 under ``--variant game``
-   on each lane once more (all three at once), ``--snapshot-every 100``
-   (every ``gen_NNNNNN.out`` equal to the oracle's state at that
+   four variants), as phase 3b runs its variants; beside them, each in a
+   fresh ``python -m gol_tpu_torch`` process, random64 under ``--variant
+   game`` on each lane once more (all three at once), ``--snapshot-every
+   100`` (every ``gen_NNNNNN.out`` equal to the oracle's state at that
    generation) and ``--resume-gen 300`` from a snapshot against the whole
    run. Then, with ``GOL_TORCH_MESH_DEVICES=4`` (four shards on the one
    card), the eight flows through ``cli.main`` under ``--variant tpu``,
@@ -94,9 +100,9 @@ error:
    lines against the oracle), one worker process per variant, all five
    at once. 64^2 under ``--mesh 2x2`` has one-word shards:
    there an L-tromino that becomes still and a lone cell that dies must
-   launch both ghost-plane forms. ``--snapshot-every 100`` and
-   ``--resume-gen 300`` run again under ``--variant tpu --mesh 2x2``, with
-   and without ``--packed-io``.
+   launch both ghost-plane forms. Beside the five, ``--snapshot-every 100``
+   and ``--resume-gen 300`` run again under ``--variant tpu --mesh 2x2``,
+   with and without ``--packed-io`` (both at once).
 3c. The checkpoint lane at 64^2 on the card, against the oracle: ``--variant
    game`` and ``cuda`` with ``--kernel auto``, ``--kernel pallas`` and
    ``--packed-io``, and ``--variant tpu --mesh 2x2``, each with the async
@@ -105,6 +111,12 @@ error:
    (a real SIGKILL, one subprocess per lane, all in parallel; its newest
    manifest must be generation 200's), then ``--auto-resume`` from it:
    outputs and Generations equal the oracle's.
+   Phases 3, 3b and 3c's subprocesses (the flow groups' and variants'
+   worker processes, the fresh-process flows, the snapshot chains, 3c's
+   kills) and 4d's --compile-cache pair all run at once, on one line
+   ``== 3.``: each is process start-up far more than work on the card.
+   The runs through ``cli.main`` in this process (3c's checkpointed runs
+   and resumes, 3b's one-word shards) follow on the line ``== 3c.``.
 4. The main path at full size, 16384^2 (268 MB of text, 32 MiB of packed
    words), through the CLI entry point: ``--variant game`` and ``cuda``,
    each on (a) a random grid for 1000 generations (K1 only), (b) the same
@@ -141,8 +153,8 @@ error:
 4c. The checkpoint lane at the same size: run (a) under ``--variant game
    --checkpoint-every 250`` with the async writer and with
    ``--sync-checkpoints`` (text-grid payloads of 268 MB), each equal to
-   phase 4's run (a) byte for byte; then a run SIGKILLed at generation 500
-   and its ``--auto-resume``, equal too. The Execution times print beside
+   phase 4's run (a) byte for byte; beside them a run SIGKILLed at
+   generation 500 (a subprocess), then its ``--auto-resume``, equal too. The Execution times print beside
    phase 4's, with the writer's stall counters.
 4d. Observability on the card, through ``cli.main``: run (a) under
    ``--variant game --kernel auto`` with ``--trace T`` alone (its
@@ -167,23 +179,25 @@ error:
    profiled window) beside its Execution time, the kernel time over the
    lane's unprofiled Execution time of phase 4 or 4b (the capture costs
    host time), the host ops that take most of the window, and how long
-   after the profiler's start its first kernel ran. Then ``--packed-io
-   --compile-cache D`` twice, each
-   in a subprocess of its own with a fresh ``D``: the first builds
-   ``stencil_packed-*.so`` and ``codec-*.so`` into ``D`` (its
-   ``engine.compile`` and ``cli.read_phase`` spans hold the two builds),
-   the second builds nothing (the same files, the same mtimes); both
-   outputs equal run (a)'s.
+   after the profiler's start its first kernel ran. 4d's ``--packed-io
+   --compile-cache D`` pair runs beside phase 3 (below), on random64:
+   twice, each in a subprocess of its own with a fresh ``D``: the first
+   builds ``stencil_packed-*.so`` and ``codec-*.so`` into ``D`` (its
+   ``engine.compile`` span holds the builds), the second builds nothing
+   (the same files, the same mtimes); both outputs equal the oracle's.
 4e. The batch lane (bench.py's serving load): 64 random 256^2 boards
    (bucket ``256x256/c/packed``, B1) and 64 random 250^2 boards
    (``256x256/c/masked``, B2) through ``serve/batcher.run_batch`` at
    gen_limit 4 and 1000 under both conventions, and JAX's mixed-fate trio
-   at 32^2 (gen_limit 60), and two random 1024^2 boards (gen_limit 40;
-   32,768 words a board, past a CTA's shared memory), with the launch
-   counters set to 0 just before and read just after: B1's block form
-   (once per 16-generation block of a batch's loop), its streaming form
-   (the 1024^2 pair, once a generation) and B2 must launch, no other
-   kernel. Every
+   at 32^2 (gen_limit 60), two random 1024^2 boards (gen_limit 40;
+   32,768 words a board, past a CTA's shared memory) and two random
+   1000^2 boards (gen_limit 40; bucket ``1024x1024/c/masked``, two
+   32,768-word bit copies, past it too), with the launch counters set to
+   0 just before and read just after: B1's block form (once per
+   16-generation block of a batch's loop), its streaming form (the 1024^2
+   pair, once a generation), B2's block form (once per block) and its
+   streaming form (the 1000^2 pair, once a generation) must launch, no
+   other kernel. Every
    board's grid and generations equal the port's solo ``engine.simulate``
    (``--kernel auto`` for the packed boards, ``pallas`` for the masked
    ones) and the trio's also the oracle and its exit reasons. Then
@@ -212,18 +226,24 @@ error:
    128 jobs over 16 unique 256^2 boards (Zipf counts) through the
    ``Scheduler`` cold, warm (a ``ResultCache`` filled by one run) and
    coalesced (an empty one); every result equals the engine's; jobs/s and
-   warm over cold. (iii) tools/serve_smoke.py's restart drill against
+   warm over cold. (iii) Beside (i) and (ii) and phase 4g (from the
+   start of 4f, in a thread; 4f waits for it at its end, and 4g's drill
+   runs beside it the same way), tools/serve_smoke.py's restart drill against
    ``python -m gol_tpu_torch serve --journal-dir J --result-cache``: 50
    jobs across the 32^2 and 30^2 buckets, SIGKILL with the second half
    accepted, a restart that replays them, every accepted id with exactly
    one done record equal to the oracle; then ``python -m gol_tpu_torch
    submit`` of 8 files (``--wire packed``) writes outputs equal to solo
-   ``run``s, and ``python -m gol_tpu_torch gc J/cache`` reads the CAS.
+   ``python -m gol_tpu_torch`` runs, and ``python -m gol_tpu_torch gc
+   J/cache`` reads the CAS. The drills start only subprocesses: nothing
+   in their threads launches a kernel in this process or captures its
+   stdout, so (i)'s and (ii)'s counts are those lanes' own.
 4g. The resident ring (``serve --resident-ring``), on B1 and B2: bench.py's
    megabatch load uncut (64 boards, 32 random 256^2 and 32 random 250^2,
    gen_limit 4, max_batch 8, ring 4) through the port's ``Scheduler`` with
    a journal, lanes pipeline depth 1, 2 and 4, the resident ring (ring 4 at
-   depth 8) and the ring at batched temporal depth 4; each bucket's
+   depth 8) and the ring at batched temporal depth 4, each one warm run
+   and one timed (bench.py: the best of 3); each bucket's
    marginal rate (its batch runner at G and 3G generations, the rate from
    the difference) at depth 1 and 4. Every job must end DONE and equal a
    solo ``simulate_batch`` of its board. Printed, not checked: each lane's
@@ -232,7 +252,8 @@ error:
    ring lanes' drains, mean slot occupancy (batches per drain over the
    ring) and ``dispatch_gap_seconds`` p50, the B1/B2 launches of each lane
    (counters zeroed just before its measured run), and the device-busy
-   share of one resident run under ``torch.profiler``. Then the drill:
+   share of one resident run under ``torch.profiler``. The drill, begun
+   at the start of 4f beside its lanes and waited for at the end of 4g:
    ``python -m gol_tpu_torch serve --resident-ring 4 --pipeline-depth 8
    --journal-dir J --trace T``, 64 jobs of 256^2 at gen_limit 1000,
    SIGKILLed once the journal holds its first done record, restarted and
@@ -281,7 +302,9 @@ error:
    B1, B2 and T1 in worker processes (``serve`` subprocesses sharing the
    one card, each reporting its launch counts and peak allocated bytes
    at its drained exit through ``GOL_TORCH_EXIT_STATS``; every count
-   starts at 0 in a fresh process). Per N in 1, 2, 4, ``python -m gol_tpu_torch fleet --workers N
+   starts at 0 in a fresh process). Per N in 1 and 4 (bench.py also runs
+   2; both fleets booted at once, then run in turn), ``python -m
+   gol_tpu_torch fleet --workers N
    --cores-per-worker W`` (taskset slices, W = (cores - 2) // 4 clamped to
    1..6, as bench.py) with ``--compile-cache`` the build of phase 1: (i)
    bench.py's fleet load (16 equal-work 160^2 buckets x 8 jobs, gen_limit
@@ -295,21 +318,23 @@ error:
    parse), the makespan as bench.py reads it (the most CPU seconds any
    worker spent); and at N = 4 ``run --pattern gosper_gun.rle --universe
    65536x65536 --gens 100 --engine shard --shard-across URL``, whose
-   printed lines and RLE bytes equal ``--engine sparse``'s. At N = 2 the
-   router drill (tests/test_fleet.py's TestRouterRestart): 12 jobs,
-   SIGKILL the ``fleet`` process, restart it on the same --fleet-dir,
-   every job answered through the new router, equal to the oracle, one
-   done record each across the partitions; at N = 4 one shard worker is
-   SIGKILLed mid-job past the durable floor: recoveries >= 1, the same
-   RLE. B1 (its block form) and T1 must launch at every N, B2 at N = 2
-   (the drill's 30^2 boards). (ii) The chaos suite's two lanes (jobs of
+   printed lines and RLE bytes equal ``--engine sparse``'s. At N = 4 one
+   shard worker is SIGKILLed mid-job past the durable floor: recoveries
+   >= 1, the same RLE; then the router drill (tests/test_fleet.py's
+   TestRouterRestart): 12 jobs, SIGKILL the ``fleet`` process, restart it
+   on the same --fleet-dir, every job answered through the new router,
+   equal to the oracle, one done record each across the partitions. B1's
+   and T1 must launch at every N, B2's block form at N = 4 (the drill's
+   30^2 boards). (ii) The chaos suite's two lanes (jobs of
    4000 generations where bench.py runs 10000), one timed round each after
    the warm ones, over in-process routers and two ``serve`` workers each:
    baseline, defended (breakers and their ring, ``--retry-budget 50``,
    ``X-Gol-Deadline``), and the defended workers behind a router whose
    hop to one of them runs ``refuse=0.2,reset=0.1``; the degraded round's
-   jobs equal the oracle. Last, one cold and one warm boot of ``serve``
-   (an empty ``--compile-cache``, then the same directory). The oracle
+   jobs equal the oracle. One cold and one warm boot of ``serve`` (an
+   empty ``--compile-cache``, then the same directory) run beside phase
+   3's subprocesses, so their seconds read high. The chaos fleets boot
+   beside the N fleets and sit idle through their rounds. The oracle
    runs in a process pool beside the first fleet's boot and warm round,
    never beside a timed round. Printed, not checked: jobs/s per N and N4 over
    N1 (the JAX package gates 2.5x), the shard cell-updates/s and N4 over
@@ -317,7 +342,9 @@ error:
    worker (a worker SIGKILLed in a drill reports nothing), the boot times,
    defended over baseline and degraded over defended (the JAX package
    gates 0.97 and 0.70), and 4j's own seconds.
-4k. Multi-process runs at 16384^2 on the one card: the distributed
+4k. Multi-process runs at 4096^2 on the one card (phase 4's inputs cut
+   from 16384^2: a run there is process start-up and 268 MB of text I/O
+   far more than generations), four lane runs at a time: the distributed
    variants as N ranks of ``python -m gol_tpu_torch``, launched as torchrun
    launches them (``GOL_MULTIHOST=1``, ``RANK``, ``WORLD_SIZE``,
    ``MASTER_ADDR``, ``MASTER_PORT``), over gloo (the bootstrap's choice
@@ -331,12 +358,15 @@ error:
    ``--mesh 4x1`` with ``--packed-io`` in 4 ranks on (a) and with
    ``--kernel pallas`` (K6) on (c) (its 1000 generations of (a), cut to
    fit the time limit): every output's bytes and every rank's Generations
-   equal phase 4's single-device ``--kernel auto`` run. Then the
+   equal a single-device ``--kernel auto`` run of the same 4096^2 input
+   through ``cli.main``. Then the
    checkpoint lane in 2 ranks (``--mesh 2x1 --checkpoint-every 250``, rank
    1 SIGKILLed at the generation-500 boundary by ``GOL_FAULTS``): its peer
    must exit non-zero within 60 s, and ``--auto-resume`` in 2 ranks must
-   restore generation 250 and write run (a)'s bytes. Last, the NCCL probe:
-   two ranks of NCCL on the one card, whose error is printed. Per lane each
+   restore generation 250 and write run (a)'s bytes; it and the NCCL
+   probe (two ranks of NCCL on the one card, whose error is printed) run
+   beside the lanes.
+   Per lane each
    rank's Execution ms and cell-updates/s, backend, halo and vote host time
    per pass and launches print; the ranks time-slice the one card, so the
    numbers measure the multi-process host tier and its transport, not
@@ -384,12 +414,14 @@ error:
    (2 funnel shifts and 10 3-input LOP3s, ``roofline.OPS_PER_WORD_GEN``);
    the time at 28 two-input ops stays beside it (``ops_ms_two_input``).
    No single PyTorch call computes a B3/S23 step, so ``library_ms`` is
-   null. B1's block form at phase 4e's shape (64 x 256 x 8 words), one
-   launch of a 16-generation block, 100 launches in one CUDA graph with
-   fresh flag rows each (ms per block and per generation); B1's streaming
-   form and B2 at phase 4e's shapes (64 x 256 x 8 words; 64 250^2 boards
-   in a 256^2 canvas), one launch of a block's first generation; B1's ops
-   at the network's 12 per word and generation, B2's at ``OPS_PER_CELL``.
+   null. B1's and B2's block forms at phase 4e's shapes (64 x 256 x 8
+   words; 64 250^2 boards in a 256^2 canvas), one launch of a
+   16-generation block, 100 launches in one CUDA graph with fresh flag
+   rows each (ms per block and per generation), with B2's shared memory
+   per board; their streaming forms at the same shapes, one launch of a
+   block's first generation; B1's ops and B2's block form's at the
+   network's 12 per word of bits and generation, B2-stream's at
+   ``OPS_PER_CELL`` per cell.
    T1's banded form (n = 1) at 64 tiles of 256^2 (compact output, the
    sparse lane's form) and 64 windows of 512^2 (padded ping-pong), 100
    launches in one CUDA graph with a fresh flag row each, and its window
@@ -410,8 +442,13 @@ error:
    tolerance 0 and raises on a difference. Its JSON prints on a line of
    its own.
 
-The last lines are the kernel table as one JSON object, the nvidia-smi line,
-and ``{"ok": true, "device": {...}}``.
+Each phase starts with a ``== <phase> (at T s)`` line (and a ``chip_smoke:
+phase`` line on stderr). A watchdog armed at the start (``faulthandler``,
+WATCHDOG_S) ends a run that overruns with every thread's stack on stderr
+and exit code 1, inside the 1200 s the smoke is given. The last lines are
+``chip_smoke: phase seconds {...}`` (each phase's seconds), the kernel
+table as one JSON object, the nvidia-smi line, and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -420,6 +457,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import ctypes
+import faulthandler
 import hashlib
 import io
 import json
@@ -630,8 +668,19 @@ BATCH_KERNELS = [
         "replaces": "none: jnp under vmap (gol_tpu/engine.py:1286-1290)",
     },
     {
-        "key": "batch_masked", "id": "B2",
-        "name": "B2 batch_masked_kernel: one generation of B uint8 boards, "
+        "key": "batch_masked_block", "id": "B2",
+        "name": "B2 batch_masked_block_kernel: a block of t generations of B "
+                "uint8 boards, each wrapping at its own extent, held as bits in "
+                "one CTA's shared memory, per-generation flags and per-board "
+                "step counts",
+        "source": "gol_tpu_torch/csrc/stencil_batch.cu",
+        "replaces": "none: jnp under vmap (gol_tpu/engine.py:1081-1105)",
+        "cells": True,
+    },
+    {
+        "key": "batch_masked", "id": "B2-stream",
+        "name": "B2 batch_masked_kernel (streaming form): one generation of B "
+                "uint8 boards whose two bit copies pass a CTA's shared memory, "
                 "each wrapping at its own extent, per-board flags and step counts",
         "source": "gol_tpu_torch/csrc/stencil_batch.cu",
         "replaces": "none: jnp under vmap (gol_tpu/engine.py:1081-1105)",
@@ -713,14 +762,15 @@ MACRO_UNIVERSE, MACRO_GENS = 1 << 20, 1_000_000
 GUN_UNIVERSE, GUN_GENS = 1 << 13, 1500  # bench.py: 3000
 CLI_UNIVERSE = 1 << 16  # (iii) and (iv): the gun at its middle
 # Phase 4j: bench.py's fleet suite (bench.py:1076-1296): 16 equal-work
-# 160^2 buckets (one similarity frequency each), 8 jobs a bucket, at N = 1,
-# 2, 4 workers; its chaos suite (bench.py:2764-3054): 4 buckets, 2 workers;
+# 160^2 buckets (one similarity frequency each), 8 jobs a bucket, at N = 1
+# and 4 workers (bench.py also runs 2; the smoke's ratios need 1 and 4);
+# its chaos suite (bench.py:2764-3054): 4 buckets, 2 workers;
 # its shard suite (bench.py:2564-2762): 16x16 gliders in 65536^2, tile 256.
 # Their generations are cut to fit the smoke's time limit: the fleet's jobs
 # to 2000 (6000 there), the chaos jobs to 4000 (10000), the shard job to 24
 # (48) with a checkpoint every 8 (16).
 FLEET_FREQS = (2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 14, 17, 18, 21, 24, 27)
-FLEET_SIDE, FLEET_PER_BUCKET, FLEET_LIMIT, FLEET_NS = 160, 8, 2000, (1, 2, 4)
+FLEET_SIDE, FLEET_PER_BUCKET, FLEET_LIMIT, FLEET_NS = 160, 8, 2000, (1, 4)
 FLEET_SERVE = ["--flush-age", "0.2", "--max-batch", "8", "--pipeline-depth",
                "2", "--max-queue-depth", "4096"]
 CHAOS_FREQS, CHAOS_LIMIT = (2, 3, 5, 9), 4000
@@ -744,6 +794,11 @@ BATCH_BLOCK_T = 16  # the engine's block: phase 5 times B1 over one
 TILE_WINDOW_GENS = 128  # phase 5: T1's window form over a 2L window's L/2
 BATCH_MASKED_SHAPES = [(32, 32, [(30, 30), (18, 24), (10, 13), (1, 1)]),
                        (33, 20, [(33, 20)] * 2), (256, 256, [(250, 250)] * 64)]
+# B2's block calls, over blocks of BATCH_BLOCK_TS: the same, and a canvas
+# whose two bit copies pass a CTA's shared memory (32,768 words: the
+# streaming form).
+BATCH_MASKED_BLOCK_SHAPES = BATCH_MASKED_SHAPES + [
+    (1024, 1024, [(1000, 1000), (1024, 1024)])]
 # Phase 4e: the serving load of bench.py (--suite batch / megabatch): 64
 # boards in the exact-fit 256^2 bucket and 64 in the masked 250^2 bucket.
 BATCH_BOARDS = 64
@@ -778,7 +833,7 @@ RING_LANES = {
     f"resident_depth8_T{RING_T}": {"depth": 2 * RING, "resident": RING,
                                    "temporal_depth": RING_T},
 }
-RING_REPEATS = 2  # bench.py: 3; cut to fit the smoke's time limit
+RING_REPEATS = 1  # bench.py: 3; cut to fit the smoke's time limit
 RING_DRILL_JOBS, RING_DRILL_LIMIT = 64, 1000
 # Phase 4h: the tuner's full-width search.
 TUNE_ARGS = ["--shape", f"{SIZE}x{SIZE}", "--convention", "c", "--quick",
@@ -808,28 +863,56 @@ MESH_LANES = {
     "2x2 pallas": (["--mesh", "2x2", "--kernel", "pallas"], ("dist_byte_band",)),
 }
 MESH_DEVICES = "4"
-# The batch lanes' kernels (4e-4g): B1's block form (their 256^2 and 32^2
-# boards fit in a CTA's shared memory, so the streaming form never runs)
-# and B2.
-BATCH_LANE_KEYS = ("batch_packed_block", "batch_masked")
+# The batch lanes' kernels (4e-4g): B1's and B2's block forms (their 256^2,
+# 32^2 and 30^2 boards fit in a CTA's shared memory, so the streaming forms
+# never run).
+BATCH_LANE_KEYS = ("batch_packed_block", "batch_masked_block")
 # Phase 4e's pair of boards past a CTA's shared memory (1024^2: 32,768
-# words a board), which take B1's streaming form.
+# words a board), which take B1's streaming form, and its pair of 1000^2
+# boards (bucket 1024x1024/c/masked: two 32,768-word bit copies), which
+# take B2's.
 BATCH_BIG_SIDE, BATCH_BIG_LIMIT = 1024, 40
+BATCH_BIG_MASKED_SIDE = 1000
 # The single-device --packed-io lane that prints its I/O lines (under
 # --variant tpu; the serial variants print none).
 IO_LANE = ["--mesh", "1x1", "--packed-io"]
 
 
 def fail(msg: str) -> None:
-    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    # The real stderr: a phase may be capturing sys.stderr in another thread.
+    print(f"chip_smoke: FAIL: {msg}", file=sys.__stderr__, flush=True)
     sys.exit(1)
 
 
 _T0 = time.perf_counter()
+# Each phase's start, in order: the phase seconds line reads them.
+_PHASE_STARTS: dict = {}
+# The watchdog: a run still going this long after main() starts dumps every
+# thread's stack to stderr and exits 1, inside the smoke's 1200 s limit.
+WATCHDOG_S = 1140
 
 
 def phase(title: str) -> None:
-    print(f"\n== {title} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
+    at = time.perf_counter() - _T0
+    _PHASE_STARTS[title.split(".")[0]] = at
+    print(f"\n== {title} (at {at:.1f} s)", flush=True)
+    print(f"chip_smoke: phase {title} (at {at:.1f} s)", file=sys.stderr, flush=True)
+
+
+def phase_seconds() -> dict:
+    """Each phase's seconds, from its start to the next one's (the last to
+    now)."""
+    names = list(_PHASE_STARTS)
+    ends = [_PHASE_STARTS[n] for n in names[1:]] + [time.perf_counter() - _T0]
+    return {n: round(end - _PHASE_STARTS[n], 1) for n, end in zip(names, ends)}
+
+
+@contextlib.contextmanager
+def _took(label: str):
+    """Prints the seconds the ``with`` block took: where a phase's time goes."""
+    t0 = time.perf_counter()
+    yield
+    print(f"  ({label}: {time.perf_counter() - t0:.1f} s)", flush=True)
 
 
 def _u32(t: torch.Tensor) -> torch.Tensor:
@@ -1104,9 +1187,45 @@ def check_batch_kernels(dev, stats: dict) -> None:
                 a, out, flags, steps, hs, ws, gen),
             lambda a, gen: sb._batch_masked_plain(a, steps, hs, ws, gen),
             x, stats, f"{height}x{width} canvas, extents {sorted(set(extents))}")
-        print(f"B2 at a {batch} x {height}x{width} canvas, extents "
+        print(f"B2-stream at a {batch} x {height}x{width} canvas, extents "
               f"{sorted(set(extents))} == plain at gen 0 and 2 (tolerance 0: "
               "cells and flags identical)", flush=True)
+    for height, width, extents in BATCH_MASKED_BLOCK_SHAPES:
+        batch = len(extents)
+        canvas = np.zeros((batch, height, width), np.uint8)
+        for b, (h, w) in enumerate(extents):
+            canvas[b, :h, :w] = _batch_board(h, w, kinds[b % 3], rng)
+        x = torch.from_numpy(canvas).to(dev)
+        hs = torch.tensor([h for h, _ in extents], dtype=torch.int32, device=dev)
+        ws = torch.tensor([w for _, w in extents], dtype=torch.int32, device=dev)
+        block = height * -(-width // 32) <= sb.block_max_words(dev.index)
+        key = "batch_masked_block" if block else "batch_masked"
+        for t in BATCH_BLOCK_TS:
+            steps = torch.tensor([(t, 1, 0, t + 2)[b % 4] for b in range(batch)],
+                                 dtype=torch.int32, device=dev)
+            out = torch.empty_like(x)
+            flags = torch.zeros((t, batch, sb.STEP_FLAGS), dtype=torch.int32,
+                                device=dev)
+            before = dict(sb.LAUNCHES)
+            sb.batch_masked_block_into(x, out, flags, steps, hs, ws, t)
+            want, want_flags = sb._batch_masked_block_plain(x, steps, hs, ws, t)
+            torch.cuda.synchronize(dev)
+            err = max(int((out.to(torch.int32) - want.to(torch.int32)).abs().max()),
+                      int((flags - want_flags).abs().max()))
+            stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
+            stats[key]["checks"] += 1
+            if err:
+                fail(f"B2's {'block' if block else 'streaming'} form differs from "
+                     f"its plain version at a {batch} x {height}x{width} canvas, t {t}")
+            if sb.LAUNCHES[key] - before[key] != (1 if block else t):
+                fail(f"B2's block call at {height}x{width}, t {t}: "
+                     f"{sb.LAUNCHES[key] - before[key]} launches of {key}")
+        print(f"B2 block call at a {batch} x {height}x{width} canvas, extents "
+              f"{sorted(set(extents))}, "
+              f"{'the block form, one launch' if block else 'the streaming form (B2-stream), one launch a generation'}"
+              f", == plain at t {BATCH_BLOCK_TS} (random, dies, still; steps "
+              "t/1/0/t+2) (tolerance 0: cells and per-generation flags identical)",
+              flush=True)
 
 
 def _tile_stack(batch: int, tile: int, kind: str, rng) -> np.ndarray:
@@ -1314,7 +1433,7 @@ def flow_group(group: str, work: str) -> list[str]:
 def _run_flow_groups(work: Path) -> None:
     import multiprocessing
 
-    groups = list(dict.fromkeys(job[0] for job in _flow_jobs(work, write=True)))
+    groups = list(dict.fromkeys(job[0] for job in _flow_jobs(work)))
     with concurrent.futures.ProcessPoolExecutor(
             len(groups), mp_context=multiprocessing.get_context("spawn")) as pool:
         futures = {g: pool.submit(flow_group, g, str(work)) for g in groups}
@@ -1333,14 +1452,15 @@ def _snapshot_and_resume(work: Path, env: dict, lane=("--variant", "game"),
     300 from its gen_000300.out under ``lane`` and ``resume_lane``, against
     the whole run."""
     grid = _flows()["random64"]
-    inp, snaps = work / "random64.txt", work / ("snaps" + "".join(lane))
+    tag = "".join(lane + resume_lane)
+    inp, snaps = work / "random64.txt", work / f"snaps{tag}"
+    whole_out, resumed_out = work / f"snap_whole{tag}.out", work / f"resumed{tag}.out"
     whole = oracle.run(grid, GameConfig())
     run = lambda argv: subprocess.run(
         [sys.executable, "-m", "gol_tpu_torch", *argv], cwd=work, env=env,
         capture_output=True, text=True, timeout=300)
     proc = run(["64", "64", str(inp), *lane, "--snapshot-every",
-                "100", "--snapshot-dir", str(snaps), "--output",
-                str(work / "snap_whole.out")])
+                "100", "--snapshot-dir", str(snaps), "--output", str(whole_out)])
     if proc.returncode != 0:
         fail(f"{' '.join(lane)} --snapshot-every 100 exited "
              f"{proc.returncode}:\n{proc.stderr}")
@@ -1353,25 +1473,33 @@ def _snapshot_and_resume(work: Path, env: dict, lane=("--variant", "game"),
         state = oracle.run(grid, GameConfig(gen_limit=gens)).grid
         if (snaps / name).read_bytes() != text_grid.encode(state):
             fail(f"snapshot {name} differs from the oracle's generation {gens}")
-    if (work / "snap_whole.out").read_bytes() != text_grid.encode(whole.grid):
+    if whole_out.read_bytes() != text_grid.encode(whole.grid):
         fail("--snapshot-every 100: final output differs from the oracle")
     print(f"{' '.join(lane)} --snapshot-every 100: {len(names)} snapshots "
           f"{names[0]}..{names[-1]}, each == the oracle's state at its "
           "generation", flush=True)
     proc = run(["64", "64", str(snaps / "gen_000300.out"), *lane,
-                *resume_lane, "--resume-gen", "300", "--output",
-                str(work / "resumed.out")])
+                *resume_lane, "--resume-gen", "300", "--output", str(resumed_out)])
     gens = re.search(r"Generations:\t(\d+)", proc.stdout)
     if (proc.returncode != 0 or not gens or int(gens.group(1)) != whole.generations
-            or (work / "resumed.out").read_bytes() != text_grid.encode(whole.grid)):
+            or resumed_out.read_bytes() != text_grid.encode(whole.grid)):
         fail(f"--resume-gen 300 differs from the whole run:\n{proc.stdout}{proc.stderr}")
     print(f"{' '.join(lane + resume_lane)} --resume-gen 300 from "
           f"gen_000300.out: Generations {gens.group(1)}, bytes == the whole run",
           flush=True)
 
 
-def _subprocess_env() -> dict:
+def _set_env(name: str, value: str) -> None:
+    """A spawned worker's initializer: ``name=value`` in its environment."""
+    os.environ[name] = value
+
+
+def _subprocess_env(mesh_devices: str | None = None) -> dict:
+    """This process's environment for a subprocess, with the repository
+    on PYTHONPATH and, given ``mesh_devices``, that many shard slots."""
     env = dict(os.environ)
+    if mesh_devices:
+        env[platform_env.MESH_DEVICES_ENV] = mesh_devices
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
     return env
@@ -1382,13 +1510,18 @@ def _fresh_process_flows(work: Path) -> None:
     ``--packed-io``) once more, each in a fresh ``python -m gol_tpu_torch``
     process, all at once: a fault that shows only in a new process's first
     run shows here."""
-    procs = []
-    for group, label, argv, cwd, check in _flow_jobs(work):
-        if group == "game 64" and label.startswith("random64"):
-            procs.append((label, check, subprocess.Popen(
-                [sys.executable, "-m", "gol_tpu_torch", *argv], cwd=cwd,
-                env=_subprocess_env(), stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True)))
+    grid, procs = _flows()["random64"], []
+    for lane, flags in (("auto", ["--kernel", "auto"]),
+                        ("pallas", ["--kernel", "pallas"]),
+                        ("packed_io", ["--packed-io"])):
+        out = work / f"fresh.random64.{lane}.out"
+        procs.append((f"random64 --variant game {lane:9s}",
+                      _expect_oracle(grid, Convention.C, out), subprocess.Popen(
+                          [sys.executable, "-m", "gol_tpu_torch", "64", "64",
+                           str(work / "random64.txt"), "--variant", "game",
+                           *flags, "--output", str(out)], cwd=work,
+                          env=_subprocess_env(), stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True)))
     for label, check, proc in procs:
         stdout, stderr = proc.communicate(timeout=300)
         if proc.returncode != 0:
@@ -1399,10 +1532,32 @@ def _fresh_process_flows(work: Path) -> None:
             fail(f"python -m gol_tpu_torch {label}: {e}")
 
 
+def small_flow_phases(work: Path) -> tuple[list, list, dict]:
+    """The subprocesses of phases 3, 3b and 3c, 4d's --compile-cache pair
+    and 4j's serve boots, all at once: each is process start-ups far more
+    than work on the card, and none runs ``cli.main`` in this process
+    (whose stdout it would capture). Returns 3c's killed runs, the
+    compile-cache builds and the boot times."""
+    _flow_jobs(work, write=True)
+    with concurrent.futures.ThreadPoolExecutor(5) as group:
+        parts = [group.submit(small_flows, work), group.submit(mesh_flows, work)]
+        kills = group.submit(checkpoint_kills, work)
+        builds = group.submit(compile_cache_runs, work)
+        boots = group.submit(_boot_times, work)
+        for part in parts:
+            part.result()
+        return kills.result(), builds.result(), boots.result()
+
+
 def small_flows(work: Path) -> None:
-    _run_flow_groups(work)
-    _fresh_process_flows(work)
-    _snapshot_and_resume(work, _subprocess_env())
+    """Phase 3: the flow groups' worker processes, the fresh-process flows
+    and the snapshot chain, all at once."""
+    with concurrent.futures.ThreadPoolExecutor(2) as side:
+        fresh = side.submit(_fresh_process_flows, work)
+        snaps = side.submit(_snapshot_and_resume, work, _subprocess_env())
+        _run_flow_groups(work)
+        fresh.result()
+        snaps.result()
 
 
 def _cli_capture(args: list[str]) -> tuple[int, str]:
@@ -1453,20 +1608,24 @@ def variant_mesh_flows(variant: str, work: str) -> list[str]:
     return report
 
 
-def mesh_flows(work: Path) -> dict:
+def mesh_flows(work: Path) -> None:
     """The eight flows over four shards on the card: every distributed
-    variant through ``variant_mesh_flows``, one worker process each, the
-    five at once (each drives the card from its own process, as phase 3's
-    subprocesses do). Then, in this process, the one-word shards of 64^2
-    under --mesh 2x2, and snapshots and resume under --mesh 2x2
-    (subprocesses). Returns the launch counts of the one-word-shard
-    runs."""
+    variant through ``variant_mesh_flows``, one worker process each (with
+    MESH_DEVICES shard slots), the five at once (each drives the card from
+    its own process, as phase 3's subprocesses do), beside them snapshots
+    and resume under --mesh 2x2 (subprocesses, both lanes at once)."""
     import multiprocessing
 
-    out = work / "mesh.out"
     variants = ("tpu", "collective", "async", "openmp", "mpi")
-    with concurrent.futures.ProcessPoolExecutor(
-            len(variants), mp_context=multiprocessing.get_context("spawn")) as pool:
+    env = _subprocess_env(MESH_DEVICES)
+    with concurrent.futures.ThreadPoolExecutor(2) as side, \
+            concurrent.futures.ProcessPoolExecutor(
+                len(variants), mp_context=multiprocessing.get_context("spawn"),
+                initializer=_set_env,
+                initargs=(platform_env.MESH_DEVICES_ENV, MESH_DEVICES)) as pool:
+        snaps = [side.submit(_snapshot_and_resume, work, env, lane, ())
+                 for lane in (("--variant", "tpu", "--mesh", "2x2"),
+                              ("--variant", "tpu", "--mesh", "2x2", "--packed-io"))]
         futures = {v: pool.submit(variant_mesh_flows, v, str(work)) for v in variants}
         for variant, future in futures.items():
             try:
@@ -1475,10 +1634,16 @@ def mesh_flows(work: Path) -> dict:
                 fail(f"--variant {variant} over a mesh: {err}")
             for line in report:
                 print(line, flush=True)
+        for snap in snaps:
+            snap.result()
 
-    # 64^2 under --mesh 2x2: 32x32 shards, one word wide. The pass summary of
-    # a grid that becomes still or dies inside a pass must replay the exact
-    # ghost-plane form there too.
+
+def one_word_shards(work: Path) -> dict:
+    """64^2 under --mesh 2x2 in this process: 32x32 shards, one word wide.
+    The pass summary of a grid that becomes still or dies inside a pass
+    must replay the exact ghost-plane form there too. Returns the runs'
+    launch counts."""
+    out = work / "mesh.out"
     _zero_counters()
     for name, cells in (("tromino64", TROMINO), ("lone64", [(10, 56)])):
         grid = _pattern(64, 64, cells)
@@ -1494,11 +1659,6 @@ def mesh_flows(work: Path) -> dict:
           f"Generations and bytes == oracle, launches {_nonzero(counts)}", flush=True)
     _check_launches(counts, ("bandtg_fast", "bandtg", "encode", "decode"),
                     "64x64 --mesh 2x2 (one-word shards)")
-
-    env = _subprocess_env()
-    for lane in (("--variant", "tpu", "--mesh", "2x2"),
-                 ("--variant", "tpu", "--mesh", "2x2", "--packed-io")):
-        _snapshot_and_resume(work, env, lane, resume_lane=())
     return counts
 
 
@@ -1517,13 +1677,9 @@ def _manifests(ckdir: Path) -> list[str]:
     return sorted(p.name for p in ckdir.glob("*.manifest.json"))
 
 
-def checkpoint_flows(work: Path) -> None:
-    """Phase 3c: every lane of CKPT_LANES with the async and the sync
-    writer, against the oracle: a run checkpointed every CKPT_EVERY
-    generations and, from a directory of its own, a run SIGKILLed at
-    CKPT_KILL_AT and its --auto-resume. The kills are subprocesses, all in
-    parallel (a real SIGKILL needs a process of its own); the other runs go
-    through ``cli.main`` in this process."""
+def _checkpoint_chains(work: Path) -> list:
+    """Phase 3c's runs: every lane of CKPT_LANES with the async and the
+    sync writer."""
     grid = _flows()["random64"]
     inp, n = work / "random64.txt", grid.shape[0]
     every, kill_at = CKPT_EVERY, CKPT_KILL_AT
@@ -1541,6 +1697,34 @@ def checkpoint_flows(work: Path) -> None:
                 "out": work / f"ck_{tag}.out", "ckdir": work / f"ck_{tag}",
                 "want": want, "last": (want.generations - 1) // every * every,
             })
+    return chains
+
+
+def checkpoint_kills(work: Path) -> list:
+    """Phase 3c's kills: each chain's run SIGKILLed at CKPT_KILL_AT by
+    ``GOL_FAULTS``, into a directory of its own, a subprocess each (a real
+    SIGKILL needs a process of its own), all at once, with MESH_DEVICES
+    shard slots. Returns the finished processes, in chain order."""
+    def kill(chain):
+        return subprocess.run(
+            [sys.executable, "-m", "gol_tpu_torch", *chain["argv"],
+             "--checkpoint-dir", str(chain["ckdir"])], cwd=work,
+            env={**_subprocess_env(MESH_DEVICES),
+                 "GOL_FAULTS": f"kill_at_gen={CKPT_KILL_AT},kill_mode=sigkill"},
+            capture_output=True, text=True, timeout=300)
+
+    chains = _checkpoint_chains(work)
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(chains)) as pool:
+        return list(pool.map(kill, chains))
+
+
+def checkpoint_flows(work: Path, killed: list) -> None:
+    """Phase 3c against the oracle: each chain's run checkpointed every
+    CKPT_EVERY generations, then its SIGKILLed run (``killed``, from
+    ``checkpoint_kills``) and its --auto-resume, through ``cli.main`` in
+    this process."""
+    chains = _checkpoint_chains(work)
+    every, kill_at = CKPT_EVERY, CKPT_KILL_AT
 
     def in_process(chain, ckdir, extra=()) -> str:
         """One checkpointed run in this process, against the oracle: its
@@ -1565,17 +1749,6 @@ def checkpoint_flows(work: Path) -> None:
         if kept != [f"ckpt-{g:08d}.manifest.json"
                     for g in (chain["last"] - every, chain["last"])]:
             fail(f"random64 {chain['label']}: --checkpoint-every {every} kept {kept}")
-
-    def kill(chain):
-        return subprocess.run(
-            [sys.executable, "-m", "gol_tpu_torch", *chain["argv"],
-             "--checkpoint-dir", str(chain["ckdir"])], cwd=work,
-            env={**_subprocess_env(),
-                 "GOL_FAULTS": f"kill_at_gen={kill_at},kill_mode=sigkill"},
-            capture_output=True, text=True, timeout=300)
-
-    with concurrent.futures.ThreadPoolExecutor(max_workers=len(chains)) as pool:
-        killed = list(pool.map(kill, chains))
     for chain, proc in zip(chains, killed):
         newest = _manifests(chain["ckdir"])
         if (proc.returncode != -signal.SIGKILL or chain["out"].exists()
@@ -1980,12 +2153,19 @@ def batch_compare(trees: list[Path], rounds: int) -> dict:
 
 def checkpoint_path(work: Path, path: dict) -> dict:
     """Phase 4c: run (a) under --variant game --checkpoint-every 250, async
-    and sync, then a SIGKILL at 500 and --auto-resume: every output equal
-    to phase 4's run (a)."""
+    and sync, and beside them (a subprocess of its own) a run SIGKILLed at
+    500, then its --auto-resume: every output equal to phase 4's run (a)."""
     inp, out = path["inputs"]["random"], work / "out.txt"
     want = path["results"][("game", "random", 1000)]
     base = [str(SIZE), str(SIZE), str(inp), "--variant", "game",
             "--gen-limit", "1000", "--checkpoint-every", "250", "--output", str(out)]
+    kill_dir, kill_out = work / "ck4c_kill", work / "out_kill.txt"
+    kill_args = [*base[:-1], str(kill_out), "--checkpoint-dir", str(kill_dir)]
+    t0 = time.perf_counter()
+    kill = subprocess.Popen(
+        [sys.executable, "-m", "gol_tpu_torch", *kill_args], cwd=work,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**_subprocess_env(), "GOL_FAULTS": "kill_at_gen=500,kill_mode=sigkill"})
     runs, by_path = {}, {}
     reg = obs_registry.default()
     for name, extra in (("async", []), ("sync", ["--sync-checkpoints"])):
@@ -2011,24 +2191,24 @@ def checkpoint_path(work: Path, path: dict) -> dict:
         print(f"(a) game --checkpoint-every 250, {name} writer: Generations {gens}, "
               f"Execution {ms:.3f} ms, {runs[name]}, bytes == run (a)", flush=True)
         shutil.rmtree(ckdir)
-    ckdir = work / "ck4c_kill"
-    out.unlink()
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "gol_tpu_torch", *base, "--checkpoint-dir",
-         str(ckdir)], cwd=work, capture_output=True, text=True, timeout=600,
-        env={**_subprocess_env(), "GOL_FAULTS": "kill_at_gen=500,kill_mode=sigkill"})
-    kept = _manifests(ckdir)
-    if proc.returncode != -signal.SIGKILL or out.exists() or kept != [
+    try:
+        _, stderr = kill.communicate(timeout=600)
+    finally:
+        if kill.poll() is None:
+            kill.kill()
+            kill.wait()
+    kept = _manifests(kill_dir)
+    if kill.returncode != -signal.SIGKILL or kill_out.exists() or kept != [
             "ckpt-00000250.manifest.json"]:
-        fail(f"the 16384^2 SIGKILL run exited {proc.returncode} with manifests "
-             f"{kept}: {proc.stderr[-2000:]}")
+        fail(f"the 16384^2 SIGKILL run exited {kill.returncode} with manifests "
+             f"{kept}: {stderr[-2000:]}")
     print(f"(a) game --checkpoint-every 250 SIGKILLed at 500 after "
-          f"{time.perf_counter() - t0:.1f} s: manifests {kept}", flush=True)
+          f"{time.perf_counter() - t0:.1f} s (beside the async and sync runs): "
+          f"manifests {kept}", flush=True)
     _zero_counters()
-    gens, ms, _ = _cli([*base, "--checkpoint-dir", str(ckdir), "--auto-resume"])
+    gens, ms, _ = _cli([*kill_args, "--auto-resume"])
     by_path["game auto checkpoint resumed"] = _counts()
-    if (gens, _digest(out)) != want:
+    if (gens, _digest(kill_out)) != want:
         fail(f"--auto-resume at {SIZE}^2: Generations {gens} or bytes differ from "
              "phase 4's run (a)")
     runs["resumed from 250"] = {"exec_ms": ms}
@@ -2144,6 +2324,41 @@ def _compile_cache_run(args: list[str], trace_dir: Path) -> dict:
             "generations": int(re.search(r"Generations:\t(\d+)", proc.stdout).group(1))}
 
 
+def compile_cache_runs(work: Path) -> list:
+    """4d's ``--compile-cache D`` pair at 64^2 (random64, ``--packed-io``),
+    each in a subprocess of its own with a fresh ``D``: the first builds
+    ``stencil_packed-*.so`` and ``codec-*.so`` into ``D`` (its
+    ``engine.compile`` span holds the builds), the second builds nothing
+    (the same files, the same mtimes); both outputs equal the oracle's."""
+    cache, out = work / "obs_compile_cache", work / "compile_cache.out"
+    grid = _flows()["random64"]
+    check = _expect_oracle(grid, Convention.C, out)
+    cc_args = ["64", "64", str(work / "random64.txt"), "--variant", "game",
+               "--packed-io", "--gen-limit", "1000", "--compile-cache",
+               str(cache), "--output", str(out)]
+    builds = []
+    for i in range(2):
+        out.unlink(missing_ok=True)
+        run = _compile_cache_run(cc_args, work / f"obs_cc_trace{i}")
+        files = {p.name: p.stat().st_mtime_ns for p in cache.iterdir()}
+        try:
+            check(f"Generations:\t{run['generations']}")
+        except AssertionError as e:
+            fail(f"--compile-cache run {i + 1}: {e}")
+        builds.append({**run, "files": sorted(files)})
+        print(f"--compile-cache run {i + 1}: " + json.dumps(builds[-1]), flush=True)
+        if i == 0:
+            first = files
+            for stem in ("stencil_packed", "codec"):
+                if not any(n.startswith(f"{stem}-") and n.endswith(".so") for n in files):
+                    fail(f"--compile-cache built no {stem}-*.so into {cache}: {files}")
+        elif files != first:
+            fail(f"the second --compile-cache run built again: {first} -> {files}")
+    print("--compile-cache: the second run built nothing (same files, same mtimes), "
+          "output == the oracle's", flush=True)
+    return builds
+
+
 def _captured(pdir: Path, needle: str) -> tuple[dict, dict]:
     """A profiled lane's capture: its summary and its kernel events named
     ``needle`` and each of CODEC_EVENTS."""
@@ -2163,9 +2378,10 @@ def _launched(counts: dict) -> dict:
 
 
 def observability(work: Path, path: dict, mesh: dict) -> dict:
-    """Phase 4d: --trace, --profile and --compile-cache at 16384^2. Each
-    profiled lane's kernel time also stands over its unprofiled Execution
-    time from phase 4 or 4b, since the capture itself costs host time."""
+    """Phase 4d: --trace and --profile at 16384^2 (its --compile-cache pair
+    ran beside phase 3: ``compile_cache_runs``). Each profiled lane's
+    kernel time also stands over its unprofiled Execution time from phase
+    4 or 4b, since the capture itself costs host time."""
     from gol_tpu_torch.obs import recorder
     from gol_tpu_torch.obs import trace as obs_trace
 
@@ -2250,29 +2466,7 @@ def observability(work: Path, path: dict, mesh: dict) -> dict:
     print("run (a) game auto Execution time, ms: " + ", ".join(
         f"{k} {v:.3f}" for k, v in runs.items()), flush=True)
 
-    cache = work / "obs_compile_cache"
-    cc_args = [*base[:3], "--variant", "game", "--packed-io", "--gen-limit", "1000",
-               "--compile-cache", str(cache), "--output", str(out)]
-    builds = []
-    for i in range(2):
-        out.unlink()
-        run = _compile_cache_run(cc_args, work / f"obs_cc_trace{i}")
-        files = {p.name: p.stat().st_mtime_ns for p in cache.iterdir()}
-        if (run["generations"], _digest(out)) != want:
-            fail(f"--compile-cache run {i + 1}: Generations or bytes differ from "
-                 "phase 4's run (a)")
-        builds.append({**run, "files": sorted(files)})
-        print(f"--compile-cache run {i + 1}: " + json.dumps(builds[-1]), flush=True)
-        if i == 0:
-            first = files
-            for stem in ("stencil_packed", "codec"):
-                if not any(n.startswith(f"{stem}-") and n.endswith(".so") for n in files):
-                    fail(f"--compile-cache built no {stem}-*.so into {cache}: {files}")
-        elif files != first:
-            fail(f"the second --compile-cache run built again: {first} -> {files}")
-    print("--compile-cache: the second run built nothing (same files, same mtimes)",
-          flush=True)
-    return {"launches": by_path, "lanes": lanes, "runs": runs, "compile_cache": builds}
+    return {"launches": by_path, "lanes": lanes, "runs": runs}
 
 
 # ---------------------------------------------------------------------------
@@ -2326,9 +2520,10 @@ def batch_lane(work: Path, dev) -> dict:
     """Phase 4e: the batch lane on the serving load of bench.py. 64 random
     256^2 boards (bucket 256x256/c/packed, B1) and 64 random 250^2 boards
     (256x256/c/masked, B2) through ``batcher.run_batch`` at gen_limit 4 and
-    1000 under both conventions, then JAX's mixed-fate trio at 32^2 and a
-    pair of 1024^2 boards (B1's streaming form), with the launch counters
-    zeroed just before and read just after. Every
+    1000 under both conventions, then JAX's mixed-fate trio at 32^2, a
+    pair of 1024^2 boards (B1's streaming form) and a pair of 1000^2
+    boards (B2's streaming form), with the launch counters zeroed just
+    before and read just after. Every
     board's grid, generations and exit reason equal the port's solo
     ``engine.simulate`` (``auto`` for the packed bucket, ``pallas`` for the
     masked one); the trio's equal the oracle too. Then ``python -m
@@ -2341,6 +2536,8 @@ def batch_lane(work: Path, dev) -> dict:
     trio = _trio()
     big = [rng.integers(0, 2, (BATCH_BIG_SIDE, BATCH_BIG_SIDE), dtype=np.uint8)
            for _ in range(2)]
+    big_masked = [rng.integers(0, 2, (BATCH_BIG_MASKED_SIDE,) * 2, dtype=np.uint8)
+                  for _ in range(2)]
     runs, exec_ms = {}, {}
     _zero_counters()
     for convention in (Convention.C, Convention.CUDA):
@@ -2359,14 +2556,16 @@ def batch_lane(work: Path, dev) -> dict:
         jobs = _batch_jobs([b for b, _ in trio], convention, 60)
         runs[(convention, 60, "trio")] = batcher.run_batch(
             batcher.bucket_for(jobs[0]), jobs)
-        jobs = _batch_jobs(big, convention, BATCH_BIG_LIMIT)
-        runs[(convention, BATCH_BIG_LIMIT, "big")] = batcher.run_batch(
-            batcher.bucket_for(jobs[0]), jobs)
+        for name, boards in (("big", big), ("big masked", big_masked)):
+            jobs = _batch_jobs(boards, convention, BATCH_BIG_LIMIT)
+            runs[(convention, BATCH_BIG_LIMIT, name)] = batcher.run_batch(
+                batcher.bucket_for(jobs[0]), jobs)
     counts = _counts()
     print(f"batch lane: launches {_nonzero(counts)}; one dispatch each, ms: "
           + json.dumps({k: round(v, 3) for k, v in exec_ms.items()}), flush=True)
     for k in KERNELS + BATCH_KERNELS:
-        if (k["key"] in BATCH_LANE_KEYS + ("batch_packed",)) != (counts[k["key"]] > 0):
+        if (k["key"] in BATCH_LANE_KEYS + ("batch_packed", "batch_masked")) != (
+                counts[k["key"]] > 0):
             fail(f"{k['id']} ({k['key']}) launched {counts[k['key']]} times on "
                  "the batch lane")
 
@@ -2376,6 +2575,8 @@ def batch_lane(work: Path, dev) -> dict:
             boards, kernel = [b for b, _ in trio], "auto"
         elif name == "big":
             boards, kernel = big, "auto"
+        elif name == "big masked":
+            boards, kernel = big_masked, "pallas"
         else:
             boards, kernel = loads[name], "auto" if "packed" in name else "pallas"
         cfg = GameConfig(convention=convention, gen_limit=limit)
@@ -2439,7 +2640,7 @@ def batch_lane(work: Path, dev) -> dict:
 
     busy = {}
     for name, needle in (("256x256/packed", "batch_packed_block_kernel"),
-                         ("250x250/masked", "batch_masked_kernel")):
+                         ("250x250/masked", "batch_masked_block_kernel")):
         for limit in BATCH_LIMITS:
             jobs = _batch_jobs(loads[name], Convention.C, limit)
             key = batcher.bucket_for(jobs[0])
@@ -2761,12 +2962,24 @@ def restart_drill(work: Path) -> dict:
         # Result lines print in the order the polls find jobs done.
         lines = {ln.split("\t")[0]: ln for ln in sub.stdout.splitlines()
                  if "Generations:" in ln}
-        solo_out = work / "drill_solo.out"
+        # The solo runs are subprocesses, all at once: this thread runs
+        # beside 4f's and 4g's counted windows, so it must launch nothing
+        # in this process nor redirect its stdout.
+        solos = []
         for path in files:
+            solo_out = work / f"drill_solo.{path.stem}.out"
+            solos.append((path, solo_out, subprocess.Popen(
+                [sys.executable, "-m", "gol_tpu_torch", "32", "32", str(path),
+                 "--variant", "tpu", "--mesh", "1x1", "--gen-limit",
+                 str(DRILL_LIMIT), "--output", str(solo_out)], cwd=work,
+                env=_subprocess_env(), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+        for path, solo_out, solo in solos:
+            stdout, stderr = solo.communicate(timeout=300)
+            if solo.returncode != 0:
+                fail(f"the solo run of {path.name} exited {solo.returncode}:\n{stderr}")
+            gens = int(re.search(r"Generations:\t(\d+)", stdout).group(1))
             line = lines.get(str(path), "")
-            gens, _, _ = _cli(["32", "32", str(path), "--variant", "tpu", "--mesh",
-                               "1x1", "--gen-limit", str(DRILL_LIMIT),
-                               "--output", str(solo_out)])
             got = outdir / (path.name + ".out")
             if (got.read_bytes() != solo_out.read_bytes()
                     or f"Generations:\t{gens}\t" not in line):
@@ -2802,7 +3015,7 @@ def restart_drill(work: Path) -> dict:
                                          for k, v in replay_segments.items()}}
 
 
-def server_lane(work: Path, dev) -> dict:
+def server_lane(work: Path, dev, drill) -> dict:
     """Phase 4f: the server lane at full width. (i) bench.py's pipeline
     load through a real ``GolServer`` with a journal, half the jobs as
     JSON and half as packed frames, at ``--pipeline-depth`` 1 and 2,
@@ -2812,14 +3025,16 @@ def server_lane(work: Path, dev) -> dict:
     and the trio == the oracle; (ii) bench.py's cache load through the
     ``Scheduler`` with a ``ResultCache``, cold, warm and coalesced, every
     result == the engine's; (iii) the restart drill. The counters are
-    zeroed just before (i) and (ii) and read just after each."""
+    zeroed just before (i) and (ii) and read just after each. ``drill`` is
+    (iii) started beside them (a future of ``restart_drill``)."""
     t_phase = time.perf_counter()
     load, trio_reasons = _server_load()
     lanes, launches = {}, {}
     _zero_counters()
     for name, kwargs in SERVER_LANES.items():
-        runs = [_serve_once(work, f"{name}-{r}".replace(" ", "_"), kwargs, load)
-                for r in range(SERVER_REPEATS)]
+        with _took(f"server lane {name}"):
+            runs = [_serve_once(work, f"{name}-{r}".replace(" ", "_"), kwargs, load)
+                    for r in range(SERVER_REPEATS)]
         lanes[name] = max(runs, key=lambda r: r["jobs_per_sec"])
         lanes[name]["runs_jobs_per_sec"] = [r["jobs_per_sec"] for r in runs]
     launches["server lane (4f i)"] = _counts()
@@ -2893,7 +3108,8 @@ def server_lane(work: Path, dev) -> dict:
               for n, v in cache_lanes.items())
           + f"; warm / cold = {ratio:.1f}; every result == the engine's", flush=True)
 
-    drill = restart_drill(work)
+    with _took("waiting on the restart drill, submit and gc"):
+        drill = drill.result()
     seconds = time.perf_counter() - t_phase
     print(f"phase 4f took {seconds:.1f} s", flush=True)
     return {"launches": launches, "seconds": seconds, "drill": drill,
@@ -3064,12 +3280,14 @@ def _ring_drill(work: Path) -> dict:
             "replay_s": replay_s, "resident_loop_spans": loops}
 
 
-def ring_lane(work: Path, dev) -> dict:
-    """Phase 4g (see the module docstring)."""
+def ring_lane(work: Path, dev, drill) -> dict:
+    """Phase 4g (see the module docstring); ``drill`` is its drill started
+    beside phase 4f (a future of ``_ring_drill``)."""
     t_phase = time.perf_counter()
     boards = _ring_load()
-    marginal = {f"{side}xT{t}": _ring_marginal(boards[side], side, t)
-                for side in RING_SIDES for t in (1, RING_T)}
+    with _took("marginal rates"):
+        marginal = {f"{side}xT{t}": _ring_marginal(boards[side], side, t)
+                    for side in RING_SIDES for t in (1, RING_T)}
     total = sum(side * side * len(b) for side, b in boards.items()) * RING_LIMIT
     combined = total / sum(
         side * side * len(boards[side]) * RING_LIMIT
@@ -3136,7 +3354,8 @@ def ring_lane(work: Path, dev) -> dict:
           f"events, busy {busy['kernel_busy_ms']:.3f} ms of a "
           f"{busy['window_ms']:.3f} ms window = {busy['device_busy_share']:.3f}",
           flush=True)
-    drill = _ring_drill(work)
+    with _took("waiting on the ring drill, top and fleet-trace"):
+        drill = drill.result()
     seconds = time.perf_counter() - t_phase
     print(f"phase 4g took {seconds:.1f} s", flush=True)
     return {"launches": launches, "marginal": marginal, "combined": combined,
@@ -3383,7 +3602,7 @@ def _sparse_suite(dev, launches: dict) -> dict:
 def _macro_suite(work: Path, launches: dict) -> dict:
     """(ii) bench.py's macro suite, the gun's 8192^2 runs cut to GUN_GENS:
     the Gosper gun, tile 256; sparse at 8192^2; macro at 2^20 squared for
-    10^6 generations cold into a fresh CAS, then warm from it; macro at
+    MACRO_GENS generations cold into a fresh CAS, then warm from it; macro at
     8192^2 against the sparse run's RLE. Each macro run launches T1 once per
     runner call (``_one_launch_a_call``)."""
     gun = (REPO / "patterns" / "gosper_gun.rle").read_text()
@@ -3585,12 +3804,18 @@ def sparse_macro_lanes(work: Path, dev) -> dict:
     """Phase 4i (see the module docstring)."""
     t_phase = time.perf_counter()
     launches = {}
-    sizes = _sparse_suite(dev, launches)
-    macro = _macro_suite(work, launches)
-    busy = _lanes_busy(work, dev)
-    cli_runs, cli_rle = _pattern_cli(work, launches)
-    server = _sparse_server(work, launches, cli_rle)
-    crossover = _crossover(work, launches)
+    with _took("sparse suite"):
+        sizes = _sparse_suite(dev, launches)
+    with _took("macro suite"):
+        macro = _macro_suite(work, launches)
+    with _took("profiled runs"):
+        busy = _lanes_busy(work, dev)
+    with _took("pattern CLI"):
+        cli_runs, cli_rle = _pattern_cli(work, launches)
+    with _took("sparse and macro jobs through a server"):
+        server = _sparse_server(work, launches, cli_rle)
+    with _took("tune --sparse-crossover"):
+        crossover = _crossover(work, launches)
     seconds = time.perf_counter() - t_phase
     print(f"phase 4i took {seconds:.1f} s", flush=True)
     return {"launches": launches, "sparse": sizes, "macro": macro,
@@ -3612,11 +3837,12 @@ def _oracle_job(args):
 
 def _oracle_pool():
     """A spawned process pool for the port's numpy oracle (the loads'
-    boards run 2000-4000 generations each)."""
+    boards run 2000-4000 generations each): four workers, beside the
+    fleets' boots."""
     import multiprocessing
 
     return concurrent.futures.ProcessPoolExecutor(
-        max_workers=min(8, os.cpu_count() or 4),
+        max_workers=min(4, os.cpu_count() or 4),
         mp_context=multiprocessing.get_context("spawn"))
 
 
@@ -3941,7 +4167,8 @@ def _shard_kill_drill(base: str, fleet_dir: Path, rle: str, want_sha1: str) -> d
 
 def _boot_times(work: Path) -> dict:
     """One cold boot of ``serve`` (an empty --compile-cache: B1/B2 built
-    by nvcc) and one warm (the same directory again), to ``serving on``."""
+    by nvcc) and one warm (the same directory again), to ``serving on``.
+    They run beside phase 3's subprocesses, so they read high."""
     cache = work / "cold-cache"
     out = {}
     for tag in ("cold", "warm"):
@@ -3950,46 +4177,79 @@ def _boot_times(work: Path) -> dict:
                                work / f"boot-{tag}.log")
         out[f"{tag}_boot_s"] = time.perf_counter() - t0
         _stop(proc)
+    print(f"serve boot (4j, beside phase 3): cold {out['cold_boot_s']:.2f} s, "
+          f"warm {out['warm_boot_s']:.2f} s", flush=True)
     return out
+
+
+def _boot_fleet(work: Path, n: int, width: int) -> dict:
+    """``python -m gol_tpu_torch fleet --workers n`` with taskset slices of
+    ``width`` cores and its exit stats: its process, URL, boot seconds and
+    what a restart needs."""
+    fleet_dir, stats, log = (work / f"fleet-n{n}", work / f"stats-n{n}",
+                             work / f"fleet-n{n}.log")
+    env = {**_subprocess_env(), cli.EXIT_STATS_ENV: str(stats)}
+    args = ["--workers", str(n), "--fleet-dir", str(fleet_dir),
+            "--cores-per-worker", str(width),
+            "--compile-cache", str(_build.BUILD_DIR), *FLEET_SERVE]
+    proc, base, boot_s = _start_fleet(args, log, env)
+    return {"proc": proc, "base": base, "boot_s": boot_s, "args": args,
+            "log": log, "env": env, "dir": fleet_dir, "stats": stats}
 
 
 def _fleet_lanes(work: Path, launches: dict, boards: list, oracles) -> dict:
     """(i) and (iii): per N, ``python -m gol_tpu_torch fleet --workers N``
-    with taskset slices; bench.py's fleet load (warm round, timed round,
-    every job equal to the oracle), the shard suite's universe through
-    the router (warm, timed). At N = 2 the router drill, at N = 4 the gun
-    through ``run --engine shard`` and the shard worker kill."""
+    with taskset slices, every N's fleet booted at once (beside the sparse
+    references) and run in turn; bench.py's fleet load (warm round, timed
+    round, every job equal to the oracle), the shard suite's universe
+    through the router (warm, timed). At N = 4 the gun through ``run
+    --engine shard``, the shard worker kill and the router drill."""
     if shutil.which("taskset") is None:
         fail("taskset is missing: fleet --cores-per-worker needs it")
     cores = os.cpu_count() or 4
     width = max(1, min(6, (cores - 2) // 4))
-    t1 = time.perf_counter()
-    universe = _shard_universe()
-    rle = universe.to_rle()
-    ref = simulate_sparse(universe, GameConfig(
-        gen_limit=SHARD_LIMIT, check_similarity=False), TileMemo())
-    want_sha1 = _sha1(ref.board.to_rle())
-    sparse_out = work / "gun_sparse.rle"
-    _, _, text = _cli([*SHARD_CLI, "--engine", "sparse", "--output", str(sparse_out)])
-    cli_want = (_MSECS.sub("X msecs", text), sparse_out.read_bytes())
-    print(f"the sparse references: {time.perf_counter() - t1:.1f} s", flush=True)
+    with concurrent.futures.ThreadPoolExecutor(len(FLEET_NS)) as pool:
+        booting = {n: pool.submit(_boot_fleet, work, n, width) for n in FLEET_NS}
+        t1 = time.perf_counter()
+        universe = _shard_universe()
+        rle = universe.to_rle()
+        ref = simulate_sparse(universe, GameConfig(
+            gen_limit=SHARD_LIMIT, check_similarity=False), TileMemo())
+        want_sha1 = _sha1(ref.board.to_rle())
+        sparse_out = work / "gun_sparse.rle"
+        _, _, text = _cli([*SHARD_CLI, "--engine", "sparse", "--output",
+                           str(sparse_out)])
+        cli_want = (_MSECS.sub("X msecs", text), sparse_out.read_bytes())
+        print(f"the sparse references: {time.perf_counter() - t1:.1f} s", flush=True)
+        fleets = {n: f.result() for n, f in booting.items()}
+    try:
+        return _fleet_rounds(work, launches, boards, oracles, fleets, rle,
+                             want_sha1, cli_want)
+    finally:
+        for fleet in fleets.values():  # a fleet left by a failed round
+            if fleet["proc"].poll() is None and not fleet.get("stopped"):
+                _stop_fleet(fleet["proc"])
+
+
+def _fleet_rounds(work: Path, launches: dict, boards: list, oracles,
+                  fleets: dict, rle: str, want_sha1: str, cli_want) -> dict:
+    """Each booted fleet's rounds in turn (``_fleet_lanes``), then its
+    drained stop and its workers' exit stats."""
     lanes = {}
     for n in FLEET_NS:
-        fleet_dir = work / f"fleet-n{n}"
-        stats = work / f"stats-n{n}"
-        log = work / f"fleet-n{n}.log"
-        env = {**_subprocess_env(), cli.EXIT_STATS_ENV: str(stats)}
-        args = ["--workers", str(n), "--fleet-dir", str(fleet_dir),
-                "--cores-per-worker", str(width),
-                "--compile-cache", str(_build.BUILD_DIR), *FLEET_SERVE]
+        fleet = fleets[n]
+        proc, base, fleet_dir, stats = (fleet["proc"], fleet["base"],
+                                        fleet["dir"], fleet["stats"])
+        args, log, env = fleet["args"], fleet["log"], fleet["env"]
         t_lane = time.perf_counter()
-        proc, base, _ = _start_fleet(args, log, env)
-        lane, orphans = {"workers": n}, ((), ())
+        lane, orphans = {"workers": n, "boot_s": fleet["boot_s"]}, ((), ())
         try:
             _timed_round(base, boards, FLEET_LIMIT)
-            # The oracle pool ran beside the first boot and warm round;
-            # no timed round runs beside it.
-            wants = oracles()["fleet"]
+            # The oracle pool ran beside the boots and the first warm
+            # round; no timed round runs beside it.
+            with _took(f"N={n}: booted in {fleet['boot_s']:.1f} s, then the "
+                       "warm round; the oracles' wait"):
+                wants = oracles()["fleet"]
             seconds, ids = _timed_round(base, boards, FLEET_LIMIT)
             _check_results(base, ids, wants, f"fleet n={n}")
             lane.update(seconds=seconds, jobs_per_s=len(ids) / seconds,
@@ -3998,14 +4258,13 @@ def _fleet_lanes(work: Path, launches: dict, boards: list, oracles) -> dict:
             lane["shard"] = _shard_lane(base, fleet_dir, rle, want_sha1)
             if n == FLEET_NS[-1]:  # the CLI's shard lane once, over N workers
                 _shard_cli(work, base, f"n{n}", cli_want)
-            if n == 2:
-                proc, base, lane["router_drill"], orphans = _router_drill(
-                    work, proc, base, args, log, env, fleet_dir)
-            if n == 4:
                 lane["shard_kill"] = _shard_kill_drill(base, fleet_dir, rle,
                                                         want_sha1)
+                proc, base, lane["router_drill"], orphans = _router_drill(
+                    work, proc, base, args, log, env, fleet_dir)
         finally:
             _stop_fleet(proc, orphans)
+            fleet["stopped"] = True
         reports = _exit_stats(stats)
         lane["peak_device_bytes"] = {r["pid"]: r["peak_device_bytes"] for r in reports}
         lane["t1_launches_by_worker"] = {r["pid"]: r["launches"]["tile_step"]
@@ -4013,7 +4272,7 @@ def _fleet_lanes(work: Path, launches: dict, boards: list, oracles) -> dict:
                                          for r in reports}
         launches[f"fleet and shard lanes, N={n} (4j, workers)"] = counts = _summed(reports)
         needed = ("batch_packed_block", "tile_step") + (
-            ("batch_masked",) if n == 2 else ())
+            ("batch_masked_block",) if n == FLEET_NS[-1] else ())
         for key in needed:
             if not counts.get(key):
                 fail(f"the N={n} workers launched no {key}")
@@ -4029,16 +4288,48 @@ def _fleet_lanes(work: Path, launches: dict, boards: list, oracles) -> dict:
     return lanes
 
 
-def _chaos_lanes(work: Path, launches: dict, boards: list, wants) -> dict:
-    """(ii) the chaos suite's two lanes, one timed round each after the
-    warm ones: baseline (no defense) and defended (breakers and their
-    ring, --retry-budget 50, X-Gol-Deadline) fleets of two workers, then
-    the defended workers behind a router whose hop to one of them runs
-    CHAOS_PLAN. The faulted round's jobs equal the oracle."""
+def _boot_chaos(work: Path) -> dict:
+    """(ii)'s two fleets of two ``serve`` workers, booted at once, with exit
+    stats in ``work/stats-chaos``: baseline (no defense) and defended
+    (``--retry-budget 50``)."""
+    from gol_tpu_torch.fleet.workers import Fleet
+
+    fleets = {}
+    saved = os.environ.get(cli.EXIT_STATS_ENV)
+    os.environ[cli.EXIT_STATS_ENV] = str(work / "stats-chaos")
+    try:
+        def boot(name, defended):
+            serve = FLEET_SERVE + (["--retry-budget", "50"] if defended else [])
+            fleet = Fleet(str(work / f"chaos-{name}"), serve_args=serve)
+            fleets[name] = fleet
+            fleet.spawn_fleet(2)
+
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            list(pool.map(lambda a: boot(*a), [("baseline", False),
+                                               ("defended", True)]))
+    except BaseException:
+        for fleet in fleets.values():
+            fleet.terminate()
+        raise
+    finally:
+        if saved is None:
+            os.environ.pop(cli.EXIT_STATS_ENV)
+        else:
+            os.environ[cli.EXIT_STATS_ENV] = saved
+    return fleets
+
+
+def _chaos_lanes(work: Path, launches: dict, boards: list, wants,
+                 fleets: dict) -> dict:
+    """(ii) the chaos suite's two lanes on the fleets of ``_boot_chaos``,
+    one timed round each after the warm ones: baseline (no defense) and
+    defended (breakers and their ring, --retry-budget 50, X-Gol-Deadline)
+    fleets of two workers, then the defended workers behind a router whose
+    hop to one of them runs CHAOS_PLAN. The faulted round's jobs equal the
+    oracle."""
     from gol_tpu_torch.chaos import ChaosPlan, ProxyPool
     from gol_tpu_torch.fleet.breaker import BreakerConfig
     from gol_tpu_torch.fleet.router import RouterServer
-    from gol_tpu_torch.fleet.workers import Fleet
     from gol_tpu_torch.obs import propagate
     from gol_tpu_torch.obs.history import HistoryWriter
 
@@ -4054,24 +4345,6 @@ def _chaos_lanes(work: Path, launches: dict, boards: list, wants) -> dict:
 
     t_chaos = time.perf_counter()
     stats = work / "stats-chaos"
-    fleets = {}
-    saved = os.environ.get(cli.EXIT_STATS_ENV)
-    os.environ[cli.EXIT_STATS_ENV] = str(stats)
-    try:
-        def boot(name, defended):
-            serve = FLEET_SERVE + (["--retry-budget", "50"] if defended else [])
-            fleet = Fleet(str(work / f"chaos-{name}"), serve_args=serve)
-            fleet.spawn_fleet(2)
-            fleets[name] = fleet
-
-        with concurrent.futures.ThreadPoolExecutor(2) as pool:
-            list(pool.map(lambda a: boot(*a), [("baseline", False),
-                                               ("defended", True)]))
-    finally:
-        if saved is None:
-            os.environ.pop(cli.EXIT_STATS_ENV)
-        else:
-            os.environ[cli.EXIT_STATS_ENV] = saved
 
     def breakers(fleet):
         return {"breakers": True,
@@ -4136,8 +4409,9 @@ def _chaos_lanes(work: Path, launches: dict, boards: list, wants) -> dict:
     return out
 
 
-def fleet_lanes(work: Path) -> dict:
-    """Phase 4j (see the module docstring)."""
+def fleet_lanes(work: Path, boots: dict) -> dict:
+    """Phase 4j (see the module docstring); ``boots`` are the serve boot
+    times taken beside phase 3."""
     t_phase = time.perf_counter()
     # The router drill kills a fleet process: its workers, orphans, are
     # reparented to this process, which reaps them (PR_SET_CHILD_SUBREAPER).
@@ -4159,11 +4433,19 @@ def fleet_lanes(work: Path) -> dict:
                 wants[k] = list(v)
             return wants
 
-        lanes = _fleet_lanes(work, launches, fleet_boards, oracles)
-        chaos = _chaos_lanes(work, launches, chaos_boards, oracles()["chaos"])
-    boots = _boot_times(work)
-    print(f"serve boot: cold {boots['cold_boot_s']:.2f} s, warm "
-          f"{boots['warm_boot_s']:.2f} s", flush=True)
+        # The chaos fleets boot beside the N fleets and sit idle through
+        # their rounds.
+        with concurrent.futures.ThreadPoolExecutor(1) as side:
+            chaos_fleets = side.submit(_boot_chaos, work)
+            try:
+                lanes = _fleet_lanes(work, launches, fleet_boards, oracles)
+            except BaseException:
+                for fleet in chaos_fleets.result().values():
+                    fleet.terminate()
+                raise
+            chaos_fleets = chaos_fleets.result()
+        chaos = _chaos_lanes(work, launches, chaos_boards, oracles()["chaos"],
+                             chaos_fleets)
     n1, n4 = lanes["n1"], lanes["n4"]
     ratios = {"jobs_n4_over_n1": n4["jobs_per_s"] / n1["jobs_per_s"],
               "shard_n4_over_n1": (n4["shard"]["cell_updates_per_s_makespan"]
@@ -4181,9 +4463,11 @@ def fleet_lanes(work: Path) -> dict:
 # 4k. Multi-process runs on the one card
 
 # name: (ranks, shard slots per rank, flags, runs, kernels every rank must
-# launch). The runs are phase 4's inputs, each held to phase 4's single-device
-# --kernel auto bytes and Generations (the tpu and mpi variants take the C
-# convention, as game does).
+# launch). The runs are phase 4's inputs at MP_SIZE^2, each held to a
+# single-device --kernel auto run of the same input in this process (the tpu
+# and mpi variants take the C convention, as game does). MP_SIZE is cut from
+# phase 4's 16384: a run is process start-up and text I/O (268 MB at 16384^2,
+# 17 MB here) far more than generations. MP_PARALLEL lane runs go at once.
 MP_LANES = {
     "tpu 4x1 auto, 4 ranks": (
         4, 1, ["--variant", "tpu", "--mesh", "4x1"],
@@ -4207,6 +4491,7 @@ MP_LANES = {
         [("c", "tromino_corner", 1000)], ("dist_byte_band",)),
 }
 MP_CKPT_EVERY, MP_KILL_AT, MP_LOST_BOUND_S = 250, 500, 60
+MP_SIZE, MP_PARALLEL = 4096, 4
 # Two ranks of NCCL on the one card: NCCL takes one card per rank, so this
 # is expected to fail; its error text is printed.
 NCCL_PROBE = r"""
@@ -4299,9 +4584,7 @@ def _nccl_probe(work: Path) -> str:
              if "NCCL error" in ln or "all_reduce ok" in ln or "timed out" in ln]
     text = " | ".join(lines) or "no line from the probe: " + " ".join(
         " ".join(outs).split())[-400:]
-    print(f"NCCL probe, 2 ranks on the one card: rcs "
-          f"{[p.returncode for p in procs]}: {text}", flush=True)
-    return text
+    return f"rcs {[p.returncode for p in procs]}: {text}"
 
 
 def _lane_report(tag: str, key: str, results: list, slots: int) -> dict:
@@ -4317,7 +4600,7 @@ def _lane_report(tag: str, key: str, results: list, slots: int) -> dict:
             or launches.get("dist_byte_band", 0) or launches.get("dist_band", 0)
         ranks.append({
             "rank": r, "exec_ms": st["exec_ms"], "generations": st["generations"],
-            "cell_updates_per_s": SIZE * SIZE * st["generations"]
+            "cell_updates_per_s": MP_SIZE * MP_SIZE * st["generations"]
             / max(st["exec_ms"] / 1000, 1e-9),
             "backend": st["backend"],
             "halo_phases": st["halo"]["phases"], "halo_ms": st["halo"]["seconds"] * 1e3,
@@ -4338,67 +4621,34 @@ def _lane_report(tag: str, key: str, results: list, slots: int) -> dict:
     return {"ranks": ranks}
 
 
-def multiprocess_lanes(work: Path, path: dict) -> dict:
-    """Phase 4k: the distributed variants as N ranks of ``python -m
-    gol_tpu_torch`` on the one card (over gloo: NCCL takes a card per
-    rank), each lane's bytes and Generations against phase 4's single-device
-    run, each rank's launches from its exit stats; then the checkpoint lane
-    in 2 ranks with one rank SIGKILLed and ``--auto-resume``; and the NCCL
-    probe."""
-    t_phase = time.perf_counter()
-    inputs, results = path["inputs"], path["results"]
-    root = work / "mp"
-    print("The ranks time-slice the one card: these numbers measure the "
-          "multi-process host tier and its transport, not scale-out over "
-          "cards.", flush=True)
-    by_path, lanes = {}, {}
-    for lane, (ranks, slots, flags, runs, needed) in MP_LANES.items():
-        summed: dict = {}
-        per_rank = [dict() for _ in range(ranks)]
-        lanes[lane] = {}
-        for tag, key, limit in runs:
-            run_dir = root / f"{lane.replace(' ', '_').replace(',', '')}_{tag}_{key}"
-            out = run_dir / "out.txt"
-            t0 = time.perf_counter()
-            res = _rank_run([str(SIZE), str(SIZE), str(inputs[key]), *flags,
-                             "--gen-limit", str(limit), "--output", str(out)],
-                            ranks, slots, run_dir)
-            wall = time.perf_counter() - t0
-            for r, x in enumerate(res):
-                if x["rc"] != 0 or x["stats"] is None:
-                    fail(f"4k {lane} ({tag}) {key}: rank {r} exited {x['rc']}:\n"
-                         f"{x['stderr'][-3000:]}")
-                gens = int(re.search(r"Generations:\t(\d+)", x["stdout"]).group(1))
-                if gens != results[("game", key, limit)][0]:
-                    fail(f"4k {lane} ({tag}) {key}: rank {r} printed Generations "
-                         f"{gens}, phase 4: {results[('game', key, limit)][0]}")
-                _check_codec(x["stats"]["launches"],
-                             0 if "--packed-io" in flags or "pallas" in flags else slots,
-                             f"4k {lane} ({tag}) {key} rank {r}")
-                for k, n in x["stats"]["launches"].items():
-                    summed[k] = summed.get(k, 0) + n
-                    per_rank[r][k] = per_rank[r].get(k, 0) + n
-            if (gens, _digest(out)) != results[("game", key, limit)]:
-                fail(f"4k {lane} ({tag}) {key}: bytes differ from phase 4's "
-                     "single-device --kernel auto run")
-            print(f"({tag}) {key:15s} limit {limit}: {lane}: Generations {gens}, "
-                  f"bytes == phase 4, {wall:.1f} s from launch to the last exit",
-                  flush=True)
-            lanes[lane][f"({tag}) {key}"] = {**_lane_report(tag, key, res, slots),
-                                            "wall_s": wall}
-        for r, counts in enumerate(per_rank):
-            for k in needed:
-                if not counts.get(k):
-                    fail(f"4k {lane}: rank {r} launched no {k} in the lane's runs")
-        by_path[f"multi-process {lane}"] = {k: summed.get(k, 0) for k in _counts()}
-        print(f"multi-process {lane}: launches over its ranks {_nonzero(summed)}",
-              flush=True)
+def _mp_inputs(root: Path) -> tuple[dict, dict]:
+    """Phase 4's inputs of the multi-process lanes at MP_SIZE^2, and each
+    (key, limit)'s single-device ``--kernel auto`` (Generations, digest)
+    from ``cli.main`` in this process."""
+    root.mkdir(parents=True, exist_ok=True)
+    inputs = {"random": root / "random.txt"}
+    text_grid.generate_to_file(str(inputs["random"]), MP_SIZE, MP_SIZE, seed=SEED)
+    for key, cells in (("tromino_corner", TROMINO), ("diagonal_corner", DIAGONAL)):
+        inputs[key] = root / f"{key}.txt"
+        text_grid.write_grid(str(inputs[key]), _pattern(MP_SIZE, MP_SIZE, cells))
+    wants = {(k, n) for *_, runs, _ in MP_LANES.values() for _, k, n in runs}
+    wants.add(("random", 1000))  # the checkpoint drill's
+    results, out = {}, root / "single.txt"
+    for key, limit in sorted(wants):
+        gens, _, _ = _cli([str(MP_SIZE), str(MP_SIZE), str(inputs[key]),
+                           "--variant", "game", "--kernel", "auto",
+                           "--gen-limit", str(limit), "--output", str(out)])
+        results[(key, limit)] = (gens, _digest(out))
+    return inputs, results
 
-    # The checkpoint lane in 2 ranks: rank 1 SIGKILLed at the generation-500
-    # boundary; its peer must exit non-zero within the bound; --auto-resume
-    # from generation 250 must write run (a)'s bytes.
+
+def _mp_drill(root: Path, inputs: dict, results: dict) -> tuple[dict, list]:
+    """4k's checkpoint lane in 2 ranks: rank 1 SIGKILLed at the
+    generation-500 boundary; its peer must exit non-zero within the bound;
+    --auto-resume from generation 250 must write run (a)'s bytes. Returns
+    its numbers and its report lines (it prints nothing)."""
     ck = root / "ckpt"
-    argv = [str(SIZE), str(SIZE), str(inputs["random"]), "--variant", "tpu",
+    argv = [str(MP_SIZE), str(MP_SIZE), str(inputs["random"]), "--variant", "tpu",
             "--mesh", "2x1", "--checkpoint-every", str(MP_CKPT_EVERY),
             "--checkpoint-dir", str(ck / "dir"), "--output", str(ck / "out.txt")]
     killed = _rank_run(argv, 2, 1, ck / "killed", per_rank={
@@ -4409,26 +4659,128 @@ def multiprocess_lanes(work: Path, path: dict) -> dict:
     if killed[0]["rc"] in (0, None) or lost_s > MP_LOST_BOUND_S:
         fail(f"4k drill: the peer of the killed rank exited {killed[0]['rc']} "
              f"{lost_s:.1f} s after it (bound {MP_LOST_BOUND_S} s)")
-    print(f"checkpoint drill: rank 1 SIGKILLed at generation {MP_KILL_AT}; rank 0 "
-          f"exited {killed[0]['rc']} {lost_s:.2f} s later; manifests "
-          f"{_manifests(ck / 'dir')}", flush=True)
+    lines = [f"checkpoint drill: rank 1 SIGKILLed at generation {MP_KILL_AT}; "
+             f"rank 0 exited {killed[0]['rc']} {lost_s:.2f} s later; manifests "
+             f"{_manifests(ck / 'dir')}"]
     resumed = _rank_run(argv + ["--auto-resume"], 2, 1, ck / "resumed")
     for r, x in enumerate(resumed):
         if x["rc"] != 0 or f"restored checkpoint at generation {MP_CKPT_EVERY}" \
                 not in x["stderr"]:
             fail(f"4k drill: resumed rank {r} exited {x['rc']} or restored no "
                  f"generation {MP_CKPT_EVERY}:\n{x['stderr'][-3000:]}")
-    want = results[("game", "random", 1000)]
+    want = results[("random", 1000)]
     gens = int(re.search(r"Generations:\t(\d+)", resumed[0]["stdout"]).group(1))
     if (gens, _digest(ck / "out.txt")) != want:
         fail("4k drill: the resumed run's Generations or bytes differ from "
-             "phase 4's run (a)")
+             "the single-device run (a)")
     drill = {"peer_rc": killed[0]["rc"], "peer_exit_after_kill_s": lost_s,
              "resumed_exec_ms": [x["stats"]["exec_ms"] for x in resumed]}
-    print(f"checkpoint drill: --auto-resume in 2 ranks from generation "
-          f"{MP_CKPT_EVERY}: Generations {gens}, bytes == phase 4 run (a); "
-          f"Execution ms per rank {drill['resumed_exec_ms']}", flush=True)
-    nccl = _nccl_probe(work)
+    lines.append(f"checkpoint drill: --auto-resume in 2 ranks from generation "
+                 f"{MP_CKPT_EVERY}: Generations {gens}, bytes == the single-device "
+                 f"run (a); Execution ms per rank {drill['resumed_exec_ms']}")
+    return drill, lines
+
+
+def multiprocess_runs(work: Path) -> concurrent.futures.Future:
+    """Phase 4k's subprocesses, begun in a thread beside phase 4i: its
+    lanes' rank runs at MP_SIZE^2, MP_PARALLEL at a time, beside them the
+    checkpoint drill and the NCCL probe. It prints nothing (4i's CLI runs
+    capture this process's stdout); ``multiprocess_lanes`` checks and
+    reports. The inputs and their single-device references come first,
+    through ``cli.main`` in this process: call this before 4i starts."""
+    t0 = time.perf_counter()
+    root = work / "mp"
+    inputs, results = _mp_inputs(root)
+    refs_s = time.perf_counter() - t0
+    jobs = [(lane, tag, key, limit) for lane, (*_, runs, _) in MP_LANES.items()
+            for tag, key, limit in runs]
+
+    def launch(job):
+        lane, tag, key, limit = job
+        ranks, slots, flags, _, _ = MP_LANES[lane]
+        run_dir = root / f"{lane.replace(' ', '_').replace(',', '')}_{tag}_{key}"
+        t0 = time.perf_counter()
+        res = _rank_run([str(MP_SIZE), str(MP_SIZE), str(inputs[key]), *flags,
+                         "--gen-limit", str(limit), "--output",
+                         str(run_dir / "out.txt")], ranks, slots, run_dir)
+        return res, run_dir / "out.txt", time.perf_counter() - t0
+
+    def runs():
+        with concurrent.futures.ThreadPoolExecutor(2) as side, \
+                concurrent.futures.ThreadPoolExecutor(MP_PARALLEL) as pool:
+            drill = side.submit(_mp_drill, root, inputs, results)
+            nccl = side.submit(_nccl_probe, work)
+            done = dict(zip(jobs, pool.map(launch, jobs)))
+            return {"done": done, "drill": drill.result(), "nccl": nccl.result(),
+                    "results": results, "refs_s": refs_s,
+                    "runs_s": time.perf_counter() - t0}
+
+    side = concurrent.futures.ThreadPoolExecutor(1)
+    future = side.submit(runs)
+    side.shutdown(wait=False)
+    return future
+
+
+def multiprocess_lanes(mp) -> dict:
+    """Phase 4k: the distributed variants as N ranks of ``python -m
+    gol_tpu_torch`` on the one card (over gloo: NCCL takes a card per
+    rank) at MP_SIZE^2, each lane's bytes and Generations against a
+    single-device run, each rank's launches from its exit stats, the
+    checkpoint lane in 2 ranks with one rank SIGKILLed and
+    ``--auto-resume``, and the NCCL probe: the runs of
+    ``multiprocess_runs`` (``mp``, its future), waited for and checked."""
+    t_phase = time.perf_counter()
+    mp = mp.result()
+    done, results, (drill, drill_lines), nccl = (mp["done"], mp["results"],
+                                                 mp["drill"], mp["nccl"])
+    print(f"single-device references at {MP_SIZE}x{MP_SIZE}: {mp['refs_s']:.1f} s; "
+          f"the rank runs, the drill and the probe beside phase 4i: "
+          f"{mp['runs_s']:.1f} s, {time.perf_counter() - t_phase:.1f} s of them "
+          "waited for here", flush=True)
+    print("The ranks time-slice the one card, and MP_PARALLEL lane runs and "
+          "phase 4i share it: these numbers measure the multi-process host tier "
+          "and its transport, not scale-out over cards.", flush=True)
+    by_path, lanes = {}, {}
+    for lane, (ranks, slots, flags, runs, needed) in MP_LANES.items():
+        summed: dict = {}
+        per_rank = [dict() for _ in range(ranks)]
+        lanes[lane] = {}
+        for tag, key, limit in runs:
+            res, out, wall = done[(lane, tag, key, limit)]
+            want = results[(key, limit)]
+            for r, x in enumerate(res):
+                if x["rc"] != 0 or x["stats"] is None:
+                    fail(f"4k {lane} ({tag}) {key}: rank {r} exited {x['rc']}:\n"
+                         f"{x['stderr'][-3000:]}")
+                gens = int(re.search(r"Generations:\t(\d+)", x["stdout"]).group(1))
+                if gens != want[0]:
+                    fail(f"4k {lane} ({tag}) {key}: rank {r} printed Generations "
+                         f"{gens}, the single-device run: {want[0]}")
+                _check_codec(x["stats"]["launches"],
+                             0 if "--packed-io" in flags or "pallas" in flags else slots,
+                             f"4k {lane} ({tag}) {key} rank {r}")
+                for k, n in x["stats"]["launches"].items():
+                    summed[k] = summed.get(k, 0) + n
+                    per_rank[r][k] = per_rank[r].get(k, 0) + n
+            if (gens, _digest(out)) != want:
+                fail(f"4k {lane} ({tag}) {key}: bytes differ from the "
+                     "single-device --kernel auto run")
+            print(f"({tag}) {key:15s} limit {limit}: {lane}: Generations {gens}, "
+                  f"bytes == single device, {wall:.1f} s from launch to the last "
+                  "exit", flush=True)
+            lanes[lane][f"({tag}) {key}"] = {**_lane_report(tag, key, res, slots),
+                                            "wall_s": wall}
+        for r, counts in enumerate(per_rank):
+            for k in needed:
+                if not counts.get(k):
+                    fail(f"4k {lane}: rank {r} launched no {k} in the lane's runs")
+        by_path[f"multi-process {lane}"] = {k: summed.get(k, 0) for k in _counts()}
+        print(f"multi-process {lane}: launches over its ranks {_nonzero(summed)}",
+              flush=True)
+
+    for line in drill_lines:
+        print(line, flush=True)
+    print(f"NCCL probe, 2 ranks on the one card: {nccl}", flush=True)
     seconds = time.perf_counter() - t_phase
     print(f"phase 4k took {seconds:.1f} s", flush=True)
     return {"launches": by_path, "lanes": lanes, "drill": drill, "nccl": nccl,
@@ -4618,11 +4970,11 @@ def zarr_lanes(work: Path, path: dict, dev) -> dict:
 # 5. Timing at 16384^2
 
 
-def _time(fn, srcs, dsts, rounds: int) -> float:
+def _time(fn, srcs, dsts, rounds: int, warm: int = 6) -> float:
     """ms per call of ``fn(i, src, dst)``, issued one by one, over
     ``rounds`` rounds of a ring of shards (``profiler.run_ring``; one shard
-    is a ping-pong)."""
-    profiler.run_ring(fn, srcs, dsts, 6)
+    is a ping-pong), after ``warm`` rounds."""
+    profiler.run_ring(fn, srcs, dsts, warm)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -4777,9 +5129,11 @@ def _fresh_flags_ms(launch, x: torch.Tensor, rounds: int, gens: int = 0) -> floa
 
 
 def _timed_batch(ops_per_s: float) -> dict:
-    """B1 and B2 at phase 4e's shapes, one launch of a block's first
-    generation (every board runs): 64 boards of 256 x 8 words, and 64
-    boards of 250^2 in a 256^2 canvas. ``ms`` is graph replay with a fresh
+    """B1 and B2 at phase 4e's shapes, 64 boards of 256 x 8 words and 64
+    boards of 250^2 in a 256^2 canvas: their block forms over one block of
+    BATCH_BLOCK_T generations (``_timed_block``), and their streaming
+    forms, one launch of a block's first generation (every board runs),
+    as below. ``ms`` is graph replay with a fresh
     flag row per launch, as in the engine's block; ``ms_flags_set`` the
     replay of ``_timed``, whose launches find their flags set after the
     first. The bytes are the boards, the step counts and extents read once
@@ -4806,7 +5160,25 @@ def _timed_batch(ops_per_s: float) -> dict:
             lambda a: sb._batch_masked_plain(a, steps, ext, ext, 0),
             cells.numel() * OPS_PER_CELL),
     }
-    out = {"batch_packed_block": _timed_block(words, ops_per_s)}
+    t = BATCH_BLOCK_T
+    full = torch.full((b,), t, dtype=torch.int32, device=dev)
+    out = {
+        # B1: the network's 12 ops per word and generation.
+        "batch_packed_block": _timed_block(
+            "batch_packed_block", words,
+            lambda a, o, f: sb.batch_packed_block_into(a, o, f, full, t),
+            lambda a: sb._batch_packed_block_plain(a, full, t),
+            words.numel() * OPS_PER_WORD_GEN * t, b * 4, ops_per_s),
+        # B2: the same 12 over each board's 250 rows of 8 words of bits.
+        "batch_masked_block": _timed_block(
+            "batch_masked_block", cells,
+            lambda a, o, f: sb.batch_masked_block_into(a, o, f, full, ext, ext, t),
+            lambda a: sb._batch_masked_block_plain(a, full, ext, ext, t),
+            b * 250 * -(-250 // 32) * OPS_PER_WORD_GEN * t, 3 * b * 4, ops_per_s),
+    }
+    print(f"batch_masked_block holds two bit copies of a 256^2 slot in "
+          f"{2 * 256 * 8 * 4} bytes of one CTA's shared memory, one CTA a board: "
+          f"{b} of the card's SMs busy", flush=True)
     for key, (x, vectors, launch, plain, ops) in cases.items():
         y = torch.empty_like(x)
         flags = torch.zeros((b, sb.STEP_FLAGS), dtype=torch.int32, device=dev)
@@ -4838,41 +5210,42 @@ def _timed_batch(ops_per_s: float) -> dict:
     return out
 
 
-def _timed_block(words: torch.Tensor, ops_per_s: float) -> dict:
-    """B1's block form at phase 4e's shape (64 boards of 256 x 8 words),
-    one launch of a block of BATCH_BLOCK_T generations in which every board
+def _timed_block(key: str, x: torch.Tensor, launch, plain, ops: int,
+                 vector_bytes: int, ops_per_s: float) -> dict:
+    """A block form at phase 4e's shape, one launch ``launch(src, dst,
+    flags)`` of a block of BATCH_BLOCK_T generations in which every board
     runs: graph replay of 100 ping-pong launches, each storing into its own
     zeroed (t, B, 2) flag rows; eager launches and the wrapper's host time
-    beside it. The bytes are the boards, the step counts and the flags
-    moved once; the operations the network's 12 per word and generation."""
-    t, b = BATCH_BLOCK_T, words.shape[0]
-    steps = torch.full((b,), t, dtype=torch.int32, device=words.device)
-    flags = torch.zeros((t, b, sb.STEP_FLAGS), dtype=torch.int32, device=words.device)
-    launch = lambda a, o, f: sb.batch_packed_block_into(a, o, f, steps, t)  # noqa: E731
-    y = torch.empty_like(words)
+    beside it, and the plain version ``plain(src)``. The bytes are the
+    boards, the flags and the (B,) vectors (``vector_bytes``) moved once;
+    ``ops`` the block's operations."""
+    t, b = BATCH_BLOCK_T, x.shape[0]
+    flags = torch.zeros((t, b, sb.STEP_FLAGS), dtype=torch.int32, device=x.device)
+    y = torch.empty_like(x)
     ring = lambda i, a, o: launch(a, o, flags)  # noqa: E731
-    eager_ms = _time(ring, [words], [y], 100)
-    _, wrapper_ms = profiler.ring_graph_ms(ring, [words], [y], 100)
-    ms = _fresh_flags_ms(launch, words, 100, gens=t)
-    plain_ms = _time(lambda i, a, o: sb._batch_packed_block_plain(a, steps, t),
-                     [words], [y], 2)
-    nbytes = 2 * words.numel() * 4 + flags.numel() * 4 + b * 4
-    ops = words.numel() * OPS_PER_WORD_GEN * t
+    eager_ms = _time(ring, [x], [y], 100)
+    _, wrapper_ms = profiler.ring_graph_ms(ring, [x], [y], 100)
+    ms = _fresh_flags_ms(launch, x, 100, gens=t)
+    plain_ms = _time(lambda i, a, o: plain(a), [x], [y], 1, warm=1)  # ~0.7 s a call
+    board_bytes = x.numel() * x.element_size()
+    nbytes = 2 * board_bytes + flags.numel() * 4 + vector_bytes
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / ops_per_s * 1e3
-    print(f"batch_packed_block at {tuple(words.shape)}, t = {t}: {ms:.6f} ms a "
-          f"block ({ms / t:.6f} ms a generation) in a CUDA graph, fresh flag rows "
-          f"per launch (eager {eager_ms:.6f} ms, wrapper {wrapper_ms:.6f} ms on "
-          f"the host, plain {plain_ms:.6f} ms); bytes {nbytes} -> {bytes_ms:.6f} "
-          f"ms, logic ops {ops} -> {ops_ms:.6f} ms; bound share "
-          f"{max(bytes_ms, ops_ms) / ms:.3f}", flush=True)
-    return {"shape": list(words.shape), "generations": t, "ms": ms,
+    print(f"{key} at {tuple(x.shape)}, t = {t}: {ms:.6f} ms a block "
+          f"({ms / t:.6f} ms a generation) in a CUDA graph, fresh flag rows per "
+          f"launch (eager {eager_ms:.6f} ms, wrapper {wrapper_ms:.6f} ms on the "
+          f"host, plain {plain_ms:.6f} ms); bytes {nbytes} -> {bytes_ms:.6f} ms, "
+          f"ops {ops} -> {ops_ms:.6f} ms; bound share "
+          f"{max(bytes_ms, ops_ms) / ms:.3f}; working set {2 * board_bytes} "
+          f"bytes, fits in the {L2_BYTES}-byte L2", flush=True)
+    return {"shape": list(x.shape), "generations": t, "ms": ms,
             "ms_per_generation": ms / t, "eager_ms": eager_ms,
             "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes, "bytes_ms": bytes_ms, "logic_ops": ops,
-            "ops_ms": ops_ms, "logic_ops_per_s": ops_per_s}
+            "ops_ms": ops_ms, "logic_ops_per_s": ops_per_s,
+            "working_set_bytes": 2 * board_bytes}
 
 
 def _graph_rows_ms(launch, rows: torch.Tensor) -> float:
@@ -5035,6 +5408,7 @@ def main(argv=None) -> int:
         print(_smi())
         print(json.dumps(doc))
         return 0
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     dev = torch.device("cuda", 0)
     # The CLI runs below, in this process and in the subprocesses, pick
     # their device from the environment: make it the card.
@@ -5055,14 +5429,14 @@ def main(argv=None) -> int:
         check_batch_kernels(dev, stats)
         check_tile_kernel(dev, stats)
         check_codec_kernels(dev, stats)
-        phase("3. small flows through the CLI")
-        small_flows(work)
+        phase("3. small flows through the CLI, with 3b's mesh flows, 3c's "
+              "kills and 4d's --compile-cache pair beside them")
+        killed, compile_cache, boots = small_flow_phases(work)
         # From here on a mesh may put four shards on the one card.
         os.environ[platform_env.MESH_DEVICES_ENV] = MESH_DEVICES
-        phase("3b. small flows over a mesh of four shards")
-        one_word = mesh_flows(work)
-        phase("3c. the checkpoint lane at 64x64")
-        checkpoint_flows(work)
+        phase("3c. the checkpoint lane at 64x64 and 3b's one-word shards")
+        checkpoint_flows(work, killed)
+        one_word = one_word_shards(work)
         phase(f"4. main path at {SIZE}x{SIZE} through the CLI")
         path = main_path(work, dev)
         phase(f"4b. mesh path at {SIZE}x{SIZE} through the CLI")
@@ -5070,21 +5444,30 @@ def main(argv=None) -> int:
         phase(f"4c. the checkpoint lane at {SIZE}x{SIZE}")
         ckpt = checkpoint_path(work, path)
         phase(f"4d. observability on the card at {SIZE}x{SIZE}")
-        obs = observability(work, path, mesh)
+        obs = {**observability(work, path, mesh), "compile_cache": compile_cache}
         phase("4e. the batch lane")
         batch = batch_lane(work, dev)
         phase("4f. the server lane")
-        server = server_lane(work, dev)
-        phase("4g. the resident ring")
-        ring = ring_lane(work, dev)
+        # The two drills (serve subprocesses SIGKILLed and restarted) run
+        # beside 4f's and 4g's lanes in this process: they are process
+        # start-ups and host work far more than work on the card.
+        with concurrent.futures.ThreadPoolExecutor(2) as drills:
+            serve_drill = drills.submit(restart_drill, work)
+            ring_drill = drills.submit(_ring_drill, work)
+            server = server_lane(work, dev, serve_drill)
+            phase("4g. the resident ring")
+            ring = ring_lane(work, dev, ring_drill)
         phase(f"4h. the tuner at {SIZE}x{SIZE}")
         tuner = tuner_lane(work, path)
-        phase("4i. the sparse and macro lanes")
+        phase("4i. the sparse and macro lanes, with 4k's rank runs beside them")
+        mp = multiprocess_runs(work)
         lanes = sparse_macro_lanes(work, dev)
+        with _took("waiting on 4k's rank runs"):
+            concurrent.futures.wait([mp])
         phase("4j. the fleet, its router and chaos, and the shard lane")
-        fleet = fleet_lanes(work)
-        phase(f"4k. multi-process runs at {SIZE}x{SIZE} on the one card")
-        multi = multiprocess_lanes(work, path)
+        fleet = fleet_lanes(work, boots)
+        phase(f"4k. multi-process runs at {MP_SIZE}x{MP_SIZE} on the one card")
+        multi = multiprocess_lanes(mp)
         phase(f"4l. the zarr word store at {SIZE}x{SIZE} and {BIG}x{BIG}")
         zarr = zarr_lanes(work, path, dev)
         phase("5. timing")
@@ -5147,6 +5530,8 @@ def main(argv=None) -> int:
         })
     print(f"chip_smoke: every phase passed in {time.perf_counter() - _T0:.1f} s",
           flush=True)
+    print(f"chip_smoke: phase seconds {json.dumps(phase_seconds())}", flush=True)
+    faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -939,8 +939,8 @@ def _batch_block_step(mode: str, heights: torch.Tensor, widths: torch.Tensor):
     lo=0)`` runs board b for ``min(steps[b], t)`` generations from ``src``
     into ``out``, generation i's flags in ``flags[i]`` ((t, B', 2), zeroed
     by the caller); ``scratch`` is a third stack, and ``src`` is never
-    written. Packed: one B1 call for the block. Masked and byte: B2 once
-    per generation, ping-ponging ``scratch`` and ``out``."""
+    written. Packed: one B1 call for the block; masked and byte: one B2
+    call, each board's extents sliced from ``heights``/``widths``."""
     if mode == "packed":
         return lambda src, out, flags, steps, t, scratch, lo=0: (
             stencil_batch.batch_packed_block_into(src, out, flags, steps, t,
@@ -948,10 +948,8 @@ def _batch_block_step(mode: str, heights: torch.Tensor, widths: torch.Tensor):
 
     def masked(src, out, flags, steps, t, scratch, lo=0):
         hs, ws = heights[lo:lo + src.shape[0]], widths[lo:lo + src.shape[0]]
-        stencil_batch.streamed_block(
-            src, out, flags, steps, t, scratch,
-            lambda cur, dst, f, st, i: stencil_batch.batch_masked_step_into(
-                cur, dst, f, st, hs, ws, i))
+        stencil_batch.batch_masked_block_into(src, out, flags, steps, hs, ws, t,
+                                              scratch)
     return masked
 
 

@@ -19,24 +19,34 @@ so each board's flags come out of the step's own pass, from the kernels in
   ``batch_packed_step_into`` per generation, for larger ones;
 - ``batch_packed_step_into`` (B1's streaming form): one generation of the
   same;
-- ``batch_masked_step_into`` (B2): one generation of B uint8 boards in one
-  (B, height, width) canvas, board b wrapping at its own extent
-  ``(heights[b], widths[b])``, every cell at or past it written 0 (the
-  semantics of ``_evolve_batch_masked``). The exact-fit byte mode runs
-  through it with the canvas's extent.
+- ``batch_masked_block_into`` (B2): the same block of generations over B
+  uint8 boards in one (B, height, width) canvas, board b wrapping at its
+  own extent ``(heights[b], widths[b])``, every cell at or past it written
+  0 (the semantics of ``_evolve_batch_masked``); the exact-fit byte mode
+  runs through it with the canvas's extent. Its block form holds each
+  slot as bits in one CTA's shared memory (``LAUNCHES
+  ["batch_masked_block"]``), which is exact for the lane's cells, 0 or 1
+  as every decoder feeding it gives them; a canvas whose two bit copies
+  (height x ceil(width / 32) words each) pass ``block_max_words`` takes
+  the streaming form, one launch of ``batch_masked_step_into`` per
+  generation;
+- ``batch_masked_step_into`` (B2's streaming form, B2-stream): one
+  generation of the same, on the bytes.
 
 The one-generation kernels OR board b's ``(alive, differs)`` into
 ``flags[b]`` of a caller-zeroed (B, 2) int32 buffer ("similar" stored
 negated, as in ``stencil_packed``), and take ``steps`` (B,) int32 and the
 launch's generation ``gen`` in its block: a board whose steps are spent
-(``gen >= steps[b]``) is copied through and writes no flag.
+(``gen >= steps[b]``) is copied through and writes no flag. B2's pair
+covers the board's whole slot, padding included.
 
 On a CUDA tensor each wrapper launches its kernel, or raises; on a CPU
 tensor it runs its plain torch version (``_batch_packed_block_plain`` and
 ``_batch_packed_plain``, loops of ``packed_math.evolve_torus_words`` over
-the boards, and ``_batch_masked_plain``, the gather form of the masked
-rule); any other device raises. ``LAUNCHES`` counts the kernel launches,
-one per launch on the card and nothing for the CPU path.
+the boards; ``_batch_masked_plain``, the gather form of the masked rule,
+and ``_batch_masked_block_plain``, it once per generation); any other
+device raises. ``LAUNCHES`` counts the kernel launches, one per launch on
+the card and nothing for the CPU path.
 """
 
 from __future__ import annotations
@@ -50,7 +60,8 @@ from gol_tpu_torch.ops import _build, packed_math
 
 STEP_FLAGS = 2  # (alive, differs) per board
 MAX_BATCH = 65535  # the kernels' board axis is a grid dimension
-LAUNCHES = {"batch_packed_block": 0, "batch_packed": 0, "batch_masked": 0}
+LAUNCHES = {"batch_packed_block": 0, "batch_packed": 0,
+            "batch_masked_block": 0, "batch_masked": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -87,6 +98,27 @@ def _batch_packed_block_plain(words: torch.Tensor, steps: torch.Tensor, t: int):
             cur = new
         final[b] = cur
     return final, flags
+
+
+def _batch_masked_block_plain(cells: torch.Tensor, steps: torch.Tensor,
+                              heights: torch.Tensor, widths: torch.Tensor, t: int):
+    """B2's block form's plain version: ``(final, flags)`` with flags (t,
+    B, 2), row i of board b set for i < min(steps[b], t) and 0 past it;
+    ``_batch_masked_plain`` once per generation."""
+    final = torch.empty_like(cells)
+    flags = torch.zeros((t, cells.shape[0], STEP_FLAGS), dtype=torch.int32,
+                        device=cells.device)
+    scratch = torch.empty_like(cells)
+    streamed_block(cells, final, flags, steps, t, scratch,
+                   lambda cur, dst, f, st, i: _masked_plain_into(
+                       cur, dst, f, st, heights, widths, i))
+    return final, flags
+
+
+def _masked_plain_into(cells, out, flags, steps, heights, widths, gen: int) -> None:
+    new, step_flags = _batch_masked_plain(cells, steps, heights, widths, gen)
+    out.copy_(new)
+    flags |= step_flags
 
 
 def _evolve_masked_board(g: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -139,6 +171,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gol_batch_block_max_words.restype = i32
     lib.gol_batch_masked_step.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.gol_batch_masked_step.restype = i32
+    lib.gol_batch_masked_block.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+    lib.gol_batch_masked_block.restype = i32
     lib.gol_error_string.argtypes = [i32]
     lib.gol_error_string.restype = ctypes.c_char_p
     return lib
@@ -151,8 +185,9 @@ def load_kernels() -> None:
 
 @functools.lru_cache(maxsize=None)
 def block_max_words(device_index: int) -> int:
-    """The most words a board may have for B1's block form on card
-    ``device_index``: two copies in one CTA's opt-in shared memory."""
+    """The most words a board may have for the block forms on card
+    ``device_index``: two copies in one CTA's opt-in shared memory (for
+    B2, the slot's bits: height x ceil(width / 32) words)."""
     most = _lib().gol_batch_block_max_words(device_index)
     if most < 0:
         msg = _lib().gol_error_string(-most).decode()
@@ -219,6 +254,15 @@ def streamed_block(src, out, flags, steps, t: int, scratch, step) -> None:
         cur = dst
 
 
+def _scratch(src, out, scratch):
+    """The streaming forms' third stack: ``scratch``, or a new one."""
+    scratch = torch.empty_like(src) if scratch is None else scratch
+    if scratch.data_ptr() in (src.data_ptr(), out.data_ptr()) or \
+            scratch.shape != src.shape or scratch.dtype != src.dtype:
+        raise ValueError("scratch must be a third stack of the boards' shape")
+    return scratch
+
+
 def batch_packed_block_into(words, out, flags, steps, t: int,
                             scratch=None) -> None:
     """B1: board b of ``words`` (B, H, NW) for ``min(steps[b], t)``
@@ -234,11 +278,7 @@ def batch_packed_block_into(words, out, flags, steps, t: int,
     batch, height, nwords = words.shape
     if words.device.type == "cuda" and \
             height * nwords > block_max_words(words.device.index):
-        scratch = torch.empty_like(words) if scratch is None else scratch
-        if scratch.data_ptr() in (words.data_ptr(), out.data_ptr()) or \
-                scratch.shape != words.shape or scratch.dtype != words.dtype:
-            raise ValueError("scratch must be a third stack of the boards' shape")
-        streamed_block(words, out, flags, steps, t, scratch,
+        streamed_block(words, out, flags, steps, t, _scratch(words, out, scratch),
                        batch_packed_step_into)
         return
     if _launched(words, "batch_packed_block", lambda stream: _lib().gol_batch_packed_block(
@@ -280,6 +320,36 @@ def batch_masked_step_into(cells, out, flags, steps, heights, widths,
             heights.data_ptr(), widths.data_ptr(), gen, batch, height, width,
             cells.device.index, stream)):
         return
-    new, step_flags = _batch_masked_plain(cells, steps, heights, widths, gen)
-    out.copy_(new)
-    flags |= step_flags
+    _masked_plain_into(cells, out, flags, steps, heights, widths, gen)
+
+
+def batch_masked_block_into(cells, out, flags, steps, heights, widths, t: int,
+                            scratch=None) -> None:
+    """B2: board b of ``cells`` (B, PH, PW) for ``min(steps[b], t)``
+    generations, wrapping at its own ``(heights[b], widths[b])`` with the
+    rest of its slot 0, into ``out`` (a board with steps 0 copied byte for
+    byte); generation i's ``(alive, differs)`` of board b, over its whole
+    slot, stored to ``flags[i, b]`` of a caller-zeroed (t, B, 2) buffer.
+    One launch of the block form where the slot's two bit copies fit in a
+    CTA's shared memory, else ``t`` launches of the streaming form
+    (``batch_masked_step_into``) through ``scratch`` (a third stack,
+    allocated when None) and ``out``; ``cells`` is never written."""
+    if t < 1:
+        raise ValueError(f"a block runs t >= 1 generations, got {t}")
+    _check(cells, out, flags, steps, torch.uint8,
+           (("heights", heights), ("widths", widths)), flag_rows=t)
+    batch, height, width = cells.shape
+    if cells.device.type == "cuda" and \
+            height * -(-width // 32) > block_max_words(cells.device.index):
+        streamed_block(cells, out, flags, steps, t, _scratch(cells, out, scratch),
+                       lambda cur, dst, f, st, i: batch_masked_step_into(
+                           cur, dst, f, st, heights, widths, i))
+        return
+    if _launched(cells, "batch_masked_block", lambda stream: _lib().gol_batch_masked_block(
+            cells.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),
+            heights.data_ptr(), widths.data_ptr(), t, batch, height, width,
+            cells.device.index, stream)):
+        return
+    final, block_flags = _batch_masked_block_plain(cells, steps, heights, widths, t)
+    out.copy_(final)
+    flags |= block_flags

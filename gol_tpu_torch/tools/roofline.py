@@ -18,8 +18,8 @@ torus, words made directly as random uint32 from
 Each is timed two ways, three repetitions each: (a) 100 launches in one
 CUDA graph between two CUDA events (``obs.profiler.graph_ms``) and (b) the
 device time of the same kernel in a ``torch.profiler`` capture of 100
-launches (``obs.profiler.kernel_device_ms``, which raises if the capture
-holds no kernel event). The report gives per size and kernel the ms per
+launches (``obs.profiler.kernel_device_ms``, which captures again where
+CUPTI dropped kernel events and raises if no capture holds one). The report gives per size and kernel the ms per
 pass (median of three) by both timings, cell-updates/s, the bytes and
 operations bounds and the share of the bound reached; per size the JAX
 package's ``flag_overhead_fraction`` = median(K14 rate) / median(K2 rate)

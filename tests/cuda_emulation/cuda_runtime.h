@@ -11,8 +11,14 @@
 // order, so the lanes of a warp reach each step of a warp intrinsic in
 // the same round (every lane has written its value before any reads one),
 // and the run is deterministic. A lane at __syncthreads() is not resumed
-// until every lane of the block that has not returned waits there; then
-// all of them go on in the same round.
+// until every lane of the block waits there; then all of them go on in the
+// same round.
+//
+// Where the card would hang or read garbage, the emulation aborts with a
+// message on stderr: a barrier that some lanes of the block wait at while
+// another lane has returned (a divergent barrier), and a full-mask warp
+// intrinsic that a lane of the warp misses, having returned or waiting at
+// a barrier.
 //
 // Shared memory: `__shared__` declarations become function statics (one
 // block runs at a time, so the block's lanes share them), and the launch's
@@ -28,6 +34,7 @@
 #include <algorithm>
 #include <cstddef>
 #include <cstdint>
+#include <cstdio>
 #include <cstdlib>
 #include <map>
 #include <memory>
@@ -153,6 +160,13 @@ inline std::vector<uint4> emu_shared;
 
 inline void* emu_dynamic_shared() { return emu_shared.data(); }
 
+[[noreturn]] inline void emu_fault(const char* what) {
+  std::fprintf(stderr, "cuda emulation: block %u, lane %d: %s\n", blockIdx.x,
+               emu_lane, what);
+  std::fflush(stderr);
+  std::abort();
+}
+
 inline void emu_yield() { emu_switch(&emu_lane_sp[emu_lane], emu_sched_sp); }
 
 [[noreturn]] inline void emu_lane_entry() {
@@ -205,7 +219,15 @@ inline void emu_block(unsigned b, int lanes, void (*body)(void*), void* arg) {
     }
     if (ran) continue;
     if (!waiting) return;  // every lane has returned
-    // Every lane still running waits at the barrier: release them all.
+    // Every lane still running waits at the barrier: release them all, if
+    // none has returned.
+    for (int l = 0; l < lanes; ++l) {
+      if (emu_lane_done[l]) {
+        emu_lane = l;
+        emu_fault("returned while other lanes of its block wait at "
+                  "__syncthreads() (a divergent barrier)");
+      }
+    }
     for (int l = 0; l < lanes; ++l) emu_lane_waits[l] = false;
   }
 }
@@ -214,10 +236,27 @@ inline void emu_block(unsigned b, int lanes, void (*body)(void*), void* arg) {
 // w uses slot 32w + l.
 inline uint32_t emu_slot[kEmuMaxLanes];
 
+// After a warp intrinsic's first step, every lane of the warp has had its
+// turn in the round: each must have reached the intrinsic.
+inline void emu_whole_warp() {
+  const int first = emu_lane - emu_lane % 32;
+  for (int l = first; l < first + 32; ++l) {
+    if (emu_lane_done[l] || emu_lane_waits[l]) {
+      emu_lane = l;
+      emu_fault(emu_lane_done[l]
+                    ? "returned before a full-mask warp intrinsic that the "
+                      "rest of its warp runs"
+                    : "waits at __syncthreads() while the rest of its warp "
+                      "runs a full-mask warp intrinsic");
+    }
+  }
+}
+
 inline uint32_t emu_exchange(uint32_t v, int src_lane) {
   const int me = emu_lane;
   emu_slot[me] = v;
   emu_yield();  // every lane of the warp writes before any reads
+  emu_whole_warp();
   const uint32_t r = emu_slot[me - me % 32 + src_lane];
   emu_yield();  // every lane reads before any writes again
   return r;
@@ -234,6 +273,7 @@ inline unsigned __reduce_or_sync(unsigned, unsigned v) {
   const int me = emu_lane;
   emu_slot[me] = v;
   emu_yield();
+  emu_whole_warp();
   unsigned r = 0;
   for (int l = me - me % 32; l < me - me % 32 + 32; ++l) r |= emu_slot[l];
   emu_yield();

@@ -149,6 +149,43 @@ def test_late_exits_after_quiet_blocks_match_jax(convention, freq, shape):
     assert {r.exit_reason for r in port_res} != {"gen_limit"}
 
 
+def _block_cases():
+    """The masked and byte buckets through B2's block call: (boards,
+    limits, padded_shape, mode). Masked: a 32x32 canvas of mixed extents,
+    1x1, one row and one column among them, a diagonal that empties at
+    generation 2 (inside the first block) and a still block; byte: the
+    exact-fit 33x20 canvas. No limit is a multiple of the 16-generation
+    block, so boards stop inside blocks."""
+    still = np.zeros((12, 13), np.uint8)
+    still[3:5, 3:5] = 1
+    masked = [text_grid.generate(30, 30, seed=81), np.ones((1, 1), np.uint8),
+              text_grid.generate(20, 1, seed=82), text_grid.generate(1, 20, seed=83),
+              _diagonal(24, 27), still]
+    byte = [text_grid.generate(20, 33, seed=s) for s in (84, 85)] + [_diagonal(33, 20)]
+    return {"masked": (masked, [37, 5, 17, 40, 23, 19], (32, 32), "masked"),
+            "byte": (byte, [7, 19, 33], (33, 20), "byte")}
+
+
+@pytest.mark.parametrize("convention", CONVENTIONS)
+@pytest.mark.parametrize("case", ["masked", "byte"])
+def test_masked_and_byte_blocks_match_jax(convention, case, monkeypatch):
+    """B2's block call (its plain version on the CPU) under the batched
+    loop: grids, Generations and exit reasons equal JAX's, the diagonal's
+    empty exit (replayed alone under the CUDA convention) included."""
+    boards, limits, padded, mode = _block_cases()[case]
+    assert engine.resolve_batch_mode([b.shape[0] for b in boards],
+                                     [b.shape[1] for b in boards], padded) == mode
+    calls = []
+    plain = sb._batch_masked_block_plain
+    monkeypatch.setattr(sb, "_batch_masked_block_plain",
+                        lambda *a: calls.append(a[-1]) or plain(*a))
+    engine.make_batch_runner.cache_clear()
+    jax_res, port_res = _both(boards, limits, convention, padded_shape=padded)
+    _assert_same(jax_res, port_res)
+    assert calls and max(calls) == 16  # whole blocks, one call each
+    assert port_res[-1 if case == "byte" else 4].exit_reason == "empty"
+
+
 @pytest.mark.parametrize("convention", CONVENTIONS)
 def test_per_board_limits_share_one_runner(convention):
     boards = [text_grid.generate(32, 32, seed=s) for s in (21, 22, 23)]
@@ -412,6 +449,50 @@ def test_b1_block_plain_matches_jax_vmapped_steps(t):
     assert sb.LAUNCHES["batch_packed_block"] == 0  # no kernel on the CPU
 
 
+@pytest.mark.parametrize("t", [1, 2, 16, 18])
+@pytest.mark.parametrize("mode", ["byte", "masked"])
+def test_b2_block_plain_matches_jax_steps(mode, t):
+    """B2's block form's plain version against JAX's per-mode step
+    (``_batch_evolve``) applied generation by generation, each board for
+    its own steps (full, one, none, past the block), with per-generation
+    flags over the whole slot: a masked canvas's 0/1 padding noise differs
+    from the 0 written there in a board's first generation only, and a
+    board with no steps keeps it."""
+    ph, pw = 24, 40
+    extents = [(24, 40)] * 4 if mode == "byte" else [(24, 40), (17, 33), (1, 1), (1, 9)]
+    rng = np.random.default_rng(90 + t)
+    canvas = np.zeros((4, ph, pw), np.uint8)
+    if mode == "masked":
+        canvas[:] = rng.integers(0, 2, canvas.shape, dtype=np.uint8)
+    for b, (h, w) in enumerate(extents):
+        canvas[b, :h, :w] = text_grid.generate(w, h, seed=95 + b)
+    heights = [h for h, _ in extents]
+    widths = [w for _, w in extents]
+    steps = [t, 1, 0, t + 2]
+    evolve = jax_engine._batch_evolve(mode, np.asarray(heights, np.int32),
+                                      np.asarray(widths, np.int32))
+    cur = canvas
+    want_flags = np.zeros((t, 4, 2), np.int32)
+    for i in range(t):
+        new = np.asarray(evolve(cur))
+        running = np.array([i < min(n, t) for n in steps])
+        want_flags[i, :, 0] = running & new.reshape(4, -1).any(axis=1)
+        want_flags[i, :, 1] = running & (new != cur).reshape(4, -1).any(axis=1)
+        cur = np.where(running[:, None, None], new, cur)
+    args = (torch.from_numpy(canvas), torch.tensor(steps, dtype=torch.int32),
+            torch.tensor(heights, dtype=torch.int32),
+            torch.tensor(widths, dtype=torch.int32))
+    got, flags = sb._batch_masked_block_plain(*args, t)
+    np.testing.assert_array_equal(got.numpy(), cur)
+    np.testing.assert_array_equal(flags.numpy(), want_flags)
+    out = torch.empty_like(got)
+    block_flags = torch.zeros((t, 4, 2), dtype=torch.int32)
+    before = dict(sb.LAUNCHES)
+    sb.batch_masked_block_into(args[0], out, block_flags, *args[1:], t)
+    assert torch.equal(out, got) and torch.equal(block_flags, flags)
+    assert sb.LAUNCHES == before  # no kernel on the CPU
+
+
 def test_spent_steps_copy_through_without_flags():
     words = pm.words_from_numpy(bitpack.pack_words(
         np.stack([text_grid.generate(32, 8, seed=s) for s in (1, 2)])), "cpu")
@@ -444,3 +525,23 @@ def test_wrappers_refuse_bad_operands(bad):
         args[0] = cells.to("meta")
     with pytest.raises(ValueError):
         sb.batch_masked_step_into(*args, 0)
+
+
+@pytest.mark.parametrize("bad", ["t0", "flags", "extents", "alias"])
+def test_masked_block_call_refuses_bad_operands(bad):
+    cells = torch.zeros((2, 8, 8), dtype=torch.uint8)
+    out = torch.empty_like(cells)
+    flags = torch.zeros((3, 2, 2), dtype=torch.int32)
+    steps = torch.ones(2, dtype=torch.int32)
+    ext = torch.full((2,), 8, dtype=torch.int32)
+    args, t = [cells, out, flags, steps, ext, ext], 3
+    if bad == "t0":
+        t = 0
+    elif bad == "flags":
+        args[2] = torch.zeros((2, 2), dtype=torch.int32)  # a one-generation buffer
+    elif bad == "extents":
+        args[5] = torch.full((3,), 8, dtype=torch.int32)
+    else:
+        args[1] = cells
+    with pytest.raises(ValueError):
+        sb.batch_masked_block_into(*args, t)

@@ -12,8 +12,15 @@ canvas, spent step counts (a board copied through), one-word-wide and
 one-row boards, and boards that die or stand still. B1's block form runs
 whole blocks of t in {1, 2, 16, 18} generations with mixed step counts
 (full, short, 0, past t), and its streaming form the same blocks one
-launch a generation (``stencil_batch.streamed_block``). The card runs the
-same source in ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+launch a generation (``stencil_batch.streamed_block``). B2's block form
+runs the same blocks at ``chip_smoke.py``'s phase-2 shapes (mixed extents
+down to 1x1, the exact-fit byte mode, 64 boards of 250^2 in 256^2), on
+slots that start off a 16-byte boundary and with non-zero padding, past 48
+KiB of shared memory, and is refused past the opt-in, where B2's streaming
+form runs the block. The emulation aborts on a divergent barrier or a
+warp intrinsic that a lane misses, and two deliberately broken kernels show
+that it does. The card runs the same source in ``tests/test_torch_cuda.py``
+and ``chip_smoke.py``.
 """
 
 import ctypes
@@ -64,6 +71,7 @@ def lib(tmp_path_factory):
     lib.gol_batch_packed_step.argtypes = [p] * 4 + [i] * 5 + [p]
     lib.gol_batch_masked_step.argtypes = [p] * 6 + [i] * 5 + [p]
     lib.gol_batch_packed_block.argtypes = [p] * 4 + [i] * 5 + [p]
+    lib.gol_batch_masked_block.argtypes = [p] * 6 + [i] * 5 + [p]
     lib.gol_batch_block_max_words.argtypes = [i]
     lib.emu_misaligned.argtypes, lib.emu_misaligned.restype = [], i
     lib.emu_shared_optin.argtypes = [i, i]
@@ -235,3 +243,199 @@ def test_block_form_refuses_a_board_past_the_opt_in(lib):
         words.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),
         1, 1, words.shape[1], 4, 1, None) != 0
     assert bool((out == -1).all())
+
+
+# B2's block form: chip_smoke.py's phase-2 shapes (BATCH_MASKED_SHAPES) and
+# the masked canvases above, whole blocks of BLOCK_TS generations.
+MASKED_BLOCK = [(32, 32, [(30, 30), (18, 24), (10, 13), (1, 1)]),
+                (33, 20, [(33, 20)] * 2),
+                (256, 256, [(250, 250)] * 64),
+                (19, 70, [(19, 70), (5, 64), (1, 3), (1, 70)]),
+                (130, 40, [(130, 40), (129, 33)])]
+# A canvas whose two bit copies take 400 x 16 x 8 = 51,200 bytes.
+BIG_CANVAS = (400, 500, [(400, 500), (399, 481)])
+
+
+def _canvas(height, width, extents, seed, padding=False):
+    """Boards of ``extents`` in a (B, height, width) canvas: soup, dying
+    and still boards in turn; with ``padding``, 0/1 noise past each extent
+    (the first generation's differs flag must see it)."""
+    rng = np.random.default_rng(seed)
+    canvas = np.zeros((len(extents), height, width), np.uint8)
+    if padding:
+        canvas[:] = rng.integers(0, 2, canvas.shape, dtype=np.uint8)
+    for b, (h, w) in enumerate(extents):
+        canvas[b, :h, :w] = _cells(h, w, rng, KINDS[b % 3])
+    return (torch.from_numpy(canvas),
+            torch.tensor([h for h, _ in extents], dtype=torch.int32),
+            torch.tensor([w for _, w in extents], dtype=torch.int32))
+
+
+def _masked_block_launch(lib, cells, heights, widths, steps, t, device=0):
+    batch, height, width = cells.shape
+    out = torch.full_like(cells, 7)
+    flags = torch.zeros((t, batch, 2), dtype=torch.int32)
+    rc = lib.gol_batch_masked_block(
+        cells.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),
+        heights.data_ptr(), widths.data_ptr(), t, batch, height, width, device,
+        None)
+    return rc, out, flags
+
+
+@pytest.mark.parametrize("t", BLOCK_TS)
+@pytest.mark.parametrize("height,width,extents", MASKED_BLOCK,
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else None)
+def test_masked_block_matches_plain(lib, height, width, extents, t):
+    cells, heights, widths = _canvas(height, width, extents, height * 13 + width + t)
+    steps = _block_steps(len(extents), t)
+    kept = cells.clone()
+    rc, out, flags = _masked_block_launch(lib, cells, heights, widths, steps, t)
+    assert rc == 0
+    want, want_flags = sb._batch_masked_block_plain(cells, steps, heights, widths, t)
+    assert torch.equal(out, want)
+    assert torch.equal(flags, want_flags)
+    assert torch.equal(cells, kept)
+    assert lib.emu_misaligned() == 0, "a 16-byte load off a 16-byte boundary"
+
+
+@pytest.mark.parametrize("t", [1, 3])
+def test_masked_block_off_16_byte_boundaries_with_padding(lib, t):
+    """Slots of 33 x 20 bytes start off 16-byte boundaries (the first board
+    of a view one slot in, the output a view of another offset, so a spent
+    board's copy cannot pair its loads and stores); 0/1 noise in the
+    padding counts as differing in the first generation only (the still
+    block at 30x17 differs there and nowhere else), and a spent board
+    keeps it."""
+    extents = [(33, 20), (30, 17), (1, 20), (33, 1)]
+    cells, heights, widths = _canvas(33, 20, [(33, 20)] + extents, 91, padding=True)
+    cells, heights, widths = cells[1:], heights[1:], widths[1:]
+    steps = torch.tensor([t, t, 0, 1], dtype=torch.int32)
+    backing = torch.full((5 * 33 * 20 + 3,), 7, dtype=torch.uint8)
+    out = backing[3:3 + 4 * 33 * 20].view(4, 33, 20)
+    flags = torch.zeros((t, 4, 2), dtype=torch.int32)
+    assert lib.gol_batch_masked_block(
+        cells.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),
+        heights.data_ptr(), widths.data_ptr(), t, 4, 33, 20, 0, None) == 0
+    want, want_flags = sb._batch_masked_block_plain(cells, steps, heights, widths, t)
+    assert torch.equal(out, want)
+    assert torch.equal(flags, want_flags)
+    assert flags[:, 1].tolist() == [[1, 1]] + [[1, 0]] * (t - 1)  # the block
+    assert torch.equal(out[2], cells[2])  # spent: copied, padding and all
+    assert lib.emu_misaligned() == 0
+
+
+def test_masked_block_past_48_kib_of_shared_memory(lib):
+    cells, heights, widths = _canvas(*BIG_CANVAS, seed=8)
+    steps = torch.tensor([2, 1], dtype=torch.int32)
+    rc, out, flags = _masked_block_launch(lib, cells, heights, widths, steps, 2)
+    assert rc == 0
+    want, want_flags = sb._batch_masked_block_plain(cells, steps, heights, widths, 2)
+    assert torch.equal(out, want) and torch.equal(flags, want_flags)
+
+
+def test_masked_block_refused_past_the_opt_in_runs_streamed(lib):
+    """A canvas whose two bit copies pass the opt-in is refused, not run;
+    B2's streaming form runs its block instead, one launch a generation,
+    as the wrapper does on the card."""
+    lib.emu_shared_optin(1, 4096)
+    most = lib.gol_batch_block_max_words(1)
+    height, width = 40, 400  # 40 rows x 13 words > most
+    assert height * -(-width // 32) > most
+    cells, heights, widths = _canvas(height, width, [(40, 400), (37, 390)], seed=9)
+    steps = torch.tensor([3, 1], dtype=torch.int32)
+    rc, out, _ = _masked_block_launch(lib, cells, heights, widths, steps, 3, device=1)
+    assert rc != 0
+    assert bool((out == 7).all())
+
+    def step(src, dst, f, st, gen):
+        assert lib.gol_batch_masked_step(
+            src.data_ptr(), dst.data_ptr(), f.data_ptr(), st.data_ptr(),
+            heights.data_ptr(), widths.data_ptr(), gen, 2, height, width, 1,
+            None) == 0
+
+    out, scratch = torch.full_like(cells, 7), torch.full_like(cells, 7)
+    flags = torch.zeros((3, 2, 2), dtype=torch.int32)
+    sb.streamed_block(cells, out, flags, steps, 3, scratch, step)
+    want, want_flags = sb._batch_masked_block_plain(cells, steps, heights, widths, 3)
+    assert torch.equal(out, want) and torch.equal(flags, want_flags)
+
+
+# Kernels the card would hang on or read garbage in, and one it runs: the
+# emulation must abort on each of the first three with its message.
+STRICT_KERNELS = r"""
+#include <cstdlib>
+#include <cuda_runtime.h>
+
+__global__ void divergent_barrier(int* out) {
+  if (threadIdx.x == 5) return;
+  __syncthreads();
+  out[threadIdx.x] = 1;
+}
+
+__global__ void returned_lane(int* out) {
+  if (threadIdx.x == 7) return;
+  out[threadIdx.x] = __reduce_or_sync(0xffffffffu, threadIdx.x);
+}
+
+__global__ void lane_at_barrier(int* out) {
+  if (threadIdx.x < 16) {
+    __syncthreads();
+  } else {
+    out[threadIdx.x] = __reduce_or_sync(0xffffffffu, 1u);
+    __syncthreads();
+  }
+}
+
+__global__ void whole_block(int* out) {
+  out[threadIdx.x] = __reduce_or_sync(0xffffffffu, threadIdx.x);
+  __syncthreads();
+  if (threadIdx.x >= 32) return;  // a whole warp, after the last barrier
+  out[threadIdx.x] += 1;
+}
+
+int main(int argc, char** argv) {
+  int out[64] = {};
+  switch (std::atoi(argv[1])) {
+    case 0: divergent_barrier<<<1, 32>>>(out); break;
+    case 1: returned_lane<<<1, 64>>>(out); break;
+    case 2: lane_at_barrier<<<1, 32>>>(out); break;
+    default: whole_block<<<1, 64>>>(out); break;
+  }
+  return out[0] == 32 ? 0 : 3;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def strict_exe(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None or platform.machine() != "x86_64":
+        pytest.skip("needs a host C++ compiler on x86-64 (the lanes' stack switch)")
+    work = tmp_path_factory.mktemp("strict_emulation")
+    src = work / "strict.cpp"
+    src.write_text(emulated_source(STRICT_KERNELS))
+    exe = work / "strict"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-I", str(EMULATION), "-o",
+                    str(exe), str(src)], check=True, capture_output=True, text=True)
+    return exe
+
+
+@pytest.mark.parametrize("case,message", [
+    (0, "returned while other lanes of its block wait at __syncthreads() "
+        "(a divergent barrier)"),
+    (1, "returned before a full-mask warp intrinsic that the rest of its "
+        "warp runs"),
+    (2, "waits at __syncthreads() while the rest of its warp runs a "
+        "full-mask warp intrinsic"),
+    (3, None),
+], ids=["divergent_barrier", "returned_lane", "lane_at_barrier", "whole_block"])
+def test_emulation_aborts_where_the_card_would_hang(strict_exe, case, message):
+    proc = subprocess.run([str(strict_exe), str(case)], capture_output=True,
+                          text=True, timeout=60)
+    if message is None:
+        assert proc.returncode == 0, proc.stderr
+        assert proc.stderr == ""
+    else:
+        assert proc.returncode != 0
+        assert f"cuda emulation: block 0, lane {(5, 7, 0)[case]}: {message}" \
+            in proc.stderr

@@ -553,6 +553,46 @@ def test_batch_masked_kernel_matches_plain(card, height, width, extents, gen):
     assert torch.equal(flags, want_flags)
 
 
+@pytest.mark.parametrize("t", [1, 16, 18])
+@pytest.mark.parametrize("height,width,extents", BATCH_MASKED + [
+    (1024, 1024, [(1000, 1000), (1024, 1024)])],
+    ids=["mixed", "byte", "tall", "serving", "past_opt_in"])
+def test_batch_masked_block_matches_plain(card, height, width, extents, t):
+    """B2 over a whole block: the block form in one launch where the slot's
+    two bit copies fit in a CTA's shared memory, else the streaming form
+    once per generation (1024^2: 32,768 words); random, dying and still
+    boards with 0/1 noise in their padding, steps t/1/0/t+2."""
+    rng = np.random.default_rng(height + width + t)
+    batch = len(extents)
+    canvas = rng.integers(0, 2, (batch, height, width), dtype=np.uint8)
+    for b, (h, w) in enumerate(extents):
+        board = np.zeros((h, w), np.uint8)
+        if b % 3 == 0:
+            board = rng.integers(0, 2, (h, w), dtype=np.uint8)
+        elif b % 3 == 1:
+            board[h // 2, w // 2] = 1  # dies
+        else:
+            board[:2, :2] = 1  # still where it fits
+        canvas[b, :h, :w] = board
+    cells = torch.from_numpy(canvas).to(card)
+    kept = cells.clone()
+    heights = torch.tensor([h for h, _ in extents], dtype=torch.int32, device=card)
+    widths = torch.tensor([w for _, w in extents], dtype=torch.int32, device=card)
+    steps = _block_steps(batch, t, card)
+    out = torch.empty_like(cells)
+    flags = torch.zeros((t, batch, 2), dtype=torch.int32, device=card)
+    before = dict(sb.LAUNCHES)
+    sb.batch_masked_block_into(cells, out, flags, steps, heights, widths, t)
+    torch.cuda.synchronize(card)
+    block = height * -(-width // 32) <= sb.block_max_words(card.index)
+    assert sb.LAUNCHES["batch_masked_block"] - before["batch_masked_block"] == block
+    assert sb.LAUNCHES["batch_masked"] - before["batch_masked"] == (0 if block else t)
+    want, want_flags = sb._batch_masked_block_plain(cells, steps, heights, widths, t)
+    assert torch.equal(out, want)
+    assert torch.equal(flags, want_flags)
+    assert torch.equal(cells, kept)
+
+
 @pytest.mark.parametrize("convention", [Convention.C, Convention.CUDA])
 @pytest.mark.parametrize("shape", [(32, 32), (30, 27)], ids=["packed", "masked"])
 def test_simulate_batch_on_the_card_matches_the_cpu(card, convention, shape):
@@ -563,7 +603,7 @@ def test_simulate_batch_on_the_card_matches_the_cpu(card, convention, shape):
         dies[2 + k, 3 + k] = 1  # dies at generation 2: the CUDA replay
     boards.append(dies)
     configs = [GameConfig(gen_limit=n, convention=convention) for n in (5, 17, 60, 40)]
-    key = "batch_packed_block" if shape == (32, 32) else "batch_masked"
+    key = "batch_packed_block" if shape == (32, 32) else "batch_masked_block"
     before = sb.LAUNCHES[key]
     got = engine.simulate_batch(boards, configs, padded_shape=(32, 32),
                                 pad_batch_to=8, device=card)
@@ -656,9 +696,9 @@ def _same_results(got, want):
 @pytest.mark.parametrize("side", [256, 250], ids=["packed", "masked"])
 def test_ring_drain_equals_dispatch_batch_per_slot(card, side):
     """A drain of 3 filled slots of a 4-ring: one batched loop over 3 x 8
-    boards (B1 once per 16-generation block, B2 once per generation), each
-    slot equal to its own ``dispatch_batch`` on the card."""
-    key = "batch_packed_block" if side == 256 else "batch_masked"
+    boards (B1 or B2 once per 16-generation block), each slot equal to its
+    own ``dispatch_batch`` on the card."""
+    key = "batch_packed_block" if side == 256 else "batch_masked_block"
     stagings = _ring_stagings(card, 3, 8, side, 40, seed=11)
     runner = engine.RingRunner((256, 256), 8, 4, mode=stagings[0].mode,
                                device=card)
@@ -666,7 +706,7 @@ def test_ring_drain_equals_dispatch_batch_per_slot(card, side):
     slots = engine.complete_ring(engine.dispatch_ring(
         engine.stage_ring(stagings, 4, runner=runner)))
     # 40 generations, all slots: blocks of 16, 16 and 8.
-    assert sb.LAUNCHES[key] - before == (3 if side == 256 else 40)
+    assert sb.LAUNCHES[key] - before == 3
     runner.close()
     for slot, s in zip(slots, stagings):
         _same_results(slot, engine.complete_batch(engine.dispatch_batch(s, card)))
