@@ -48,23 +48,28 @@ error:
    ``bandt_kernel``'s tile (``tile_shapes``: one band around its least
    height and two ragged ones, and nwords 1, 2, 31, 37 and 61 against its
    30-word strips). Outputs and flags must be identical. Then B1's
-   streaming form (one generation of B packed tori) at (boards, height,
-   nwords) (3,32,1) (32x32 one-word boards) (2,1,1) (4,17,5) (64,256,8),
-   B1's block call over blocks of t = 1, 16 and 18 generations with step
-   counts t/1/0/t+2 at the same shapes (the block form, one launch) and at
-   (2,1024,64) (65,536 words a board, past a CTA's shared memory: the
-   streaming form, one launch a generation), and B2's streaming form
-   (B2-stream: one generation of B uint8 boards, each wrapping at its own
-   extent) on a 32x32 canvas of extents 30x30, 18x24, 10x13 and 1x1, on
-   the exact-fit 33x20 byte mode and on 64 250x250 boards in a 256x256
+   one-generation kernel (one generation of B packed tori) at (boards,
+   height, nwords) (3,32,1) (32x32 one-word boards) (2,1,1) (4,17,5)
+   (64,256,8), B1's block call over blocks of t = 1, 16 and 18
+   generations with step counts t/1/0/t+2 at the same shapes (the block
+   form, one launch), at (2,1024,64) and 4e's pair (2,1024,32) (65,536 and
+   32,768 words a board, past a CTA's shared memory: the banded form, each
+   board in bands of R rows held with t' ghost rows each side, ceil(t /
+   t') launches) and at (2,64,725) (40 rows a copy: t' = 10, two banded
+   launches for t = 16 and 18), and B2's one-generation kernel (B2-step:
+   one generation of B uint8 boards, each wrapping at its own extent) on
+   a 32x32 canvas of extents 30x30, 18x24, 10x13 and 1x1, on the
+   exact-fit 33x20 byte mode and on 64 250x250 boards in a 256x256
    canvas, at a block's generation 0 and 2 with per-board step counts
    3/1/0 (a spent board copies through, a padding slot never runs), and
    B2's block call over blocks of t = 1, 16 and 18 with steps t/1/0/t+2
    at the same canvases (the block form, one launch, each board as bits
-   in one CTA's shared memory) and at two boards of 1000^2 and 1024^2 in
-   a 1024^2 canvas (32,768 words of bits, past a CTA's shared memory:
-   B2-stream, one launch a generation): words or cells and per-board (per
-   generation) flags identical, and each block call's launches counted.
+   in one CTA's shared memory), at 4e's 1000^2 and 1024^2 boards in a
+   1024^2 canvas (32,768 words of bits a slot: the banded form), at a
+   5x1024 and a 1024x3 board in a 1024^2 canvas (bands whose ghost rows
+   repeat, bands of padding alone) and on a 64x23200 canvas (t' = 10):
+   words or cells and per-board (per generation) flags identical, and
+   each block call's launches counted (the form its shape takes).
    Then T1 (B halo-extended tiles) at (tiles, edge) (3,4)
    (5,9) (64,256) (64,512) for one generation (the banded form) on
    random, still and all-zero blocks, and for n generations at (tiles,
@@ -132,10 +137,12 @@ error:
    launches E1 and D1 once each, ``pallas``, ``--packed-io`` and ``lax``
    neither. ``pallas`` and ``--packed-io``
    must give the same output bytes and generation counts as ``auto``; every
-   run is repeated with ``--kernel lax`` (byte cells, plain torch) with the
-   same check — (a) and (b) under ``game`` only, since they meet no exit
-   and ``cuda``'s ``auto`` runs must equal ``game``'s there — and (c)/(d)
-   must match the oracle on a 64^2 copy.
+   run but (b) is repeated with ``--kernel lax`` (byte cells, plain torch)
+   with the same check — (a) under ``game`` only, since it meets no exit
+   and ``cuda``'s ``auto`` runs must equal ``game``'s there; (b), 1003
+   generations of plain torch, would repeat (a)'s check (cut for the
+   smoke's time limit) — and (c)/(d) must match the oracle on a 64^2
+   copy.
    The mesh path at the same size: ``--variant tpu`` (C convention) on the
    six inputs under ``--mesh 4x1`` (four 4096x16384 shards) and ``--mesh
    2x2`` (8192x8192), each with ``--kernel auto`` and ``--kernel pallas``,
@@ -190,13 +197,17 @@ error:
    (``256x256/c/masked``, B2) through ``serve/batcher.run_batch`` at
    gen_limit 4 and 1000 under both conventions, and JAX's mixed-fate trio
    at 32^2 (gen_limit 60), two random 1024^2 boards (gen_limit 40;
-   32,768 words a board, past a CTA's shared memory) and two random
-   1000^2 boards (gen_limit 40; bucket ``1024x1024/c/masked``, two
-   32,768-word bit copies, past it too), with the launch counters set to
-   0 just before and read just after: B1's block form (once per
-   16-generation block of a batch's loop), its streaming form (the 1024^2
-   pair, once a generation), B2's block form (once per block) and its
-   streaming form (the 1000^2 pair, once a generation) must launch, no
+   32,768 words a board, past a CTA's shared memory), two random 1000^2
+   boards (gen_limit 40; bucket ``1024x1024/c/masked``, two 32,768-word
+   bit copies, past it too), two of 32 x 309,600 cells and two of 30 x
+   309,590 (gen_limit 8; 9,675 words a row, past even a band of one row),
+   with the launch counters set to 0 just before and read just
+   after: B1's block form (once per 16-generation block of a batch's
+   loop), its banded form (the 1024^2 pair, once a block: 3 launches a
+   run), its one-generation kernel (the wide pair, once a generation),
+   B2's block form (once per block), its banded form (the 1000^2 pair,
+   3 a run) and its one-generation kernel (the wide masked pair) must
+   launch, no
    other kernel. Every
    board's grid and generations equal the port's solo ``engine.simulate``
    (``--kernel auto`` for the packed boards, ``pallas`` for the masked
@@ -282,8 +293,8 @@ error:
    generations up to 16384^2, equal to a 4-generation sparse run; ms per
    generation, tiles per generation and the dense/sparse ratio. (ii)
    bench.py's macro suite, the gun's 8192^2 runs cut: the Gosper gun,
-   tile 256; sparse at 8192^2 for 1500 generations (3000 there); macro to
-   1500 generations at 8192^2, RLE equal to the sparse run's; macro at
+   tile 256; sparse at 8192^2 for 1000 generations (3000 there); macro to
+   1000 generations at 8192^2, RLE equal to the sparse run's; macro at
    2^20 squared for 10^6 generations cold into a
    fresh ``--macro-cas`` directory, then warm from it: boards equal, no
    leaf step and no T1 launch on the warm side. (iii) ``run --pattern
@@ -308,7 +319,7 @@ error:
    --cores-per-worker W`` (taskset slices, W = (cores - 2) // 4 clamped to
    1..6, as bench.py) with ``--compile-cache`` the build of phase 1: (i)
    bench.py's fleet load (16 equal-work 160^2 buckets x 8 jobs, gen_limit
-   2000 where bench.py takes 6000; a warm round, then a timed one), every
+   1000 where bench.py takes 6000; a warm round, then a timed one), every
    job DONE and equal to the port's numpy oracle; (iii) the shard suite's
    universe through the router (16x16 gliders in 65536^2, tile 256, a warm
    job of 4 generations, then 24 timed where bench.py times 48, checkpoint
@@ -326,7 +337,7 @@ error:
    equal to the oracle, one done record each across the partitions. B1's
    and T1 must launch at every N, B2's block form at N = 4 (the drill's
    30^2 boards). (ii) The chaos suite's two lanes (jobs of
-   4000 generations where bench.py runs 10000), one timed round each after
+   2000 generations where bench.py runs 10000), one timed round each after
    the warm ones, over in-process routers and two ``serve`` workers each:
    baseline, defended (breakers and their ring, ``--retry-budget 50``,
    ``X-Gol-Deadline``), and the defended workers behind a router whose
@@ -418,10 +429,13 @@ error:
    words; 64 250^2 boards in a 256^2 canvas), one launch of a
    16-generation block, 100 launches in one CUDA graph with fresh flag
    rows each (ms per block and per generation), with B2's shared memory
-   per board; their streaming forms at the same shapes, one launch of a
-   block's first generation; B1's ops and B2's block form's at the
-   network's 12 per word of bits and generation, B2-stream's at
-   ``OPS_PER_CELL`` per cell.
+   per board; their banded forms where they run, at 64 x 1024 x 32 words
+   and 64 1000^2 boards in a 1024^2 canvas, one block of 16 generations
+   (ms per block, with the plan's (t', R)), and their one-generation
+   kernels at the same shapes (ms
+   per launch, and a 16-launch block in one CUDA graph); B1's ops and B2's
+   block and banded forms' at the network's 12 per word of bits and
+   generation, B2-step's at ``OPS_PER_CELL`` per cell.
    T1's banded form (n = 1) at 64 tiles of 256^2 (compact output, the
    sparse lane's form) and 64 windows of 512^2 (padded ping-pong), 100
    launches in one CUDA graph with a fresh flag row each, and its window
@@ -660,10 +674,20 @@ BATCH_KERNELS = [
         "replaces": "none: jnp under vmap (gol_tpu/engine.py:1286-1290)",
     },
     {
-        "key": "batch_packed", "id": "B1-stream",
-        "name": "B1 batch_packed_kernel (streaming form): one generation of B "
-                "packed tori too large for a CTA's shared memory, per-board "
-                "flags and step counts",
+        "key": "batch_packed_band", "id": "B1-stream",
+        "name": "B1 batch_packed_band_kernel (banded form): a block of t "
+                "generations of B packed tori too large for a CTA's shared "
+                "memory, each in bands of R rows held with t' ghost rows each "
+                "side in one CTA's shared memory, ceil(t / t') launches, "
+                "per-generation flags and per-board step counts",
+        "source": "gol_tpu_torch/csrc/stencil_batch.cu",
+        "replaces": "none: jnp under vmap (gol_tpu/engine.py:1286-1290)",
+    },
+    {
+        "key": "batch_packed", "id": "B1-step",
+        "name": "B1 batch_packed_kernel (one-generation form): one generation "
+                "of B packed tori whose rows pass even a band of one row, "
+                "per-board flags and step counts",
         "source": "gol_tpu_torch/csrc/stencil_batch.cu",
         "replaces": "none: jnp under vmap (gol_tpu/engine.py:1286-1290)",
     },
@@ -678,10 +702,23 @@ BATCH_KERNELS = [
         "cells": True,
     },
     {
-        "key": "batch_masked", "id": "B2-stream",
-        "name": "B2 batch_masked_kernel (streaming form): one generation of B "
-                "uint8 boards whose two bit copies pass a CTA's shared memory, "
-                "each wrapping at its own extent, per-board flags and step counts",
+        "key": "batch_masked_band", "id": "B2-stream",
+        "name": "B2 batch_masked_band_kernel (banded form): a block of t "
+                "generations of B uint8 boards whose two bit copies pass a "
+                "CTA's shared memory, each wrapping at its own extent, in "
+                "bands of R canvas rows held as bits with t' ghost rows each "
+                "side (modulo the board's height), ceil(t / t') launches, "
+                "per-generation flags and per-board step counts",
+        "source": "gol_tpu_torch/csrc/stencil_batch.cu",
+        "replaces": "none: jnp under vmap (gol_tpu/engine.py:1081-1105)",
+        "cells": True,
+    },
+    {
+        "key": "batch_masked", "id": "B2-step",
+        "name": "B2 batch_masked_kernel (one-generation form): one generation "
+                "of B uint8 boards whose rows pass even a band of one row, "
+                "each wrapping at its own extent, per-board flags and step "
+                "counts",
         "source": "gol_tpu_torch/csrc/stencil_batch.cu",
         "replaces": "none: jnp under vmap (gol_tpu/engine.py:1081-1105)",
         "cells": True,
@@ -753,13 +790,13 @@ TILE_CHECK_SHAPES = [(3, 4), (5, 9), (64, 256), (64, 512)]
 TILE_WINDOW_SHAPES = [(3, 4, 2), (5, 9, 7), (4, 33, 16), (64, 512, 128),
                       (2, 1024, 3)]
 # Phase 4i: bench.py's sparse suite (bench.py:2291-2416), uncut, and macro
-# suite (bench.py:2418-2530), the gun's sparse and macro runs cut to 1500
+# suite (bench.py:2418-2530), the gun's sparse and macro runs cut to 1000
 # generations (3000 there) to fit the smoke's time limit.
 SPARSE_TILE = 256
 SPARSE_SIZES = (1 << 12, 1 << 13, 1 << 14, 1 << 15, 1 << 16)
 SPARSE_GENS, DENSE_GENS, DENSE_MAX = 24, 4, 1 << 14
 MACRO_UNIVERSE, MACRO_GENS = 1 << 20, 1_000_000
-GUN_UNIVERSE, GUN_GENS = 1 << 13, 1500  # bench.py: 3000
+GUN_UNIVERSE, GUN_GENS = 1 << 13, 1000  # bench.py: 3000
 CLI_UNIVERSE = 1 << 16  # (iii) and (iv): the gun at its middle
 # Phase 4j: bench.py's fleet suite (bench.py:1076-1296): 16 equal-work
 # 160^2 buckets (one similarity frequency each), 8 jobs a bucket, at N = 1
@@ -767,13 +804,13 @@ CLI_UNIVERSE = 1 << 16  # (iii) and (iv): the gun at its middle
 # its chaos suite (bench.py:2764-3054): 4 buckets, 2 workers;
 # its shard suite (bench.py:2564-2762): 16x16 gliders in 65536^2, tile 256.
 # Their generations are cut to fit the smoke's time limit: the fleet's jobs
-# to 2000 (6000 there), the chaos jobs to 4000 (10000), the shard job to 24
+# to 1000 (6000 there), the chaos jobs to 2000 (10000), the shard job to 24
 # (48) with a checkpoint every 8 (16).
 FLEET_FREQS = (2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 14, 17, 18, 21, 24, 27)
-FLEET_SIDE, FLEET_PER_BUCKET, FLEET_LIMIT, FLEET_NS = 160, 8, 2000, (1, 4)
+FLEET_SIDE, FLEET_PER_BUCKET, FLEET_LIMIT, FLEET_NS = 160, 8, 1000, (1, 4)
 FLEET_SERVE = ["--flush-age", "0.2", "--max-batch", "8", "--pipeline-depth",
                "2", "--max-queue-depth", "4096"]
-CHAOS_FREQS, CHAOS_LIMIT = (2, 3, 5, 9), 4000
+CHAOS_FREQS, CHAOS_LIMIT = (2, 3, 5, 9), 2000
 CHAOS_PLAN = "seed=777,refuse=0.2,reset=0.1"
 SHARD_UNIVERSE, SHARD_GRID, SHARD_LIMIT, SHARD_CKPT = 1 << 16, 16, 24, 8
 # The CLI's shard lane: the gun of (iii) in 4i, 100 generations.
@@ -783,22 +820,29 @@ SHARD_CLI = ["--pattern", str(REPO / "patterns" / "gosper_gun.rle"),
 _MSECS = re.compile(r"\d+\.\d+ msecs")
 # Phase 2's batch shapes: (boards, height, nwords) for B1 — a 32x32
 # one-word board, one-row boards, the serving bucket's 64 x 256^2, and for
-# the block call a board too large for a CTA's shared memory (65,536 words:
-# the streaming form) — and (canvas height, width, extents) for B2: mixed
-# extents in one canvas, the exact-fit byte mode, the serving bucket's 64 x
-# 250^2 in 256^2. B1's blocks run t generations of BATCH_BLOCK_TS.
+# the block call boards too large for a CTA's shared memory (65,536 words
+# and 4e's 1024^2 pair, 32,768: the banded form, one launch a block; 725
+# words a row, 40 rows a copy: t' = 10 < t) — and (canvas height, width,
+# extents) for B2: mixed extents in one canvas, the exact-fit byte mode,
+# the serving bucket's 64 x 250^2 in 256^2. B1's blocks run t generations
+# of BATCH_BLOCK_TS.
 BATCH_PACKED_SHAPES = [(3, 32, 1), (2, 1, 1), (4, 17, 5), (64, 256, 8)]
-BATCH_BLOCK_SHAPES = BATCH_PACKED_SHAPES + [(2, 1024, 64)]
+BATCH_BLOCK_SHAPES = BATCH_PACKED_SHAPES + [(2, 1024, 64), (2, 1024, 32),
+                                            (2, 64, 725)]
 BATCH_BLOCK_TS = (1, 16, 18)
 BATCH_BLOCK_T = 16  # the engine's block: phase 5 times B1 over one
 TILE_WINDOW_GENS = 128  # phase 5: T1's window form over a 2L window's L/2
 BATCH_MASKED_SHAPES = [(32, 32, [(30, 30), (18, 24), (10, 13), (1, 1)]),
                        (33, 20, [(33, 20)] * 2), (256, 256, [(250, 250)] * 64)]
-# B2's block calls, over blocks of BATCH_BLOCK_TS: the same, and a canvas
-# whose two bit copies pass a CTA's shared memory (32,768 words: the
-# streaming form).
+# B2's block calls, over blocks of BATCH_BLOCK_TS: the same, and canvases
+# whose two bit copies pass a CTA's shared memory (the banded form): 4e's
+# 1000^2 and 1024^2 boards in a 1024^2 canvas, a short board and a narrow
+# one there (ghost rows that repeat, bands of padding alone), and a
+# 64x23200 canvas (725 words a row: t' = 10 < t).
 BATCH_MASKED_BLOCK_SHAPES = BATCH_MASKED_SHAPES + [
-    (1024, 1024, [(1000, 1000), (1024, 1024)])]
+    (1024, 1024, [(1000, 1000), (1024, 1024)]),
+    (1024, 1024, [(5, 1024), (1024, 3)]),
+    (64, 23200, [(64, 23200), (61, 23171)])]
 # Phase 4e: the serving load of bench.py (--suite batch / megabatch): 64
 # boards in the exact-fit 256^2 bucket and 64 in the masked 250^2 bucket.
 BATCH_BOARDS = 64
@@ -864,15 +908,22 @@ MESH_LANES = {
 }
 MESH_DEVICES = "4"
 # The batch lanes' kernels (4e-4g): B1's and B2's block forms (their 256^2,
-# 32^2 and 30^2 boards fit in a CTA's shared memory, so the streaming forms
-# never run).
+# 32^2 and 30^2 boards fit in a CTA's shared memory, so the other forms
+# never run there).
 BATCH_LANE_KEYS = ("batch_packed_block", "batch_masked_block")
 # Phase 4e's pair of boards past a CTA's shared memory (1024^2: 32,768
-# words a board), which take B1's streaming form, and its pair of 1000^2
-# boards (bucket 1024x1024/c/masked: two 32,768-word bit copies), which
-# take B2's.
+# words a board), which take B1's banded form, its pair of 1000^2 boards
+# (bucket 1024x1024/c/masked: two 32,768-word bit copies), which take B2's,
+# and its pairs of boards whose rows pass even a band of one row (32 x
+# 309,600 and 30 x 309,590 cells, 9,675 words a row), which take the
+# one-generation kernels.
 BATCH_BIG_SIDE, BATCH_BIG_LIMIT = 1024, 40
 BATCH_BIG_MASKED_SIDE = 1000
+BATCH_WIDE, BATCH_WIDE_MASKED, BATCH_WIDE_LIMIT = (32, 309600), (30, 309590), 8
+# Phase 5's timing shapes of the banded forms and the one-generation
+# kernels: 64 boards of 1024 x 32 words (B1) and 64 of 1000^2 in a 1024^2
+# canvas (B2), the big pairs' buckets at the serving batch.
+BATCH_PAST_BOARDS = 64
 # The single-device --packed-io lane that prints its I/O lines (under
 # --variant tpu; the serial variants print none).
 IO_LANE = ["--mesh", "1x1", "--packed-io"]
@@ -1141,15 +1192,13 @@ def check_batch_kernels(dev, stats: dict) -> None:
             lambda a, out, flags, gen: sb.batch_packed_step_into(a, out, flags, steps, gen),
             lambda a, gen: sb._batch_packed_plain(a, steps, gen),
             x, stats, f"({batch}, {height}, {nwords})")
-        print(f"B1 at (boards, height, nwords) ({batch}, {height}, {nwords}) "
+        print(f"B1-step at (boards, height, nwords) ({batch}, {height}, {nwords}) "
               "== plain at gen 0 and 2 (random, dies, still; steps 3/1/0) "
               "(tolerance 0: words and flags identical)", flush=True)
     for batch, height, nwords in BATCH_BLOCK_SHAPES:
         boards = np.stack([_batch_board(height, 32 * nwords, kinds[b % 3], rng)
                            for b in range(batch)])
         x = pm.words_from_numpy(bitpack.pack_words(boards), dev)
-        block = height * nwords <= sb.block_max_words(dev.index)
-        key = "batch_packed_block" if block else "batch_packed"
         for t in BATCH_BLOCK_TS:
             # Board b runs t, 1, 0 or t + 2 (clamped to t) generations.
             steps = torch.tensor([(t, 1, 0, t + 2)[b % 4] for b in range(batch)],
@@ -1157,21 +1206,23 @@ def check_batch_kernels(dev, stats: dict) -> None:
             out = torch.empty_like(x)
             flags = torch.zeros((t, batch, sb.STEP_FLAGS), dtype=torch.int32,
                                 device=dev)
+            before = dict(sb.LAUNCHES)
             sb.batch_packed_block_into(x, out, flags, steps, t)
             want, want_flags = sb._batch_packed_block_plain(x, steps, t)
             torch.cuda.synchronize(dev)
+            form = _block_call_form(dev, "packed", batch, height, nwords, t, before,
+                                    f"B1's block call at ({batch}, {height}, {nwords}), t {t}")
             err = max(int((_u32(out) - _u32(want)).abs().max()),
                       int((flags - want_flags).abs().max()))
-            stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
-            stats[key]["checks"] += 1
+            stats[form]["max_abs_err"] = max(stats[form]["max_abs_err"], err)
+            stats[form]["checks"] += 1
             if err:
-                fail(f"B1's {'block' if block else 'streaming'} form differs from "
-                     f"its plain version at ({batch}, {height}, {nwords}), t {t}")
+                fail(f"B1's form {form} differs from its plain version at "
+                     f"({batch}, {height}, {nwords}), t {t}")
         print(f"B1 block call at (boards, height, nwords) ({batch}, {height}, "
-              f"{nwords}), {'the block form, one launch' if block else 'the streaming form, one launch a generation'}"
-              f", == plain at t {BATCH_BLOCK_TS} (random, dies, still; steps "
-              "t/1/0/t+2) (tolerance 0: words and per-generation flags identical)",
-              flush=True)
+              f"{nwords}), {_form_text(dev, 'packed', batch, height, nwords)}, == "
+              f"plain at t {BATCH_BLOCK_TS} (random, dies, still; steps t/1/0/t+2) "
+              "(tolerance 0: words and per-generation flags identical)", flush=True)
     for height, width, extents in BATCH_MASKED_SHAPES:
         batch = len(extents)
         canvas = np.zeros((batch, height, width), np.uint8)
@@ -1187,7 +1238,7 @@ def check_batch_kernels(dev, stats: dict) -> None:
                 a, out, flags, steps, hs, ws, gen),
             lambda a, gen: sb._batch_masked_plain(a, steps, hs, ws, gen),
             x, stats, f"{height}x{width} canvas, extents {sorted(set(extents))}")
-        print(f"B2-stream at a {batch} x {height}x{width} canvas, extents "
+        print(f"B2-step at a {batch} x {height}x{width} canvas, extents "
               f"{sorted(set(extents))} == plain at gen 0 and 2 (tolerance 0: "
               "cells and flags identical)", flush=True)
     for height, width, extents in BATCH_MASKED_BLOCK_SHAPES:
@@ -1198,8 +1249,7 @@ def check_batch_kernels(dev, stats: dict) -> None:
         x = torch.from_numpy(canvas).to(dev)
         hs = torch.tensor([h for h, _ in extents], dtype=torch.int32, device=dev)
         ws = torch.tensor([w for _, w in extents], dtype=torch.int32, device=dev)
-        block = height * -(-width // 32) <= sb.block_max_words(dev.index)
-        key = "batch_masked_block" if block else "batch_masked"
+        nwb = -(-width // 32)
         for t in BATCH_BLOCK_TS:
             steps = torch.tensor([(t, 1, 0, t + 2)[b % 4] for b in range(batch)],
                                  dtype=torch.int32, device=dev)
@@ -1210,22 +1260,49 @@ def check_batch_kernels(dev, stats: dict) -> None:
             sb.batch_masked_block_into(x, out, flags, steps, hs, ws, t)
             want, want_flags = sb._batch_masked_block_plain(x, steps, hs, ws, t)
             torch.cuda.synchronize(dev)
+            form = _block_call_form(dev, "masked", batch, height, nwb, t, before,
+                                    f"B2's block call at {height}x{width}, t {t}")
             err = max(int((out.to(torch.int32) - want.to(torch.int32)).abs().max()),
                       int((flags - want_flags).abs().max()))
-            stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
-            stats[key]["checks"] += 1
+            stats[form]["max_abs_err"] = max(stats[form]["max_abs_err"], err)
+            stats[form]["checks"] += 1
             if err:
-                fail(f"B2's {'block' if block else 'streaming'} form differs from "
-                     f"its plain version at a {batch} x {height}x{width} canvas, t {t}")
-            if sb.LAUNCHES[key] - before[key] != (1 if block else t):
-                fail(f"B2's block call at {height}x{width}, t {t}: "
-                     f"{sb.LAUNCHES[key] - before[key]} launches of {key}")
+                fail(f"B2's form {form} differs from its plain version at a "
+                     f"{batch} x {height}x{width} canvas, t {t}")
         print(f"B2 block call at a {batch} x {height}x{width} canvas, extents "
-              f"{sorted(set(extents))}, "
-              f"{'the block form, one launch' if block else 'the streaming form (B2-stream), one launch a generation'}"
+              f"{sorted(set(extents))}, {_form_text(dev, 'masked', batch, height, nwb)}"
               f", == plain at t {BATCH_BLOCK_TS} (random, dies, still; steps "
               "t/1/0/t+2) (tolerance 0: cells and per-generation flags identical)",
               flush=True)
+
+
+def _block_call_form(dev, kind: str, batch: int, height: int, nwb: int, t: int,
+                     before: dict, where: str) -> str:
+    """The LAUNCHES key of the form a block call of ``t`` generations took,
+    after checking that it made exactly the launches its shape asks for:
+    one of the block form where a board's two copies fit in a CTA's shared
+    memory, else ceil(t / t') of the banded form (``sb.band_plan``), or t of
+    the one-generation kernel where not even a band fits."""
+    if height * nwb <= sb.block_max_words(dev.index):
+        want = {f"batch_{kind}_block": 1}
+    else:
+        per, _ = sb.band_plan(dev.index, batch, height, nwb, t)
+        want = {f"batch_{kind}_band": -(-t // per)} if per else {f"batch_{kind}": t}
+    got = {k: n - before[k] for k, n in sb.LAUNCHES.items() if n != before[k]}
+    if got != want:
+        fail(f"{where}: launches {got}, its shape asks for {want}")
+    return next(iter(want))
+
+
+def _form_text(dev, kind: str, batch: int, height: int, nwb: int) -> str:
+    """Which form a block call of BATCH_BLOCK_T generations takes, in words."""
+    if height * nwb <= sb.block_max_words(dev.index):
+        return "the block form, one launch"
+    per, rows = sb.band_plan(dev.index, batch, height, nwb, BATCH_BLOCK_T)
+    if per == 0:
+        return "the one-generation kernel, one launch a generation"
+    return (f"the banded form (t' {per}, bands of {rows} rows at t "
+            f"{BATCH_BLOCK_T}), ceil(t / t') launches")
 
 
 def _tile_stack(batch: int, tile: int, kind: str, rng) -> np.ndarray:
@@ -1892,6 +1969,8 @@ def main_path(work: Path, dev) -> dict:
                 if results[(variant, key, limit)] != results[("game", key, limit)]:
                     fail(f"({tag}) cuda {key}: --kernel auto differs from game's")
                 continue
+            if tag == "b":
+                continue  # (a)'s check, 1003 generations of plain torch
             before = _counts()
             gens, ms = run(variant, ["--kernel", "lax"], key, limit)
             _check_codec({k: n - before[k] for k, n in _counts().items()}, 0,
@@ -2092,20 +2171,27 @@ def io_compare(trees: list[Path], size: int, rounds: int) -> dict:
             "seed": SEED, "runs": runs}
 
 
-# --batch-compare: phase 4e's boards/s (bench.py's batch suite: 64/B
+# --batch-compare: phase 4e's boards/s (bench.py's batch suite: count/B
 # dispatches of B boards, best of 3 after a warm dispatch per B) for each
 # tree of the repository, each run in a process of its own that imports
-# that tree's package.
+# that tree's package. Each bucket is (name, side, boards, gen_limits,
+# batch sizes): 4e's two, then the big pairs' buckets (1024^2 packed,
+# 1000^2 in 1024^2 masked: the banded forms) at 8 boards.
+BATCH_COMPARE_BUCKETS = [
+    *[(name, side, BATCH_BOARDS, list(BATCH_LIMITS), list(BATCH_SIZES))
+      for name, side in BATCH_SIDES.items()],
+    ("1024x1024/packed", BATCH_BIG_SIDE, 8, [1000], [1, 8]),
+    ("1000x1000/masked", BATCH_BIG_MASKED_SIDE, 8, [1000], [1, 8])]
 _BATCH_RATES = r"""
 import json, sys, time
 import numpy as np
 from gol_tpu_torch.ops import stencil_batch
 from gol_tpu_torch.serve import batcher
 from gol_tpu_torch.serve.jobs import new_job
-seed, count, sides, limits, sizes = json.loads(sys.argv[1])
+seed, buckets = json.loads(sys.argv[1])
 rng = np.random.default_rng(seed)
 out = {}
-for name, side in sides.items():
+for name, side, count, limits, sizes in buckets:
     boards = [rng.integers(0, 2, (side, side), dtype=np.uint8) for _ in range(count)]
     for limit in limits:
         jobs = [new_job(side, side, b, convention="c", gen_limit=limit) for b in boards]
@@ -2121,19 +2207,19 @@ for name, side in sides.items():
                     batcher.run_batch(key, jobs[i:i + b])
                 best = min(best, time.perf_counter() - t0)
             rates[b] = len(jobs) / best
-        out[f"{name} limit {limit}"] = {"boards_per_sec": rates, "launches": {
+        out[f"{name} limit {limit}"] = {"bucket": key.label(), "boards_per_sec": rates,
+                                        "launches": {
             k: n - before.get(k, 0) for k, n in stencil_batch.LAUNCHES.items()}}
 print(json.dumps(out))
 """
 
 
 def batch_compare(trees: list[Path], rounds: int) -> dict:
-    """``--batch-compare``: boards/s at B = 1, 8 and 64 of phase 4e's two
-    buckets at gen_limit 4 and 1000 (C convention) for each tree, ``rounds``
-    rounds of a process per tree, odd rounds taking the trees in reverse
-    order, so that two versions compare within one call on one card."""
-    args = json.dumps([SEED + 5, BATCH_BOARDS, BATCH_SIDES, list(BATCH_LIMITS),
-                       list(BATCH_SIZES)])
+    """``--batch-compare``: boards/s of BATCH_COMPARE_BUCKETS (C
+    convention) for each tree, ``rounds`` rounds of a process per tree, odd
+    rounds taking the trees in reverse order, so that two versions compare
+    within one call on one card."""
+    args = json.dumps([SEED + 5, BATCH_COMPARE_BUCKETS])
     runs = {str(t): [] for t in trees}
     for r in range(rounds):
         for tree in (trees if r % 2 == 0 else trees[::-1]):
@@ -2148,7 +2234,8 @@ def batch_compare(trees: list[Path], rounds: int) -> dict:
             result = json.loads(proc.stdout.strip().splitlines()[-1])
             runs[str(tree)].append(result)
             print(f"round {r} {tree}: " + json.dumps(result), flush=True)
-    return {"rounds": rounds, "seed": SEED + 5, "runs": runs}
+    return {"rounds": rounds, "seed": SEED + 5, "buckets": BATCH_COMPARE_BUCKETS,
+            "runs": runs}
 
 
 def checkpoint_path(work: Path, path: dict) -> dict:
@@ -2521,9 +2608,12 @@ def batch_lane(work: Path, dev) -> dict:
     256^2 boards (bucket 256x256/c/packed, B1) and 64 random 250^2 boards
     (256x256/c/masked, B2) through ``batcher.run_batch`` at gen_limit 4 and
     1000 under both conventions, then JAX's mixed-fate trio at 32^2, a
-    pair of 1024^2 boards (B1's streaming form) and a pair of 1000^2
-    boards (B2's streaming form), with the launch counters zeroed just
-    before and read just after. Every
+    pair of 1024^2 boards (B1's banded form), a pair of 1000^2 boards
+    (B2's banded form) and the wide pairs (BATCH_WIDE, BATCH_WIDE_MASKED:
+    the one-generation kernels), with the launch counters zeroed just
+    before and read just after; each big pair's run launches its banded
+    form once a block (ceil(BATCH_BIG_LIMIT / 16) = 3 times) and no
+    one-generation kernel. Every
     board's grid, generations and exit reason equal the port's solo
     ``engine.simulate`` (``auto`` for the packed bucket, ``pallas`` for the
     masked one); the trio's equal the oracle too. Then ``python -m
@@ -2538,7 +2628,16 @@ def batch_lane(work: Path, dev) -> dict:
            for _ in range(2)]
     big_masked = [rng.integers(0, 2, (BATCH_BIG_MASKED_SIDE,) * 2, dtype=np.uint8)
                   for _ in range(2)]
-    runs, exec_ms = {}, {}
+    wide = {"wide": [rng.integers(0, 2, BATCH_WIDE, dtype=np.uint8) for _ in range(2)],
+            "wide masked": [rng.integers(0, 2, BATCH_WIDE_MASKED, dtype=np.uint8)
+                            for _ in range(2)]}
+    # One launch of the banded form a block of the big pairs.
+    for nwb in (BATCH_BIG_SIDE // 32, -(-BATCH_BIG_MASKED_SIDE // 32)):
+        if sb.band_plan(dev.index, 2, BATCH_BIG_SIDE, nwb, 16)[0] < 16:
+            fail(f"the big pairs' band plan at {nwb} words a row runs fewer "
+                 "than 16 generations a launch")
+    big_blocks = -(-BATCH_BIG_LIMIT // 16)
+    runs, exec_ms, pair_launches = {}, {}, {}
     _zero_counters()
     for convention in (Convention.C, Convention.CUDA):
         for limit in BATCH_LIMITS:
@@ -2556,15 +2655,30 @@ def batch_lane(work: Path, dev) -> dict:
         jobs = _batch_jobs([b for b, _ in trio], convention, 60)
         runs[(convention, 60, "trio")] = batcher.run_batch(
             batcher.bucket_for(jobs[0]), jobs)
-        for name, boards in (("big", big), ("big masked", big_masked)):
-            jobs = _batch_jobs(boards, convention, BATCH_BIG_LIMIT)
-            runs[(convention, BATCH_BIG_LIMIT, name)] = batcher.run_batch(
+        for name, boards, limit, want in (
+                ("big", big, BATCH_BIG_LIMIT, {"batch_packed_band": big_blocks}),
+                ("big masked", big_masked, BATCH_BIG_LIMIT,
+                 {"batch_masked_band": big_blocks}),
+                ("wide", wide["wide"], BATCH_WIDE_LIMIT,
+                 {"batch_packed": BATCH_WIDE_LIMIT}),
+                ("wide masked", wide["wide masked"], BATCH_WIDE_LIMIT,
+                 {"batch_masked": BATCH_WIDE_LIMIT})):
+            jobs = _batch_jobs(boards, convention, limit)
+            before = dict(sb.LAUNCHES)
+            runs[(convention, limit, name)] = batcher.run_batch(
                 batcher.bucket_for(jobs[0]), jobs)
+            got = {k: n - before[k] for k, n in sb.LAUNCHES.items() if n != before[k]}
+            pair_launches[f"{name} {convention}"] = got
+            if got != want:
+                fail(f"the {name} pair ({convention}, gen_limit {limit}) launched "
+                     f"{got}, not {want}")
     counts = _counts()
-    print(f"batch lane: launches {_nonzero(counts)}; one dispatch each, ms: "
+    print(f"batch lane: launches {_nonzero(counts)}; the big and wide pairs' "
+          f"{json.dumps(pair_launches)}; one dispatch each, ms: "
           + json.dumps({k: round(v, 3) for k, v in exec_ms.items()}), flush=True)
     for k in KERNELS + BATCH_KERNELS:
-        if (k["key"] in BATCH_LANE_KEYS + ("batch_packed", "batch_masked")) != (
+        if (k["key"] in BATCH_LANE_KEYS + ("batch_packed_band", "batch_packed",
+                                           "batch_masked_band", "batch_masked")) != (
                 counts[k["key"]] > 0):
             fail(f"{k['id']} ({k['key']}) launched {counts[k['key']]} times on "
                  "the batch lane")
@@ -2577,6 +2691,8 @@ def batch_lane(work: Path, dev) -> dict:
             boards, kernel = big, "auto"
         elif name == "big masked":
             boards, kernel = big_masked, "pallas"
+        elif name in wide:
+            boards, kernel = wide[name], "auto" if name == "wide" else "pallas"
         else:
             boards, kernel = loads[name], "auto" if "packed" in name else "pallas"
         cfg = GameConfig(convention=convention, gen_limit=limit)
@@ -3837,7 +3953,7 @@ def _oracle_job(args):
 
 def _oracle_pool():
     """A spawned process pool for the port's numpy oracle (the loads'
-    boards run 2000-4000 generations each): four workers, beside the
+    boards run 1000-2000 generations each): four workers, beside the
     fleets' boots."""
     import multiprocessing
 
@@ -5129,38 +5245,27 @@ def _fresh_flags_ms(launch, x: torch.Tensor, rounds: int, gens: int = 0) -> floa
 
 
 def _timed_batch(ops_per_s: float) -> dict:
-    """B1 and B2 at phase 4e's shapes, 64 boards of 256 x 8 words and 64
-    boards of 250^2 in a 256^2 canvas: their block forms over one block of
-    BATCH_BLOCK_T generations (``_timed_block``), and their streaming
-    forms, one launch of a block's first generation (every board runs),
-    as below. ``ms`` is graph replay with a fresh
-    flag row per launch, as in the engine's block; ``ms_flags_set`` the
-    replay of ``_timed``, whose launches find their flags set after the
-    first. The bytes are the boards, the step counts and extents read once
-    and the boards and flags written once."""
+    """B1 and B2 in each form where it runs. The block forms at phase 4e's
+    shapes, 64 boards of 256 x 8 words and 64 boards of 250^2 in a 256^2
+    canvas, one block of BATCH_BLOCK_T generations (``_timed_block``). The
+    banded forms at the big pairs' buckets at the serving batch,
+    BATCH_PAST_BOARDS boards of 1024 x 32 words and of 1000^2 in a 1024^2
+    canvas, one block the same way, with the plan's (t', R)
+    (``tools/batch_band_sweep.py`` times other band rows and CTA sizes).
+    The one-generation
+    kernels at those shapes: one launch of a block's first generation
+    (every board runs; ``_timed_launch``) and a block of BATCH_BLOCK_T
+    launches in one CUDA graph. The bytes are the boards, the step counts
+    and extents read once and the boards and flags written once."""
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED + 6)
-    b = BATCH_BOARDS
+    b, t = BATCH_BOARDS, BATCH_BLOCK_T
     words = pm.words_from_numpy(rng.integers(0, 2**32, (b, 256, 8), dtype=np.uint64)
                                 .astype(np.uint32), dev)
     canvas = np.zeros((b, 256, 256), np.uint8)
     canvas[:, :250, :250] = rng.integers(0, 2, (b, 250, 250), dtype=np.uint8)
     cells = torch.from_numpy(canvas).to(dev)
-    steps = torch.ones(b, dtype=torch.int32, device=dev)
     ext = torch.full((b,), 250, dtype=torch.int32, device=dev)
-    cases = {
-        "batch_packed": (
-            words, (steps,),
-            lambda a, o, f: sb.batch_packed_step_into(a, o, f, steps, 0),
-            lambda a: sb._batch_packed_plain(a, steps, 0),
-            words.numel() * OPS_PER_WORD_GEN),
-        "batch_masked": (
-            cells, (steps, ext, ext),
-            lambda a, o, f: sb.batch_masked_step_into(a, o, f, steps, ext, ext, 0),
-            lambda a: sb._batch_masked_plain(a, steps, ext, ext, 0),
-            cells.numel() * OPS_PER_CELL),
-    }
-    t = BATCH_BLOCK_T
     full = torch.full((b,), t, dtype=torch.int32, device=dev)
     out = {
         # B1: the network's 12 ops per word and generation.
@@ -5179,46 +5284,116 @@ def _timed_batch(ops_per_s: float) -> dict:
     print(f"batch_masked_block holds two bit copies of a 256^2 slot in "
           f"{2 * 256 * 8 * 4} bytes of one CTA's shared memory, one CTA a board: "
           f"{b} of the card's SMs busy", flush=True)
-    for key, (x, vectors, launch, plain, ops) in cases.items():
-        y = torch.empty_like(x)
-        flags = torch.zeros((b, sb.STEP_FLAGS), dtype=torch.int32, device=dev)
-        ring = lambda i, a, o: launch(a, o, flags)
-        eager_ms = _time(ring, [x], [y], 100)
-        set_ms, wrapper_ms = profiler.ring_graph_ms(ring, [x], [y], 100)
-        ms = _fresh_flags_ms(launch, x, 100)
-        plain_ms = _time(lambda i, a, o: plain(a), [x], [y], 10)
-        nbytes = (2 * x.numel() * x.element_size() + flags.numel() * 4
-                  + sum(v.numel() * 4 for v in vectors))
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / ops_per_s * 1e3
-        print(f"{key} at {tuple(x.shape)}: {ms:.6f} ms/launch in a CUDA graph, "
-              f"fresh flags per launch ({set_ms:.6f} with its flags set; eager "
-              f"{eager_ms:.6f} ms, wrapper {wrapper_ms:.6f} ms on the host, plain "
-              f"{plain_ms:.6f} ms); bytes {nbytes} -> {bytes_ms:.6f} ms, logic ops "
-              f"{ops} -> {ops_ms:.6f} ms; working set "
-              f"{2 * x.numel() * x.element_size()} bytes, fits in the "
-              f"{L2_BYTES}-byte L2", flush=True)
-        out[key] = {
-            "shape": list(x.shape), "ms": ms, "ms_flags_set": set_ms,
+
+    b = BATCH_PAST_BOARDS
+    side, masked = BATCH_BIG_SIDE, BATCH_BIG_MASKED_SIDE
+    words = pm.words_from_numpy(rng.integers(0, 2**32, (b, side, side // 32),
+                                             dtype=np.uint64).astype(np.uint32), dev)
+    canvas = np.zeros((b, side, side), np.uint8)
+    canvas[:, :masked, :masked] = rng.integers(0, 2, (b, masked, masked), dtype=np.uint8)
+    cells = torch.from_numpy(canvas).to(dev)
+    del canvas
+    ext = torch.full((b,), masked, dtype=torch.int32, device=dev)
+    full = torch.full((b,), t, dtype=torch.int32, device=dev)
+    one = torch.ones(b, dtype=torch.int32, device=dev)
+    nwb = side // 32
+    cases = {
+        "packed": dict(
+            x=words, vector_bytes=b * 4, block_ops=words.numel() * OPS_PER_WORD_GEN * t,
+            block=lambda a, o, f: sb.batch_packed_block_into(a, o, f, full, t),
+            block_plain=lambda a: sb._batch_packed_block_plain(a, full, t),
+            step=lambda a, o, f, st, gen: sb.batch_packed_step_into(a, o, f, st, gen),
+            step_plain=lambda a: sb._batch_packed_plain(a, one, 0),
+            step_ops=words.numel() * OPS_PER_WORD_GEN),
+        "masked": dict(
+            x=cells, vector_bytes=3 * b * 4,
+            block_ops=b * masked * -(-masked // 32) * OPS_PER_WORD_GEN * t,
+            block=lambda a, o, f: sb.batch_masked_block_into(a, o, f, full, ext, ext, t),
+            block_plain=lambda a: sb._batch_masked_block_plain(a, full, ext, ext, t),
+            step=lambda a, o, f, st, gen: sb.batch_masked_step_into(a, o, f, st, ext,
+                                                                    ext, gen),
+            step_plain=lambda a: sb._batch_masked_plain(a, one, ext, ext, 0),
+            step_ops=cells.numel() * OPS_PER_CELL),
+    }
+    for kind, c in cases.items():
+        x = c["x"]
+        per, rows = sb.band_plan(0, b, side, nwb, t)
+        if per != t:
+            fail(f"the {kind} timing shape's band plan runs {per} of {t} "
+                 "generations a launch")
+        band = _timed_block(f"batch_{kind}_band", x, c["block"], c["block_plain"],
+                            c["block_ops"], c["vector_bytes"], ops_per_s)
+        band["plan"] = {"generations_a_launch": per, "band_rows": rows,
+                        "bands_a_board": -(-side // rows),
+                        "ctas": b * -(-side // rows)}
+        print(f"batch_{kind}_band plan at {tuple(x.shape)}, t = {t}: t' = {per}, "
+              f"R = {rows} ({band['plan']['ctas']} CTAs)", flush=True)
+        step = _timed_launch(f"batch_{kind}", x, c["vector_bytes"],
+                             lambda a, o, f, c=c: c["step"](a, o, f, one, 0),
+                             c["step_plain"], c["step_ops"], ops_per_s)
+        scratch = torch.empty_like(x)
+        step["block_ms"] = _fresh_flags_ms(
+            lambda a, o, f, c=c, scratch=scratch: sb.streamed_block(
+                a, o, t, scratch, lambda cur, dst, g0, n: c["step"](
+                    cur, dst, f[g0], full, g0)), x, 10, gens=t)
+        step["block_generations"] = t
+        band["old_form_block_ms"] = step["block_ms"]
+        print(f"batch_{kind} (one-generation) at {tuple(x.shape)}: a block of {t} "
+              f"launches {step['block_ms']:.6f} ms in a CUDA graph, fresh flag rows "
+              f"(the banded form: {band['ms']:.6f} ms, "
+              f"{step['block_ms'] / band['ms']:.2f}x)", flush=True)
+        out[f"batch_{kind}_band"] = band
+        out[f"batch_{kind}"] = step
+        del scratch
+    return out
+
+
+def _timed_launch(key: str, x: torch.Tensor, vector_bytes: int, launch, plain,
+                  ops: int, ops_per_s: float) -> dict:
+    """A one-generation kernel, ``launch(src, dst, flags)``: ms per launch in
+    a CUDA graph with a fresh flag row per launch, as in the engine's block
+    (``_fresh_flags_ms``); beside it the replay of ``_time``'s graph, whose
+    launches find their flags set after the first, eager launches, the
+    wrapper's host time and the plain version ``plain(src)``."""
+    b = x.shape[0]
+    y = torch.empty_like(x)
+    flags = torch.zeros((b, sb.STEP_FLAGS), dtype=torch.int32, device=x.device)
+    ring = lambda i, a, o: launch(a, o, flags)  # noqa: E731
+    eager_ms = _time(ring, [x], [y], 100)
+    set_ms, wrapper_ms = profiler.ring_graph_ms(ring, [x], [y], 100)
+    ms = _fresh_flags_ms(launch, x, 100)
+    plain_ms = _time(lambda i, a, o: plain(a), [x], [y], 3, warm=1)
+    board_bytes = x.numel() * x.element_size()
+    nbytes = 2 * board_bytes + flags.numel() * 4 + vector_bytes
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
+    resident = "fits in" if 2 * board_bytes <= L2_BYTES else "exceeds"
+    print(f"{key} at {tuple(x.shape)}: {ms:.6f} ms/launch in a CUDA graph, "
+          f"fresh flags per launch ({set_ms:.6f} with its flags set; eager "
+          f"{eager_ms:.6f} ms, wrapper {wrapper_ms:.6f} ms on the host, plain "
+          f"{plain_ms:.6f} ms); bytes {nbytes} -> {bytes_ms:.6f} ms, logic ops "
+          f"{ops} -> {ops_ms:.6f} ms; bound share {max(bytes_ms, ops_ms) / ms:.3f}; "
+          f"working set {2 * board_bytes} bytes, {resident} the {L2_BYTES}-byte L2",
+          flush=True)
+    del y
+    return {"shape": list(x.shape), "ms": ms, "ms_flags_set": set_ms,
             "eager_ms": eager_ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes, "bytes_ms": bytes_ms, "logic_ops": ops,
             "ops_ms": ops_ms, "logic_ops_per_s": ops_per_s,
-            "working_set_bytes": 2 * x.numel() * x.element_size(),
-        }
-    return out
+            "working_set_bytes": 2 * board_bytes}
 
 
 def _timed_block(key: str, x: torch.Tensor, launch, plain, ops: int,
                  vector_bytes: int, ops_per_s: float) -> dict:
-    """A block form at phase 4e's shape, one launch ``launch(src, dst,
-    flags)`` of a block of BATCH_BLOCK_T generations in which every board
-    runs: graph replay of 100 ping-pong launches, each storing into its own
-    zeroed (t, B, 2) flag rows; eager launches and the wrapper's host time
-    beside it, and the plain version ``plain(src)``. The bytes are the
-    boards, the flags and the (B,) vectors (``vector_bytes``) moved once;
-    ``ops`` the block's operations."""
+    """A block call, one ``launch(src, dst, flags)`` of a block of
+    BATCH_BLOCK_T generations in which every board runs: graph replay of
+    100 ping-pong launches, each storing into its own zeroed (t, B, 2) flag
+    rows; eager launches and the wrapper's host time beside it, and the
+    plain version ``plain(src)``. The bytes are the boards, the flags and
+    the (B,) vectors (``vector_bytes``) moved once; ``ops`` the block's
+    operations."""
     t, b = BATCH_BLOCK_T, x.shape[0]
     flags = torch.zeros((t, b, sb.STEP_FLAGS), dtype=torch.int32, device=x.device)
     y = torch.empty_like(x)
@@ -5231,13 +5406,15 @@ def _timed_block(key: str, x: torch.Tensor, launch, plain, ops: int,
     nbytes = 2 * board_bytes + flags.numel() * 4 + vector_bytes
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / ops_per_s * 1e3
+    resident = "fits in" if 2 * board_bytes <= L2_BYTES else "exceeds"
     print(f"{key} at {tuple(x.shape)}, t = {t}: {ms:.6f} ms a block "
           f"({ms / t:.6f} ms a generation) in a CUDA graph, fresh flag rows per "
           f"launch (eager {eager_ms:.6f} ms, wrapper {wrapper_ms:.6f} ms on the "
           f"host, plain {plain_ms:.6f} ms); bytes {nbytes} -> {bytes_ms:.6f} ms, "
           f"ops {ops} -> {ops_ms:.6f} ms; bound share "
           f"{max(bytes_ms, ops_ms) / ms:.3f}; working set {2 * board_bytes} "
-          f"bytes, fits in the {L2_BYTES}-byte L2", flush=True)
+          f"bytes, {resident} the {L2_BYTES}-byte L2", flush=True)
+    del y
     return {"shape": list(x.shape), "generations": t, "ms": ms,
             "ms_per_generation": ms / t, "eager_ms": eager_ms,
             "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,

@@ -12,46 +12,56 @@
 //       generations of B exact-fit tori stored as words, (B, height,
 //       nwords): bit j of word w is column 32w + j. One launch per block
 //       of the engine's loop.
-//   batch_packed_kernel  B1, streaming form: one generation of the same,
-//       for boards whose two copies do not fit in one CTA's shared memory.
+//   batch_packed_band_kernel  B1, banded form (B1-stream): the same block
+//       for boards whose two copies do not fit in one CTA's shared
+//       memory, each in bands of R rows, t' generations a launch
+//       (gol_batch_band_plan): one launch a block of 16 for rows of up to
+//       453 words on an H100.
+//   batch_packed_kernel  B1, one-generation form (B1-step): one generation
+//       of the same, for boards whose rows pass even a band of one row.
 //   batch_masked_block_kernel  B2, block form: a whole block of up to t
 //       generations of B uint8 boards in one (B, height, width) canvas;
 //       board b wraps at its own extent (heights[b], widths[b]) and every
 //       cell at or past it is written 0. The exact-fit byte mode runs
 //       through it with the extent of the canvas. One launch per block.
-//   batch_masked_kernel  B2, streaming form (B2-stream): one generation of
-//       the same, for canvases whose two bit copies do not fit in one
-//       CTA's shared memory.
+//   batch_masked_band_kernel  B2, banded form (B2-stream): the same block
+//       for canvases whose two bit copies do not fit in one CTA's shared
+//       memory, in bands of R canvas rows.
+//   batch_masked_kernel  B2, one-generation form (B2-step): one
+//       generation of the same, for canvases whose rows pass even a band
+//       of one row.
 //
 // Per-board step counts. A block of the engine's loop runs some boards
 // fewer generations than others (each board stops at its own generation
-// limit): `steps[b]` is board b's count for the block. The block forms run
-// board b for min(steps[b], t) generations and write the pair of
-// generation i to flags[i, b] (any live cell in the new board, any cell
-// that changed: "similar" stored negated, as in stencil_packed.cu) for
-// every i they run; the other rows stay as the caller zeroed them, and a
-// board with steps 0 (a padding slot, or a board whose limit was reached)
-// is copied through, byte for byte in B2. The one-generation kernels take
-// the launch's generation `gen` in its block: where gen >= steps[b] the
-// board is copied through unchanged and writes no flag, so ping-pong
-// buffers stay in step. They OR board b's pair into flags[2b] and
-// flags[2b + 1] of a buffer the caller zeroes. For B2 the pair covers the
-// board's whole slot of the canvas, padding included, which is the JAX
-// loop's compare of the padded canvas: padding is 0 after every generation,
-// so a non-zero padding cell of the input differs in the board's first
-// generation only.
+// limit): `steps[b]` is board b's count for the block. The block and
+// banded forms run board b for min(steps[b], t) generations and write the
+// pair of generation i to flags[i, b] (any live cell in the new board, any
+// cell that changed: "similar" stored negated, as in stencil_packed.cu)
+// for every i they run; the other rows stay as the caller zeroed them, and
+// a board with steps 0 (a padding slot, or a board whose limit was
+// reached) is copied through, byte for byte in B2. A banded launch runs
+// generations g0 .. g0 + tb - 1 of the block: board b runs min(steps[b] -
+// g0, tb) of them, and a board with none is copied through, so ping-pong
+// buffers stay in step. The one-generation kernels take the launch's
+// generation `gen` in its block the same way. Where several CTAs share a
+// board (the banded forms) or a board's pair (the one-generation
+// kernels), they OR the pair into a buffer the caller zeroes. For B2 the
+// pair covers the board's whole slot of the canvas, padding included,
+// which is the JAX loop's compare of the padded canvas: padding is 0 after
+// every generation, so a non-zero padding cell of the input differs in the
+// board's first generation only.
 //
 // What bounds them. Each generation moves each board's words once and
 // does the adder network's 12 logic instructions per word
 // (roofline.OPS_PER_WORD_GEN). At the serving shape (64 boards of 256^2:
-// 512 KiB of words; B2's 64 slots of 256^2 bytes, 4 MiB) one generation's
-// bound is 0.0003 ms (B1) and 0.0025 ms (B2, the bytes once each way), and
-// a block of 16 generations' 0.0015 ms (B1, set by the operations once the
-// board stays on chip) and 0.0025 ms (B2: the bytes still, the block's
-// operations on the bits take 0.0015 ms): far below the cost of a launch.
-// So the first forms, one launch per generation, were launch-bound (B1
-// 0.0088 ms a launch, with all 64 warps of a board ORing into the same two
-// fresh flags; B2 0.0203 ms, three byte loads a cell from device memory).
+// 512 KiB of words; B2's 64 slots of 256^2 bytes, 4 MiB) a block of 16
+// generations' bound is 0.0015 ms (B1, set by the operations once the
+// board stays on chip) and 0.0025 ms (B2: the bytes once each way, the
+// block's operations on the bits take 0.0015 ms). At the 1024^2 buckets
+// (64 boards: 8 MiB of words; 64 slots of 1000^2 in 1024^2, 64 MiB) it is
+// 0.0241 ms (B1, operations) and 0.0401 ms (B2, bytes), where sixteen
+// one-generation launches cannot beat 16 x 0.0050 and 16 x 0.0401 ms: the
+// banded forms move each board through device memory once a block.
 //
 // Design of the block forms. One CTA per board: it holds the board in
 // dynamic shared memory (two copies, ping-ponged), runs its generations
@@ -59,21 +69,21 @@
 // memory sees the board once each way per block, and the host one launch.
 // A thread owns a strip of rows of one word column and walks down it,
 // keeping the row sums of the rows above and at the current one, so each
-// word costs one new row sum (three shared loads). A generation's flags
-// are reduced in the CTA (block_flags: a warp's __reduce_or_sync, then one
-// word per warp in shared memory, double-buffered by the generation's
-// parity so one barrier a generation suffices) and one thread stores the
-// pair with plain stores: no atomics. The CTA takes two words per thread,
-// up to 1024 threads: one CTA is the only work its SM has for the board's
-// whole block, so it brings as many warps as the SM holds to hide the
-// shared memory latency of the dependent loads (a 256^2 board, 2048
-// words, gets 1024 threads and strips of 2 rows). One CTA a board fills 64
-// of the card's 132 SMs at the serving batch. The shared memory (two
-// copies) bounds the board: up to the device's opt-in maximum per block
-// (cudaDevAttrMaxSharedMemoryPerBlockOptin, 232,448 bytes on an H100:
-// boards of up to 29,024 words), asked for with cudaFuncSetAttribute past
-// 48 KiB; larger boards take the streaming forms, which the wrappers
-// choose by shape (gol_batch_block_max_words).
+// word costs one new row sum (three shared loads; masked_generation). A
+// generation's flags are reduced in the CTA (block_flags: a warp's
+// __reduce_or_sync, then one word per warp in shared memory,
+// double-buffered by the generation's parity so one barrier a generation
+// suffices) and one thread stores the pair with plain stores: no atomics.
+// The CTA takes two words per thread, up to 1024 threads: one CTA is the
+// only work its SM has for the board's whole block, so it brings as many
+// warps as the SM holds to hide the shared memory latency of the dependent
+// loads (a 256^2 board, 2048 words, gets 1024 threads and strips of 2
+// rows). One CTA a board fills 64 of the card's 132 SMs at the serving
+// batch. The shared memory (two copies) bounds the board: up to the
+// device's opt-in maximum per block (cudaDevAttrMaxSharedMemoryPerBlockOptin,
+// 232,448 bytes on an H100: boards of up to 29,024 words), asked for with
+// cudaFuncSetAttribute past 48 KiB; larger boards take the banded forms,
+// which the wrappers choose by shape (gol_batch_block_max_words).
 //
 // B1 loads and stores the board's words with 16-byte accesses. B2 holds
 // its slot as bits, ceil(width / 32) words a row at the canvas's width
@@ -83,31 +93,59 @@
 // that feeds it gives only those (io/text_grid.py, the wire format), and
 // the B2 wrapper's callers stage boards from them. It reads the slot with
 // 16-byte loads (the bytes before the first 16-byte boundary and after the
-// last one singly), turns each load's cells into bits in registers and
-// ORs each word's bits into shared memory with one atomicOr, noting any
-// non-zero padding cell for the first generation's differs flag; at the
-// end of the block it writes the whole slot back as bytes with 16-byte
-// stores, 0 past the board. Its columns wrap at the board's own width,
-// not at a word boundary: the west neighbour of column 0 is bit (w-1) % 32
-// of the row's last word, and the east neighbour of column w-1 is bit 0 of
-// word 0, placed in the register copy of the last word just past its last
-// cell; the bits past the last cell are masked off after each generation.
-// A spent board's CTA copies its slot and returns as a whole, before any
+// last one singly), turns each load's 16 cells into bits in registers (a
+// load inside one row and the board's extent with two multiplies,
+// cells_to_bits; any other cell by cell) and ORs each word's bits into
+// shared memory with one atomicOr, noting any non-zero padding cell for
+// the first generation's differs flag; at the end of the block it writes
+// the whole slot back as bytes with 16-byte stores, 0 past the board. Its
+// columns wrap at the board's own width, not at a word boundary: the west
+// neighbour of column 0 is bit (w-1) % 32 of the row's last word, and the
+// east neighbour of column w-1 is bit 0 of word 0, placed in the register
+// copy of the last word just past its last cell; the bits past the last
+// cell are masked off after each generation (a board whose width is a
+// multiple of 32 wraps at words alone, as B1's: masked_row_sums<true>). A
+// spent board's CTA copies its slot and returns as a whole, before any
 // barrier.
 //
-// Design of the one-generation kernels. The B1 streaming form is one
-// thread per word: it loads the word and its 8 neighbours (rows and words
-// modulo the board, so one-word-wide and one-row boards are right) and
-// computes the three rows' sums and the rule through the adder network of
-// stencil_packed.cu (next_gen). Its flags are reduced in the CTA to one
-// atomic per CTA and flag. B2-stream gives each lane of a warp one column
-// of a band of kBandRows rows: the lane walks down it, wrapping rows and
-// columns at the board's own extent, and keeps the 3-cell sums of the rows
-// above and at the current one, so each cell costs one row sum (3 byte
-// loads, the warp's 32 adjacent columns in one 32-byte sector); a warp
-// reduces its predicates and one lane issues the atomic, only if the flag
-// is still clear. The neighbour loads of both come from L1 and L2: each
-// input byte comes from device memory once.
+// Design of the banded forms. A board too large for one CTA is cut into
+// bands of R rows (B2: of the canvas's rows), one CTA a band, boards x
+// bands on grid.x. The CTA loads its band and tb ghost rows each side
+// (rows modulo the board's own height, so a board shorter than a band and
+// its ghost rows repeats its rows; B2 packs them as bits as the block form
+// does, each run of consecutive rows as one span) into two copies in
+// shared memory and runs tb generations on a shrinking trapezoid: after
+// generation i the rows within tb - 1 - i of the band are exact, and only
+// those are computed, with one __syncthreads() a generation. Only the
+// band's own rows go back to device memory, once a launch. Every row the
+// trapezoid computes is a row of the board at that generation, so the
+// CTA's flags (block_flags) may count them all; several CTAs share a
+// board's pair, so thread 0 ORs it in with an atomic, issued only for a
+// flag still clear when it read it (before the barrier, whose wait hides
+// the read). B2's rows past a board's height are padding: a band of
+// padding alone loads nothing, writes 0 and reports its non-zero cells
+// in its first differs flag. The plan (gol_batch_band_plan) takes t' = t
+// where a band of at least 2 t' rows fits (so ghost rows cost at most
+// 2x), else fewer generations a launch and ceil(t / t') launches through
+// the caller's scratch stack; and R so that boards x bands fill the SMs
+// once (one CTA an SM) where the batch leaves room, with bands of at
+// least t' rows. All offsets into the stacks are 64-bit. Where not even a
+// band of one row and a ghost row each side fits (rows of more than 9,674
+// words on an H100), the wrappers keep the one-generation kernels.
+//
+// Design of the one-generation kernels. B1-step is one thread per word:
+// it loads the word and its 8 neighbours (rows and words modulo the board,
+// so one-word-wide and one-row boards are right) and computes the three
+// rows' sums and the rule through the adder network of stencil_packed.cu
+// (next_gen). Its flags are reduced in the CTA to one atomic per CTA and
+// flag. B2-step gives each lane of a warp one column of a band of
+// kBandRows rows: the lane walks down it, wrapping rows and columns at the
+// board's own extent, and keeps the 3-cell sums of the rows above and at
+// the current one, so each cell costs one row sum (3 byte loads, the
+// warp's 32 adjacent columns in one 32-byte sector); a warp reduces its
+// predicates and one lane issues the atomic, only if the flag is still
+// clear. The neighbour loads of both come from L1 and L2: each input byte
+// comes from device memory once.
 
 #include <cstddef>
 #include <cstdint>
@@ -123,6 +161,14 @@ constexpr int kBandWarps = kThreads / kWarp;  // B2: bands of a block
 constexpr int kBandRows = 16;                   // B2: rows of a warp's band
 constexpr int kBlockMaxThreads = 1024;  // B1 block form: most threads a CTA
 constexpr int kBlockMaxWarps = kBlockMaxThreads / kWarp;
+// The banded forms' most threads a CTA, B1's and B2's; ptxas is held to as
+// many CTAs an SM as make kBlockMaxThreads threads. B1's generations are
+// its CTA's only work, and longer strips cost fewer row sums a word; B2's
+// CTA also packs and unpacks its band's bytes, which want more threads in
+// flight (gol_tpu_torch/tools/batch_band_sweep.py times both against
+// other sizes).
+constexpr int kPackedBandThreads = 512;
+constexpr int kMaskedBandThreads = 1024;
 // B1 block form: the warps' flag words, one set per generation parity.
 constexpr int kBlockStaticShared = 2 * kBlockMaxWarps * 4;
 constexpr int kDefaultDynamicShared = 48 * 1024;  // without the opt-in
@@ -169,47 +215,58 @@ __device__ __forceinline__ void row_sums(const uint32_t* row, int w, int ww,
 // the board's width: the west neighbour of column 0 is the last cell, and
 // the east neighbour of the last cell is column 0, placed just past it (the
 // bits past the last cell are 0, and what lands there is masked off).
-// The word itself in `x`.
+// `kFull`: lw is 31 (the board ends at a word boundary), so the row wraps
+// at words alone. The word itself in `x`.
+template <bool kFull>
 __device__ __forceinline__ void masked_row_sums(const uint32_t* row, int k,
                                                 int last, int lw, uint32_t& m0,
                                                 uint32_t& m1, uint32_t& s0,
                                                 uint32_t& s1, uint32_t& x) {
   x = row[k];
+  const uint32_t en = row[k != last ? k + 1 : 0];
+  if (kFull) {
+    sums(x, row[k != 0 ? k - 1 : last], en, m0, m1, s0, s1);
+    return;
+  }
   const uint32_t wn = k != 0 ? row[k - 1] : row[last] >> lw << 31;
-  const uint32_t en = k != last ? row[k + 1] : row[0];
   const uint32_t xe = k == last && lw != 31 ? x | (row[0] & 1u) << (lw + 1) : x;
   sums(xe, wn, en, m0, m1, s0, s1);
 }
 
-// One generation of an (h, w) torus held as bits in shared memory, rows
-// `stride` words apart, from `src` to `dst`, by the CTA: thread k walks
+// One generation of rows [lo, hi) of a bit board held in shared memory,
+// `rows` rows `stride` words apart (the neighbours of row r are rows r - 1
+// and r + 1 modulo `rows`), from `src` to `dst`, by the CTA: thread k walks
 // strips of `strip` rows of one word column of the board's nwb (units k,
 // k + blockDim.x, ...), keeping the row sums of the rows above and at the
 // current one, so a word costs one new row sum. The bits past the last
 // cell (lw) stay 0 (`last_mask`). ORs the new words into `alive` and the
-// changed bits into `differs`. B1's board is the case stride = nwb, lw =
-// 31.
+// changed bits into `differs`. The block forms' torus is the case lo = 0,
+// hi = rows; a band's trapezoid (the banded forms) never reaches its first
+// or last row, so it never wraps. B1's board is the case stride = nwb, lw
+// = 31; `kFull` must be lw == 31 (masked_row_sums).
+template <bool kFull>
 __device__ __forceinline__ void masked_generation(const uint32_t* src,
-                                                  uint32_t* dst, int h,
-                                                  int nwb, int stride, int lw,
-                                                  int strip, uint32_t& alive,
+                                                  uint32_t* dst, int rows,
+                                                  int lo, int hi, int nwb,
+                                                  int stride, int lw, int strip,
+                                                  uint32_t& alive,
                                                   uint32_t& differs) {
   const int last = nwb - 1;
-  const uint32_t last_mask = lw == 31 ? ~0u : (1u << (lw + 1)) - 1u;
-  const int units = (h + strip - 1) / strip * nwb;
+  const uint32_t last_mask = kFull ? ~0u : (1u << (lw + 1)) - 1u;
+  const int units = (hi - lo + strip - 1) / strip * nwb;
   for (int u = threadIdx.x; u < units; u += blockDim.x) {
     const int k = u % nwb;
-    const int r0 = u / nwb * strip;
-    const int r1 = min(r0 + strip, h);
+    const int r0 = lo + u / nwb * strip;
+    const int r1 = min(r0 + strip, hi);
     const uint32_t keep = k == last ? last_mask : ~0u;
     uint32_t u0, u1, m0, m1, s0, s1, x, unused0, unused1, unused2;
-    masked_row_sums(src + (r0 == 0 ? h - 1 : r0 - 1) * stride, k, last, lw,
-                    unused0, unused1, u0, u1, unused2);
-    masked_row_sums(src + r0 * stride, k, last, lw, m0, m1, s0, s1, x);
+    masked_row_sums<kFull>(src + (r0 == 0 ? rows - 1 : r0 - 1) * stride, k,
+                           last, lw, unused0, unused1, u0, u1, unused2);
+    masked_row_sums<kFull>(src + r0 * stride, k, last, lw, m0, m1, s0, s1, x);
     for (int r = r0; r < r1; ++r) {
       uint32_t dm0, dm1, d0, d1, xd;
-      masked_row_sums(src + (r + 1 == h ? 0 : r + 1) * stride, k, last, lw,
-                      dm0, dm1, d0, d1, xd);
+      masked_row_sums<kFull>(src + (r + 1 == rows ? 0 : r + 1) * stride, k,
+                             last, lw, dm0, dm1, d0, d1, xd);
       const uint32_t nv = next_gen(u0, u1, d0, d1, m0, m1, x) & keep;
       dst[r * stride + k] = nv;
       alive |= nv;
@@ -225,23 +282,63 @@ __device__ __forceinline__ void masked_generation(const uint32_t* src,
   }
 }
 
-// The block forms' flags of one generation: a warp's __reduce_or_sync of
-// the CTA's (alive, differs), one word per warp in `words` (the
-// generation's parity's set), one barrier, and thread 0 stores the pair to
-// `pair` with plain stores. Every thread of the CTA calls it. Thread 0
-// reads `words` before any warp writes them again: that is after the next
+// B2's generation: masked_generation, word-wrapped where the board ends at
+// a word boundary (lw == 31).
+__device__ __forceinline__ void board_generation(const uint32_t* src,
+                                                 uint32_t* dst, int rows,
+                                                 int lo, int hi, int nwb,
+                                                 int stride, int lw, int strip,
+                                                 uint32_t& alive,
+                                                 uint32_t& differs) {
+  if (lw == 31) {
+    masked_generation<true>(src, dst, rows, lo, hi, nwb, stride, lw, strip,
+                            alive, differs);
+  } else {
+    masked_generation<false>(src, dst, rows, lo, hi, nwb, stride, lw, strip,
+                             alive, differs);
+  }
+}
+
+// The rows of a strip (masked_generation) that spread `rows` rows of `nwb`
+// words over the CTA's threads, one unit each.
+__device__ __forceinline__ int generation_strip(int rows, int nwb) {
+  const int threads = static_cast<int>(blockDim.x);
+  return max(1, min(rows, (rows * nwb + threads - 1) / threads));
+}
+
+// The block and banded forms' flags of one generation: a warp's
+// __reduce_or_sync of the CTA's (alive, differs), one word per warp in
+// `words` (the generation's parity's set), one barrier, and thread 0 puts
+// the pair into `pair`: with plain stores where the CTA holds the whole
+// board (`shared` false), else (a band: several CTAs share the board's
+// pair) ORed in, with the atomic issued only for a flag that was still
+// clear when thread 0 read it, just before the barrier (so the barrier's
+// wait hides the read). Every thread of the CTA calls it. Thread 0 reads
+// `words` before any warp writes them again: that is after the next
 // generation's barrier, which thread 0 has not reached.
 __device__ __forceinline__ void block_flags(uint32_t alive, uint32_t differs,
-                                            uint32_t* words, int* pair) {
+                                            uint32_t* words, int* pair,
+                                            bool shared) {
   const unsigned both = __reduce_or_sync(
       kFullMask, (alive != 0 ? 1u : 0u) | (differs != 0 ? 2u : 0u));
   if (threadIdx.x % kWarp == 0) words[threadIdx.x / kWarp] = both;
+  int seen[2] = {0, 0};
+  if (shared && threadIdx.x == 0) {
+    seen[0] = *reinterpret_cast<volatile int*>(pair);
+    seen[1] = *reinterpret_cast<volatile int*>(pair + 1);
+  }
   __syncthreads();  // the generation is written, and its warps' flags
   if (threadIdx.x == 0) {
     unsigned any = 0;
     for (int k = 0; k < static_cast<int>(blockDim.x) / kWarp; ++k) any |= words[k];
-    pair[0] = static_cast<int>(any & 1u);
-    pair[1] = static_cast<int>(any >> 1);
+    for (int q = 0; q < 2; ++q) {
+      const int bit = static_cast<int>(any >> q & 1u);
+      if (!shared) {
+        pair[q] = bit;
+      } else if (bit && !seen[q]) {
+        atomicOr(pair + q, 1);
+      }
+    }
   }
 }
 
@@ -252,6 +349,33 @@ __device__ __forceinline__ void or_flag(uint32_t acc, int* flag) {
   if (__reduce_or_sync(kFullMask, acc != 0 ? 1u : 0u) &&
       threadIdx.x % kWarp == 0) {
     if (*reinterpret_cast<volatile int*>(flag) == 0) atomicOr(flag, 1);
+  }
+}
+
+// `count` words from device memory at `src` to `dst` (shared or device
+// memory), with 16-byte accesses where `wide` (both 16-byte aligned, count
+// a multiple of 4), by the CTA.
+__device__ __forceinline__ void load_words(const uint32_t* src, uint32_t* dst,
+                                           int count, bool wide) {
+  if (wide) {
+    const uint4* from = reinterpret_cast<const uint4*>(src);
+    uint4* to = reinterpret_cast<uint4*>(dst);
+    for (int i = threadIdx.x; i < count / 4; i += blockDim.x) to[i] = __ldg(from + i);
+  } else {
+    for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = __ldg(src + i);
+  }
+}
+
+// `count` words from shared memory at `src` to device memory at `dst`, as
+// load_words.
+__device__ __forceinline__ void store_words(const uint32_t* src, uint32_t* dst,
+                                            int count, bool wide) {
+  if (wide) {
+    const uint4* from = reinterpret_cast<const uint4*>(src);
+    uint4* to = reinterpret_cast<uint4*>(dst);
+    for (int i = threadIdx.x; i < count / 4; i += blockDim.x) to[i] = from[i];
+  } else {
+    for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
   }
 }
 
@@ -273,39 +397,93 @@ batch_packed_block_kernel(const uint32_t* __restrict__ in,
   const bool wide = words % 4 == 0 &&
                     reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  if (wide) {
-    const uint4* src = reinterpret_cast<const uint4*>(in + base);
-    for (int i = threadIdx.x; i < words / 4; i += blockDim.x) {
-      board_shared[i] = __ldg(src + i);
-    }
-  } else {
-    for (int i = threadIdx.x; i < words; i += blockDim.x) {
-      cur[i] = __ldg(in + base + i);
-    }
-  }
+  load_words(in + base, cur, words, wide);
   const int n = min(__ldg(steps + b), t);
   __syncthreads();
   for (int i = 0; i < n; ++i) {
     uint32_t alive = 0, differs = 0;
-    masked_generation(cur, nxt, height, nwords, nwords, 31, strip, alive,
-                      differs);
+    masked_generation<true>(cur, nxt, height, 0, height, nwords, nwords, 31,
+                            strip, alive, differs);
     block_flags(alive, differs, warp_flags[i & 1],
-                flags + 2 * (static_cast<size_t>(i) * batch + b));
+                flags + 2 * (static_cast<size_t>(i) * batch + b), false);
     uint32_t* done = nxt;
     nxt = cur;
     cur = done;
   }
-  if (wide) {
-    uint4* dst = reinterpret_cast<uint4*>(out + base);
-    const uint4* src = reinterpret_cast<const uint4*>(cur);
-    for (int i = threadIdx.x; i < words / 4; i += blockDim.x) dst[i] = src[i];
-  } else {
-    for (int i = threadIdx.x; i < words; i += blockDim.x) out[base + i] = cur[i];
-  }
+  store_words(cur, out + base, words, wide);
 }
 
-// B1, streaming form: grid (ceil(height * nwords / kThreads), batch), one
-// thread per word.
+// x modulo m, in [0, m).
+__device__ __forceinline__ int wrap(int x, int m) { return (x % m + m) % m; }
+
+// The banded forms' CTA: the band of board b and its first row r0 from
+// blockIdx.x (boards x bands on grid.x), the bands `band_rows` rows each.
+__device__ __forceinline__ void band_of(int height, int band_rows, int& b,
+                                        int& r0) {
+  const int bands = (height + band_rows - 1) / band_rows;
+  const int cta = static_cast<int>(blockIdx.x);
+  b = cta / bands;
+  r0 = cta % bands * band_rows;
+}
+
+// B1, banded form: grid (batch * bands), bands = ceil(height / band_rows);
+// block_threads((band_rows + 2 tb) * nwords) threads, at most
+// kPackedBandThreads, dynamic shared memory for two copies of band_rows + 2
+// tb rows (band_launch). Generations g0 .. g0 + tb - 1 of the
+// block: board b runs n = min(steps[b] - g0, tb) of them (none: its band
+// is copied through), generation i's pair ORed into flags[g0 + i, b].
+__global__ void __launch_bounds__(kPackedBandThreads,
+                                  kBlockMaxThreads / kPackedBandThreads)
+batch_packed_band_kernel(const uint32_t* __restrict__ in,
+                         uint32_t* __restrict__ out, int* __restrict__ flags,
+                         const int* __restrict__ steps, int g0, int tb,
+                         int batch, int height, int nwords, int band_rows) {
+  extern __shared__ __align__(16) uint4 board_shared[];
+  __shared__ uint32_t warp_flags[2][kBlockMaxWarps];
+  int b, r0;
+  band_of(height, band_rows, b, r0);
+  const int own = min(band_rows, height - r0);
+  const size_t base = static_cast<size_t>(b) * height * nwords;
+  const bool wide = nwords % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int n = max(0, min(__ldg(steps + b) - g0, tb));
+  if (n == 0) {  // spent: the whole CTA copies its band and returns
+    load_words(in + base + static_cast<size_t>(r0) * nwords,
+               out + base + static_cast<size_t>(r0) * nwords, own * nwords, wide);
+    return;
+  }
+  // Local row j holds board row r0 - n + j (modulo height): the band and n
+  // ghost rows each side, loaded in runs of consecutive board rows.
+  const int rows = own + 2 * n;
+  uint32_t* cur = reinterpret_cast<uint32_t*>(board_shared);
+  uint32_t* nxt = cur + ((rows * nwords + 3) & ~3);  // 16-byte aligned
+  for (int j = 0, r = wrap(r0 - n, height); j < rows; r = 0) {
+    const int run = min(rows - j, height - r);
+    load_words(in + base + static_cast<size_t>(r) * nwords, cur + j * nwords,
+               run * nwords, wide);
+    j += run;
+  }
+  __syncthreads();
+  const int strip = generation_strip(rows - 2, nwords);
+  for (int i = 0; i < n; ++i) {
+    // Rows [1 + i, rows - 1 - i) are exact after generation i: each is a
+    // row of the board at that generation, so the flags may count them all.
+    uint32_t alive = 0, differs = 0;
+    masked_generation<true>(cur, nxt, rows, 1 + i, rows - 1 - i, nwords,
+                            nwords, 31, strip, alive, differs);
+    block_flags(alive, differs, warp_flags[i & 1],
+                flags + 2 * (static_cast<size_t>(g0 + i) * batch + b), true);
+    uint32_t* done = nxt;
+    nxt = cur;
+    cur = done;
+  }
+  store_words(cur + n * nwords, out + base + static_cast<size_t>(r0) * nwords,
+              own * nwords, wide);
+}
+
+// B1, one-generation form: grid (ceil(height * nwords / kThreads), batch),
+// one thread per word.
 __global__ void __launch_bounds__(kThreads)
 batch_packed_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                     int* __restrict__ flags, const int* __restrict__ steps,
@@ -427,35 +605,37 @@ batch_masked_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
   or_flag(differs, flags + 2 * b + 1);
 }
 
-// B2, block form. The bytes of a slot split at 16-byte boundaries of `p`:
-// the bytes before the first boundary (head_bytes), whole 16-byte chunks,
-// and the rest.
+// B2, block and banded forms. The bytes of a span split at 16-byte
+// boundaries of `p`: the bytes before the first boundary (head_bytes),
+// whole 16-byte chunks, and the rest.
 __device__ __forceinline__ int head_bytes(const void* p, int n) {
   return min(n, static_cast<int>((16 - reinterpret_cast<uintptr_t>(p) % 16) % 16));
 }
 
 // The cells of the `n` low bytes of `v` (the first lowest), from row r,
 // column c of a slot `width` wide, into the bit board `bits` (`stride`
-// words a row): a cell inside the extent (h, w) sets its bit through
-// `acc`, the bits gathered for word `at`, which goes to shared memory with
-// one atomicOr when the next cell is another word's (the caller ORs the
-// last); a non-zero cell at or past the extent sets `pad`. Advances (r, c).
+// words a row, slot row r at bit row r - roff): a cell inside the extent
+// (h, w) sets its bit through `acc`, the bits gathered for word `at`,
+// which goes to shared memory with one atomicOr when the next cell is
+// another word's (the caller ORs the last); a non-zero cell at or past the
+// extent in rows [plo, phi) sets `pad`. Advances (r, c).
 __device__ __forceinline__ void pack_cells(uint32_t v, int n, int& r, int& c,
                                            int width, int h, int w,
                                            int stride, uint32_t* bits,
+                                           int roff, int plo, int phi,
                                            uint32_t& acc, int& at,
                                            uint32_t& pad) {
   for (int q = 0; q < n; ++q, v >>= 8) {
     const uint32_t cell = v & 0xffu;
     if (r < h && c < w) {
-      const int word = r * stride + (c >> 5);
+      const int word = (r - roff) * stride + (c >> 5);
       if (word != at) {
         if (acc != 0) atomicOr(bits + at, acc);
         acc = 0;
         at = word;
       }
       acc |= (cell != 0 ? 1u : 0u) << (c & 31);
-    } else {
+    } else if (r >= plo && r < phi) {
       pad |= cell;
     }
     if (++c == width) {
@@ -465,14 +645,81 @@ __device__ __forceinline__ void pack_cells(uint32_t v, int n, int& r, int& c,
   }
 }
 
+// Four cells, the bytes of `v` (the first lowest), as four bits: bit q =
+// (byte q != 0). Each byte's bits are folded into its bit 0, and one
+// multiply gathers the four bit 0s into bits 28-31 (every other product
+// term lands below bit 28 or past bit 31, each on a bit of its own).
+__device__ __forceinline__ uint32_t cells_to_bits(uint32_t v) {
+  v |= v >> 4;
+  v |= v >> 2;
+  v |= v >> 1;
+  return (v & 0x01010101u) * 0x10204080u >> 28;
+}
+
+// Four bits (the low nibble of `n`) as four 0/1 cell bytes: one multiply
+// places bit q at bit 8q (the other terms land on bits of their own).
+__device__ __forceinline__ uint32_t bits_to_cells(uint32_t n) {
+  return (n & 0xfu) * 0x00204081u & 0x01010101u;
+}
+
+// Rows [ra, rb) of the slot `slot` (`width` bytes a row) into `bits` by
+// the CTA, as pack_cells: 16-byte loads (the bytes before the first
+// 16-byte boundary and after the last one singly). A load whose 16 cells
+// lie in one row inside the extent turns into 16 bits at once
+// (cells_to_bits) and goes to shared memory with one atomicOr a word it
+// touches; any other load's cells go one by one through pack_cells, ORed
+// with one atomicOr a word.
+__device__ __forceinline__ void pack_span(const uint8_t* slot, int ra, int rb,
+                                          int width, int h, int w, int stride,
+                                          uint32_t* bits, int roff, int plo,
+                                          int phi, uint32_t& pad) {
+  const int first = ra * width;
+  const int count = (rb - ra) * width;
+  const int head = head_bytes(slot + first, count);
+  const int chunks = (count - head) / 16;
+  const int rest = count - head - 16 * chunks;
+  const uint4* vec = reinterpret_cast<const uint4*>(slot + first + head);
+  for (int i = threadIdx.x; i < chunks; i += blockDim.x) {
+    const uint4 v = __ldg(vec + i);
+    const int f = first + head + 16 * i;
+    int r = f / width, c = f - r * width;
+    if (r < h && c + 16 <= w) {
+      const uint32_t b16 = cells_to_bits(v.x) | cells_to_bits(v.y) << 4 |
+                           cells_to_bits(v.z) << 8 | cells_to_bits(v.w) << 12;
+      uint32_t* word = bits + (r - roff) * stride + (c >> 5);
+      const int shift = c & 31;
+      if (b16 << shift) atomicOr(word, b16 << shift);
+      if (shift > 16 && b16 >> (32 - shift)) atomicOr(word + 1, b16 >> (32 - shift));
+      continue;
+    }
+    int at = -1;
+    uint32_t acc = 0;
+    pack_cells(v.x, 4, r, c, width, h, w, stride, bits, roff, plo, phi, acc, at, pad);
+    pack_cells(v.y, 4, r, c, width, h, w, stride, bits, roff, plo, phi, acc, at, pad);
+    pack_cells(v.z, 4, r, c, width, h, w, stride, bits, roff, plo, phi, acc, at, pad);
+    pack_cells(v.w, 4, r, c, width, h, w, stride, bits, roff, plo, phi, acc, at, pad);
+    if (acc != 0) atomicOr(bits + at, acc);
+  }
+  for (int i = threadIdx.x; i < head + rest; i += blockDim.x) {
+    const int f = first + (i < head ? i : count - rest + (i - head));
+    int r = f / width, c = f - r * width, at = -1;
+    uint32_t acc = 0;
+    pack_cells(__ldg(slot + f), 1, r, c, width, h, w, stride, bits, roff, plo,
+               phi, acc, at, pad);
+    if (acc != 0) atomicOr(bits + at, acc);
+  }
+}
+
 // The `n` cells from row r, column c of a slot `width` wide as bytes (the
-// first lowest): bit c of row r of the bit board. Advances (r, c).
+// first lowest): bit c of bit row r - roff of the bit board for rows below
+// `rlim`, 0 at and past it. Advances (r, c).
 __device__ __forceinline__ uint32_t unpack_cells(int n, int& r, int& c,
                                                  int width, int stride,
-                                                 const uint32_t* bits) {
+                                                 const uint32_t* bits, int roff,
+                                                 int rlim) {
   uint32_t v = 0;
   for (int q = 0; q < n; ++q) {
-    v |= (bits[r * stride + (c >> 5)] >> (c & 31) & 1u) << (8 * q);
+    if (r < rlim) v |= (bits[(r - roff) * stride + (c >> 5)] >> (c & 31) & 1u) << (8 * q);
     if (++c == width) {
       c = 0;
       ++r;
@@ -481,8 +728,56 @@ __device__ __forceinline__ uint32_t unpack_cells(int n, int& r, int& c,
   return v;
 }
 
-// A spent board's slot, byte for byte, by the CTA: 16-byte loads and
-// stores where `src` and `dst` sit alike against 16-byte boundaries.
+// Rows [ra, rb) of the slot `slot` as bytes from `bits` by the CTA, as
+// unpack_cells, with 16-byte stores (the bytes before the first 16-byte
+// boundary and after the last one singly). A store whose 16 cells lie in
+// one row takes their 16 bits at once, from the one or two words they sit
+// in (0 in rows at or past `rlim`), and spreads them with bits_to_cells.
+__device__ __forceinline__ void unpack_span(uint8_t* slot, int ra, int rb,
+                                            int width, int stride,
+                                            const uint32_t* bits, int roff,
+                                            int rlim) {
+  const int first = ra * width;
+  const int count = (rb - ra) * width;
+  const int head = head_bytes(slot + first, count);
+  const int chunks = (count - head) / 16;
+  const int rest = count - head - 16 * chunks;
+  uint4* vec = reinterpret_cast<uint4*>(slot + first + head);
+  for (int i = threadIdx.x; i < chunks; i += blockDim.x) {
+    const int f = first + head + 16 * i;
+    int r = f / width, c = f - r * width;
+    uint4 v;
+    if (c + 16 <= width) {
+      uint32_t b16 = 0;
+      if (r < rlim) {
+        const uint32_t* word = bits + (r - roff) * stride + (c >> 5);
+        const int shift = c & 31;
+        b16 = word[0] >> shift;
+        if (shift > 16) b16 |= word[1] << (32 - shift);
+      }
+      v.x = bits_to_cells(b16);
+      v.y = bits_to_cells(b16 >> 4);
+      v.z = bits_to_cells(b16 >> 8);
+      v.w = bits_to_cells(b16 >> 12);
+    } else {
+      v.x = unpack_cells(4, r, c, width, stride, bits, roff, rlim);
+      v.y = unpack_cells(4, r, c, width, stride, bits, roff, rlim);
+      v.z = unpack_cells(4, r, c, width, stride, bits, roff, rlim);
+      v.w = unpack_cells(4, r, c, width, stride, bits, roff, rlim);
+    }
+    vec[i] = v;
+  }
+  for (int i = threadIdx.x; i < head + rest; i += blockDim.x) {
+    const int f = first + (i < head ? i : count - rest + (i - head));
+    int r = f / width, c = f - r * width;
+    slot[f] = static_cast<uint8_t>(unpack_cells(1, r, c, width, stride, bits,
+                                                roff, rlim));
+  }
+}
+
+// A spent board's span of `cells` bytes, byte for byte, by the CTA:
+// 16-byte loads and stores where `src` and `dst` sit alike against 16-byte
+// boundaries.
 __device__ __forceinline__ void copy_slot(const uint8_t* src, uint8_t* dst,
                                           int cells) {
   const int head = head_bytes(src, cells);
@@ -532,67 +827,100 @@ batch_masked_block_kernel(const uint8_t* __restrict__ in,
   __syncthreads();  // both copies 0: the cells OR into one, and every bit
                     // past the board stays 0 in both
   uint32_t pad = 0;
-  {
-    const int head = head_bytes(src, cells);
-    const int chunks = (cells - head) / 16;
-    const int rest = cells - head - 16 * chunks;
-    const uint4* vec = reinterpret_cast<const uint4*>(src + head);
-    for (int i = threadIdx.x; i < chunks; i += blockDim.x) {
-      const uint4 v = __ldg(vec + i);
-      const int f = head + 16 * i;
-      int r = f / width, c = f - r * width, at = -1;
-      uint32_t acc = 0;
-      pack_cells(v.x, 4, r, c, width, h, w, stride, cur, acc, at, pad);
-      pack_cells(v.y, 4, r, c, width, h, w, stride, cur, acc, at, pad);
-      pack_cells(v.z, 4, r, c, width, h, w, stride, cur, acc, at, pad);
-      pack_cells(v.w, 4, r, c, width, h, w, stride, cur, acc, at, pad);
-      if (acc != 0) atomicOr(cur + at, acc);
-    }
-    for (int i = threadIdx.x; i < head + rest; i += blockDim.x) {
-      const int f = i < head ? i : cells - rest + (i - head);
-      int r = f / width, c = f - r * width, at = -1;
-      uint32_t acc = 0;
-      pack_cells(__ldg(src + f), 1, r, c, width, h, w, stride, cur, acc, at, pad);
-      if (acc != 0) atomicOr(cur + at, acc);
-    }
-  }
+  pack_span(src, 0, height, width, h, w, stride, cur, 0, 0, height, pad);
   __syncthreads();  // the board is packed
   const int nwb = (w + 31) / 32;
   const int lw = (w - 1) & 31;
-  const int strip = max(1, min(h, (h * nwb + static_cast<int>(blockDim.x) - 1) /
-                                      static_cast<int>(blockDim.x)));
+  const int strip = generation_strip(h, nwb);
   for (int i = 0; i < n; ++i) {
     // A non-zero cell of the slot's padding differs from the 0 written
     // there in the first generation.
     uint32_t alive = 0, differs = i == 0 ? pad : 0;
-    masked_generation(cur, nxt, h, nwb, stride, lw, strip, alive, differs);
+    board_generation(cur, nxt, h, 0, h, nwb, stride, lw, strip, alive, differs);
     block_flags(alive, differs, warp_flags[i & 1],
-                flags + 2 * (static_cast<size_t>(i) * batch + b));
+                flags + 2 * (static_cast<size_t>(i) * batch + b), false);
     uint32_t* done = nxt;
     nxt = cur;
     cur = done;
   }
   // The last generation's barrier (in block_flags) is behind: `cur` is
   // whole. Bytes over the whole slot, 0 past the board.
-  const int head = head_bytes(dst, cells);
-  const int chunks = (cells - head) / 16;
-  const int rest = cells - head - 16 * chunks;
-  uint4* vec = reinterpret_cast<uint4*>(dst + head);
-  for (int i = threadIdx.x; i < chunks; i += blockDim.x) {
-    const int f = head + 16 * i;
-    int r = f / width, c = f - r * width;
-    uint4 v;
-    v.x = unpack_cells(4, r, c, width, stride, cur);
-    v.y = unpack_cells(4, r, c, width, stride, cur);
-    v.z = unpack_cells(4, r, c, width, stride, cur);
-    v.w = unpack_cells(4, r, c, width, stride, cur);
-    vec[i] = v;
+  unpack_span(dst, 0, height, width, stride, cur, 0, height);
+}
+
+// B2, banded form: grid (batch * bands), bands = ceil(height / band_rows)
+// over the canvas's rows; block_threads((band_rows + 2 tb) * stride)
+// threads, at most kMaskedBandThreads, dynamic shared memory for two bit
+// copies of band_rows + 2 tb rows of stride = ceil(width / 32) words
+// (band_launch). Generations g0 .. g0 + tb - 1 of the block, as B1's
+// banded form. The band owns canvas rows [r0, r0 + span): the
+// board's rows among them (own) with n ghost rows each side, modulo the
+// board's height, as bits, and the rest of them padding (0 after the
+// launch; a non-zero padding cell sets the launch's first differs flag).
+__global__ void __launch_bounds__(kMaskedBandThreads,
+                                  kBlockMaxThreads / kMaskedBandThreads)
+batch_masked_band_kernel(const uint8_t* __restrict__ in,
+                         uint8_t* __restrict__ out, int* __restrict__ flags,
+                         const int* __restrict__ steps,
+                         const int* __restrict__ heights,
+                         const int* __restrict__ widths, int g0, int tb,
+                         int batch, int height, int width, int band_rows) {
+  extern __shared__ __align__(16) uint4 board_shared[];
+  __shared__ uint32_t warp_flags[2][kBlockMaxWarps];
+  int b, r0;
+  band_of(height, band_rows, b, r0);
+  const int span = min(band_rows, height - r0);
+  const size_t cells = static_cast<size_t>(height) * width;
+  const uint8_t* src = in + b * cells;
+  uint8_t* dst = out + b * cells;
+  const int n = max(0, min(__ldg(steps + b) - g0, tb));
+  if (n == 0) {  // spent: the whole CTA copies its rows and returns
+    copy_slot(src + r0 * width, dst + r0 * width, span * width);
+    return;
   }
-  for (int i = threadIdx.x; i < head + rest; i += blockDim.x) {
-    const int f = i < head ? i : cells - rest + (i - head);
-    int r = f / width, c = f - r * width;
-    dst[f] = static_cast<uint8_t>(unpack_cells(1, r, c, width, stride, cur));
+  const int h = min(__ldg(heights + b), height);
+  const int w = min(__ldg(widths + b), width);
+  const int stride = (width + 31) / 32;
+  const int own = max(0, min(r0 + span, h) - r0);
+  const int ghosts = own > 0 ? n : 0;
+  // Bit row j holds board row r0 - ghosts + j (modulo h).
+  const int rows = own + 2 * ghosts;
+  const int padded = (rows * stride + 3) & ~3;  // 16-byte aligned copies
+  uint32_t* cur = reinterpret_cast<uint32_t*>(board_shared);
+  uint32_t* nxt = cur + padded;
+  for (int i = threadIdx.x; i < 2 * padded; i += blockDim.x) cur[i] = 0;
+  __syncthreads();  // both copies 0, as in the block form
+  uint32_t pad = 0;
+  for (int j = 0, r = own > 0 ? wrap(r0 - ghosts, h) : 0; j < rows; r = 0) {
+    const int run = min(rows - j, h - r);
+    pack_span(src, r, r + run, width, h, w, stride, cur, r - j, r0, r0 + span,
+              pad);
+    j += run;
   }
+  if (r0 + span > max(r0, h)) {  // the band's rows past the board: padding
+    pack_span(src, max(r0, h), r0 + span, width, h, w, stride, cur, 0, r0,
+              r0 + span, pad);
+  }
+  __syncthreads();  // the band is packed
+  const int nwb = (w + 31) / 32;
+  const int lw = (w - 1) & 31;
+  const int strip = generation_strip(max(1, rows - 2), nwb);
+  // A band of padding alone runs no generation: its first pair carries
+  // its padding.
+  const int gens = own > 0 ? n : 1;
+  for (int i = 0; i < gens; ++i) {
+    uint32_t alive = 0, differs = i == 0 ? pad : 0;
+    if (own > 0) {
+      board_generation(cur, nxt, rows, 1 + i, rows - 1 - i, nwb, stride, lw,
+                       strip, alive, differs);
+    }
+    block_flags(alive, differs, warp_flags[i & 1],
+                flags + 2 * (static_cast<size_t>(g0 + i) * batch + b), true);
+    uint32_t* done = nxt;
+    nxt = cur;
+    cur = done;
+  }
+  unpack_span(dst, r0, r0 + span, width, stride, cur, r0 - ghosts, r0 + own);
 }
 
 // The block form's CTA: two board words per thread, in whole warps, up to
@@ -611,6 +939,47 @@ size_t block_shared_bytes(int words) {
   return 2 * static_cast<size_t>((words + 3) & ~3) * sizeof(uint32_t);
 }
 
+// The most words a copy of a board or band may have on `device` (two
+// copies in the opt-in shared memory of one block, beside the flag words),
+// into `most`.
+cudaError_t copy_max_words(int device, int& most) {
+  int optin = 0;
+  const cudaError_t err =
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  most = (optin - kBlockStaticShared) / 8 & ~3;
+  return err;
+}
+
+// The banded forms' launch of tb generations of `batch` boards of `height`
+// rows of `stride` words in bands of `band_rows` rows: its grid (boards x
+// bands), threads (block_threads, at most `max_threads`) and dynamic
+// shared bytes, after asking for shared memory past 48 KiB for `kernel`. cudaErrorInvalidValue where two copies of a
+// band and its ghost rows pass copy_max_words or the grid passes 2^31 - 1
+// CTAs.
+template <class K>
+cudaError_t band_launch(K kernel, int max_threads, int device, int tb,
+                        int batch, int height, int stride, int band_rows,
+                        unsigned& grid, int& threads, size_t& shared) {
+  int most = 0;
+  cudaError_t err = copy_max_words(device, most);
+  if (err != cudaSuccess) return err;
+  const long long words = static_cast<long long>(band_rows + 2 * tb) * stride;
+  const long long ctas =
+      static_cast<long long>(batch) * ((height + band_rows - 1) / band_rows);
+  if (tb < 1 || band_rows < 1 || words > most || ctas > 0x7fffffffLL) {
+    return cudaErrorInvalidValue;
+  }
+  shared = block_shared_bytes(static_cast<int>(words));
+  if (shared > static_cast<size_t>(kDefaultDynamicShared)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(shared));
+    if (err != cudaSuccess) return err;
+  }
+  grid = static_cast<unsigned>(ctas);
+  threads = min(max_threads, block_threads(static_cast<int>(words)));
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -620,9 +989,11 @@ extern "C" {
 // the launch (0 = cudaSuccess). `out` must not alias `in`; `flags` is a
 // one-generation launch's (batch, 2) int32 pair per board, `steps` the
 // (batch,) int32 step counts, `heights`/`widths` B2's (batch,) int32 board
-// extents, all on the device. batch <= 65535.
+// extents, all on the device. batch <= 65535 for the one-generation
+// kernels (a grid dimension); the block and banded forms put the boards
+// (x bands) on grid.x.
 
-// B1, streaming form. in/out: (batch, height, nwords) words.
+// B1, one-generation form. in/out: (batch, height, nwords) words.
 int gol_batch_packed_step(const void* in, void* out, void* flags,
                           const void* steps, int gen, int batch, int height,
                           int nwords, int device, void* stream) {
@@ -644,11 +1015,50 @@ int gol_batch_packed_step(const void* in, void* out, void* flags,
 // copies in the opt-in shared memory of one block, beside the flag words.
 // Negative: a CUDA error.
 int gol_batch_block_max_words(int device) {
-  int optin = 0;
-  cudaError_t err =
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  return (optin - kBlockStaticShared) / 8 & ~3;
+  int most = 0;
+  const cudaError_t err = copy_max_words(device, most);
+  return err != cudaSuccess ? -static_cast<int>(err) : most;
+}
+
+// The banded forms' plan for a block of t generations of `batch` boards
+// of `height` rows, `nwb` words a row in shared memory (B1: nwords; B2:
+// ceil(width / 32)), into plan[0] = t' (the generations of a launch: the
+// block runs as ceil(t / t') launches) and plan[1] = R (the rows a band
+// owns). With `rows` = the most rows a copy may hold
+// (gol_batch_block_max_words / nwb): t' = min(t, max(1, rows / 4)), so a
+// band owns at least half its rows (ghost rows cost at most 2x); then
+// bands a board = the most of ceil(height / (rows - 2 t')) (the fewest
+// that fit) and min(floor(SMs / batch), ceil(height / t')) (one CTA an SM
+// where the batch leaves room, a band owning at least t' rows), and R =
+// ceil(height / bands). One CTA an SM: the banded kernels take about 50
+// registers a thread, so an SM holds one of their 1024-thread CTAs, and a
+// second wave of CTAs costs more than larger bands
+// (gol_tpu_torch/tools/batch_band_sweep.py times the plan's R beside R / 2
+// and 2 R).
+// plan = (0, 0) where not even a band of one row and a ghost row each side
+// fits (rows < 3: nwb past 9,674 words on an H100), which the
+// one-generation kernels take. Returns a CUDA error (0 = success).
+int gol_batch_band_plan(int device, int batch, int height, int nwb, int t,
+                        int* plan) {
+  plan[0] = plan[1] = 0;
+  int most = 0, sms = 0;
+  cudaError_t err = copy_max_words(device, most);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (batch < 1 || height < 1 || nwb < 1 || t < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int rows = most / nwb;
+  if (rows < 3) return 0;
+  const int tp = min(t, max(1, rows / 4));
+  const int fit = rows - 2 * tp;
+  const int bands = max((height + fit - 1) / fit,
+                        min(sms / batch, (height + tp - 1) / tp));
+  plan[0] = tp;
+  plan[1] = (height + bands - 1) / bands;
+  return 0;
 }
 
 // B1, block form. in/out: (batch, height, nwords) words; flags: (t, batch,
@@ -678,6 +1088,33 @@ int gol_batch_packed_block(const void* in, void* out, void* flags,
       static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out),
       static_cast<int*>(flags), static_cast<const int*>(steps), t, batch,
       height, nwords, block_strip(height, nwords, threads));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B1, banded form: generations g0 .. g0 + tb - 1 of a block of B1's
+// (flags as B1's block form: (t, batch, 2), generation g0 + i's pair of
+// board b at flags + 2 * ((g0 + i) * batch + b), ORed into the caller's
+// zeroed rows), each board in bands of band_rows rows (a plan's R, for tb
+// <= its t'). Board b runs min(steps[b] - g0, tb) generations (none: it
+// is copied through). Fails with cudaErrorInvalidValue where the band and
+// its 2 tb ghost rows pass gol_batch_block_max_words.
+int gol_batch_packed_band(const void* in, void* out, void* flags,
+                          const void* steps, int g0, int tb, int batch,
+                          int height, int nwords, int band_rows, int device,
+                          void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  unsigned grid = 0;
+  int threads = 0;
+  size_t shared = 0;
+  err = band_launch(batch_packed_band_kernel, kPackedBandThreads, device, tb,
+                    batch, height, nwords, band_rows, grid, threads, shared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  batch_packed_band_kernel<<<grid, threads, shared,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out),
+      static_cast<int*>(flags), static_cast<const int*>(steps), g0, tb, batch,
+      height, nwords, band_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -727,6 +1164,31 @@ int gol_batch_masked_block(const void* in, void* out, void* flags,
       static_cast<int*>(flags), static_cast<const int*>(steps),
       static_cast<const int*>(heights), static_cast<const int*>(widths), t,
       batch, height, width);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B2, banded form: as B1's over (batch, height, width) cells, the bands
+// over the canvas's rows, ceil(width / 32) words a bit row.
+int gol_batch_masked_band(const void* in, void* out, void* flags,
+                          const void* steps, const void* heights,
+                          const void* widths, int g0, int tb, int batch,
+                          int height, int width, int band_rows, int device,
+                          void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  unsigned grid = 0;
+  int threads = 0;
+  size_t shared = 0;
+  err = band_launch(batch_masked_band_kernel, kMaskedBandThreads, device, tb,
+                    batch, height, (width + 31) / 32, band_rows, grid, threads,
+                    shared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  batch_masked_band_kernel<<<grid, threads, shared,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out),
+      static_cast<int*>(flags), static_cast<const int*>(steps),
+      static_cast<const int*>(heights), static_cast<const int*>(widths), g0, tb,
+      batch, height, width, band_rows);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,25 +12,30 @@ so each board's flags come out of the step's own pass, from the kernels in
   exact-fit tori of words, (B, height, nwords) int32 (bit j of word w =
   column 32*w + j, as ``packed_math``), board b for ``min(steps[b], t)``
   generations, writing generation i's pair of board b to ``flags[i, b]``
-  of a caller-zeroed (t, B, 2) buffer. Two forms, chosen by shape: the
+  of a caller-zeroed (t, B, 2) buffer. Three forms, chosen by shape: the
   block form, one launch with each board in one CTA's shared memory
   (``LAUNCHES["batch_packed_block"]``), for boards whose two copies fit
-  there (``block_max_words``); the streaming form, one launch of
-  ``batch_packed_step_into`` per generation, for larger ones;
-- ``batch_packed_step_into`` (B1's streaming form): one generation of the
-  same;
+  there (``block_max_words``); for larger ones the banded form
+  (``LAUNCHES["batch_packed_band"]``), each board in bands of R rows, a
+  band and t' ghost rows each side in one CTA's shared memory, t'
+  generations a launch (``band_plan``; on an H100 a block of 16 is one
+  launch for rows of up to 453 words, 14,496 cells); and where not even a
+  band of one row fits (rows past 9,674 words), ``t`` launches of
+  ``batch_packed_step_into``;
+- ``batch_packed_step_into`` (B1's one-generation kernel): one generation
+  of the same;
 - ``batch_masked_block_into`` (B2): the same block of generations over B
   uint8 boards in one (B, height, width) canvas, board b wrapping at its
   own extent ``(heights[b], widths[b])``, every cell at or past it written
   0 (the semantics of ``_evolve_batch_masked``); the exact-fit byte mode
-  runs through it with the canvas's extent. Its block form holds each
-  slot as bits in one CTA's shared memory (``LAUNCHES
-  ["batch_masked_block"]``), which is exact for the lane's cells, 0 or 1
-  as every decoder feeding it gives them; a canvas whose two bit copies
-  (height x ceil(width / 32) words each) pass ``block_max_words`` takes
-  the streaming form, one launch of ``batch_masked_step_into`` per
-  generation;
-- ``batch_masked_step_into`` (B2's streaming form, B2-stream): one
+  runs through it with the canvas's extent. Its forms hold the slot's
+  cells as bits (height x ceil(width / 32) words a copy), which is exact
+  for the lane's cells, 0 or 1 as every decoder feeding it gives them:
+  the block form (``LAUNCHES["batch_masked_block"]``), the banded form
+  (``LAUNCHES["batch_masked_band"]``, bands of the canvas's rows, ghost
+  rows modulo each board's own height) past ``block_max_words``, and
+  ``batch_masked_step_into`` a generation past that;
+- ``batch_masked_step_into`` (B2's one-generation kernel, B2-step): one
   generation of the same, on the bytes.
 
 The one-generation kernels OR board b's ``(alive, differs)`` into
@@ -60,8 +65,8 @@ from gol_tpu_torch.ops import _build, packed_math
 
 STEP_FLAGS = 2  # (alive, differs) per board
 MAX_BATCH = 65535  # the kernels' board axis is a grid dimension
-LAUNCHES = {"batch_packed_block": 0, "batch_packed": 0,
-            "batch_masked_block": 0, "batch_masked": 0}
+LAUNCHES = {"batch_packed_block": 0, "batch_packed_band": 0, "batch_packed": 0,
+            "batch_masked_block": 0, "batch_masked_band": 0, "batch_masked": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -108,10 +113,8 @@ def _batch_masked_block_plain(cells: torch.Tensor, steps: torch.Tensor,
     final = torch.empty_like(cells)
     flags = torch.zeros((t, cells.shape[0], STEP_FLAGS), dtype=torch.int32,
                         device=cells.device)
-    scratch = torch.empty_like(cells)
-    streamed_block(cells, final, flags, steps, t, scratch,
-                   lambda cur, dst, f, st, i: _masked_plain_into(
-                       cur, dst, f, st, heights, widths, i))
+    streamed_block(cells, final, t, None, lambda cur, dst, g0, n: _masked_plain_into(
+        cur, dst, flags[g0], steps, heights, widths, g0))
     return final, flags
 
 
@@ -173,6 +176,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gol_batch_masked_step.restype = i32
     lib.gol_batch_masked_block.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.gol_batch_masked_block.restype = i32
+    lib.gol_batch_packed_band.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
+    lib.gol_batch_packed_band.restype = i32
+    lib.gol_batch_masked_band.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
+    lib.gol_batch_masked_band.restype = i32
+    lib.gol_batch_band_plan.argtypes = [i32] * 5 + [ptr]
+    lib.gol_batch_band_plan.restype = i32
     lib.gol_error_string.argtypes = [i32]
     lib.gol_error_string.restype = ctypes.c_char_p
     return lib
@@ -193,6 +202,23 @@ def block_max_words(device_index: int) -> int:
         msg = _lib().gol_error_string(-most).decode()
         raise RuntimeError(f"shared memory query failed: CUDA error {-most} ({msg})")
     return most
+
+
+@functools.lru_cache(maxsize=None)
+def band_plan(device_index: int, batch: int, height: int, nwb: int,
+              t: int) -> tuple[int, int]:
+    """The banded forms' ``(t', R)`` on card ``device_index`` for a block of
+    ``t`` generations of ``batch`` boards of ``height`` rows, ``nwb`` words
+    a row as bits (B1: nwords; B2: ceil(width / 32)): ``t'`` generations a
+    launch, bands of ``R`` rows (``gol_batch_band_plan`` says how they are
+    chosen); ``(0, 0)`` where not even a band of one row fits, which the
+    one-generation kernels take."""
+    plan = (ctypes.c_int * 2)()
+    err = _lib().gol_batch_band_plan(device_index, batch, height, nwb, t, plan)
+    if err != 0:
+        msg = _lib().gol_error_string(err).decode()
+        raise RuntimeError(f"band plan failed: CUDA error {err} ({msg})")
+    return plan[0], plan[1]
 
 
 def _check(src: torch.Tensor, out: torch.Tensor, flags: torch.Tensor,
@@ -243,24 +269,43 @@ def _launched(src: torch.Tensor, key: str, launch) -> bool:
     return True
 
 
-def streamed_block(src, out, flags, steps, t: int, scratch, step) -> None:
-    """A block of ``t`` generations as ``t`` one-generation launches
-    ``step(cur, dst, flags[i], steps, i)``, ping-ponging ``scratch`` and
+def streamed_block(src, out, t: int, scratch, step, per: int = 1) -> None:
+    """A block of ``t`` generations as ceil(t / per) launches ``step(cur,
+    dst, g0, n)`` of generations g0 .. g0 + n - 1, ping-ponging ``scratch``
+    (a third stack, allocated when None and more than one launch runs) and
     ``out`` so that the last lands in ``out``; ``src`` is never written."""
+    starts = range(0, t, per)
+    if len(starts) > 1:
+        scratch = _scratch(src, out, scratch)
     cur = src
-    for i in range(t):
-        dst = out if (t - i) % 2 else scratch
-        step(cur, dst, flags[i], steps, i)
+    for k, g0 in enumerate(starts):
+        dst = out if (len(starts) - k) % 2 else scratch
+        step(cur, dst, g0, min(per, t - g0))
         cur = dst
 
 
 def _scratch(src, out, scratch):
-    """The streaming forms' third stack: ``scratch``, or a new one."""
+    """The multi-launch forms' third stack: ``scratch``, or a new one."""
     scratch = torch.empty_like(src) if scratch is None else scratch
     if scratch.data_ptr() in (src.data_ptr(), out.data_ptr()) or \
             scratch.shape != src.shape or scratch.dtype != src.dtype:
         raise ValueError("scratch must be a third stack of the boards' shape")
     return scratch
+
+
+def _past_block(src, out, t: int, scratch, nwb: int, key: str, band, step) -> None:
+    """A block of boards past the block form on the card: ceil(t / t')
+    launches of the banded form ``band(stream, cur, dst, g0, n, rows)``
+    (LAUNCHES[key]) through ``scratch`` and ``out``, or, where not even a
+    band fits (``band_plan`` gives t' = 0), ``t`` launches ``step(cur,
+    dst, gen)`` of the one-generation kernel."""
+    batch, height = src.shape[:2]
+    per, rows = band_plan(src.device.index, batch, height, nwb, t)
+    if per == 0:
+        streamed_block(src, out, t, scratch, lambda cur, dst, g0, n: step(cur, dst, g0))
+        return
+    streamed_block(src, out, t, scratch, lambda cur, dst, g0, n: _launched(
+        cur, key, lambda stream: band(stream, cur, dst, g0, n, rows)), per)
 
 
 def batch_packed_block_into(words, out, flags, steps, t: int,
@@ -269,21 +314,28 @@ def batch_packed_block_into(words, out, flags, steps, t: int,
     generations into ``out`` (a board with steps 0 copied), generation i's
     ``(alive, differs)`` of board b stored to ``flags[i, b]`` of a
     caller-zeroed (t, B, 2) buffer. One launch of the block form where a
-    board's two copies fit in a CTA's shared memory, else ``t`` launches of
-    the streaming form through ``scratch`` (a third stack, allocated when
-    None) and ``out``; ``words`` is never written."""
+    board's two copies fit in a CTA's shared memory, else ceil(t / t')
+    launches of the banded form, or ``t`` of the one-generation kernel
+    where not even a band fits, through ``scratch`` (a third stack,
+    allocated when None and needed) and ``out``; ``words`` is never
+    written."""
     if t < 1:
         raise ValueError(f"a block runs t >= 1 generations, got {t}")
     _check(words, out, flags, steps, torch.int32, flag_rows=t)
     batch, height, nwords = words.shape
-    if words.device.type == "cuda" and \
-            height * nwords > block_max_words(words.device.index):
-        streamed_block(words, out, flags, steps, t, _scratch(words, out, scratch),
-                       batch_packed_step_into)
+    dev = words.device.index
+    if words.device.type == "cuda" and height * nwords > block_max_words(dev):
+        _past_block(
+            words, out, t, scratch, nwords, "batch_packed_band",
+            lambda stream, cur, dst, g0, n, rows: _lib().gol_batch_packed_band(
+                cur.data_ptr(), dst.data_ptr(), flags.data_ptr(), steps.data_ptr(),
+                g0, n, batch, height, nwords, rows, dev, stream),
+            lambda cur, dst, gen: batch_packed_step_into(cur, dst, flags[gen],
+                                                         steps, gen))
         return
     if _launched(words, "batch_packed_block", lambda stream: _lib().gol_batch_packed_block(
             words.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),
-            t, batch, height, nwords, words.device.index, stream)):
+            t, batch, height, nwords, dev, stream)):
         return
     final, block_flags = _batch_packed_block_plain(words, steps, t)
     out.copy_(final)
@@ -291,9 +343,10 @@ def batch_packed_block_into(words, out, flags, steps, t: int,
 
 
 def batch_packed_step_into(words, out, flags, steps, gen: int) -> None:
-    """B1's streaming form: one generation of each board of ``words`` (B, H, NW) whose
-    ``steps`` are not spent at ``gen`` into ``out`` (the others copied);
-    ORs each running board's ``(alive, differs)`` into ``flags[b]``."""
+    """B1's one-generation kernel: one generation of each board of
+    ``words`` (B, H, NW) whose ``steps`` are not spent at ``gen`` into
+    ``out`` (the others copied); ORs each running board's ``(alive,
+    differs)`` into ``flags[b]``."""
     _check(words, out, flags, steps, torch.int32)
     batch, height, nwords = words.shape
     if _launched(words, "batch_packed", lambda stream: _lib().gol_batch_packed_step(
@@ -331,24 +384,31 @@ def batch_masked_block_into(cells, out, flags, steps, heights, widths, t: int,
     byte); generation i's ``(alive, differs)`` of board b, over its whole
     slot, stored to ``flags[i, b]`` of a caller-zeroed (t, B, 2) buffer.
     One launch of the block form where the slot's two bit copies fit in a
-    CTA's shared memory, else ``t`` launches of the streaming form
-    (``batch_masked_step_into``) through ``scratch`` (a third stack,
-    allocated when None) and ``out``; ``cells`` is never written."""
+    CTA's shared memory, else ceil(t / t') launches of the banded form, or
+    ``t`` of ``batch_masked_step_into`` where not even a band fits, through
+    ``scratch`` (a third stack, allocated when None and needed) and
+    ``out``; ``cells`` is never written."""
     if t < 1:
         raise ValueError(f"a block runs t >= 1 generations, got {t}")
     _check(cells, out, flags, steps, torch.uint8,
            (("heights", heights), ("widths", widths)), flag_rows=t)
     batch, height, width = cells.shape
-    if cells.device.type == "cuda" and \
-            height * -(-width // 32) > block_max_words(cells.device.index):
-        streamed_block(cells, out, flags, steps, t, _scratch(cells, out, scratch),
-                       lambda cur, dst, f, st, i: batch_masked_step_into(
-                           cur, dst, f, st, heights, widths, i))
+    dev = cells.device.index
+    nwb = -(-width // 32)
+    if cells.device.type == "cuda" and height * nwb > block_max_words(dev):
+        _past_block(
+            cells, out, t, scratch, nwb, "batch_masked_band",
+            lambda stream, cur, dst, g0, n, rows: _lib().gol_batch_masked_band(
+                cur.data_ptr(), dst.data_ptr(), flags.data_ptr(), steps.data_ptr(),
+                heights.data_ptr(), widths.data_ptr(), g0, n, batch, height, width,
+                rows, dev, stream),
+            lambda cur, dst, gen: batch_masked_step_into(
+                cur, dst, flags[gen], steps, heights, widths, gen))
         return
     if _launched(cells, "batch_masked_block", lambda stream: _lib().gol_batch_masked_block(
             cells.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),
             heights.data_ptr(), widths.data_ptr(), t, batch, height, width,
-            cells.device.index, stream)):
+            dev, stream)):
         return
     final, block_flags = _batch_masked_block_plain(cells, steps, heights, widths, t)
     out.copy_(final)

@@ -73,6 +73,9 @@ def lib(tmp_path_factory):
     lib.gol_batch_packed_block.argtypes = [p] * 4 + [i] * 5 + [p]
     lib.gol_batch_masked_block.argtypes = [p] * 6 + [i] * 5 + [p]
     lib.gol_batch_block_max_words.argtypes = [i]
+    lib.gol_batch_packed_band.argtypes = [p] * 4 + [i] * 7 + [p]
+    lib.gol_batch_masked_band.argtypes = [p] * 6 + [i] * 7 + [p]
+    lib.gol_batch_band_plan.argtypes = [i] * 5 + [p]
     lib.emu_misaligned.argtypes, lib.emu_misaligned.restype = [], i
     lib.emu_shared_optin.argtypes = [i, i]
     return lib
@@ -206,14 +209,16 @@ def test_packed_streaming_block_matches_plain(lib, batch, height, nwords, t):
     words = _packed_boards(batch, height, nwords, batch * 31 + height + nwords)
     steps = _block_steps(batch, t)
 
-    def step(src, dst, flags, st, gen):
-        assert lib.gol_batch_packed_step(
-            src.data_ptr(), dst.data_ptr(), flags.data_ptr(), st.data_ptr(),
-            gen, batch, height, nwords, 0, None) == 0
-
     out, scratch = torch.full_like(words, -1), torch.full_like(words, -1)
     flags = torch.zeros((t, batch, 2), dtype=torch.int32)
-    sb.streamed_block(words, out, flags, steps, t, scratch, step)
+
+    def step(src, dst, gen, n):
+        assert n == 1
+        assert lib.gol_batch_packed_step(
+            src.data_ptr(), dst.data_ptr(), flags[gen].data_ptr(),
+            steps.data_ptr(), gen, batch, height, nwords, 0, None) == 0
+
+    sb.streamed_block(words, out, t, scratch, step)
     want, want_flags = sb._batch_packed_block_plain(words, steps, t)
     assert torch.equal(out, want)
     assert torch.equal(flags, want_flags)
@@ -347,16 +352,207 @@ def test_masked_block_refused_past_the_opt_in_runs_streamed(lib):
     assert rc != 0
     assert bool((out == 7).all())
 
-    def step(src, dst, f, st, gen):
-        assert lib.gol_batch_masked_step(
-            src.data_ptr(), dst.data_ptr(), f.data_ptr(), st.data_ptr(),
-            heights.data_ptr(), widths.data_ptr(), gen, 2, height, width, 1,
-            None) == 0
-
     out, scratch = torch.full_like(cells, 7), torch.full_like(cells, 7)
     flags = torch.zeros((3, 2, 2), dtype=torch.int32)
-    sb.streamed_block(cells, out, flags, steps, 3, scratch, step)
+
+    def step(src, dst, gen, n):
+        assert lib.gol_batch_masked_step(
+            src.data_ptr(), dst.data_ptr(), flags[gen].data_ptr(),
+            steps.data_ptr(), heights.data_ptr(), widths.data_ptr(), gen, 2,
+            height, width, 1, None) == 0
+
+    sb.streamed_block(cells, out, 3, scratch, step)
     want, want_flags = sb._batch_masked_block_plain(cells, steps, heights, widths, 3)
+    assert torch.equal(out, want) and torch.equal(flags, want_flags)
+
+
+# The banded forms: a block of t generations in ceil(t / t') launches, each
+# board in bands of R rows, a band and its t' ghost rows each side in one
+# CTA's shared memory. Launched at explicit band rows R (1, 3 and the
+# board's height: one band) over the block forms' shapes, so one-row and
+# one-word boards, and boards shorter than a band and its ghost rows (their
+# rows repeat), run through them too.
+BAND_ROWS = [1, 3, None]  # None: one band of the whole board
+
+
+def _plan(lib, batch, height, nwb, t, device=0):
+    plan = (ctypes.c_int * 2)()
+    assert lib.gol_batch_band_plan(device, batch, height, nwb, t, plan) == 0
+    return plan[0], plan[1]
+
+
+def _band_block(lib, src, t, per, launch, junk):
+    """A block of ``t`` generations of ``src`` through ``launch(cur, dst,
+    flags, g0, n)`` (a banded entry's return code), ``per`` generations a
+    launch, ping-ponging a scratch stack and the output as the wrappers do
+    (``stencil_batch.streamed_block``)."""
+    out, scratch = torch.full_like(src, junk), torch.full_like(src, junk)
+    flags = torch.zeros((t, src.shape[0], 2), dtype=torch.int32)
+    launches = []
+
+    def step(cur, dst, g0, n):
+        assert launch(cur, dst, flags, g0, n) == 0
+        launches.append((g0, n))
+
+    sb.streamed_block(src, out, t, scratch, step, per)
+    assert len(launches) == -(-t // per)
+    return out, flags
+
+
+def _packed_band(lib, words, steps, t, per, rows, device=0):
+    batch, height, nwords = words.shape
+    return _band_block(lib, words, t, per, lambda cur, dst, flags, g0, n: (
+        lib.gol_batch_packed_band(
+            cur.data_ptr(), dst.data_ptr(), flags.data_ptr(), steps.data_ptr(),
+            g0, n, batch, height, nwords, rows, device, None)), -1)
+
+
+def _masked_band(lib, cells, heights, widths, steps, t, per, rows, device=0):
+    batch, height, width = cells.shape
+    return _band_block(lib, cells, t, per, lambda cur, dst, flags, g0, n: (
+        lib.gol_batch_masked_band(
+            cur.data_ptr(), dst.data_ptr(), flags.data_ptr(), steps.data_ptr(),
+            heights.data_ptr(), widths.data_ptr(), g0, n, batch, height, width,
+            rows, device, None)), 7)
+
+
+@pytest.mark.parametrize("rows", BAND_ROWS, ids=["R1", "R3", "Rall"])
+@pytest.mark.parametrize("t", BLOCK_TS)
+@pytest.mark.parametrize("batch,height,nwords", PACKED)
+def test_packed_band_matches_plain(lib, batch, height, nwords, t, rows):
+    words = _packed_boards(batch, height, nwords, batch * 17 + height + nwords + t)
+    steps = _block_steps(batch, t)
+    kept = words.clone()
+    out, flags = _packed_band(lib, words, steps, t, t, rows or height)
+    want, want_flags = sb._batch_packed_block_plain(words, steps, t)
+    assert torch.equal(out, want)
+    assert torch.equal(flags, want_flags)
+    assert torch.equal(words, kept)
+    assert lib.emu_misaligned() == 0, "a 16-byte load off a 16-byte boundary"
+
+
+@pytest.mark.parametrize("rows", BAND_ROWS, ids=["R1", "R3", "Rall"])
+@pytest.mark.parametrize("t", BLOCK_TS)
+@pytest.mark.parametrize("height,width,extents",
+                         [c for c in MASKED_BLOCK if c[0] != 256],
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else None)
+def test_masked_band_matches_plain(lib, height, width, extents, t, rows):
+    """Mixed extents in one canvas (rows at and past a board's height are
+    its padding, whole bands of them too), the exact-fit byte mode, 1x1
+    and one-row boards shorter than a band and its ghost rows, 0/1 noise
+    in the padding (differs in the first generation only)."""
+    cells, heights, widths = _canvas(height, width, extents, height + width + t,
+                                     padding=True)
+    steps = _block_steps(len(extents), t)
+    kept = cells.clone()
+    out, flags = _masked_band(lib, cells, heights, widths, steps, t, t,
+                              rows or height)
+    want, want_flags = sb._batch_masked_block_plain(cells, steps, heights, widths, t)
+    assert torch.equal(out, want)
+    assert torch.equal(flags, want_flags)
+    assert torch.equal(cells, kept)
+    assert lib.emu_misaligned() == 0, "a 16-byte load off a 16-byte boundary"
+
+
+@pytest.mark.parametrize("per", [1, 5, 17])
+def test_band_block_in_several_launches_through_scratch(lib, per):
+    """t' < t: a block of 18 generations in ceil(18 / t') launches, each of
+    t' generations (the last fewer), ping-ponging a scratch stack; boards
+    whose steps run out inside a launch or before it (copied through)."""
+    words = _packed_boards(4, 40, 9, seed=per)
+    steps = torch.tensor([18, 7, 0, 11], dtype=torch.int32)
+    out, flags = _packed_band(lib, words, steps, 18, per, 6)
+    want, want_flags = sb._batch_packed_block_plain(words, steps, 18)
+    assert torch.equal(out, want) and torch.equal(flags, want_flags)
+    cells, heights, widths = _canvas(130, 40, [(130, 40), (129, 33), (5, 40), (130, 1)],
+                                     seed=per, padding=True)
+    out, flags = _masked_band(lib, cells, heights, widths, steps, 18, per, 7)
+    want, want_flags = sb._batch_masked_block_plain(cells, steps, heights, widths, 18)
+    assert torch.equal(out, want) and torch.equal(flags, want_flags)
+
+
+@pytest.mark.parametrize("t", [1, 3])
+def test_masked_band_off_16_byte_boundaries_with_padding(lib, t):
+    """As the block form's case: slots of 33 x 20 bytes off 16-byte
+    boundaries, the output at another offset, padding noise, a spent board
+    keeping its padding; in bands of 4 rows, so bands end mid-slot."""
+    extents = [(33, 20), (30, 17), (1, 20), (33, 1)]
+    cells, heights, widths = _canvas(33, 20, [(33, 20)] + extents, 93, padding=True)
+    cells, heights, widths = cells[1:], heights[1:], widths[1:]
+    steps = torch.tensor([t, t, 0, 1], dtype=torch.int32)
+    backing = torch.full((5 * 33 * 20 + 3,), 7, dtype=torch.uint8)
+    out = backing[3:3 + 4 * 33 * 20].view(4, 33, 20)
+    flags = torch.zeros((t, 4, 2), dtype=torch.int32)
+    assert lib.gol_batch_masked_band(
+        cells.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),
+        heights.data_ptr(), widths.data_ptr(), 0, t, 4, 33, 20, 4, 0, None) == 0
+    want, want_flags = sb._batch_masked_block_plain(cells, steps, heights, widths, t)
+    assert torch.equal(out, want)
+    assert torch.equal(flags, want_flags)
+    assert flags[:, 1].tolist() == [[1, 1]] + [[1, 0]] * (t - 1)  # the block
+    assert torch.equal(out[2], cells[2])  # spent: copied, padding and all
+    assert lib.emu_misaligned() == 0
+
+
+def test_band_plan_follows_the_rule(lib):
+    """t' = min(t, max(1, rows / 4)) of the rows a copy may hold; bands a
+    board the most of the fewest that fit and min(SMs / batch, height /
+    t'); (0, 0) where not even three rows fit. On an H100 (29,024 words a
+    copy, 132 SMs): the smoke's timing shapes and 4e's pairs in one launch
+    of 16 generations, and the one-generation kernels past 9,674 words a
+    row (widths past 309,568 cells)."""
+    assert _plan(lib, 64, 1024, 32, 16) == (16, 512)  # 2 bands: 128 CTAs
+    assert _plan(lib, 8, 1024, 32, 16) == (16, 64)  # 16 bands: 128 CTAs
+    assert _plan(lib, 2, 1024, 32, 16) == (16, 16)  # a band owns >= t' rows
+    assert _plan(lib, 1, 1024, 32, 18) == (18, 18)
+    assert _plan(lib, 64, 300, 400, 16) == (16, 38)  # 72 rows a copy: 8 bands fit
+    assert _plan(lib, 1, 4, 9674, 16) == (1, 1)
+    assert _plan(lib, 1, 4, 9675, 16) == (0, 0)
+    lib.emu_shared_optin(1, 4096)  # 480 words a copy
+    assert _plan(lib, 3, 40, 13, 16, device=1) == (9, 8)  # t' < t: 2 launches
+    assert _plan(lib, 3, 40, 13, 2, device=1) == (2, 2)
+
+
+def test_band_launch_refuses_what_does_not_fit(lib):
+    """A band and its 2 tb ghost rows past the opt-in are refused, not run."""
+    lib.emu_shared_optin(1, 4096)  # 480 words a copy: 36 rows of 13 words
+    words = _packed_boards(1, 40, 13, seed=3)
+    out = torch.full_like(words, -1)
+    flags = torch.zeros((16, 1, 2), dtype=torch.int32)
+    steps = torch.ones(1, dtype=torch.int32)
+    for rows, tb in ((19, 9), (35, 1), (1, 18)):
+        assert lib.gol_batch_packed_band(
+            words.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),
+            0, tb, 1, 40, 13, rows, 1, None) != 0
+    assert bool((out == -1).all())
+    assert lib.gol_batch_packed_band(
+        words.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),
+        0, 9, 1, 40, 13, 18, 1, None) == 0
+
+
+@pytest.mark.parametrize("t", [2, 16, 18])
+def test_block_call_past_the_block_form_takes_the_plan(lib, t):
+    """What the wrappers do past the block form, at a shrunk opt-in (4096
+    bytes: 480 words a copy): the plan's (t', R), ceil(t / t') banded
+    launches, equal to the plain versions; B1 at 40 x 13 words (t' = 9 <
+    t for t >= 16), B2 on a 40 x 400 canvas (13 words a row) of mixed
+    extents with padding noise."""
+    lib.emu_shared_optin(1, 4096)
+    most = lib.gol_batch_block_max_words(1)
+    words = _packed_boards(3, 40, 13, seed=t)
+    assert 40 * 13 > most
+    per, rows = _plan(lib, 3, 40, 13, t, device=1)
+    assert 0 < per <= t and (rows + 2 * per) * 13 <= most
+    steps = _block_steps(3, t)
+    out, flags = _packed_band(lib, words, steps, t, per, rows, device=1)
+    want, want_flags = sb._batch_packed_block_plain(words, steps, t)
+    assert torch.equal(out, want) and torch.equal(flags, want_flags)
+    cells, heights, widths = _canvas(40, 400, [(40, 400), (37, 390), (3, 100)],
+                                     seed=t, padding=True)
+    per, rows = _plan(lib, 3, 40, 13, t, device=1)
+    steps = _block_steps(3, t)
+    out, flags = _masked_band(lib, cells, heights, widths, steps, t, per, rows, device=1)
+    want, want_flags = sb._batch_masked_block_plain(cells, steps, heights, widths, t)
     assert torch.equal(out, want) and torch.equal(flags, want_flags)
 
 

@@ -504,12 +504,35 @@ def _block_steps(batch, t, card):
                         dtype=torch.int32, device=card)
 
 
+def _form_launches(card, batch, height, nwb, t, kind):
+    """The launches a block call of t generations makes, by shape: one of
+    the block form where a board's two copies fit in a CTA's shared memory,
+    else ceil(t / t') of the banded form, or t of the one-generation kernel
+    where not even a band fits."""
+    if height * nwb <= sb.block_max_words(card.index):
+        return {f"batch_{kind}_block": 1}
+    per, _ = sb.band_plan(card.index, batch, height, nwb, t)
+    return {f"batch_{kind}_band": -(-t // per)} if per else {f"batch_{kind}": t}
+
+
+def _launched_forms(before, kind):
+    return {k: n - before[k] for k, n in sb.LAUNCHES.items()
+            if k.startswith(f"batch_{kind}") and n != before[k]}
+
+
+# Past the block form: (2, 1024, 64) and 4e's 1024^2 pair (65,536 and
+# 32,768 words a board) take the banded form in one launch a block; 725
+# words a row hold 40 rows a copy, so t' = 10 < t and a block of 16 or 18
+# takes two launches through scratch; 9,675 words a row (309,600 cells) is
+# past even a band of one row: the one-generation kernel.
+BATCH_PACKED_PAST = [(2, 1024, 64), (2, 1024, 32), (2, 64, 725), (1, 32, 9675)]
+
+
 @pytest.mark.parametrize("t", [1, 16, 18])
-@pytest.mark.parametrize("batch,height,nwords", BATCH_PACKED + [(2, 1024, 64)])
+@pytest.mark.parametrize("batch,height,nwords", BATCH_PACKED + BATCH_PACKED_PAST)
 def test_batch_packed_block_matches_plain(card, batch, height, nwords, t):
-    """B1 over a whole block: the block form in one launch where a board's
-    two copies fit in a CTA's shared memory, else the streaming form once
-    per generation ((2, 1024, 64): 65,536 words a board)."""
+    """B1 over a whole block, in the form its shape takes
+    (``_form_launches``), equal to the plain version."""
     rng = np.random.default_rng(batch + height + nwords + t)
     words = pm.words_from_numpy(rng.integers(0, 2**32, (batch, height, nwords),
                                              dtype=np.uint64).astype(np.uint32), card)
@@ -520,9 +543,8 @@ def test_batch_packed_block_matches_plain(card, batch, height, nwords, t):
     before = dict(sb.LAUNCHES)
     sb.batch_packed_block_into(words, out, flags, steps, t)
     torch.cuda.synchronize(card)
-    block = height * nwords <= sb.block_max_words(card.index)
-    assert sb.LAUNCHES["batch_packed_block"] - before["batch_packed_block"] == block
-    assert sb.LAUNCHES["batch_packed"] - before["batch_packed"] == (0 if block else t)
+    assert _launched_forms(before, "packed") == _form_launches(
+        card, batch, height, nwords, t, "packed")
     want, want_flags = sb._batch_packed_block_plain(words, steps, t)
     assert torch.equal(out, want)
     assert torch.equal(flags, want_flags)
@@ -553,15 +575,24 @@ def test_batch_masked_kernel_matches_plain(card, height, width, extents, gen):
     assert torch.equal(flags, want_flags)
 
 
+# B2 past the block form, as BATCH_PACKED_PAST: 4e's 1000^2 pair in a
+# 1024^2 canvas (banded), a short board and a narrow one in the same canvas
+# (their bands' ghost rows repeat; whole bands of padding), a canvas of 725
+# words a row (t' = 10), and one of 309,600 cells a row (one-generation).
+BATCH_MASKED_PAST = [(1024, 1024, [(1000, 1000), (1024, 1024)]),
+                     (1024, 1024, [(5, 1024), (1024, 3), (1, 1)]),
+                     (64, 23200, [(64, 23200), (61, 23171)]),
+                     (32, 309600, [(30, 309590)])]
+
+
 @pytest.mark.parametrize("t", [1, 16, 18])
-@pytest.mark.parametrize("height,width,extents", BATCH_MASKED + [
-    (1024, 1024, [(1000, 1000), (1024, 1024)])],
-    ids=["mixed", "byte", "tall", "serving", "past_opt_in"])
+@pytest.mark.parametrize("height,width,extents", BATCH_MASKED + BATCH_MASKED_PAST,
+                         ids=["mixed", "byte", "tall", "serving", "past_opt_in",
+                              "short_and_narrow", "t_prime_below_t", "one_generation"])
 def test_batch_masked_block_matches_plain(card, height, width, extents, t):
-    """B2 over a whole block: the block form in one launch where the slot's
-    two bit copies fit in a CTA's shared memory, else the streaming form
-    once per generation (1024^2: 32,768 words); random, dying and still
-    boards with 0/1 noise in their padding, steps t/1/0/t+2."""
+    """B2 over a whole block, in the form its shape takes
+    (``_form_launches``); random, dying and still boards with 0/1 noise in
+    their padding, steps t/1/0/t+2."""
     rng = np.random.default_rng(height + width + t)
     batch = len(extents)
     canvas = rng.integers(0, 2, (batch, height, width), dtype=np.uint8)
@@ -584,9 +615,8 @@ def test_batch_masked_block_matches_plain(card, height, width, extents, t):
     before = dict(sb.LAUNCHES)
     sb.batch_masked_block_into(cells, out, flags, steps, heights, widths, t)
     torch.cuda.synchronize(card)
-    block = height * -(-width // 32) <= sb.block_max_words(card.index)
-    assert sb.LAUNCHES["batch_masked_block"] - before["batch_masked_block"] == block
-    assert sb.LAUNCHES["batch_masked"] - before["batch_masked"] == (0 if block else t)
+    assert _launched_forms(before, "masked") == _form_launches(
+        card, batch, height, -(-width // 32), t, "masked")
     want, want_flags = sb._batch_masked_block_plain(cells, steps, heights, widths, t)
     assert torch.equal(out, want)
     assert torch.equal(flags, want_flags)
