@@ -48,28 +48,33 @@ error:
    ``bandt_kernel``'s tile (``tile_shapes``: one band around its least
    height and two ragged ones, and nwords 1, 2, 31, 37 and 61 against its
    30-word strips). Outputs and flags must be identical. Then B1's
-   one-generation kernel (one generation of B packed tori) at (boards,
-   height, nwords) (3,32,1) (32x32 one-word boards) (2,1,1) (4,17,5)
-   (64,256,8), B1's block call over blocks of t = 1, 16 and 18
+   one-generation wrapper (one generation of B packed tori: the
+   column-cut form at one generation) at (boards, height, nwords) (3,32,1)
+   (32x32 one-word boards) (2,1,1) (4,17,5) (64,256,8) and 4e's wide pair
+   (2,32,9675), B1's block call over blocks of t = 1, 16 and 18
    generations with step counts t/1/0/t+2 at the same shapes (the block
    form, one launch), at (2,1024,64) and 4e's pair (2,1024,32) (65,536 and
    32,768 words a board, past a CTA's shared memory: the banded form, each
-   board in bands of R rows held with t' ghost rows each side, ceil(t /
-   t') launches) and at (2,64,725) (40 rows a copy: t' = 10, two banded
-   launches for t = 16 and 18), and B2's one-generation kernel (B2-step:
-   one generation of B uint8 boards, each wrapping at its own extent) on
-   a 32x32 canvas of extents 30x30, 18x24, 10x13 and 1x1, on the
-   exact-fit 33x20 byte mode and on 64 250x250 boards in a 256x256
-   canvas, at a block's generation 0 and 2 with per-board step counts
-   3/1/0 (a spent board copies through, a padding slot never runs), and
-   B2's block call over blocks of t = 1, 16 and 18 with steps t/1/0/t+2
-   at the same canvases (the block form, one launch, each board as bits
-   in one CTA's shared memory), at 4e's 1000^2 and 1024^2 boards in a
-   1024^2 canvas (32,768 words of bits a slot: the banded form), at a
-   5x1024 and a 1024x3 board in a 1024^2 canvas (bands whose ghost rows
-   repeat, bands of padding alone) and on a 64x23200 canvas (t' = 10):
+   board in bands of R rows held with t' ghost rows each side), and at
+   (2,64,725), (2,16,2048) and the wide pair (rows too wide for whole-row
+   bands: the column-cut form, tiles of R rows x C words with one ghost
+   word each side), one launch a block each; and B2's one-generation
+   wrapper (one generation of B uint8 boards, each wrapping at its own
+   extent) on a 32x32 canvas of extents 30x30, 18x24, 10x13 and 1x1, on
+   the exact-fit 33x20 byte mode, on 64 250x250 boards in a 256x256 canvas
+   and on 4e's wide masked pair, at a block's generation 0 and 2 with
+   per-board step counts 3/1/0 (a spent board copies through, a padding
+   slot never runs), and B2's block call over blocks of t = 1, 16 and 18
+   with steps t/1/0/t+2 at the same canvases (the block form, one launch,
+   each board as bits in one CTA's shared memory), at 4e's 1000^2 and
+   1024^2 boards in a 1024^2 canvas (32,768 words of bits a slot: the
+   banded form), at a 5x1024 and a 1024x3 board in a 1024^2 canvas (bands
+   whose ghost rows repeat, bands of padding alone) and on a 64x23200, a
+   16x65536 and the wide pair's 32x309600 canvas (the column-cut form):
    words or cells and per-board (per generation) flags identical, and
-   each block call's launches counted (the form its shape takes).
+   each block call's launches counted (the form its shape takes). Then
+   both column-cut forms at the wide pairs in tiles one word narrower and
+   one wider than the plan's, blocks of t = 1, 16 and 18, one launch each.
    Then T1 (B halo-extended tiles) at (tiles, edge) (3,4)
    (5,9) (64,256) (64,512) for one generation (the banded form) on
    random, still and all-zero blocks, and for n generations at (tiles,
@@ -204,10 +209,9 @@ error:
    with the launch counters set to 0 just before and read just
    after: B1's block form (once per 16-generation block of a batch's
    loop), its banded form (the 1024^2 pair, once a block: 3 launches a
-   run), its one-generation kernel (the wide pair, once a generation),
-   B2's block form (once per block), its banded form (the 1000^2 pair,
-   3 a run) and its one-generation kernel (the wide masked pair) must
-   launch, no
+   run), its column-cut form (the wide pair, once: 1 launch a run), B2's
+   block form (once per block), its banded form (the 1000^2 pair, 3 a
+   run) and its column-cut form (the wide masked pair, 1) must launch, no
    other kernel. Every
    board's grid and generations equal the port's solo ``engine.simulate``
    (``--kernel auto`` for the packed boards, ``pallas`` for the masked
@@ -430,12 +434,11 @@ error:
    16-generation block, 100 launches in one CUDA graph with fresh flag
    rows each (ms per block and per generation), with B2's shared memory
    per board; their banded forms where they run, at 64 x 1024 x 32 words
-   and 64 1000^2 boards in a 1024^2 canvas, one block of 16 generations
-   (ms per block, with the plan's (t', R)), and their one-generation
-   kernels at the same shapes (ms
-   per launch, and a 16-launch block in one CUDA graph); B1's ops and B2's
-   block and banded forms' at the network's 12 per word of bits and
-   generation, B2-step's at ``OPS_PER_CELL`` per cell.
+   and 64 1000^2 boards in a 1024^2 canvas, and their column-cut forms at
+   16 boards of 4e's wide pairs (32 x 9,675 words; 30 x 309,590 in a 32 x
+   309,600 canvas), one block of 16 generations each (ms per block, with
+   the plan's (t', R, C) and CTAs); every form's ops at the network's 12
+   per word of bits and generation.
    T1's banded form (n = 1) at 64 tiles of 256^2 (compact output, the
    sparse lane's form) and 64 windows of 512^2 (padded ping-pong), 100
    launches in one CUDA graph with a fresh flag row each, and its window
@@ -675,7 +678,7 @@ BATCH_KERNELS = [
     },
     {
         "key": "batch_packed_band", "id": "B1-stream",
-        "name": "B1 batch_packed_band_kernel (banded form): a block of t "
+        "name": "B1 batch_packed_band_kernel<false> (banded form): a block of t "
                 "generations of B packed tori too large for a CTA's shared "
                 "memory, each in bands of R rows held with t' ghost rows each "
                 "side in one CTA's shared memory, ceil(t / t') launches, "
@@ -684,10 +687,13 @@ BATCH_KERNELS = [
         "replaces": "none: jnp under vmap (gol_tpu/engine.py:1286-1290)",
     },
     {
-        "key": "batch_packed", "id": "B1-step",
-        "name": "B1 batch_packed_kernel (one-generation form): one generation "
-                "of B packed tori whose rows pass even a band of one row, "
-                "per-board flags and step counts",
+        "key": "batch_packed_wide", "id": "B1-wide",
+        "name": "B1 batch_packed_band_kernel<true> (column-cut form): a block "
+                "of t generations of B packed tori whose rows are too wide for "
+                "whole-row bands, each in tiles of R rows x C words held with "
+                "t' ghost rows and one ghost word each side in one CTA's shared "
+                "memory, up to 32 generations a launch; also the one-generation "
+                "wrapper; per-generation flags and per-board step counts",
         "source": "gol_tpu_torch/csrc/stencil_batch.cu",
         "replaces": "none: jnp under vmap (gol_tpu/engine.py:1286-1290)",
     },
@@ -703,7 +709,7 @@ BATCH_KERNELS = [
     },
     {
         "key": "batch_masked_band", "id": "B2-stream",
-        "name": "B2 batch_masked_band_kernel (banded form): a block of t "
+        "name": "B2 batch_masked_band_kernel<false> (banded form): a block of t "
                 "generations of B uint8 boards whose two bit copies pass a "
                 "CTA's shared memory, each wrapping at its own extent, in "
                 "bands of R canvas rows held as bits with t' ghost rows each "
@@ -714,11 +720,14 @@ BATCH_KERNELS = [
         "cells": True,
     },
     {
-        "key": "batch_masked", "id": "B2-step",
-        "name": "B2 batch_masked_kernel (one-generation form): one generation "
-                "of B uint8 boards whose rows pass even a band of one row, "
-                "each wrapping at its own extent, per-board flags and step "
-                "counts",
+        "key": "batch_masked_wide", "id": "B2-wide",
+        "name": "B2 batch_masked_band_kernel<true> (column-cut form): a block "
+                "of t generations of B uint8 boards whose canvas rows are too "
+                "wide for whole-row bands, each wrapping at its own extent, in "
+                "tiles of R canvas rows x C words of bits (a window onto the "
+                "periodic row) with t' ghost rows and one ghost word each side, "
+                "up to 32 generations a launch; also the one-generation "
+                "wrapper; per-generation flags and per-board step counts",
         "source": "gol_tpu_torch/csrc/stencil_batch.cu",
         "replaces": "none: jnp under vmap (gol_tpu/engine.py:1081-1105)",
         "cells": True,
@@ -822,27 +831,36 @@ _MSECS = re.compile(r"\d+\.\d+ msecs")
 # one-word board, one-row boards, the serving bucket's 64 x 256^2, and for
 # the block call boards too large for a CTA's shared memory (65,536 words
 # and 4e's 1024^2 pair, 32,768: the banded form, one launch a block; 725
-# words a row, 40 rows a copy: t' = 10 < t) — and (canvas height, width,
-# extents) for B2: mixed extents in one canvas, the exact-fit byte mode,
-# the serving bucket's 64 x 250^2 in 256^2. B1's blocks run t generations
-# of BATCH_BLOCK_TS.
+# and 2,048 words a row, 40 and 14 rows a copy, too few for whole-row
+# bands at t = 16, and 4e's wide pair, 9,675: the column-cut form, one
+# launch a block) — and (canvas height, width, extents) for B2: mixed
+# extents in one canvas, the exact-fit byte mode, the serving bucket's 64
+# x 250^2 in 256^2. B1's blocks run t generations of BATCH_BLOCK_TS; the
+# one-generation wrappers run at BATCH_PACKED_SHAPES and the wide pair.
 BATCH_PACKED_SHAPES = [(3, 32, 1), (2, 1, 1), (4, 17, 5), (64, 256, 8)]
+BATCH_WIDE_PACKED = (2, 32, 9675)
 BATCH_BLOCK_SHAPES = BATCH_PACKED_SHAPES + [(2, 1024, 64), (2, 1024, 32),
-                                            (2, 64, 725)]
+                                            (2, 64, 725), (2, 16, 2048),
+                                            BATCH_WIDE_PACKED]
 BATCH_BLOCK_TS = (1, 16, 18)
 BATCH_BLOCK_T = 16  # the engine's block: phase 5 times B1 over one
 TILE_WINDOW_GENS = 128  # phase 5: T1's window form over a 2L window's L/2
 BATCH_MASKED_SHAPES = [(32, 32, [(30, 30), (18, 24), (10, 13), (1, 1)]),
                        (33, 20, [(33, 20)] * 2), (256, 256, [(250, 250)] * 64)]
 # B2's block calls, over blocks of BATCH_BLOCK_TS: the same, and canvases
-# whose two bit copies pass a CTA's shared memory (the banded form): 4e's
-# 1000^2 and 1024^2 boards in a 1024^2 canvas, a short board and a narrow
-# one there (ghost rows that repeat, bands of padding alone), and a
-# 64x23200 canvas (725 words a row: t' = 10 < t).
+# whose two bit copies pass a CTA's shared memory: 4e's 1000^2 and 1024^2
+# boards in a 1024^2 canvas, a short board and a narrow one there (ghost
+# rows that repeat, bands of padding alone; the banded form), a 64x23200
+# canvas (725 words a row), a 16x65536 one (2,048) and 4e's wide masked
+# pair (the column-cut form: tiles of padding alone, a board narrower
+# than a tile's words).
+BATCH_WIDE_MASKED_CANVAS = (32, 309600, [(30, 309590)] * 2)
 BATCH_MASKED_BLOCK_SHAPES = BATCH_MASKED_SHAPES + [
     (1024, 1024, [(1000, 1000), (1024, 1024)]),
     (1024, 1024, [(5, 1024), (1024, 3)]),
-    (64, 23200, [(64, 23200), (61, 23171)])]
+    (64, 23200, [(64, 23200), (61, 23171)]),
+    (16, 65536, [(16, 65536), (13, 65500), (3, 40)]),
+    BATCH_WIDE_MASKED_CANVAS]
 # Phase 4e: the serving load of bench.py (--suite batch / megabatch): 64
 # boards in the exact-fit 256^2 bucket and 64 in the masked 250^2 bucket.
 BATCH_BOARDS = 64
@@ -850,10 +868,6 @@ BATCH_SIDES = {"256x256/packed": 256, "250x250/masked": 250}
 BATCH_LIMITS = (4, 1000)
 BATCH_SIZES = (1, 8, 64)
 BATCH_REPEATS = 2  # bench.py's best of 3, cut to fit the smoke's time limit
-# B2's operations per cell: the 3x3 sum in 4 three-input adds, 2 compares
-# and a 3-input logic op for the rule, one for the differs flag and a
-# select. Bytes bound it either way.
-OPS_PER_CELL = 9
 # Phase 4f: the server lane. The pipeline load (BATCH_BOARDS per bucket at
 # SERVER_LIMIT) through a real server per lane; the cache load; the
 # restart drill of tools/serve_smoke.py.
@@ -916,14 +930,16 @@ BATCH_LANE_KEYS = ("batch_packed_block", "batch_masked_block")
 # (bucket 1024x1024/c/masked: two 32,768-word bit copies), which take B2's,
 # and its pairs of boards whose rows pass even a band of one row (32 x
 # 309,600 and 30 x 309,590 cells, 9,675 words a row), which take the
-# one-generation kernels.
+# column-cut forms.
 BATCH_BIG_SIDE, BATCH_BIG_LIMIT = 1024, 40
 BATCH_BIG_MASKED_SIDE = 1000
 BATCH_WIDE, BATCH_WIDE_MASKED, BATCH_WIDE_LIMIT = (32, 309600), (30, 309590), 8
-# Phase 5's timing shapes of the banded forms and the one-generation
-# kernels: 64 boards of 1024 x 32 words (B1) and 64 of 1000^2 in a 1024^2
-# canvas (B2), the big pairs' buckets at the serving batch.
+# Phase 5's timing shapes of the banded forms: 64 boards of 1024 x 32
+# words (B1) and 64 of 1000^2 in a 1024^2 canvas (B2), the big pairs'
+# buckets at the serving batch; of the column-cut forms, 16 boards of the
+# wide pairs' shapes.
 BATCH_PAST_BOARDS = 64
+BATCH_WIDE_BOARDS = 16
 # The single-device --packed-io lane that prints its I/O lines (under
 # --variant tpu; the serial variants print none).
 IO_LANE = ["--mesh", "1x1", "--packed-io"]
@@ -1182,19 +1198,21 @@ def check_batch_kernels(dev, stats: dict) -> None:
     slot never runs), B2's mixed extents in one canvas and its byte mode."""
     rng = np.random.default_rng(SEED + 4)
     kinds = ("random", "dies", "still")
-    for batch, height, nwords in BATCH_PACKED_SHAPES:
+    for batch, height, nwords in BATCH_PACKED_SHAPES + [BATCH_WIDE_PACKED]:
         boards = np.stack([_batch_board(height, 32 * nwords, kinds[b % 3], rng)
                            for b in range(batch)])
         x = pm.words_from_numpy(bitpack.pack_words(boards), dev)
         steps = _batch_steps(batch, dev)
         _compare_batch(
-            "batch_packed",
+            "batch_packed_wide",
             lambda a, out, flags, gen: sb.batch_packed_step_into(a, out, flags, steps, gen),
             lambda a, gen: sb._batch_packed_plain(a, steps, gen),
             x, stats, f"({batch}, {height}, {nwords})")
-        print(f"B1-step at (boards, height, nwords) ({batch}, {height}, {nwords}) "
-              "== plain at gen 0 and 2 (random, dies, still; steps 3/1/0) "
-              "(tolerance 0: words and flags identical)", flush=True)
+        print(f"B1's one-generation wrapper (B1-wide at one generation, tile "
+              f"{sb.step_tile(dev.index, batch, height, nwords)}) at (boards, "
+              f"height, nwords) ({batch}, {height}, {nwords}) == plain at gen 0 "
+              "and 2 (random, dies, still; steps 3/1/0) (tolerance 0: words and "
+              "flags identical)", flush=True)
     for batch, height, nwords in BATCH_BLOCK_SHAPES:
         boards = np.stack([_batch_board(height, 32 * nwords, kinds[b % 3], rng)
                            for b in range(batch)])
@@ -1223,7 +1241,7 @@ def check_batch_kernels(dev, stats: dict) -> None:
               f"{nwords}), {_form_text(dev, 'packed', batch, height, nwords)}, == "
               f"plain at t {BATCH_BLOCK_TS} (random, dies, still; steps t/1/0/t+2) "
               "(tolerance 0: words and per-generation flags identical)", flush=True)
-    for height, width, extents in BATCH_MASKED_SHAPES:
+    for height, width, extents in BATCH_MASKED_SHAPES + [BATCH_WIDE_MASKED_CANVAS]:
         batch = len(extents)
         canvas = np.zeros((batch, height, width), np.uint8)
         for b, (h, w) in enumerate(extents):
@@ -1233,14 +1251,15 @@ def check_batch_kernels(dev, stats: dict) -> None:
         ws = torch.tensor([w for _, w in extents], dtype=torch.int32, device=dev)
         steps = _batch_steps(batch, dev)
         _compare_batch(
-            "batch_masked",
+            "batch_masked_wide",
             lambda a, out, flags, gen: sb.batch_masked_step_into(
                 a, out, flags, steps, hs, ws, gen),
             lambda a, gen: sb._batch_masked_plain(a, steps, hs, ws, gen),
             x, stats, f"{height}x{width} canvas, extents {sorted(set(extents))}")
-        print(f"B2-step at a {batch} x {height}x{width} canvas, extents "
-              f"{sorted(set(extents))} == plain at gen 0 and 2 (tolerance 0: "
-              "cells and flags identical)", flush=True)
+        print(f"B2's one-generation wrapper (B2-wide at one generation) at a "
+              f"{batch} x {height}x{width} canvas, extents {sorted(set(extents))} "
+              "== plain at gen 0 and 2 (tolerance 0: cells and flags identical)",
+              flush=True)
     for height, width, extents in BATCH_MASKED_BLOCK_SHAPES:
         batch = len(extents)
         canvas = np.zeros((batch, height, width), np.uint8)
@@ -1274,6 +1293,55 @@ def check_batch_kernels(dev, stats: dict) -> None:
               f", == plain at t {BATCH_BLOCK_TS} (random, dies, still; steps "
               "t/1/0/t+2) (tolerance 0: cells and per-generation flags identical)",
               flush=True)
+    check_wide_tiles(dev, stats, rng)
+
+
+def check_wide_tiles(dev, stats: dict, rng) -> None:
+    """B1-wide and B2-wide at 4e's wide pairs in tiles one word narrower and
+    one wider than the plan's for t = BATCH_BLOCK_T (ghost words at other
+    offsets, other edge tiles), over blocks of BATCH_BLOCK_TS in one launch
+    each: words or cells and per-generation flags equal the plain
+    versions."""
+    batch, height, nwords = BATCH_WIDE_PACKED
+    x = pm.words_from_numpy(bitpack.pack_words(np.stack([
+        _batch_board(height, 32 * nwords, "random", rng) for _ in range(batch)])), dev)
+    mheight, mwidth, extents = BATCH_WIDE_MASKED_CANVAS
+    canvas = rng.integers(0, 2, (len(extents), mheight, mwidth), dtype=np.uint8)
+    for b, (h, w) in enumerate(extents):
+        canvas[b, :h, :w] = _batch_board(h, w, ("random", "still")[b % 2], rng)
+    cells = torch.from_numpy(canvas).to(dev)
+    hs = torch.tensor([h for h, _ in extents], dtype=torch.int32, device=dev)
+    ws = torch.tensor([w for _, w in extents], dtype=torch.int32, device=dev)
+    cases = {
+        "batch_packed_wide": (x, nwords, (), sb.batch_packed_wide_into,
+                              sb._batch_packed_block_plain),
+        "batch_masked_wide": (cells, -(-mwidth // 32), (hs, ws),
+                              sb.batch_masked_wide_into, sb._batch_masked_block_plain),
+    }
+    for key, (src, nwb, extent, call, plain) in cases.items():
+        _, rows, cols = sb.band_plan(dev.index, src.shape[0], src.shape[1], nwb,
+                                     BATCH_BLOCK_T)
+        for t in BATCH_BLOCK_TS:
+            steps = torch.tensor([(t, 1, 0, t + 2)[b % 4] for b in range(src.shape[0])],
+                                 dtype=torch.int32, device=dev)
+            want, want_flags = plain(src, steps, *extent, t)
+            for c in (cols - 1, cols + 1):
+                out = torch.empty_like(src)
+                flags = torch.zeros((t, src.shape[0], sb.STEP_FLAGS),
+                                    dtype=torch.int32, device=dev)
+                call(src, out, flags, steps, *extent, 0, t, rows, c)
+                torch.cuda.synchronize(dev)
+                err = max(int((_u32(out.to(torch.int32)) - _u32(want.to(torch.int32)))
+                              .abs().max()), int((flags - want_flags).abs().max()))
+                stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
+                stats[key]["checks"] += 1
+                if err:
+                    fail(f"{key} differs from its plain version at "
+                         f"{tuple(src.shape)} in tiles of {rows} x {c} words, t {t}")
+        print(f"{key} at {tuple(src.shape)} in tiles of {rows} rows x {cols - 1} "
+              f"and {cols + 1} words (the plan's {cols} +- 1) == plain at t "
+              f"{BATCH_BLOCK_TS}, one launch each (tolerance 0: state and "
+              "per-generation flags identical)", flush=True)
 
 
 def _block_call_form(dev, kind: str, batch: int, height: int, nwb: int, t: int,
@@ -1281,13 +1349,13 @@ def _block_call_form(dev, kind: str, batch: int, height: int, nwb: int, t: int,
     """The LAUNCHES key of the form a block call of ``t`` generations took,
     after checking that it made exactly the launches its shape asks for:
     one of the block form where a board's two copies fit in a CTA's shared
-    memory, else ceil(t / t') of the banded form (``sb.band_plan``), or t of
-    the one-generation kernel where not even a band fits."""
+    memory, else ceil(t / t') (``sb.band_plan``) of the banded form where
+    the plan keeps whole rows, or of the column-cut form."""
     if height * nwb <= sb.block_max_words(dev.index):
         want = {f"batch_{kind}_block": 1}
     else:
-        per, _ = sb.band_plan(dev.index, batch, height, nwb, t)
-        want = {f"batch_{kind}_band": -(-t // per)} if per else {f"batch_{kind}": t}
+        per, _, cols = sb.band_plan(dev.index, batch, height, nwb, t)
+        want = {f"batch_{kind}_{'band' if cols == nwb else 'wide'}": -(-t // per)}
     got = {k: n - before[k] for k, n in sb.LAUNCHES.items() if n != before[k]}
     if got != want:
         fail(f"{where}: launches {got}, its shape asks for {want}")
@@ -1298,11 +1366,12 @@ def _form_text(dev, kind: str, batch: int, height: int, nwb: int) -> str:
     """Which form a block call of BATCH_BLOCK_T generations takes, in words."""
     if height * nwb <= sb.block_max_words(dev.index):
         return "the block form, one launch"
-    per, rows = sb.band_plan(dev.index, batch, height, nwb, BATCH_BLOCK_T)
-    if per == 0:
-        return "the one-generation kernel, one launch a generation"
-    return (f"the banded form (t' {per}, bands of {rows} rows at t "
-            f"{BATCH_BLOCK_T}), ceil(t / t') launches")
+    per, rows, cols = sb.band_plan(dev.index, batch, height, nwb, BATCH_BLOCK_T)
+    if cols == nwb:
+        return (f"the banded form (t' {per}, bands of {rows} rows at t "
+                f"{BATCH_BLOCK_T}), ceil(t / t') launches")
+    return (f"the column-cut form (t' {per}, tiles of {rows} rows x {cols} words "
+            f"at t {BATCH_BLOCK_T}), ceil(t / t') launches")
 
 
 def _tile_stack(batch: int, tile: int, kind: str, rng) -> np.ndarray:
@@ -2174,27 +2243,37 @@ def io_compare(trees: list[Path], size: int, rounds: int) -> dict:
 # --batch-compare: phase 4e's boards/s (bench.py's batch suite: count/B
 # dispatches of B boards, best of 3 after a warm dispatch per B) for each
 # tree of the repository, each run in a process of its own that imports
-# that tree's package. Each bucket is (name, side, boards, gen_limits,
-# batch sizes): 4e's two, then the big pairs' buckets (1024^2 packed,
-# 1000^2 in 1024^2 masked: the banded forms) at 8 boards.
+# that tree's package. Each bucket is (name, (height, width), boards,
+# gen_limits, batch sizes): 4e's two, then the big pairs' buckets (1024^2
+# packed, 1000^2 in 1024^2 masked: the banded forms) and the wide pairs'
+# (32 x 309,600 packed, 30 x 309,590 masked: the column-cut forms) at 8
+# boards. Then each tree's block call of BATCH_BLOCK_T generations at
+# phase 5's column-cut timing shapes (BATCH_WIDE_BOARDS boards of the wide
+# pairs), ms a block over 20 block calls in one CUDA graph with fresh flag
+# rows, and the launches a block makes (an older tree's block may be a
+# launch a generation).
 BATCH_COMPARE_BUCKETS = [
-    *[(name, side, BATCH_BOARDS, list(BATCH_LIMITS), list(BATCH_SIZES))
+    *[(name, (side, side), BATCH_BOARDS, list(BATCH_LIMITS), list(BATCH_SIZES))
       for name, side in BATCH_SIDES.items()],
-    ("1024x1024/packed", BATCH_BIG_SIDE, 8, [1000], [1, 8]),
-    ("1000x1000/masked", BATCH_BIG_MASKED_SIDE, 8, [1000], [1, 8])]
+    ("1024x1024/packed", (BATCH_BIG_SIDE,) * 2, 8, [1000], [1, 8]),
+    ("1000x1000/masked", (BATCH_BIG_MASKED_SIDE,) * 2, 8, [1000], [1, 8]),
+    ("32x309600/packed", BATCH_WIDE, 8, [1000], [1, 8]),
+    ("30x309590/masked", BATCH_WIDE_MASKED, 8, [1000], [1, 8])]
+BATCH_COMPARE_BLOCKS = [BATCH_WIDE_BOARDS, BATCH_BLOCK_T, BATCH_WIDE, BATCH_WIDE_MASKED]
 _BATCH_RATES = r"""
 import json, sys, time
 import numpy as np
-from gol_tpu_torch.ops import stencil_batch
+import torch
+from gol_tpu_torch.ops import packed_math, stencil_batch
 from gol_tpu_torch.serve import batcher
 from gol_tpu_torch.serve.jobs import new_job
-seed, buckets = json.loads(sys.argv[1])
+seed, buckets, (count, t, (height, width), (mh, mw)) = json.loads(sys.argv[1])
 rng = np.random.default_rng(seed)
 out = {}
-for name, side, count, limits, sizes in buckets:
-    boards = [rng.integers(0, 2, (side, side), dtype=np.uint8) for _ in range(count)]
+for name, (h, w), nboards, limits, sizes in buckets:
+    boards = [rng.integers(0, 2, (h, w), dtype=np.uint8) for _ in range(nboards)]
     for limit in limits:
-        jobs = [new_job(side, side, b, convention="c", gen_limit=limit) for b in boards]
+        jobs = [new_job(w, h, b, convention="c", gen_limit=limit) for b in boards]
         key = batcher.bucket_for(jobs[0])
         before = dict(stencil_batch.LAUNCHES)
         rates = {}
@@ -2210,6 +2289,47 @@ for name, side, count, limits, sizes in buckets:
         out[f"{name} limit {limit}"] = {"bucket": key.label(), "boards_per_sec": rates,
                                         "launches": {
             k: n - before.get(k, 0) for k, n in stencil_batch.LAUNCHES.items()}}
+dev = torch.device("cuda", 0)
+words = packed_math.words_from_numpy(rng.integers(
+    0, 2**32, (count, height, width // 32), dtype=np.uint64).astype(np.uint32), dev)
+cells = torch.zeros((count, height, width), dtype=torch.uint8, device=dev)
+cells[:, :mh, :mw] = torch.from_numpy(rng.integers(0, 2, (count, mh, mw), dtype=np.uint8)).to(dev)
+full = torch.full((count,), t, dtype=torch.int32, device=dev)
+eh = torch.full((count,), mh, dtype=torch.int32, device=dev)
+ew = torch.full((count,), mw, dtype=torch.int32, device=dev)
+calls = {
+    "packed": (words, lambda a, o, f, s: stencil_batch.batch_packed_block_into(
+        a, o, f, full, t, s)),
+    "masked": (cells, lambda a, o, f, s: stencil_batch.batch_masked_block_into(
+        a, o, f, full, eh, ew, t, s)),
+}
+blocks, rounds = {}, 20
+for kind, (x, call) in calls.items():
+    y, scratch = torch.empty_like(x), torch.empty_like(x)
+    rows = torch.zeros((rounds, t, count, 2), dtype=torch.int32, device=dev)
+    before = dict(stencil_batch.LAUNCHES)
+    call(x, y, rows[0], scratch)
+    torch.cuda.synchronize()
+    launches = {k: n - before.get(k, 0) for k, n in stencil_batch.LAUNCHES.items()
+                if n != before.get(k, 0)}
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        a, b = x, y
+        for k in range(rounds):
+            call(a, b, rows[k], scratch)
+            a, b = b, a
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(2):
+        rows.zero_()
+        torch.cuda.synchronize()
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+    blocks[f"{kind} {tuple(x.shape)}"] = {"ms_a_block": start.elapsed_time(end) / rounds,
+                                         "launches_a_block": launches}
+    del graph, y, scratch
+out["blocks"] = blocks
 print(json.dumps(out))
 """
 
@@ -2219,7 +2339,7 @@ def batch_compare(trees: list[Path], rounds: int) -> dict:
     convention) for each tree, ``rounds`` rounds of a process per tree, odd
     rounds taking the trees in reverse order, so that two versions compare
     within one call on one card."""
-    args = json.dumps([SEED + 5, BATCH_COMPARE_BUCKETS])
+    args = json.dumps([SEED + 5, BATCH_COMPARE_BUCKETS, BATCH_COMPARE_BLOCKS])
     runs = {str(t): [] for t in trees}
     for r in range(rounds):
         for tree in (trees if r % 2 == 0 else trees[::-1]):
@@ -2235,7 +2355,7 @@ def batch_compare(trees: list[Path], rounds: int) -> dict:
             runs[str(tree)].append(result)
             print(f"round {r} {tree}: " + json.dumps(result), flush=True)
     return {"rounds": rounds, "seed": SEED + 5, "buckets": BATCH_COMPARE_BUCKETS,
-            "runs": runs}
+            "blocks": BATCH_COMPARE_BLOCKS, "runs": runs}
 
 
 def checkpoint_path(work: Path, path: dict) -> dict:
@@ -2610,10 +2730,10 @@ def batch_lane(work: Path, dev) -> dict:
     1000 under both conventions, then JAX's mixed-fate trio at 32^2, a
     pair of 1024^2 boards (B1's banded form), a pair of 1000^2 boards
     (B2's banded form) and the wide pairs (BATCH_WIDE, BATCH_WIDE_MASKED:
-    the one-generation kernels), with the launch counters zeroed just
-    before and read just after; each big pair's run launches its banded
-    form once a block (ceil(BATCH_BIG_LIMIT / 16) = 3 times) and no
-    one-generation kernel. Every
+    the column-cut forms), with the launch counters zeroed just before and
+    read just after; each big pair's run launches its banded form once a
+    block (ceil(BATCH_BIG_LIMIT / 16) = 3 times), each wide pair's its
+    column-cut form once (BATCH_WIDE_LIMIT < 16). Every
     board's grid, generations and exit reason equal the port's solo
     ``engine.simulate`` (``auto`` for the packed bucket, ``pallas`` for the
     masked one); the trio's equal the oracle too. Then ``python -m
@@ -2631,11 +2751,14 @@ def batch_lane(work: Path, dev) -> dict:
     wide = {"wide": [rng.integers(0, 2, BATCH_WIDE, dtype=np.uint8) for _ in range(2)],
             "wide masked": [rng.integers(0, 2, BATCH_WIDE_MASKED, dtype=np.uint8)
                             for _ in range(2)]}
-    # One launch of the banded form a block of the big pairs.
-    for nwb in (BATCH_BIG_SIDE // 32, -(-BATCH_BIG_MASKED_SIDE // 32)):
-        if sb.band_plan(dev.index, 2, BATCH_BIG_SIDE, nwb, 16)[0] < 16:
-            fail(f"the big pairs' band plan at {nwb} words a row runs fewer "
-                 "than 16 generations a launch")
+    # One launch a block of the big and wide pairs.
+    for height, nwb in ((BATCH_BIG_SIDE, BATCH_BIG_SIDE // 32),
+                        (BATCH_BIG_SIDE, -(-BATCH_BIG_MASKED_SIDE // 32)),
+                        (BATCH_WIDE[0], BATCH_WIDE[1] // 32),
+                        (BATCH_WIDE[0], -(-BATCH_WIDE[1] // 32))):
+        if sb.band_plan(dev.index, 2, height, nwb, 16)[0] < 16:
+            fail(f"the plan at {height} rows of {nwb} words runs fewer than 16 "
+                 "generations a launch")
     big_blocks = -(-BATCH_BIG_LIMIT // 16)
     runs, exec_ms, pair_launches = {}, {}, {}
     _zero_counters()
@@ -2659,10 +2782,9 @@ def batch_lane(work: Path, dev) -> dict:
                 ("big", big, BATCH_BIG_LIMIT, {"batch_packed_band": big_blocks}),
                 ("big masked", big_masked, BATCH_BIG_LIMIT,
                  {"batch_masked_band": big_blocks}),
-                ("wide", wide["wide"], BATCH_WIDE_LIMIT,
-                 {"batch_packed": BATCH_WIDE_LIMIT}),
+                ("wide", wide["wide"], BATCH_WIDE_LIMIT, {"batch_packed_wide": 1}),
                 ("wide masked", wide["wide masked"], BATCH_WIDE_LIMIT,
-                 {"batch_masked": BATCH_WIDE_LIMIT})):
+                 {"batch_masked_wide": 1})):
             jobs = _batch_jobs(boards, convention, limit)
             before = dict(sb.LAUNCHES)
             runs[(convention, limit, name)] = batcher.run_batch(
@@ -2677,8 +2799,8 @@ def batch_lane(work: Path, dev) -> dict:
           f"{json.dumps(pair_launches)}; one dispatch each, ms: "
           + json.dumps({k: round(v, 3) for k, v in exec_ms.items()}), flush=True)
     for k in KERNELS + BATCH_KERNELS:
-        if (k["key"] in BATCH_LANE_KEYS + ("batch_packed_band", "batch_packed",
-                                           "batch_masked_band", "batch_masked")) != (
+        if (k["key"] in BATCH_LANE_KEYS + ("batch_packed_band", "batch_packed_wide",
+                                           "batch_masked_band", "batch_masked_wide")) != (
                 counts[k["key"]] > 0):
             fail(f"{k['id']} ({k['key']}) launched {counts[k['key']]} times on "
                  "the batch lane")
@@ -5245,18 +5367,17 @@ def _fresh_flags_ms(launch, x: torch.Tensor, rounds: int, gens: int = 0) -> floa
 
 
 def _timed_batch(ops_per_s: float) -> dict:
-    """B1 and B2 in each form where it runs. The block forms at phase 4e's
-    shapes, 64 boards of 256 x 8 words and 64 boards of 250^2 in a 256^2
-    canvas, one block of BATCH_BLOCK_T generations (``_timed_block``). The
-    banded forms at the big pairs' buckets at the serving batch,
-    BATCH_PAST_BOARDS boards of 1024 x 32 words and of 1000^2 in a 1024^2
-    canvas, one block the same way, with the plan's (t', R)
-    (``tools/batch_band_sweep.py`` times other band rows and CTA sizes).
-    The one-generation
-    kernels at those shapes: one launch of a block's first generation
-    (every board runs; ``_timed_launch``) and a block of BATCH_BLOCK_T
-    launches in one CUDA graph. The bytes are the boards, the step counts
-    and extents read once and the boards and flags written once."""
+    """B1 and B2 in each form where it runs, one block of BATCH_BLOCK_T
+    generations in which every board runs (``_timed_block``). The block
+    forms at phase 4e's shapes, 64 boards of 256 x 8 words and 64 boards of
+    250^2 in a 256^2 canvas. The banded forms at the big pairs' buckets at
+    the serving batch, BATCH_PAST_BOARDS boards of 1024 x 32 words and of
+    1000^2 in a 1024^2 canvas, with the plan's (t', R). The column-cut
+    forms at 4e's wide pairs at BATCH_WIDE_BOARDS boards: 32 x 9,675
+    words, and 30 x 309,590 in a 32 x 309,600 canvas, with the plan's (t',
+    R, C) (``tools/batch_band_sweep.py`` times other band rows, tile widths
+    and CTA sizes). The bytes are the boards, the step counts and extents
+    read once and the boards and flags written once."""
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED + 6)
     b, t = BATCH_BOARDS, BATCH_BLOCK_T
@@ -5285,104 +5406,55 @@ def _timed_batch(ops_per_s: float) -> dict:
           f"{2 * 256 * 8 * 4} bytes of one CTA's shared memory, one CTA a board: "
           f"{b} of the card's SMs busy", flush=True)
 
-    b = BATCH_PAST_BOARDS
-    side, masked = BATCH_BIG_SIDE, BATCH_BIG_MASKED_SIDE
-    words = pm.words_from_numpy(rng.integers(0, 2**32, (b, side, side // 32),
-                                             dtype=np.uint64).astype(np.uint32), dev)
-    canvas = np.zeros((b, side, side), np.uint8)
-    canvas[:, :masked, :masked] = rng.integers(0, 2, (b, masked, masked), dtype=np.uint8)
-    cells = torch.from_numpy(canvas).to(dev)
-    del canvas
-    ext = torch.full((b,), masked, dtype=torch.int32, device=dev)
-    full = torch.full((b,), t, dtype=torch.int32, device=dev)
-    one = torch.ones(b, dtype=torch.int32, device=dev)
-    nwb = side // 32
     cases = {
-        "packed": dict(
-            x=words, vector_bytes=b * 4, block_ops=words.numel() * OPS_PER_WORD_GEN * t,
-            block=lambda a, o, f: sb.batch_packed_block_into(a, o, f, full, t),
-            block_plain=lambda a: sb._batch_packed_block_plain(a, full, t),
-            step=lambda a, o, f, st, gen: sb.batch_packed_step_into(a, o, f, st, gen),
-            step_plain=lambda a: sb._batch_packed_plain(a, one, 0),
-            step_ops=words.numel() * OPS_PER_WORD_GEN),
-        "masked": dict(
-            x=cells, vector_bytes=3 * b * 4,
-            block_ops=b * masked * -(-masked // 32) * OPS_PER_WORD_GEN * t,
-            block=lambda a, o, f: sb.batch_masked_block_into(a, o, f, full, ext, ext, t),
-            block_plain=lambda a: sb._batch_masked_block_plain(a, full, ext, ext, t),
-            step=lambda a, o, f, st, gen: sb.batch_masked_step_into(a, o, f, st, ext,
-                                                                    ext, gen),
-            step_plain=lambda a: sb._batch_masked_plain(a, one, ext, ext, 0),
-            step_ops=cells.numel() * OPS_PER_CELL),
+        # The banded forms at the big pairs' buckets.
+        "band": (BATCH_PAST_BOARDS, BATCH_BIG_SIDE, BATCH_BIG_SIDE,
+                 (BATCH_BIG_MASKED_SIDE, BATCH_BIG_MASKED_SIDE)),
+        # The column-cut forms at the wide pairs'.
+        "wide": (BATCH_WIDE_BOARDS, *BATCH_WIDE, BATCH_WIDE_MASKED),
     }
-    for kind, c in cases.items():
-        x = c["x"]
-        per, rows = sb.band_plan(0, b, side, nwb, t)
-        if per != t:
-            fail(f"the {kind} timing shape's band plan runs {per} of {t} "
-                 "generations a launch")
-        band = _timed_block(f"batch_{kind}_band", x, c["block"], c["block_plain"],
-                            c["block_ops"], c["vector_bytes"], ops_per_s)
-        band["plan"] = {"generations_a_launch": per, "band_rows": rows,
-                        "bands_a_board": -(-side // rows),
-                        "ctas": b * -(-side // rows)}
-        print(f"batch_{kind}_band plan at {tuple(x.shape)}, t = {t}: t' = {per}, "
-              f"R = {rows} ({band['plan']['ctas']} CTAs)", flush=True)
-        step = _timed_launch(f"batch_{kind}", x, c["vector_bytes"],
-                             lambda a, o, f, c=c: c["step"](a, o, f, one, 0),
-                             c["step_plain"], c["step_ops"], ops_per_s)
-        scratch = torch.empty_like(x)
-        step["block_ms"] = _fresh_flags_ms(
-            lambda a, o, f, c=c, scratch=scratch: sb.streamed_block(
-                a, o, t, scratch, lambda cur, dst, g0, n: c["step"](
-                    cur, dst, f[g0], full, g0)), x, 10, gens=t)
-        step["block_generations"] = t
-        band["old_form_block_ms"] = step["block_ms"]
-        print(f"batch_{kind} (one-generation) at {tuple(x.shape)}: a block of {t} "
-              f"launches {step['block_ms']:.6f} ms in a CUDA graph, fresh flag rows "
-              f"(the banded form: {band['ms']:.6f} ms, "
-              f"{step['block_ms'] / band['ms']:.2f}x)", flush=True)
-        out[f"batch_{kind}_band"] = band
-        out[f"batch_{kind}"] = step
-        del scratch
+    for form, (b, height, width, (mh, mw)) in cases.items():
+        nwb = width // 32
+        words = pm.words_from_numpy(rng.integers(0, 2**32, (b, height, nwb),
+                                                 dtype=np.uint64).astype(np.uint32), dev)
+        cells = torch.zeros((b, height, width), dtype=torch.uint8, device=dev)
+        cells[:, :mh, :mw] = torch.from_numpy(
+            rng.integers(0, 2, (b, mh, mw), dtype=np.uint8)).to(dev)
+        ext_h = torch.full((b,), mh, dtype=torch.int32, device=dev)
+        ext_w = torch.full((b,), mw, dtype=torch.int32, device=dev)
+        full = torch.full((b,), t, dtype=torch.int32, device=dev)
+        kinds = {
+            "packed": dict(
+                x=words, vector_bytes=b * 4,
+                ops=words.numel() * OPS_PER_WORD_GEN * t,
+                block=lambda a, o, f: sb.batch_packed_block_into(a, o, f, full, t),
+                plain=lambda a: sb._batch_packed_block_plain(a, full, t)),
+            "masked": dict(
+                x=cells, vector_bytes=3 * b * 4,
+                ops=b * mh * -(-mw // 32) * OPS_PER_WORD_GEN * t,
+                block=lambda a, o, f: sb.batch_masked_block_into(
+                    a, o, f, full, ext_h, ext_w, t),
+                plain=lambda a: sb._batch_masked_block_plain(a, full, ext_h, ext_w, t)),
+        }
+        for kind, c in kinds.items():
+            x, key = c["x"], f"batch_{kind}_{form}"
+            per, rows, cols = sb.band_plan(0, b, height, nwb, t)
+            if per != t or (cols == nwb) != (form == "band"):
+                fail(f"the {kind} {form} timing shape's plan ({per}, {rows}, "
+                     f"{cols}) is not the {form} form at {t} generations a launch")
+            before = dict(sb.LAUNCHES)
+            out[key] = _timed_block(key, x, c["block"], c["plain"], c["ops"],
+                                    c["vector_bytes"], ops_per_s)
+            if sb.LAUNCHES[key] == before[key]:
+                fail(f"{key}'s timing launched no {key}")
+            tiles = -(-height // rows) * -(-nwb // cols)
+            out[key]["plan"] = {"generations_a_launch": per, "band_rows": rows,
+                                "band_words": cols, "tiles_a_board": tiles,
+                                "ctas": b * tiles}
+            print(f"{key} plan at {tuple(x.shape)}, t = {t}: t' = {per}, R = "
+                  f"{rows}, C = {cols} words ({b * tiles} CTAs)", flush=True)
+        del words, cells
     return out
-
-
-def _timed_launch(key: str, x: torch.Tensor, vector_bytes: int, launch, plain,
-                  ops: int, ops_per_s: float) -> dict:
-    """A one-generation kernel, ``launch(src, dst, flags)``: ms per launch in
-    a CUDA graph with a fresh flag row per launch, as in the engine's block
-    (``_fresh_flags_ms``); beside it the replay of ``_time``'s graph, whose
-    launches find their flags set after the first, eager launches, the
-    wrapper's host time and the plain version ``plain(src)``."""
-    b = x.shape[0]
-    y = torch.empty_like(x)
-    flags = torch.zeros((b, sb.STEP_FLAGS), dtype=torch.int32, device=x.device)
-    ring = lambda i, a, o: launch(a, o, flags)  # noqa: E731
-    eager_ms = _time(ring, [x], [y], 100)
-    set_ms, wrapper_ms = profiler.ring_graph_ms(ring, [x], [y], 100)
-    ms = _fresh_flags_ms(launch, x, 100)
-    plain_ms = _time(lambda i, a, o: plain(a), [x], [y], 3, warm=1)
-    board_bytes = x.numel() * x.element_size()
-    nbytes = 2 * board_bytes + flags.numel() * 4 + vector_bytes
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / ops_per_s * 1e3
-    resident = "fits in" if 2 * board_bytes <= L2_BYTES else "exceeds"
-    print(f"{key} at {tuple(x.shape)}: {ms:.6f} ms/launch in a CUDA graph, "
-          f"fresh flags per launch ({set_ms:.6f} with its flags set; eager "
-          f"{eager_ms:.6f} ms, wrapper {wrapper_ms:.6f} ms on the host, plain "
-          f"{plain_ms:.6f} ms); bytes {nbytes} -> {bytes_ms:.6f} ms, logic ops "
-          f"{ops} -> {ops_ms:.6f} ms; bound share {max(bytes_ms, ops_ms) / ms:.3f}; "
-          f"working set {2 * board_bytes} bytes, {resident} the {L2_BYTES}-byte L2",
-          flush=True)
-    del y
-    return {"shape": list(x.shape), "ms": ms, "ms_flags_set": set_ms,
-            "eager_ms": eager_ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes, "bytes_ms": bytes_ms, "logic_ops": ops,
-            "ops_ms": ops_ms, "logic_ops_per_s": ops_per_s,
-            "working_set_bytes": 2 * board_bytes}
 
 
 def _timed_block(key: str, x: torch.Tensor, launch, plain, ops: int,

@@ -12,44 +12,47 @@
 //       generations of B exact-fit tori stored as words, (B, height,
 //       nwords): bit j of word w is column 32w + j. One launch per block
 //       of the engine's loop.
-//   batch_packed_band_kernel  B1, banded form (B1-stream): the same block
-//       for boards whose two copies do not fit in one CTA's shared
-//       memory, each in bands of R rows, t' generations a launch
+//   batch_packed_band_kernel<false>  B1, banded form (B1-stream): the same
+//       block for boards whose two copies do not fit in one CTA's shared
+//       memory, each in bands of R whole rows, t' generations a launch
 //       (gol_batch_band_plan): one launch a block of 16 for rows of up to
 //       453 words on an H100.
-//   batch_packed_kernel  B1, one-generation form (B1-step): one generation
-//       of the same, for boards whose rows pass even a band of one row.
+//   batch_packed_band_kernel<true>  B1, column-cut form (B1-wide): the
+//       same block for boards whose rows are too wide for a band of whole
+//       rows to run the block, each in tiles of R rows x C words, so that
+//       a board of any width runs up to 32 generations a launch (one
+//       launch a block of 16). It also runs the one-generation wrapper
+//       (batch_packed_step_into), at tb = 1.
 //   batch_masked_block_kernel  B2, block form: a whole block of up to t
 //       generations of B uint8 boards in one (B, height, width) canvas;
 //       board b wraps at its own extent (heights[b], widths[b]) and every
 //       cell at or past it is written 0. The exact-fit byte mode runs
 //       through it with the extent of the canvas. One launch per block.
-//   batch_masked_band_kernel  B2, banded form (B2-stream): the same block
-//       for canvases whose two bit copies do not fit in one CTA's shared
-//       memory, in bands of R canvas rows.
-//   batch_masked_kernel  B2, one-generation form (B2-step): one
-//       generation of the same, for canvases whose rows pass even a band
-//       of one row.
+//   batch_masked_band_kernel<false>  B2, banded form (B2-stream): the same
+//       block for canvases whose two bit copies do not fit in one CTA's
+//       shared memory, in bands of R canvas rows.
+//   batch_masked_band_kernel<true>  B2, column-cut form (B2-wide): the
+//       same in tiles of R canvas rows x C words of bits, for canvases whose
+//       rows are too wide for whole-row bands; also the one-generation
+//       wrapper (batch_masked_step_into).
 //
 // Per-board step counts. A block of the engine's loop runs some boards
 // fewer generations than others (each board stops at its own generation
-// limit): `steps[b]` is board b's count for the block. The block and
-// banded forms run board b for min(steps[b], t) generations and write the
-// pair of generation i to flags[i, b] (any live cell in the new board, any
-// cell that changed: "similar" stored negated, as in stencil_packed.cu)
-// for every i they run; the other rows stay as the caller zeroed them, and
-// a board with steps 0 (a padding slot, or a board whose limit was
-// reached) is copied through, byte for byte in B2. A banded launch runs
-// generations g0 .. g0 + tb - 1 of the block: board b runs min(steps[b] -
-// g0, tb) of them, and a board with none is copied through, so ping-pong
-// buffers stay in step. The one-generation kernels take the launch's
-// generation `gen` in its block the same way. Where several CTAs share a
-// board (the banded forms) or a board's pair (the one-generation
-// kernels), they OR the pair into a buffer the caller zeroes. For B2 the
-// pair covers the board's whole slot of the canvas, padding included,
-// which is the JAX loop's compare of the padded canvas: padding is 0 after
-// every generation, so a non-zero padding cell of the input differs in the
-// board's first generation only.
+// limit): `steps[b]` is board b's count for the block. Every form runs
+// board b for min(steps[b], t) generations and writes the pair of
+// generation i to flags[i, b] (any live cell in the new board, any cell
+// that changed: "similar" stored negated, as in stencil_packed.cu) for
+// every i it runs; the other rows stay as the caller zeroed them, and a
+// board with steps 0 (a padding slot, or a board whose limit was reached)
+// is copied through, byte for byte in B2. A banded or column-cut launch
+// runs generations g0 .. g0 + tb - 1 of the block: board b runs
+// min(steps[b] - g0, tb) of them, and a board with none is copied through,
+// so ping-pong buffers stay in step. Where several CTAs share a board (the
+// banded and column-cut forms), they OR the pair into a buffer the caller
+// zeroes. For B2 the pair covers the board's whole slot of the canvas,
+// padding included, which is the JAX loop's compare of the padded canvas:
+// padding is 0 after every generation, so a non-zero padding cell of the
+// input differs in the board's first generation only.
 //
 // What bounds them. Each generation moves each board's words once and
 // does the adder network's 12 logic instructions per word
@@ -59,9 +62,12 @@
 // board stays on chip) and 0.0025 ms (B2: the bytes once each way, the
 // block's operations on the bits take 0.0015 ms). At the 1024^2 buckets
 // (64 boards: 8 MiB of words; 64 slots of 1000^2 in 1024^2, 64 MiB) it is
-// 0.0241 ms (B1, operations) and 0.0401 ms (B2, bytes), where sixteen
-// one-generation launches cannot beat 16 x 0.0050 and 16 x 0.0401 ms: the
-// banded forms move each board through device memory once a block.
+// 0.0241 ms (B1, operations) and 0.0401 ms (B2, bytes), where a launch a
+// generation could not beat 16 x 0.0050 and 16 x 0.0401 ms: the banded
+// forms move each board through device memory once a block. At 16 boards
+// of 32 x 309,600 cells (B1: 19.8 MB of words; B2: 30 x 309,590 in that
+// canvas, 158.5 MB) a block's bound is 0.0569 ms (B1-wide, operations)
+// and 0.0946 ms (B2-wide, bytes).
 //
 // Design of the block forms. One CTA per board: it holds the board in
 // dynamic shared memory (two copies, ping-ponged), runs its generations
@@ -124,29 +130,44 @@
 // flag still clear when it read it (before the barrier, whose wait hides
 // the read). B2's rows past a board's height are padding: a band of
 // padding alone loads nothing, writes 0 and reports its non-zero cells
-// in its first differs flag. The plan (gol_batch_band_plan) takes t' = t
-// where a band of at least 2 t' rows fits (so ghost rows cost at most
-// 2x), else fewer generations a launch and ceil(t / t') launches through
-// the caller's scratch stack; and R so that boards x bands fill the SMs
-// once (one CTA an SM) where the batch leaves room, with bands of at
-// least t' rows. All offsets into the stacks are 64-bit. Where not even a
-// band of one row and a ghost row each side fits (rows of more than 9,674
-// words on an H100), the wrappers keep the one-generation kernels.
+// in its first differs flag. All offsets into the stacks are 64-bit.
 //
-// Design of the one-generation kernels. B1-step is one thread per word:
-// it loads the word and its 8 neighbours (rows and words modulo the board,
-// so one-word-wide and one-row boards are right) and computes the three
-// rows' sums and the rule through the adder network of stencil_packed.cu
-// (next_gen). Its flags are reduced in the CTA to one atomic per CTA and
-// flag. B2-step gives each lane of a warp one column of a band of
-// kBandRows rows: the lane walks down it, wrapping rows and columns at the
-// board's own extent, and keeps the 3-cell sums of the rows above and at
-// the current one, so each cell costs one row sum (3 byte loads, the
-// warp's 32 adjacent columns in one 32-byte sector); a warp reduces its
-// predicates and one lane issues the atomic, only if the flag is still
-// clear. The neighbour loads of both come from L1 and L2: each input byte
-// comes from device memory once.
+// Design of the column-cut forms (B1-wide, B2-wide; they replace the
+// one-generation kernels, which read and wrote the whole stack once a
+// generation). A band of whole rows holds too few rows once a row passes
+// most / (4 t) words (453 on an H100 at t = 16), and none past 9,674. So
+// each board is cut into tiles of R rows x C words, one CTA a tile, boards
+// x row bands x column tiles on grid.x. A tile's two copies in shared
+// memory hold its rows and t' ghost rows each side (modulo the board's
+// height, as the banded forms load them) by C + 2 words: one ghost word
+// each side. The ghost words are computed too, as if 0 lay past them, so
+// a wrong bit enters the tile at its outermost bit and moves one bit a
+// generation: one ghost word keeps the C owned words exact for up to 32
+// generations, and the plan caps t' there. Rows run on the banded forms'
+// shrinking trapezoid; a tile that holds all of its board's rows takes no
+// ghost rows and wraps its rows in shared memory, as the block forms do.
+// The flags count the owned words of every row a generation computes,
+// never a ghost word, ORed in as the banded forms do. B1's ghost words are
+// the board's words (k0 - 1) and (k0 + C) modulo nwords (a board one word
+// wide wraps onto itself). B2's position j of a tile's bit row holds the
+// board's column (32 k0 - 32 + j) mod w, ghost and owned positions alike:
+// the tile's row is a window onto the periodic row, so the wrap at a width
+// that is no multiple of 32 needs no lane logic in the generation loop.
+// Each word of the window is built by one thread from the 16-byte granules
+// that hold its 32 cells (cells_to_bits; cell by cell where the window
+// wraps inside the word), with no atomics; the owned cells go back as
+// bytes 16 at a time, 0 at or past the board's extent, and the owned
+// padding's non-zero input cells set the first differs flag. A tile of
+// padding alone loads no bits. B1-wide is bound by its operations (12 a
+// word and generation, plus the ghost words' and ghost rows' share), B2-wide
+// by its bytes (the canvas once each way). The plan (gol_batch_band_plan)
+// keeps whole-row bands wherever they run the whole block, else takes t' =
+// min(t, 32), tiles of the board's whole height or of bands of about
+// sqrt(t' x most) - 2 t' rows (whichever holds fewer copy words an owned
+// word) as wide as the shared memory allows, then narrows them so that
+// boards x tiles fill whole waves of the SMs.
 
+#include <cmath>
 #include <cstddef>
 #include <cstdint>
 
@@ -154,11 +175,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kWarp = 32;
 constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kBandWarps = kThreads / kWarp;  // B2: bands of a block
-constexpr int kBandRows = 16;                   // B2: rows of a warp's band
 constexpr int kBlockMaxThreads = 1024;  // B1 block form: most threads a CTA
 constexpr int kBlockMaxWarps = kBlockMaxThreads / kWarp;
 // The banded forms' most threads a CTA, B1's and B2's; ptxas is held to as
@@ -171,7 +189,16 @@ constexpr int kPackedBandThreads = 512;
 constexpr int kMaskedBandThreads = 1024;
 // B1 block form: the warps' flag words, one set per generation parity.
 constexpr int kBlockStaticShared = 2 * kBlockMaxWarps * 4;
-constexpr int kDefaultDynamicShared = 48 * 1024;  // without the opt-in
+// The most shared memory a block takes without the opt-in, static and
+// dynamic together: past it a kernel's dynamic shared memory is asked for
+// with cudaFuncSetAttribute (needs_optin).
+constexpr int kDefaultShared = 48 * 1024;
+// The column-cut forms' most generations a launch: one ghost word each
+// side keeps a tile's owned words exact for 32.
+constexpr int kTileMaxGenerations = 32;
+// The column-cut plan narrows tiles to fill the SMs down to this many
+// words (ghost words then cost at most 1.25x) or the width that fits.
+constexpr int kFillMinWords = 8;
 
 // The rule from the 3-cell sums of the rows above (u) and below (d), the
 // centre row's 2-cell sums (m) and the centre row (stencil_packed.cu).
@@ -198,16 +225,6 @@ __device__ __forceinline__ void sums(uint32_t x, uint32_t wn, uint32_t en,
   m1 = west & east;
   s0 = m0 ^ x;
   s1 = m1 | (x & m0);
-}
-
-// Word w of a row's sums in device memory (ww, we: the west and east
-// words, wrapped), and the word itself in `x`.
-__device__ __forceinline__ void row_sums(const uint32_t* row, int w, int ww,
-                                         int we, uint32_t& m0, uint32_t& m1,
-                                         uint32_t& s0, uint32_t& s1,
-                                         uint32_t& x) {
-  x = __ldg(row + w);
-  sums(x, __ldg(row + ww), __ldg(row + we), m0, m1, s0, s1);
 }
 
 // Row `row` of a bit board's sums at word k (see sums), the board `last` +
@@ -306,6 +323,59 @@ __device__ __forceinline__ int generation_strip(int rows, int nwb) {
   return max(1, min(rows, (rows * nwb + threads - 1) / threads));
 }
 
+// Word k of a column-cut tile's row's sums (see sums), the row `ncols`
+// words with 0 past its ghost words 0 and ncols - 1; the word in `x`.
+__device__ __forceinline__ void tile_row_sums(const uint32_t* row, int k,
+                                              int ncols, uint32_t& m0,
+                                              uint32_t& m1, uint32_t& s0,
+                                              uint32_t& s1, uint32_t& x) {
+  x = row[k];
+  sums(x, k != 0 ? row[k - 1] : 0u, k != ncols - 1 ? row[k + 1] : 0u, m0, m1,
+       s0, s1);
+}
+
+// One generation of rows [lo, hi) of a column-cut tile in shared memory,
+// `rows` rows of `ncols` words (the neighbours of row r are rows r - 1 and
+// r + 1 modulo `rows`: lo = 0, hi = rows is a tile of its board's whole
+// height; the trapezoid never reaches its first or last row), from `src`
+// to `dst`, by the CTA: thread k walks strips of `strip` rows of one word
+// column, as masked_generation. Words 0 and ncols - 1 are the ghost words,
+// computed as if 0 lay past them and never counted in `alive` and
+// `differs`.
+__device__ __forceinline__ void tile_generation(const uint32_t* src,
+                                                uint32_t* dst, int rows,
+                                                int lo, int hi, int ncols,
+                                                int strip, uint32_t& alive,
+                                                uint32_t& differs) {
+  const int units = (hi - lo + strip - 1) / strip * ncols;
+  for (int u = threadIdx.x; u < units; u += blockDim.x) {
+    const int k = u % ncols;
+    const int r0 = lo + u / ncols * strip;
+    const int r1 = min(r0 + strip, hi);
+    const uint32_t owned = k != 0 && k != ncols - 1 ? ~0u : 0u;
+    uint32_t u0, u1, m0, m1, s0, s1, x, unused0, unused1, unused2;
+    tile_row_sums(src + (r0 == 0 ? rows - 1 : r0 - 1) * ncols, k, ncols,
+                  unused0, unused1, u0, u1, unused2);
+    tile_row_sums(src + r0 * ncols, k, ncols, m0, m1, s0, s1, x);
+    for (int r = r0; r < r1; ++r) {
+      uint32_t dm0, dm1, d0, d1, xd;
+      tile_row_sums(src + (r + 1 == rows ? 0 : r + 1) * ncols, k, ncols, dm0,
+                    dm1, d0, d1, xd);
+      const uint32_t nv = next_gen(u0, u1, d0, d1, m0, m1, x);
+      dst[r * ncols + k] = nv;
+      alive |= nv & owned;
+      differs |= (nv ^ x) & owned;
+      u0 = s0;
+      u1 = s1;
+      m0 = dm0;
+      m1 = dm1;
+      s0 = d0;
+      s1 = d1;
+      x = xd;
+    }
+  }
+}
+
 // The block and banded forms' flags of one generation: a warp's
 // __reduce_or_sync of the CTA's (alive, differs), one word per warp in
 // `words` (the generation's parity's set), one barrier, and thread 0 puts
@@ -339,16 +409,6 @@ __device__ __forceinline__ void block_flags(uint32_t alive, uint32_t differs,
         atomicOr(pair + q, 1);
       }
     }
-  }
-}
-
-// B2: OR a warp's predicate into *flag: one warp-wide reduction, then
-// lane 0 reads the flag and issues the atomic only if it is still clear.
-// Every lane of the warp calls it.
-__device__ __forceinline__ void or_flag(uint32_t acc, int* flag) {
-  if (__reduce_or_sync(kFullMask, acc != 0 ? 1u : 0u) &&
-      threadIdx.x % kWarp == 0) {
-    if (*reinterpret_cast<volatile int*>(flag) == 0) atomicOr(flag, 1);
   }
 }
 
@@ -416,193 +476,126 @@ batch_packed_block_kernel(const uint32_t* __restrict__ in,
 // x modulo m, in [0, m).
 __device__ __forceinline__ int wrap(int x, int m) { return (x % m + m) % m; }
 
-// The banded forms' CTA: the band of board b and its first row r0 from
-// blockIdx.x (boards x bands on grid.x), the bands `band_rows` rows each.
-__device__ __forceinline__ void band_of(int height, int band_rows, int& b,
-                                        int& r0) {
+// The banded and column-cut forms' CTA: board b and its tile's first row
+// r0 and first word k0 from blockIdx.x (boards x row bands x column tiles
+// on grid.x, column tiles fastest), the tiles `band_rows` rows x
+// `band_cols` words of `nwb`-word rows (a banded form's band_cols = nwb).
+__device__ __forceinline__ void tile_of(int height, int nwb, int band_rows,
+                                        int band_cols, int& b, int& r0,
+                                        int& k0) {
   const int bands = (height + band_rows - 1) / band_rows;
+  const int cuts = (nwb + band_cols - 1) / band_cols;
   const int cta = static_cast<int>(blockIdx.x);
-  b = cta / bands;
-  r0 = cta % bands * band_rows;
+  b = cta / (bands * cuts);
+  const int tile = cta - b * bands * cuts;
+  r0 = tile / cuts * band_rows;
+  k0 = tile % cuts * band_cols;
 }
 
-// B1, banded form: grid (batch * bands), bands = ceil(height / band_rows);
-// block_threads((band_rows + 2 tb) * nwords) threads, at most
-// kPackedBandThreads, dynamic shared memory for two copies of band_rows + 2
-// tb rows (band_launch). Generations g0 .. g0 + tb - 1 of the
-// block: board b runs n = min(steps[b] - g0, tb) of them (none: its band
-// is copied through), generation i's pair ORed into flags[g0 + i, b].
+// B1's banded (kCut false) and column-cut (kCut true) forms: grid (batch *
+// bands * cuts), bands = ceil(height / band_rows), cuts = ceil(nwords /
+// band_cols) (1 for the banded form, whose band_cols is nwords);
+// block_threads(copy words) threads, at most kPackedBandThreads, dynamic
+// shared memory for two copies (band_launch): band_rows + 2 tb rows (a
+// column-cut tile of the whole height: height rows) of nwords words
+// (column-cut: band_cols + 2). Generations g0 .. g0 + tb - 1 of the
+// block: board b runs n = min(steps[b] - g0, tb) of them (none: its tile
+// is copied through), generation g0 + i's pair ORed into flags[i, b] (the
+// caller's flag row of g0 on). `strip`: the column-cut form's rows a
+// thread walks (tile_strip).
+template <bool kCut>
 __global__ void __launch_bounds__(kPackedBandThreads,
                                   kBlockMaxThreads / kPackedBandThreads)
 batch_packed_band_kernel(const uint32_t* __restrict__ in,
                          uint32_t* __restrict__ out, int* __restrict__ flags,
                          const int* __restrict__ steps, int g0, int tb,
-                         int batch, int height, int nwords, int band_rows) {
+                         int batch, int height, int nwords, int band_rows,
+                         int band_cols, int strip) {
   extern __shared__ __align__(16) uint4 board_shared[];
   __shared__ uint32_t warp_flags[2][kBlockMaxWarps];
-  int b, r0;
-  band_of(height, band_rows, b, r0);
+  int b, r0, k0;
+  tile_of(height, nwords, band_rows, band_cols, b, r0, k0);
   const int own = min(band_rows, height - r0);
+  const int cols = min(band_cols, nwords - k0);  // the tile's owned words
   const size_t base = static_cast<size_t>(b) * height * nwords;
   const bool wide = nwords % 4 == 0 &&
                     reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const int n = max(0, min(__ldg(steps + b) - g0, tb));
-  if (n == 0) {  // spent: the whole CTA copies its band and returns
-    load_words(in + base + static_cast<size_t>(r0) * nwords,
-               out + base + static_cast<size_t>(r0) * nwords, own * nwords, wide);
+  if (n == 0) {  // spent: the whole CTA copies its tile and returns
+    if constexpr (kCut) {
+      for (int i = threadIdx.x; i < own * cols; i += blockDim.x) {
+        const int j = i / cols;
+        const size_t at = base + static_cast<size_t>(r0 + j) * nwords + k0 + (i - j * cols);
+        out[at] = __ldg(in + at);
+      }
+    } else {
+      load_words(in + base + static_cast<size_t>(r0) * nwords,
+                 out + base + static_cast<size_t>(r0) * nwords, own * nwords, wide);
+    }
     return;
   }
-  // Local row j holds board row r0 - n + j (modulo height): the band and n
-  // ghost rows each side, loaded in runs of consecutive board rows.
-  const int rows = own + 2 * n;
+  // Local row j holds board row r0 - ghosts + j (modulo height): the tile
+  // and its ghost rows each side, none where the tile holds the board's
+  // whole height (its rows wrap in shared memory).
+  const int ghosts = kCut && own == height ? 0 : n;
+  const int rows = own + 2 * ghosts;
+  const int stride = kCut ? cols + 2 : nwords;
   uint32_t* cur = reinterpret_cast<uint32_t*>(board_shared);
-  uint32_t* nxt = cur + ((rows * nwords + 3) & ~3);  // 16-byte aligned
-  for (int j = 0, r = wrap(r0 - n, height); j < rows; r = 0) {
-    const int run = min(rows - j, height - r);
-    load_words(in + base + static_cast<size_t>(r) * nwords, cur + j * nwords,
-               run * nwords, wide);
-    j += run;
+  uint32_t* nxt = cur + ((rows * stride + 3) & ~3);  // 16-byte aligned
+  if constexpr (kCut) {
+    // Local word q of a row is the board's word k0 - 1 + q (modulo nwords).
+    const int first = wrap(r0 - ghosts, height);
+    for (int i = threadIdx.x; i < rows * stride; i += blockDim.x) {
+      const int j = i / stride;
+      int r = first + j, k = k0 - 1 + (i - j * stride);
+      if (r >= height) r = wrap(r, height);
+      if (k < 0) {
+        k += nwords;
+      } else if (k >= nwords) {
+        k -= nwords;
+      }
+      cur[i] = __ldg(in + base + static_cast<size_t>(r) * nwords + k);
+    }
+  } else {
+    // Loaded in runs of consecutive board rows.
+    for (int j = 0, r = wrap(r0 - n, height); j < rows; r = 0) {
+      const int run = min(rows - j, height - r);
+      load_words(in + base + static_cast<size_t>(r) * nwords, cur + j * nwords,
+                 run * nwords, wide);
+      j += run;
+    }
   }
   __syncthreads();
-  const int strip = generation_strip(rows - 2, nwords);
+  const int band_strip = generation_strip(rows - 2, nwords);
   for (int i = 0; i < n; ++i) {
-    // Rows [1 + i, rows - 1 - i) are exact after generation i: each is a
-    // row of the board at that generation, so the flags may count them all.
+    // Rows [1 + i, rows - 1 - i) are exact after generation i (all of
+    // them in a tile of the whole height): each is a row of the board at
+    // that generation, so the flags may count them all.
     uint32_t alive = 0, differs = 0;
-    masked_generation<true>(cur, nxt, rows, 1 + i, rows - 1 - i, nwords,
-                            nwords, 31, strip, alive, differs);
+    if constexpr (kCut) {
+      tile_generation(cur, nxt, rows, ghosts ? 1 + i : 0,
+                      ghosts ? rows - 1 - i : rows, stride, strip, alive, differs);
+    } else {
+      masked_generation<true>(cur, nxt, rows, 1 + i, rows - 1 - i, nwords,
+                              nwords, 31, band_strip, alive, differs);
+    }
     block_flags(alive, differs, warp_flags[i & 1],
-                flags + 2 * (static_cast<size_t>(g0 + i) * batch + b), true);
+                flags + 2 * (static_cast<size_t>(i) * batch + b), true);
     uint32_t* done = nxt;
     nxt = cur;
     cur = done;
   }
-  store_words(cur + n * nwords, out + base + static_cast<size_t>(r0) * nwords,
-              own * nwords, wide);
-}
-
-// B1, one-generation form: grid (ceil(height * nwords / kThreads), batch),
-// one thread per word.
-__global__ void __launch_bounds__(kThreads)
-batch_packed_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-                    int* __restrict__ flags, const int* __restrict__ steps,
-                    int gen, int height, int nwords) {
-  __shared__ uint32_t warp_flags[kThreads / kWarp];
-  const int b = blockIdx.y;
-  const int words = height * nwords;
-  const size_t base = static_cast<size_t>(b) * words;
-  const int idx = blockIdx.x * kThreads + threadIdx.x;
-  const bool owned = idx < words;
-  if (gen >= __ldg(steps + b)) {  // the board's steps are spent: copy it
-    if (owned) out[base + idx] = __ldg(in + base + idx);
-    return;  // the whole block: steps[b] is one value
-  }
-  uint32_t alive = 0, differs = 0;
-  if (owned) {
-    const int r = idx / nwords;
-    const int w = idx - r * nwords;
-    const int rn = r == 0 ? height - 1 : r - 1;
-    const int rs = r + 1 == height ? 0 : r + 1;
-    const int ww = w == 0 ? nwords - 1 : w - 1;
-    const int we = w + 1 == nwords ? 0 : w + 1;
-    const uint32_t* board = in + base;
-    uint32_t u0, u1, d0, d1, m0, m1, s0, s1, x, unused;
-    row_sums(board + static_cast<size_t>(rn) * nwords, w, ww, we, m0, m1, u0,
-             u1, unused);
-    row_sums(board + static_cast<size_t>(rs) * nwords, w, ww, we, m0, m1, d0,
-             d1, unused);
-    row_sums(board + static_cast<size_t>(r) * nwords, w, ww, we, m0, m1, s0,
-             s1, x);
-    const uint32_t nv = next_gen(u0, u1, d0, d1, m0, m1, x);
-    out[base + idx] = nv;
-    alive = nv;
-    differs = nv ^ x;
-  }
-  // The CTA's flags: a warp reduction, one word per warp, then one atomic
-  // per CTA and set flag.
-  const unsigned pair = __reduce_or_sync(
-      kFullMask, (alive != 0 ? 1u : 0u) | (differs != 0 ? 2u : 0u));
-  if (threadIdx.x % kWarp == 0) warp_flags[threadIdx.x / kWarp] = pair;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned any = 0;
-    for (int k = 0; k < kThreads / kWarp; ++k) any |= warp_flags[k];
-    if (any & 1u) atomicOr(flags + 2 * b, 1);
-    if (any & 2u) atomicOr(flags + 2 * b + 1, 1);
-  }
-}
-
-// Board b's 3-cell row sum at column c (west and east wrapped at the
-// board's width) of row `row`, and the centre cell in `x`.
-__device__ __forceinline__ uint32_t cell_row_sum(const uint8_t* row, int c,
-                                                 int cw, int ce, uint32_t& x) {
-  x = __ldg(row + c);
-  return __ldg(row + cw) + x + __ldg(row + ce);
-}
-
-// B2: grid (ceil(width / kWarp), ceil(height / (kBandWarps * kBandRows)),
-// batch). A warp owns kWarp adjacent columns of a band of kBandRows rows;
-// each lane walks down its column, keeping the 3-cell row sums of the rows
-// above and at the current one, so a cell costs one new row sum (3 loads).
-__global__ void __launch_bounds__(kThreads)
-batch_masked_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
-                    int* __restrict__ flags, const int* __restrict__ steps,
-                    const int* __restrict__ heights,
-                    const int* __restrict__ widths, int gen, int height,
-                    int width) {
-  const int b = blockIdx.z;
-  const size_t base = static_cast<size_t>(b) * height * width;
-  const uint8_t* src = in + base;
-  uint8_t* dst = out + base;
-  const int c = blockIdx.x * kWarp + threadIdx.x % kWarp;
-  const int r0 = (blockIdx.y * kBandWarps + threadIdx.x / kWarp) * kBandRows;
-  const int r1 = min(r0 + kBandRows, height);
-  const bool live = c < width;
-  if (gen >= __ldg(steps + b)) {  // the board's steps are spent: copy it
-    if (live) {
-      for (int r = r0; r < r1; ++r) {
-        dst[static_cast<size_t>(r) * width + c] =
-            __ldg(src + static_cast<size_t>(r) * width + c);
-      }
+  if constexpr (kCut) {
+    for (int i = threadIdx.x; i < own * cols; i += blockDim.x) {
+      const int j = i / cols, q = i - j * cols;
+      out[base + static_cast<size_t>(r0 + j) * nwords + k0 + q] =
+          cur[(ghosts + j) * stride + 1 + q];
     }
-    return;  // the whole block: steps[b] is one value
+  } else {
+    store_words(cur + n * nwords, out + base + static_cast<size_t>(r0) * nwords,
+                own * nwords, wide);
   }
-  uint32_t alive = 0, differs = 0;
-  if (live) {
-    const int h = __ldg(heights + b), w = __ldg(widths + b);
-    int r = r0;
-    if (c < w && r < h) {
-      const int cw = c == 0 ? w - 1 : c - 1;
-      const int ce = c + 1 == w ? 0 : c + 1;
-      uint32_t x, xd;
-      uint32_t up = cell_row_sum(src + static_cast<size_t>(r == 0 ? h - 1 : r - 1) * width,
-                                 c, cw, ce, xd);
-      uint32_t mid = cell_row_sum(src + static_cast<size_t>(r) * width, c, cw,
-                                  ce, x);
-      for (const int rb = min(r1, h); r < rb; ++r) {
-        const int rd = r + 1 == h ? 0 : r + 1;
-        const uint32_t down = cell_row_sum(src + static_cast<size_t>(rd) * width,
-                                           c, cw, ce, xd);
-        // B3/S23 on the 3x3 sum: 3 is born or kept, 4 is kept when alive.
-        const uint32_t n = up + mid + down;
-        const uint32_t next = n == 3 || (n == 4 && x != 0) ? 1u : 0u;
-        dst[static_cast<size_t>(r) * width + c] = static_cast<uint8_t>(next);
-        alive |= next;
-        differs |= next ^ x;
-        up = mid;
-        mid = down;
-        x = xd;
-      }
-    }
-    for (; r < r1; ++r) {  // cells at or past the board's extent
-      const size_t at = static_cast<size_t>(r) * width + c;
-      differs |= __ldg(src + at);
-      dst[at] = 0;
-    }
-  }
-  or_flag(alive, flags + 2 * b);
-  or_flag(differs, flags + 2 * b + 1);
 }
 
 // B2, block and banded forms. The bytes of a span split at 16-byte
@@ -796,6 +789,143 @@ __device__ __forceinline__ void copy_slot(const uint8_t* src, uint8_t* dst,
   }
 }
 
+// B2, column-cut form. The 16 cells of the 16-byte granule at `g` as 16
+// bits (bit q: byte q != 0): one 16-byte load, or, for a granule not
+// wholly inside [lo, hi) (the canvas's bytes), its bytes inside it one by
+// one and 0 for the others.
+__device__ __forceinline__ uint32_t granule_bits(const uint8_t* g,
+                                                 const uint8_t* lo,
+                                                 const uint8_t* hi) {
+  if (g >= lo && g + 16 <= hi) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(g));
+    return cells_to_bits(v.x) | cells_to_bits(v.y) << 4 |
+           cells_to_bits(v.z) << 8 | cells_to_bits(v.w) << 12;
+  }
+  uint32_t v = 0;
+  for (int q = 0; q < 16; ++q) {
+    if (g + q >= lo && g + q < hi) v |= (__ldg(g + q) != 0 ? 1u : 0u) << q;
+  }
+  return v;
+}
+
+// A word of a column-cut tile's window: bit j is cell (c + j) mod w of the
+// slot row `row`, c in [0, w). Where the 32 cells lie in the row (c + 32 <=
+// w), from the two or three aligned granules that hold them (granule_bits);
+// else cell by cell, wrapping at w.
+__device__ __forceinline__ uint32_t window_word(const uint8_t* row, int c,
+                                                int w, const uint8_t* lo,
+                                                const uint8_t* hi) {
+  if (c + 32 > w) {
+    uint32_t v = 0;
+    for (int j = 0; j < 32; ++j) {
+      v |= (__ldg(row + c) != 0 ? 1u : 0u) << j;
+      if (++c == w) c = 0;
+    }
+    return v;
+  }
+  const uint8_t* p = row + c;
+  const int s = static_cast<int>(reinterpret_cast<uintptr_t>(p) % 16);
+  const uint8_t* g = p - s;
+  uint64_t bits = granule_bits(g, lo, hi) |
+                  static_cast<uint64_t>(granule_bits(g + 16, lo, hi)) << 16;
+  if (s != 0) bits |= static_cast<uint64_t>(granule_bits(g + 32, lo, hi)) << 32;
+  return static_cast<uint32_t>(bits >> s);
+}
+
+// Calls f(r, c, n, whole) for the pieces of rows [ra, rb) x columns [ca,
+// cb) of a slot `width` bytes a row at `slot`, cut at the 16-byte
+// boundaries of the address space: n cells of row r from column c on,
+// `whole` where they are one aligned 16-byte granule. The CTA's threads
+// take the pieces in turn, ceil((cb - ca) / 16) + 1 places a row.
+template <class F>
+__device__ __forceinline__ void for_granules(const uint8_t* slot, int ra,
+                                             int rb, int ca, int cb,
+                                             int width, F f) {
+  const int len = cb - ca;
+  if (len <= 0 || rb <= ra) return;
+  const int per = len / 16 + 2;
+  for (int i = threadIdx.x; i < (rb - ra) * per; i += blockDim.x) {
+    const int j = i / per;
+    const uint8_t* first = slot + static_cast<size_t>(ra + j) * width + ca;
+    const uint8_t* g = first - reinterpret_cast<uintptr_t>(first) % 16 +
+                       16 * (i - j * per);
+    const uint8_t* s = g > first ? g : first;
+    const uint8_t* e = g + 16 < first + len ? g + 16 : first + len;
+    if (s < e) {
+      f(ra + j, ca + static_cast<int>(s - first), static_cast<int>(e - s),
+        s == g && e == g + 16);
+    }
+  }
+}
+
+// The OR of the cells in rows [ra, rb) x columns [ca, cb) of `slot`, by
+// the CTA (each thread its share).
+__device__ __forceinline__ uint32_t or_region(const uint8_t* slot, int ra,
+                                              int rb, int ca, int cb,
+                                              int width) {
+  uint32_t acc = 0;
+  for_granules(slot, ra, rb, ca, cb, width, [&](int r, int c, int n, bool whole) {
+    const uint8_t* p = slot + static_cast<size_t>(r) * width + c;
+    if (whole) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+      acc |= v.x | v.y | v.z | v.w;
+    } else {
+      for (int q = 0; q < n; ++q) acc |= __ldg(p + q);
+    }
+  });
+  return acc;
+}
+
+// Rows [ra, rb) x columns [ca, cb) of a spent board's slot, byte for byte,
+// by the CTA: 16-byte loads and stores where `src` and `dst` sit alike
+// against 16-byte boundaries.
+__device__ __forceinline__ void copy_region(const uint8_t* src, uint8_t* dst,
+                                            int ra, int rb, int ca, int cb,
+                                            int width) {
+  const bool paired = (reinterpret_cast<uintptr_t>(dst) -
+                       reinterpret_cast<uintptr_t>(src)) % 16 == 0;
+  for_granules(src, ra, rb, ca, cb, width, [&](int r, int c, int n, bool whole) {
+    const size_t at = static_cast<size_t>(r) * width + c;
+    if (whole && paired) {
+      *reinterpret_cast<uint4*>(dst + at) = __ldg(reinterpret_cast<const uint4*>(src + at));
+    } else {
+      for (int q = 0; q < n; ++q) dst[at + q] = __ldg(src + at + q);
+    }
+  });
+}
+
+// Rows [ra, rb) x columns [ca, cb) of `slot` as bytes from a column-cut
+// tile's bit rows (`stride` words, bit row r - roff for slot row r): cell
+// (r, c) is position c - ca + 32 of its row for rows below `rlim` and
+// columns below `w`, 0 elsewhere; 16 cells with one 16-byte store where
+// they are one aligned granule (bits_to_cells), by the CTA.
+__device__ __forceinline__ void unpack_window(uint8_t* slot, int ra, int rb,
+                                              int ca, int cb, int width,
+                                              int w, int rlim,
+                                              const uint32_t* bits,
+                                              int stride, int roff) {
+  for_granules(slot, ra, rb, ca, cb, width, [&](int r, int c, int n, bool whole) {
+    uint32_t b16 = 0;
+    if (r < rlim && c < w) {
+      const uint32_t* row = bits + (r - roff) * stride;
+      const int p = c - ca + 32;
+      b16 = __funnelshift_r(row[p >> 5], row[(p >> 5) + 1], p & 31);
+      if (w - c < 32) b16 &= (1u << (w - c)) - 1u;
+    }
+    uint8_t* at = slot + static_cast<size_t>(r) * width + c;
+    if (whole) {
+      uint4 v;
+      v.x = bits_to_cells(b16);
+      v.y = bits_to_cells(b16 >> 4);
+      v.z = bits_to_cells(b16 >> 8);
+      v.w = bits_to_cells(b16 >> 12);
+      *reinterpret_cast<uint4*>(at) = v;
+    } else {
+      for (int q = 0; q < n; ++q) at[q] = static_cast<uint8_t>(b16 >> q & 1u);
+    }
+  });
+}
+
 // B2, block form: grid (batch), block_threads(height * stride) threads,
 // dynamic shared memory for two bit copies of a slot (block_shared_bytes),
 // stride = ceil(width / 32) words a row.
@@ -848,15 +978,20 @@ batch_masked_block_kernel(const uint8_t* __restrict__ in,
   unpack_span(dst, 0, height, width, stride, cur, 0, height);
 }
 
-// B2, banded form: grid (batch * bands), bands = ceil(height / band_rows)
-// over the canvas's rows; block_threads((band_rows + 2 tb) * stride)
-// threads, at most kMaskedBandThreads, dynamic shared memory for two bit
-// copies of band_rows + 2 tb rows of stride = ceil(width / 32) words
-// (band_launch). Generations g0 .. g0 + tb - 1 of the block, as B1's
-// banded form. The band owns canvas rows [r0, r0 + span): the
-// board's rows among them (own) with n ghost rows each side, modulo the
-// board's height, as bits, and the rest of them padding (0 after the
-// launch; a non-zero padding cell sets the launch's first differs flag).
+// B2's banded (kCut false) and column-cut (kCut true) forms: grid (batch *
+// bands * cuts) over the canvas's rows and words of bits, bands =
+// ceil(height / band_rows), cuts = ceil(nwc / band_cols), nwc =
+// ceil(width / 32) (1 for the banded form, whose band_cols is nwc);
+// block_threads(copy words) threads, at most kMaskedBandThreads, dynamic
+// shared memory for two bit copies (band_launch): band_rows + 2 tb rows
+// (a column-cut tile of the whole canvas height: height rows) of nwc
+// words (column-cut: band_cols + 2). Generations g0 .. g0 + tb - 1 of the
+// block, as B1's. The tile owns canvas rows [r0, r0 + span) and columns
+// [ca, cb): the board's cells among them with n ghost rows each side,
+// modulo the board's height (none where it holds all of them), as bits;
+// the rest padding (0 after the launch; a non-zero padding cell sets the
+// launch's first differs flag). `strip` as B1's.
+template <bool kCut>
 __global__ void __launch_bounds__(kMaskedBandThreads,
                                   kBlockMaxThreads / kMaskedBandThreads)
 batch_masked_band_kernel(const uint8_t* __restrict__ in,
@@ -864,63 +999,103 @@ batch_masked_band_kernel(const uint8_t* __restrict__ in,
                          const int* __restrict__ steps,
                          const int* __restrict__ heights,
                          const int* __restrict__ widths, int g0, int tb,
-                         int batch, int height, int width, int band_rows) {
+                         int batch, int height, int width, int band_rows,
+                         int band_cols, int strip) {
   extern __shared__ __align__(16) uint4 board_shared[];
   __shared__ uint32_t warp_flags[2][kBlockMaxWarps];
-  int b, r0;
-  band_of(height, band_rows, b, r0);
+  const int nwc = (width + 31) / 32;
+  int b, r0, k0;
+  tile_of(height, nwc, band_rows, band_cols, b, r0, k0);
   const int span = min(band_rows, height - r0);
+  const int cols = min(band_cols, nwc - k0);
+  const int ca = 32 * k0, cb = min(32 * (k0 + cols), width);
   const size_t cells = static_cast<size_t>(height) * width;
   const uint8_t* src = in + b * cells;
   uint8_t* dst = out + b * cells;
   const int n = max(0, min(__ldg(steps + b) - g0, tb));
-  if (n == 0) {  // spent: the whole CTA copies its rows and returns
-    copy_slot(src + r0 * width, dst + r0 * width, span * width);
+  if (n == 0) {  // spent: the whole CTA copies its tile and returns
+    if constexpr (kCut) {
+      copy_region(src, dst, r0, r0 + span, ca, cb, width);
+    } else {
+      copy_slot(src + r0 * width, dst + r0 * width, span * width);
+    }
     return;
   }
   const int h = min(__ldg(heights + b), height);
   const int w = min(__ldg(widths + b), width);
-  const int stride = (width + 31) / 32;
   const int own = max(0, min(r0 + span, h) - r0);
-  const int ghosts = own > 0 ? n : 0;
+  // The tile holds board cells (the banded form's: board rows).
+  const bool live = own > 0 && ca < w;
+  const int ghosts = live && !(kCut && own == h) ? n : 0;
   // Bit row j holds board row r0 - ghosts + j (modulo h).
-  const int rows = own + 2 * ghosts;
+  const int rows = live ? own + 2 * ghosts : 0;
+  const int stride = kCut ? cols + 2 : nwc;
   const int padded = (rows * stride + 3) & ~3;  // 16-byte aligned copies
   uint32_t* cur = reinterpret_cast<uint32_t*>(board_shared);
   uint32_t* nxt = cur + padded;
-  for (int i = threadIdx.x; i < 2 * padded; i += blockDim.x) cur[i] = 0;
-  __syncthreads();  // both copies 0, as in the block form
   uint32_t pad = 0;
-  for (int j = 0, r = own > 0 ? wrap(r0 - ghosts, h) : 0; j < rows; r = 0) {
-    const int run = min(rows - j, h - r);
-    pack_span(src, r, r + run, width, h, w, stride, cur, r - j, r0, r0 + span,
-              pad);
-    j += run;
+  if constexpr (kCut) {
+    // Every word of the window is written: nothing to zero.
+    if (live) {
+      const int first = wrap(r0 - ghosts, h), c0 = wrap(ca - 32, w);
+      for (int i = threadIdx.x; i < rows * stride; i += blockDim.x) {
+        const int j = i / stride;
+        int r = first + j, c = c0 + 32 * (i - j * stride);
+        if (r >= h) r = wrap(r, h);
+        if (c >= w) c %= w;
+        cur[i] = window_word(src + static_cast<size_t>(r) * width, c, w, in,
+                             in + batch * cells);
+      }
+    }
+    // The tile's padding: its rows past the board, and its columns past
+    // the board in the board's rows.
+    pad = or_region(src, r0 + (live ? own : 0), r0 + span, ca, cb, width);
+    if (live) pad |= or_region(src, r0, r0 + own, max(ca, w), cb, width);
+  } else {
+    for (int i = threadIdx.x; i < 2 * padded; i += blockDim.x) cur[i] = 0;
+    __syncthreads();  // both copies 0, as in the block form
+    for (int j = 0, r = own > 0 ? wrap(r0 - ghosts, h) : 0; j < rows; r = 0) {
+      const int run = min(rows - j, h - r);
+      pack_span(src, r, r + run, width, h, w, stride, cur, r - j, r0, r0 + span,
+                pad);
+      j += run;
+    }
+    if (r0 + span > max(r0, h)) {  // the band's rows past the board: padding
+      pack_span(src, max(r0, h), r0 + span, width, h, w, stride, cur, 0, r0,
+                r0 + span, pad);
+    }
   }
-  if (r0 + span > max(r0, h)) {  // the band's rows past the board: padding
-    pack_span(src, max(r0, h), r0 + span, width, h, w, stride, cur, 0, r0,
-              r0 + span, pad);
-  }
-  __syncthreads();  // the band is packed
+  __syncthreads();  // the tile is packed
   const int nwb = (w + 31) / 32;
   const int lw = (w - 1) & 31;
-  const int strip = generation_strip(max(1, rows - 2), nwb);
-  // A band of padding alone runs no generation: its first pair carries
+  const int band_strip = generation_strip(max(1, rows - 2), nwb);
+  // A tile of padding alone runs no generation: its first pair carries
   // its padding.
-  const int gens = own > 0 ? n : 1;
+  const int gens = live ? n : 1;
   for (int i = 0; i < gens; ++i) {
     uint32_t alive = 0, differs = i == 0 ? pad : 0;
-    if (own > 0) {
-      board_generation(cur, nxt, rows, 1 + i, rows - 1 - i, nwb, stride, lw,
-                       strip, alive, differs);
+    if (live) {
+      if constexpr (kCut) {
+        tile_generation(cur, nxt, rows, ghosts ? 1 + i : 0,
+                        ghosts ? rows - 1 - i : rows, stride, strip, alive,
+                        differs);
+      } else {
+        board_generation(cur, nxt, rows, 1 + i, rows - 1 - i, nwb, stride, lw,
+                         band_strip, alive, differs);
+      }
     }
     block_flags(alive, differs, warp_flags[i & 1],
-                flags + 2 * (static_cast<size_t>(g0 + i) * batch + b), true);
+                flags + 2 * (static_cast<size_t>(i) * batch + b), true);
     uint32_t* done = nxt;
     nxt = cur;
     cur = done;
   }
-  unpack_span(dst, r0, r0 + span, width, stride, cur, r0 - ghosts, r0 + own);
+  if constexpr (kCut) {
+    unpack_window(dst, r0, r0 + span, ca, cb, width, w, r0 + own, cur, stride,
+                  r0 - ghosts);
+  } else {
+    unpack_span(dst, r0, r0 + span, width, stride, cur, r0 - ghosts, r0 + own);
+  }
 }
 
 // The block form's CTA: two board words per thread, in whole warps, up to
@@ -939,6 +1114,12 @@ size_t block_shared_bytes(int words) {
   return 2 * static_cast<size_t>((words + 3) & ~3) * sizeof(uint32_t);
 }
 
+// Whether `shared` dynamic bytes beside the kernels' static flag words
+// pass what a block takes without the opt-in.
+bool needs_optin(size_t shared) {
+  return shared + kBlockStaticShared > static_cast<size_t>(kDefaultShared);
+}
+
 // The most words a copy of a board or band may have on `device` (two
 // copies in the opt-in shared memory of one block, beside the flag words),
 // into `most`.
@@ -950,33 +1131,67 @@ cudaError_t copy_max_words(int device, int& most) {
   return err;
 }
 
-// The banded forms' launch of tb generations of `batch` boards of `height`
-// rows of `stride` words in bands of `band_rows` rows: its grid (boards x
-// bands), threads (block_threads, at most `max_threads`) and dynamic
-// shared bytes, after asking for shared memory past 48 KiB for `kernel`. cudaErrorInvalidValue where two copies of a
-// band and its ghost rows pass copy_max_words or the grid passes 2^31 - 1
-// CTAs.
+// The rows a thread walks in a column-cut tile's generation
+// (tile_generation): the strip height s of the fewest row sums a thread
+// computes, passes x (s + 2), over `rows` rows of `ncols` words at
+// `threads` threads, for s = ceil(rows / q), q = 1 .. 64 strips a column.
+int tile_strip(int rows, int ncols, int threads) {
+  int best = max(1, rows);
+  long long fewest = -1;
+  for (int q = 1; q <= min(rows, 64); ++q) {
+    const int s = (rows + q - 1) / q;
+    const long long units = static_cast<long long>((rows + s - 1) / s) * ncols;
+    const long long cost = (units + threads - 1) / threads * (s + 2);
+    if (fewest < 0 || cost < fewest) {
+      fewest = cost;
+      best = s;
+    }
+  }
+  return best;
+}
+
+// The banded and column-cut forms' launch of tb generations of `batch`
+// boards of `height` rows of `nwb` words (of bits) in tiles of `band_rows`
+// rows x `band_cols` words (the banded form: band_cols = nwb, `cut`
+// false): its grid (boards x row bands x column tiles), threads
+// (block_threads of a copy's words, at most `max_threads`), dynamic shared
+// bytes and, for a column-cut tile, its strip (tile_strip), after asking
+// for shared memory past 48 KiB for `kernel`. A column-cut tile holds
+// band_rows + 2 tb rows, or `height` where band_rows >= height, of
+// band_cols + 2 words. cudaErrorInvalidValue where two copies pass
+// copy_max_words, a column-cut launch runs more than kTileMaxGenerations,
+// or the grid passes 2^31 - 1 CTAs.
 template <class K>
 cudaError_t band_launch(K kernel, int max_threads, int device, int tb,
-                        int batch, int height, int stride, int band_rows,
-                        unsigned& grid, int& threads, size_t& shared) {
+                        int batch, int height, int nwb, int band_rows,
+                        int band_cols, bool cut, unsigned& grid, int& threads,
+                        size_t& shared, int& strip) {
   int most = 0;
   cudaError_t err = copy_max_words(device, most);
   if (err != cudaSuccess) return err;
-  const long long words = static_cast<long long>(band_rows + 2 * tb) * stride;
-  const long long ctas =
-      static_cast<long long>(batch) * ((height + band_rows - 1) / band_rows);
-  if (tb < 1 || band_rows < 1 || words > most || ctas > 0x7fffffffLL) {
+  if (tb < 1 || band_rows < 1 || band_cols < 1 || band_cols > nwb ||
+      (cut ? tb > kTileMaxGenerations : band_cols != nwb)) {
     return cudaErrorInvalidValue;
   }
+  const long long rows = cut && band_rows >= height
+                             ? height
+                             : band_rows + 2LL * tb;
+  const long long words = rows * (cut ? band_cols + 2 : nwb);
+  const long long ctas = static_cast<long long>(batch) *
+                         ((height + band_rows - 1) / band_rows) *
+                         ((nwb + band_cols - 1) / band_cols);
+  if (words > most || ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
   shared = block_shared_bytes(static_cast<int>(words));
-  if (shared > static_cast<size_t>(kDefaultDynamicShared)) {
+  if (needs_optin(shared)) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(shared));
     if (err != cudaSuccess) return err;
   }
   grid = static_cast<unsigned>(ctas);
   threads = min(max_threads, block_threads(static_cast<int>(words)));
+  strip = cut ? tile_strip(static_cast<int>(band_rows >= height ? rows : rows - 2),
+                           band_cols + 2, threads)
+              : 0;
   return cudaSuccess;
 }
 
@@ -986,30 +1201,11 @@ extern "C" {
 
 // Each entry launches on `stream` (a cudaStream_t of `device`), does not
 // synchronise and allocates nothing; it returns cudaGetLastError() after
-// the launch (0 = cudaSuccess). `out` must not alias `in`; `flags` is a
-// one-generation launch's (batch, 2) int32 pair per board, `steps` the
-// (batch,) int32 step counts, `heights`/`widths` B2's (batch,) int32 board
-// extents, all on the device. batch <= 65535 for the one-generation
-// kernels (a grid dimension); the block and banded forms put the boards
-// (x bands) on grid.x.
-
-// B1, one-generation form. in/out: (batch, height, nwords) words.
-int gol_batch_packed_step(const void* in, void* out, void* flags,
-                          const void* steps, int gen, int batch, int height,
-                          int nwords, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned tiles = (height * nwords + kThreads - 1) / kThreads;
-  dim3 grid;
-  grid.x = tiles;
-  grid.y = static_cast<unsigned>(batch);
-  grid.z = 1;
-  batch_packed_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out),
-      static_cast<int*>(flags), static_cast<const int*>(steps), gen, height,
-      nwords);
-  return static_cast<int>(cudaGetLastError());
-}
+// the launch (0 = cudaSuccess). `out` must not alias `in`; `flags` is
+// int32 (rows, batch, 2), generation i's pair of board b at flags + 2 * (i
+// * batch + b); `steps` the (batch,) int32 step counts, `heights`/`widths`
+// B2's (batch,) int32 board extents, all on the device. Every form puts
+// the boards (x tiles) on grid.x.
 
 // The most words a board may have for the block form on `device`: two
 // copies in the opt-in shared memory of one block, beside the flag words.
@@ -1020,50 +1216,82 @@ int gol_batch_block_max_words(int device) {
   return err != cudaSuccess ? -static_cast<int>(err) : most;
 }
 
-// The banded forms' plan for a block of t generations of `batch` boards
-// of `height` rows, `nwb` words a row in shared memory (B1: nwords; B2:
-// ceil(width / 32)), into plan[0] = t' (the generations of a launch: the
-// block runs as ceil(t / t') launches) and plan[1] = R (the rows a band
-// owns). With `rows` = the most rows a copy may hold
-// (gol_batch_block_max_words / nwb): t' = min(t, max(1, rows / 4)), so a
-// band owns at least half its rows (ghost rows cost at most 2x); then
-// bands a board = the most of ceil(height / (rows - 2 t')) (the fewest
-// that fit) and min(floor(SMs / batch), ceil(height / t')) (one CTA an SM
-// where the batch leaves room, a band owning at least t' rows), and R =
-// ceil(height / bands). One CTA an SM: the banded kernels take about 50
-// registers a thread, so an SM holds one of their 1024-thread CTAs, and a
-// second wave of CTAs costs more than larger bands
-// (gol_tpu_torch/tools/batch_band_sweep.py times the plan's R beside R / 2
-// and 2 R).
-// plan = (0, 0) where not even a band of one row and a ghost row each side
-// fits (rows < 3: nwb past 9,674 words on an H100), which the
-// one-generation kernels take. Returns a CUDA error (0 = success).
+// The banded and column-cut forms' plan for a block of t generations of
+// `batch` boards of `height` rows, `nwb` words a row in shared memory (B1:
+// nwords; B2: ceil(width / 32)), into plan[0] = t' (the generations of a
+// launch: the block runs as ceil(t / t') launches), plan[1] = R (the rows
+// a tile owns) and plan[2] = C (the words a tile owns; nwb: whole-row
+// bands, the banded form; less: the column-cut form). With `rows` = the
+// most rows of nwb words a copy may hold (gol_batch_block_max_words /
+// nwb):
+// - where t' = min(t, max(1, rows / 4)) is t (and rows >= 3: a row and a
+//   ghost row each side), or a row is one word (no columns to cut),
+//   whole-row bands run the block: C = nwb,
+//   bands a board the most of ceil(height / (rows - 2 t')) (the fewest
+//   that fit) and min(floor(SMs / batch), ceil(height / t')) (one CTA an
+//   SM where the batch leaves room, a band owning at least t' rows), and R
+//   = ceil(height / bands). One CTA an SM: the banded kernels take about
+//   50 registers a thread, so an SM holds one of their 1024-thread CTAs,
+//   and a second wave of CTAs costs more than larger bands
+//   (gol_tpu_torch/tools/batch_band_sweep.py times the plan's R beside R /
+//   2 and 2 R);
+// - else the columns are cut: t' = min(t, 32); the tile takes the board's
+//   whole height (no ghost rows) or bands of about sqrt(t' x most) - 2 t'
+//   rows (at least t'), whichever holds fewer copy words an owned word,
+//   each as many words wide as two copies allow (R or R + 2 t' rows of C +
+//   2 words), and narrower than the row (C < nwb tells the forms apart);
+//   then C narrows, down to kFillMinWords words, so that boards x tiles
+//   fill the whole waves of one CTA an SM that they take.
+// Returns a CUDA error (0 = success); t' is never 0.
 int gol_batch_band_plan(int device, int batch, int height, int nwb, int t,
                         int* plan) {
-  plan[0] = plan[1] = 0;
+  plan[0] = plan[1] = plan[2] = 0;
   int most = 0, sms = 0;
   cudaError_t err = copy_max_words(device, most);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (batch < 1 || height < 1 || nwb < 1 || t < 1) {
+  if (batch < 1 || height < 1 || nwb < 1 || t < 1 || most < 9) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int rows = most / nwb;
-  if (rows < 3) return 0;
-  const int tp = min(t, max(1, rows / 4));
-  const int fit = rows - 2 * tp;
-  const int bands = max((height + fit - 1) / fit,
-                        min(sms / batch, (height + tp - 1) / tp));
+  const int band_tp = min(t, max(1, rows / 4));
+  if (rows >= 3 && (band_tp == t || nwb == 1)) {
+    const int fit = rows - 2 * band_tp;
+    const int bands = max((height + fit - 1) / fit,
+                          min(sms / batch, (height + band_tp - 1) / band_tp));
+    plan[0] = band_tp;
+    plan[1] = (height + bands - 1) / bands;
+    plan[2] = nwb;
+    return 0;
+  }
+  const int tp = min(min(t, kTileMaxGenerations), most / 9);
+  int band = max(tp, static_cast<int>(sqrt(static_cast<double>(tp) * most)) - 2 * tp);
+  band = min(band, height);
+  const int copy = band >= height ? height : band + 2 * tp;
+  int cut = min(nwb - 1, most / copy - 2);
+  const int whole = min(nwb - 1, most / height - 2);
+  if (whole >= 1 && static_cast<double>(whole + 2) / whole <=
+                        static_cast<double>(copy) * (cut + 2) / (static_cast<double>(band) * cut)) {
+    band = height;
+    cut = whole;
+  }
+  const int bands = (height + band - 1) / band;
+  const long long cuts = (nwb + cut - 1) / cut;
+  const long long waves = (static_cast<long long>(batch) * bands * cuts + sms - 1) / sms;
+  const int least = min(cut, kFillMinWords);
+  const long long room = waves * sms / batch / bands;
+  const long long most_cuts = (nwb + least - 1) / least;
+  const long long fill = max(cuts, min(room, most_cuts));
   plan[0] = tp;
   plan[1] = (height + bands - 1) / bands;
+  plan[2] = static_cast<int>((nwb + fill - 1) / fill);
   return 0;
 }
 
 // B1, block form. in/out: (batch, height, nwords) words; flags: (t, batch,
-// 2) int32, generation i's pair of board b at flags + 2 * (i * batch + b).
-// Board b runs min(steps[b], t) generations. Fails with
+// 2). Board b runs min(steps[b], t) generations. Fails with
 // cudaErrorInvalidValue when height * nwords passes
 // gol_batch_block_max_words.
 int gol_batch_packed_block(const void* in, void* out, void* flags,
@@ -1076,7 +1304,7 @@ int gol_batch_packed_block(const void* in, void* out, void* flags,
   if (most < 0) return -most;
   if (words > most) return static_cast<int>(cudaErrorInvalidValue);
   const size_t shared = block_shared_bytes(words);
-  if (shared > static_cast<size_t>(kDefaultDynamicShared)) {
+  if (needs_optin(shared)) {
     err = cudaFuncSetAttribute(batch_packed_block_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(shared));
@@ -1092,9 +1320,9 @@ int gol_batch_packed_block(const void* in, void* out, void* flags,
 }
 
 // B1, banded form: generations g0 .. g0 + tb - 1 of a block of B1's
-// (flags as B1's block form: (t, batch, 2), generation g0 + i's pair of
-// board b at flags + 2 * ((g0 + i) * batch + b), ORed into the caller's
-// zeroed rows), each board in bands of band_rows rows (a plan's R, for tb
+// (flags: the block's (t, batch, 2), generation g0 + i's pair of board b
+// at flags + 2 * ((g0 + i) * batch + b), ORed into the caller's zeroed
+// rows), each board in bands of band_rows whole rows (a plan's R, for tb
 // <= its t'). Board b runs min(steps[b] - g0, tb) generations (none: it
 // is copied through). Fails with cudaErrorInvalidValue where the band and
 // its 2 tb ghost rows pass gol_batch_block_max_words.
@@ -1105,35 +1333,47 @@ int gol_batch_packed_band(const void* in, void* out, void* flags,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   unsigned grid = 0;
-  int threads = 0;
+  int threads = 0, strip = 0;
   size_t shared = 0;
-  err = band_launch(batch_packed_band_kernel, kPackedBandThreads, device, tb,
-                    batch, height, nwords, band_rows, grid, threads, shared);
+  err = band_launch(batch_packed_band_kernel<false>, kPackedBandThreads, device,
+                    tb, batch, height, nwords, band_rows, nwords, false, grid,
+                    threads, shared, strip);
   if (err != cudaSuccess) return static_cast<int>(err);
-  batch_packed_band_kernel<<<grid, threads, shared,
-                             static_cast<cudaStream_t>(stream)>>>(
+  batch_packed_band_kernel<false><<<grid, threads, shared,
+                                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out),
-      static_cast<int*>(flags), static_cast<const int*>(steps), g0, tb, batch,
-      height, nwords, band_rows);
+      static_cast<int*>(flags) + 2 * static_cast<size_t>(g0) * batch,
+      static_cast<const int*>(steps), g0, tb, batch, height, nwords, band_rows,
+      nwords, strip);
   return static_cast<int>(cudaGetLastError());
 }
 
-// B2. in/out: (batch, height, width) cells.
-int gol_batch_masked_step(const void* in, void* out, void* flags,
-                          const void* steps, const void* heights,
-                          const void* widths, int gen, int batch, int height,
-                          int width, int device, void* stream) {
+// B1, column-cut form: generations g0 .. g0 + tb - 1 (tb <= 32) of a
+// block of B1's, each board in tiles of band_rows rows x band_cols words
+// (a plan's R and C, for tb <= its t'). `flags` is the flag row of g0:
+// generation g0 + i's pair of board b is ORed into flags + 2 * (i * batch
+// + b) (a one-generation launch: tb = 1 on a (batch, 2) buffer). Board b
+// runs min(steps[b] - g0, tb) generations (none: it is copied through).
+// Fails with cudaErrorInvalidValue where the tile and its ghost rows and
+// words pass gol_batch_block_max_words (band_launch).
+int gol_batch_packed_wide(const void* in, void* out, void* flags,
+                          const void* steps, int g0, int tb, int batch,
+                          int height, int nwords, int band_rows, int band_cols,
+                          int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid;
-  grid.x = (width + kWarp - 1) / kWarp;
-  grid.y = (height + kBandWarps * kBandRows - 1) / (kBandWarps * kBandRows);
-  grid.z = static_cast<unsigned>(batch);
-  batch_masked_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out),
-      static_cast<int*>(flags), static_cast<const int*>(steps),
-      static_cast<const int*>(heights), static_cast<const int*>(widths), gen,
-      height, width);
+  unsigned grid = 0;
+  int threads = 0, strip = 0;
+  size_t shared = 0;
+  err = band_launch(batch_packed_band_kernel<true>, kPackedBandThreads, device,
+                    tb, batch, height, nwords, band_rows, band_cols, true, grid,
+                    threads, shared, strip);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  batch_packed_band_kernel<true><<<grid, threads, shared,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out),
+      static_cast<int*>(flags), static_cast<const int*>(steps), g0, tb, batch,
+      height, nwords, band_rows, band_cols, strip);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1152,7 +1392,7 @@ int gol_batch_masked_block(const void* in, void* out, void* flags,
   if (most < 0) return -most;
   if (words > most) return static_cast<int>(cudaErrorInvalidValue);
   const size_t shared = block_shared_bytes(words);
-  if (shared > static_cast<size_t>(kDefaultDynamicShared)) {
+  if (needs_optin(shared)) {
     err = cudaFuncSetAttribute(batch_masked_block_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(shared));
@@ -1176,19 +1416,47 @@ int gol_batch_masked_band(const void* in, void* out, void* flags,
                           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int nwc = (width + 31) / 32;
   unsigned grid = 0;
-  int threads = 0;
+  int threads = 0, strip = 0;
   size_t shared = 0;
-  err = band_launch(batch_masked_band_kernel, kMaskedBandThreads, device, tb,
-                    batch, height, (width + 31) / 32, band_rows, grid, threads,
-                    shared);
+  err = band_launch(batch_masked_band_kernel<false>, kMaskedBandThreads, device,
+                    tb, batch, height, nwc, band_rows, nwc, false, grid, threads,
+                    shared, strip);
   if (err != cudaSuccess) return static_cast<int>(err);
-  batch_masked_band_kernel<<<grid, threads, shared,
-                             static_cast<cudaStream_t>(stream)>>>(
+  batch_masked_band_kernel<false><<<grid, threads, shared,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out),
+      static_cast<int*>(flags) + 2 * static_cast<size_t>(g0) * batch,
+      static_cast<const int*>(steps), static_cast<const int*>(heights),
+      static_cast<const int*>(widths), g0, tb, batch, height, width, band_rows,
+      nwc, strip);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B2, column-cut form: as B1's over (batch, height, width) cells, the
+// tiles over the canvas's rows and its ceil(width / 32) words of bits a
+// row (band_cols of them a tile).
+int gol_batch_masked_wide(const void* in, void* out, void* flags,
+                          const void* steps, const void* heights,
+                          const void* widths, int g0, int tb, int batch,
+                          int height, int width, int band_rows, int band_cols,
+                          int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  unsigned grid = 0;
+  int threads = 0, strip = 0;
+  size_t shared = 0;
+  err = band_launch(batch_masked_band_kernel<true>, kMaskedBandThreads, device,
+                    tb, batch, height, (width + 31) / 32, band_rows, band_cols,
+                    true, grid, threads, shared, strip);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  batch_masked_band_kernel<true><<<grid, threads, shared,
+                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out),
       static_cast<int*>(flags), static_cast<const int*>(steps),
       static_cast<const int*>(heights), static_cast<const int*>(widths), g0, tb,
-      batch, height, width, band_rows);
+      batch, height, width, band_rows, band_cols, strip);
   return static_cast<int>(cudaGetLastError());
 }
 

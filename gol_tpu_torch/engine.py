@@ -56,11 +56,12 @@ order.
 
 The batched engine (``make_batch_runner``, ``simulate_batch``; the
 serving batcher's compute entry) runs B independent boards in one canvas
-with the same blocked design per board: each block enqueues its launches
-of the batched step (B1 packed, one launch a block; B2 masked and byte,
-one a generation; ``ops/stencil_batch``) without a sync, reads back one
-(block x B x 2) flag tensor for the whole batch, and replays each board's
-exits on the host with the solo rules.
+with the same blocked design per board: each block enqueues one call of
+the batched step (B1 packed, B2 masked and byte; ``ops/stencil_batch``:
+one launch a block, the board in one CTA, in bands of rows or in tiles of
+rows and words by its size) without a sync, reads back one (block x B x
+2) flag tensor for the whole batch, and replays each board's exits on the
+host with the solo rules.
 
 Spans and counters are the JAX engine's, on the same sites (``obs/trace``,
 ``obs/registry``): ``engine.compile`` around building a whole-run runner
@@ -714,8 +715,8 @@ def simulate(grid, config: GameConfig = DEFAULT_CONFIG, kernel: str = "auto",
 # runs the batch as one lax.while_loop over vmapped steps with per-board
 # freeze masks (gol_tpu/engine.py:1129-1249); here each block of the solo
 # engine's length enqueues the batched step without a sync (B1 for
-# "packed": one launch for the whole block; B2 for "masked" and "byte":
-# one launch per generation), then reads back ONE (block x B x 2) flag
+# "packed", B2 for "masked" and "byte": one block call, one launch for
+# the engine's block of 16), then reads back ONE (block x B x 2) flag
 # tensor, and the host replays each board's exits with the solo rules. A
 # board whose generation limit falls inside the block is given fewer
 # steps (``steps[b]``) and copied through once they are spent, so no block crosses a board's limit; boards that exit early
@@ -1298,8 +1299,8 @@ def simulate_batch(
 # - the batched loop's three scratch stacks and its flag buffer, sized for
 #   R*B boards (``_BatchBuffers``);
 # - a compute stream and a drain thread. A drain of k filled slots runs the
-#   batched loop ONCE over the first k*B boards of its storage: one B1
-#   launch per block (B2: per generation) and one flag readback per block
+#   batched loop ONCE over the first k*B boards of its storage: one B1 or
+#   B2 block call per block and one flag readback per block
 #   for the whole drain, never over R*B boards (JAX's compile-for-filled).
 #   It waits on the slots' copy events first. Each board keeps its own limit and extent, so
 #   per-slot results equal ``complete_batch`` of the same staging bit for

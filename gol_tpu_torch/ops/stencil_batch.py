@@ -15,15 +15,15 @@ so each board's flags come out of the step's own pass, from the kernels in
   of a caller-zeroed (t, B, 2) buffer. Three forms, chosen by shape: the
   block form, one launch with each board in one CTA's shared memory
   (``LAUNCHES["batch_packed_block"]``), for boards whose two copies fit
-  there (``block_max_words``); for larger ones the banded form
-  (``LAUNCHES["batch_packed_band"]``), each board in bands of R rows, a
-  band and t' ghost rows each side in one CTA's shared memory, t'
-  generations a launch (``band_plan``; on an H100 a block of 16 is one
-  launch for rows of up to 453 words, 14,496 cells); and where not even a
-  band of one row fits (rows past 9,674 words), ``t`` launches of
-  ``batch_packed_step_into``;
-- ``batch_packed_step_into`` (B1's one-generation kernel): one generation
-  of the same;
+  there (``block_max_words``); past it the banded form
+  (``LAUNCHES["batch_packed_band"]``), each board in bands of R whole rows,
+  a band and t' ghost rows each side in one CTA's shared memory, where
+  such bands run the whole block (on an H100 rows of up to 453 words,
+  14,496 cells, at t = 16); and for wider rows the column-cut form
+  (``batch_packed_wide_into``, ``LAUNCHES["batch_packed_wide"]``), tiles
+  of R rows x C words with one ghost word each side, up to 32 generations
+  a launch at any width. ``band_plan`` gives (t', R, C): ceil(t / t')
+  launches, one for the engine's block of 16;
 - ``batch_masked_block_into`` (B2): the same block of generations over B
   uint8 boards in one (B, height, width) canvas, board b wrapping at its
   own extent ``(heights[b], widths[b])``, every cell at or past it written
@@ -33,25 +33,24 @@ so each board's flags come out of the step's own pass, from the kernels in
   for the lane's cells, 0 or 1 as every decoder feeding it gives them:
   the block form (``LAUNCHES["batch_masked_block"]``), the banded form
   (``LAUNCHES["batch_masked_band"]``, bands of the canvas's rows, ghost
-  rows modulo each board's own height) past ``block_max_words``, and
-  ``batch_masked_step_into`` a generation past that;
-- ``batch_masked_step_into`` (B2's one-generation kernel, B2-step): one
-  generation of the same, on the bytes.
+  rows modulo each board's own height) past ``block_max_words``, and the
+  column-cut form (``batch_masked_wide_into``,
+  ``LAUNCHES["batch_masked_wide"]``) past that;
+- ``batch_packed_step_into`` and ``batch_masked_step_into``: one
+  generation, the column-cut form at one generation a launch, ORing board
+  b's ``(alive, differs)`` into ``flags[b]`` of a caller-zeroed (B, 2)
+  int32 buffer; a board whose steps are spent at the launch's generation
+  ``gen`` (``gen >= steps[b]``) is copied through and writes no flag.
 
-The one-generation kernels OR board b's ``(alive, differs)`` into
-``flags[b]`` of a caller-zeroed (B, 2) int32 buffer ("similar" stored
-negated, as in ``stencil_packed``), and take ``steps`` (B,) int32 and the
-launch's generation ``gen`` in its block: a board whose steps are spent
-(``gen >= steps[b]``) is copied through and writes no flag. B2's pair
-covers the board's whole slot, padding included.
-
-On a CUDA tensor each wrapper launches its kernel, or raises; on a CPU
-tensor it runs its plain torch version (``_batch_packed_block_plain`` and
-``_batch_packed_plain``, loops of ``packed_math.evolve_torus_words`` over
-the boards; ``_batch_masked_plain``, the gather form of the masked rule,
-and ``_batch_masked_block_plain``, it once per generation); any other
-device raises. ``LAUNCHES`` counts the kernel launches, one per launch on
-the card and nothing for the CPU path.
+Flags store "similar" negated, as in ``stencil_packed``; B2's pair covers
+the board's whole slot, padding included. On a CUDA tensor each wrapper
+launches its kernel, or raises; on a CPU tensor it runs its plain torch
+version (``_batch_packed_block_plain`` and ``_batch_packed_plain``, loops
+of ``packed_math.evolve_torus_words`` over the boards;
+``_batch_masked_plain``, the gather form of the masked rule, and
+``_batch_masked_block_plain``, it once per generation); any other device
+raises. ``LAUNCHES`` counts the kernel launches, one per launch on the
+card and nothing for the CPU path.
 """
 
 from __future__ import annotations
@@ -64,9 +63,8 @@ import torch
 from gol_tpu_torch.ops import _build, packed_math
 
 STEP_FLAGS = 2  # (alive, differs) per board
-MAX_BATCH = 65535  # the kernels' board axis is a grid dimension
-LAUNCHES = {"batch_packed_block": 0, "batch_packed_band": 0, "batch_packed": 0,
-            "batch_masked_block": 0, "batch_masked_band": 0, "batch_masked": 0}
+LAUNCHES = {"batch_packed_block": 0, "batch_packed_band": 0, "batch_packed_wide": 0,
+            "batch_masked_block": 0, "batch_masked_band": 0, "batch_masked_wide": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -166,20 +164,20 @@ def _lib() -> ctypes.CDLL:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.gol_batch_packed_step.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
-    lib.gol_batch_packed_step.restype = i32
     lib.gol_batch_packed_block.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
     lib.gol_batch_packed_block.restype = i32
     lib.gol_batch_block_max_words.argtypes = [i32]
     lib.gol_batch_block_max_words.restype = i32
-    lib.gol_batch_masked_step.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
-    lib.gol_batch_masked_step.restype = i32
     lib.gol_batch_masked_block.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.gol_batch_masked_block.restype = i32
     lib.gol_batch_packed_band.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
     lib.gol_batch_packed_band.restype = i32
     lib.gol_batch_masked_band.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
     lib.gol_batch_masked_band.restype = i32
+    lib.gol_batch_packed_wide.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
+    lib.gol_batch_packed_wide.restype = i32
+    lib.gol_batch_masked_wide.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
+    lib.gol_batch_masked_wide.restype = i32
     lib.gol_batch_band_plan.argtypes = [i32] * 5 + [ptr]
     lib.gol_batch_band_plan.restype = i32
     lib.gol_error_string.argtypes = [i32]
@@ -206,19 +204,36 @@ def block_max_words(device_index: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def band_plan(device_index: int, batch: int, height: int, nwb: int,
-              t: int) -> tuple[int, int]:
-    """The banded forms' ``(t', R)`` on card ``device_index`` for a block of
-    ``t`` generations of ``batch`` boards of ``height`` rows, ``nwb`` words
-    a row as bits (B1: nwords; B2: ceil(width / 32)): ``t'`` generations a
-    launch, bands of ``R`` rows (``gol_batch_band_plan`` says how they are
-    chosen); ``(0, 0)`` where not even a band of one row fits, which the
-    one-generation kernels take."""
-    plan = (ctypes.c_int * 2)()
+              t: int) -> tuple[int, int, int]:
+    """The banded and column-cut forms' ``(t', R, C)`` on card
+    ``device_index`` for a block of ``t`` generations of ``batch`` boards
+    of ``height`` rows, ``nwb`` words a row as bits (B1: nwords; B2:
+    ceil(width / 32)): ``t'`` generations a launch (never 0), tiles of
+    ``R`` rows x ``C`` words; ``C == nwb`` is the banded form's whole rows,
+    ``C < nwb`` the column-cut form (``gol_batch_band_plan`` says how they
+    are chosen)."""
+    plan = (ctypes.c_int * 3)()
     err = _lib().gol_batch_band_plan(device_index, batch, height, nwb, t, plan)
     if err != 0:
         msg = _lib().gol_error_string(err).decode()
         raise RuntimeError(f"band plan failed: CUDA error {err} ({msg})")
-    return plan[0], plan[1]
+    return plan[0], plan[1], plan[2]
+
+
+def step_tile(device_index: int, batch: int, height: int, nwb: int) -> tuple[int, int]:
+    """The column-cut tile ``(R, C)`` of a one-generation launch on card
+    ``device_index``: the plan's for t = 1 (``fit_step_tile``)."""
+    return fit_step_tile(band_plan(device_index, batch, height, nwb, 1)[1:],
+                         block_max_words(device_index))
+
+
+def fit_step_tile(tile: tuple[int, int], most: int) -> tuple[int, int]:
+    """A plan's ``(R, C)`` for t = 1, narrowed (and, for a board one word
+    wide, shortened) so that the tile with a ghost row and a ghost word
+    each side fits in ``most`` words a copy where the plan kept whole
+    rows."""
+    rows = min(tile[0], most // 3 - 2)
+    return rows, min(tile[1], most // (rows + 2) - 2)
 
 
 def _check(src: torch.Tensor, out: torch.Tensor, flags: torch.Tensor,
@@ -228,8 +243,7 @@ def _check(src: torch.Tensor, out: torch.Tensor, flags: torch.Tensor,
         raise ValueError(f"boards must be a 3D {dtype} tensor, got "
                          f"{src.dim()}D {src.dtype}")
     batch, height, width = src.shape
-    if not 1 <= batch <= MAX_BATCH or height < 1 or width < 1 \
-            or height * width >= 2**31:
+    if batch < 1 or height < 1 or width < 1 or height * width >= 2**31:
         raise ValueError(f"unsupported board stack shape {tuple(src.shape)}")
     if out.shape != src.shape or out.dtype != dtype:
         raise ValueError(f"out must be {dtype} {tuple(src.shape)}, got "
@@ -293,19 +307,24 @@ def _scratch(src, out, scratch):
     return scratch
 
 
-def _past_block(src, out, t: int, scratch, nwb: int, key: str, band, step) -> None:
+def _past_block(src, out, t: int, scratch, nwb: int, band, wide) -> None:
     """A block of boards past the block form on the card: ceil(t / t')
-    launches of the banded form ``band(stream, cur, dst, g0, n, rows)``
-    (LAUNCHES[key]) through ``scratch`` and ``out``, or, where not even a
-    band fits (``band_plan`` gives t' = 0), ``t`` launches ``step(cur,
-    dst, gen)`` of the one-generation kernel."""
+    launches (``band_plan``) through ``scratch`` and ``out``, of the banded
+    form ``band(cur, dst, g0, n, rows)`` where the plan keeps whole rows,
+    else of the column-cut form ``wide(cur, dst, g0, n, rows, cols)``."""
     batch, height = src.shape[:2]
-    per, rows = band_plan(src.device.index, batch, height, nwb, t)
-    if per == 0:
-        streamed_block(src, out, t, scratch, lambda cur, dst, g0, n: step(cur, dst, g0))
-        return
-    streamed_block(src, out, t, scratch, lambda cur, dst, g0, n: _launched(
-        cur, key, lambda stream: band(stream, cur, dst, g0, n, rows)), per)
+    per, rows, cols = band_plan(src.device.index, batch, height, nwb, t)
+    if cols == nwb:
+        step = lambda cur, dst, g0, n: band(cur, dst, g0, n, rows)  # noqa: E731
+    else:
+        step = lambda cur, dst, g0, n: wide(cur, dst, g0, n, rows, cols)  # noqa: E731
+    streamed_block(src, out, t, scratch, step, per)
+
+
+def _run_plain(src, steps, g0: int, n: int, block_plain, *extents):
+    """``block_plain`` over generations g0 .. g0 + n - 1: board b runs
+    min(steps[b] - g0, n) of them."""
+    return block_plain(src, (steps - g0).clamp(min=0), *extents, n)
 
 
 def batch_packed_block_into(words, out, flags, steps, t: int,
@@ -315,10 +334,9 @@ def batch_packed_block_into(words, out, flags, steps, t: int,
     ``(alive, differs)`` of board b stored to ``flags[i, b]`` of a
     caller-zeroed (t, B, 2) buffer. One launch of the block form where a
     board's two copies fit in a CTA's shared memory, else ceil(t / t')
-    launches of the banded form, or ``t`` of the one-generation kernel
-    where not even a band fits, through ``scratch`` (a third stack,
-    allocated when None and needed) and ``out``; ``words`` is never
-    written."""
+    launches of the banded or the column-cut form, through ``scratch`` (a
+    third stack, allocated when None and needed) and ``out``; ``words`` is
+    never written."""
     if t < 1:
         raise ValueError(f"a block runs t >= 1 generations, got {t}")
     _check(words, out, flags, steps, torch.int32, flag_rows=t)
@@ -326,12 +344,13 @@ def batch_packed_block_into(words, out, flags, steps, t: int,
     dev = words.device.index
     if words.device.type == "cuda" and height * nwords > block_max_words(dev):
         _past_block(
-            words, out, t, scratch, nwords, "batch_packed_band",
-            lambda stream, cur, dst, g0, n, rows: _lib().gol_batch_packed_band(
-                cur.data_ptr(), dst.data_ptr(), flags.data_ptr(), steps.data_ptr(),
-                g0, n, batch, height, nwords, rows, dev, stream),
-            lambda cur, dst, gen: batch_packed_step_into(cur, dst, flags[gen],
-                                                         steps, gen))
+            words, out, t, scratch, nwords,
+            lambda cur, dst, g0, n, rows: _launched(
+                cur, "batch_packed_band", lambda stream: _lib().gol_batch_packed_band(
+                    cur.data_ptr(), dst.data_ptr(), flags.data_ptr(), steps.data_ptr(),
+                    g0, n, batch, height, nwords, rows, dev, stream)),
+            lambda cur, dst, g0, n, rows, cols: batch_packed_wide_into(
+                cur, dst, flags[g0:g0 + n], steps, g0, n, rows, cols))
         return
     if _launched(words, "batch_packed_block", lambda stream: _lib().gol_batch_packed_block(
             words.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),
@@ -342,16 +361,41 @@ def batch_packed_block_into(words, out, flags, steps, t: int,
     flags |= block_flags
 
 
+def batch_packed_wide_into(words, out, flags, steps, g0: int, n: int, rows: int,
+                           cols: int) -> None:
+    """B1's column-cut form: generations g0 .. g0 + n - 1 of a block (n <=
+    32) of each board of ``words`` (B, H, NW), board b running
+    ``min(steps[b] - g0, n)`` of them (none: copied), into ``out``, in tiles
+    of ``rows`` rows x ``cols`` words; generation g0 + i's ``(alive,
+    differs)`` of board b ORed into ``flags[i, b]`` of an (n, B, 2)
+    buffer (the block's flag rows from g0 on)."""
+    _check(words, out, flags, steps, torch.int32, flag_rows=n)
+    batch, height, nwords = words.shape
+    if _launched(words, "batch_packed_wide", lambda stream: _lib().gol_batch_packed_wide(
+            words.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),
+            g0, n, batch, height, nwords, rows, cols, words.device.index, stream)):
+        return
+    final, block_flags = _run_plain(words, steps, g0, n, _batch_packed_block_plain)
+    out.copy_(final)
+    flags |= block_flags
+
+
 def batch_packed_step_into(words, out, flags, steps, gen: int) -> None:
-    """B1's one-generation kernel: one generation of each board of
-    ``words`` (B, H, NW) whose ``steps`` are not spent at ``gen`` into
-    ``out`` (the others copied); ORs each running board's ``(alive,
-    differs)`` into ``flags[b]``."""
+    """B1 at one generation: each board of ``words`` (B, H, NW) whose
+    ``steps`` are not spent at ``gen`` into ``out`` (the others copied);
+    ORs each running board's ``(alive, differs)`` into ``flags[b]``. On
+    the card one launch of the column-cut form (``step_tile``)."""
     _check(words, out, flags, steps, torch.int32)
     batch, height, nwords = words.shape
-    if _launched(words, "batch_packed", lambda stream: _lib().gol_batch_packed_step(
+    dev = words.device.index
+
+    def launch(stream):
+        rows, cols = step_tile(dev, batch, height, nwords)
+        return _lib().gol_batch_packed_wide(
             words.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),
-            gen, batch, height, nwords, words.device.index, stream)):
+            gen, 1, batch, height, nwords, rows, cols, dev, stream)
+
+    if _launched(words, "batch_packed_wide", launch):
         return
     new, step_flags = _batch_packed_plain(words, steps, gen)
     out.copy_(new)
@@ -360,20 +404,47 @@ def batch_packed_step_into(words, out, flags, steps, gen: int) -> None:
 
 def batch_masked_step_into(cells, out, flags, steps, heights, widths,
                            gen: int) -> None:
-    """B2: one generation of each board of ``cells`` (B, PH, PW) whose
+    """B2 at one generation: each board of ``cells`` (B, PH, PW) whose
     ``steps`` are not spent at ``gen``, each wrapping at its own
     ``(heights[b], widths[b])`` with the rest of its slot 0, into ``out``
     (the others copied); ORs each running board's ``(alive, differs)`` over
-    its whole slot into ``flags[b]``."""
+    its whole slot into ``flags[b]``. On the card one launch of the
+    column-cut form (``step_tile``)."""
     _check(cells, out, flags, steps, torch.uint8,
            (("heights", heights), ("widths", widths)))
     batch, height, width = cells.shape
-    if _launched(cells, "batch_masked", lambda stream: _lib().gol_batch_masked_step(
+    dev = cells.device.index
+
+    def launch(stream):
+        rows, cols = step_tile(dev, batch, height, -(-width // 32))
+        return _lib().gol_batch_masked_wide(
             cells.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),
-            heights.data_ptr(), widths.data_ptr(), gen, batch, height, width,
-            cells.device.index, stream)):
+            heights.data_ptr(), widths.data_ptr(), gen, 1, batch, height, width,
+            rows, cols, dev, stream)
+
+    if _launched(cells, "batch_masked_wide", launch):
         return
     _masked_plain_into(cells, out, flags, steps, heights, widths, gen)
+
+
+def batch_masked_wide_into(cells, out, flags, steps, heights, widths, g0: int,
+                           n: int, rows: int, cols: int) -> None:
+    """B2's column-cut form: generations g0 .. g0 + n - 1 of a block (n <=
+    32) of each board of ``cells`` (B, PH, PW) as ``batch_masked_block_into``
+    runs them, in tiles of ``rows`` canvas rows x ``cols`` words of bits,
+    flags as ``batch_packed_wide_into``'s."""
+    _check(cells, out, flags, steps, torch.uint8,
+           (("heights", heights), ("widths", widths)), flag_rows=n)
+    batch, height, width = cells.shape
+    if _launched(cells, "batch_masked_wide", lambda stream: _lib().gol_batch_masked_wide(
+            cells.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),
+            heights.data_ptr(), widths.data_ptr(), g0, n, batch, height, width,
+            rows, cols, cells.device.index, stream)):
+        return
+    final, block_flags = _run_plain(cells, steps, g0, n, _batch_masked_block_plain,
+                                    heights, widths)
+    out.copy_(final)
+    flags |= block_flags
 
 
 def batch_masked_block_into(cells, out, flags, steps, heights, widths, t: int,
@@ -384,10 +455,9 @@ def batch_masked_block_into(cells, out, flags, steps, heights, widths, t: int,
     byte); generation i's ``(alive, differs)`` of board b, over its whole
     slot, stored to ``flags[i, b]`` of a caller-zeroed (t, B, 2) buffer.
     One launch of the block form where the slot's two bit copies fit in a
-    CTA's shared memory, else ceil(t / t') launches of the banded form, or
-    ``t`` of ``batch_masked_step_into`` where not even a band fits, through
-    ``scratch`` (a third stack, allocated when None and needed) and
-    ``out``; ``cells`` is never written."""
+    CTA's shared memory, else ceil(t / t') launches of the banded or the
+    column-cut form, through ``scratch`` (a third stack, allocated when
+    None and needed) and ``out``; ``cells`` is never written."""
     if t < 1:
         raise ValueError(f"a block runs t >= 1 generations, got {t}")
     _check(cells, out, flags, steps, torch.uint8,
@@ -397,13 +467,14 @@ def batch_masked_block_into(cells, out, flags, steps, heights, widths, t: int,
     nwb = -(-width // 32)
     if cells.device.type == "cuda" and height * nwb > block_max_words(dev):
         _past_block(
-            cells, out, t, scratch, nwb, "batch_masked_band",
-            lambda stream, cur, dst, g0, n, rows: _lib().gol_batch_masked_band(
-                cur.data_ptr(), dst.data_ptr(), flags.data_ptr(), steps.data_ptr(),
-                heights.data_ptr(), widths.data_ptr(), g0, n, batch, height, width,
-                rows, dev, stream),
-            lambda cur, dst, gen: batch_masked_step_into(
-                cur, dst, flags[gen], steps, heights, widths, gen))
+            cells, out, t, scratch, nwb,
+            lambda cur, dst, g0, n, rows: _launched(
+                cur, "batch_masked_band", lambda stream: _lib().gol_batch_masked_band(
+                    cur.data_ptr(), dst.data_ptr(), flags.data_ptr(), steps.data_ptr(),
+                    heights.data_ptr(), widths.data_ptr(), g0, n, batch, height,
+                    width, rows, dev, stream)),
+            lambda cur, dst, g0, n, rows, cols: batch_masked_wide_into(
+                cur, dst, flags[g0:g0 + n], steps, heights, widths, g0, n, rows, cols))
         return
     if _launched(cells, "batch_masked_block", lambda stream: _lib().gol_batch_masked_block(
             cells.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),

@@ -545,3 +545,41 @@ def test_masked_block_call_refuses_bad_operands(bad):
         args[1] = cells
     with pytest.raises(ValueError):
         sb.batch_masked_block_into(*args, t)
+
+
+@pytest.mark.parametrize("convention", CONVENTIONS)
+def test_wide_boards_match_jax(convention):
+    """Two boards of 3 x 309,600 cells (9,675 words a row, the width at
+    which the card's B1 takes its column-cut form) at gen_limit 20: two
+    blocks of the loop, grid, generations, exit reason and words as JAX's."""
+    rng = np.random.default_rng(309600)
+    boards = [rng.integers(0, 2, (3, 309600), dtype=np.uint8) for _ in range(2)]
+    _assert_same(*_both(boards, 20, convention))
+
+
+@pytest.mark.parametrize("kind", ["packed", "masked"])
+def test_wide_calls_on_the_cpu_run_their_generations(kind):
+    """The column-cut calls' CPU path: a block of 9 generations as two
+    calls (g0 0, n 5 and g0 5, n 4) through the block's flag rows from g0
+    on, equal to the block form's plain version; steps 9/3/0/12."""
+    steps = torch.tensor([9, 3, 0, 12], dtype=torch.int32)
+    if kind == "packed":
+        boards = np.stack([text_grid.generate(96, 24, seed=s) for s in (81, 82, 83)]
+                          + [_diagonal(24, 96)])
+        src = pm.words_from_numpy(bitpack.pack_words(boards), "cpu")
+        extents = ()
+        call, plain = sb.batch_packed_wide_into, sb._batch_packed_block_plain
+    else:
+        rng = np.random.default_rng(84)
+        src = torch.from_numpy(rng.integers(0, 2, (4, 24, 100), dtype=np.uint8))
+        extents = (torch.tensor([24, 20, 3, 1], dtype=torch.int32),
+                   torch.tensor([100, 97, 40, 33], dtype=torch.int32))
+        call, plain = sb.batch_masked_wide_into, sb._batch_masked_block_plain
+    flags = torch.zeros((9, 4, 2), dtype=torch.int32)
+    mid, out = torch.empty_like(src), torch.empty_like(src)
+    before = dict(sb.LAUNCHES)
+    call(src, mid, flags[0:5], steps, *extents, 0, 5, 3, 1)
+    call(mid, out, flags[5:9], steps, *extents, 5, 4, 3, 1)
+    want, want_flags = plain(src, steps, *extents, 9)
+    assert torch.equal(out, want) and torch.equal(flags, want_flags)
+    assert sb.LAUNCHES == before  # no kernel on the CPU

@@ -1,6 +1,6 @@
 """The host side of ``gol_tpu_torch.tools.batch_band_sweep`` (no card, no
 nvcc): the rewritten copies of the kernel source, the ptxas lines it
-reports and the band rows it times."""
+reports and the band rows and tile widths it times."""
 
 import pytest
 
@@ -47,6 +47,38 @@ def test_registers_reads_the_banded_kernels_lines_only():
     (line,) = sweep.registers(log)
     assert line.startswith("batch_packed_band_kernel: ")
     assert "0 bytes spill stores" in line and "Used 55 registers" in line
+
+
+def test_registers_names_the_templates_forms():
+    """The banded kernels are templates: false is the banded form, true the
+    column-cut form."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__8c9fbc89_16_"
+        "stencil_batch_cu_1d0bc02424batch_masked_band_kernelILb1EEvPKhPhPiPKiS5_"
+        "S5_iiiiiiiii' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 61 registers, used 1 barriers, 256 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__8c9fbc89_16_"
+        "stencil_batch_cu_1d0bc02424batch_packed_band_kernelILb0EEvPKjPjPiPKiiiiiiiii' "
+        "for 'sm_90a'",
+        "ptxas info    : Used 55 registers, used 1 barriers, 256 bytes smem",
+    ])
+    masked, packed = sweep.registers(log)
+    assert masked.startswith("batch_masked_band_kernel<true>: ")
+    assert "Used 61 registers" in masked
+    assert packed.startswith("batch_packed_band_kernel<false>: ")
+
+
+@pytest.mark.parametrize("plan,want", [(605, [302, 605]), (35, [17, 35]),
+                                       (1, [1, 2])])
+def test_tile_words_are_half_the_plan_and_twice_where_they_fit(plan, want):
+    """A tile of a 32-row board's whole height holds 32 rows: 2 x 605 + 2
+    words a row pass 29,024 words a copy; tiles of 631 rows hold 663 with
+    their ghost rows, of up to 41 words."""
+    rows = 32 if plan != 35 else 631
+    height = 32 if plan != 35 else 16384
+    assert sweep.tile_words(plan, rows, height, 9675 if plan != 35 else 512,
+                            29024) == want
 
 
 @pytest.mark.parametrize("plan,want", [(512, [256, 512]), (64, [32, 64, 128]),

@@ -1,26 +1,29 @@
 """The batched step kernels' CUDA source on the CPU, against their plain
-torch versions.
+torch versions and the JAX package.
 
-``gol_tpu_torch/csrc/stencil_batch.cu`` (B1's block and streaming forms,
-B2) is compiled with the host C++ compiler against
+``gol_tpu_torch/csrc/stencil_batch.cu`` (B1 and B2: their block, banded
+and column-cut forms) is compiled with the host C++ compiler against
 ``tests/cuda_emulation/cuda_runtime.h`` (a launch runs each block's threads
 as lanes on one host thread, switching at warp intrinsics and block
 barriers, with the block's shared memory) and driven through its own C
 entries. Each launch is held to ``stencil_batch``'s plain version at
-tolerance 0, words or cells and per-board flags: mixed extents in one
+tolerance 0, words or cells and per-generation flags: mixed extents in one
 canvas, spent step counts (a board copied through), one-word-wide and
-one-row boards, and boards that die or stand still. B1's block form runs
+one-row boards, and boards that die or stand still. The block forms run
 whole blocks of t in {1, 2, 16, 18} generations with mixed step counts
-(full, short, 0, past t), and its streaming form the same blocks one
-launch a generation (``stencil_batch.streamed_block``). B2's block form
-runs the same blocks at ``chip_smoke.py``'s phase-2 shapes (mixed extents
-down to 1x1, the exact-fit byte mode, 64 boards of 250^2 in 256^2), on
-slots that start off a 16-byte boundary and with non-zero padding, past 48
-KiB of shared memory, and is refused past the opt-in, where B2's streaming
-form runs the block. The emulation aborts on a divergent barrier or a
-warp intrinsic that a lane misses, and two deliberately broken kernels show
-that it does. The card runs the same source in ``tests/test_torch_cuda.py``
-and ``chip_smoke.py``.
+(full, short, 0, past t), the banded forms the same blocks at explicit
+band rows, and the column-cut forms at explicit tiles (rows 1, 3 and the
+board's height; words 1, 3 and the whole row) and at the plan's; the
+one-generation wrappers' launch is the column-cut form at one generation
+a launch, and ``stencil_batch.streamed_block`` runs blocks of it. B2 also
+runs on slots that start off a 16-byte boundary and with non-zero padding,
+past 48 KiB of shared memory, and past the opt-in, where the block form is
+refused. The column-cut forms over a block are also held to JAX's
+``vmap(packed_math.evolve_torus_words)`` and ``_evolve_batch_masked``.
+The emulation aborts on a divergent barrier or a warp intrinsic that a
+lane misses, and two deliberately broken kernels show that it does. The
+card runs the same source in ``tests/test_torch_cuda.py`` and
+``chip_smoke.py``.
 """
 
 import ctypes
@@ -29,10 +32,13 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import torch
 
+from gol_tpu import engine as jax_engine
+from gol_tpu.ops import packed_math as jax_pm
 from gol_tpu_torch.ops import packed_math as pm
 from gol_tpu_torch.ops import stencil_batch as sb
 from test_torch_bandt_emulated import emulated_source
@@ -68,13 +74,13 @@ def lib(tmp_path_factory):
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gol_batch_packed_step.argtypes = [p] * 4 + [i] * 5 + [p]
-    lib.gol_batch_masked_step.argtypes = [p] * 6 + [i] * 5 + [p]
     lib.gol_batch_packed_block.argtypes = [p] * 4 + [i] * 5 + [p]
     lib.gol_batch_masked_block.argtypes = [p] * 6 + [i] * 5 + [p]
     lib.gol_batch_block_max_words.argtypes = [i]
     lib.gol_batch_packed_band.argtypes = [p] * 4 + [i] * 7 + [p]
     lib.gol_batch_masked_band.argtypes = [p] * 6 + [i] * 7 + [p]
+    lib.gol_batch_packed_wide.argtypes = [p] * 4 + [i] * 8 + [p]
+    lib.gol_batch_masked_wide.argtypes = [p] * 6 + [i] * 8 + [p]
     lib.gol_batch_band_plan.argtypes = [i] * 5 + [p]
     lib.emu_misaligned.argtypes, lib.emu_misaligned.restype = [], i
     lib.emu_shared_optin.argtypes = [i, i]
@@ -102,6 +108,33 @@ def _steps(batch):
                         dtype=torch.int32)
 
 
+def _step_tile(lib, batch, height, nwb, device=0):
+    """The one-generation wrappers' tile (``stencil_batch.step_tile``) on
+    the emulated card."""
+    return sb.fit_step_tile(_plan(lib, batch, height, nwb, 1, device)[1:],
+                            lib.gol_batch_block_max_words(device))
+
+
+def _packed_step(lib, src, dst, flags, steps, gen, device=0):
+    """What ``batch_packed_step_into`` launches: the column-cut form at
+    generation ``gen``, one generation, into the (B, 2) flag row."""
+    batch, height, nwords = src.shape
+    rows, cols = _step_tile(lib, batch, height, nwords, device)
+    return lib.gol_batch_packed_wide(
+        src.data_ptr(), dst.data_ptr(), flags.data_ptr(), steps.data_ptr(), gen,
+        1, batch, height, nwords, rows, cols, device, None)
+
+
+def _masked_step(lib, src, dst, flags, steps, heights, widths, gen, device=0):
+    """What ``batch_masked_step_into`` launches, as ``_packed_step``."""
+    batch, height, width = src.shape
+    rows, cols = _step_tile(lib, batch, height, -(-width // 32), device)
+    return lib.gol_batch_masked_wide(
+        src.data_ptr(), dst.data_ptr(), flags.data_ptr(), steps.data_ptr(),
+        heights.data_ptr(), widths.data_ptr(), gen, 1, batch, height, width,
+        rows, cols, device, None)
+
+
 @pytest.mark.parametrize("gen", [0, 2])
 @pytest.mark.parametrize("batch,height,nwords", PACKED)
 def test_packed_batch_step_matches_plain(lib, batch, height, nwords, gen):
@@ -113,9 +146,7 @@ def test_packed_batch_step_matches_plain(lib, batch, height, nwords, gen):
         steps[-1] = 0  # a padding slot
     out = torch.full_like(words, -1)
     flags = torch.zeros((batch, 2), dtype=torch.int32)
-    assert lib.gol_batch_packed_step(
-        words.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),
-        gen, batch, height, nwords, 0, None) == 0
+    assert _packed_step(lib, words, out, flags, steps, gen) == 0
     want, want_flags = sb._batch_packed_plain(words, steps, gen)
     assert torch.equal(out, want)
     assert torch.equal(flags, want_flags)
@@ -135,10 +166,7 @@ def test_masked_batch_step_matches_plain(lib, height, width, extents, gen):
     steps = _steps(batch)
     out = torch.full_like(cells, 7)
     flags = torch.zeros((batch, 2), dtype=torch.int32)
-    assert lib.gol_batch_masked_step(
-        cells.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),
-        heights.data_ptr(), widths.data_ptr(), gen, batch, height, width, 0,
-        None) == 0
+    assert _masked_step(lib, cells, out, flags, steps, heights, widths, gen) == 0
     want, want_flags = sb._batch_masked_plain(cells, steps, heights, widths, gen)
     assert torch.equal(out, want)
     assert torch.equal(flags, want_flags)
@@ -151,9 +179,7 @@ def test_flags_accumulate_into_the_callers_buffer(lib):
     out = torch.empty_like(words)
     flags = torch.tensor([[1, 1], [1, 0]], dtype=torch.int32)
     steps = torch.tensor([1, 0], dtype=torch.int32)
-    assert lib.gol_batch_packed_step(
-        words.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),
-        0, 2, 4, 1, 0, None) == 0
+    assert _packed_step(lib, words, out, flags, steps, 0) == 0
     assert flags.tolist() == [[1, 1], [1, 0]]
     assert not out.any()
 
@@ -204,8 +230,8 @@ def test_packed_block_matches_plain(lib, batch, height, nwords, t):
 @pytest.mark.parametrize("t", BLOCK_TS)
 @pytest.mark.parametrize("batch,height,nwords", PACKED)
 def test_packed_streaming_block_matches_plain(lib, batch, height, nwords, t):
-    """The streaming form over a whole block: one launch a generation,
-    ping-ponging a scratch stack and the output."""
+    """The one-generation launch over a whole block: one launch a
+    generation, ping-ponging a scratch stack and the output."""
     words = _packed_boards(batch, height, nwords, batch * 31 + height + nwords)
     steps = _block_steps(batch, t)
 
@@ -214,9 +240,7 @@ def test_packed_streaming_block_matches_plain(lib, batch, height, nwords, t):
 
     def step(src, dst, gen, n):
         assert n == 1
-        assert lib.gol_batch_packed_step(
-            src.data_ptr(), dst.data_ptr(), flags[gen].data_ptr(),
-            steps.data_ptr(), gen, batch, height, nwords, 0, None) == 0
+        assert _packed_step(lib, src, dst, flags[gen], steps, gen) == 0
 
     sb.streamed_block(words, out, t, scratch, step)
     want, want_flags = sb._batch_packed_block_plain(words, steps, t)
@@ -340,8 +364,8 @@ def test_masked_block_past_48_kib_of_shared_memory(lib):
 
 def test_masked_block_refused_past_the_opt_in_runs_streamed(lib):
     """A canvas whose two bit copies pass the opt-in is refused, not run;
-    B2's streaming form runs its block instead, one launch a generation,
-    as the wrapper does on the card."""
+    the one-generation launch runs its block instead, one launch a
+    generation, as ``batch_masked_step_into`` does on the card."""
     lib.emu_shared_optin(1, 4096)
     most = lib.gol_batch_block_max_words(1)
     height, width = 40, 400  # 40 rows x 13 words > most
@@ -356,10 +380,8 @@ def test_masked_block_refused_past_the_opt_in_runs_streamed(lib):
     flags = torch.zeros((3, 2, 2), dtype=torch.int32)
 
     def step(src, dst, gen, n):
-        assert lib.gol_batch_masked_step(
-            src.data_ptr(), dst.data_ptr(), flags[gen].data_ptr(),
-            steps.data_ptr(), heights.data_ptr(), widths.data_ptr(), gen, 2,
-            height, width, 1, None) == 0
+        assert _masked_step(lib, src, dst, flags[gen], steps, heights, widths,
+                            gen, device=1) == 0
 
     sb.streamed_block(cells, out, 3, scratch, step)
     want, want_flags = sb._batch_masked_block_plain(cells, steps, heights, widths, 3)
@@ -376,9 +398,9 @@ BAND_ROWS = [1, 3, None]  # None: one band of the whole board
 
 
 def _plan(lib, batch, height, nwb, t, device=0):
-    plan = (ctypes.c_int * 2)()
+    plan = (ctypes.c_int * 3)()
     assert lib.gol_batch_band_plan(device, batch, height, nwb, t, plan) == 0
-    return plan[0], plan[1]
+    return plan[0], plan[1], plan[2]
 
 
 def _band_block(lib, src, t, per, launch, junk):
@@ -495,22 +517,49 @@ def test_masked_band_off_16_byte_boundaries_with_padding(lib, t):
 
 
 def test_band_plan_follows_the_rule(lib):
-    """t' = min(t, max(1, rows / 4)) of the rows a copy may hold; bands a
-    board the most of the fewest that fit and min(SMs / batch, height /
-    t'); (0, 0) where not even three rows fit. On an H100 (29,024 words a
-    copy, 132 SMs): the smoke's timing shapes and 4e's pairs in one launch
-    of 16 generations, and the one-generation kernels past 9,674 words a
-    row (widths past 309,568 cells)."""
-    assert _plan(lib, 64, 1024, 32, 16) == (16, 512)  # 2 bands: 128 CTAs
-    assert _plan(lib, 8, 1024, 32, 16) == (16, 64)  # 16 bands: 128 CTAs
-    assert _plan(lib, 2, 1024, 32, 16) == (16, 16)  # a band owns >= t' rows
-    assert _plan(lib, 1, 1024, 32, 18) == (18, 18)
-    assert _plan(lib, 64, 300, 400, 16) == (16, 38)  # 72 rows a copy: 8 bands fit
-    assert _plan(lib, 1, 4, 9674, 16) == (1, 1)
-    assert _plan(lib, 1, 4, 9675, 16) == (0, 0)
+    """Whole-row bands where t' = min(t, max(1, rows / 4)) of the rows a
+    copy may hold is t, as before: bands a board the most of the fewest
+    that fit and min(SMs / batch, height / t'). Else the column cut: t' =
+    min(t, 32), tiles of the board's whole height or of bands of about
+    sqrt(t' x most) - 2 t' rows, as wide as two copies allow, narrowed to
+    fill the whole waves they take. On an H100 (29,024 words a copy, 132
+    SMs): the smoke's timing shapes and 4e's pairs in one launch of 16
+    generations; rows past 453 words (past 9,674, where no whole-row band
+    fits) cut into tiles that run the whole block."""
+    assert _plan(lib, 64, 1024, 32, 16) == (16, 512, 32)  # 2 bands: 128 CTAs
+    assert _plan(lib, 8, 1024, 32, 16) == (16, 64, 32)  # 16 bands: 128 CTAs
+    assert _plan(lib, 2, 1024, 32, 16) == (16, 16, 32)  # a band owns >= t' rows
+    assert _plan(lib, 1, 1024, 32, 18) == (18, 18, 32)
+    assert _plan(lib, 64, 300, 400, 16) == (16, 38, 400)  # 72 rows a copy: 8 bands fit
+    assert _plan(lib, 1, 4, 9674, 1) == (1, 1, 9674)  # whole rows at t = 1
+    # Past 9,674 words a row (before: no plan, a launch a generation) and
+    # past 453 (before: t' < 16), tiles of the whole height or of bands:
+    assert _plan(lib, 1, 4, 9674, 16) == (16, 4, 74)  # 131 tiles
+    assert _plan(lib, 1, 4, 9675, 16) == (16, 4, 74)
+    assert _plan(lib, 16, 32, 9675, 16) == (16, 32, 605)  # 256 CTAs: 2 waves
+    assert _plan(lib, 2, 16384, 512, 16) == (16, 631, 35)  # before: t' = 14
+    assert _plan(lib, 1, 4, 9675, 40)[0] == 32  # one ghost word: t' <= 32
     lib.emu_shared_optin(1, 4096)  # 480 words a copy
-    assert _plan(lib, 3, 40, 13, 16, device=1) == (9, 8)  # t' < t: 2 launches
-    assert _plan(lib, 3, 40, 13, 2, device=1) == (2, 2)
+    assert _plan(lib, 3, 40, 13, 16, device=1) == (16, 40, 7)  # before: (9, 8)
+    assert _plan(lib, 3, 40, 13, 2, device=1) == (2, 2, 13)
+
+
+@pytest.mark.parametrize("device", [0, 1], ids=["h100", "optin_480_words"])
+def test_band_plan_runs_every_block_of_up_to_32_in_one_launch(lib, device):
+    """t' = t for t <= 32 at every width and height, and the tile with its
+    ghost rows (and, cut, its ghost words) fits in a copy."""
+    lib.emu_shared_optin(1, 4096)
+    most = lib.gol_batch_block_max_words(device)
+    for nwb in (1, 7, 8, 60, 453, 454, 2048, 9674, 9675, 50000):
+        for height in (1, 3, 32, 1024, 16384):
+            for batch in (1, 16, 64):
+                for t in (1, 2, 16, 18, 32):
+                    per, rows, cols = _plan(lib, batch, height, nwb, t, device)
+                    assert per == t and 1 <= rows <= height and 1 <= cols <= nwb
+                    assert cols == nwb or nwb > 1
+                    copy = ((rows + 2 * t) * nwb if cols == nwb else
+                            (height if rows >= height else rows + 2 * t) * (cols + 2))
+                    assert copy <= most, (nwb, height, batch, t, rows, cols)
 
 
 def test_band_launch_refuses_what_does_not_fit(lib):
@@ -533,27 +582,188 @@ def test_band_launch_refuses_what_does_not_fit(lib):
 @pytest.mark.parametrize("t", [2, 16, 18])
 def test_block_call_past_the_block_form_takes_the_plan(lib, t):
     """What the wrappers do past the block form, at a shrunk opt-in (4096
-    bytes: 480 words a copy): the plan's (t', R), ceil(t / t') banded
-    launches, equal to the plain versions; B1 at 40 x 13 words (t' = 9 <
-    t for t >= 16), B2 on a 40 x 400 canvas (13 words a row) of mixed
-    extents with padding noise."""
+    bytes: 480 words a copy): the plan's (t', R, C), ceil(t / t') launches
+    of the banded form where C is the whole row, else of the column-cut
+    form, equal to the plain versions; B1 at 40 x 13 words (whole-row
+    bands at t = 2; t = 16 and 18 cut into tiles of the whole height, one
+    launch), B2 on a 40 x 400 canvas (13 words a row) of mixed extents with
+    padding noise."""
     lib.emu_shared_optin(1, 4096)
     most = lib.gol_batch_block_max_words(1)
     words = _packed_boards(3, 40, 13, seed=t)
     assert 40 * 13 > most
-    per, rows = _plan(lib, 3, 40, 13, t, device=1)
-    assert 0 < per <= t and (rows + 2 * per) * 13 <= most
+    per, rows, cols = _plan(lib, 3, 40, 13, t, device=1)
+    assert per == t and (cols == 13) == (t == 2)
     steps = _block_steps(3, t)
-    out, flags = _packed_band(lib, words, steps, t, per, rows, device=1)
+    if cols == 13:
+        out, flags = _packed_band(lib, words, steps, t, per, rows, device=1)
+    else:
+        out, flags = _packed_wide(lib, words, steps, t, per, rows, cols, device=1)
     want, want_flags = sb._batch_packed_block_plain(words, steps, t)
     assert torch.equal(out, want) and torch.equal(flags, want_flags)
     cells, heights, widths = _canvas(40, 400, [(40, 400), (37, 390), (3, 100)],
                                      seed=t, padding=True)
-    per, rows = _plan(lib, 3, 40, 13, t, device=1)
     steps = _block_steps(3, t)
-    out, flags = _masked_band(lib, cells, heights, widths, steps, t, per, rows, device=1)
+    if cols == 13:
+        out, flags = _masked_band(lib, cells, heights, widths, steps, t, per, rows,
+                                  device=1)
+    else:
+        out, flags = _masked_wide(lib, cells, heights, widths, steps, t, per, rows,
+                                  cols, device=1)
     want, want_flags = sb._batch_masked_block_plain(cells, steps, heights, widths, t)
     assert torch.equal(out, want) and torch.equal(flags, want_flags)
+
+
+# The column-cut forms: a block of t generations in one launch, each board
+# in tiles of R rows x C words with one ghost word each side (and t ghost
+# rows each side, or none where a tile holds the whole height), at
+# explicit tiles: R in BAND_ROWS, C 1, 3 and the whole row. B1 at 40 x 13
+# words (before this form: t' = 9 at the shrunk opt-in), a board of 3 rows
+# (shorter than its ghost rows: they repeat) and one of one row; B2 on a
+# 40 x 400 canvas of mixed extents with padding noise, one board narrower
+# than a tile of 3 words (its positions repeat its columns).
+WIDE_PACKED = [(3, 40, 13), (2, 3, 200), (2, 1, 61)]
+WIDE_COLS = [1, 3, None]  # None: the whole row
+WIDE_MASKED = (40, 400, [(40, 400), (37, 390), (3, 100), (1, 33)])
+
+
+def _packed_wide(lib, words, steps, t, per, rows, cols, device=0):
+    batch, height, nwords = words.shape
+    return _band_block(lib, words, t, per, lambda cur, dst, flags, g0, n: (
+        lib.gol_batch_packed_wide(
+            cur.data_ptr(), dst.data_ptr(), flags[g0].data_ptr(), steps.data_ptr(),
+            g0, n, batch, height, nwords, rows, cols, device, None)), -1)
+
+
+def _masked_wide(lib, cells, heights, widths, steps, t, per, rows, cols, device=0):
+    batch, height, width = cells.shape
+    return _band_block(lib, cells, t, per, lambda cur, dst, flags, g0, n: (
+        lib.gol_batch_masked_wide(
+            cur.data_ptr(), dst.data_ptr(), flags[g0].data_ptr(), steps.data_ptr(),
+            heights.data_ptr(), widths.data_ptr(), g0, n, batch, height, width,
+            rows, cols, device, None)), 7)
+
+
+@pytest.mark.parametrize("cols", WIDE_COLS, ids=["C1", "C3", "Call"])
+@pytest.mark.parametrize("rows", BAND_ROWS, ids=["R1", "R3", "Rall"])
+@pytest.mark.parametrize("t", BLOCK_TS)
+@pytest.mark.parametrize("batch,height,nwords", WIDE_PACKED)
+def test_packed_wide_matches_plain(lib, batch, height, nwords, t, rows, cols):
+    words = _packed_boards(batch, height, nwords, batch * 19 + height + nwords + t)
+    steps = _block_steps(batch, t)
+    kept = words.clone()
+    out, flags = _packed_wide(lib, words, steps, t, t, rows or height, cols or nwords)
+    want, want_flags = sb._batch_packed_block_plain(words, steps, t)
+    assert torch.equal(out, want)
+    assert torch.equal(flags, want_flags)
+    assert torch.equal(words, kept)
+
+
+@pytest.mark.parametrize("cols", WIDE_COLS, ids=["C1", "C3", "Call"])
+@pytest.mark.parametrize("rows", BAND_ROWS, ids=["R1", "R3", "Rall"])
+@pytest.mark.parametrize("t", BLOCK_TS)
+def test_masked_wide_matches_plain(lib, t, rows, cols):
+    """Tiles of padding alone (rows past a board, words past it), tiles
+    that end inside a board's last word, 0/1 noise in the padding
+    (differs in the first generation only)."""
+    height, width, extents = WIDE_MASKED
+    cells, heights, widths = _canvas(height, width, extents, width + t, padding=True)
+    steps = _block_steps(len(extents), t)
+    kept = cells.clone()
+    out, flags = _masked_wide(lib, cells, heights, widths, steps, t, t,
+                              rows or height, cols or -(-width // 32))
+    want, want_flags = sb._batch_masked_block_plain(cells, steps, heights, widths, t)
+    assert torch.equal(out, want)
+    assert torch.equal(flags, want_flags)
+    assert torch.equal(cells, kept)
+    assert lib.emu_misaligned() == 0, "a 16-byte load off a 16-byte boundary"
+
+
+@pytest.mark.parametrize("t", [1, 3])
+def test_masked_wide_off_16_byte_boundaries_with_padding(lib, t):
+    """As the block form's case, on slots of 33 x 70 bytes (3 words a bit
+    row) off 16-byte boundaries, the output at another offset (a spent
+    board's tiles copy byte by byte), padding noise, a spent board keeping
+    its padding; in tiles of 4 rows x 1 word."""
+    extents = [(33, 70), (30, 67), (1, 70), (33, 1)]
+    cells, heights, widths = _canvas(33, 70, [(33, 70)] + extents, 95, padding=True)
+    cells, heights, widths = cells[1:], heights[1:], widths[1:]
+    steps = torch.tensor([t, t, 0, 1], dtype=torch.int32)
+    backing = torch.full((5 * 33 * 70 + 3,), 7, dtype=torch.uint8)
+    out = backing[3:3 + 4 * 33 * 70].view(4, 33, 70)
+    flags = torch.zeros((t, 4, 2), dtype=torch.int32)
+    assert lib.gol_batch_masked_wide(
+        cells.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),
+        heights.data_ptr(), widths.data_ptr(), 0, t, 4, 33, 70, 4, 1, 0, None) == 0
+    want, want_flags = sb._batch_masked_block_plain(cells, steps, heights, widths, t)
+    assert torch.equal(out, want)
+    assert torch.equal(flags, want_flags)
+    assert flags[:, 1].tolist() == [[1, 1]] + [[1, 0]] * (t - 1)  # the block
+    assert torch.equal(out[2], cells[2])  # spent: copied, padding and all
+    assert lib.emu_misaligned() == 0
+
+
+def test_wide_launch_refuses_what_does_not_fit(lib):
+    """A tile past the opt-in with its ghost rows and words, more than 32
+    generations a launch, or wider than the row, is refused, not run."""
+    lib.emu_shared_optin(1, 4096)  # 480 words a copy
+    words = _packed_boards(1, 40, 13, seed=4)
+    out = torch.full_like(words, -1)
+    flags = torch.zeros((40, 1, 2), dtype=torch.int32)
+    steps = torch.ones(1, dtype=torch.int32)
+    for rows, cols, tb, device in ((37, 11, 1, 1), (39, 11, 16, 1), (1, 14, 1, 0),
+                                   (4, 4, 33, 0), (0, 4, 1, 0)):
+        assert lib.gol_batch_packed_wide(
+            words.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),
+            0, tb, 1, 40, 13, rows, cols, device, None) != 0
+    assert bool((out == -1).all())
+    for rows, cols, tb in ((40, 10, 16), (38, 1, 1), (16, 3, 16)):
+        assert lib.gol_batch_packed_wide(
+            words.data_ptr(), out.data_ptr(), flags.data_ptr(), steps.data_ptr(),
+            0, tb, 1, 40, 13, rows, cols, 1, None) == 0
+
+
+def _jax_block(evolve, state, steps, t):
+    """JAX's step applied generation by generation, board b for min(steps[b],
+    t) of them: ``(final, flags)`` as the block forms store them."""
+    cur = state
+    flags = np.zeros((t, state.shape[0], 2), np.int32)
+    for i in range(t):
+        new = np.asarray(evolve(cur))
+        running = np.array([i < min(n, t) for n in steps])
+        flags[i, :, 0] = running & new.reshape(len(steps), -1).any(axis=1)
+        flags[i, :, 1] = running & (new != cur).reshape(len(steps), -1).any(axis=1)
+        cur = np.where(running[:, None, None], new, cur)
+    return cur, flags
+
+
+@pytest.mark.parametrize("t", BLOCK_TS)
+def test_wide_block_matches_jax(lib, t):
+    """The emulated column-cut forms over a block of t generations, the
+    port's plain versions and the JAX package's steps
+    (``vmap(packed_math.evolve_torus_words)``, ``_evolve_batch_masked``),
+    on the same numpy-seeded boards: B1 at 40 x 13 words, B2 on a 40 x 400
+    canvas of mixed extents with padding noise, in tiles of 7 rows x 3
+    words, steps t/1/0/t+2."""
+    words = _packed_boards(4, 40, 13, seed=70 + t)
+    steps = _block_steps(4, t)
+    got, got_flags = _packed_wide(lib, words, steps, t, t, 7, 3)
+    want, want_flags = _jax_block(jax.vmap(jax_pm.evolve_torus_words),
+                                  pm.words_to_numpy(words), steps.tolist(), t)
+    np.testing.assert_array_equal(pm.words_to_numpy(got), want)
+    np.testing.assert_array_equal(got_flags.numpy(), want_flags)
+    plain, plain_flags = sb._batch_packed_block_plain(words, steps, t)
+    assert torch.equal(got, plain) and torch.equal(got_flags, plain_flags)
+
+    height, width, extents = WIDE_MASKED
+    cells, heights, widths = _canvas(height, width, extents, 80 + t, padding=True)
+    steps = _block_steps(len(extents), t)
+    got, got_flags = _masked_wide(lib, cells, heights, widths, steps, t, t, 7, 3)
+    want, want_flags = _jax_block(
+        lambda cur: jax_engine._evolve_batch_masked(cur, heights.numpy(), widths.numpy()),
+        cells.numpy(), steps.tolist(), t)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got_flags.numpy(), want_flags)
 
 
 # Kernels the card would hang on or read garbage in, and one it runs: the

@@ -489,10 +489,10 @@ def test_batch_packed_kernel_matches_plain(card, batch, height, nwords, gen):
     steps = _batch_steps(batch, card)
     out = torch.empty_like(words)
     flags = torch.zeros((batch, 2), dtype=torch.int32, device=card)
-    before = sb.LAUNCHES["batch_packed"]
+    before = sb.LAUNCHES["batch_packed_wide"]
     sb.batch_packed_step_into(words, out, flags, steps, gen)
     torch.cuda.synchronize(card)
-    assert sb.LAUNCHES["batch_packed"] == before + 1
+    assert sb.LAUNCHES["batch_packed_wide"] == before + 1
     want, want_flags = sb._batch_packed_plain(words, steps, gen)
     assert torch.equal(out, want)
     assert torch.equal(flags, want_flags)
@@ -507,12 +507,13 @@ def _block_steps(batch, t, card):
 def _form_launches(card, batch, height, nwb, t, kind):
     """The launches a block call of t generations makes, by shape: one of
     the block form where a board's two copies fit in a CTA's shared memory,
-    else ceil(t / t') of the banded form, or t of the one-generation kernel
-    where not even a band fits."""
+    else ceil(t / t') of the banded form where the plan keeps whole rows,
+    or of the column-cut form."""
     if height * nwb <= sb.block_max_words(card.index):
         return {f"batch_{kind}_block": 1}
-    per, _ = sb.band_plan(card.index, batch, height, nwb, t)
-    return {f"batch_{kind}_band": -(-t // per)} if per else {f"batch_{kind}": t}
+    per, _, cols = sb.band_plan(card.index, batch, height, nwb, t)
+    form = "band" if cols == nwb else "wide"
+    return {f"batch_{kind}_{form}": -(-t // per)}
 
 
 def _launched_forms(before, kind):
@@ -522,10 +523,12 @@ def _launched_forms(before, kind):
 
 # Past the block form: (2, 1024, 64) and 4e's 1024^2 pair (65,536 and
 # 32,768 words a board) take the banded form in one launch a block; 725
-# words a row hold 40 rows a copy, so t' = 10 < t and a block of 16 or 18
-# takes two launches through scratch; 9,675 words a row (309,600 cells) is
-# past even a band of one row: the one-generation kernel.
-BATCH_PACKED_PAST = [(2, 1024, 64), (2, 1024, 32), (2, 64, 725), (1, 32, 9675)]
+# words a row hold 40 rows a copy, too few for whole-row bands at t = 16,
+# and 9,675 words a row (309,600 cells) is past even a band of one row:
+# they and a 2,048-word row take the column-cut form, one launch a block
+# (whole-row bands still run t = 1 at 725 and 2,048 words).
+BATCH_PACKED_PAST = [(2, 1024, 64), (2, 1024, 32), (2, 64, 725), (1, 32, 9675),
+                     (2, 16, 2048)]
 
 
 @pytest.mark.parametrize("t", [1, 16, 18])
@@ -566,10 +569,10 @@ def test_batch_masked_kernel_matches_plain(card, height, width, extents, gen):
     steps = _batch_steps(batch, card)
     out = torch.empty_like(cells)
     flags = torch.zeros((batch, 2), dtype=torch.int32, device=card)
-    before = sb.LAUNCHES["batch_masked"]
+    before = sb.LAUNCHES["batch_masked_wide"]
     sb.batch_masked_step_into(cells, out, flags, steps, heights, widths, gen)
     torch.cuda.synchronize(card)
-    assert sb.LAUNCHES["batch_masked"] == before + 1
+    assert sb.LAUNCHES["batch_masked_wide"] == before + 1
     want, want_flags = sb._batch_masked_plain(cells, steps, heights, widths, gen)
     assert torch.equal(out, want)
     assert torch.equal(flags, want_flags)
@@ -578,7 +581,7 @@ def test_batch_masked_kernel_matches_plain(card, height, width, extents, gen):
 # B2 past the block form, as BATCH_PACKED_PAST: 4e's 1000^2 pair in a
 # 1024^2 canvas (banded), a short board and a narrow one in the same canvas
 # (their bands' ghost rows repeat; whole bands of padding), a canvas of 725
-# words a row (t' = 10), and one of 309,600 cells a row (one-generation).
+# words a row and one of 309,600 cells a row (column-cut).
 BATCH_MASKED_PAST = [(1024, 1024, [(1000, 1000), (1024, 1024)]),
                      (1024, 1024, [(5, 1024), (1024, 3), (1, 1)]),
                      (64, 23200, [(64, 23200), (61, 23171)]),
@@ -588,7 +591,7 @@ BATCH_MASKED_PAST = [(1024, 1024, [(1000, 1000), (1024, 1024)]),
 @pytest.mark.parametrize("t", [1, 16, 18])
 @pytest.mark.parametrize("height,width,extents", BATCH_MASKED + BATCH_MASKED_PAST,
                          ids=["mixed", "byte", "tall", "serving", "past_opt_in",
-                              "short_and_narrow", "t_prime_below_t", "one_generation"])
+                              "short_and_narrow", "cut_725_words", "cut_9675_words"])
 def test_batch_masked_block_matches_plain(card, height, width, extents, t):
     """B2 over a whole block, in the form its shape takes
     (``_form_launches``); random, dying and still boards with 0/1 noise in
