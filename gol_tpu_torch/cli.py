@@ -38,10 +38,13 @@ The port of ``gol_tpu/cli.py``'s ``run``:
   before the timer starts — and ends in a device sync;
 - observability: ``--trace DIR`` (the JAX CLI's spans, ``cli.read_phase``,
   ``engine.compile``, ``cli.execution``, ``cli.write_phase``,
-  ``engine.segment`` and the checkpoint lane's, exported as Chrome trace
-  JSON, with the flight recorder armed), ``--profile DIR`` (a guarded
-  ``torch.profiler`` capture of the timed region) and ``--compile-cache
-  DIR`` (the build directory of the kernels and the codec).
+  ``engine.segment`` and the checkpoint lane's, and the engine's own
+  ``engine.run`` a runner call, exported as Chrome trace JSON, with the
+  flight recorder armed), ``--profile DIR`` (a guarded ``torch.profiler``
+  capture of the timed region; with ``--trace`` it also carries the spans
+  and the engine's ``engine.launch``/``engine.readback``/``engine.replay``
+  ranges a block) and ``--compile-cache DIR`` (the build directory of the
+  kernels and the codec).
 
 It runs on the card; ``GOL_TORCH_DEVICE=cpu`` runs it on the CPU through the
 kernels' plain torch versions. Errors print as ``gol: <error>`` with exit
@@ -3040,15 +3043,21 @@ def build_parser() -> argparse.ArgumentParser:
         metavar="DIR",
         help="capture a torch.profiler trace of the run into DIR/trace.json "
         "(start/stop guarded: a run with nothing to capture proceeds "
-        "unprofiled, a crashed run never leaves a torn trace directory)",
+        "unprofiled, a crashed run never leaves a torn trace directory); "
+        "with --trace the capture also carries the spans and the engine's "
+        "block ranges (engine.launch, engine.readback, engine.replay) on "
+        "the device's clock",
     )
     run.add_argument(
         "--trace", default=None, metavar="DIR",
         help="span tracing + flight recorder (gol_tpu_torch/obs): phase/engine "
-        "spans export to DIR as Chrome trace JSON when the run ends; a "
-        "crash additionally dumps the last spans as flight-*.jsonl at the "
-        "moment of death; SIGUSR1 dumps live. Summarize either file with "
-        "`gol trace-report`",
+        "spans (one engine.run a runner call, with its blocks, readbacks "
+        "and host launch, wait and turnaround seconds) export to DIR as "
+        "Chrome trace JSON when the run ends; a crash additionally dumps "
+        "the last spans as flight-*.jsonl at the moment of death; SIGUSR1 "
+        "dumps live. Summarize either file with `gol trace-report`; with "
+        "--profile the capture carries the spans and the engine's block "
+        "ranges",
     )
     run.add_argument(
         "--snapshot-every", type=int, default=None, metavar="N",

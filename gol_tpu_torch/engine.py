@@ -63,17 +63,31 @@ rows and words by its size) without a sync, reads back one (block x B x
 2) flag tensor for the whole batch, and replays each board's exits on the
 host with the solo rules.
 
-Spans and counters are the JAX engine's, on the same sites (``obs/trace``,
-``obs/registry``): ``engine.compile`` around building a whole-run runner
+Spans and counters (``obs/trace``, ``obs/registry``): the JAX engine's on
+the same sites, ``engine.compile`` around building a whole-run runner
 (``make_runner``, ``make_packed_runner``: the kernels' build and load, the
 counterpart of JAX's ``compile_runner``), ``engine.segment`` around each
-segment of ``_iter_segments`` (``engine_segments_total``,
-``engine_generations_total``), ``engine.simulate`` around a
-``simulate`` run (``engine_runs_total``, ``engine_generations_total``) and
+segment of ``_iter_segments`` (``engine_segments_total``),
+``engine.simulate`` around a ``simulate`` run and
 ``engine.simulate_batch`` around a ``simulate_batch`` run
 (``engine_batches_total``, ``engine_boards_total``,
 ``engine_generations_total``; ``engine_stage_packs_total`` per staging
-that packs).
+that packs). The port's own: one ``engine.run`` span around every solo
+runner call, whole run or segment, with the call's ``blocks`` and
+``readbacks`` and its host seconds by stage (``_LoopClock``): ``launch_s``
+(a block's enqueue), ``wait_s`` (blocked in flag reads) and
+``turnaround_s`` (from a readback to the next block's enqueue, when the
+card has nothing queued). The clock reads are taken only while the span
+is live. Inside a call the stages are profiler ranges, in a capture only
+(``obs_trace.range``): ``engine.launch`` (a block's enqueue, from its
+flag fill through its last pass or tail), ``engine.readback`` (every host
+read of device flags: a block's, the C loop's opening alive test, an exact
+rerun's, the votes of the loop without a fused form) and
+``engine.replay`` (the host's derivation of a block's flags, with any
+exact rerun inside it, and the CUDA loop's empty-exit replay). Every runner
+call counts ``engine_generations_total`` and ``engine_readbacks_total``,
+and a whole-run runner's call ``engine_runs_total``, so every path counts
+a run once: ``simulate`` and the CLI alike.
 """
 
 from __future__ import annotations
@@ -85,6 +99,7 @@ import functools
 import logging
 import sys
 import threading
+import time
 from typing import Any
 
 import numpy as np
@@ -185,6 +200,102 @@ class _Buffers:
         return next(b for b in self.pool if b is not start and b is not cur)
 
 
+class _Stage:
+    """One kind of stage of a runner call's loop (``engine.launch``,
+    ``engine.readback``, ``engine.replay``), counted. An untimed call's
+    stages are this alone: a count and no clock read."""
+
+    __slots__ = ("count",)
+
+    def __init__(self):
+        self.count = 0
+
+    def __enter__(self):
+        self.count += 1
+
+    def __exit__(self, exc_type, exc, tb):
+        return False
+
+
+class _Timed(_Stage):
+    """A stage of a timed call: timed on the host, a profiler range of its
+    name in a captured call, and keeping its ``_LoopClock``'s turnaround: a
+    launch ends the turnaround open, a readback opens one, or, inside one
+    (an exact rerun's read), is left out of it. Each clock read comes just
+    before the call that opens or closes the range, so in a capture, where
+    those calls cost alike up to their timestamps, the host time between
+    two stages is the gap between their ranges."""
+
+    __slots__ = ("clock", "name", "seconds", "_t0", "_range")
+
+    def __init__(self, clock, name: str):
+        super().__init__()
+        self.clock, self.name, self.seconds = clock, name, 0.0
+
+    def __enter__(self):
+        self.count += 1
+        self._t0 = t = time.perf_counter()
+        clock = self.clock
+        if self is clock.launch and clock.since is not None:
+            clock.turnaround_s += t - clock.since - clock.nested
+            clock.since = None
+        if clock.captured:
+            self._range = obs_trace.range(self.name)
+            self._range.__enter__()
+
+    def __exit__(self, exc_type, exc, tb):
+        t = time.perf_counter()
+        clock = self.clock
+        if clock.captured:
+            self._range.__exit__(exc_type, exc, tb)
+        dt = t - self._t0
+        self.seconds += dt
+        if self is clock.readback:
+            if clock.since is None:
+                clock.since, clock.nested = t, 0.0
+            else:
+                clock.nested += dt
+        return False
+
+
+class _LoopClock:
+    """A runner call's stages: ``launch`` (a block's enqueue), ``readback``
+    (a host read of device flags) and ``replay`` (the host's derivation of
+    a block's flags, the exit replay). When ``timed`` (the call's
+    ``engine.run`` span is live) launches and readbacks are timed, every
+    stage is a profiler range when a capture records as the call starts
+    (``captured``), and the clock keeps the host's turnaround: the time from
+    the end of a readback the loop acts on to the start of the next launch,
+    or to the call's end, less the readbacks nested in it (an exact
+    rerun's). The card has nothing queued then: the host has not yet handed
+    it the next block."""
+
+    __slots__ = ("launch", "readback", "replay", "captured", "turnaround_s",
+                 "since", "nested")
+
+    def __init__(self, timed: bool):
+        self.captured = timed and obs_trace.capturing()
+        if timed:
+            self.launch = _Timed(self, "engine.launch")
+            self.readback = _Timed(self, "engine.readback")
+        else:
+            self.launch, self.readback = _Stage(), _Stage()
+        self.replay = _Timed(self, "engine.replay") if self.captured else _Stage()
+        self.turnaround_s = 0.0
+        self.since = None   # the end of the readback a turnaround runs from
+        self.nested = 0.0   # the readbacks inside that turnaround
+
+    def attrs(self) -> dict:
+        """A timed call's ``engine.run`` attributes, at the call's end."""
+        if self.since is not None:
+            self.turnaround_s += time.perf_counter() - self.since - self.nested
+        return {"blocks": self.launch.count,
+                "readbacks": self.readback.count,
+                "launch_s": self.launch.seconds,
+                "wait_s": self.readback.seconds,
+                "turnaround_s": self.turnaround_s}
+
+
 def _generation(cur, kernel: Kernel, topology: Topology):
     """One generation through the kernel's fused form, into a fresh buffer."""
     out = _empty_like(cur)
@@ -193,9 +304,10 @@ def _generation(cur, kernel: Kernel, topology: Topology):
     return out
 
 
-def _exact_passes(start, kernel: Kernel, topology: Topology):
+def _exact_passes(start, kernel: Kernel, topology: Topology, clock):
     """Lazily rerun a block's passes from its start state with the exact-flag
-    pass; ``get(j)`` is pass j's ``(alive, similar)`` lists."""
+    pass; ``get(j)`` is pass j's ``(alive, similar)`` lists. Each rerun's
+    read is a readback of ``clock``."""
     T = kernel.multi_gens
     done = []
 
@@ -205,7 +317,8 @@ def _exact_passes(start, kernel: Kernel, topology: Topology):
             out = _empty_like(src)
             flags = _Flags(2 * T, src, topology)
             kernel.exact_multi(src, out, flags.slots(0, 2 * T), topology)
-            f = flags.read()
+            with clock.readback:
+                f = flags.read()
             done.append((out, f[:T], [1 - d for d in f[T:]]))
         return done[j][1:]
 
@@ -224,7 +337,7 @@ def _all_equal(cur, new, topology: Topology) -> bool:
 
 
 def _block_generations(start, t, config: GameConfig, kernel: Kernel,
-                       topology: Topology, block, bufs: _Buffers):
+                       topology: Topology, block, bufs: _Buffers, clock):
     """Run ``t`` generations from ``start``: ``(cur, a_all, s_all)``.
 
     A kernel with a multi-generation pass runs ``t // T`` passes into flag
@@ -232,39 +345,45 @@ def _block_generations(start, t, config: GameConfig, kernel: Kernel,
     without runs all ``t`` generations singly. The callers' replays are
     oblivious to the grouping. ``a_all``/``s_all`` are ``block``-slot host
     lists; ``s_all`` is None when the similarity check is off. Every launch
-    of the block is enqueued before the one readback."""
+    of the block is enqueued before the one readback; ``clock`` takes the
+    enqueue as its launch, the read as its readback and the derivation of
+    the flags as its replay."""
     S, P = stencil_packed.SUMMARY_FLAGS, stencil_packed.STEP_FLAGS
     if kernel.fused_multi is not None:
         T, passes = kernel.multi_gens, t // kernel.multi_gens
     else:
         T, passes = 1, 0
     flags = bufs.flags
-    flags.zero_()
-    cur = start
-    for j in range(passes):
-        out = bufs.scratch(start, cur)
-        kernel.fused_multi(cur, out, flags.slots(S * j, S * (j + 1)), topology)
-        cur = out
     base = bufs.tail_base
-    for i in range(passes * T, t):
-        out = bufs.scratch(start, cur)
-        kernel.fused(cur, out, flags.slots(base + P * i, base + P * (i + 1)),
-                     topology)
-        cur = out
-    f = flags.read()  # the block's one device->host sync, voted over shards
-    a_all, s_all = [0] * block, [0] * block
-    exact = _exact_passes(start, kernel, topology)
-    for j in range(passes):
-        alive, similar = stencil_packed._derive_or_replay(
-            f[S * j: S * (j + 1)], lambda j=j: exact(j), T
-        )
-        a_all[T * j: T * j + T] = alive
-        s_all[T * j: T * j + T] = similar
-    for i in range(passes * T, t):
-        a_all[i] = f[base + P * i]
-        s_all[i] = 1 - f[base + P * i + 1]
-    a_all = [bool(a) for a in a_all]
-    s_all = [bool(s) for s in s_all] if config.check_similarity else None
+    cur = start
+    with clock.launch:
+        flags.zero_()
+        for j in range(passes):
+            out = bufs.scratch(start, cur)
+            kernel.fused_multi(cur, out, flags.slots(S * j, S * (j + 1)),
+                               topology)
+            cur = out
+        for i in range(passes * T, t):
+            out = bufs.scratch(start, cur)
+            kernel.fused(cur, out, flags.slots(base + P * i, base + P * (i + 1)),
+                         topology)
+            cur = out
+    with clock.readback:
+        f = flags.read()  # the block's one device->host sync, voted over shards
+    with clock.replay:
+        a_all, s_all = [0] * block, [0] * block
+        exact = _exact_passes(start, kernel, topology, clock)
+        for j in range(passes):
+            alive, similar = stencil_packed._derive_or_replay(
+                f[S * j: S * (j + 1)], lambda j=j: exact(j), T
+            )
+            a_all[T * j: T * j + T] = alive
+            s_all[T * j: T * j + T] = similar
+        for i in range(passes * T, t):
+            a_all[i] = f[base + P * i]
+            s_all[i] = 1 - f[base + P * i + 1]
+        a_all = [bool(a) for a in a_all]
+        s_all = [bool(s) for s in s_all] if config.check_similarity else None
     return cur, a_all, s_all
 
 
@@ -278,7 +397,7 @@ def _replay_similarity(counter, freq, s_all, i, check: bool):
 
 
 def _simulate_c_block(state, config, kernel, topology, gen0, counter0, bound,
-                      block):
+                      block, clock):
     """Blocked C-convention loop: K generations per flag readback, bit-exact
     with the per-generation loop (see the module docstring). The block never
     crosses ``bound`` — the generation limit is no fixed point. Returns
@@ -286,12 +405,13 @@ def _simulate_c_block(state, config, kernel, topology, gen0, counter0, bound,
     freq = config.similarity_frequency
     bufs = _Buffers(state, kernel, block, topology)
     gen, counter = gen0, counter0
-    alive, similar = _any_alive(state, topology), False
+    with clock.readback:
+        alive, similar = _any_alive(state, topology), False
     cur = state
     while alive and not similar and gen <= bound:
         t = min(block, bound - gen + 1)
         cur, a_all, s_all = _block_generations(cur, t, config, kernel, topology,
-                                               block, bufs)
+                                               block, bufs, clock)
         for i in range(t):
             sim_i, counter = _replay_similarity(
                 counter, freq, s_all, i, config.check_similarity
@@ -305,33 +425,40 @@ def _simulate_c_block(state, config, kernel, topology, gen0, counter0, bound,
 
 
 def _simulate_c(state, config: GameConfig, kernel: Kernel, topology: Topology,
-                resume=None, block: int | None = None):
+                resume, block: int | None, clock: _LoopClock):
     """C-variant loop (src/game.c:177-196): emptiness checked at the top of
     every generation; the similarity break does not increment the counter;
     the reported count is ``generation - 1``.
 
     ``resume`` is None for a whole run, or ``(gen0, counter0, seg_end)`` to
     run one segment of a longer one; ``block`` is a tuned plan's
-    generations per flag readback (``_TERMINATION_BLOCK`` when None).
-    Returns ``(final, gen, counter, stopped)``."""
+    generations per flag readback (``_TERMINATION_BLOCK`` when None);
+    ``clock`` takes the loop's launches and readbacks (the loop without a
+    fused form: each generation's step and votes). Returns ``(final, gen,
+    counter, stopped)``."""
     limit = config.gen_limit
     gen0, counter0, seg_end = resume if resume is not None else (1, 0, limit)
     bound = min(limit, seg_end)
     if kernel.fused is not None:
         final, gen, counter, alive, similar = _simulate_c_block(
             state, config, kernel, topology, gen0, counter0, bound,
-            block or _TERMINATION_BLOCK)
+            block or _TERMINATION_BLOCK, clock)
         return final, gen, counter, not alive or similar or gen > limit
     freq, gen, counter = config.similarity_frequency, gen0, counter0
     cur = state
-    alive, similar = _any_alive(cur, topology), False
+    with clock.readback:
+        alive, similar = _any_alive(cur, topology), False
     while alive and not similar and gen <= bound:
-        new = kernel.step(cur, topology)
+        with clock.launch:
+            new = kernel.step(cur, topology)
         if config.check_similarity:
             fire = (counter + 1) == freq
-            similar = fire and _all_equal(cur, new, topology)
+            if fire:
+                with clock.readback:
+                    similar = _all_equal(cur, new, topology)
             counter = 0 if fire else counter + 1
-        alive = _any_alive(new, topology)
+        with clock.readback:
+            alive = _any_alive(new, topology)
         if not similar:
             gen += 1
         cur = new
@@ -339,7 +466,7 @@ def _simulate_c(state, config: GameConfig, kernel: Kernel, topology: Topology,
 
 
 def _simulate_cuda_block(state, config, kernel, topology, gen0, counter0, bound,
-                         block):
+                         block, clock):
     """Blocked CUDA-convention loop: K generations per flag readback.
 
     A similarity exit is a still life, so the block-end state IS the exit
@@ -356,7 +483,7 @@ def _simulate_cuda_block(state, config, kernel, topology, gen0, counter0, bound,
         t = min(block, bound - gen)
         start = cur
         cur, a_all, s_all = _block_generations(start, t, config, kernel, topology,
-                                               block, bufs)
+                                               block, bufs, clock)
         # Flag entry i is (alive, similar) of the *new* grid of CUDA
         # iteration i; on the stop iteration gen does not advance.
         for i in range(t):
@@ -370,39 +497,47 @@ def _simulate_cuda_block(state, config, kernel, topology, gen0, counter0, bound,
             gen += 1
     final = cur
     if stopped and exit_empty:
-        final = start
-        for _ in range(exit_i):
-            final = _generation(final, kernel, topology)
+        with clock.replay:
+            final = start
+            for _ in range(exit_i):
+                final = _generation(final, kernel, topology)
     return final, gen, counter, stopped
 
 
 def _simulate_cuda(state, config: GameConfig, kernel: Kernel,
-                   topology: Topology, resume=None, block: int | None = None):
+                   topology: Topology, resume, block: int | None,
+                   clock: _LoopClock):
     """CUDA-variant loop (src/game_cuda.cu:222-276): 0-based exclusive
     bound; no emptiness test before the first evolve; the emptiness test
     runs on the new grid and breaks before the swap, so an empty exit keeps
     the last non-empty generation; the reported count is the raw counter.
-    ``resume`` and ``block`` as for ``_simulate_c``. Returns ``(final, gen,
-    counter, stopped)``."""
+    ``resume``, ``block`` and ``clock`` as for ``_simulate_c``. Returns
+    ``(final, gen, counter, stopped)``."""
     limit = config.gen_limit
     gen0, counter0, seg_end = resume if resume is not None else (0, 0, limit)
     bound = min(limit, seg_end)
     if kernel.fused is not None:
         final, gen, counter, stop = _simulate_cuda_block(
             state, config, kernel, topology, gen0, counter0, bound,
-            block or _TERMINATION_BLOCK)
+            block or _TERMINATION_BLOCK, clock)
         return final, gen, counter, stop or gen >= limit
     freq, gen, counter = config.similarity_frequency, gen0, counter0
     cur, stop = state, False
     while gen < bound:
-        new = kernel.step(cur, topology)
+        with clock.launch:
+            new = kernel.step(cur, topology)
         similar = False
         if config.check_similarity:
             fire = (counter + 1) == freq
-            similar = fire and _all_equal(cur, new, topology)
+            if fire:
+                with clock.readback:
+                    similar = _all_equal(cur, new, topology)
             counter = 0 if fire else counter + 1
-        if similar or not _any_alive(new, topology):
-            stop = True
+        stop = similar
+        if not stop:
+            with clock.readback:
+                stop = not _any_alive(new, topology)
+        if stop:
             break  # the break precedes the swap (src/game_cuda.cu:250,266)
         cur = new
         gen += 1
@@ -535,11 +670,21 @@ def _build_runner(shape, config: GameConfig, kernel: str, device, *,
     def run_loop(state, resume):
         shards = list(state) if mesh is not None else [state]
         check(shards)
-        carried = [encode(s) for s in shards] if encode is not None else shards
-        final, gen, counter, stopped = simulate(carried, config, kobj, topology,
-                                                resume, block)
-        if decode is not None:
-            final = [decode(s) for s in final]
+        with obs_trace.span("engine.run") as sp:
+            clock = _LoopClock(timed=sp is not None)
+            carried = [encode(s) for s in shards] if encode is not None else shards
+            final, gen, counter, stopped = simulate(
+                carried, config, kobj, topology, resume, block, clock)
+            if decode is not None:
+                final = [decode(s) for s in final]
+            if sp is not None:
+                sp.attrs = clock.attrs()
+        gen0 = resume[0] if resume is not None else _GEN_START[config.convention]
+        reg = obs_registry.default()
+        if resume is None:
+            reg.inc("engine_runs_total")
+        reg.inc("engine_generations_total", max(0, gen - gen0))
+        reg.inc("engine_readbacks_total", clock.readback.count)
         return (final if mesh is not None else final[0]), gen, counter, stopped
 
     if segmented:
@@ -632,13 +777,10 @@ def _iter_segments(runner, state, config: GameConfig, segment: int,
     while True:
         seg_end = gen + segment - (1 if config.convention == Convention.C else 0)
         with obs_trace.span("engine.segment", gen0=gen, seg_end=seg_end):
-            prev = gen
             state, gen, counter, stopped = runner(state, gen, counter, seg_end)
             # The span measures the segment's device work, not its enqueue.
             fence(state)
-        reg = obs_registry.default()
-        reg.inc("engine_segments_total")
-        reg.inc("engine_generations_total", max(0, gen - prev))
+        obs_registry.default().inc("engine_segments_total")
         yield report(gen), state, stopped
         if stopped:
             return
@@ -695,9 +837,6 @@ def simulate(grid, config: GameConfig = DEFAULT_CONFIG, kernel: str = "auto",
                         convention=config.convention):
         final, generations = runner(state)
         fence(final)  # the span measures the run, not its enqueue
-    reg = obs_registry.default()
-    reg.inc("engine_runs_total")
-    reg.inc("engine_generations_total", generations)
     if mesh is not None:
         if mesh.owners is not None:
             raise ValueError(

@@ -3,7 +3,11 @@
 - ``obs.registry``: the process's counters, gauges and histograms (copied);
 - ``obs.trace``: span tracing into a ring buffer, Chrome trace export
   (copied); the CLI's ``--trace DIR`` arms it, with JAX's span names on
-  JAX's sites;
+  JAX's sites and the engine's own ``engine.run`` span a runner call.
+  While a ``torch.profiler`` capture records, every span is also a
+  profiler range, and ``trace.range`` opens ranges alone (the engine's
+  ``engine.launch``, ``engine.readback`` and ``engine.replay`` a block),
+  on the clock of the device's kernels;
 - ``obs.recorder``: the flight recorder's post-mortem dumps (copied);
 - ``obs.profiler``: device fences, the CLI's guarded ``--profile``
   capture (``torch.profiler``), and the kernel device-time readings of
@@ -16,8 +20,9 @@
   rendering (copied);
 - ``obs.sampler``: the server's background SLO and dispatch-gap ticks,
   ``obs.timeline``: a job's milestones and segments, ``obs.propagate``:
-  the trace and deadline headers (copied).
-
-Not ported yet, as they only read a live fleet: top (``gol top``) and
-fleettrace (``gol fleet-trace``).
+  the trace and deadline headers (copied);
+- ``obs.top``: ``gol top``'s live dashboard over a server's ``/metrics``
+  and ``/slo`` (copied), and ``obs.fleettrace``: ``gol fleet-trace``'s one
+  timeline stitched from every process's ring (copied, over the port's
+  HTTP client).
 """

@@ -14,8 +14,16 @@ Cost discipline: the checkpoint lane calls ``span`` unconditionally.
 
 - **Off by default, zero-allocation when disabled**: ``span()`` returns a
   module-level no-op singleton after one module-attribute check.
-- Enabled, a span costs two ``perf_counter`` calls, one small object, and
-  one deque append under a lock.
+- Enabled, a span costs two ``perf_counter`` calls, one small object, one
+  check of the profiler's state, and one deque append under a lock.
+
+On the profiler's clock: while tracing is enabled and a ``torch.profiler``
+capture records, every span also opens a ``record_function`` range of its
+name, and ``range(name)`` opens such a range alone, never a ring entry. The
+capture then holds both as ``user_annotation`` events on the clock of the
+device's kernels and copies (the CLI's ``--profile DIR --trace DIR``; the
+benchmark's traced head). With tracing off, ``range`` costs what ``span``
+does: one attribute check, nothing allocated.
 
 Clock discipline: every duration and ordering decision uses
 ``time.perf_counter()``. The one exception is a single per-process
@@ -27,6 +35,7 @@ aligned after the fact; it never enters any duration inside the process.
 from __future__ import annotations
 
 import json
+import sys
 import threading
 import time
 
@@ -61,21 +70,25 @@ class Span:
 
 
 class _SpanContext:
-    """Context manager recording one span into the tracer's ring."""
+    """Context manager recording one span into the tracer's ring, and
+    opening its profiler range while a capture records."""
 
-    __slots__ = ("_tracer", "_span")
+    __slots__ = ("_tracer", "_span", "_range")
 
     def __init__(self, tracer, span):
         self._tracer = tracer
         self._span = span
 
     def __enter__(self):
+        self._range = range(self._span.name)
+        self._range.__enter__()
         self._span.start = time.perf_counter()
         return self._span
 
     def __exit__(self, exc_type, exc, tb):
         span = self._span
         span.duration = time.perf_counter() - span.start
+        self._range.__exit__(exc_type, exc, tb)
         if exc_type is not None:
             span.attrs = dict(span.attrs or ())
             span.attrs["error"] = exc_type.__name__
@@ -299,6 +312,27 @@ def span(name: str, **attrs):
     if not _TRACER.enabled:
         return _NOOP
     return _TRACER.span(name, **attrs)
+
+
+def capturing() -> bool:
+    """Whether ``range`` opens ranges now: tracing is enabled and a
+    ``torch.profiler`` capture records (none can before ``torch`` is
+    imported)."""
+    if not _TRACER.enabled:
+        return False
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.autograd._profiler_enabled()
+
+
+def range(name: str):  # noqa: A001 - the span's counterpart, by name
+    """``with trace.range("engine.launch"): ...`` — a ``torch.profiler``
+    range of ``name`` and no ring entry, for boundaries too frequent for the
+    ring. The no-op singleton unless ``capturing()``."""
+    if not _TRACER.enabled or not capturing():
+        return _NOOP
+    import torch
+
+    return torch.profiler.record_function(name)
 
 
 def event(name: str, **attrs) -> None:

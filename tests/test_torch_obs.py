@@ -113,6 +113,17 @@ LANE_SPANS = {
                          "pipeline.write": 2, "pipeline.drain": 2,
                          "cli.write_phase": 1},
 }
+# The port's own span, one a runner call (JAX has none): a whole run, or
+# one a segment (the checkpoint lane's zero-step warm call is one more).
+LANE_RUNS = {"snapshot_every": 3, "checkpoint_every": 4}
+
+
+def _without_runs(result):
+    """A traced run's result without the port's ``engine.run`` spans, and
+    their number."""
+    *head, spans = result
+    spans = collections.Counter(spans)
+    return (*head, spans), spans.pop("engine.run", 0)
 
 
 @pytest.mark.parametrize("lane", LANES)
@@ -126,8 +137,10 @@ def test_trace_matches_jax(lane, tmp_path, capsys, monkeypatch):
                 for a in LANES[lane]]
         results[tag] = _traced(tag, ["64", "64", path, *args, "--gen-limit", "40"],
                                tmp_path, capsys)
-    assert results["port"] == results["jax"]
-    rc, _, stderr, data, spans = results["port"]
+    port, runs = _without_runs(results["port"])
+    assert port == results["jax"]
+    assert runs == LANE_RUNS.get(lane, 1)
+    rc, _, stderr, data, spans = port
     assert rc == 0 and data
     assert stderr == f"trace -> {tmp_path / 'tr'}/trace-PID.json\n"
     want = LANE_SPANS.get(lane, LANE_SPANS["plain"])
@@ -716,9 +729,16 @@ def test_engine_simulate_spans_and_counters_match_jax():
         spans = [(s["name"], s["attrs"]) for s in tracer.snapshot()]
         seen[tag] = (np.asarray(result.grid), result.generations, spans,
                      _delta(reg, before))
+    # The port's own span, one for its one runner call, is compared apart.
+    port_spans = seen["port"][2]
+    runs = [n for n, _ in port_spans if n == "engine.run"]
+    seen["port"] = (*seen["port"][:2],
+                    [(n, a) for n, a in port_spans if n != "engine.run"],
+                    seen["port"][3])
     np.testing.assert_array_equal(seen["port"][0], seen["jax"][0])
     assert seen["port"][1:] == seen["jax"][1:]
     assert [n for n, _ in seen["port"][2]] == ["engine.simulate"]
+    assert runs == ["engine.run"]
     assert seen["port"][3]["engine_runs_total"] == 1
 
 
